@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Smoke run of partitionedarrays_jl_tpu_torch on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the checkout (``build/pa_torch_kernels/``),
+drives the port's main path — the 3-D Poisson CG solve at 192^3 in float32
+on one part, through `prun`, `assemble_poisson`, the coded-DIA lowering and
+the fused CG — and holds every kernel against its plain PyTorch version.
+Phases, one JSON line each:
+
+1. device and build: the nvidia-smi name/power-limit line, the device name,
+   the nvcc build seconds;
+2. kernels against their plain versions on the card at 192^3 f32: the
+   coded-DIA SpMV in row-class mode (the real Poisson staging) and in
+   select-chain mode (a synthetic nibble-packed operator), and the CG
+   direction-fold variant (y and p); each must be torch.equal to its plain
+   version (torch.equal counts -0.0 == +0.0: the row-class decode skips
+   exact-zero coefficients that the plain version adds);
+3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
+   kernel launch counts are zeroed just before and read just after; the
+   same solve through the plain versions must take the same iterations and
+   reach an error within 1.1x;
+4. stacked parts: the (2,2,2)-part 48^3 float64 driver on the one card,
+   with the launch counts zeroed just before and read just after (both
+   must be > 0), must take the iterations of the port's sequential backend,
+   error < 1e-5; both kernels are then held torch.equal against their plain
+   versions on that path's float64 operand with (8, W) frames, and the same
+   solve through the plain versions must take the same iterations;
+5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
+   before each): kernel, plain version, torch.sparse.mm on the CSR
+   operator, the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s
+   f32), CG seconds per iteration from two fixed-trip solves, and a
+   torch.profiler breakdown of a fixed-trip CG iteration by kernel (its
+   wall time includes the profiler's own cost);
+6. the launch counts of phase 3.
+
+It then prints the kernel table, the nvidia-smi line and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
+CUDA device it exits non-zero before printing a result.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from partitionedarrays_jl_tpu_torch import assemble_poisson, cg, poisson_fdm_driver, prun, sequential  # noqa: E402
+from partitionedarrays_jl_tpu_torch.ops import dia  # noqa: E402
+from partitionedarrays_jl_tpu_torch.parallel.gpu import (  # noqa: E402
+    GPUBackend,
+    device_matrix,
+    gpu_cg,
+    make_cg_fn,
+    _b_on_cols_layout,
+    DeviceVector,
+)
+
+N_MAIN = 192
+N_MULTI = 48
+TOL_MAIN = 1e-5
+REPS = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+SEED = 0
+
+SRC = "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu"
+REPLACES = {
+    "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
+    "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    require(torch.cuda.is_available(), "no CUDA device (torch.cuda.is_available() is False)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t = time.perf_counter()
+    dia.build_kernels()
+    build_s = time.perf_counter() - t
+    emit({
+        "phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(), "torch": torch.__version__,
+        "cuda": torch.version.cuda, "build_s": build_s,
+        "ptxas": [l for l in dia.BUILD_LOG.splitlines() if "registers" in l or "spill" in l],
+    })
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+
+def _compare(name, got, want):
+    sync()
+    equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    require(equal, f"{name}: kernel differs from its plain version (max |diff| {err})")
+    return err
+
+
+def _select_chain_operator(n, device, rng):
+    """A synthetic select-chain operand at n^3 rows: the 7-point offsets,
+    two constant and five coded diagonals with 2..5 codebook values."""
+    rows = n ** 3
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    kk = (1, 3, 2, 5, 2, 3, 1)
+    code_row = (-1, 0, 1, 2, 3, 4, -1)
+    codes = np.zeros((5, rows), dtype=np.uint8)
+    for d, k in enumerate(kk):
+        if k > 1:
+            codes[code_row[d]] = rng.integers(0, k, rows)
+    cb = rng.standard_normal((1, 7, 5)).astype(np.float32)
+    packed = dia.pack_nibble_codes(codes).view(np.uint8)
+    return dia.CodedOperator(
+        cb=torch.from_numpy(cb).to(device),
+        no=torch.tensor([rows], dtype=torch.int32, device=device),
+        codes=torch.from_numpy(np.ascontiguousarray(packed[None])).to(device),
+        offsets=offsets, kk=kk, code_row=code_row, cls_pattern=None, o0=0,
+    )
+
+
+def phase_kernels(backend, n, rng):
+    """Every kernel of the path against its plain version on the card, at
+    the main path's shapes. Returns the operands for the timing phase."""
+    A, _, _, _ = prun(
+        lambda parts: assemble_poisson(parts, (n, n, n), dtype=np.float32), backend, (1, 1, 1)
+    )
+    dA = device_matrix(A, backend)
+    require(dA.dia_cls_pattern is not None, "the 192^3 Poisson operator did not take row-class mode")
+    dev = backend.device
+    op = dA.coded
+    wx, wy = dA.col_layout.W, dA.row_layout.W
+
+    def frame():
+        return torch.from_numpy(rng.standard_normal((1, wx)).astype(np.float32)).to(dev)
+
+    x, r, pprev = frame(), frame(), frame()
+    beta = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    sel = _select_chain_operator(n, dev, rng)
+    errs = {
+        "dia_coded_spmv[row_class]": _compare(
+            "dia_coded_spmv row-class", dia.dia_coded_spmv(op, x, wy), dia.dia_coded_spmv_plain(op, x, wy)
+        ),
+        "dia_coded_spmv[select_chain]": _compare(
+            "dia_coded_spmv select-chain", dia.dia_coded_spmv(sel, x, wx), dia.dia_coded_spmv_plain(sel, x, wx)
+        ),
+    }
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
+    errs["dia_coded_spmv_pfold[y]"] = _compare("dia_coded_spmv_pfold y", yk, yp)
+    errs["dia_coded_spmv_pfold[p]"] = _compare("dia_coded_spmv_pfold p", pk, pp)
+    emit({"phase": "kernels_vs_plain", "n": n, "dtype": "float32", "equal": True, "max_abs_err": errs})
+    return {"A": A, "dA": dA, "x": x, "r": r, "pprev": pprev, "beta": beta, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(x, xe):
+    return float((x - xe).norm() / xe.norm())
+
+
+def main_driver(parts, n, tol):
+    t = time.perf_counter()
+    A, b, xe, x0 = assemble_poisson(parts, (n, n, n), dtype=np.float32)
+    t_asm = time.perf_counter() - t
+    t = time.perf_counter()
+    device_matrix(A, parts.backend)
+    sync()
+    t_low = time.perf_counter() - t
+    t = time.perf_counter()
+    x, info = cg(A, b, x0=x0, tol=tol)
+    t_solve = time.perf_counter() - t
+    return {"A": A, "b": b, "xe": xe, "x0": x0, "info": info, "err": _rel_err(x, xe),
+            "assembly_s": t_asm, "lowering_s": t_low, "solve_s": t_solve}
+
+
+def phase_main(backend, n):
+    dia.reset_launches()
+    run = prun(main_driver, backend, (1, 1, 1), n, TOL_MAIN)
+    launches = dict(dia.LAUNCHES)
+    info = run["info"]
+    t = time.perf_counter()
+    xp, info_p = gpu_cg(run["A"], run["b"], x0=run["x0"], tol=TOL_MAIN, plain=True)
+    t_plain = time.perf_counter() - t
+    err_p = _rel_err(xp, run["xe"])
+    emit({
+        "phase": "main_path", "n": n, "dofs": n ** 3, "dtype": "float32", "parts": 1,
+        "tol": TOL_MAIN, "assembly_s": run["assembly_s"], "lowering_s": run["lowering_s"],
+        "solve_s": run["solve_s"], "iterations": info["iterations"], "converged": info["converged"],
+        "cg_body": info["cg_body"], "rel_err": run["err"], "plain_iterations": info_p["iterations"],
+        "plain_rel_err": err_p, "plain_solve_s": t_plain,
+    })
+    require(info["cg_body"] == "fused", "the main path did not run the fused CG body")
+    require(info["converged"] and np.isfinite(run["err"]), "the 192^3 solve did not converge")
+    require(info["iterations"] == info_p["iterations"], "kernel and plain paths took different iterations")
+    require(run["err"] <= 1.1 * err_p, "kernel path error above 1.1x the plain path's")
+    for k, v in launches.items():
+        require(v > 0, f"the main path launched {k} no time")
+    return run, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+
+def phase_multi(backend, n, rng):
+    """The stacked-parts path: its own launch counts, both kernels held
+    against their plain versions on its float64 operand and (P, W) frames,
+    and the same solve through the plain versions."""
+    dia.reset_launches()
+    err_g, info_g = prun(poisson_fdm_driver, backend, (2, 2, 2), (n, n, n), tol=1e-8)
+    launches = dict(dia.LAUNCHES)
+    err_s, info_s = prun(poisson_fdm_driver, sequential, (2, 2, 2), (n, n, n), tol=1e-8)
+    emit({"phase": "stacked_parts_launch_counts", "kernels": launches})
+    for k, v in launches.items():
+        require(v > 0, f"stacked parts: the path launched {k} no time")
+
+    A, b, _, x0 = prun(lambda parts: assemble_poisson(parts, (n, n, n)), backend, (2, 2, 2))
+    dA = device_matrix(A, backend)
+    op = dA.coded
+    P, wx, wy = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
+    require(op.cb.dtype == torch.float64, f"stacked parts: operator staged as {op.cb.dtype}")
+
+    def frame():
+        return torch.from_numpy(rng.standard_normal((P, wx))).to(backend.device)
+
+    x, r, pprev = frame(), frame(), frame()
+    beta = torch.tensor(0.37, dtype=torch.float64, device=backend.device)
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
+    errs = {
+        "dia_coded_spmv": _compare(
+            "stacked parts dia_coded_spmv", dia.dia_coded_spmv(op, x, wy), dia.dia_coded_spmv_plain(op, x, wy)
+        ),
+        "dia_coded_spmv_pfold[y]": _compare("stacked parts dia_coded_spmv_pfold y", yk, yp),
+        "dia_coded_spmv_pfold[p]": _compare("stacked parts dia_coded_spmv_pfold p", pk, pp),
+    }
+    _, info_p = gpu_cg(A, b, x0=x0, tol=1e-8, maxiter=2000, plain=True)
+    emit({
+        "phase": "stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
+        "decode": "row_class" if dA.dia_cls_pattern is not None else "select_chain",
+        "iterations": info_g["iterations"], "sequential_iterations": info_s["iterations"],
+        "plain_iterations": info_p["iterations"], "err": err_g, "sequential_err": err_s,
+        "cg_body": info_g["cg_body"], "equal": True, "max_abs_err": errs,
+    })
+    require(info_g["iterations"] == info_s["iterations"], "stacked parts: iterations differ from the sequential backend")
+    require(info_g["iterations"] == info_p["iterations"], "stacked parts: iterations differ from the plain path")
+    require(err_g < 1e-5, f"stacked parts: error {err_g} >= 1e-5")
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, flush):
+    """Median over REPS launches of fn, each timed by CUDA events after an
+    L2 flush outside the timed span."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(REPS):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        times.append((a, b))
+    sync()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def _bound_ms(nbytes, flops):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def phase_times(backend, k, run, n):
+    dev = backend.device
+    dA, op = k["dA"], k["dA"].coded
+    wy = dA.row_layout.W
+    rows = int(dA.row_layout.noids.sum())
+    nnz = dA.flops_per_spmv // 2
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    M = k["A"].values.part_values()[0]
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(M.indptr.astype(np.int64)), torch.from_numpy(M.indices.astype(np.int64)),
+        torch.from_numpy(M.data), size=M.shape,
+    ).to(dev)
+    xcol = k["x"][0, : M.shape[1]].reshape(-1, 1).contiguous()
+    x, r, pprev, beta = k["x"], k["r"], k["pprev"], k["beta"]
+    code_bytes = op.codes.shape[1]
+    spmv = {
+        "ms": time_ms(lambda: dia.dia_coded_spmv(op, x, wy), flush),
+        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_plain(op, x, wy), flush),
+        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
+    }
+    spmv["bound_ms"], spmv["bound_by"] = _bound_ms(rows * (4 + code_bytes + 4), 2 * nnz)
+    pfold = {
+        "ms": time_ms(lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy), flush),
+        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy), flush),
+        "library_ms": None,  # no single PyTorch call folds p and multiplies
+    }
+    pfold["bound_ms"], pfold["bound_by"] = _bound_ms(rows * (4 + 4 + code_bytes + 4 + 4), 2 * nnz + 2 * rows)
+
+    # CG seconds per iteration: two fixed-trip (tol=0) solves, differenced
+    A = run["A"]
+    dA_main = device_matrix(A, backend)
+    b = _b_on_cols_layout(run["b"], dA_main)
+    x0 = DeviceVector.from_pvector(run["x0"], backend, dA_main.col_layout).data
+    per = {}
+    for m in (20, 220):
+        fn = make_cg_fn(dA_main, 0.0, m)
+        ts = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            out = fn(b, x0)
+            sync()
+            ts.append(time.perf_counter() - t)
+            require(out[3] == m, f"fixed-trip solve stopped after {out[3]} of {m} iterations")
+        per[m] = statistics.median(ts)
+    cg_s_per_iter = (per[220] - per[20]) / 200
+    emit({
+        "phase": "times", "n": n, "dtype": "float32", "reps": REPS,
+        "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold,
+        "library_spmv_ms_for_pfold": spmv["library_ms"],
+        "cg_s_per_iter": cg_s_per_iter, "cg_fixed_trip_s": per,
+    })
+    phase_cg_profile(dA_main, b, x0)
+    return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold}
+
+
+def phase_cg_profile(dA, b, x0, iters=50):
+    """Where a fixed-trip CG iteration's time goes: device time per
+    iteration by kernel name (torch.profiler), and the device's idle share
+    of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = make_cg_fn(dA, 0.0, iters)
+    fn(b, x0)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn(b, x0)
+        sync()
+        wall = time.perf_counter() - t
+    # device-side events only (kernels, memcpys): the CPU-side aten ops
+    # carry their kernels' device time too and would count it twice
+    rows = [
+        (e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    emit({
+        "phase": "cg_profile", "iterations": iters, "wall_ms_per_iter": wall * 1e3 / iters,
+        "device_ms_per_iter": busy_ms, "idle_share": 1.0 - busy_ms * iters / (wall * 1e3),
+        "by_kernel_ms_per_iter": [
+            {"name": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]
+        ],
+    })
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    smi = phase_device()
+    backend = GPUBackend()
+    rng = np.random.default_rng(SEED)
+    kern = phase_kernels(backend, N_MAIN, rng)
+    run, launches = phase_main(backend, N_MAIN)
+    phase_multi(backend, N_MULTI, rng)
+    times = phase_times(backend, kern, run, N_MAIN)
+    emit({"phase": "launch_counts", "kernels": launches})
+    errs = kern["errs"]
+    max_err = {
+        "dia_coded_spmv": max(errs["dia_coded_spmv[row_class]"], errs["dia_coded_spmv[select_chain]"]),
+        "dia_coded_spmv_pfold": max(errs["dia_coded_spmv_pfold[y]"], errs["dia_coded_spmv_pfold[p]"]),
+    }
+    emit({"kernels": [
+        {
+            "name": name, "route": "cuda", "source": SRC, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+            "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+            "library_ms": times[name]["library_ms"],
+        }
+        for name in ("dia_coded_spmv", "dia_coded_spmv_pfold")
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,333 @@
+"""Coded-diagonal (coded-DIA) SpMV: the CUDA kernels and their plain
+PyTorch versions.
+
+Replaces the TPU kernel `_padded_kernel` of
+`partitionedarrays_jl_tpu/ops/pallas_dia.py`: the plain SpMV
+(`dia_coded_padded_pallas`, pallas_call at :523) becomes
+`dia_coded_spmv`, its CG direction-fold variant (``has_pfold``, pallas_call
+at :500) becomes `dia_coded_spmv_pfold`. Both decode modes are kept: the
+select-chain decode and the row-class decode (``cls_pattern``).
+
+Frame: the port's compact ``(P, W)`` stacked vectors, owned band at
+``o0``; each part's owned count ``no[p]`` may differ. The result is a whole
+frame: owned rows computed, every other slot exactly 0. Reads outside a
+part's owned band are predicated to 0 (the compact frame has no zero pads;
+`parallel/tpu.py:_dia_coded_xla` zero-pads the same way).
+
+Bound on the card (memory): at 192^3 f32, one part, the row-class SpMV
+moves 9 B/row (x, one code byte, y), 63.7 MB, about 19.0 us at 3.35 TB/s;
+the pfold variant 17 B/row (r, pprev, code byte, y, p), 120.3 MB, about
+35.9 us. The kernel design (one thread per row, codebook in shared memory,
+no FMA contraction) is noted at the head of `csrc/dia_coded.cu`.
+
+Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
+the kernel or raises. Each kernel counts its launches in `LAUNCHES`.
+The library is built with nvcc at first use into ``build/pa_torch_kernels/``
+and bound with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+#: kernel launches since the last reset, per wrapper
+LAUNCHES = {"dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0}
+
+MAX_DIAGS = 64
+MAX_CLASSES = 16
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "dia_coded.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+#: nvcc's output (ptxas register / shared-memory report) of the last build
+BUILD_LOG = ""
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pack_nibble_codes(codes: np.ndarray) -> np.ndarray:
+    """Pack per-diagonal uint8 codes (< 16) into the kernel's byte streams:
+    two diagonals per byte, low nibble = even coded index. codes has the
+    coded-diagonal axis at position -2: (..., Dc, N) -> (..., ceil(Dc/2), N)
+    int8. This is the ONE definition of the packing convention the
+    `_padded_kernel` decode relies on."""
+    if codes.size and codes.max() >= 16:
+        raise ValueError("nibble packing requires codes < 16 (CODE_MAX_VALUES)")
+    Dc = codes.shape[-2]
+    Dp = max(-(-Dc // 2), 1)
+    packed = np.zeros(codes.shape[:-2] + (Dp,) + codes.shape[-1:], dtype=np.uint8)
+    packed[..., : (Dc + 1) // 2, :] = codes[..., 0:Dc:2, :]
+    if Dc > 1:
+        packed[..., : Dc // 2, :] |= codes[..., 1:Dc:2, :] << 4
+    return packed.view(np.int8)
+
+
+@dataclass
+class CodedOperator:
+    """The staged coded-DIA operand of one stacked operator.
+
+    cb: (P, D, kmax) codebook; no: (P,) int32 owned counts; codes:
+    (P, streams, N) uint8 nibble-packed code bytes, N >= max(no);
+    offsets/kk/code_row: per-diagonal band offset, codebook size and coded
+    index (-1 for a constant diagonal); cls_pattern: per row class, which
+    diagonals may be nonzero (row-class decode), or None (select chain);
+    o0: the owned band's offset in every frame."""
+
+    cb: torch.Tensor
+    no: torch.Tensor
+    codes: torch.Tensor
+    offsets: Tuple[int, ...]
+    kk: Tuple[int, ...]
+    code_row: Tuple[int, ...]
+    cls_pattern: Optional[Tuple[Tuple[bool, ...], ...]] = None
+    o0: int = 0
+
+    @property
+    def n(self) -> int:
+        """Length of the owned band every part's frame reserves."""
+        return int(self.codes.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _owned_mask(op: CodedOperator, device) -> torch.Tensor:
+    return torch.arange(op.n, device=device)[None, :] < op.no.to(device)[:, None]
+
+
+def _band_sum(op: CodedOperator, xo: torch.Tensor) -> torch.Tensor:
+    """y[:, i] = sum_d v_d(i) * xo[:, i + off_d] over the owned band, in
+    ascending-offset order; xo is already zero outside each part's band."""
+    n = op.n
+    pad = max(abs(int(o)) for o in op.offsets)
+    xp = torch.nn.functional.pad(xo, (pad, pad))
+    acc = None
+    for d, off in enumerate(op.offsets):
+        shifted = xp[:, pad + off : pad + off + n]
+        if op.kk[d] == 1:
+            v = op.cb[:, d, 0:1]
+        else:
+            ci = op.code_row[d]
+            byte = op.codes[:, ci // 2, :n].to(torch.int64)
+            c = (byte >> (4 * (ci % 2))) & 15
+            c = torch.where(c < op.kk[d], c, 0)
+            v = torch.gather(op.cb[:, d, :], 1, c)
+        term = v * shifted
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def dia_coded_spmv_plain(op: CodedOperator, x: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of `dia_coded_spmv` (the `_dia_coded_xla` semantics of
+    parallel/tpu.py:3006-3020 on the stacked frame): every diagonal is
+    summed, coefficient zeros included."""
+    n, o0 = op.n, op.o0
+    own = _owned_mask(op, x.device)
+    xo = torch.where(own, x[:, o0 : o0 + n], 0)
+    y = x.new_zeros((x.shape[0], width))
+    y[:, o0 : o0 + n] = torch.where(own, _band_sum(op, xo), 0)
+    return y
+
+
+def dia_coded_spmv_pfold_plain(
+    op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `dia_coded_spmv_pfold`: the fold of `body_pfold`'s
+    jnp branch (parallel/tpu.py:3289-3290), ``p = r + beta*pprev`` on the
+    owned band, then the band sum of p. Returns (y, p)."""
+    n, o0 = op.n, op.o0
+    own = _owned_mask(op, r.device)
+    pb = torch.where(own, r[:, o0 : o0 + n] + beta * pprev[:, o0 : o0 + n], 0)
+    p = torch.zeros_like(r)
+    p[:, o0 : o0 + n] = pb
+    y = r.new_zeros((r.shape[0], width))
+    y[:, o0 : o0 + n] = torch.where(own, _band_sum(op, pb), 0)
+    return y, p
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+class _Params(ctypes.Structure):
+    """Mirror of `PaDiaParams` in csrc/dia_coded.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("kmax", ctypes.c_int),
+        ("n_streams", ctypes.c_int),
+        ("code_len", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("n_cls", ctypes.c_int),
+        ("off", ctypes.c_int * MAX_DIAGS),
+        ("kk", ctypes.c_int * MAX_DIAGS),
+        ("code_row", ctypes.c_int * MAX_DIAGS),
+        ("cls_mask", ctypes.c_ulonglong * MAX_CLASSES),
+    ]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile csrc/dia_coded.cu for sm_90a (once per source content) and
+    load it. Raises if nvcc fails."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libpa_dia_coded_{tag}.so"
+    if not so.exists():
+        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+            capture_output=True, text=True,
+        )
+        BUILD_LOG = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    pp = ctypes.POINTER(_Params)
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"pa_dia_coded_{dt}")
+        f.argtypes = [pp, vp, vp, vp, vp, vp, vp]
+        f.restype = ctypes.c_int
+        g = getattr(lib, f"pa_dia_coded_pfold_{dt}")
+        g.argtypes = [pp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+        g.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+_DT = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _params(op: CodedOperator, wx: int, wy: int) -> _Params:
+    D = len(op.offsets)
+    if D > MAX_DIAGS:
+        raise ValueError(f"coded-DIA kernel takes at most {MAX_DIAGS} diagonals, got {D}")
+    prm = _Params()
+    prm.P, prm.D, prm.kmax = op.cb.shape[0], D, op.cb.shape[2]
+    prm.n_streams, prm.code_len = op.codes.shape[1], op.codes.shape[2]
+    prm.wx, prm.wy, prm.o0 = wx, wy, op.o0
+    for d in range(D):
+        prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
+    prm.n_cls = 0
+    if op.cls_pattern is not None:
+        if len(op.cls_pattern) > MAX_CLASSES:
+            raise ValueError(f"at most {MAX_CLASSES} row classes")
+        prm.n_cls = len(op.cls_pattern)
+        for k, pat in enumerate(op.cls_pattern):
+            prm.cls_mask[k] = sum(1 << d for d in range(D) if pat[d])
+    return prm
+
+
+def _check_cuda(op: CodedOperator, *vecs: torch.Tensor) -> str:
+    dev = vecs[0].device
+    dt = vecs[0].dtype
+    if dt not in _DT:
+        raise TypeError(f"coded-DIA kernel takes float32 or float64, got {dt}")
+    for t in (op.cb, *vecs):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("coded-DIA kernel: operands must be contiguous, on one device, of one dtype")
+    if (
+        op.no.device != dev or op.no.dtype != torch.int32
+        or op.codes.device != dev or op.codes.dtype != torch.uint8
+        or not op.codes.is_contiguous()
+    ):
+        raise ValueError("coded-DIA kernel: no must be int32 and codes uint8, contiguous, on the operand's device")
+    P = op.cb.shape[0]
+    for t in vecs:
+        if t.dim() != 2 or t.shape[0] != P or t.shape[1] < op.o0 + op.n:
+            raise ValueError(f"coded-DIA kernel: frame {tuple(t.shape)} does not hold {P} parts of {op.n} rows")
+    return _DT[dt]
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def dia_coded_spmv(op: CodedOperator, x: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """y = A_oo x on the stacked frame: x (P, Wx) -> y (P, width) with the
+    owned band computed and every other slot 0 (width defaults to Wx)."""
+    width = x.shape[1] if width is None else int(width)
+    if x.device.type == "cpu":
+        return dia_coded_spmv_plain(op, x, width)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dia_coded_spmv: no kernel for device {x.device}")
+    dt = _check_cuda(op, x)
+    y = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
+    prm = _params(op, x.shape[1], width)
+    fn = getattr(build_kernels(), f"pa_dia_coded_{dt}")
+    rc = fn(
+        ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
+        x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "dia_coded_spmv")
+    LAUNCHES["dia_coded_spmv"] += 1
+    return y
+
+
+def dia_coded_spmv_pfold(
+    op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
+    width: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CG direction fold riding the SpMV pass: p = r + beta*pprev on
+    the owned band (0 elsewhere) and y = A_oo p. Returns (y, p); p has r's
+    frame, y has `width` slots (default r's width)."""
+    width = r.shape[1] if width is None else int(width)
+    if r.device.type == "cpu":
+        return dia_coded_spmv_pfold_plain(op, r, pprev, beta, width)
+    if r.device.type != "cuda":
+        raise RuntimeError(f"dia_coded_spmv_pfold: no kernel for device {r.device}")
+    beta = beta.reshape(1)
+    dt = _check_cuda(op, r, pprev)
+    if beta.device != r.device or beta.dtype != r.dtype:
+        raise ValueError("dia_coded_spmv_pfold: beta must be a scalar tensor on r's device, of r's dtype")
+    if pprev.shape != r.shape:
+        raise ValueError("dia_coded_spmv_pfold: pprev and r must share one frame")
+    y = torch.empty((r.shape[0], width), dtype=r.dtype, device=r.device)
+    p = torch.empty_like(r)
+    prm = _params(op, r.shape[1], width)
+    fn = getattr(build_kernels(), f"pa_dia_coded_pfold_{dt}")
+    rc = fn(
+        ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
+        r.data_ptr(), pprev.data_ptr(), beta.data_ptr(), y.data_ptr(), p.data_ptr(),
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    _raise_on(rc, "dia_coded_spmv_pfold")
+    LAUNCHES["dia_coded_spmv_pfold"] += 1
+    return y, p

@@ -1,0 +1,699 @@
+"""GPU backend: the parts of a partition stacked on one CUDA card (L3').
+
+The counterpart of `partitionedarrays_jl_tpu/parallel/tpu.py`, cut to the
+3-D Poisson CG slice:
+
+* **Planning on the host.** `GPUData` extends the sequential PData, so
+  PRange construction, Exchanger build and COO assembly run unchanged; only
+  the hot-path arrays live on the card.
+* **Stacked parts.** All P parts sit on one device as ``(P, W)`` tensors in
+  the compact layout ``[owned | ghosts | trash]`` (`DeviceLayout`).
+* **Halo exchange.** The Exchanger is lowered to colour rounds
+  (`DeviceExchangePlan`): per round one gather of the send slots, one copy
+  between parts, one scatter into the ghost slots; the trash slot is zeroed
+  after each round.
+* **Operator.** `DeviceMatrix` lowers a PSparseMatrix to the coded-DIA form
+  (codebook + nibble-packed per-row codes) of its owned block A_oo, and a
+  compact boundary-row ELL of its ghost block A_oh. A_oo runs as the CUDA
+  kernels of `ops/dia.py`.
+* **CG.** `make_cg_fn` runs the textbook or the fused body (direction fold
+  riding the SpMV kernel) as a Python loop that reads the convergence test
+  once per iteration; dots are per-part partials folded in part order.
+
+The device defaults to ``cuda``; with no card it raises at first use and
+never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
+every kernel wrapper takes its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import dia
+from ..ops.sparse import ELLMatrix
+from ..utils.helpers import check, krylov_info, warn_tol_below_floor
+from ..utils.table import INDEX_DTYPE
+from .backends import AbstractBackend, PartShape, _as_shape
+from .exchanger import Exchanger
+from .prange import PRange
+from .psparse import PSparseMatrix
+from .pvector import PVector, _ghost, _owned
+from .sequential import SequentialData
+
+
+class GPUBackend(AbstractBackend):
+    """All parts on one torch device, ``cuda`` unless the caller names
+    another (``GPUBackend(device="cpu")`` runs the plain versions)."""
+
+    def __init__(self, device=None):
+        self._requested = device
+
+    @property
+    def device(self) -> torch.device:
+        dev = torch.device("cuda" if self._requested is None else self._requested)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GPUBackend: no CUDA device is available; pass "
+                "GPUBackend(device='cpu') to run on the CPU"
+            )
+        return dev
+
+    def get_part_ids(self, nparts: PartShape) -> "GPUData":
+        self.device  # validate the device before any planning starts
+        shape = _as_shape(nparts)
+        return GPUData(list(range(math.prod(shape))), shape, self)
+
+    def __repr__(self):
+        return f"GPUBackend(device={self._requested or 'cuda'})"
+
+
+#: Default instance, the counterpart of `pa.tpu` (first use needs a card).
+gpu = GPUBackend()
+
+
+class GPUData(SequentialData):
+    """Host-side per-part values under the GPU backend: planning values
+    live on the host exactly as in the sequential backend."""
+
+    __slots__ = ("_backend",)
+
+    def __init__(self, parts, shape=None, backend: GPUBackend = None):
+        super().__init__(parts, shape)
+        self._backend = backend if backend is not None else gpu
+
+    @property
+    def backend(self) -> GPUBackend:
+        return self._backend
+
+    def _like(self, parts: list) -> "GPUData":
+        return GPUData(parts, self._shape, self._backend)
+
+
+# ---------------------------------------------------------------------------
+# layout, vectors, exchange
+# ---------------------------------------------------------------------------
+
+
+class DeviceLayout:
+    """Compact slot layout of every device object over one PRange:
+    ``[owned (padded to no_max) | ghosts (padded to nh_max) | trash]``,
+    ``W = no_max + nh_max + 1``. Padding stays zero by construction; the
+    trash slot absorbs masked scatter lanes."""
+
+    __slots__ = ("P", "W", "no_max", "nh_max", "noids", "nhids", "lid_slots",
+                 "hid_slots", "o0", "g0")
+
+    def __init__(self, rows: PRange):
+        isets = rows.partition.part_values()
+        self.P = len(isets)
+        self.noids = np.array([i.num_oids for i in isets], dtype=np.int64)
+        self.nhids = np.array([i.num_hids for i in isets], dtype=np.int64)
+        self.no_max = int(self.noids.max())
+        self.nh_max = int(self.nhids.max()) if self.P else 0
+        self.o0 = 0
+        self.g0 = self.no_max
+        self.W = self.no_max + self.nh_max + 1
+        self.lid_slots = []
+        self.hid_slots = []  # ghost slots in hid order
+        for p, i in enumerate(isets):
+            ohid = np.asarray(i.lid_to_ohid)
+            slots = np.where(ohid >= 0, self.o0 + ohid, self.g0 + (-ohid - 1)).astype(INDEX_DTYPE)
+            self.lid_slots.append(slots)
+            h = ohid < 0
+            hs = np.empty(int(self.nhids[p]), dtype=INDEX_DTYPE)
+            hs[-ohid[h] - 1] = slots[h]
+            self.hid_slots.append(hs)
+
+    @property
+    def trash(self) -> int:
+        return self.W - 1
+
+
+def device_layout(rows: PRange) -> DeviceLayout:
+    """The layout of a PRange, cached on it (invalidated with its
+    exchanger when ghosts are added)."""
+    if getattr(rows, "_device_layout", None) is None:
+        rows._device_layout = DeviceLayout(rows)
+    return rows._device_layout
+
+
+def _color_edges(edges):
+    """Greedy edge colouring of the directed neighbour graph into rounds in
+    which each part sends to at most one part and receives from at most
+    one (tpu.py:339)."""
+    edges = sorted(edges, key=lambda e: -len(e[2]))  # big payloads first
+    rounds = []
+    for src, dst, snd, rcv in edges:
+        for r in rounds:
+            if all(s != src for s, _, _, _ in r) and all(d != dst for _, d, _, _ in r):
+                r.append((src, dst, snd, rcv))
+                break
+        else:
+            rounds.append([(src, dst, snd, rcv)])
+    return rounds
+
+
+def _exchange_edges(exchanger: Exchanger, layout: DeviceLayout) -> list:
+    """The directed slot-level edges ``(src, dst, snd_slots, rcv_slots)``
+    of an Exchanger over a layout (tpu.py:359)."""
+    edges = []
+    parts_snd = exchanger.parts_snd.part_values()
+    parts_rcv = exchanger.parts_rcv.part_values()
+    lids_snd = exchanger.lids_snd.part_values()
+    lids_rcv = exchanger.lids_rcv.part_values()
+    for p in range(layout.P):
+        for j, q in enumerate(np.asarray(parts_snd[p])):
+            q = int(q)
+            hits = np.nonzero(np.asarray(parts_rcv[q]) == p)[0]
+            check(len(hits) == 1, "device plan: inconsistent neighbor graphs")
+            i = int(hits[0])
+            snd_slots = layout.lid_slots[p][lids_snd[p][j]]
+            rcv_slots = layout.lid_slots[q][lids_rcv[q][i]]
+            check(len(snd_slots) == len(rcv_slots), "device plan: edge size mismatch")
+            edges.append((p, q, snd_slots, rcv_slots))
+    return edges
+
+
+class DeviceExchangePlan:
+    """Static halo-exchange program on stacked ``(P, W)`` tensors: R
+    colour rounds of (gather send slots, copy sender -> receiver, scatter
+    into ghost slots), staged on the backend's device."""
+
+    __slots__ = ("layout", "R", "L", "snd_idx", "snd_mask", "rcv_idx", "src_of")
+
+    def __init__(self, exchanger: Exchanger, layout: DeviceLayout, device):
+        P = layout.P
+        edges = _exchange_edges(exchanger, layout)
+        rounds = _color_edges(edges)
+        self.layout = layout
+        self.R = len(rounds)
+        self.L = max((len(e[2]) for e in edges), default=0)
+        R, L = max(self.R, 1), max(self.L, 1)
+        # per round contiguous (R, P, L) index blocks
+        si = np.zeros((R, P, L), dtype=np.int64)
+        sm = np.zeros((R, P, L), dtype=bool)
+        ri = np.full((R, P, L), layout.trash, dtype=np.int64)
+        # receiver q of round r takes sender src_of[r, q]'s buffer; a part
+        # that receives nothing copies its own buffer into its trash slot
+        src_of = np.tile(np.arange(P, dtype=np.int64), (R, 1))
+        for r, edges_r in enumerate(rounds):
+            for src, dst, snd, rcv in edges_r:
+                k = len(snd)
+                si[r, src, :k] = snd
+                sm[r, src, :k] = True
+                ri[r, dst, :k] = rcv
+                src_of[r, dst] = src
+        self.snd_idx = torch.from_numpy(si).to(device)
+        self.snd_mask = torch.from_numpy(sm).to(device)
+        self.rcv_idx = torch.from_numpy(ri).to(device)
+        self.src_of = torch.from_numpy(src_of).to(device)
+
+
+def device_exchange_plan(rows: PRange, backend: GPUBackend) -> DeviceExchangePlan:
+    """The halo plan of a PRange on a backend's device, cached on it."""
+    cache = getattr(rows, "_device_plan", None)
+    if cache is None:
+        cache = rows._device_plan = {}
+    if backend not in cache:
+        cache[backend] = DeviceExchangePlan(rows.exchanger, device_layout(rows), backend.device)
+    return cache[backend]
+
+
+def exchange_(plan: DeviceExchangePlan, xv: torch.Tensor) -> torch.Tensor:
+    """Owner -> ghost halo update of a stacked ``(P, W)`` tensor, in place
+    (combine ``set``, tpu.py:_shard_exchange)."""
+    trash = plan.layout.trash
+    for r in range(plan.R):
+        buf = torch.where(plan.snd_mask[r], xv.gather(1, plan.snd_idx[r]), 0)
+        xv.scatter_(1, plan.rcv_idx[r], buf[plan.src_of[r]])
+        xv[:, trash] = 0  # keep the trash slot clean
+    return xv
+
+
+def make_exchange_fn(rows: PRange, backend: GPUBackend) -> Callable:
+    """The halo update of vectors over `rows` as a function of the
+    stacked ``(P, W)`` tensor (updated in place and returned)."""
+    plan = device_exchange_plan(rows, backend)
+    return lambda xv: exchange_(plan, xv)
+
+
+class DeviceVector:
+    """A PVector lowered to one ``(P, W)`` tensor on the backend's device."""
+
+    __slots__ = ("data", "rows", "layout", "backend")
+
+    def __init__(self, data: torch.Tensor, rows: PRange, layout: DeviceLayout, backend: GPUBackend):
+        self.data = data
+        self.rows = rows
+        self.layout = layout
+        self.backend = backend
+
+    @classmethod
+    def from_pvector(cls, v: PVector, backend: GPUBackend, layout=None) -> "DeviceVector":
+        layout = layout or device_layout(v.rows)
+        stacked = np.zeros((layout.P, layout.W), dtype=v.dtype)
+        for p, (iset, vals) in enumerate(
+            zip(v.rows.partition.part_values(), v.values.part_values())
+        ):
+            vals = np.asarray(vals)
+            stacked[p, layout.o0 : layout.o0 + iset.num_oids] = _owned(iset, vals)
+            stacked[p, layout.hid_slots[p]] = _ghost(iset, vals)
+        return cls(torch.from_numpy(stacked).to(backend.device), v.rows, layout, backend)
+
+    def to_pvector(self) -> PVector:
+        host = self.data.cpu().numpy()
+        o0 = self.layout.o0
+        vals = []
+        for p, iset in enumerate(self.rows.partition.part_values()):
+            owned = host[p, o0 : o0 + iset.num_oids]
+            ghost = host[p, self.layout.hid_slots[p]]
+            if iset.owned_first:
+                v = np.concatenate([owned, ghost])
+            else:
+                v = np.empty(iset.num_lids, dtype=host.dtype)
+                v[np.asarray(iset.oid_to_lid)] = owned
+                v[np.asarray(iset.hid_to_lid)] = ghost
+            vals.append(v)
+        return PVector(self.rows.partition._like(vals), self.rows)
+
+
+# ---------------------------------------------------------------------------
+# band analysis (own copies of the NumPy paths of partitionedarrays_jl_tpu/
+# native/__init__.py: band_offsets, unique_small, row_classes)
+# ---------------------------------------------------------------------------
+
+
+def band_offsets(indptr, cols, m: int, K: int):
+    """Sorted distinct band offsets (j - i) of a CSR, capped at K: returns
+    ``(offsets, ok)``, ok=False when more than K exist."""
+    ip = np.asarray(indptr)
+    r = np.repeat(np.arange(m, dtype=np.int64), np.diff(ip[: m + 1]))
+    u = np.unique(np.asarray(cols, dtype=np.int64) - r)
+    return (u, True) if len(u) <= K else (None, False)
+
+
+def unique_small(vals: np.ndarray, K: int):
+    """Sorted distinct values of a 1-D array and whether there are at most K."""
+    u = np.unique(np.asarray(vals, dtype=np.float64))
+    return u, len(u) <= K
+
+
+def row_classes(dia_p: np.ndarray, n: int, K: int):
+    """Row classes (distinct column tuples) of dia_p[:, :n], capped at K:
+    ``(class_table, codes, ok)`` with classes in lexicographic order."""
+    u, inv = np.unique(dia_p[:, :n].T, axis=0, return_inverse=True)
+    if len(u) > K:
+        return None, None, False
+    return u, inv.reshape(-1).astype(np.uint8), True
+
+
+# ---------------------------------------------------------------------------
+# the operator
+# ---------------------------------------------------------------------------
+
+
+class DeviceMatrix:
+    """A PSparseMatrix lowered for the card: A_oo as a coded-DIA operand
+    (`ops/dia.py:CodedOperator`), A_oh as compact boundary-row ELL arrays
+    ``(P, nb_max[, L])`` whose columns index the column frame."""
+
+    #: most band offsets of the DIA form (tpu.py:DeviceMatrix)
+    DIA_MAX_OFFSETS = 64
+    #: most distinct values per diagonal (and row classes) of the coded form
+    CODE_MAX_VALUES = 8
+
+    def __init__(self, A: PSparseMatrix, backend: GPUBackend):
+        dev = backend.device
+        isets = A.rows.partition.part_values()
+        P = len(isets)
+        noids = np.array([i.num_oids for i in isets], dtype=np.int64)
+        no_max = int(noids.max()) if P else 0
+        dt = A.dtype
+        oo = A.owned_owned_values.part_values()
+        oh = A.owned_ghost_values.part_values()
+        det = self._detect_dia(A, oo, P, noids, no_max)
+        if det is None or not det["coded_ok"]:
+            raise NotImplementedError(
+                "DeviceMatrix: this operator is not a coded band (square A_oo, "
+                f"<= {self.DIA_MAX_OFFSETS} diagonals of <= {self.CODE_MAX_VALUES} "
+                "values each); its ELL/SD/BSR or streaming-DIA lowering comes "
+                "in a later slice of the port"
+            )
+        self.rows, self.cols = A.rows, A.cols
+        self.backend = backend
+        self.row_layout = device_layout(A.rows)
+        self.col_layout = device_layout(A.cols)
+        check(self.row_layout.no_max == no_max, "rows layout mismatch")
+        self.col_plan = device_exchange_plan(A.cols, backend)
+        self.flops_per_spmv = 2 * sum(oo[p].nnz + oh[p].nnz for p in range(P))
+
+        # A_oh in compact boundary-row form: only rows touching the ghost
+        # layer carry entries (tpu.py:1528-1558)
+        self.oh_nnz = sum(m.nnz for m in oh)
+        self.oh_rows = self.oh_vals = self.oh_cols = None
+        if self.oh_nnz:
+            rl, cl = self.row_layout, self.col_layout
+            L_oh = max(max(int(m.row_lengths().max()) if m.nnz else 0 for m in oh), 1)
+            nb_max = max(max(int(np.count_nonzero(m.row_lengths())) for m in oh), 1)
+            oh_rows = np.full((P, nb_max), rl.trash, dtype=np.int64)
+            oh_vals = np.zeros((P, nb_max, L_oh), dtype=dt)
+            oh_cols = np.full((P, nb_max, L_oh), cl.trash, dtype=np.int64)
+            for p in range(P):
+                br = np.nonzero(oh[p].row_lengths())[0]
+                if len(br):
+                    E = ELLMatrix.from_csr(oh[p], row_width=L_oh)
+                    oh_rows[p, : len(br)] = rl.o0 + br
+                    oh_vals[p, : len(br)] = E.vals[br]
+                    # ELL pad cols are hid 0 with value 0: a real slot, safe
+                    oh_cols[p, : len(br)] = cl.hid_slots[p][E.cols[br]]
+            self.oh_rows = torch.from_numpy(oh_rows).to(dev)
+            self.oh_vals = torch.from_numpy(oh_vals).to(dev)
+            self.oh_cols = torch.from_numpy(oh_cols).to(dev)
+
+        # coded-DIA staging (tpu.py:1584-1687)
+        offsets, dia_, uniq, kk = det["offsets"], det["dia"], det["uniq"], det["kk"]
+        code_row, coded, Dc = det["code_row"], det["coded"], det["Dc"]
+        cls_uniq, cls_ids = det["cls_uniq"], det["cls_ids"]
+        D = len(offsets)
+        kmax = max(kk)
+        cb = np.zeros((P, D, kmax))
+        for p in range(P):
+            for d in range(D):
+                if cls_uniq is not None and code_row[d] >= 0:
+                    u = cls_uniq[p][:, d]  # slot k = d's value in class k
+                else:
+                    u = uniq[p][d]
+                if len(u) == 0:
+                    u = np.zeros(1)
+                cb[p, d, : len(u)] = u
+                cb[p, d, len(u):] = u[0]
+        n_streams = 1 if cls_uniq is not None else max(Dc, 1)
+        codes = np.zeros((P, n_streams, no_max), dtype=np.uint8)
+        if cls_uniq is not None:
+            codes[:, 0, :] = cls_ids
+        else:
+            for p in range(P):
+                for j, d in enumerate(coded):
+                    u = uniq[p][d]
+                    if len(u):
+                        codes[p, j] = np.clip(np.searchsorted(u, dia_[p, d]), 0, len(u) - 1)
+        packed = dia.pack_nibble_codes(codes).view(np.uint8)
+        # row-class decode: per-class masks of the diagonals nonzero in any
+        # part; K capped as in the JAX package (tpu.py:1673-1682)
+        cls_pattern = None
+        if cls_uniq is not None and 1 < kmax <= 4:
+            cls_pattern = tuple(
+                tuple(bool(np.any(cb[:, d, k] != 0)) for d in range(D))
+                for k in range(kmax)
+            )
+        self.dia_mode = "coded"
+        self.dia_offsets = tuple(int(o) for o in offsets)
+        self.dia_kk = tuple(int(k) for k in kk)
+        self.dia_code_row = tuple(int(c) for c in code_row)
+        self.dia_cls_pattern = cls_pattern
+        self.coded = dia.CodedOperator(
+            cb=torch.from_numpy(cb.astype(dt)).to(dev),
+            no=torch.from_numpy(noids.astype(np.int32)).to(dev),
+            codes=torch.from_numpy(np.ascontiguousarray(packed)).to(dev),
+            offsets=self.dia_offsets,
+            kk=self.dia_kk,
+            code_row=self.dia_code_row,
+            cls_pattern=cls_pattern,
+            o0=self.row_layout.o0,
+        )
+
+    @classmethod
+    def _detect_dia(cls, A, oo, P, noids, no_max):
+        """Band and class analysis of A_oo (tpu.py:_detect_dia, dense-
+        diagonal path): None unless A_oo is a square band of at most
+        DIA_MAX_OFFSETS diagonals; else the per-diagonal values, their
+        distinct values, and the row-class compression when it removes
+        code streams (>= 3 coded diagonals, <= CODE_MAX_VALUES classes)."""
+
+        def _oids_eq(ri, ci):
+            if (
+                hasattr(ri, "box_lo") and hasattr(ci, "box_lo")
+                and ri.grid_shape == ci.grid_shape
+                and ri.box_lo == ci.box_lo and ri.box_hi == ci.box_hi
+            ):
+                return True
+            return np.array_equal(ri.oid_to_gid, ci.oid_to_gid)
+
+        if not all(
+            _oids_eq(ri, ci)
+            for ri, ci in zip(A.rows.partition.part_values(), A.cols.partition.part_values())
+        ):
+            return None
+        offs = set()
+        for p in range(P):
+            M = oo[p]
+            if M.nnz:
+                u, ok = band_offsets(M.indptr, M.indices, M.shape[0], cls.DIA_MAX_OFFSETS)
+                if not ok:
+                    return None
+                offs.update(u.tolist())
+        if not (0 < len(offs) <= cls.DIA_MAX_OFFSETS):
+            return None
+        offsets = tuple(sorted(offs))
+        D = len(offsets)
+        off_arr = np.array(offsets)
+        # entry (r, r+o) of part p goes to diagonal o; absent entries are 0
+        dia_ = np.zeros((P, D, no_max))
+        for p in range(P):
+            M = oo[p]
+            if M.nnz:
+                r = M.row_of_nz()
+                d = np.searchsorted(off_arr, M.indices.astype(np.int64) - r)
+                dia_[p, d, r] = M.data
+        KMAX = cls.CODE_MAX_VALUES
+        uniq = []
+        for p in range(P):
+            n_o = int(noids[p])
+            row = []
+            for d in range(D):
+                u, ok = unique_small(dia_[p, d, :n_o], KMAX)
+                row.append(u if ok else np.arange(KMAX + 1, dtype=float))
+            uniq.append(row)
+        kk = tuple(max((len(uniq[p][d]) for p in range(P)), default=1) or 1 for d in range(D))
+        code_row, coded = [], []
+        for d in range(D):
+            if kk[d] > 1:
+                code_row.append(len(coded))
+                coded.append(d)
+            else:
+                code_row.append(-1)
+        coded_ok = max(kk) <= KMAX
+        cls_uniq = cls_ids = None
+        if coded_ok and len(coded) >= 3:
+            cls_uniq, cls_ids, n_class = [], np.zeros((P, no_max), np.uint8), 1
+            for p in range(P):
+                n_o = int(noids[p])
+                u, inv, ok = row_classes(dia_[p], n_o, KMAX)
+                if not ok:
+                    cls_uniq = cls_ids = None
+                    break
+                cls_uniq.append(u)
+                cls_ids[p, :n_o] = inv
+                n_class = max(n_class, len(u))
+        if cls_uniq is not None:
+            kk = tuple(n_class if kk[d] > 1 else 1 for d in range(D))
+            code_row = [0 if c >= 0 else -1 for c in code_row]
+        return {
+            "offsets": offsets, "dia": dia_, "uniq": uniq, "kk": kk,
+            "code_row": code_row, "coded": coded, "Dc": len(coded),
+            "coded_ok": coded_ok, "cls_uniq": cls_uniq, "cls_ids": cls_ids,
+        }
+
+
+def device_matrix(A: PSparseMatrix, backend: GPUBackend) -> DeviceMatrix:
+    """The lowering of A for a backend, cached on A."""
+    if backend not in A._device:
+        A._device[backend] = DeviceMatrix(A, backend)
+    return A._device[backend]
+
+
+# ---------------------------------------------------------------------------
+# SpMV and CG
+# ---------------------------------------------------------------------------
+
+
+def _spmv_body(dA: DeviceMatrix, pfold: bool = False, plain: bool = False):
+    """The stacked SpMV (tpu.py:_spmv_body): the A_oo product first (it
+    reads owned slots only), then the halo exchange of the operand, then
+    the A_oh contribution on the boundary rows and the ghost region of the
+    result zeroed (`_finish`). The operand's ghost slots are refreshed in
+    place. ``pfold`` gives ``body(r, pprev, beta) -> (A p, p)`` with
+    ``p = r + beta*pprev``. ``plain`` runs the plain versions of the
+    kernels on the same tensors (the comparison path)."""
+    op = dA.coded
+    wy = dA.row_layout.W
+    g0 = dA.row_layout.g0
+    plan = dA.col_plan
+    spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
+    pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
+
+    def _finish(y, xv):
+        exchange_(plan, xv)
+        if dA.oh_nnz:
+            # strict left-to-right fold over the ELL row slots
+            acc = None
+            for l in range(dA.oh_vals.shape[-1]):
+                t = dA.oh_vals[:, :, l] * xv.gather(1, dA.oh_cols[:, :, l])
+                acc = t if acc is None else acc + t
+            y.scatter_add_(1, dA.oh_rows, acc)
+            y[:, g0:] = 0
+        return y
+
+    def body(xv):
+        return _finish(spmv_k(op, xv, wy), xv)
+
+    def body_pfold(rv, pv, beta):
+        y, p = pfold_k(op, rv, pv, beta, wy)
+        return _finish(y, p), p
+
+    return body_pfold if pfold else body
+
+
+def make_spmv_fn(dA: DeviceMatrix) -> Callable:
+    """y = A @ x on the stacked frames: ``(P, Wc)`` column-range tensor ->
+    ``(P, Wr)`` row-range product (ghost slots of y zero). The ghost slots
+    of x are refreshed in place."""
+    body = _spmv_body(dA)
+    shape = (dA.col_layout.P, dA.col_layout.W)
+
+    def run(x):
+        check(
+            tuple(x.shape) == shape,
+            f"spmv: vector laid out {tuple(x.shape)}, matrix expects {shape}",
+        )
+        return body(x)
+
+    return run
+
+
+def _pdot_factory(o0: int, no_max: int):
+    """Deterministic dot over the owned regions: per-part partials, folded
+    in part order (tpu.py:_pdot_factory)."""
+
+    def pdot(a, b):
+        part = (a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1)
+        acc = part[0]
+        for i in range(1, part.shape[0]):
+            acc = acc + part[i]
+        return acc
+
+    return pdot
+
+
+def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: bool = True,
+               plain: bool = False) -> Callable:
+    """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
+    iterations, residual history)``. The stopping rule is the JAX
+    package's (tpu.py:cond_fused/cond): continue while
+    ``sqrt(rs) > tol*max(1, sqrt(rs0))``, ``it < maxiter`` and rs is
+    finite, evaluated on the device in the working dtype and read once per
+    iteration. ``fused`` (the default) folds the direction update
+    ``p = r + beta*p`` into the next SpMV kernel (tpu.py:4054-4123);
+    otherwise the textbook body runs (tpu.py:4125-4170). Both follow the
+    same scalar recurrence, so they take the same iterations."""
+    body = _spmv_body(dA, plain=plain)
+    body_pfold = _spmv_body(dA, pfold=True, plain=plain)
+    o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
+    sl = slice(o0, o0 + no_max)
+    pdot = _pdot_factory(o0, no_max)
+
+    def fn(b, x0):
+        x = x0.clone()
+        q = body(x0.clone())
+        r = torch.zeros_like(x)
+        r[:, sl] = b[:, sl] - q[:, sl]
+        rs0 = pdot(r, r)
+        thr = tol * torch.clamp(torch.sqrt(rs0), min=1.0)
+        rs = rs0
+        hist = [torch.sqrt(rs0)]
+        if fused:
+            pprev = torch.zeros_like(x)
+            beta = torch.zeros((), dtype=x.dtype, device=x.device)
+        else:
+            p = torch.zeros_like(x)
+            p[:, sl] = r[:, sl]
+        it = 0
+        while it < maxiter and bool(((torch.sqrt(rs) > thr) & torch.isfinite(rs)).item()):
+            if fused:
+                q, p = body_pfold(r, pprev, beta)
+                alpha = rs / pdot(p, q)
+                x[:, sl] = x[:, sl] + alpha * p[:, sl]
+                r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
+                rs_new = pdot(r, r)
+                beta = rs_new / rs
+                pprev = p
+            else:
+                q = body(p)
+                alpha = rs / pdot(p, q)
+                x[:, sl] = x[:, sl] + alpha * p[:, sl]
+                r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
+                rs_new = pdot(r, r)
+                beta = rs_new / rs
+                p[:, sl] = r[:, sl] + beta * p[:, sl]
+            rs = rs_new
+            it += 1
+            hist.append(torch.sqrt(rs))
+        return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
+
+    return fn
+
+
+def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
+    """b lives on A.rows (no ghosts); the CG keeps every vector in the
+    cols layout (same owned gids). Restack b's owned values there."""
+    layout = dA.col_layout
+    stacked = np.zeros((layout.P, layout.W), dtype=b.dtype)
+    for p, (iset, vals) in enumerate(zip(b.rows.partition.part_values(), b.values.part_values())):
+        stacked[p, layout.o0 : layout.o0 + iset.num_oids] = _owned(iset, np.asarray(vals))
+    return torch.from_numpy(stacked).to(dA.backend.device)
+
+
+def gpu_cg(
+    A: PSparseMatrix,
+    b: PVector,
+    x0: Optional[PVector] = None,
+    tol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    verbose: bool = False,
+    fused: bool = True,
+    plain: bool = False,
+) -> Tuple[PVector, dict]:
+    """Device CG on the GPU backend, the counterpart of `tpu_cg`
+    (tpu.py:5952). ``plain=True`` runs the kernels' plain versions on the
+    card instead (the comparison path of chip_smoke.py). The info dict
+    records the body under ``cg_body``."""
+    from ..models.solvers import _final_true_rel
+
+    backend = b.values.backend
+    check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
+    dA = device_matrix(A, backend)
+    x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    db = _b_on_cols_layout(b, dA)
+    dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
+    solve = make_cg_fn(dA, tol, int(maxiter), fused=fused, plain=plain)
+    x_data, rs, rs0, it, hist = solve(db, dx0.data)
+    x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
+    rs, rs0 = float(rs), float(rs0)
+    if verbose:
+        for i, res in enumerate(hist[1:], start=1):
+            print(f"cg it={i} residual={res:.3e}")
+    converged = bool(np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)))
+    info = krylov_info(
+        it, hist, converged, tol, b.dtype, floor_warned,
+        final_rel=_final_true_rel(
+            A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
+            force=floor_warned,
+        ),
+        cg_body="fused" if fused else "standard",
+    )
+    return x, info

@@ -1,0 +1,192 @@
+"""PSparseMatrix: the row-partitioned distributed sparse matrix (L5).
+
+The port's copy of `partitionedarrays_jl_tpu/parallel/psparse.py`
+(reference: src/Interfaces.jl:2108-2757), cut to what the Poisson CG slice
+needs: COO construction, the owned/ghost block split and the host SpMV.
+Per part: a local CSR over (row lids x col lids) keyed by `rows`/`cols`
+PRanges. The host SpMV starts the halo update of b, computes
+``c_o = A_oo b_o`` while the exchange is pending, then adds ``A_oh b_h``
+(reference: src/Interfaces.jl:2246-2275). `parallel/gpu.py:DeviceMatrix`
+is its form on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from ..ops.sparse import CSRMatrix, compresscoo, csr_block
+from ..utils.helpers import check
+from ..utils.table import INDEX_DTYPE
+from .backends import AbstractPData, map_parts
+from .index_sets import AbstractIndexSet
+from .prange import PRange, add_gids_inplace, oids_are_equal, lids_are_equal, to_lids, uniform_partition
+from .pvector import PVector, _owned, _ghost
+
+
+class PSparseMatrix:
+    __slots__ = ("values", "rows", "cols", "_blocks", "_device")
+
+    def __init__(
+        self,
+        values: AbstractPData,
+        rows: PRange,
+        cols: PRange,
+    ):
+        self.values = values
+        self.rows = rows
+        self.cols = cols
+        self._blocks = None
+        self._device = {}  # GPUBackend -> lowered DeviceMatrix (gpu.py)
+
+    # ------------------------------------------------------------------
+    # constructors (reference: src/Interfaces.jl:2194-2244)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_coo(
+        cls,
+        I: AbstractPData,
+        J: AbstractPData,
+        V: AbstractPData,
+        rows,
+        cols,
+        ids: str = "global",
+    ) -> "PSparseMatrix":
+        """Build from per-part COO triplets. ``ids='global'`` renumbers I, J
+        to lids in place. Integer `rows`/`cols` build uniform PRanges and
+        add the touched off-part gids as ghosts (reference:
+        src/Interfaces.jl:2220-2244)."""
+        check(ids in ("global", "local"), "ids must be 'global' or 'local'")
+        if isinstance(rows, (int, np.integer)):
+            check(ids == "global", "building rows from n requires global ids")
+            from .backends import get_part_ids
+
+            parts = get_part_ids(I)
+            rows = uniform_partition(parts, int(rows))
+            add_gids_inplace(rows, I)
+        if isinstance(cols, (int, np.integer)):
+            check(ids == "global", "building cols from n requires global ids")
+            from .backends import get_part_ids
+
+            parts = get_part_ids(J)
+            cols = uniform_partition(parts, int(cols))
+            add_gids_inplace(cols, J)
+        if ids == "global":
+            to_lids(rows, I)
+            to_lids(cols, J)
+
+        def _compress(ri, ci, i, j, v):
+            return compresscoo(i, j, v, ri.num_lids, ci.num_lids)
+
+        values = map_parts(_compress, rows.partition, cols.partition, I, J, V)
+        return cls(values, rows, cols)
+
+    # ------------------------------------------------------------------
+    # block views (reference: src/Interfaces.jl:2142-2183)
+    # ------------------------------------------------------------------
+
+    def _block_cache(self):
+        if self._blocks is None:
+            def _split(ri: AbstractIndexSet, ci: AbstractIndexSet, A: CSRMatrix):
+                check(
+                    ri.owned_first and ci.owned_first,
+                    "PSparseMatrix blocks require owned-first lid layouts",
+                )
+                no_r, no_c = ri.num_oids, ci.num_oids
+                o_rows = np.arange(no_r, dtype=INDEX_DTYPE)
+                h_rows = np.arange(no_r, A.shape[0], dtype=INDEX_DTYPE)
+                return {
+                    "oo": csr_block(A, o_rows, no_c, want_upper=False),
+                    "oh": csr_block(A, o_rows, no_c, want_upper=True, col_offset=no_c),
+                    "ho": csr_block(A, h_rows, no_c, want_upper=False),
+                    "hh": csr_block(A, h_rows, no_c, want_upper=True, col_offset=no_c),
+                }
+
+            self._blocks = map_parts(
+                _split, self.rows.partition, self.cols.partition, self.values
+            )
+        return self._blocks
+
+    @property
+    def owned_owned_values(self) -> AbstractPData:
+        return map_parts(lambda b: b["oo"], self._block_cache())
+
+    @property
+    def owned_ghost_values(self) -> AbstractPData:
+        return map_parts(lambda b: b["oh"], self._block_cache())
+
+    @property
+    def dtype(self):
+        return self.values.part_values()[0].dtype
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows.ngids, self.cols.ngids)
+
+    def __repr__(self):
+        return (
+            f"PSparseMatrix(shape={self.shape}, nparts={self.rows.num_parts}, "
+            f"dtype={self.dtype})"
+        )
+
+    # ------------------------------------------------------------------
+    # SpMV (reference: src/Interfaces.jl:2246-2275)
+    # ------------------------------------------------------------------
+
+    def mul_into(
+        self, c: PVector, b: PVector, alpha: float = 1.0, beta: float = 0.0
+    ) -> PVector:
+        """c = beta*c + alpha*A@b with communication/compute overlap.
+        Ghost rows of c are not touched. Axis contract: c.rows ~ A.rows on
+        owned ids; A.cols ~ b.rows on owned AND ghost ids (b must carry A's
+        column ghost layer)."""
+        check(oids_are_equal(c.rows, self.rows), "mul: c.rows incompatible with A.rows")
+        check(
+            lids_are_equal(self.cols, b.rows),
+            "mul: b.rows must match A.cols incl. the ghost layer",
+        )
+        t = b.async_exchange()  # start halo update of b (non-blocking)
+        blocks = self._block_cache()
+
+        def _phase1(ri, cv, bi, bv, blk):
+            # in-place owned update needs the slice view, not a fancy copy
+            check(ri.owned_first, "mul: c.rows must use the owned-first lid layout")
+            co = _owned(ri, cv)
+            bo = _owned(bi, bv)
+            if beta == 0.0:
+                co[...] = 0.0
+            elif beta != 1.0:
+                co *= beta
+            co += alpha * (blk["oo"] @ bo)
+            return None
+
+        map_parts(_phase1, self.rows.partition, c.values, b.rows.partition, b.values, blocks)
+        t.wait()  # ghosts of b are now current
+
+        def _phase2(ri, cv, bi, bv, blk):
+            if blk["oh"].nnz:
+                check(ri.owned_first, "mul: c.rows must use the owned-first lid layout")
+                co = _owned(ri, cv)
+                bh = _ghost(bi, bv)
+                co += alpha * (blk["oh"] @ bh)
+            return None
+
+        map_parts(_phase2, self.rows.partition, c.values, b.rows.partition, b.values, blocks)
+        return c
+
+    def __matmul__(self, b: PVector) -> PVector:
+        c = PVector.full(0.0, self.rows, dtype=np.result_type(self.dtype, b.dtype))
+        return self.mul_into(c, b)
+
+    def __mul__(self, a):
+        check(np.isscalar(a), "PSparseMatrix * non-scalar (use @ for SpMV)")
+        vals = map_parts(
+            lambda A: CSRMatrix(A.indptr, A.indices, A.data * a, A.shape), self.values
+        )
+        return PSparseMatrix(vals, self.rows, self.cols)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return self * (-1.0)
