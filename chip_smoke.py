@@ -4,36 +4,57 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout (``build/pa_torch_kernels/``),
-drives the port's main path — the 3-D Poisson CG solve at 192^3 in float32
-on one part, through `prun`, `assemble_poisson`, the coded-DIA lowering and
-the fused CG — and holds every kernel against its plain PyTorch version.
+drives the port's paths — the 3-D Poisson CG solve at 192^3 in float32 on
+one part (fused, then pipelined) and the multigrid-preconditioned CG at
+192^3 float32, through `prun`, `assemble_poisson`, `cg`, `pcg` and the
+lowerings — and holds every kernel against its plain PyTorch version.
 Phases, one JSON line each:
 
 1. device and build: the nvidia-smi name/power-limit line, the device name,
    the nvcc build seconds;
 2. kernels against their plain versions on the card at 192^3 f32: the
    coded-DIA SpMV in row-class mode (the real Poisson staging) and in
-   select-chain mode (a synthetic nibble-packed operator), and the CG
-   direction-fold variant (y and p); each must be torch.equal to its plain
+   select-chain mode (a synthetic nibble-packed operator), the CG
+   direction-fold variant (y and p) and the lagged-axpy variant (y and the
+   updated solution, both decodes); each must be torch.equal to its plain
    version (torch.equal counts -0.0 == +0.0: the row-class decode skips
    exact-zero coefficients that the plain version adds);
 3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
    kernel launch counts are zeroed just before and read just after; the
    same solve through the plain versions must take the same iterations and
    reach an error within 1.1x;
+3b. pipelined CG on phase 3's operator (its cached lowering) to
+   tol=1e-5, launch counts zeroed before and read after: the axpy kernel
+   once per iteration, the plain SpMV once (the initial residual); the
+   same iterations as the plain versions and as the standard body, error
+   within 1.1x of the plain solve's;
 4. stacked parts: the (2,2,2)-part 48^3 float64 driver on the one card,
    with the launch counts zeroed just before and read just after (both
    must be > 0), must take the iterations of the port's sequential backend,
    error < 1e-5; both kernels are then held torch.equal against their plain
    versions on that path's float64 operand with (8, W) frames, and the same
    solve through the plain versions must take the same iterations;
+4b. GMG-PCG at 192^3 f32, set up as tools/bench_gmg.py does (assemble,
+   scale by 1/16 in f32, b = A x̂, decouple_dirichlet, gmg_hierarchy with
+   coarse_threshold=500): 5 levels, the streaming-DIA kernel on levels
+   1-4 held torch.equal to its plain version on level 1; launch counts
+   zeroed before `pcg` and read after must equal 1 + 13 per iteration
+   (coded: the initial residual, the outer A p, and per V-cycle 2 on level
+   0 and 2 with S on each of the 5 levels) and 8 per iteration (stream: 2
+   on each of levels 1-4); the same iterations as the plain versions,
+   error within 1.1x of theirs;
+4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card: the
+   iterations of the port's sequential backend and of the plain versions,
+   coded and stream launch counts > 0, the stream kernel torch.equal to its
+   plain version on level 1;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each): kernel, plain version, torch.sparse.mm on the CSR
    operator, the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   f32), CG seconds per iteration from two fixed-trip solves, and a
-   torch.profiler breakdown of a fixed-trip CG iteration by kernel (its
-   wall time includes the profiler's own cost);
-6. the launch counts of phase 3.
+   f32), for the four kernels; CG, pipelined CG and GMG-PCG seconds per
+   iteration from two fixed-trip solves each, and torch.profiler
+   breakdowns of a fixed-trip CG and GMG-PCG iteration by kernel (wall
+   times include the profiler's own cost);
+6. the launch counts of phases 3, 3b and 4b.
 
 It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
@@ -51,8 +72,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from partitionedarrays_jl_tpu_torch import assemble_poisson, cg, poisson_fdm_driver, prun, sequential  # noqa: E402
+from partitionedarrays_jl_tpu_torch import (  # noqa: E402
+    PSparseMatrix, PVector, assemble_poisson, cg, decouple_dirichlet, gmg_hierarchy, pcg,
+    poisson_fdm_driver, prun, sequential,
+)
 from partitionedarrays_jl_tpu_torch.ops import dia  # noqa: E402
+from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix  # noqa: E402
+from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg  # noqa: E402
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (  # noqa: E402
     GPUBackend,
     device_matrix,
@@ -70,10 +96,21 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 SEED = 0
 
-SRC = "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu"
+N_GMG_MULTI = 48
+GMG_LEVELS = 5  # 192, 96, 48, 24, 12 over a 6^3 coarse grid
+
+KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv")
+SRC = {
+    "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
+    "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
+    "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
+    "dia_stream_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_stream.cu",
+}
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
+    "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu/ops/pallas_dia.py:535",
+    "dia_stream_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:110",
 }
 
 
@@ -177,8 +214,17 @@ def phase_kernels(backend, n, rng):
     yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
     errs["dia_coded_spmv_pfold[y]"] = _compare("dia_coded_spmv_pfold y", yk, yp)
     errs["dia_coded_spmv_pfold[p]"] = _compare("dia_coded_spmv_pfold p", pk, pp)
+    xacc = frame()
+    alpha = torch.tensor(-0.61, dtype=torch.float32, device=dev)
+    for decode, o, w in (("row_class", op, wy), ("select_chain", sel, wx)):
+        xk, xp = xacc.clone(), xacc.clone()
+        yk = dia.dia_coded_spmv_axpy(o, x, xk, pprev, alpha, w)
+        yp = dia.dia_coded_spmv_axpy_plain(o, x, xp, pprev, alpha, w)
+        errs[f"dia_coded_spmv_axpy[{decode},y]"] = _compare(f"dia_coded_spmv_axpy {decode} y", yk, yp)
+        errs[f"dia_coded_spmv_axpy[{decode},xacc]"] = _compare(f"dia_coded_spmv_axpy {decode} xacc", xk, xp)
     emit({"phase": "kernels_vs_plain", "n": n, "dtype": "float32", "equal": True, "max_abs_err": errs})
-    return {"A": A, "dA": dA, "x": x, "r": r, "pprev": pprev, "beta": beta, "errs": errs}
+    return {"A": A, "dA": dA, "x": x, "r": r, "pprev": pprev, "beta": beta, "xacc": xacc,
+            "alpha": alpha, "errs": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +271,47 @@ def phase_main(backend, n):
     require(info["converged"] and np.isfinite(run["err"]), "the 192^3 solve did not converge")
     require(info["iterations"] == info_p["iterations"], "kernel and plain paths took different iterations")
     require(run["err"] <= 1.1 * err_p, "kernel path error above 1.1x the plain path's")
-    for k, v in launches.items():
-        require(v > 0, f"the main path launched {k} no time")
+    for k in ("dia_coded_spmv", "dia_coded_spmv_pfold"):
+        require(launches[k] > 0, f"the main path launched {k} no time")
     return run, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3b
+# ---------------------------------------------------------------------------
+
+
+def phase_pipelined(run):
+    """Pipelined CG on the main path's operator and cached lowering: its
+    own launch counts, the plain path's and the standard body's
+    iterations."""
+    A, b, x0 = run["A"], run["b"], run["x0"]
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = cg(A, b, x0=x0, tol=TOL_MAIN, pipelined=True)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    err = _rel_err(x, run["xe"])
+    xp, info_p = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, pipelined=True, plain=True)
+    err_p = _rel_err(xp, run["xe"])
+    _, info_s = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, fused=False)
+    it = info["iterations"]
+    emit({
+        "phase": "pipelined", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN,
+        "cg_body": info["cg_body"], "iterations": it, "converged": info["converged"],
+        "rel_err": err, "solve_s": solve_s, "plain_iterations": info_p["iterations"],
+        "plain_rel_err": err_p, "standard_iterations": info_s["iterations"],
+        "fused_iterations": run["info"]["iterations"], "kernels": launches,
+    })
+    require(info["cg_body"] == "pipelined", "the pipelined solve did not run the pipelined body")
+    require(info["converged"] and np.isfinite(err), "the pipelined solve did not converge")
+    require(it == info_p["iterations"], "pipelined: kernel and plain paths took different iterations")
+    require(it == info_s["iterations"], "pipelined: iterations differ from the standard body's")
+    require(err <= 1.1 * err_p, "pipelined: kernel path error above 1.1x the plain path's")
+    require(launches["dia_coded_spmv_axpy"] == it, f"pipelined: {launches['dia_coded_spmv_axpy']} axpy launches for {it} iterations")
+    require(launches["dia_coded_spmv"] == 1, "pipelined: the initial residual did not launch the SpMV once")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +328,8 @@ def phase_multi(backend, n, rng):
     launches = dict(dia.LAUNCHES)
     err_s, info_s = prun(poisson_fdm_driver, sequential, (2, 2, 2), (n, n, n), tol=1e-8)
     emit({"phase": "stacked_parts_launch_counts", "kernels": launches})
-    for k, v in launches.items():
-        require(v > 0, f"stacked parts: the path launched {k} no time")
+    for k in ("dia_coded_spmv", "dia_coded_spmv_pfold"):
+        require(launches[k] > 0, f"stacked parts: the path launched {k} no time")
 
     A, b, _, x0 = prun(lambda parts: assemble_poisson(parts, (n, n, n)), backend, (2, 2, 2))
     dA = device_matrix(A, backend)
@@ -281,6 +365,118 @@ def phase_multi(backend, n, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b / 4c
+# ---------------------------------------------------------------------------
+
+
+def gmg_driver(parts, n, f32):
+    """tools/bench_gmg.py:74-93: the Dirichlet Poisson operator (scaled by
+    1/16 in float32, b = A x̂, when f32), decoupled, and its hierarchy."""
+    t = time.perf_counter()
+    A, b, xe, _ = assemble_poisson(parts, (n, n, n))
+    if f32:
+        vals = [CSRMatrix(M.indptr, M.indices, (M.data / 16.0).astype(np.float32), M.shape)
+                for M in A.values.part_values()]
+        A = PSparseMatrix(A.values._like(vals), A.rows, A.cols)
+        xe = PVector(xe.values._like([np.asarray(v, np.float32) for v in xe.values.part_values()]), xe.rows)
+        b = A @ xe
+    Ah, bh = decouple_dirichlet(A, b)
+    t_asm = time.perf_counter() - t
+    t = time.perf_counter()
+    h = gmg_hierarchy(parts, Ah, (n, n, n), coarse_threshold=500)
+    return {"Ah": Ah, "bh": bh, "xe": xe, "h": h, "assembly_s": t_asm,
+            "hierarchy_s": time.perf_counter() - t}
+
+
+def _stream_check(dh, level, rng):
+    """The streaming-DIA kernel against its plain version on a level's
+    operator and frames."""
+    dA = dh["levels"][level]["dA"]
+    require(dA.dia_mode == "stream", f"GMG level {level} is not a streaming-DIA operator")
+    x = torch.from_numpy(rng.standard_normal((dA.col_layout.P, dA.col_layout.W))).to(
+        dA.stream_vals.device, dA.stream_vals.dtype)
+    args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, dA.row_layout.W)
+    return _compare(f"dia_stream_spmv level {level}", dia.dia_stream_spmv(*args), dia.dia_stream_spmv_plain(*args)), x
+
+
+def phase_gmg(backend, n, rng):
+    """GMG-PCG at 192^3 f32 through `pcg(Ah, bh, minv=h)`, its own launch
+    counts, the stream kernel against plain on level 1, the plain path."""
+    run = prun(gmg_driver, backend, (1, 1, 1), n, True)
+    h = run["h"]
+    t = time.perf_counter()
+    dh = gpu_gmg.device_hierarchy(h, backend)
+    sync()
+    lowering_s = time.perf_counter() - t
+    L = len(h.levels)
+    modes = [(l["dA"].dia_mode, l["dS"].dia_mode) for l in dh["levels"]]
+    err_k4, x1 = _stream_check(dh, 1, rng)
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = pcg(run["Ah"], run["bh"], minv=h, tol=TOL_MAIN)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    err = _rel_err(x, run["xe"])
+    xp, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=TOL_MAIN, plain=True)
+    err_p = _rel_err(xp, run["xe"])
+    it = info["iterations"]
+    n_stream = sum(1 for m, _ in modes if m == "stream")
+    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream) + 2 * L), "dia_stream_spmv": it * 2 * n_stream}
+    emit({
+        "phase": "gmg_pcg", "n": n, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
+        "levels": L, "grids": [l.nfs[0] for l in h.levels], "coarse_size": h.coarse_A.rows.ngids,
+        "dia_modes": [m for m, _ in modes], "s_modes": [m for _, m in modes],
+        "assembly_s": run["assembly_s"], "hierarchy_s": run["hierarchy_s"], "lowering_s": lowering_s,
+        "solve_s": solve_s, "iterations": it, "converged": info["converged"], "rel_err": err,
+        "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
+        "kernels": launches, "expected_launches": want, "stream_vs_plain_level1_max_abs_err": err_k4,
+    })
+    require(L == GMG_LEVELS and h.coarse_A.rows.ngids == 216, f"GMG: {L} levels over {h.coarse_A.rows.ngids} coarse points, expected 5 over 216")
+    require(modes[0][0] == "coded" and n_stream == L - 1, f"GMG: level modes {modes}")
+    require(info["converged"] and np.isfinite(err), "the 192^3 GMG-PCG solve did not converge")
+    require(it == info_p["iterations"], "GMG: kernel and plain paths took different iterations")
+    require(err <= 1.1 * err_p, "GMG: kernel path error above 1.1x the plain path's")
+    for k in ("dia_coded_spmv", "dia_stream_spmv"):
+        require(launches[k] == want[k], f"GMG: {launches[k]} {k} launches, expected {want[k]}")
+    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1}
+
+
+def phase_gmg_multi(backend, n, rng):
+    """Stacked-parts GMG-PCG in f64: card, sequential backend and plain
+    versions take the same iterations; the stream kernel equals its plain
+    version on level 1's (8, W) frames."""
+
+    def driver(parts):
+        run = gmg_driver(parts, n, False)
+        x, info = pcg(run["Ah"], run["bh"], minv=run["h"], tol=1e-8)
+        run.update(info=info, err=_rel_err(x, run["xe"]))
+        return run
+
+    dia.reset_launches()
+    run = prun(driver, backend, (2, 2, 2))
+    launches = dict(dia.LAUNCHES)
+    run_s = prun(driver, sequential, (2, 2, 2))
+    dh = gpu_gmg.device_hierarchy(run["h"], backend)
+    err_k4, _ = _stream_check(dh, 1, rng)
+    _, info_p = gpu_gmg.gpu_gmg_pcg(run["h"], run["bh"], tol=1e-8, plain=True)
+    it = run["info"]["iterations"]
+    emit({
+        "phase": "gmg_pcg_stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
+        "levels": len(run["h"].levels), "iterations": it,
+        "sequential_iterations": run_s["info"]["iterations"], "plain_iterations": info_p["iterations"],
+        "rel_err": run["err"], "sequential_rel_err": run_s["err"], "kernels": launches,
+        "stream_vs_plain_level1_max_abs_err": err_k4,
+    })
+    require(run["info"]["converged"], "stacked-parts GMG-PCG did not converge")
+    require(it == run_s["info"]["iterations"], "stacked-parts GMG: iterations differ from the sequential backend")
+    require(it == info_p["iterations"], "stacked-parts GMG: iterations differ from the plain path")
+    for k in ("dia_coded_spmv", "dia_stream_spmv"):
+        require(launches[k] > 0, f"stacked-parts GMG launched {k} no time")
+    return err_k4
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -308,42 +504,19 @@ def _bound_ms(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def phase_times(backend, k, run, n):
-    dev = backend.device
-    dA, op = k["dA"], k["dA"].coded
-    wy = dA.row_layout.W
-    rows = int(dA.row_layout.noids.sum())
-    nnz = dA.flops_per_spmv // 2
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    M = k["A"].values.part_values()[0]
-    csr = torch.sparse_csr_tensor(
+def _csr_on(M, dev):
+    return torch.sparse_csr_tensor(
         torch.from_numpy(M.indptr.astype(np.int64)), torch.from_numpy(M.indices.astype(np.int64)),
         torch.from_numpy(M.data), size=M.shape,
     ).to(dev)
-    xcol = k["x"][0, : M.shape[1]].reshape(-1, 1).contiguous()
-    x, r, pprev, beta = k["x"], k["r"], k["pprev"], k["beta"]
-    code_bytes = op.codes.shape[1]
-    spmv = {
-        "ms": time_ms(lambda: dia.dia_coded_spmv(op, x, wy), flush),
-        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_plain(op, x, wy), flush),
-        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
-    }
-    spmv["bound_ms"], spmv["bound_by"] = _bound_ms(rows * (4 + code_bytes + 4), 2 * nnz)
-    pfold = {
-        "ms": time_ms(lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy), flush),
-        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy), flush),
-        "library_ms": None,  # no single PyTorch call folds p and multiplies
-    }
-    pfold["bound_ms"], pfold["bound_by"] = _bound_ms(rows * (4 + 4 + code_bytes + 4 + 4), 2 * nnz + 2 * rows)
 
-    # CG seconds per iteration: two fixed-trip (tol=0) solves, differenced
-    A = run["A"]
-    dA_main = device_matrix(A, backend)
-    b = _b_on_cols_layout(run["b"], dA_main)
-    x0 = DeviceVector.from_pvector(run["x0"], backend, dA_main.col_layout).data
+
+def fixed_trip_s_per_iter(make_fn, b, x0, m0, m1):
+    """Seconds per iteration from two fixed-trip (tol=0) solves of m0 and
+    m1 iterations, differenced (median of 3 each)."""
     per = {}
-    for m in (20, 220):
-        fn = make_cg_fn(dA_main, 0.0, m)
+    for m in (m0, m1):
+        fn = make_fn(m)
         ts = []
         for _ in range(3):
             sync()
@@ -353,25 +526,115 @@ def phase_times(backend, k, run, n):
             ts.append(time.perf_counter() - t)
             require(out[3] == m, f"fixed-trip solve stopped after {out[3]} of {m} iterations")
         per[m] = statistics.median(ts)
-    cg_s_per_iter = (per[220] - per[20]) / 200
+    return (per[m1] - per[m0]) / (m1 - m0), per
+
+
+def phase_times(backend, k, run, n):
+    dev = backend.device
+    dA, op = k["dA"], k["dA"].coded
+    wy = dA.row_layout.W
+    rows = int(dA.row_layout.noids.sum())
+    nnz = dA.flops_per_spmv // 2
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    M = k["A"].values.part_values()[0]
+    csr = _csr_on(M, dev)
+    xcol = k["x"][0, : M.shape[1]].reshape(-1, 1).contiguous()
+    x, r, pprev, beta = k["x"], k["r"], k["pprev"], k["beta"]
+    xacc, alpha = k["xacc"].clone(), k["alpha"]
+    code_bytes = op.codes.shape[1]
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, xcol), flush)
+    spmv = {
+        "ms": time_ms(lambda: dia.dia_coded_spmv(op, x, wy), flush),
+        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_plain(op, x, wy), flush),
+        "library_ms": library_ms,
+    }
+    spmv["bound_ms"], spmv["bound_by"] = _bound_ms(rows * (4 + code_bytes + 4), 2 * nnz)
+    pfold = {
+        "ms": time_ms(lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy), flush),
+        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy), flush),
+        "library_ms": None,  # no single PyTorch call folds p and multiplies
+    }
+    pfold["bound_ms"], pfold["bound_by"] = _bound_ms(rows * (4 + 4 + code_bytes + 4 + 4), 2 * nnz + 2 * rows)
+    axpy = {
+        "ms": time_ms(lambda: dia.dia_coded_spmv_axpy(op, x, xacc, pprev, alpha, wy), flush),
+        "plain_ms": time_ms(lambda: dia.dia_coded_spmv_axpy_plain(op, x, xacc, pprev, alpha, wy), flush),
+        "library_ms": None,  # no single PyTorch call multiplies and updates x
+    }
+    # x, the code bytes, y, pprev, xacc read and written
+    axpy["bound_ms"], axpy["bound_by"] = _bound_ms(rows * (4 + code_bytes + 4 + 4 + 8), 2 * nnz + 2 * rows)
+
+    # CG and pipelined CG seconds per iteration from fixed-trip solves
+    A = run["A"]
+    dA_main = device_matrix(A, backend)
+    b = _b_on_cols_layout(run["b"], dA_main)
+    x0 = DeviceVector.from_pvector(run["x0"], backend, dA_main.col_layout).data
+    cg_s_per_iter, per = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA_main, 0.0, m), b, x0, 20, 220)
+    pipe_s_per_iter, per_pipe = fixed_trip_s_per_iter(
+        lambda m: make_cg_fn(dA_main, 0.0, m, pipelined=True), b, x0, 20, 220
+    )
     emit({
         "phase": "times", "n": n, "dtype": "float32", "reps": REPS,
-        "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold,
-        "library_spmv_ms_for_pfold": spmv["library_ms"],
+        "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy,
+        "library_spmv_ms_for_pfold_and_axpy": library_ms,
         "cg_s_per_iter": cg_s_per_iter, "cg_fixed_trip_s": per,
+        "pipelined_cg_s_per_iter": pipe_s_per_iter, "pipelined_cg_fixed_trip_s": per_pipe,
     })
-    phase_cg_profile(dA_main, b, x0)
-    return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold}
+    phase_profile("cg_profile", make_cg_fn(dA_main, 0.0, 50), b, x0, 50)
+    return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy}
 
 
-def phase_cg_profile(dA, b, x0, iters=50):
-    """Where a fixed-trip CG iteration's time goes: device time per
+def phase_gmg_times(backend, g):
+    """The stream kernel on GMG level 1 of 192^3, and GMG-PCG seconds per
+    iteration, solve seconds and a profile of one iteration."""
+    dev = backend.device
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    dA1 = g["dh"]["levels"][1]["dA"]
+    x1 = g["x1"]
+    args = (dA1.stream_vals, x1, dA1.dia_offsets, dA1.stream_no, dA1.row_layout.o0, dA1.row_layout.W)
+    M1 = g["run"]["h"].levels[1].A.values.part_values()[0]
+    csr = _csr_on(M1, dev)
+    xcol = x1[0, : M1.shape[1]].reshape(-1, 1).contiguous()
+    rows = int(dA1.row_layout.noids.sum())
+    D = len(dA1.dia_offsets)
+    stream = {
+        "ms": time_ms(lambda: dia.dia_stream_spmv(*args), flush),
+        "plain_ms": time_ms(lambda: dia.dia_stream_spmv_plain(*args), flush),
+        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
+        "rows": rows, "diagonals": D, "csr_nnz": int(M1.nnz),
+    }
+    # the dense values (every diagonal, every row), x and y, in f32
+    stream["bound_ms"], stream["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
+
+    h, Ah, bh = g["run"]["h"], g["run"]["Ah"], g["run"]["bh"]
+    dA0 = device_matrix(Ah, backend)
+    b = _b_on_cols_layout(bh, dA0)
+    x0 = torch.zeros_like(b)
+    s_per_iter, per = fixed_trip_s_per_iter(
+        lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), b, x0, 2, 12
+    )
+    fn = gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, 4 * Ah.rows.ngids)
+    fn(b, x0)
+    sync()
+    t = time.perf_counter()
+    out = fn(b, x0)
+    sync()
+    solve_s = time.perf_counter() - t
+    emit({
+        "phase": "gmg_times", "n": N_MAIN, "dtype": "float32", "reps": REPS,
+        "dia_stream_spmv_level1": stream, "gmg_pcg_s_per_iter": s_per_iter,
+        "gmg_pcg_fixed_trip_s": per, "gmg_pcg_solve_s": solve_s, "gmg_pcg_iterations": out[3],
+    })
+    phase_profile("gmg_pcg_profile", gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, x0, 5)
+    return stream
+
+
+def phase_profile(name, fn, b, x0, iters):
+    """Where a fixed-trip solve's iteration goes: device time per
     iteration by kernel name (torch.profiler), and the device's idle share
     of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn = make_cg_fn(dA, 0.0, iters)
     fn(b, x0)
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -389,7 +652,7 @@ def phase_cg_profile(dA, b, x0, iters=50):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     emit({
-        "phase": "cg_profile", "iterations": iters, "wall_ms_per_iter": wall * 1e3 / iters,
+        "phase": name, "iterations": iters, "wall_ms_per_iter": wall * 1e3 / iters,
         "device_ms_per_iter": busy_ms, "idle_share": 1.0 - busy_ms * iters / (wall * 1e3),
         "by_kernel_ms_per_iter": [
             {"name": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]
@@ -406,23 +669,30 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kern = phase_kernels(backend, N_MAIN, rng)
     run, launches = phase_main(backend, N_MAIN)
+    launches["dia_coded_spmv_axpy"] = phase_pipelined(run)["dia_coded_spmv_axpy"]
     phase_multi(backend, N_MULTI, rng)
+    gmg = phase_gmg(backend, N_MAIN, rng)
+    launches["dia_stream_spmv"] = gmg["launches"]["dia_stream_spmv"]
+    err_k4_multi = phase_gmg_multi(backend, N_GMG_MULTI, rng)
     times = phase_times(backend, kern, run, N_MAIN)
+    times["dia_stream_spmv"] = phase_gmg_times(backend, gmg)
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
         "dia_coded_spmv": max(errs["dia_coded_spmv[row_class]"], errs["dia_coded_spmv[select_chain]"]),
         "dia_coded_spmv_pfold": max(errs["dia_coded_spmv_pfold[y]"], errs["dia_coded_spmv_pfold[p]"]),
+        "dia_coded_spmv_axpy": max(v for key, v in errs.items() if key.startswith("dia_coded_spmv_axpy")),
+        "dia_stream_spmv": max(gmg["err_k4"], err_k4_multi),
     }
     emit({"kernels": [
         {
-            "name": name, "route": "cuda", "source": SRC, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
             "library_ms": times[name]["library_ms"],
         }
-        for name in ("dia_coded_spmv", "dia_coded_spmv_pfold")
+        for name in KERNELS
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -2,17 +2,16 @@
 partitionedarrays_jl_tpu.
 
 Partitioned vectors and sparse matrices planned on the host, with the hot
-path on one NVIDIA card: the 3-D Poisson CG solve whose banded SpMV runs as
-hand-written CUDA kernels (`ops/dia.py`, `csrc/dia_coded.cu`). Usage
+path on one NVIDIA card: the 3-D Poisson CG solve (fused or pipelined) and
+the multigrid-preconditioned CG, whose banded SpMVs run as hand-written
+CUDA kernels (`ops/dia.py`, `csrc/dia_coded.cu`, `csrc/dia_stream.cu`). Usage
 mirrors the JAX package: ``prun(driver, gpu, (1, 1, 1))``; pass
 ``GPUBackend(device="cpu")`` to run on the CPU with the kernels' plain
 PyTorch versions.
 """
-from .models import assemble_poisson, cg, gather_pvector, manufactured_solution, poisson_fdm_driver
+from .models import *  # noqa: F401,F403
+from .models import __all__ as _models_all
 from .parallel import *  # noqa: F401,F403
 from .parallel import __all__ as _parallel_all
 
-__all__ = list(_parallel_all) + [
-    "assemble_poisson", "cg", "gather_pvector", "manufactured_solution",
-    "poisson_fdm_driver",
-]
+__all__ = list(_parallel_all) + list(_models_all)

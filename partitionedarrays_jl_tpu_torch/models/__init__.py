@@ -1,8 +1,11 @@
-"""Drivers and solvers of the port: the 3-D Poisson FDM driver and CG."""
+"""Drivers and solvers of the port: the 3-D Poisson FDM driver, CG and
+PCG, and the geometric multigrid hierarchy."""
+from .gmg import GMGHierarchy, gmg_hierarchy, gmg_solve
 from .poisson_fdm import assemble_poisson, manufactured_solution, poisson_fdm_driver
-from .solvers import cg, gather_pvector
+from .solvers import cg, decouple_dirichlet, gather_psparse, gather_pvector, pcg
 
 __all__ = [
-    "assemble_poisson", "cg", "gather_pvector", "manufactured_solution",
+    "GMGHierarchy", "assemble_poisson", "cg", "decouple_dirichlet", "gather_psparse",
+    "gather_pvector", "gmg_hierarchy", "gmg_solve", "manufactured_solution", "pcg",
     "poisson_fdm_driver",
 ]

@@ -1,10 +1,14 @@
-"""Distributed CG over the PData algebra.
+"""Distributed CG and PCG over the PData algebra.
 
 The port's copy of the parts of `partitionedarrays_jl_tpu/models/solvers.py`
-the Poisson slice needs (solvers.py:290-393, :410-522, :957): `cg`
-dispatches a GPU-backend right-hand side to `parallel/gpu.py:gpu_cg` and
-runs the host CG loop for anything else; `gather_pvector` collects owned
-values on MAIN.
+that the Poisson and multigrid slices need (solvers.py:290-522, :939-1066,
+:1345-1674): `cg` dispatches a GPU-backend right-hand side to
+`parallel/gpu.py:gpu_cg` (fused, standard or pipelined body) and runs the
+host CG loop for anything else; `pcg` sends a `GMGHierarchy`
+preconditioner on the GPU backend to `parallel/gpu_gmg.py:gpu_gmg_pcg`
+and runs the host PCG loop for a callable preconditioner on any backend;
+`decouple_dirichlet` symmetrizes a Dirichlet-identity system;
+`gather_psparse`/`gather_pvector` collect on MAIN, where `PLU` factors.
 """
 from __future__ import annotations
 
@@ -12,8 +16,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..ops.sparse import CSRMatrix, compresscoo
 from ..parallel.backends import map_parts
-from ..parallel.psparse import PSparseMatrix
+from ..parallel.prange import PRange, oids_are_equal
+from ..parallel.psparse import PSparseMatrix, psparse_global_triplets
 from ..parallel.pvector import PVector, _owned, _write_owned
 from ..utils.helpers import check, krylov_info, warn_tol_below_floor
 
@@ -59,17 +65,23 @@ def cg(
     tol: float = 1e-8,
     maxiter: Optional[int] = None,
     verbose: bool = False,
-    fused: bool = True,
+    pipelined: bool = False,
+    fused: Optional[bool] = None,
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
-    ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`, fused
-    body by default); any other backend runs the host loop below, whose
-    value sequence the device bodies follow."""
+    ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
+    fused body by default, the lag-1 body with ``pipelined``, the textbook
+    body with ``fused=False``; fused and pipelined together raise); any
+    other backend runs the host loop below, whose value sequence every
+    device body follows (both flags are host no-ops)."""
     from ..parallel.gpu import GPUBackend, gpu_cg
 
     check(b is not None, "cg: a right-hand side b is required")
     if isinstance(b.values.backend, GPUBackend):
-        return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused)
+        return gpu_cg(
+            A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
+            pipelined=pipelined,
+        )
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
@@ -106,9 +118,223 @@ def cg(
     )
 
 
+def gather_psparse(A: PSparseMatrix) -> CSRMatrix:
+    """The owned-row triplets of every part compressed into the global
+    matrix (reference gather(A): src/Interfaces.jl:2664-2704)."""
+    gi_all, gj_all, v_all = [], [], []
+    for (gi, gj, v), iset in zip(
+        psparse_global_triplets(A).part_values(), A.rows.partition.part_values()
+    ):
+        owned = iset.lid_to_ohid[iset.gids_to_lids(gi)] >= 0
+        gi_all.append(gi[owned])
+        gj_all.append(gj[owned])
+        v_all.append(v[owned])
+    return compresscoo(
+        np.concatenate(gi_all), np.concatenate(gj_all), np.concatenate(v_all),
+        A.rows.ngids, A.cols.ngids,
+    )
+
+
 def gather_pvector(b: PVector) -> np.ndarray:
     """Owned values of every part placed at their gids (on MAIN)."""
     out = np.zeros(b.rows.ngids, dtype=b.dtype)
     for iset, vals in zip(b.rows.partition.part_values(), b.values.part_values()):
         out[iset.oid_to_gid] = _owned(iset, np.asarray(vals))
     return out
+
+
+def scatter_pvector_values(c_main: np.ndarray, rows: PRange) -> PVector:
+    """Distribute a global vector over a PRange, ghost entries included
+    (reference scatter!: src/Interfaces.jl:2734-2748)."""
+    return PVector(map_parts(lambda i: np.asarray(c_main)[i.lid_to_gid], rows.partition), rows)
+
+
+class PLU:
+    """Centralize-on-main LU factorization, reusable across solves
+    (reference PLU/lu/ldiv!: src/Interfaces.jl:2641-2662)."""
+
+    def __init__(self, A: PSparseMatrix):
+        from scipy.linalg import lu_factor
+
+        self.cols = A.cols
+        self._factors = lu_factor(_dense(gather_psparse(A)))
+
+    def solve(self, b: PVector) -> PVector:
+        from scipy.linalg import lu_solve
+
+        return scatter_pvector_values(lu_solve(self._factors, gather_pvector(b)), self.cols)
+
+
+def _dense(M: CSRMatrix) -> np.ndarray:
+    out = np.zeros(M.shape, dtype=M.dtype)
+    np.add.at(out, (M.row_of_nz(), M.indices), M.data)
+    return out
+
+
+def jacobi_preconditioner(A: PSparseMatrix) -> PVector:
+    """The inverse diagonal of A as a PVector over ``A.cols``: owned
+    entries 1/diag (zero diagonals pass through as 1), ghost entries 0."""
+    minv = PVector.full(0.0, A.cols, dtype=A.dtype)
+
+    def per_part(iset, M, mv):
+        d = np.zeros(iset.num_oids, dtype=M.data.dtype)
+        r = M.row_of_nz()
+        hits = np.nonzero(M.indices == r)[0]
+        d[r[hits]] = M.data[hits]
+        _write_owned(iset, mv, 1.0 / np.where(d == 0, 1.0, d))
+
+    map_parts(per_part, A.cols.partition, A.owned_owned_values, minv.values)
+    return minv
+
+
+def decouple_dirichlet(A: PSparseMatrix, b: Optional[PVector] = None):
+    """Symmetrize a Dirichlet-identity system without changing its
+    solution (solvers.py:1345 of the JAX package): every coupling A[i, j]
+    into a diagonal-only row j is zeroed (values only: the sparsity
+    pattern is kept, so lowerings and exchangers stay valid) and, with
+    ``b``, the boundary values g_j = b_j / A_jj fold into the right-hand
+    side: b̂_i = b_i − Σ_j A[i, j]·g_j. Returns Â, or (Â, b̂) with ``b``."""
+    if b is not None:
+        check(oids_are_equal(b.rows, A.rows), "decouple_dirichlet: b must live on A's row range")
+    # pass 1: flag = 1 at owned diagonal-only rows (nonzero diagonal, no
+    # off-diagonal values), g = b/diag there; both exchanged so each part
+    # sees its ghost columns' values
+    flag = PVector.full(0.0, A.cols, dtype=A.dtype)
+    g = PVector.full(0.0, A.cols, dtype=A.dtype)
+
+    def _classify(ci, M, fv, gv, *b_args):
+        r = M.row_of_nz()
+        diag = np.zeros(M.shape[0], dtype=M.data.dtype)
+        offsum = np.zeros(M.shape[0], dtype=M.data.dtype)
+        on = M.indices == r
+        np.add.at(diag, r[on], M.data[on])
+        np.add.at(offsum, r[~on], np.abs(M.data[~on]))
+        no = ci.num_oids
+        only = ((offsum == 0) & (diag != 0))[:no]
+        _write_owned(ci, fv, only.astype(M.data.dtype))
+        if b_args:
+            bi, bvals = b_args
+            safe = np.where(diag[:no] == 0, 1.0, diag[:no])
+            _write_owned(ci, gv, np.where(only, _owned(bi, np.asarray(bvals)) / safe, 0.0))
+
+    b_args = () if b is None else (b.rows.partition, b.values)
+    map_parts(_classify, A.cols.partition, A.values, flag.values, g.values, *b_args)
+    if b is not None:
+        g.exchange()
+    flag.exchange()
+
+    # pass 2: one kill mask per part drives the value strip and the lift
+    b_hat = None if b is None else PVector.full(0.0, b.rows, dtype=b.dtype)
+
+    def _strip_and_lift(M, fv, *b_args):
+        r = M.row_of_nz()
+        kill = (np.asarray(fv)[M.indices] != 0) & (M.indices != r)
+        if b_args:
+            gv, bi, bvals, bhv = b_args
+            corr = np.zeros(M.shape[0], dtype=M.data.dtype)
+            np.add.at(corr, r[kill], M.data[kill] * np.asarray(gv)[M.indices[kill]])
+            _write_owned(bi, bhv, _owned(bi, np.asarray(bvals)) - corr[: bi.num_oids])
+        return CSRMatrix(M.indptr, M.indices, np.where(kill, 0.0, M.data).astype(M.data.dtype), M.shape)
+
+    if b is None:
+        return PSparseMatrix(map_parts(_strip_and_lift, A.values, flag.values), A.rows, A.cols)
+    values = map_parts(
+        _strip_and_lift, A.values, flag.values, g.values, b.rows.partition, b.values,
+        b_hat.values,
+    )
+    return PSparseMatrix(values, A.rows, A.cols), b_hat
+
+
+def pcg(
+    A: PSparseMatrix,
+    b: PVector,
+    x0: Optional[PVector] = None,
+    minv=None,
+    tol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    verbose: bool = False,
+    fused: Optional[bool] = None,
+) -> Tuple[PVector, dict]:
+    """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
+    A.cols (default `jacobi_preconditioner(A)`) or a callable
+    ``minv(r) -> z``, such as a `GMGHierarchy` (one V-cycle). On the GPU
+    backend a `GMGHierarchy` built on this `A` runs as the device
+    GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532); a diagonal ``minv``
+    (Jacobi PCG) is not ported yet (ROADMAP Queue D item 5). Any other
+    callable, and every preconditioner on the host backend, runs the host
+    loop below, which the device loop follows step for step. ``fused`` is
+    refused with a GMG preconditioner on the GPU backend (its PCG body has
+    no fused variant); elsewhere it is a no-op."""
+    from ..parallel.gpu import GPUBackend
+    from .gmg import GMGHierarchy
+
+    check(b is not None, "pcg: a right-hand side b is required")
+    if minv is None:
+        minv = jacobi_preconditioner(A)
+    if isinstance(b.values.backend, GPUBackend):
+        if isinstance(minv, GMGHierarchy):
+            from ..parallel.gpu_gmg import gpu_gmg_pcg
+
+            if fused is not None:
+                raise ValueError(
+                    "pcg: the GMG-preconditioned device loop has its own PCG body "
+                    "with no fused variant: drop the fused argument"
+                )
+            check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
+            return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
+        if not callable(minv):
+            raise NotImplementedError(
+                "pcg: Jacobi PCG (a diagonal minv) on the GPU backend is not ported "
+                "yet (ROADMAP Queue D item 5); pass a GMGHierarchy or a callable"
+            )
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose)
+
+
+def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose):
+    """The host PCG recurrence (solvers.py:1556-1674 without its health,
+    checkpoint and telemetry seams)."""
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="pcg")
+    z = PVector.full(0.0, A.cols, dtype=b.dtype)
+
+    def _apply_precond():
+        if callable(minv):
+            _owned_assign(z, minv(r))
+        else:
+            _owned_zip(z, lambda _z, mv, rv: mv * rv, minv, r)
+
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    r = b.copy()
+    q = A @ x
+    _owned_update(r, lambda rv, qv: rv - qv, q)
+    _apply_precond()
+    p = PVector.full(0.0, A.cols, dtype=b.dtype)
+    _owned_assign(p, z)
+    rs = r.dot(r)
+    rz = r.dot(z)
+    rs0 = rs
+    history = [np.sqrt(rs)]
+    it = 0
+    while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
+        q = A @ p
+        alpha = rz / p.dot(q)
+        _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
+        _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
+        _apply_precond()
+        rz_new = r.dot(z)
+        rs = r.dot(r)
+        beta = rz_new / rz
+        _owned_update(p, lambda pv, zv: zv + beta * pv, z)
+        rz = rz_new
+        history.append(np.sqrt(rs))
+        it += 1
+        if verbose:
+            print(f"pcg it={it} residual={np.sqrt(rs):.3e}")
+    return x, krylov_info(
+        it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)),
+        tol, b.dtype, floor_warned,
+        final_rel=_final_true_rel(
+            A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
+            force=floor_warned,
+        ),
+    )

@@ -1,12 +1,17 @@
-"""Coded-diagonal (coded-DIA) SpMV: the CUDA kernels and their plain
-PyTorch versions.
+"""Banded (DIA) SpMV: the CUDA kernels and their plain PyTorch versions.
 
-Replaces the TPU kernel `_padded_kernel` of
-`partitionedarrays_jl_tpu/ops/pallas_dia.py`: the plain SpMV
-(`dia_coded_padded_pallas`, pallas_call at :523) becomes
-`dia_coded_spmv`, its CG direction-fold variant (``has_pfold``, pallas_call
-at :500) becomes `dia_coded_spmv_pfold`. Both decode modes are kept: the
-select-chain decode and the row-class decode (``cls_pattern``).
+Replaces the two TPU kernels of `partitionedarrays_jl_tpu/ops/pallas_dia.py`:
+
+* the coded-diagonal kernel `_padded_kernel` (`csrc/dia_coded.cu`): the
+  plain SpMV (`dia_coded_padded_pallas`, pallas_call at :523) becomes
+  `dia_coded_spmv`, its CG direction-fold variant (``has_pfold``,
+  pallas_call at :500) `dia_coded_spmv_pfold`, its lagged-axpy variant of
+  pipelined CG (``has_axpy``, pallas_call at :535) `dia_coded_spmv_axpy`.
+  Both decode modes are kept: the select-chain decode and the row-class
+  decode (``cls_pattern``);
+* the streaming-DIA kernel `_kernel` (`dia_spmv_pallas`, pallas_call at
+  :110) becomes `dia_stream_spmv` (`csrc/dia_stream.cu`): dense
+  per-diagonal values of a variable-coefficient band.
 
 Frame: the port's compact ``(P, W)`` stacked vectors, owned band at
 ``o0``; each part's owned count ``no[p]`` may differ. The result is a whole
@@ -17,13 +22,17 @@ part's owned band are predicated to 0 (the compact frame has no zero pads;
 Bound on the card (memory): at 192^3 f32, one part, the row-class SpMV
 moves 9 B/row (x, one code byte, y), 63.7 MB, about 19.0 us at 3.35 TB/s;
 the pfold variant 17 B/row (r, pprev, code byte, y, p), 120.3 MB, about
-35.9 us. The kernel design (one thread per row, codebook in shared memory,
-no FMA contraction) is noted at the head of `csrc/dia_coded.cu`.
+35.9 us; the axpy variant 21 B/row (x, code byte, y, pprev, xacc read and
+written), 148.6 MB, about 44.4 us. The streaming SpMV at GMG level 1 of
+192^3 (96^3 rows, 27 diagonals, f32) moves 116 B/row, 102.6 MB, about
+30.6 us. The kernel designs (one thread per row, no FMA contraction) are
+noted at the head of each `csrc/` file.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises. Each kernel counts its launches in `LAUNCHES`.
-The library is built with nvcc at first use into ``build/pa_torch_kernels/``
-and bound with ctypes.
+Each `csrc/*.cu` is built with nvcc at first use into
+``build/pa_torch_kernels/`` (all sources at once, one nvcc each) and bound
+with ctypes.
 """
 from __future__ import annotations
 
@@ -40,19 +49,24 @@ import numpy as np
 import torch
 
 #: kernel launches since the last reset, per wrapper
-LAUNCHES = {"dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0}
+LAUNCHES = {
+    "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0, "dia_coded_spmv_axpy": 0,
+    "dia_stream_spmv": 0,
+}
 
 MAX_DIAGS = 64
 MAX_CLASSES = 16
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "dia_coded.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: the kernel sources, one shared library each
+SOURCES = ("dia_coded", "dia_stream")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
+_libs = None
 #: nvcc's output (ptxas register / shared-memory report) of the last build
 BUILD_LOG = ""
 
@@ -165,6 +179,43 @@ def dia_coded_spmv_pfold_plain(
     return y, p
 
 
+def dia_coded_spmv_axpy_plain(
+    op: CodedOperator, x: torch.Tensor, xacc: torch.Tensor, pprev: torch.Tensor,
+    alpha: torch.Tensor, width: int,
+) -> torch.Tensor:
+    """Plain version of `dia_coded_spmv_axpy`: the lagged update of
+    `_spmv_body(axpy=True)`'s fallback (parallel/tpu.py:3246-3252),
+    ``xacc += alpha*pprev`` on each part's owned band, in place, then
+    `dia_coded_spmv_plain` of x. Returns y."""
+    n, o0 = op.n, op.o0
+    own = _owned_mask(op, x.device)
+    band = xacc[:, o0 : o0 + n]
+    band.copy_(torch.where(own, band + alpha * pprev[:, o0 : o0 + n], band))
+    return dia_coded_spmv_plain(op, x, width)
+
+
+def dia_stream_spmv_plain(
+    vals: torch.Tensor, x: torch.Tensor, offsets: Tuple[int, ...], no: torch.Tensor,
+    o0: int, width: int,
+) -> torch.Tensor:
+    """Plain version of `dia_stream_spmv` (`_dia_rowsum`,
+    parallel/tpu.py:2960-2975, on the stacked frame): the ascending-offset
+    sum of ``vals[:, d] * shift(x, off_d)`` over each part's owned band,
+    reads outside it predicated to 0."""
+    n = vals.shape[-1]
+    own = torch.arange(n, device=x.device)[None, :] < no.to(x.device)[:, None]
+    xo = torch.where(own, x[:, o0 : o0 + n], 0)
+    pad = max(abs(int(o)) for o in offsets)
+    xp = torch.nn.functional.pad(xo, (pad, pad))
+    acc = None
+    for d, off in enumerate(offsets):
+        term = vals[:, d, :] * xp[:, pad + off : pad + off + n]
+        acc = term if acc is None else acc + term
+    y = x.new_zeros((x.shape[0], width))
+    y[:, o0 : o0 + n] = torch.where(own, acc, 0)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -197,38 +248,66 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile csrc/dia_coded.cu for sm_90a (once per source content) and
-    load it. Raises if nvcc fails."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libpa_dia_coded_{tag}.so"
-    if not so.exists():
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+class _StreamParams(ctypes.Structure):
+    """Mirror of `PaStreamParams` in csrc/dia_stream.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("off", ctypes.c_int * MAX_DIAGS),
+    ]
+
+
+def _bind(lib: ctypes.CDLL, name: str, params, nptr: int) -> None:
     vp = ctypes.c_void_p
-    pp = ctypes.POINTER(_Params)
     for dt in ("f32", "f64"):
-        f = getattr(lib, f"pa_dia_coded_{dt}")
-        f.argtypes = [pp, vp, vp, vp, vp, vp, vp]
+        f = getattr(lib, f"{name}_{dt}")
+        f.argtypes = [ctypes.POINTER(params)] + [vp] * nptr
         f.restype = ctypes.c_int
-        g = getattr(lib, f"pa_dia_coded_pfold_{dt}")
-        g.argtypes = [pp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        g.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+def build_kernels() -> dict:
+    """Compile every csrc/*.cu for sm_90a (once per content of all the
+    sources; one nvcc per source, all started together) and load them.
+    Returns the libraries by source name. Raises if nvcc fails."""
+    global _libs, BUILD_LOG
+    if _libs is not None:
+        return _libs
+    srcs = {name: _CSRC / f"{name}.cu" for name in SOURCES}
+    blob = b"".join(srcs[n].read_bytes() for n in SOURCES)
+    tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sos = {name: BUILD_DIR / f"libpa_{name}_{tag}.so" for name in SOURCES}
+    procs = {}
+    for name in SOURCES:
+        if not sos[name].exists():
+            tmp = BUILD_DIR / f".{sos[name].name}.{os.getpid()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {name}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, sos[name])
+    BUILD_LOG = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{BUILD_LOG}")
+    libs = {name: ctypes.CDLL(str(sos[name])) for name in SOURCES}
+    _bind(libs["dia_coded"], "pa_dia_coded", _Params, 6)
+    _bind(libs["dia_coded"], "pa_dia_coded_pfold", _Params, 9)
+    _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 9)
+    _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
+    _libs = libs
+    return libs
 
 
 _DT = {torch.float32: "f32", torch.float64: "f64"}
@@ -291,7 +370,7 @@ def dia_coded_spmv(op: CodedOperator, x: torch.Tensor, width: Optional[int] = No
     dt = _check_cuda(op, x)
     y = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
     prm = _params(op, x.shape[1], width)
-    fn = getattr(build_kernels(), f"pa_dia_coded_{dt}")
+    fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_{dt}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
         x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
@@ -322,7 +401,7 @@ def dia_coded_spmv_pfold(
     y = torch.empty((r.shape[0], width), dtype=r.dtype, device=r.device)
     p = torch.empty_like(r)
     prm = _params(op, r.shape[1], width)
-    fn = getattr(build_kernels(), f"pa_dia_coded_pfold_{dt}")
+    fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_pfold_{dt}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
         r.data_ptr(), pprev.data_ptr(), beta.data_ptr(), y.data_ptr(), p.data_ptr(),
@@ -331,3 +410,80 @@ def dia_coded_spmv_pfold(
     _raise_on(rc, "dia_coded_spmv_pfold")
     LAUNCHES["dia_coded_spmv_pfold"] += 1
     return y, p
+
+
+def dia_coded_spmv_axpy(
+    op: CodedOperator, x: torch.Tensor, xacc: torch.Tensor, pprev: torch.Tensor,
+    alpha: torch.Tensor, width: Optional[int] = None,
+) -> torch.Tensor:
+    """The lagged solution update of pipelined CG riding the SpMV pass:
+    y = A_oo x, and in the same pass ``xacc += alpha*pprev`` on each
+    part's owned band, in place (every other slot of xacc untouched).
+    xacc and pprev share x's frame; y has `width` slots (default x's
+    width). Returns y."""
+    width = x.shape[1] if width is None else int(width)
+    if x.device.type == "cpu":
+        return dia_coded_spmv_axpy_plain(op, x, xacc, pprev, alpha, width)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dia_coded_spmv_axpy: no kernel for device {x.device}")
+    alpha = alpha.reshape(1)
+    dt = _check_cuda(op, x, xacc, pprev)
+    if alpha.device != x.device or alpha.dtype != x.dtype:
+        raise ValueError("dia_coded_spmv_axpy: alpha must be a scalar tensor on x's device, of x's dtype")
+    if xacc.shape != x.shape or pprev.shape != x.shape:
+        raise ValueError("dia_coded_spmv_axpy: xacc, pprev and x must share one frame")
+    ptrs = {x.data_ptr(), pprev.data_ptr()}
+    if xacc.data_ptr() in ptrs:
+        raise ValueError("dia_coded_spmv_axpy: xacc is updated in place and must not alias x or pprev")
+    y = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
+    prm = _params(op, x.shape[1], width)
+    fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_axpy_{dt}")
+    rc = fn(
+        ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
+        x.data_ptr(), pprev.data_ptr(), alpha.data_ptr(), y.data_ptr(), xacc.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "dia_coded_spmv_axpy")
+    LAUNCHES["dia_coded_spmv_axpy"] += 1
+    return y
+
+
+def dia_stream_spmv(
+    vals: torch.Tensor, x: torch.Tensor, offsets: Tuple[int, ...], no: torch.Tensor,
+    o0: int, width: Optional[int] = None,
+) -> torch.Tensor:
+    """y = A_oo x for a streaming-DIA operand: vals (P, D, N) dense
+    per-diagonal values in ascending-offset order, no (P,) int32 owned
+    counts, x (P, Wx) -> y (P, width) with the owned band computed and
+    every other slot 0 (width defaults to Wx)."""
+    width = x.shape[1] if width is None else int(width)
+    if x.device.type == "cpu":
+        return dia_stream_spmv_plain(vals, x, offsets, no, o0, width)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dia_stream_spmv: no kernel for device {x.device}")
+    if x.dtype not in _DT:
+        raise TypeError(f"streaming-DIA kernel takes float32 or float64, got {x.dtype}")
+    P, D, n = vals.shape
+    if D != len(offsets) or D > MAX_DIAGS:
+        raise ValueError(f"streaming-DIA kernel: {D} value rows for {len(offsets)} offsets (at most {MAX_DIAGS})")
+    for t in (vals, x):
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("streaming-DIA kernel: vals and x must be contiguous, on one device, of one dtype")
+    if no.device != x.device or no.dtype != torch.int32 or tuple(no.shape) != (P,):
+        raise ValueError("streaming-DIA kernel: no must be (P,) int32 on the operand's device")
+    if x.dim() != 2 or x.shape[0] != P or x.shape[1] < o0 + n or width < o0 + n:
+        raise ValueError(f"streaming-DIA kernel: frame {tuple(x.shape)} does not hold {P} parts of {n} rows")
+    prm = _StreamParams()
+    prm.P, prm.D, prm.n = P, D, n
+    prm.wx, prm.wy, prm.o0 = x.shape[1], width, o0
+    for d in range(D):
+        prm.off[d] = int(offsets[d])
+    y = torch.empty((P, width), dtype=x.dtype, device=x.device)
+    fn = getattr(build_kernels()["dia_stream"], f"pa_dia_stream_{_DT[x.dtype]}")
+    rc = fn(
+        ctypes.byref(prm), vals.data_ptr(), no.data_ptr(), x.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "dia_stream_spmv")
+    LAUNCHES["dia_stream_spmv"] += 1
+    return y

@@ -27,13 +27,14 @@ from .index_sets import AbstractIndexSet
 
 
 class Exchanger:
-    __slots__ = ("parts_rcv", "parts_snd", "lids_rcv", "lids_snd")
+    __slots__ = ("parts_rcv", "parts_snd", "lids_rcv", "lids_snd", "_reverse")
 
     def __init__(self, parts_rcv, parts_snd, lids_rcv, lids_snd):
         self.parts_rcv = parts_rcv
         self.parts_snd = parts_snd
         self.lids_rcv = lids_rcv
         self.lids_snd = lids_snd
+        self._reverse = None
 
     @classmethod
     def from_partition(
@@ -97,6 +98,16 @@ class Exchanger:
         e_parts = map_parts(lambda _: np.empty(0, dtype=INDEX_DTYPE), parts)
         e_lids = map_parts(lambda _: Table.empty(INDEX_DTYPE), parts)
         return cls(e_parts, e_parts, e_lids, e_lids)
+
+    def reverse(self) -> "Exchanger":
+        """Halo-update plan -> ghost->owner assembly plan (cached): the
+        senders become the receivers and the lid lists swap sides
+        (exchanger.py:160 of the JAX package)."""
+        if self._reverse is None:
+            rev = Exchanger(self.parts_snd, self.parts_rcv, self.lids_snd, self.lids_rcv)
+            rev._reverse = self
+            self._reverse = rev
+        return self._reverse
 
     def __repr__(self):
         return "Exchanger(...)"

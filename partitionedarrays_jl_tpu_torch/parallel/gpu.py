@@ -1,7 +1,7 @@
 """GPU backend: the parts of a partition stacked on one CUDA card (L3').
 
 The counterpart of `partitionedarrays_jl_tpu/parallel/tpu.py`, cut to the
-3-D Poisson CG slice:
+Poisson CG and multigrid slices:
 
 * **Planning on the host.** `GPUData` extends the sequential PData, so
   PRange construction, Exchanger build and COO assembly run unchanged; only
@@ -12,13 +12,18 @@ The counterpart of `partitionedarrays_jl_tpu/parallel/tpu.py`, cut to the
   (`DeviceExchangePlan`): per round one gather of the send slots, one copy
   between parts, one scatter into the ghost slots; the trash slot is zeroed
   after each round.
-* **Operator.** `DeviceMatrix` lowers a PSparseMatrix to the coded-DIA form
-  (codebook + nibble-packed per-row codes) of its owned block A_oo, and a
-  compact boundary-row ELL of its ghost block A_oh. A_oo runs as the CUDA
-  kernels of `ops/dia.py`.
-* **CG.** `make_cg_fn` runs the textbook or the fused body (direction fold
-  riding the SpMV kernel) as a Python loop that reads the convergence test
-  once per iteration; dots are per-part partials folded in part order.
+* **Operator.** `DeviceMatrix` lowers a PSparseMatrix's owned block A_oo
+  to the coded-DIA form (codebook + nibble-packed per-row codes) or, for a
+  band of variable coefficients, the streaming-DIA form (dense
+  per-diagonal values), and its ghost block A_oh to a compact
+  boundary-row ELL. A_oo runs as the CUDA kernels of `ops/dia.py`.
+* **Halo exchange.** Combine ``set`` (owner -> ghost) and ``add`` (ghost
+  -> owner assembly, over the reversed plan).
+* **CG.** `make_cg_fn` runs the textbook, the fused (direction fold riding
+  the SpMV kernel) or the pipelined body (the lagged solution update
+  riding the SpMV kernel) as a Python loop that reads the convergence
+  test once per iteration; dots are per-part partials folded in part
+  order. Multigrid on the card is `parallel/gpu_gmg.py`.
 
 The device defaults to ``cuda``; with no card it raises at first use and
 never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
@@ -212,24 +217,38 @@ class DeviceExchangePlan:
         self.src_of = torch.from_numpy(src_of).to(device)
 
 
-def device_exchange_plan(rows: PRange, backend: GPUBackend) -> DeviceExchangePlan:
-    """The halo plan of a PRange on a backend's device, cached on it."""
+def device_exchange_plan(rows: PRange, backend: GPUBackend, reverse: bool = False) -> DeviceExchangePlan:
+    """The halo plan of a PRange on a backend's device, cached on it;
+    ``reverse`` gives the ghost -> owner assembly plan of
+    ``rows.exchanger.reverse()`` (for combine ``add``)."""
     cache = getattr(rows, "_device_plan", None)
     if cache is None:
         cache = rows._device_plan = {}
-    if backend not in cache:
-        cache[backend] = DeviceExchangePlan(rows.exchanger, device_layout(rows), backend.device)
-    return cache[backend]
+    key = (backend, reverse)
+    if key not in cache:
+        ex = rows.exchanger.reverse() if reverse else rows.exchanger
+        cache[key] = DeviceExchangePlan(ex, device_layout(rows), backend.device)
+    return cache[key]
 
 
-def exchange_(plan: DeviceExchangePlan, xv: torch.Tensor) -> torch.Tensor:
-    """Owner -> ghost halo update of a stacked ``(P, W)`` tensor, in place
-    (combine ``set``, tpu.py:_shard_exchange)."""
+def exchange_(plan: DeviceExchangePlan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
+    """The plan's exchange on a stacked ``(P, W)`` tensor, in place
+    (tpu.py:_shard_exchange): combine ``set`` is the owner -> ghost halo
+    update; ``add`` (over a plan built from ``Exchanger.reverse()``)
+    accumulates ghost contributions into their owners, round by round,
+    and then zeroes the ghost region. The trash slot is zeroed after every
+    round."""
+    check(combine in ("set", "add"), "exchange_: combine is 'set' or 'add'")
     trash = plan.layout.trash
     for r in range(plan.R):
-        buf = torch.where(plan.snd_mask[r], xv.gather(1, plan.snd_idx[r]), 0)
-        xv.scatter_(1, plan.rcv_idx[r], buf[plan.src_of[r]])
+        buf = torch.where(plan.snd_mask[r], xv.gather(1, plan.snd_idx[r]), 0)[plan.src_of[r]]
+        if combine == "add":
+            xv.scatter_add_(1, plan.rcv_idx[r], buf)
+        else:
+            xv.scatter_(1, plan.rcv_idx[r], buf)
         xv[:, trash] = 0  # keep the trash slot clean
+    if combine == "add":
+        xv[:, plan.layout.g0 :] = 0  # ghost contributions now live on owners
     return xv
 
 
@@ -288,10 +307,13 @@ class DeviceVector:
 
 def band_offsets(indptr, cols, m: int, K: int):
     """Sorted distinct band offsets (j - i) of a CSR, capped at K: returns
-    ``(offsets, ok)``, ok=False when more than K exist."""
+    ``(offsets, ok)``, ok=False when more than K exist. Counted with one
+    bincount over the offset range (no sort of the nonzeros)."""
     ip = np.asarray(indptr)
     r = np.repeat(np.arange(m, dtype=np.int64), np.diff(ip[: m + 1]))
-    u = np.unique(np.asarray(cols, dtype=np.int64) - r)
+    d = np.asarray(cols, dtype=np.int64) - r
+    lo = int(d.min())
+    u = np.flatnonzero(np.bincount(d - lo)) + lo
     return (u, True) if len(u) <= K else (None, False)
 
 
@@ -303,8 +325,15 @@ def unique_small(vals: np.ndarray, K: int):
 
 def row_classes(dia_p: np.ndarray, n: int, K: int):
     """Row classes (distinct column tuples) of dia_p[:, :n], capped at K:
-    ``(class_table, codes, ok)`` with classes in lexicographic order."""
-    u, inv = np.unique(dia_p[:, :n].T, axis=0, return_inverse=True)
+    ``(class_table, codes, ok)`` with classes in lexicographic order.
+    Rows with distinct projections on a fixed random direction are
+    distinct, so more than K distinct projections refuse without sorting
+    the rows themselves."""
+    rows = dia_p[:, :n].T
+    w = np.random.default_rng(0).standard_normal(rows.shape[1])
+    if len(np.unique(rows @ w)) > K:
+        return None, None, False
+    u, inv = np.unique(rows, axis=0, return_inverse=True)
     if len(u) > K:
         return None, None, False
     return u, inv.reshape(-1).astype(np.uint8), True
@@ -316,8 +345,11 @@ def row_classes(dia_p: np.ndarray, n: int, K: int):
 
 
 class DeviceMatrix:
-    """A PSparseMatrix lowered for the card: A_oo as a coded-DIA operand
-    (`ops/dia.py:CodedOperator`), A_oh as compact boundary-row ELL arrays
+    """A PSparseMatrix lowered for the card: A_oo as a band, either a
+    coded-DIA operand (`ops/dia.py:CodedOperator`, ``dia_mode == "coded"``)
+    when every diagonal holds few distinct values, or dense per-diagonal
+    values ``(P, D, no_max)`` (``dia_mode == "stream"``, tpu.py:1688-1726
+    in its off-TPU form) otherwise; A_oh as compact boundary-row ELL arrays
     ``(P, nb_max[, L])`` whose columns index the column frame."""
 
     #: most band offsets of the DIA form (tpu.py:DeviceMatrix)
@@ -335,12 +367,11 @@ class DeviceMatrix:
         oo = A.owned_owned_values.part_values()
         oh = A.owned_ghost_values.part_values()
         det = self._detect_dia(A, oo, P, noids, no_max)
-        if det is None or not det["coded_ok"]:
+        if det is None:
             raise NotImplementedError(
-                "DeviceMatrix: this operator is not a coded band (square A_oo, "
-                f"<= {self.DIA_MAX_OFFSETS} diagonals of <= {self.CODE_MAX_VALUES} "
-                "values each); its ELL/SD/BSR or streaming-DIA lowering comes "
-                "in a later slice of the port"
+                "DeviceMatrix: this operator is not a band (square A_oo, "
+                f"<= {self.DIA_MAX_OFFSETS} diagonals); its ELL/SD/BSR "
+                "lowering comes in a later slice of the port"
             )
         self.rows, self.cols = A.rows, A.cols
         self.backend = backend
@@ -372,6 +403,20 @@ class DeviceMatrix:
             self.oh_rows = torch.from_numpy(oh_rows).to(dev)
             self.oh_vals = torch.from_numpy(oh_vals).to(dev)
             self.oh_cols = torch.from_numpy(oh_cols).to(dev)
+
+        self.dia_offsets = tuple(int(o) for o in det["offsets"])
+        self.coded = self.stream_vals = self.stream_no = None
+        self.dia_kk = self.dia_code_row = self.dia_cls_pattern = None
+        if not det["coded_ok"]:
+            # streaming-DIA staging: the dense per-diagonal values,
+            # diagonal-major so a kernel's neighbouring rows read
+            # neighbouring values
+            self.dia_mode = "stream"
+            self.stream_vals = torch.from_numpy(
+                np.ascontiguousarray(det["dia"].astype(dt))
+            ).to(dev)
+            self.stream_no = torch.from_numpy(noids.astype(np.int32)).to(dev)
+            return
 
         # coded-DIA staging (tpu.py:1584-1687)
         offsets, dia_, uniq, kk = det["offsets"], det["dia"], det["uniq"], det["kk"]
@@ -410,7 +455,6 @@ class DeviceMatrix:
                 for k in range(kmax)
             )
         self.dia_mode = "coded"
-        self.dia_offsets = tuple(int(o) for o in offsets)
         self.dia_kk = tuple(int(k) for k in kk)
         self.dia_code_row = tuple(int(c) for c in code_row)
         self.dia_cls_pattern = cls_pattern
@@ -520,20 +564,37 @@ def device_matrix(A: PSparseMatrix, backend: GPUBackend) -> DeviceMatrix:
 # ---------------------------------------------------------------------------
 
 
-def _spmv_body(dA: DeviceMatrix, pfold: bool = False, plain: bool = False):
+def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
+               plain: bool = False):
     """The stacked SpMV (tpu.py:_spmv_body): the A_oo product first (it
     reads owned slots only), then the halo exchange of the operand, then
     the A_oh contribution on the boundary rows and the ghost region of the
     result zeroed (`_finish`). The operand's ghost slots are refreshed in
-    place. ``pfold`` gives ``body(r, pprev, beta) -> (A p, p)`` with
-    ``p = r + beta*pprev``. ``plain`` runs the plain versions of the
-    kernels on the same tensors (the comparison path)."""
+    place. A coded operator runs the coded-DIA kernel, a streaming one the
+    streaming-DIA kernel (`_dia_rowsum`, tpu.py:2960-2975). ``pfold``
+    gives ``body(r, pprev, beta) -> (A p, p)`` with ``p = r + beta*pprev``;
+    ``axpy`` gives ``body(x, xacc, pprev, alpha) -> (A x, xacc)`` with the
+    lagged update ``xacc += alpha*pprev`` applied in place on the owned
+    band (tpu.py:3237-3256; both coded only). ``plain`` runs the plain
+    versions of the kernels on the same tensors (the comparison path)."""
     op = dA.coded
     wy = dA.row_layout.W
     g0 = dA.row_layout.g0
     plan = dA.col_plan
-    spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
+    check(
+        dA.dia_mode == "coded" or not (pfold or axpy),
+        "the fused and pipelined CG bodies need a coded-DIA operator",
+    )
+    if dA.dia_mode == "stream":
+        stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
+        o0 = dA.row_layout.o0
+
+        def spmv_k(_op, xv, width):
+            return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width)
+    else:
+        spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
     pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
+    axpy_k = dia.dia_coded_spmv_axpy_plain if plain else dia.dia_coded_spmv_axpy
 
     def _finish(y, xv):
         exchange_(plan, xv)
@@ -554,7 +615,10 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, plain: bool = False):
         y, p = pfold_k(op, rv, pv, beta, wy)
         return _finish(y, p), p
 
-    return body_pfold if pfold else body
+    def body_axpy(xv, xacc, pprev, alpha):
+        return _finish(axpy_k(op, xv, xacc, pprev, alpha, wy), xv), xacc
+
+    return body_pfold if pfold else body_axpy if axpy else body
 
 
 def make_spmv_fn(dA: DeviceMatrix) -> Callable:
@@ -588,19 +652,26 @@ def _pdot_factory(o0: int, no_max: int):
     return pdot
 
 
-def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: bool = True,
-               plain: bool = False) -> Callable:
+def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
+               pipelined: bool = False, plain: bool = False) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``. The stopping rule is the JAX
-    package's (tpu.py:cond_fused/cond): continue while
+    package's (tpu.py:cond_fused/cond/cond_pipe): continue while
     ``sqrt(rs) > tol*max(1, sqrt(rs0))``, ``it < maxiter`` and rs is
     finite, evaluated on the device in the working dtype and read once per
-    iteration. ``fused`` (the default) folds the direction update
-    ``p = r + beta*p`` into the next SpMV kernel (tpu.py:4054-4123);
-    otherwise the textbook body runs (tpu.py:4125-4170). Both follow the
-    same scalar recurrence, so they take the same iterations."""
+    iteration. ``fused`` (the default unless ``pipelined``) folds the
+    direction update ``p = r + beta*p`` into the next SpMV kernel
+    (tpu.py:4054-4123); ``pipelined`` applies the solution update
+    ``x += alpha*p`` one iteration late, inside the next SpMV kernel's pass,
+    with one flush after the loop (tpu.py:4278-4313); otherwise the
+    textbook body runs (tpu.py:4125-4170). All three follow the same
+    scalar recurrence, so they take the same iterations."""
+    fused = (not pipelined) if fused is None else bool(fused)
+    if fused and pipelined:
+        raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
     body = _spmv_body(dA, plain=plain)
-    body_pfold = _spmv_body(dA, pfold=True, plain=plain)
+    body_pfold = _spmv_body(dA, pfold=True, plain=plain) if fused else None
+    body_axpy = _spmv_body(dA, axpy=True, plain=plain) if pipelined else None
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
     pdot = _pdot_factory(o0, no_max)
@@ -614,33 +685,43 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: bool = True,
         thr = tol * torch.clamp(torch.sqrt(rs0), min=1.0)
         rs = rs0
         hist = [torch.sqrt(rs0)]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
         if fused:
-            pprev = torch.zeros_like(x)
-            beta = torch.zeros((), dtype=x.dtype, device=x.device)
+            pprev, beta = torch.zeros_like(x), zero
         else:
             p = torch.zeros_like(x)
             p[:, sl] = r[:, sl]
+        if pipelined:
+            pprev, alpha_prev = torch.zeros_like(x), zero
         it = 0
         while it < maxiter and bool(((torch.sqrt(rs) > thr) & torch.isfinite(rs)).item()):
             if fused:
                 q, p = body_pfold(r, pprev, beta)
-                alpha = rs / pdot(p, q)
-                x[:, sl] = x[:, sl] + alpha * p[:, sl]
-                r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
-                rs_new = pdot(r, r)
-                beta = rs_new / rs
-                pprev = p
+            elif pipelined:
+                # the SpMV also flushes last iteration's x update
+                q, x = body_axpy(p, x, pprev, alpha_prev)
             else:
                 q = body(p)
-                alpha = rs / pdot(p, q)
+            alpha = rs / pdot(p, q)
+            if not pipelined:
                 x[:, sl] = x[:, sl] + alpha * p[:, sl]
-                r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
-                rs_new = pdot(r, r)
-                beta = rs_new / rs
+            r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
+            rs_new = pdot(r, r)
+            beta = rs_new / rs
+            if fused:
+                pprev = p
+            elif pipelined:
+                pnew = torch.zeros_like(p)
+                pnew[:, sl] = r[:, sl] + beta * p[:, sl]
+                pprev, alpha_prev, p = p, alpha, pnew
+            else:
                 p[:, sl] = r[:, sl] + beta * p[:, sl]
             rs = rs_new
             it += 1
             hist.append(torch.sqrt(rs))
+        if pipelined:
+            # flush the final lagged update (a no-op after zero iterations)
+            x[:, sl] = x[:, sl] + alpha_prev * pprev[:, sl]
         return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
 
     return fn
@@ -656,37 +737,26 @@ def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
     return torch.from_numpy(stacked).to(dA.backend.device)
 
 
-def gpu_cg(
-    A: PSparseMatrix,
-    b: PVector,
-    x0: Optional[PVector] = None,
-    tol: float = 1e-8,
-    maxiter: Optional[int] = None,
-    verbose: bool = False,
-    fused: bool = True,
-    plain: bool = False,
-) -> Tuple[PVector, dict]:
-    """Device CG on the GPU backend, the counterpart of `tpu_cg`
-    (tpu.py:5952). ``plain=True`` runs the kernels' plain versions on the
-    card instead (the comparison path of chip_smoke.py). The info dict
-    records the body under ``cg_body``."""
+def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
+                verbose: bool, solve: Callable, name: str, **extra) -> Tuple[PVector, dict]:
+    """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
+    the matrix's column layout, run ``solve(b, x0) -> (x, rs, rs0, it,
+    history)``, lift the result back to a host PVector and build the info
+    dict (``extra`` keys merge into it)."""
     from ..models.solvers import _final_true_rel
 
     backend = b.values.backend
-    check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
-    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name=name)
     dA = device_matrix(A, backend)
     x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
-    solve = make_cg_fn(dA, tol, int(maxiter), fused=fused, plain=plain)
     x_data, rs, rs0, it, hist = solve(db, dx0.data)
     x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
     rs, rs0 = float(rs), float(rs0)
     if verbose:
         for i, res in enumerate(hist[1:], start=1):
-            print(f"cg it={i} residual={res:.3e}")
+            print(f"{name} it={i} residual={res:.3e}")
     converged = bool(np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)))
     info = krylov_info(
         it, hist, converged, tol, b.dtype, floor_warned,
@@ -694,6 +764,35 @@ def gpu_cg(
             A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
             force=floor_warned,
         ),
-        cg_body="fused" if fused else "standard",
+        **extra,
     )
     return x, info
+
+
+def gpu_cg(
+    A: PSparseMatrix,
+    b: PVector,
+    x0: Optional[PVector] = None,
+    tol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    verbose: bool = False,
+    fused: Optional[bool] = None,
+    pipelined: bool = False,
+    plain: bool = False,
+) -> Tuple[PVector, dict]:
+    """Device CG on the GPU backend, the counterpart of `tpu_cg`
+    (tpu.py:5952): the fused body by default, the lag-1 form with
+    ``pipelined``, the textbook body with ``fused=False``. ``plain=True``
+    runs the kernels' plain versions on the card instead (the comparison
+    path of chip_smoke.py). The info dict records the body under
+    ``cg_body``."""
+    backend = b.values.backend
+    check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    fused = (not pipelined) if fused is None else bool(fused)
+    solve = make_cg_fn(
+        device_matrix(A, backend), tol, int(maxiter), fused=fused, pipelined=pipelined,
+        plain=plain,
+    )
+    body = "pipelined" if pipelined else "fused" if fused else "standard"
+    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", cg_body=body)

@@ -385,16 +385,20 @@ class CartesianIndexSet(IndexSet):
         gids = np.ascontiguousarray(gids).ravel()
         out = np.full(gids.shape, -1, dtype=INDEX_DTYPE)
         ng = math.prod(self.grid_shape)
-        coords = np.unravel_index(np.clip(gids, 0, ng - 1), self.grid_shape)
         owned = (gids >= 0) & (gids < ng)
-        local = []
-        for c, lo, hi in zip(coords, self.box_lo, self.box_hi):
-            owned &= (c >= lo) & (c < hi)
-            local.append(c - lo)
-        if self.box_shape and min(self.box_shape) > 0:
-            out[owned] = np.ravel_multi_index(
-                [l[owned] for l in local], self.box_shape
-            ).astype(INDEX_DTYPE)
+        if self.box_shape == self.grid_shape:
+            # the box is the whole grid: the owned lid is the gid
+            out[owned] = gids[owned]
+        else:
+            coords = np.unravel_index(np.clip(gids, 0, ng - 1), self.grid_shape)
+            local = []
+            for c, lo, hi in zip(coords, self.box_lo, self.box_hi):
+                owned &= (c >= lo) & (c < hi)
+                local.append(c - lo)
+            if self.box_shape and min(self.box_shape) > 0:
+                out[owned] = np.ravel_multi_index(
+                    [l[owned] for l in local], self.box_shape
+                ).astype(INDEX_DTYPE)
         sorted_gids, lid_of = self._index()
         if len(sorted_gids):
             rest = out < 0

@@ -245,11 +245,30 @@ def _extended_dim(
     return ext[keep], ext[keep]
 
 
+class _StridedGidToPart:
+    """gid -> owner for an agglomerated Cartesian partition: the reduced
+    grid's owner coordinate maps back to the full part grid at
+    ``coord * stride`` (only stride-aligned parts own cells)."""
+
+    def __init__(self, inner: CartesianGidToPart, pshape, stride):
+        self.inner = inner
+        self.pshape = tuple(pshape)
+        self.stride = tuple(stride)
+
+    def __call__(self, gids):
+        sub = self.inner(gids)
+        sc = np.unravel_index(sub, self.inner.part_shape)
+        full = tuple(c * s for c, s in zip(sc, self.stride))
+        return np.ravel_multi_index(full, self.pshape).astype(INDEX_DTYPE)
+
+
 def cartesian_partition(
     parts: AbstractPData,
     ngids: Sequence[int],
     ghost=no_ghost,
     periodic: Optional[Sequence[bool]] = None,
+    part_stride: Optional[Sequence[int]] = None,
+    dim_firsts: Optional[Sequence[Sequence[int]]] = None,
 ) -> PRange:
     """N-D Cartesian block partition (reference:
     src/Interfaces.jl:1114-1231): plain (`no_ghost`), or with a 1-cell halo
@@ -257,7 +276,15 @@ def cartesian_partition(
     neighbors included), optionally with periodic wrap per dimension.
 
     The halo neighbor graph is symmetric, so the Exchanger reuses
-    `parts_rcv` as `parts_snd` (reference: src/Interfaces.jl:1191)."""
+    `parts_rcv` as `parts_snd` (reference: src/Interfaces.jl:1191).
+
+    ``part_stride`` agglomerates the partition onto the sub-grid of parts
+    whose coordinates are multiples of the stride; every other part owns
+    nothing. ``dim_firsts`` overrides the balanced per-dim block cuts: one
+    ascending int sequence per dimension, ``firsts[0] == 0``, one entry per
+    part along that dim (zero-size blocks allowed); the multigrid hierarchy
+    passes the aligned coarse cuts ``ceil(fine_cut / 2)``. The two are
+    mutually exclusive."""
     ngids = tuple(int(n) for n in ngids)
     pshape = parts.shape
     check(
@@ -273,12 +300,51 @@ def cartesian_partition(
             per and k == 1,
             f"periodic dimension {d} with a single part is not supported",
         )
-    dim_firsts = tuple(_block_firsts(n, k) for n, k in zip(ngids, pshape))
+    if part_stride is not None:
+        stride = tuple(int(s) for s in part_stride)
+        check(len(stride) == len(pshape), "one stride per part-grid dim")
+        check(all(s >= 1 for s in stride), "part_stride must be >= 1")
+        pshape_eff = tuple(-(-k // s) for k, s in zip(pshape, stride))
+        notimplementedif(
+            isinstance(ghost, WithGhost),
+            "part_stride with ghost layers is not supported",
+        )
+    else:
+        stride = tuple(1 for _ in pshape)
+        pshape_eff = pshape
+    if dim_firsts is not None:
+        check(part_stride is None, "dim_firsts with part_stride unsupported")
+        dim_firsts = tuple(np.asarray(f, dtype=GID_DTYPE) for f in dim_firsts)
+        check(len(dim_firsts) == len(ngids), "one dim_firsts sequence per dimension")
+        for f, n, k in zip(dim_firsts, ngids, pshape_eff):
+            check(
+                len(f) == k and (len(f) == 0 or f[0] == 0)
+                and bool(np.all(np.diff(f) >= 0))
+                and (len(f) == 0 or f[-1] <= n),
+                "dim_firsts must be ascending cuts starting at 0",
+            )
+    else:
+        dim_firsts = tuple(_block_firsts(n, k) for n, k in zip(ngids, pshape_eff))
     g2p = CartesianGidToPart(ngids, dim_firsts)
+    if stride != tuple(1 for _ in pshape):
+        g2p = _StridedGidToPart(g2p, pshape, stride)
+
+    def _box(coord):
+        """Owned cell range [lo, hi) per dimension of a part coordinate."""
+        if any(c % s for c, s in zip(coord, stride)):
+            return [0] * len(ngids), [0] * len(ngids)  # agglomerated away
+        sub = tuple(c // s for c, s in zip(coord, stride))
+        lo = [int(dim_firsts[d][sub[d]]) for d in range(len(ngids))]
+        hi = [
+            int(dim_firsts[d][sub[d] + 1]) if sub[d] + 1 < len(dim_firsts[d]) else ngids[d]
+            for d in range(len(ngids))
+        ]
+        return lo, hi
+
     halo = isinstance(ghost, WithGhost)
 
     def _mk(p):
-        lo, hi = _cartesian_box(_part_coords(p, pshape), ngids, pshape)
+        lo, hi = _box(_part_coords(p, pshape))
         own_ranges = [np.arange(l, h, dtype=GID_DTYPE) for l, h in zip(lo, hi)]
         own_grid = np.meshgrid(*own_ranges, indexing="ij")
         own_gids = np.ravel_multi_index(own_grid, ngids).ravel()

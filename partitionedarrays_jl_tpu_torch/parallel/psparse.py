@@ -2,7 +2,9 @@
 
 The port's copy of `partitionedarrays_jl_tpu/parallel/psparse.py`
 (reference: src/Interfaces.jl:2108-2757), cut to what the Poisson CG slice
-needs: COO construction, the owned/ghost block split and the host SpMV.
+needs: COO construction, the owned/ghost block split, the host SpMV, and
+the COO assembly migration (`assemble_coo`, `assemble_matrix_from_coo`)
+that builds the multigrid transfers and Galerkin operators.
 Per part: a local CSR over (row lids x col lids) keyed by `rows`/`cols`
 PRanges. The host SpMV starts the halo update of b, computes
 ``c_o = A_oo b_o`` while the exchange is pending, then adds ``A_oh b_h``
@@ -11,16 +13,20 @@ is its form on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..ops.sparse import CSRMatrix, compresscoo, csr_block
 from ..utils.helpers import check
-from ..utils.table import INDEX_DTYPE
+from ..utils.table import INDEX_DTYPE, Table
 from .backends import AbstractPData, map_parts
-from .index_sets import AbstractIndexSet
-from .prange import PRange, add_gids_inplace, oids_are_equal, lids_are_equal, to_lids, uniform_partition
+from .collectives import exchange
+from .index_sets import AbstractIndexSet, GID_DTYPE
+from .prange import (
+    PRange, add_gids, add_gids_inplace, oids_are_equal, lids_are_equal, to_lids,
+    uniform_partition,
+)
 from .pvector import PVector, _owned, _ghost
 
 
@@ -190,3 +196,88 @@ class PSparseMatrix:
 
     def __neg__(self):
         return self * (-1.0)
+
+
+# ---------------------------------------------------------------------------
+# COO-level assembly (reference: src/Interfaces.jl:2406-2492)
+# ---------------------------------------------------------------------------
+
+
+def assemble_coo(
+    I: AbstractPData, J: AbstractPData, V: AbstractPData, rows: PRange
+) -> Tuple[AbstractPData, AbstractPData, AbstractPData]:
+    """Migrate raw COO triplets (global ids) to their row owners before
+    compression (reference async_assemble!(I,J,V,rows)): triplets whose
+    row this part owns stay; the rest ship along the row-halo graph and
+    are appended on the owner, with the shipped local copies zeroed.
+    Returns new (I, J, V) PDatas in global numbering."""
+    rex = rows.exchanger
+
+    def _split(ri: AbstractIndexSet, prcv, i, j, v):
+        i = np.asarray(i, dtype=GID_DTYPE)
+        j = np.asarray(j, dtype=GID_DTYPE)
+        v = np.asarray(v)
+        lids = ri.gids_to_lids(i)
+        check((lids >= 0).all(), "assemble_coo: triplet row is not a local row")
+        owner = ri.lid_to_part[lids]
+        keep = owner == ri.part
+        rows_i, rows_j, rows_v = [], [], []
+        for q in np.asarray(prcv):
+            sel = owner == q
+            rows_i.append(i[sel])
+            rows_j.append(j[sel])
+            rows_v.append(v[sel])
+        return (
+            Table.from_rows(rows_i) if rows_i else Table.empty(GID_DTYPE),
+            Table.from_rows(rows_j) if rows_j else Table.empty(GID_DTYPE),
+            Table.from_rows(rows_v) if rows_v else Table.empty(v.dtype),
+            i, j, np.where(keep, v, 0),
+        )
+
+    stay = map_parts(_split, rows.partition, rex.parts_rcv, I, J, V)
+    rcv = [
+        exchange(map_parts(lambda s, k=k: s[k], stay), rex.parts_snd, rex.parts_rcv)
+        for k in range(3)
+    ]
+
+    def _append(s, rit, rjt, rvt):
+        n = int(rit.ptrs[-1])
+        return (
+            np.concatenate([s[3], rit.data[:n]]),
+            np.concatenate([s[4], rjt.data[:n]]),
+            np.concatenate([s[5], rvt.data[:n]]),
+        )
+
+    out = map_parts(_append, stay, *rcv)
+    return tuple(map_parts(lambda o, k=k: o[k], out) for k in range(3))
+
+
+def assemble_matrix_from_coo(
+    I: AbstractPData, J: AbstractPData, V: AbstractPData, rows0: PRange,
+    cols0: Optional[PRange] = None,
+) -> PSparseMatrix:
+    """The FE/FD assembly pipeline: migrate off-owner triplets to their row
+    owners (`assemble_coo`), keep those on owned rows, discover the column
+    ghost layer from the kept column gids, and compress. ``rows0`` must be
+    ghost-free; the result's cols are ``cols0`` (rectangular operators) or
+    ``rows0``, extended by the discovered ghosts."""
+    rows = add_gids(rows0, I)
+    I2, J2, V2 = assemble_coo(I, J, V, rows)
+
+    def _keep_owned(iset, i, j, v):
+        own = iset.gids_to_lids(np.asarray(i)) >= 0
+        return np.asarray(i)[own], np.asarray(j)[own], np.asarray(v)[own]
+
+    kept = map_parts(_keep_owned, rows0.partition, I2, J2, V2)
+    I2, J2, V2 = (map_parts(lambda k_, k=k: k_[k], kept) for k in range(3))
+    cols = add_gids(rows0 if cols0 is None else cols0, J2)
+    return PSparseMatrix.from_coo(I2, J2, V2, rows0, cols, ids="global")
+
+
+def psparse_global_triplets(A: PSparseMatrix) -> AbstractPData:
+    """Per-part (gi, gj, v) of all stored entries, in global numbering."""
+
+    def _mk(ri, ci, M: CSRMatrix):
+        return ri.lid_to_gid[M.row_of_nz()], ci.lid_to_gid[M.indices], M.data.copy()
+
+    return map_parts(_mk, A.rows.partition, A.cols.partition, A.values)

@@ -8,7 +8,8 @@ machine that has only PyTorch:
 
 Each kernel must equal its plain PyTorch version value for value (both
 round every product and sum separately; torch.equal counts -0.0 == +0.0),
-and the GPU backend's CG must take the port's sequential iterations."""
+and the GPU backend's CG, pipelined CG and GMG-PCG must take the port's
+sequential iterations."""
 import numpy as np
 import pytest
 import torch
@@ -70,10 +71,69 @@ def test_kernels_match_plain(mode, dtype):
     y = dia.dia_coded_spmv(op, x, w + 3)
     yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, w + 3)
     torch.cuda.synchronize()
-    assert dia.LAUNCHES == {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": 1}
+    assert dia.LAUNCHES["dia_coded_spmv"] == dia.LAUNCHES["dia_coded_spmv_pfold"] == 1
     assert torch.equal(y, dia.dia_coded_spmv_plain(op, x, w + 3))
     yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, w + 3)
     assert torch.equal(yk, yp) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["select", "class"])
+def test_axpy_kernel_matches_plain(mode, dtype):
+    _need_card()
+    rng = np.random.default_rng(11)
+    op = _operator(mode, dtype, rng)
+    w = op.n + 50
+    x, pprev, xacc = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(3))
+    alpha = torch.tensor(-0.625, dtype=dtype, device="cuda")
+    xk, xp = xacc.clone(), xacc.clone()
+    dia.reset_launches()
+    yk = dia.dia_coded_spmv_axpy(op, x, xk, pprev, alpha, w + 3)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_coded_spmv_axpy"] == 1
+    yp = dia.dia_coded_spmv_axpy_plain(op, x, xp, pprev, alpha, w + 3)
+    assert torch.equal(yk, yp) and torch.equal(xk, xp)
+    # outside each part's owned band xacc is untouched
+    assert torch.equal(xk[1, int(op.no[1]) :], xacc[1, int(op.no[1]) :])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stream_kernel_matches_plain(dtype):
+    _need_card()
+    rng = np.random.default_rng(5)
+    n = 24
+    offsets = tuple(
+        int(a * n * n + b * n + c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)
+    )
+    rows = n ** 3
+    vals = torch.from_numpy(rng.standard_normal((2, 27, rows))).to("cuda", dtype)
+    no = torch.tensor([rows, rows - 777], dtype=torch.int32, device="cuda")
+    x = torch.from_numpy(rng.standard_normal((2, rows + 60))).to("cuda", dtype)
+    dia.reset_launches()
+    yk = dia.dia_stream_spmv(vals, x, offsets, no, 0, rows + 9)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_stream_spmv"] == 1
+    assert torch.equal(yk, dia.dia_stream_spmv_plain(vals, x, offsets, no, 0, rows + 9))
+
+
+def test_stacked_parts_pipelined_and_gmg_match_sequential():
+    _need_card()
+    ns = (16, 16, 16)
+
+    def driver(parts):
+        A, b, xe, x0 = pt.assemble_poisson(parts, ns)
+        _, info_c = pt.cg(A, b, x0=x0, tol=1e-8, pipelined=True)
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, ns, coarse_threshold=100)
+        x, info_g = pt.pcg(Ah, bh, minv=h, tol=1e-8)
+        return info_c["iterations"], info_g["iterations"], float((x - xe).norm())
+
+    dia.reset_launches()
+    it_c, it_g, err = pt.prun(driver, pt.GPUBackend(), (2, 2, 2))
+    assert dia.LAUNCHES["dia_coded_spmv_axpy"] == it_c and dia.LAUNCHES["dia_stream_spmv"] > 0
+    it_cs, it_gs, err_s = pt.prun(driver, pt.sequential, (2, 2, 2))
+    assert (it_c, it_g) == (it_cs, it_gs)
+    assert abs(err - err_s) <= 1e-9
 
 
 def test_stacked_parts_cg_matches_sequential():

@@ -127,16 +127,26 @@ def test_exchange_matches_host():
 
 
 def test_variable_coefficient_operator_is_refused():
-    """A diagonal with more distinct values than the codebook holds needs
-    the streaming-DIA lowering, which the port does not have yet."""
+    """A variable-coefficient band (a diagonal with more distinct values
+    than the codebook holds) takes the streaming-DIA lowering; an operator
+    that is not a band (more than DIA_MAX_OFFSETS diagonals) is refused."""
 
     def driver(parts):
-        rows = pt.prange(parts, 32)
-        ids = parts._like([np.arange(p * 16, p * 16 + 16) for p in range(2)])
-        V = parts._like([1.0 + np.arange(16.0) for _ in range(2)])
+        rows = pt.prange(parts, 200)
+        ids = parts._like([np.arange(p * 100, p * 100 + 100) for p in range(2)])
+        V = parts._like([1.0 + np.arange(100.0) for _ in range(2)])
         A = pt.PSparseMatrix.from_coo(ids, parts._like([i.copy() for i in ids.part_values()]), V, rows, rows)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            device_matrix(A, parts.backend)
+        dA = device_matrix(A, parts.backend)
+        assert dA.dia_mode == "stream" and dA.dia_offsets == (0,)
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, dA.col_layout.W)))
+        y = make_spmv_fn(dA)(x.clone()).numpy()
+        np.testing.assert_array_equal(y[:, :100], (1.0 + np.arange(100.0)) * x[:, :100].numpy())
+        # each part's rows in reverse: 100 distinct offsets
+        rev = parts._like([p * 100 + 99 - np.arange(100) for p in range(2)])
+        ids = parts._like([np.arange(p * 100, p * 100 + 100) for p in range(2)])
+        B = pt.PSparseMatrix.from_coo(ids, rev, V, pt.prange(parts, 200), pt.prange(parts, 200))
+        with pytest.raises(NotImplementedError, match="not a band"):
+            device_matrix(B, parts.backend)
         return True
 
     assert pt.prun(driver, CPU, 2)
