@@ -17,9 +17,9 @@ vertex-based per dimension (coarse point k sits on fine point 2k,
 nc = ceil(nf/2)); interpolation is the d-linear tensor product. The
 coarsest level is solved on MAIN by the dense `PLU`.
 
-On the GPU backend, `pcg(A, b, minv=hierarchy)` and `gmg_solve` run the
-whole cycle on the card (`parallel/gpu_gmg.py`); the host V-cycle below is
-the sequential backend's oracle.
+On the GPU backend, `pcg(A, b, minv=hierarchy)` runs the whole cycle on
+the card (`parallel/gpu_gmg.py`); the host V-cycle below is the sequential
+backend's oracle.
 """
 from __future__ import annotations
 
@@ -323,14 +323,17 @@ def gmg_hierarchy(parts: AbstractPData, A: PSparseMatrix, dims: Sequence[int],
 def gmg_solve(hierarchy: GMGHierarchy, b: PVector, x0: Optional[PVector] = None,
               tol: float = 1e-8, maxiter: int = 100, verbose: bool = False) -> Tuple[PVector, dict]:
     """Stationary V-cycle iteration x <- x + Vcycle(b − A x) until the
-    residual drops by `tol`. On the GPU backend the whole iteration runs
-    on the card (`parallel/gpu_gmg.py:gpu_gmg_solve`)."""
+    residual drops by `tol`, on the host backend. Its device loop
+    (tpu_gmg.py:807-883) is not ported yet (ROADMAP Queue D item 6): on
+    the GPU backend the V-cycle runs as the PCG preconditioner,
+    ``pcg(A, b, minv=hierarchy)``."""
     from ..parallel.gpu import GPUBackend
 
     if isinstance(b.values.backend, GPUBackend):
-        from ..parallel.gpu_gmg import gpu_gmg_solve
-
-        return gpu_gmg_solve(hierarchy, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
+        raise NotImplementedError(
+            "gmg_solve: the stationary V-cycle iteration on the GPU backend is not "
+            "ported yet (ROADMAP Queue D item 6); use pcg(A, b, minv=hierarchy)"
+        )
     A = hierarchy.levels[0].A
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     r = PVector.full(0.0, A.cols, dtype=b.dtype)

@@ -253,7 +253,6 @@ def pcg(
     tol: float = 1e-8,
     maxiter: Optional[int] = None,
     verbose: bool = False,
-    fused: Optional[bool] = None,
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
@@ -262,9 +261,7 @@ def pcg(
     GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532); a diagonal ``minv``
     (Jacobi PCG) is not ported yet (ROADMAP Queue D item 5). Any other
     callable, and every preconditioner on the host backend, runs the host
-    loop below, which the device loop follows step for step. ``fused`` is
-    refused with a GMG preconditioner on the GPU backend (its PCG body has
-    no fused variant); elsewhere it is a no-op."""
+    loop below, which the device loop follows step for step."""
     from ..parallel.gpu import GPUBackend
     from .gmg import GMGHierarchy
 
@@ -275,11 +272,6 @@ def pcg(
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
-            if fused is not None:
-                raise ValueError(
-                    "pcg: the GMG-preconditioned device loop has its own PCG body "
-                    "with no fused variant: drop the fused argument"
-                )
             check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
             return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
         if not callable(minv):

@@ -665,7 +665,8 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     ``x += alpha*p`` one iteration late, inside the next SpMV kernel's pass,
     with one flush after the loop (tpu.py:4278-4313); otherwise the
     textbook body runs (tpu.py:4125-4170). All three follow the same
-    scalar recurrence, so they take the same iterations."""
+    scalar recurrence, so they take the same iterations. The returned
+    function names its body in ``fn.cg_body``."""
     fused = (not pipelined) if fused is None else bool(fused)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
@@ -724,6 +725,7 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
             x[:, sl] = x[:, sl] + alpha_prev * pprev[:, sl]
         return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
 
+    fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
     return fn
 
 
@@ -789,10 +791,8 @@ def gpu_cg(
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    fused = (not pipelined) if fused is None else bool(fused)
     solve = make_cg_fn(
         device_matrix(A, backend), tol, int(maxiter), fused=fused, pipelined=pipelined,
         plain=plain,
     )
-    body = "pipelined" if pipelined else "fused" if fused else "standard"
-    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", cg_body=body)
+    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", cg_body=solve.cg_body)

@@ -1,7 +1,6 @@
 """Geometric multigrid on the card: the V-cycle (every level's SpMVs, halo
 exchanges, Jacobi sweeps, inter-level transfers and the dense coarse solve)
-on stacked ``(P, W)`` tensors, the V-cycle-preconditioned CG and the
-stationary V-cycle iteration.
+on stacked ``(P, W)`` tensors, and the V-cycle-preconditioned CG.
 
 The counterpart of `partitionedarrays_jl_tpu/parallel/tpu_gmg.py`, with
 its one transfer route for the generic exchange plan: the factored
@@ -18,7 +17,7 @@ with the owned band at ``o0``, so a move between frames is an owned-slice
 copy, and every move below names its source and destination slices. The
 coarse solve is one mat-vec with the host-computed dense inverse.
 
-The loops run in Python and read the stopping test once per iteration,
+The PCG loop runs in Python and reads the stopping test once per iteration,
 as `gpu.make_cg_fn` does; ``plain=True`` runs the kernels' plain versions
 on the same tensors (the comparison path of chip_smoke.py).
 """
@@ -238,64 +237,15 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
     return fn
 
 
-def make_gmg_solve_fn(h, backend: GPUBackend, tol: float, maxiter: int,
-                      plain: bool = False) -> Callable:
-    """The stationary V-cycle iteration x <- x + Vcycle(b - A x) on the
-    card (tpu_gmg.py:807-883), same contract as `make_gmg_pcg_fn`."""
-    dh = device_hierarchy(h, backend)
-    dA0 = dh["levels"][0]["dA"]
-    L0, L0r = dA0.col_layout, dA0.row_layout
-    no = L0.no_max
-    sl = slice(L0.o0, L0.o0 + no)
-    pdot = _pdot_factory(L0.o0, no)
-    body_A0 = _spmv_body(dA0, plain=plain)
-    vcycle = make_vcycle(h, dh, plain=plain)
-
-    def fn(b, x0):
-        def residual(x):
-            r = torch.zeros_like(x)
-            r[:, sl] = b[:, sl] - body_A0(x)[:, L0r.o0 : L0r.o0 + no]
-            return r
-
-        x = x0.clone()
-        r = residual(x)
-        rs0 = pdot(r, r)
-        thr = tol * torch.clamp(torch.sqrt(rs0), min=1.0)
-        rs = rs0
-        hist = [torch.sqrt(rs0)]
-        it = 0
-        while it < maxiter and bool((torch.sqrt(rs) > thr).item()):
-            x[:, sl] = x[:, sl] + vcycle(r)[:, sl]
-            r = residual(x)
-            rs = pdot(r, r)
-            it += 1
-            hist.append(torch.sqrt(rs))
-        return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
-
-    return fn
-
-
-def _run_gmg(h, b: PVector, x0, tol, maxiter, verbose, make_fn, name, plain):
-    backend = b.values.backend
-    check(isinstance(backend, GPUBackend), f"{name} needs a GPU-backend PVector")
-    solve = make_fn(h, backend, tol, int(maxiter), plain=plain)
-    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, name)
-
-
 def gpu_gmg_pcg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
                 maxiter: Optional[int] = None, verbose: bool = False,
                 plain: bool = False) -> Tuple[PVector, dict]:
     """V-cycle-preconditioned CG on the card, the counterpart of
-    `tpu_gmg_pcg` (tpu_gmg.py:1225); the device form of
+    `tpu_gmg_pcg` (tpu_gmg.py:1225, `_run_gmg`); the device form of
     ``pcg(A, b, minv=hierarchy)``."""
+    backend = b.values.backend
+    check(isinstance(backend, GPUBackend), "pcg+gmg needs a GPU-backend PVector")
     if maxiter is None:
         maxiter = 4 * int(h.levels[0].A.rows.ngids)
-    return _run_gmg(h, b, x0, tol, maxiter, verbose, make_gmg_pcg_fn, "pcg+gmg", plain)
-
-
-def gpu_gmg_solve(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
-                  maxiter: int = 100, verbose: bool = False,
-                  plain: bool = False) -> Tuple[PVector, dict]:
-    """The stationary V-cycle iteration on the card, the counterpart of
-    `tpu_gmg_solve` (tpu_gmg.py:1208); the device form of `gmg_solve`."""
-    return _run_gmg(h, b, x0, tol, maxiter, verbose, make_gmg_solve_fn, "gmg", plain)
+    solve = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain)
+    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg")
