@@ -11,14 +11,21 @@ lowerings — and holds every kernel against its plain PyTorch version.
 Phases, one JSON line each:
 
 1. device and build: the nvidia-smi name/power-limit line, the device name,
-   the nvcc build seconds;
+   the nvcc build seconds and the ptxas register / shared-memory / spill
+   lines of each kernel instantiation (the coded kernel's shared memory is
+   dynamic, so ptxas prints no shared-memory line for it: phase 2 prints
+   the bytes each window plan takes);
 2. kernels against their plain versions on the card at 192^3 f32: the
-   coded-DIA SpMV in row-class mode (the real Poisson staging) and in
-   select-chain mode (a synthetic nibble-packed operator), the CG
-   direction-fold variant (y and p) and the lagged-axpy variant (y and the
-   updated solution, both decodes); each must be torch.equal to its plain
-   version (torch.equal counts -0.0 == +0.0: the row-class decode skips
-   exact-zero coefficients that the plain version adds);
+   coded-DIA SpMV, its CG direction-fold variant (y and p) and its
+   lagged-axpy variant (y and the updated solution), each in row-class
+   mode (the real Poisson staging) and in select-chain mode (a synthetic
+   nibble-packed operator); then the same three at the odd size 193^3
+   (operand windows off 16-byte alignment, a ragged last tile) on
+   synthetic operators in both decodes, with frames wider than the band;
+   each must be torch.equal to its plain version (torch.equal counts
+   -0.0 == +0.0: the kernel's sums start from -0.0 and the row-class
+   decode skips exact-zero coefficients that the plain version adds);
+   the window plan (tile rows, shared-memory bytes) of each mode;
 3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
    kernel launch counts are zeroed just before and read just after; the
    same solve through the plain versions must take the same iterations and
@@ -48,9 +55,11 @@ Phases, one JSON line each:
    coded and stream launch counts > 0, the stream kernel torch.equal to its
    plain version on level 1;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
-   before each): kernel, plain version, torch.sparse.mm on the CSR
-   operator, the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   f32), for the four kernels; CG, pipelined CG and GMG-PCG seconds per
+   before each, and a spin queued after the flush so that no host launch
+   latency falls inside the timed span): kernel, plain version,
+   torch.sparse.mm on the CSR operator, the bound (bytes over 3.35 TB/s,
+   operations over 67 TFLOP/s f32) and each kernel's share of its bound,
+   for the four kernels; CG, pipelined CG and GMG-PCG seconds per
    iteration from two fixed-trip solves each, and torch.profiler
    breakdowns of a fixed-trip CG and GMG-PCG iteration by kernel (wall
    times include the profiler's own cost);
@@ -61,6 +70,7 @@ It then prints the kernel table, the nvidia-smi line and, last,
 CUDA device it exits non-zero before printing a result.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +102,7 @@ N_MAIN = 192
 N_MULTI = 48
 TOL_MAIN = 1e-5
 REPS = 50
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: longer than a launch's host cost
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 SEED = 0
@@ -145,9 +156,27 @@ def phase_device():
         "phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s,
-        "ptxas": [l for l in dia.BUILD_LOG.splitlines() if "registers" in l or "spill" in l],
+        "ptxas": _ptxas_lines(dia.BUILD_LOG),
     })
     return smi
+
+
+def _ptxas_lines(log):
+    """ptxas's register, shared-memory and spill lines per kernel
+    instantiation, e.g. ``dia_coded_kernel<float,1>`` (mode 1 = pfold)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Li(\d)E", line)
+        if m:
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{m.group(3)}>"
+            continue
+        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])E", line)
+        if m:
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            continue
+        if name and ("registers" in line or "spill" in line or "smem" in line):
+            out.setdefault(name, []).append(line.split("ptxas info    :")[-1].strip())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +213,42 @@ def _select_chain_operator(n, device, rng):
     )
 
 
+def _row_class_operator(n, device, rng):
+    """A synthetic row-class operand at n^3 rows: the 7-point offsets, an
+    interior class with random coefficients and an identity class, mixed
+    at random over the rows."""
+    rows = n ** 3
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    cb = np.zeros((1, 7, 2), dtype=np.float32)
+    cb[0, :, 0] = rng.standard_normal(7)
+    cb[0, 3, 1] = 1.0
+    codes = rng.integers(0, 2, (1, 1, rows)).astype(np.uint8)
+    return dia.CodedOperator(
+        cb=torch.from_numpy(cb).to(device),
+        no=torch.tensor([rows], dtype=torch.int32, device=device),
+        codes=torch.from_numpy(codes).to(device),
+        offsets=offsets, kk=(2,) * 7, code_row=(0,) * 7,
+        cls_pattern=((True,) * 7, tuple(d == 3 for d in range(7))), o0=0,
+    )
+
+
+def _hold_all(tag, o, x, r, pprev, beta, xacc, alpha, wy, errs):
+    """K1, K2 (y and p) and K3 (y and xacc) on one operand against their
+    plain versions, each torch.equal; the max |diff| lands in errs."""
+    errs[f"dia_coded_spmv[{tag}]"] = _compare(
+        f"dia_coded_spmv {tag}", dia.dia_coded_spmv(o, x, wy), dia.dia_coded_spmv_plain(o, x, wy)
+    )
+    yk, pk = dia.dia_coded_spmv_pfold(o, r, pprev, beta, wy)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(o, r, pprev, beta, wy)
+    errs[f"dia_coded_spmv_pfold[{tag},y]"] = _compare(f"dia_coded_spmv_pfold {tag} y", yk, yp)
+    errs[f"dia_coded_spmv_pfold[{tag},p]"] = _compare(f"dia_coded_spmv_pfold {tag} p", pk, pp)
+    xk, xp = xacc.clone(), xacc.clone()
+    yk = dia.dia_coded_spmv_axpy(o, x, xk, pprev, alpha, wy)
+    yp = dia.dia_coded_spmv_axpy_plain(o, x, xp, pprev, alpha, wy)
+    errs[f"dia_coded_spmv_axpy[{tag},y]"] = _compare(f"dia_coded_spmv_axpy {tag} y", yk, yp)
+    errs[f"dia_coded_spmv_axpy[{tag},xacc]"] = _compare(f"dia_coded_spmv_axpy {tag} xacc", xk, xp)
+
+
 def phase_kernels(backend, n, rng):
     """Every kernel of the path against its plain version on the card, at
     the main path's shapes. Returns the operands for the timing phase."""
@@ -199,30 +264,32 @@ def phase_kernels(backend, n, rng):
     def frame():
         return torch.from_numpy(rng.standard_normal((1, wx)).astype(np.float32)).to(dev)
 
-    x, r, pprev = frame(), frame(), frame()
+    x, r, pprev, xacc = frame(), frame(), frame(), frame()
     beta = torch.tensor(0.37, dtype=torch.float32, device=dev)
-    sel = _select_chain_operator(n, dev, rng)
-    errs = {
-        "dia_coded_spmv[row_class]": _compare(
-            "dia_coded_spmv row-class", dia.dia_coded_spmv(op, x, wy), dia.dia_coded_spmv_plain(op, x, wy)
-        ),
-        "dia_coded_spmv[select_chain]": _compare(
-            "dia_coded_spmv select-chain", dia.dia_coded_spmv(sel, x, wx), dia.dia_coded_spmv_plain(sel, x, wx)
-        ),
-    }
-    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
-    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
-    errs["dia_coded_spmv_pfold[y]"] = _compare("dia_coded_spmv_pfold y", yk, yp)
-    errs["dia_coded_spmv_pfold[p]"] = _compare("dia_coded_spmv_pfold p", pk, pp)
-    xacc = frame()
     alpha = torch.tensor(-0.61, dtype=torch.float32, device=dev)
-    for decode, o, w in (("row_class", op, wy), ("select_chain", sel, wx)):
-        xk, xp = xacc.clone(), xacc.clone()
-        yk = dia.dia_coded_spmv_axpy(o, x, xk, pprev, alpha, w)
-        yp = dia.dia_coded_spmv_axpy_plain(o, x, xp, pprev, alpha, w)
-        errs[f"dia_coded_spmv_axpy[{decode},y]"] = _compare(f"dia_coded_spmv_axpy {decode} y", yk, yp)
-        errs[f"dia_coded_spmv_axpy[{decode},xacc]"] = _compare(f"dia_coded_spmv_axpy {decode} xacc", xk, xp)
-    emit({"phase": "kernels_vs_plain", "n": n, "dtype": "float32", "equal": True, "max_abs_err": errs})
+    errs = {}
+    _hold_all("row_class", op, x, r, pprev, beta, xacc, alpha, wy, errs)
+    _hold_all("select_chain", _select_chain_operator(n, dev, rng), x, r, pprev, beta, xacc, alpha, wx, errs)
+    # the odd size: every window starts off 16-byte alignment, the last
+    # tile is ragged, and the frames are wider than the band (wx != wy)
+    m = n + 1
+    rows = m ** 3
+
+    def odd_frame():
+        return torch.from_numpy(rng.standard_normal((1, rows + 5)).astype(np.float32)).to(dev)
+
+    ox, orr, opp, oxa = odd_frame(), odd_frame(), odd_frame(), odd_frame()
+    for decode, make in (("row_class", _row_class_operator), ("select_chain", _select_chain_operator)):
+        _hold_all(f"{decode},{m}^3", make(m, dev, rng), ox, orr, opp, beta, oxa, alpha, rows + 3, errs)
+    del ox, orr, opp, oxa
+    plans = {
+        mode: {"tile": pl.tile, "windows": len(pl.windows), "smem_bytes": pl.smem_bytes}
+        for mode in ("plain", "pfold", "axpy")
+        for pl in [dia.plan_coded_windows(tuple(map(int, op.offsets)), 4, mode, op.codes.shape[1], op.cb.shape[2],
+                                          n_cls=len(op.cls_pattern or ()))]
+    }
+    emit({"phase": "kernels_vs_plain", "n": n, "odd_n": m, "dtype": "float32", "equal": True,
+          "max_abs_err": errs, "window_plans": plans})
     return {"A": A, "dA": dA, "x": x, "r": r, "pprev": pprev, "beta": beta, "xacc": xacc,
             "alpha": alpha, "errs": errs}
 
@@ -483,12 +550,15 @@ def phase_gmg_multi(backend, n, rng):
 
 def time_ms(fn, flush):
     """Median over REPS launches of fn, each timed by CUDA events after an
-    L2 flush outside the timed span."""
+    L2 flush outside the timed span. A spin queued after the flush keeps
+    the card busy while the host queues the start event, fn's launches and
+    the stop event, so the span holds no host launch latency."""
     for _ in range(5):
         fn()
     times = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -572,6 +642,8 @@ def phase_times(backend, k, run, n):
     pipe_s_per_iter, per_pipe = fixed_trip_s_per_iter(
         lambda m: make_cg_fn(dA_main, 0.0, m, pipelined=True), b, x0, 20, 220
     )
+    for t in (spmv, pfold, axpy):
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
     emit({
         "phase": "times", "n": n, "dtype": "float32", "reps": REPS,
         "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy,
@@ -604,6 +676,7 @@ def phase_gmg_times(backend, g):
     }
     # the dense values (every diagonal, every row), x and y, in f32
     stream["bound_ms"], stream["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
+    stream["share_of_bound"] = stream["bound_ms"] / stream["ms"]
 
     h, Ah, bh = g["run"]["h"], g["run"]["Ah"], g["run"]["bh"]
     dA0 = device_matrix(Ah, backend)
@@ -679,11 +752,10 @@ def main() -> int:
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
-        "dia_coded_spmv": max(errs["dia_coded_spmv[row_class]"], errs["dia_coded_spmv[select_chain]"]),
-        "dia_coded_spmv_pfold": max(errs["dia_coded_spmv_pfold[y]"], errs["dia_coded_spmv_pfold[p]"]),
-        "dia_coded_spmv_axpy": max(v for key, v in errs.items() if key.startswith("dia_coded_spmv_axpy")),
-        "dia_stream_spmv": max(gmg["err_k4"], err_k4_multi),
+        name: max(v for key, v in errs.items() if key.startswith(name + "["))
+        for name in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy")
     }
+    max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_k4_multi)
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

@@ -1,54 +1,122 @@
 // Coded-diagonal (coded-DIA) SpMV for Hopper (sm_90a), with its CG
 // direction-fold and lagged-axpy variants.
 //
-// Replaces the TPU kernel `_padded_kernel` of
-// partitionedarrays_jl_tpu/ops/pallas_dia.py: its plain call
-// (`dia_coded_padded_pallas`, pallas_call at :523), its `has_pfold` call
-// (pallas_call at :500) and its `has_axpy` call (pallas_call at :535).
-// Both decode modes are here: the select-chain decode
-// (pallas_dia.py:329-350) and the row-class decode (:300-328).
+// Replaces the TPU kernel `_padded_kernel` (partitionedarrays_jl_tpu/ops/
+// pallas_dia.py:195): its plain call (`dia_coded_padded_pallas`,
+// pallas_call at :523), its `has_pfold` call (pallas_call at :500) and its
+// `has_axpy` call (pallas_call at :535). Both decode modes are here: the
+// select-chain decode (pallas_dia.py:329-350) and the row-class decode
+// (:300-328).
 //
-// What it computes, per part p (blockIdx.y) and row slot j (one thread):
-//   i = j - o0; for 0 <= i < no[p]:
-//     y[p, j] = sum_d v_d(i) * x[p, o0 + i + off_d]   (ascending d)
+// What it computes, per part p (blockIdx.y) and owned row i < no[p]:
+//   y[p, o0 + i] = sum_d v_d(i) * x[p, o0 + i + off_d]   (ascending d)
 //   every other slot of y is exactly 0. A read at i + off_d outside
-//   [0, no[p]) is predicated to 0 (the compact frame has no zero pads).
+//   [0, no[p]) is 0 (the compact frame has no zero pads).
 //   v_d(i) is cb[p, d, 0] for a constant diagonal (kk[d] == 1), else
 //   cb[p, d, c] with c the 4-bit code of diagonal d (two diagonals per
 //   byte, low nibble = even coded index; a code >= kk[d] reads slot 0).
 //   Row-class mode (n_cls > 0): c is the low nibble of stream 0, the row's
-//   class (>= n_cls reads class 0), and the sum skips the diagonals whose
-//   coefficient is zero in every part (cls_mask).
-//   pfold: the operand is p = r + beta * pprev, formed per read; the
-//   kernel also writes p on the owned band and 0 elsewhere.
-//   axpy (pipelined CG): y as above from x, and in the same pass
+//   class (>= n_cls reads class 0). The sum skips the diagonals that no
+//   class takes (coefficient zero in every class and part, cls_mask); a
+//   row whose class has a zero coefficient on a diagonal another class
+//   takes adds that exact zero times x, as the plain version does (the TPU
+//   kernel's per-class sums leave such terms out: the same value for a
+//   finite x, up to the sign of a zero).
+//   pfold (PA_PFOLD): the operand is p = r + beta * pprev; the kernel also
+//   writes p on the owned band and 0 elsewhere.
+//   axpy (PA_AXPY, pipelined CG): y as above from x, and in the same pass
 //   xacc[p, o0 + i] = xacc[p, o0 + i] + alpha * pprev[p, o0 + i] for
-//   0 <= i < no[p], in place; every other slot of xacc is left untouched.
+//   i < no[p], in place; every other slot of xacc is left untouched.
 //
 // Rounding: every product and sum is __fmul_rn / __fadd_rn (no FMA
-// contraction), so the result equals the plain PyTorch version in
-// ops/dia.py value for value (up to the sign of a zero sum).
+// contraction), in ascending-offset order, so the result equals the plain
+// PyTorch version in ops/dia.py value for value (up to the sign of a zero
+// sum: the sum starts from -0, and the row-class decode skips diagonals).
 //
 // Bound: memory. At 192^3 f32, one part, the row-class SpMV moves x (4 B),
 // one code byte and y (4 B) per row: 9 B/row, 63.7 MB, about 19.0 us at
 // 3.35 TB/s; the pfold variant moves r, pprev, the code byte, y and p:
 // 17 B/row, 120.3 MB, about 35.9 us; the axpy variant moves x, the code
 // byte, y, pprev and xacc read and written: 21 B/row, 148.6 MB, about
-// 44.4 us. 2 nnz flops per SpMV are far below any compute limit.
+// 44.4 us. 2 flops per stored coefficient are far below any compute limit.
 //
-// Design (a first, simple kernel): one thread per row, blocks over rows,
-// blockIdx.y over the stacked parts; neighbouring threads read
-// neighbouring addresses for every diagonal, the far +-n^2 planes are
-// served from L2. The part's codebook sits in shared memory. The axpy
-// variant's x update is an independent streaming read-modify-write on the
-// same thread, so it adds bytes but no dependence to the band sum.
-// Shared-memory plane windows, vector loads or TMA are later work.
+// Design. The first version (one thread per row, a loop over diagonals with
+// a run-time trip count and a bounds branch on every operand read) waited
+// on its 7 shifted loads one after another and reached 18-38% of the bound.
+// This one stages the operand in shared memory and keeps the band sum to a
+// few instructions a term. Times below are back-to-back launches at 192^3
+// f32 in row-class decode (tools/time_coded_kernels.py, loop_ms, on an
+// NVIDIA H100 80GB HBM3 at 700 W); the forms they compare were not kept.
+//
+// * Tiles and windows. A CTA sums tiles of T rows of one part. The host
+//   planner (ops/dia.py:plan_coded_windows) groups the ascending offsets
+//   (and 0) into read windows: offsets closer than T share one. For the
+//   7-point stencil at n^2 > T that is {-n^2}, {-n..n}, {+n^2}; for the
+//   27-point stencils three windows 2n+2 wide. Operand values are staged in
+//   shared-memory buffers; a value outside [0, no[p]) is staged as exact 0,
+//   so the band sum reads shared memory only, with no branch on bounds.
+// * Marching along the plane stride. Where the windows are translates of
+//   one another by a stride M (n^2 for both stencils), a CTA owns one
+//   column of T rows of a plane and walks it through consecutive planes:
+//   a step stages one window, the union U of the windows moved onto one
+//   plane (T + 2n + 2 values for the 27-point stencil), for plane z+1, into
+//   a ring of K + 1 buffers (K = 3 planes read, one being filled). The -n^2
+//   and +n^2 reads of plane z come from the buffers of planes z-1 and z+1,
+//   staged (and, in pfold, folded) once. Staging the three windows for
+//   every tile instead took pfold 106 us against 62: twice the L2 traffic
+//   and three folds of each value. The CTAs of one column split its planes
+//   into chunks so that one wave fills the card; a chunk stages K - 1
+//   planes ahead of its first. The L2, not DRAM, serves the halo of a
+//   plane's window (the +-n rows it shares with the neighbouring columns,
+//   read by their CTAs at about the same time) and the planes a chunk
+//   re-stages: the reuse distance is at most 2n^2 rows, ~0.6 MB of r and
+//   pprev at 192^3 f32, far under the 50 MB L2, so each operand value
+//   comes from DRAM once. Operators without such a stride (a single
+//   window, or windows that are not translates) stage every window for
+//   every tile, and CTAs walk the part's tiles by the grid stride.
+// * Copies in flight. The copies of step k+1 are issued with cp.async
+//   before step k is summed. A window lands in shared memory with the
+//   source's 16-byte phase, so its body moves in 16-byte copies whatever
+//   its start (-n-1 is not aligned, and at odd n^2 nor are the planes); the
+//   tail past no[p] is zero-filled by the copy's source size, and a chunk
+//   that straddles row 0 is copied value by value. The code bytes and, for
+//   axpy, the pprev and xacc rows of the tile are staged the same way, in
+//   two stages. At 192^3 f32 a pfold step holds ~12 KB of copies and four
+//   CTAs fit an SM, so ~48 KB of loads are outstanding per SM. With the
+//   band sum taken out, the staging alone ran at K1 24, pfold 42 and axpy
+//   44 us, near the bounds: the sum, not memory, sets the pace.
+// * The fold once. pfold stages r and pprev and builds
+//   p = __fadd_rn(r, __fmul_rn(beta, pprev)) once per staged value (the
+//   TPU kernel's `comb_ref`, pallas_dia.py:280-283), 16 bytes at a time
+//   where r and pprev share a phase, then writes the offset-0 slots of its
+//   tile out as p.
+// * A short band sum. A thread sums 4 rows a tile apart by 256
+//   (i, i + 256, ...): each term is one 4- or 8-byte shared load at a fixed
+//   offset from the diagonal's slot, a warp's 32 threads on consecutive
+//   values (no bank conflict), and y, p and xacc go out as coalesced 4- or
+//   8-byte stores. Row-class coefficients come from a table of the taken
+//   diagonals' class coefficients (4 per diagonal: one 16-byte shared
+//   load, a row's picked by a select). Two other forms were slower: 4
+//   consecutive rows a thread, read and stored as 16-byte vectors with a
+//   branch on the run's alignment, cost ~60 instructions a diagonal (K1 63
+//   us, pfold 86); and a per-thread test of each diagonal against the rows'
+//   class masks kept the compiler from overlapping one diagonal's loads
+//   with the last one's arithmetic (K1 57 and pfold 80 us with it, 41 and
+//   61 without).
+//
+// The plan travels in PaDiaParams. The kernel may take up to the card's
+// 227 KB of shared memory a CTA; the planner's budget keeps a plan within
+// 96 KB, so at least two CTAs fit an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_MAX_DIAGS 64
 #define PA_MAX_CLASSES 16
+#define PA_MAX_WINDOWS (PA_MAX_DIAGS + 1)
+#define PA_MAX_BUFS (2 * PA_MAX_WINDOWS)
+#define PA_ROWS 4
+#define PA_THREADS 256
 
 struct PaDiaParams {
   int P;          // stacked parts
@@ -64,6 +132,42 @@ struct PaDiaParams {
   int kk[PA_MAX_DIAGS];
   int code_row[PA_MAX_DIAGS];
   unsigned long long cls_mask[PA_MAX_CLASSES];
+  // the window plan (ops/dia.py:plan_coded_windows); byte offsets in
+  // shared memory. Step k of a CTA sums the tile at row ts(k) = ts0 + k * tstep.
+  long long stride;  // marching plane stride M (0: tiles walk the part)
+  int T;             // rows per tile
+  int ncol;          // marching: tiles per plane, ceil(M / T)
+  int planes;        // marching: planes per CTA (set at launch)
+  int lead;          // steps staged before the first (K - 1 marching, else 0)
+  int n_buf;         // operand buffers
+  int step_bufs;     // buffer index advance per step
+  // n_win: the read windows. The kernel does not read it, but without it
+  // the arrays below move by 4 bytes and ptxas then caps four of the six
+  // instantiations at 64 registers with spills (nvcc 12.9, sm_90a).
+  int n_win;
+  int n_new;         // windows staged per step
+  int zero_win;      // the read window that holds offset 0
+  int ccf_at;        // head (codebook at 0): class coefficients, n_cls rounded up to 4 per diagonal
+  int sidx_at;       // head: per-step slot of each diagonal (and of offset 0)
+  int pp_shift;      // pfold: a buffer's pprev lies pp_shift bytes after it
+  int stage_at;      // two stages of the tile's own rows from here
+  int stage_bytes;
+  int code_at;       // code streams in a stage
+  int code_stride;   // bytes per code stream in a stage
+  int ax_pp_at;      // axpy: pprev rows of the tile in a stage
+  int ax_xa_at;      // axpy: xacc rows of the tile in a stage
+  int smem_bytes;
+  // read window c of step k starts at row ts(k) + win_src[c] of buffer
+  // (k * step_bufs + win_buf[c]) mod n_buf; new window s of step k, staged
+  // one step ahead, holds new_len[s] values from ts(k) + new_src[s] in
+  // buffer (k * step_bufs + new_buf[s]) mod n_buf
+  int win_src[PA_MAX_WINDOWS];
+  int win_buf[PA_MAX_WINDOWS];
+  int new_src[PA_MAX_WINDOWS];
+  int new_buf[PA_MAX_WINDOWS];
+  int new_len[PA_MAX_WINDOWS];
+  int buf_at[PA_MAX_BUFS];
+  int diag_win[PA_MAX_DIAGS];  // read window of diagonal d
 };
 
 enum { PA_PLAIN = 0, PA_PFOLD = 1, PA_AXPY = 2 };
@@ -73,102 +177,399 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-template <typename T, bool PFOLD>
-__device__ __forceinline__ T operand(const T* __restrict__ x,
-                                     const T* __restrict__ pprev, T beta,
-                                     long long k, long long no) {
-  if (k < 0 || k >= no) return T(0);
-  if (PFOLD) return add_rn(x[k], mul_rn(beta, pprev[k]));
-  return x[k];
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+__device__ __forceinline__ void unpack(float* b, float4 c) { b[0] = c.x; b[1] = c.y; b[2] = c.z; b[3] = c.w; }
+__device__ __forceinline__ void unpack(double* b, double2 c) { b[0] = c.x; b[1] = c.y; }
+__device__ __forceinline__ float4 pack(const float* b) { return make_float4(b[0], b[1], b[2], b[3]); }
+__device__ __forceinline__ double2 pack(const double* b) { return make_double2(b[0], b[1]); }
+
+// ---------------------------------------------------------------------------
+// cp.async staging
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src, int src_bytes) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(N), "r"(src_bytes) : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The slot phase of element g of src in its 16-byte chunk.
+template <typename E>
+__device__ __forceinline__ int phase(const E* src, long long g) {
+  return (int)(((long long)((uintptr_t)src / sizeof(E)) + g) & (16 / (long long)sizeof(E) - 1));
+}
+
+// Copy elements [g_lo, g_lo + len) of src (valid on [0, lim)) into the
+// window at dst: element g lands at slot phase(src, g_lo) + g - g_lo, so the
+// source's 16-byte chunks land on the window's. Slots of g >= lim are
+// zero-filled by the copy's source size. ZERO_HEAD: slots of g < 0 are 0
+// too (operand windows); otherwise the head chunk is copied as it lies
+// (code bytes: the 16-byte chunk around a valid byte lies in its
+// allocation, and rows before the tile are never read).
+template <typename E, bool ZERO_HEAD>
+__device__ __forceinline__ void stage_window(unsigned char* dst, const E* src, long long g_lo,
+                                             int len, long long lim) {
+  constexpr int S = (int)sizeof(E);
+  constexpr int V = 16 / S;
+  const long long base = (long long)(uintptr_t)src;
+  const long long c_lo = (base + g_lo * S) & ~15LL;
+  const int nq = (int)((base + (g_lo + len) * S - c_lo + 15) >> 4);
+  const unsigned sdst = (unsigned)__cvta_generic_to_shared(dst);
+  for (int k = threadIdx.x; k < nq; k += blockDim.x) {
+    const long long gq = (c_lo + 16LL * k - base) / S;
+    const unsigned d = sdst + 16u * (unsigned)k;
+    long long nv = lim - gq;
+    nv = nv < 0 ? 0 : nv > V ? V : nv;
+    // a copy of fewer bytes than its size zero-fills the rest and reads
+    // nothing past them: the address of a chunk past either end of src
+    // stays aligned and is never read
+    if constexpr (!ZERO_HEAD) {
+      cp_async<16>(d, src + gq, (int)nv * S);
+    } else if (gq >= 0) {
+      cp_async<16>(d, src + gq, (int)nv * S);
+    } else if (gq + V <= 0) {
+      cp_async<16>(d, src + gq, 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const long long g = gq + e;
+        cp_async<S>(d + e * S, src + g, g >= 0 && g < lim ? S : 0);
+      }
+    }
+  }
+}
+
+// The byte offset of the buffer that index rel names at step k.
+__device__ __forceinline__ int buffer_at(const PaDiaParams& prm, int k, int rel) {
+  int b = (k * prm.step_bufs + rel) % prm.n_buf;
+  return prm.buf_at[b < 0 ? b + prm.n_buf : b];
+}
+
+// Issue the copies of step k (tile at row ts): its new operand windows
+// and, with `rows`, the tile's code bytes (and axpy rows) into stage k & 1.
+template <typename T, int MODE>
+__device__ __forceinline__ void stage_step(const PaDiaParams& prm, unsigned char* smem, int k,
+                                           long long ts, bool rows, long long no, const T* xp,
+                                           const T* pp, const T* xa, const uint8_t* cpart) {
+  for (int s = 0; s < prm.n_new; ++s) {
+    unsigned char* b = smem + buffer_at(prm, k, prm.new_buf[s]);
+    const long long g = ts + prm.new_src[s];
+    stage_window<T, true>(b, xp, g, prm.new_len[s], no);
+    if (MODE == PA_PFOLD) stage_window<T, true>(b + prm.pp_shift, pp, g, prm.new_len[s], no);
+  }
+  if (!rows) return;
+  unsigned char* st = smem + prm.stage_at + (k & 1) * prm.stage_bytes;
+  if (MODE == PA_AXPY) {
+    stage_window<T, true>(st + prm.ax_pp_at, pp, ts, prm.T, no);
+    stage_window<T, true>(st + prm.ax_xa_at, xa, ts, prm.T, no);
+  }
+  for (int s = 0; s < prm.n_streams; ++s)
+    stage_window<uint8_t, false>(st + prm.code_at + s * prm.code_stride, cpart + s * prm.code_len,
+                                 ts, prm.T, no);
+}
+
+// The 4 values at p (16-byte aligned) of shared memory.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&c)[4]) {
+  using V = typename Vec16<T>::type;
+  constexpr int NV = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int q = 0; q < 4 / NV; ++q) unpack(c + q * NV, reinterpret_cast<const V*>(p)[q]);
+}
+
+// The row-class band sum of a thread's rows over the ntake diagonals some
+// class takes, with at most 4 classes (FOUR) or 2: the class coefficients
+// of a diagonal in one shared load, a row's picked by selects.
+template <typename T, bool FOUR>
+__device__ __forceinline__ void class_sum(int ntake, const T* sop, const int* sidx, const T* sccf,
+                                          const int (&cls)[PA_ROWS], const int (&row)[PA_ROWS],
+                                          T (&acc)[PA_ROWS]) {
+  for (int j = 0; j < ntake; ++j) {
+    const T* xs = sop + sidx[j];
+    T c4[4];
+    load4(sccf + 4 * j, c4);
+#pragma unroll
+    for (int r = 0; r < PA_ROWS; ++r) {
+      const T lo = cls[r] & 1 ? c4[1] : c4[0];
+      const T v = FOUR && (cls[r] & 2) ? (cls[r] & 1 ? c4[3] : c4[2]) : lo;
+      acc[r] = add_rn(acc[r], mul_rn(v, xs[row[r]]));
+    }
+  }
+}
+
+// p = r + beta * pprev over `len` values of a buffer (r at sr, pprev at sq,
+// each from its own 16-byte phase), in place at sr.
+template <typename T>
+__device__ __forceinline__ void fold(T* sr, const T* sq, int ph_r, int ph_q, int len, T beta) {
+  using V = typename Vec16<T>::type;
+  constexpr int NV = 16 / (int)sizeof(T);
+  if (ph_r == ph_q) {
+    // the same phase: whole 16-byte chunks (the phase in front and the
+    // tail past len are folded too and never read)
+    V* vr = reinterpret_cast<V*>(sr);
+    const V* vq = reinterpret_cast<const V*>(sq);
+    for (int e = threadIdx.x; e < (ph_r + len + NV - 1) / NV; e += blockDim.x) {
+      T a[NV], q[NV];
+      unpack(a, vr[e]);
+      unpack(q, vq[e]);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) a[j] = add_rn(a[j], mul_rn(beta, q[j]));
+      vr[e] = pack(a);
+    }
+  } else {
+    for (int e = threadIdx.x; e < len; e += blockDim.x)
+      sr[ph_r + e] = add_rn(sr[ph_r + e], mul_rn(beta, sq[ph_q + e]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
 
 // MODE: PA_PLAIN, PA_PFOLD (scal = beta, vout = p) or PA_AXPY
 // (scal = alpha, vout = xacc updated in place).
 template <typename T, int MODE>
-__global__ void dia_coded_kernel(const PaDiaParams prm,
-                                 const T* __restrict__ cb,
-                                 const int32_t* __restrict__ no_arr,
-                                 const uint8_t* __restrict__ codes,
-                                 const T* __restrict__ x,
-                                 const T* __restrict__ pprev,
-                                 const T* __restrict__ scal_ptr,
-                                 T* __restrict__ y,
-                                 T* __restrict__ vout) {
+__global__ void __launch_bounds__(PA_THREADS)
+dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t* __restrict__ no_arr,
+                 const uint8_t* __restrict__ codes, const T* __restrict__ x,
+                 const T* __restrict__ pprev, const T* __restrict__ scal_ptr,
+                 T* __restrict__ y, T* __restrict__ vout) {
   constexpr bool PFOLD = MODE == PA_PFOLD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* scb = reinterpret_cast<T*>(smem_raw);
-  const int p = blockIdx.y;
-  const int ncb = prm.D * prm.kmax;
-  for (int t = threadIdx.x; t < ncb; t += blockDim.x)
-    scb[t] = cb[(long long)p * ncb + t];
-  __syncthreads();
+  constexpr bool AXPY = MODE == PA_AXPY;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* scb = reinterpret_cast<T*>(smem);
+  T* sccf = reinterpret_cast<T*>(smem + prm.ccf_at);
+  int* sidx = reinterpret_cast<int*>(smem + prm.sidx_at);
+  const T* sop = reinterpret_cast<const T*>(smem);
 
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long wmax = prm.wx > prm.wy ? prm.wx : prm.wy;
-  if (j >= wmax) return;
+  const int p = blockIdx.y;
   const long long no = no_arr[p];
-  const long long i = j - prm.o0;
-  const bool owned = i >= 0 && i < no;
   const T* xp = x + (long long)p * prm.wx + prm.o0;
   const T* pp = MODE != PA_PLAIN ? pprev + (long long)p * prm.wx + prm.o0 : nullptr;
+  T* yp = y + (long long)p * prm.wy + prm.o0;
+  T* vp = MODE != PA_PLAIN ? vout + (long long)p * prm.wx + prm.o0 : nullptr;
+  const uint8_t* cpart = codes + (long long)p * prm.n_streams * prm.code_len;
   const T scal = MODE != PA_PLAIN ? scal_ptr[0] : T(0);
+  const int TR = prm.T;
 
-  if (PFOLD && j < prm.wx)
-    vout[(long long)p * prm.wx + j] = owned ? operand<T, true>(xp, pp, scal, i, no) : T(0);
-  if (MODE == PA_AXPY && owned) {
-    const long long k = (long long)p * prm.wx + j;
-    vout[k] = add_rn(vout[k], mul_rn(scal, pp[i]));
-  }
-  if (j >= prm.wy) return;
-  if (!owned) {
-    y[(long long)p * prm.wy + j] = T(0);
-    return;
-  }
-
-  const uint8_t* cp = codes + (long long)p * prm.n_streams * prm.code_len + i;
-  T acc = T(0);
-  bool first = true;
-  if (prm.n_cls > 0) {
-    int c = cp[0] & 15;
-    if (c >= prm.n_cls) c = 0;
-    const unsigned long long mask = prm.cls_mask[c];
-    for (int d = 0; d < prm.D; ++d) {
-      if (!((mask >> d) & 1ULL)) continue;
-      const int slot = c < prm.kk[d] - 1 ? c : prm.kk[d] - 1;
-      const T term = mul_rn(scb[d * prm.kmax + slot],
-                            operand<T, PFOLD>(xp, pp, scal, i + prm.off[d], no));
-      acc = first ? term : add_rn(acc, term);
-      first = false;
-    }
+  // this CTA's tiles: ts(k) = ts0 + k * tstep for k < steps, each of at most
+  // rowcap rows
+  long long ts0, tstep;
+  int steps, rowcap;
+  if (prm.stride > 0) {
+    const long long M = prm.stride;
+    const int col = blockIdx.x % prm.ncol;
+    const long long z0 = (long long)(blockIdx.x / prm.ncol) * prm.planes;
+    const long long nz = (no + M - 1) / M;
+    const long long left = nz - z0;
+    steps = left <= 0 ? 0 : (int)(left < prm.planes ? left : prm.planes);
+    ts0 = z0 * M + (long long)col * TR;
+    tstep = M;
+    const long long cap = M - (long long)col * TR;
+    rowcap = cap < TR ? (int)cap : TR;
   } else {
-    for (int d = 0; d < prm.D; ++d) {
-      T v;
-      if (prm.kk[d] == 1) {
-        v = scb[d * prm.kmax];
-      } else {
-        const int ci = prm.code_row[d];
-        const unsigned int byte = cp[(long long)(ci >> 1) * prm.code_len];
-        const int c = (byte >> (4 * (ci & 1))) & 15;
-        v = scb[d * prm.kmax + (c < prm.kk[d] ? c : 0)];
-      }
-      const T term = mul_rn(v, operand<T, PFOLD>(xp, pp, scal, i + prm.off[d], no));
-      acc = first ? term : add_rn(acc, term);
-      first = false;
-    }
+    const long long ntiles = (no + TR - 1) / TR;
+    steps = blockIdx.x < ntiles ? (int)((ntiles - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+    ts0 = (long long)blockIdx.x * TR;
+    tstep = (long long)gridDim.x * TR;
+    rowcap = TR;
   }
-  y[(long long)p * prm.wy + j] = acc;
+
+  if (steps > 0)
+    for (int k = -prm.lead; k <= 0; ++k)
+      stage_step<T, MODE>(prm, smem, k, ts0 + k * tstep, k == 0, no, xp, pp, vp, cpart);
+  cp_async_commit();
+
+  // the head: the codebook; for the row-class decode, the coefficient of
+  // class c on the j-th diagonal that some class takes at sccf[nc * j + c]
+  const int ncb = prm.D * prm.kmax;
+  for (int k = threadIdx.x; k < ncb; k += blockDim.x) scb[k] = cb[(long long)p * ncb + k];
+  unsigned long long take = 0;
+  for (int c = 0; c < prm.n_cls; ++c) take |= prm.cls_mask[c];
+  const int ntake = __popcll(take);
+  const int nc = (prm.n_cls + 3) & ~3;
+  for (int k = threadIdx.x; k < nc * prm.D; k += blockDim.x) {
+    const int d = k / nc, c = k % nc, top = prm.kk[d] - 1;
+    if ((take >> d) & 1ULL)
+      sccf[nc * __popcll(take & ((1ULL << d) - 1)) + c] = cb[(long long)p * ncb + d * prm.kmax + (c < top ? c : top)];
+  }
+  // every slot outside the owned band: y (and p) 0
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < prm.wy - no; e += stride)
+    y[(long long)p * prm.wy + (e < prm.o0 ? e : e + no)] = T(0);
+  if (PFOLD)
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < prm.wx - no; e += stride)
+      vout[(long long)p * prm.wx + (e < prm.o0 ? e : e + no)] = T(0);
+
+  for (int k = 0; k < steps; ++k) {
+    const long long ts = ts0 + k * tstep;
+    // the slot of row 0 of the tile for each diagonal (row-class decode:
+    // for the j-th diagonal some class takes), and for offset 0 at D
+    for (int d = threadIdx.x; d <= prm.D; d += blockDim.x) {
+      int at = d;
+      if (prm.n_cls > 0 && d < prm.D) {
+        if (!((take >> d) & 1ULL)) continue;
+        at = __popcll(take & ((1ULL << d) - 1));
+      }
+      const int c = d < prm.D ? prm.diag_win[d] : prm.zero_win;
+      const int o = d < prm.D ? prm.off[d] : 0;
+      sidx[at] = buffer_at(prm, k, prm.win_buf[c]) / (int)sizeof(T) + phase(xp, ts + prm.win_src[c]) + o -
+                prm.win_src[c];
+    }
+    if (k + 1 < steps)
+      stage_step<T, MODE>(prm, smem, k + 1, ts + tstep, true, no, xp, pp, vp, cpart);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    if (PFOLD) {
+      // p = r + beta * pprev, once per staged value: the windows that
+      // arrived for this step (at the first, those staged ahead of it too)
+      for (int j = k == 0 ? -prm.lead : k; j <= k; ++j) {
+        const long long tj = ts0 + j * tstep;
+        for (int s = 0; s < prm.n_new; ++s) {
+          const int b = buffer_at(prm, j, prm.new_buf[s]);
+          const long long g = tj + prm.new_src[s];
+          fold(reinterpret_cast<T*>(smem + b), reinterpret_cast<const T*>(smem + b + prm.pp_shift),
+               phase(xp, g), phase(pp, g), prm.new_len[s], scal);
+        }
+      }
+      __syncthreads();
+    }
+
+    const unsigned char* st = smem + prm.stage_at + (k & 1) * prm.stage_bytes;
+    const long long left = no - ts;
+    const int nrow = left < rowcap ? (int)left : rowcap;
+    if (threadIdx.x < nrow) {
+      // this thread's rows i0 + r * PA_THREADS (T <= PA_ROWS * PA_THREADS):
+      // each read below is one 4- or 8-byte shared load at a fixed offset,
+      // a warp's 32 threads on consecutive values. A row past the tile is
+      // read (the plan leaves room past every region) but not stored.
+      const int i0 = threadIdx.x;
+      int row[PA_ROWS];
+#pragma unroll
+      for (int r = 0; r < PA_ROWS; ++r) row[r] = i0 + r * PA_THREADS;
+      T acc[PA_ROWS];
+#pragma unroll
+      for (int r = 0; r < PA_ROWS; ++r) acc[r] = T(-0.0);
+
+      if (prm.n_cls > 0) {
+        const unsigned char* sc = st + prm.code_at + phase(cpart, ts);
+        int cls[PA_ROWS];
+#pragma unroll
+        for (int r = 0; r < PA_ROWS; ++r) {
+          const int c = sc[row[r]] & 15;
+          cls[r] = c < prm.n_cls ? c : 0;
+        }
+        // a diagonal that no class takes (zero in every part) is skipped; a
+        // row whose class has a zero coefficient on a diagonal that another
+        // class takes adds that exact zero times x, as the plain version does
+        if (prm.n_cls <= 2) {
+          class_sum<T, false>(ntake, sop, sidx, sccf, cls, row, acc);
+        } else if (prm.n_cls <= 4) {
+          class_sum<T, true>(ntake, sop, sidx, sccf, cls, row, acc);
+        } else {
+          for (int j = 0; j < ntake; ++j) {
+            const T* xs = sop + sidx[j];
+#pragma unroll
+            for (int r = 0; r < PA_ROWS; ++r)
+              acc[r] = add_rn(acc[r], mul_rn(sccf[nc * j + cls[r]], xs[row[r]]));
+          }
+        }
+      } else {
+        for (int d = 0; d < prm.D; ++d) {
+          const T* cbd = scb + d * prm.kmax;
+          const T* xs = sop + sidx[d];
+          T v[PA_ROWS];
+          if (prm.kk[d] == 1) {
+#pragma unroll
+            for (int r = 0; r < PA_ROWS; ++r) v[r] = cbd[0];
+          } else {
+            const int ci = prm.code_row[d];
+            const int s = ci >> 1;
+            const unsigned char* sc = st + prm.code_at + s * prm.code_stride + phase(cpart + s * prm.code_len, ts);
+            const int sh = 4 * (ci & 1);
+#pragma unroll
+            for (int r = 0; r < PA_ROWS; ++r) {
+              const int c = (sc[row[r]] >> sh) & 15;
+              v[r] = cbd[c < prm.kk[d] ? c : 0];
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < PA_ROWS; ++r) acc[r] = add_rn(acc[r], mul_rn(v[r], xs[row[r]]));
+        }
+      }
+
+      const T* zs = sop + sidx[prm.D];
+      const T* spp = reinterpret_cast<const T*>(st + prm.ax_pp_at) + (AXPY ? phase(pp, ts) : 0);
+      const T* sxa = reinterpret_cast<const T*>(st + prm.ax_xa_at) + (AXPY ? phase(vp, ts) : 0);
+#pragma unroll
+      for (int r = 0; r < PA_ROWS; ++r) {
+        const int i = i0 + r * PA_THREADS;
+        if (i < nrow) {
+          yp[ts + i] = acc[r];
+          if (PFOLD) vp[ts + i] = zs[i];
+          if (AXPY) vp[ts + i] = add_rn(sxa[i], mul_rn(scal, spp[i]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait_all();
 }
 
 template <typename T, int MODE>
 static int launch(const PaDiaParams* prm, const void* cb, const void* no,
                   const void* codes, const void* x, const void* pprev,
                   const void* scal, void* y, void* vout, void* stream) {
-  const int threads = 256;
-  const long long wmax = prm->wx > prm->wy ? prm->wx : prm->wy;
-  dim3 grid((unsigned int)((wmax + threads - 1) / threads), (unsigned int)prm->P);
-  const size_t smem = sizeof(T) * (size_t)prm->D * (size_t)prm->kmax;
-  dia_coded_kernel<T, MODE><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      *prm, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
+  auto kern = dia_coded_kernel<T, MODE>;
+  static int n_sm = 0, occ_smem = -1, occ = 1;
+  cudaError_t e;
+  if (n_sm == 0) {
+    int dev, optin;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) != cudaSuccess)
+      return (int)e;
+  }
+  if (prm->smem_bytes != occ_smem) {
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, PA_THREADS, prm->smem_bytes)) != cudaSuccess)
+      return (int)e;
+    occ = occ < 1 ? 1 : occ;
+    occ_smem = prm->smem_bytes;
+  }
+  // one wave of CTAs that fills every SM (code_len >= every no)
+  PaDiaParams run = *prm;
+  const long long per_part = ((long long)occ * n_sm + prm->P - 1) / prm->P;
+  long long gx;
+  if (prm->stride > 0) {
+    // marching: ncol columns, their planes split into chunks
+    const long long nz = (prm->code_len + prm->stride - 1) / prm->stride;
+    long long chunks = per_part / prm->ncol;
+    chunks = chunks < 1 ? 1 : chunks > nz ? nz : chunks;
+    run.planes = (int)((nz + chunks - 1) / chunks);
+    gx = (long long)prm->ncol * ((nz + run.planes - 1) / run.planes);
+  } else {
+    const long long tiles = (prm->code_len + prm->T - 1) / prm->T;
+    gx = per_part > tiles ? tiles : per_part;
+  }
+  gx = gx < 1 ? 1 : gx;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
+  kern<<<grid, PA_THREADS, prm->smem_bytes, (cudaStream_t)stream>>>(
+      run, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
       (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout);
   return (int)cudaGetLastError();
 }

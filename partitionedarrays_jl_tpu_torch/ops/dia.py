@@ -25,8 +25,9 @@ the pfold variant 17 B/row (r, pprev, code byte, y, p), 120.3 MB, about
 35.9 us; the axpy variant 21 B/row (x, code byte, y, pprev, xacc read and
 written), 148.6 MB, about 44.4 us. The streaming SpMV at GMG level 1 of
 192^3 (96^3 rows, 27 diagonals, f32) moves 116 B/row, 102.6 MB, about
-30.6 us. The kernel designs (one thread per row, no FMA contraction) are
-noted at the head of each `csrc/` file.
+30.6 us. The kernel designs are noted at the head of each `csrc/` file:
+the coded kernel stages its operand in shared-memory windows laid out by
+`plan_coded_windows`, the streaming kernel takes one thread per row.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises. Each kernel counts its launches in `LAUNCHES`.
@@ -37,11 +38,12 @@ with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -56,6 +58,21 @@ LAUNCHES = {
 
 MAX_DIAGS = 64
 MAX_CLASSES = 16
+MAX_WINDOWS = MAX_DIAGS + 1  # the offsets and 0
+MAX_BUFS = 2 * MAX_WINDOWS
+#: planes of its stride a marching plan of the coded kernel reads (K)
+MAX_PLANES = 3
+#: shared memory one CTA of the coded kernel may take: with 96 KB at least
+#: two CTAs share an H100 SM (228 KB of shared memory an SM)
+SMEM_BUDGET = 96 * 1024
+#: rows per tile the planner tries, largest first (multiples of the rows
+#: a thread sums)
+TILE_ROWS = (1024, 512, 256, 128, 64, 32)
+#: rows one thread of the coded kernel sums (PA_ROWS in csrc/dia_coded.cu)
+ROWS_PER_THREAD = 4
+#: threads of one CTA of the coded kernel (PA_THREADS); a tile has at most
+#: ROWS_PER_THREAD * THREADS rows
+THREADS = 256
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources, one shared library each
@@ -112,11 +129,201 @@ class CodedOperator:
     code_row: Tuple[int, ...]
     cls_pattern: Optional[Tuple[Tuple[bool, ...], ...]] = None
     o0: int = 0
+    #: the kernel's parameters by (wx, wy, mode, dtype), built at first launch
+    kernel_params: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def n(self) -> int:
         """Length of the owned band every part's frame reserves."""
         return int(self.codes.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the coded kernel's shared-memory plan
+# ---------------------------------------------------------------------------
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """Shared-memory layout and tile schedule of one CTA of the coded-DIA
+    kernel (byte offsets; csrc/dia_coded.cu mirrors it in PaDiaParams).
+
+    A CTA sums tiles of ``tile`` rows; step k sums the tile at row ts(k).
+    Diagonal d reads the read window ``diag_window[d]``; ``zero_window``
+    holds offset 0. ``windows`` are the offsets grouped, (lowest offset,
+    span) each. Read window c of step k starts at row ts(k) +
+    ``window_src[c]`` of buffer (k * ``step_bufs`` + ``window_buf[c]``) mod
+    len(``buf_at``). Each step stages its new windows one step ahead: new
+    window s of step k holds ``new_len[s]`` values from ts(k) +
+    ``new_src[s]`` in buffer (k * step_bufs + ``new_buf[s]``) mod
+    len(buf_at). Buffer b lies at ``buf_at[b]`` and has ``buf_slots[b]``
+    values, the source's 16-byte phase first; in pfold its pprev copy lies
+    ``pp_shift`` bytes after it.
+
+    ``stride`` > 0: a marching plan. A CTA walks one column of a plane
+    through consecutive planes, ts(k+1) = ts(k) + stride, staging one plane
+    a step into a ring of K + 1 buffers from which the K planes a tile
+    reads come; ``lead`` = K - 1 steps are staged before the first.
+    ``stride`` 0: every step stages every window, in two sets of buffers,
+    and CTAs walk the part's tiles by the grid stride.
+
+    The head (codebook at 0, the class coefficients at ``ccf_at``, n_cls
+    rounded up to 4 per diagonal, a slot per diagonal and for offset 0 at
+    ``sidx_at``) comes first, then the buffers (and their pprev copies),
+    then two stages of the tile's own rows from ``stage_at``: the
+    code bytes (``code_stride`` bytes per stream from ``code_at``) and, for
+    axpy, its pprev and xacc rows (``axpy_at``); then room for the reads of
+    rows past a tile smaller than ROWS_PER_THREAD * THREADS."""
+
+    tile: int
+    windows: Tuple[Tuple[int, int], ...]
+    diag_window: Tuple[int, ...]
+    zero_window: int
+    stride: int
+    lead: int
+    step_bufs: int
+    window_src: Tuple[int, ...]
+    window_buf: Tuple[int, ...]
+    new_src: Tuple[int, ...]
+    new_buf: Tuple[int, ...]
+    new_len: Tuple[int, ...]
+    buf_at: Tuple[int, ...]
+    buf_slots: Tuple[int, ...]
+    pp_shift: int
+    axpy_at: Tuple[int, int]
+    code_at: int
+    code_stride: int
+    ccf_at: int
+    sidx_at: int
+    head_bytes: int
+    stage_at: int
+    stage_bytes: int
+    smem_bytes: int
+
+
+def _windows(offsets: Tuple[int, ...], tile: int) -> Tuple[Tuple[int, int], ...]:
+    """The ascending offsets and 0, grouped: offsets closer than `tile`
+    share one window. Returns (lowest offset, span) per window."""
+    pts = sorted(set(int(o) for o in offsets) | {0})
+    groups = [[pts[0], pts[0]]]
+    for o in pts[1:]:
+        if o - groups[-1][1] < tile:
+            groups[-1][1] = o
+        else:
+            groups.append([o, o])
+    return tuple((lo, hi - lo) for lo, hi in groups)
+
+
+def _march(wins, zero: int, tile: int):
+    """The marching schedule of the windows, or None: the stride M between
+    the midpoints of the zero window and its neighbour, the plane k_c of
+    each window (its midpoint over M, rounded), and the union U of the
+    windows moved onto plane 0 as (lowest offset, span). None unless the
+    windows span at most MAX_PLANES planes and one U a step stages fewer
+    values than every window a step."""
+    if len(wins) < 2:
+        return None
+    mid2 = [2 * lo + span for lo, span in wins]
+    nb = zero + 1 if zero + 1 < len(wins) else zero - 1
+    M = abs(mid2[nb] - mid2[zero]) // 2
+    if M < tile:
+        return None
+    planes = tuple(int(np.floor((m - mid2[zero]) / (2 * M) + 0.5)) for m in mid2)
+    lo_u = min(lo - k * M for (lo, _), k in zip(wins, planes))
+    hi_u = max(lo + span - k * M for (lo, span), k in zip(wins, planes))
+    if max(planes) - min(planes) + 1 > MAX_PLANES:
+        return None
+    if tile + hi_u - lo_u >= sum(tile + span for _, span in wins):
+        return None
+    return M, planes, lo_u, hi_u - lo_u
+
+
+@functools.lru_cache(maxsize=256)
+def plan_coded_windows(
+    offsets: Tuple[int, ...], itemsize: int, mode: str = "plain", n_streams: int = 1,
+    kmax: int = 1, budget: int = SMEM_BUDGET, n_cls: int = 0,
+) -> WindowPlan:
+    """The coded-DIA kernel's resource gate (the port's counterpart of the
+    TPU planners `plan_dia_padded` and `pfold_vmem_ok`, sized for Hopper
+    shared memory): the schedule and layout (see `WindowPlan`) at the
+    largest tile of TILE_ROWS whose head, buffers and two stages fit
+    `budget` bytes; a marching schedule where the windows allow one. mode
+    is "plain", "pfold" (r and pprev buffers) or "axpy" (the tile's pprev
+    and xacc rows too); n_cls the row classes (0: select-chain decode).
+    Raises ValueError when even the smallest tile does not fit."""
+    if mode not in ("plain", "pfold", "axpy"):
+        raise ValueError(f"plan_coded_windows: unknown mode {mode!r}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"plan_coded_windows: itemsize {itemsize}, the kernel takes float32 or float64")
+    D = len(offsets)
+    if not 0 < D <= MAX_DIAGS:
+        raise ValueError(f"coded-DIA kernel takes 1 to {MAX_DIAGS} diagonals, got {D}")
+    vec = 16 // itemsize
+    if not 0 <= n_cls <= MAX_CLASSES:
+        raise ValueError(f"coded-DIA kernel takes at most {MAX_CLASSES} row classes, got {n_cls}")
+    ccf_at = _round16(D * kmax * itemsize)
+    sidx_at = ccf_at + _round16(D * -(-n_cls // 4) * 4 * itemsize)
+    head = _round16(sidx_at + 4 * (D + 1))
+    for tile in TILE_ROWS:
+        wins = _windows(offsets, tile)
+        zero = next(c for c, (lo, span) in enumerate(wins) if lo <= 0 <= lo + span)
+        march = _march(wins, zero, tile)
+        if march is not None:
+            stride, planes, lo_u, span_u = march
+            k0, K = min(planes), max(planes) - min(planes) + 1
+            window_src = tuple(k * stride + lo_u for k in planes)
+            window_buf = tuple(k - k0 for k in planes)
+            new_src, new_buf, new_len = (max(planes) * stride + lo_u,), (K - 1,), (tile + span_u,)
+            lead, step_bufs, lens = K - 1, 1, (tile + span_u,) * (K + 1)
+        else:
+            stride, lead, step_bufs = 0, 0, len(wins)
+            window_src = new_src = tuple(lo for lo, _ in wins)
+            window_buf = new_buf = tuple(range(len(wins)))
+            new_len = tuple(tile + span for _, span in wins)
+            lens = new_len * 2
+        # the phase in front, and room for a 16-byte read past the end
+        buf_slots = tuple(n + 2 * vec for n in lens)
+        buf_at, at = [], head
+        for s in buf_slots:
+            buf_at.append(at)
+            at += _round16(s * itemsize)
+        pp_shift = at - head if mode == "pfold" else 0
+        stage_at = at + pp_shift
+        axpy_at, st = (0, 0), 0
+        if mode == "axpy":
+            row_bytes = _round16((tile + 2 * vec) * itemsize)
+            axpy_at, st = (0, row_bytes), 2 * row_bytes
+        code_stride = tile + 32
+        stage = st + n_streams * code_stride
+        # a thread reads its ROWS_PER_THREAD rows of a region even past a
+        # smaller tile (and does not store them): room for that at the end
+        past = ROWS_PER_THREAD * THREADS - tile
+        ends = [a + (n + past) * itemsize for a, n in zip(buf_at, buf_slots)]
+        for h in range(2):
+            ends += [stage_at + h * stage + a + (tile + 2 * vec + past) * itemsize for a in axpy_at[: 2 if st else 0]]
+            ends += [stage_at + h * stage + st + s * code_stride + tile + 16 + past for s in range(n_streams)]
+        total = _round16(max([stage_at + 2 * stage] + ends))
+        if total <= budget:
+            diag_window = tuple(
+                next(c for c, (lo, span) in enumerate(wins) if lo <= o <= lo + span) for o in offsets
+            )
+            return WindowPlan(
+                tile=tile, windows=wins, diag_window=diag_window, zero_window=zero, stride=stride,
+                lead=lead, step_bufs=step_bufs, window_src=window_src, window_buf=window_buf,
+                new_src=new_src, new_buf=new_buf, new_len=new_len, buf_at=tuple(buf_at),
+                buf_slots=buf_slots, pp_shift=pp_shift, axpy_at=axpy_at, code_at=st,
+                code_stride=code_stride, ccf_at=ccf_at, sidx_at=sidx_at, head_bytes=head,
+                stage_at=stage_at, stage_bytes=stage, smem_bytes=total,
+            )
+    raise ValueError(
+        f"coded-DIA kernel: {D} diagonals in {mode} mode ({itemsize}-byte values, {n_streams} code "
+        f"streams) need {total} bytes of shared memory at {TILE_ROWS[-1]} rows a tile, over the "
+        f"{budget}-byte budget"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +445,33 @@ class _Params(ctypes.Structure):
         ("kk", ctypes.c_int * MAX_DIAGS),
         ("code_row", ctypes.c_int * MAX_DIAGS),
         ("cls_mask", ctypes.c_ulonglong * MAX_CLASSES),
+        ("stride", ctypes.c_longlong),
+        ("T", ctypes.c_int),
+        ("ncol", ctypes.c_int),
+        ("planes", ctypes.c_int),
+        ("lead", ctypes.c_int),
+        ("n_buf", ctypes.c_int),
+        ("step_bufs", ctypes.c_int),
+        ("n_win", ctypes.c_int),
+        ("n_new", ctypes.c_int),
+        ("zero_win", ctypes.c_int),
+        ("ccf_at", ctypes.c_int),
+        ("sidx_at", ctypes.c_int),
+        ("pp_shift", ctypes.c_int),
+        ("stage_at", ctypes.c_int),
+        ("stage_bytes", ctypes.c_int),
+        ("code_at", ctypes.c_int),
+        ("code_stride", ctypes.c_int),
+        ("ax_pp_at", ctypes.c_int),
+        ("ax_xa_at", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("win_src", ctypes.c_int * MAX_WINDOWS),
+        ("win_buf", ctypes.c_int * MAX_WINDOWS),
+        ("new_src", ctypes.c_int * MAX_WINDOWS),
+        ("new_buf", ctypes.c_int * MAX_WINDOWS),
+        ("new_len", ctypes.c_int * MAX_WINDOWS),
+        ("buf_at", ctypes.c_int * MAX_BUFS),
+        ("diag_win", ctypes.c_int * MAX_DIAGS),
     ]
 
 
@@ -313,16 +547,27 @@ def build_kernels() -> dict:
 _DT = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _params(op: CodedOperator, wx: int, wy: int) -> _Params:
+def _params(op: CodedOperator, wx: int, wy: int, mode: str) -> _Params:
+    """The kernel's parameters with its window plan, built once per frame
+    widths, mode and dtype of an operator."""
+    key = (wx, wy, mode, op.cb.dtype)
+    prm = op.kernel_params.get(key)
+    if prm is not None:
+        return prm
     D = len(op.offsets)
     if D > MAX_DIAGS:
         raise ValueError(f"coded-DIA kernel takes at most {MAX_DIAGS} diagonals, got {D}")
+    plan = plan_coded_windows(
+        tuple(int(o) for o in op.offsets), op.cb.element_size(), mode, op.codes.shape[1], op.cb.shape[2],
+        n_cls=len(op.cls_pattern or ()),
+    )
     prm = _Params()
     prm.P, prm.D, prm.kmax = op.cb.shape[0], D, op.cb.shape[2]
     prm.n_streams, prm.code_len = op.codes.shape[1], op.codes.shape[2]
     prm.wx, prm.wy, prm.o0 = wx, wy, op.o0
     for d in range(D):
         prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
+        prm.diag_win[d] = plan.diag_window[d]
     prm.n_cls = 0
     if op.cls_pattern is not None:
         if len(op.cls_pattern) > MAX_CLASSES:
@@ -330,10 +575,26 @@ def _params(op: CodedOperator, wx: int, wy: int) -> _Params:
         prm.n_cls = len(op.cls_pattern)
         for k, pat in enumerate(op.cls_pattern):
             prm.cls_mask[k] = sum(1 << d for d in range(D) if pat[d])
+    prm.stride, prm.T, prm.lead, prm.step_bufs = plan.stride, plan.tile, plan.lead, plan.step_bufs
+    prm.ncol = -(-plan.stride // plan.tile)
+    prm.n_buf, prm.n_win, prm.n_new = len(plan.buf_at), len(plan.windows), len(plan.new_src)
+    prm.zero_win, prm.ccf_at = plan.zero_window, plan.ccf_at
+    prm.sidx_at = plan.sidx_at
+    prm.pp_shift, prm.stage_at, prm.stage_bytes = plan.pp_shift, plan.stage_at, plan.stage_bytes
+    prm.code_at, prm.code_stride = plan.code_at, plan.code_stride
+    prm.ax_pp_at, prm.ax_xa_at = plan.axpy_at
+    prm.smem_bytes = plan.smem_bytes
+    for c in range(len(plan.windows)):
+        prm.win_src[c], prm.win_buf[c] = plan.window_src[c], plan.window_buf[c]
+    for s in range(len(plan.new_src)):
+        prm.new_src[s], prm.new_buf[s], prm.new_len[s] = plan.new_src[s], plan.new_buf[s], plan.new_len[s]
+    for b, at in enumerate(plan.buf_at):
+        prm.buf_at[b] = at
+    op.kernel_params[key] = prm
     return prm
 
 
-def _check_cuda(op: CodedOperator, *vecs: torch.Tensor) -> str:
+def _check_cuda(op: CodedOperator, width: int, *vecs: torch.Tensor) -> str:
     dev = vecs[0].device
     dt = vecs[0].dtype
     if dt not in _DT:
@@ -351,6 +612,8 @@ def _check_cuda(op: CodedOperator, *vecs: torch.Tensor) -> str:
     for t in vecs:
         if t.dim() != 2 or t.shape[0] != P or t.shape[1] < op.o0 + op.n:
             raise ValueError(f"coded-DIA kernel: frame {tuple(t.shape)} does not hold {P} parts of {op.n} rows")
+    if width < op.o0 + op.n:
+        raise ValueError(f"coded-DIA kernel: result width {width} does not hold the owned band at {op.o0} of {op.n} rows")
     return _DT[dt]
 
 
@@ -367,9 +630,9 @@ def dia_coded_spmv(op: CodedOperator, x: torch.Tensor, width: Optional[int] = No
         return dia_coded_spmv_plain(op, x, width)
     if x.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmv: no kernel for device {x.device}")
-    dt = _check_cuda(op, x)
+    dt = _check_cuda(op, width, x)
     y = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
-    prm = _params(op, x.shape[1], width)
+    prm = _params(op, x.shape[1], width, "plain")
     fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_{dt}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
@@ -393,14 +656,14 @@ def dia_coded_spmv_pfold(
     if r.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmv_pfold: no kernel for device {r.device}")
     beta = beta.reshape(1)
-    dt = _check_cuda(op, r, pprev)
+    dt = _check_cuda(op, width, r, pprev)
     if beta.device != r.device or beta.dtype != r.dtype:
         raise ValueError("dia_coded_spmv_pfold: beta must be a scalar tensor on r's device, of r's dtype")
     if pprev.shape != r.shape:
         raise ValueError("dia_coded_spmv_pfold: pprev and r must share one frame")
     y = torch.empty((r.shape[0], width), dtype=r.dtype, device=r.device)
     p = torch.empty_like(r)
-    prm = _params(op, r.shape[1], width)
+    prm = _params(op, r.shape[1], width, "pfold")
     fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_pfold_{dt}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
@@ -427,7 +690,7 @@ def dia_coded_spmv_axpy(
     if x.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmv_axpy: no kernel for device {x.device}")
     alpha = alpha.reshape(1)
-    dt = _check_cuda(op, x, xacc, pprev)
+    dt = _check_cuda(op, width, x, xacc, pprev)
     if alpha.device != x.device or alpha.dtype != x.dtype:
         raise ValueError("dia_coded_spmv_axpy: alpha must be a scalar tensor on x's device, of x's dtype")
     if xacc.shape != x.shape or pprev.shape != x.shape:
@@ -436,7 +699,7 @@ def dia_coded_spmv_axpy(
     if xacc.data_ptr() in ptrs:
         raise ValueError("dia_coded_spmv_axpy: xacc is updated in place and must not alias x or pprev")
     y = torch.empty((x.shape[0], width), dtype=x.dtype, device=x.device)
-    prm = _params(op, x.shape[1], width)
+    prm = _params(op, x.shape[1], width, "axpy")
     fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_axpy_{dt}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),

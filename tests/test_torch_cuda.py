@@ -25,47 +25,90 @@ def _need_card():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
 
 
-def _operator(mode, dtype, rng):
-    """A two-part operand with ragged owned counts: the 7-point offsets of
-    a 24^3 grid, in select-chain or row-class decode."""
-    n = 24
+#: (stencil points, n, o0): n = 25 starts the operand windows off 16-byte
+#: alignment, o0 > 0 moves the owned band inside the frame; at n = 24, 25
+#: every window fits one tile and CTAs walk the tiles, at n >= 35 the far
+#: planes have windows of their own and CTAs march along the planes (odd
+#: n^2: each plane starts at another 16-byte phase; 40^2 = 1600 rows: two
+#: columns a plane, the second ragged)
+SHAPES = [(7, 24, 0), (7, 25, 3), (27, 24, 1), (27, 25, 0), (7, 40, 2), (7, 41, 0), (27, 35, 1)]
+SHAPE_IDS = [f"{p}pt-n{n}-o0{o0}" for p, n, o0 in SHAPES]
+
+
+def _offsets(points, n):
+    r = (-1, 0, 1)
+    if points == 7:
+        return (-n * n, -n, -1, 0, 1, n, n * n)
+    return tuple(a * n * n + b * n + c for a in r for b in r for c in r)
+
+
+def _operator(mode, dtype, rng, points=7, n=24, o0=0):
+    """A two-part operand with ragged owned counts (neither a multiple of
+    the kernel's tile): the 7- or 27-point offsets of an n^3 grid, in
+    select-chain or row-class decode ("class" with 2 classes, "class4" and
+    "class6" with 4 and 6)."""
     rows = n ** 3
     no = np.array([rows, rows - 1000], dtype=np.int32)
-    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
-    if mode == "class":
-        K = 2
-        kk, code_row = (K,) * 7, (0,) * 7
-        cb = np.zeros((2, 7, K))
-        cb[:, :, 0] = rng.standard_normal((2, 7))
-        cb[:, 3, 1] = 1.0
+    offsets = _offsets(points, n)
+    D = len(offsets)
+    if mode.startswith("class"):
+        K = int(mode[5:] or 2)
+        kk, code_row = (K,) * D, (0,) * D
+        cb = np.zeros((2, D, K))
+        cb[:, :, 0] = rng.standard_normal((2, D))
+        cb[:, D // 2, 1:] = rng.standard_normal((2, K - 1))
+        # a zero coefficient of class 2 on every part: a masked diagonal
+        cb[:, 0, min(2, K - 1)] = 0.0
         codes = rng.integers(0, K, (2, 1, rows)).astype(np.uint8)
-        pattern = tuple(tuple(bool(np.any(cb[:, d, k] != 0)) for d in range(7)) for k in range(K))
+        pattern = tuple(tuple(bool(np.any(cb[:, d, k] != 0)) for d in range(D)) for k in range(K))
     else:
-        kk = (1, 3, 2, 5, 2, 3, 1)
-        code_row = (-1, 0, 1, 2, 3, 4, -1)
-        cb = rng.standard_normal((2, 7, 5))
-        codes = np.zeros((2, 5, rows), dtype=np.uint8)
+        kk = tuple((1, 3, 2, 5, 2, 3, 1)[d % 7] for d in range(D))
+        code_row = tuple(int(np.sum(np.array(kk[:d]) > 1)) if kk[d] > 1 else -1 for d in range(D))
+        cb = rng.standard_normal((2, D, 5))
+        codes = np.zeros((2, max(code_row) + 1, rows), dtype=np.uint8)
         for d, k in enumerate(kk):
             if k > 1:
-                codes[:, code_row[d]] = rng.integers(0, k, (2, rows))
+                # codes up to 15: a code past the codebook reads slot 0
+                codes[:, code_row[d]] = rng.integers(0, k + 1 if d % 3 else 16, (2, rows))
         pattern = None
     packed = dia.pack_nibble_codes(codes).view(np.uint8)
     return dia.CodedOperator(
         cb=torch.from_numpy(cb).to("cuda", dtype),
         no=torch.from_numpy(no).cuda(),
         codes=torch.from_numpy(np.ascontiguousarray(packed)).cuda(),
-        offsets=offsets, kk=kk, code_row=code_row, cls_pattern=pattern, o0=0,
+        offsets=offsets, kk=kk, code_row=code_row, cls_pattern=pattern, o0=o0,
     )
 
 
+def _outside(op, v):
+    """The slots of each part's frame outside its owned band."""
+    keep = torch.ones_like(v, dtype=torch.bool)
+    for p, no in enumerate(op.no.tolist()):
+        keep[p, op.o0 : op.o0 + no] = False
+    return v[keep]
+
+
+def _moved(t, by):
+    """t's values in a tensor `by` elements further into its storage: the
+    same frame at another 16-byte phase."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = buf[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("pprev_moved", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mode", ["select", "class"])
-def test_kernels_match_plain(mode, dtype):
+@pytest.mark.parametrize("mode", ["select", "class", "class4", "class6"])
+def test_kernels_match_plain(mode, dtype, shape, pprev_moved):
     _need_card()
     rng = np.random.default_rng(7)
-    op = _operator(mode, dtype, rng)
-    w = op.n + 50
+    op = _operator(mode, dtype, rng, *shape)
+    w = op.o0 + op.n + 50
     x, r, pprev = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(3))
+    # pprev at another phase than r: the fold takes its value-by-value path
+    pprev = _moved(pprev, pprev_moved)
     beta = torch.tensor(0.375, dtype=dtype, device="cuda")
     dia.reset_launches()
     y = dia.dia_coded_spmv(op, x, w + 3)
@@ -75,16 +118,21 @@ def test_kernels_match_plain(mode, dtype):
     assert torch.equal(y, dia.dia_coded_spmv_plain(op, x, w + 3))
     yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, w + 3)
     assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    for v in (y, yk, pk):
+        assert not _outside(op, v).any()
 
 
+@pytest.mark.parametrize("pprev_moved", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mode", ["select", "class"])
-def test_axpy_kernel_matches_plain(mode, dtype):
+@pytest.mark.parametrize("mode", ["select", "class", "class4", "class6"])
+def test_axpy_kernel_matches_plain(mode, dtype, shape, pprev_moved):
     _need_card()
     rng = np.random.default_rng(11)
-    op = _operator(mode, dtype, rng)
-    w = op.n + 50
+    op = _operator(mode, dtype, rng, *shape)
+    w = op.o0 + op.n + 50
     x, pprev, xacc = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(3))
+    pprev = _moved(pprev, pprev_moved)
     alpha = torch.tensor(-0.625, dtype=dtype, device="cuda")
     xk, xp = xacc.clone(), xacc.clone()
     dia.reset_launches()
@@ -93,8 +141,9 @@ def test_axpy_kernel_matches_plain(mode, dtype):
     assert dia.LAUNCHES["dia_coded_spmv_axpy"] == 1
     yp = dia.dia_coded_spmv_axpy_plain(op, x, xp, pprev, alpha, w + 3)
     assert torch.equal(yk, yp) and torch.equal(xk, xp)
+    assert not _outside(op, yk).any()
     # outside each part's owned band xacc is untouched
-    assert torch.equal(xk[1, int(op.no[1]) :], xacc[1, int(op.no[1]) :])
+    assert torch.equal(_outside(op, xk), _outside(op, xacc))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

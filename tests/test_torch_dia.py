@@ -155,3 +155,239 @@ def test_wrapper_refuses_devices_without_a_kernel():
 def test_pack_nibble_codes_matches_jax(shape):
     codes = np.random.default_rng(3).integers(0, 16, shape).astype(np.uint8)
     np.testing.assert_array_equal(dia.pack_nibble_codes(codes), jax_pack_nibble_codes(codes))
+
+
+# ---------------------------------------------------------------------------
+# the coded kernel's shared-memory window plan (no card needed)
+# ---------------------------------------------------------------------------
+
+
+def _stencil(points, n):
+    r = (-1, 0, 1)
+    if points == 7:
+        return (-n * n, -n, -1, 0, 1, n, n * n)
+    return tuple(a * n * n + b * n + c for a in r for b in r for c in r)
+
+
+def _far_apart(D=64):
+    """The worst case: 64 diagonals, each further from the next than any
+    tile, so every one (and 0) takes a window of its own."""
+    return tuple(int(o) for o in (np.arange(D) - D // 2) * 5000 + 2500)
+
+
+def _check_plan(plan, offsets, itemsize, mode, n_streams, budget):
+    """The plan's invariants: its schedule (as the kernel runs it) stages
+    every value each (row of the tile, diagonal) reads into the buffer the
+    read names, no step refills a buffer that step still reads, and the
+    shared-memory regions are aligned, disjoint and within budget."""
+    vec = 16 // itemsize
+    T, nb = plan.tile, len(plan.buf_at)
+    past = dia.ROWS_PER_THREAD * dia.THREADS - T
+    assert T in dia.TILE_ROWS and plan.smem_bytes >= plan.stage_at + 2 * plan.stage_bytes
+    assert plan.smem_bytes <= budget
+    lo, span = plan.windows[plan.zero_window]
+    assert lo <= 0 <= lo + span
+    for (lo_a, span_a), (lo_b, _) in zip(plan.windows, plan.windows[1:]):
+        assert lo_b - (lo_a + span_a) >= T
+    # step k sums rows [k * step, k * step + T); the last new window staged
+    # into each buffer up to step k + 1 (one step ahead) must be one of
+    # step k or before, and hold every row the reads of step k take from it
+    step = plan.stride or 3 * T
+
+    def holder(k, b):
+        for j in range(k + 1, -plan.lead - 1, -1):
+            for s, nbuf in enumerate(plan.new_buf):
+                if (j * plan.step_bufs + nbuf) % nb == b:
+                    return j, s
+        raise AssertionError(f"buffer {b} read at step {k} was never staged")
+
+    for k in range(plan.lead + 3):
+        for d, off in enumerate(tuple(offsets) + (0,)):
+            c = plan.diag_window[d] if d < len(offsets) else plan.zero_window
+            b = (k * plan.step_bufs + plan.window_buf[c]) % nb
+            j, s = holder(k, b)
+            assert j <= k, f"step {k} reads buffer {b} while step {j} refills it"
+            g_lo = j * step + plan.new_src[s]
+            assert g_lo == k * step + plan.window_src[c]
+            assert 0 <= off - plan.window_src[c] and off - plan.window_src[c] + T <= plan.new_len[s]
+            # 16-byte copies from any phase, and 16-byte reads past a run
+            assert plan.new_len[s] + 2 * vec <= plan.buf_slots[b]
+    # (start, size, bytes a thread's rows past the tile read beyond it)
+    regions = [(a, n * itemsize, past * itemsize) for a, n in zip(plan.buf_at, plan.buf_slots)]
+    if mode == "pfold":
+        regions += [(a + plan.pp_shift, n * itemsize, 0) for a, n in zip(plan.buf_at, plan.buf_slots)]
+    for h in (0, 1):
+        st = plan.stage_at + h * plan.stage_bytes
+        if mode == "axpy":
+            regions += [(st + a, (T + 2 * vec) * itemsize, past * itemsize) for a in plan.axpy_at]
+        regions += [(st + plan.code_at + s * plan.code_stride, T + 16, past) for s in range(n_streams)]
+    regions.sort()
+    assert regions[0][0] >= plan.head_bytes >= plan.sidx_at + 4 * (len(offsets) + 1)
+    for (a, na, _), (b, _, _) in zip(regions, regions[1:]):
+        assert a % 16 == 0 and a + na <= b
+    assert regions[-1][0] + regions[-1][1] <= plan.stage_at + 2 * plan.stage_bytes <= plan.smem_bytes
+    assert all(a + na + over <= plan.smem_bytes for a, na, over in regions)
+
+
+def _emulate(plan, offsets, coef, no, x, pprev=None, beta=0.0, ctas=5, xph=1, pph=2, itemsize=8):
+    """The coded kernel's tile schedule, staging, fold and band sum as
+    csrc/dia_coded.cu runs them, one CTA after another, with constant
+    coefficients `coef`, in numpy on one part: returns (y, p) over the
+    owned band. Shared memory is a value array (slot = byte offset /
+    itemsize); xph and pph are the 16-byte phases of the operand frames.
+    A step's copies for the next step land before the step is summed, so a
+    schedule that refilled a buffer still read would give wrong sums."""
+    vec = 16 // itemsize
+    T, nb, D = plan.tile, len(plan.buf_at), len(offsets)
+    sm = np.full(plan.smem_bytes // itemsize, np.nan)
+    y, p = np.full(no, np.nan), np.full(no, np.nan)
+
+    def buf(k, rel):
+        return plan.buf_at[(k * plan.step_bufs + rel) % nb] // itemsize
+
+    def stage(dst, src, ph, g_lo, n):
+        g = np.arange(g_lo, g_lo + n)
+        ok = (g >= 0) & (g < no)
+        vals = np.where(ok, src[np.clip(g, 0, no - 1)], 0.0)
+        at = dst + (ph + g_lo) % vec
+        sm[at : at + n] = vals
+
+    def stage_step(k, ts):
+        for s in range(len(plan.new_src)):
+            b = buf(k, plan.new_buf[s])
+            stage(b, x, xph, ts + plan.new_src[s], plan.new_len[s])
+            if pprev is not None:
+                stage(b + plan.pp_shift // itemsize, pprev, pph, ts + plan.new_src[s], plan.new_len[s])
+
+    if plan.stride:
+        M = plan.stride
+        ncol = -(-M // T)
+        nz = -(-no // M)
+        chunks = min(max(ctas // ncol, 1), nz)
+        planes = -(-nz // chunks)
+        grid = ncol * -(-nz // planes)
+    else:
+        grid = min(ctas, -(-no // T))
+    for bx in range(grid):
+        if plan.stride:
+            col, z0 = bx % ncol, (bx // ncol) * planes
+            steps = max(0, min(planes, nz - z0))
+            ts0, tstep, rowcap = z0 * M + col * T, M, min(T, M - col * T)
+        else:
+            ntiles = -(-no // T)
+            steps = (ntiles - 1 - bx) // grid + 1 if bx < ntiles else 0
+            ts0, tstep, rowcap = bx * T, grid * T, T
+        if steps:
+            for k in range(-plan.lead, 1):
+                stage_step(k, ts0 + k * tstep)
+        for k in range(steps):
+            ts = ts0 + k * tstep
+            sidx = []
+            for d, off in enumerate(tuple(offsets) + (0,)):
+                c = plan.diag_window[d] if d < D else plan.zero_window
+                src = plan.window_src[c]
+                sidx.append(buf(k, plan.window_buf[c]) + (xph + ts + src) % vec + off - src)
+            if k + 1 < steps:
+                stage_step(k + 1, ts + tstep)
+            if pprev is not None:
+                for j in range(-plan.lead if k == 0 else k, k + 1):
+                    for s in range(len(plan.new_src)):
+                        b, g = buf(j, plan.new_buf[s]), ts0 + j * tstep + plan.new_src[s]
+                        r0 = b + (xph + g) % vec
+                        q0 = b + plan.pp_shift // itemsize + (pph + g) % vec
+                        n = plan.new_len[s]
+                        sm[r0 : r0 + n] = sm[r0 : r0 + n] + beta * sm[q0 : q0 + n]
+            nrow = min(no - ts, rowcap)
+            if nrow <= 0:
+                continue
+            i = np.arange(nrow)
+            acc = np.full(nrow, -0.0)
+            for d in range(D):
+                acc = acc + coef[d] * sm[sidx[d] + i]
+            assert np.all(np.isnan(y[ts : ts + nrow])), "a row was summed twice"
+            y[ts : ts + nrow] = acc
+            p[ts : ts + nrow] = sm[sidx[D] + i]
+    return y, p
+
+
+def _reference(offsets, coef, no, x):
+    xo = np.concatenate([np.zeros(no), x[:no], np.zeros(no)])
+    acc = np.full(no, -0.0)
+    for d, off in enumerate(offsets):
+        acc = acc + coef[d] * xo[no + off : 2 * no + off]
+    return acc
+
+
+@pytest.mark.parametrize("mode", ["plain", "pfold", "axpy"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [24, 25, 193])
+@pytest.mark.parametrize("points", [7, 27])
+def test_window_plan_covers_every_read(points, n, itemsize, mode):
+    offsets = _stencil(points, n)
+    n_streams = 1 if points == 7 else 13
+    plan = dia.plan_coded_windows(offsets, itemsize, mode, n_streams, 5)
+    _check_plan(plan, offsets, itemsize, mode, n_streams, dia.SMEM_BUDGET)
+    # the far planes take windows of their own once n^2 is past a tile, and
+    # then the CTAs march along the planes
+    assert len(plan.windows) == (3 if n * n - n - 1 >= plan.tile else 1)
+    assert plan.stride == (n * n if len(plan.windows) == 3 else 0)
+    # a smaller budget: a smaller tile, with the far planes apart at n = 24, 25
+    small = dia.plan_coded_windows(offsets, itemsize, mode, n_streams, 5, budget=plan.smem_bytes - 1)
+    _check_plan(small, offsets, itemsize, mode, n_streams, plan.smem_bytes - 1)
+    assert small.tile < plan.tile
+
+
+@pytest.mark.parametrize("mode", ["plain", "pfold", "axpy"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_window_plan_shrinks_the_tile_for_many_windows(itemsize, mode):
+    offsets = _far_apart()
+    plan = dia.plan_coded_windows(offsets, itemsize, mode, 32, 16)
+    _check_plan(plan, offsets, itemsize, mode, 32, dia.SMEM_BUDGET)
+    assert len(plan.windows) == 65 and plan.stride == 0
+    poisson = dia.plan_coded_windows(_stencil(7, 193), itemsize, mode, 1, 2)
+    assert plan.tile < poisson.tile
+    # one byte less gives a smaller tile, or an error at the smallest one
+    if plan.tile == dia.TILE_ROWS[-1]:
+        with pytest.raises(ValueError, match="over the"):
+            dia.plan_coded_windows(offsets, itemsize, mode, 32, 16, budget=plan.smem_bytes - 1)
+    else:
+        less = dia.plan_coded_windows(offsets, itemsize, mode, 32, 16, budget=plan.smem_bytes - 1)
+        _check_plan(less, offsets, itemsize, mode, 32, plan.smem_bytes - 1)
+        assert less.tile < plan.tile
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_window_plan_raises_when_nothing_fits(itemsize):
+    with pytest.raises(ValueError, match="over the"):
+        dia.plan_coded_windows(_far_apart(), itemsize, "pfold", 32, 16, budget=16 * 1024)
+    with pytest.raises(ValueError, match="diagonals"):
+        dia.plan_coded_windows(_far_apart(65), itemsize)
+
+
+@pytest.mark.parametrize(
+    "points,n,budget,ctas,ragged",
+    [
+        (7, 40, dia.SMEM_BUDGET, 5, 0),  # marching, two columns a plane, one ragged
+        (7, 25, 20000, 7, 333),  # odd n^2: plane starts off every 16-byte phase
+        (27, 25, 20000, 3, 0),  # 27-point windows; fewer CTAs than columns
+        (27, 12, dia.SMEM_BUDGET, 4, 1000),  # one window: tiles walk the part
+        (0, 0, dia.SMEM_BUDGET, 6, 17),  # three windows, not translates: staged every tile
+    ],
+)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_window_schedule_emulated_matches_band_sum(points, n, budget, ctas, ragged, itemsize):
+    """Every owned row summed once, from the right operand values, by the
+    kernel's schedule (emulated in numpy), with and without the fold."""
+    offsets = _stencil(points, n) if points else (-3000, -1, 0, 1, 1700)
+    rng = np.random.default_rng(n + points)
+    no = (n ** 3 if points else 20000) - ragged
+    x, pprev = rng.standard_normal(no), rng.standard_normal(no)
+    coef = rng.standard_normal(len(offsets))
+    for mode, beta in (("plain", 0.0), ("pfold", 0.375)):
+        plan = dia.plan_coded_windows(offsets, itemsize, mode, 1, 2, budget=budget)
+        assert bool(plan.stride) == (points in (7, 27) and n > 12)
+        y, p = _emulate(plan, offsets, coef, no, x, pprev if mode == "pfold" else None, beta, ctas,
+                        itemsize=itemsize)
+        pv = x + beta * pprev
+        np.testing.assert_array_equal(p, pv)
+        np.testing.assert_array_equal(y, _reference(offsets, coef, no, pv))
