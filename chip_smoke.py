@@ -12,9 +12,9 @@ Phases, one JSON line each:
 
 1. device and build: the nvidia-smi name/power-limit line, the device name,
    the nvcc build seconds and the ptxas register / shared-memory / spill
-   lines of each kernel instantiation (the coded kernel's shared memory is
-   dynamic, so ptxas prints no shared-memory line for it: phase 2 prints
-   the bytes each window plan takes);
+   lines of each kernel instantiation, failing on any spill (the coded
+   kernel's shared memory is dynamic, so ptxas prints no shared-memory
+   line for it: phase 2 prints the bytes each window plan takes);
 2. kernels against their plain versions on the card at 192^3 f32: the
    coded-DIA SpMV, its CG direction-fold variant (y and p) and its
    lagged-axpy variant (y and the updated solution), each in row-class
@@ -152,12 +152,14 @@ def phase_device():
     t = time.perf_counter()
     dia.build_kernels()
     build_s = time.perf_counter() - t
+    ptxas = _ptxas_lines(dia.BUILD_LOG)
     emit({
         "phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
-        "cuda": torch.version.cuda, "build_s": build_s,
-        "ptxas": _ptxas_lines(dia.BUILD_LOG),
+        "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
     })
+    spills = {k: ls for k, ls in ptxas.items() if any(re.search(r"\b[1-9]\d* bytes spill", ln) for ln in ls)}
+    require(not spills, f"ptxas spilled registers: {spills}")
     return smi
 
 

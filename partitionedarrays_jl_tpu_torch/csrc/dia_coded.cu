@@ -137,14 +137,15 @@ struct PaDiaParams {
   long long stride;  // marching plane stride M (0: tiles walk the part)
   int T;             // rows per tile
   int ncol;          // marching: tiles per plane, ceil(M / T)
-  int planes;        // marching: planes per CTA (set at launch)
+  int planes;        // marching: planes per CTA (set at the plan's first launch)
   int lead;          // steps staged before the first (K - 1 marching, else 0)
   int n_buf;         // operand buffers
   int step_bufs;     // buffer index advance per step
-  // n_win: the read windows. The kernel does not read it, but without it
-  // the arrays below move by 4 bytes and ptxas then caps four of the six
-  // instantiations at 64 registers with spills (nvcc 12.9, sm_90a).
-  int n_win;
+  // grid_x: CTAs per part, 0 until the plan's first launch sets it. The
+  // field order matters to ptxas: with the arrays below 4 bytes earlier
+  // (a field fewer here) nvcc 12.9 capped four of the six instantiations
+  // at 64 registers with spills. chip_smoke.py fails on any spill.
+  int grid_x;
   int n_new;         // windows staged per step
   int zero_win;      // the read window that holds offset 0
   int ccf_at;        // head (codebook at 0): class coefficients, n_cls rounded up to 4 per diagonal
@@ -290,22 +291,19 @@ __device__ __forceinline__ void load4(const T* p, T (&c)[4]) {
 }
 
 // The row-class band sum of a thread's rows over the ntake diagonals some
-// class takes, with at most 4 classes (FOUR) or 2: the class coefficients
-// of a diagonal in one shared load, a row's picked by selects.
-template <typename T, bool FOUR>
-__device__ __forceinline__ void class_sum(int ntake, const T* sop, const int* sidx, const T* sccf,
-                                          const int (&cls)[PA_ROWS], const int (&row)[PA_ROWS],
-                                          T (&acc)[PA_ROWS]) {
+// class takes, with at most 2 classes: the class coefficients of a
+// diagonal in one shared load, a row's picked by a select.
+template <typename T>
+__device__ __forceinline__ void class_sum2(int ntake, const T* sop, const int* sidx, const T* sccf,
+                                           const int (&cls)[PA_ROWS], const int (&row)[PA_ROWS],
+                                           T (&acc)[PA_ROWS]) {
   for (int j = 0; j < ntake; ++j) {
     const T* xs = sop + sidx[j];
     T c4[4];
     load4(sccf + 4 * j, c4);
 #pragma unroll
-    for (int r = 0; r < PA_ROWS; ++r) {
-      const T lo = cls[r] & 1 ? c4[1] : c4[0];
-      const T v = FOUR && (cls[r] & 2) ? (cls[r] & 1 ? c4[3] : c4[2]) : lo;
-      acc[r] = add_rn(acc[r], mul_rn(v, xs[row[r]]));
-    }
+    for (int r = 0; r < PA_ROWS; ++r)
+      acc[r] = add_rn(acc[r], mul_rn(cls[r] & 1 ? c4[1] : c4[0], xs[row[r]]));
   }
 }
 
@@ -477,9 +475,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
         // row whose class has a zero coefficient on a diagonal that another
         // class takes adds that exact zero times x, as the plain version does
         if (prm.n_cls <= 2) {
-          class_sum<T, false>(ntake, sop, sidx, sccf, cls, row, acc);
-        } else if (prm.n_cls <= 4) {
-          class_sum<T, true>(ntake, sop, sidx, sccf, cls, row, acc);
+          class_sum2(ntake, sop, sidx, sccf, cls, row, acc);
         } else {
           for (int j = 0; j < ntake; ++j) {
             const T* xs = sop + sidx[j];
@@ -531,11 +527,11 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
 }
 
 template <typename T, int MODE>
-static int launch(const PaDiaParams* prm, const void* cb, const void* no,
+static int launch(PaDiaParams* prm, const void* cb, const void* no,
                   const void* codes, const void* x, const void* pprev,
                   const void* scal, void* y, void* vout, void* stream) {
   auto kern = dia_coded_kernel<T, MODE>;
-  static int n_sm = 0, occ_smem = -1, occ = 1;
+  static int n_sm = 0;
   cudaError_t e;
   if (n_sm == 0) {
     int dev, optin;
@@ -545,66 +541,67 @@ static int launch(const PaDiaParams* prm, const void* cb, const void* no,
     if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) != cudaSuccess)
       return (int)e;
   }
-  if (prm->smem_bytes != occ_smem) {
+  if (prm->grid_x == 0) {
+    // once per plan (ops/dia.py keeps an operator's parameters per frame
+    // widths, mode and dtype): one wave of CTAs that fills every SM
+    // (code_len >= every no)
+    int occ;
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, PA_THREADS, prm->smem_bytes)) != cudaSuccess)
       return (int)e;
     occ = occ < 1 ? 1 : occ;
-    occ_smem = prm->smem_bytes;
+    const long long per_part = ((long long)occ * n_sm + prm->P - 1) / prm->P;
+    long long gx;
+    if (prm->stride > 0) {
+      // marching: ncol columns, their planes split into chunks
+      const long long nz = (prm->code_len + prm->stride - 1) / prm->stride;
+      long long chunks = per_part / prm->ncol;
+      chunks = chunks < 1 ? 1 : chunks > nz ? nz : chunks;
+      prm->planes = (int)((nz + chunks - 1) / chunks);
+      gx = (long long)prm->ncol * ((nz + prm->planes - 1) / prm->planes);
+    } else {
+      const long long tiles = (prm->code_len + prm->T - 1) / prm->T;
+      gx = per_part > tiles ? tiles : per_part;
+    }
+    prm->grid_x = gx < 1 ? 1 : (int)gx;
   }
-  // one wave of CTAs that fills every SM (code_len >= every no)
-  PaDiaParams run = *prm;
-  const long long per_part = ((long long)occ * n_sm + prm->P - 1) / prm->P;
-  long long gx;
-  if (prm->stride > 0) {
-    // marching: ncol columns, their planes split into chunks
-    const long long nz = (prm->code_len + prm->stride - 1) / prm->stride;
-    long long chunks = per_part / prm->ncol;
-    chunks = chunks < 1 ? 1 : chunks > nz ? nz : chunks;
-    run.planes = (int)((nz + chunks - 1) / chunks);
-    gx = (long long)prm->ncol * ((nz + run.planes - 1) / run.planes);
-  } else {
-    const long long tiles = (prm->code_len + prm->T - 1) / prm->T;
-    gx = per_part > tiles ? tiles : per_part;
-  }
-  gx = gx < 1 ? 1 : gx;
-  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
+  dim3 grid((unsigned int)prm->grid_x, (unsigned int)prm->P);
   kern<<<grid, PA_THREADS, prm->smem_bytes, (cudaStream_t)stream>>>(
-      run, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
+      *prm, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
       (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int pa_dia_coded_f32(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_f32(PaDiaParams* prm, const void* cb, const void* no,
                      const void* codes, const void* x, void* y, void* stream) {
   return launch<float, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, stream);
 }
 
-int pa_dia_coded_f64(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_f64(PaDiaParams* prm, const void* cb, const void* no,
                      const void* codes, const void* x, void* y, void* stream) {
   return launch<double, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, stream);
 }
 
-int pa_dia_coded_pfold_f32(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_pfold_f32(PaDiaParams* prm, const void* cb, const void* no,
                            const void* codes, const void* r, const void* pprev,
                            const void* beta, void* y, void* pout, void* stream) {
   return launch<float, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, stream);
 }
 
-int pa_dia_coded_pfold_f64(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_pfold_f64(PaDiaParams* prm, const void* cb, const void* no,
                            const void* codes, const void* r, const void* pprev,
                            const void* beta, void* y, void* pout, void* stream) {
   return launch<double, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, stream);
 }
 
-int pa_dia_coded_axpy_f32(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_axpy_f32(PaDiaParams* prm, const void* cb, const void* no,
                           const void* codes, const void* x, const void* pprev,
                           const void* alpha, void* y, void* xacc, void* stream) {
   return launch<float, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, stream);
 }
 
-int pa_dia_coded_axpy_f64(const PaDiaParams* prm, const void* cb, const void* no,
+int pa_dia_coded_axpy_f64(PaDiaParams* prm, const void* cb, const void* no,
                           const void* codes, const void* x, const void* pprev,
                           const void* alpha, void* y, void* xacc, void* stream) {
   return launch<double, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, stream);

@@ -452,7 +452,7 @@ class _Params(ctypes.Structure):
         ("lead", ctypes.c_int),
         ("n_buf", ctypes.c_int),
         ("step_bufs", ctypes.c_int),
-        ("n_win", ctypes.c_int),
+        ("grid_x", ctypes.c_int),
         ("n_new", ctypes.c_int),
         ("zero_win", ctypes.c_int),
         ("ccf_at", ctypes.c_int),
@@ -549,7 +549,8 @@ _DT = {torch.float32: "f32", torch.float64: "f64"}
 
 def _params(op: CodedOperator, wx: int, wy: int, mode: str) -> _Params:
     """The kernel's parameters with its window plan, built once per frame
-    widths, mode and dtype of an operator."""
+    widths, mode and dtype of an operator. The launcher writes the grid
+    (`grid_x`, `planes`) into them at their first launch."""
     key = (wx, wy, mode, op.cb.dtype)
     prm = op.kernel_params.get(key)
     if prm is not None:
@@ -577,7 +578,7 @@ def _params(op: CodedOperator, wx: int, wy: int, mode: str) -> _Params:
             prm.cls_mask[k] = sum(1 << d for d in range(D) if pat[d])
     prm.stride, prm.T, prm.lead, prm.step_bufs = plan.stride, plan.tile, plan.lead, plan.step_bufs
     prm.ncol = -(-plan.stride // plan.tile)
-    prm.n_buf, prm.n_win, prm.n_new = len(plan.buf_at), len(plan.windows), len(plan.new_src)
+    prm.n_buf, prm.n_new = len(plan.buf_at), len(plan.new_src)
     prm.zero_win, prm.ccf_at = plan.zero_window, plan.ccf_at
     prm.sidx_at = plan.sidx_at
     prm.pp_shift, prm.stage_at, prm.stage_bytes = plan.pp_shift, plan.stage_at, plan.stage_bytes

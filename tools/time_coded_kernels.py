@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's coded-DIA kernels of one or more checkouts on one card.
 
-    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--budgets 98304 49152]
-                                        [--variants] [--cg N] [--gmg N]
+    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--cg N] [--gmg N]
 
 Each ``--src`` is the root of a checkout that holds
-``partitionedarrays_jl_tpu_torch/ops/dia.py`` (default: this one); give the
-same directory more than once to time it again, e.g. ``--src old --src .
+``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
+directory more than once to time it again, e.g. ``--src old --src .
 --src . --src old`` to set two versions side by side in one run on one
 card. For each checkout the script builds its kernels (into that
 checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
@@ -18,19 +17,17 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
 * K4 `dia_stream_spmv` on random 27-diagonal values at (n/2)^3 rows, a
   kernel no checkout here changes, as a control of the card's speed.
 
-Two times per kernel: ``flush_ms``, the median of single launches each
-after a 64 MB write that flushes L2 and a spin that keeps the card busy
-while the launch is queued (as chip_smoke.py times them), and
-``loop_ms``, 20 back-to-back launches over one event pair, divided by 20
-(as the CG loop runs them). With ``--budgets``, a checkout whose planner
-takes a shared-memory budget (`plan_coded_windows`) is also timed at each
-budget, which moves its tile rows and CTAs per SM. ``--variants`` adds,
-for such a checkout, the operator without its +-n^2 planes (the far
-windows' cost) and at n/2 (the working set in L2: the SM's own speed).
+Two times per kernel: ``flush_ms``, chip_smoke.py's `time_ms` (the median
+of single launches, each after an L2 flush and a spin that keeps the card
+busy while the launch is queued), and ``loop_ms``, 20 back-to-back
+launches over one event pair, divided by 20 (as the CG loop runs them).
 ``--cg N`` and ``--gmg N`` add, per checkout in a process of its own,
 fused and pipelined CG seconds per iteration at N^3, and GMG-PCG seconds
-per iteration at N^3 with the host and device microseconds of one K1
-launch on each coded operator of its hierarchy. One JSON line per
+per iteration at N^3 (set up by chip_smoke.py's `gmg_driver`), its
+profile (chip_smoke.py's `phase_profile`), and for each coded operator of
+its hierarchy the host and device microseconds of one K1 launch and its
+flushed kernel time. The timers and the set-up are this checkout's
+chip_smoke.py, so every checkout is timed the same way. One JSON line per
 measurement; the nvidia-smi name and power-limit line first. Exits
 non-zero without a card.
 """
@@ -38,7 +35,6 @@ import argparse
 import functools
 import importlib.util
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -47,189 +43,136 @@ from pathlib import Path
 import numpy as np
 import torch
 
-REPS = 50
+ROOT = Path(__file__).resolve().parents[1]
 LOOP = 20
-SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: longer than a launch's host cost
 
 
-def load_dia(root: Path, tag: str):
-    path = root / "partitionedarrays_jl_tpu_torch" / "ops" / "dia.py"
-    spec = importlib.util.spec_from_file_location(f"pa_dia_{tag}", path)
+def load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def poisson_operator(dia, n, offsets=None):
+def poisson_operator(dia, n):
     """The n^3 7-point operator in row-class decode: class 0 the interior
     stencil, class 1 the Dirichlet identity rows on the boundary."""
-    offsets = offsets or (-n * n, -n, -1, 0, 1, n, n * n)
-    D = len(offsets)
-    centre = offsets.index(0)
-    cb = np.zeros((1, D, 2), dtype=np.float32)
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    cb = np.zeros((1, 7, 2), dtype=np.float32)
     cb[0, :, 0] = -1.0
-    cb[0, centre, 0] = 6.0
-    cb[0, centre, 1] = 1.0
+    cb[0, 3, 0] = 6.0
+    cb[0, 3, 1] = 1.0
     i = np.arange(n)
     edge = (i == 0) | (i == n - 1)
     bnd = edge[:, None, None] | edge[None, :, None] | edge[None, None, :]
-    codes = bnd.reshape(1, 1, -1).astype(np.uint8)
     return dia.CodedOperator(
         cb=torch.from_numpy(cb).cuda(),
         no=torch.tensor([n ** 3], dtype=torch.int32, device="cuda"),
-        codes=torch.from_numpy(codes).cuda(),
-        offsets=offsets, kk=(2,) * D, code_row=(0,) * D,
-        cls_pattern=((True,) * D, tuple(d == centre for d in range(D))), o0=0,
+        codes=torch.from_numpy(bnd.reshape(1, 1, -1).astype(np.uint8)).cuda(),
+        offsets=offsets, kk=(2,) * 7, code_row=(0,) * 7,
+        cls_pattern=((True,) * 7, tuple(d == 3 for d in range(7))), o0=0,
     )
 
 
-def time_both(fn, flush):
-    for _ in range(5):
-        fn()
-    marks = []
-    for _ in range(REPS):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        a, b =torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        marks.append((a, b))
+def timed(smoke, fn, flush):
+    flush_ms = smoke.time_ms(fn, flush)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(LOOP):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return {
-        "flush_ms": statistics.median(s.elapsed_time(e) for s, e in marks),
-        "loop_ms": a.elapsed_time(b) / LOOP,
-    }
+    return {"flush_ms": flush_ms, "loop_ms": a.elapsed_time(b) / LOOP}
 
 
-def time_coded(dia, op, rng, flush):
-    w = op.n
-    frame = lambda: torch.from_numpy(rng.standard_normal((1, w)).astype(np.float32)).cuda()  # noqa: E731
+def time_kernels(smoke, dia, n, rng, flush):
+    op = poisson_operator(dia, n)
+    frame = lambda: torch.from_numpy(rng.standard_normal((1, op.n)).astype(np.float32)).cuda()  # noqa: E731
     x, r, pprev, xacc = frame(), frame(), frame(), frame()
     beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
     alpha = torch.tensor(-0.61, dtype=torch.float32, device="cuda")
+    m = n // 2
+    offsets = tuple(a * m * m + b * m + c for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
+    vals = torch.from_numpy(rng.standard_normal((1, 27, m ** 3)).astype(np.float32)).cuda()
+    xs = torch.from_numpy(rng.standard_normal((1, m ** 3)).astype(np.float32)).cuda()
+    no = torch.tensor([m ** 3], dtype=torch.int32, device="cuda")
     return {
-        "dia_coded_spmv": time_both(lambda: dia.dia_coded_spmv(op, x, w), flush),
-        "dia_coded_spmv_pfold": time_both(lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, w), flush),
-        "dia_coded_spmv_axpy": time_both(lambda: dia.dia_coded_spmv_axpy(op, x, xacc, pprev, alpha, w), flush),
+        "dia_coded_spmv": timed(smoke, lambda: dia.dia_coded_spmv(op, x, op.n), flush),
+        "dia_coded_spmv_pfold": timed(smoke, lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, op.n), flush),
+        "dia_coded_spmv_axpy": timed(
+            smoke, lambda: dia.dia_coded_spmv_axpy(op, x, xacc, pprev, alpha, op.n), flush),
+        "dia_stream_spmv_control": timed(smoke, lambda: dia.dia_stream_spmv(vals, xs, offsets, no, 0, m ** 3), flush),
     }
 
 
-def time_stream(dia, n, rng, flush):
-    offsets = tuple(a * n * n + b * n + c for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
-    rows = n ** 3
-    vals = torch.from_numpy(rng.standard_normal((1, 27, rows)).astype(np.float32)).cuda()
-    x = torch.from_numpy(rng.standard_normal((1, rows)).astype(np.float32)).cuda()
-    no = torch.tensor([rows], dtype=torch.int32, device="cuda")
-    return time_both(lambda: dia.dia_stream_spmv(vals, x, offsets, no, 0, rows), flush)
-
-
-def with_budget(dia, budget):
-    """Point the checkout's planner at another shared-memory budget (until
-    ``dia.plan_coded_windows = dia._plan_default``)."""
-    dia._plan_default = getattr(dia, "_plan_default", dia.plan_coded_windows)
-    dia.plan_coded_windows = functools.partial(dia._plan_default, budget=budget)
-
-
-def fixed_trip_s_per_iter(make_fn, b, x0, m0, m1):
-    """Seconds per iteration from fixed-trip solves of m0 and m1
-    iterations, differenced (median of 3 each)."""
-    per = {}
-    for m in (m0, m1):
-        fn = make_fn(m)
-        ts = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn(b, x0)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t)
-        per[m] = statistics.median(ts)
-    return (per[m1] - per[m0]) / (m1 - m0)
+def host_device_us(fns, reps):
+    """Host and device microseconds per call of fns, issued `reps` times
+    in turn."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        for f in fns:
+            f()
+    e.record()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    k = reps * len(fns)
+    return {"host_us": host * 1e6 / k, "device_us": a.elapsed_time(e) * 1e3 / k}
 
 
 def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     """The solvers' seconds per iteration with the package of checkout
     `root`, in a process of its own: fused and pipelined CG at cg_n^3
     float32 (fixed trips of 20 and 220), and GMG-PCG at gmg_n^3 float32
-    (set up as chip_smoke.py sets it up; fixed trips of 2 and 12) with,
-    for the coded operators of its hierarchy, the host and device
-    microseconds of one K1 launch, issued back to back per operator and in
-    turn over all of them (as a V-cycle issues them)."""
+    (fixed trips of 2 and 12) with, for the coded operators of its
+    hierarchy, the host and device microseconds of one K1 launch, issued
+    back to back per operator and in turn over all of them (as a V-cycle
+    issues them), and its flushed time. The profile goes to stdout first."""
+    # the checkout's package first: chip_smoke.py's own imports then find it
     sys.path.insert(0, str(root))
-    from partitionedarrays_jl_tpu_torch import (
-        PSparseMatrix, PVector, assemble_poisson, decouple_dirichlet, gmg_hierarchy, prun,
-    )
-    from partitionedarrays_jl_tpu_torch.ops import dia
-    from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix
-    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
-    from partitionedarrays_jl_tpu_torch.parallel.gpu import (
-        DeviceVector, GPUBackend, _b_on_cols_layout, device_matrix, make_cg_fn,
-    )
+    import partitionedarrays_jl_tpu_torch  # noqa: F401
 
-    backend = GPUBackend()
+    smoke = load_module(ROOT / "chip_smoke.py", "chip_smoke")
+    from partitionedarrays_jl_tpu_torch.ops import dia
+
+    backend = smoke.GPUBackend()
     dia.build_kernels()
-    out = {}
+    out = {"package": str(Path(dia.__file__).resolve().parents[2])}
     if cg_n:
-        A, b, _, x0 = prun(lambda parts: assemble_poisson(parts, (cg_n,) * 3, dtype=np.float32), backend, (1, 1, 1))
-        dA = device_matrix(A, backend)
-        b = _b_on_cols_layout(b, dA)
-        x0 = DeviceVector.from_pvector(x0, backend, dA.col_layout).data
+        A, b, _, x0 = smoke.prun(
+            lambda parts: smoke.assemble_poisson(parts, (cg_n,) * 3, dtype=np.float32), backend, (1, 1, 1))
+        dA = smoke.device_matrix(A, backend)
+        b = smoke._b_on_cols_layout(b, dA)
+        x0 = smoke.DeviceVector.from_pvector(x0, backend, dA.col_layout).data
         out["cg_n"] = cg_n
         for key, pipelined in (("cg_s_per_iter", False), ("pipelined_cg_s_per_iter", True)):
-            out[key] = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA, 0.0, m, pipelined=pipelined), b, x0, 20, 220)
+            out[key], _ = smoke.fixed_trip_s_per_iter(
+                lambda m: smoke.make_cg_fn(dA, 0.0, m, pipelined=pipelined), b, x0, 20, 220)
     if not gmg_n:
         return out
-    n = gmg_n
-
-    def driver(parts):
-        A, _, xe, _ = assemble_poisson(parts, (n, n, n))
-        vals = [CSRMatrix(M.indptr, M.indices, (M.data / 16.0).astype(np.float32), M.shape)
-                for M in A.values.part_values()]
-        A = PSparseMatrix(A.values._like(vals), A.rows, A.cols)
-        xe = PVector(xe.values._like([np.asarray(v, np.float32) for v in xe.values.part_values()]), xe.rows)
-        Ah, bh = decouple_dirichlet(A, A @ xe)
-        return Ah, bh, gmg_hierarchy(parts, Ah, (n, n, n), coarse_threshold=500)
-
-    Ah, bh, h = prun(driver, backend, (1, 1, 1))
-    b = _b_on_cols_layout(bh, device_matrix(Ah, backend))
-    x0 = torch.zeros_like(b)
-    s_per_iter = fixed_trip_s_per_iter(lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), b, x0, 2, 12)
-
-    dh = gpu_gmg.device_hierarchy(h, backend)
+    run = smoke.prun(smoke.gmg_driver, backend, (1, 1, 1), gmg_n, True)
+    h = run["h"]
+    b = smoke._b_on_cols_layout(run["bh"], smoke.device_matrix(run["Ah"], backend))
+    s_per_iter, _ = smoke.fixed_trip_s_per_iter(
+        lambda m: smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), b, torch.zeros_like(b), 2, 12)
+    smoke.phase_profile("gmg_pcg_profile", smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, torch.zeros_like(b), 5)
+    dh = smoke.gpu_gmg.device_hierarchy(h, backend)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
     calls = []
     for lv in dh["levels"]:
         for dM in (lv["dA"], lv["dS"]):
             if dM.dia_mode == "coded":
                 x = torch.ones((dM.col_layout.P, dM.col_layout.W), dtype=torch.float32, device=backend.device)
                 calls.append(functools.partial(dia.dia_coded_spmv, dM.coded, x, dM.row_layout.W))
-
-    def host_device_us(fns, reps):
-        for f in fns:
-            f()
-        torch.cuda.synchronize()
-        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        a.record()
-        for _ in range(reps):
-            for f in fns:
-                f()
-        e.record()
-        host = time.perf_counter() - t
-        torch.cuda.synchronize()
-        k = reps * len(fns)
-        return {"host_us": host * 1e6 / k, "device_us": a.elapsed_time(e) * 1e3 / k}
-
     out.update({
-        "gmg_n": n, "levels": len(dh["levels"]), "gmg_pcg_s_per_iter": s_per_iter,
+        "gmg_n": gmg_n, "levels": len(dh["levels"]), "gmg_pcg_s_per_iter": s_per_iter,
         "coded_operators": len(calls),
-        "each": [host_device_us([f], 50) for f in calls],
+        "each": [{**host_device_us([f], 50), "flush_us": smoke.time_ms(f, flush) * 1e3} for f in calls],
         "in_turn": host_device_us(calls, 20),
     })
     return out
@@ -239,8 +182,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", action="append", type=Path, help="checkout root (repeatable)")
     ap.add_argument("--n", type=int, default=192)
-    ap.add_argument("--budgets", type=int, nargs="*", default=[])
-    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--cg", type=int, default=0, metavar="N", help="also time fused and pipelined CG at N^3")
     ap.add_argument("--gmg", type=int, default=0, metavar="N", help="also time GMG-PCG at N^3")
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
@@ -256,49 +197,29 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    srcs = args.src or [Path(__file__).resolve().parents[1]]
+    smoke = load_module(ROOT / "chip_smoke.py", "chip_smoke")
+    srcs = [s.resolve() for s in args.src or [ROOT]]
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    n = args.n
     mods = {}
     for k, root in enumerate(srcs):
-        root = root.resolve()
-        dia = mods.get(root) or load_dia(root, str(len(mods)))
-        mods[root] = dia
+        if root not in mods:
+            mods[root] = load_module(root / "partitionedarrays_jl_tpu_torch" / "ops" / "dia.py", f"pa_dia_{len(mods)}")
+        dia = mods[root]
         dia.build_kernels()
-        rng = np.random.default_rng(args.seed)
-        runs = [("default", n, None, None)]
-        if hasattr(dia, "plan_coded_windows"):
-            runs += [(f"budget={b}", n, None, b) for b in args.budgets]
-            if args.variants:
-                runs += [("no_far_planes", n, (-n, -1, 0, 1, n), None), ("half_n", n // 2, None, None)]
-        for name, m, offs, budget in runs:
-            if budget is not None:
-                with_budget(dia, budget)
-            op = poisson_operator(dia, m, offs)
-            res = time_coded(dia, op, rng, flush)
-            plans = {}
-            if hasattr(dia, "plan_coded_windows"):
-                for mode in ("plain", "pfold", "axpy"):
-                    pl = dia.plan_coded_windows(tuple(op.offsets), 4, mode, 1, 2, n_cls=2)
-                    plans[mode] = {"tile": pl.tile, "smem_bytes": pl.smem_bytes}
-            if budget is not None:
-                dia.plan_coded_windows = dia._plan_default
-            print(json.dumps({"run": k, "src": str(root), "variant": name, "n": m, "plans": plans, **res}), flush=True)
-        print(json.dumps({"run": k, "src": str(root), "variant": "k4_control", "n": n // 2,
-                          "dia_stream_spmv": time_stream(dia, n // 2, rng, flush)}), flush=True)
+        res = time_kernels(smoke, dia, args.n, np.random.default_rng(args.seed), flush)
+        print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
     if args.cg or args.gmg:
         # a process per checkout: each imports its own package
         for k, root in enumerate(srcs):
             proc = subprocess.run(
-                [sys.executable, __file__, "--solve-worker", str(root.resolve()),
-                 "--cg", str(args.cg), "--gmg", str(args.gmg)],
+                [sys.executable, __file__, "--solve-worker", str(root), "--cg", str(args.cg), "--gmg", str(args.gmg)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 print(proc.stderr[-4000:], file=sys.stderr)
                 return proc.returncode
-            out = json.loads(proc.stdout.strip().splitlines()[-1])
-            print(json.dumps({"run": k, "src": str(root.resolve()), "variant": "solvers", **out}), flush=True)
+            for line in proc.stdout.strip().splitlines():
+                print(json.dumps({"run": k, "src": str(root), "variant": "solvers", **json.loads(line)}), flush=True)
     return 0
 
 
