@@ -43,8 +43,10 @@ Phases, one JSON line each:
    solve through the plain versions must take the same iterations;
 4b. GMG-PCG at 192^3 f32, set up as tools/bench_gmg.py does (assemble,
    scale by 1/16 in f32, b = A x̂, decouple_dirichlet, gmg_hierarchy with
-   coarse_threshold=500): 5 levels, the streaming-DIA kernel on levels
-   1-4 held torch.equal to its plain version on level 1; launch counts
+   coarse_threshold=500): 5 levels, the coded-DIA SpMV held torch.equal to
+   its plain version on every coded operator of the hierarchy (level 0's
+   A and the stencils S of all 5 levels, select-chain decode), the
+   streaming-DIA kernel on levels 1-4 on level 1; launch counts
    zeroed before `pcg` and read after must equal 1 + 13 per iteration
    (coded: the initial residual, the outer A p, and per V-cycle 2 on level
    0 and 2 with S on each of the 5 levels) and 8 per iteration (stream: 2
@@ -52,8 +54,8 @@ Phases, one JSON line each:
    error within 1.1x of theirs;
 4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card: the
    iterations of the port's sequential backend and of the plain versions,
-   coded and stream launch counts > 0, the stream kernel torch.equal to its
-   plain version on level 1;
+   coded and stream launch counts > 0, the coded kernel torch.equal to its
+   plain version on level 0's A and S, the stream kernel on level 1;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -62,7 +64,12 @@ Phases, one JSON line each:
    for the four kernels; CG, pipelined CG and GMG-PCG seconds per
    iteration from two fixed-trip solves each, and torch.profiler
    breakdowns of a fixed-trip CG and GMG-PCG iteration by kernel (wall
-   times include the profiler's own cost);
+   times include the profiler's own cost); an empty kernel's µs on the
+   same timer (the launch floor), and one line per coded GMG operator at
+   192^3: its shape and band-sum instance, launches per solve, the coded
+   kernel's flushed, warm-L2 and back-to-back µs, its plain version's and
+   torch.sparse.mm's µs, the empty kernel launched as the coded kernel is,
+   and the bound rows x (2 x 4 B + code bytes) over 3.35 TB/s;
 6. the launch counts of phases 3, 3b and 4b.
 
 It then prints the kernel table, the nvidia-smi line and, last,
@@ -165,16 +172,22 @@ def phase_device():
 
 def _ptxas_lines(log):
     """ptxas's register, shared-memory and spill lines per kernel
-    instantiation, e.g. ``dia_coded_kernel<float,1>`` (mode 1 = pfold)."""
+    instantiation, e.g. ``dia_coded_kernel<float,0,27>`` (mode 0 = plain,
+    the select-chain sum for 27 diagonals); a kernel that is no template
+    by its mangled name."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Li(\d)E", line)
+        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Li(\d)ELi(\d+)E", line)
         if m:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{m.group(3)}>"
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{m.group(3)},{m.group(4)}>"
             continue
         m = re.search(r"entry function '_Z\d+(\w+?)I([fd])E", line)
         if m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            continue
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
             continue
         if name and ("registers" in line or "spill" in line or "smem" in line):
             out.setdefault(name, []).append(line.split("ptxas info    :")[-1].strip())
@@ -468,9 +481,39 @@ def _stream_check(dh, level, rng):
     return _compare(f"dia_stream_spmv level {level}", dia.dia_stream_spmv(*args), dia.dia_stream_spmv_plain(*args)), x
 
 
+def gmg_coded_operators(dh):
+    """The coded operators of a device hierarchy, finest first, by name:
+    ``A<l>`` a level's operator (level 0's only, the others stream) and
+    ``S<l>`` its interpolation stencil."""
+    out = []
+    for l, lv in enumerate(dh["levels"]):
+        for kind in ("A", "S"):
+            if lv[f"d{kind}"].dia_mode == "coded":
+                out.append((f"{kind}{l}", lv[f"d{kind}"]))
+    return out
+
+
+def _random_frame(dM, rng):
+    op = dM.coded
+    return torch.from_numpy(rng.standard_normal((dM.col_layout.P, dM.col_layout.W))).to(op.cb.device, op.cb.dtype)
+
+
+def _k1_on_gmg_operators(dh, tag, rng, names=None):
+    """K1 torch.equal to its plain version on the hierarchy's own coded
+    operators (random operands in their column frames)."""
+    errs = {}
+    for name, dM in gmg_coded_operators(dh):
+        if names is None or name in names:
+            op, x, wy = dM.coded, _random_frame(dM, rng), dM.row_layout.W
+            errs[name] = _compare(f"dia_coded_spmv {tag} {name}", dia.dia_coded_spmv(op, x, wy),
+                                  dia.dia_coded_spmv_plain(op, x, wy))
+    return errs
+
+
 def phase_gmg(backend, n, rng):
     """GMG-PCG at 192^3 f32 through `pcg(Ah, bh, minv=h)`, its own launch
-    counts, the stream kernel against plain on level 1, the plain path."""
+    counts, K1 on every coded operator and the stream kernel on level 1
+    against their plain versions, the plain path."""
     run = prun(gmg_driver, backend, (1, 1, 1), n, True)
     h = run["h"]
     t = time.perf_counter()
@@ -479,6 +522,8 @@ def phase_gmg(backend, n, rng):
     lowering_s = time.perf_counter() - t
     L = len(h.levels)
     modes = [(l["dA"].dia_mode, l["dS"].dia_mode) for l in dh["levels"]]
+    err_k1 = _k1_on_gmg_operators(dh, f"GMG {n}^3 f32", rng)
+    require(sorted(err_k1) == ["A0"] + [f"S{l}" for l in range(L)], f"GMG coded operators {sorted(err_k1)}")
     err_k4, x1 = _stream_check(dh, 1, rng)
     dia.reset_launches()
     t = time.perf_counter()
@@ -500,6 +545,7 @@ def phase_gmg(backend, n, rng):
         "solve_s": solve_s, "iterations": it, "converged": info["converged"], "rel_err": err,
         "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
         "kernels": launches, "expected_launches": want, "stream_vs_plain_level1_max_abs_err": err_k4,
+        "coded_vs_plain_max_abs_err": err_k1,
     })
     require(L == GMG_LEVELS and h.coarse_A.rows.ngids == 216, f"GMG: {L} levels over {h.coarse_A.rows.ngids} coarse points, expected 5 over 216")
     require(modes[0][0] == "coded" and n_stream == L - 1, f"GMG: level modes {modes}")
@@ -508,7 +554,8 @@ def phase_gmg(backend, n, rng):
     require(err <= 1.1 * err_p, "GMG: kernel path error above 1.1x the plain path's")
     for k in ("dia_coded_spmv", "dia_stream_spmv"):
         require(launches[k] == want[k], f"GMG: {launches[k]} {k} launches, expected {want[k]}")
-    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1}
+    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "err_k1": err_k1,
+            "iterations": it}
 
 
 def phase_gmg_multi(backend, n, rng):
@@ -528,6 +575,8 @@ def phase_gmg_multi(backend, n, rng):
     run_s = prun(driver, sequential, (2, 2, 2))
     dh = gpu_gmg.device_hierarchy(run["h"], backend)
     err_k4, _ = _stream_check(dh, 1, rng)
+    err_k1 = _k1_on_gmg_operators(dh, f"stacked-parts GMG {n}^3 f64", rng, ("A0", "S0"))
+    require(sorted(err_k1) == ["A0", "S0"], f"stacked-parts GMG: coded operators {sorted(err_k1)}")
     _, info_p = gpu_gmg.gpu_gmg_pcg(run["h"], run["bh"], tol=1e-8, plain=True)
     it = run["info"]["iterations"]
     emit({
@@ -535,9 +584,12 @@ def phase_gmg_multi(backend, n, rng):
         "levels": len(run["h"].levels), "iterations": it,
         "sequential_iterations": run_s["info"]["iterations"], "plain_iterations": info_p["iterations"],
         "rel_err": run["err"], "sequential_rel_err": run_s["err"], "kernels": launches,
-        "stream_vs_plain_level1_max_abs_err": err_k4,
+        "stream_vs_plain_level1_max_abs_err": err_k4, "coded_vs_plain_max_abs_err": err_k1,
+        "coded_operators": {name: operator_info(dM.coded) for name, dM in gmg_coded_operators(dh)},
     })
     require(run["info"]["converged"], "stacked-parts GMG-PCG did not converge")
+    # with it, the kernels line's max_abs_err of K1 covers these operators
+    err_k4 = {"stream": err_k4, "coded": max(err_k1.values())}
     require(it == run_s["info"]["iterations"], "stacked-parts GMG: iterations differ from the sequential backend")
     require(it == info_p["iterations"], "stacked-parts GMG: iterations differ from the plain path")
     for k in ("dia_coded_spmv", "dia_stream_spmv"):
@@ -657,6 +709,96 @@ def phase_times(backend, k, run, n):
     return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy}
 
 
+def operator_info(op):
+    """A coded operator's shape: rows, diagonals, coded diagonals, code
+    bytes a row, its codebook sizes, its decode and (select chain) the
+    band-sum instance the launcher picks for it."""
+    pick = getattr(dia, "select_chain_instance", None)  # absent before the specialised sums
+    return {
+        "rows": int(op.no.sum()), "parts": int(op.cb.shape[0]), "diagonals": len(op.offsets),
+        "coded_diagonals": sum(1 for k in op.kk if k > 1), "code_bytes_per_row": int(op.codes.shape[1]),
+        "kk_set": sorted(set(op.kk)), "decode": "select_chain" if op.cls_pattern is None else "row_class",
+        "instance": pick(op) if pick else None,
+    }
+
+
+def _coded_csr(op, wx):
+    """The CSR (one part) of a coded operator's nonzero entries, built on
+    the card from its codebook and codes: row i, column o0 + i + off_d of
+    the operand frame, rows in order and each in ascending offset."""
+    require(op.cb.shape[0] == 1, "the library CSR is built for one part")
+    dev, no = op.cb.device, int(op.no[0])
+    i = torch.arange(no, device=dev)
+    vals = []
+    for d in range(len(op.offsets)):
+        if op.kk[d] == 1:
+            vals.append(op.cb[0, d, 0].expand(no))
+        else:
+            ci = op.code_row[d]
+            c = (op.codes[0, ci // 2, :no].to(torch.int64) >> (4 * (ci % 2))) & 15
+            vals.append(op.cb[0, d][torch.where(c < op.kk[d], c, 0)])
+    V = torch.stack(vals, 1)
+    C = i[:, None] + torch.tensor(op.offsets, device=dev)[None, :]
+    keep = (C >= 0) & (C < no) & (V != 0)
+    crow = torch.zeros(no + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    csr = torch.sparse_csr_tensor(crow, (C + op.o0)[keep], V[keep], size=(no, wx))
+    del V, C, keep
+    return csr
+
+
+def null_launch_us(flush, op=None, x=None, width=None):
+    """The launch floor on the kernels' timer: the flushed µs of an empty
+    kernel (one warp, no parameters), or with op that of an empty kernel
+    launched as K1 launches op (its grid, threads, shared memory and
+    parameters). None where the checkout has no empty kernel."""
+    null = getattr(dia, "dia_null_launch", None)
+    return None if null is None else time_ms(lambda: null(op, x, width), flush) * 1e3
+
+
+def coded_operator_times(dh, iterations, flush, rng):
+    """One line per coded operator of a device hierarchy: its shape, its
+    launches per GMG-PCG solve of `iterations` (the fine A 1 + 3 per
+    iteration, every S 2), K1 flushed, warm-L2 and back-to-back µs (back
+    to back, a launch shorter than its host cost reads the host), the plain
+    version's and torch.sparse.mm's µs, the empty kernel launched as K1 is,
+    and the bound: rows x (2 x itemsize + code bytes) over 3.35 TB/s."""
+    out = []
+    for name, dM in gmg_coded_operators(dh):
+        op, wx, wy = dM.coded, dM.col_layout.W, dM.row_layout.W
+        x = _random_frame(dM, rng)
+        info = operator_info(op)
+        k1 = lambda: dia.dia_coded_spmv(op, x, wy)  # noqa: E731
+        flushed = time_ms(k1, flush)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            k1()
+        b.record()
+        sync()
+        line = {
+            "phase": "gmg_coded_operator", "name": name, **info,
+            "launches_per_solve": None if iterations is None else (1 + 3 * iterations if name == "A0" else 2 * iterations),
+            "us": flushed * 1e3, "loop_us": a.elapsed_time(b) * 1e3 / 20,
+            # the same timer with the L2 left warm (a one-byte "flush")
+            "warm_us": time_ms(k1, flush[:1]) * 1e3,
+            "plain_us": time_ms(lambda: dia.dia_coded_spmv_plain(op, x, wy), flush) * 1e3,
+        }
+        if info["parts"] == 1:
+            csr = _coded_csr(op, wx)
+            xcol = x[0].reshape(-1, 1).contiguous()
+            line["library_us"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush) * 1e3
+            line["csr_nnz"] = int(csr.values().numel())
+            del csr
+        line["null_as_launched_us"] = null_launch_us(flush, op, x, wy)
+        itemsize = op.cb.element_size()
+        line["bound_us"] = info["rows"] * (2 * itemsize + info["code_bytes_per_row"]) / HBM_BYTES_PER_S * 1e6
+        line["share_of_bound"] = line["bound_us"] / line["us"]
+        emit(line)
+        out.append(line)
+    return out
+
+
 def phase_gmg_times(backend, g):
     """The stream kernel on GMG level 1 of 192^3, and GMG-PCG seconds per
     iteration, solve seconds and a profile of one iteration."""
@@ -700,6 +842,8 @@ def phase_gmg_times(backend, g):
         "gmg_pcg_fixed_trip_s": per, "gmg_pcg_solve_s": solve_s, "gmg_pcg_iterations": out[3],
     })
     phase_profile("gmg_pcg_profile", gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, x0, 5)
+    emit({"phase": "null_launch", "us": null_launch_us(flush)})
+    coded_operator_times(g["dh"], g["iterations"], flush, np.random.default_rng(SEED))
     return stream
 
 
@@ -748,7 +892,7 @@ def main() -> int:
     phase_multi(backend, N_MULTI, rng)
     gmg = phase_gmg(backend, N_MAIN, rng)
     launches["dia_stream_spmv"] = gmg["launches"]["dia_stream_spmv"]
-    err_k4_multi = phase_gmg_multi(backend, N_GMG_MULTI, rng)
+    err_multi = phase_gmg_multi(backend, N_GMG_MULTI, rng)
     times = phase_times(backend, kern, run, N_MAIN)
     times["dia_stream_spmv"] = phase_gmg_times(backend, gmg)
     emit({"phase": "launch_counts", "kernels": launches})
@@ -757,7 +901,8 @@ def main() -> int:
         name: max(v for key, v in errs.items() if key.startswith(name + "["))
         for name in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy")
     }
-    max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_k4_multi)
+    max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg["err_k1"].values(), err_multi["coded"])
+    max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"])
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

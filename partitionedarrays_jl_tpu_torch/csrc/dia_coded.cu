@@ -103,12 +103,30 @@
 //   class masks kept the compiler from overlapping one diagonal's loads
 //   with the last one's arithmetic (K1 57 and pfold 80 us with it, 41 and
 //   61 without).
+// * The select-chain sums on the GMG operators. Multigrid-preconditioned
+//   CG runs the select-chain decode 13 times an iteration: level 0's A (7
+//   diagonals, each coded with kk = 2, 4 code bytes a row) and the
+//   interpolation stencils S (27 diagonals, the centre constant, 26 coded
+//   with kk = 2, 13 code bytes a row; bound at 192^3 f32 rows x (4 + 13 +
+//   4) B over 3.35 TB/s = 44.4 us). The run-time loop over D loads per
+//   (row, diagonal) the diagonal's slot, the code byte (again for its
+//   other nibble), the codebook entry it picks (a gathered load) and the
+//   operand, one after another, with a branch on kk: S at 192^3 took 198
+//   us. select_sum is that loop specialised at compile time for the two
+//   shapes (SelectShape; the launcher takes the instance ops/dia.py's
+//   select_chain_instance names): it unrolls, loads each code byte once a
+//   row and decodes both nibbles from it, keeps each diagonal's two
+//   codebook slots in registers and selects between them, and reads the
+//   slots four at a time. stage_codes deals the code streams' 16-byte
+//   copies out over the CTA's threads, so a step no longer runs a copy
+//   prologue per stream on every thread.
 //
 // The plan travels in PaDiaParams. The kernel may take up to the card's
 // 227 KB of shared memory a CTA; the planner's budget keeps a plan within
 // 96 KB, so at least two CTAs fit an SM.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define PA_MAX_DIAGS 64
@@ -169,6 +187,10 @@ struct PaDiaParams {
   int new_len[PA_MAX_WINDOWS];
   int buf_at[PA_MAX_BUFS];
   int diag_win[PA_MAX_DIAGS];  // read window of diagonal d
+  // plain mode, select chain: the diagonal count of the specialised band
+  // sum (SelectShape) the operator matches, else 0 (ops/dia.py:
+  // select_chain_instance). Last, so that no other field moves.
+  int nd_spec;
 };
 
 enum { PA_PLAIN = 0, PA_PFOLD = 1, PA_AXPY = 2 };
@@ -215,11 +237,8 @@ __device__ __forceinline__ int phase(const E* src, long long g) {
 // Copy elements [g_lo, g_lo + len) of src (valid on [0, lim)) into the
 // window at dst: element g lands at slot phase(src, g_lo) + g - g_lo, so the
 // source's 16-byte chunks land on the window's. Slots of g >= lim are
-// zero-filled by the copy's source size. ZERO_HEAD: slots of g < 0 are 0
-// too (operand windows); otherwise the head chunk is copied as it lies
-// (code bytes: the 16-byte chunk around a valid byte lies in its
-// allocation, and rows before the tile are never read).
-template <typename E, bool ZERO_HEAD>
+// zero-filled by the copy's source size, and slots of g < 0 are 0 too.
+template <typename E>
 __device__ __forceinline__ void stage_window(unsigned char* dst, const E* src, long long g_lo,
                                              int len, long long lim) {
   constexpr int S = (int)sizeof(E);
@@ -236,9 +255,7 @@ __device__ __forceinline__ void stage_window(unsigned char* dst, const E* src, l
     // a copy of fewer bytes than its size zero-fills the rest and reads
     // nothing past them: the address of a chunk past either end of src
     // stays aligned and is never read
-    if constexpr (!ZERO_HEAD) {
-      cp_async<16>(d, src + gq, (int)nv * S);
-    } else if (gq >= 0) {
+    if (gq >= 0) {
       cp_async<16>(d, src + gq, (int)nv * S);
     } else if (gq + V <= 0) {
       cp_async<16>(d, src + gq, 0);
@@ -248,6 +265,38 @@ __device__ __forceinline__ void stage_window(unsigned char* dst, const E* src, l
         const long long g = gq + e;
         cp_async<S>(d + e * S, src + g, g >= 0 && g < lim ? S : 0);
       }
+    }
+  }
+}
+
+// The tile's code bytes [ts, ts + T) of every stream into the code stage:
+// stream s at code_stride * s, landing with its source's 16-byte phase,
+// zero-filled past no, the head chunk copied as it lies (the 16-byte chunk
+// around a valid byte lies in its allocation, and rows before the tile are
+// never read). The (stream, chunk) pairs of all streams are dealt out over
+// the CTA's threads, so a thread works out the addresses of its own ~3
+// chunks a step (13 streams of 1024 rows), not a prologue per stream.
+__device__ __forceinline__ void stage_codes(const PaDiaParams& prm, unsigned char* dst, const uint8_t* cpart,
+                                            long long ts, long long no) {
+  const int NQ = (prm.T + 30) >> 4;  // chunks a stream's T bytes span at most
+  int s = threadIdx.x / NQ, j = threadIdx.x - s * NQ;
+  const int ds = blockDim.x / NQ, dj = blockDim.x - ds * NQ;
+  const unsigned sdst = (unsigned)__cvta_generic_to_shared(dst);
+  while (s < prm.n_streams) {
+    const uint8_t* src = cpart + s * prm.code_len;
+    const long long base = (long long)(uintptr_t)src;
+    const long long c_lo = (base + ts) & ~15LL;
+    if (j < (int)((base + ts + prm.T - c_lo + 15) >> 4)) {
+      const long long gq = c_lo + 16LL * j - base;
+      long long nv = no - gq;
+      nv = nv < 0 ? 0 : nv > 16 ? 16 : nv;
+      cp_async<16>(sdst + (unsigned)(s * prm.code_stride + 16 * j), src + gq, (int)nv);
+    }
+    s += ds;
+    j += dj;
+    if (j >= NQ) {
+      j -= NQ;
+      ++s;
     }
   }
 }
@@ -267,18 +316,16 @@ __device__ __forceinline__ void stage_step(const PaDiaParams& prm, unsigned char
   for (int s = 0; s < prm.n_new; ++s) {
     unsigned char* b = smem + buffer_at(prm, k, prm.new_buf[s]);
     const long long g = ts + prm.new_src[s];
-    stage_window<T, true>(b, xp, g, prm.new_len[s], no);
-    if (MODE == PA_PFOLD) stage_window<T, true>(b + prm.pp_shift, pp, g, prm.new_len[s], no);
+    stage_window<T>(b, xp, g, prm.new_len[s], no);
+    if (MODE == PA_PFOLD) stage_window<T>(b + prm.pp_shift, pp, g, prm.new_len[s], no);
   }
   if (!rows) return;
   unsigned char* st = smem + prm.stage_at + (k & 1) * prm.stage_bytes;
   if (MODE == PA_AXPY) {
-    stage_window<T, true>(st + prm.ax_pp_at, pp, ts, prm.T, no);
-    stage_window<T, true>(st + prm.ax_xa_at, xa, ts, prm.T, no);
+    stage_window<T>(st + prm.ax_pp_at, pp, ts, prm.T, no);
+    stage_window<T>(st + prm.ax_xa_at, xa, ts, prm.T, no);
   }
-  for (int s = 0; s < prm.n_streams; ++s)
-    stage_window<uint8_t, false>(st + prm.code_at + s * prm.code_stride, cpart + s * prm.code_len,
-                                 ts, prm.T, no);
+  stage_codes(prm, st + prm.code_at, cpart, ts, no);
 }
 
 // The 4 values at p (16-byte aligned) of shared memory.
@@ -305,6 +352,112 @@ __device__ __forceinline__ void class_sum2(int ntake, const T* sop, const int* s
     for (int r = 0; r < PA_ROWS; ++r)
       acc[r] = add_rn(acc[r], mul_rn(cls[r] & 1 ? c4[1] : c4[0], xs[row[r]]));
   }
+}
+
+// ---------------------------------------------------------------------------
+// the select-chain band sum, specialised at compile time
+// ---------------------------------------------------------------------------
+
+// The select-chain operators the band sum is specialised for, by diagonal
+// count ND: `consts` marks the constant diagonals (kk 1); every other one
+// is coded with kk 2, coded index = its rank among the coded diagonals (the
+// staging's order). ops/dia.py:SELECT_SHAPES mirrors this table.
+template <int ND> struct SelectShape;
+// the 7-point operator (GMG level 0): every diagonal coded, 4 code bytes
+template <> struct SelectShape<7> { static constexpr unsigned long long consts = 0; };
+// the 27-point interpolation stencil S: its centre constant, 13 code bytes
+template <> struct SelectShape<27> { static constexpr unsigned long long consts = 1ULL << 13; };
+
+template <int ND>
+__host__ __device__ constexpr bool is_const(int d) { return (SelectShape<ND>::consts >> d) & 1ULL; }
+
+template <int ND>
+__host__ __device__ constexpr int coded_index(int d) {
+  int c = 0;
+  for (int e = 0; e < d; ++e) c += is_const<ND>(e) ? 0 : 1;
+  return c;
+}
+
+// f(integral_constant<int, D>) for D = I, ..., N - 1, in order
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>{});
+    static_for<I + 1, N>(f);
+  }
+}
+
+// A diagonal's two codebook slots, kept in registers where they fit (the
+// whole table at most 256 bytes: f32 at 7 and 27 diagonals, f64 at 7), else
+// read from the shared codebook once per step, one pair a diagonal.
+template <typename T, int ND>
+struct SelectCoefs {
+  static constexpr bool in_regs = 2 * ND * sizeof(T) <= 256;
+  T c0[in_regs ? ND : 1], c1[in_regs ? ND : 1];
+
+  __device__ __forceinline__ void load(const T* cbp, int kmax) {
+    if constexpr (in_regs) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        c0[d] = cbp[d * kmax];
+        c1[d] = is_const<ND>(d) ? c0[d] : cbp[d * kmax + 1];
+      }
+    }
+  }
+  template <int D>
+  __device__ __forceinline__ void get(const T* scb, int kmax, T& a, T& b) const {
+    if constexpr (in_regs) {
+      a = c0[D];
+      b = c1[D];
+    } else {
+      a = scb[D * kmax];
+      b = is_const<ND>(D) ? a : scb[D * kmax + 1];
+    }
+  }
+};
+
+// The select-chain band sum of a thread's rows (row[r] = threadIdx.x +
+// r * PA_THREADS) over the ND diagonals of SelectShape<ND>, in ascending
+// order. Per coded byte of a row one shared load, both nibbles decoded from
+// it; per term one shared load of the operand, a select between the
+// diagonal's two coefficients (a code other than 1, 1 past kk = 2 included,
+// reads slot 0), a product and a sum. sidx: the diagonals' operand slots
+// (16-byte aligned, read four at a time); sc0: the tile's code stage,
+// `stride` bytes a stream; stream s of the tile's rows starts at byte
+// cg + s * code_len of device memory (its 16-byte phase in the stage).
+template <typename T, int ND>
+__device__ __forceinline__ void select_sum(const SelectCoefs<T, ND>& cf, const T* scb, int kmax,
+                                           const T* sop, const int* sidx, const unsigned char* sc0,
+                                           int stride, long long cg, long long code_len,
+                                           T (&acc)[PA_ROWS]) {
+  int4 q;
+  unsigned t[PA_ROWS];
+  static_for<0, ND>([&](auto dc) {
+    constexpr int d = decltype(dc)::value;
+    if constexpr (d % 4 == 0) q = reinterpret_cast<const int4*>(sidx)[d / 4];
+    const int s_at = d % 4 == 0 ? q.x : d % 4 == 1 ? q.y : d % 4 == 2 ? q.z : q.w;
+    const T* xs = sop + s_at + threadIdx.x;
+    T a, b;
+    cf.template get<d>(scb, kmax, a, b);
+    if constexpr (is_const<ND>(d)) {
+#pragma unroll
+      for (int r = 0; r < PA_ROWS; ++r) acc[r] = add_rn(acc[r], mul_rn(a, xs[r * PA_THREADS]));
+    } else {
+      constexpr int ci = coded_index<ND>(d);
+      constexpr int s = ci >> 1;
+      if constexpr ((ci & 1) == 0) {
+        // the byte of this diagonal and the next coded one, once a row;
+        // t's nibble is 0 where the code is 1
+        const unsigned char* sc = sc0 + s * stride + (int)((cg + s * code_len) & 15) + threadIdx.x;
+#pragma unroll
+        for (int r = 0; r < PA_ROWS; ++r) t[r] = (unsigned)sc[r * PA_THREADS] ^ 0x11u;
+      }
+      constexpr unsigned nib = (ci & 1) ? 0xF0u : 0x0Fu;
+#pragma unroll
+      for (int r = 0; r < PA_ROWS; ++r)
+        acc[r] = add_rn(acc[r], mul_rn((t[r] & nib) == 0u ? b : a, xs[r * PA_THREADS]));
+    }
+  });
 }
 
 // p = r + beta * pprev over `len` values of a buffer (r at sr, pprev at sq,
@@ -337,8 +490,10 @@ __device__ __forceinline__ void fold(T* sr, const T* sq, int ph_r, int ph_q, int
 // ---------------------------------------------------------------------------
 
 // MODE: PA_PLAIN, PA_PFOLD (scal = beta, vout = p) or PA_AXPY
-// (scal = alpha, vout = xacc updated in place).
-template <typename T, int MODE>
+// (scal = alpha, vout = xacc updated in place). ND > 0 (plain mode only):
+// a select-chain operator of SelectShape<ND>, summed by select_sum; ND 0:
+// any operator, the row-class sums or the run-time select-chain loop.
+template <typename T, int MODE, int ND>
 __global__ void __launch_bounds__(PA_THREADS)
 dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t* __restrict__ no_arr,
                  const uint8_t* __restrict__ codes, const T* __restrict__ x,
@@ -361,6 +516,9 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
   const uint8_t* cpart = codes + (long long)p * prm.n_streams * prm.code_len;
   const T scal = MODE != PA_PLAIN ? scal_ptr[0] : T(0);
   const int TR = prm.T;
+  static_assert(ND == 0 || MODE == PA_PLAIN, "the specialised select-chain sum is plain mode's");
+  SelectCoefs<T, ND == 0 ? 1 : ND> coefs;
+  if constexpr (ND > 0) coefs.load(cb + (long long)p * prm.D * prm.kmax, prm.kmax);
 
   // this CTA's tiles: ts(k) = ts0 + k * tstep for k < steps, each of at most
   // rowcap rows
@@ -463,7 +621,10 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
 #pragma unroll
       for (int r = 0; r < PA_ROWS; ++r) acc[r] = T(-0.0);
 
-      if (prm.n_cls > 0) {
+      if constexpr (ND > 0) {
+        select_sum<T, ND>(coefs, scb, prm.kmax, sop, sidx, st + prm.code_at, prm.code_stride,
+                          (long long)(uintptr_t)cpart + ts, prm.code_len, acc);
+      } else if (prm.n_cls > 0) {
         const unsigned char* sc = st + prm.code_at + phase(cpart, ts);
         int cls[PA_ROWS];
 #pragma unroll
@@ -526,11 +687,11 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
   cp_async_wait_all();
 }
 
-template <typename T, int MODE>
-static int launch(PaDiaParams* prm, const void* cb, const void* no,
-                  const void* codes, const void* x, const void* pprev,
-                  const void* scal, void* y, void* vout, void* stream) {
-  auto kern = dia_coded_kernel<T, MODE>;
+template <typename T, int MODE, int ND>
+static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
+                         const void* codes, const void* x, const void* pprev,
+                         const void* scal, void* y, void* vout, void* stream) {
+  auto kern = dia_coded_kernel<T, MODE, ND>;
   static int n_sm = 0;
   cudaError_t e;
   if (n_sm == 0) {
@@ -571,7 +732,50 @@ static int launch(PaDiaParams* prm, const void* cb, const void* no,
   return (int)cudaGetLastError();
 }
 
+// The instance for prm: plain mode takes the specialised select-chain sum
+// its operator matches (prm->nd_spec, set by the host), every other launch
+// the general kernel.
+template <typename T, int MODE>
+static int launch(PaDiaParams* prm, const void* cb, const void* no,
+                  const void* codes, const void* x, const void* pprev,
+                  const void* scal, void* y, void* vout, void* stream) {
+  if constexpr (MODE == PA_PLAIN) {
+    if (prm->nd_spec == 7) return launch_kernel<T, MODE, 7>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
+    if (prm->nd_spec == 27) return launch_kernel<T, MODE, 27>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
+  }
+  if (prm->nd_spec != 0) return (int)cudaErrorInvalidValue;
+  return launch_kernel<T, MODE, 0>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
+}
+
+// Empty kernels, the launch floor the coded kernel's times are read
+// against: one warp with no parameters, and one launched as the coded
+// kernel is (its grid, threads, shared memory and parameter block).
+__global__ void dia_null_kernel() {}
+__global__ void __launch_bounds__(PA_THREADS) dia_null_plan_kernel(const PaDiaParams prm) {}
+
 extern "C" {
+
+// prm null: the bare empty kernel; else the one launched as prm's plan
+// (prm->grid_x set by the plan's first launch of the coded kernel).
+int pa_dia_null(const PaDiaParams* prm, void* stream) {
+  if (prm == nullptr) {
+    dia_null_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+  }
+  static bool init = false;
+  cudaError_t e;
+  if (!init) {
+    int dev, optin;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaFuncSetAttribute(dia_null_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) != cudaSuccess)
+      return (int)e;
+    init = true;
+  }
+  dim3 grid((unsigned int)prm->grid_x, (unsigned int)prm->P);
+  dia_null_plan_kernel<<<grid, PA_THREADS, prm->smem_bytes, (cudaStream_t)stream>>>(*prm);
+  return (int)cudaGetLastError();
+}
 
 int pa_dia_coded_f32(PaDiaParams* prm, const void* cb, const void* no,
                      const void* codes, const void* x, void* y, void* stream) {

@@ -138,6 +138,36 @@ class CodedOperator:
         return int(self.codes.shape[-1])
 
 
+#: the select-chain operators whose band sum csrc/dia_coded.cu specialises
+#: at compile time (`SelectShape`), by diagonal count: the diagonals that
+#: are constant (kk 1); every other one is coded with kk 2, in the
+#: staging's order. 7: the 7-point operator of GMG level 0; 27: the
+#: interpolation stencil S, its centre constant.
+SELECT_SHAPES = {7: frozenset(), 27: frozenset({13})}
+
+
+def select_chain_instance(op: CodedOperator) -> int:
+    """The band sum `dia_coded_spmv` launches for op: its diagonal count
+    when op is a select-chain operator of a `SELECT_SHAPES` shape (kk 1
+    exactly on the shape's constant diagonals, 2 on the others, code rows
+    0, 1, ... in ascending order), else 0, the run-time loop over any
+    diagonals and codebook sizes. Both sum in ascending-offset order with
+    the same rounding: the choice moves no result."""
+    D = len(op.offsets)
+    if op.cls_pattern is not None or D not in SELECT_SHAPES:
+        return 0
+    consts, ci = SELECT_SHAPES[D], 0
+    for d in range(D):
+        if d in consts:
+            if op.kk[d] != 1:
+                return 0
+        elif op.kk[d] != 2 or op.code_row[d] != ci:
+            return 0
+        else:
+            ci += 1
+    return D if op.codes.shape[1] >= -(-ci // 2) else 0
+
+
 # ---------------------------------------------------------------------------
 # the coded kernel's shared-memory plan
 # ---------------------------------------------------------------------------
@@ -472,6 +502,7 @@ class _Params(ctypes.Structure):
         ("new_len", ctypes.c_int * MAX_WINDOWS),
         ("buf_at", ctypes.c_int * MAX_BUFS),
         ("diag_win", ctypes.c_int * MAX_DIAGS),
+        ("nd_spec", ctypes.c_int),
     ]
 
 
@@ -540,6 +571,8 @@ def build_kernels() -> dict:
     _bind(libs["dia_coded"], "pa_dia_coded_pfold", _Params, 9)
     _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 9)
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
+    libs["dia_coded"].pa_dia_null.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    libs["dia_coded"].pa_dia_null.restype = ctypes.c_int
     _libs = libs
     return libs
 
@@ -569,6 +602,7 @@ def _params(op: CodedOperator, wx: int, wy: int, mode: str) -> _Params:
     for d in range(D):
         prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
         prm.diag_win[d] = plan.diag_window[d]
+    prm.nd_spec = select_chain_instance(op) if mode == "plain" else 0
     prm.n_cls = 0
     if op.cls_pattern is not None:
         if len(op.cls_pattern) > MAX_CLASSES:
@@ -642,6 +676,26 @@ def dia_coded_spmv(op: CodedOperator, x: torch.Tensor, width: Optional[int] = No
     _raise_on(rc, "dia_coded_spmv")
     LAUNCHES["dia_coded_spmv"] += 1
     return y
+
+
+def dia_null_launch(op: Optional[CodedOperator] = None, x: Optional[torch.Tensor] = None,
+                    width: Optional[int] = None) -> None:
+    """An empty kernel on the current CUDA device, the launch floor the
+    coded kernel is timed against; it counts in no `LAUNCHES` entry. With
+    op, x and width it is launched as `dia_coded_spmv(op, x, width)`
+    launches the coded kernel (grid, threads, shared memory, parameter
+    block), which must have run on that frame first; else one warp, no
+    parameters."""
+    lib = build_kernels()["dia_coded"]
+    if op is None:
+        rc = lib.pa_dia_null(None, torch.cuda.current_stream().cuda_stream)
+    else:
+        width = x.shape[1] if width is None else int(width)
+        prm = _params(op, x.shape[1], width, "plain")
+        if prm.grid_x == 0:
+            raise RuntimeError("dia_null_launch: launch dia_coded_spmv on this frame first (it sets the grid)")
+        rc = lib.pa_dia_null(ctypes.byref(prm), torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "dia_null_launch")
 
 
 def dia_coded_spmv_pfold(

@@ -146,6 +146,70 @@ def test_axpy_kernel_matches_plain(mode, dtype, shape, pprev_moved):
     assert torch.equal(_outside(op, xk), _outside(op, xacc))
 
 
+#: select-chain codebook sizes per diagonal: "shape" the shapes the
+#: select-chain sum is specialised for (ops/dia.py:SELECT_SHAPES: 7
+#: diagonals all coded, 27 with the centre constant; kk 2), "all2" every
+#: diagonal coded with kk 2, "mixed16" sizes 2 to 16, "consts" constants
+#: interleaved with kk 2 diagonals
+KK_PATTERNS = {
+    "shape": lambda D: tuple(1 if d in dia.SELECT_SHAPES[D] else 2 for d in range(D)),
+    "all2": lambda D: (2,) * D,
+    "mixed16": lambda D: tuple((2, 3, 16, 5, 2, 9, 4)[d % 7] for d in range(D)),
+    "consts": lambda D: tuple(1 + d % 2 for d in range(D)),
+}
+
+
+def _select_operator(points, n, pattern, dtype, rng, o0=1):
+    """Two parts with ragged owned counts, the 7- or 27-point offsets of
+    an n^3 grid, select-chain decode with `pattern`'s codebook sizes, codes
+    up to 15 (a code past kk reads slot 0)."""
+    rows = n ** 3
+    offsets = _offsets(points, n)
+    D = len(offsets)
+    kk = KK_PATTERNS[pattern](D)
+    code_row = tuple(int(np.sum(np.array(kk[:d]) > 1)) if kk[d] > 1 else -1 for d in range(D))
+    codes = rng.integers(0, 16, (2, max(code_row) + 1, rows)).astype(np.uint8)
+    packed = dia.pack_nibble_codes(codes).view(np.uint8)
+    return dia.CodedOperator(
+        cb=torch.from_numpy(rng.standard_normal((2, D, max(kk)))).to("cuda", dtype),
+        no=torch.tensor([rows, rows - 333], dtype=torch.int32, device="cuda"),
+        codes=torch.from_numpy(np.ascontiguousarray(packed)).cuda(),
+        offsets=offsets, kk=kk, code_row=code_row, cls_pattern=None, o0=o0,
+    )
+
+
+@pytest.mark.parametrize("n", [25, 41], ids=["n25", "n41"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pattern", sorted(KK_PATTERNS))
+@pytest.mark.parametrize("points", [7, 27])
+def test_select_chain_shapes_match_plain(points, pattern, dtype, n):
+    """The select-chain decode at 7 and 27 diagonals in all three modes,
+    odd n (at 41 the CTAs march along the planes), two parts: the
+    specialised sums where the shape matches, the run-time loop elsewhere;
+    every result torch.equal to the plain version."""
+    _need_card()
+    rng = np.random.default_rng(points * 100 + n)
+    op = _select_operator(points, n, pattern, dtype, rng)
+    picked = dia.select_chain_instance(op)
+    assert picked == (points if pattern == "shape" or (pattern == "all2" and points == 7) else 0)
+    w = op.o0 + op.n + 21
+    x, r, pprev, xacc = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(4))
+    beta = torch.tensor(0.375, dtype=dtype, device="cuda")
+    alpha = torch.tensor(-0.625, dtype=dtype, device="cuda")
+    y = dia.dia_coded_spmv(op, x, w + 5)
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, w + 5)
+    xk, xp = xacc.clone(), xacc.clone()
+    ya = dia.dia_coded_spmv_axpy(op, x, xk, pprev, alpha, w + 5)
+    torch.cuda.synchronize()
+    assert torch.equal(y, dia.dia_coded_spmv_plain(op, x, w + 5))
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, w + 5)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    assert torch.equal(ya, dia.dia_coded_spmv_axpy_plain(op, x, xp, pprev, alpha, w + 5))
+    assert torch.equal(xk, xp)
+    for v in (y, yk, pk, ya):
+        assert not _outside(op, v).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_stream_kernel_matches_plain(dtype):
     _need_card()

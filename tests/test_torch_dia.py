@@ -67,7 +67,50 @@ def _class_case():
                 cb=cb, codes=codes, x=x, total=total, cls_pattern=cls_pattern, rng=rng)
 
 
-CASES = {"select": _select_case, "class": _class_case}
+def _stencil_case(mixed):
+    """The shape of the GMG interpolation stencil S (tests of the port's
+    27-diagonal select-chain sum): the 27-point offsets of a 37^3 grid, the
+    centre constant and the other 26 coded with kk = 2 in 13 streams; or,
+    `mixed`, codebook sizes from 2 to 16 with constant diagonals between
+    them and codes up to 15, past kk too (read as slot 0). Coefficients
+    and operands have few significant bits, so that every product and sum
+    is exact: the interpreter's XLA may fuse a product into its sum, and
+    27-term sums near cancellation then differ from the port's separately
+    rounded ones by a few ulps."""
+    rng = np.random.default_rng(23 if mixed else 19)
+    n = 37
+    offsets = tuple(a * n * n + b * n + c for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
+    D = len(offsets)
+    if mixed:
+        kk = tuple((1, 3, 2, 16, 5, 1, 2, 9)[d % 8] for d in range(D))
+    else:
+        kk = tuple(1 if d == 13 else 2 for d in range(D))
+    code_row, Dc = [], 0
+    for k in kk:
+        code_row.append(Dc if k > 1 else -1)
+        Dc += k > 1
+    no = BRL + 5 * LANES + 21
+    plan = plan_dia_padded(offsets, no, n_coded=-(-Dc // 2))
+    cb = (rng.integers(-16, 17, (D, max(kk))) / 8).astype(np.float32)
+    codes = np.zeros((Dc, plan["code_len"]), dtype=np.uint8)
+    for d in range(D):
+        if kk[d] > 1:
+            codes[code_row[d], :no] = rng.integers(0, 16 if mixed else 2, no)
+    total = 5 * PAD_BLOCK_ROWS
+    def draw(m):
+        return (rng.integers(-1024, 1025, m) / 64).astype(np.float32)
+
+    x = np.zeros(total * LANES, dtype=np.float32)
+    x[plan["o0"] : plan["o0"] + no] = draw(no)
+    x[plan["g0"] : plan["g0"] + 40] = draw(40)
+    return dict(offsets=offsets, kk=kk, code_row=tuple(code_row), no=no, plan=plan,
+                cb=cb, codes=codes, x=x, total=total, cls_pattern=None, rng=rng, draw=draw)
+
+
+CASES = {
+    "select": _select_case, "class": _class_case,
+    "stencil": lambda: _stencil_case(False), "stencil_mixed": lambda: _stencil_case(True),
+}
 
 
 def _pallas(c, pfold=None):
@@ -123,7 +166,8 @@ def test_plain_pfold_matches_pallas(case):
     c = CASES[case]()
     o0, no = c["plan"]["o0"], c["no"]
     pprev = np.zeros_like(c["x"])
-    pprev[o0 : o0 + no] = c["rng"].standard_normal(no).astype(np.float32)
+    draw = c.get("draw", lambda m: c["rng"].standard_normal(m).astype(np.float32))
+    pprev[o0 : o0 + no] = draw(no)
     beta = np.array([0.375], dtype=np.float32)
     y_want, p_want = _pallas(c, pfold=(pprev.reshape(-1, LANES), beta))
     y, p = dia.dia_coded_spmv_pfold(
@@ -391,3 +435,93 @@ def test_window_schedule_emulated_matches_band_sum(points, n, budget, ctas, ragg
         pv = x + beta * pprev
         np.testing.assert_array_equal(p, pv)
         np.testing.assert_array_equal(y, _reference(offsets, coef, no, pv))
+
+
+# ---------------------------------------------------------------------------
+# the specialised select-chain band sum (no card needed)
+# ---------------------------------------------------------------------------
+
+
+def _shape_op(points, n, kk=None, code_row=None, dtype=torch.float32, max_code=2, seed=3, parts=2):
+    """A select-chain operator on the 7- or 27-point offsets of an n^3 grid
+    (default: the shape of SELECT_SHAPES[points], canonical code rows),
+    `parts` parts with ragged owned counts, codes in [0, max_code)."""
+    rng = np.random.default_rng(seed)
+    offsets = _stencil(points, n)
+    D, rows = len(offsets), n ** 3
+    if kk is None:
+        kk = tuple(1 if d in dia.SELECT_SHAPES[D] else 2 for d in range(D))
+    if code_row is None:
+        code_row = tuple(int(np.sum(np.array(kk[:d]) > 1)) if kk[d] > 1 else -1 for d in range(D))
+    Dc = max(code_row) + 1
+    codes = rng.integers(0, max_code, (parts, Dc, rows)).astype(np.uint8)
+    packed = dia.pack_nibble_codes(codes).view(np.uint8)
+    return dia.CodedOperator(
+        cb=torch.from_numpy(rng.standard_normal((parts, D, max(kk)))).to(dtype),
+        no=torch.tensor([rows - 37 * p for p in range(parts)], dtype=torch.int32),
+        codes=torch.from_numpy(np.ascontiguousarray(packed)),
+        offsets=offsets, kk=tuple(kk), code_row=tuple(code_row), cls_pattern=None, o0=2,
+    )
+
+
+def test_select_chain_instance_picks_the_specialised_shapes():
+    s_kk = tuple(1 if d == 13 else 2 for d in range(27))
+    assert dia.select_chain_instance(_shape_op(27, 6)) == 27
+    assert dia.select_chain_instance(_shape_op(7, 6)) == 7
+    assert dia.select_chain_instance(_shape_op(7, 6, dtype=torch.float64)) == 7
+    # anything else takes the run-time loop
+    assert dia.select_chain_instance(_shape_op(27, 6, kk=(2,) * 27)) == 0  # the centre coded
+    assert dia.select_chain_instance(_shape_op(27, 6, kk=(1,) + s_kk[1:])) == 0  # another constant
+    assert dia.select_chain_instance(_shape_op(7, 6, kk=(2, 2, 3, 2, 2, 2, 2), max_code=3)) == 0
+    swapped = tuple(1 - c if c in (0, 1) else c for c in range(7))
+    assert dia.select_chain_instance(_shape_op(7, 6, code_row=swapped)) == 0  # codes out of order
+    assert dia.select_chain_instance(_shape_op(7, 6, code_row=(0,) * 7)) == 0  # one shared stream
+    op = _shape_op(7, 6)
+    short = dia.CodedOperator(op.cb, op.no, op.codes[:, :3], op.offsets, op.kk, op.code_row, None, op.o0)
+    assert dia.select_chain_instance(short) == 0  # fewer code streams than codes
+    assert dia.select_chain_instance(_port_op(CASES["class"]())) == 0  # row-class decode
+    assert dia.select_chain_instance(_port_op(CASES["stencil"]())) == 27
+    assert dia.select_chain_instance(_port_op(CASES["stencil_mixed"]())) == 0
+
+
+def _emulate_select_sum(op, x):
+    """csrc/dia_coded.cu's select_sum in numpy (separately rounded products
+    and sums in the operator's dtype): ascending diagonals, a constant one
+    reads slot 0, a coded one the nibble of byte code_row // 2 (low nibble
+    for an even coded index), `byte ^ 0x11` masked to that nibble is 0
+    exactly where the code is 1 (slot 1), else slot 0. Returns the owned
+    band of y per part."""
+    D = len(op.offsets)
+    consts = dia.SELECT_SHAPES[D]
+    cb, codes = op.cb.numpy(), op.codes.numpy()
+    out = []
+    for p, no in enumerate(op.no.tolist()):
+        xo = np.zeros(3 * no, dtype=cb.dtype)
+        xo[no : 2 * no] = x[p, op.o0 : op.o0 + no]
+        acc = np.full(no, -0.0, dtype=cb.dtype)
+        ci = 0
+        for d, off in enumerate(op.offsets):
+            xs = xo[no + off : 2 * no + off]
+            if d in consts:
+                v = cb[p, d, 0]
+            else:
+                t = codes[p, ci >> 1, :no].astype(np.uint32) ^ 0x11
+                one = (t & (0xF0 if ci & 1 else 0x0F)) == 0
+                v = np.where(one, cb[p, d, 1], cb[p, d, 0])
+                ci += 1
+            acc = acc + v * xs
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("points,n", [(7, 9), (27, 8), (27, 11)])
+def test_select_sum_emulated_matches_plain(points, n, dtype):
+    """The specialised decode (one byte a stream, both nibbles from it, a
+    two-slot select) gives the plain version's values, codes up to 15."""
+    op = _shape_op(points, n, dtype=dtype, max_code=16, seed=points + n)
+    assert dia.select_chain_instance(op) == points
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, op.o0 + op.n + 4))).to(dtype)
+    y = dia.dia_coded_spmv_plain(op, x, x.shape[1]).numpy()
+    for p, band in enumerate(_emulate_select_sum(op, x.numpy())):
+        np.testing.assert_array_equal(y[p, op.o0 : op.o0 + len(band)], band)

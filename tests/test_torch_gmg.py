@@ -301,3 +301,55 @@ def test_device_hierarchy_lives_on_the_backend_device():
     assert dh["cinv"].dtype == torch.float32 and dh["cinv"].device.type == "cpu"
     for l in dh["levels"]:
         assert l["dinv"].dtype == torch.float32 and l["emb"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)], ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(1, 1, 1), (2, 2, 1)], ids=["1x1x1", "2x2x1"])
+def test_interp_stencil_lowering_matches_jax(grid, dtype, tol):
+    """The port's interpolation stencil S at 12^3, lowered (coded, the
+    select-chain sum the launcher specialises for 27 diagonals) and applied
+    through the SpMV body, against the JAX package's S product on its
+    sequential backend; the same global operand."""
+    from partitionedarrays_jl_tpu.models.gmg import interp_stencil_cartesian as jax_stencil
+    from partitionedarrays_jl_tpu_torch.models.gmg import interp_stencil_cartesian
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import device_matrix, make_spmv_fn
+
+    ns = (12, 12, 12)
+    xg = np.random.default_rng(41).standard_normal(int(np.prod(ns))).astype(dtype)
+
+    def jax_driver(parts):
+        S = jax_stencil(ns, pa.assemble_poisson(parts, ns)[0].rows, dtype=dtype)
+        vals = pa.map_parts(lambda i: xg[np.asarray(i.lid_to_gid)], S.cols.partition)
+        return pa.gather_pvector(S @ pa.PVector(vals, S.cols))
+
+    def port_driver(parts):
+        S = interp_stencil_cartesian(ns, pt.assemble_poisson(parts, ns)[0].rows, dtype=dtype)
+        dS = device_matrix(S, parts.backend)
+        assert dS.dia_mode == "coded" and dia.select_chain_instance(dS.coded) == 27
+        xv = interop.pvector_from_values(S.cols, [xg[np.asarray(i.lid_to_gid)] for i in S.cols.partition.part_values()])
+        dx = DeviceVector.from_pvector(xv, parts.backend, dS.col_layout)
+        y = DeviceVector(make_spmv_fn(dS)(dx.data), S.rows, dS.row_layout, parts.backend)
+        return pt.gather_pvector(y.to_pvector())
+
+    want = pa.prun(jax_driver, pa.sequential, grid)
+    got = pt.prun(port_driver, CPU, grid)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_gmg_operators_take_the_specialised_select_sums():
+    """On one part (as the 192^3 GMG-PCG of chip_smoke.py, here at 24^3) the
+    level-0 operator is a 7-diagonal select-chain operator and every
+    stencil S a 27-diagonal one, both of the shapes the coded kernel's
+    select-chain sum is specialised for."""
+
+    def driver(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (24, 24, 24), dtype=np.float32)
+        Ah = pt.decouple_dirichlet(A)
+        h = pt.gmg_hierarchy(parts, Ah, (24, 24, 24), coarse_threshold=500)
+        return gpu_gmg.device_hierarchy(h, parts.backend)
+
+    dh = pt.prun(driver, CPU, (1, 1, 1))
+    picks = [(dia.select_chain_instance(l["dA"].coded) if l["dA"].dia_mode == "coded" else None,
+              dia.select_chain_instance(l["dS"].coded)) for l in dh["levels"]]
+    assert picks == [(7, 27)] + [(None, 27)] * (len(picks) - 1) and len(picks) == 2

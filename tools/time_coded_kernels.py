@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's coded-DIA kernels of one or more checkouts on one card.
 
-    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--cg N] [--gmg N]
+    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--cg N] [--gmg N]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -15,7 +15,12 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
   decode, staged as the GPU backend stages it (an interior class, and
   Dirichlet identity rows on the boundary), float32, one part;
 * K4 `dia_stream_spmv` on random 27-diagonal values at (n/2)^3 rows, a
-  kernel no checkout here changes, as a control of the card's speed.
+  kernel no checkout here changes, as a control of the card's speed;
+* with ``--select``, K1 on synthetic select-chain operators of the GMG
+  shapes (level 0's A at 192^3, the stencil S at 192^3 down to 12^3),
+  each also checked torch.equal to its plain version;
+
+and prints the checkout's ptxas lines (registers, spills) per kernel.
 
 Two times per kernel: ``flush_ms``, chip_smoke.py's `time_ms` (the median
 of single launches, each after an L2 flush and a spin that keeps the card
@@ -25,8 +30,11 @@ launches over one event pair, divided by 20 (as the CG loop runs them).
 fused and pipelined CG seconds per iteration at N^3, and GMG-PCG seconds
 per iteration at N^3 (set up by chip_smoke.py's `gmg_driver`), its
 profile (chip_smoke.py's `phase_profile`), and for each coded operator of
-its hierarchy the host and device microseconds of one K1 launch and its
-flushed kernel time. The timers and the set-up are this checkout's
+its hierarchy the host and device microseconds of one K1 launch and
+chip_smoke.py's `gmg_coded_operator` line (shape, launches per solve,
+flushed and back-to-back µs, plain and torch.sparse.mm µs, the empty
+kernel launched as K1 is, the bound), with the bare empty kernel's
+`null_launch` line. The timers and the set-up are this checkout's
 chip_smoke.py, so every checkout is timed the same way. One JSON line per
 measurement; the nvidia-smi name and power-limit line first. Exits
 non-zero without a card.
@@ -106,6 +114,42 @@ def time_kernels(smoke, dia, n, rng, flush):
     }
 
 
+def select_operator(dia, n, points, rng):
+    """A one-part select-chain operator of a GMG shape at n^3 rows: the
+    7-point offsets with every diagonal coded (level 0's A), or the
+    27-point offsets with the centre constant and 26 coded diagonals (the
+    stencil S); kk = 2, codes 0 or 1 at random."""
+    r = (-1, 0, 1)
+    if points == 7:
+        offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    else:
+        offsets = tuple(a * n * n + b * n + c for a in r for b in r for c in r)
+    D = len(offsets)
+    kk = tuple(1 if points == 27 and d == 13 else 2 for d in range(D))
+    code_row = tuple(int(np.sum(np.array(kk[:d]) > 1)) if kk[d] > 1 else -1 for d in range(D))
+    codes = rng.integers(0, 2, (1, max(code_row) + 1, n ** 3)).astype(np.uint8)
+    return dia.CodedOperator(
+        cb=torch.from_numpy(rng.standard_normal((1, D, 2)).astype(np.float32)).cuda(),
+        no=torch.tensor([n ** 3], dtype=torch.int32, device="cuda"),
+        codes=torch.from_numpy(np.ascontiguousarray(dia.pack_nibble_codes(codes).view(np.uint8))).cuda(),
+        offsets=offsets, kk=kk, code_row=code_row, cls_pattern=None, o0=0,
+    )
+
+
+def time_select(smoke, dia, rng, flush):
+    """K1 on the GMG select-chain shapes at the 192^3 hierarchy's sizes,
+    float32: flushed and back-to-back ms, and torch.equal to plain."""
+    out = {}
+    for points, sizes in ((7, (192,)), (27, (192, 96, 48, 24, 12))):
+        for n in sizes:
+            op = select_operator(dia, n, points, rng)
+            x = torch.from_numpy(rng.standard_normal((1, op.n)).astype(np.float32)).cuda()
+            k1 = lambda: dia.dia_coded_spmv(op, x, op.n)  # noqa: E731
+            equal = bool(torch.equal(k1(), dia.dia_coded_spmv_plain(op, x, op.n)))
+            out[f"{'A' if points == 7 else 'S'}{n}"] = {**timed(smoke, k1, flush), "equal": equal}
+    return out
+
+
 def host_device_us(fns, reps):
     """Host and device microseconds per call of fns, issued `reps` times
     in turn."""
@@ -132,7 +176,8 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     (fixed trips of 2 and 12) with, for the coded operators of its
     hierarchy, the host and device microseconds of one K1 launch, issued
     back to back per operator and in turn over all of them (as a V-cycle
-    issues them), and its flushed time. The profile goes to stdout first."""
+    issues them); the profile, the empty kernel's line and chip_smoke.py's
+    `gmg_coded_operator` lines go to stdout first."""
     # the checkout's package first: chip_smoke.py's own imports then find it
     sys.path.insert(0, str(root))
     import partitionedarrays_jl_tpu_torch  # noqa: F401
@@ -163,6 +208,12 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     smoke.phase_profile("gmg_pcg_profile", smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, torch.zeros_like(b), 5)
     dh = smoke.gpu_gmg.device_hierarchy(h, backend)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    # a solve to tolerance for the launch counts, then one line per coded
+    # operator and the empty kernel's (chip_smoke.py's phase 5 lines)
+    iterations = smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, smoke.TOL_MAIN, 4 * run["Ah"].rows.ngids)(
+        b, torch.zeros_like(b))[3]
+    smoke.emit({"phase": "null_launch", "us": smoke.null_launch_us(flush)})
+    smoke.coded_operator_times(dh, iterations, flush, np.random.default_rng(0))
     calls = []
     for lv in dh["levels"]:
         for dM in (lv["dA"], lv["dS"]):
@@ -172,7 +223,7 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     out.update({
         "gmg_n": gmg_n, "levels": len(dh["levels"]), "gmg_pcg_s_per_iter": s_per_iter,
         "coded_operators": len(calls),
-        "each": [{**host_device_us([f], 50), "flush_us": smoke.time_ms(f, flush) * 1e3} for f in calls],
+        "each": [host_device_us([f], 50) for f in calls],
         "in_turn": host_device_us(calls, 20),
     })
     return out
@@ -184,6 +235,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--cg", type=int, default=0, metavar="N", help="also time fused and pipelined CG at N^3")
     ap.add_argument("--gmg", type=int, default=0, metavar="N", help="also time GMG-PCG at N^3")
+    ap.add_argument("--select", action="store_true",
+                    help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -207,6 +260,9 @@ def main() -> int:
         dia = mods[root]
         dia.build_kernels()
         res = time_kernels(smoke, dia, args.n, np.random.default_rng(args.seed), flush)
+        if args.select:
+            res["select"] = time_select(smoke, dia, np.random.default_rng(args.seed), flush)
+        res["ptxas"] = smoke._ptxas_lines(dia.BUILD_LOG)
         print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
     if args.cg or args.gmg:
         # a process per checkout: each imports its own package
