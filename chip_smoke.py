@@ -26,6 +26,13 @@ Phases, one JSON line each:
    -0.0 == +0.0: the kernel's sums start from -0.0 and the row-class
    decode skips exact-zero coefficients that the plain version adds);
    the window plan (tile rows, shared-memory bytes) of each mode;
+2b. the GMG hierarchies of phases 4b and 4c (192^3 f32 on one part, 48^3
+   f64 on (2,2,2) stacked parts), staged on the default routes (the box
+   exchange plan, the matrix-free stencil transfers where they apply,
+   else the structured ones with the strided-box embedding), with the
+   staging seconds; the box stencil kernel torch.equal to its plain
+   version on every stencil level of both, after a box exchange of a
+   random frame;
 3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
    kernel launch counts are zeroed just before and read just after; the
    same solve through the plain versions must take the same iterations and
@@ -35,41 +42,57 @@ Phases, one JSON line each:
    once per iteration, the plain SpMV once (the initial residual); the
    same iterations as the plain versions and as the standard body, error
    within 1.1x of the plain solve's;
-4. stacked parts: the (2,2,2)-part 48^3 float64 driver on the one card,
-   with the launch counts zeroed just before and read just after (both
-   must be > 0), must take the iterations of the port's sequential backend,
-   error < 1e-5; both kernels are then held torch.equal against their plain
-   versions on that path's float64 operand with (8, W) frames, and the same
-   solve through the plain versions must take the same iterations;
-4b. GMG-PCG at 192^3 f32, set up as tools/bench_gmg.py does (assemble,
-   scale by 1/16 in f32, b = A x̂, decouple_dirichlet, gmg_hierarchy with
-   coarse_threshold=500): 5 levels, the coded-DIA SpMV held torch.equal to
-   its plain version on every coded operator of the hierarchy (level 0's
-   A and the stencils S of all 5 levels, select-chain decode), the
-   streaming-DIA kernel on levels 1-4 on level 1; launch counts
-   zeroed before `pcg` and read after must equal 1 + 13 per iteration
-   (coded: the initial residual, the outer A p, and per V-cycle 2 on level
-   0 and 2 with S on each of the 5 levels) and 8 per iteration (stream: 2
-   on each of levels 1-4); the same iterations as the plain versions,
-   error within 1.1x of theirs;
-4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card: the
-   iterations of the port's sequential backend and of the plain versions,
-   coded and stream launch counts > 0, the coded kernel torch.equal to its
+4. stacked parts: the (2,2,2)-part 48^3 float64 driver on the one card, on
+   the box exchange plan, with the launch counts zeroed just before and
+   read just after (both must be > 0), must take the iterations of the
+   port's sequential backend, error < 1e-5; both kernels are then held
+   torch.equal against their plain versions on that path's float64
+   operand with (8, W) frames, and the same solve through the plain
+   versions and on the generic exchange plan must take the same
+   iterations; the box and the generic plan's ``set`` and ``add``
+   exchanges are timed (and agree: set exactly per lid, add to rounding),
+   and fused CG seconds per iteration are read on both plans;
+4b. GMG-PCG at 192^3 f32 on the stencil route (phase 2b's hierarchy, set
+   up as tools/bench_gmg.py does: assemble, scale by 1/16 in f32,
+   b = A x̂, decouple_dirichlet, gmg_hierarchy with coarse_threshold=500):
+   5 levels, every one on the stencil route; launch counts zeroed before
+   `pcg` and read after must equal 1 + 3 per iteration (coded: the initial
+   residual, the outer A p and 2 on level 0 per V-cycle; no K1 on any S),
+   8 per iteration (stream: 2 on each of levels 1-4) and 10 per iteration
+   (the stencil kernel: 2 on each level); the same iterations as the plain
+   versions, error within 1.1x of theirs; the streaming-DIA kernel held on
+   level 1;
+4b'. the same solve on the structured route (``stencil=False``): its
+   staging seconds (S assembled and lowered on every level), the coded-DIA
+   SpMV torch.equal to its plain version on every coded operator (level
+   0's A and the stencils S of all 5 levels, select-chain decode), launch
+   counts 1 + 13 per iteration coded (2 with S on each level) and 8 per
+   iteration stream; the stencil route must take its iterations (7) and
+   reach an error within 1.1x of its;
+4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card (phase
+   2b's hierarchy): the iterations of the port's sequential backend, of the
+   plain versions and of the generic routes (``box=False``), coded, stream
+   and stencil launch counts > 0, the coded kernel torch.equal to its
    plain version on level 0's A and S, the stream kernel on level 1;
+   seconds per iteration on both routes;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
    torch.sparse.mm on the CSR operator, the bound (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32) and each kernel's share of its bound,
-   for the four kernels; CG, pipelined CG and GMG-PCG seconds per
-   iteration from two fixed-trip solves each, and torch.profiler
-   breakdowns of a fixed-trip CG and GMG-PCG iteration by kernel (wall
-   times include the profiler's own cost); an empty kernel's µs on the
-   same timer (the launch floor), and one line per coded GMG operator at
-   192^3: its shape and band-sum instance, launches per solve, the coded
-   kernel's flushed, warm-L2 and back-to-back µs, its plain version's and
-   torch.sparse.mm's µs, the empty kernel launched as the coded kernel is,
-   and the bound rows x (2 x 4 B + code bytes) over 3.35 TB/s;
+   for the four DIA kernels; CG, pipelined CG and GMG-PCG (both routes)
+   seconds per iteration from two fixed-trip solves each, and
+   torch.profiler breakdowns of a fixed-trip CG and GMG-PCG iteration (both
+   routes) by kernel (wall times include the profiler's own cost); an
+   empty kernel's µs on the same timer (the launch floor), one line per
+   coded GMG operator at 192^3 (the structured route's): its shape and
+   band-sum instance, launches per solve, the coded kernel's flushed,
+   warm-L2 and back-to-back µs, its plain version's and torch.sparse.mm's
+   µs, the empty kernel launched as the coded kernel is, and the bound
+   rows x (2 x 4 B + code bytes) over 3.35 TB/s; and one line per stencil
+   level at 192^3: the stencil kernel's µs, its plain version's, conv3d
+   of the extended box with the fixed 3x3x3 weight (cuDNN, TF32 off), and
+   the bound (the owned box read and the result written);
 6. the launch counts of phases 3, 3b and 4b.
 
 It then prints the kernel table, the nvidia-smi line and, last,
@@ -98,7 +121,10 @@ from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix  # noqa: E402
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg  # noqa: E402
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (  # noqa: E402
     GPUBackend,
+    device_exchange_plan,
+    device_layout,
     device_matrix,
+    exchange_,
     gpu_cg,
     make_cg_fn,
     _b_on_cols_layout,
@@ -116,19 +142,27 @@ SEED = 0
 
 N_GMG_MULTI = 48
 GMG_LEVELS = 5  # 192, 96, 48, 24, 12 over a 6^3 coarse grid
+GMG_ITERATIONS = 7  # 192^3 f32 GMG-PCG to TOL_MAIN on either route
 
-KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv")
+GMG_TRIPS = (4, 24)  # fixed trips of the GMG-PCG seconds per iteration (2 and 12 drowned in host jitter)
+
+KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
+           "box_stencil_apply")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_stream_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_stream.cu",
+    "box_stencil_apply": "partitionedarrays_jl_tpu_torch/csrc/box_stencil.cu",
 }
+#: the TPU kernel each replaces; box_stencil_apply has none: it stands for
+#: the XLA fusion of the JAX package's `_stencil_apply`
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
     "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu/ops/pallas_dia.py:535",
     "dia_stream_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:110",
+    "box_stencil_apply": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:292",
 }
 
 
@@ -310,6 +344,61 @@ def phase_kernels(backend, n, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b
+# ---------------------------------------------------------------------------
+
+
+def _stencil_check(lv, rng, name):
+    """The box stencil kernel torch.equal to its plain version on a stencil
+    level: a random frame, its ghost segments refreshed by the level's box
+    exchange."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+
+    op = lv["stencil"]
+    x = torch.from_numpy(rng.standard_normal((op.table.shape[0], op.W))).to(op.table.device, lv["dinv"].dtype)
+    exchange_(lv["dA"].col_plan, x)
+    return _compare(f"box_stencil_apply {name}", stn.box_stencil_apply(op, x), stn.box_stencil_apply_plain(op, x))
+
+
+def stage_routes(h, backend):
+    """Stage a hierarchy on the default routes: the level operators first,
+    then the transfers; seconds of each (the structured route's staging is
+    timed in phase 4b', on the operators this one cached)."""
+    t = time.perf_counter()
+    for lvl in h.levels:
+        device_matrix(lvl.A, backend)
+    sync()
+    operators_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dh = gpu_gmg.device_hierarchy(h, backend)
+    sync()
+    return dh, {"operators_s": operators_s, "default_transfers_s": time.perf_counter() - t}
+
+
+def phase_stencil_kernels(backend, rng):
+    """The two GMG hierarchies of the run, staged on the default routes, and
+    the box stencil kernel held on every stencil level of both."""
+    runs = {
+        "main": prun(gmg_driver, backend, (1, 1, 1), N_MAIN, True),
+        "multi": prun(gmg_driver, backend, (2, 2, 2), N_GMG_MULTI, False),
+    }
+    errs, line = {}, {"phase": "stencil_kernel_vs_plain"}
+    for key, run in runs.items():
+        run["dh"], run["staging_s"] = stage_routes(run["h"], backend)
+        routes = [gpu_gmg.route(lv) for lv in run["dh"]["levels"]]
+        for li, lv in enumerate(run["dh"]["levels"]):
+            if routes[li] == "stencil":
+                errs[f"{key} S{li}"] = _stencil_check(lv, rng, f"{key} level {li}")
+        line[key] = {"routes": routes, "grids": [lvl.nfs for lvl in run["h"].levels],
+                     "dtype": str(run["dh"]["levels"][0]["dinv"].dtype), **run["staging_s"]}
+    emit({**line, "equal": True, "max_abs_err": errs})
+    require(line["main"]["routes"] == ["stencil"] * GMG_LEVELS,
+            f"192^3 GMG routes {line['main']['routes']}, expected the stencil route on all {GMG_LEVELS} levels")
+    require(any(r == "stencil" for r in line["multi"]["routes"]), "48^3 stacked GMG: no level on the stencil route")
+    return runs, max(errs.values())
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -401,10 +490,45 @@ def phase_pipelined(run):
 # ---------------------------------------------------------------------------
 
 
+def exchange_times(rows, backend, rng):
+    """The box and the generic plan's set and add exchanges over one range:
+    results compared (set per lid exactly, add to rounding) and each timed
+    on a random frame (µs)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    vals = [rng.standard_normal(i.num_lids) for i in rows.partition.part_values()]
+    out = {}
+    for combine in ("set", "add"):
+        rev = combine == "add"
+        res = {}
+        for box in (True, False):
+            plan = device_exchange_plan(rows, backend, reverse=rev, box=box)
+            require(isinstance(plan, BoxExchangePlan) == box, f"stacked parts: box={box} gave {type(plan).__name__}")
+            dv = DeviceVector.from_pvector(
+                PVector(rows.partition._like([v.copy() for v in vals]), rows), backend, device_layout(rows, box))
+            exchange_(plan, dv.data, combine)
+            res[box] = [np.asarray(v) for v in dv.to_pvector().values.part_values()]
+            frame = torch.from_numpy(rng.standard_normal(tuple(dv.data.shape))).to(dv.data.device)
+            out[f"{combine}_{'box' if box else 'generic'}_us"] = time_ms(
+                lambda: exchange_(plan, frame, combine), flush) * 1e3
+            out[f"{'box' if box else 'generic'}_rounds"] = plan.R
+        for a, b in zip(res[True], res[False]):
+            if rev:
+                require(np.allclose(a, b, rtol=1e-14, atol=1e-14), "stacked parts: box and generic add differ")
+            else:
+                require(np.array_equal(a, b), "stacked parts: box and generic set differ")
+    return out
+
+
 def phase_multi(backend, n, rng):
-    """The stacked-parts path: its own launch counts, both kernels held
-    against their plain versions on its float64 operand and (P, W) frames,
-    and the same solve through the plain versions."""
+    """The stacked-parts path on the box plan: its own launch counts, both
+    kernels held against their plain versions on its float64 operand and
+    (P, W) frames, the same solve through the plain versions and on the
+    generic plan, both plans' exchange times and CG seconds per
+    iteration."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
     dia.reset_launches()
     err_g, info_g = prun(poisson_fdm_driver, backend, (2, 2, 2), (n, n, n), tol=1e-8)
     launches = dict(dia.LAUNCHES)
@@ -415,6 +539,7 @@ def phase_multi(backend, n, rng):
 
     A, b, _, x0 = prun(lambda parts: assemble_poisson(parts, (n, n, n)), backend, (2, 2, 2))
     dA = device_matrix(A, backend)
+    require(isinstance(dA.col_plan, BoxExchangePlan), "stacked parts: the path is not on the box exchange plan")
     op = dA.coded
     P, wx, wy = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
     require(op.cb.dtype == torch.float64, f"stacked parts: operator staged as {op.cb.dtype}")
@@ -434,15 +559,26 @@ def phase_multi(backend, n, rng):
         "dia_coded_spmv_pfold[p]": _compare("stacked parts dia_coded_spmv_pfold p", pk, pp),
     }
     _, info_p = gpu_cg(A, b, x0=x0, tol=1e-8, maxiter=2000, plain=True)
+    _, info_gen = gpu_cg(A, b, x0=x0, tol=1e-8, maxiter=2000, box=False)
+    ex = exchange_times(A.cols, backend, rng)
+    cg_s = {}
+    for box in (True, False):
+        dAb = device_matrix(A, backend, box)
+        bb = _b_on_cols_layout(b, dAb)
+        xb = DeviceVector.from_pvector(x0, backend, dAb.col_layout).data
+        cg_s["box" if box else "generic"], _ = fixed_trip_s_per_iter(
+            lambda m: make_cg_fn(dAb, 0.0, m), bb, xb, 20, 220)
     emit({
         "phase": "stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
         "decode": "row_class" if dA.dia_cls_pattern is not None else "select_chain",
         "iterations": info_g["iterations"], "sequential_iterations": info_s["iterations"],
-        "plain_iterations": info_p["iterations"], "err": err_g, "sequential_err": err_s,
-        "cg_body": info_g["cg_body"], "equal": True, "max_abs_err": errs,
+        "plain_iterations": info_p["iterations"], "generic_plan_iterations": info_gen["iterations"],
+        "err": err_g, "sequential_err": err_s, "cg_body": info_g["cg_body"], "equal": True,
+        "max_abs_err": errs, "exchange": ex, "cg_s_per_iter": cg_s,
     })
     require(info_g["iterations"] == info_s["iterations"], "stacked parts: iterations differ from the sequential backend")
     require(info_g["iterations"] == info_p["iterations"], "stacked parts: iterations differ from the plain path")
+    require(info_g["iterations"] == info_gen["iterations"], "stacked parts: iterations differ on the generic plan")
     require(err_g < 1e-5, f"stacked parts: error {err_g} >= 1e-5")
 
 
@@ -484,11 +620,11 @@ def _stream_check(dh, level, rng):
 def gmg_coded_operators(dh):
     """The coded operators of a device hierarchy, finest first, by name:
     ``A<l>`` a level's operator (level 0's only, the others stream) and
-    ``S<l>`` its interpolation stencil."""
+    ``S<l>`` its interpolation stencil (levels on a structured route)."""
     out = []
     for l, lv in enumerate(dh["levels"]):
         for kind in ("A", "S"):
-            if lv[f"d{kind}"].dia_mode == "coded":
+            if f"d{kind}" in lv and lv[f"d{kind}"].dia_mode == "coded":
                 out.append((f"{kind}{l}", lv[f"d{kind}"]))
     return out
 
@@ -510,20 +646,15 @@ def _k1_on_gmg_operators(dh, tag, rng, names=None):
     return errs
 
 
-def phase_gmg(backend, n, rng):
-    """GMG-PCG at 192^3 f32 through `pcg(Ah, bh, minv=h)`, its own launch
-    counts, K1 on every coded operator and the stream kernel on level 1
-    against their plain versions, the plain path."""
-    run = prun(gmg_driver, backend, (1, 1, 1), n, True)
-    h = run["h"]
-    t = time.perf_counter()
-    dh = gpu_gmg.device_hierarchy(h, backend)
-    sync()
-    lowering_s = time.perf_counter() - t
+def phase_gmg(backend, run, rng):
+    """GMG-PCG at 192^3 f32 through `pcg(Ah, bh, minv=h)` on the default
+    (stencil) route, phase 2b's hierarchy: its own launch counts by
+    formula, the stream kernel on level 1 against its plain version, the
+    plain path."""
+    h, dh = run["h"], run["dh"]
     L = len(h.levels)
-    modes = [(l["dA"].dia_mode, l["dS"].dia_mode) for l in dh["levels"]]
-    err_k1 = _k1_on_gmg_operators(dh, f"GMG {n}^3 f32", rng)
-    require(sorted(err_k1) == ["A0"] + [f"S{l}" for l in range(L)], f"GMG coded operators {sorted(err_k1)}")
+    routes = [gpu_gmg.route(lv) for lv in dh["levels"]]
+    modes = [lv["dA"].dia_mode for lv in dh["levels"]]
     err_k4, x1 = _stream_check(dh, 1, rng)
     dia.reset_launches()
     t = time.perf_counter()
@@ -535,66 +666,122 @@ def phase_gmg(backend, n, rng):
     xp, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=TOL_MAIN, plain=True)
     err_p = _rel_err(xp, run["xe"])
     it = info["iterations"]
-    n_stream = sum(1 for m, _ in modes if m == "stream")
-    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream) + 2 * L), "dia_stream_spmv": it * 2 * n_stream}
+    n_stream = modes.count("stream")
+    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream)), "dia_stream_spmv": it * 2 * n_stream,
+            "box_stencil_apply": it * 2 * L}
     emit({
-        "phase": "gmg_pcg", "n": n, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
-        "levels": L, "grids": [l.nfs[0] for l in h.levels], "coarse_size": h.coarse_A.rows.ngids,
-        "dia_modes": [m for m, _ in modes], "s_modes": [m for _, m in modes],
-        "assembly_s": run["assembly_s"], "hierarchy_s": run["hierarchy_s"], "lowering_s": lowering_s,
-        "solve_s": solve_s, "iterations": it, "converged": info["converged"], "rel_err": err,
-        "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
+        "phase": "gmg_pcg", "route": "stencil", "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
+        "levels": L, "grids": [lvl.nfs[0] for lvl in h.levels], "coarse_size": h.coarse_A.rows.ngids,
+        "routes": routes, "dia_modes": modes, "assembly_s": run["assembly_s"], "hierarchy_s": run["hierarchy_s"],
+        "staging_s": run["staging_s"], "solve_s": solve_s, "iterations": it, "converged": info["converged"],
+        "rel_err": err, "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
         "kernels": launches, "expected_launches": want, "stream_vs_plain_level1_max_abs_err": err_k4,
-        "coded_vs_plain_max_abs_err": err_k1,
     })
     require(L == GMG_LEVELS and h.coarse_A.rows.ngids == 216, f"GMG: {L} levels over {h.coarse_A.rows.ngids} coarse points, expected 5 over 216")
-    require(modes[0][0] == "coded" and n_stream == L - 1, f"GMG: level modes {modes}")
+    require(modes[0] == "coded" and n_stream == L - 1, f"GMG: level modes {modes}")
     require(info["converged"] and np.isfinite(err), "the 192^3 GMG-PCG solve did not converge")
     require(it == info_p["iterations"], "GMG: kernel and plain paths took different iterations")
     require(err <= 1.1 * err_p, "GMG: kernel path error above 1.1x the plain path's")
-    for k in ("dia_coded_spmv", "dia_stream_spmv"):
+    for k in want:
         require(launches[k] == want[k], f"GMG: {launches[k]} {k} launches, expected {want[k]}")
-    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "err_k1": err_k1,
-            "iterations": it}
+    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "iterations": it, "err": err}
 
 
-def phase_gmg_multi(backend, n, rng):
-    """Stacked-parts GMG-PCG in f64: card, sequential backend and plain
-    versions take the same iterations; the stream kernel equals its plain
-    version on level 1's (8, W) frames."""
+def phase_gmg_structured(backend, g, rng):
+    """The same GMG-PCG on the structured route (``stencil=False``): its
+    staging seconds, K1 on every coded operator against its plain version,
+    its launch counts by formula; the stencil route's iterations and error
+    held against it."""
+    run = g["run"]
+    h = run["h"]
+    L = len(h.levels)
+    t = time.perf_counter()
+    dhs = gpu_gmg.device_hierarchy(h, backend, stencil=False)
+    sync()
+    staging_s = time.perf_counter() - t
+    routes = [gpu_gmg.route(lv) for lv in dhs["levels"]]
+    err_k1 = _k1_on_gmg_operators(dhs, f"GMG {N_MAIN}^3 f32 structured", rng)
+    require(sorted(err_k1) == ["A0"] + [f"S{l}" for l in range(L)], f"GMG coded operators {sorted(err_k1)}")
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = pcg(run["Ah"], run["bh"], minv=h, tol=TOL_MAIN, stencil=False)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    err = _rel_err(x, run["xe"])
+    it = info["iterations"]
+    n_stream = sum(1 for lv in dhs["levels"] if lv["dA"].dia_mode == "stream")
+    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream) + 2 * L), "dia_stream_spmv": it * 2 * n_stream,
+            "box_stencil_apply": 0}
+    emit({
+        "phase": "gmg_pcg_structured", "n": N_MAIN, "dtype": "float32", "routes": routes,
+        "s_modes": [lv["dS"].dia_mode for lv in dhs["levels"]], "staging_s": staging_s, "solve_s": solve_s,
+        "iterations": it, "converged": info["converged"], "rel_err": err, "stencil_route_iterations": g["iterations"],
+        "stencil_route_rel_err": g["err"], "kernels": launches, "expected_launches": want,
+        "coded_vs_plain_max_abs_err": err_k1,
+    })
+    # one part: every coarse point is its own part's even fine point, so the
+    # structured route embeds through strided views (emb_fast)
+    require(routes == ["emb_fast"] * L, f"GMG structured routes {routes}")
+    require(info["converged"], "the 192^3 structured-route GMG-PCG did not converge")
+    require(g["iterations"] == it == GMG_ITERATIONS,
+            f"GMG: stencil route {g['iterations']}, structured {it} iterations, expected {GMG_ITERATIONS}")
+    require(g["err"] <= 1.1 * err, "GMG: stencil route error above 1.1x the structured route's")
+    for k in want:
+        require(launches[k] == want[k], f"GMG structured: {launches[k]} {k} launches, expected {want[k]}")
+    return {"dh": dhs, "err_k1": err_k1, "iterations": it}
+
+
+def phase_gmg_multi(backend, run, rng):
+    """Stacked-parts GMG-PCG in f64 on phase 2b's hierarchy: card (default
+    routes), sequential backend, plain versions and the generic routes
+    (``box=False``) take the same iterations; K1 on level 0's A and S and
+    the stream kernel on level 1 against their plain versions; seconds per
+    iteration on both routes."""
+    n = N_GMG_MULTI
+    h = run["h"]
+    dia.reset_launches()
+    x, info = pcg(run["Ah"], run["bh"], minv=h, tol=1e-8)
+    launches = dict(dia.LAUNCHES)
+    err = _rel_err(x, run["xe"])
 
     def driver(parts):
-        run = gmg_driver(parts, n, False)
-        x, info = pcg(run["Ah"], run["bh"], minv=run["h"], tol=1e-8)
-        run.update(info=info, err=_rel_err(x, run["xe"]))
-        return run
+        r = gmg_driver(parts, n, False)
+        xs, info_s = pcg(r["Ah"], r["bh"], minv=r["h"], tol=1e-8)
+        return info_s, _rel_err(xs, r["xe"])
 
-    dia.reset_launches()
-    run = prun(driver, backend, (2, 2, 2))
-    launches = dict(dia.LAUNCHES)
-    run_s = prun(driver, sequential, (2, 2, 2))
-    dh = gpu_gmg.device_hierarchy(run["h"], backend)
+    info_s, err_s = prun(driver, sequential, (2, 2, 2))
+    dh = run["dh"]
     err_k4, _ = _stream_check(dh, 1, rng)
     err_k1 = _k1_on_gmg_operators(dh, f"stacked-parts GMG {n}^3 f64", rng, ("A0", "S0"))
     require(sorted(err_k1) == ["A0", "S0"], f"stacked-parts GMG: coded operators {sorted(err_k1)}")
-    _, info_p = gpu_gmg.gpu_gmg_pcg(run["h"], run["bh"], tol=1e-8, plain=True)
-    it = run["info"]["iterations"]
+    _, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, plain=True)
+    _, info_gen = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, box=False)
+    it = info["iterations"]
+    s_per_iter = {}
+    for name, kw in (("default", {}), ("generic", {"box": False})):
+        dA0 = device_matrix(run["Ah"], backend, kw.get("box", True))
+        b = _b_on_cols_layout(run["bh"], dA0)
+        s_per_iter[name], _ = fixed_trip_s_per_iter(
+            lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m, **kw), b, torch.zeros_like(b), *GMG_TRIPS)
     emit({
         "phase": "gmg_pcg_stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
-        "levels": len(run["h"].levels), "iterations": it,
-        "sequential_iterations": run_s["info"]["iterations"], "plain_iterations": info_p["iterations"],
-        "rel_err": run["err"], "sequential_rel_err": run_s["err"], "kernels": launches,
+        "levels": len(h.levels), "routes": [gpu_gmg.route(lv) for lv in dh["levels"]],
+        "generic_routes": [gpu_gmg.route(lv) for lv in gpu_gmg.device_hierarchy(h, backend, box=False)["levels"]],
+        "iterations": it, "sequential_iterations": info_s["iterations"], "plain_iterations": info_p["iterations"],
+        "generic_iterations": info_gen["iterations"], "rel_err": err, "sequential_rel_err": err_s,
+        "kernels": launches, "s_per_iter": s_per_iter, "fixed_trips": GMG_TRIPS,
         "stream_vs_plain_level1_max_abs_err": err_k4, "coded_vs_plain_max_abs_err": err_k1,
         "coded_operators": {name: operator_info(dM.coded) for name, dM in gmg_coded_operators(dh)},
     })
-    require(run["info"]["converged"], "stacked-parts GMG-PCG did not converge")
-    # with it, the kernels line's max_abs_err of K1 covers these operators
-    err_k4 = {"stream": err_k4, "coded": max(err_k1.values())}
-    require(it == run_s["info"]["iterations"], "stacked-parts GMG: iterations differ from the sequential backend")
+    require(info["converged"], "stacked-parts GMG-PCG did not converge")
+    require(it == info_s["iterations"], "stacked-parts GMG: iterations differ from the sequential backend")
     require(it == info_p["iterations"], "stacked-parts GMG: iterations differ from the plain path")
-    for k in ("dia_coded_spmv", "dia_stream_spmv"):
+    require(it == info_gen["iterations"], "stacked-parts GMG: iterations differ on the generic routes")
+    for k in ("dia_coded_spmv", "dia_stream_spmv", "box_stencil_apply"):
         require(launches[k] > 0, f"stacked-parts GMG launched {k} no time")
-    return err_k4
+    # with it, the kernels line's max_abs_err of K1 covers these operators
+    return {"stream": err_k4, "coded": max(err_k1.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -799,9 +986,70 @@ def coded_operator_times(dh, iterations, flush, rng):
     return out
 
 
-def phase_gmg_times(backend, g):
-    """The stream kernel on GMG level 1 of 192^3, and GMG-PCG seconds per
-    iteration, solve seconds and a profile of one iteration."""
+def stencil_level_times(dh, iterations, flush, rng):
+    """One line per stencil level of a device hierarchy: the box stencil
+    kernel's flushed and back-to-back µs, its plain version's, conv3d of
+    the extended box with the fixed 3x3x3 weight (one part only; cuDNN
+    with TF32 off, so it computes the same function in f32), launches per
+    solve, and the bound: the owned boxes and ghost segments read and the
+    result written, bytes over 3.35 TB/s, 2 x 3^d - 2 operations a point
+    over 67 TFLOP/s. Returns the lines."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+
+    out = []
+    for li, lv in enumerate(dh["levels"]):
+        if gpu_gmg.route(lv) != "stencil":
+            continue
+        op = lv["stencil"]
+        P = op.table.shape[0]
+        dt = lv["dinv"].dtype
+        x = torch.from_numpy(rng.standard_normal((P, op.W))).to(op.table.device, dt)
+        exchange_(lv["dA"].col_plan, x)
+        k = lambda: stn.box_stencil_apply(op, x)  # noqa: E731
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            k()
+        b.record()
+        sync()
+        rows = int(op.table[:, 3].sum())
+        item = x.element_size()
+        nh = dh["levels"][li]["dA"].col_layout.box_info.nh_total
+        line = {
+            "phase": "box_stencil_level", "level": li, "grid": [int(v) for v in op.table[0, :3]], "parts": P,
+            "rows": rows, "dtype": str(dt), "launches_per_solve": 2 * iterations,
+            "us": time_ms(k, flush) * 1e3, "loop_us": a.elapsed_time(b) * 1e3 / 20,
+            "plain_us": time_ms(lambda: stn.box_stencil_apply_plain(op, x), flush) * 1e3,
+        }
+        bound_ms, line["bound_by"] = _bound_ms(item * (rows + P * nh + P * op.n), (2 * 3 ** op.dim - 2) * rows)
+        line["bound_us"] = bound_ms * 1e3
+        line["share_of_bound"] = line["bound_us"] / line["us"]
+        if P == 1:
+            fb = tuple(int(v) for v in op.table[0, 3 - op.dim : 3])
+            ext = torch.zeros((1, 1) + tuple(f + 2 for f in fb), dtype=dt, device=x.device)
+            ext[(0, 0) + tuple(slice(1, 1 + f) for f in fb)] = x[0, op.o0 : op.o0 + rows].view(fb)
+            w = torch.tensor([0.5 ** sum(1 for c in d if c != 1) for d in np.ndindex(3, 3, 3)], dtype=dt,
+                             device=x.device).view(1, 1, 3, 3, 3)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                line["library_us"] = time_ms(lambda: torch.nn.functional.conv3d(ext, w), flush) * 1e3
+                conv = torch.nn.functional.conv3d(ext, w).reshape(-1)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            line["library_max_abs_diff"] = float((conv - k()[0, :rows]).abs().max())
+            del ext, conv
+        emit(line)
+        out.append(line)
+    return out
+
+
+def phase_gmg_times(backend, g, gs):
+    """The stream kernel on GMG level 1 of 192^3; GMG-PCG seconds per
+    iteration, solve seconds and a profile of one iteration on both routes
+    (stencil, structured); the empty kernel's µs; one line per coded
+    operator of the structured route and per stencil level. Returns the
+    stream kernel's and the stencil kernel's (level 0) numbers."""
     dev = backend.device
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     dA1 = g["dh"]["levels"][1]["dA"]
@@ -821,30 +1069,34 @@ def phase_gmg_times(backend, g):
     # the dense values (every diagonal, every row), x and y, in f32
     stream["bound_ms"], stream["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
     stream["share_of_bound"] = stream["bound_ms"] / stream["ms"]
+    del csr
 
     h, Ah, bh = g["run"]["h"], g["run"]["Ah"], g["run"]["bh"]
-    dA0 = device_matrix(Ah, backend)
-    b = _b_on_cols_layout(bh, dA0)
+    b = _b_on_cols_layout(bh, device_matrix(Ah, backend))
     x0 = torch.zeros_like(b)
-    s_per_iter, per = fixed_trip_s_per_iter(
-        lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), b, x0, 2, 12
-    )
-    fn = gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, 4 * Ah.rows.ngids)
-    fn(b, x0)
-    sync()
-    t = time.perf_counter()
-    out = fn(b, x0)
-    sync()
-    solve_s = time.perf_counter() - t
-    emit({
-        "phase": "gmg_times", "n": N_MAIN, "dtype": "float32", "reps": REPS,
-        "dia_stream_spmv_level1": stream, "gmg_pcg_s_per_iter": s_per_iter,
-        "gmg_pcg_fixed_trip_s": per, "gmg_pcg_solve_s": solve_s, "gmg_pcg_iterations": out[3],
-    })
-    phase_profile("gmg_pcg_profile", gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, x0, 5)
+    line = {"phase": "gmg_times", "n": N_MAIN, "dtype": "float32", "reps": REPS, "fixed_trips": GMG_TRIPS,
+            "dia_stream_spmv_level1": stream}
+    for route, kw in (("stencil", {}), ("structured", {"stencil": False})):
+        s_per_iter, per = fixed_trip_s_per_iter(
+            lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m, **kw), b, x0, *GMG_TRIPS)
+        fn = gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, 4 * Ah.rows.ngids, **kw)
+        fn(b, x0)
+        sync()
+        t = time.perf_counter()
+        out = fn(b, x0)
+        sync()
+        line[route] = {"s_per_iter": s_per_iter, "fixed_trip_s": per, "solve_s": time.perf_counter() - t,
+                       "iterations": out[3]}
+    emit(line)
+    for route, kw in (("stencil", {}), ("structured", {"stencil": False})):
+        phase_profile(f"gmg_pcg_profile_{route}", gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5, **kw), b, x0, 5)
     emit({"phase": "null_launch", "us": null_launch_us(flush)})
-    coded_operator_times(g["dh"], g["iterations"], flush, np.random.default_rng(SEED))
-    return stream
+    coded_operator_times(gs["dh"], gs["iterations"], flush, np.random.default_rng(SEED))
+    levels = stencil_level_times(g["dh"], g["iterations"], flush, np.random.default_rng(SEED))
+    s0 = levels[0]
+    stencil = {"ms": s0["us"] / 1e3, "plain_ms": s0["plain_us"] / 1e3, "bound_ms": s0["bound_us"] / 1e3,
+               "bound_by": s0["bound_by"], "library_ms": s0["library_us"] / 1e3}
+    return stream, stencil
 
 
 def phase_profile(name, fn, b, x0, iters):
@@ -887,22 +1139,26 @@ def main() -> int:
     backend = GPUBackend()
     rng = np.random.default_rng(SEED)
     kern = phase_kernels(backend, N_MAIN, rng)
+    gruns, err_stencil = phase_stencil_kernels(backend, rng)
     run, launches = phase_main(backend, N_MAIN)
     launches["dia_coded_spmv_axpy"] = phase_pipelined(run)["dia_coded_spmv_axpy"]
     phase_multi(backend, N_MULTI, rng)
-    gmg = phase_gmg(backend, N_MAIN, rng)
+    gmg = phase_gmg(backend, gruns["main"], rng)
+    gmg_s = phase_gmg_structured(backend, gmg, rng)
     launches["dia_stream_spmv"] = gmg["launches"]["dia_stream_spmv"]
-    err_multi = phase_gmg_multi(backend, N_GMG_MULTI, rng)
+    launches["box_stencil_apply"] = gmg["launches"]["box_stencil_apply"]
+    err_multi = phase_gmg_multi(backend, gruns["multi"], rng)
     times = phase_times(backend, kern, run, N_MAIN)
-    times["dia_stream_spmv"] = phase_gmg_times(backend, gmg)
+    times["dia_stream_spmv"], times["box_stencil_apply"] = phase_gmg_times(backend, gmg, gmg_s)
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
         name: max(v for key, v in errs.items() if key.startswith(name + "["))
         for name in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy")
     }
-    max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg["err_k1"].values(), err_multi["coded"])
+    max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg_s["err_k1"].values(), err_multi["coded"])
     max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"])
+    max_err["box_stencil_apply"] = err_stencil
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

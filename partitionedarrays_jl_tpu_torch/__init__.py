@@ -3,8 +3,10 @@ partitionedarrays_jl_tpu.
 
 Partitioned vectors and sparse matrices planned on the host, with the hot
 path on one NVIDIA card: the 3-D Poisson CG solve (fused or pipelined) and
-the multigrid-preconditioned CG, whose banded SpMVs run as hand-written
-CUDA kernels (`ops/dia.py`, `csrc/dia_coded.cu`, `csrc/dia_stream.cu`). Usage
+the multigrid-preconditioned CG, whose banded SpMVs and matrix-free
+interpolation stencil run as hand-written CUDA kernels (`ops/dia.py`,
+`ops/stencil.py`, `csrc/*.cu`), with the box halo exchange on Cartesian
+partitions (`parallel/gpu_box.py`). Usage
 mirrors the JAX package: ``prun(driver, gpu, (1, 1, 1))``; pass
 ``GPUBackend(device="cpu")`` to run on the CPU with the kernels' plain
 PyTorch versions.

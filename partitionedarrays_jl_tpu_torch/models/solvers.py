@@ -67,20 +67,22 @@ def cg(
     verbose: bool = False,
     pipelined: bool = False,
     fused: Optional[bool] = None,
+    box: bool = True,
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
     fused body by default, the lag-1 body with ``pipelined``, the textbook
-    body with ``fused=False``; fused and pipelined together raise); any
+    body with ``fused=False``; fused and pipelined together raise; the box
+    exchange plan on a Cartesian partition unless ``box=False``); any
     other backend runs the host loop below, whose value sequence every
-    device body follows (both flags are host no-ops)."""
+    device body follows (the three flags are host no-ops)."""
     from ..parallel.gpu import GPUBackend, gpu_cg
 
     check(b is not None, "cg: a right-hand side b is required")
     if isinstance(b.values.backend, GPUBackend):
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-            pipelined=pipelined,
+            pipelined=pipelined, box=box,
         )
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
@@ -253,12 +255,15 @@ def pcg(
     tol: float = 1e-8,
     maxiter: Optional[int] = None,
     verbose: bool = False,
+    box: bool = True,
+    stencil: bool = True,
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
     ``minv(r) -> z``, such as a `GMGHierarchy` (one V-cycle). On the GPU
     backend a `GMGHierarchy` built on this `A` runs as the device
-    GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532); a diagonal ``minv``
+    GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532) on the routes ``box``
+    and ``stencil`` select (`parallel/gpu_gmg.py`); a diagonal ``minv``
     (Jacobi PCG) is not ported yet (ROADMAP Queue D item 5). Any other
     callable, and every preconditioner on the host backend, runs the host
     loop below, which the device loop follows step for step."""
@@ -273,7 +278,8 @@ def pcg(
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
             check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
-            return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
+            return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose,
+                               box=box, stencil=stencil)
         if not callable(minv):
             raise NotImplementedError(
                 "pcg: Jacobi PCG (a diagonal minv) on the GPU backend is not ported "

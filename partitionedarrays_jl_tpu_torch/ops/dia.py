@@ -30,8 +30,9 @@ the coded kernel stages its operand in shared-memory windows laid out by
 `plan_coded_windows`, the streaming kernel takes one thread per row.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
-the kernel or raises. Each kernel counts its launches in `LAUNCHES`.
-Each `csrc/*.cu` is built with nvcc at first use into
+the kernel or raises. Each kernel of the port (these and the multigrid
+stencil of `ops/stencil.py`) counts its launches in `LAUNCHES`. Each
+`csrc/*.cu` is built with nvcc at first use into
 ``build/pa_torch_kernels/`` (all sources at once, one nvcc each) and bound
 with ctypes.
 """
@@ -53,7 +54,7 @@ import torch
 #: kernel launches since the last reset, per wrapper
 LAUNCHES = {
     "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0, "dia_coded_spmv_axpy": 0,
-    "dia_stream_spmv": 0,
+    "dia_stream_spmv": 0, "box_stencil_apply": 0,
 }
 
 MAX_DIAGS = 64
@@ -75,8 +76,9 @@ ROWS_PER_THREAD = 4
 THREADS = 256
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: the kernel sources, one shared library each
-SOURCES = ("dia_coded", "dia_stream")
+#: the kernel sources of the port, one shared library each (box_stencil is
+#: the multigrid stencil of ops/stencil.py)
+SOURCES = ("dia_coded", "dia_stream", "box_stencil")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -527,6 +529,21 @@ class _StreamParams(ctypes.Structure):
     ]
 
 
+class _StencilParams(ctypes.Structure):
+    """Mirror of `PaStencilParams` in csrc/box_stencil.cu (the kernel of
+    ops/stencil.py)."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("wx", ctypes.c_longlong),
+        ("n", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("g0", ctypes.c_longlong),
+        ("fmax", ctypes.c_int * 3),
+        ("tz", ctypes.c_int),
+    ]
+
+
 def _bind(lib: ctypes.CDLL, name: str, params, nptr: int) -> None:
     vp = ctypes.c_void_p
     for dt in ("f32", "f64"):
@@ -571,6 +588,7 @@ def build_kernels() -> dict:
     _bind(libs["dia_coded"], "pa_dia_coded_pfold", _Params, 9)
     _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 9)
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
+    _bind(libs["box_stencil"], "pa_box_stencil", _StencilParams, 5)
     libs["dia_coded"].pa_dia_null.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     libs["dia_coded"].pa_dia_null.restype = ctypes.c_int
     _libs = libs

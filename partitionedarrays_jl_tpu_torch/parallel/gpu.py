@@ -7,11 +7,15 @@ Poisson CG and multigrid slices:
   PRange construction, Exchanger build and COO assembly run unchanged; only
   the hot-path arrays live on the card.
 * **Stacked parts.** All P parts sit on one device as ``(P, W)`` tensors in
-  the compact layout ``[owned | ghosts | trash]`` (`DeviceLayout`).
-* **Halo exchange.** The Exchanger is lowered to colour rounds
-  (`DeviceExchangePlan`): per round one gather of the send slots, one copy
-  between parts, one scatter into the ghost slots; the trash slot is zeroed
-  after each round.
+  the compact layout ``[owned | ghosts | trash]`` (`DeviceLayout`); on a
+  Cartesian partition the ghosts are laid out in per-direction segments
+  (the box layout, `gpu_box.py`).
+* **Halo exchange.** On the box layout the Exchanger is lowered to slab
+  moves, one per direction and box shape (`gpu_box.BoxExchangePlan`);
+  otherwise to colour rounds (`DeviceExchangePlan`): per round one gather
+  of the send slots, one copy between parts, one scatter into the ghost
+  slots, the trash slot zeroed after each round. ``box=False`` keeps the
+  generic layout and plan on any partition.
 * **Operator.** `DeviceMatrix` lowers a PSparseMatrix's owned block A_oo
   to the coded-DIA form (codebook + nibble-packed per-row codes) or, for a
   band of variable coefficients, the streaming-DIA form (dense
@@ -104,28 +108,43 @@ class GPUData(SequentialData):
 
 class DeviceLayout:
     """Compact slot layout of every device object over one PRange:
-    ``[owned (padded to no_max) | ghosts (padded to nh_max) | trash]``,
-    ``W = no_max + nh_max + 1``. Padding stays zero by construction; the
+    ``[owned (padded to no_max) | ghosts | trash]`` (tpu.py:260). The
+    generic layout keeps the ghosts in hid order, padded to nh_max; under
+    a box layout (``box_info``, `gpu_box.py`) the ghost region is the
+    per-direction segments, ``nh_total`` slots, and hids reach their
+    slots through ``lid_slots``/``hid_slots`` only (host lid order is
+    untouched). Padding stays zero by construction, except orphan segment
+    slots of a box layout, which hold sender values after a forward
+    exchange and are real only where ``box_info.seg_mask`` is True; the
     trash slot absorbs masked scatter lanes."""
 
     __slots__ = ("P", "W", "no_max", "nh_max", "noids", "nhids", "lid_slots",
-                 "hid_slots", "o0", "g0")
+                 "hid_slots", "o0", "g0", "box_info")
 
-    def __init__(self, rows: PRange):
+    def __init__(self, rows: PRange, box_info=None):
         isets = rows.partition.part_values()
         self.P = len(isets)
         self.noids = np.array([i.num_oids for i in isets], dtype=np.int64)
         self.nhids = np.array([i.num_hids for i in isets], dtype=np.int64)
         self.no_max = int(self.noids.max())
         self.nh_max = int(self.nhids.max()) if self.P else 0
+        self.box_info = box_info
+        # the segment frame can be wider than nh_max (segments of absent
+        # neighbours stay zero)
+        nh_span = box_info.nh_total if box_info is not None else self.nh_max
         self.o0 = 0
         self.g0 = self.no_max
-        self.W = self.no_max + self.nh_max + 1
+        self.W = self.no_max + nh_span + 1
         self.lid_slots = []
         self.hid_slots = []  # ghost slots in hid order
         for p, i in enumerate(isets):
             ohid = np.asarray(i.lid_to_ohid)
-            slots = np.where(ohid >= 0, self.o0 + ohid, self.g0 + (-ohid - 1)).astype(INDEX_DTYPE)
+            if box_info is not None:
+                rel = box_info.ghost_rel_slots[p]
+                gslot = self.g0 + (rel[np.clip(-ohid - 1, 0, rel.size - 1)] if rel.size else np.zeros_like(ohid))
+            else:
+                gslot = self.g0 + (-ohid - 1)
+            slots = np.where(ohid >= 0, self.o0 + ohid, gslot).astype(INDEX_DTYPE)
             self.lid_slots.append(slots)
             h = ohid < 0
             hs = np.empty(int(self.nhids[p]), dtype=INDEX_DTYPE)
@@ -137,12 +156,24 @@ class DeviceLayout:
         return self.W - 1
 
 
-def device_layout(rows: PRange) -> DeviceLayout:
-    """The layout of a PRange, cached on it (invalidated with its
-    exchanger when ghosts are added)."""
-    if getattr(rows, "_device_layout", None) is None:
-        rows._device_layout = DeviceLayout(rows)
-    return rows._device_layout
+def device_layout(rows: PRange, box: bool = True) -> DeviceLayout:
+    """The layout of a PRange, cached on it per ``box`` (invalidated with
+    its exchanger when ghosts are added). With ``box`` (the default, as
+    the JAX package's ``PA_TPU_BOX``) a Cartesian partition whose halo
+    `gpu_box.box_structure` detects gets the box layout; anything else,
+    and ``box=False``, the generic one (tpu.py:1169-1180)."""
+    from .gpu_box import box_structure
+
+    cache = getattr(rows, "_device_layout", None)
+    if cache is None:
+        cache = rows._device_layout = {}
+    if box not in cache:
+        info = box_structure(rows) if box else None
+        if box and info is None:
+            cache[box] = device_layout(rows, False)  # no box structure: the generic layout
+        else:
+            cache[box] = DeviceLayout(rows, box_info=info)
+    return cache[box]
 
 
 def _color_edges(edges):
@@ -217,28 +248,45 @@ class DeviceExchangePlan:
         self.src_of = torch.from_numpy(src_of).to(device)
 
 
-def device_exchange_plan(rows: PRange, backend: GPUBackend, reverse: bool = False) -> DeviceExchangePlan:
-    """The halo plan of a PRange on a backend's device, cached on it;
-    ``reverse`` gives the ghost -> owner assembly plan of
-    ``rows.exchanger.reverse()`` (for combine ``add``)."""
+def device_exchange_plan(rows: PRange, backend: GPUBackend, reverse: bool = False,
+                         box: bool = True):
+    """The halo plan of a PRange on a backend's device, cached on it
+    (tpu.py:1264-1300): the box plan (`gpu_box.BoxExchangePlan`) over a
+    box layout, else the generic colour-round plan. ``reverse`` gives the
+    ghost -> owner assembly plan (for combine ``add``): the box plan's
+    reverse, or the generic plan of ``rows.exchanger.reverse()``."""
+    from .gpu_box import BoxExchangePlan
+
     cache = getattr(rows, "_device_plan", None)
     if cache is None:
         cache = rows._device_plan = {}
-    key = (backend, reverse)
+    layout = device_layout(rows, box)
+    key = (backend, reverse, layout.box_info is not None)
     if key not in cache:
-        ex = rows.exchanger.reverse() if reverse else rows.exchanger
-        cache[key] = DeviceExchangePlan(ex, device_layout(rows), backend.device)
+        if layout.box_info is not None:
+            fwd = (backend, False, True)
+            if fwd not in cache:
+                cache[fwd] = BoxExchangePlan(layout, layout.box_info, backend.device)
+            if reverse:
+                cache[key] = cache[fwd].reverse()
+        else:
+            ex = rows.exchanger.reverse() if reverse else rows.exchanger
+            cache[key] = DeviceExchangePlan(ex, layout, backend.device)
     return cache[key]
 
 
-def exchange_(plan: DeviceExchangePlan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
+def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
     """The plan's exchange on a stacked ``(P, W)`` tensor, in place
     (tpu.py:_shard_exchange): combine ``set`` is the owner -> ghost halo
-    update; ``add`` (over a plan built from ``Exchanger.reverse()``)
-    accumulates ghost contributions into their owners, round by round,
-    and then zeroes the ghost region. The trash slot is zeroed after every
-    round."""
+    update; ``add`` (over a reversed plan) accumulates ghost contributions
+    into their owners and then zeroes the ghost region. A box plan runs
+    `gpu_box.box_exchange_`; the generic plan runs its colour rounds, the
+    trash slot zeroed after every round."""
+    from .gpu_box import BoxExchangePlan, box_exchange_
+
     check(combine in ("set", "add"), "exchange_: combine is 'set' or 'add'")
+    if isinstance(plan, BoxExchangePlan):
+        return box_exchange_(plan, xv, combine)
     trash = plan.layout.trash
     for r in range(plan.R):
         buf = torch.where(plan.snd_mask[r], xv.gather(1, plan.snd_idx[r]), 0)[plan.src_of[r]]
@@ -350,14 +398,17 @@ class DeviceMatrix:
     when every diagonal holds few distinct values, or dense per-diagonal
     values ``(P, D, no_max)`` (``dia_mode == "stream"``, tpu.py:1688-1726
     in its off-TPU form) otherwise; A_oh as compact boundary-row ELL arrays
-    ``(P, nb_max[, L])`` whose columns index the column frame."""
+    ``(P, nb_max[, L])`` whose columns index the column frame through its
+    slot maps (so a box layout's ghost segments need nothing more). With
+    ``box`` (the default) the column range takes the box layout and plan
+    where `gpu_box` detects one (tpu.py:1264-1283)."""
 
     #: most band offsets of the DIA form (tpu.py:DeviceMatrix)
     DIA_MAX_OFFSETS = 64
     #: most distinct values per diagonal (and row classes) of the coded form
     CODE_MAX_VALUES = 8
 
-    def __init__(self, A: PSparseMatrix, backend: GPUBackend):
+    def __init__(self, A: PSparseMatrix, backend: GPUBackend, box: bool = True):
         dev = backend.device
         isets = A.rows.partition.part_values()
         P = len(isets)
@@ -375,10 +426,10 @@ class DeviceMatrix:
             )
         self.rows, self.cols = A.rows, A.cols
         self.backend = backend
-        self.row_layout = device_layout(A.rows)
-        self.col_layout = device_layout(A.cols)
+        self.row_layout = device_layout(A.rows, box)
+        self.col_layout = device_layout(A.cols, box)
         check(self.row_layout.no_max == no_max, "rows layout mismatch")
-        self.col_plan = device_exchange_plan(A.cols, backend)
+        self.col_plan = device_exchange_plan(A.cols, backend, box=box)
         self.flops_per_spmv = 2 * sum(oo[p].nnz + oh[p].nnz for p in range(P))
 
         # A_oh in compact boundary-row form: only rows touching the ghost
@@ -552,11 +603,11 @@ class DeviceMatrix:
         }
 
 
-def device_matrix(A: PSparseMatrix, backend: GPUBackend) -> DeviceMatrix:
-    """The lowering of A for a backend, cached on A."""
-    if backend not in A._device:
-        A._device[backend] = DeviceMatrix(A, backend)
-    return A._device[backend]
+def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True) -> DeviceMatrix:
+    """The lowering of A for a backend, cached on A per ``box``."""
+    if (backend, box) not in A._device:
+        A._device[backend, box] = DeviceMatrix(A, backend, box)
+    return A._device[backend, box]
 
 
 # ---------------------------------------------------------------------------
@@ -740,16 +791,17 @@ def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
 
 
 def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
-                verbose: bool, solve: Callable, name: str, **extra) -> Tuple[PVector, dict]:
+                verbose: bool, solve: Callable, name: str, box: bool = True,
+                **extra) -> Tuple[PVector, dict]:
     """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
-    the matrix's column layout, run ``solve(b, x0) -> (x, rs, rs0, it,
-    history)``, lift the result back to a host PVector and build the info
-    dict (``extra`` keys merge into it)."""
+    the column layout of A's lowering for ``box``, run ``solve(b, x0) ->
+    (x, rs, rs0, it, history)``, lift the result back to a host PVector
+    and build the info dict (``extra`` keys merge into it)."""
     from ..models.solvers import _final_true_rel
 
     backend = b.values.backend
     floor_warned = warn_tol_below_floor(tol, b.dtype, name=name)
-    dA = device_matrix(A, backend)
+    dA = device_matrix(A, backend, box)
     x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
@@ -781,18 +833,20 @@ def gpu_cg(
     fused: Optional[bool] = None,
     pipelined: bool = False,
     plain: bool = False,
+    box: bool = True,
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
     ``pipelined``, the textbook body with ``fused=False``. ``plain=True``
     runs the kernels' plain versions on the card instead (the comparison
-    path of chip_smoke.py). The info dict records the body under
-    ``cg_body``."""
+    path of chip_smoke.py). ``box=False`` lowers A on the generic layout
+    and exchange plan instead of the box ones. The info dict records the
+    body under ``cg_body``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     solve = make_cg_fn(
-        device_matrix(A, backend), tol, int(maxiter), fused=fused, pipelined=pipelined,
+        device_matrix(A, backend, box), tol, int(maxiter), fused=fused, pipelined=pipelined,
         plain=plain,
     )
-    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", cg_body=solve.cg_body)
+    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", box=box, cg_body=solve.cg_body)

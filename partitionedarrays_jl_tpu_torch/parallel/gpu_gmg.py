@@ -2,19 +2,33 @@
 exchanges, Jacobi sweeps, inter-level transfers and the dense coarse solve)
 on stacked ``(P, W)`` tensors, and the V-cycle-preconditioned CG.
 
-The counterpart of `partitionedarrays_jl_tpu/parallel/tpu_gmg.py`, with
-its one transfer route for the generic exchange plan: the factored
-transfer P = S·E (`_stage_structured_transfer`, tpu_gmg.py:322-405,
-non-box branch :381-385). S is the square interpolation stencil, lowered
-like any operator (the coded-DIA kernel); E embeds coarse points at the
-even fine points through an element-gather index map ``emb``. The box
-exchange plan, its matrix-free stencil transfers and the strided-box
-``emb_fast`` embedding wait for ROADMAP Queue D item 3.
+The counterpart of `partitionedarrays_jl_tpu/parallel/tpu_gmg.py`. Each
+level's transfer P = S·E (S the d-linear interpolation stencil, E the
+embedding of coarse points at the even fine points; R = Pᵀ = Eᵀ·S) takes
+one of three routes, resolved per level as the JAX package resolves them
+off a TPU (`_device_hierarchy`, tpu_gmg.py:71-134):
 
-Frames: every level vector lives in the level operator's column frame;
-the S operand and product have their own frames. All frames are compact
-with the owned band at ``o0``, so a move between frames is an owned-slice
-copy, and every move below names its source and destination slices. The
+* **stencil** (matrix-free, `_stage_stencil_transfer`, tpu_gmg.py:137-289):
+  where the level's column plan is the box exchange plan and its ghost
+  segments cover the full in-grid shell of every part, S runs as the
+  `box_stencil_apply` kernel (`ops/stencil.py`) on the level's own frame
+  after a box exchange, and E as strided views of each part's box. No S is
+  assembled or staged.
+* **structured with emb_fast** (`_stage_structured_transfer`,
+  tpu_gmg.py:322-405, and `_embedding_box_fast_path`, :408-465): S is
+  assembled and lowered like any operator (the coded-DIA kernel); where
+  every part's coarse points are its own even fine points in one box
+  shape, E is a strided view of the box too.
+* **structured**: S as above; E is an element gather through the index map
+  ``emb``, with a halo refresh for restriction and the ghost -> owner
+  ``add`` exchange for prolongation.
+
+``box=False`` (the generic layout and exchange plan, no strided
+embedding) and ``stencil=False`` select the structured routes.
+
+Frames: every level vector lives in the level operator's column frame; S's
+operand and product have their own frames. All frames are compact with the
+owned band at ``o0``, so a move between frames is an owned-slice copy. The
 coarse solve is one mat-vec with the host-computed dense inverse.
 
 The PCG loop runs in Python and reads the stopping test once per iteration,
@@ -23,12 +37,14 @@ on the same tensors (the comparison path of chip_smoke.py).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.solvers import _dense, gather_psparse
+from ..ops import stencil as stn
 from ..utils.helpers import check
 from .gpu import (
     DeviceVector,
@@ -40,21 +56,179 @@ from .gpu import (
     device_matrix,
     exchange_,
 )
+from .gpu_box import BoxExchangePlan
 from .pvector import PVector
 
 
-def _stage_structured_transfer(h, li: int, backend: GPUBackend) -> dict:
-    """Stage the factored transfer P = S·E of level `li`: the stencil S
-    (its DeviceMatrix), the even-point embedding map ``emb`` (coarse owned
-    point -> slot of its even fine point in S's column frame; pads point at
-    the trash slot) and the ghost -> owner assembly plan of S's column
-    range (combine ``add``)."""
+def _coarse_rows(h, li: int):
+    return h.levels[li + 1].A.rows if li + 1 < len(h.levels) else h.coarse_A.rows
+
+
+def _stage_stencil_transfer(h, li: int, dA, device, dtype) -> Optional[dict]:
+    """Stage the matrix-free transfer of level `li` (tpu_gmg.py:137-289):
+    per part the embedding descriptor (fine box fb, coarse box cb, even-
+    point start st), the plan's ghost segments as the stencil's shell, and
+    for periodic partitions the mask that zeroes wrapped segments (S
+    truncates at the global boundary; it does not wrap). None, and the
+    level takes a structured route, unless the column plan is the box plan,
+    every part's coarse points are its own even fine points, and every
+    in-grid shell piece arrives as a segment of the exact face, edge or
+    corner extent. Returns ``{"stencil": StencilOperand}``."""
+    lvl = h.levels[li]
+    dim = len(lvl.nfs)
+    if dim > 3:
+        return None
+    plan = dA.col_plan
+    if not isinstance(plan, BoxExchangePlan):
+        return None
+    info = plan.info
+    # the cols partition carries the ghosts the stencil reads; its owned
+    # boxes are the rows'
+    fsets = lvl.A.cols.partition.part_values()
+    csets = _coarse_rows(h, li).partition.part_values()
+    P = len(fsets)
+    variants = np.asarray(info.variants)
+    dir_index = {d_.dir: k for k, d_ in enumerate(info.dirs)}
+    senders = [{q: s for s, q in d_.perm} for d_ in info.dirs]
+    # descriptors are keyed by the whole embedding (fb, cb, st): equal fine
+    # boxes over an odd coarse grid still split into floor/ceil coarse boxes
+    descs = []
+    dsel = np.zeros(P, dtype=np.int64)
+    shmask = np.ones((P, 27))
+    any_wrapped = False
+    all_dirs = [d_ for d_ in np.ndindex(*(3,) * dim) if any(c != 1 for c in d_)]
+    for p, (fi, ci) in enumerate(zip(fsets, csets)):
+        if getattr(fi, "box_shape", None) is None or getattr(ci, "box_shape", None) is None:
+            return None
+        fb = info.box_shapes[int(variants[p])]
+        if fi.box_shape != fb:
+            return None
+        cb = ci.box_shape
+        if any(s == 0 for s in cb):
+            return None  # an agglomerated coarse level
+        st = tuple(2 * cl - fl for cl, fl in zip(ci.box_lo, fi.box_lo))
+        if any(s < 0 or s > 1 for s in st):
+            return None
+        if any(st[d] + 2 * (cb[d] - 1) >= fb[d] for d in range(dim)):
+            return None
+        cand = (fb, tuple(cb), st)
+        if cand in descs:
+            dsel[p] = descs.index(cand)
+        else:
+            if len(descs) >= 16:
+                return None  # an implausible split: keep the structured route
+            dsel[p] = len(descs)
+            descs.append(cand)
+        # every in-grid shell piece must arrive as a segment of the exact
+        # face/edge/corner extent; a wrapped one (periodic) is masked to 0
+        gdims = fi.grid_shape
+        for delta in all_dirs:
+            dvec = tuple(c - 1 for c in delta)
+            in_grid = all(
+                (c != -1 or fi.box_lo[j] > 0) and (c != 1 or fi.box_hi[j] < gdims[j])
+                for j, c in enumerate(dvec)
+            )
+            k = dir_index.get(dvec)
+            s = senders[k].get(p) if k is not None else None
+            if s is None:
+                if in_grid:
+                    return None  # a shell piece exists but never arrives
+                continue  # no segment: it reads 0, as S truncates
+            d_ = info.dirs[k]
+            exp_shape = tuple(1 if c != 0 else fb[j] for j, c in enumerate(dvec))
+            if d_.geo[int(variants[s])][1] != exp_shape:
+                return None  # the sender's slab is not the exact extent
+            n_seg = int(np.prod(exp_shape))
+            if not info.seg_mask[p, d_.off : d_.off + n_seg].all():
+                return None  # orphan slots inside the piece
+            if not in_grid:
+                shmask[p, stn.dir_index(dvec)] = 0.0
+                any_wrapped = True
+    LA = dA.col_layout
+    table = np.zeros((P, stn.TABLE), dtype=np.int32)
+    table[:, 4:31] = -1
+    for d_ in info.dirs:
+        table[:, 4 + stn.dir_index(d_.dir)] = d_.off
+    for p in range(P):
+        fb = descs[dsel[p]][0]
+        table[p, :3] = (1,) * (3 - dim) + fb
+        table[p, 3] = math.prod(fb)
+    groups = []
+    for v, (fb, cb, st) in enumerate(descs):
+        parts = np.flatnonzero(dsel == v)
+        idx = None if len(parts) == P else torch.from_numpy(parts).to(device)
+        groups.append(stn.StencilGroup(idx, fb, cb, st))
+    op = stn.bind_kernel(stn.StencilOperand(
+        dim=dim,
+        table=torch.from_numpy(table).to(device),
+        mask=torch.from_numpy(shmask).to(device, dtype) if any_wrapped else None,
+        dirs=tuple((d_.dir, d_.off) for d_ in info.dirs),
+        groups=tuple(groups),
+        o0=LA.o0, g0=LA.g0, W=LA.W, n=LA.no_max, fmax=tuple(int(v) for v in table[:, :3].max(axis=0)),
+    ))
+    return {"stencil": op}
+
+
+def _embedding_box_fast_path(lvl, coarse_rows, S, LS, emb):
+    """The strided-box embedding (tpu_gmg.py:408-465): when every part's
+    owned fine and coarse regions are boxes of one shape each and its
+    coarse points are exactly its own even fine points, restriction and
+    prolongation extract and place them through a strided view of the box,
+    with no gather and no ghost traffic. Returns the one descriptor
+    ``(fine box, coarse box, starts)`` or None."""
+    dim = len(lvl.nfs)
+    descr = None
+    for p, (ci, fi) in enumerate(zip(coarse_rows.partition.part_values(), S.cols.partition.part_values())):
+        if fi.num_oids == 0 or ci.num_oids == 0:
+            return None
+        fc = np.stack(np.unravel_index(np.asarray(fi.oid_to_gid, dtype=np.int64), lvl.nfs))
+        cc = np.stack(np.unravel_index(np.asarray(ci.oid_to_gid, dtype=np.int64), lvl.ncs))
+        lo_f, hi_f = fc.min(axis=1), fc.max(axis=1) + 1
+        lo_c, hi_c = cc.min(axis=1), cc.max(axis=1) + 1
+        fb = tuple(int(x) for x in hi_f - lo_f)
+        cb = tuple(int(x) for x in hi_c - lo_c)
+        if int(np.prod(fb)) != fi.num_oids or int(np.prod(cb)) != ci.num_oids:
+            return None  # the owned set is not a box
+        st = tuple(int(2 * lo_c[d] - lo_f[d]) for d in range(dim))
+        if any(s < 0 or s > 1 for s in st):
+            return None  # a coarse point falls outside this part's box
+        if any(st[d] + 2 * (cb[d] - 1) >= fb[d] for d in range(dim)):
+            return None
+        cand = (fb, cb, st)
+        if descr is None:
+            descr = cand
+        elif cand != descr:
+            return None  # parts differ
+        if not np.array_equal(
+            LS.lid_slots[p][: fi.num_oids],
+            LS.o0 + np.arange(fi.num_oids, dtype=LS.lid_slots[p].dtype),
+        ):
+            return None  # owned slots are not the identity map
+        # emb row p must be the slots of the box's even points in
+        # coarse-scan order, with no ghost reads
+        fine_idx = np.arange(fi.num_oids, dtype=np.int64).reshape(fb)
+        lids = fine_idx[tuple(slice(st[d], st[d] + 2 * cb[d], 2) for d in range(dim))].reshape(-1)
+        expect = LS.lid_slots[p][lids]
+        if not np.array_equal(emb[p, : len(expect)], expect):
+            return None
+        if (emb[p, len(expect):] != LS.trash).any():
+            return None
+    return descr
+
+
+def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool) -> dict:
+    """Stage the factored transfer P = S·E of level `li`
+    (tpu_gmg.py:322-405): the stencil S (its DeviceMatrix), the even-point
+    embedding map ``emb`` (coarse owned point -> slot of its even fine
+    point in S's column frame; pads point at the trash slot), the ghost ->
+    owner assembly plan of S's column range (combine ``add``) and, with
+    ``box``, the strided-box embedding ``emb_fast`` where it applies."""
     from ..models.gmg import interp_stencil_cartesian
 
     lvl = h.levels[li]
-    coarse_rows = h.levels[li + 1].A.rows if li + 1 < len(h.levels) else h.coarse_A.rows
+    coarse_rows = _coarse_rows(h, li)
     S = interp_stencil_cartesian(lvl.nfs, lvl.A.rows, dtype=lvl.A.dtype)
-    dS = device_matrix(S, backend)
+    dS = device_matrix(S, backend, box)
     LS = dS.col_layout
     nc_max = max((i.num_oids for i in coarse_rows.partition.part_values()), default=0)
     emb = np.full((LS.P, max(nc_max, 1)), LS.trash, dtype=np.int64)
@@ -66,30 +240,47 @@ def _stage_structured_transfer(h, li: int, backend: GPUBackend) -> dict:
         lids = fi.gids_to_lids(np.ravel_multi_index(tuple(2 * c for c in kc), lvl.nfs))
         check(bool((lids >= 0).all()), "structured transfer: an embedded point lies beyond its part's fine halo")
         emb[p, : len(kg)] = LS.lid_slots[p][lids]
-    return {
+    out = {
         "dS": dS,
         "emb": torch.from_numpy(emb).to(backend.device),
-        "rev_plan": device_exchange_plan(S.cols, backend, reverse=True),
+        "rev_plan": device_exchange_plan(S.cols, backend, reverse=True, box=box),
     }
+    if box:
+        fast = _embedding_box_fast_path(lvl, coarse_rows, S, LS, emb)
+        if fast is not None:
+            out["emb_fast"] = stn.StencilGroup(None, *fast)
+    return out
 
 
-def device_hierarchy(h, backend: GPUBackend) -> dict:
+def route(level: dict) -> str:
+    """The transfer route a staged level takes: ``"stencil"``,
+    ``"emb_fast"`` (structured, strided embedding) or ``"structured"``."""
+    return "stencil" if "stencil" in level else "emb_fast" if "emb_fast" in level else "structured"
+
+
+def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = True) -> dict:
     """Stage every level of a `models.gmg.GMGHierarchy` for the card
     (tpu_gmg.py:71-134): per level the operator, the inverse diagonal in
-    its column frame and the structured transfer; the dense coarse
-    inverse and the per-part global positions ``gmap`` of the coarsest
-    owned slots (pads -> nc, the extra zero slot of the padded global
-    vector). Cached on the hierarchy per backend."""
+    its column frame and the transfer: the stencil route first (with
+    ``stencil``), else the structured one; then the dense coarse inverse
+    and the per-part global positions ``gmap`` of the coarsest owned slots
+    (pads -> nc, the extra zero slot of the padded global vector). The
+    stencil route builds no S. Cached on the hierarchy per backend and
+    route keywords."""
     cache = getattr(h, "_device_cache", None)
     if cache is None:
         cache = h._device_cache = {}
-    if backend in cache:
-        return cache[backend]
+    key = (backend, box, stencil)
+    if key in cache:
+        return cache[key]
     levels = []
     for li, lvl in enumerate(h.levels):
-        dA = device_matrix(lvl.A, backend)
+        dA = device_matrix(lvl.A, backend, box)
         dinv = DeviceVector.from_pvector(lvl.dinv, backend, dA.col_layout).data
-        levels.append({"dA": dA, "dinv": dinv, **_stage_structured_transfer(h, li, backend)})
+        st = _stage_stencil_transfer(h, li, dA, backend.device, dinv.dtype) if stencil else None
+        if st is None:
+            st = _stage_structured_transfer(h, li, backend, box)
+        levels.append({"dA": dA, "dinv": dinv, **st})
     cinv = np.linalg.inv(_dense(gather_psparse(h.coarse_A)))
     coarse_isets = h.coarse_A.rows.partition.part_values()
     ncmax = max((i.num_oids for i in coarse_isets), default=0)
@@ -104,18 +295,59 @@ def device_hierarchy(h, backend: GPUBackend) -> dict:
         "gmap": torch.from_numpy(gmap).to(backend.device),
         "nc": int(nc),
     }
-    cache[backend] = staged
+    cache[key] = staged
     return staged
 
 
+def _even_view(band: torch.Tensor, g: stn.StencilGroup):
+    """The even points of group g's boxes in ``band`` (P, >= |fb|), the
+    owned band of a frame: a strided view (P or the group's parts, *cb)
+    (`_box_extract`/`_box_interleave`, tpu_gmg.py:468-505)."""
+    nfb = math.prod(g.fb)
+    box = band[:, :nfb].view((band.shape[0],) + g.fb)
+    return box, (slice(None),) + tuple(slice(s, s + 2 * c, 2) for s, c in zip(g.st, g.cb))
+
+
+def _extract(band: torch.Tensor, groups, dest: torch.Tensor) -> None:
+    """Restriction's E^T: the even points of every part's box in ``band``
+    into the coarse owned band ``dest`` (P, nc_pad), one copy a group;
+    slots past a part's coarse count are left as they are (zero)."""
+    for g in groups:
+        box, even = _even_view(band, g)
+        ncb = math.prod(g.cb)
+        if g.idx is None:
+            dest[:, :ncb].view((dest.shape[0],) + g.cb).copy_(box[even])
+        else:
+            dest[g.idx, :ncb] = box[(g.idx,) + even[1:]].reshape(len(g.idx), ncb)
+
+
+def _interleave(ec: torch.Tensor, groups, band: torch.Tensor) -> None:
+    """Prolongation's E: the coarse owned values ``ec`` (P, nc_pad) onto
+    the even points of every part's box in ``band``, a zero owned band."""
+    for g in groups:
+        box, even = _even_view(band, g)
+        ncb = math.prod(g.cb)
+        if g.idx is None:
+            box[even] = ec[:, :ncb].view((ec.shape[0],) + g.cb)
+        else:
+            box[(g.idx,) + even[1:]] = ec[g.idx, :ncb].view((len(g.idx),) + g.cb)
+
+
 def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
-    """The V-cycle on the stacked frames (tpu_gmg.py:_vcycle_shard_body,
-    structured-transfer route): ``vcycle(b) -> correction``, both in
-    level 0's column frame, x = 0 on entry. Per level with pre = post = 1:
-    2 SpMVs with the level operator and 2 with S; from x = 0 the first
-    pre-smoothing sweep is x = omega * dinv * b (tpu_gmg.py:591-601)."""
+    """The V-cycle on the stacked frames (tpu_gmg.py:_vcycle_shard_body):
+    ``vcycle(b) -> correction``, both in level 0's column frame, x = 0 on
+    entry. Per level with pre = post = 1: 2 SpMVs with the level operator
+    (from x = 0 the first pre-smoothing sweep is x = omega * dinv * b,
+    tpu_gmg.py:591-601) and two transfers, each on the level's route
+    (`route`): on the stencil route a box exchange of the level's frame
+    and one `box_stencil_apply` each, with the even points extracted or
+    placed through strided views; on the structured routes one S SpMV
+    each, with the even points through strided views (``emb_fast``) or
+    through ``emb``, a halo refresh and the ``add`` exchange."""
+    apply_S = stn.box_stencil_apply_plain if plain else stn.box_stencil_apply
     bodies = [
-        {"A": _spmv_body(l["dA"], plain=plain), "S": _spmv_body(l["dS"], plain=plain)}
+        {"A": _spmv_body(l["dA"], plain=plain),
+         "S": _spmv_body(l["dS"], plain=plain) if "dS" in l else None}
         for l in dh["levels"]
     ]
     pre, post, omega = h.pre, h.post, h.omega
@@ -126,13 +358,10 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
         lv = dh["levels"][level]
         LA = lv["dA"].col_layout  # level vectors live here
         LAr = lv["dA"].row_layout  # the level operator's product frame
-        LS = lv["dS"].col_layout  # S operand frame
-        LSr = lv["dS"].row_layout  # S product frame
         no = LA.no_max
         sl = slice(LA.o0, LA.o0 + no)
-        sS = slice(LS.o0, LS.o0 + no)
-        sSr = slice(LSr.o0, LSr.o0 + no)
         dinv = lv["dinv"]
+        P = b_l.shape[0]
 
         def spmv_A(z):
             out = torch.zeros_like(z)
@@ -149,16 +378,38 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
         for _ in range(max(pre - 1, 0)):
             sweep(x)
         q = spmv_A(x)
-        # restriction R = Eᵀ·S: stencil-apply the residual, refresh ghosts
-        # so embedded points owned elsewhere are readable, extract the
-        # even-point slots (pads read the zero trash slot)
-        rS = torch.zeros((b_l.shape[0], LS.W), dtype=b_l.dtype, device=b_l.device)
-        rS[:, sS] = b_l[:, sl] - q[:, sl]
-        w = bodies[level]["S"](rS)
-        v = torch.zeros_like(rS)
-        v[:, sS] = w[:, sSr]
-        exchange_(lv["dS"].col_plan, v)
-        rc_own = v.gather(1, lv["emb"])
+        # the coarse right-hand side's frame: the next level's column frame,
+        # or the padded owned block of the dense coarse solve
+        if level + 1 == L:
+            bc = torch.zeros((P, dh["gmap"].shape[1]), dtype=b_l.dtype, device=b_l.device)
+            rc_own = bc
+        else:
+            nxt = dh["levels"][level + 1]["dA"].col_layout
+            bc = torch.zeros((P, nxt.W), dtype=b_l.dtype, device=b_l.device)
+            rc_own = bc[:, nxt.o0 : nxt.o0 + nxt.no_max]
+        if "stencil" in lv:
+            # R = Eᵀ·S, matrix-free: refresh the residual's ghost segments
+            # through the level's box exchange, apply S, extract
+            op = lv["stencil"]
+            rv = torch.zeros_like(b_l)
+            rv[:, sl] = b_l[:, sl] - q[:, sl]
+            exchange_(lv["dA"].col_plan, rv)
+            _extract(apply_S(op, rv), op.groups, rc_own)
+        else:
+            # R = Eᵀ·S with the assembled S, then the even points: strided
+            # (emb_fast), or gathered after a halo refresh so that embedded
+            # points owned elsewhere are readable (pads read the zero trash)
+            LS, LSr = lv["dS"].col_layout, lv["dS"].row_layout
+            rS = torch.zeros((P, LS.W), dtype=b_l.dtype, device=b_l.device)
+            rS[:, LS.o0 : LS.o0 + no] = b_l[:, sl] - q[:, sl]
+            w = bodies[level]["S"](rS)
+            if "emb_fast" in lv:
+                _extract(w[:, LSr.o0 : LSr.o0 + no], (lv["emb_fast"],), rc_own)
+            else:
+                v = torch.zeros_like(rS)
+                v[:, LS.o0 : LS.o0 + no] = w[:, LSr.o0 : LSr.o0 + no]
+                exchange_(lv["dS"].col_plan, v)
+                rc_own[:, : lv["emb"].shape[1]] = v.gather(1, lv["emb"])
         if level + 1 == L:
             # dense coarse solve: place every part's owned coarse residual
             # by gid, one mat-vec with the inverse, read back the slots
@@ -167,19 +418,30 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             ec_glob = torch.cat([dh["cinv"] @ glob[:nc], glob.new_zeros(1)])
             ec_own = ec_glob[dh["gmap"]]
         else:
-            nxt = dh["levels"][level + 1]["dA"].col_layout
-            bc = torch.zeros((b_l.shape[0], nxt.W), dtype=b_l.dtype, device=b_l.device)
-            bc[:, nxt.o0 : nxt.o0 + nxt.no_max] = rc_own
             ec_own = solve_level(level + 1, bc)[:, nxt.o0 : nxt.o0 + nxt.no_max]
-        # prolongation P = S·E: scatter the coarse correction onto the even
-        # fine points, assemble values embedded into ghosts to their owners
-        # (the add exchange leaves ghosts and trash at 0), one S SpMV
-        z = torch.zeros_like(rS)
-        z.scatter_(1, lv["emb"], ec_own)
-        z[:, LS.trash] = 0
-        exchange_(lv["rev_plan"], z, combine="add")
-        ef = bodies[level]["S"](z)
-        x[:, sl] = x[:, sl] + ef[:, sSr]
+        if "stencil" in lv:
+            # P = S·E, matrix-free: place the coarse correction on the even
+            # fine points, refresh the ghost segments, apply S
+            op = lv["stencil"]
+            z = torch.zeros_like(b_l)
+            _interleave(ec_own, op.groups, z[:, sl])
+            exchange_(lv["dA"].col_plan, z)
+            x[:, sl] = x[:, sl] + apply_S(op, z)
+        else:
+            # P = S·E with the assembled S: the even points placed strided
+            # (emb_fast), or scattered and the values embedded into ghosts
+            # assembled to their owners (the add exchange leaves ghosts and
+            # trash at 0); then one S SpMV
+            LS, LSr = lv["dS"].col_layout, lv["dS"].row_layout
+            z = torch.zeros((P, LS.W), dtype=b_l.dtype, device=b_l.device)
+            if "emb_fast" in lv:
+                _interleave(ec_own, (lv["emb_fast"],), z[:, LS.o0 : LS.o0 + no])
+            else:
+                z.scatter_(1, lv["emb"], ec_own[:, : lv["emb"].shape[1]])
+                z[:, LS.trash] = 0
+                exchange_(lv["rev_plan"], z, combine="add")
+            ef = bodies[level]["S"](z)
+            x[:, sl] = x[:, sl] + ef[:, LSr.o0 : LSr.o0 + no]
         for _ in range(post):
             sweep(x)
         return x
@@ -188,14 +450,15 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
 
 
 def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
-                    plain: bool = False) -> Callable:
+                    plain: bool = False, box: bool = True, stencil: bool = True) -> Callable:
     """V-cycle-preconditioned CG on the card (tpu_gmg.py:886-985):
-    ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``. z =
-    Vcycle(r) is computed at the top of the body with beta = 0 on the
+    ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``, on the
+    transfer routes ``box`` and ``stencil`` select (`device_hierarchy`).
+    z = Vcycle(r) is computed at the top of the body with beta = 0 on the
     first pass; the loop continues while ``sqrt(rs) > tol*max(1,
     sqrt(rs0))``, ``it < maxiter`` and ``rz_prev != 0``, read once per
     iteration."""
-    dh = device_hierarchy(h, backend)
+    dh = device_hierarchy(h, backend, box, stencil)
     dA0 = dh["levels"][0]["dA"]
     L0, L0r = dA0.col_layout, dA0.row_layout
     no = L0.no_max
@@ -239,13 +502,14 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
 
 def gpu_gmg_pcg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
                 maxiter: Optional[int] = None, verbose: bool = False,
-                plain: bool = False) -> Tuple[PVector, dict]:
+                plain: bool = False, box: bool = True, stencil: bool = True) -> Tuple[PVector, dict]:
     """V-cycle-preconditioned CG on the card, the counterpart of
     `tpu_gmg_pcg` (tpu_gmg.py:1225, `_run_gmg`); the device form of
-    ``pcg(A, b, minv=hierarchy)``."""
+    ``pcg(A, b, minv=hierarchy)``. ``box=False`` and ``stencil=False``
+    select the generic exchange and the structured transfers."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "pcg+gmg needs a GPU-backend PVector")
     if maxiter is None:
         maxiter = 4 * int(h.levels[0].A.rows.ngids)
-    solve = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain)
-    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg")
+    solve = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil)
+    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg", box=box)

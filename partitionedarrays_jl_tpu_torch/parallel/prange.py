@@ -98,7 +98,7 @@ class PRange:
         # everything derived from the ghost set dies with the exchanger:
         # a stale device layout would silently route newly added ghosts
         # nowhere
-        for attr in ("_device_layout", "_device_plan"):
+        for attr in ("_device_layout", "_device_plan", "_box_info"):
             if hasattr(self, attr):
                 delattr(self, attr)
 

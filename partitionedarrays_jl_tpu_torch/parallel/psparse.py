@@ -43,7 +43,7 @@ class PSparseMatrix:
         self.rows = rows
         self.cols = cols
         self._blocks = None
-        self._device = {}  # GPUBackend -> lowered DeviceMatrix (gpu.py)
+        self._device = {}  # (GPUBackend, box) -> lowered DeviceMatrix (gpu.py)
 
     # ------------------------------------------------------------------
     # constructors (reference: src/Interfaces.jl:2194-2244)

@@ -1,0 +1,564 @@
+"""The port's box exchange plan (`parallel/gpu_box.py`) and the multigrid
+transfer routes it enables (`parallel/gpu_gmg.py`: the matrix-free stencil
+route with `ops/stencil.py`, the strided-box embedding ``emb_fast``)
+against the JAX package.
+
+Setups mirror tests/test_box_exchange.py and tests/test_gmg.py:605-727.
+The port runs on ``GPUBackend(device="cpu")`` (the kernels' plain
+versions); the JAX package on ``pa.tpu`` over the 8-device CPU mesh (its
+box analysis, being host NumPy, on ``pa.sequential``). The multigrid
+cases carry the JAX package's fine operator into the port through
+`interop` and build each package's own hierarchy. Tolerances: `BoxInfo`
+field by field and the ``set`` exchange exactly (it copies values); the
+``add`` exchange to rtol=1e-14 (sums in another order than the generic
+plan); the transfers to rtol=1e-13 of f64 rounding; GMG-PCG iterations
+equal and solutions to atol=1e-10."""
+import dataclasses
+import importlib
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import partitionedarrays_jl_tpu as pa
+import partitionedarrays_jl_tpu.parallel.tpu_box as jbox
+import partitionedarrays_jl_tpu.parallel.tpu_gmg as jgmg
+import partitionedarrays_jl_tpu_torch as pt
+from partitionedarrays_jl_tpu_torch import interop
+from partitionedarrays_jl_tpu_torch.ops import dia
+from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+from partitionedarrays_jl_tpu_torch.parallel.gpu import (
+    DeviceVector,
+    GPUBackend,
+    device_exchange_plan,
+    device_layout,
+    device_matrix,
+    exchange_,
+)
+from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan, analyze_box_structure
+from partitionedarrays_jl_tpu_torch.parallel.prange import uniform_partition
+
+# the module, not the `tpu` backend instance the package re-exports
+jtpu = importlib.import_module("partitionedarrays_jl_tpu.parallel.tpu")
+CPU = GPUBackend(device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# box analysis and exchange
+# ---------------------------------------------------------------------------
+
+#: (ns, parts, how the range is made): with_ghost ranges as in
+#: tests/test_box_exchange.py, the assemble_poisson column range, and the
+#: irregular partition that has no box structure
+RANGES = {
+    "8x8x8-on-2x2x2": ((8, 8, 8), (2, 2, 2), "ghost"),
+    "9x7x8-unequal": ((9, 7, 8), (2, 2, 2), "ghost"),
+    "12x12-on-2x4": ((12, 12), (2, 4), "ghost"),
+    "16-on-4": ((16,), (4,), "ghost"),
+    "8x8-periodic": ((8, 8), (2, 2), "periodic"),
+    "7x9x11-eight-variants": ((7, 9, 11), (2, 2, 2), "ghost"),
+    "poisson-cols": ((8, 8, 8), (2, 2, 2), "poisson"),
+    "irregular": ((64,), (4,), "irregular"),
+}
+
+
+def _make_range(mod, parts, ns, how):
+    if how == "ghost":
+        return mod.prange(parts, ns, mod.with_ghost)
+    if how == "periodic":
+        return mod.prange(parts, ns, mod.with_ghost, periodic=(True,) * len(ns))
+    if how == "poisson":
+        return mod.assemble_poisson(parts, ns)[0].cols
+    rows = (pa.uniform_partition if mod is pa else uniform_partition)(parts, ns[0])
+    gids = mod.map_parts(lambda i: (np.asarray(i.oid_to_gid[:1]) + 17) % ns[0], rows.partition)
+    return mod.add_gids(rows, gids)
+
+
+def _info_fields(rows, analyze):
+    """A BoxInfo's fields, the ghost slots keyed by gid (the two packages'
+    assemblies may number a part's ghosts in another order)."""
+    info = analyze(rows)
+    if info is None:
+        return None
+    slots = []
+    for iset, rel in zip(rows.partition.part_values(), info.ghost_rel_slots):
+        g = np.asarray(iset.hid_to_gid)
+        order = np.argsort(g)
+        slots.append((g[order].tolist(), np.asarray(rel)[order].tolist()))
+    return {
+        "box_shapes": info.box_shapes, "variants": info.variants.tolist(), "nh_total": info.nh_total,
+        "dirs": [(d.dir, d.geo, d.off, d.size, d.perm) for d in info.dirs],
+        "ghost_slots_by_gid": slots, "seg_mask": info.seg_mask.tolist(), "P": info.P,
+    }
+
+
+def _ramp(mod, rows):
+    """gid-derived values per part: a misrouted element changes a value."""
+    vals = mod.map_parts(
+        lambda i: np.asarray(i.lid_to_gid, dtype=np.float64) * 2.0 + 1.0 + 0.001 * i.part, rows.partition
+    )
+    return mod.PVector(vals, rows)
+
+
+@pytest.mark.parametrize("case", [c for c in RANGES if c != "irregular"])
+def test_box_exchange_matches_generic_and_jax(case):
+    """Both combines through the box plan against the generic plan of the
+    same range (per lid) and against the JAX package's box plan (the whole
+    frame: both lay the segments out alike)."""
+    ns, grid, how = RANGES[case]
+
+    def jax_driver(parts):
+        rows = _make_range(pa, parts, ns, how)
+        out = {}
+        for combine in ("set", "add"):
+            dv = jtpu.DeviceVector.from_pvector(_ramp(pa, rows), parts.backend)
+            out[combine] = np.asarray(jtpu.make_exchange_fn(rows, parts.backend, combine=combine)(dv.data))
+        return out
+
+    def port_driver(parts):
+        rows = _make_range(pt, parts, ns, how)
+        out = {}
+        for combine in ("set", "add"):
+            rev = combine == "add"
+            plan = device_exchange_plan(rows, parts.backend, reverse=rev)
+            assert isinstance(plan, BoxExchangePlan) and plan.reverse_mode == rev
+            dv = DeviceVector.from_pvector(_ramp(pt, rows), parts.backend)
+            exchange_(plan, dv.data, combine)
+            dg = DeviceVector.from_pvector(_ramp(pt, rows), parts.backend, device_layout(rows, box=False))
+            exchange_(device_exchange_plan(rows, parts.backend, reverse=rev, box=False), dg.data, combine)
+            out[combine] = (dv.data.numpy().copy(), pt.gather_pvector(dv.to_pvector()),
+                            pt.gather_pvector(dg.to_pvector()))
+            out[combine + "_lids"] = [
+                (np.asarray(a), np.asarray(b))
+                for a, b in zip(dv.to_pvector().values.part_values(), dg.to_pvector().values.part_values())
+            ]
+        return out
+
+    want = pa.prun(jax_driver, pa.tpu, grid)
+    got = pt.prun(port_driver, CPU, grid)
+    for a, b in got["set_lids"]:
+        assert np.array_equal(a, b)
+    for a, b in got["add_lids"]:
+        np.testing.assert_allclose(a, b, rtol=1e-14)
+    frame_set, _, _ = got["set"]
+    assert np.array_equal(frame_set, want["set"])
+    frame_add, _, _ = got["add"]
+    np.testing.assert_allclose(frame_add, want["add"], rtol=1e-14)
+
+
+@pytest.mark.parametrize("case", [c for c in RANGES if c != "irregular"])
+def test_box_add_sums_in_direction_order(case):
+    """The reversed box plan adds each owner slot's contributions in
+    direction order, no slot twice in one round: bitwise equal to a numpy
+    loop over the plan's directions and sender -> receiver pairs, orphan
+    segment slots left out, the ghost region zeroed after."""
+    ns, grid, how = RANGES[case]
+
+    def driver(parts):
+        rows = _make_range(pt, parts, ns, how)
+        plan = device_exchange_plan(rows, parts.backend, reverse=True)
+        for _, _, idx in plan.add_rounds:
+            assert len(np.unique(idx.numpy())) == len(idx)
+        lay, info = plan.layout, plan.info
+        x = np.random.default_rng(5).standard_normal((lay.P, lay.W))
+        want = x.copy()
+        for d in info.dirs:
+            for p, q in d.perm:
+                v = int(info.variants[p])
+                start, shape = d.geo[v]
+                box = want[p, lay.o0 : lay.o0 + math.prod(info.box_shapes[v])].reshape(info.box_shapes[v])
+                n = math.prod(shape)
+                seg = x[q, lay.g0 + d.off : lay.g0 + d.off + n]
+                box[tuple(slice(a, a + s) for a, s in zip(start, shape))] += np.where(
+                    info.seg_mask[q, d.off : d.off + n], seg, 0).reshape(shape)
+        want[:, lay.g0 :] = 0
+        got = exchange_(plan, torch.from_numpy(x.copy()), "add").numpy()
+        return np.array_equal(got, want), len(plan.add_rounds)
+
+    equal, rounds = pt.prun(driver, CPU, grid)
+    assert equal and rounds >= 1
+
+
+@pytest.mark.parametrize("box", [True, False], ids=["box", "generic"])
+def test_cg_through_box_plan_matches_jax(box):
+    """End-to-end: the fused CG on the box layout (default) and on the
+    generic one takes the JAX package's iterations (its box plan) and
+    reaches its solution."""
+    ns = (8, 8, 8)
+
+    def jax_driver(parts):
+        A, b, xe, x0 = pa.assemble_poisson(parts, ns)
+        assert isinstance(jtpu.device_exchange_plan(A.cols, False), jbox.BoxExchangePlan)
+        x, info = pa.cg(A, b, x0=x0, tol=1e-10, maxiter=400)
+        return pa.gather_pvector(x), info["iterations"]
+
+    def port_driver(parts):
+        A, b, xe, x0 = pt.assemble_poisson(parts, ns)
+        x, info = pt.cg(A, b, x0=x0, tol=1e-10, maxiter=400, box=box)
+        dA = device_matrix(A, parts.backend, box)
+        assert isinstance(dA.col_plan, BoxExchangePlan) == box
+        assert (dA.col_layout.box_info is not None) == box
+        return pt.gather_pvector(x), info["iterations"]
+
+    xj, itj = pa.prun(jax_driver, pa.tpu, (2, 2, 2))
+    xp, itp = pt.prun(port_driver, CPU, (2, 2, 2))
+    assert itp == itj
+    np.testing.assert_allclose(xp, xj, atol=1e-12)
+
+
+def test_box_layout_keeps_pads_zero_and_slots_mapped():
+    """The box layout reorders the ghost region into segments through the
+    slot maps only: every hid has a distinct slot in the segment region,
+    and a staged vector's owned pads, orphan slots and trash are 0."""
+
+    def driver(parts):
+        A, b, xe, x0 = pt.assemble_poisson(parts, (9, 7, 8))
+        L = device_layout(A.cols)
+        info = L.box_info
+        assert info is not None and len(info.box_shapes) > 1
+        assert L.W == L.no_max + info.nh_total + 1
+        dv = DeviceVector.from_pvector(x0, parts.backend, L)
+        for p, iset in enumerate(A.cols.partition.part_values()):
+            hs = L.hid_slots[p]
+            assert len(np.unique(hs)) == len(hs) and (hs >= L.g0).all() and (hs < L.trash).all()
+            assert not dv.data[p, L.o0 + iset.num_oids : L.g0].any()
+            orphan = np.ones(L.W, dtype=bool)
+            orphan[: L.g0] = False
+            orphan[hs] = False
+            assert not dv.data[p, torch.from_numpy(orphan)].any()
+        return True
+
+    assert pt.prun(driver, CPU, (2, 2, 2))
+
+
+# ---------------------------------------------------------------------------
+# multigrid: routes, transfers, GMG-PCG
+# ---------------------------------------------------------------------------
+
+#: (ns, operator, coarse_threshold), as tests/test_gmg.py:603-690: equal
+#: boxes, unequal boxes (multi-variant descriptors), a periodic torus
+#: (wrapped segments masked)
+GMG_CASES = {
+    "equal": ((16, 16, 16), "dirichlet", 100),
+    "unequal": ((17, 14, 10), "dirichlet", 50),
+    "periodic": ((12, 12, 12), "periodic", 100),
+}
+GMG_TOL = 1e-9
+
+
+def _jax_route(l):
+    return "stencil" if "stencil" in l else "emb_fast" if "emb_fast" in l else "structured" if "dS" in l else "assembled"
+
+
+def _csr(M):
+    return (np.asarray(M.indptr), np.asarray(M.indices), np.asarray(M.data), tuple(M.shape))
+
+
+def _iset_arrays(r):
+    isets = r.partition.part_values()
+    return {
+        "lid_to_gid": [np.asarray(i.lid_to_gid) for i in isets],
+        "lid_to_part": [np.asarray(i.lid_to_part) for i in isets],
+        "grid_shape": isets[0].grid_shape, "boxes": [(i.box_lo, i.box_hi) for i in isets],
+    }
+
+
+def _with_env(env, fn):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _jax_transfers(h, backend, seed):
+    """Per stencil level of the JAX hierarchy: the restriction of a
+    gid-seeded fine frame (`_stencil_apply` + `_box_extract` per part) and
+    the prolongation of a gid-seeded coarse vector (`_box_interleave`, the
+    box exchange, `_stencil_apply`), with the frames they read."""
+    import jax.numpy as jnp
+
+    dh = jgmg._device_hierarchy(h, backend)
+    out = []
+    for li, lv in enumerate(dh["levels"]):
+        if "stencil" not in lv:
+            out.append(None)
+            continue
+        lvl = h.levels[li]
+        LA = lv["dA"].col_plan.layout
+        crows = h.levels[li + 1].A.rows if li + 1 < len(h.levels) else h.coarse_A.rows
+        rng = np.random.default_rng(seed + li)
+        xg, eg = rng.standard_normal(math.prod(lvl.nfs)), rng.standard_normal(math.prod(lvl.ncs))
+        vals = pa.map_parts(lambda i: xg[np.asarray(i.lid_to_gid)], lvl.A.cols.partition)
+        frame = np.asarray(jtpu.DeviceVector.from_pvector(pa.PVector(vals, lvl.A.cols), backend, LA).data)
+        descs, shells = lv["stencil"], lv["shell"]
+        dsel = np.asarray(lv["dsel"]).reshape(-1) if "dsel" in lv else np.zeros(LA.P, dtype=int)
+        shm = np.asarray(lv["shmask"]) if "shmask" in lv else None
+        z = np.zeros_like(frame)
+        rest = []
+        for p, ci in enumerate(crows.partition.part_values()):
+            fb, cb, st = descs[dsel[p]]
+            dm = None if shm is None else jnp.asarray(shm[p])
+            w = jgmg._stencil_apply(jnp, LA, shells[dsel[p]], jnp.asarray(frame[p]), fb, dm)
+            rest.append(np.asarray(jgmg._box_extract(jnp, w, fb, cb, st)))
+            ec = eg[np.asarray(ci.oid_to_gid)]
+            t = np.asarray(jgmg._box_interleave(jnp, jnp.asarray(ec), fb, cb, st))
+            z[p, LA.o0 : LA.o0 + len(t)] = t
+        zx = np.asarray(jtpu.make_exchange_fn(lvl.A.cols, backend)(jtpu._stage(backend, z, LA.P)))
+        prol = [
+            np.asarray(jgmg._stencil_apply(jnp, LA, shells[dsel[p]], jnp.asarray(zx[p]), descs[dsel[p]][0],
+                                           None if shm is None else jnp.asarray(shm[p])))
+            for p in range(LA.P)
+        ]
+        out.append({"frame": frame, "restrict": rest, "z": zx, "prolong": prol})
+    return out
+
+
+def _port_transfers(h, backend, seed):
+    """The port's stencil route on the same inputs: `_extract` of
+    `box_stencil_apply`, and `_interleave`, the box exchange,
+    `box_stencil_apply`."""
+    dh = gpu_gmg.device_hierarchy(h, backend)
+    out = []
+    for li, lv in enumerate(dh["levels"]):
+        if gpu_gmg.route(lv) != "stencil":
+            out.append(None)
+            continue
+        lvl, op = h.levels[li], lv["stencil"]
+        LA = lv["dA"].col_layout
+        crows = h.levels[li + 1].A.rows if li + 1 < len(h.levels) else h.coarse_A.rows
+        rng = np.random.default_rng(seed + li)
+        xg, eg = rng.standard_normal(math.prod(lvl.nfs)), rng.standard_normal(math.prod(lvl.ncs))
+        vals = lvl.A.cols.partition._like([xg[np.asarray(i.lid_to_gid)] for i in lvl.A.cols.partition.part_values()])
+        frame = DeviceVector.from_pvector(pt.PVector(vals, lvl.A.cols), backend, LA).data
+        cis = crows.partition.part_values()
+        nc = max(i.num_oids for i in cis)
+        rc = torch.zeros((LA.P, nc), dtype=frame.dtype)
+        gpu_gmg._extract(stn.box_stencil_apply(op, frame), op.groups, rc)
+        ec = torch.zeros((LA.P, nc), dtype=frame.dtype)
+        for p, ci in enumerate(cis):
+            ec[p, : ci.num_oids] = torch.from_numpy(eg[np.asarray(ci.oid_to_gid)])
+        z = torch.zeros_like(frame)
+        gpu_gmg._interleave(ec, op.groups, z[:, LA.o0 : LA.o0 + LA.no_max])
+        exchange_(lv["dA"].col_plan, z)
+        ef = stn.box_stencil_apply(op, z)
+        out.append({
+            "frame": frame.numpy(), "z": z.numpy(),
+            "restrict": [rc[p, : ci.num_oids].numpy() for p, ci in enumerate(cis)],
+            "prolong": [ef[p, : int(op.table[p, 3])].numpy() for p in range(LA.P)],
+            "groups": len(op.groups), "mask": op.mask is not None,
+        })
+    return out
+
+
+@pytest.fixture(scope="module", params=list(GMG_CASES))
+def gmg_case(request):
+    """Both packages' routes per level (default, ``stencil=False`` /
+    PA_TPU_GMG_STENCIL=0, ``box=False`` / PA_TPU_BOX=0 PA_TPU_GMG_BOX=0),
+    GMG-PCG on the default routes, and the stencil levels' transfers."""
+    ns, kind, ct = GMG_CASES[request.param]
+
+    def jax_driver(parts):
+        if kind == "periodic":
+            A, b, xe, _ = pa.assemble_poisson_periodic(parts, ns, shift=1.0)
+        else:
+            A0, b0, xe, _ = pa.assemble_poisson(parts, ns)
+            A, b = pa.decouple_dirichlet(A0, b0)
+        h = pa.gmg_hierarchy(parts, A, ns, coarse_threshold=ct)
+        x, info = pa.pcg(A, b, minv=h, tol=GMG_TOL)
+        assert info["converged"]
+
+        def routes():
+            return [_jax_route(l) for l in jgmg._device_hierarchy(h, parts.backend)["levels"]]
+
+        return {
+            "routes": {
+                "default": routes(),
+                "stencil=False": _with_env({"PA_TPU_GMG_STENCIL": "0"}, routes),
+                "box=False": _with_env({"PA_TPU_BOX": "0", "PA_TPU_GMG_BOX": "0"}, routes),
+            },
+            "it": info["iterations"], "x": pa.gather_pvector(x), "transfers": _jax_transfers(h, parts.backend, 7),
+            "rows": _iset_arrays(A.rows), "cols": _iset_arrays(A.cols),
+            "csr": [_csr(M) for M in A.values.part_values()], "b": [np.asarray(v) for v in b.values.part_values()],
+        }
+
+    j = pa.prun(jax_driver, pa.tpu, (2, 2, 2))
+
+    def port_driver(parts):
+        rows = pt.cartesian_partition(parts, ns, pt.no_ghost)
+        e = j["cols"]
+        cols = interop.prange_from_arrays(parts, rows.ngids, e["lid_to_gid"], e["lid_to_part"],
+                                          grid_shape=e["grid_shape"], boxes=e["boxes"])
+        A = interop.psparse_from_csr(rows, cols, j["csr"])
+        b = interop.pvector_from_values(rows, j["b"])
+        h = pt.gmg_hierarchy(parts, A, ns, coarse_threshold=ct)
+        x, info = pt.pcg(A, b, minv=h, tol=GMG_TOL)
+        _, info_s = pt.pcg(A, b, minv=h, tol=GMG_TOL, stencil=False)
+        kw = {"default": {}, "stencil=False": {"stencil": False}, "box=False": {"box": False}}
+        return {
+            "routes": {k: [gpu_gmg.route(l) for l in gpu_gmg.device_hierarchy(h, parts.backend, **v)["levels"]]
+                       for k, v in kw.items()},
+            "it": info["iterations"], "it_structured": info_s["iterations"], "x": pt.gather_pvector(x),
+            "transfers": _port_transfers(h, parts.backend, 7),
+        }
+
+    return request.param, j, pt.prun(port_driver, CPU, (2, 2, 2))
+
+
+def test_route_per_level_matches_jax(gmg_case):
+    name, j, p = gmg_case
+    assert p["routes"] == j["routes"]
+    assert "stencil" in p["routes"]["default"]
+    assert "stencil" not in p["routes"]["stencil=False"] + p["routes"]["box=False"]
+    assert "emb_fast" not in p["routes"]["box=False"]
+
+
+def test_stencil_transfers_match_jax(gmg_case):
+    """Restriction and prolongation on every stencil level: the frames
+    each package reads are equal slot for slot (the prolongation's after
+    the box exchange), and the results agree to f64 rounding."""
+    name, j, p = gmg_case
+    levels = [(a, b) for a, b in zip(p["transfers"], j["transfers"]) if a is not None or b is not None]
+    assert levels and all(a is not None and b is not None for a, b in levels)
+    for a, b in levels:
+        assert np.array_equal(a["frame"], b["frame"])
+        assert np.array_equal(a["z"], b["z"])
+        for got, want in zip(a["restrict"] + a["prolong"], b["restrict"] + b["prolong"]):
+            np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13 * np.abs(want).max())
+    if name == "unequal":
+        assert any(a["groups"] > 1 for a, _ in levels)  # multi-descriptor groups ran
+    if name == "periodic":
+        assert any(a["mask"] for a, _ in levels)  # wrapped segments masked
+
+
+def test_gmg_pcg_stencil_route_matches_jax(gmg_case):
+    name, j, p = gmg_case
+    assert p["it"] == j["it"] == p["it_structured"]
+    np.testing.assert_allclose(p["x"], j["x"], atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic, and launch counts
+# ---------------------------------------------------------------------------
+
+
+def _emulate_kernel(op, xv):
+    """csrc/box_stencil.cu in numpy: one output point per lane, its
+    neighbours read from the frame through the table (core box, segment
+    at g0 + off, 0 for an absent direction, the mask), the 27 terms of the
+    3-D stencil summed in the kernel's loop order with separate roundings
+    on every level (a 2-D level is a box with leading extent 1, its extra
+    terms zeros)."""
+    x = xv.numpy()
+    table = op.table.numpy()
+    mask = None if op.mask is None else op.mask.numpy()
+    y = np.zeros((x.shape[0], op.n), dtype=x.dtype)
+    for p in range(x.shape[0]):
+        f0, f1, f2, cnt = (int(v) for v in table[p, :4])
+        i = np.arange(cnt)
+        c = (i // f2 // f1, i // f2 % f1, i % f2)
+        acc = None
+        for d in [(a, b, e) for a in (-1, 0, 1) for b in (-1, 0, 1) for e in (-1, 0, 1)]:
+            nb = [c[k] + d[k] for k in range(3)]
+            e = [np.where(nb[k] < 0, -1, np.where(nb[k] >= (f0, f1, f2)[k], 1, 0)) for k in range(3)]
+            core = (e[0] == 0) & (e[1] == 0) & (e[2] == 0)
+            v = np.zeros(cnt, dtype=x.dtype)
+            v[core] = x[p, op.o0 + ((nb[0] * f1 + nb[1]) * f2 + nb[2])[core]]
+            k = (e[0] + 1) * 9 + (e[1] + 1) * 3 + (e[2] + 1)
+            off = table[p, 4 + k]
+            seg = ~core & (off >= 0)
+            s1, s2 = np.where(e[1] != 0, 1, f1), np.where(e[2] != 0, 1, f2)
+            q = [np.where(e[j] != 0, 0, nb[j]) for j in range(3)]
+            v[seg] = x[p, (op.g0 + off + (q[0] * s1 + q[1]) * s2 + q[2])[seg]]
+            if mask is not None:
+                v[seg] = v[seg] * mask[p, k[seg]]
+            nz = sum(1 for t in d if t != 0)
+            term = v if nz == 0 else x.dtype.type(0.5 ** nz) * v
+            acc = term if acc is None else acc + term
+        y[p, :cnt] = acc
+    return y
+
+
+#: hierarchies whose every stencil level the emulation is held on: one
+#: part (the chip's 192^3 case, cut), stacked equal and unequal boxes, a
+#: 2-D grid (the table's padded leading dimension)
+EMU_CASES = {
+    "24^3-one-part-f32": ((24, 24, 24), (1, 1, 1), np.float32, 100),
+    "16^3-2x2x2-f64": ((16, 16, 16), (2, 2, 2), np.float64, 100),
+    "17x14x10-unequal-f64": ((17, 14, 10), (2, 2, 2), np.float64, 50),
+    "20x18-2x2-f32": ((20, 18), (2, 2), np.float32, 20),
+}
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_kernel_emulation_matches_plain(case):
+    ns, grid, dt, ct = EMU_CASES[case]
+
+    def driver(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, ns, dtype=dt)
+        h = pt.gmg_hierarchy(parts, pt.decouple_dirichlet(A), ns, coarse_threshold=ct)
+        dh = gpu_gmg.device_hierarchy(h, parts.backend)
+        rng = np.random.default_rng(3)
+        held = 0
+        for lv in dh["levels"]:
+            if gpu_gmg.route(lv) == "stencil":
+                op = lv["stencil"]
+                xv = torch.from_numpy(rng.standard_normal((op.table.shape[0], op.W)).astype(dt))
+                want = stn.box_stencil_apply_plain(op, xv).numpy()
+                assert np.array_equal(_emulate_kernel(op, xv), want)
+                # and with a random mask on every direction slot
+                masked = dataclasses.replace(op, mask=torch.from_numpy(
+                    rng.integers(0, 2, (op.table.shape[0], 27)).astype(dt)))
+                assert np.array_equal(_emulate_kernel(masked, xv), stn.box_stencil_apply_plain(masked, xv).numpy())
+                held += 1
+        return held
+
+    assert pt.prun(driver, CPU, grid) >= 1
+
+
+def test_stencil_route_launch_counts(monkeypatch):
+    """On the stencil route one V-cycle makes 2 SpMVs with each level's
+    operator and 2 stencil applies on each stencil level, and no SpMV with
+    any S; each PCG iteration one more SpMV with the fine operator:
+    counted here through the wrappers the device loop calls (one part,
+    every level on the stencil route, as the chip's 192^3 case)."""
+    calls = {"dia_coded_spmv": 0, "dia_stream_spmv": 0, "box_stencil_apply": 0}
+
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    counting(dia, "dia_coded_spmv")
+    counting(dia, "dia_stream_spmv")
+    counting(stn, "box_stencil_apply")
+
+    def driver(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (24, 24, 24), dtype=np.float32)
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (24, 24, 24), coarse_threshold=100)
+        dh = gpu_gmg.device_hierarchy(h, parts.backend)
+        for k in calls:
+            calls[k] = 0
+        it = pt.pcg(Ah, bh, minv=h, tol=1e-5)[1]["iterations"]
+        return [gpu_gmg.route(l) for l in dh["levels"]], [l["dA"].dia_mode for l in dh["levels"]], it
+
+    routes, modes, it = pt.prun(driver, CPU, (1, 1, 1))
+    L = len(routes)
+    assert routes == ["stencil"] * L and L >= 2 and it > 0
+    n_stream = modes.count("stream")
+    assert calls["dia_coded_spmv"] == 1 + it * (1 + 2 * (L - n_stream))  # no S anywhere
+    assert calls["dia_stream_spmv"] == it * 2 * n_stream
+    assert calls["box_stencil_apply"] == it * 2 * L

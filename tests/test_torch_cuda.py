@@ -257,3 +257,117 @@ def test_stacked_parts_cg_matches_sequential():
     assert info_g["cg_body"] == "fused" and info_g["converged"]
     assert info_g["iterations"] == info_s["iterations"]
     assert abs(err_g - err_s) <= 1e-12
+
+
+#: hierarchies whose stencil levels the box stencil kernel is held on: one
+#: part, stacked equal and unequal boxes, a 2-D grid
+STENCIL_CASES = {
+    "24^3-one-part": ((24, 24, 24), (1, 1, 1), 100),
+    "16^3-2x2x2": ((16, 16, 16), (2, 2, 2), 100),
+    "17x14x10-unequal": ((17, 14, 10), (2, 2, 2), 50),
+    "20x18-2x2": ((20, 18), (2, 2), 20),
+}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", list(STENCIL_CASES))
+def test_box_stencil_kernel_matches_plain(case, dtype, masked):
+    """box_stencil_apply torch.equal to its plain version on every stencil
+    level of a real hierarchy (ghost segments refreshed by the box
+    exchange), with and without a random 0/1 mask on the directions."""
+    import dataclasses
+
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import exchange_
+
+    _need_card()
+    ns, grid, ct = STENCIL_CASES[case]
+
+    def driver(parts):
+        A, _, _, _ = pt.assemble_poisson(parts, ns, dtype=dtype)
+        h = pt.gmg_hierarchy(parts, pt.decouple_dirichlet(A), ns, coarse_threshold=ct)
+        return gpu_gmg.device_hierarchy(h, parts.backend)
+
+    dh = pt.prun(driver, pt.GPUBackend(), grid)
+    rng = np.random.default_rng(13)
+    held = 0
+    for lv in dh["levels"]:
+        if gpu_gmg.route(lv) != "stencil":
+            continue
+        op = lv["stencil"]
+        P = op.table.shape[0]
+        if masked:
+            op = dataclasses.replace(op, mask=torch.from_numpy(rng.integers(0, 2, (P, 27)).astype(dtype)).cuda())
+        x = torch.from_numpy(rng.standard_normal((P, op.W)).astype(dtype)).cuda()
+        exchange_(lv["dA"].col_plan, x)
+        dia.reset_launches()
+        y = stn.box_stencil_apply(op, x)
+        torch.cuda.synchronize()
+        assert dia.LAUNCHES["box_stencil_apply"] == 1
+        assert torch.equal(y, stn.box_stencil_apply_plain(op, x))
+        held += 1
+    assert held >= 1
+
+
+@pytest.mark.parametrize("ns,grid", [((16, 16, 16), (2, 2, 2)), ((9, 7, 8), (2, 2, 2)), ((12, 12), (2, 4))],
+                         ids=["16^3", "9x7x8", "12x12"])
+def test_box_exchange_matches_generic_on_card(ns, grid):
+    """Both combines through the box plan on the card against the generic
+    plan: set equal per lid, add to rounding (another summation order)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import (
+        DeviceVector, device_exchange_plan, device_layout, exchange_,
+    )
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
+    _need_card()
+
+    def driver(parts):
+        r = pt.prange(parts, ns, pt.with_ghost)
+        rng = np.random.default_rng(17)
+        vals = [rng.standard_normal(i.num_lids) for i in r.partition.part_values()]
+        out = []
+        for combine in ("set", "add"):
+            rev = combine == "add"
+            res = []
+            for box in (True, False):
+                plan = device_exchange_plan(r, parts.backend, reverse=rev, box=box)
+                assert isinstance(plan, BoxExchangePlan) == box
+                dv = DeviceVector.from_pvector(
+                    pt.PVector(parts._like([v.copy() for v in vals]), r), parts.backend, device_layout(r, box)
+                )
+                exchange_(plan, dv.data, combine)
+                res.append(pt.gather_pvector(dv.to_pvector()) if rev else
+                           [np.asarray(v) for v in dv.to_pvector().values.part_values()])
+            out.append(res)
+        return out
+
+    (set_box, set_gen), (add_box, add_gen) = pt.prun(driver, pt.GPUBackend(), grid)
+    for a, b in zip(set_box, set_gen):
+        assert np.array_equal(a, b)
+    # standard normal values, at most 8 contributions a cell: rounding only
+    np.testing.assert_allclose(add_box, add_gen, rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.parametrize("ns", [(16, 16, 16), (17, 14, 10)], ids=["equal", "unequal"])
+def test_gmg_pcg_routes_match_sequential_on_card(ns):
+    """GMG-PCG on the stacked (2,2,2) parts on every route takes the
+    sequential backend's iterations; the stencil route launches the stencil
+    kernel and the structured routes none (unequal boxes: level 0 takes
+    the structured route without emb_fast, through the box plan's add)."""
+    _need_card()
+
+    def driver(parts, **kw):
+        A, b, xe, _ = pt.assemble_poisson(parts, ns)
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, ns, coarse_threshold=50)
+        x, info = pt.pcg(Ah, bh, minv=h, tol=1e-8, **kw)
+        return info["iterations"], float((x - xe).norm())
+
+    it_s, err_s = pt.prun(driver, pt.sequential, (2, 2, 2))
+    for kw in ({}, {"stencil": False}, {"box": False}):
+        dia.reset_launches()
+        it, err = pt.prun(driver, pt.GPUBackend(), (2, 2, 2), **kw)
+        assert (dia.LAUNCHES["box_stencil_apply"] > 0) == (kw == {})
+        assert it == it_s and abs(err - err_s) <= 1e-9

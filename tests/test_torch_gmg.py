@@ -121,7 +121,8 @@ def port_run(jax_run):
         x, info = pt.pcg(Ah, bh, minv=h, tol=TOL)
         out["pcg"] = (pt.gather_pvector(x), info["iterations"], info)
         if isinstance(parts.backend, GPUBackend):
-            dh = gpu_gmg.device_hierarchy(h, parts.backend)
+            # the lowering of every S (the structured routes stage it)
+            dh = gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
             out["modes"] = [(l["dA"].dia_mode, l["dS"].dia_mode) for l in dh["levels"]]
         else:
             xs, info_s = pt.gmg_solve(h, bh, tol=TOL)
@@ -174,10 +175,12 @@ def test_gmg_solve_matches_jax(jax_run, port_run):
 
 
 def test_vcycle_launch_counts(monkeypatch):
-    """With pre = post = 1, one V-cycle makes 2 SpMVs with each level's
-    operator and 2 with each level's S (the zero-start pre-smoothing sweep
-    needs none), and each PCG iteration one more with the fine operator:
-    counted here through the wrappers the device loop calls."""
+    """On the structured routes (``stencil=False``), with pre = post = 1,
+    one V-cycle makes 2 SpMVs with each level's operator and 2 with each
+    level's S (the zero-start pre-smoothing sweep needs none), and each PCG
+    iteration one more with the fine operator: counted here through the
+    wrappers the device loop calls. The stencil route's count is in
+    tests/test_torch_box.py."""
     calls = {"coded": 0, "stream": 0}
 
     def counting(name, fn):
@@ -194,9 +197,9 @@ def test_vcycle_launch_counts(monkeypatch):
         A, b, _, _ = pt.assemble_poisson(parts, NS)
         Ah, bh = pt.decouple_dirichlet(A, b)
         h = pt.gmg_hierarchy(parts, Ah, NS, coarse_threshold=100)
-        gpu_gmg.device_hierarchy(h, parts.backend)
+        gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
         calls.update(coded=0, stream=0)
-        return len(h.levels), pt.pcg(Ah, bh, minv=h, tol=TOL)[1]["iterations"]
+        return len(h.levels), pt.pcg(Ah, bh, minv=h, tol=TOL, stencil=False)[1]["iterations"]
 
     L, it = pt.prun(driver, CPU, (2, 2, 2))
     assert L == 2 and it > 0
@@ -289,18 +292,23 @@ def test_cartesian_partition_cuts_match_jax(kw):
 
 def test_device_hierarchy_lives_on_the_backend_device():
     """The staged hierarchy lives on the backend's device: all tensors on
-    the CPU here, in the operator's dtype."""
+    the CPU here, in the operator's dtype, on both transfer routes."""
 
     def driver(parts):
         A, b, _, _ = pt.assemble_poisson(parts, (8, 8, 8), dtype=np.float32)
         Ah = pt.decouple_dirichlet(A)
         h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50)
-        return gpu_gmg.device_hierarchy(h, parts.backend)
+        return gpu_gmg.device_hierarchy(h, parts.backend), gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
 
-    dh = pt.prun(driver, CPU, (1, 1, 1))
-    assert dh["cinv"].dtype == torch.float32 and dh["cinv"].device.type == "cpu"
+    dh, dh_s = pt.prun(driver, CPU, (1, 1, 1))
+    for d in (dh, dh_s):
+        assert d["cinv"].dtype == torch.float32 and d["cinv"].device.type == "cpu"
+        for l in d["levels"]:
+            assert l["dinv"].dtype == torch.float32
     for l in dh["levels"]:
-        assert l["dinv"].dtype == torch.float32 and l["emb"].device.type == "cpu"
+        assert l["stencil"].table.device.type == "cpu" and "dS" not in l
+    for l in dh_s["levels"]:
+        assert l["emb"].device.type == "cpu" and l["dS"].coded.cb.dtype == torch.float32
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)], ids=["f32", "f64"])
@@ -340,14 +348,14 @@ def test_interp_stencil_lowering_matches_jax(grid, dtype, tol):
 def test_gmg_operators_take_the_specialised_select_sums():
     """On one part (as the 192^3 GMG-PCG of chip_smoke.py, here at 24^3) the
     level-0 operator is a 7-diagonal select-chain operator and every
-    stencil S a 27-diagonal one, both of the shapes the coded kernel's
-    select-chain sum is specialised for."""
+    stencil S of the structured route a 27-diagonal one, both of the
+    shapes the coded kernel's select-chain sum is specialised for."""
 
     def driver(parts):
         A, b, _, _ = pt.assemble_poisson(parts, (24, 24, 24), dtype=np.float32)
         Ah = pt.decouple_dirichlet(A)
         h = pt.gmg_hierarchy(parts, Ah, (24, 24, 24), coarse_threshold=500)
-        return gpu_gmg.device_hierarchy(h, parts.backend)
+        return gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
 
     dh = pt.prun(driver, CPU, (1, 1, 1))
     picks = [(dia.select_chain_instance(l["dA"].coded) if l["dA"].dia_mode == "coded" else None,

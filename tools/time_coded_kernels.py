@@ -28,13 +28,16 @@ busy while the launch is queued), and ``loop_ms``, 20 back-to-back
 launches over one event pair, divided by 20 (as the CG loop runs them).
 ``--cg N`` and ``--gmg N`` add, per checkout in a process of its own,
 fused and pipelined CG seconds per iteration at N^3, and GMG-PCG seconds
-per iteration at N^3 (set up by chip_smoke.py's `gmg_driver`), its
-profile (chip_smoke.py's `phase_profile`), and for each coded operator of
-its hierarchy the host and device microseconds of one K1 launch and
-chip_smoke.py's `gmg_coded_operator` line (shape, launches per solve,
-flushed and back-to-back µs, plain and torch.sparse.mm µs, the empty
-kernel launched as K1 is, the bound), with the bare empty kernel's
-`null_launch` line. The timers and the set-up are this checkout's
+per iteration at N^3 (set up by chip_smoke.py's `gmg_driver`, fixed trips
+chip_smoke.py's `GMG_TRIPS`) and its profile (chip_smoke.py's
+`phase_profile`) on the stencil and the structured transfer routes (a
+checkout from before the box plan: its one route, ``structured_emb``),
+for each coded operator of the structured route's hierarchy the host and
+device microseconds of one K1 launch and chip_smoke.py's
+`gmg_coded_operator` line (shape, launches per solve, flushed and
+back-to-back µs, plain and torch.sparse.mm µs, the empty kernel launched
+as K1 is, the bound), its `box_stencil_level` line per stencil level, and
+the bare empty kernel's `null_launch` line. The timers and the set-up are this checkout's
 chip_smoke.py, so every checkout is timed the same way. One JSON line per
 measurement; the nvidia-smi name and power-limit line first. Exits
 non-zero without a card.
@@ -173,11 +176,12 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     """The solvers' seconds per iteration with the package of checkout
     `root`, in a process of its own: fused and pipelined CG at cg_n^3
     float32 (fixed trips of 20 and 220), and GMG-PCG at gmg_n^3 float32
-    (fixed trips of 2 and 12) with, for the coded operators of its
-    hierarchy, the host and device microseconds of one K1 launch, issued
+    on each transfer route with, for the coded operators of the structured
+    route's hierarchy, the host and device microseconds of one K1 launch, issued
     back to back per operator and in turn over all of them (as a V-cycle
     issues them); the profile, the empty kernel's line and chip_smoke.py's
-    `gmg_coded_operator` lines go to stdout first."""
+    `gmg_coded_operator` and `box_stencil_level` lines go to stdout
+    first."""
     # the checkout's package first: chip_smoke.py's own imports then find it
     sys.path.insert(0, str(root))
     import partitionedarrays_jl_tpu_torch  # noqa: F401
@@ -203,17 +207,30 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     run = smoke.prun(smoke.gmg_driver, backend, (1, 1, 1), gmg_n, True)
     h = run["h"]
     b = smoke._b_on_cols_layout(run["bh"], smoke.device_matrix(run["Ah"], backend))
-    s_per_iter, _ = smoke.fixed_trip_s_per_iter(
-        lambda m: smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), b, torch.zeros_like(b), 2, 12)
-    smoke.phase_profile("gmg_pcg_profile", smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5), b, torch.zeros_like(b), 5)
-    dh = smoke.gpu_gmg.device_hierarchy(h, backend)
+    x0 = torch.zeros_like(b)
+    # a checkout from before the box plan has one route: S coded, E the emb gather
+    routes = hasattr(smoke.gpu_gmg, "route")
+    kws = (("stencil", {}), ("structured", {"stencil": False})) if routes else (("structured_emb", {}),)
+    coded_kw = kws[-1][1]
+    out.update({"gmg_n": gmg_n, "gmg_pcg_s_per_iter": {}, "fixed_trips": smoke.GMG_TRIPS})
+    for name, kw in kws:
+        out["gmg_pcg_s_per_iter"][name], _ = smoke.fixed_trip_s_per_iter(
+            lambda m: smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m, **kw), b, x0, *smoke.GMG_TRIPS)
+        smoke.phase_profile(f"gmg_pcg_profile_{name}", smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5, **kw),
+                            b, x0, 5)
+    # the coded operators of the structured route (its S included)
+    dh = smoke.gpu_gmg.device_hierarchy(h, backend, **coded_kw)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
     # a solve to tolerance for the launch counts, then one line per coded
-    # operator and the empty kernel's (chip_smoke.py's phase 5 lines)
-    iterations = smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, smoke.TOL_MAIN, 4 * run["Ah"].rows.ngids)(
-        b, torch.zeros_like(b))[3]
+    # operator, per stencil level and the empty kernel's (chip_smoke.py's
+    # phase 5 lines)
+    iterations = smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, smoke.TOL_MAIN, 4 * run["Ah"].rows.ngids,
+                                                **coded_kw)(b, x0)[3]
     smoke.emit({"phase": "null_launch", "us": smoke.null_launch_us(flush)})
     smoke.coded_operator_times(dh, iterations, flush, np.random.default_rng(0))
+    if routes:
+        smoke.stencil_level_times(smoke.gpu_gmg.device_hierarchy(h, backend), iterations, flush,
+                                  np.random.default_rng(0))
     calls = []
     for lv in dh["levels"]:
         for dM in (lv["dA"], lv["dS"]):
@@ -221,8 +238,7 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
                 x = torch.ones((dM.col_layout.P, dM.col_layout.W), dtype=torch.float32, device=backend.device)
                 calls.append(functools.partial(dia.dia_coded_spmv, dM.coded, x, dM.row_layout.W))
     out.update({
-        "gmg_n": gmg_n, "levels": len(dh["levels"]), "gmg_pcg_s_per_iter": s_per_iter,
-        "coded_operators": len(calls),
+        "levels": len(dh["levels"]), "coded_operators": len(calls),
         "each": [host_device_us([f], 50) for f in calls],
         "in_turn": host_device_us(calls, 20),
     })
