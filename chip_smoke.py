@@ -31,7 +31,8 @@ Phases, one JSON line each:
    exchange plan, the matrix-free stencil transfers where they apply,
    else the structured ones with the strided-box embedding), with the
    staging seconds; the box stencil kernel torch.equal to its plain
-   version on every stencil level of both, after a box exchange of a
+   version on every stencil level of both, in the form the level's shape
+   takes and in the other form (tiled, slab), after a box exchange of a
    random frame;
 3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
    kernel launch counts are zeroed just before and read just after; the
@@ -90,9 +91,12 @@ Phases, one JSON line each:
    warm-L2 and back-to-back µs, its plain version's and torch.sparse.mm's
    µs, the empty kernel launched as the coded kernel is, and the bound
    rows x (2 x 4 B + code bytes) over 3.35 TB/s; and one line per stencil
-   level at 192^3: the stencil kernel's µs, its plain version's, conv3d
-   of the extended box with the fixed 3x3x3 weight (cuDNN, TF32 off), and
-   the bound (the owned box read and the result written);
+   level of both GMG hierarchies (192^3 f32, 48^3 f64 on (2,2,2) parts):
+   the form the stencil kernel takes there, its grid, threads, planes a
+   CTA, registers, shared memory and CTAs an SM, its flushed and
+   back-to-back µs, the other form's flushed µs, its plain version's,
+   conv3d of the extended boxes with the fixed 3x3x3 weight (cuDNN, TF32
+   off), and the bound (the owned box read and the result written);
 6. the launch counts of phases 3, 3b and 4b.
 
 It then prints the kernel table, the nvidia-smi line and, last,
@@ -348,16 +352,30 @@ def phase_kernels(backend, n, rng):
 # ---------------------------------------------------------------------------
 
 
+def _other_form(op, dtype):
+    """The operand bound to the kernel form its shape does not take, or
+    None for a checkout with one form."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+
+    if not hasattr(stn, "FORMS"):
+        return None
+    form = op.launch[dtype][2].form
+    return stn.bind_kernel(op, form=next(f for f in stn.FORMS if f != form))
+
+
 def _stencil_check(lv, rng, name):
     """The box stencil kernel torch.equal to its plain version on a stencil
-    level: a random frame, its ghost segments refreshed by the level's box
-    exchange."""
+    level, in the form its shape takes and in the other form: a random
+    frame, its ghost segments refreshed by the level's box exchange."""
     from partitionedarrays_jl_tpu_torch.ops import stencil as stn
 
     op = lv["stencil"]
     x = torch.from_numpy(rng.standard_normal((op.table.shape[0], op.W))).to(op.table.device, lv["dinv"].dtype)
     exchange_(lv["dA"].col_plan, x)
-    return _compare(f"box_stencil_apply {name}", stn.box_stencil_apply(op, x), stn.box_stencil_apply_plain(op, x))
+    want = stn.box_stencil_apply_plain(op, x)
+    other = _other_form(op, x.dtype)
+    return max(_compare(f"box_stencil_apply {name}", stn.box_stencil_apply(op, x), want),
+               _compare(f"box_stencil_apply {name} (other form)", stn.box_stencil_apply(other, x), want))
 
 
 def stage_routes(h, backend):
@@ -781,7 +799,7 @@ def phase_gmg_multi(backend, run, rng):
     for k in ("dia_coded_spmv", "dia_stream_spmv", "box_stencil_apply"):
         require(launches[k] > 0, f"stacked-parts GMG launched {k} no time")
     # with it, the kernels line's max_abs_err of K1 covers these operators
-    return {"stream": err_k4, "coded": max(err_k1.values())}
+    return {"stream": err_k4, "coded": max(err_k1.values()), "iterations": it}
 
 
 # ---------------------------------------------------------------------------
@@ -986,14 +1004,49 @@ def coded_operator_times(dh, iterations, flush, rng):
     return out
 
 
-def stencil_level_times(dh, iterations, flush, rng):
+def _ext_boxes(op, x):
+    """The parts' zero-padded extended boxes (P, 1, fb + 2) of a 3-D level
+    whose parts share one box: the owned boxes and the ghost segments
+    embedded as the plain version embeds them."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+
+    fb, P = op.groups[0].fb, x.shape[0]
+    ext = x.new_zeros((P, 1) + tuple(f + 2 for f in fb))
+    ext[(slice(None), 0) + tuple(slice(1, 1 + f) for f in fb)] = x[:, op.o0 : op.o0 + int(np.prod(fb))].reshape(
+        (P,) + fb)
+    for e, off in op.dirs:
+        shape = tuple(1 if c != 0 else f for c, f in zip(e, fb))
+        seg = x[:, op.g0 + off : op.g0 + off + int(np.prod(shape))].reshape((P,) + shape)
+        if op.mask is not None:
+            seg = seg * op.mask[:, stn.dir_index(e)].reshape((P,) + (1,) * len(fb))
+        sl = tuple(slice(0, 1) if c == -1 else slice(1 + f, 2 + f) if c == 1 else slice(1, 1 + f)
+                   for c, f in zip(e, fb))
+        ext[(slice(None), 0) + sl] = seg
+    return ext
+
+
+def _stencil_launch(op, dtype):
+    """The form, grid, threads, planes a CTA and rows a CTA of an operand's
+    launch, and that form's registers, shared memory, local memory and CTAs
+    an SM (the CUDA runtime's attributes); {} for a checkout without them."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+
+    if not hasattr(stn, "kernel_attributes"):
+        return {}
+    plan = op.launch[dtype][2]
+    return {"form": plan.form, "launch_grid": list(plan.grid), "threads": plan.threads, "planes_per_cta": plan.tz,
+            "rows_per_cta": plan.rows, **stn.kernel_attributes(dtype, plan)}
+
+
+def stencil_level_times(dh, iterations, flush, rng, tag="192^3 f32"):
     """One line per stencil level of a device hierarchy: the box stencil
-    kernel's flushed and back-to-back µs, its plain version's, conv3d of
-    the extended box with the fixed 3x3x3 weight (one part only; cuDNN
-    with TF32 off, so it computes the same function in f32), launches per
-    solve, and the bound: the owned boxes and ghost segments read and the
-    result written, bytes over 3.35 TB/s, 2 x 3^d - 2 operations a point
-    over 67 TFLOP/s. Returns the lines."""
+    kernel's form and launch, its flushed and back-to-back µs, the other
+    form's flushed µs, its plain version's, conv3d of the parts' extended
+    boxes with the fixed 3x3x3 weight (cuDNN with TF32 off, so it computes
+    the same function in f32; the boxes built before the timing), launches
+    per solve, and the bound: the owned boxes and ghost segments read and
+    the result written, bytes over 3.35 TB/s, 2 x 3^d - 2 operations a
+    point over 67 TFLOP/s. Returns the lines."""
     from partitionedarrays_jl_tpu_torch.ops import stencil as stn
 
     out = []
@@ -1016,40 +1069,46 @@ def stencil_level_times(dh, iterations, flush, rng):
         item = x.element_size()
         nh = dh["levels"][li]["dA"].col_layout.box_info.nh_total
         line = {
-            "phase": "box_stencil_level", "level": li, "grid": [int(v) for v in op.table[0, :3]], "parts": P,
-            "rows": rows, "dtype": str(dt), "launches_per_solve": 2 * iterations,
+            "phase": "box_stencil_level", "hierarchy": tag, "level": li,
+            "grid": [int(v) for v in op.table[0, :3]], "parts": P,
+            "rows": rows, "dtype": str(dt), "launches_per_solve": None if iterations is None else 2 * iterations,
+            **_stencil_launch(op, dt),
             "us": time_ms(k, flush) * 1e3, "loop_us": a.elapsed_time(b) * 1e3 / 20,
             "plain_us": time_ms(lambda: stn.box_stencil_apply_plain(op, x), flush) * 1e3,
         }
+        other = _other_form(op, dt)
+        if other is not None:
+            line["other_form"] = _stencil_launch(other, dt)
+            line["other_form"]["us"] = time_ms(lambda: stn.box_stencil_apply(other, x), flush) * 1e3
         bound_ms, line["bound_by"] = _bound_ms(item * (rows + P * nh + P * op.n), (2 * 3 ** op.dim - 2) * rows)
         line["bound_us"] = bound_ms * 1e3
         line["share_of_bound"] = line["bound_us"] / line["us"]
-        if P == 1:
-            fb = tuple(int(v) for v in op.table[0, 3 - op.dim : 3])
-            ext = torch.zeros((1, 1) + tuple(f + 2 for f in fb), dtype=dt, device=x.device)
-            ext[(0, 0) + tuple(slice(1, 1 + f) for f in fb)] = x[0, op.o0 : op.o0 + rows].view(fb)
+        if len(op.groups) == 1 and op.dim == 3:
+            ext = _ext_boxes(op, x)
             w = torch.tensor([0.5 ** sum(1 for c in d if c != 1) for d in np.ndindex(3, 3, 3)], dtype=dt,
                              device=x.device).view(1, 1, 3, 3, 3)
             tf32 = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
             try:
                 line["library_us"] = time_ms(lambda: torch.nn.functional.conv3d(ext, w), flush) * 1e3
-                conv = torch.nn.functional.conv3d(ext, w).reshape(-1)
+                conv = torch.nn.functional.conv3d(ext, w).reshape(P, -1)
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
-            line["library_max_abs_diff"] = float((conv - k()[0, :rows]).abs().max())
+            line["library_max_abs_diff"] = float((conv - k()[:, : conv.shape[1]]).abs().max())
             del ext, conv
         emit(line)
         out.append(line)
     return out
 
 
-def phase_gmg_times(backend, g, gs):
+def phase_gmg_times(backend, g, gs, multi):
     """The stream kernel on GMG level 1 of 192^3; GMG-PCG seconds per
     iteration, solve seconds and a profile of one iteration on both routes
     (stencil, structured); the empty kernel's µs; one line per coded
-    operator of the structured route and per stencil level. Returns the
-    stream kernel's and the stencil kernel's (level 0) numbers."""
+    operator of the structured route and per stencil level of both
+    hierarchies (``multi``: the stacked f64 one's device hierarchy and
+    iterations). Returns the stream kernel's and the stencil kernel's
+    (192^3 level 0) numbers."""
     dev = backend.device
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     dA1 = g["dh"]["levels"][1]["dA"]
@@ -1093,6 +1152,8 @@ def phase_gmg_times(backend, g, gs):
     emit({"phase": "null_launch", "us": null_launch_us(flush)})
     coded_operator_times(gs["dh"], gs["iterations"], flush, np.random.default_rng(SEED))
     levels = stencil_level_times(g["dh"], g["iterations"], flush, np.random.default_rng(SEED))
+    stencil_level_times(multi["dh"], multi["iterations"], flush, np.random.default_rng(SEED),
+                        f"{N_GMG_MULTI}^3 f64 (2,2,2)")
     s0 = levels[0]
     stencil = {"ms": s0["us"] / 1e3, "plain_ms": s0["plain_us"] / 1e3, "bound_ms": s0["bound_us"] / 1e3,
                "bound_by": s0["bound_by"], "library_ms": s0["library_us"] / 1e3}
@@ -1149,7 +1210,8 @@ def main() -> int:
     launches["box_stencil_apply"] = gmg["launches"]["box_stencil_apply"]
     err_multi = phase_gmg_multi(backend, gruns["multi"], rng)
     times = phase_times(backend, kern, run, N_MAIN)
-    times["dia_stream_spmv"], times["box_stencil_apply"] = phase_gmg_times(backend, gmg, gmg_s)
+    times["dia_stream_spmv"], times["box_stencil_apply"] = phase_gmg_times(
+        backend, gmg, gmg_s, {"dh": gruns["multi"]["dh"], "iterations": err_multi["iterations"]})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {

@@ -540,7 +540,14 @@ class _StencilParams(ctypes.Structure):
         ("o0", ctypes.c_longlong),
         ("g0", ctypes.c_longlong),
         ("fmax", ctypes.c_int * 3),
+        ("form", ctypes.c_int),
         ("tz", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("smem", ctypes.c_int),
+        ("grid", ctypes.c_int * 3),
+        ("uniform", ctypes.c_int),
+        ("segs", ctypes.c_int),
     ]
 
 
@@ -589,6 +596,10 @@ def build_kernels() -> dict:
     _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 9)
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
     _bind(libs["box_stencil"], "pa_box_stencil", _StencilParams, 5)
+    for dt in ("f32", "f64"):
+        f = getattr(libs["box_stencil"], f"pa_box_stencil_query_{dt}")
+        f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        f.restype = ctypes.c_int
     libs["dia_coded"].pa_dia_null.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     libs["dia_coded"].pa_dia_null.restype = ctypes.c_int
     _libs = libs

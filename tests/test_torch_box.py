@@ -451,12 +451,13 @@ def test_gmg_pcg_stencil_route_matches_jax(gmg_case):
 
 
 def _emulate_kernel(op, xv):
-    """csrc/box_stencil.cu in numpy: one output point per lane, its
-    neighbours read from the frame through the table (core box, segment
-    at g0 + off, 0 for an absent direction, the mask), the 27 terms of the
-    3-D stencil summed in the kernel's loop order with separate roundings
-    on every level (a 2-D level is a box with leading extent 1, its extra
-    terms zeros)."""
+    """csrc/box_stencil.cu's indexing in numpy: one output point per lane,
+    its neighbours read from the frame through the table (core box,
+    segment at g0 + off, 0 for an absent direction, the mask), the 27
+    terms of the 3-D stencil summed in np.ndindex order with separate
+    roundings on every level (a 2-D level is a box with leading extent 1,
+    its extra terms zeros). `_emulate_schedule` follows the kernel's order
+    of work."""
     x = xv.numpy()
     table = op.table.numpy()
     mask = None if op.mask is None else op.mask.numpy()
@@ -487,14 +488,178 @@ def _emulate_kernel(op, xv):
     return y
 
 
+def _ext_cell(x, mask, tb, op, n):
+    """ext[n] of one part as the kernel stages it (stage_cell): the owned
+    cell, the segment cell (times the direction's mask), or 0 for an absent
+    direction."""
+    f = [int(v) for v in tb[:3]]
+    e = [-1 if c < 0 else (1 if c >= fj else 0) for c, fj in zip(n, f)]
+    if e == [0, 0, 0]:
+        return x[op.o0 + (n[0] * f[1] + n[1]) * f[2] + n[2]]
+    k = (e[0] + 1) * 9 + (e[1] + 1) * 3 + (e[2] + 1)
+    off = int(tb[4 + k])
+    if off < 0:
+        return x.dtype.type(0)
+    s1, s2 = (1 if e[1] else f[1]), (1 if e[2] else f[2])
+    q = [0 if ej else c for ej, c in zip(e, n)]
+    v = x[op.g0 + off + (q[0] * s1 + q[1]) * s2 + q[2]]
+    return v if mask is None else v * mask[k]
+
+
+def _plane_terms(v, fin, mid, nw):
+    """One ext plane's terms for a column of outputs (plane_terms): v[d1][d2]
+    the 3x3 neighbourhood, each accumulator in (d1, d2) order."""
+    for d1 in range(3):
+        for d2 in range(3):
+            a = v[d1][d2]
+            nz = (d1 != 1) + (d2 != 1)
+            t0 = a if nz == 0 else a.dtype.type(0.5 ** nz) * a
+            t1 = a.dtype.type(0.5 ** (nz + 1)) * a
+            nw = t1 if (d1, d2) == (0, 0) else nw + t1
+            mid = mid + t0
+            fin = fin + t1
+    return fin, mid, nw
+
+
+def _zero_tail(yp, cnt, n, threads, nb, b):
+    for t in range(threads):
+        yp[cnt + b * threads + t : n : nb * threads] = 0
+
+
+def _emulate_tiled(op, x, mask, y, plan, zp, zb, bx, by):
+    """One CTA of the tiled form: its fixed copy ops of a ring slot (16-byte
+    chunks and rim cells of each staged row; ops inside the owned box copy
+    from the frame, the others resolve each cell), the ring of RING slots
+    filled AHEAD planes ahead, and the march over ext planes z0-1..z1 with
+    three rotating accumulators for each of a thread's RT rows."""
+    dt = x.dtype.type
+    V = 16 // x.itemsize
+    nch, rows = stn.TX // V, stn.TY + 2
+    opr, sx = nch + 2, stn.TX + 2 * V
+    nops = rows * opr
+    tb = op.table.numpy()[zp]
+    f0, f1, f2 = (int(v) for v in tb[:3])
+    nzb = plan.grid[2] // op.table.shape[0]
+    _zero_tail(y[zp], int(tb[3]), op.n, stn.THREADS, plan.grid[0] * plan.grid[1] * nzb,
+               (zb * plan.grid[1] + by) * plan.grid[0] + bx)
+    x0, y0, z0 = bx * stn.TX, by * stn.TY, zb * plan.tz
+    if x0 >= f2 or y0 >= f1 or z0 >= f0:
+        return
+    z1 = min(z0 + plan.tz, f0)
+    ops = []
+    for e in range(nops):
+        ly, k = divmod(e, opr)
+        n1 = y0 - 1 + ly
+        n2 = x0 + k * V if k < nch else (x0 - 1 if k == nch else x0 + stn.TX)
+        cnt = V if k < nch else 1
+        take = max(0, min(cnt, f2 + 1 - n2)) if n1 <= f1 else 0
+        core = 0 <= n1 < f1 and n2 >= 0 and n2 + cnt <= f2
+        ops.append((ly * sx + n2 - x0 + V, n1, n2, cnt, take, core, op.o0 + n1 * f2 + n2))
+    ring = np.full((stn.RING, rows * sx), np.nan, dtype=x.dtype)
+
+    def stage(n0):
+        slot = ring[(n0 - z0 + 1) % stn.RING]
+        for sh, n1, n2, cnt, take, core, g in ops:
+            if take == 0:
+                continue
+            if core and 0 <= n0 < f0:
+                slot[sh : sh + cnt] = x[g + n0 * f1 * f2 : g + n0 * f1 * f2 + cnt]
+            else:
+                for c in range(take):
+                    slot[sh + c] = _ext_cell(x, mask, tb, op, (n0, n1, n2 + c))
+
+    for i in range(stn.AHEAD):
+        if z0 - 1 + i <= z1:
+            stage(z0 - 1 + i)
+    tid = np.arange(stn.THREADS)
+    tx, ty = tid & 31, tid >> 5
+    c2, c1 = x0 + tx, y0 + stn.RT * ty
+    acc = [[np.zeros(stn.THREADS, dtype=x.dtype)] * 3 for _ in range(stn.RT)]
+    for n in range(z0 - 1, z1 + 1):
+        if n + stn.AHEAD <= z1:
+            stage(n + stn.AHEAD)
+        slot = ring[(n - z0 + 1) % stn.RING]
+        base = stn.RT * ty * sx + V - 1 + tx
+        v = [[slot[base + r * sx + d] for d in range(3)] for r in range(stn.RT + 2)]
+        acc = [_plane_terms(v[r : r + 3], *acc[r]) for r in range(stn.RT)]
+        for r, (fin, mid, nw) in enumerate(acc):
+            st = (c2 < f2) & (c1 + r < f1)
+            if n > z0:
+                y[zp, (((n - 1) * f1 + c1 + r) * f2 + c2)[st]] = fin[st]
+            acc[r] = [mid, nw, dt(0)]
+
+
+def _emulate_slab(op, x, mask, y, plan, zp, zb, bx):
+    """One CTA of the slab form: every cell of its tz + 2 ext planes of a
+    band of rows (with the rim) staged at once, then each point of the band
+    marched over them with three rotating accumulators."""
+    tb = op.table.numpy()[zp]
+    f0, f1, f2 = (int(v) for v in tb[:3])
+    nzb = plan.grid[2] // op.table.shape[0]
+    _zero_tail(y[zp], int(tb[3]), op.n, plan.threads, plan.grid[0] * nzb, zb * plan.grid[0] + bx)
+    r0, z0 = bx * plan.rows, zb * plan.tz
+    if r0 >= f1 or z0 >= f0:
+        return
+    r1, z1 = min(r0 + plan.rows, f1), min(z0 + plan.tz, f0)
+    W, H, L = f2 + 2, r1 - r0 + 2, z1 - z0 + 2
+    assert L * H * W * x.itemsize <= plan.smem  # the slab fits the CTA's shared memory
+    slab = np.array([_ext_cell(x, mask, tb, op, (z0 - 1 + lz, r0 - 1 + ly, lx - 1))
+                     for lz in range(L) for ly in range(H) for lx in range(W)], dtype=x.dtype)
+    i = np.arange((r1 - r0) * f2)
+    r, c = i // f2, i % f2
+    fin = mid = nw = np.zeros(len(i), dtype=x.dtype)
+    for lz in range(L):
+        v = [[slab[lz * H * W + (r + d1) * W + c + d2] for d2 in range(3)] for d1 in range(3)]
+        fin, mid, nw = _plane_terms(v, fin, mid, nw)
+        if lz >= 2:
+            y[zp, ((z0 + lz - 2) * f1 + r0 + r) * f2 + c] = fin
+        fin, mid = mid, nw
+
+
+def _emulate_schedule(op, xv, plan):
+    """csrc/box_stencil.cu's order of work in numpy, CTA by CTA over the
+    plan's grid: the form's staging (the tiled form's copy ops and ring,
+    the slab form's one-shot slab), each output's 27 terms added plane by
+    plane to its rotating accumulator, the stores and the zero tail.
+    Slots nothing writes stay NaN."""
+    x = xv.numpy()
+    mask = None if op.mask is None else op.mask.numpy()
+    P = x.shape[0]
+    y = np.full((P, op.n), np.nan, dtype=x.dtype)
+    gx, gy, gz = plan.grid
+    nzb = gz // P
+    for bz in range(gz):
+        zp, zb = divmod(bz, nzb)
+        for by in range(gy):
+            for bx in range(gx):
+                if plan.form == stn.TILED:
+                    _emulate_tiled(op, x[zp], None if mask is None else mask[zp], y, plan, zp, zb, bx, by)
+                else:
+                    _emulate_slab(op, x[zp], None if mask is None else mask[zp], y, plan, zp, zb, bx)
+    return y
+
+
+def _fake_occupancy(form, threads, smem):
+    """CTAs an SM holds, as the occupancy API would give them for the forms'
+    register and shared-memory use on an H100 (tiled: 4; slab: threads)."""
+    return 4 if form == stn.TILED else min(2048 // threads, (228 * 1024) // max(smem, 1))
+
+
 #: hierarchies whose every stencil level the emulation is held on: one
 #: part (the chip's 192^3 case, cut), stacked equal and unequal boxes, a
-#: 2-D grid (the table's padded leading dimension)
+#: 2-D grid (the table's padded leading dimension); boxes that cross the
+#: tiled form's edges (40x34x33: 34 rows over 16-row tiles, 33 points over
+#: 32-point tiles, a last extent not a multiple of 4, 40 planes over
+#: chunks of 3 or 14), and one on each side of the slab form's threshold
+#: (32x32 = 1024 points a plane takes the slab form, 33x32 the tiled)
 EMU_CASES = {
     "24^3-one-part-f32": ((24, 24, 24), (1, 1, 1), np.float32, 100),
     "16^3-2x2x2-f64": ((16, 16, 16), (2, 2, 2), np.float64, 100),
     "17x14x10-unequal-f64": ((17, 14, 10), (2, 2, 2), np.float64, 50),
     "20x18-2x2-f32": ((20, 18), (2, 2), np.float32, 20),
+    "40x34x33-one-part-f32": ((40, 34, 33), (1, 1, 1), np.float32, 5000),
+    "13x32x32-at-threshold-f64": ((13, 32, 32), (1, 1, 1), np.float64, 5000),
+    "7x33x32-above-threshold-f32": ((7, 33, 32), (1, 1, 1), np.float32, 5000),
 }
 
 
@@ -518,10 +683,64 @@ def test_kernel_emulation_matches_plain(case):
                 masked = dataclasses.replace(op, mask=torch.from_numpy(
                     rng.integers(0, 2, (op.table.shape[0], 27)).astype(dt)))
                 assert np.array_equal(_emulate_kernel(masked, xv), stn.box_stencil_apply_plain(masked, xv).numpy())
+                # the kernel's schedule: the form its shape takes, and each
+                # form forced, on 132, 5 and 1 SMs (longer plane chunks, ragged)
+                P, item = op.table.shape[0], np.dtype(dt).itemsize
+                plans = {stn.plan_launch(op.fmax, P, item, _fake_occupancy, n_sm, form)
+                         for form in (None, stn.TILED, stn.SLAB) for n_sm in (132, 5, 1)}
+                for plan in plans:
+                    for o in (op, masked):
+                        got = _emulate_schedule(o, xv, plan)
+                        assert np.array_equal(got, stn.box_stencil_apply_plain(o, xv).numpy()), plan
                 held += 1
         return held
 
     assert pt.prun(driver, CPU, grid) >= 1
+
+
+#: the stencil levels of chip_smoke.py's hierarchies (192^3 f32 on one
+#: part; 48^3 f64 on (2,2,2) parts: boxes of 12^3 and 6^3) and the launch
+#: each takes on 132 SMs: (box, parts, itemsize) -> (form, planes a CTA,
+#: rows a CTA, threads, grid)
+PLAN_CASES = {
+    "192^3-f32": ((192, 192, 192), 1, 4, ("tiled", 28, 16, 256, (6, 12, 7))),
+    "96^3-f32": ((96, 96, 96), 1, 4, ("tiled", 4, 16, 256, (3, 6, 24))),
+    "48^3-f32": ((48, 48, 48), 1, 4, ("tiled", 1, 16, 256, (2, 3, 48))),
+    "24^3-f32": ((24, 24, 24), 1, 4, ("slab", 1, 8, 192, (3, 1, 24))),
+    "12^3-f32": ((12, 12, 12), 1, 4, ("slab", 1, 12, 160, (1, 1, 12))),
+    "12^3-8-parts-f64": ((12, 12, 12), 8, 8, ("slab", 1, 12, 160, (1, 1, 96))),
+    "6^3-8-parts-f64": ((6, 6, 6), 8, 8, ("slab", 1, 6, 64, (1, 1, 48))),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_launch_on_gmg_levels(case):
+    """The form and grid `bind_kernel` takes on each stencil level of the
+    chip's hierarchies, from shapes and the occupancy alone: the grid
+    covers the box, one wave of the tiled form fills the card without
+    spilling into a second, a slab fits its shared memory."""
+    fmax, P, item, want = PLAN_CASES[case]
+    plan = stn.plan_launch(fmax, P, item, _fake_occupancy, 132)
+    assert (plan.form, plan.tz, plan.rows, plan.threads, plan.grid) == want
+    f0, f1, f2 = fmax
+    gx, gy, gz = plan.grid
+    assert gz == P * -(-f0 // plan.tz)
+    if plan.form == stn.TILED:
+        assert gx * stn.TX >= f2 and gy * stn.TY >= f1
+        assert gx * gy * gz <= plan.occupancy * 132 or plan.tz == f0
+    else:
+        assert gx * plan.rows >= f1 and plan.rows * f2 <= stn.THREADS
+        assert plan.smem == (plan.tz + 2) * (plan.rows + 2) * (f2 + 2) * item <= stn.SLAB_SMEM
+    assert (plan.form == stn.SLAB) == (f1 * f2 <= stn.SLAB_MAX_POINTS)
+
+
+def test_plan_launch_refuses_what_does_not_fit():
+    """A forced slab too wide for its shared memory, or a form the kernel
+    has not, raises (no form is swapped in)."""
+    with pytest.raises(ValueError, match="does not fit"):
+        stn.plan_launch((4, 4, 100000), 1, 8, _fake_occupancy, 132, stn.SLAB)
+    with pytest.raises(ValueError, match="no form"):
+        stn.plan_launch((4, 4, 4), 1, 4, _fake_occupancy, 132, "wavefront")
 
 
 def test_stencil_route_launch_counts(monkeypatch):

@@ -260,13 +260,44 @@ def test_stacked_parts_cg_matches_sequential():
 
 
 #: hierarchies whose stencil levels the box stencil kernel is held on: one
-#: part, stacked equal and unequal boxes, a 2-D grid
+#: part, stacked equal and unequal boxes, a 2-D grid; one-part boxes that
+#: cross the tiled form's tile and plane-chunk edges (77x66x70: 66 rows
+#: over 16-row tiles, 70 points over 32-point tiles, 77 planes over chunks
+#: of several planes, its level 1 39x33x35 tiled too; 40x34x33: an odd
+#: last extent, off 16-byte alignment),
+#: and one on each side of the slab form's threshold (32 x 32 points a
+#: plane takes the slab form, 33 x 32 the tiled)
 STENCIL_CASES = {
     "24^3-one-part": ((24, 24, 24), (1, 1, 1), 100),
     "16^3-2x2x2": ((16, 16, 16), (2, 2, 2), 100),
     "17x14x10-unequal": ((17, 14, 10), (2, 2, 2), 50),
     "20x18-2x2": ((20, 18), (2, 2), 20),
+    "77x66x70-chunks": ((77, 66, 70), (1, 1, 1), 1000),
+    "40x34x33-odd": ((40, 34, 33), (1, 1, 1), 5000),
+    "13x32x32-slab": ((13, 32, 32), (1, 1, 1), 5000),
+    "7x33x32-tiled": ((7, 33, 32), (1, 1, 1), 5000),
 }
+
+
+_STENCIL_HIERARCHIES = {}
+
+
+def _stencil_hierarchy(case, dtype):
+    """The device hierarchy (default routes, on the card) of a stencil case,
+    built once per case and dtype for every test that holds its levels."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+
+    key = (case, np.dtype(dtype).name)
+    if key not in _STENCIL_HIERARCHIES:
+        ns, grid, ct = STENCIL_CASES[case]
+
+        def driver(parts):
+            A, _, _, _ = pt.assemble_poisson(parts, ns, dtype=dtype)
+            h = pt.gmg_hierarchy(parts, pt.decouple_dirichlet(A), ns, coarse_threshold=ct)
+            return gpu_gmg.device_hierarchy(h, parts.backend)
+
+        _STENCIL_HIERARCHIES[key] = pt.prun(driver, pt.GPUBackend(), grid)
+    return _STENCIL_HIERARCHIES[key]
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
@@ -283,14 +314,7 @@ def test_box_stencil_kernel_matches_plain(case, dtype, masked):
     from partitionedarrays_jl_tpu_torch.parallel.gpu import exchange_
 
     _need_card()
-    ns, grid, ct = STENCIL_CASES[case]
-
-    def driver(parts):
-        A, _, _, _ = pt.assemble_poisson(parts, ns, dtype=dtype)
-        h = pt.gmg_hierarchy(parts, pt.decouple_dirichlet(A), ns, coarse_threshold=ct)
-        return gpu_gmg.device_hierarchy(h, parts.backend)
-
-    dh = pt.prun(driver, pt.GPUBackend(), grid)
+    dh = _stencil_hierarchy(case, dtype)
     rng = np.random.default_rng(13)
     held = 0
     for lv in dh["levels"]:
@@ -309,6 +333,61 @@ def test_box_stencil_kernel_matches_plain(case, dtype, masked):
         assert torch.equal(y, stn.box_stencil_apply_plain(op, x))
         held += 1
     assert held >= 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("form", ["tiled", "slab"])
+@pytest.mark.parametrize("case", list(STENCIL_CASES))
+def test_box_stencil_forms_match_plain(case, form, dtype):
+    """Each form of the box stencil kernel, forced on every stencil level of
+    a hierarchy whatever form its shape takes, torch.equal to the plain
+    version, with and without a random 0/1 mask."""
+    import dataclasses
+
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import exchange_
+
+    _need_card()
+    dh = _stencil_hierarchy(case, dtype)
+    rng = np.random.default_rng(29)
+    held = 0
+    for lv in dh["levels"]:
+        if gpu_gmg.route(lv) != "stencil":
+            continue
+        op = stn.bind_kernel(lv["stencil"], form=form)
+        P = op.table.shape[0]
+        assert op.launch[torch.float64 if dtype == np.float64 else torch.float32][2].form == form
+        x = torch.from_numpy(rng.standard_normal((P, op.W)).astype(dtype)).cuda()
+        exchange_(lv["dA"].col_plan, x)
+        masked = dataclasses.replace(op, mask=torch.from_numpy(rng.integers(0, 2, (P, 27)).astype(dtype)).cuda())
+        for o in (op, masked):
+            y = stn.box_stencil_apply(o, x)
+            torch.cuda.synchronize()
+            assert torch.equal(y, stn.box_stencil_apply_plain(o, x))
+        held += 1
+    assert held >= 1
+
+
+@pytest.mark.parametrize("field,value", [("rows", 8), ("threads", 128)])
+def test_box_stencil_refuses_a_foreign_tile(field, value):
+    """A tiled launch whose rows or threads differ from the tile the source
+    was built with raises through dia._raise_on (its grid would leave rows
+    of the result unwritten) and counts no launch."""
+    from partitionedarrays_jl_tpu_torch.ops import stencil as stn
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+
+    _need_card()
+    dh = _stencil_hierarchy("24^3-one-part", np.float32)
+    lv = next(lv for lv in dh["levels"] if gpu_gmg.route(lv) == "stencil")
+    op = stn.bind_kernel(lv["stencil"], form="tiled")
+    prm = op.launch[torch.float32][0]
+    setattr(prm, field, value)
+    x = torch.zeros((op.table.shape[0], op.W), dtype=torch.float32, device="cuda")
+    dia.reset_launches()
+    with pytest.raises(RuntimeError, match="box_stencil_apply"):
+        stn.box_stencil_apply(op, x)
+    assert dia.LAUNCHES["box_stencil_apply"] == 0
 
 
 @pytest.mark.parametrize("ns,grid", [((16, 16, 16), (2, 2, 2)), ((9, 7, 8), (2, 2, 2)), ((12, 12), (2, 4))],
