@@ -5,9 +5,17 @@
 
 Builds the CUDA kernels from the checkout (``build/pa_torch_kernels/``),
 drives the port's paths — the 3-D Poisson CG solve at 192^3 in float32 on
-one part (fused, then pipelined) and the multigrid-preconditioned CG at
-192^3 float32, through `prun`, `assemble_poisson`, `cg`, `pcg` and the
-lowerings — and holds every kernel against its plain PyTorch version.
+one part (fused, then pipelined and standard) and the
+multigrid-preconditioned CG at 192^3 float32, through `prun`,
+`assemble_poisson`, `cg`, `pcg` and the lowerings — and holds every kernel
+against its plain PyTorch version. Every solve runs the device-resident
+loop (`parallel/gpu_loop.py`): blocks of k iterations replayed as a CUDA
+graph, the stopping test a device flag; so launch counts are stated in the
+iterations the device ran (whole blocks, the frozen iterations after the
+stop included; ``device_iterations`` of the solve's ``device_loop``), and
+every path's graph solve is held torch.equal to the same loop run eagerly
+on the card (a ``loop_graph_vs_eager`` line each: iterations, block,
+device iterations, replays, capture seconds).
 Phases, one JSON line each:
 
 1. device and build: the nvidia-smi name/power-limit line, the device name,
@@ -25,7 +33,10 @@ Phases, one JSON line each:
    each must be torch.equal to its plain version (torch.equal counts
    -0.0 == +0.0: the kernel's sums start from -0.0 and the row-class
    decode skips exact-zero coefficients that the plain version adds);
-   the window plan (tile rows, shared-memory bytes) of each mode;
+   the window plan (tile rows, shared-memory bytes) of each mode; K3 with
+   its device flag 1 and 0 (0: the solution untouched), and the CG update
+   sweep `cg_sweep` (x and r, r only; the flag 1 and 0: x, r, partials,
+   rs) on the 192^3 frames;
 2b. the GMG hierarchies of phases 4b and 4c (192^3 f32 on one part, 48^3
    f64 on (2,2,2) stacked parts), staged on the default routes (the box
    exchange plan, the matrix-free stencil transfers where they apply,
@@ -35,14 +46,18 @@ Phases, one JSON line each:
    takes and in the other form (tiled, slab), after a box exchange of a
    random frame;
 3. main path: assemble, lower, solve to tol=1e-5 on the fused body; the
-   kernel launch counts are zeroed just before and read just after; the
-   same solve through the plain versions must take the same iterations and
-   reach an error within 1.1x;
+   kernel launch counts are zeroed just before and read just after: the
+   SpMV once (the initial residual), the direction-fold SpMV and the sweep
+   once per device iteration; the same solve through the plain versions
+   must take the same iterations and reach an error within 1.1x; graph
+   against eager;
 3b. pipelined CG on phase 3's operator (its cached lowering) to
    tol=1e-5, launch counts zeroed before and read after: the axpy kernel
-   once per iteration, the plain SpMV once (the initial residual); the
-   same iterations as the plain versions and as the standard body, error
-   within 1.1x of the plain solve's;
+   and the sweep once per device iteration, the plain SpMV once; the
+   same iterations as the plain versions and as the standard body (its
+   own counts: the SpMV 1 + 1 and the sweep 1 per device iteration),
+   error within 1.1x of the plain solve's; graph against eager for the
+   pipelined and the standard body;
 4. stacked parts: the (2,2,2)-part 48^3 float64 driver on the one card, on
    the box exchange plan, with the launch counts zeroed just before and
    read just after (both must be > 0), must take the iterations of the
@@ -50,41 +65,52 @@ Phases, one JSON line each:
    torch.equal against their plain versions on that path's float64
    operand with (8, W) frames, and the same solve through the plain
    versions and on the generic exchange plan must take the same
-   iterations; the box and the generic plan's ``set`` and ``add``
-   exchanges are timed (and agree: set exactly per lid, add to rounding),
-   and fused CG seconds per iteration are read on both plans;
+   iterations; the sweep held against its plain version on the (8, W)
+   f64 frames; graph against eager; the box and the generic plan's
+   ``set`` and ``add`` exchanges are timed (and agree: set exactly per
+   lid, add to rounding), and fused CG seconds per iteration are read on
+   both plans (the box plan in the graph and the eager loop);
 4b. GMG-PCG at 192^3 f32 on the stencil route (phase 2b's hierarchy, set
    up as tools/bench_gmg.py does: assemble, scale by 1/16 in f32,
    b = A x̂, decouple_dirichlet, gmg_hierarchy with coarse_threshold=500):
    5 levels, every one on the stencil route; launch counts zeroed before
-   `pcg` and read after must equal 1 + 3 per iteration (coded: the initial
-   residual, the outer A p and 2 on level 0 per V-cycle; no K1 on any S),
-   8 per iteration (stream: 2 on each of levels 1-4) and 10 per iteration
-   (the stencil kernel: 2 on each level); the same iterations as the plain
-   versions, error within 1.1x of theirs; the streaming-DIA kernel held on
-   level 1;
+   `pcg` and read after must equal 1 + 3 per device iteration (coded: the
+   initial residual, the outer A p and 2 on level 0 per V-cycle; no K1 on
+   any S), 8 per device iteration (stream: 2 on each of levels 1-4), 10
+   per device iteration (the stencil kernel: 2 on each level) and 1 sweep
+   per device iteration; the same iterations as the plain versions, error
+   within 1.1x of theirs; the streaming-DIA kernel held on level 1; graph
+   against eager;
 4b'. the same solve on the structured route (``stencil=False``): its
    staging seconds (S assembled and lowered on every level), the coded-DIA
    SpMV torch.equal to its plain version on every coded operator (level
    0's A and the stencils S of all 5 levels, select-chain decode), launch
-   counts 1 + 13 per iteration coded (2 with S on each level) and 8 per
-   iteration stream; the stencil route must take its iterations (7) and
-   reach an error within 1.1x of its;
+   counts 1 + 13 per device iteration coded (2 with S on each level), 8 per
+   device iteration stream and 1 sweep; the stencil route must take its
+   iterations (7) and reach an error within 1.1x of its; graph against
+   eager;
 4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card (phase
    2b's hierarchy): the iterations of the port's sequential backend, of the
-   plain versions and of the generic routes (``box=False``), coded, stream
-   and stencil launch counts > 0, the coded kernel torch.equal to its
-   plain version on level 0's A and S, the stream kernel on level 1;
-   seconds per iteration on both routes;
+   plain versions and of the generic routes (``box=False``), coded, stream,
+   stencil and sweep launch counts by the routes' formula (`gmg_launches`)
+   and > 0, the coded kernel torch.equal to its plain version on level 0's
+   A and S, the stream kernel on level 1; graph against eager; seconds per
+   iteration on both routes (the default routes in the graph and the eager
+   loop);
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
    torch.sparse.mm on the CSR operator, the bound (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32) and each kernel's share of its bound,
-   for the four DIA kernels; CG, pipelined CG and GMG-PCG (both routes)
-   seconds per iteration from two fixed-trip solves each, and
-   torch.profiler breakdowns of a fixed-trip CG and GMG-PCG iteration (both
-   routes) by kernel (wall times include the profiler's own cost); an
+   for the four DIA kernels; the sweep (its plain version, the eager ops
+   it replaces, its bound: x, p, r, q read and x, r written); fused,
+   pipelined and standard CG and GMG-PCG (both routes) seconds per
+   iteration from two fixed-trip solves each, in the graph and the eager
+   loop (each function's first call, the capture, outside the timed span),
+   and torch.profiler breakdowns of a fixed-trip CG and GMG-PCG iteration
+   (both routes; fused CG and the stencil route also in the eager loop) by
+   kernel, per device iteration (wall times include the profiler's own
+   cost); an
    empty kernel's µs on the same timer (the launch floor), one line per
    coded GMG operator at 192^3 (the structured route's): its shape and
    band-sum instance, launches per solve, the coded kernel's flushed,
@@ -97,7 +123,7 @@ Phases, one JSON line each:
    back-to-back µs, the other form's flushed µs, its plain version's,
    conv3d of the extended boxes with the fixed 3x3x3 weight (cuDNN, TF32
    off), and the bound (the owned box read and the result written);
-6. the launch counts of phases 3, 3b and 4b.
+6. the launch counts of phases 3, 3b and 4b (the sweep's of phase 3).
 
 It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
@@ -151,22 +177,25 @@ GMG_ITERATIONS = 7  # 192^3 f32 GMG-PCG to TOL_MAIN on either route
 GMG_TRIPS = (4, 24)  # fixed trips of the GMG-PCG seconds per iteration (2 and 12 drowned in host jitter)
 
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
-           "box_stencil_apply")
+           "box_stencil_apply", "cg_sweep")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_stream_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_stream.cu",
     "box_stencil_apply": "partitionedarrays_jl_tpu_torch/csrc/box_stencil.cu",
+    "cg_sweep": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
 }
-#: the TPU kernel each replaces; box_stencil_apply has none: it stands for
-#: the XLA fusion of the JAX package's `_stencil_apply`
+#: the TPU kernel each replaces; box_stencil_apply and cg_sweep have none:
+#: they stand for the XLA fusions of the JAX package's `_stencil_apply` and
+#: of the fused CG body's update sweep (`step_fused`)
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
     "dia_coded_spmv_axpy": "partitionedarrays_jl_tpu/ops/pallas_dia.py:535",
     "dia_stream_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:110",
     "box_stencil_apply": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:292",
+    "cg_sweep": "partitionedarrays_jl_tpu/parallel/tpu.py:4090",
 }
 
 
@@ -218,6 +247,10 @@ def _ptxas_lines(log):
         m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Li(\d)ELi(\d+)E", line)
         if m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{m.group(3)},{m.group(4)}>"
+            continue
+        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Lb([01])E", line)
+        if m:
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{'true' if m.group(3) == '1' else 'false'}>"
             continue
         m = re.search(r"entry function '_Z\d+(\w+?)I([fd])E", line)
         if m:
@@ -302,6 +335,46 @@ def _hold_all(tag, o, x, r, pprev, beta, xacc, alpha, wy, errs):
     errs[f"dia_coded_spmv_axpy[{tag},xacc]"] = _compare(f"dia_coded_spmv_axpy {tag} xacc", xk, xp)
 
 
+def _hold_sweep(tag, x, r, p, q, n, errs):
+    """The CG update sweep (both modes, the flag 1 and 0) torch.equal to
+    its plain version on copies of the frames: x, r, the partials and rs;
+    the max |diff| lands in errs."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    alpha = torch.tensor(0.0625, dtype=r.dtype, device=r.device)
+    for live in (1, 0):
+        flag = torch.tensor(live, dtype=torch.int32, device=r.device)
+        for mode in ("x_and_r", "r_only"):
+            outs = []
+            for k in (sw.cg_sweep, sw.cg_sweep_plain):
+                xc, rc = x.clone(), r.clone()
+                part = torch.full((r.shape[0], sw.chunks(n)), 0.5, dtype=r.dtype, device=r.device)
+                kw = {"x": xc, "p": p} if mode == "x_and_r" else {}
+                rs = k(rc, q, alpha, flag, part, 0, n, **kw)
+                outs.append((xc, rc, part, rs))
+            for what, a, b in zip(("x", "r", "partials", "rs"), *outs):
+                errs[f"cg_sweep[{tag},{mode},live={live},{what}]"] = _compare(
+                    f"cg_sweep {tag} {mode} live={live} {what}", a, b)
+            if not live:
+                require(torch.equal(outs[0][0], x) and torch.equal(outs[0][1], r),
+                        f"cg_sweep {tag}: the kernel wrote with the flag 0")
+
+
+def _hold_axpy_guard(tag, o, x, pprev, xacc, alpha, wy, errs):
+    """K3 with its device flag 1 and 0 torch.equal to its plain version (y
+    and the updated solution); with the flag 0 the solution is untouched."""
+    for live in (1, 0):
+        flag = torch.tensor(live, dtype=torch.int32, device=x.device)
+        xk, xp = xacc.clone(), xacc.clone()
+        yk = dia.dia_coded_spmv_axpy(o, x, xk, pprev, alpha, wy, flag)
+        yp = dia.dia_coded_spmv_axpy_plain(o, x, xp, pprev, alpha, wy, flag)
+        errs[f"dia_coded_spmv_axpy[{tag},live={live},y]"] = _compare(f"guarded axpy {tag} live={live} y", yk, yp)
+        errs[f"dia_coded_spmv_axpy[{tag},live={live},xacc]"] = _compare(
+            f"guarded axpy {tag} live={live} xacc", xk, xp)
+        if not live:
+            require(torch.equal(xk, xacc), f"guarded axpy {tag}: the solution changed with the flag 0")
+
+
 def phase_kernels(backend, n, rng):
     """Every kernel of the path against its plain version on the card, at
     the main path's shapes. Returns the operands for the timing phase."""
@@ -322,6 +395,8 @@ def phase_kernels(backend, n, rng):
     alpha = torch.tensor(-0.61, dtype=torch.float32, device=dev)
     errs = {}
     _hold_all("row_class", op, x, r, pprev, beta, xacc, alpha, wy, errs)
+    _hold_axpy_guard("row_class", op, x, pprev, xacc, alpha, wy, errs)
+    _hold_sweep(f"{n}^3 f32", x, r, pprev, xacc, dA.row_layout.no_max, errs)
     _hold_all("select_chain", _select_chain_operator(n, dev, rng), x, r, pprev, beta, xacc, alpha, wx, errs)
     # the odd size: every window starts off 16-byte alignment, the last
     # tile is ragged, and the frames are wider than the band (wx != wy)
@@ -440,11 +515,51 @@ def main_driver(parts, n, tol):
             "assembly_s": t_asm, "lowering_s": t_low, "solve_s": t_solve}
 
 
+def device_iterations(info):
+    """The iterations a solve's device loop ran: whole blocks, the frozen
+    iterations after the stop included."""
+    return info["device_loop"]["device_iterations"]
+
+
+def graph_vs_eager(path, make_fn, b, x0):
+    """One solve through the device-resident loop replayed as CUDA graphs
+    and through the same loop run eagerly on the card (``graph=False``): x
+    torch.equal, equal iterations, rs and history (NaN past the last
+    iteration in both); the graph loop's block, device iterations, replays
+    and capture seconds. ``make_fn(graph)`` builds the solve function."""
+    fe, fg = make_fn(False), make_fn(True)
+    xe, rse, _, ite, he = fe(b, x0)
+    xg, rsg, _, itg, hg = fg(b, x0)
+    sync()
+    st = fg.stats
+    equal = {"x": bool(torch.equal(xg, xe)), "rs": bool(torch.equal(rsg, rse)),
+             "history": bool(np.array_equal(hg, he, equal_nan=True))}
+    line = {"phase": "loop_graph_vs_eager", "path": path, "iterations": itg, "eager_iterations": ite,
+            "block": st["block"], "device_iterations": st["device_iterations"], "replays": st["replays"],
+            "capture_s": st["capture_s"], "equal": equal}
+    emit(line)
+    require(st["loop"] == "graph" and fe.stats["loop"] == "eager", f"{path}: loop forms {st['loop']}, "
+            f"{fe.stats['loop']}")
+    require(itg == ite and all(equal.values()), f"{path}: graph and eager solves differ: {line}")
+    require(st["device_iterations"] == st["block"] * (itg // st["block"] + 1),
+            f"{path}: {st['device_iterations']} device iterations for {itg} in blocks of {st['block']}")
+    require(st["replays"] > 0, f"{path}: the graph loop replayed no block")
+    return line
+
+
+def staged(run, backend, box=True):
+    """b and x0 of a run staged in the column frame of A's lowering."""
+    dA = device_matrix(run["A"], backend, box)
+    return _b_on_cols_layout(run["b"], dA), DeviceVector.from_pvector(run["x0"], backend, dA.col_layout).data
+
+
 def phase_main(backend, n):
     dia.reset_launches()
     run = prun(main_driver, backend, (1, 1, 1), n, TOL_MAIN)
     launches = dict(dia.LAUNCHES)
     info = run["info"]
+    dev_it = device_iterations(info)
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it}
     t = time.perf_counter()
     xp, info_p = gpu_cg(run["A"], run["b"], x0=run["x0"], tol=TOL_MAIN, plain=True)
     t_plain = time.perf_counter() - t
@@ -454,14 +569,22 @@ def phase_main(backend, n):
         "tol": TOL_MAIN, "assembly_s": run["assembly_s"], "lowering_s": run["lowering_s"],
         "solve_s": run["solve_s"], "iterations": info["iterations"], "converged": info["converged"],
         "cg_body": info["cg_body"], "rel_err": run["err"], "plain_iterations": info_p["iterations"],
-        "plain_rel_err": err_p, "plain_solve_s": t_plain,
+        "plain_rel_err": err_p, "plain_solve_s": t_plain, "device_loop": info["device_loop"],
+        "kernels": launches, "expected_launches": want,
     })
     require(info["cg_body"] == "fused", "the main path did not run the fused CG body")
+    require(info["device_loop"]["loop"] == "graph", "the main path did not run the graph loop")
+    for k in want:
+        require(launches[k] == want[k], f"main path: {launches[k]} {k} launches, expected {want[k]}")
+    run["b_dev"], run["x0_dev"] = staged(run, backend)
+    dA = device_matrix(run["A"], backend)
+    maxiter = 4 * run["A"].rows.ngids
+    line = graph_vs_eager(f"{n}^3 f32 fused CG", lambda g: make_cg_fn(dA, TOL_MAIN, maxiter, graph=g),
+                          run["b_dev"], run["x0_dev"])
+    require(line["iterations"] == info["iterations"], "fused CG: the graph-vs-eager solve took other iterations")
     require(info["converged"] and np.isfinite(run["err"]), "the 192^3 solve did not converge")
     require(info["iterations"] == info_p["iterations"], "kernel and plain paths took different iterations")
     require(run["err"] <= 1.1 * err_p, "kernel path error above 1.1x the plain path's")
-    for k in ("dia_coded_spmv", "dia_coded_spmv_pfold"):
-        require(launches[k] > 0, f"the main path launched {k} no time")
     return run, launches
 
 
@@ -470,7 +593,7 @@ def phase_main(backend, n):
 # ---------------------------------------------------------------------------
 
 
-def phase_pipelined(run):
+def phase_pipelined(backend, run):
     """Pipelined CG on the main path's operator and cached lowering: its
     own launch counts, the plain path's and the standard body's
     iterations."""
@@ -484,22 +607,37 @@ def phase_pipelined(run):
     err = _rel_err(x, run["xe"])
     xp, info_p = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, pipelined=True, plain=True)
     err_p = _rel_err(xp, run["xe"])
+    dia.reset_launches()
     _, info_s = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, fused=False)
+    launches_s = dict(dia.LAUNCHES)
     it = info["iterations"]
+    dev_it, dev_it_s = device_iterations(info), device_iterations(info_s)
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_axpy": dev_it, "cg_sweep": dev_it}
+    want_s = {"dia_coded_spmv": 1 + dev_it_s, "cg_sweep": dev_it_s}
     emit({
         "phase": "pipelined", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN,
         "cg_body": info["cg_body"], "iterations": it, "converged": info["converged"],
         "rel_err": err, "solve_s": solve_s, "plain_iterations": info_p["iterations"],
         "plain_rel_err": err_p, "standard_iterations": info_s["iterations"],
-        "fused_iterations": run["info"]["iterations"], "kernels": launches,
+        "fused_iterations": run["info"]["iterations"], "kernels": launches, "expected_launches": want,
+        "device_loop": info["device_loop"], "standard_kernels": launches_s,
+        "standard_expected_launches": want_s, "standard_device_loop": info_s["device_loop"],
     })
     require(info["cg_body"] == "pipelined", "the pipelined solve did not run the pipelined body")
     require(info["converged"] and np.isfinite(err), "the pipelined solve did not converge")
     require(it == info_p["iterations"], "pipelined: kernel and plain paths took different iterations")
     require(it == info_s["iterations"], "pipelined: iterations differ from the standard body's")
     require(err <= 1.1 * err_p, "pipelined: kernel path error above 1.1x the plain path's")
-    require(launches["dia_coded_spmv_axpy"] == it, f"pipelined: {launches['dia_coded_spmv_axpy']} axpy launches for {it} iterations")
-    require(launches["dia_coded_spmv"] == 1, "pipelined: the initial residual did not launch the SpMV once")
+    for k in want:
+        require(launches[k] == want[k], f"pipelined: {launches[k]} {k} launches, expected {want[k]}")
+    for k in want_s:
+        require(launches_s[k] == want_s[k], f"standard CG: {launches_s[k]} {k} launches, expected {want_s[k]}")
+    dA = device_matrix(A, backend)
+    maxiter = 4 * A.rows.ngids
+    for name, kw in (("pipelined", {"pipelined": True}), ("standard", {"fused": False})):
+        line = graph_vs_eager(f"{N_MAIN}^3 f32 {name} CG",
+                              lambda g: make_cg_fn(dA, TOL_MAIN, maxiter, graph=g, **kw), run["b_dev"], run["x0_dev"])
+        require(line["iterations"] == it, f"{name} CG: the graph-vs-eager solve took other iterations")
     return launches
 
 
@@ -551,9 +689,12 @@ def phase_multi(backend, n, rng):
     err_g, info_g = prun(poisson_fdm_driver, backend, (2, 2, 2), (n, n, n), tol=1e-8)
     launches = dict(dia.LAUNCHES)
     err_s, info_s = prun(poisson_fdm_driver, sequential, (2, 2, 2), (n, n, n), tol=1e-8)
-    emit({"phase": "stacked_parts_launch_counts", "kernels": launches})
-    for k in ("dia_coded_spmv", "dia_coded_spmv_pfold"):
-        require(launches[k] > 0, f"stacked parts: the path launched {k} no time")
+    dev_it = device_iterations(info_g)
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it}
+    emit({"phase": "stacked_parts_launch_counts", "kernels": launches, "expected_launches": want,
+          "device_loop": info_g["device_loop"]})
+    for k in want:
+        require(launches[k] == want[k], f"stacked parts: {launches[k]} {k} launches, expected {want[k]}")
 
     A, b, _, x0 = prun(lambda parts: assemble_poisson(parts, (n, n, n)), backend, (2, 2, 2))
     dA = device_matrix(A, backend)
@@ -576,16 +717,17 @@ def phase_multi(backend, n, rng):
         "dia_coded_spmv_pfold[y]": _compare("stacked parts dia_coded_spmv_pfold y", yk, yp),
         "dia_coded_spmv_pfold[p]": _compare("stacked parts dia_coded_spmv_pfold p", pk, pp),
     }
+    _hold_sweep(f"{n}^3 f64 (2,2,2)", x, r, pprev, frame(), dA.row_layout.no_max, errs)
+    bb, xb = staged({"A": A, "b": b, "x0": x0}, backend)
+    graph_vs_eager(f"{n}^3 f64 (2,2,2) fused CG", lambda g: make_cg_fn(dA, 1e-8, 2000, graph=g), bb, xb)
     _, info_p = gpu_cg(A, b, x0=x0, tol=1e-8, maxiter=2000, plain=True)
     _, info_gen = gpu_cg(A, b, x0=x0, tol=1e-8, maxiter=2000, box=False)
     ex = exchange_times(A.cols, backend, rng)
     cg_s = {}
-    for box in (True, False):
+    for key, box, graph in (("box", True, True), ("box_eager", True, False), ("generic", False, True)):
         dAb = device_matrix(A, backend, box)
-        bb = _b_on_cols_layout(b, dAb)
-        xb = DeviceVector.from_pvector(x0, backend, dAb.col_layout).data
-        cg_s["box" if box else "generic"], _ = fixed_trip_s_per_iter(
-            lambda m: make_cg_fn(dAb, 0.0, m), bb, xb, 20, 220)
+        bb, xb = staged({"A": A, "b": b, "x0": x0}, backend, box)
+        cg_s[key], _ = fixed_trip_s_per_iter(lambda m: make_cg_fn(dAb, 0.0, m, graph=graph), bb, xb, 20, 220)
     emit({
         "phase": "stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
         "decode": "row_class" if dA.dia_cls_pattern is not None else "select_chain",
@@ -598,6 +740,7 @@ def phase_multi(backend, n, rng):
     require(info_g["iterations"] == info_p["iterations"], "stacked parts: iterations differ from the plain path")
     require(info_g["iterations"] == info_gen["iterations"], "stacked parts: iterations differ on the generic plan")
     require(err_g < 1e-5, f"stacked parts: error {err_g} >= 1e-5")
+    return max(v for k, v in errs.items() if k.startswith("cg_sweep["))
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +807,22 @@ def _k1_on_gmg_operators(dh, tag, rng, names=None):
     return errs
 
 
+def gmg_launches(dh, dev_it):
+    """The launches of a GMG-PCG solve of ``dev_it`` device iterations on a
+    staged hierarchy: the initial residual and per iteration the outer A0
+    SpMV, the sweep, and per level 2 SpMVs with its A (coded or stream) and
+    2 transfers (the stencil kernel, or SpMVs with a coded S)."""
+    per = {"coded": 1, "stream": 0, "stencil": 0}
+    for lv in dh["levels"]:
+        per["coded" if lv["dA"].dia_mode == "coded" else "stream"] += 2
+        if gpu_gmg.route(lv) == "stencil":
+            per["stencil"] += 2
+        else:
+            per["coded" if lv["dS"].dia_mode == "coded" else "stream"] += 2
+    return {"dia_coded_spmv": 1 + dev_it * per["coded"], "dia_stream_spmv": dev_it * per["stream"],
+            "box_stencil_apply": dev_it * per["stencil"], "cg_sweep": dev_it}
+
+
 def phase_gmg(backend, run, rng):
     """GMG-PCG at 192^3 f32 through `pcg(Ah, bh, minv=h)` on the default
     (stencil) route, phase 2b's hierarchy: its own launch counts by
@@ -684,9 +843,11 @@ def phase_gmg(backend, run, rng):
     xp, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=TOL_MAIN, plain=True)
     err_p = _rel_err(xp, run["xe"])
     it = info["iterations"]
+    dev_it = device_iterations(info)
     n_stream = modes.count("stream")
-    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream)), "dia_stream_spmv": it * 2 * n_stream,
-            "box_stencil_apply": it * 2 * L}
+    # every level on the stencil route, level 0 coded and the rest stream:
+    # coded 1 + 3 per device iteration, stream 8, stencil 10, sweep 1
+    want = gmg_launches(dh, dev_it)
     emit({
         "phase": "gmg_pcg", "route": "stencil", "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
         "levels": L, "grids": [lvl.nfs[0] for lvl in h.levels], "coarse_size": h.coarse_A.rows.ngids,
@@ -694,6 +855,7 @@ def phase_gmg(backend, run, rng):
         "staging_s": run["staging_s"], "solve_s": solve_s, "iterations": it, "converged": info["converged"],
         "rel_err": err, "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
         "kernels": launches, "expected_launches": want, "stream_vs_plain_level1_max_abs_err": err_k4,
+        "device_loop": info["device_loop"],
     })
     require(L == GMG_LEVELS and h.coarse_A.rows.ngids == 216, f"GMG: {L} levels over {h.coarse_A.rows.ngids} coarse points, expected 5 over 216")
     require(modes[0] == "coded" and n_stream == L - 1, f"GMG: level modes {modes}")
@@ -702,7 +864,12 @@ def phase_gmg(backend, run, rng):
     require(err <= 1.1 * err_p, "GMG: kernel path error above 1.1x the plain path's")
     for k in want:
         require(launches[k] == want[k], f"GMG: {launches[k]} {k} launches, expected {want[k]}")
-    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "iterations": it, "err": err}
+    b = _b_on_cols_layout(run["bh"], device_matrix(run["Ah"], backend))
+    maxiter = 4 * run["Ah"].rows.ngids
+    graph_vs_eager(f"{N_MAIN}^3 f32 GMG-PCG stencil route",
+                   lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, maxiter, graph=g), b, torch.zeros_like(b))
+    return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "iterations": it, "err": err,
+            "device_iterations": dev_it}
 
 
 def phase_gmg_structured(backend, g, rng):
@@ -728,15 +895,15 @@ def phase_gmg_structured(backend, g, rng):
     launches = dict(dia.LAUNCHES)
     err = _rel_err(x, run["xe"])
     it = info["iterations"]
-    n_stream = sum(1 for lv in dhs["levels"] if lv["dA"].dia_mode == "stream")
-    want = {"dia_coded_spmv": 1 + it * (1 + 2 * (L - n_stream) + 2 * L), "dia_stream_spmv": it * 2 * n_stream,
-            "box_stencil_apply": 0}
+    dev_it = device_iterations(info)
+    # every S coded: coded 1 + 13 per device iteration, stream 8, sweep 1
+    want = gmg_launches(dhs, dev_it)
     emit({
         "phase": "gmg_pcg_structured", "n": N_MAIN, "dtype": "float32", "routes": routes,
         "s_modes": [lv["dS"].dia_mode for lv in dhs["levels"]], "staging_s": staging_s, "solve_s": solve_s,
         "iterations": it, "converged": info["converged"], "rel_err": err, "stencil_route_iterations": g["iterations"],
         "stencil_route_rel_err": g["err"], "kernels": launches, "expected_launches": want,
-        "coded_vs_plain_max_abs_err": err_k1,
+        "coded_vs_plain_max_abs_err": err_k1, "device_loop": info["device_loop"],
     })
     # one part: every coarse point is its own part's even fine point, so the
     # structured route embeds through strided views (emb_fast)
@@ -747,7 +914,12 @@ def phase_gmg_structured(backend, g, rng):
     require(g["err"] <= 1.1 * err, "GMG: stencil route error above 1.1x the structured route's")
     for k in want:
         require(launches[k] == want[k], f"GMG structured: {launches[k]} {k} launches, expected {want[k]}")
-    return {"dh": dhs, "err_k1": err_k1, "iterations": it}
+    b = _b_on_cols_layout(run["bh"], device_matrix(run["Ah"], backend))
+    maxiter = 4 * run["Ah"].rows.ngids
+    graph_vs_eager(f"{N_MAIN}^3 f32 GMG-PCG structured route",
+                   lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, maxiter, stencil=False, graph=g),
+                   b, torch.zeros_like(b))
+    return {"dh": dhs, "err_k1": err_k1, "iterations": it, "device_iterations": dev_it}
 
 
 def phase_gmg_multi(backend, run, rng):
@@ -776,8 +948,13 @@ def phase_gmg_multi(backend, run, rng):
     _, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, plain=True)
     _, info_gen = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, box=False)
     it = info["iterations"]
+    want = gmg_launches(dh, device_iterations(info))
+    b = _b_on_cols_layout(run["bh"], device_matrix(run["Ah"], backend))
+    graph_vs_eager(f"{n}^3 f64 (2,2,2) GMG-PCG default routes",
+                   lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, 1e-8, 4 * run["Ah"].rows.ngids, graph=g),
+                   b, torch.zeros_like(b))
     s_per_iter = {}
-    for name, kw in (("default", {}), ("generic", {"box": False})):
+    for name, kw in (("default", {}), ("default_eager", {"graph": False}), ("generic", {"box": False})):
         dA0 = device_matrix(run["Ah"], backend, kw.get("box", True))
         b = _b_on_cols_layout(run["bh"], dA0)
         s_per_iter[name], _ = fixed_trip_s_per_iter(
@@ -788,7 +965,8 @@ def phase_gmg_multi(backend, run, rng):
         "generic_routes": [gpu_gmg.route(lv) for lv in gpu_gmg.device_hierarchy(h, backend, box=False)["levels"]],
         "iterations": it, "sequential_iterations": info_s["iterations"], "plain_iterations": info_p["iterations"],
         "generic_iterations": info_gen["iterations"], "rel_err": err, "sequential_rel_err": err_s,
-        "kernels": launches, "s_per_iter": s_per_iter, "fixed_trips": GMG_TRIPS,
+        "kernels": launches, "expected_launches": want, "device_loop": info["device_loop"],
+        "s_per_iter": s_per_iter, "fixed_trips": GMG_TRIPS,
         "stream_vs_plain_level1_max_abs_err": err_k4, "coded_vs_plain_max_abs_err": err_k1,
         "coded_operators": {name: operator_info(dM.coded) for name, dM in gmg_coded_operators(dh)},
     })
@@ -796,10 +974,11 @@ def phase_gmg_multi(backend, run, rng):
     require(it == info_s["iterations"], "stacked-parts GMG: iterations differ from the sequential backend")
     require(it == info_p["iterations"], "stacked-parts GMG: iterations differ from the plain path")
     require(it == info_gen["iterations"], "stacked-parts GMG: iterations differ on the generic routes")
-    for k in ("dia_coded_spmv", "dia_stream_spmv", "box_stencil_apply"):
-        require(launches[k] > 0, f"stacked-parts GMG launched {k} no time")
+    for k in want:
+        require(launches[k] == want[k] > 0, f"stacked-parts GMG: {launches[k]} {k} launches, expected {want[k]}")
     # with it, the kernels line's max_abs_err of K1 covers these operators
-    return {"stream": err_k4, "coded": max(err_k1.values()), "iterations": it}
+    return {"stream": err_k4, "coded": max(err_k1.values()), "iterations": it,
+            "device_iterations": device_iterations(info)}
 
 
 # ---------------------------------------------------------------------------
@@ -842,10 +1021,16 @@ def _csr_on(M, dev):
 
 def fixed_trip_s_per_iter(make_fn, b, x0, m0, m1):
     """Seconds per iteration from two fixed-trip (tol=0) solves of m0 and
-    m1 iterations, differenced (median of 3 each)."""
+    m1 iterations, differenced (median of 3 each). Each function's first
+    call runs before the timed span: the capture of a graph loop, and the
+    kernels' first launches. A graph loop runs whole blocks of k: m
+    iterations take k * (m // k + 1) on the device, the last block holding
+    the stop and frozen iterations; m0 and m1 with equal residues mod k
+    make the difference m1 - m0 device iterations."""
     per = {}
     for m in (m0, m1):
         fn = make_fn(m)
+        fn(b, x0)
         ts = []
         for _ in range(3):
             sync()
@@ -891,27 +1076,67 @@ def phase_times(backend, k, run, n):
     }
     # x, the code bytes, y, pprev, xacc read and written
     axpy["bound_ms"], axpy["bound_by"] = _bound_ms(rows * (4 + code_bytes + 4 + 4 + 8), 2 * nnz + 2 * rows)
+    sweep = sweep_times(dA, x, r, pprev, k["xacc"], alpha, flush)
 
-    # CG and pipelined CG seconds per iteration from fixed-trip solves
+    # CG seconds per iteration from fixed-trip solves, each body in the
+    # graph loop and in the eager loop
     A = run["A"]
     dA_main = device_matrix(A, backend)
     b = _b_on_cols_layout(run["b"], dA_main)
     x0 = DeviceVector.from_pvector(run["x0"], backend, dA_main.col_layout).data
-    cg_s_per_iter, per = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA_main, 0.0, m), b, x0, 20, 220)
-    pipe_s_per_iter, per_pipe = fixed_trip_s_per_iter(
-        lambda m: make_cg_fn(dA_main, 0.0, m, pipelined=True), b, x0, 20, 220
-    )
+    s_per_iter, fixed = {}, {}
+    for body, kw in (("cg", {}), ("pipelined_cg", {"pipelined": True}), ("standard_cg", {"fused": False})):
+        for loop, graph in (("", True), ("_eager", False)):
+            s_per_iter[body + loop], fixed[body + loop] = fixed_trip_s_per_iter(
+                lambda m: make_cg_fn(dA_main, 0.0, m, graph=graph, **kw), b, x0, 20, 220)
     for t in (spmv, pfold, axpy):
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
     emit({
         "phase": "times", "n": n, "dtype": "float32", "reps": REPS,
-        "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy,
+        "dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy, "cg_sweep": sweep,
         "library_spmv_ms_for_pfold_and_axpy": library_ms,
-        "cg_s_per_iter": cg_s_per_iter, "cg_fixed_trip_s": per,
-        "pipelined_cg_s_per_iter": pipe_s_per_iter, "pipelined_cg_fixed_trip_s": per_pipe,
+        "cg_s_per_iter": s_per_iter["cg"], "cg_fixed_trip_s": fixed["cg"],
+        "pipelined_cg_s_per_iter": s_per_iter["pipelined_cg"], "pipelined_cg_fixed_trip_s": fixed["pipelined_cg"],
+        "s_per_iter": s_per_iter, "fixed_trip_s": fixed,
     })
-    phase_profile("cg_profile", make_cg_fn(dA_main, 0.0, 50), b, x0, 50)
-    return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy}
+    phase_profile("cg_profile", make_cg_fn(dA_main, 0.0, 48), b, x0, 48)
+    phase_profile("cg_profile_eager", make_cg_fn(dA_main, 0.0, 48, graph=False), b, x0, 48)
+    return {"dia_coded_spmv": spmv, "dia_coded_spmv_pfold": pfold, "dia_coded_spmv_axpy": axpy,
+            "cg_sweep": sweep}
+
+
+def sweep_times(dA, x, r, p, q, alpha, flush):
+    """The CG update sweep at the main path's shapes (mode 0, the flag set,
+    on copies of the frames): the kernel's flushed ms, its plain
+    version's, the eager ops it replaces in the loop (the x and r updates
+    and the part-order r.r, as the loop ran them before), and the bound:
+    x, p, r, q read and x, r written, bytes over 3.35 TB/s. No single
+    PyTorch call computes it."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _pdot_factory
+
+    o0, n = dA.row_layout.o0, dA.row_layout.no_max
+    sl = slice(o0, o0 + n)
+    x, r = x.clone(), r.clone()
+    live = torch.ones((), dtype=torch.int32, device=x.device)
+    part = sw.sweep_partials(r, n)
+    pdot = _pdot_factory(o0, n)
+
+    def eager():
+        x[:, sl] = x[:, sl] + alpha * p[:, sl]
+        r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
+        return pdot(r, r)
+
+    rows = int(dA.row_layout.noids.sum())
+    item = x.element_size()
+    out = {
+        "ms": time_ms(lambda: sw.cg_sweep(r, q, alpha, live, part, o0, n, x=x, p=p), flush),
+        "plain_ms": time_ms(lambda: sw.cg_sweep_plain(r, q, alpha, live, part, o0, n, x=x, p=p), flush),
+        "eager_ops_ms": time_ms(eager, flush), "library_ms": None, "rows": rows,
+    }
+    out["bound_ms"], out["bound_by"] = _bound_ms(rows * 6 * item, 3 * 2 * rows)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
 
 
 def operator_info(op):
@@ -963,8 +1188,8 @@ def null_launch_us(flush, op=None, x=None, width=None):
 
 def coded_operator_times(dh, iterations, flush, rng):
     """One line per coded operator of a device hierarchy: its shape, its
-    launches per GMG-PCG solve of `iterations` (the fine A 1 + 3 per
-    iteration, every S 2), K1 flushed, warm-L2 and back-to-back µs (back
+    launches per GMG-PCG solve of `iterations` device iterations (the fine
+    A 1 + 3 per iteration, every S 2), K1 flushed, warm-L2 and back-to-back µs (back
     to back, a launch shorter than its host cost reads the host), the plain
     version's and torch.sparse.mm's µs, the empty kernel launched as K1 is,
     and the bound: rows x (2 x itemsize + code bytes) over 3.35 TB/s."""
@@ -1101,8 +1326,32 @@ def stencil_level_times(dh, iterations, flush, rng, tag="192^3 f32"):
     return out
 
 
+def stream_times(h, dh, li, x, flush):
+    """The streaming-DIA kernel on level li of a one-part hierarchy, f32:
+    its flushed ms, its plain version's, torch.sparse.mm's on the level's
+    CSR, and the bound: the dense values (every diagonal, every row), x and
+    y, bytes over 3.35 TB/s."""
+    dA = dh["levels"][li]["dA"]
+    args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, dA.row_layout.W)
+    M = h.levels[li].A.values.part_values()[0]
+    csr = _csr_on(M, x.device)
+    xcol = x[0, : M.shape[1]].reshape(-1, 1).contiguous()
+    rows = int(dA.row_layout.noids.sum())
+    D = len(dA.dia_offsets)
+    out = {
+        "ms": time_ms(lambda: dia.dia_stream_spmv(*args), flush),
+        "plain_ms": time_ms(lambda: dia.dia_stream_spmv_plain(*args), flush),
+        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
+        "rows": rows, "diagonals": D, "csr_nnz": int(M.nnz),
+    }
+    out["bound_ms"], out["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
 def phase_gmg_times(backend, g, gs, multi):
-    """The stream kernel on GMG level 1 of 192^3; GMG-PCG seconds per
+    """The stream kernel on GMG level 1 of 192^3 (and a `dia_stream_level`
+    line for each coarser stream level); GMG-PCG seconds per
     iteration, solve seconds and a profile of one iteration on both routes
     (stencil, structured); the empty kernel's µs; one line per coded
     operator of the structured route and per stencil level of both
@@ -1111,31 +1360,21 @@ def phase_gmg_times(backend, g, gs, multi):
     (192^3 level 0) numbers."""
     dev = backend.device
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    dA1 = g["dh"]["levels"][1]["dA"]
-    x1 = g["x1"]
-    args = (dA1.stream_vals, x1, dA1.dia_offsets, dA1.stream_no, dA1.row_layout.o0, dA1.row_layout.W)
-    M1 = g["run"]["h"].levels[1].A.values.part_values()[0]
-    csr = _csr_on(M1, dev)
-    xcol = x1[0, : M1.shape[1]].reshape(-1, 1).contiguous()
-    rows = int(dA1.row_layout.noids.sum())
-    D = len(dA1.dia_offsets)
-    stream = {
-        "ms": time_ms(lambda: dia.dia_stream_spmv(*args), flush),
-        "plain_ms": time_ms(lambda: dia.dia_stream_spmv_plain(*args), flush),
-        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
-        "rows": rows, "diagonals": D, "csr_nnz": int(M1.nnz),
-    }
-    # the dense values (every diagonal, every row), x and y, in f32
-    stream["bound_ms"], stream["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
-    stream["share_of_bound"] = stream["bound_ms"] / stream["ms"]
-    del csr
+    stream = stream_times(g["run"]["h"], g["dh"], 1, g["x1"], flush)
+    for li, lv in enumerate(g["dh"]["levels"]):
+        if li > 1 and lv["dA"].dia_mode == "stream":
+            x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                (lv["dA"].col_layout.P, lv["dA"].col_layout.W)).astype(np.float32)).to(dev)
+            emit({"phase": "dia_stream_level", "hierarchy": f"{N_MAIN}^3 f32", "level": li,
+                  "launches_per_solve": 2 * g["device_iterations"], **stream_times(g["run"]["h"], g["dh"], li, x, flush)})
 
     h, Ah, bh = g["run"]["h"], g["run"]["Ah"], g["run"]["bh"]
     b = _b_on_cols_layout(bh, device_matrix(Ah, backend))
     x0 = torch.zeros_like(b)
     line = {"phase": "gmg_times", "n": N_MAIN, "dtype": "float32", "reps": REPS, "fixed_trips": GMG_TRIPS,
             "dia_stream_spmv_level1": stream}
-    for route, kw in (("stencil", {}), ("structured", {"stencil": False})):
+    for route, kw in (("stencil", {}), ("structured", {"stencil": False}), ("stencil_eager", {"graph": False}),
+                      ("structured_eager", {"stencil": False, "graph": False})):
         s_per_iter, per = fixed_trip_s_per_iter(
             lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m, **kw), b, x0, *GMG_TRIPS)
         fn = gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, 4 * Ah.rows.ngids, **kw)
@@ -1145,13 +1384,13 @@ def phase_gmg_times(backend, g, gs, multi):
         out = fn(b, x0)
         sync()
         line[route] = {"s_per_iter": s_per_iter, "fixed_trip_s": per, "solve_s": time.perf_counter() - t,
-                       "iterations": out[3]}
+                       "iterations": out[3], "device_loop": fn.stats}
     emit(line)
-    for route, kw in (("stencil", {}), ("structured", {"stencil": False})):
+    for route, kw in (("stencil", {}), ("structured", {"stencil": False}), ("stencil_eager", {"graph": False})):
         phase_profile(f"gmg_pcg_profile_{route}", gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, 5, **kw), b, x0, 5)
     emit({"phase": "null_launch", "us": null_launch_us(flush)})
-    coded_operator_times(gs["dh"], gs["iterations"], flush, np.random.default_rng(SEED))
-    levels = stencil_level_times(g["dh"], g["iterations"], flush, np.random.default_rng(SEED))
+    coded_operator_times(gs["dh"], gs["device_iterations"], flush, np.random.default_rng(SEED))
+    levels = stencil_level_times(g["dh"], g["device_iterations"], flush, np.random.default_rng(SEED))
     stencil_level_times(multi["dh"], multi["iterations"], flush, np.random.default_rng(SEED),
                         f"{N_GMG_MULTI}^3 f64 (2,2,2)")
     s0 = levels[0]
@@ -1163,7 +1402,10 @@ def phase_gmg_times(backend, g, gs, multi):
 def phase_profile(name, fn, b, x0, iters):
     """Where a fixed-trip solve's iteration goes: device time per
     iteration by kernel name (torch.profiler), and the device's idle share
-    of the wall time."""
+    of the wall time. The first call (a graph loop's capture) runs before
+    the profiled one. Per iteration means per iteration the device ran:
+    a device-resident loop runs whole blocks, frozen iterations included
+    (``fn.stats``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,6 +1416,8 @@ def phase_profile(name, fn, b, x0, iters):
         fn(b, x0)
         sync()
         wall = time.perf_counter() - t
+    loop = getattr(fn, "stats", None) or {}
+    iters = loop.get("device_iterations", iters)
     # device-side events only (kernels, memcpys): the CPU-side aten ops
     # carry their kernels' device time too and would count it twice
     rows = [
@@ -1184,7 +1428,8 @@ def phase_profile(name, fn, b, x0, iters):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     emit({
-        "phase": name, "iterations": iters, "wall_ms_per_iter": wall * 1e3 / iters,
+        "phase": name, "device_iterations": iters, "loop": loop.get("loop"), "block": loop.get("block"),
+        "wall_ms_per_iter": wall * 1e3 / iters,
         "device_ms_per_iter": busy_ms, "idle_share": 1.0 - busy_ms * iters / (wall * 1e3),
         "by_kernel_ms_per_iter": [
             {"name": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]
@@ -1202,8 +1447,8 @@ def main() -> int:
     kern = phase_kernels(backend, N_MAIN, rng)
     gruns, err_stencil = phase_stencil_kernels(backend, rng)
     run, launches = phase_main(backend, N_MAIN)
-    launches["dia_coded_spmv_axpy"] = phase_pipelined(run)["dia_coded_spmv_axpy"]
-    phase_multi(backend, N_MULTI, rng)
+    launches["dia_coded_spmv_axpy"] = phase_pipelined(backend, run)["dia_coded_spmv_axpy"]
+    err_sweep_multi = phase_multi(backend, N_MULTI, rng)
     gmg = phase_gmg(backend, gruns["main"], rng)
     gmg_s = phase_gmg_structured(backend, gmg, rng)
     launches["dia_stream_spmv"] = gmg["launches"]["dia_stream_spmv"]
@@ -1211,7 +1456,7 @@ def main() -> int:
     err_multi = phase_gmg_multi(backend, gruns["multi"], rng)
     times = phase_times(backend, kern, run, N_MAIN)
     times["dia_stream_spmv"], times["box_stencil_apply"] = phase_gmg_times(
-        backend, gmg, gmg_s, {"dh": gruns["multi"]["dh"], "iterations": err_multi["iterations"]})
+        backend, gmg, gmg_s, {"dh": gruns["multi"]["dh"], "iterations": err_multi["device_iterations"]})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
@@ -1221,6 +1466,7 @@ def main() -> int:
     max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg_s["err_k1"].values(), err_multi["coded"])
     max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"])
     max_err["box_stencil_apply"] = err_stencil
+    max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

@@ -26,7 +26,10 @@
 //   writes p on the owned band and 0 elsewhere.
 //   axpy (PA_AXPY, pipelined CG): y as above from x, and in the same pass
 //   xacc[p, o0 + i] = xacc[p, o0 + i] + alpha * pprev[p, o0 + i] for
-//   i < no[p], in place; every other slot of xacc is left untouched.
+//   i < no[p], in place; every other slot of xacc is left untouched. With
+//   a device flag `live` (int32, may be null) that reads 0, xacc is not
+//   written at all (y still is): a frozen iteration of the device-resident
+//   pipelined loop (parallel/gpu.py) leaves the solution as it is.
 //
 // Rounding: every product and sum is __fmul_rn / __fadd_rn (no FMA
 // contraction), in ascending-offset order, so the result equals the plain
@@ -498,7 +501,7 @@ __global__ void __launch_bounds__(PA_THREADS)
 dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t* __restrict__ no_arr,
                  const uint8_t* __restrict__ codes, const T* __restrict__ x,
                  const T* __restrict__ pprev, const T* __restrict__ scal_ptr,
-                 T* __restrict__ y, T* __restrict__ vout) {
+                 T* __restrict__ y, T* __restrict__ vout, const int32_t* __restrict__ live) {
   constexpr bool PFOLD = MODE == PA_PFOLD;
   constexpr bool AXPY = MODE == PA_AXPY;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -515,6 +518,8 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
   T* vp = MODE != PA_PLAIN ? vout + (long long)p * prm.wx + prm.o0 : nullptr;
   const uint8_t* cpart = codes + (long long)p * prm.n_streams * prm.code_len;
   const T scal = MODE != PA_PLAIN ? scal_ptr[0] : T(0);
+  // axpy: the lagged update is written only while the flag is set
+  const bool armed = !AXPY || live == nullptr || live[0] != 0;
   const int TR = prm.T;
   static_assert(ND == 0 || MODE == PA_PLAIN, "the specialised select-chain sum is plain mode's");
   SelectCoefs<T, ND == 0 ? 1 : ND> coefs;
@@ -678,7 +683,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
         if (i < nrow) {
           yp[ts + i] = acc[r];
           if (PFOLD) vp[ts + i] = zs[i];
-          if (AXPY) vp[ts + i] = add_rn(sxa[i], mul_rn(scal, spp[i]));
+          if (AXPY && armed) vp[ts + i] = add_rn(sxa[i], mul_rn(scal, spp[i]));
         }
       }
     }
@@ -690,7 +695,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
 template <typename T, int MODE, int ND>
 static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
                          const void* codes, const void* x, const void* pprev,
-                         const void* scal, void* y, void* vout, void* stream) {
+                         const void* scal, void* y, void* vout, const void* live, void* stream) {
   auto kern = dia_coded_kernel<T, MODE, ND>;
   static int n_sm = 0;
   cudaError_t e;
@@ -728,7 +733,7 @@ static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
   dim3 grid((unsigned int)prm->grid_x, (unsigned int)prm->P);
   kern<<<grid, PA_THREADS, prm->smem_bytes, (cudaStream_t)stream>>>(
       *prm, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
-      (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout);
+      (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout, (const int32_t*)live);
   return (int)cudaGetLastError();
 }
 
@@ -738,13 +743,13 @@ static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
 template <typename T, int MODE>
 static int launch(PaDiaParams* prm, const void* cb, const void* no,
                   const void* codes, const void* x, const void* pprev,
-                  const void* scal, void* y, void* vout, void* stream) {
+                  const void* scal, void* y, void* vout, const void* live, void* stream) {
   if constexpr (MODE == PA_PLAIN) {
-    if (prm->nd_spec == 7) return launch_kernel<T, MODE, 7>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
-    if (prm->nd_spec == 27) return launch_kernel<T, MODE, 27>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
+    if (prm->nd_spec == 7) return launch_kernel<T, MODE, 7>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
+    if (prm->nd_spec == 27) return launch_kernel<T, MODE, 27>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
   }
   if (prm->nd_spec != 0) return (int)cudaErrorInvalidValue;
-  return launch_kernel<T, MODE, 0>(prm, cb, no, codes, x, pprev, scal, y, vout, stream);
+  return launch_kernel<T, MODE, 0>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
 }
 
 // Empty kernels, the launch floor the coded kernel's times are read
@@ -779,36 +784,36 @@ int pa_dia_null(const PaDiaParams* prm, void* stream) {
 
 int pa_dia_coded_f32(PaDiaParams* prm, const void* cb, const void* no,
                      const void* codes, const void* x, void* y, void* stream) {
-  return launch<float, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, stream);
+  return launch<float, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, nullptr, stream);
 }
 
 int pa_dia_coded_f64(PaDiaParams* prm, const void* cb, const void* no,
                      const void* codes, const void* x, void* y, void* stream) {
-  return launch<double, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, stream);
+  return launch<double, PA_PLAIN>(prm, cb, no, codes, x, nullptr, nullptr, y, nullptr, nullptr, stream);
 }
 
 int pa_dia_coded_pfold_f32(PaDiaParams* prm, const void* cb, const void* no,
                            const void* codes, const void* r, const void* pprev,
                            const void* beta, void* y, void* pout, void* stream) {
-  return launch<float, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, stream);
+  return launch<float, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, nullptr, stream);
 }
 
 int pa_dia_coded_pfold_f64(PaDiaParams* prm, const void* cb, const void* no,
                            const void* codes, const void* r, const void* pprev,
                            const void* beta, void* y, void* pout, void* stream) {
-  return launch<double, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, stream);
+  return launch<double, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, nullptr, stream);
 }
 
 int pa_dia_coded_axpy_f32(PaDiaParams* prm, const void* cb, const void* no,
                           const void* codes, const void* x, const void* pprev,
-                          const void* alpha, void* y, void* xacc, void* stream) {
-  return launch<float, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, stream);
+                          const void* alpha, void* y, void* xacc, const void* live, void* stream) {
+  return launch<float, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, live, stream);
 }
 
 int pa_dia_coded_axpy_f64(PaDiaParams* prm, const void* cb, const void* no,
                           const void* codes, const void* x, const void* pprev,
-                          const void* alpha, void* y, void* xacc, void* stream) {
-  return launch<double, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, stream);
+                          const void* alpha, void* y, void* xacc, const void* live, void* stream) {
+  return launch<double, PA_AXPY>(prm, cb, no, codes, x, pprev, alpha, y, xacc, live, stream);
 }
 
 }  // extern "C"

@@ -30,8 +30,9 @@ the coded kernel stages its operand in shared-memory windows laid out by
 `plan_coded_windows`, the streaming kernel takes one thread per row.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
-the kernel or raises. Each kernel of the port (these and the multigrid
-stencil of `ops/stencil.py`) counts its launches in `LAUNCHES`. Each
+the kernel or raises. Each kernel of the port (these, the multigrid
+stencil of `ops/stencil.py` and the CG update sweep of `ops/sweep.py`)
+counts its launches in `LAUNCHES`. Each
 `csrc/*.cu` is built with nvcc at first use into
 ``build/pa_torch_kernels/`` (all sources at once, one nvcc each) and bound
 with ctypes.
@@ -54,7 +55,7 @@ import torch
 #: kernel launches since the last reset, per wrapper
 LAUNCHES = {
     "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0, "dia_coded_spmv_axpy": 0,
-    "dia_stream_spmv": 0, "box_stencil_apply": 0,
+    "dia_stream_spmv": 0, "box_stencil_apply": 0, "cg_sweep": 0,
 }
 
 MAX_DIAGS = 64
@@ -77,8 +78,9 @@ THREADS = 256
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources of the port, one shared library each (box_stencil is
-#: the multigrid stencil of ops/stencil.py)
-SOURCES = ("dia_coded", "dia_stream", "box_stencil")
+#: the multigrid stencil of ops/stencil.py, cg_sweep the CG update sweep of
+#: ops/sweep.py)
+SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -420,14 +422,17 @@ def dia_coded_spmv_pfold_plain(
 
 def dia_coded_spmv_axpy_plain(
     op: CodedOperator, x: torch.Tensor, xacc: torch.Tensor, pprev: torch.Tensor,
-    alpha: torch.Tensor, width: int,
+    alpha: torch.Tensor, width: int, live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of `dia_coded_spmv_axpy`: the lagged update of
     `_spmv_body(axpy=True)`'s fallback (parallel/tpu.py:3246-3252),
-    ``xacc += alpha*pprev`` on each part's owned band, in place, then
-    `dia_coded_spmv_plain` of x. Returns y."""
+    ``xacc += alpha*pprev`` on each part's owned band, in place (where
+    ``live``, if given, is not 0: else a select writes back the same bits),
+    then `dia_coded_spmv_plain` of x. Returns y."""
     n, o0 = op.n, op.o0
     own = _owned_mask(op, x.device)
+    if live is not None:
+        own = own & (live.reshape(()) != 0)
     band = xacc[:, o0 : o0 + n]
     band.copy_(torch.where(own, band + alpha * pprev[:, o0 : o0 + n], band))
     return dia_coded_spmv_plain(op, x, width)
@@ -551,6 +556,21 @@ class _StencilParams(ctypes.Structure):
     ]
 
 
+class _SweepParams(ctypes.Structure):
+    """Mirror of `PaSweepParams` in csrc/cg_sweep.cu (the kernel of
+    ops/sweep.py)."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("G", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("wv", ctypes.c_longlong),
+        ("wq", ctypes.c_longlong),
+        ("mode", ctypes.c_int),
+    ]
+
+
 def _bind(lib: ctypes.CDLL, name: str, params, nptr: int) -> None:
     vp = ctypes.c_void_p
     for dt in ("f32", "f64"):
@@ -593,9 +613,10 @@ def build_kernels() -> dict:
     libs = {name: ctypes.CDLL(str(sos[name])) for name in SOURCES}
     _bind(libs["dia_coded"], "pa_dia_coded", _Params, 6)
     _bind(libs["dia_coded"], "pa_dia_coded_pfold", _Params, 9)
-    _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 9)
+    _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 10)
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
     _bind(libs["box_stencil"], "pa_box_stencil", _StencilParams, 5)
+    _bind(libs["cg_sweep"], "pa_cg_sweep", _SweepParams, 9)
     for dt in ("f32", "f64"):
         f = getattr(libs["box_stencil"], f"pa_box_stencil_query_{dt}")
         f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -761,16 +782,18 @@ def dia_coded_spmv_pfold(
 
 def dia_coded_spmv_axpy(
     op: CodedOperator, x: torch.Tensor, xacc: torch.Tensor, pprev: torch.Tensor,
-    alpha: torch.Tensor, width: Optional[int] = None,
+    alpha: torch.Tensor, width: Optional[int] = None, live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The lagged solution update of pipelined CG riding the SpMV pass:
     y = A_oo x, and in the same pass ``xacc += alpha*pprev`` on each
     part's owned band, in place (every other slot of xacc untouched).
     xacc and pprev share x's frame; y has `width` slots (default x's
-    width). Returns y."""
+    width). ``live``, an int32 scalar tensor on the device, guards the
+    update: where it reads 0 the kernel leaves xacc unwritten (y is
+    computed all the same). Returns y."""
     width = x.shape[1] if width is None else int(width)
     if x.device.type == "cpu":
-        return dia_coded_spmv_axpy_plain(op, x, xacc, pprev, alpha, width)
+        return dia_coded_spmv_axpy_plain(op, x, xacc, pprev, alpha, width, live)
     if x.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmv_axpy: no kernel for device {x.device}")
     alpha = alpha.reshape(1)
@@ -779,6 +802,8 @@ def dia_coded_spmv_axpy(
         raise ValueError("dia_coded_spmv_axpy: alpha must be a scalar tensor on x's device, of x's dtype")
     if xacc.shape != x.shape or pprev.shape != x.shape:
         raise ValueError("dia_coded_spmv_axpy: xacc, pprev and x must share one frame")
+    if live is not None and (live.numel() != 1 or live.device != x.device or live.dtype != torch.int32):
+        raise ValueError("dia_coded_spmv_axpy: live must be an int32 scalar tensor on x's device")
     ptrs = {x.data_ptr(), pprev.data_ptr()}
     if xacc.data_ptr() in ptrs:
         raise ValueError("dia_coded_spmv_axpy: xacc is updated in place and must not alias x or pprev")
@@ -788,7 +813,7 @@ def dia_coded_spmv_axpy(
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
         x.data_ptr(), pprev.data_ptr(), alpha.data_ptr(), y.data_ptr(), xacc.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        0 if live is None else live.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(rc, "dia_coded_spmv_axpy")
     LAUNCHES["dia_coded_spmv_axpy"] += 1

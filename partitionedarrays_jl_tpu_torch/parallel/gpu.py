@@ -25,9 +25,11 @@ Poisson CG and multigrid slices:
   -> owner assembly, over the reversed plan).
 * **CG.** `make_cg_fn` runs the textbook, the fused (direction fold riding
   the SpMV kernel) or the pipelined body (the lagged solution update
-  riding the SpMV kernel) as a Python loop that reads the convergence
-  test once per iteration; dots are per-part partials folded in part
-  order. Multigrid on the card is `parallel/gpu_gmg.py`.
+  riding the SpMV kernel) as a device-resident loop (`gpu_loop.py`: the
+  stopping test a device flag, blocks of iterations replayed as a CUDA
+  graph); x and r are updated and r.r taken in one sweep kernel
+  (`ops/sweep.py`); dots are per-part partials folded in part order.
+  Multigrid on the card is `parallel/gpu_gmg.py`.
 
 The device defaults to ``cuda``; with no card it raises at first use and
 never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
@@ -626,7 +628,8 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     gives ``body(r, pprev, beta) -> (A p, p)`` with ``p = r + beta*pprev``;
     ``axpy`` gives ``body(x, xacc, pprev, alpha) -> (A x, xacc)`` with the
     lagged update ``xacc += alpha*pprev`` applied in place on the owned
-    band (tpu.py:3237-3256; both coded only). ``plain`` runs the plain
+    band where the optional device flag ``live`` is not 0
+    (tpu.py:3237-3256; both coded only). ``plain`` runs the plain
     versions of the kernels on the same tensors (the comparison path)."""
     op = dA.coded
     wy = dA.row_layout.W
@@ -666,8 +669,8 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
         y, p = pfold_k(op, rv, pv, beta, wy)
         return _finish(y, p), p
 
-    def body_axpy(xv, xacc, pprev, alpha):
-        return _finish(axpy_k(op, xv, xacc, pprev, alpha, wy), xv), xacc
+    def body_axpy(xv, xacc, pprev, alpha, live=None):
+        return _finish(axpy_k(op, xv, xacc, pprev, alpha, wy, live), xv), xacc
 
     return body_pfold if pfold else body_axpy if axpy else body
 
@@ -704,29 +707,81 @@ def _pdot_factory(o0: int, no_max: int):
 
 
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
-               pipelined: bool = False, plain: bool = False) -> Callable:
+               pipelined: bool = False, plain: bool = False, graph: bool = True,
+               block: Optional[int] = None) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
-    iterations, residual history)``. The stopping rule is the JAX
-    package's (tpu.py:cond_fused/cond/cond_pipe): continue while
-    ``sqrt(rs) > tol*max(1, sqrt(rs0))``, ``it < maxiter`` and rs is
-    finite, evaluated on the device in the working dtype and read once per
-    iteration. ``fused`` (the default unless ``pipelined``) folds the
-    direction update ``p = r + beta*p`` into the next SpMV kernel
-    (tpu.py:4054-4123); ``pipelined`` applies the solution update
-    ``x += alpha*p`` one iteration late, inside the next SpMV kernel's pass,
-    with one flush after the loop (tpu.py:4278-4313); otherwise the
-    textbook body runs (tpu.py:4125-4170). All three follow the same
-    scalar recurrence, so they take the same iterations. The returned
-    function names its body in ``fn.cg_body``."""
+    iterations, residual history)``, run as a device-resident loop
+    (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
+    ``lax.while_loop``): the state is device tensors, the stopping test a
+    device flag ``live`` carried as ``live and cond(state)``, with the
+    JAX package's conditions (tpu.py:cond_fused/cond/cond_pipe): continue
+    while ``sqrt(rs) > tol*max(1, sqrt(rs0))``, ``it < maxiter`` and rs is
+    finite, in the working dtype. The host reads the flag once per block
+    of ``block`` iterations (`gpu_loop.CG_BLOCK`); on a CUDA device the
+    block is a CUDA graph, replayed, unless ``graph=False`` (the eager
+    comparison path). Iterations after the stop are frozen, so the results
+    are those of a loop that stops at once.
+
+    ``fused`` (the default unless ``pipelined``) folds the direction
+    update ``p = r + beta*p`` into the next SpMV kernel (tpu.py:4054-4123);
+    ``pipelined`` applies the solution update ``x += alpha*p`` one
+    iteration late, inside the next SpMV kernel's pass (tpu.py:4278-4313),
+    and the first frozen iteration's SpMV applies the last one (the flush);
+    otherwise the textbook body runs (tpu.py:4125-4170). Every body updates
+    x and r and takes r.r in one sweep (`ops/sweep.py`; r only in the
+    pipelined body). All three follow the same scalar recurrence, so they
+    take the same iterations. The history holds H = min(maxiter + 1, 4096)
+    entries, NaN past the last one written (entry i is sqrt(rs) after
+    iteration i, at min(i, H - 1)). The returned function names its body
+    in ``fn.cg_body``, describes its last run in ``fn.stats`` and keeps its
+    `gpu_loop.DeviceLoop` (whose state buffers hold the last run's final
+    state) in ``fn.loop``."""
+    from . import gpu_loop as gl
+    from ..ops import sweep as sw
+
     fused = (not pipelined) if fused is None else bool(fused)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
     body = _spmv_body(dA, plain=plain)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain) if fused else None
     body_axpy = _spmv_body(dA, axpy=True, plain=plain) if pipelined else None
+    sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
     pdot = _pdot_factory(o0, no_max)
+    stop_it = gl.stop_bound(maxiter)
+
+    def step(S):
+        rs, it, armed = S["rs"], S["it"], S["live"]
+        live = armed * ((torch.sqrt(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)).to(torch.int32)
+        out = dict(S)
+        if fused:
+            q, p = body_pfold(S["r"], S["pprev"], S["beta"])
+        elif pipelined:
+            # the SpMV also applies last iteration's x update, while the
+            # previous iteration was live (the flush in the first frozen one)
+            p = S["p"]
+            q, _ = body_axpy(p, S["x"], S["pprev"], S["alpha_prev"], armed)
+        else:
+            p = S["p"]
+            q = body(p)
+        alpha = rs / pdot(p, q)
+        if pipelined:
+            rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max)
+        else:
+            rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p)
+        beta = rs_new / rs
+        if fused:
+            out["pprev"], out["beta"] = p, beta
+        elif pipelined:
+            pnew = torch.zeros_like(p)
+            pnew[:, sl] = S["r"][:, sl] + beta * p[:, sl]
+            out["pprev"], out["alpha_prev"], out["p"] = p, alpha, pnew
+        else:
+            p[:, sl] = S["r"][:, sl] + beta * p[:, sl]
+        return gl.finish_step(out, S, live, rs_new)
+
+    loop = gl.DeviceLoop(step, gl.CG_BLOCK if block is None else block, graph)
 
     def fn(b, x0):
         x = x0.clone()
@@ -734,49 +789,27 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         r = torch.zeros_like(x)
         r[:, sl] = b[:, sl] - q[:, sl]
         rs0 = pdot(r, r)
-        thr = tol * torch.clamp(torch.sqrt(rs0), min=1.0)
-        rs = rs0
-        hist = [torch.sqrt(rs0)]
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        init = {
+            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "it": torch.zeros((), dtype=torch.int32, device=x.device),
+            "live": torch.ones((), dtype=torch.int32, device=x.device),
+            "hist": gl.history(torch.sqrt(rs0), maxiter), "part": sw.sweep_partials(r, no_max),
+        }
         if fused:
-            pprev, beta = torch.zeros_like(x), zero
+            init.update(pprev=torch.zeros_like(x), beta=zero)
         else:
             p = torch.zeros_like(x)
             p[:, sl] = r[:, sl]
+            init["p"] = p
         if pipelined:
-            pprev, alpha_prev = torch.zeros_like(x), zero
-        it = 0
-        while it < maxiter and bool(((torch.sqrt(rs) > thr) & torch.isfinite(rs)).item()):
-            if fused:
-                q, p = body_pfold(r, pprev, beta)
-            elif pipelined:
-                # the SpMV also flushes last iteration's x update
-                q, x = body_axpy(p, x, pprev, alpha_prev)
-            else:
-                q = body(p)
-            alpha = rs / pdot(p, q)
-            if not pipelined:
-                x[:, sl] = x[:, sl] + alpha * p[:, sl]
-            r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
-            rs_new = pdot(r, r)
-            beta = rs_new / rs
-            if fused:
-                pprev = p
-            elif pipelined:
-                pnew = torch.zeros_like(p)
-                pnew[:, sl] = r[:, sl] + beta * p[:, sl]
-                pprev, alpha_prev, p = p, alpha, pnew
-            else:
-                p[:, sl] = r[:, sl] + beta * p[:, sl]
-            rs = rs_new
-            it += 1
-            hist.append(torch.sqrt(rs))
-        if pipelined:
-            # flush the final lagged update (a no-op after zero iterations)
-            x[:, sl] = x[:, sl] + alpha_prev * pprev[:, sl]
-        return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
+            init.update(pprev=torch.zeros_like(x), alpha_prev=zero)
+        S, _ = loop.run(init)
+        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
 
     fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
+    fn.stats = loop.stats  # updated in place by every run
+    fn.loop = loop
     return fn
 
 
@@ -796,7 +829,9 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
     """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
     the column layout of A's lowering for ``box``, run ``solve(b, x0) ->
     (x, rs, rs0, it, history)``, lift the result back to a host PVector
-    and build the info dict (``extra`` keys merge into it)."""
+    and build the info dict: the history cut to ``it + 1`` entries (at
+    most its length), ``device_loop`` the solve's `fn.stats` (loop form,
+    block, device iterations), and ``extra`` keys merged in."""
     from ..models.solvers import _final_true_rel
 
     backend = b.values.backend
@@ -806,6 +841,7 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
     x_data, rs, rs0, it, hist = solve(db, dx0.data)
+    hist = hist[: min(it + 1, len(hist))]  # entries past the last iteration are NaN
     x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
     rs, rs0 = float(rs), float(rs0)
     if verbose:
@@ -818,7 +854,7 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
             A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
             force=floor_warned,
         ),
-        **extra,
+        device_loop=dict(solve.stats), **extra,
     )
     return x, info
 

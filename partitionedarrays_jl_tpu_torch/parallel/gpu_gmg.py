@@ -31,9 +31,11 @@ operand and product have their own frames. All frames are compact with the
 owned band at ``o0``, so a move between frames is an owned-slice copy. The
 coarse solve is one mat-vec with the host-computed dense inverse.
 
-The PCG loop runs in Python and reads the stopping test once per iteration,
-as `gpu.make_cg_fn` does; ``plain=True`` runs the kernels' plain versions
-on the same tensors (the comparison path of chip_smoke.py).
+The PCG loop is device-resident, as `gpu.make_cg_fn`'s: the stopping test
+is a device flag read once per block of iterations, and on a CUDA device
+the block is a CUDA graph (`gpu_loop.py`); ``plain=True`` runs the
+kernels' plain versions on the same tensors (the comparison path of
+chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -450,14 +452,24 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
 
 
 def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
-                    plain: bool = False, box: bool = True, stencil: bool = True) -> Callable:
+                    plain: bool = False, box: bool = True, stencil: bool = True,
+                    graph: bool = True, block: Optional[int] = None) -> Callable:
     """V-cycle-preconditioned CG on the card (tpu_gmg.py:886-985):
     ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``, on the
     transfer routes ``box`` and ``stencil`` select (`device_hierarchy`).
-    z = Vcycle(r) is computed at the top of the body with beta = 0 on the
-    first pass; the loop continues while ``sqrt(rs) > tol*max(1,
-    sqrt(rs0))``, ``it < maxiter`` and ``rz_prev != 0``, read once per
-    iteration."""
+    z = Vcycle(r) is computed at the top of the body with ``beta =
+    where(it == 0, 0, rz / rz_prev)``; the loop continues while
+    ``sqrt(rs) > tol*max(1, sqrt(rs0))``, ``it < maxiter`` and ``rz_prev !=
+    0`` (tpu_gmg.py:950-956). It runs as `gpu.make_cg_fn` runs its bodies:
+    a device-resident loop with the stopping test a device flag
+    (`gpu_loop.DeviceLoop`), read once per block of ``block`` iterations
+    (`gpu_loop.GMG_BLOCK`), the block replayed as a CUDA graph on a CUDA
+    device unless ``graph=False``; level 0's x and r are updated and r.r
+    taken in one sweep (`ops/sweep.py`). ``fn.stats`` describes the last
+    run, ``fn.loop`` is the `gpu_loop.DeviceLoop`."""
+    from ..ops import sweep as sw
+    from . import gpu_loop as gl
+
     dh = device_hierarchy(h, backend, box, stencil)
     dA0 = dh["levels"][0]["dA"]
     L0, L0r = dA0.col_layout, dA0.row_layout
@@ -466,37 +478,48 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
     pdot = _pdot_factory(L0.o0, no)
     body_A0 = _spmv_body(dA0, plain=plain)
     vcycle = make_vcycle(h, dh, plain=plain)
+    sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
+    stop_it = gl.stop_bound(maxiter)
 
     def spmv(z):
         out = torch.zeros_like(z)
         out[:, sl] = body_A0(z)[:, L0r.o0 : L0r.o0 + no]
         return out
 
+    def step(S):
+        rs, rz_prev, it = S["rs"], S["rz_prev"], S["it"]
+        live = S["live"] * ((torch.sqrt(rs) > S["thr"]) & (it < stop_it) & (rz_prev != 0)).to(torch.int32)
+        r, p = S["r"], S["p"]
+        z = vcycle(r)
+        rz = pdot(r, z)
+        beta = torch.where(it == 0, torch.zeros_like(rz), rz / rz_prev)
+        p[:, sl] = z[:, sl] + beta * p[:, sl]
+        q = spmv(p)
+        alpha = rz / pdot(p, q)
+        rs_new = sweep(r, q, alpha, live, S["part"], L0.o0, no, x=S["x"], p=p)
+        return gl.finish_step(dict(S, rz_prev=torch.where(live != 0, rz, rz_prev)), S, live, rs_new)
+
+    loop = gl.DeviceLoop(step, gl.GMG_BLOCK if block is None else block, graph)
+
     def fn(b, x0):
         x = x0.clone()
         q = spmv(x0.clone())
         r = torch.zeros_like(x0)
         r[:, sl] = b[:, sl] - q[:, sl]
-        p = torch.zeros_like(x0)
         rs0 = pdot(r, r)
-        thr = tol * torch.clamp(torch.sqrt(rs0), min=1.0)
-        rs, rz_prev = rs0, torch.ones((), dtype=x.dtype, device=x.device)
-        hist = [torch.sqrt(rs0)]
-        it = 0
-        while it < maxiter and bool(((torch.sqrt(rs) > thr) & (rz_prev != 0)).item()):
-            z = vcycle(r)
-            rz = pdot(r, z)
-            beta = torch.zeros_like(rz) if it == 0 else rz / rz_prev
-            p[:, sl] = z[:, sl] + beta * p[:, sl]
-            q = spmv(p)
-            alpha = rz / pdot(p, q)
-            x[:, sl] = x[:, sl] + alpha * p[:, sl]
-            r[:, sl] = r[:, sl] + (-alpha) * q[:, sl]
-            rs, rz_prev = pdot(r, r), rz
-            it += 1
-            hist.append(torch.sqrt(rs))
-        return x, rs, rs0, it, torch.stack(hist).cpu().numpy()
+        init = {
+            "x": x, "r": r, "p": torch.zeros_like(x0), "rs": rs0,
+            "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "rz_prev": torch.ones((), dtype=x.dtype, device=x.device),
+            "it": torch.zeros((), dtype=torch.int32, device=x.device),
+            "live": torch.ones((), dtype=torch.int32, device=x.device),
+            "hist": gl.history(torch.sqrt(rs0), maxiter), "part": sw.sweep_partials(r, no),
+        }
+        S, _ = loop.run(init)
+        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
 
+    fn.stats = loop.stats  # updated in place by every run
+    fn.loop = loop
     return fn
 
 

@@ -1,0 +1,170 @@
+"""Device-resident solve loops: the port's counterpart of `lax.while_loop`.
+
+The JAX package runs each solve as one compiled program: ``while
+cond(state): state = step(state)`` on the device (`parallel/tpu.py:4120`,
+`parallel/tpu_gmg.py:969`). Here the state is a dict of device tensors
+and the stopping test is a device flag ``live`` (int32), carried as ``live
+<- live and cond(state)`` at the top of every step; a step whose flag
+reads 0 is *frozen*: it writes nothing of the state that the solve
+returns (the vector updates go through kernels that read the flag,
+`ops/sweep.py` and the pipelined body's SpMV; the scalars through
+``torch.where``). So running a few iterations past the stop changes no
+result, and the host can read the flag once per block of iterations.
+
+`DeviceLoop` runs blocks of ``block`` steps until the flag reads 0. On a
+CUDA device the first block of the first run runs eagerly (it is also the
+warm-up: every kernel computes its launch grid there), then the block is
+captured once into a `torch.cuda.CUDAGraph` and replayed: one host launch
+and one read of the flag a block. A capture that fails raises; nothing
+falls back to the eager loop. On the CPU, or with ``graph=False``, every
+block runs eagerly: the same steps, the same frozen iterations, so the
+results and the device iterations are the same.
+
+Steps are written as functions of the state dict: a step may update a
+state tensor in place (the persistent buffer that a graph captured) or
+return a new tensor under its key; at the end of a block every rebound
+key is copied back into its buffer. The returned state is the buffers:
+the caller copies what it returns, since the next run overwrites them.
+
+Launch counts: a wrapper counts a launch in `dia.LAUNCHES` when it is
+called, and a capture calls every wrapper of the block without running
+it. So the counts a capture adds are taken back and kept as the graph's
+tally, which every replay adds, and `dia.LAUNCHES` counts the launches the
+card ran, in frozen iterations too.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..ops import dia
+
+#: iterations a block (a graph replay) runs: CG's iterations take ~0.2 ms
+#: of device work at 192^3, a GMG-PCG iteration ~1.3 ms
+CG_BLOCK = 8
+GMG_BLOCK = 1
+#: the residual history's capacity: H = min(maxiter + 1, HIST_MAX) entries
+#: (tpu.py:3605)
+HIST_MAX = 4096
+
+State = Dict[str, torch.Tensor]
+
+
+def history(h0: torch.Tensor, maxiter: int) -> torch.Tensor:
+    """The fixed-shape residual history of a solve: H = min(maxiter + 1,
+    HIST_MAX) entries, NaN but for entry 0, ``h0``."""
+    hist = torch.full((min(int(maxiter) + 1, HIST_MAX),), math.nan, dtype=h0.dtype, device=h0.device)
+    hist[0] = h0
+    return hist
+
+
+def record(hist: torch.Tensor, it: torch.Tensor, live: torch.Tensor, value: torch.Tensor) -> None:
+    """Write ``value`` at ``min(it, H - 1)`` of the history, in place, where
+    ``live`` (it is the count after the step); a frozen step writes back the
+    entry it finds."""
+    idx = torch.clamp(it, max=hist.shape[0] - 1).to(torch.int64).reshape(1)
+    keep = hist.index_select(0, idx)
+    hist.index_copy_(0, idx, torch.where(live.reshape(1) != 0, value.reshape(1), keep))
+
+
+def finish_step(out: State, S: State, live: torch.Tensor, rs_new: torch.Tensor) -> State:
+    """The end of a step from state S with the new flag ``live``: rs, the
+    iteration count and the flag into ``out`` (rs kept where the flag is
+    0), and sqrt(rs_new) into the history where it is set."""
+    out.update(rs=torch.where(live != 0, rs_new, S["rs"]), it=S["it"] + live, live=live)
+    record(S["hist"], out["it"], live, torch.sqrt(rs_new))
+    return out
+
+
+def stop_bound(maxiter: int) -> int:
+    """maxiter as the int32 iteration counter compares it."""
+    return min(int(maxiter), 2**31 - 1)
+
+
+class DeviceLoop:
+    """Blocks of ``block`` calls of ``step(state) -> state`` until the
+    state's ``live`` flag reads 0, on persistent state buffers; on a CUDA
+    device (and with ``graph``) the block is a CUDA graph replayed after
+    the first block. `stats` describes the last run."""
+
+    def __init__(self, step: Callable[[State], State], block: int, graph: bool = True):
+        if block < 1:
+            raise ValueError(f"DeviceLoop: block must be >= 1, got {block}")
+        self.step = step
+        self.block = int(block)
+        self.graph = bool(graph)
+        self.base: Optional[State] = None
+        self.layout = None
+        self.cuda_graph = None
+        self.tally: Dict[str, int] = {}
+        self.capture_s: Optional[float] = None
+        self.stats: dict = {}
+
+    def run(self, init: State) -> Tuple[State, int]:
+        """Load ``init`` (which must hold ``live``) into the state buffers and
+        run blocks until the flag reads 0. Returns the buffers and the
+        iterations the device ran (whole blocks, frozen ones included)."""
+        layout = {k: (v.shape, v.dtype, v.device) for k, v in init.items()}
+        if layout != self.layout:
+            # new buffers: a captured graph would write the old ones
+            self.base = {k: v.clone() for k, v in init.items()}
+            self.layout = layout
+            self.cuda_graph = None
+        else:
+            for k, v in init.items():
+                self.base[k].copy_(v)
+        use_graph = self.graph and self.base["live"].device.type == "cuda"
+        n = replays = 0
+        captured_now = False
+        while True:
+            if self.cuda_graph is not None:
+                self.cuda_graph.replay()
+                for k, v in self.tally.items():
+                    dia.LAUNCHES[k] += v
+                replays += 1
+            else:
+                self._block()
+            n += self.block
+            if not bool(self.base["live"].item()):
+                break
+            if use_graph and self.cuda_graph is None:
+                self._capture()
+                captured_now = True
+        self.stats.clear()  # in place: callers may hold the dict
+        self.stats.update(
+            loop="graph" if use_graph else "eager", block=self.block, device_iterations=n,
+            replays=replays, capture_s=self.capture_s if captured_now else None,
+        )
+        return self.base, n
+
+    def _block(self) -> None:
+        S = dict(self.base)
+        for _ in range(self.block):
+            S = self.step(S)
+        # rebound keys back into their buffers; a source that is another
+        # key's buffer is copied first, since the writes would overwrite it
+        bufs = {id(t) for t in self.base.values()}
+        moved = {k: (v.clone() if id(v) in bufs else v) for k, v in S.items() if v is not self.base[k]}
+        for k, v in moved.items():
+            self.base[k].copy_(v)
+
+    def _capture(self) -> None:
+        """Capture one block into a CUDA graph (torch's global capture error
+        mode: a host read or a synchronising op raises). The launches the
+        capture counted become the graph's tally."""
+        before = dict(dia.LAUNCHES)
+        t = time.perf_counter()
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                self._block()
+        finally:
+            tally = {k: dia.LAUNCHES[k] - before[k] for k in dia.LAUNCHES}
+            dia.LAUNCHES.update(before)
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t
+        self.tally = {k: v for k, v in tally.items() if v}
+        self.cuda_graph = g

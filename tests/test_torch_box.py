@@ -30,6 +30,7 @@ from partitionedarrays_jl_tpu_torch import interop
 from partitionedarrays_jl_tpu_torch.ops import dia
 from partitionedarrays_jl_tpu_torch.ops import stencil as stn
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+from partitionedarrays_jl_tpu_torch.parallel.gpu_loop import GMG_BLOCK
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (
     DeviceVector,
     GPUBackend,
@@ -747,7 +748,8 @@ def test_stencil_route_launch_counts(monkeypatch):
     """On the stencil route one V-cycle makes 2 SpMVs with each level's
     operator and 2 stencil applies on each stencil level, and no SpMV with
     any S; each PCG iteration one more SpMV with the fine operator:
-    counted here through the wrappers the device loop calls (one part,
+    counted here through the wrappers the device loop calls, per iteration
+    the device ran (the frozen ones after the stop included; one part,
     every level on the stencil route, as the chip's 192^3 case)."""
     calls = {"dia_coded_spmv": 0, "dia_stream_spmv": 0, "box_stencil_apply": 0}
 
@@ -771,13 +773,15 @@ def test_stencil_route_launch_counts(monkeypatch):
         dh = gpu_gmg.device_hierarchy(h, parts.backend)
         for k in calls:
             calls[k] = 0
-        it = pt.pcg(Ah, bh, minv=h, tol=1e-5)[1]["iterations"]
-        return [gpu_gmg.route(l) for l in dh["levels"]], [l["dA"].dia_mode for l in dh["levels"]], it
+        info = pt.pcg(Ah, bh, minv=h, tol=1e-5)[1]
+        it, dev_it = info["iterations"], info["device_loop"]["device_iterations"]
+        return [gpu_gmg.route(l) for l in dh["levels"]], [l["dA"].dia_mode for l in dh["levels"]], it, dev_it
 
-    routes, modes, it = pt.prun(driver, CPU, (1, 1, 1))
+    routes, modes, it, dev_it = pt.prun(driver, CPU, (1, 1, 1))
     L = len(routes)
     assert routes == ["stencil"] * L and L >= 2 and it > 0
+    assert dev_it == GMG_BLOCK * (it // GMG_BLOCK + 1)  # whole blocks, the last holding the stop
     n_stream = modes.count("stream")
-    assert calls["dia_coded_spmv"] == 1 + it * (1 + 2 * (L - n_stream))  # no S anywhere
-    assert calls["dia_stream_spmv"] == it * 2 * n_stream
-    assert calls["box_stencil_apply"] == it * 2 * L
+    assert calls["dia_coded_spmv"] == 1 + dev_it * (1 + 2 * (L - n_stream))  # no S anywhere
+    assert calls["dia_stream_spmv"] == dev_it * 2 * n_stream
+    assert calls["box_stencil_apply"] == dev_it * 2 * L

@@ -9,7 +9,9 @@ machine that has only PyTorch:
 Each kernel must equal its plain PyTorch version value for value (both
 round every product and sum separately; torch.equal counts -0.0 == +0.0),
 and the GPU backend's CG, pipelined CG and GMG-PCG must take the port's
-sequential iterations."""
+sequential iterations. The device-resident loops replayed as CUDA graphs
+must equal the same loops run eagerly on the card, bit for bit, with the
+same launch counts; a capture that fails raises."""
 import numpy as np
 import pytest
 import torch
@@ -239,12 +241,14 @@ def test_stacked_parts_pipelined_and_gmg_match_sequential():
         Ah, bh = pt.decouple_dirichlet(A, b)
         h = pt.gmg_hierarchy(parts, Ah, ns, coarse_threshold=100)
         x, info_g = pt.pcg(Ah, bh, minv=h, tol=1e-8)
-        return info_c["iterations"], info_g["iterations"], float((x - xe).norm())
+        dev_it = info_c.get("device_loop", {}).get("device_iterations")
+        return info_c["iterations"], info_g["iterations"], float((x - xe).norm()), dev_it
 
     dia.reset_launches()
-    it_c, it_g, err = pt.prun(driver, pt.GPUBackend(), (2, 2, 2))
-    assert dia.LAUNCHES["dia_coded_spmv_axpy"] == it_c and dia.LAUNCHES["dia_stream_spmv"] > 0
-    it_cs, it_gs, err_s = pt.prun(driver, pt.sequential, (2, 2, 2))
+    it_c, it_g, err, dev_it = pt.prun(driver, pt.GPUBackend(), (2, 2, 2))
+    # one axpy launch per iteration the device ran (the frozen ones included)
+    assert dia.LAUNCHES["dia_coded_spmv_axpy"] == dev_it and dia.LAUNCHES["dia_stream_spmv"] > 0
+    it_cs, it_gs, err_s, _ = pt.prun(driver, pt.sequential, (2, 2, 2))
     assert (it_c, it_g) == (it_cs, it_gs)
     assert abs(err - err_s) <= 1e-9
 
@@ -450,3 +454,170 @@ def test_gmg_pcg_routes_match_sequential_on_card(ns):
         it, err = pt.prun(driver, pt.GPUBackend(), (2, 2, 2), **kw)
         assert (dia.LAUNCHES["box_stencil_apply"] > 0) == (kw == {})
         assert it == it_s and abs(err - err_s) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the CG update sweep, K3's guard, and the device-resident loops
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("live", [0, 1])
+@pytest.mark.parametrize("mode", ["x_and_r", "r_only"])
+@pytest.mark.parametrize("n", [1, 2047, 2049, 100003], ids=["n1", "n2047", "n2049", "n100003"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_sweep_kernel_matches_plain(dtype, n, mode, live):
+    """The sweep kernel against its plain version on three stacked parts
+    (the band at an odd offset, q in a narrower frame): x, r, the partials
+    and rs equal; with the flag 0 nothing is written and rs is the fold of
+    the partials it found."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(n)
+    P, o0 = 3, 5
+
+    def mk(w):
+        return torch.from_numpy(rng.standard_normal((P, w))).to("cuda", dtype)
+
+    x, r, p, q = mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 2)
+    part = torch.from_numpy(rng.standard_normal((P, sw.chunks(n))) ** 2).to("cuda", dtype)
+    alpha = torch.tensor(-0.4375, dtype=dtype, device="cuda")
+    flag = torch.tensor(live, dtype=torch.int32, device="cuda")
+    xk, rk, pk = x.clone(), r.clone(), part.clone()
+    xp, rp, pp = x.clone(), r.clone(), part.clone()
+    with_x = mode == "x_and_r"
+    dia.reset_launches()
+    rs_k = sw.cg_sweep(rk, q, alpha, flag, pk, o0, n, **({"x": xk, "p": p} if with_x else {}))
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["cg_sweep"] == 1
+    rs_p = sw.cg_sweep_plain(rp, q, alpha, flag, pp, o0, n, **({"x": xp, "p": p} if with_x else {}))
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(pk, pp) and torch.equal(rs_k, rs_p)
+    if not live:
+        assert torch.equal(xk, x) and torch.equal(rk, r) and torch.equal(pk, part)
+    elif not with_x:
+        assert torch.equal(xk, x)
+
+
+@pytest.mark.parametrize("live", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["select", "class"])
+def test_axpy_kernel_guard_matches_plain(mode, dtype, live):
+    """K3 with its device flag: y always, the lagged update only where the
+    flag is set, each equal to the plain version."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    op = _operator(mode, dtype, rng, 7, 25, 3)
+    w = op.o0 + op.n + 50
+    x, pprev, xacc = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(3))
+    alpha = torch.tensor(-0.625, dtype=dtype, device="cuda")
+    flag = torch.tensor(live, dtype=torch.int32, device="cuda")
+    xk, xp = xacc.clone(), xacc.clone()
+    yk = dia.dia_coded_spmv_axpy(op, x, xk, pprev, alpha, w + 3, flag)
+    yp = dia.dia_coded_spmv_axpy_plain(op, x, xp, pprev, alpha, w + 3, flag)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp) and torch.equal(xk, xp)
+    assert torch.equal(xk, xacc) == (live == 0)
+
+
+LOOP_BODIES = ("fused", "standard", "pipelined", "gmg_stencil", "gmg_structured")
+
+
+@pytest.fixture(scope="module")
+def card_systems():
+    """(2,2,2) parts on the card, f64: the 12^3 Poisson operator for CG, the
+    decoupled 16^3 one and its hierarchy for GMG-PCG, staged."""
+    if not torch.cuda.is_available():
+        return None
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, _b_on_cols_layout, device_matrix
+
+    def driver(parts):
+        A, b, _, x0 = pt.assemble_poisson(parts, (12, 12, 12))
+        dA = device_matrix(A, parts.backend)
+        Ag, bg, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, bh = pt.decouple_dirichlet(Ag, bg)
+        h = pt.gmg_hierarchy(parts, Ah, (16, 16, 16), coarse_threshold=100)
+        dA0 = device_matrix(Ah, parts.backend)
+        bg_d = _b_on_cols_layout(bh, dA0)
+        return {
+            "backend": parts.backend, "dA": dA, "b": _b_on_cols_layout(b, dA),
+            "x0": DeviceVector.from_pvector(x0, parts.backend, dA.col_layout).data,
+            "h": h, "bg": bg_d, "xg0": torch.zeros_like(bg_d),
+        }
+
+    return pt.prun(driver, pt.GPUBackend(), (2, 2, 2))
+
+
+def _make_loop(c, body, graph, tol=1e-10, block=None):
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import make_cg_fn
+
+    if body.startswith("gmg"):
+        fn = gpu_gmg.make_gmg_pcg_fn(c["h"], c["backend"], tol, 500, stencil=body == "gmg_stencil",
+                                     graph=graph, block=block)
+        return fn, c["bg"], c["xg0"]
+    fn = make_cg_fn(c["dA"], tol, 500, fused=body == "fused", pipelined=body == "pipelined", graph=graph,
+                    block=block)
+    return fn, c["b"], c["x0"]
+
+
+def _bitwise(a, b):
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+@pytest.mark.parametrize("block", [None, 3])
+@pytest.mark.parametrize("body", LOOP_BODIES)
+def test_graph_loop_matches_eager(card_systems, body, block):
+    """Each loop replayed as a CUDA graph against the same loop run eagerly
+    on the card: x, rs, iterations, the final r and the history bit for
+    bit, and the same launch counts (the graph's tally added on every
+    replay); a second run replays only, and a third solve through the same
+    function leaves the returned x of the earlier ones as it was."""
+    _need_card()
+    c = card_systems
+    fe, b, x0 = _make_loop(c, body, False, block=block)
+    fg, _, _ = _make_loop(c, body, True, block=block)
+    dia.reset_launches()
+    want = fe(b, x0)
+    torch.cuda.synchronize()
+    counts = dict(dia.LAUNCHES)
+    for run in range(2):
+        dia.reset_launches()
+        got = fg(b, x0)
+        torch.cuda.synchronize()
+        assert dict(dia.LAUNCHES) == counts
+        assert got[3] == want[3] > 0
+        for g, e in zip((got[0], got[1], got[2], fg.loop.base["r"]), (want[0], want[1], want[2], fe.loop.base["r"])):
+            assert _bitwise(g, e)
+        assert np.array_equal(got[4], want[4], equal_nan=True)
+        st = fg.stats
+        assert st["loop"] == "graph" and st["device_iterations"] == fe.stats["device_iterations"]
+        assert st["replays"] == st["device_iterations"] // st["block"] - (1 if run == 0 else 0)
+        assert (st["capture_s"] is not None) == (run == 0)
+    keep = got[0].clone()
+    fg(b, torch.ones_like(x0))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], keep)
+
+
+def test_failed_capture_raises():
+    """A host read inside a step breaks the capture: the run raises, and
+    the launch counts are those of the eager block that ran."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop as gl
+
+    def step(S):
+        x = S["x"] + 1
+        if bool((x > 100).any().item()):  # a host read: not allowed while capturing
+            x = x * 0
+        return dict(S, x=x)
+
+    loop = gl.DeviceLoop(step, 2)
+    init = {"x": torch.zeros(4, device="cuda"), "live": torch.ones((), dtype=torch.int32, device="cuda")}
+    dia.reset_launches()
+    with pytest.raises(RuntimeError):
+        loop.run(init)
+    assert loop.cuda_graph is None
+    assert not any(dia.LAUNCHES.values())
+    torch.cuda.synchronize()
+

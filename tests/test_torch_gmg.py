@@ -19,6 +19,7 @@ import partitionedarrays_jl_tpu_torch as pt
 from partitionedarrays_jl_tpu_torch import interop
 from partitionedarrays_jl_tpu_torch.ops import dia
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+from partitionedarrays_jl_tpu_torch.parallel.gpu_loop import GMG_BLOCK
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (
     DeviceVector,
     GPUBackend,
@@ -179,7 +180,8 @@ def test_vcycle_launch_counts(monkeypatch):
     one V-cycle makes 2 SpMVs with each level's operator and 2 with each
     level's S (the zero-start pre-smoothing sweep needs none), and each PCG
     iteration one more with the fine operator: counted here through the
-    wrappers the device loop calls. The stencil route's count is in
+    wrappers the device loop calls, per iteration the device ran (the
+    frozen ones after the stop included). The stencil route's count is in
     tests/test_torch_box.py."""
     calls = {"coded": 0, "stream": 0}
 
@@ -199,12 +201,15 @@ def test_vcycle_launch_counts(monkeypatch):
         h = pt.gmg_hierarchy(parts, Ah, NS, coarse_threshold=100)
         gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
         calls.update(coded=0, stream=0)
-        return len(h.levels), pt.pcg(Ah, bh, minv=h, tol=TOL, stencil=False)[1]["iterations"]
+        info = pt.pcg(Ah, bh, minv=h, tol=TOL, stencil=False)[1]
+        return len(h.levels), info["iterations"], info["device_loop"]["device_iterations"]
 
-    L, it = pt.prun(driver, CPU, (2, 2, 2))
+    L, it, dev_it = pt.prun(driver, CPU, (2, 2, 2))
     assert L == 2 and it > 0
-    assert calls["coded"] == 1 + it * (1 + 2 + 2 * L)  # level-0 A and every S
-    assert calls["stream"] == it * 2 * (L - 1)  # the Galerkin levels' A
+    # blocks of GMG_BLOCK iterations, the last holding the stop
+    assert dev_it == GMG_BLOCK * (it // GMG_BLOCK + 1)
+    assert calls["coded"] == 1 + dev_it * (1 + 2 + 2 * L)  # level-0 A and every S
+    assert calls["stream"] == dev_it * 2 * (L - 1)  # the Galerkin levels' A
 
 
 def test_unported_options_raise():

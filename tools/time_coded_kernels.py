@@ -27,11 +27,15 @@ of single launches, each after an L2 flush and a spin that keeps the card
 busy while the launch is queued), and ``loop_ms``, 20 back-to-back
 launches over one event pair, divided by 20 (as the CG loop runs them).
 ``--cg N`` and ``--gmg N`` add, per checkout in a process of its own,
-fused and pipelined CG seconds per iteration at N^3, and GMG-PCG seconds
-per iteration at N^3 (set up by chip_smoke.py's `gmg_driver`, fixed trips
-chip_smoke.py's `GMG_TRIPS`) and its profile (chip_smoke.py's
-`phase_profile`) on the stencil and the structured transfer routes (a
-checkout from before the box plan: its one route, ``structured_emb``),
+fused, pipelined and standard CG seconds per iteration at N^3 and the fused
+body's profile (chip_smoke.py's `phase_profile`), and GMG-PCG seconds per
+iteration at N^3 (set up by chip_smoke.py's `gmg_driver`, fixed trips
+chip_smoke.py's `GMG_TRIPS`) and its profile on the stencil and the
+structured transfer routes (a checkout from before the box plan: its one
+route, ``structured_emb``); a checkout with the device-resident loops
+(`make_cg_fn(graph=...)`) is timed in its CUDA-graph loop (the plain
+keys) and in its eager loop (keys ending ``_eager``), a checkout from
+before them in its Python loop (the plain keys),
 for each coded operator of the structured route's hierarchy the host and
 device microseconds of one K1 launch and chip_smoke.py's
 `gmg_coded_operator` line (shape, launches per solve, flushed and
@@ -45,6 +49,7 @@ non-zero without a card.
 import argparse
 import functools
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -174,9 +179,11 @@ def host_device_us(fns, reps):
 
 def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     """The solvers' seconds per iteration with the package of checkout
-    `root`, in a process of its own: fused and pipelined CG at cg_n^3
-    float32 (fixed trips of 20 and 220), and GMG-PCG at gmg_n^3 float32
-    on each transfer route with, for the coded operators of the structured
+    `root`, in a process of its own: fused, pipelined and standard CG at
+    cg_n^3 float32 (fixed trips of 20 and 220; the graph and the eager loop
+    where the checkout has both) and the fused body's profile, and GMG-PCG
+    at gmg_n^3 float32 on each transfer route with, for the coded operators
+    of the structured
     route's hierarchy, the host and device microseconds of one K1 launch, issued
     back to back per operator and in turn over all of them (as a V-cycle
     issues them); the profile, the empty kernel's line and chip_smoke.py's
@@ -192,6 +199,8 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     backend = smoke.GPUBackend()
     dia.build_kernels()
     out = {"package": str(Path(dia.__file__).resolve().parents[2])}
+    # a checkout with the device-resident loops: time the graph and the eager loop
+    has_graph = "graph" in inspect.signature(smoke.make_cg_fn).parameters
     if cg_n:
         A, b, _, x0 = smoke.prun(
             lambda parts: smoke.assemble_poisson(parts, (cg_n,) * 3, dtype=np.float32), backend, (1, 1, 1))
@@ -199,9 +208,13 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
         b = smoke._b_on_cols_layout(b, dA)
         x0 = smoke.DeviceVector.from_pvector(x0, backend, dA.col_layout).data
         out["cg_n"] = cg_n
-        for key, pipelined in (("cg_s_per_iter", False), ("pipelined_cg_s_per_iter", True)):
-            out[key], _ = smoke.fixed_trip_s_per_iter(
-                lambda m: smoke.make_cg_fn(dA, 0.0, m, pipelined=pipelined), b, x0, 20, 220)
+        loops = (("", {}), ("_eager", {"graph": False})) if has_graph else (("", {}),)
+        for body, kw in (("cg", {}), ("pipelined_cg", {"pipelined": True}), ("standard_cg", {"fused": False})):
+            for tag, lkw in loops:
+                out[f"{body}{tag}_s_per_iter"], _ = smoke.fixed_trip_s_per_iter(
+                    lambda m: smoke.make_cg_fn(dA, 0.0, m, **kw, **lkw), b, x0, 20, 220)
+        for tag, lkw in loops:
+            smoke.phase_profile(f"cg_profile{tag}", smoke.make_cg_fn(dA, 0.0, 48, **lkw), b, x0, 48)
     if not gmg_n:
         return out
     run = smoke.prun(smoke.gmg_driver, backend, (1, 1, 1), gmg_n, True)
@@ -212,6 +225,8 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     routes = hasattr(smoke.gpu_gmg, "route")
     kws = (("stencil", {}), ("structured", {"stencil": False})) if routes else (("structured_emb", {}),)
     coded_kw = kws[-1][1]
+    if has_graph:
+        kws += tuple((f"{name}_eager", {**kw, "graph": False}) for name, kw in kws)
     out.update({"gmg_n": gmg_n, "gmg_pcg_s_per_iter": {}, "fixed_trips": smoke.GMG_TRIPS})
     for name, kw in kws:
         out["gmg_pcg_s_per_iter"][name], _ = smoke.fixed_trip_s_per_iter(
@@ -224,8 +239,10 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     # a solve to tolerance for the launch counts, then one line per coded
     # operator, per stencil level and the empty kernel's (chip_smoke.py's
     # phase 5 lines)
-    iterations = smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, smoke.TOL_MAIN, 4 * run["Ah"].rows.ngids,
-                                                **coded_kw)(b, x0)[3]
+    fn = smoke.gpu_gmg.make_gmg_pcg_fn(h, backend, smoke.TOL_MAIN, 4 * run["Ah"].rows.ngids, **coded_kw)
+    iterations = fn(b, x0)[3]
+    # launches follow the iterations the device ran (frozen ones included)
+    iterations = (getattr(fn, "stats", None) or {}).get("device_iterations", iterations)
     smoke.emit({"phase": "null_launch", "us": smoke.null_launch_us(flush)})
     smoke.coded_operator_times(dh, iterations, flush, np.random.default_rng(0))
     if routes:
@@ -238,6 +255,7 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
                 x = torch.ones((dM.col_layout.P, dM.col_layout.W), dtype=torch.float32, device=backend.device)
                 calls.append(functools.partial(dia.dia_coded_spmv, dM.coded, x, dM.row_layout.W))
     out.update({
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "levels": len(dh["levels"]), "coded_operators": len(calls),
         "each": [host_device_us([f], 50) for f in calls],
         "in_turn": host_device_us(calls, 20),
@@ -288,6 +306,7 @@ def main() -> int:
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
+                print(proc.stdout[-4000:], file=sys.stderr)
                 print(proc.stderr[-4000:], file=sys.stderr)
                 return proc.returncode
             for line in proc.stdout.strip().splitlines():
