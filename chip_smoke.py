@@ -8,7 +8,8 @@ drives the port's paths — the 3-D Poisson CG solve at 192^3 in float32 on
 one part (fused, then pipelined and standard) and the
 multigrid-preconditioned CG at 192^3 float32, through `prun`,
 `assemble_poisson`, `cg`, `pcg` and the lowerings — and holds every kernel
-against its plain PyTorch version. Every solve runs the device-resident
+against its plain PyTorch version (seven kernels: K1-K4, the stencil,
+the CG sweep and the V-cycle epilogue). Every solve runs the device-resident
 loop (`parallel/gpu_loop.py`): blocks of k iterations replayed as a CUDA
 graph, the stopping test a device flag; so launch counts are stated in the
 iterations the device ran (whole blocks, the frozen iterations after the
@@ -77,26 +78,33 @@ Phases, one JSON line each:
    `pcg` and read after must equal 1 + 3 per device iteration (coded: the
    initial residual, the outer A p and 2 on level 0 per V-cycle; no K1 on
    any S), 8 per device iteration (stream: 2 on each of levels 1-4), 10
-   per device iteration (the stencil kernel: 2 on each level) and 1 sweep
-   per device iteration; the same iterations as the plain versions, error
-   within 1.1x of theirs; the streaming-DIA kernel held on level 1; graph
-   against eager;
+   per device iteration (the stencil kernel: 2 on each level), 15 per
+   device iteration (the V-cycle epilogue: init, residual and smooth on
+   each level) and 1 sweep per device iteration; the same iterations as
+   the plain versions, error within 1.1x of theirs; the streaming-DIA
+   kernel held in both forms on every stream level, the epilogue in every
+   mode on every level, and one V-cycle with the kernels against the
+   V-cycle through the plain versions; graph against eager;
 4b'. the same solve on the structured route (``stencil=False``): its
    staging seconds (S assembled and lowered on every level), the coded-DIA
    SpMV torch.equal to its plain version on every coded operator (level
-   0's A and the stencils S of all 5 levels, select-chain decode), launch
-   counts 1 + 13 per device iteration coded (2 with S on each level), 8 per
-   device iteration stream and 1 sweep; the stencil route must take its
+   0's A and the stencils S of all 5 levels, select-chain decode), the
+   epilogue (its residual into S's frame) and one V-cycle against their
+   plain versions, launch counts 1 + 13 per device iteration coded (2
+   with S on each level), 8 per device iteration stream, 15 epilogue and
+   1 sweep; the stencil route must take its
    iterations (7) and reach an error within 1.1x of its; graph against
    eager;
 4c. stacked-parts GMG-PCG, (2,2,2) parts, 48^3 float64 on the card (phase
    2b's hierarchy): the iterations of the port's sequential backend, of the
    plain versions and of the generic routes (``box=False``), coded, stream,
-   stencil and sweep launch counts by the routes' formula (`gmg_launches`)
-   and > 0, the coded kernel torch.equal to its plain version on level 0's
-   A and S, the stream kernel on level 1; graph against eager; seconds per
-   iteration on both routes (the default routes in the graph and the eager
-   loop);
+   stencil, sweep and epilogue launch counts by the routes' formula
+   (`gmg_launches`) and > 0, the coded kernel torch.equal to its plain
+   version on level 0's A and S, the stream kernel in both forms on both
+   stream levels, the epilogue in every mode on every level and one
+   V-cycle, on the default and the generic routes; graph against eager;
+   seconds per iteration on both routes (the default routes in the graph
+   and the eager loop);
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -122,8 +130,16 @@ Phases, one JSON line each:
    CTA, registers, shared memory and CTAs an SM, its flushed and
    back-to-back µs, the other form's flushed µs, its plain version's,
    conv3d of the extended boxes with the fixed 3x3x3 weight (cuDNN, TF32
-   off), and the bound (the owned box read and the result written);
+   off), and the bound (the owned box read and the result written); one
+   ``dia_stream_level`` line per streaming level of both hierarchies (the
+   form its shape takes, vector loads, the unrolled sum, both forms'
+   flushed µs, the plain version's, torch.sparse.mm's on one part, the
+   bound: values, x and y) and one ``vcycle_epilogue_level`` line per
+   level and mode of both (flushed µs, the plain version's, the bound);
 6. the launch counts of phases 3, 3b and 4b (the sweep's of phase 3).
+
+In the kernels line, K4's times are level 1's of 192^3 (its stream form)
+and the epilogue's level 0's smooth mode of 192^3.
 
 It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
@@ -177,7 +193,7 @@ GMG_ITERATIONS = 7  # 192^3 f32 GMG-PCG to TOL_MAIN on either route
 GMG_TRIPS = (4, 24)  # fixed trips of the GMG-PCG seconds per iteration (2 and 12 drowned in host jitter)
 
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
-           "box_stencil_apply", "cg_sweep")
+           "box_stencil_apply", "cg_sweep", "vcycle_epilogue")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
@@ -185,10 +201,13 @@ SRC = {
     "dia_stream_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_stream.cu",
     "box_stencil_apply": "partitionedarrays_jl_tpu_torch/csrc/box_stencil.cu",
     "cg_sweep": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
+    "vcycle_epilogue": "partitionedarrays_jl_tpu_torch/csrc/vcycle_epilogue.cu",
 }
-#: the TPU kernel each replaces; box_stencil_apply and cg_sweep have none:
-#: they stand for the XLA fusions of the JAX package's `_stencil_apply` and
-#: of the fused CG body's update sweep (`step_fused`)
+#: the TPU kernel each replaces; box_stencil_apply, cg_sweep and
+#: vcycle_epilogue have none: they stand for the XLA fusions of the JAX
+#: package's `_stencil_apply`, of the fused CG body's update sweep
+#: (`step_fused`) and of the V-cycle's smoothing sweep and residual
+#: (`_vcycle_shard_body`, the sweep at :604; init :596, residuals :616, :686)
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
@@ -196,6 +215,7 @@ REPLACES = {
     "dia_stream_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:110",
     "box_stencil_apply": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:292",
     "cg_sweep": "partitionedarrays_jl_tpu/parallel/tpu.py:4090",
+    "vcycle_epilogue": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:604",
 }
 
 
@@ -240,13 +260,16 @@ def phase_device():
 def _ptxas_lines(log):
     """ptxas's register, shared-memory and spill lines per kernel
     instantiation, e.g. ``dia_coded_kernel<float,0,27>`` (mode 0 = plain,
-    the select-chain sum for 27 diagonals); a kernel that is no template
-    by its mangled name."""
+    the select-chain sum for 27 diagonals) or
+    ``dia_stream_kernel<float,27,4,1,256>`` (27 diagonals, 4 rows a
+    thread, vector loads, 256 threads) or ``vcycle_epilogue_kernel<float,2>``
+    (mode 2, smooth); a kernel that is no template by its mangled name."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Li(\d)ELi(\d+)E", line)
+        m = re.search(r"entry function '_Z\d+(\w+?)I([fd])((?:Li\d+E)(?:L[ib]\d+E)*)E", line)
         if m:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{m.group(3)},{m.group(4)}>"
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(3)))
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'},{args}>"
             continue
         m = re.search(r"entry function '_Z\d+(\w+?)I([fd])Lb([01])E", line)
         if m:
@@ -767,15 +790,75 @@ def gmg_driver(parts, n, f32):
             "hierarchy_s": time.perf_counter() - t}
 
 
-def _stream_check(dh, level, rng):
-    """The streaming-DIA kernel against its plain version on a level's
-    operator and frames."""
-    dA = dh["levels"][level]["dA"]
-    require(dA.dia_mode == "stream", f"GMG level {level} is not a streaming-DIA operator")
-    x = torch.from_numpy(rng.standard_normal((dA.col_layout.P, dA.col_layout.W))).to(
-        dA.stream_vals.device, dA.stream_vals.dtype)
-    args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, dA.row_layout.W)
-    return _compare(f"dia_stream_spmv level {level}", dia.dia_stream_spmv(*args), dia.dia_stream_spmv_plain(*args)), x
+def _stream_args(dA, x):
+    return (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, dA.row_layout.W)
+
+
+def _stream_checks(dh, rng, tag):
+    """The streaming-DIA kernel in both forms against its plain version on
+    every stream level's operator (random operands in its column frame).
+    Returns the max |diff| and level 1's operand."""
+    errs, x1 = [], None
+    for level, lv in enumerate(dh["levels"]):
+        dA = lv["dA"]
+        if dA.dia_mode != "stream":
+            continue
+        x = torch.from_numpy(rng.standard_normal((dA.col_layout.P, dA.col_layout.W))).to(
+            dA.stream_vals.device, dA.stream_vals.dtype)
+        want = dia.dia_stream_spmv_plain(*_stream_args(dA, x))
+        for form in dia.STREAM_FORMS:
+            errs.append(_compare(f"dia_stream_spmv {tag} level {level} {form} form",
+                                 dia.dia_stream_spmv(*_stream_args(dA, x), form=form), want))
+        x1 = x if level == 1 else x1
+    require(errs, f"{tag}: no streaming-DIA level")
+    return max(errs), x1
+
+
+def _epilogue_calls(dh, level, omega, rng):
+    """The V-cycle epilogue's three calls on a level as `make_vcycle` makes
+    them (the residual into the level's column frame on the stencil route,
+    into S's on the structured ones), on random frames: mode -> keywords
+    (x and y drawn once; smooth updates x in place)."""
+    lv = dh["levels"][level]
+    LA, LAr = lv["dA"].col_layout, lv["dA"].row_layout
+    dinv = lv["dinv"]
+
+    def frame(w):
+        return torch.from_numpy(rng.standard_normal((LA.P, w))).to(dinv.device, dinv.dtype)
+
+    b, x, y = frame(LA.W), frame(LA.W), frame(LAr.W)
+    band = {"b": b, "o0": LA.o0, "n": LA.no_max}
+    res = {} if gpu_gmg.route(lv) == "stencil" else {"width": lv["dS"].col_layout.W, "out_o0": lv["dS"].col_layout.o0}
+    return {
+        "init": {"mode": "init", **band, "dinv": dinv, "omega": omega},
+        "residual": {"mode": "residual", **band, "y": y, "yo0": LAr.o0, **res},
+        "smooth": {"mode": "smooth", **band, "dinv": dinv, "y": y, "yo0": LAr.o0, "x": x, "omega": omega},
+    }
+
+
+def _epilogue_checks(h, dh, rng, tag):
+    """The V-cycle epilogue torch.equal to its plain version in every mode
+    on every level of a staged hierarchy (smooth on copies of x), and one
+    whole V-cycle with every kernel torch.equal to the V-cycle through the
+    plain versions (`make_vcycle(plain=True)`), on a random level-0 right-
+    hand side. Returns the max |diff| of each."""
+    from partitionedarrays_jl_tpu_torch.ops import epilogue as ep
+
+    errs = []
+    for level in range(len(dh["levels"])):
+        for mode, kw in _epilogue_calls(dh, level, h.omega, rng).items():
+            if mode == "smooth":
+                got = ep.vcycle_epilogue(**{**kw, "x": kw["x"].clone()})
+                want = ep.vcycle_epilogue_plain(**{**kw, "x": kw["x"].clone()})
+            else:
+                got, want = ep.vcycle_epilogue(**kw), ep.vcycle_epilogue_plain(**kw)
+            errs.append(_compare(f"vcycle_epilogue {tag} level {level} {mode}", got, want))
+    L0 = dh["levels"][0]["dA"].col_layout
+    b = torch.zeros((L0.P, L0.W), dtype=dh["levels"][0]["dinv"].dtype, device=dh["levels"][0]["dinv"].device)
+    b[:, L0.o0 : L0.o0 + L0.no_max] = torch.from_numpy(rng.standard_normal((L0.P, L0.no_max))).to(b)
+    want = gpu_gmg.make_vcycle(h, dh, plain=True)(b.clone())
+    got = gpu_gmg.make_vcycle(h, dh)(b.clone())
+    return max(errs), _compare(f"V-cycle {tag} (kernels against plain versions)", got, want)
 
 
 def gmg_coded_operators(dh):
@@ -807,11 +890,13 @@ def _k1_on_gmg_operators(dh, tag, rng, names=None):
     return errs
 
 
-def gmg_launches(dh, dev_it):
+def gmg_launches(h, dh, dev_it):
     """The launches of a GMG-PCG solve of ``dev_it`` device iterations on a
     staged hierarchy: the initial residual and per iteration the outer A0
-    SpMV, the sweep, and per level 2 SpMVs with its A (coded or stream) and
-    2 transfers (the stencil kernel, or SpMVs with a coded S)."""
+    SpMV, the sweep, and per level 2 SpMVs with its A (coded or stream), 2
+    transfers (the stencil kernel, or SpMVs with a coded S) and the
+    epilogue's pre + post + 1 (init, the smoothing sweeps, the
+    residual)."""
     per = {"coded": 1, "stream": 0, "stencil": 0}
     for lv in dh["levels"]:
         per["coded" if lv["dA"].dia_mode == "coded" else "stream"] += 2
@@ -819,8 +904,10 @@ def gmg_launches(dh, dev_it):
             per["stencil"] += 2
         else:
             per["coded" if lv["dS"].dia_mode == "coded" else "stream"] += 2
+    epilogues = (h.pre + h.post + 1 if h.pre > 0 else h.post + 1) * len(dh["levels"])
     return {"dia_coded_spmv": 1 + dev_it * per["coded"], "dia_stream_spmv": dev_it * per["stream"],
-            "box_stencil_apply": dev_it * per["stencil"], "cg_sweep": dev_it}
+            "box_stencil_apply": dev_it * per["stencil"], "cg_sweep": dev_it,
+            "vcycle_epilogue": dev_it * epilogues}
 
 
 def phase_gmg(backend, run, rng):
@@ -832,7 +919,8 @@ def phase_gmg(backend, run, rng):
     L = len(h.levels)
     routes = [gpu_gmg.route(lv) for lv in dh["levels"]]
     modes = [lv["dA"].dia_mode for lv in dh["levels"]]
-    err_k4, x1 = _stream_check(dh, 1, rng)
+    err_k4, x1 = _stream_checks(dh, rng, f"GMG {N_MAIN}^3 f32")
+    err_epi, err_vc = _epilogue_checks(h, dh, rng, f"GMG {N_MAIN}^3 f32 stencil route")
     dia.reset_launches()
     t = time.perf_counter()
     x, info = pcg(run["Ah"], run["bh"], minv=h, tol=TOL_MAIN)
@@ -846,15 +934,17 @@ def phase_gmg(backend, run, rng):
     dev_it = device_iterations(info)
     n_stream = modes.count("stream")
     # every level on the stencil route, level 0 coded and the rest stream:
-    # coded 1 + 3 per device iteration, stream 8, stencil 10, sweep 1
-    want = gmg_launches(dh, dev_it)
+    # coded 1 + 3 per device iteration, stream 8, stencil 10, sweep 1,
+    # epilogue 15
+    want = gmg_launches(h, dh, dev_it)
     emit({
         "phase": "gmg_pcg", "route": "stencil", "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
         "levels": L, "grids": [lvl.nfs[0] for lvl in h.levels], "coarse_size": h.coarse_A.rows.ngids,
         "routes": routes, "dia_modes": modes, "assembly_s": run["assembly_s"], "hierarchy_s": run["hierarchy_s"],
         "staging_s": run["staging_s"], "solve_s": solve_s, "iterations": it, "converged": info["converged"],
         "rel_err": err, "plain_iterations": info_p["iterations"], "plain_rel_err": err_p,
-        "kernels": launches, "expected_launches": want, "stream_vs_plain_level1_max_abs_err": err_k4,
+        "kernels": launches, "expected_launches": want, "stream_vs_plain_max_abs_err": err_k4,
+        "epilogue_vs_plain_max_abs_err": err_epi, "vcycle_vs_plain_max_abs_err": err_vc,
         "device_loop": info["device_loop"],
     })
     require(L == GMG_LEVELS and h.coarse_A.rows.ngids == 216, f"GMG: {L} levels over {h.coarse_A.rows.ngids} coarse points, expected 5 over 216")
@@ -869,7 +959,7 @@ def phase_gmg(backend, run, rng):
     graph_vs_eager(f"{N_MAIN}^3 f32 GMG-PCG stencil route",
                    lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, maxiter, graph=g), b, torch.zeros_like(b))
     return {"run": run, "dh": dh, "launches": launches, "err_k4": err_k4, "x1": x1, "iterations": it, "err": err,
-            "device_iterations": dev_it}
+            "device_iterations": dev_it, "err_epi": max(err_epi, err_vc)}
 
 
 def phase_gmg_structured(backend, g, rng):
@@ -887,6 +977,7 @@ def phase_gmg_structured(backend, g, rng):
     routes = [gpu_gmg.route(lv) for lv in dhs["levels"]]
     err_k1 = _k1_on_gmg_operators(dhs, f"GMG {N_MAIN}^3 f32 structured", rng)
     require(sorted(err_k1) == ["A0"] + [f"S{l}" for l in range(L)], f"GMG coded operators {sorted(err_k1)}")
+    err_epi, err_vc = _epilogue_checks(h, dhs, rng, f"GMG {N_MAIN}^3 f32 structured route")
     dia.reset_launches()
     t = time.perf_counter()
     x, info = pcg(run["Ah"], run["bh"], minv=h, tol=TOL_MAIN, stencil=False)
@@ -896,14 +987,16 @@ def phase_gmg_structured(backend, g, rng):
     err = _rel_err(x, run["xe"])
     it = info["iterations"]
     dev_it = device_iterations(info)
-    # every S coded: coded 1 + 13 per device iteration, stream 8, sweep 1
-    want = gmg_launches(dhs, dev_it)
+    # every S coded: coded 1 + 13 per device iteration, stream 8, sweep 1,
+    # epilogue 15
+    want = gmg_launches(h, dhs, dev_it)
     emit({
         "phase": "gmg_pcg_structured", "n": N_MAIN, "dtype": "float32", "routes": routes,
         "s_modes": [lv["dS"].dia_mode for lv in dhs["levels"]], "staging_s": staging_s, "solve_s": solve_s,
         "iterations": it, "converged": info["converged"], "rel_err": err, "stencil_route_iterations": g["iterations"],
         "stencil_route_rel_err": g["err"], "kernels": launches, "expected_launches": want,
-        "coded_vs_plain_max_abs_err": err_k1, "device_loop": info["device_loop"],
+        "coded_vs_plain_max_abs_err": err_k1, "epilogue_vs_plain_max_abs_err": err_epi,
+        "vcycle_vs_plain_max_abs_err": err_vc, "device_loop": info["device_loop"],
     })
     # one part: every coarse point is its own part's even fine point, so the
     # structured route embeds through strided views (emb_fast)
@@ -919,7 +1012,8 @@ def phase_gmg_structured(backend, g, rng):
     graph_vs_eager(f"{N_MAIN}^3 f32 GMG-PCG structured route",
                    lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, TOL_MAIN, maxiter, stencil=False, graph=g),
                    b, torch.zeros_like(b))
-    return {"dh": dhs, "err_k1": err_k1, "iterations": it, "device_iterations": dev_it}
+    return {"dh": dhs, "err_k1": err_k1, "iterations": it, "device_iterations": dev_it,
+            "err_epi": max(err_epi, err_vc)}
 
 
 def phase_gmg_multi(backend, run, rng):
@@ -942,13 +1036,16 @@ def phase_gmg_multi(backend, run, rng):
 
     info_s, err_s = prun(driver, sequential, (2, 2, 2))
     dh = run["dh"]
-    err_k4, _ = _stream_check(dh, 1, rng)
+    err_k4, _ = _stream_checks(dh, rng, f"stacked-parts GMG {n}^3 f64")
+    err_epi = max(_epilogue_checks(h, dh, rng, f"stacked-parts GMG {n}^3 f64 default routes"))
     err_k1 = _k1_on_gmg_operators(dh, f"stacked-parts GMG {n}^3 f64", rng, ("A0", "S0"))
     require(sorted(err_k1) == ["A0", "S0"], f"stacked-parts GMG: coded operators {sorted(err_k1)}")
     _, info_p = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, plain=True)
     _, info_gen = gpu_gmg.gpu_gmg_pcg(h, run["bh"], tol=1e-8, box=False)
+    err_epi = max(err_epi, *_epilogue_checks(h, gpu_gmg.device_hierarchy(h, backend, box=False), rng,
+                                             f"stacked-parts GMG {n}^3 f64 generic routes"))
     it = info["iterations"]
-    want = gmg_launches(dh, device_iterations(info))
+    want = gmg_launches(h, dh, device_iterations(info))
     b = _b_on_cols_layout(run["bh"], device_matrix(run["Ah"], backend))
     graph_vs_eager(f"{n}^3 f64 (2,2,2) GMG-PCG default routes",
                    lambda g: gpu_gmg.make_gmg_pcg_fn(h, backend, 1e-8, 4 * run["Ah"].rows.ngids, graph=g),
@@ -967,7 +1064,8 @@ def phase_gmg_multi(backend, run, rng):
         "generic_iterations": info_gen["iterations"], "rel_err": err, "sequential_rel_err": err_s,
         "kernels": launches, "expected_launches": want, "device_loop": info["device_loop"],
         "s_per_iter": s_per_iter, "fixed_trips": GMG_TRIPS,
-        "stream_vs_plain_level1_max_abs_err": err_k4, "coded_vs_plain_max_abs_err": err_k1,
+        "stream_vs_plain_max_abs_err": err_k4, "coded_vs_plain_max_abs_err": err_k1,
+        "epilogue_and_vcycle_vs_plain_max_abs_err": err_epi,
         "coded_operators": {name: operator_info(dM.coded) for name, dM in gmg_coded_operators(dh)},
     })
     require(info["converged"], "stacked-parts GMG-PCG did not converge")
@@ -977,7 +1075,7 @@ def phase_gmg_multi(backend, run, rng):
     for k in want:
         require(launches[k] == want[k] > 0, f"stacked-parts GMG: {launches[k]} {k} launches, expected {want[k]}")
     # with it, the kernels line's max_abs_err of K1 covers these operators
-    return {"stream": err_k4, "coded": max(err_k1.values()), "iterations": it,
+    return {"stream": err_k4, "coded": max(err_k1.values()), "epilogue": err_epi, "iterations": it,
             "device_iterations": device_iterations(info)}
 
 
@@ -1326,53 +1424,124 @@ def stencil_level_times(dh, iterations, flush, rng, tag="192^3 f32"):
     return out
 
 
-def stream_times(h, dh, li, x, flush):
-    """The streaming-DIA kernel on level li of a one-part hierarchy, f32:
-    its flushed ms, its plain version's, torch.sparse.mm's on the level's
-    CSR, and the bound: the dense values (every diagonal, every row), x and
-    y, bytes over 3.35 TB/s."""
-    dA = dh["levels"][li]["dA"]
-    args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, dA.row_layout.W)
-    M = h.levels[li].A.values.part_values()[0]
-    csr = _csr_on(M, x.device)
-    xcol = x[0, : M.shape[1]].reshape(-1, 1).contiguous()
-    rows = int(dA.row_layout.noids.sum())
-    D = len(dA.dia_offsets)
-    out = {
-        "ms": time_ms(lambda: dia.dia_stream_spmv(*args), flush),
-        "plain_ms": time_ms(lambda: dia.dia_stream_spmv_plain(*args), flush),
-        "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush),
-        "rows": rows, "diagonals": D, "csr_nnz": int(M.nnz),
-    }
-    out["bound_ms"], out["bound_by"] = _bound_ms(rows * (4 * D + 4 + 4), 2 * D * rows)
-    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+def stream_level_times(h, dh, iterations, flush, rng, tag="192^3 f32"):
+    """One ``dia_stream_level`` line per streaming level of a device
+    hierarchy: the form its shape takes and its launch (vector loads, the
+    unrolled sum), the flushed µs of each form (``form_us``) and of the one
+    the level takes (``us``), its back-to-back µs, its plain version's,
+    torch.sparse.mm's on the level's CSR (one part only), launches per
+    solve, and the bound: the dense values (every diagonal, every row), x
+    and y, bytes over 3.35 TB/s. Returns the lines."""
+    out = []
+    for li, lv in enumerate(dh["levels"]):
+        dA = lv["dA"]
+        if dA.dia_mode != "stream":
+            continue
+        x = torch.from_numpy(rng.standard_normal((dA.col_layout.P, dA.col_layout.W))).to(
+            dA.stream_vals.device, dA.stream_vals.dtype)
+        args = _stream_args(dA, x)
+        P, D, n = dA.stream_vals.shape
+        item = x.element_size()
+        rows = int(dA.row_layout.noids.sum())
+        form, vec, nd = dia.stream_launch(dA.stream_vals, dA.stream_form)
+        k = lambda: dia.dia_stream_spmv(*args, form=form)  # noqa: E731
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            k()
+        b.record()
+        sync()
+        line = {
+            "phase": "dia_stream_level", "hierarchy": tag, "level": li, "parts": P, "rows": rows, "diagonals": D,
+            "dtype": str(x.dtype), "form": form, "vector_loads": vec, "unrolled_diagonals": nd,
+            "launches_per_solve": None if iterations is None else 2 * iterations,
+            "form_us": {f: time_ms(lambda: dia.dia_stream_spmv(*args, form=f), flush) * 1e3 for f in dia.STREAM_FORMS},
+            "loop_us": a.elapsed_time(b) * 1e3 / 20,
+            "plain_us": time_ms(lambda: dia.dia_stream_spmv_plain(*args), flush) * 1e3,
+            "library_us": None,
+        }
+        line["us"] = line["form_us"][form]
+        if P == 1:
+            M = h.levels[li].A.values.part_values()[0]
+            csr = _csr_on(M, x.device)
+            xcol = x[0, : M.shape[1]].reshape(-1, 1).contiguous()
+            line["library_us"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush) * 1e3
+            line["csr_nnz"] = int(M.nnz)
+            del csr
+        bound_ms, line["bound_by"] = _bound_ms(rows * (item * D + 2 * item), 2 * D * rows)
+        line["bound_us"] = bound_ms * 1e3
+        line["share_of_bound"] = line["bound_us"] / line["us"]
+        emit(line)
+        out.append(line)
+    return out
+
+
+def epilogue_level_times(h, dh, iterations, flush, rng, tag="192^3 f32"):
+    """One ``vcycle_epilogue_level`` line per level of a device hierarchy
+    and mode, on the frames `make_vcycle` gives it (`_epilogue_calls`): the
+    kernel's flushed µs, its plain version's, launches per solve (one of
+    each mode a level per device iteration), and the bound: init reads dinv
+    and b over the band and writes the output frame, residual reads b and
+    y and writes it, smooth reads x, dinv, b and y and writes x, bytes
+    over 3.35 TB/s (2, 1 and 4 operations an element). Returns the lines."""
+    from partitionedarrays_jl_tpu_torch.ops import epilogue as ep
+
+    out = []
+    for li in range(len(dh["levels"])):
+        for mode, kw in _epilogue_calls(dh, li, h.omega, rng).items():
+            b = kw["b"]
+            P, item, band = b.shape[0], b.element_size(), b.shape[0] * kw["n"]
+            frame = P * kw.get("width", b.shape[1])
+            nbytes, ops = {"init": (item * (2 * band + frame), 2 * band),
+                           "residual": (item * (2 * band + frame), band),
+                           "smooth": (item * 5 * band, 4 * band)}[mode]
+            line = {
+                "phase": "vcycle_epilogue_level", "hierarchy": tag, "level": li, "mode": mode,
+                "route": gpu_gmg.route(dh["levels"][li]), "parts": P, "band": kw["n"], "dtype": str(b.dtype),
+                "launches_per_solve": None if iterations is None else iterations,
+                "us": time_ms(lambda: ep.vcycle_epilogue(**kw), flush) * 1e3,
+                "plain_us": time_ms(lambda: ep.vcycle_epilogue_plain(**kw), flush) * 1e3,
+                "library_us": None,  # no single PyTorch call computes it
+            }
+            bound_ms, line["bound_by"] = _bound_ms(nbytes, ops)
+            line["bound_us"] = bound_ms * 1e3
+            line["share_of_bound"] = line["bound_us"] / line["us"]
+            emit(line)
+            out.append(line)
     return out
 
 
 def phase_gmg_times(backend, g, gs, multi):
-    """The stream kernel on GMG level 1 of 192^3 (and a `dia_stream_level`
-    line for each coarser stream level); GMG-PCG seconds per
-    iteration, solve seconds and a profile of one iteration on both routes
-    (stencil, structured); the empty kernel's µs; one line per coded
-    operator of the structured route and per stencil level of both
-    hierarchies (``multi``: the stacked f64 one's device hierarchy and
-    iterations). Returns the stream kernel's and the stencil kernel's
-    (192^3 level 0) numbers."""
+    """A `dia_stream_level` line (both forms) for each stream level and a
+    `vcycle_epilogue_level` line for each level and mode of both GMG
+    hierarchies (``multi``: the stacked f64 one's hierarchy, device
+    hierarchy and iterations); GMG-PCG seconds per iteration, solve seconds
+    and a profile of one iteration on both routes (stencil, structured);
+    the empty kernel's µs; one line per coded operator of the structured
+    route and per stencil level of both hierarchies. Returns the stream
+    kernel's (192^3 level 1), the stencil kernel's (192^3 level 0) and the
+    epilogue's (192^3 level 0, smooth) numbers."""
     dev = backend.device
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    stream = stream_times(g["run"]["h"], g["dh"], 1, g["x1"], flush)
-    for li, lv in enumerate(g["dh"]["levels"]):
-        if li > 1 and lv["dA"].dia_mode == "stream":
-            x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-                (lv["dA"].col_layout.P, lv["dA"].col_layout.W)).astype(np.float32)).to(dev)
-            emit({"phase": "dia_stream_level", "hierarchy": f"{N_MAIN}^3 f32", "level": li,
-                  "launches_per_solve": 2 * g["device_iterations"], **stream_times(g["run"]["h"], g["dh"], li, x, flush)})
+    h = g["run"]["h"]
+    streams = stream_level_times(h, g["dh"], g["device_iterations"], flush, np.random.default_rng(SEED))
+    stream_level_times(multi["h"], multi["dh"], multi["iterations"], flush, np.random.default_rng(SEED),
+                       f"{N_GMG_MULTI}^3 f64 (2,2,2)")
+    epis = epilogue_level_times(h, g["dh"], g["device_iterations"], flush, np.random.default_rng(SEED))
+    epilogue_level_times(multi["h"], multi["dh"], multi["iterations"], flush, np.random.default_rng(SEED),
+                         f"{N_GMG_MULTI}^3 f64 (2,2,2)")
+    s1 = next(ln for ln in streams if ln["level"] == 1)
+    stream = {"ms": s1["us"] / 1e3, "plain_ms": s1["plain_us"] / 1e3, "bound_ms": s1["bound_us"] / 1e3,
+              "bound_by": s1["bound_by"], "library_ms": s1["library_us"] / 1e3}
+    e0 = next(ln for ln in epis if ln["level"] == 0 and ln["mode"] == "smooth")
+    epilogue = {"ms": e0["us"] / 1e3, "plain_ms": e0["plain_us"] / 1e3, "bound_ms": e0["bound_us"] / 1e3,
+                "bound_by": e0["bound_by"], "library_ms": None}
 
-    h, Ah, bh = g["run"]["h"], g["run"]["Ah"], g["run"]["bh"]
+    Ah, bh = g["run"]["Ah"], g["run"]["bh"]
     b = _b_on_cols_layout(bh, device_matrix(Ah, backend))
     x0 = torch.zeros_like(b)
     line = {"phase": "gmg_times", "n": N_MAIN, "dtype": "float32", "reps": REPS, "fixed_trips": GMG_TRIPS,
-            "dia_stream_spmv_level1": stream}
+            "dia_stream_spmv_level1": stream, "vcycle_epilogue_level0_smooth": epilogue}
     for route, kw in (("stencil", {}), ("structured", {"stencil": False}), ("stencil_eager", {"graph": False}),
                       ("structured_eager", {"stencil": False, "graph": False})):
         s_per_iter, per = fixed_trip_s_per_iter(
@@ -1396,7 +1565,7 @@ def phase_gmg_times(backend, g, gs, multi):
     s0 = levels[0]
     stencil = {"ms": s0["us"] / 1e3, "plain_ms": s0["plain_us"] / 1e3, "bound_ms": s0["bound_us"] / 1e3,
                "bound_by": s0["bound_by"], "library_ms": s0["library_us"] / 1e3}
-    return stream, stencil
+    return stream, stencil, epilogue
 
 
 def phase_profile(name, fn, b, x0, iters):
@@ -1453,10 +1622,12 @@ def main() -> int:
     gmg_s = phase_gmg_structured(backend, gmg, rng)
     launches["dia_stream_spmv"] = gmg["launches"]["dia_stream_spmv"]
     launches["box_stencil_apply"] = gmg["launches"]["box_stencil_apply"]
+    launches["vcycle_epilogue"] = gmg["launches"]["vcycle_epilogue"]
     err_multi = phase_gmg_multi(backend, gruns["multi"], rng)
     times = phase_times(backend, kern, run, N_MAIN)
-    times["dia_stream_spmv"], times["box_stencil_apply"] = phase_gmg_times(
-        backend, gmg, gmg_s, {"dh": gruns["multi"]["dh"], "iterations": err_multi["device_iterations"]})
+    times["dia_stream_spmv"], times["box_stencil_apply"], times["vcycle_epilogue"] = phase_gmg_times(
+        backend, gmg, gmg_s, {"h": gruns["multi"]["h"], "dh": gruns["multi"]["dh"],
+                              "iterations": err_multi["device_iterations"]})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
@@ -1466,6 +1637,7 @@ def main() -> int:
     max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg_s["err_k1"].values(), err_multi["coded"])
     max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"])
     max_err["box_stencil_apply"] = err_stencil
+    max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
     emit({"kernels": [
         {

@@ -27,12 +27,14 @@ written), 148.6 MB, about 44.4 us. The streaming SpMV at GMG level 1 of
 192^3 (96^3 rows, 27 diagonals, f32) moves 116 B/row, 102.6 MB, about
 30.6 us. The kernel designs are noted at the head of each `csrc/` file:
 the coded kernel stages its operand in shared-memory windows laid out by
-`plan_coded_windows`, the streaming kernel takes one thread per row.
+`plan_coded_windows`; the streaming kernel sums an unrolled band
+(`STREAM_SHAPES`) in one of two forms chosen by shape (`stream_form`).
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises. Each kernel of the port (these, the multigrid
-stencil of `ops/stencil.py` and the CG update sweep of `ops/sweep.py`)
-counts its launches in `LAUNCHES`. Each
+stencil of `ops/stencil.py`, the CG update sweep of `ops/sweep.py` and
+the V-cycle epilogue of `ops/epilogue.py`) counts its launches in
+`LAUNCHES`. Each
 `csrc/*.cu` is built with nvcc at first use into
 ``build/pa_torch_kernels/`` (all sources at once, one nvcc each) and bound
 with ctypes.
@@ -55,7 +57,7 @@ import torch
 #: kernel launches since the last reset, per wrapper
 LAUNCHES = {
     "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0, "dia_coded_spmv_axpy": 0,
-    "dia_stream_spmv": 0, "box_stencil_apply": 0, "cg_sweep": 0,
+    "dia_stream_spmv": 0, "box_stencil_apply": 0, "cg_sweep": 0, "vcycle_epilogue": 0,
 }
 
 MAX_DIAGS = 64
@@ -79,8 +81,9 @@ THREADS = 256
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources of the port, one shared library each (box_stencil is
 #: the multigrid stencil of ops/stencil.py, cg_sweep the CG update sweep of
-#: ops/sweep.py)
-SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep")
+#: ops/sweep.py, vcycle_epilogue the V-cycle's smoother and residual of
+#: ops/epilogue.py)
+SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep", "vcycle_epilogue")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -175,6 +178,52 @@ def select_chain_instance(op: CodedOperator) -> int:
 # ---------------------------------------------------------------------------
 # the coded kernel's shared-memory plan
 # ---------------------------------------------------------------------------
+
+
+#: the diagonal counts whose band sum csrc/dia_stream.cu unrolls at
+#: compile time: 27, the Galerkin operators of the GMG levels past the
+#: first; 7, a 7-point band. Any other count takes the run-time loop.
+STREAM_SHAPES = (7, 27)
+#: the streaming kernel's forms (`stream_form`): "stream", several rows a
+#: thread (128-bit value loads where aligned), for levels that fill the
+#: card; "small", one row a thread with every load of a row issued at once
+STREAM = "stream"
+SMALL = "small"
+STREAM_FORMS = (STREAM, SMALL)
+#: threads of a CTA of each form (PA_STREAM_THREADS, PA_SMALL_THREADS)
+STREAM_THREADS = 256
+SMALL_THREADS = 128
+#: the stream form's grid from which it is taken, in CTAs a quarter of the
+#: SMs: measured on an H100 (132 SMs, chip_smoke.py's `dia_stream_level`
+#: lines), the small form is faster at 14 stream-form CTAs (12^3 and 24^3
+#: f32), the two tie at 32 (8 stacked parts of 12^3, f64) and the stream
+#: form is faster from 108 (48^3 f32) up
+STREAM_MIN_SM_SHARE = 4
+#: SMs of the card the form is chosen for when no card is at hand (H100 SXM)
+DEFAULT_SMS = 132
+
+
+def stream_rows_per_thread(itemsize: int) -> int:
+    """Rows a thread of the stream form sums: one 16-byte vector."""
+    return 16 // itemsize
+
+
+def stream_form(P: int, n: int, itemsize: int, n_sm: int = DEFAULT_SMS) -> str:
+    """The form of the streaming kernel for P stacked parts of n rows, from
+    shapes alone: "stream" where its grid (P x ceil(n / rows a CTA)) gives
+    at least a quarter of the SMs a CTA (`STREAM_MIN_SM_SHARE`), else
+    "small" (at 192^3 f32: 96^3 and 48^3 stream, 24^3 and 12^3 small; every
+    stacked 48^3 f64 level small)."""
+    ctas = P * -(-n // (STREAM_THREADS * stream_rows_per_thread(itemsize)))
+    return STREAM if ctas * STREAM_MIN_SM_SHARE >= n_sm else SMALL
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device; `DEFAULT_SMS` for any other device."""
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _round16(nbytes: int) -> int:
@@ -531,6 +580,9 @@ class _StreamParams(ctypes.Structure):
         ("wy", ctypes.c_longlong),
         ("o0", ctypes.c_longlong),
         ("off", ctypes.c_int * MAX_DIAGS),
+        ("form", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("nd", ctypes.c_int),
     ]
 
 
@@ -568,6 +620,24 @@ class _SweepParams(ctypes.Structure):
         ("wv", ctypes.c_longlong),
         ("wq", ctypes.c_longlong),
         ("mode", ctypes.c_int),
+    ]
+
+
+class _EpilogueParams(ctypes.Structure):
+    """Mirror of `PaEpilogueParams` in csrc/vcycle_epilogue.cu (the kernel of
+    ops/epilogue.py)."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("wc", ctypes.c_longlong),
+        ("yo0", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("oo0", ctypes.c_longlong),
+        ("wo", ctypes.c_longlong),
+        ("omega", ctypes.c_double),
     ]
 
 
@@ -617,6 +687,7 @@ def build_kernels() -> dict:
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
     _bind(libs["box_stencil"], "pa_box_stencil", _StencilParams, 5)
     _bind(libs["cg_sweep"], "pa_cg_sweep", _SweepParams, 9)
+    _bind(libs["vcycle_epilogue"], "pa_vcycle_epilogue", _EpilogueParams, 6)
     for dt in ("f32", "f64"):
         f = getattr(libs["box_stencil"], f"pa_box_stencil_query_{dt}")
         f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -820,14 +891,32 @@ def dia_coded_spmv_axpy(
     return y
 
 
+def stream_launch(vals: torch.Tensor, form: Optional[str] = None) -> Tuple[str, bool, int]:
+    """How `dia_stream_spmv` launches on vals (P, D, n): its form (``form``,
+    or `stream_form` of the shape on vals' device), whether the stream form
+    takes 128-bit value loads (n a multiple of the rows a thread and vals
+    16-byte aligned) and the unrolled sum it takes (D if D is one of
+    `STREAM_SHAPES`, else 0, the run-time loop)."""
+    P, D, n = vals.shape
+    item = vals.element_size()
+    if form is None:
+        form = stream_form(P, n, item, sm_count(vals.device))
+    if form not in STREAM_FORMS:
+        raise ValueError(f"streaming-DIA kernel: no form {form!r} (forms: {', '.join(STREAM_FORMS)})")
+    vec = form == STREAM and n % stream_rows_per_thread(item) == 0 and vals.data_ptr() % 16 == 0
+    return form, vec, D if D in STREAM_SHAPES else 0
+
+
 def dia_stream_spmv(
     vals: torch.Tensor, x: torch.Tensor, offsets: Tuple[int, ...], no: torch.Tensor,
-    o0: int, width: Optional[int] = None,
+    o0: int, width: Optional[int] = None, form: Optional[str] = None,
 ) -> torch.Tensor:
     """y = A_oo x for a streaming-DIA operand: vals (P, D, N) dense
     per-diagonal values in ascending-offset order, no (P,) int32 owned
     counts, x (P, Wx) -> y (P, width) with the owned band computed and
-    every other slot 0 (width defaults to Wx)."""
+    every other slot 0 (width defaults to Wx). ``form`` forces the
+    kernel's form (`STREAM_FORMS`; default `stream_form` of the shape);
+    every form gives the same values."""
     width = x.shape[1] if width is None else int(width)
     if x.device.type == "cpu":
         return dia_stream_spmv_plain(vals, x, offsets, no, o0, width)
@@ -836,8 +925,8 @@ def dia_stream_spmv(
     if x.dtype not in _DT:
         raise TypeError(f"streaming-DIA kernel takes float32 or float64, got {x.dtype}")
     P, D, n = vals.shape
-    if D != len(offsets) or D > MAX_DIAGS:
-        raise ValueError(f"streaming-DIA kernel: {D} value rows for {len(offsets)} offsets (at most {MAX_DIAGS})")
+    if D != len(offsets) or not 1 <= D <= MAX_DIAGS:
+        raise ValueError(f"streaming-DIA kernel: {D} value rows for {len(offsets)} offsets (1 to {MAX_DIAGS})")
     for t in (vals, x):
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError("streaming-DIA kernel: vals and x must be contiguous, on one device, of one dtype")
@@ -845,11 +934,13 @@ def dia_stream_spmv(
         raise ValueError("streaming-DIA kernel: no must be (P,) int32 on the operand's device")
     if x.dim() != 2 or x.shape[0] != P or x.shape[1] < o0 + n or width < o0 + n:
         raise ValueError(f"streaming-DIA kernel: frame {tuple(x.shape)} does not hold {P} parts of {n} rows")
+    form, vec, nd = stream_launch(vals, form)
     prm = _StreamParams()
     prm.P, prm.D, prm.n = P, D, n
     prm.wx, prm.wy, prm.o0 = x.shape[1], width, o0
     for d in range(D):
         prm.off[d] = int(offsets[d])
+    prm.form, prm.vec, prm.nd = STREAM_FORMS.index(form), int(vec), nd
     y = torch.empty((P, width), dtype=x.dtype, device=x.device)
     fn = getattr(build_kernels()["dia_stream"], f"pa_dia_stream_{_DT[x.dtype]}")
     rc = fn(

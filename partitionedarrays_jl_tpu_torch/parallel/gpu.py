@@ -458,7 +458,7 @@ class DeviceMatrix:
             self.oh_cols = torch.from_numpy(oh_cols).to(dev)
 
         self.dia_offsets = tuple(int(o) for o in det["offsets"])
-        self.coded = self.stream_vals = self.stream_no = None
+        self.coded = self.stream_vals = self.stream_no = self.stream_form = None
         self.dia_kk = self.dia_code_row = self.dia_cls_pattern = None
         if not det["coded_ok"]:
             # streaming-DIA staging: the dense per-diagonal values,
@@ -469,6 +469,8 @@ class DeviceMatrix:
                 np.ascontiguousarray(det["dia"].astype(dt))
             ).to(dev)
             self.stream_no = torch.from_numpy(noids.astype(np.int32)).to(dev)
+            # the kernel's form, by shape (ops/dia.py:stream_form)
+            self.stream_form = dia.stream_form(P, no_max, self.stream_vals.element_size(), dia.sm_count(dev))
             return
 
         # coded-DIA staging (tpu.py:1584-1687)
@@ -642,9 +644,10 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     if dA.dia_mode == "stream":
         stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
         o0 = dA.row_layout.o0
+        form = {} if plain else {"form": dA.stream_form}
 
         def spmv_k(_op, xv, width):
-            return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width)
+            return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width, **form)
     else:
         spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
     pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..models.solvers import _dense, gather_psparse
+from ..ops import epilogue as ep
 from ..ops import stencil as stn
 from ..utils.helpers import check
 from .gpu import (
@@ -345,8 +346,13 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
     and one `box_stencil_apply` each, with the even points extracted or
     placed through strided views; on the structured routes one S SpMV
     each, with the even points through strided views (``emb_fast``) or
-    through ``emb``, a halo refresh and the ``add`` exchange."""
+    through ``emb``, a halo refresh and the ``add`` exchange. The
+    smoother's sweeps and the residual run as the `ops/epilogue.py` kernel
+    on each SpMV's product where it lies (``init``, ``smooth``,
+    ``residual``: pre + post + 1 launches a level from x = 0 with pre >
+    0); ``plain`` takes every kernel's plain version."""
     apply_S = stn.box_stencil_apply_plain if plain else stn.box_stencil_apply
+    epilogue = ep.vcycle_epilogue_plain if plain else ep.vcycle_epilogue
     bodies = [
         {"A": _spmv_body(l["dA"], plain=plain),
          "S": _spmv_body(l["dS"], plain=plain) if "dS" in l else None}
@@ -364,19 +370,15 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
         sl = slice(LA.o0, LA.o0 + no)
         dinv = lv["dinv"]
         P = b_l.shape[0]
-
-        def spmv_A(z):
-            out = torch.zeros_like(z)
-            out[:, sl] = bodies[level]["A"](z)[:, LAr.o0 : LAr.o0 + no]
-            return out
+        spmv_A = bodies[level]["A"]  # the product in its row frame, band at LAr.o0
 
         def sweep(x):
-            q = spmv_A(x)
-            x[:, sl] = x[:, sl] + omega * dinv[:, sl] * (b_l[:, sl] - q[:, sl])
+            epilogue("smooth", b_l, LA.o0, no, dinv=dinv, y=spmv_A(x), yo0=LAr.o0, x=x, omega=omega)
 
-        x = torch.zeros_like(b_l)
         if pre > 0:
-            x[:, sl] = omega * dinv[:, sl] * b_l[:, sl]
+            x = epilogue("init", b_l, LA.o0, no, dinv=dinv, omega=omega)
+        else:
+            x = torch.zeros_like(b_l)
         for _ in range(max(pre - 1, 0)):
             sweep(x)
         q = spmv_A(x)
@@ -393,8 +395,7 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             # R = Eᵀ·S, matrix-free: refresh the residual's ghost segments
             # through the level's box exchange, apply S, extract
             op = lv["stencil"]
-            rv = torch.zeros_like(b_l)
-            rv[:, sl] = b_l[:, sl] - q[:, sl]
+            rv = epilogue("residual", b_l, LA.o0, no, y=q, yo0=LAr.o0)
             exchange_(lv["dA"].col_plan, rv)
             _extract(apply_S(op, rv), op.groups, rc_own)
         else:
@@ -402,8 +403,7 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             # (emb_fast), or gathered after a halo refresh so that embedded
             # points owned elsewhere are readable (pads read the zero trash)
             LS, LSr = lv["dS"].col_layout, lv["dS"].row_layout
-            rS = torch.zeros((P, LS.W), dtype=b_l.dtype, device=b_l.device)
-            rS[:, LS.o0 : LS.o0 + no] = b_l[:, sl] - q[:, sl]
+            rS = epilogue("residual", b_l, LA.o0, no, y=q, yo0=LAr.o0, width=LS.W, out_o0=LS.o0)
             w = bodies[level]["S"](rS)
             if "emb_fast" in lv:
                 _extract(w[:, LSr.o0 : LSr.o0 + no], (lv["emb_fast"],), rc_own)

@@ -28,6 +28,7 @@ import partitionedarrays_jl_tpu.parallel.tpu_gmg as jgmg
 import partitionedarrays_jl_tpu_torch as pt
 from partitionedarrays_jl_tpu_torch import interop
 from partitionedarrays_jl_tpu_torch.ops import dia
+from partitionedarrays_jl_tpu_torch.ops import epilogue as ep
 from partitionedarrays_jl_tpu_torch.ops import stencil as stn
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
 from partitionedarrays_jl_tpu_torch.parallel.gpu_loop import GMG_BLOCK
@@ -746,12 +747,13 @@ def test_plan_launch_refuses_what_does_not_fit():
 
 def test_stencil_route_launch_counts(monkeypatch):
     """On the stencil route one V-cycle makes 2 SpMVs with each level's
-    operator and 2 stencil applies on each stencil level, and no SpMV with
-    any S; each PCG iteration one more SpMV with the fine operator:
+    operator, 2 stencil applies and 3 epilogues (init, residual, smooth)
+    on each stencil level, and no SpMV with any S; each PCG iteration one
+    more SpMV with the fine operator:
     counted here through the wrappers the device loop calls, per iteration
     the device ran (the frozen ones after the stop included; one part,
     every level on the stencil route, as the chip's 192^3 case)."""
-    calls = {"dia_coded_spmv": 0, "dia_stream_spmv": 0, "box_stencil_apply": 0}
+    calls = {"dia_coded_spmv": 0, "dia_stream_spmv": 0, "box_stencil_apply": 0, "vcycle_epilogue": 0}
 
     def counting(mod, name):
         fn = getattr(mod, name)
@@ -765,6 +767,7 @@ def test_stencil_route_launch_counts(monkeypatch):
     counting(dia, "dia_coded_spmv")
     counting(dia, "dia_stream_spmv")
     counting(stn, "box_stencil_apply")
+    counting(ep, "vcycle_epilogue")
 
     def driver(parts):
         A, b, _, _ = pt.assemble_poisson(parts, (24, 24, 24), dtype=np.float32)
@@ -785,3 +788,4 @@ def test_stencil_route_launch_counts(monkeypatch):
     assert calls["dia_coded_spmv"] == 1 + dev_it * (1 + 2 * (L - n_stream))  # no S anywhere
     assert calls["dia_stream_spmv"] == dev_it * 2 * n_stream
     assert calls["box_stencil_apply"] == dev_it * 2 * L
+    assert calls["vcycle_epilogue"] == dev_it * 3 * L

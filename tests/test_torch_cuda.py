@@ -231,6 +231,52 @@ def test_stream_kernel_matches_plain(dtype):
     assert torch.equal(yk, dia.dia_stream_spmv_plain(vals, x, offsets, no, 0, rows + 9))
 
 
+#: K4 cases: rows a part (the second part 777 fewer): a multiple of 4 or
+#: not (vector or scalar value loads in f32), and on either side of the
+#: f32 form crossover (ops/dia.py:stream_form, 132 SMs, two parts: 16
+#: CTAs a part, 16 * 1024 rows)
+STREAM_ROWS = [13824, 13823, 16 * 1024, 16 * 1024 + 1]
+
+
+def _stream_offsets(D, m):
+    """D band offsets of an m^3 grid: the 27-point and 7-point stencils, or
+    (13) the 27-point ones before the centre in scan order, and the
+    centre."""
+    r = (-1, 0, 1)
+    pts = [(a, b, c) for a in r for b in r for c in r]
+    if D == 7:
+        pts = [p for p in pts if sum(map(abs, p)) <= 1]
+    elif D == 13:
+        pts = [p for p in pts if p[0] < 0 or (p[0] == 0 and p[1] < 0) or p == (0, 0, 0)]
+    return tuple(sorted(a * m * m + b * m + c for a, b, c in pts))
+
+
+@pytest.mark.parametrize("form", [None, "stream", "small"], ids=["by-shape", "stream", "small"])
+@pytest.mark.parametrize("rows", STREAM_ROWS, ids=[f"n{r}" for r in STREAM_ROWS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [7, 27, 13])
+def test_stream_kernel_forms_match_plain(D, dtype, rows, form):
+    """K4 in each form (and the one its shape takes) against its plain
+    version: two parts of unequal owned counts, the band at o0 = 2, a
+    result frame wider than the band; the unrolled sums (27, 7) and the
+    run-time loop (13); vector and scalar value loads; and the values at
+    another 16-byte phase (scalar loads)."""
+    _need_card()
+    rng = np.random.default_rng(D + rows)
+    offsets = _stream_offsets(D, 40)
+    vals = torch.from_numpy(rng.standard_normal((2, D, rows))).to("cuda", dtype)
+    no = torch.tensor([rows, rows - 777], dtype=torch.int32, device="cuda")
+    x = torch.from_numpy(rng.standard_normal((2, rows + 9))).to("cuda", dtype)
+    want = dia.dia_stream_spmv_plain(vals, x, offsets, no, 2, rows + 13)
+    for v in (vals, _moved(vals, 1)):
+        dia.reset_launches()
+        got = dia.dia_stream_spmv(v, x, offsets, no, 2, rows + 13, form=form)
+        torch.cuda.synchronize()
+        assert dia.LAUNCHES["dia_stream_spmv"] == 1
+        assert torch.equal(got, want)
+        assert not got[1, 2 + rows - 777 :].any() and not got[:, :2].any()
+
+
 def test_stacked_parts_pipelined_and_gmg_match_sequential():
     _need_card()
     ns = (16, 16, 16)
@@ -621,3 +667,85 @@ def test_failed_capture_raises():
     assert not any(dia.LAUNCHES.values())
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["init", "residual_column", "residual_other_frame", "smooth"])
+def test_vcycle_epilogue_matches_plain_under_capture(case, dtype):
+    """The V-cycle epilogue in each mode against its plain version, launched
+    eagerly and replayed from a CUDA graph it was captured into: equal bit
+    for bit (the bits: -0.0 counts), one launch each, three parts with the
+    product's band at another offset and width than the column frame and
+    a band of 100,003 rows (a ragged last CTA)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import epilogue as ep
+
+    rng = np.random.default_rng(3)
+    P, n, o0, wc, yo0, wy = 3, 100003, 4, 100011, 1, 100006
+
+    def mk(w):
+        return torch.from_numpy(rng.standard_normal((P, w))).to("cuda", dtype)
+
+    b, dinv, x0, y = mk(wc), mk(wc), mk(wc), mk(wy)
+    kw = {
+        "init": {"dinv": dinv, "omega": 0.8},
+        "residual_column": {"y": y, "yo0": yo0},
+        "residual_other_frame": {"y": y, "yo0": yo0, "width": wc + 9, "out_o0": 7},
+        "smooth": {"dinv": dinv, "y": y, "yo0": yo0, "omega": 0.8},
+    }[case]
+    mode = case.split("_")[0]
+
+    def run(fn, x):
+        return fn(mode, b, o0, n, x=x, **kw) if mode == "smooth" else fn(mode, b, o0, n, **kw)
+
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+
+    def bitwise(a, b):
+        return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+    want = run(ep.vcycle_epilogue_plain, x0.clone())
+    dia.reset_launches()
+    got = run(ep.vcycle_epilogue, x0.clone())
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["vcycle_epilogue"] == 1
+    assert bitwise(got, want)
+    xg = x0.clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run(ep.vcycle_epilogue, xg.clone())  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(ep.vcycle_epilogue, xg)
+    xg.copy_(x0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bitwise(out, want)
+
+
+@pytest.mark.parametrize("kw", [{}, {"stencil": False}, {"box": False}], ids=["default", "emb_fast", "structured"])
+@pytest.mark.parametrize("ns,grid,dtype", [((24, 24, 24), (1, 1, 1), np.float32), ((16, 16, 16), (2, 2, 2), np.float64)],
+                         ids=["24^3-one-part-f32", "16^3-2x2x2-f64"])
+def test_vcycle_kernels_match_plain_vcycle(ns, grid, dtype, kw):
+    """One V-cycle with every kernel (K1, K4, the stencil, the epilogue)
+    torch.equal to the same V-cycle through the plain versions, on each
+    route; 3 epilogue launches a level."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _b_on_cols_layout
+
+    def driver(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, ns, dtype=dtype)
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, ns, coarse_threshold=100)
+        dh = gpu_gmg.device_hierarchy(h, parts.backend, **kw)
+        bv = _b_on_cols_layout(bh, dh["levels"][0]["dA"])
+        want = gpu_gmg.make_vcycle(h, dh, plain=True)(bv)
+        dia.reset_launches()
+        got = gpu_gmg.make_vcycle(h, dh)(bv)
+        torch.cuda.synchronize()
+        return torch.equal(got, want), dia.LAUNCHES["vcycle_epilogue"], len(dh["levels"])
+
+    equal, launches, L = pt.prun(driver, pt.GPUBackend(), grid)
+    assert equal and launches == 3 * L

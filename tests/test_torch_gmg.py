@@ -18,6 +18,7 @@ import partitionedarrays_jl_tpu as pa
 import partitionedarrays_jl_tpu_torch as pt
 from partitionedarrays_jl_tpu_torch import interop
 from partitionedarrays_jl_tpu_torch.ops import dia
+from partitionedarrays_jl_tpu_torch.ops import epilogue as ep
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
 from partitionedarrays_jl_tpu_torch.parallel.gpu_loop import GMG_BLOCK
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (
@@ -178,12 +179,13 @@ def test_gmg_solve_matches_jax(jax_run, port_run):
 def test_vcycle_launch_counts(monkeypatch):
     """On the structured routes (``stencil=False``), with pre = post = 1,
     one V-cycle makes 2 SpMVs with each level's operator and 2 with each
-    level's S (the zero-start pre-smoothing sweep needs none), and each PCG
-    iteration one more with the fine operator: counted here through the
-    wrappers the device loop calls, per iteration the device ran (the
-    frozen ones after the stop included). The stencil route's count is in
+    level's S (the zero-start pre-smoothing sweep needs none) and 3
+    epilogues a level (init, residual, smooth), and each PCG iteration one
+    more SpMV with the fine operator: counted here through the wrappers
+    the device loop calls, per iteration the device ran (the frozen ones
+    after the stop included). The stencil route's count is in
     tests/test_torch_box.py."""
-    calls = {"coded": 0, "stream": 0}
+    calls = {"coded": 0, "stream": 0, "epilogue": 0}
 
     def counting(name, fn):
         def wrapped(*a, **k):
@@ -194,13 +196,14 @@ def test_vcycle_launch_counts(monkeypatch):
 
     monkeypatch.setattr(dia, "dia_coded_spmv", counting("coded", dia.dia_coded_spmv))
     monkeypatch.setattr(dia, "dia_stream_spmv", counting("stream", dia.dia_stream_spmv))
+    monkeypatch.setattr(ep, "vcycle_epilogue", counting("epilogue", ep.vcycle_epilogue))
 
     def driver(parts):
         A, b, _, _ = pt.assemble_poisson(parts, NS)
         Ah, bh = pt.decouple_dirichlet(A, b)
         h = pt.gmg_hierarchy(parts, Ah, NS, coarse_threshold=100)
         gpu_gmg.device_hierarchy(h, parts.backend, stencil=False)
-        calls.update(coded=0, stream=0)
+        calls.update(coded=0, stream=0, epilogue=0)
         info = pt.pcg(Ah, bh, minv=h, tol=TOL, stencil=False)[1]
         return len(h.levels), info["iterations"], info["device_loop"]["device_iterations"]
 
@@ -210,6 +213,7 @@ def test_vcycle_launch_counts(monkeypatch):
     assert dev_it == GMG_BLOCK * (it // GMG_BLOCK + 1)
     assert calls["coded"] == 1 + dev_it * (1 + 2 + 2 * L)  # level-0 A and every S
     assert calls["stream"] == dev_it * 2 * (L - 1)  # the Galerkin levels' A
+    assert calls["epilogue"] == dev_it * 3 * L
 
 
 def test_unported_options_raise():

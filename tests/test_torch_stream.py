@@ -156,3 +156,118 @@ def test_stream_lowering_matches_jax(coarse_operator):
     assert dA.dia_offsets == jax_offsets
     assert tuple(dA.stream_vals.shape) == (8, 27, dA.row_layout.no_max)
     np.testing.assert_allclose(y, y_jax, rtol=1e-13, atol=1e-13)
+
+
+#: the streaming levels of chip_smoke.py's hierarchies and the form each
+#: takes on 132 SMs: (parts, rows a part, itemsize) -> form. The stream
+#: form takes a level whose CTAs (1024 rows in f32, 512 in f64) number at
+#: least a quarter of the SMs (33): 96^3 and 48^3 at 192^3 f32 do; 24^3,
+#: 12^3 and the stacked 48^3 f64 hierarchy's levels (8 parts of 12^3 and
+#: 6^3: 32 and 8 CTAs) do not; the last two cases sit on either side of
+#: the crossover
+FORM_CASES = {
+    "96^3-f32": (1, 96 ** 3, 4, dia.STREAM),
+    "48^3-f32": (1, 48 ** 3, 4, dia.STREAM),
+    "24^3-f32": (1, 24 ** 3, 4, dia.SMALL),
+    "12^3-f32": (1, 12 ** 3, 4, dia.SMALL),
+    "12^3-8-parts-f64": (8, 12 ** 3, 8, dia.SMALL),
+    "6^3-8-parts-f64": (8, 6 ** 3, 8, dia.SMALL),
+    "crossover-below": (1, 32 * 1024, 4, dia.SMALL),
+    "crossover-at": (1, 32 * 1024 + 1, 4, dia.STREAM),
+}
+
+
+@pytest.mark.parametrize("case", list(FORM_CASES))
+def test_stream_form_on_gmg_levels(case):
+    P, n, item, want = FORM_CASES[case]
+    assert dia.stream_form(P, n, item, 132) == want
+
+
+@pytest.mark.parametrize(
+    "D,n,form,shift,want",
+    [
+        (27, 1024, None, 0, ("small", False, 27)),
+        (27, 40 * 1024, None, 0, ("stream", True, 27)),
+        (27, 1024, "stream", 0, ("stream", True, 27)),
+        (7, 1026, "stream", 0, ("stream", False, 7)),  # n % 4 != 0: scalar loads
+        (13, 1024, "stream", 1, ("stream", False, 0)),  # off 16-byte alignment; 13: the run-time loop
+        (13, 1024, "small", 0, ("small", False, 0)),
+    ],
+)
+def test_stream_launch_picks_form_loads_and_sum(D, n, form, shift, want):
+    """`stream_launch`: the form (forced or by shape), 128-bit value loads
+    only where n is a multiple of 4 (f32) and the values 16-byte aligned,
+    the unrolled sum for 27 and 7 diagonals, else the run-time loop."""
+    buf = torch.zeros(D * n + shift, dtype=torch.float32)
+    vals = buf[shift:].view(1, D, n)
+    assert dia.stream_launch(vals, form) == want
+    with pytest.raises(ValueError, match="no form"):
+        dia.stream_launch(vals, "tiled")
+
+
+def _emulate_stream_kernel(vals, x, offsets, no, o0, wy, form, vec):
+    """csrc/dia_stream.cu's indexing in numpy: the grid of each form, the
+    rows of each thread (consecutive with `vec`, PA_STREAM_THREADS apart
+    without; one in the small form), the predicated value and x reads, the
+    ascending-offset sum in the operand's type, the band's store and the
+    pad loop. Returns y and how often each slot was written."""
+    P, D, n = vals.shape
+    item = vals.dtype.itemsize
+    R = 1 if form == dia.SMALL else dia.stream_rows_per_thread(item)
+    T = dia.SMALL_THREADS if form == dia.SMALL else dia.STREAM_THREADS
+    gx = max(1, -(-n // (T * R)))
+    y = np.full((P, wy), np.nan, dtype=vals.dtype)
+    writes = np.zeros((P, wy), dtype=np.int64)
+    bx, t, r = np.meshgrid(np.arange(gx), np.arange(T), np.arange(R), indexing="ij")
+    base = bx * (T * R)
+    row = base + t * R + r if vec else base + r * T + t
+    for p in range(P):
+        active = np.broadcast_to(row[..., :1] < no[p], row.shape)  # the thread's first row
+        acc = np.zeros(row.shape, dtype=vals.dtype)
+        for d, off in enumerate(offsets):
+            v = np.where(row < n, vals[p, d, np.minimum(row, n - 1)], 0)
+            k = row + off
+            xv = np.where((k >= 0) & (k < no[p]), x[p, o0 + np.clip(k, 0, max(no[p] - 1, 0))], 0)
+            term = (v * xv).astype(vals.dtype)
+            acc = np.where(active, term if d == 0 else (acc + term).astype(vals.dtype), acc)
+        st = row < n
+        y[p, o0 + row[st]] = np.where(row < no[p], acc, 0)[st]
+        np.add.at(writes[p], o0 + row[st], 1)
+        pads = wy - n
+        j = np.arange(gx * T)
+        for m in range(-(-pads // (gx * T)) if pads > 0 else 0):
+            jj = j + m * gx * T
+            jj = jj[jj < pads]
+            slots = np.where(jj < o0, jj, jj + n)
+            y[p, slots] = 0
+            np.add.at(writes[p], slots, 1)
+    return y, writes
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+@pytest.mark.parametrize("form", list(dia.STREAM_FORMS))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("D", [7, 27, 13])
+def test_stream_kernel_emulation_matches_plain(D, dtype, form, vec):
+    """The kernel's schedule, emulated, equals the plain version value for
+    value on two parts of unequal owned counts with the band off the
+    frame's start: every slot written exactly once (NaN in every slot
+    nothing writes), rows past a part's count 0, in each form, with and
+    without vector loads (the small form has none: its emulation with
+    ``vec`` is the one-row case all the same), for the unrolled sums and
+    the run-time loop; one row more than the stream form's CTA covers, so
+    the last CTA is ragged."""
+    rng = np.random.default_rng(D)
+    R = dia.stream_rows_per_thread(np.dtype(dtype).itemsize)
+    n = dia.STREAM_THREADS * R + R  # a multiple of R: the vector loads apply
+    m = 5
+    offsets = tuple(sorted(int(o) for o in rng.choice(np.arange(-3 * m, 3 * m + 1), D, replace=False)))
+    no = np.array([n, n - 37], dtype=np.int32)
+    o0, wy = 3, n + 11
+    vals = rng.standard_normal((2, D, n)).astype(dtype)
+    x = rng.standard_normal((2, n + 5)).astype(dtype)
+    want = dia.dia_stream_spmv_plain(torch.from_numpy(vals), torch.from_numpy(x), offsets,
+                                     torch.from_numpy(no), o0, wy).numpy()
+    got, writes = _emulate_stream_kernel(vals, x, offsets, no, o0, wy, form, vec and form == dia.STREAM)
+    assert (writes == 1).all()
+    assert np.array_equal(got, want)

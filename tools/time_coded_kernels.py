@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's coded-DIA kernels of one or more checkouts on one card.
+"""Time the port's DIA kernels of one or more checkouts on one card.
 
-    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--cg N] [--gmg N]
+    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--cg N] [--gmg N] [--gmg-multi N]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -14,8 +14,14 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
   `dia_coded_spmv_axpy` on the n^3 7-point Poisson operator in row-class
   decode, staged as the GPU backend stages it (an interior class, and
   Dirichlet identity rows on the boundary), float32, one part;
-* K4 `dia_stream_spmv` on random 27-diagonal values at (n/2)^3 rows, a
-  kernel no checkout here changes, as a control of the card's speed;
+* K4 `dia_stream_spmv` on random 27-diagonal values at the shapes of the
+  GMG levels it serves (one part of 96^3, 48^3, 24^3 and 12^3 rows in
+  float32; eight stacked parts of 12^3 and 6^3 in float64), in each form
+  a checkout has (``stream`` and ``small`` since the redesign, forced;
+  a checkout from before it: its one form), each checked torch.equal to
+  its plain version;
+* the empty kernel (`dia_null_launch`, one warp), as a control of the
+  card's speed that no checkout changes;
 * with ``--select``, K1 on synthetic select-chain operators of the GMG
   shapes (level 0's A at 192^3, the stencil S at 192^3 down to 12^3),
   each also checked torch.equal to its plain version;
@@ -40,8 +46,13 @@ for each coded operator of the structured route's hierarchy the host and
 device microseconds of one K1 launch and chip_smoke.py's
 `gmg_coded_operator` line (shape, launches per solve, flushed and
 back-to-back µs, plain and torch.sparse.mm µs, the empty kernel launched
-as K1 is, the bound), its `box_stencil_level` line per stencil level, and
-the bare empty kernel's `null_launch` line. The timers and the set-up are this checkout's
+as K1 is, the bound), its `box_stencil_level` line per stencil level, its
+`dia_stream_level` line per streaming level and `vcycle_epilogue_level`
+line per level and mode (a checkout with the two K4 forms and the
+epilogue kernel), and the bare empty kernel's `null_launch` line. ``--gmg-multi N`` adds
+GMG-PCG seconds per iteration and its profile on (2,2,2) stacked parts
+of N^3 in float64 (chip_smoke.py's stacked hierarchy), on the default
+routes, in the graph loop where the checkout has one. The timers and the set-up are this checkout's
 chip_smoke.py, so every checkout is timed the same way. One JSON line per
 measurement; the nvidia-smi name and power-limit line first. Exits
 non-zero without a card.
@@ -102,23 +113,49 @@ def timed(smoke, fn, flush):
     return {"flush_ms": flush_ms, "loop_ms": a.elapsed_time(b) / LOOP}
 
 
+#: K4's GMG shapes: (parts, box edge, dtype) of 192^3 f32 levels 1-4 and
+#: the stacked 48^3 f64 hierarchy's levels 1-2
+STREAM_LEVELS = ((1, 96, np.float32), (1, 48, np.float32), (1, 24, np.float32), (1, 12, np.float32),
+                 (8, 12, np.float64), (8, 6, np.float64))
+
+
+def time_stream_levels(smoke, dia, rng, flush):
+    """K4 on random 27-diagonal values at each `STREAM_LEVELS` shape, in
+    every form the checkout has, flushed and back-to-back ms, torch.equal
+    to the plain version."""
+    forms = getattr(dia, "STREAM_FORMS", (None,))
+    out = {}
+    for P, m, dt in STREAM_LEVELS:
+        offsets = tuple(a * m * m + b * m + c for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
+        rows = m ** 3
+        vals = torch.from_numpy(rng.standard_normal((P, 27, rows)).astype(dt)).cuda()
+        xs = torch.from_numpy(rng.standard_normal((P, rows)).astype(dt)).cuda()
+        no = torch.full((P,), rows, dtype=torch.int32, device="cuda")
+        want = dia.dia_stream_spmv_plain(vals, xs, offsets, no, 0, rows)
+        line = {}
+        for form in forms:
+            kw = {} if form is None else {"form": form}
+            k4 = lambda: dia.dia_stream_spmv(vals, xs, offsets, no, 0, rows, **kw)  # noqa: E731
+            line[form or "only"] = {**timed(smoke, k4, flush), "equal": bool(torch.equal(k4(), want))}
+        if forms != (None,):
+            line["by_shape"] = dia.stream_form(P, rows, vals.element_size(), torch.cuda.get_device_properties(0).multi_processor_count)
+        out[f"{P}x{m}^3-{np.dtype(dt).name}"] = line
+    return out
+
+
 def time_kernels(smoke, dia, n, rng, flush):
     op = poisson_operator(dia, n)
     frame = lambda: torch.from_numpy(rng.standard_normal((1, op.n)).astype(np.float32)).cuda()  # noqa: E731
     x, r, pprev, xacc = frame(), frame(), frame(), frame()
     beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
     alpha = torch.tensor(-0.61, dtype=torch.float32, device="cuda")
-    m = n // 2
-    offsets = tuple(a * m * m + b * m + c for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
-    vals = torch.from_numpy(rng.standard_normal((1, 27, m ** 3)).astype(np.float32)).cuda()
-    xs = torch.from_numpy(rng.standard_normal((1, m ** 3)).astype(np.float32)).cuda()
-    no = torch.tensor([m ** 3], dtype=torch.int32, device="cuda")
     return {
         "dia_coded_spmv": timed(smoke, lambda: dia.dia_coded_spmv(op, x, op.n), flush),
         "dia_coded_spmv_pfold": timed(smoke, lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, op.n), flush),
         "dia_coded_spmv_axpy": timed(
             smoke, lambda: dia.dia_coded_spmv_axpy(op, x, xacc, pprev, alpha, op.n), flush),
-        "dia_stream_spmv_control": timed(smoke, lambda: dia.dia_stream_spmv(vals, xs, offsets, no, 0, m ** 3), flush),
+        "null_launch_control": timed(smoke, lambda: dia.dia_null_launch(), flush),
+        "dia_stream_spmv": time_stream_levels(smoke, dia, rng, flush),
     }
 
 
@@ -177,7 +214,7 @@ def host_device_us(fns, reps):
     return {"host_us": host * 1e6 / k, "device_us": a.elapsed_time(e) * 1e3 / k}
 
 
-def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
+def solve_worker(root: Path, cg_n: int, gmg_n: int, gmg_multi: int = 0) -> dict:
     """The solvers' seconds per iteration with the package of checkout
     `root`, in a process of its own: fused, pipelined and standard CG at
     cg_n^3 float32 (fixed trips of 20 and 220; the graph and the eager loop
@@ -215,6 +252,15 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
                     lambda m: smoke.make_cg_fn(dA, 0.0, m, **kw, **lkw), b, x0, 20, 220)
         for tag, lkw in loops:
             smoke.phase_profile(f"cg_profile{tag}", smoke.make_cg_fn(dA, 0.0, 48, **lkw), b, x0, 48)
+    if gmg_multi:
+        run = smoke.prun(smoke.gmg_driver, backend, (2, 2, 2), gmg_multi, False)
+        b = smoke._b_on_cols_layout(run["bh"], smoke.device_matrix(run["Ah"], backend))
+        x0 = torch.zeros_like(b)
+        out["gmg_multi_n"] = gmg_multi
+        out["gmg_multi_s_per_iter"], _ = smoke.fixed_trip_s_per_iter(
+            lambda m: smoke.gpu_gmg.make_gmg_pcg_fn(run["h"], backend, 0.0, m), b, x0, *smoke.GMG_TRIPS)
+        smoke.phase_profile("gmg_pcg_profile_stacked", smoke.gpu_gmg.make_gmg_pcg_fn(run["h"], backend, 0.0, 5),
+                            b, x0, 5)
     if not gmg_n:
         return out
     run = smoke.prun(smoke.gmg_driver, backend, (1, 1, 1), gmg_n, True)
@@ -246,8 +292,12 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int) -> dict:
     smoke.emit({"phase": "null_launch", "us": smoke.null_launch_us(flush)})
     smoke.coded_operator_times(dh, iterations, flush, np.random.default_rng(0))
     if routes:
-        smoke.stencil_level_times(smoke.gpu_gmg.device_hierarchy(h, backend), iterations, flush,
-                                  np.random.default_rng(0))
+        dh_default = smoke.gpu_gmg.device_hierarchy(h, backend)
+        smoke.stencil_level_times(dh_default, iterations, flush, np.random.default_rng(0))
+    if hasattr(dia, "STREAM_FORMS") and importlib.util.find_spec("partitionedarrays_jl_tpu_torch.ops.epilogue"):
+        # a checkout with the two K4 forms and the epilogue kernel
+        smoke.stream_level_times(h, dh_default, iterations, flush, np.random.default_rng(0))
+        smoke.epilogue_level_times(h, dh_default, iterations, flush, np.random.default_rng(0))
     calls = []
     for lv in dh["levels"]:
         for dM in (lv["dA"], lv["dS"]):
@@ -269,6 +319,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--cg", type=int, default=0, metavar="N", help="also time fused and pipelined CG at N^3")
     ap.add_argument("--gmg", type=int, default=0, metavar="N", help="also time GMG-PCG at N^3")
+    ap.add_argument("--gmg-multi", type=int, default=0, metavar="N",
+                    help="also time GMG-PCG on (2,2,2) stacked parts of N^3, float64")
     ap.add_argument("--select", action="store_true",
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
@@ -278,7 +330,7 @@ def main() -> int:
         print("time_coded_kernels: no CUDA device", file=sys.stderr)
         return 1
     if args.solve_worker:
-        print(json.dumps(solve_worker(args.solve_worker, args.cg, args.gmg)), flush=True)
+        print(json.dumps(solve_worker(args.solve_worker, args.cg, args.gmg, args.gmg_multi)), flush=True)
         return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -298,11 +350,12 @@ def main() -> int:
             res["select"] = time_select(smoke, dia, np.random.default_rng(args.seed), flush)
         res["ptxas"] = smoke._ptxas_lines(dia.BUILD_LOG)
         print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
-    if args.cg or args.gmg:
+    if args.cg or args.gmg or args.gmg_multi:
         # a process per checkout: each imports its own package
         for k, root in enumerate(srcs):
             proc = subprocess.run(
-                [sys.executable, __file__, "--solve-worker", str(root), "--cg", str(args.cg), "--gmg", str(args.gmg)],
+                [sys.executable, __file__, "--solve-worker", str(root), "--cg", str(args.cg), "--gmg", str(args.gmg),
+                 "--gmg-multi", str(args.gmg_multi)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
