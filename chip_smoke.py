@@ -8,8 +8,10 @@ drives the port's paths — the 3-D Poisson CG solve at 192^3 in float32 on
 one part (fused, then pipelined and standard) and the
 multigrid-preconditioned CG at 192^3 float32, through `prun`,
 `assemble_poisson`, `cg`, `pcg` and the lowerings — and holds every kernel
-against its plain PyTorch version (seven kernels: K1-K4, the stencil,
-the CG sweep and the V-cycle epilogue). Every solve runs the device-resident
+against its plain PyTorch version (thirteen kernels: K1-K4, the stencil,
+the CG sweep and the V-cycle epilogue; K2 with minv, the sweep's precond
+and block forms, the two block SpMMs and the block dot's products of
+Jacobi PCG and the block solves). Every solve runs the device-resident
 loop (`parallel/gpu_loop.py`): blocks of k iterations replayed as a CUDA
 graph, the stopping test a device flag; so launch counts are stated in the
 iterations the device ran (whole blocks, the frozen iterations after the
@@ -105,6 +107,29 @@ Phases, one JSON line each:
    V-cycle, on the default and the generic routes; graph against eager;
    seconds per iteration on both routes (the default routes in the graph
    and the eager loop);
+4d. Jacobi PCG at 192^3 f32 on phase 2b's decoupled operator through
+   `pcg(Ah, bh)` (the default diagonal minv), fused and standard bodies:
+   launch counts by formula (fused: K1 once, K2 with minv and the precond
+   sweep once per device iteration; standard: K1 1 + 1 per device
+   iteration, the precond sweep 1), the plain path's iterations and error
+   within 1.1x, graph against eager, K2 with minv and the precond sweep
+   (the flag 1 and 0) torch.equal to their plain versions, seconds per
+   iteration from fixed trips of 20 and 220;
+4e. the block solves at 192^3 f32, K = 8 right-hand sides (column 0 the
+   main path's b; the others A x̂_k from the seed, each started at its
+   Dirichlet values): fused block CG on phase 3's coded operator, fused
+   block CG and block Jacobi PCG on the variable-coefficient operator of
+   the JAX package's multi-RHS benchmark (its own copy here,
+   `assemble_varcoef_poisson`, decoupled; the streaming-DIA lowering),
+   through `cg(A, B=...)` and `pcg(A, B=...)`: launch counts by formula
+   (the SpMM 1 + 1 and the block sweep 1 per device iteration; the block
+   dot's products 1 per device iteration and 1, with Jacobi 2, at the
+   start), per-column iterations and solutions equal to each column's solo
+   solve, errors against x̂_k, graph against eager, block, per-RHS and solo
+   seconds per iteration; the block kernels torch.equal to their plain
+   versions at the paths' shapes; and the default solo CG on the varcoef operator (the
+   fused body, repaired: K4 1 + 1 and the sweep 1 per device iteration) with
+   the standard body's iterations and both bodies' seconds per iteration;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -135,8 +160,14 @@ Phases, one JSON line each:
    form its shape takes, vector loads, the unrolled sum, both forms'
    flushed µs, the plain version's, torch.sparse.mm's on one part, the
    bound: values, x and y) and one ``vcycle_epilogue_level`` line per
-   level and mode of both (flushed µs, the plain version's, the bound);
-6. the launch counts of phases 3, 3b and 4b (the sweep's of phase 3).
+   level and mode of both (flushed µs, the plain version's, the bound;
+   torch.sparse.mm on the stacked parts' block-diagonal CSR where a level
+   has several); K2 with minv and the precond sweep at Jacobi PCG's shapes
+   and the block kernels at K = 8 (`jacobi_kernel_times`,
+   `block_kernel_times`: torch.sparse.mm of the operator's CSR on the
+   (rows, 8) slab for the SpMMs);
+6. the launch counts of phases 3, 3b, 4b, 4d and 4e (the sweep's of phase
+   3).
 
 In the kernels line, K4's times are level 1's of 192^3 (its stream form)
 and the epilogue's level 0's smooth mode of 192^3.
@@ -159,8 +190,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from partitionedarrays_jl_tpu_torch import (  # noqa: E402
-    PSparseMatrix, PVector, assemble_poisson, cg, decouple_dirichlet, gmg_hierarchy, pcg,
-    poisson_fdm_driver, prun, sequential,
+    PSparseMatrix, PVector, add_gids, assemble_poisson, cartesian_partition, cg, decouple_dirichlet,
+    gather_pvector, gmg_hierarchy, jacobi_preconditioner, map_parts, no_ghost, pcg, poisson_fdm_driver, prun, sequential,
 )
 from partitionedarrays_jl_tpu_torch.ops import dia  # noqa: E402
 from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix  # noqa: E402
@@ -172,10 +203,14 @@ from partitionedarrays_jl_tpu_torch.parallel.gpu import (  # noqa: E402
     device_matrix,
     exchange_,
     gpu_cg,
+    make_block_cg_fn,
     make_cg_fn,
+    make_spmv_fn,
     _b_on_cols_layout,
+    _block_on_cols_layout,
     DeviceVector,
 )
+from partitionedarrays_jl_tpu_torch.parallel.prange import p_cartesian_indices  # noqa: E402
 
 N_MAIN = 192
 N_MULTI = 48
@@ -191,9 +226,12 @@ GMG_LEVELS = 5  # 192, 96, 48, 24, 12 over a 6^3 coarse grid
 GMG_ITERATIONS = 7  # 192^3 f32 GMG-PCG to TOL_MAIN on either route
 
 GMG_TRIPS = (4, 24)  # fixed trips of the GMG-PCG seconds per iteration (2 and 12 drowned in host jitter)
+CG_TRIPS = (20, 220)  # fixed trips of the CG, Jacobi PCG and block seconds per iteration
+N_BLOCK = 8  # right-hand sides of the block phase
 
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
-           "box_stencil_apply", "cg_sweep", "vcycle_epilogue")
+           "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
+           "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
@@ -202,12 +240,24 @@ SRC = {
     "box_stencil_apply": "partitionedarrays_jl_tpu_torch/csrc/box_stencil.cu",
     "cg_sweep": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
     "vcycle_epilogue": "partitionedarrays_jl_tpu_torch/csrc/vcycle_epilogue.cu",
+    "dia_coded_spmv_pfold_minv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
+    "cg_sweep_precond": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
+    "cg_sweep_block": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
+    "dia_coded_spmm": "partitionedarrays_jl_tpu_torch/csrc/dia_coded_block.cu",
+    "dia_stream_spmm": "partitionedarrays_jl_tpu_torch/csrc/dia_stream_block.cu",
+    "block_products": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
 }
 #: the TPU kernel each replaces; box_stencil_apply, cg_sweep and
 #: vcycle_epilogue have none: they stand for the XLA fusions of the JAX
 #: package's `_stencil_apply`, of the fused CG body's update sweep
 #: (`step_fused`) and of the V-cycle's smoothing sweep and residual
-#: (`_vcycle_shard_body`, the sweep at :604; init :596, residuals :616, :686)
+#: (`_vcycle_shard_body`, the sweep at :604; init :596, residuals :616, :686);
+#: K2 with minv the Pallas SpMV (:523) with the jnp fold beside it
+#: (tpu.py:3289-3290, the kernel's own fold being off with a
+#: preconditioner); the precond sweep the fused PCG body's odot2 sweep; the
+#: block sweep and SpMMs the block program's sweep and the XLA forms its
+#: SpMV takes on a (W, K) operand (`_dia_coded_xla`, `_dia_rowsum`); the
+#: block products the products of its per-column p.q dot
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
@@ -216,6 +266,12 @@ REPLACES = {
     "box_stencil_apply": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:292",
     "cg_sweep": "partitionedarrays_jl_tpu/parallel/tpu.py:4090",
     "vcycle_epilogue": "partitionedarrays_jl_tpu/parallel/tpu_gmg.py:604",
+    "dia_coded_spmv_pfold_minv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
+    "cg_sweep_precond": "partitionedarrays_jl_tpu/parallel/tpu.py:4096",
+    "cg_sweep_block": "partitionedarrays_jl_tpu/parallel/tpu.py:4883",
+    "dia_coded_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:3006",
+    "dia_stream_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:2960",
+    "block_products": "partitionedarrays_jl_tpu/parallel/tpu.py:4881",
 }
 
 
@@ -544,19 +600,23 @@ def device_iterations(info):
     return info["device_loop"]["device_iterations"]
 
 
-def graph_vs_eager(path, make_fn, b, x0):
+def graph_vs_eager(path, make_fn, b, x0, *args):
     """One solve through the device-resident loop replayed as CUDA graphs
     and through the same loop run eagerly on the card (``graph=False``): x
     torch.equal, equal iterations, rs and history (NaN past the last
     iteration in both); the graph loop's block, device iterations, replays
-    and capture seconds. ``make_fn(graph)`` builds the solve function."""
+    and capture seconds. ``make_fn(graph)`` builds the solve function,
+    called as ``fn(b, x0, *args)``; a block solve's iterations are per
+    column (the line holds the most)."""
     fe, fg = make_fn(False), make_fn(True)
-    xe, rse, _, ite, he = fe(b, x0)
-    xg, rsg, _, itg, hg = fg(b, x0)
+    xe, rse, _, ite, he = fe(b, x0, *args)
+    xg, rsg, _, itg, hg = fg(b, x0, *args)
     sync()
     st = fg.stats
     equal = {"x": bool(torch.equal(xg, xe)), "rs": bool(torch.equal(rsg, rse)),
-             "history": bool(np.array_equal(hg, he, equal_nan=True))}
+             "history": bool(np.array_equal(hg, he, equal_nan=True)),
+             "iterations": bool(np.array_equal(np.asarray(itg), np.asarray(ite)))}
+    itg, ite = int(np.max(itg)), int(np.max(ite))
     line = {"phase": "loop_graph_vs_eager", "path": path, "iterations": itg, "eager_iterations": ite,
             "block": st["block"], "device_iterations": st["device_iterations"], "replays": st["replays"],
             "capture_s": st["capture_s"], "equal": equal}
@@ -1080,6 +1140,476 @@ def phase_gmg_multi(backend, run, rng):
 
 
 # ---------------------------------------------------------------------------
+# phases 4d and 4e: Jacobi PCG and the block (multi-RHS) solves
+# ---------------------------------------------------------------------------
+
+
+def _frame(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(dtype)).to(dev)
+
+
+def _hold_jacobi_kernels(dA, dmv, rng, errs):
+    """K2 with minv (y and p) and the sweep's precond form (x, r, both
+    series of partials, rz, rs; the flag 1 and 0) torch.equal to their
+    plain versions on random frames of a path's shapes."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    op, dev = dA.coded, dmv.device
+    P, wx, wy, n = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W, dA.row_layout.no_max
+    r, pprev = _frame(rng, (P, wx), np.float32, dev), _frame(rng, (P, wx), np.float32, dev)
+    beta = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy, minv=dmv)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy, minv=dmv)
+    errs["dia_coded_spmv_pfold_minv[y]"] = _compare("K2 minv y", yk, yp)
+    errs["dia_coded_spmv_pfold_minv[p]"] = _compare("K2 minv p", pk, pp)
+    x, p, q = (_frame(rng, (P, wx), np.float32, dev) for _ in range(3))
+    alpha = torch.tensor(0.0625, dtype=torch.float32, device=dev)
+    for live in (1, 0):
+        flag = torch.tensor(live, dtype=torch.int32, device=dev)
+        outs = []
+        for k in (sw.cg_sweep, sw.cg_sweep_plain):
+            xc, rc = x.clone(), r.clone()
+            part = torch.full((P, 2, sw.chunks(n)), 0.5, dtype=torch.float32, device=dev)
+            rz, rs = k(rc, q, alpha, flag, part, dA.row_layout.o0, n, x=xc, p=p, minv=dmv)
+            outs.append((xc, rc, part, rz, rs))
+        for what, a, b in zip(("x", "r", "partials", "rz", "rs"), *outs):
+            errs[f"cg_sweep_precond[live={live},{what}]"] = _compare(f"precond sweep live={live} {what}", a, b)
+        if not live:
+            require(torch.equal(outs[0][0], x) and torch.equal(outs[0][1], r), "precond sweep wrote with the flag 0")
+
+
+def jacobi_kernel_times(jac, flush, rng):
+    """K2 with minv and the precond sweep at Jacobi PCG's shapes (flushed
+    ms), their plain versions, and the bounds: K2 with minv reads r,
+    pprev, minv and a code byte and writes y and p; the precond sweep reads
+    x, p, r, q, minv and writes x, r. No single PyTorch call computes
+    either."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    dA, dmv = jac["dA"], jac["dmv"]
+    op, dev = dA.coded, dmv.device
+    P, wx, wy, n, o0 = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W, dA.row_layout.no_max, dA.row_layout.o0
+    rows = int(dA.row_layout.noids.sum())
+    nnz = dA.flops_per_spmv // 2
+    r, pprev, x, p = (_frame(rng, (P, wx), np.float32, dev) for _ in range(4))
+    q = _frame(rng, (P, wy), np.float32, dev)
+    beta = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    alpha = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    live = torch.ones((), dtype=torch.int32, device=dev)
+    part = sw.sweep_partials(r, n, 2)
+    k2 = {"ms": time_ms(lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy, minv=dmv), flush),
+          "plain_ms": time_ms(lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy, minv=dmv), flush),
+          "library_ms": None}
+    k2["bound_ms"], k2["bound_by"] = _bound_ms(rows * (5 * 4 + op.codes.shape[1]), 2 * nnz + 3 * rows)
+    sweep = {"ms": time_ms(lambda: sw.cg_sweep(r, q, alpha, live, part, o0, n, x=x, p=p, minv=dmv), flush),
+             "plain_ms": time_ms(lambda: sw.cg_sweep_plain(r, q, alpha, live, part, o0, n, x=x, p=p, minv=dmv), flush),
+             "library_ms": None}
+    sweep["bound_ms"], sweep["bound_by"] = _bound_ms(rows * 7 * 4, 6 * 2 * rows)
+    for t in (k2, sweep):
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "jacobi_kernel_times", "n": N_MAIN, "dtype": "float32", "reps": REPS,
+          "dia_coded_spmv_pfold_minv": k2, "cg_sweep_precond": sweep})
+    return {"dia_coded_spmv_pfold_minv": k2, "cg_sweep_precond": sweep}
+
+
+def phase_jacobi(backend, run, rng):
+    """Jacobi PCG at 192^3 f32 on phase 2b's decoupled operator through
+    `pcg(Ah, bh)` (the default diagonal minv), fused and standard bodies:
+    launch counts by formula, the plain path's iterations and error, graph
+    against eager, K2 with minv and the precond sweep against their plain
+    versions, and seconds per iteration from fixed trips."""
+    Ah, bh = run["Ah"], run["bh"]
+    dA = device_matrix(Ah, backend)
+    require(dA.dia_mode == "coded", f"Jacobi PCG: the decoupled operator lowered as {dA.dia_mode}")
+    mv = jacobi_preconditioner(Ah)
+    dmv = _b_on_cols_layout(mv, dA)
+    errs = {}
+    _hold_jacobi_kernels(dA, dmv, rng, errs)
+    b = _b_on_cols_layout(bh, dA)
+    x0 = torch.zeros_like(b)
+    maxiter = 4 * Ah.rows.ngids
+    out = {"errs": errs, "launches": {}}
+    for body, fused in (("fused", True), ("standard", False)):
+        dia.reset_launches()
+        t = time.perf_counter()
+        x, info = pcg(Ah, bh, tol=TOL_MAIN, fused=fused)
+        sync()
+        solve_s = time.perf_counter() - t
+        launches = dict(dia.LAUNCHES)
+        dev_it = device_iterations(info)
+        if fused:
+            want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold_minv": dev_it, "cg_sweep_precond": dev_it}
+        else:
+            want = {"dia_coded_spmv": 1 + dev_it, "dia_coded_spmv_pfold_minv": 0, "cg_sweep_precond": dev_it}
+        want.update(dia_coded_spmv_pfold=0, cg_sweep=0)
+        err = _rel_err(x, run["xe"])
+        xp, info_p = gpu_cg(Ah, bh, tol=TOL_MAIN, fused=fused, plain=True, minv=mv)
+        err_p = _rel_err(xp, run["xe"])
+        s_per_iter, fixed = fixed_trip_s_per_iter(
+            lambda m: with_args(make_cg_fn(dA, 0.0, m, fused=fused, precond=True), dmv), b, x0, *CG_TRIPS)
+        line = {
+            "phase": "jacobi_pcg", "body": body, "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
+            "cg_body": info["cg_body"], "iterations": info["iterations"], "converged": info["converged"],
+            "rel_err": err, "plain_iterations": info_p["iterations"], "plain_rel_err": err_p, "solve_s": solve_s,
+            "kernels": launches, "expected_launches": want, "device_loop": info["device_loop"],
+            "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": CG_TRIPS,
+        }
+        emit(line)
+        require(info["cg_body"] == body and info["converged"] and np.isfinite(err),
+                f"Jacobi PCG {body}: did not converge in the {body} body")
+        require(info["iterations"] == info_p["iterations"], f"Jacobi PCG {body}: kernel and plain iterations differ")
+        require(err <= 1.1 * err_p, f"Jacobi PCG {body}: kernel path error above 1.1x the plain path's")
+        for k in want:
+            require(launches[k] == want[k], f"Jacobi PCG {body}: {launches[k]} {k} launches, expected {want[k]}")
+        g = graph_vs_eager(f"{N_MAIN}^3 f32 Jacobi PCG {body}",
+                           lambda gr: make_cg_fn(dA, TOL_MAIN, maxiter, fused=fused, precond=True, graph=gr),
+                           b, x0, dmv)
+        require(g["iterations"] == info["iterations"], f"Jacobi PCG {body}: graph-vs-eager iterations differ")
+        out[body] = line
+        if fused:
+            out["launches"] = {k: launches[k] for k in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond")}
+    out["dA"], out["dmv"] = dA, dmv
+    return out
+
+
+def assemble_varcoef_poisson(parts, ns, dtype=np.float32):
+    """The variable-coefficient 7-point diffusion operator of the JAX
+    package's multi-RHS benchmark (tools/bench_multirhs.py:53-107, its
+    own copy here): harmonic-mean arm weights over a smooth k-field,
+    Dirichlet identity rows, shifted by 1e-3 and scaled by 1/16. Every
+    diagonal holds many values, so the lowering takes the streaming-DIA
+    form. The column range is the rows' with the stencil's ghost layer
+    (`add_gids`), so it assembles on any parts."""
+    ns = tuple(int(n) for n in ns)
+    dim = len(ns)
+    rows = cartesian_partition(parts, ns, no_ghost)
+    cis = p_cartesian_indices(parts, ns, no_ghost)
+
+    def k_field(*cs):
+        f = 1.0
+        for d, c in enumerate(cs):
+            f = f * (1.0 + 0.4 * np.sin(0.37 * (d + 1) * np.asarray(c)))
+        return 1.0 + 0.8 * f
+
+    def coo(ci):
+        cs = [g.ravel() for g in ci.grid()]
+        gid = np.ravel_multi_index(tuple(cs), ns)
+        interior = np.ones(len(gid), dtype=bool)
+        for d in range(dim):
+            interior &= (cs[d] > 0) & (cs[d] < ns[d] - 1)
+        I, J, V = [gid[~interior]], [gid[~interior]], [np.ones(int((~interior).sum()))]
+        gi = gid[interior]
+        ics = [c[interior] for c in cs]
+        diag = np.zeros(len(gi))
+        for d in range(dim):
+            for s in (-1, 1):
+                nb = list(ics)
+                nb[d] = ics[d] + s
+                kn = 2.0 / (1.0 / k_field(*ics) + 1.0 / k_field(*nb))
+                I.append(gi)
+                J.append(np.ravel_multi_index(tuple(nb), ns))
+                V.append(-kn)
+                diag += kn
+        I.append(gi)
+        J.append(gi)
+        V.append(diag + 1e-3)
+        return np.concatenate(I), np.concatenate(J), np.concatenate(V).astype(dtype) / 16.0
+
+    trip = map_parts(coo, cis)
+    I = map_parts(lambda t: t[0], trip)
+    J = map_parts(lambda t: t[1], trip)
+    V = map_parts(lambda t: t[2], trip)
+    return PSparseMatrix.from_coo(I, J, V, rows, add_gids(rows, J), ids="global")
+
+
+def dirichlet_start(A, xh):
+    """A start over A.cols that holds x̂ on the identity (Dirichlet) rows
+    and 0 elsewhere, as `assemble_poisson`'s x0 holds the boundary values:
+    on the undecoupled operator the residual then starts 0 on those rows,
+    and CG stays where the operator is symmetric (from x0 = 0 it diverges
+    there)."""
+    vals = []
+    for M, xv in zip(A.values.part_values(), xh.values.part_values()):
+        r = M.row_of_nz()
+        lens = np.bincount(r, minlength=M.shape[0])
+        ident = np.zeros(M.shape[0], dtype=bool)
+        one = (lens[r] == 1) & (M.indices == r)
+        ident[r[one]] = True
+        v = np.zeros_like(np.asarray(xv))
+        v[: M.shape[0]][ident] = np.asarray(xv)[: M.shape[0]][ident]
+        vals.append(v)
+    return PVector(A.cols.partition._like(vals), A.cols)
+
+
+def block_rhs(A, backend, rng, b0=None, x00=None):
+    """N_BLOCK right-hand sides over A.rows and their starts over A.cols:
+    column 0 ``b0`` (start ``x00``) where given, the others b_k = A x̂_k
+    for x̂_k from the seed (made by A's SpMV on the card), started from
+    `dirichlet_start`. Returns (B, X0, x̂s), x̂ None for b0."""
+    dA = device_matrix(A, backend)
+    spmv = make_spmv_fn(dA)
+    dt = np.dtype(A.dtype)
+    B, X0, Xe = [], [], []
+    for k in range(N_BLOCK):
+        if k == 0 and b0 is not None:
+            B.append(b0)
+            X0.append(x00)
+            Xe.append(None)
+            continue
+        xh = PVector(A.cols.partition._like([rng.standard_normal(i.num_lids).astype(dt)
+                                             for i in A.cols.partition.part_values()]), A.cols)
+        y = spmv(DeviceVector.from_pvector(xh, backend, dA.col_layout).data)
+        B.append(DeviceVector(y, A.rows, dA.row_layout, backend).to_pvector())
+        X0.append(dirichlet_start(A, xh))
+        Xe.append(xh)
+    return B, X0, Xe
+
+
+def _stream_csr(vals, offsets, no, o0, w):
+    """The CSR (on the card) of a streaming operand's nonzero entries over
+    the stacked frame: row p*w + o0 + i, column p*w + o0 + i + off_d, rows in
+    order, each in ascending offset; every part's A_oo block on the
+    diagonal, as one launch of the kernel computes them."""
+    P, D, n = vals.shape
+    dev = vals.device
+    i = torch.arange(n, device=dev)
+    own = i[None, :] < no.to(dev)[:, None]
+    C = i[None, :, None] + torch.tensor(offsets, device=dev)[None, None, :]
+    V = vals.permute(0, 2, 1)
+    keep = own[:, :, None] & (C >= 0) & (C < no.to(dev)[:, None, None]) & (V != 0)
+    base = (torch.arange(P, device=dev) * w + o0)[:, None, None]
+    counts = torch.zeros(P * w, dtype=torch.int64, device=dev)
+    rows = (base[:, :, 0] + i[None, :]).reshape(-1)
+    counts[rows] = keep.sum(2).reshape(-1)
+    crow = torch.zeros(P * w + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(crow, (C + base)[keep], V[keep], size=(P * w, P * w))
+
+
+def _hold_block_kernels(tag, dA, dmv, rng, errs):
+    """The block kernels of a path torch.equal to their plain versions on
+    random slabs of its shapes (K = N_BLOCK): the SpMM (coded: plain and
+    pfold forms, with minv where given; streaming), and the block sweep
+    (minv where given) with every other column frozen, and the block
+    dot's products."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    dev = dA.stream_vals.device if dA.dia_mode == "stream" else dA.coded.cb.device
+    P, wx, wy, n, o0 = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W, dA.row_layout.no_max, dA.row_layout.o0
+    K = N_BLOCK
+    x, pprev = _frame(rng, (P, wx, K), np.float32, dev), _frame(rng, (P, wx, K), np.float32, dev)
+    if dA.dia_mode == "stream":
+        args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, o0, wy)
+        errs[f"dia_stream_spmm[{tag}]"] = _compare(f"stream SpMM {tag}", dia.dia_stream_spmm(*args),
+                                                   dia.dia_stream_spmm_plain(*args))
+    else:
+        op = dA.coded
+        errs[f"dia_coded_spmm[{tag}]"] = _compare(f"coded SpMM {tag}", dia.dia_coded_spmm(op, x, wy),
+                                                  dia.dia_coded_spmm_plain(op, x, wy))
+        beta = _frame(rng, (K,), np.float32, dev)
+        for mv in (None, dmv) if dmv is not None else (None,):
+            got = dia.dia_coded_spmm_pfold(op, x, pprev, beta, wy, minv=mv)
+            want = dia.dia_coded_spmm_pfold_plain(op, x, pprev, beta, wy, minv=mv)
+            for what, a, b in zip(("y", "p"), got, want):
+                errs[f"dia_coded_spmm[{tag},pfold{'_minv' if mv is not None else ''},{what}]"] = _compare(
+                    f"coded SpMM pfold {tag} {what}", a, b)
+    r, p = _frame(rng, (P, wx, K), np.float32, dev), _frame(rng, (P, wx, K), np.float32, dev)
+    q = _frame(rng, (P, wy, K), np.float32, dev)
+    m = P * n  # each column's block; the padding to the column stride is not written
+    errs[f"block_products[{tag}]"] = _compare(f"block products {tag}",
+                                              sw.block_products(p, q, o0, n).view(K, -1)[:, :m],
+                                              sw.block_products_plain(p, q, o0, n).view(K, -1)[:, :m])
+    alpha = _frame(rng, (K,), np.float32, dev)
+    act = torch.tensor([(k + 1) % 2 for k in range(K)], dtype=torch.int32, device=dev)
+    for mv in (None, dmv) if dmv is not None else (None,):
+        outs = []
+        for k in (sw.cg_sweep_block, sw.cg_sweep_block_plain):
+            xc, rc = x.clone(), r.clone()
+            part = torch.full((P, 2 * K if mv is not None else K, sw.chunks(n)), 0.5, dtype=torch.float32,
+                              device=dev)
+            res = k(rc, q, alpha, act, part, o0, n, x=xc, p=p, minv=mv)
+            outs.append((xc, rc, part) + (tuple(res) if mv is not None else (res,)))
+        for j, (a, b) in enumerate(zip(*outs)):
+            errs[f"cg_sweep_block[{tag},{'minv' if mv is not None else 'cg'},{j}]"] = _compare(
+                f"block sweep {tag} output {j}", a, b)
+        frozen = act == 0
+        require(torch.equal(outs[0][0][..., frozen], x[..., frozen]), f"block sweep {tag}: a frozen column moved")
+
+
+def block_kernel_times(tag, dA, dmv, flush, rng):
+    """The block kernels of a path timed at K = N_BLOCK (flushed ms), their
+    plain versions, torch.sparse.mm of the operator's CSR on the (rows, K)
+    slab for the SpMMs, and the bounds: the SpMM reads the operator once
+    (the coded one: a code byte a row; the streaming one: D values a row),
+    x and writes y (K values a row each; the pfold form reads r, pprev and
+    writes p too); the block sweep moves x, p, r, q read and x, r written,
+    K values a row each (minv once)."""
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    P, wx, wy, n, o0 = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W, dA.row_layout.no_max, dA.row_layout.o0
+    dev = dA.stream_vals.device if dA.dia_mode == "stream" else dA.coded.cb.device
+    K, item = N_BLOCK, 4
+    rows = int(dA.row_layout.noids.sum())
+    x = _frame(rng, (P, wx, K), np.float32, dev)
+    out = {}
+    if dA.dia_mode == "stream":
+        D = len(dA.dia_offsets)
+        args = (dA.stream_vals, x, dA.dia_offsets, dA.stream_no, o0, wy)
+        csr = _stream_csr(dA.stream_vals, dA.dia_offsets, dA.stream_no, o0, wx)
+        xs = x.reshape(P * wx, K)
+        t = {"ms": time_ms(lambda: dia.dia_stream_spmm(*args), flush),
+             "plain_ms": time_ms(lambda: dia.dia_stream_spmm_plain(*args), flush),
+             "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs), flush)}
+        t["bound_ms"], t["bound_by"] = _bound_ms(rows * (D * item + 2 * K * item), 2 * D * rows * K)
+        out["dia_stream_spmm"] = t
+        del csr
+    else:
+        op = dA.coded
+        code_bytes = op.codes.shape[1]
+        csr = _coded_csr(op, wx)
+        xs = x[0]
+        t = {"ms": time_ms(lambda: dia.dia_coded_spmm(op, x, wy), flush),
+             "plain_ms": time_ms(lambda: dia.dia_coded_spmm_plain(op, x, wy), flush),
+             "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs), flush)}
+        nnz = int(csr._nnz())
+        t["bound_ms"], t["bound_by"] = _bound_ms(rows * (code_bytes + 2 * K * item), 2 * nnz * K)
+        pprev = _frame(rng, (P, wx, K), np.float32, dev)
+        beta = _frame(rng, (K,), np.float32, dev)
+        t["pfold_ms"] = time_ms(lambda: dia.dia_coded_spmm_pfold(op, x, pprev, beta, wy), flush)
+        t["pfold_bound_ms"], _ = _bound_ms(rows * (code_bytes + 4 * K * item), 2 * nnz * K + 2 * rows * K)
+        out["dia_coded_spmm"] = t
+        del csr
+    r, p = _frame(rng, (P, wx, K), np.float32, dev), _frame(rng, (P, wx, K), np.float32, dev)
+    q = _frame(rng, (P, wy, K), np.float32, dev)
+    # the block dot's products: the plain version is the one transposing
+    # torch.mul that computes them, so it is the library call too
+    t = {"ms": time_ms(lambda: sw.block_products(p, q, o0, n), flush),
+         "plain_ms": time_ms(lambda: sw.block_products_plain(p, q, o0, n), flush)}
+    t["library_ms"] = t["plain_ms"]
+    t["bound_ms"], t["bound_by"] = _bound_ms(rows * 3 * K * item, rows * K)
+    out["block_products"] = t
+    alpha = torch.full((K,), 1e-3, dtype=torch.float32, device=dev)
+    act = torch.ones((K,), dtype=torch.int32, device=dev)
+    for name, mv in (("cg_sweep_block", None),) + ((("cg_sweep_block_minv", dmv),) if dmv is not None else ()):
+        part = sw.sweep_partials(r, n, 2 * K if mv is not None else K)
+        t = {"ms": time_ms(lambda: sw.cg_sweep_block(r, q, alpha, act, part, o0, n, x=x, p=p, minv=mv), flush),
+             "plain_ms": time_ms(lambda: sw.cg_sweep_block_plain(r, q, alpha, act, part, o0, n, x=x, p=p, minv=mv),
+                                 flush),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = _bound_ms(rows * (6 * K * item + (item if mv is not None else 0)),
+                                                 (6 if mv is not None else 3) * 2 * rows * K)
+        out[name] = t
+    for t in out.values():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "block_kernel_times", "path": tag, "K": K, "reps": REPS, **out})
+    return out
+
+
+def phase_block(backend, run, rng):
+    """Block CG at 192^3 f32, K = N_BLOCK right-hand sides (column 0 the
+    main path's b, the others A x̂_k from the seed), through `cg(A, B=...)`
+    and `pcg(A, B=..., minv=jacobi)`: on phase 3's coded operator (fused
+    block CG) and on the varcoef operator (streaming; fused block CG and
+    block Jacobi PCG). For each: launch counts by formula, per-column
+    iterations equal to each column's solo solve, errors against x̂_k,
+    graph against eager, block and solo seconds per iteration; the block
+    kernels against their plain versions; and the repaired solo fused CG
+    on the varcoef operator."""
+    t = time.perf_counter()
+    Av = prun(lambda parts: decouple_dirichlet(assemble_varcoef_poisson(parts, (N_MAIN,) * 3)), backend, (1, 1, 1))
+    asm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dAv = device_matrix(Av, backend)
+    lower_s = time.perf_counter() - t
+    require(dAv.dia_mode == "stream", f"varcoef operator lowered as {dAv.dia_mode}, expected stream")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    errs, launches, times, solves = {}, {}, {}, []
+    paths = (("coded", run["A"], run["b"], run["x0"], (False,)), ("varcoef", Av, None, None, (False, True)))
+    for tag, A, b0, x00, preconds in paths:
+        dA = device_matrix(A, backend)
+        B, X0, Xe = block_rhs(A, backend, rng, b0, x00)
+        mv = jacobi_preconditioner(A) if True in preconds else None
+        dmv = _b_on_cols_layout(mv, dA) if mv is not None else None
+        _hold_block_kernels(tag, dA, dmv, rng, errs)
+        db = _block_on_cols_layout(B, dA)
+        dx0 = _block_on_cols_layout(X0, dA, with_ghosts=True)
+        spmm = "dia_stream_spmm" if dA.dia_mode == "stream" else "dia_coded_spmm"
+        maxiter = 4 * A.rows.ngids
+        for precond in preconds:
+            name = f"{tag} block {'Jacobi PCG' if precond else 'CG'}"
+            dia.reset_launches()
+            t = time.perf_counter()
+            xs, info = (pcg(A, B=B, X0=X0, minv=mv, tol=TOL_MAIN) if precond
+                        else cg(A, B=B, X0=X0, tol=TOL_MAIN))
+            sync()
+            solve_s = time.perf_counter() - t
+            got = dict(dia.LAUNCHES)
+            dev_it = info["device_loop"]["device_iterations"]
+            # the products: p.q once per device iteration, r.r (and r.z) once
+            want = {spmm: 1 + dev_it, "cg_sweep_block": dev_it, "block_products": dev_it + (2 if precond else 1)}
+            its = info["iterations_per_column"]
+            solo, x_vs_solo = [], []
+            for k in range(N_BLOCK):
+                xk, ik = gpu_cg(A, B[k], x0=X0[k], tol=TOL_MAIN, minv=mv if precond else None)
+                solo.append(ik["iterations"])
+                x_vs_solo.append(float(np.max(np.abs(gather_pvector(xs[k]) - gather_pvector(xk)))))
+            rel = [None if Xe[k] is None else _rel_err(xs[k], Xe[k]) for k in range(N_BLOCK)]
+            extra = (dmv,) if precond else ()
+            block_s, block_fixed = fixed_trip_s_per_iter(
+                lambda m: with_args(make_block_cg_fn(dA, 0.0, m, N_BLOCK, precond=precond), *extra), db, dx0,
+                *CG_TRIPS)
+            solo_s, _ = fixed_trip_s_per_iter(
+                lambda m: with_args(make_cg_fn(dA, 0.0, m, precond=precond), *extra), db[..., 1].contiguous(),
+                dx0[..., 1].contiguous(), *CG_TRIPS)
+            line = {
+                "phase": "block_cg", "path": name, "n": N_MAIN, "dtype": "float32", "K": N_BLOCK, "tol": TOL_MAIN,
+                "dia_mode": dA.dia_mode, "cg_body": info["cg_body"], "iterations_per_column": its,
+                "solo_iterations": solo, "converged": info["converged"], "column_health": info["column_health"],
+                "rel_err_per_column": rel, "x_vs_solo_max_abs_diff": x_vs_solo, "solve_s": solve_s, "kernels": got, "expected_launches": want,
+                "device_loop": info["device_loop"], "block_s_per_iter": block_s,
+                "per_rhs_s_per_iter": block_s / N_BLOCK, "solo_s_per_iter": solo_s,
+                "per_rhs_speedup": solo_s / (block_s / N_BLOCK), "block_fixed_trip_s": block_fixed,
+                "fixed_trips": CG_TRIPS,
+            }
+            emit(line)
+            require(info["converged"] and info["cg_body"] == "fused", f"{name}: did not converge in the fused body")
+            require(its == solo, f"{name}: per-column iterations {its}, solo {solo}")
+            require(all(e is None or e < 0.5 for e in rel), f"{name}: errors against x̂ {rel}")
+            scale = max(1.0, float(np.max(np.abs(gather_pvector(xs[0])))))
+            require(max(x_vs_solo) <= 1e-6 * scale, f"{name}: block columns differ from their solo solves by {x_vs_solo}")
+            for k in want:
+                require(got[k] == want[k], f"{name}: {got[k]} {k} launches, expected {want[k]}")
+            graph_vs_eager(name, lambda g: make_block_cg_fn(dA, TOL_MAIN, maxiter, N_BLOCK, precond=precond, graph=g),
+                           db, dx0, *extra)
+            for k in (spmm, "cg_sweep_block", "block_products"):
+                launches.setdefault(k, got[k])
+            solves.append(line)
+        times.update(block_kernel_times(tag, dA, dmv, flush, rng))
+    # the repaired fault: the default (fused) solo CG on the streaming operator
+    bv = _block_on_cols_layout(block_rhs(Av, backend, rng)[0][1:2], dAv)[..., 0].contiguous()
+    b1 = DeviceVector(bv, Av.rows, dAv.col_layout, backend).to_pvector()
+    dia.reset_launches()
+    x, info = cg(Av, b1, tol=TOL_MAIN)
+    got = dict(dia.LAUNCHES)
+    dev_it = device_iterations(info)
+    want = {"dia_stream_spmv": 1 + dev_it, "cg_sweep": dev_it}
+    s_fused, _ = fixed_trip_s_per_iter(lambda m: make_cg_fn(dAv, 0.0, m), bv, torch.zeros_like(bv), *CG_TRIPS)
+    s_std, _ = fixed_trip_s_per_iter(lambda m: make_cg_fn(dAv, 0.0, m, fused=False), bv, torch.zeros_like(bv),
+                                     *CG_TRIPS)
+    _, info_s = gpu_cg(Av, b1, tol=TOL_MAIN, fused=False)
+    emit({"phase": "stream_fused_cg", "n": N_MAIN, "dtype": "float32", "cg_body": info["cg_body"],
+          "iterations": info["iterations"], "standard_iterations": info_s["iterations"],
+          "converged": info["converged"], "kernels": got, "expected_launches": want, "fused_s_per_iter": s_fused,
+          "standard_s_per_iter": s_std, "assembly_s": asm_s, "lowering_s": lower_s})
+    require(info["cg_body"] == "fused" and info["converged"], "varcoef: the default CG did not run the fused body")
+    require(info["iterations"] == info_s["iterations"], "varcoef: fused and standard CG took other iterations")
+    for k in want:
+        require(got[k] == want[k], f"varcoef fused CG: {got[k]} {k} launches, expected {want[k]}")
+    emit({"phase": "block_kernels_vs_plain", "equal": True, "max_abs_err": errs})
+    return {"errs": errs, "launches": launches, "times": times, "solves": solves}
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -1117,6 +1647,17 @@ def _csr_on(M, dev):
     ).to(dev)
 
 
+def with_args(fn, *args):
+    """A solve function ``fn(b, x0, *args)`` as one of (b, x0), keeping
+    its stats (for the timers and the profile)."""
+
+    def run(b, x0):
+        return fn(b, x0, *args)
+
+    run.stats = fn.stats
+    return run
+
+
 def fixed_trip_s_per_iter(make_fn, b, x0, m0, m1):
     """Seconds per iteration from two fixed-trip (tol=0) solves of m0 and
     m1 iterations, differenced (median of 3 each). Each function's first
@@ -1136,7 +1677,7 @@ def fixed_trip_s_per_iter(make_fn, b, x0, m0, m1):
             out = fn(b, x0)
             sync()
             ts.append(time.perf_counter() - t)
-            require(out[3] == m, f"fixed-trip solve stopped after {out[3]} of {m} iterations")
+            require(np.all(np.asarray(out[3]) == m), f"fixed-trip solve stopped after {out[3]} of {m} iterations")
         per[m] = statistics.median(ts)
     return (per[m1] - per[m0]) / (m1 - m0), per
 
@@ -1467,7 +2008,14 @@ def stream_level_times(h, dh, iterations, flush, rng, tag="192^3 f32"):
             xcol = x[0, : M.shape[1]].reshape(-1, 1).contiguous()
             line["library_us"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush) * 1e3
             line["csr_nnz"] = int(M.nnz)
-            del csr
+        else:
+            # stacked parts: the block-diagonal CSR of every part's A_oo over
+            # the stacked frame, as one launch of the kernel computes them
+            csr = _stream_csr(dA.stream_vals, dA.dia_offsets, dA.stream_no, dA.row_layout.o0, x.shape[1])
+            xcol = x.reshape(-1, 1)
+            line["library_us"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush) * 1e3
+            line["csr_nnz"] = int(csr._nnz())
+        del csr
         bound_ms, line["bound_by"] = _bound_ms(rows * (item * D + 2 * item), 2 * D * rows)
         line["bound_us"] = bound_ms * 1e3
         line["share_of_bound"] = line["bound_us"] / line["us"]
@@ -1624,10 +2172,17 @@ def main() -> int:
     launches["box_stencil_apply"] = gmg["launches"]["box_stencil_apply"]
     launches["vcycle_epilogue"] = gmg["launches"]["vcycle_epilogue"]
     err_multi = phase_gmg_multi(backend, gruns["multi"], rng)
+    jac = phase_jacobi(backend, gruns["main"], rng)
+    launches.update(jac["launches"])
+    blk = phase_block(backend, run, rng)
+    launches.update(blk["launches"])
     times = phase_times(backend, kern, run, N_MAIN)
     times["dia_stream_spmv"], times["box_stencil_apply"], times["vcycle_epilogue"] = phase_gmg_times(
         backend, gmg, gmg_s, {"h": gruns["multi"]["h"], "dh": gruns["multi"]["dh"],
                               "iterations": err_multi["device_iterations"]})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    times.update(jacobi_kernel_times(jac, flush, np.random.default_rng(SEED)))
+    times.update({k: v for k, v in blk["times"].items() if k in KERNELS})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
@@ -1639,6 +2194,9 @@ def main() -> int:
     max_err["box_stencil_apply"] = err_stencil
     max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
+    for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
+                 "block_products"):
+        max_err[name] = max(v for key, v in {**jac["errs"], **blk["errs"]}.items() if key.startswith(name + "["))
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

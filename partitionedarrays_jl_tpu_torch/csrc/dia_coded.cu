@@ -23,7 +23,11 @@
 //   kernel's per-class sums leave such terms out: the same value for a
 //   finite x, up to the sign of a zero).
 //   pfold (PA_PFOLD): the operand is p = r + beta * pprev; the kernel also
-//   writes p on the owned band and 0 elsewhere.
+//   writes p on the owned band and 0 elsewhere. pfold with minv
+//   (PA_PFOLDM, Jacobi PCG): p = minv * r + beta * pprev, the product
+//   minv * r rounded first, then beta * pprev, then the add (the fold of
+//   the JAX package's jnp branch, `z = mvv * rv; pnew = z + beta * pv`,
+//   parallel/tpu.py:3284-3286, which runs beside its Pallas kernel there).
 //   axpy (PA_AXPY, pipelined CG): y as above from x, and in the same pass
 //   xacc[p, o0 + i] = xacc[p, o0 + i] + alpha * pprev[p, o0 + i] for
 //   i < no[p], in place; every other slot of xacc is left untouched. With
@@ -39,7 +43,8 @@
 // Bound: memory. At 192^3 f32, one part, the row-class SpMV moves x (4 B),
 // one code byte and y (4 B) per row: 9 B/row, 63.7 MB, about 19.0 us at
 // 3.35 TB/s; the pfold variant moves r, pprev, the code byte, y and p:
-// 17 B/row, 120.3 MB, about 35.9 us; the axpy variant moves x, the code
+// 17 B/row, 120.3 MB, about 35.9 us (with minv 21 B/row, 148.6 MB, about
+// 44.4 us); the axpy variant moves x, the code
 // byte, y, pprev and xacc read and written: 21 B/row, 148.6 MB, about
 // 44.4 us. 2 flops per stored coefficient are far below any compute limit.
 //
@@ -92,7 +97,8 @@
 //   p = __fadd_rn(r, __fmul_rn(beta, pprev)) once per staged value (the
 //   TPU kernel's `comb_ref`, pallas_dia.py:280-283), 16 bytes at a time
 //   where r and pprev share a phase, then writes the offset-0 slots of its
-//   tile out as p.
+//   tile out as p. With minv a third copy of each buffer holds minv
+//   (2 * pp_shift bytes after it), staged and folded the same way.
 // * A short band sum. A thread sums 4 rows a tile apart by 256
 //   (i, i + 256, ...): each term is one 4- or 8-byte shared load at a fixed
 //   offset from the diagonal's slot, a warp's 32 threads on consecutive
@@ -196,7 +202,7 @@ struct PaDiaParams {
   int nd_spec;
 };
 
-enum { PA_PLAIN = 0, PA_PFOLD = 1, PA_AXPY = 2 };
+enum { PA_PLAIN = 0, PA_PFOLD = 1, PA_AXPY = 2, PA_PFOLDM = 3 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -315,12 +321,14 @@ __device__ __forceinline__ int buffer_at(const PaDiaParams& prm, int k, int rel)
 template <typename T, int MODE>
 __device__ __forceinline__ void stage_step(const PaDiaParams& prm, unsigned char* smem, int k,
                                            long long ts, bool rows, long long no, const T* xp,
-                                           const T* pp, const T* xa, const uint8_t* cpart) {
+                                           const T* pp, const T* xa, const uint8_t* cpart,
+                                           const T* mp) {
   for (int s = 0; s < prm.n_new; ++s) {
     unsigned char* b = smem + buffer_at(prm, k, prm.new_buf[s]);
     const long long g = ts + prm.new_src[s];
     stage_window<T>(b, xp, g, prm.new_len[s], no);
-    if (MODE == PA_PFOLD) stage_window<T>(b + prm.pp_shift, pp, g, prm.new_len[s], no);
+    if (MODE == PA_PFOLD || MODE == PA_PFOLDM) stage_window<T>(b + prm.pp_shift, pp, g, prm.new_len[s], no);
+    if (MODE == PA_PFOLDM) stage_window<T>(b + 2 * prm.pp_shift, mp, g, prm.new_len[s], no);
   }
   if (!rows) return;
   unsigned char* st = smem + prm.stage_at + (k & 1) * prm.stage_bytes;
@@ -488,12 +496,38 @@ __device__ __forceinline__ void fold(T* sr, const T* sq, int ph_r, int ph_q, int
   }
 }
 
+// p = minv * r + beta * pprev over `len` values of a buffer (r at sr, pprev
+// at sq, minv at sm, each from its own 16-byte phase), in place at sr.
+template <typename T>
+__device__ __forceinline__ void fold_minv(T* sr, const T* sq, const T* sm, int ph_r, int ph_q, int ph_m,
+                                          int len, T beta) {
+  using V = typename Vec16<T>::type;
+  constexpr int NV = 16 / (int)sizeof(T);
+  if (ph_r == ph_q && ph_r == ph_m) {
+    V* vr = reinterpret_cast<V*>(sr);
+    const V* vq = reinterpret_cast<const V*>(sq);
+    const V* vm = reinterpret_cast<const V*>(sm);
+    for (int e = threadIdx.x; e < (ph_r + len + NV - 1) / NV; e += blockDim.x) {
+      T a[NV], q[NV], m[NV];
+      unpack(a, vr[e]);
+      unpack(q, vq[e]);
+      unpack(m, vm[e]);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) a[j] = add_rn(mul_rn(m[j], a[j]), mul_rn(beta, q[j]));
+      vr[e] = pack(a);
+    }
+  } else {
+    for (int e = threadIdx.x; e < len; e += blockDim.x)
+      sr[ph_r + e] = add_rn(mul_rn(sm[ph_m + e], sr[ph_r + e]), mul_rn(beta, sq[ph_q + e]));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
-// MODE: PA_PLAIN, PA_PFOLD (scal = beta, vout = p) or PA_AXPY
-// (scal = alpha, vout = xacc updated in place). ND > 0 (plain mode only):
+// MODE: PA_PLAIN, PA_PFOLD (scal = beta, vout = p), PA_PFOLDM (the same
+// with minv) or PA_AXPY (scal = alpha, vout = xacc updated in place). ND > 0 (plain mode only):
 // a select-chain operator of SelectShape<ND>, summed by select_sum; ND 0:
 // any operator, the row-class sums or the run-time select-chain loop.
 template <typename T, int MODE, int ND>
@@ -501,8 +535,9 @@ __global__ void __launch_bounds__(PA_THREADS)
 dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t* __restrict__ no_arr,
                  const uint8_t* __restrict__ codes, const T* __restrict__ x,
                  const T* __restrict__ pprev, const T* __restrict__ scal_ptr,
-                 T* __restrict__ y, T* __restrict__ vout, const int32_t* __restrict__ live) {
-  constexpr bool PFOLD = MODE == PA_PFOLD;
+                 T* __restrict__ y, T* __restrict__ vout, const int32_t* __restrict__ live,
+                 const T* __restrict__ minv) {
+  constexpr bool PFOLD = MODE == PA_PFOLD || MODE == PA_PFOLDM;
   constexpr bool AXPY = MODE == PA_AXPY;
   extern __shared__ __align__(16) unsigned char smem[];
   T* scb = reinterpret_cast<T*>(smem);
@@ -516,6 +551,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
   const T* pp = MODE != PA_PLAIN ? pprev + (long long)p * prm.wx + prm.o0 : nullptr;
   T* yp = y + (long long)p * prm.wy + prm.o0;
   T* vp = MODE != PA_PLAIN ? vout + (long long)p * prm.wx + prm.o0 : nullptr;
+  const T* mp = MODE == PA_PFOLDM ? minv + (long long)p * prm.wx + prm.o0 : nullptr;
   const uint8_t* cpart = codes + (long long)p * prm.n_streams * prm.code_len;
   const T scal = MODE != PA_PLAIN ? scal_ptr[0] : T(0);
   // axpy: the lagged update is written only while the flag is set
@@ -550,7 +586,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
 
   if (steps > 0)
     for (int k = -prm.lead; k <= 0; ++k)
-      stage_step<T, MODE>(prm, smem, k, ts0 + k * tstep, k == 0, no, xp, pp, vp, cpart);
+      stage_step<T, MODE>(prm, smem, k, ts0 + k * tstep, k == 0, no, xp, pp, vp, cpart, mp);
   cp_async_commit();
 
   // the head: the codebook; for the row-class decode, the coefficient of
@@ -590,7 +626,7 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
                 prm.win_src[c];
     }
     if (k + 1 < steps)
-      stage_step<T, MODE>(prm, smem, k + 1, ts + tstep, true, no, xp, pp, vp, cpart);
+      stage_step<T, MODE>(prm, smem, k + 1, ts + tstep, true, no, xp, pp, vp, cpart, mp);
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
@@ -603,8 +639,13 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
         for (int s = 0; s < prm.n_new; ++s) {
           const int b = buffer_at(prm, j, prm.new_buf[s]);
           const long long g = tj + prm.new_src[s];
-          fold(reinterpret_cast<T*>(smem + b), reinterpret_cast<const T*>(smem + b + prm.pp_shift),
-               phase(xp, g), phase(pp, g), prm.new_len[s], scal);
+          if constexpr (MODE == PA_PFOLDM)
+            fold_minv(reinterpret_cast<T*>(smem + b), reinterpret_cast<const T*>(smem + b + prm.pp_shift),
+                      reinterpret_cast<const T*>(smem + b + 2 * prm.pp_shift), phase(xp, g), phase(pp, g),
+                      phase(mp, g), prm.new_len[s], scal);
+          else
+            fold(reinterpret_cast<T*>(smem + b), reinterpret_cast<const T*>(smem + b + prm.pp_shift),
+                 phase(xp, g), phase(pp, g), prm.new_len[s], scal);
         }
       }
       __syncthreads();
@@ -695,7 +736,8 @@ dia_coded_kernel(const PaDiaParams prm, const T* __restrict__ cb, const int32_t*
 template <typename T, int MODE, int ND>
 static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
                          const void* codes, const void* x, const void* pprev,
-                         const void* scal, void* y, void* vout, const void* live, void* stream) {
+                         const void* scal, void* y, void* vout, const void* live, const void* minv,
+                         void* stream) {
   auto kern = dia_coded_kernel<T, MODE, ND>;
   static int n_sm = 0;
   cudaError_t e;
@@ -733,7 +775,7 @@ static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
   dim3 grid((unsigned int)prm->grid_x, (unsigned int)prm->P);
   kern<<<grid, PA_THREADS, prm->smem_bytes, (cudaStream_t)stream>>>(
       *prm, (const T*)cb, (const int32_t*)no, (const uint8_t*)codes,
-      (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout, (const int32_t*)live);
+      (const T*)x, (const T*)pprev, (const T*)scal, (T*)y, (T*)vout, (const int32_t*)live, (const T*)minv);
   return (int)cudaGetLastError();
 }
 
@@ -743,13 +785,17 @@ static int launch_kernel(PaDiaParams* prm, const void* cb, const void* no,
 template <typename T, int MODE>
 static int launch(PaDiaParams* prm, const void* cb, const void* no,
                   const void* codes, const void* x, const void* pprev,
-                  const void* scal, void* y, void* vout, const void* live, void* stream) {
+                  const void* scal, void* y, void* vout, const void* live, void* stream,
+                  const void* minv = nullptr) {
   if constexpr (MODE == PA_PLAIN) {
-    if (prm->nd_spec == 7) return launch_kernel<T, MODE, 7>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
-    if (prm->nd_spec == 27) return launch_kernel<T, MODE, 27>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
+    if (prm->nd_spec == 7)
+      return launch_kernel<T, MODE, 7>(prm, cb, no, codes, x, pprev, scal, y, vout, live, minv, stream);
+    if (prm->nd_spec == 27)
+      return launch_kernel<T, MODE, 27>(prm, cb, no, codes, x, pprev, scal, y, vout, live, minv, stream);
   }
   if (prm->nd_spec != 0) return (int)cudaErrorInvalidValue;
-  return launch_kernel<T, MODE, 0>(prm, cb, no, codes, x, pprev, scal, y, vout, live, stream);
+  if (MODE == PA_PFOLDM && minv == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_kernel<T, MODE, 0>(prm, cb, no, codes, x, pprev, scal, y, vout, live, minv, stream);
 }
 
 // Empty kernels, the launch floor the coded kernel's times are read
@@ -802,6 +848,18 @@ int pa_dia_coded_pfold_f64(PaDiaParams* prm, const void* cb, const void* no,
                            const void* codes, const void* r, const void* pprev,
                            const void* beta, void* y, void* pout, void* stream) {
   return launch<double, PA_PFOLD>(prm, cb, no, codes, r, pprev, beta, y, pout, nullptr, stream);
+}
+
+int pa_dia_coded_pfold_minv_f32(PaDiaParams* prm, const void* cb, const void* no,
+                                const void* codes, const void* r, const void* pprev,
+                                const void* beta, void* y, void* pout, const void* minv, void* stream) {
+  return launch<float, PA_PFOLDM>(prm, cb, no, codes, r, pprev, beta, y, pout, nullptr, stream, minv);
+}
+
+int pa_dia_coded_pfold_minv_f64(PaDiaParams* prm, const void* cb, const void* no,
+                                const void* codes, const void* r, const void* pprev,
+                                const void* beta, void* y, void* pout, const void* minv, void* stream) {
+  return launch<double, PA_PFOLDM>(prm, cb, no, codes, r, pprev, beta, y, pout, nullptr, stream, minv);
 }
 
 int pa_dia_coded_axpy_f32(PaDiaParams* prm, const void* cb, const void* no,

@@ -2,10 +2,10 @@
 PCG, and the geometric multigrid hierarchy."""
 from .gmg import GMGHierarchy, gmg_hierarchy, gmg_solve
 from .poisson_fdm import assemble_poisson, manufactured_solution, poisson_fdm_driver
-from .solvers import cg, decouple_dirichlet, gather_psparse, gather_pvector, pcg
+from .solvers import cg, decouple_dirichlet, gather_psparse, gather_pvector, jacobi_preconditioner, pcg
 
 __all__ = [
     "GMGHierarchy", "assemble_poisson", "cg", "decouple_dirichlet", "gather_psparse",
-    "gather_pvector", "gmg_hierarchy", "gmg_solve", "manufactured_solution", "pcg",
+    "gather_pvector", "gmg_hierarchy", "gmg_solve", "jacobi_preconditioner", "manufactured_solution", "pcg",
     "poisson_fdm_driver",
 ]

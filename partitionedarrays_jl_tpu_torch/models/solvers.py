@@ -1,12 +1,15 @@
 """Distributed CG and PCG over the PData algebra.
 
 The port's copy of the parts of `partitionedarrays_jl_tpu/models/solvers.py`
-that the Poisson and multigrid slices need (solvers.py:290-522, :939-1066,
-:1345-1674): `cg` dispatches a GPU-backend right-hand side to
+that the Poisson and multigrid slices need (solvers.py:45-289, :290-522,
+:939-1066, :1345-1674): `cg` dispatches a GPU-backend right-hand side to
 `parallel/gpu.py:gpu_cg` (fused, standard or pipelined body) and runs the
-host CG loop for anything else; `pcg` sends a `GMGHierarchy`
-preconditioner on the GPU backend to `parallel/gpu_gmg.py:gpu_gmg_pcg`
-and runs the host PCG loop for a callable preconditioner on any backend;
+host CG loop for anything else; `pcg` sends a diagonal preconditioner
+(Jacobi, the default) on the GPU backend to `gpu_cg(minv=)` and a
+`GMGHierarchy` to `parallel/gpu_gmg.py:gpu_gmg_pcg`, and runs the host PCG
+loop for any other callable preconditioner on any backend; both take a
+block of right-hand sides ``B`` (`gpu_block_cg` on the GPU backend, solo
+loops in sequence elsewhere, `_host_block_solve`);
 `decouple_dirichlet` symmetrizes a Dirichlet-identity system;
 `gather_psparse`/`gather_pvector` collect on MAIN, where `PLU` factors.
 """
@@ -58,9 +61,65 @@ def _final_true_rel(A, x, b, rel_est, rs0_norm, tol, force=False):
     return float(r.norm()) / max(1.0, rs0_norm)
 
 
+def _host_block_solve(solve_one, B, X0, column_errors="raise"):
+    """Host multi-RHS driver (solvers.py:45-124): each column runs the solo
+    loop, the per-column semantics the device block program reproduces.
+    Returns ``(xs, info)`` with per-column infos under ``columns`` and
+    the worst-column aggregates at top level. With ``column_errors=
+    "report"`` a column whose solo loop raises a `SolverHealthError` gets
+    a failed-column info (and the error under ``column_health``) while the
+    other columns still run; ``"raise"`` lets the first failure through."""
+    from ..utils.health import SolverHealthError
+
+    K = len(B)
+    check(K >= 1, "block solve: B must hold at least one right-hand side")
+    X0 = list(X0) if X0 is not None else [None] * K
+    check(len(X0) == K, "block solve: X0 must hold one start per RHS")
+    xs, columns, health = [], [], []
+    for bk, x0k in zip(B, X0):
+        try:
+            x, inf = solve_one(bk, x0k)
+        except SolverHealthError as e:
+            if column_errors != "report":
+                raise
+            xs.append(x0k.copy() if x0k is not None else None)
+            columns.append({"iterations": 0, "residuals": [], "converged": False, "status": type(e).__name__})
+            health.append({"status": type(e).__name__, "converged": False, "iterations": 0, "error": e})
+            continue
+        xs.append(x)
+        columns.append(inf)
+        health.append({"status": "ok", "converged": bool(inf["converged"]), "iterations": int(inf["iterations"])})
+    # an unconverged column wins the aggregate over a merely slow one
+    bad_cols = [k for k in range(K) if not columns[k]["converged"]]
+    worst = (max(bad_cols, key=lambda k: columns[k]["iterations"]) if bad_cols
+             else max(range(K), key=lambda k: columns[k]["iterations"]))
+    info = {
+        "iterations": max(c["iterations"] for c in columns),
+        "iterations_per_column": [c["iterations"] for c in columns],
+        "residuals": columns[worst]["residuals"],
+        "converged": not bad_cols,
+        "status": columns[worst]["status"],
+        "columns": columns,
+        "column_health": health,
+        "rhs_batch": K,
+        "cg_body": "host",
+    }
+    return xs, info
+
+
+def _check_block_args(name, b, x0, B, column_errors="raise"):
+    """Validate a multi-RHS call (solvers.py:126-147, the checks that apply
+    to the port's arguments); returns B as a list."""
+    check(column_errors in ("raise", "report"), f"{name}: column_errors is 'raise' or 'report'")
+    check(b is None and x0 is None, f"{name}: pass b/x0 OR the multi-RHS block B/X0, not both")
+    B = list(B)
+    check(len(B) >= 1, f"{name}: B must hold at least one right-hand side")
+    return B
+
+
 def cg(
     A: PSparseMatrix,
-    b: PVector,
+    b: Optional[PVector] = None,
     x0: Optional[PVector] = None,
     tol: float = 1e-8,
     maxiter: Optional[int] = None,
@@ -68,6 +127,9 @@ def cg(
     pipelined: bool = False,
     fused: Optional[bool] = None,
     box: bool = True,
+    B=None,
+    X0=None,
+    column_errors: str = "raise",
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
@@ -75,10 +137,30 @@ def cg(
     body with ``fused=False``; fused and pipelined together raise; the box
     exchange plan on a Cartesian partition unless ``box=False``); any
     other backend runs the host loop below, whose value sequence every
-    device body follows (the three flags are host no-ops)."""
-    from ..parallel.gpu import GPUBackend, gpu_cg
+    device body follows (the three flags are host no-ops).
 
-    check(b is not None, "cg: a right-hand side b is required")
+    ``B`` (a sequence of K right-hand-side PVectors, with optional starts
+    ``X0``) selects the multi-RHS block solve instead of ``b``/``x0``: on
+    the GPU backend one device loop for the whole block (`gpu_block_cg`,
+    fused or standard body), each column following its solo recurrence and
+    freezing where it stops; elsewhere the solo loop column by column.
+    Returns ``(xs, info)``; ``column_errors="report"`` reports a column's
+    non-finite failure under ``info["column_health"]`` instead of raising.
+    ``pipelined`` with ``B`` raises: the lag-1 body is single-RHS only."""
+    from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
+
+    if B is not None:
+        B = _check_block_args("cg", b, x0, B, column_errors)
+        if pipelined:
+            raise ValueError("cg: the pipelined (lag-1) form is single-RHS only; drop pipelined or B")
+        if isinstance(B[0].values.backend, GPUBackend):
+            return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
+                                column_errors=column_errors, box=box)
+        return _host_block_solve(
+            lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose),
+            B, X0, column_errors=column_errors,
+        )
+    check(b is not None, "cg: a right-hand side b (or a block B) is required")
     if isinstance(b.values.backend, GPUBackend):
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
@@ -249,7 +331,7 @@ def decouple_dirichlet(A: PSparseMatrix, b: Optional[PVector] = None):
 
 def pcg(
     A: PSparseMatrix,
-    b: PVector,
+    b: Optional[PVector] = None,
     x0: Optional[PVector] = None,
     minv=None,
     tol: float = 1e-8,
@@ -257,34 +339,59 @@ def pcg(
     verbose: bool = False,
     box: bool = True,
     stencil: bool = True,
+    fused: Optional[bool] = None,
+    B=None,
+    X0=None,
+    column_errors: str = "raise",
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
     ``minv(r) -> z``, such as a `GMGHierarchy` (one V-cycle). On the GPU
-    backend a `GMGHierarchy` built on this `A` runs as the device
-    GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532) on the routes ``box``
-    and ``stencil`` select (`parallel/gpu_gmg.py`); a diagonal ``minv``
-    (Jacobi PCG) is not ported yet (ROADMAP Queue D item 5). Any other
+    backend a diagonal ``minv`` runs Jacobi PCG in the device loop
+    (`gpu_cg(minv=)`, solvers.py:1533-1538: the fused body by default, the
+    standard one with ``fused=False``), and a `GMGHierarchy` built on this
+    `A` runs as the device GMG-PCG (`gpu_gmg_pcg`, solvers.py:1511-1532) on
+    the routes ``box`` and ``stencil`` select (`parallel/gpu_gmg.py`; an
+    explicit ``fused`` there raises: that loop has one body). Any other
     callable, and every preconditioner on the host backend, runs the host
-    loop below, which the device loop follows step for step."""
-    from ..parallel.gpu import GPUBackend
+    loop below, which the device loops follow step for step.
+
+    ``B``/``X0`` select the multi-RHS block solve as in `cg`
+    (solvers.py:1476-1510): with a diagonal ``minv`` on the GPU backend one
+    device loop for the block (`gpu_block_cg`), the shared preconditioner
+    applied per column; a callable ``minv`` (a `GMGHierarchy` included)
+    solves the columns in sequence, each through its solo path."""
+    from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
     from .gmg import GMGHierarchy
 
-    check(b is not None, "pcg: a right-hand side b is required")
     if minv is None:
         minv = jacobi_preconditioner(A)
+    if B is not None:
+        B = _check_block_args("pcg", b, x0, B, column_errors)
+        if isinstance(B[0].values.backend, GPUBackend) and not callable(minv):
+            return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, minv=minv,
+                                fused=fused, column_errors=column_errors, box=box)
+        return _host_block_solve(
+            lambda bk, x0k: pcg(A, bk, x0=x0k, minv=minv, tol=tol, maxiter=maxiter, verbose=verbose,
+                                box=box, stencil=stencil, fused=fused),
+            B, X0, column_errors=column_errors,
+        )
+    check(b is not None, "pcg: a right-hand side b (or a block B) is required")
     if isinstance(b.values.backend, GPUBackend):
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
+            if fused is not None:
+                raise ValueError(
+                    "pcg: the GMG-preconditioned device loop has one PCG body, with no fused "
+                    "variant; drop the fused argument for GMG preconditioning"
+                )
             check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
             return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose,
                                box=box, stencil=stencil)
         if not callable(minv):
-            raise NotImplementedError(
-                "pcg: Jacobi PCG (a diagonal minv) on the GPU backend is not ported "
-                "yet (ROADMAP Queue D item 5); pass a GMGHierarchy or a callable"
-            )
+            return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
+                          box=box, minv=minv)
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose)
 

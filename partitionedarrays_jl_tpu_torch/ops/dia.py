@@ -13,6 +13,17 @@ Replaces the two TPU kernels of `partitionedarrays_jl_tpu/ops/pallas_dia.py`:
   :110) becomes `dia_stream_spmv` (`csrc/dia_stream.cu`): dense
   per-diagonal values of a variable-coefficient band.
 
+K2 also takes a shared ``minv`` (Jacobi PCG's fold ``p = minv*r +
+beta*pprev``, the jnp fold the JAX package runs beside its Pallas kernel,
+`parallel/tpu.py:3284-3286`). The block (multi-RHS) forms stand for the
+XLA forms the JAX package takes on a ``(W, K)`` operand, where its Pallas
+kernels are K = 1 only: `dia_coded_spmm` (`csrc/dia_coded_block.cu`, for
+`_dia_coded_xla` and the block fold, tpu.py:3006-3020, :3284-3290) and
+`dia_stream_spmm` (`csrc/dia_stream_block.cu`, for `_dia_rowsum`,
+tpu.py:2960-2978). Their slabs are ``(P, W, K)``, the K columns of a row
+contiguous, and column k of a product equals the single-vector kernel's
+plain version on column k.
+
 Frame: the port's compact ``(P, W)`` stacked vectors, owned band at
 ``o0``; each part's owned count ``no[p]`` may differ. The result is a whole
 frame: owned rows computed, every other slot exactly 0. Reads outside a
@@ -58,6 +69,8 @@ import torch
 LAUNCHES = {
     "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0, "dia_coded_spmv_axpy": 0,
     "dia_stream_spmv": 0, "box_stencil_apply": 0, "cg_sweep": 0, "vcycle_epilogue": 0,
+    "dia_coded_spmv_pfold_minv": 0, "cg_sweep_precond": 0, "cg_sweep_block": 0,
+    "dia_coded_spmm": 0, "dia_stream_spmm": 0, "block_products": 0,
 }
 
 MAX_DIAGS = 64
@@ -82,8 +95,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources of the port, one shared library each (box_stencil is
 #: the multigrid stencil of ops/stencil.py, cg_sweep the CG update sweep of
 #: ops/sweep.py, vcycle_epilogue the V-cycle's smoother and residual of
-#: ops/epilogue.py)
-SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep", "vcycle_epilogue")
+#: ops/epilogue.py, dia_coded_block and dia_stream_block the block SpMMs)
+SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep", "vcycle_epilogue",
+           "dia_coded_block", "dia_stream_block")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -245,7 +259,8 @@ class WindowPlan:
     ``new_src[s]`` in buffer (k * step_bufs + ``new_buf[s]``) mod
     len(buf_at). Buffer b lies at ``buf_at[b]`` and has ``buf_slots[b]``
     values, the source's 16-byte phase first; in pfold its pprev copy lies
-    ``pp_shift`` bytes after it.
+    ``pp_shift`` bytes after it (in pfold_minv its minv copy 2 *
+    ``pp_shift`` bytes after it).
 
     ``stride`` > 0: a marching plan. A CTA walks one column of a plane
     through consecutive planes, ts(k+1) = ts(k) + stride, staging one plane
@@ -335,10 +350,11 @@ def plan_coded_windows(
     shared memory): the schedule and layout (see `WindowPlan`) at the
     largest tile of TILE_ROWS whose head, buffers and two stages fit
     `budget` bytes; a marching schedule where the windows allow one. mode
-    is "plain", "pfold" (r and pprev buffers) or "axpy" (the tile's pprev
-    and xacc rows too); n_cls the row classes (0: select-chain decode).
+    is "plain", "pfold" (r and pprev buffers), "pfold_minv" (r, pprev and
+    minv buffers) or "axpy" (the tile's pprev and xacc rows too); n_cls the
+    row classes (0: select-chain decode).
     Raises ValueError when even the smallest tile does not fit."""
-    if mode not in ("plain", "pfold", "axpy"):
+    if mode not in ("plain", "pfold", "pfold_minv", "axpy"):
         raise ValueError(f"plan_coded_windows: unknown mode {mode!r}")
     if itemsize not in (4, 8):
         raise ValueError(f"plan_coded_windows: itemsize {itemsize}, the kernel takes float32 or float64")
@@ -374,8 +390,11 @@ def plan_coded_windows(
         for s in buf_slots:
             buf_at.append(at)
             at += _round16(s * itemsize)
-        pp_shift = at - head if mode == "pfold" else 0
-        stage_at = at + pp_shift
+        # pfold: a pprev copy of every buffer pp_shift bytes after it;
+        # pfold_minv: and a minv copy 2 * pp_shift after it
+        copies = {"pfold": 1, "pfold_minv": 2}.get(mode, 0)
+        pp_shift = at - head if copies else 0
+        stage_at = at + copies * pp_shift
         axpy_at, st = (0, 0), 0
         if mode == "axpy":
             row_bytes = _round16((tile + 2 * vec) * itemsize)
@@ -452,16 +471,25 @@ def dia_coded_spmv_plain(op: CodedOperator, x: torch.Tensor, width: int) -> torc
     return y
 
 
+def _fold(r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
+          minv: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CG direction fold ``r + beta*pprev``, or with minv ``minv*r +
+    beta*pprev`` (each product rounded, then the add)."""
+    return (r if minv is None else minv * r) + beta * pprev
+
+
 def dia_coded_spmv_pfold_plain(
     op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
-    width: int,
+    width: int, minv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `dia_coded_spmv_pfold`: the fold of `body_pfold`'s
-    jnp branch (parallel/tpu.py:3289-3290), ``p = r + beta*pprev`` on the
-    owned band, then the band sum of p. Returns (y, p)."""
+    jnp branch (parallel/tpu.py:3284-3290), ``p = r + beta*pprev`` (with
+    ``minv``: ``p = minv*r + beta*pprev``) on the owned band, then the band
+    sum of p. Returns (y, p)."""
     n, o0 = op.n, op.o0
     own = _owned_mask(op, r.device)
-    pb = torch.where(own, r[:, o0 : o0 + n] + beta * pprev[:, o0 : o0 + n], 0)
+    band = slice(o0, o0 + n)
+    pb = torch.where(own, _fold(r[:, band], pprev[:, band], beta, None if minv is None else minv[:, band]), 0)
     p = torch.zeros_like(r)
     p[:, o0 : o0 + n] = pb
     y = r.new_zeros((r.shape[0], width))
@@ -505,6 +533,79 @@ def dia_stream_spmv_plain(
         term = vals[:, d, :] * xp[:, pad + off : pad + off + n]
         acc = term if acc is None else acc + term
     y = x.new_zeros((x.shape[0], width))
+    y[:, o0 : o0 + n] = torch.where(own, acc, 0)
+    return y
+
+
+def _band_sum_block(op: CodedOperator, uo: torch.Tensor) -> torch.Tensor:
+    """`_band_sum` over K columns: uo (P, n, K), zero outside each part's
+    band; each column's terms and order those of `_band_sum`."""
+    n = op.n
+    pad = max(abs(int(o)) for o in op.offsets)
+    up = torch.nn.functional.pad(uo, (0, 0, pad, pad))
+    acc = None
+    for d, off in enumerate(op.offsets):
+        shifted = up[:, pad + off : pad + off + n, :]
+        if op.kk[d] == 1:
+            v = op.cb[:, d, 0:1]
+        else:
+            ci = op.code_row[d]
+            byte = op.codes[:, ci // 2, :n].to(torch.int64)
+            c = (byte >> (4 * (ci % 2))) & 15
+            c = torch.where(c < op.kk[d], c, 0)
+            v = torch.gather(op.cb[:, d, :], 1, c)
+        term = v[:, :, None] * shifted
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def dia_coded_spmm_plain(op: CodedOperator, x: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of `dia_coded_spmm` on the plain mode: x (P, Wx, K) ->
+    y (P, width, K); column k is `dia_coded_spmv_plain` of column k."""
+    n, o0 = op.n, op.o0
+    own = _owned_mask(op, x.device)[:, :, None]
+    xo = torch.where(own, x[:, o0 : o0 + n], 0)
+    y = x.new_zeros((x.shape[0], width, x.shape[2]))
+    y[:, o0 : o0 + n] = torch.where(own, _band_sum_block(op, xo), 0)
+    return y
+
+
+def dia_coded_spmm_pfold_plain(
+    op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor, width: int,
+    minv: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `dia_coded_spmm_pfold`: the block fold ``p = r +
+    beta[k]*pprev`` (with a shared ``minv`` (P, Wx): ``p = minv*r +
+    beta[k]*pprev``) on the owned band, then its band sum. Column k is
+    `dia_coded_spmv_pfold_plain` of column k with beta[k]. Returns (y, p)."""
+    n, o0 = op.n, op.o0
+    own = _owned_mask(op, r.device)[:, :, None]
+    band = slice(o0, o0 + n)
+    mv = None if minv is None else minv[:, band, None]
+    pb = torch.where(own, _fold(r[:, band], pprev[:, band], beta, mv), 0)
+    p = torch.zeros_like(r)
+    p[:, band] = pb
+    y = r.new_zeros((r.shape[0], width, r.shape[2]))
+    y[:, band] = torch.where(own, _band_sum_block(op, pb), 0)
+    return y, p
+
+
+def dia_stream_spmm_plain(
+    vals: torch.Tensor, x: torch.Tensor, offsets: Tuple[int, ...], no: torch.Tensor,
+    o0: int, width: int,
+) -> torch.Tensor:
+    """Plain version of `dia_stream_spmm`: x (P, Wx, K) -> y (P, width, K);
+    column k is `dia_stream_spmv_plain` of column k."""
+    n = vals.shape[-1]
+    own = (torch.arange(n, device=x.device)[None, :] < no.to(x.device)[:, None])[:, :, None]
+    xo = torch.where(own, x[:, o0 : o0 + n], 0)
+    pad = max(abs(int(o)) for o in offsets)
+    xp = torch.nn.functional.pad(xo, (0, 0, pad, pad))
+    acc = None
+    for d, off in enumerate(offsets):
+        term = vals[:, d, :, None] * xp[:, pad + off : pad + off + n, :]
+        acc = term if acc is None else acc + term
+    y = x.new_zeros((x.shape[0], width, x.shape[2]))
     y[:, o0 : o0 + n] = torch.where(own, acc, 0)
     return y
 
@@ -586,6 +687,45 @@ class _StreamParams(ctypes.Structure):
     ]
 
 
+class _SpmmParams(ctypes.Structure):
+    """Mirror of `PaSpmmParams` in csrc/dia_coded_block.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("kmax", ctypes.c_int),
+        ("n_streams", ctypes.c_int),
+        ("code_len", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("K", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        ("off", ctypes.c_int * MAX_DIAGS),
+        ("kk", ctypes.c_int * MAX_DIAGS),
+        ("code_row", ctypes.c_int * MAX_DIAGS),
+        ("KB", ctypes.c_int),
+        ("vec", ctypes.c_int),
+    ]
+
+
+class _StreamSpmmParams(ctypes.Structure):
+    """Mirror of `PaStreamSpmmParams` in csrc/dia_stream_block.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("K", ctypes.c_int),
+        ("off", ctypes.c_int * MAX_DIAGS),
+        ("KB", ctypes.c_int),
+        ("vec", ctypes.c_int),
+    ]
+
+
 class _StencilParams(ctypes.Structure):
     """Mirror of `PaStencilParams` in csrc/box_stencil.cu (the kernel of
     ops/stencil.py)."""
@@ -620,6 +760,10 @@ class _SweepParams(ctypes.Structure):
         ("wv", ctypes.c_longlong),
         ("wq", ctypes.c_longlong),
         ("mode", ctypes.c_int),
+        ("S", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("KB", ctypes.c_int),
+        ("vec", ctypes.c_int),
     ]
 
 
@@ -684,9 +828,14 @@ def build_kernels() -> dict:
     _bind(libs["dia_coded"], "pa_dia_coded", _Params, 6)
     _bind(libs["dia_coded"], "pa_dia_coded_pfold", _Params, 9)
     _bind(libs["dia_coded"], "pa_dia_coded_axpy", _Params, 10)
+    _bind(libs["dia_coded"], "pa_dia_coded_pfold_minv", _Params, 10)
     _bind(libs["dia_stream"], "pa_dia_stream", _StreamParams, 5)
     _bind(libs["box_stencil"], "pa_box_stencil", _StencilParams, 5)
-    _bind(libs["cg_sweep"], "pa_cg_sweep", _SweepParams, 9)
+    _bind(libs["cg_sweep"], "pa_cg_sweep", _SweepParams, 10)
+    _bind(libs["cg_sweep"], "pa_cg_sweep_block", _SweepParams, 10)
+    _bind(libs["cg_sweep"], "pa_block_products", _SweepParams, 4)
+    _bind(libs["dia_coded_block"], "pa_dia_coded_spmm", _SpmmParams, 10)
+    _bind(libs["dia_stream_block"], "pa_dia_stream_spmm", _StreamSpmmParams, 5)
     _bind(libs["vcycle_epilogue"], "pa_vcycle_epilogue", _EpilogueParams, 6)
     for dt in ("f32", "f64"):
         f = getattr(libs["box_stencil"], f"pa_box_stencil_query_{dt}")
@@ -821,33 +970,39 @@ def dia_null_launch(op: Optional[CodedOperator] = None, x: Optional[torch.Tensor
 
 def dia_coded_spmv_pfold(
     op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
-    width: Optional[int] = None,
+    width: Optional[int] = None, minv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CG direction fold riding the SpMV pass: p = r + beta*pprev on
-    the owned band (0 elsewhere) and y = A_oo p. Returns (y, p); p has r's
-    frame, y has `width` slots (default r's width)."""
+    """The CG direction fold riding the SpMV pass: p = r + beta*pprev (with
+    ``minv``, Jacobi PCG's p = minv*r + beta*pprev; minv shares r's frame)
+    on the owned band (0 elsewhere) and y = A_oo p. Returns (y, p); p has
+    r's frame, y has `width` slots (default r's width). Launches count in
+    ``dia_coded_spmv_pfold``, or ``dia_coded_spmv_pfold_minv`` with minv."""
     width = r.shape[1] if width is None else int(width)
     if r.device.type == "cpu":
-        return dia_coded_spmv_pfold_plain(op, r, pprev, beta, width)
+        return dia_coded_spmv_pfold_plain(op, r, pprev, beta, width, minv)
     if r.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmv_pfold: no kernel for device {r.device}")
     beta = beta.reshape(1)
-    dt = _check_cuda(op, width, r, pprev)
+    vecs = (r, pprev) if minv is None else (r, pprev, minv)
+    dt = _check_cuda(op, width, *vecs)
     if beta.device != r.device or beta.dtype != r.dtype:
         raise ValueError("dia_coded_spmv_pfold: beta must be a scalar tensor on r's device, of r's dtype")
-    if pprev.shape != r.shape:
-        raise ValueError("dia_coded_spmv_pfold: pprev and r must share one frame")
+    if any(t.shape != r.shape for t in vecs):
+        raise ValueError("dia_coded_spmv_pfold: pprev (and minv) and r must share one frame")
     y = torch.empty((r.shape[0], width), dtype=r.dtype, device=r.device)
     p = torch.empty_like(r)
-    prm = _params(op, r.shape[1], width, "pfold")
-    fn = getattr(build_kernels()["dia_coded"], f"pa_dia_coded_pfold_{dt}")
-    rc = fn(
-        ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
-        r.data_ptr(), pprev.data_ptr(), beta.data_ptr(), y.data_ptr(), p.data_ptr(),
-        torch.cuda.current_stream(r.device).cuda_stream,
-    )
-    _raise_on(rc, "dia_coded_spmv_pfold")
-    LAUNCHES["dia_coded_spmv_pfold"] += 1
+    prm = _params(op, r.shape[1], width, "pfold" if minv is None else "pfold_minv")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    lib = build_kernels()["dia_coded"]
+    args = (ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(),
+            r.data_ptr(), pprev.data_ptr(), beta.data_ptr(), y.data_ptr(), p.data_ptr())
+    if minv is None:
+        rc = getattr(lib, f"pa_dia_coded_pfold_{dt}")(*args, stream)
+    else:
+        rc = getattr(lib, f"pa_dia_coded_pfold_minv_{dt}")(*args, minv.data_ptr(), stream)
+    key = "dia_coded_spmv_pfold" if minv is None else "dia_coded_spmv_pfold_minv"
+    _raise_on(rc, key)
+    LAUNCHES[key] += 1
     return y, p
 
 
@@ -949,4 +1104,153 @@ def dia_stream_spmv(
     )
     _raise_on(rc, "dia_stream_spmv")
     LAUNCHES["dia_stream_spmv"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the block (multi-RHS) products
+# ---------------------------------------------------------------------------
+
+
+def _check_slabs(name: str, P: int, rows: int, *slabs: torch.Tensor) -> int:
+    """Slabs (P, W >= rows, K), contiguous, on one device, of one float
+    dtype and one K. Returns K."""
+    x = slabs[0]
+    if x.dtype not in _DT:
+        raise TypeError(f"{name}: the kernel takes float32 or float64, got {x.dtype}")
+    for t in slabs:
+        if (t.dim() != 3 or t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
+                or t.shape[0] != P or t.shape[1] < rows or t.shape[2] != x.shape[2]):
+            raise ValueError(f"{name}: slabs must be contiguous (P={P}, W >= {rows}, K) tensors on one device, "
+                             f"of one dtype and K; got {tuple(t.shape)}")
+    if x.shape[2] < 1:
+        raise ValueError(f"{name}: a slab needs at least one column")
+    return int(x.shape[2])
+
+
+def block_columns(K: int) -> int:
+    """Columns a thread (or a CTA of the block sweep) of the block kernels
+    takes: the smallest power of two at least min(K, 8)."""
+    kb = 1
+    while kb < min(K, 8):
+        kb *= 2
+    return kb
+
+
+def block_vec(K: int, *tensors: torch.Tensor) -> bool:
+    """Whether the block kernels move a row's columns as 16-byte vectors:
+    K and the column group (`block_columns`) multiples of the vector, and
+    every slab 16-byte aligned."""
+    nv = 16 // tensors[0].element_size()
+    return K % nv == 0 and block_columns(K) % nv == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _coded_block(name, op, width, x, pprev=None, beta=None, minv=None):
+    """Launch the coded SpMM (`csrc/dia_coded_block.cu`): plain mode with
+    pprev None, else the pfold form. Returns y, or (y, p)."""
+    P = op.cb.shape[0]
+    slabs = (x,) if pprev is None else (x, pprev)
+    K = _check_slabs(name, P, op.o0 + op.n, *slabs)
+    if pprev is not None and pprev.shape != x.shape:
+        raise ValueError(f"{name}: pprev and r must share one slab")
+    if width < op.o0 + op.n:
+        raise ValueError(f"{name}: result width {width} does not hold the owned band at {op.o0} of {op.n} rows")
+    dev, dt = x.device, x.dtype
+    if op.cb.device != dev or op.cb.dtype != dt or not op.cb.is_contiguous():
+        raise ValueError(f"{name}: the codebook must be contiguous, on the slabs' device, of their dtype")
+    if op.no.device != dev or op.no.dtype != torch.int32 or op.codes.device != dev or op.codes.dtype != torch.uint8:
+        raise ValueError(f"{name}: no must be int32 and codes uint8, on the slabs' device")
+    if len(op.offsets) > MAX_DIAGS:
+        raise ValueError(f"{name}: at most {MAX_DIAGS} diagonals")
+    if beta is not None and (beta.device != dev or beta.dtype != dt or tuple(beta.shape) != (K,)
+                             or not beta.is_contiguous()):
+        raise ValueError(f"{name}: beta must be a contiguous ({K},) tensor on the slabs' device, of their dtype")
+    if minv is not None and (minv.device != dev or minv.dtype != dt or not minv.is_contiguous()
+                             or tuple(minv.shape) != tuple(x.shape[:2])):
+        raise ValueError(f"{name}: minv must be a contiguous {tuple(x.shape[:2])} frame on the slabs' device")
+    prm = _SpmmParams()
+    prm.P, prm.D, prm.kmax = P, len(op.offsets), op.cb.shape[2]
+    prm.n_streams, prm.code_len = op.codes.shape[1], op.codes.shape[2]
+    prm.wx, prm.wy, prm.o0, prm.K = x.shape[1], width, op.o0, K
+    prm.mode = 0 if pprev is None else 1 if minv is None else 2
+    for d in range(len(op.offsets)):
+        prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
+    y = torch.empty((P, width, K), dtype=dt, device=dev)
+    p = None if pprev is None else torch.empty_like(x)
+    prm.KB = block_columns(K)
+    prm.vec = int(block_vec(K, *(t for t in (x, pprev, y, p) if t is not None)))
+    fn = getattr(build_kernels()["dia_coded_block"], f"pa_dia_coded_spmm_{_DT[dt]}")
+    rc = fn(
+        ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(), x.data_ptr(),
+        0 if pprev is None else pprev.data_ptr(), 0 if beta is None else beta.data_ptr(),
+        0 if minv is None else minv.data_ptr(), y.data_ptr(), 0 if p is None else p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, name)
+    LAUNCHES["dia_coded_spmm"] += 1
+    return y if p is None else (y, p)
+
+
+def dia_coded_spmm(op: CodedOperator, x: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """Y = A_oo X over K columns: x (P, Wx, K) -> y (P, width, K), the owned
+    band computed and every other slot 0 (width defaults to Wx). The
+    codebook and codes are read once for the K columns."""
+    width = x.shape[1] if width is None else int(width)
+    if x.device.type == "cpu":
+        return dia_coded_spmm_plain(op, x, width)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dia_coded_spmm: no kernel for device {x.device}")
+    return _coded_block("dia_coded_spmm", op, width, x)
+
+
+def dia_coded_spmm_pfold(
+    op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
+    width: Optional[int] = None, minv: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block CG direction fold riding the SpMM pass: p = r +
+    beta[k]*pprev per column k (with a shared ``minv`` (P, Wx): p = minv*r
+    + beta[k]*pprev) on the owned band, 0 elsewhere, and Y = A_oo p.
+    Returns (y, p); launches count in ``dia_coded_spmm``."""
+    width = r.shape[1] if width is None else int(width)
+    if r.device.type == "cpu":
+        return dia_coded_spmm_pfold_plain(op, r, pprev, beta, width, minv)
+    if r.device.type != "cuda":
+        raise RuntimeError(f"dia_coded_spmm_pfold: no kernel for device {r.device}")
+    return _coded_block("dia_coded_spmm_pfold", op, width, r, pprev, beta, minv)
+
+
+def dia_stream_spmm(
+    vals: torch.Tensor, x: torch.Tensor, offsets: Tuple[int, ...], no: torch.Tensor,
+    o0: int, width: Optional[int] = None,
+) -> torch.Tensor:
+    """Y = A_oo X over K columns for a streaming-DIA operand: vals (P, D,
+    N), x (P, Wx, K) -> y (P, width, K), the owned band computed and every
+    other slot 0. Each diagonal's values are read once for the K columns."""
+    width = x.shape[1] if width is None else int(width)
+    if x.device.type == "cpu":
+        return dia_stream_spmm_plain(vals, x, offsets, no, o0, width)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dia_stream_spmm: no kernel for device {x.device}")
+    P, D, n = vals.shape
+    K = _check_slabs("dia_stream_spmm", P, o0 + n, x)
+    if D != len(offsets) or not 1 <= D <= MAX_DIAGS:
+        raise ValueError(f"dia_stream_spmm: {D} value rows for {len(offsets)} offsets (1 to {MAX_DIAGS})")
+    if vals.device != x.device or vals.dtype != x.dtype or not vals.is_contiguous():
+        raise ValueError("dia_stream_spmm: vals must be contiguous, on x's device, of x's dtype")
+    if no.device != x.device or no.dtype != torch.int32 or tuple(no.shape) != (P,):
+        raise ValueError("dia_stream_spmm: no must be (P,) int32 on x's device")
+    if width < o0 + n:
+        raise ValueError(f"dia_stream_spmm: result width {width} does not hold the band at {o0} of {n} rows")
+    prm = _StreamSpmmParams()
+    prm.P, prm.D, prm.n = P, D, n
+    prm.wx, prm.wy, prm.o0, prm.K = x.shape[1], width, o0, K
+    for d in range(D):
+        prm.off[d] = int(offsets[d])
+    y = torch.empty((P, width, K), dtype=x.dtype, device=x.device)
+    prm.KB, prm.vec = block_columns(K), int(block_vec(K, x, y))
+    fn = getattr(build_kernels()["dia_stream_block"], f"pa_dia_stream_spmm_{_DT[x.dtype]}")
+    rc = fn(ctypes.byref(prm), vals.data_ptr(), no.data_ptr(), x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "dia_stream_spmm")
+    LAUNCHES["dia_stream_spmm"] += 1
     return y

@@ -277,13 +277,21 @@ def device_exchange_plan(rows: PRange, backend: GPUBackend, reverse: bool = Fals
     return cache[key]
 
 
+def _slot_index(idx: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """A (P, L) slot index for gather/scatter along dim 1 of xv: as it is
+    for a (P, W) frame, repeated over the columns of a (P, W, K) slab."""
+    return idx if xv.dim() == 2 else idx[..., None].expand(*idx.shape, xv.shape[2])
+
+
 def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
-    """The plan's exchange on a stacked ``(P, W)`` tensor, in place
-    (tpu.py:_shard_exchange): combine ``set`` is the owner -> ghost halo
-    update; ``add`` (over a reversed plan) accumulates ghost contributions
-    into their owners and then zeroes the ghost region. A box plan runs
-    `gpu_box.box_exchange_`; the generic plan runs its colour rounds, the
-    trash slot zeroed after every round."""
+    """The plan's exchange on a stacked ``(P, W)`` tensor, or a ``(P, W,
+    K)`` slab of K columns, in place (tpu.py:_shard_exchange): combine
+    ``set`` is the owner -> ghost halo update; ``add`` (over a reversed
+    plan) accumulates ghost contributions into their owners and then zeroes
+    the ghost region. A box plan runs `gpu_box.box_exchange_`; the generic
+    plan runs its colour rounds, the trash slot zeroed after every round.
+    A slab moves the same slots in the same order for every column, so
+    column k of a slab exchange is the exchange of column k, bit for bit."""
     from .gpu_box import BoxExchangePlan, box_exchange_
 
     check(combine in ("set", "add"), "exchange_: combine is 'set' or 'add'")
@@ -291,11 +299,12 @@ def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
         return box_exchange_(plan, xv, combine)
     trash = plan.layout.trash
     for r in range(plan.R):
-        buf = torch.where(plan.snd_mask[r], xv.gather(1, plan.snd_idx[r]), 0)[plan.src_of[r]]
+        mask = plan.snd_mask[r] if xv.dim() == 2 else plan.snd_mask[r][..., None]
+        buf = torch.where(mask, xv.gather(1, _slot_index(plan.snd_idx[r], xv)), 0)[plan.src_of[r]]
         if combine == "add":
-            xv.scatter_add_(1, plan.rcv_idx[r], buf)
+            xv.scatter_add_(1, _slot_index(plan.rcv_idx[r], xv), buf)
         else:
-            xv.scatter_(1, plan.rcv_idx[r], buf)
+            xv.scatter_(1, _slot_index(plan.rcv_idx[r], xv), buf)
         xv[:, trash] = 0  # keep the trash slot clean
     if combine == "add":
         xv[:, plan.layout.g0 :] = 0  # ghost contributions now live on owners
@@ -620,38 +629,74 @@ def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True) -> De
 
 
 def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
-               plain: bool = False):
+               plain: bool = False, block: bool = False):
     """The stacked SpMV (tpu.py:_spmv_body): the A_oo product first (it
     reads owned slots only), then the halo exchange of the operand, then
     the A_oh contribution on the boundary rows and the ghost region of the
     result zeroed (`_finish`). The operand's ghost slots are refreshed in
     place. A coded operator runs the coded-DIA kernel, a streaming one the
     streaming-DIA kernel (`_dia_rowsum`, tpu.py:2960-2975). ``pfold``
-    gives ``body(r, pprev, beta) -> (A p, p)`` with ``p = r + beta*pprev``;
+    gives ``body(r, pprev, beta, minv=None) -> (A p, p)`` with ``p = r +
+    beta*pprev`` (with ``minv``, Jacobi PCG's ``p = minv*r + beta*pprev``);
     ``axpy`` gives ``body(x, xacc, pprev, alpha) -> (A x, xacc)`` with the
     lagged update ``xacc += alpha*pprev`` applied in place on the owned
     band where the optional device flag ``live`` is not 0
-    (tpu.py:3237-3256; both coded only). ``plain`` runs the plain
+    (tpu.py:3237-3256). On a coded operator both ride the kernel's pass
+    (K2, K3); on a streaming one the fold and the update are eager ops
+    before K4, as the JAX package applies them outside its kernel
+    (tpu.py:3284-3291, :3022-3031). ``block`` gives the same bodies over
+    ``(P, W, K)`` slabs (beta (K,) per column, minv shared), on the block
+    products `dia_coded_spmm` / `dia_stream_spmm`; column k of a block
+    body is the single-vector body of column k. ``plain`` runs the plain
     versions of the kernels on the same tensors (the comparison path)."""
     op = dA.coded
     wy = dA.row_layout.W
     g0 = dA.row_layout.g0
+    o0 = dA.row_layout.o0
     plan = dA.col_plan
-    check(
-        dA.dia_mode == "coded" or not (pfold or axpy),
-        "the fused and pipelined CG bodies need a coded-DIA operator",
-    )
+    check(not (block and axpy), "the pipelined body is single-vector only")
     if dA.dia_mode == "stream":
-        stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
-        o0 = dA.row_layout.o0
-        form = {} if plain else {"form": dA.stream_form}
+        n = dA.stream_vals.shape[-1]
+        own = torch.arange(n, device=dA.stream_vals.device)[None, :] < dA.stream_no.to(torch.int64)[:, None]
+        if block:
+            stream_k = dia.dia_stream_spmm_plain if plain else dia.dia_stream_spmm
+            form = {}
+        else:
+            stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
+            form = {} if plain else {"form": dA.stream_form}
 
         def spmv_k(_op, xv, width):
             return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width, **form)
+
+        def pfold_k(_op, rv, pv, beta, width, minv=None):
+            # beta*pprev, then + r (or + minv*r): the rounding of
+            # `dia._fold`, in two passes over the band; rows past a part's
+            # owned count are 0 in r and pprev, so they fold to 0
+            band = slice(o0, o0 + n)
+            p = torch.empty_like(rv)
+            p[:, :o0] = 0
+            p[:, o0 + n :] = 0
+            pb = p[:, band]
+            torch.mul(pv[:, band], beta, out=pb)
+            if minv is None:
+                pb.add_(rv[:, band])
+            else:
+                pb.add_((minv[:, band, None] if block else minv[:, band]) * rv[:, band])
+            return spmv_k(_op, p, width), p
+
+        def axpy_k(_op, xv, xacc, pprev, alpha, width, live=None):
+            band = slice(o0, o0 + n)
+            on = own if live is None else own & (live.reshape(()) != 0)
+            xb = xacc[:, band]
+            xb.copy_(torch.where(on, xb + alpha * pprev[:, band], xb))
+            return spmv_k(_op, xv, width)
+    elif block:
+        spmv_k = dia.dia_coded_spmm_plain if plain else dia.dia_coded_spmm
+        pfold_k = dia.dia_coded_spmm_pfold_plain if plain else dia.dia_coded_spmm_pfold
     else:
         spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
-    pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
-    axpy_k = dia.dia_coded_spmv_axpy_plain if plain else dia.dia_coded_spmv_axpy
+        pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
+        axpy_k = dia.dia_coded_spmv_axpy_plain if plain else dia.dia_coded_spmv_axpy
 
     def _finish(y, xv):
         exchange_(plan, xv)
@@ -659,17 +704,18 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             # strict left-to-right fold over the ELL row slots
             acc = None
             for l in range(dA.oh_vals.shape[-1]):
-                t = dA.oh_vals[:, :, l] * xv.gather(1, dA.oh_cols[:, :, l])
+                v = dA.oh_vals[:, :, l]
+                t = (v if y.dim() == 2 else v[..., None]) * xv.gather(1, _slot_index(dA.oh_cols[:, :, l], xv))
                 acc = t if acc is None else acc + t
-            y.scatter_add_(1, dA.oh_rows, acc)
+            y.scatter_add_(1, _slot_index(dA.oh_rows, y), acc)
             y[:, g0:] = 0
         return y
 
     def body(xv):
         return _finish(spmv_k(op, xv, wy), xv)
 
-    def body_pfold(rv, pv, beta):
-        y, p = pfold_k(op, rv, pv, beta, wy)
+    def body_pfold(rv, pv, beta, minv=None):
+        y, p = pfold_k(op, rv, pv, beta, wy, minv=minv)
         return _finish(y, p), p
 
     def body_axpy(xv, xacc, pprev, alpha, live=None):
@@ -709,9 +755,39 @@ def _pdot_factory(o0: int, no_max: int):
     return pdot
 
 
+def _block_pdot_factory(o0: int, no_max: int, plain: bool = False):
+    """`_pdot_factory`'s dot per column of ``(P, W, K)`` slabs, returning
+    (K,), each column in the solo order. A reduction over the strided
+    column of a slab is another sum than the solo one's over a contiguous
+    (P, n) product (on the card the reduction's schedule follows the shape,
+    the strides and the pointer's alignment), so the products of all
+    columns are written in one pass into K contiguous (P, n) blocks
+    (`ops/sweep.py:block_products`), each starting on a 64-element boundary
+    as a fresh tensor does; each block is then summed as the solo dot sums
+    its product, and the parts are added left to right. Column k equals
+    the solo dot of column k bit for bit. ``plain`` takes the products'
+    plain version."""
+    from ..ops import sweep as sw
+
+    products = sw.block_products_plain if plain else sw.block_products
+
+    def bdot(a, b):
+        P, K = a.shape[0], a.shape[2]
+        m = P * no_max
+        stride = sw.block_product_stride(P, no_max)
+        buf = products(a, b, o0, no_max)
+        part = torch.stack([buf[k * stride : k * stride + m].view(P, no_max).sum(dim=1) for k in range(K)])
+        acc = part[:, 0]
+        for i in range(1, P):
+            acc = acc + part[:, i]
+        return acc
+
+    return bdot
+
+
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
                pipelined: bool = False, plain: bool = False, graph: bool = True,
-               block: Optional[int] = None) -> Callable:
+               block: Optional[int] = None, precond: bool = False) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``, run as a device-resident loop
     (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
@@ -738,13 +814,24 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     iteration i, at min(i, H - 1)). The returned function names its body
     in ``fn.cg_body``, describes its last run in ``fn.stats`` and keeps its
     `gpu_loop.DeviceLoop` (whose state buffers hold the last run's final
-    state) in ``fn.loop``."""
+    state) in ``fn.loop``.
+
+    ``precond`` gives Jacobi PCG (tpu.py:3634-3649, :4065-4099,
+    :4144-4170), ``fn(b, x0, minv)`` with the inverse diagonal ``minv`` on
+    b's frame: z = minv*r, alpha = r.z / p.q, beta = r.z' / r.z, and the
+    loop also stops where r.z == 0 (a breakdown). The fused body folds
+    ``p = minv*r + beta*pprev`` into the SpMV pass (K2 with minv); the
+    standard body updates ``p = minv*r + beta*p`` eagerly; the sweep takes
+    the r.z and r.r partials together (its precond form). The pipelined
+    body stays unpreconditioned, as in the JAX package."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
     fused = (not pipelined) if fused is None else bool(fused)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
+    if precond and pipelined:
+        raise ValueError("make_cg_fn: the pipelined body is unpreconditioned")
     body = _spmv_body(dA, plain=plain)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain) if fused else None
     body_axpy = _spmv_body(dA, axpy=True, plain=plain) if pipelined else None
@@ -756,10 +843,14 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
 
     def step(S):
         rs, it, armed = S["rs"], S["it"], S["live"]
-        live = armed * ((torch.sqrt(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)).to(torch.int32)
+        go = (torch.sqrt(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)
+        if precond:
+            go = go & (S["rz"] != 0)
+        live = armed * go.to(torch.int32)
         out = dict(S)
+        mv = S["minv"] if precond else None
         if fused:
-            q, p = body_pfold(S["r"], S["pprev"], S["beta"])
+            q, p = body_pfold(S["r"], S["pprev"], S["beta"], minv=mv)
         elif pipelined:
             # the SpMV also applies last iteration's x update, while the
             # previous iteration was live (the flush in the first frozen one)
@@ -768,12 +859,16 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         else:
             p = S["p"]
             q = body(p)
-        alpha = rs / pdot(p, q)
+        rz = S["rz"] if precond else rs
+        alpha = rz / pdot(p, q)
         if pipelined:
             rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max)
+        elif precond:
+            rz_new, rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p, minv=mv)
+            out["rz"] = torch.where(live != 0, rz_new, rz)
         else:
             rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p)
-        beta = rs_new / rs
+        beta = (rz_new if precond else rs_new) / rz
         if fused:
             out["pprev"], out["beta"] = p, beta
         elif pipelined:
@@ -781,12 +876,15 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
             pnew[:, sl] = S["r"][:, sl] + beta * p[:, sl]
             out["pprev"], out["alpha_prev"], out["p"] = p, alpha, pnew
         else:
-            p[:, sl] = S["r"][:, sl] + beta * p[:, sl]
+            z = mv[:, sl] * S["r"][:, sl] if precond else S["r"][:, sl]
+            p[:, sl] = z + beta * p[:, sl]
         return gl.finish_step(out, S, live, rs_new)
 
     loop = gl.DeviceLoop(step, gl.CG_BLOCK if block is None else block, graph)
 
-    def fn(b, x0):
+    def fn(b, x0, minv=None):
+        check((minv is not None) == precond,
+              "make_cg_fn: pass minv exactly when the function was built with precond")
         x = x0.clone()
         q = body(x0.clone())
         r = torch.zeros_like(x)
@@ -797,13 +895,19 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
             "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
             "it": torch.zeros((), dtype=torch.int32, device=x.device),
             "live": torch.ones((), dtype=torch.int32, device=x.device),
-            "hist": gl.history(torch.sqrt(rs0), maxiter), "part": sw.sweep_partials(r, no_max),
+            "hist": gl.history(torch.sqrt(rs0), maxiter),
+            "part": sw.sweep_partials(r, no_max, 2 if precond else None),
         }
+        z = r
+        if precond:
+            z = torch.zeros_like(r)
+            z[:, sl] = minv[:, sl] * r[:, sl]
+            init.update(minv=minv, rz=pdot(r, z))
         if fused:
             init.update(pprev=torch.zeros_like(x), beta=zero)
         else:
             p = torch.zeros_like(x)
-            p[:, sl] = r[:, sl]
+            p[:, sl] = z[:, sl]
             init["p"] = p
         if pipelined:
             init.update(pprev=torch.zeros_like(x), alpha_prev=zero)
@@ -811,14 +915,135 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
 
     fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
+    fn.precond = bool(precond)
     fn.stats = loop.stats  # updated in place by every run
+    fn.loop = loop
+    return fn
+
+
+def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
+                     precond: bool = False, fused: Optional[bool] = None, plain: bool = False,
+                     graph: bool = True, block: Optional[int] = None) -> Callable:
+    """Block (multi-RHS) CG over ``(P, W, K)`` slabs, K = ``rhs_batch``
+    right-hand sides against one operator (tpu.py:make_block_cg_fn,
+    :4362-5020, its fused and standard bodies, with and without
+    ``precond``): ``fn(b, x0, minv=None) -> (x, rs, rs0, iterations,
+    history)`` with x (P, W, K), rs and rs0 (K,) device tensors, the
+    per-column iterations a (K,) int array and the (H, K) history, NaN past
+    each column's freeze. Every iteration streams the operator once for
+    the K columns (`dia_coded_spmm` / `dia_stream_spmm`, the fused body's
+    fold riding the coded product), exchanges (P, W, K) slabs and sweeps
+    all columns in one `cg_sweep_block` launch; the dots write their
+    products once, column by column (`ops/sweep.py:block_products`).
+
+    Each column follows the textbook single-vector recurrence of
+    `make_cg_fn` exactly: its products, exchanges, dots (`_block_pdot_factory`)
+    and sweep partials are those of the solo solve of that column, in the
+    same order, so column k takes the solo solve's iterations and, at K =
+    1, its values bit for bit. A column is active while its solo loop would
+    run (sqrt(rs) > tol*max(1, sqrt(rs0)), rs finite, r.z != 0 with
+    precond, it < maxiter); an inactive column is frozen, not removed: its
+    alpha is 0, the sweep writes none of its state, its scalars are kept
+    by ``torch.where`` (tpu.py:4466-4471), and its direction is refolded
+    with beta 0 so that nothing of it grows while it waits. The device
+    loop (`gpu_loop.DeviceLoop`, blocks of ``block`` iterations, a CUDA
+    graph on the card unless ``graph=False``) runs while some column is
+    active and ``it < maxiter``."""
+    from . import gpu_loop as gl
+    from ..ops import sweep as sw
+
+    K = int(rhs_batch)
+    check(K >= 1, "make_block_cg_fn: rhs_batch must be >= 1")
+    fused = True if fused is None else bool(fused)
+    body = _spmv_body(dA, plain=plain, block=True)
+    body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True) if fused else None
+    sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
+    o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
+    sl = slice(o0, o0 + no_max)
+    bdot = _block_pdot_factory(o0, no_max, plain)
+    stop_it = gl.stop_bound(maxiter)
+
+    def step(S):
+        rs, it, armed = S["rs"], S["it"], S["live"]
+        rz = S["rz"] if precond else rs
+        go = (torch.sqrt(rs) > S["thr"]) & torch.isfinite(rs) & (it < stop_it) & (armed != 0)
+        if precond:
+            go = go & (rz != 0)
+        act = go.to(torch.int32)
+        on = act != 0
+        live = act.amax()
+        out = dict(S)
+        mv = S["minv"] if precond else None
+        if fused:
+            q, p = body_pfold(S["r"], S["pprev"], torch.where(on, S["beta"], 0), minv=mv)
+        else:
+            p = S["p"]
+            q = body(p)
+        alpha = torch.where(on, rz / bdot(p, q), 0)
+        if precond:
+            rz_new, rs_new = sweep(S["r"], q, alpha, act, S["part"], o0, no_max, x=S["x"], p=p, minv=mv)
+            out["rz"] = torch.where(on, rz_new, rz)
+        else:
+            rs_new = sweep(S["r"], q, alpha, act, S["part"], o0, no_max, x=S["x"], p=p)
+        beta = (rz_new if precond else rs_new) / rz
+        if fused:
+            out["pprev"], out["beta"] = p, torch.where(on, beta, S["beta"])
+        else:
+            z = mv[:, sl, None] * S["r"][:, sl] if precond else S["r"][:, sl]
+            p[:, sl] = z + torch.where(on, beta, 0) * p[:, sl]
+        out.update(rs=torch.where(on, rs_new, rs), it=it + live, itk=S["itk"] + act, live=live)
+        gl.record(S["hist"], out["it"], act, torch.sqrt(rs_new))
+        return out
+
+    loop = gl.DeviceLoop(step, gl.CG_BLOCK if block is None else block, graph)
+
+    def fn(b, x0, minv=None):
+        check(tuple(b.shape) == tuple(x0.shape) and b.dim() == 3 and b.shape[2] == K,
+              f"block cg: operands laid out {tuple(b.shape)}/{tuple(x0.shape)}, the function expects "
+              f"(P, W, {K}) slabs in the matrix's column layout")
+        check((minv is not None) == precond,
+              "make_block_cg_fn: pass minv exactly when the function was built with precond")
+        x = x0.clone()
+        q = body(x0.clone())
+        r = torch.zeros_like(x)
+        r[:, sl] = b[:, sl] - q[:, sl]
+        rs0 = bdot(r, r)
+        dev = x.device
+        init = {
+            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "it": torch.zeros((), dtype=torch.int32, device=dev),
+            "itk": torch.zeros((K,), dtype=torch.int32, device=dev),
+            "live": torch.ones((), dtype=torch.int32, device=dev),
+            "hist": gl.history(torch.sqrt(rs0), maxiter),
+            "part": sw.sweep_partials(r, no_max, 2 * K if precond else K),
+        }
+        z = r
+        if precond:
+            z = torch.zeros_like(r)
+            z[:, sl] = minv[:, sl, None] * r[:, sl]
+            init.update(minv=minv, rz=bdot(r, z))
+        if fused:
+            init.update(pprev=torch.zeros_like(x), beta=torch.zeros((K,), dtype=x.dtype, device=dev))
+        else:
+            p = torch.zeros_like(x)
+            p[:, sl] = z[:, sl]
+            init["p"] = p
+        S, _ = loop.run(init)
+        return (S["x"].clone(), S["rs"].clone(), rs0, S["itk"].cpu().numpy().astype(np.int64),
+                S["hist"].cpu().numpy())
+
+    fn.cg_body = "fused" if fused else "standard"
+    fn.precond = bool(precond)
+    fn.rhs_batch = K
+    fn.stats = loop.stats
     fn.loop = loop
     return fn
 
 
 def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
     """b lives on A.rows (no ghosts); the CG keeps every vector in the
-    cols layout (same owned gids). Restack b's owned values there."""
+    cols layout (same owned gids). Restack b's owned values there (also
+    the staging of a Jacobi minv: its owned inverse diagonal)."""
     layout = dA.col_layout
     stacked = np.zeros((layout.P, layout.W), dtype=b.dtype)
     for p, (iset, vals) in enumerate(zip(b.rows.partition.part_values(), b.values.part_values())):
@@ -826,15 +1051,32 @@ def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
     return torch.from_numpy(stacked).to(dA.backend.device)
 
 
+def _block_on_cols_layout(Bs, dA: DeviceMatrix, with_ghosts: bool = False) -> torch.Tensor:
+    """K column PVectors as one ``(P, W, K)`` slab in the matrix's column
+    layout (tpu.py:6004): the owned values, and with ``with_ghosts`` the
+    ghost slots too (start vectors that carry a halo)."""
+    layout = dA.col_layout
+    dt = np.result_type(*[b.dtype for b in Bs])
+    stacked = np.zeros((layout.P, layout.W, len(Bs)), dtype=dt)
+    for k, b in enumerate(Bs):
+        for p, (iset, vals) in enumerate(zip(b.rows.partition.part_values(), b.values.part_values())):
+            vals = np.asarray(vals)
+            stacked[p, layout.o0 : layout.o0 + iset.num_oids, k] = _owned(iset, vals)
+            if with_ghosts:
+                stacked[p, layout.hid_slots[p], k] = _ghost(iset, vals)
+    return torch.from_numpy(stacked).to(dA.backend.device)
+
+
 def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
                 verbose: bool, solve: Callable, name: str, box: bool = True,
-                **extra) -> Tuple[PVector, dict]:
+                minv: Optional[PVector] = None, **extra) -> Tuple[PVector, dict]:
     """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
-    the column layout of A's lowering for ``box``, run ``solve(b, x0) ->
-    (x, rs, rs0, it, history)``, lift the result back to a host PVector
-    and build the info dict: the history cut to ``it + 1`` entries (at
-    most its length), ``device_loop`` the solve's `fn.stats` (loop form,
-    block, device iterations), and ``extra`` keys merged in."""
+    the column layout of A's lowering for ``box`` (and a Jacobi ``minv``,
+    its owned values), run ``solve(b, x0[, minv]) -> (x, rs, rs0, it,
+    history)``, lift the result back to a host PVector and build the info
+    dict: the history cut to ``it + 1`` entries (at most its length),
+    ``device_loop`` the solve's `fn.stats` (loop form, block, device
+    iterations), and ``extra`` keys merged in."""
     from ..models.solvers import _final_true_rel
 
     backend = b.values.backend
@@ -843,7 +1085,8 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
     x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
-    x_data, rs, rs0, it, hist = solve(db, dx0.data)
+    args = (db, dx0.data) if minv is None else (db, dx0.data, _b_on_cols_layout(minv, dA).to(db.dtype))
+    x_data, rs, rs0, it, hist = solve(*args)
     hist = hist[: min(it + 1, len(hist))]  # entries past the last iteration are NaN
     x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
     rs, rs0 = float(rs), float(rs0)
@@ -873,19 +1116,129 @@ def gpu_cg(
     pipelined: bool = False,
     plain: bool = False,
     box: bool = True,
+    minv: Optional[PVector] = None,
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
-    ``pipelined``, the textbook body with ``fused=False``. ``plain=True``
-    runs the kernels' plain versions on the card instead (the comparison
-    path of chip_smoke.py). ``box=False`` lowers A on the generic layout
-    and exchange plan instead of the box ones. The info dict records the
-    body under ``cg_body``."""
+    ``pipelined``, the textbook body with ``fused=False``; with a diagonal
+    ``minv`` (an inverse-diagonal PVector over A.cols) Jacobi PCG in the
+    fused or the standard body. ``plain=True`` runs the kernels' plain
+    versions on the card instead (the comparison path of chip_smoke.py).
+    ``box=False`` lowers A on the generic layout and exchange plan instead
+    of the box ones. The info dict records the body under ``cg_body``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     solve = make_cg_fn(
         device_matrix(A, backend, box), tol, int(maxiter), fused=fused, pipelined=pipelined,
-        plain=plain,
+        plain=plain, precond=minv is not None,
     )
-    return _run_krylov(A, b, x0, tol, verbose, solve, "cg", box=box, cg_body=solve.cg_body)
+    name = "pcg" if minv is not None else "cg"
+    return _run_krylov(A, b, x0, tol, verbose, solve, name, box=box, minv=minv, cg_body=solve.cg_body)
+
+
+def gpu_block_cg(
+    A: PSparseMatrix,
+    B,
+    X0=None,
+    tol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    verbose: bool = False,
+    minv: Optional[PVector] = None,
+    fused: Optional[bool] = None,
+    column_errors: str = "raise",
+    plain: bool = False,
+    box: bool = True,
+) -> Tuple[list, dict]:
+    """Device block (multi-RHS) CG on the GPU backend, the counterpart of
+    `tpu_block_cg` / `_tpu_block_cg_impl` (tpu.py:6025-6275): solve ``A x_k
+    = b_k`` for every right-hand side in ``B`` (PVectors over A.rows) in
+    one device loop (`make_block_cg_fn`), the shared diagonal ``minv``
+    preconditioning every column. Returns ``(xs, info)``: the K solutions
+    and an info dict with one krylov info per column under ``columns``
+    (each column's trajectory its solo `gpu_cg` trajectory), the
+    worst-column aggregates, ``iterations_per_column``, ``rhs_batch``,
+    ``cg_body`` and ``column_health`` (a ``{"status", "converged",
+    "iterations"}`` verdict per column, status ``"ok"`` or
+    ``"nonfinite"``). ``column_errors="raise"`` raises `NonFiniteError`
+    naming the columns whose residual is not finite; ``"report"`` marks
+    them in their column info and verdict and raises nothing."""
+    from ..models.solvers import _final_true_rel
+    from ..utils.health import NonFiniteError
+
+    check(column_errors in ("raise", "report"), "gpu_block_cg: column_errors is 'raise' or 'report'")
+    B = list(B)
+    K = len(B)
+    check(K >= 1, "gpu_block_cg: B must hold at least one right-hand side")
+    backend = B[0].values.backend
+    check(isinstance(backend, GPUBackend), "gpu_block_cg needs GPU-backend PVectors")
+    maxiter = int(maxiter if maxiter is not None else 4 * A.rows.ngids)
+    dt = np.result_type(*[b.dtype for b in B])
+    name = "block-pcg" if minv is not None else "block-cg"
+    dA = device_matrix(A, backend, box)
+    solve = make_block_cg_fn(dA, tol, maxiter, K, precond=minv is not None, fused=fused, plain=plain)
+    floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
+    db = _block_on_cols_layout(B, dA)
+    if X0 is None:
+        X0 = [PVector.full(0.0, A.cols, dtype=dt) for _ in range(K)]
+    else:
+        X0 = list(X0)
+        check(len(X0) == K, "gpu_block_cg: X0 must hold one start per RHS")
+    dx0 = _block_on_cols_layout(X0, dA, with_ghosts=True).to(db.dtype)
+    args = (db, dx0) if minv is None else (db, dx0, _b_on_cols_layout(minv, dA).to(db.dtype))
+    x_data, rs, rs0, itk, hist = solve(*args)
+    rs = rs.cpu().numpy().astype(np.float64)
+    rs0 = rs0.cpu().numpy().astype(np.float64)
+    xs, columns = [], []
+    for k in range(K):
+        x = DeviceVector(x_data[..., k].contiguous(), A.cols, dA.col_layout, backend).to_pvector()
+        xs.append(x)
+        it_k = int(itk[k])
+        residuals = hist[: min(it_k + 1, hist.shape[0]), k]
+        if verbose:
+            for i, rv in enumerate(residuals[1:], start=1):
+                print(f"{name} col={k} it={i} residual={rv:.3e}")
+        columns.append(krylov_info(
+            it_k, residuals, bool(np.sqrt(rs[k]) <= tol * max(1.0, np.sqrt(rs0[k]))), tol, dt, floor_warned,
+            final_rel=_final_true_rel(
+                A, x, B[k], np.sqrt(rs[k]) / max(1.0, np.sqrt(rs0[k])), np.sqrt(rs0[k]), tol,
+                force=floor_warned,
+            ),
+        ))
+    bad = [k for k in range(K) if not np.isfinite(rs[k])]
+    column_health = [
+        {"status": "nonfinite" if k in bad else "ok", "converged": bool(columns[k]["converged"]),
+         "iterations": int(itk[k])}
+        for k in range(K)
+    ]
+    if bad:
+        if column_errors == "report":
+            for k in bad:
+                columns[k]["status"] = "nonfinite"
+                columns[k]["converged"] = False
+        else:
+            raise NonFiniteError(
+                f"{name}: non-finite residual in column(s) {bad}: those columns' solver state was "
+                "NaN/Inf-poisoned (each froze one iteration after the poison entered; the other "
+                "columns completed normally)",
+                diagnostics={"context": name, "columns": bad, "iterations": [int(itk[k]) for k in bad],
+                             "rs": [float(rs[k]) for k in bad]},
+            )
+    # an unconverged column wins the aggregate over a merely slow one
+    bad_cols = [k for k in range(K) if not columns[k]["converged"]]
+    worst = max(bad_cols, key=lambda k: int(itk[k])) if bad_cols else int(np.argmax(itk))
+    info = {
+        "iterations": int(itk.max()),
+        "iterations_per_column": [int(v) for v in itk],
+        "residuals": columns[worst]["residuals"],
+        "converged": not bad_cols,
+        "status": columns[worst]["status"],
+        "columns": columns,
+        "column_health": column_health,
+        "rhs_batch": K,
+        "cg_body": solve.cg_body,
+        "device_loop": dict(solve.stats),
+    }
+    if floor_warned:
+        info["tol_below_dtype_floor"] = True
+    return xs, info

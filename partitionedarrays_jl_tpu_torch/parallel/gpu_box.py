@@ -342,17 +342,19 @@ class BoxExchangePlan:
 
 def box_exchange_(plan: BoxExchangePlan, xv: torch.Tensor, combine: str) -> torch.Tensor:
     """The box plan's exchange on a stacked, contiguous ``(P, W)`` tensor,
-    in place (tpu_box.py:shard_box_exchange). Combine ``set`` (a forward
-    plan): the senders' slabs copied into the receivers' segments, the
-    uncovered ghost slots zeroed. Combine ``add`` (a reversed plan): the
-    receivers' real segment slots added into the senders' owned slots,
-    then the ghost region zeroed."""
+    or a ``(P, W, K)`` slab of K columns, in place
+    (tpu_box.py:shard_box_exchange). Combine ``set`` (a forward plan): the
+    senders' slabs copied into the receivers' segments, the uncovered ghost
+    slots zeroed. Combine ``add`` (a reversed plan): the receivers' real
+    segment slots added into the senders' owned slots, then the ghost
+    region zeroed. A slab's slots move as rows of K values, in the same
+    order, so column k is the exchange of column k bit for bit."""
     check(
         plan.reverse_mode == (combine == "add"),
         "box exchange: combine mode does not match the plan direction; use "
         "plan.reverse() for ghost -> owner assembly",
     )
-    flat = xv.view(-1)
+    flat = xv.view(-1) if xv.dim() == 2 else xv.view(-1, xv.shape[2])
     if not plan.reverse_mode:
         if len(plan.src):
             flat.index_copy_(0, plan.dst, flat.index_select(0, plan.src))

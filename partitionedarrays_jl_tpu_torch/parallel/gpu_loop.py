@@ -26,6 +26,13 @@ return a new tensor under its key; at the end of a block every rebound
 key is copied back into its buffer. The returned state is the buffers:
 the caller copies what it returns, since the next run overwrites them.
 
+Block (multi-RHS) solves (`parallel/gpu.py:make_block_cg_fn`) carry per-
+column state in the same loop (tpu.py:4473-4500): a (K,) int32 ``act``
+mask computed at the top of every step (a column is active while its solo
+loop would run), per-column iteration counts ``itk`` (K,) and an (H, K)
+history, NaN past each column's freeze. Their ``live`` is "some column
+active and it < maxiter", so capture and replay are the same.
+
 Launch counts: a wrapper counts a launch in `dia.LAUNCHES` when it is
 called, and a capture calls every wrapper of the block without running
 it. So the counts a capture adds are taken back and kept as the graph's
@@ -55,19 +62,22 @@ State = Dict[str, torch.Tensor]
 
 def history(h0: torch.Tensor, maxiter: int) -> torch.Tensor:
     """The fixed-shape residual history of a solve: H = min(maxiter + 1,
-    HIST_MAX) entries, NaN but for entry 0, ``h0``."""
-    hist = torch.full((min(int(maxiter) + 1, HIST_MAX),), math.nan, dtype=h0.dtype, device=h0.device)
+    HIST_MAX) entries, NaN but for entry 0, ``h0`` (a scalar, or (K,) for
+    a block solve: an (H, K) history)."""
+    hist = torch.full((min(int(maxiter) + 1, HIST_MAX),) + tuple(h0.shape), math.nan, dtype=h0.dtype,
+                      device=h0.device)
     hist[0] = h0
     return hist
 
 
 def record(hist: torch.Tensor, it: torch.Tensor, live: torch.Tensor, value: torch.Tensor) -> None:
-    """Write ``value`` at ``min(it, H - 1)`` of the history, in place, where
-    ``live`` (it is the count after the step); a frozen step writes back the
-    entry it finds."""
+    """Write ``value`` at row ``min(it, H - 1)`` of the history, in place,
+    where ``live`` (it is the count after the step; for a block history
+    ``live`` and ``value`` are (K,), a flag and a value a column); a frozen
+    step (column) writes back the entry it finds."""
     idx = torch.clamp(it, max=hist.shape[0] - 1).to(torch.int64).reshape(1)
-    keep = hist.index_select(0, idx)
-    hist.index_copy_(0, idx, torch.where(live.reshape(1) != 0, value.reshape(1), keep))
+    keep = hist.index_select(0, idx)[0]
+    hist.index_copy_(0, idx, torch.where(live != 0, value, keep).unsqueeze(0))
 
 
 def finish_step(out: State, S: State, live: torch.Tensor, rs_new: torch.Tensor) -> State:

@@ -749,3 +749,262 @@ def test_vcycle_kernels_match_plain_vcycle(ns, grid, dtype, kw):
 
     equal, launches, L = pt.prun(driver, pt.GPUBackend(), grid)
     assert equal and launches == 3 * L
+
+
+# ---------------------------------------------------------------------------
+# Jacobi PCG and block CG: K2 with minv, the precond and block sweeps, the
+# block SpMMs, and the loops
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["same-phase", "minv-moved"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["select", "class", "class4"])
+def test_pfold_minv_kernel_matches_plain(mode, dtype, shape, moved):
+    """K2 with minv (p = minv*r + beta*pprev riding the SpMV) against its
+    plain version, with minv at r's 16-byte phase (the vector fold) and
+    at another one (the value-by-value fold); y and p equal, nothing
+    outside the bands."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    op = _operator(mode, dtype, rng, *shape)
+    w = op.o0 + op.n + 50
+    r, pprev, minv = (torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) for _ in range(3))
+    minv = _moved(minv, moved)
+    beta = torch.tensor(0.375, dtype=dtype, device="cuda")
+    dia.reset_launches()
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, w + 3, minv=minv)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_coded_spmv_pfold_minv"] == 1 and dia.LAUNCHES["dia_coded_spmv_pfold"] == 0
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, w + 3, minv=minv)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    for v in (yk, pk):
+        assert not _outside(op, v).any()
+
+
+@pytest.mark.parametrize("live", [0, 1])
+@pytest.mark.parametrize("n", [1, 2049, 100003], ids=["n1", "n2049", "n100003"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_precond_sweep_kernel_matches_plain(dtype, n, live):
+    """The sweep's precond form against its plain version on three stacked
+    parts: x, r, both series of partials, rz and rs equal; the flag 0
+    writes nothing."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(n + 1)
+    P, o0 = 3, 5
+
+    def mk(w):
+        return torch.from_numpy(rng.standard_normal((P, w))).to("cuda", dtype)
+
+    x, r, p, minv, q = mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 2)
+    part = torch.from_numpy(rng.standard_normal((P, 2, sw.chunks(n))) ** 2).to("cuda", dtype)
+    alpha = torch.tensor(-0.4375, dtype=dtype, device="cuda")
+    flag = torch.tensor(live, dtype=torch.int32, device="cuda")
+    xk, rk, pk = x.clone(), r.clone(), part.clone()
+    xp, rp, pp = x.clone(), r.clone(), part.clone()
+    dia.reset_launches()
+    rz_k, rs_k = sw.cg_sweep(rk, q, alpha, flag, pk, o0, n, x=xk, p=p, minv=minv)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["cg_sweep_precond"] == 1 and dia.LAUNCHES["cg_sweep"] == 0
+    rz_p, rs_p = sw.cg_sweep_plain(rp, q, alpha, flag, pp, o0, n, x=xp, p=p, minv=minv)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(pk, pp)
+    assert torch.equal(rz_k, rz_p) and torch.equal(rs_k, rs_p)
+    if not live:
+        assert torch.equal(xk, x) and torch.equal(rk, r) and torch.equal(pk, part)
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "r-moved"])
+@pytest.mark.parametrize("with_minv", [False, True], ids=["cg", "jacobi"])
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 11, 12])
+@pytest.mark.parametrize("n", [2049, 100003], ids=["n2049", "n100003"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_sweep_kernel_matches_plain(dtype, n, K, with_minv, moved):
+    """The block sweep against its plain version on three stacked parts
+    (the band at an odd offset, q in a narrower frame), every other column
+    frozen: x, r, the partials and the folds equal, a frozen column
+    untouched, and each active column equal to the solo sweep of that
+    column; rows as 16-byte vectors where K allows and the slabs are
+    aligned, one value at a time with r moved off alignment."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(K * 7 + n)
+    P, o0 = 3, 5
+
+    def mk(w, k=K):
+        return torch.from_numpy(rng.standard_normal((P, w, k))).to("cuda", dtype)
+
+    x, r, p, q = mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 7), mk(o0 + n + 2)
+    r = _moved(r, moved)
+    nv = 16 // r.element_size()
+    assert dia.block_vec(K, r, q, x, p) == (moved == 0 and K % nv == 0 and dia.block_columns(K) % nv == 0)
+    minv = mk(o0 + n + 7, 1)[..., 0].contiguous() if with_minv else None
+    S = 2 * K if with_minv else K
+    part = torch.from_numpy(rng.standard_normal((P, S, sw.chunks(n))) ** 2).to("cuda", dtype)
+    alpha = torch.from_numpy(rng.standard_normal(K)).to("cuda", dtype)
+    act = torch.tensor([(k + 1) % 2 for k in range(K)], dtype=torch.int32, device="cuda")
+    xk, rk, pk = x.clone(), r.clone(), part.clone()
+    xp, rp, pp = x.clone(), r.clone(), part.clone()
+    dia.reset_launches()
+    got = sw.cg_sweep_block(rk, q, alpha, act, pk, o0, n, x=xk, p=p, minv=minv)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["cg_sweep_block"] == 1
+    want = sw.cg_sweep_block_plain(rp, q, alpha, act, pp, o0, n, x=xp, p=p, minv=minv)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(pk, pp)
+    for g, w in zip(got if with_minv else (got,), want if with_minv else (want,)):
+        assert torch.equal(g, w)
+    for k in range(K):
+        if not act[k]:
+            assert torch.equal(xk[..., k], x[..., k]) and torch.equal(rk[..., k], r[..., k])
+            continue
+        xs, rs_ = x[..., k].contiguous(), r[..., k].contiguous()
+        solo_part = (part[:, 2 * k : 2 * k + 2] if with_minv else part[:, k]).contiguous()
+        one = torch.ones((), dtype=torch.int32, device="cuda")
+        solo = sw.cg_sweep(rs_, q[..., k].contiguous(), alpha[k].clone(), one, solo_part, o0, n, x=xs,
+                           p=p[..., k].contiguous(), minv=minv)
+        assert torch.equal(xs, xk[..., k]) and torch.equal(rs_, rk[..., k])
+        if with_minv:
+            assert torch.equal(solo[0], got[0][k]) and torch.equal(solo[1], got[1][k])
+        else:
+            assert torch.equal(solo, got[k])
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "x-moved"])
+@pytest.mark.parametrize("form", ["plain", "pfold", "pfold_minv"])
+@pytest.mark.parametrize("K", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("shape", [(7, 25, 3), (27, 24, 1), (7, 41, 0)], ids=["7pt-n25-o03", "27pt-n24-o01", "7pt-n41-o00"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["select", "class"])
+def test_coded_spmm_matches_plain(mode, dtype, shape, K, form, moved):
+    """The coded SpMM in each form against its plain version on two parts
+    of unequal owned counts (slabs wider than the band), rows as 16-byte
+    vectors where K allows and the slabs are aligned, else (x moved off
+    alignment) one value at a time; column k also equal to K1 / K2's plain
+    version on column k."""
+    _need_card()
+    rng = np.random.default_rng(K + shape[1])
+    op = _operator(mode, dtype, rng, *shape)
+    w = op.o0 + op.n + 50
+
+    def mk(k=K):
+        return torch.from_numpy(rng.standard_normal((2, w, k))).to("cuda", dtype)
+
+    x, pprev = _moved(mk(), moved), mk()
+    beta = torch.from_numpy(rng.standard_normal(K)).to("cuda", dtype)
+    minv = mk(1)[..., 0].contiguous() if form == "pfold_minv" else None
+    dia.reset_launches()
+    if form == "plain":
+        got = (dia.dia_coded_spmm(op, x, w + 3),)
+        want = (dia.dia_coded_spmm_plain(op, x, w + 3),)
+    else:
+        got = dia.dia_coded_spmm_pfold(op, x, pprev, beta, w + 3, minv=minv)
+        want = dia.dia_coded_spmm_pfold_plain(op, x, pprev, beta, w + 3, minv=minv)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_coded_spmm"] == 1
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    for k in range(K):
+        xk = x[..., k].contiguous()
+        if form == "plain":
+            assert torch.equal(got[0][..., k], dia.dia_coded_spmv_plain(op, xk, w + 3))
+        else:
+            y1, p1 = dia.dia_coded_spmv_pfold_plain(op, xk, pprev[..., k].contiguous(), beta[k], w + 3, minv=minv)
+            assert torch.equal(got[0][..., k], y1) and torch.equal(got[1][..., k], p1)
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("rows", [13824, 16 * 1024 + 1], ids=["n13824", "n16385"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [7, 27])
+def test_stream_spmm_matches_plain(D, dtype, rows, K):
+    """The streaming SpMM against its plain version: two parts of unequal
+    owned counts, the band at o0 = 2, a result frame wider than the band,
+    the values and the slab (rows one value at a time) at another 16-byte
+    phase too; column k equal to K4's plain version on column k."""
+    _need_card()
+    rng = np.random.default_rng(D + rows + K)
+    offsets = _stream_offsets(D, 40)
+    vals = torch.from_numpy(rng.standard_normal((2, D, rows))).to("cuda", dtype)
+    no = torch.tensor([rows, rows - 777], dtype=torch.int32, device="cuda")
+    x = torch.from_numpy(rng.standard_normal((2, rows + 9, K))).to("cuda", dtype)
+    want = dia.dia_stream_spmm_plain(vals, x, offsets, no, 2, rows + 13)
+    for v, xv in ((vals, x), (_moved(vals, 1), x), (vals, _moved(x, 1))):
+        dia.reset_launches()
+        got = dia.dia_stream_spmm(v, xv, offsets, no, 2, rows + 13)
+        torch.cuda.synchronize()
+        assert dia.LAUNCHES["dia_stream_spmm"] == 1
+        assert torch.equal(got, want)
+    for k in range(K):
+        assert torch.equal(want[..., k], dia.dia_stream_spmv_plain(vals, x[..., k].contiguous(), offsets, no, 2,
+                                                                   rows + 13))
+
+
+@pytest.mark.parametrize("precond", [False, True], ids=["cg", "jacobi"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "standard"])
+def test_block_and_jacobi_loops_on_card(card_systems, fused, precond):
+    """On the card, (2,2,2) parts of the 12^3 Poisson operator: the block
+    loop (K = 3: b, a random vector, a constant) replayed as a CUDA graph
+    equal to the same loop run eagerly, bit for bit, with the same launch
+    counts; each column's iterations equal to its solo solve's (Jacobi
+    PCG with minv: the solo loop with precond, graph against eager too)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import make_block_cg_fn, make_cg_fn
+
+    c = card_systems
+    dA, b = c["dA"], c["b"]
+    lay = dA.col_layout
+    own = torch.zeros(tuple(b.shape), dtype=b.dtype, device=b.device)
+    for p, no in enumerate(lay.noids.tolist()):
+        own[p, lay.o0 : lay.o0 + no] = 1
+    rng = np.random.default_rng(3)
+    B = torch.stack([b, torch.from_numpy(rng.standard_normal(tuple(b.shape))).to(b) * own, 1e-3 * own],
+                    dim=2).contiguous()
+    X0 = torch.zeros_like(B)
+    minv = own / 6.0 if precond else None
+    kw = {} if minv is None else {"minv": minv}
+    runs = {}
+    for graph in (False, True):
+        dia.reset_launches()
+        fn = make_block_cg_fn(dA, 1e-8, 500, 3, precond=precond, fused=fused, graph=graph)
+        runs[graph] = fn(B, X0, **kw), dict(dia.LAUNCHES), dict(fn.stats)
+        torch.cuda.synchronize()
+    (ge, ce, se), (gg, cg_, sg) = runs[False], runs[True]
+    assert sg["loop"] == "graph" and se["loop"] == "eager" and ce == cg_
+    assert _bitwise(ge[0], gg[0]) and _bitwise(ge[1], gg[1]) and np.array_equal(ge[3], gg[3])
+    assert np.array_equal(ge[4], gg[4], equal_nan=True)
+    its = gg[3]
+    assert len(set(its.tolist())) > 1
+    for k in range(3):
+        solo = make_cg_fn(dA, 1e-8, 500, fused=fused, precond=precond)
+        out = solo(B[..., k].contiguous(), X0[..., k].contiguous(), **kw)
+        assert out[3] == its[k]
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "a-moved"])
+@pytest.mark.parametrize("K", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_products_kernel_matches_plain(dtype, K, moved):
+    """The block dot's products kernel against its plain version (the
+    transposing torch.mul) on three stacked parts, b in a narrower frame,
+    rows as 16-byte vectors where K allows and a is aligned; the block dot
+    of the kernel's products equal to the solo dot of each column."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import sweep as sw
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _block_pdot_factory, _pdot_factory
+
+    rng = np.random.default_rng(K + 40)
+    P, o0, n = 3, 5, 100003
+    a = _moved(torch.from_numpy(rng.standard_normal((P, o0 + n + 7, K))).to("cuda", dtype), moved)
+    b = torch.from_numpy(rng.standard_normal((P, o0 + n + 2, K))).to("cuda", dtype)
+    dia.reset_launches()
+    got = sw.block_products(a, b, o0, n)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["block_products"] == 1
+    # the column blocks (their padding to the column stride is not written)
+    assert torch.equal(got.view(K, -1)[:, : P * n], sw.block_products_plain(a, b, o0, n).view(K, -1)[:, : P * n])
+    dots = _block_pdot_factory(o0, n)(a, b)
+    for k in range(K):
+        assert torch.equal(dots[k], _pdot_factory(o0, n)(a[..., k].contiguous(), b[..., k].contiguous()))

@@ -184,7 +184,8 @@ def test_plain_spmv_does_not_count_launches():
     dia.dia_coded_spmv(_port_op(c), torch.from_numpy(c["x"][None]))
     assert set(dia.LAUNCHES) == {
         "dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
-        "box_stencil_apply", "cg_sweep", "vcycle_epilogue",
+        "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
+        "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products",
     }
     assert not any(dia.LAUNCHES.values())
 
@@ -259,8 +260,10 @@ def _check_plan(plan, offsets, itemsize, mode, n_streams, budget):
             assert plan.new_len[s] + 2 * vec <= plan.buf_slots[b]
     # (start, size, bytes a thread's rows past the tile read beyond it)
     regions = [(a, n * itemsize, past * itemsize) for a, n in zip(plan.buf_at, plan.buf_slots)]
-    if mode == "pfold":
+    if mode in ("pfold", "pfold_minv"):
         regions += [(a + plan.pp_shift, n * itemsize, 0) for a, n in zip(plan.buf_at, plan.buf_slots)]
+    if mode == "pfold_minv":  # the minv copy of every buffer
+        regions += [(a + 2 * plan.pp_shift, n * itemsize, 0) for a, n in zip(plan.buf_at, plan.buf_slots)]
     for h in (0, 1):
         st = plan.stage_at + h * plan.stage_bytes
         if mode == "axpy":
@@ -363,7 +366,7 @@ def _reference(offsets, coef, no, x):
     return acc
 
 
-@pytest.mark.parametrize("mode", ["plain", "pfold", "axpy"])
+@pytest.mark.parametrize("mode", ["plain", "pfold", "pfold_minv", "axpy"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("n", [24, 25, 193])
 @pytest.mark.parametrize("points", [7, 27])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's DIA kernels of one or more checkouts on one card.
 
-    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--cg N] [--gmg N] [--gmg-multi N]
+    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--block K] [--cg N] [--gmg N]
+                                        [--gmg-multi N]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -25,6 +26,12 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
 * with ``--select``, K1 on synthetic select-chain operators of the GMG
   shapes (level 0's A at 192^3, the stencil S at 192^3 down to 12^3),
   each also checked torch.equal to its plain version;
+* with ``--block K`` (this checkout only: its package is imported): K2
+  with minv and the sweep's precond form on the n^3 frames, the coded SpMM
+  (plain and pfold forms) on the row-class Poisson operator and the
+  streaming SpMM on random 7-diagonal values at n^3, over K columns, and
+  the block sweep over K columns (with and without minv) and the block
+  dot's products, each checked torch.equal to its plain version;
 
 and prints the checkout's ptxas lines (registers, spills) per kernel.
 
@@ -157,6 +164,64 @@ def time_kernels(smoke, dia, n, rng, flush):
         "null_launch_control": timed(smoke, lambda: dia.dia_null_launch(), flush),
         "dia_stream_spmv": time_stream_levels(smoke, dia, rng, flush),
     }
+
+
+def time_block(smoke, dia, n, K, rng, flush):
+    """The Jacobi and block kernels at n^3 f32, one part, K columns:
+    flushed and back-to-back ms, torch.equal to their plain versions. The
+    sweep is a module of the package (it imports dia relatively), so these
+    are timed with this checkout's package only."""
+    sys.path.insert(0, str(ROOT))
+    from partitionedarrays_jl_tpu_torch.ops import dia, sweep as sw
+
+    op = poisson_operator(dia, n)
+    rows = op.n
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
+    r, pprev, minv, x, p, q = (f(1, rows) for _ in range(6))
+    beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    alpha = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    live = torch.ones((), dtype=torch.int32, device="cuda")
+    out = {}
+
+    def rec(name, fn, plain, timed_fn=None):
+        """Time ``timed_fn`` (default fn) and hold fn's outputs against
+        plain's; a sweep is timed in place, its check runs on copies."""
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        out[name] = {**timed(smoke, timed_fn or fn, flush),
+                     "equal": all(bool(torch.equal(a, b)) for a, b in zip(got, want))}
+
+    rec("dia_coded_spmv_pfold_minv", lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, rows, minv=minv),
+        lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, rows, minv=minv))
+    part2 = sw.sweep_partials(r, rows, 2)
+    rec("cg_sweep_precond", lambda: sw.cg_sweep(r.clone(), q, alpha, live, part2, 0, rows, x=x.clone(), p=p, minv=minv),
+        lambda: sw.cg_sweep_plain(r.clone(), q, alpha, live, part2.clone(), 0, rows, x=x.clone(), p=p, minv=minv),
+        lambda: sw.cg_sweep(r, q, alpha, live, part2, 0, rows, x=x, p=p, minv=minv))
+    X, PP, R, Pb, Q = (f(1, rows, K) for _ in range(5))
+    betas = f(K)
+    rec("dia_coded_spmm", lambda: dia.dia_coded_spmm(op, X, rows), lambda: dia.dia_coded_spmm_plain(op, X, rows))
+    rec("dia_coded_spmm_pfold", lambda: dia.dia_coded_spmm_pfold(op, X, PP, betas, rows),
+        lambda: dia.dia_coded_spmm_pfold_plain(op, X, PP, betas, rows))
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    vals = f(1, 7, rows)
+    no = torch.tensor([rows], dtype=torch.int32, device="cuda")
+    rec("dia_stream_spmm", lambda: dia.dia_stream_spmm(vals, X, offsets, no, 0, rows),
+        lambda: dia.dia_stream_spmm_plain(vals, X, offsets, no, 0, rows))
+    S = sw.block_product_stride(1, rows)
+    out["block_products"] = {
+        **timed(smoke, lambda: sw.block_products(X, Q, 0, rows), flush),
+        "equal": bool(torch.equal(sw.block_products(X, Q, 0, rows).view(K, S)[:, :rows],
+                                  sw.block_products_plain(X, Q, 0, rows).view(K, S)[:, :rows])),
+    }
+    alphas = torch.full((K,), 1e-3, dtype=torch.float32, device="cuda")
+    act = torch.ones((K,), dtype=torch.int32, device="cuda")
+    for name, mv in (("cg_sweep_block", None), ("cg_sweep_block_minv", minv)):
+        part = sw.sweep_partials(R, rows, 2 * K if mv is not None else K)
+        rec(name, lambda: sw.cg_sweep_block(R.clone(), Q, alphas, act, part, 0, rows, x=X.clone(), p=Pb, minv=mv),
+            lambda: sw.cg_sweep_block_plain(R.clone(), Q, alphas, act, part.clone(), 0, rows, x=X.clone(), p=Pb,
+                                            minv=mv),
+            lambda: sw.cg_sweep_block(R, Q, alphas, act, part, 0, rows, x=X, p=Pb, minv=mv))
+    return out
 
 
 def select_operator(dia, n, points, rng):
@@ -321,6 +386,8 @@ def main() -> int:
     ap.add_argument("--gmg", type=int, default=0, metavar="N", help="also time GMG-PCG at N^3")
     ap.add_argument("--gmg-multi", type=int, default=0, metavar="N",
                     help="also time GMG-PCG on (2,2,2) stacked parts of N^3, float64")
+    ap.add_argument("--block", type=int, default=0, metavar="K",
+                    help="also time the Jacobi and block kernels (K columns) at n^3")
     ap.add_argument("--select", action="store_true",
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
@@ -348,6 +415,8 @@ def main() -> int:
         res = time_kernels(smoke, dia, args.n, np.random.default_rng(args.seed), flush)
         if args.select:
             res["select"] = time_select(smoke, dia, np.random.default_rng(args.seed), flush)
+        if args.block and root == ROOT:
+            res["block"] = time_block(smoke, dia, args.n, args.block, np.random.default_rng(args.seed), flush)
         res["ptxas"] = smoke._ptxas_lines(dia.BUILD_LOG)
         print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
     if args.cg or args.gmg or args.gmg_multi:
