@@ -7,11 +7,14 @@ Builds the CUDA kernels from the checkout (``build/pa_torch_kernels/``),
 drives the port's paths — the 3-D Poisson CG solve at 192^3 in float32 on
 one part (fused, then pipelined and standard) and the
 multigrid-preconditioned CG at 192^3 float32, through `prun`,
-`assemble_poisson`, `cg`, `pcg` and the lowerings — and holds every kernel
-against its plain PyTorch version (thirteen kernels: K1-K4, the stencil,
-the CG sweep and the V-cycle epilogue; K2 with minv, the sweep's precond
-and block forms, the two block SpMMs and the block dot's products of
-Jacobi PCG and the block solves). Every solve runs the device-resident
+`assemble_poisson`, `cg`, `pcg` and the lowerings; the unstructured
+tet-elasticity Jacobi PCG at 64^3 nodes float64 (`assemble_elasticity_tet`,
+a non-band lowering) and strict-bits CG — and holds every kernel against
+its plain PyTorch version (eighteen kernels: K1-K4, the stencil, the CG
+sweep and the V-cycle epilogue; K2 with minv, the sweep's precond and block
+forms, the two block SpMMs and the block dot's products of Jacobi PCG and
+the block solves; E1 (ELL, A_oo and boundary modes), E2 (node blocks, A_oo
+and boundary modes) and E3 (the strict dot)). Every solve runs the device-resident
 loop (`parallel/gpu_loop.py`): blocks of k iterations replayed as a CUDA
 graph, the stopping test a device flag; so launch counts are stated in the
 iterations the device ran (whole blocks, the frozen iterations after the
@@ -130,6 +133,26 @@ Phases, one JSON line each:
    versions at the paths' shapes; and the default solo CG on the varcoef operator (the
    fused body, repaired: K4 1 + 1 and the sweep 1 per device iteration) with
    the standard body's iterations and both bodies' seconds per iteration;
+4f. the non-band lowerings, the elasticity model and strict bits:
+   elasticity Jacobi PCG at 64^3 nodes f64 through `pcg(A, b, x0=x0)` (tol
+   1e-12, the driver's): the lowering it resolves to (BSR bs 3 in f64),
+   host assembly and staging seconds, launches by formula (E2 1 + 1 and
+   the precond sweep 1 per device iteration), error against x̂ < 1e-5, the
+   plain path's iterations, graph against eager, seconds per iteration from
+   fixed trips, a profile; the same operator in f32 (values scaled as
+   tools/bench_irregular.py scales them) in each lowering (SD, BSR, ELL):
+   staging seconds, SpMV µs and GFLOP/s, torch.sparse.mm, E1 and E2
+   torch.equal to their plain versions and timed, SD's torch.bmm timed,
+   every product against the f64 host product; elasticity on 4 stacked
+   parts at 32^3 f64 in each lowering (SD with the node-block boundary,
+   BSR, forced ELL): the sequential backend's iterations and solution,
+   launches by formula, E1/E2 in both modes torch.equal to their plain
+   versions, the boundary kernels timed; strict CG on 6^3 and 48^3 (2,2,2)
+   f64 bit for bit against the sequential backend (iterations, residual
+   history, solution), launches by formula (E1 1 + 1 and E1's boundary
+   1 + 1 per device iteration, E3 1 + 2), strict CG's seconds per iteration
+   against fused CG's at 192^3 f32 (and a profile), E3 bit for bit its
+   plain version and timed there;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -170,7 +193,12 @@ Phases, one JSON line each:
    3).
 
 In the kernels line, K4's times are level 1's of 192^3 (its stream form)
-and the epilogue's level 0's smooth mode of 192^3.
+and the epilogue's level 0's smooth mode of 192^3; E1's and E2's A_oo
+times the elasticity operator's at 64^3 f32, their boundary modes' the
+4-part 32^3 f64 cell's (every call of one SpMV), E3's a 192^3 f32 dot.
+Each new kernel's launches come from the path it runs on: E2 from the
+64^3 elasticity solve, E2's boundary from the 4-part SD solve, E1 in both
+modes and E3 from the 48^3 strict solve.
 
 It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
@@ -219,6 +247,7 @@ REPS = 50
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: longer than a launch's host cost
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores, published
 SEED = 0
 
 N_GMG_MULTI = 48
@@ -229,9 +258,15 @@ GMG_TRIPS = (4, 24)  # fixed trips of the GMG-PCG seconds per iteration (2 and 1
 CG_TRIPS = (20, 220)  # fixed trips of the CG, Jacobi PCG and block seconds per iteration
 N_BLOCK = 8  # right-hand sides of the block phase
 
+N_ELASTIC = 64  # tet-elasticity nodes a dimension: the JAX package's largest irregular size
+N_ELASTIC_MULTI = 32  # the stacked-parts elasticity cell (4 parts)
+TOL_ELASTIC = 1e-12  # elasticity_tet_driver's tolerance
+ELASTIC_MAXITER = 3000  # elasticity_tet_driver's maxiter
+
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
            "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
-           "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products")
+           "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products", "ell_spmv", "ell_spmv_boundary",
+           "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
@@ -246,6 +281,11 @@ SRC = {
     "dia_coded_spmm": "partitionedarrays_jl_tpu_torch/csrc/dia_coded_block.cu",
     "dia_stream_spmm": "partitionedarrays_jl_tpu_torch/csrc/dia_stream_block.cu",
     "block_products": "partitionedarrays_jl_tpu_torch/csrc/cg_sweep.cu",
+    "ell_spmv": "partitionedarrays_jl_tpu_torch/csrc/ell_spmv.cu",
+    "ell_spmv_boundary": "partitionedarrays_jl_tpu_torch/csrc/ell_spmv.cu",
+    "bsr_spmv": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
+    "bsr_spmv_boundary": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
+    "pairwise_dot": "partitionedarrays_jl_tpu_torch/csrc/pairwise_dot.cu",
 }
 #: the TPU kernel each replaces; box_stencil_apply, cg_sweep and
 #: vcycle_epilogue have none: they stand for the XLA fusions of the JAX
@@ -257,7 +297,10 @@ SRC = {
 #: preconditioner); the precond sweep the fused PCG body's odot2 sweep; the
 #: block sweep and SpMMs the block program's sweep and the XLA forms its
 #: SpMV takes on a (W, K) operand (`_dia_coded_xla`, `_dia_rowsum`); the
-#: block products the products of its per-column p.q dot
+#: block products the products of its per-column p.q dot; E1 (ell_spmv)
+#: the padded-ELL fold `_ell_rowsum` of the ELL lowering and of the
+#: boundary-row A_oh; E2 (bsr_spmv) the BSR gather and einsum and the
+#: node-block boundary finish; E3 (pairwise_dot) strict mode's dot
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
@@ -272,6 +315,11 @@ REPLACES = {
     "dia_coded_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:3006",
     "dia_stream_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:2960",
     "block_products": "partitionedarrays_jl_tpu/parallel/tpu.py:4881",
+    "ell_spmv": "partitionedarrays_jl_tpu/parallel/tpu.py:2916",
+    "ell_spmv_boundary": "partitionedarrays_jl_tpu/parallel/tpu.py:3232",
+    "bsr_spmv": "partitionedarrays_jl_tpu/parallel/tpu.py:3143",
+    "bsr_spmv_boundary": "partitionedarrays_jl_tpu/parallel/tpu.py:3204",
+    "pairwise_dot": "partitionedarrays_jl_tpu/parallel/tpu.py:2486",
 }
 
 
@@ -773,7 +821,8 @@ def phase_multi(backend, n, rng):
     launches = dict(dia.LAUNCHES)
     err_s, info_s = prun(poisson_fdm_driver, sequential, (2, 2, 2), (n, n, n), tol=1e-8)
     dev_it = device_iterations(info_g)
-    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it}
+    # A_oh on the boundary rows: E1's boundary mode once an SpMV
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it, "ell_spmv_boundary": 1 + dev_it}
     emit({"phase": "stacked_parts_launch_counts", "kernels": launches, "expected_launches": want,
           "device_loop": info_g["device_loop"]})
     for k in want:
@@ -965,9 +1014,16 @@ def gmg_launches(h, dh, dev_it):
         else:
             per["coded" if lv["dS"].dia_mode == "coded" else "stream"] += 2
     epilogues = (h.pre + h.post + 1 if h.pre > 0 else h.post + 1) * len(dh["levels"])
-    return {"dia_coded_spmv": 1 + dev_it * per["coded"], "dia_stream_spmv": dev_it * per["stream"],
+    # E1's boundary mode once an SpMV of an operator with an A_oh block
+    oh = [1 if lv["dA"].oh_nnz else 0 for lv in dh["levels"]]
+    per_oh = oh[0] + 2 * sum(oh) + sum(2 * (1 if lv["dS"].oh_nnz else 0) for lv in dh["levels"]
+                                        if gpu_gmg.route(lv) != "stencil")
+    want = {"dia_coded_spmv": 1 + dev_it * per["coded"], "dia_stream_spmv": dev_it * per["stream"],
             "box_stencil_apply": dev_it * per["stencil"], "cg_sweep": dev_it,
             "vcycle_epilogue": dev_it * epilogues}
+    if oh[0]:
+        want["ell_spmv_boundary"] = oh[0] + dev_it * per_oh
+    return want
 
 
 def phase_gmg(backend, run, rng):
@@ -1610,6 +1666,432 @@ def phase_block(backend, run, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the non-band lowerings, the elasticity model, strict bits
+# ---------------------------------------------------------------------------
+
+
+def elastic_system(backend, n, nparts):
+    """The tet-elasticity system on (n, n, n) nodes over `nparts` parts
+    (f64, `assemble_elasticity_tet`) and the host assembly's seconds.
+    The model is imported here, so that tools/time_coded_kernels.py can
+    load this file over a checkout from before it."""
+    from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
+
+    t = time.perf_counter()
+    A, b, xh, x0 = prun(lambda parts: assemble_elasticity_tet(parts, (n, n, n)), backend, nparts)
+    return {"A": A, "b": b, "xh": xh, "x0": x0, "assembly_s": time.perf_counter() - t}
+
+
+def _irregular_launches(dA, spmvs):
+    """The launches of `spmvs` SpMVs of a non-band lowering: its A_oo
+    kernel (SD's product is torch.bmm: none) and its boundary kernel (a
+    launch a node-block bucket) where A_oh is not empty."""
+    want = {"bsr_spmv": spmvs if dA.lowering == "bsr" else 0, "ell_spmv": spmvs if dA.lowering == "ell" else 0,
+            "bsr_spmv_boundary": 0, "ell_spmv_boundary": 0}
+    if dA.oh_nnz:
+        if dA.ohb_bs is not None:
+            want["bsr_spmv_boundary"] = spmvs * len(dA.ohb_rows)
+        else:
+            want["ell_spmv_boundary"] = spmvs
+    return want
+
+
+def _hold_irregular_kernels(tag, dA, dtype, rng, errs):
+    """E1/E2 of a lowering (A_oo and boundary modes) torch.equal to their
+    plain versions on a random frame of the lowering's column layout, in
+    the operator's (numpy) dtype."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    cl, rl = dA.col_layout, dA.row_layout
+    dev = dA.backend.device
+    x = _frame(rng, (cl.P, cl.W), dtype, dev)
+    x[:, cl.trash] = 0
+    if dA.lowering == "bsr":
+        errs[f"bsr_spmv[{tag}]"] = _compare(f"{tag} bsr_spmv", irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W),
+                                            irr.bsr_spmv_plain(dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W))
+    if dA.lowering == "ell":
+        errs[f"ell_spmv[{tag}]"] = _compare(f"{tag} ell_spmv", irr.ell_spmv(dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W),
+                                            irr.ell_spmv_plain(dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W))
+    if not dA.oh_nnz:
+        return
+    y0 = _frame(rng, (rl.P, rl.W), dtype, dev)
+    if dA.ohb_bs is not None:
+        yk, yp = y0.clone(), y0.clone()
+        for rows, cols, vals in zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals):
+            irr.bsr_spmv_boundary(rows, vals, cols, x, cl.g0, dA.ohb_nhn, yk, rl.trash)
+            irr.bsr_spmv_boundary_plain(rows, vals, cols, x, cl.g0, dA.ohb_nhn, yp, rl.trash)
+        errs[f"bsr_spmv_boundary[{tag}]"] = _compare(f"{tag} bsr_spmv_boundary", yk, yp)
+    else:
+        errs[f"ell_spmv_boundary[{tag}]"] = _compare(
+            f"{tag} ell_spmv_boundary", irr.ell_spmv_boundary(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y0.clone(), rl.trash),
+            irr.ell_spmv_boundary_plain(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y0.clone(), rl.trash))
+
+
+def phase_elastic(backend, rng):
+    """The tet-elasticity model at N_ELASTIC^3 nodes, f64, one part, through
+    `pcg(A, b, x0=x0)` (Jacobi, tol 1e-12 as the driver's): its lowering
+    (the JAX package's order off a TPU), staging seconds, launches by
+    formula, error against x̂ under the model's gate, the plain path's
+    iterations, graph against eager, seconds per iteration from fixed
+    trips; E2 (or E1) held against its plain version."""
+    el = elastic_system(backend, N_ELASTIC, 1)
+    A, b, xh, x0 = el["A"], el["b"], el["xh"], el["x0"]
+    t = time.perf_counter()
+    dA = device_matrix(A, backend)
+    sync()
+    staging_s = time.perf_counter() - t
+    emit({"phase": "elasticity_lowering", "n": N_ELASTIC, "dtype": "float64", "lowering": dA.lowering,
+          "bs": dA.sd_bs or dA.bsr_bs, "staging_s": staging_s, "assembly_s": el["assembly_s"]})
+    errs = {}
+    _hold_irregular_kernels(f"elasticity {N_ELASTIC}^3 f64", dA, A.dtype, rng, errs)
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = pcg(A, b, x0=x0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    dev_it = device_iterations(info)
+    want = {**_irregular_launches(dA, 1 + dev_it), "cg_sweep_precond": dev_it, "pairwise_dot": 0}
+    err = float((x - xh).norm())
+    mv = jacobi_preconditioner(A)
+    t = time.perf_counter()
+    xp, info_p = gpu_cg(A, b, x0=x0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, minv=mv, plain=True)
+    plain_s = time.perf_counter() - t
+    err_p = float((xp - xh).norm())
+    db = _b_on_cols_layout(b, dA)
+    dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout).data
+    dmv = _b_on_cols_layout(mv, dA)
+    g = graph_vs_eager(f"elasticity {N_ELASTIC}^3 f64 Jacobi PCG",
+                       lambda gr: make_cg_fn(dA, TOL_ELASTIC, ELASTIC_MAXITER, precond=True, graph=gr), db, dx0, dmv)
+    s_per_iter, fixed = fixed_trip_s_per_iter(
+        lambda m: with_args(make_cg_fn(dA, 0.0, m, precond=True), dmv), db, dx0, *CG_TRIPS)
+    # the path's A_oo product alone at its own shape and dtype (flushed)
+    spmv = make_spmv_fn(dA)
+    spmv_ms = time_ms(lambda: spmv(dx0), torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device))
+    phase_profile("elasticity_pcg_profile", with_args(make_cg_fn(dA, 0.0, 48, precond=True), dmv), db, dx0, 48)
+    line = {"phase": "elasticity_pcg", "n": N_ELASTIC, "dofs": A.rows.ngids, "nnz": dA.flops_per_spmv // 2,
+            "dtype": "float64", "parts": 1, "tol": TOL_ELASTIC, "lowering": info["lowering"],
+            "cg_body": info["cg_body"], "iterations": info["iterations"], "converged": info["converged"],
+            "err": err, "plain_iterations": info_p["iterations"], "plain_err": err_p, "plain_solve_s": plain_s,
+            "assembly_s": el["assembly_s"], "staging_s": staging_s, "solve_s": solve_s, "kernels": launches,
+            "expected_launches": want, "device_loop": info["device_loop"], "s_per_iter": s_per_iter,
+            "fixed_trip_s": fixed, "fixed_trips": CG_TRIPS, "spmv_ms": spmv_ms, "max_abs_err": errs}
+    emit(line)
+    require(info["converged"] and err < 1e-5, f"elasticity: error {err} against x̂ (gate 1e-5)")
+    require(info["iterations"] == info_p["iterations"], "elasticity: kernel and plain iterations differ")
+    require(g["iterations"] == info["iterations"], "elasticity: graph-vs-eager iterations differ")
+    for k in want:
+        require(launches[k] == want[k], f"elasticity: {launches[k]} {k} launches, expected {want[k]}")
+    out = {"line": line, "errs": errs, "launches": launches, "A": A, "xh": xh}
+    return out
+
+
+def _f32_operator(A):
+    """A's values scaled by their largest magnitude and cast to f32, as
+    tools/bench_irregular.py:125-135 scales them."""
+    from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix
+
+    vals = map_parts(lambda M: CSRMatrix(M.indptr, M.indices, (M.data / np.abs(M.data).max()).astype(np.float32),
+                                         M.shape), A.values)
+    return PSparseMatrix(vals, A.rows, A.cols)
+
+
+def phase_lowering_times(backend, el, rng):
+    """The three lowerings of the elasticity operator at N_ELASTIC^3 in f32
+    (values scaled as the JAX bench scales them): each one's staging
+    seconds, the SpMV's flushed µs and GFLOP/s (flops_per_spmv over the
+    time, the JAX bench's metric), torch.sparse.mm on the CSR; E1 and E2
+    torch.equal to their plain versions and timed (their kernel line
+    times), SD's torch.bmm product timed; the three products agree with
+    the f64 host product to rounding."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    A32 = _f32_operator(el["A"])
+    xh = PVector(map_parts(lambda v: np.asarray(v, dtype=np.float32), el["xh"].values), el["xh"].rows)
+    from partitionedarrays_jl_tpu_torch.ops.sparse import csr_spmv
+
+    M = A32.values.part_values()[0]
+    x64 = np.asarray(xh.values.part_values()[0], dtype=np.float64)
+    y_host = torch.from_numpy(csr_spmv(CSRMatrix(M.indptr, M.indices, M.data.astype(np.float64), M.shape), x64))
+    # the products' magnitude |A| |x|: A x̂ cancels to O(h^2) of its terms
+    y_abs = csr_spmv(CSRMatrix(M.indptr, M.indices, np.abs(M.data.astype(np.float64)), M.shape), np.abs(x64))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    csr = _csr_on(M, backend.device)
+    xcol = torch.from_numpy(np.asarray(xh.values.part_values()[0])).to(backend.device).reshape(-1, 1)
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, xcol), flush)
+    del csr
+    rows, nnz = M.shape[0], M.nnz
+    out, times, errs, ys = {"library_ms": library_ms, "library_gflops": 2 * nnz / library_ms / 1e6}, {}, {}, {}
+    for low in ("sd", "bsr", "ell"):
+        t = time.perf_counter()
+        dA = device_matrix(A32, backend, lowering=low)
+        sync()
+        staging_s = time.perf_counter() - t
+        cl, rl = dA.col_layout, dA.row_layout
+        x = DeviceVector.from_pvector(xh, backend, cl).data
+        spmv = make_spmv_fn(dA)
+        ms = time_ms(lambda: spmv(x), flush)
+        ys[low] = spmv(x)[0, : rows].double().cpu()
+        rec = {"lowering": dA.lowering, "staging_s": staging_s, "spmv_ms": ms,
+               "gflops": dA.flops_per_spmv / ms / 1e6}
+        item = 4
+        if dA.lowering == "sd":
+            vb = sum(v.numel() for v in dA.sd_vals) * item + sum(i.numel() for i in dA.sd_idx) * 8
+            rec["sd_widths"] = [int(v.shape[-1]) for v in dA.sd_vals]
+            t_sd = {"ms": ms, "plain_ms": ms, "library_ms": library_ms, "bytes": vb + 2 * rows * item}
+            t_sd["bound_ms"], t_sd["bound_by"] = _bound_ms(t_sd["bytes"], 2 * sum(v.numel() for v in dA.sd_vals))
+            times["sd_bmm"] = t_sd
+        elif dA.lowering == "bsr":
+            args = (dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W)
+            errs["bsr_spmv[elasticity f32]"] = _compare("elasticity f32 bsr_spmv", irr.bsr_spmv(*args),
+                                                        irr.bsr_spmv_plain(*args))
+            nbytes = dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
+            t_k = {"ms": time_ms(lambda: irr.bsr_spmv(*args), flush),
+                   "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush), "library_ms": library_ms,
+                   "bytes": nbytes}
+            t_k["bound_ms"], t_k["bound_by"] = _bound_ms(nbytes, 2 * nnz)
+            times["bsr_spmv"] = t_k
+            rec["Lb"] = int(dA.bsr_vals.shape[2])
+        else:
+            args = (dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W)
+            errs["ell_spmv[elasticity f32]"] = _compare("elasticity f32 ell_spmv", irr.ell_spmv(*args),
+                                                        irr.ell_spmv_plain(*args))
+            nbytes = dA.oo_vals.numel() * item + dA.oo_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
+            t_k = {"ms": time_ms(lambda: irr.ell_spmv(*args), flush),
+                   "plain_ms": time_ms(lambda: irr.ell_spmv_plain(*args), flush), "library_ms": library_ms,
+                   "bytes": nbytes}
+            t_k["bound_ms"], t_k["bound_by"] = _bound_ms(nbytes, 2 * nnz)
+            times["ell_spmv"] = t_k
+            rec["L"] = int(dA.oo_vals.shape[2])
+        out[low] = rec
+        A32._device.clear()
+        del dA, x, spmv
+        torch.cuda.empty_cache()
+    scale = float(y_abs.max())
+    agree = {low: float((ys[low] - y_host).abs().max()) / scale for low in ys}
+    for t in times.values():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "elasticity_lowering_times", "n": N_ELASTIC, "dtype": "float32", "rows": rows, "nnz": nnz,
+          "reps": REPS, **out, "diff_to_f64_host_over_abs_product": agree, "kernels": times, "max_abs_err": errs})
+    for low, d in agree.items():
+        # f32 rounding of up to 57 terms a row, against max |A| |x|
+        require(d <= 1e-5, f"elasticity f32 {low}: product differs from the f64 host product by {d} of max |A||x|")
+    require(out["sd"]["lowering"] == "sd" and out["bsr"]["lowering"] == "bsr" and out["ell"]["lowering"] == "ell",
+            f"elasticity f32: lowerings resolved as {[out[k]['lowering'] for k in ('sd', 'bsr', 'ell')]}")
+    return {"times": times, "errs": errs}
+
+
+def phase_elastic_multi(backend, rng):
+    """Elasticity on 4 parts stacked on the card, N_ELASTIC_MULTI^3 nodes,
+    f64: the default lowering (SD, its boundary in node blocks: E2's
+    boundary mode), BSR and forced ELL (E1 in both modes) through `pcg`,
+    each with the port's sequential iterations, launches by formula and
+    graph against eager; E1/E2 held against their plain versions on each;
+    the boundary kernels timed on their paths' shapes (their kernel line
+    times)."""
+    el = elastic_system(backend, N_ELASTIC_MULTI, 4)
+    A, b, xh, x0 = el["A"], el["b"], el["xh"], el["x0"]
+
+    from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
+
+    def seq(parts):
+        Ah, bh, xhh, x0h = assemble_elasticity_tet(parts, (N_ELASTIC_MULTI,) * 3)
+        xs, info_s = pcg(Ah, bh, x0=x0h, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER)
+        return gather_pvector(xs), info_s
+
+    xs, info_s = prun(seq, sequential, 4)
+    mv = jacobi_preconditioner(A)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    errs, times, launches_out, lines = {}, {}, {}, []
+    for low in ("auto", "bsr", "ell"):
+        dA = device_matrix(A, backend, lowering=low)
+        _hold_irregular_kernels(f"elasticity {N_ELASTIC_MULTI}^3 f64 4 parts {low}", dA, A.dtype, rng, errs)
+        dia.reset_launches()
+        x, info = pcg(A, b, x0=x0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, lowering=low)
+        sync()
+        launches = dict(dia.LAUNCHES)
+        dev_it = device_iterations(info)
+        want = {**_irregular_launches(dA, 1 + dev_it), "cg_sweep_precond": dev_it}
+        db = _b_on_cols_layout(b, dA)
+        dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout).data
+        dmv = _b_on_cols_layout(mv, dA)
+        graph_vs_eager(f"elasticity {N_ELASTIC_MULTI}^3 f64 (4 parts) {low}",
+                       lambda gr: make_cg_fn(dA, TOL_ELASTIC, ELASTIC_MAXITER, precond=True, graph=gr), db, dx0, dmv)
+        diff = float(np.max(np.abs(gather_pvector(x) - xs)))
+        line = {"phase": "elasticity_stacked_parts", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4,
+                "lowering": dA.lowering, "ohb_bs": dA.ohb_bs, "boundary_buckets": len(dA.ohb_rows or ()),
+                "iterations": info["iterations"], "sequential_iterations": info_s["iterations"],
+                "x_vs_sequential_max_abs_diff": diff, "kernels": launches, "expected_launches": want}
+        emit(line)
+        lines.append(line)
+        require(info["converged"] and info["iterations"] == info_s["iterations"],
+                f"elasticity 4 parts {low}: {info['iterations']} iterations, sequential {info_s['iterations']}")
+        require(diff <= 1e-10, f"elasticity 4 parts {low}: solution differs from the sequential one by {diff}")
+        for k in want:
+            require(launches[k] == want[k], f"elasticity 4 parts {low}: {launches[k]} {k} launches, expected {want[k]}")
+        if low == "auto":
+            require(dA.lowering == "sd" and dA.ohb_bs is not None, "elasticity 4 parts: no node-block boundary on SD")
+            launches_out["bsr_spmv_boundary"] = launches["bsr_spmv_boundary"]
+        if low == "ell":
+            launches_out["ell_spmv_boundary"] = launches["ell_spmv_boundary"]
+        if low in ("auto", "ell"):
+            times.update(_boundary_times(A, dA, rng, flush))
+    emit({"phase": "boundary_kernel_times", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4, "reps": REPS,
+          **times})
+    return {"errs": errs, "times": times, "launches": launches_out, "lines": lines}
+
+
+def _boundary_times(A, dA, rng, flush):
+    """The boundary kernel of a multi-part lowering, timed over one SpMV's
+    calls (every node-block bucket, or the one ELL call) against their
+    plain versions; library: torch.sparse.mm of the stacked parts'
+    block-diagonal A_oh CSR on the ghost values (the products only, not the
+    add into y). Bound: the staged arrays and the x frame read once, the
+    boundary rows of y read and written."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    cl, rl = dA.col_layout, dA.row_layout
+    item = 8
+    x = _frame(rng, (cl.P, cl.W), np.float64, dA.backend.device)
+    y = _frame(rng, (rl.P, rl.W), np.float64, dA.backend.device)
+    oh = A.owned_ghost_values.part_values()
+    csr = _csr_on(_block_diagonal(oh), dA.backend.device)
+    xg = torch.from_numpy(rng.standard_normal((csr.shape[1], 1))).to(dA.backend.device)
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, xg), flush)
+    nnz = sum(m.nnz for m in oh)
+    if dA.ohb_bs is not None:
+        calls = list(zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals))
+
+        def run(k):
+            for rows, cols, vals in calls:
+                k(rows, vals, cols, x, cl.g0, dA.ohb_nhn, y, rl.trash)
+
+        staged = sum(r.numel() * 8 + c.numel() * 8 + v.numel() * item for r, c, v in calls)
+        touched = sum(int((r != rl.trash).sum()) for r, _, _ in calls)
+        name, kern, plain = "bsr_spmv_boundary", irr.bsr_spmv_boundary, irr.bsr_spmv_boundary_plain
+    else:
+        def run(k):
+            k(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y, rl.trash)
+
+        staged = dA.oh_rows.numel() * 8 + dA.oh_cols.numel() * 8 + dA.oh_vals.numel() * item
+        touched = int((dA.oh_rows != rl.trash).sum())
+        name, kern, plain = "ell_spmv_boundary", irr.ell_spmv_boundary, irr.ell_spmv_boundary_plain
+    nbytes = staged + x.numel() * item + 2 * touched * item
+    t = {"ms": time_ms(lambda: run(kern), flush), "plain_ms": time_ms(lambda: run(plain), flush),
+         "library_ms": library_ms, "bytes": nbytes, "calls_per_spmv": len(dA.ohb_rows or (0,)),
+         "shape": f"{N_ELASTIC_MULTI}^3 f64, 4 parts"}
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * nnz, F64_FLOPS_PER_S)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    return {name: t}
+
+
+def _block_diagonal(blocks):
+    """The CSR of a block-diagonal matrix of per-part CSR blocks."""
+    indptr, indices, data, r0, c0 = [np.zeros(1, dtype=np.int64)], [], [], 0, 0
+    for m in blocks:
+        indptr.append(m.indptr[1:].astype(np.int64) + indptr[-1][-1])
+        indices.append(m.indices.astype(np.int64) + c0)
+        data.append(m.data)
+        r0, c0 = r0 + m.shape[0], c0 + m.shape[1]
+    return CSRMatrix(np.concatenate(indptr), np.concatenate(indices), np.concatenate(data), (r0, c0))
+
+
+def strict_pair(backend, ns, nparts, dtype=np.float64):
+    """Strict CG on the Poisson operator, b = A x̂ taken in strict mode, on
+    the card and on the port's sequential backend: the card's result, its
+    launches, and whether iterations, residual history bits and solution
+    bits agree."""
+
+    def drive(parts):
+        A, _, xe, x0 = assemble_poisson(parts, ns, dtype=dtype)
+        b = A.mul_into(PVector.full(0.0, A.rows, dtype=dtype), xe, strict=True)
+        x, info = cg(A, b, x0=x0, tol=1e-8, maxiter=2000, strict=True)
+        return gather_pvector(x), info, _rel_err(x, xe)
+
+    xs, info_s, _ = prun(drive, sequential, nparts)
+    dia.reset_launches()
+    xg, info_g, err = prun(drive, backend, nparts)
+    sync()
+    launches = dict(dia.LAUNCHES)
+    equal = {"iterations": info_g["iterations"] == info_s["iterations"],
+             "residuals": np.asarray(info_g["residuals"]).tobytes() == np.asarray(info_s["residuals"]).tobytes(),
+             "x": xg.tobytes() == xs.tobytes()}
+    return info_g, launches, equal, err
+
+
+def phase_strict(backend, run, rng):
+    """Strict CG (the ELL lowering on the generic plan, E1 in both modes,
+    E3's dots, the standard body) on the card against the port's
+    sequential strict loop, bit for bit: 6^3 on (2,2,2) parts (the JAX
+    package's strict test) and the stacked N_MULTI^3 f64 (2,2,2) cell;
+    launches by formula. Then at N_MAIN^3 f32, one part: strict CG's
+    seconds per iteration against the default fused CG's, and E3 held bit
+    for bit against its plain version and timed at that shape."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    out = {"errs": {}, "launches": {}}
+    for n in (6, N_MULTI):
+        info, launches, equal, err = strict_pair(backend, (n, n, n), (2, 2, 2))
+        dev_it = device_iterations(info)
+        want = {"ell_spmv": 1 + dev_it, "ell_spmv_boundary": 1 + dev_it, "pairwise_dot": 1 + 2 * dev_it,
+                "cg_sweep": dev_it, "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0}
+        emit({"phase": "strict_cg", "n": n, "dtype": "float64", "parts": [2, 2, 2], "lowering": info["lowering"],
+              "cg_body": info["cg_body"], "iterations": info["iterations"], "rel_err": err,
+              "bitwise_equal_to_sequential": equal, "kernels": launches, "expected_launches": want,
+              "device_loop": info["device_loop"]})
+        require(all(equal.values()), f"strict CG {n}^3: the card differs from the sequential oracle: {equal}")
+        require(info["lowering"] == "ell" and info["cg_body"] == "standard", f"strict CG {n}^3: {info['lowering']}, "
+                f"{info['cg_body']}")
+        for k in want:
+            require(launches[k] == want[k], f"strict CG {n}^3: {launches[k]} {k} launches, expected {want[k]}")
+        if n == N_MULTI:
+            out["launches"] = {k: launches[k] for k in ("ell_spmv", "pairwise_dot")}
+            out["launches"]["ell_spmv_boundary_strict"] = launches["ell_spmv_boundary"]
+    # strict mode's cost at the main cell
+    A = run["A"]
+    dS = device_matrix(A, backend, strict=True)
+    dD = device_matrix(A, backend)
+    bS, xS = _b_on_cols_layout(run["b"], dS), DeviceVector.from_pvector(run["x0"], backend, dS.col_layout).data
+    bD, xD = run["b_dev"], run["x0_dev"]
+    s_strict, fixed_strict = fixed_trip_s_per_iter(lambda m: make_cg_fn(dS, 0.0, m), bS, xS, *CG_TRIPS)
+    s_fused, fixed_fused = fixed_trip_s_per_iter(lambda m: make_cg_fn(dD, 0.0, m), bD, xD, *CG_TRIPS)
+    phase_profile("strict_cg_profile", make_cg_fn(dS, 0.0, 48), bS, xS, 48)
+    o0, n = dS.row_layout.o0, dS.row_layout.no_max
+    a = _frame(rng, (1, dS.row_layout.W), np.float32, backend.device)
+    c = _frame(rng, (1, dS.row_layout.W), np.float32, backend.device)
+    got, want = irr.pairwise_dot(a, c, o0, n), irr.pairwise_dot_plain(a, c, o0, n)
+    sync()
+    require(got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes(), "pairwise_dot: kernel differs from its plain version")
+    out["errs"]["pairwise_dot[192^3 f32]"] = float((got - want).abs())
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    av, cv = a[0, o0 : o0 + n], c[0, o0 : o0 + n]
+    t = {"ms": time_ms(lambda: irr.pairwise_dot(a, c, o0, n), flush),
+         "plain_ms": time_ms(lambda: irr.pairwise_dot_plain(a, c, o0, n), flush),
+         "library_ms": time_ms(lambda: torch.dot(av, cv), flush), "bytes": 2 * n * 4}
+    t["bound_ms"], t["bound_by"] = _bound_ms(t["bytes"], 2 * n)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    # E1 on the strict lowering of the main cell (7 slots a row)
+    args = (dS.oo_vals, dS.oo_cols, bS, dS.row_layout.o0, dS.row_layout.W)
+    out["errs"]["ell_spmv[192^3 f32 strict]"] = _compare("192^3 strict ell_spmv", irr.ell_spmv(*args),
+                                                          irr.ell_spmv_plain(*args))
+    ell192 = {"ms": time_ms(lambda: irr.ell_spmv(*args), flush),
+              "plain_ms": time_ms(lambda: irr.ell_spmv_plain(*args), flush),
+              "bytes": dS.oo_vals.numel() * 4 + dS.oo_cols.numel() * 8 + 2 * bS.numel() * 4}
+    csr = _csr_on(A.values.part_values()[0], backend.device)
+    xcol = bS[0, : csr.shape[1]].reshape(-1, 1).contiguous()
+    ell192["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush)
+    del csr
+    ell192["bound_ms"], ell192["bound_by"] = _bound_ms(ell192["bytes"], 2 * int(A.values.part_values()[0].nnz))
+    ell192["share_of_bound"] = ell192["bound_ms"] / ell192["ms"]
+    emit({"phase": "strict_cost", "n": N_MAIN, "dtype": "float32", "parts": 1, "strict_s_per_iter": s_strict,
+          "fused_s_per_iter": s_fused, "strict_over_fused": s_strict / s_fused, "strict_fixed_trip_s": fixed_strict,
+          "fused_fixed_trip_s": fixed_fused, "fixed_trips": CG_TRIPS, "pairwise_dot": t,
+          "ell_spmv_strict_lowering": ell192, "ell_slots": int(dS.oo_vals.shape[2])})
+    out["times"] = {"pairwise_dot": t}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -1635,8 +2117,8 @@ def time_ms(fn, flush):
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
-def _bound_ms(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def _bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -2176,6 +2658,18 @@ def main() -> int:
     launches.update(jac["launches"])
     blk = phase_block(backend, run, rng)
     launches.update(blk["launches"])
+    el = phase_elastic(backend, rng)
+    low = phase_lowering_times(backend, el, rng)
+    elm = phase_elastic_multi(backend, rng)
+    st = phase_strict(backend, run, rng)
+    # each kernel's launches from the path it runs on: E2 on the elasticity
+    # path's BSR lowering (its stacked BSR run where 64^3 resolved to SD),
+    # E2's boundary on the stacked SD path, E1 and E3 on the strict
+    # (2,2,2) path
+    bsr_runs = [el["launches"]["bsr_spmv"]] + [ln["kernels"]["bsr_spmv"] for ln in elm["lines"]]
+    launches.update(bsr_spmv=next(v for v in bsr_runs if v > 0), bsr_spmv_boundary=elm["launches"]["bsr_spmv_boundary"],
+                    ell_spmv=st["launches"]["ell_spmv"], ell_spmv_boundary=st["launches"]["ell_spmv_boundary_strict"],
+                    pairwise_dot=st["launches"]["pairwise_dot"])
     times = phase_times(backend, kern, run, N_MAIN)
     times["dia_stream_spmv"], times["box_stencil_apply"], times["vcycle_epilogue"] = phase_gmg_times(
         backend, gmg, gmg_s, {"h": gruns["multi"]["h"], "dh": gruns["multi"]["dh"],
@@ -2183,6 +2677,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
     times.update(jacobi_kernel_times(jac, flush, np.random.default_rng(SEED)))
     times.update({k: v for k, v in blk["times"].items() if k in KERNELS})
+    times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"]}.items() if k in KERNELS})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
@@ -2194,9 +2689,12 @@ def main() -> int:
     max_err["box_stencil_apply"] = err_stencil
     max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
+    held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"]}
     for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
-                 "block_products"):
-        max_err[name] = max(v for key, v in {**jac["errs"], **blk["errs"]}.items() if key.startswith(name + "["))
+                 "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot"):
+        max_err[name] = max(v for key, v in held.items() if key.startswith(name + "["))
+    for name in KERNELS:
+        require(launches[name] > 0, f"{name}: no launch on its path")
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": SRC[name], "replaces": REPLACES[name],

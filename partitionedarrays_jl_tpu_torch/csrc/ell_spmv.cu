@@ -1,0 +1,146 @@
+// Padded-ELL SpMV for Hopper (sm_90a), E1: the owned block A_oo of an
+// irregular operator and the boundary block A_oh of every lowering.
+//
+// Replaces no TPU kernel: it stands for the XLA gather-and-fold of the JAX
+// package's `_ell_rowsum` (partitionedarrays_jl_tpu/parallel/tpu.py:2916-
+// 2924), which its pure-ELL lowering (:1460-1487) runs for A_oo and every
+// lowering without node blocks runs for A_oh (`_finish`, :3230-3233), as
+// cg_sweep.cu stands for the fused CG body's XLA sweep.
+//
+// What it computes, with each product rounded before its add (__fmul_rn /
+// __fadd_rn, __dmul_rn / __dadd_rn; no FMA) and the row slots folded left
+// to right from slot 0, the order of the host's strict csr_spmv
+// (partitionedarrays_jl_tpu_torch/ops/sparse.py) and of the plain version
+// (ops/irregular.py:ell_spmv_plain), so the kernel equals both bit for bit:
+//   mode 0 (A_oo): for every slot j of the (P, wy) result frame,
+//     y[p, j] = sum_l vals[p, i, l] * x[p, cols[p, i, l]]   with i = j - o0,
+//     where 0 <= i < n (n rows a part, the padded owned count), else 0;
+//   mode 1 (boundary): for every staged boundary row b < n of part p whose
+//     target row = rows[p, b] is not the trash slot,
+//     y[p, row, k] = y[p, row, k] + sum_l vals[p, b, l] * x[p, cols[p, b, l], k]
+//     in place, the row's sum rounded once into y (the host's two-phase
+//     A_oo fold, then `+=` of the A_oh fold). x and y are (P, W) frames
+//     (K = 1) or (P, W, K) slabs of K columns, column k summed as a frame.
+// Pad slots of a row carry value 0 and a real column; pad rows point at the
+// trash slot and are skipped, so no two threads ever write one slot (the
+// staged boundary rows of a part are distinct).
+//
+// Bound: memory. vals (T) and the int64 slot columns are read once, x
+// gathered, y written (mode 1: read and written on the boundary rows). At
+// the elasticity operator's 64^3 mesh (786,432 rows padded to 57 slots,
+// f32) the staged arrays and the frames are 544 MB a product, 162 us at
+// 3.35 TB/s; the CSR's own bytes (values and int32 columns of 27.96M
+// entries) 224 MB, 67 us.
+//
+// Design (a first, simple kernel): one thread a row (mode 0) or a (row,
+// column) pair (mode 1), blockIdx.y the part; the thread walks its row's
+// L slots in order. Neighbouring threads read values L apart: the loads
+// are not coalesced, which the Hopper form will repair (a warp a row
+// group, the slots staged slot-major). It launches on the caller's stream
+// and allocates nothing, so a CUDA graph captures it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define PA_ELL_THREADS 256
+
+enum { PA_ELL_OO = 0, PA_ELL_BOUNDARY = 1 };
+
+struct PaEllParams {
+  int P;            // stacked parts
+  int L;            // slots a row (>= 1)
+  int K;            // columns of the slabs (mode 1), 1 for frames
+  int mode;         // PA_ELL_OO or PA_ELL_BOUNDARY
+  long long n;      // staged rows a part
+  long long wx;     // frame width of x
+  long long wy;     // frame width of y
+  long long o0;     // band offset of y (mode 0)
+  long long trash;  // y's trash slot (mode 1): rows pointing there are skipped
+};
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// the left-to-right fold of one row: x column k of a K-column slab
+template <typename T>
+__device__ __forceinline__ T row_fold(const T* __restrict__ v, const long long* __restrict__ c,
+                                      const T* __restrict__ xp, int L, int K, int k) {
+  T acc = mul_rn(v[0], xp[c[0] * K + k]);
+  for (int l = 1; l < L; ++l) acc = add_rn(acc, mul_rn(v[l], xp[c[l] * K + k]));
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PA_ELL_THREADS)
+ell_oo_kernel(const PaEllParams prm, const T* __restrict__ vals, const long long* __restrict__ cols,
+              const T* __restrict__ x, T* __restrict__ y) {
+  const int p = blockIdx.y;
+  const long long j = (long long)blockIdx.x * PA_ELL_THREADS + threadIdx.x;
+  if (j >= prm.wy) return;
+  const long long i = j - prm.o0;
+  T acc = T(0);
+  if (i >= 0 && i < prm.n) {
+    const long long at = ((long long)p * prm.n + i) * prm.L;
+    acc = row_fold(vals + at, cols + at, x + (long long)p * prm.wx, prm.L, 1, 0);
+  }
+  y[(long long)p * prm.wy + j] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PA_ELL_THREADS)
+ell_boundary_kernel(const PaEllParams prm, const long long* __restrict__ rows, const T* __restrict__ vals,
+                    const long long* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
+  const int p = blockIdx.y;
+  const long long t = (long long)blockIdx.x * PA_ELL_THREADS + threadIdx.x;
+  const int K = prm.K;
+  const long long b = t / K;
+  const int k = (int)(t % K);
+  if (b >= prm.n) return;
+  const long long row = rows[(long long)p * prm.n + b];
+  if (row == prm.trash) return;
+  const long long at = ((long long)p * prm.n + b) * prm.L;
+  const T acc = row_fold(vals + at, cols + at, x + (long long)p * prm.wx * K, prm.L, K, k);
+  T* yp = y + ((long long)p * prm.wy + row) * K + k;
+  *yp = add_rn(*yp, acc);
+}
+
+template <typename T>
+static int launch(const PaEllParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
+                  void* y, void* stream) {
+  if (prm->L < 1 || prm->K < 1 || prm->P < 1) return (int)cudaErrorInvalidValue;
+  const long long work = prm->mode == PA_ELL_OO ? prm->wy : prm->n * prm->K;
+  long long gx = (work + PA_ELL_THREADS - 1) / PA_ELL_THREADS;
+  if (gx < 1) gx = 1;
+  if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (prm->mode == PA_ELL_OO) {
+    ell_oo_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const T*)vals, (const long long*)cols,
+                                                     (const T*)x, (T*)y);
+  } else if (prm->mode == PA_ELL_BOUNDARY) {
+    ell_boundary_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
+                                                           (const long long*)cols, (const T*)x, (T*)y);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// rows: the boundary rows (mode 1; null in mode 0); vals, cols: (P, n, L);
+// x: the operand frame or slab; y: the result (written whole in mode 0,
+// updated on the boundary rows in mode 1).
+int pa_ell_spmv_f32(const PaEllParams* prm, const void* rows, const void* vals, const void* cols,
+                    const void* x, void* y, void* stream) {
+  return launch<float>(prm, rows, vals, cols, x, y, stream);
+}
+
+int pa_ell_spmv_f64(const PaEllParams* prm, const void* rows, const void* vals, const void* cols,
+                    const void* x, void* y, void* stream) {
+  return launch<double>(prm, rows, vals, cols, x, y, stream);
+}
+
+}  // extern "C"

@@ -12,6 +12,14 @@ block of right-hand sides ``B`` (`gpu_block_cg` on the GPU backend, solo
 loops in sequence elsewhere, `_host_block_solve`);
 `decouple_dirichlet` symmetrizes a Dirichlet-identity system;
 `gather_psparse`/`gather_pvector` collect on MAIN, where `PLU` factors.
+
+``strict=True`` is strict-bits mode (the JAX package's
+``PA_TPU_STRICT_BITS=1``, a keyword here): the host loops take the strict
+SpMV (`csr_spmv(strict=True)`) and the fixed-tree dots
+(`PVector.dot(strict=True)`), the device loop the ELL lowering and E3, and
+both give the same iterations, residual history and solution bit for bit.
+``lowering`` names the first non-band lowering the device tries
+(`parallel/gpu.py:DeviceMatrix`: "auto", "sd", "bsr", "ell").
 """
 from __future__ import annotations
 
@@ -47,6 +55,13 @@ def _owned_update(dest: PVector, f, src: PVector):
 
 def _owned_assign(dest: PVector, src: PVector):
     _owned_update(dest, lambda _d, s: s, src)
+
+
+def _matvec(A: PSparseMatrix, x: PVector, strict: bool) -> PVector:
+    """A @ x, with strict mode's left-to-right row folds when ``strict``."""
+    if not strict:
+        return A @ x
+    return A.mul_into(PVector.full(0.0, A.rows, dtype=np.result_type(A.dtype, x.dtype)), x, strict=True)
 
 
 def _final_true_rel(A, x, b, rel_est, rs0_norm, tol, force=False):
@@ -107,6 +122,15 @@ def _host_block_solve(solve_one, B, X0, column_errors="raise"):
     return xs, info
 
 
+def _check_device_block(strict: bool, lowering: str) -> None:
+    """The device block solve runs on band operators, without strict mode."""
+    if strict or lowering != "auto":
+        raise NotImplementedError(
+            "the device block (multi-RHS) solve takes neither strict mode nor another lowering: solve "
+            "the right-hand sides one by one"
+        )
+
+
 def _check_block_args(name, b, x0, B, column_errors="raise"):
     """Validate a multi-RHS call (solvers.py:126-147, the checks that apply
     to the port's arguments); returns B as a list."""
@@ -130,6 +154,8 @@ def cg(
     B=None,
     X0=None,
     column_errors: str = "raise",
+    strict: bool = False,
+    lowering: str = "auto",
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
@@ -146,7 +172,10 @@ def cg(
     freezing where it stops; elsewhere the solo loop column by column.
     Returns ``(xs, info)``; ``column_errors="report"`` reports a column's
     non-finite failure under ``info["column_health"]`` instead of raising.
-    ``pipelined`` with ``B`` raises: the lag-1 body is single-RHS only."""
+    ``pipelined`` with ``B`` raises: the lag-1 body is single-RHS only.
+
+    ``strict`` and ``lowering``: see the module docstring (the device block
+    solve takes neither: it runs on band operators only)."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
 
     if B is not None:
@@ -154,36 +183,37 @@ def cg(
         if pipelined:
             raise ValueError("cg: the pipelined (lag-1) form is single-RHS only; drop pipelined or B")
         if isinstance(B[0].values.backend, GPUBackend):
+            _check_device_block(strict, lowering)
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
                                 column_errors=column_errors, box=box)
         return _host_block_solve(
-            lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose),
+            lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict),
             B, X0, column_errors=column_errors,
         )
     check(b is not None, "cg: a right-hand side b (or a block B) is required")
     if isinstance(b.values.backend, GPUBackend):
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-            pipelined=pipelined, box=box,
+            pipelined=pipelined, box=box, strict=strict, lowering=lowering,
         )
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     r = b.copy()  # rows-range residual
-    q = A @ x
+    q = _matvec(A, x, strict)
     _owned_update(r, lambda rv, qv: rv - qv, q)
     p = PVector.full(0.0, A.cols, dtype=b.dtype)
     _owned_assign(p, r)
-    rs = r.dot(r)
+    rs = r.dot(r, strict=strict)
     rs0 = rs
     history = [np.sqrt(rs)]
     it = 0
     while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
-        q = A @ p
-        alpha = rs / p.dot(q)
+        q = _matvec(A, p, strict)
+        alpha = rs / p.dot(q, strict=strict)
         _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
         _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
-        rs_new = r.dot(r)
+        rs_new = r.dot(r, strict=strict)
         beta = rs_new / rs
         _owned_update(p, lambda pv, rv: rv + beta * pv, r)
         rs = rs_new
@@ -343,6 +373,8 @@ def pcg(
     B=None,
     X0=None,
     column_errors: str = "raise",
+    strict: bool = False,
+    lowering: str = "auto",
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
@@ -360,7 +392,10 @@ def pcg(
     (solvers.py:1476-1510): with a diagonal ``minv`` on the GPU backend one
     device loop for the block (`gpu_block_cg`), the shared preconditioner
     applied per column; a callable ``minv`` (a `GMGHierarchy` included)
-    solves the columns in sequence, each through its solo path."""
+    solves the columns in sequence, each through its solo path.
+
+    ``strict`` and ``lowering`` as in `cg` (the device GMG-PCG takes
+    neither)."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
     from .gmg import GMGHierarchy
 
@@ -369,11 +404,12 @@ def pcg(
     if B is not None:
         B = _check_block_args("pcg", b, x0, B, column_errors)
         if isinstance(B[0].values.backend, GPUBackend) and not callable(minv):
+            _check_device_block(strict, lowering)
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, minv=minv,
                                 fused=fused, column_errors=column_errors, box=box)
         return _host_block_solve(
             lambda bk, x0k: pcg(A, bk, x0=x0k, minv=minv, tol=tol, maxiter=maxiter, verbose=verbose,
-                                box=box, stencil=stencil, fused=fused),
+                                box=box, stencil=stencil, fused=fused, strict=strict, lowering=lowering),
             B, X0, column_errors=column_errors,
         )
     check(b is not None, "pcg: a right-hand side b (or a block B) is required")
@@ -381,6 +417,8 @@ def pcg(
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
+            if strict or lowering != "auto":
+                raise NotImplementedError("pcg: the device GMG-PCG takes neither strict mode nor another lowering")
             if fused is not None:
                 raise ValueError(
                     "pcg: the GMG-preconditioned device loop has one PCG body, with no fused "
@@ -391,14 +429,14 @@ def pcg(
                                box=box, stencil=stencil)
         if not callable(minv):
             return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-                          box=box, minv=minv)
+                          box=box, minv=minv, strict=strict, lowering=lowering)
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose)
+    return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict)
 
 
-def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose):
+def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False):
     """The host PCG recurrence (solvers.py:1556-1674 without its health,
-    checkpoint and telemetry seams)."""
+    checkpoint and telemetry seams); ``strict`` as in `cg`."""
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="pcg")
     z = PVector.full(0.0, A.cols, dtype=b.dtype)
 
@@ -410,24 +448,24 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose):
 
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     r = b.copy()
-    q = A @ x
+    q = _matvec(A, x, strict)
     _owned_update(r, lambda rv, qv: rv - qv, q)
     _apply_precond()
     p = PVector.full(0.0, A.cols, dtype=b.dtype)
     _owned_assign(p, z)
-    rs = r.dot(r)
-    rz = r.dot(z)
+    rs = r.dot(r, strict=strict)
+    rz = r.dot(z, strict=strict)
     rs0 = rs
     history = [np.sqrt(rs)]
     it = 0
     while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
-        q = A @ p
-        alpha = rz / p.dot(q)
+        q = _matvec(A, p, strict)
+        alpha = rz / p.dot(q, strict=strict)
         _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
         _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
         _apply_precond()
-        rz_new = r.dot(z)
-        rs = r.dot(r)
+        rz_new = r.dot(z, strict=strict)
+        rs = r.dot(r, strict=strict)
         beta = rz_new / rz
         _owned_update(p, lambda pv, zv: zv + beta * pv, z)
         rz = rz_new

@@ -71,6 +71,7 @@ LAUNCHES = {
     "dia_stream_spmv": 0, "box_stencil_apply": 0, "cg_sweep": 0, "vcycle_epilogue": 0,
     "dia_coded_spmv_pfold_minv": 0, "cg_sweep_precond": 0, "cg_sweep_block": 0,
     "dia_coded_spmm": 0, "dia_stream_spmm": 0, "block_products": 0,
+    "ell_spmv": 0, "ell_spmv_boundary": 0, "bsr_spmv": 0, "bsr_spmv_boundary": 0, "pairwise_dot": 0,
 }
 
 MAX_DIAGS = 64
@@ -95,9 +96,11 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources of the port, one shared library each (box_stencil is
 #: the multigrid stencil of ops/stencil.py, cg_sweep the CG update sweep of
 #: ops/sweep.py, vcycle_epilogue the V-cycle's smoother and residual of
-#: ops/epilogue.py, dia_coded_block and dia_stream_block the block SpMMs)
+#: ops/epilogue.py, dia_coded_block and dia_stream_block the block SpMMs,
+#: ell_spmv, bsr_spmv and pairwise_dot the irregular lowerings' products and
+#: the strict dot of ops/irregular.py)
 SOURCES = ("dia_coded", "dia_stream", "box_stencil", "cg_sweep", "vcycle_epilogue",
-           "dia_coded_block", "dia_stream_block")
+           "dia_coded_block", "dia_stream_block", "ell_spmv", "bsr_spmv", "pairwise_dot")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pa_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -837,6 +840,9 @@ def build_kernels() -> dict:
     _bind(libs["dia_coded_block"], "pa_dia_coded_spmm", _SpmmParams, 10)
     _bind(libs["dia_stream_block"], "pa_dia_stream_spmm", _StreamSpmmParams, 5)
     _bind(libs["vcycle_epilogue"], "pa_vcycle_epilogue", _EpilogueParams, 6)
+    from . import irregular
+
+    irregular.bind(libs)
     for dt in ("f32", "f64"):
         f = getattr(libs["box_stencil"], f"pa_box_stencil_query_{dt}")
         f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]

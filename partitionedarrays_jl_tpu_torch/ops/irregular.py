@@ -1,0 +1,438 @@
+"""The products of the irregular lowerings and the strict dot: the CUDA
+kernels E1-E3 and their plain PyTorch versions, and the supernode-dense
+product (a batched matrix product, no kernel of the port).
+
+They stand for XLA forms of the JAX package, where no Pallas kernel runs
+(`partitionedarrays_jl_tpu/parallel/tpu.py`):
+
+* E1 `ell_spmv` (`csrc/ell_spmv.cu`): the padded-ELL fold `_ell_rowsum`
+  (:2916-2924), for A_oo of the ELL lowering (``(P, no_max, L)`` values and
+  slot columns) and, in its boundary mode `ell_spmv_boundary`, for the
+  compact boundary-row A_oh of every lowering without node blocks, the
+  band ones included (`_finish`, :3230-3233); the boundary mode also takes
+  ``(P, W, K)`` slabs, column k summed as a frame;
+* E2 `bsr_spmv` (`csrc/bsr_spmv.cu`): the node-block gather and
+  ``einsum("nlij,nlj->ni")`` of the BSR lowering (:3143-3160), bs in {2,
+  3, 4}, and in its boundary mode `bsr_spmv_boundary` one width bucket of
+  the node-block A_oh (:3201-3229);
+* E3 `pairwise_dot` (`csrc/pairwise_dot.cu`): strict mode's dot,
+  `_strict_pairwise_partial` and `_pdot_factory`'s strict branch
+  (:2486-2551): products rounded one by one, the fixed pairwise tree a
+  part (`utils/helpers.py:pairwise_sum`), the parts added left to right;
+* `sd_spmv`: the supernode-dense product (:3096-3142), a gather of the
+  groups' external unions and one `torch.bmm` a width bucket, in full
+  precision (the JAX package's ``Precision.HIGHEST``): a float32 product
+  runs only with TF32 off (`check_full_precision`).
+
+Order: E1 folds a row's slots left to right from slot 0 and E2 adds a
+row's terms in ascending (block, column) order from the first, each
+product rounded before its add; the boundary modes round a row's sum once
+into y (the host's two-phase ``A_oo`` fold, then ``+=`` of the ``A_oh``
+fold). The plain versions repeat that order, so each kernel equals its
+plain version bit for bit, and E1 equals the host's strict `csr_spmv`.
+E2 agrees with the JAX einsum to rounding (its order is XLA's).
+
+Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
+the kernel or raises. Launches count in ``dia.LAUNCHES`` under
+``ell_spmv``, ``ell_spmv_boundary``, ``bsr_spmv``, ``bsr_spmv_boundary``
+and ``pairwise_dot`` (one a call; a dot runs two or three passes and a
+fold); the kernels are built with the others by `dia.build_kernels`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from . import dia
+
+#: the block sizes of E2 (its template instances)
+BSR_BLOCK_SIZES = (2, 3, 4)
+#: elements a CTA of E3 reduces (PA_PW_BLOCK in csrc/pairwise_dot.cu)
+PW_BLOCK = 2048
+
+
+class _EllParams(ctypes.Structure):
+    """Mirror of `PaEllParams` in csrc/ell_spmv.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+        ("trash", ctypes.c_longlong),
+    ]
+
+
+class _BsrParams(ctypes.Structure):
+    """Mirror of `PaBsrParams` in csrc/bsr_spmv.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("Lb", ctypes.c_int),
+        ("bs", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        ("nn", ctypes.c_longlong),
+        ("wx", ctypes.c_longlong),
+        ("wy", ctypes.c_longlong),
+        ("xo0", ctypes.c_longlong),
+        ("yo0", ctypes.c_longlong),
+        ("trash", ctypes.c_longlong),
+    ]
+
+
+class _PairwiseParams(ctypes.Structure):
+    """Mirror of `PaPairwiseParams` in csrc/pairwise_dot.cu."""
+
+    _fields_ = [
+        ("P", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("m", ctypes.c_longlong),
+        ("wa", ctypes.c_longlong),
+        ("wb", ctypes.c_longlong),
+        ("o0", ctypes.c_longlong),
+    ]
+
+
+def bind(libs: dict) -> None:
+    """Set the ctypes signatures of E1-E3 on their built libraries."""
+    vp = ctypes.c_void_p
+    for dt in ("f32", "f64"):
+        for name, params in (("ell_spmv", _EllParams), ("bsr_spmv", _BsrParams)):
+            f = getattr(libs[name], f"pa_{name}_{dt}")
+            f.argtypes = [ctypes.POINTER(params), vp, vp, vp, vp, vp, vp]
+            f.restype = ctypes.c_int
+        f = getattr(libs["pairwise_dot"], f"pa_pairwise_dot_{dt}")
+        f.argtypes = [ctypes.POINTER(_PairwiseParams), vp, vp, vp, ctypes.c_longlong, vp, vp]
+        f.restype = ctypes.c_int
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA
+    one; raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def _check(name: str, x: torch.Tensor, floats: Sequence[torch.Tensor], ints: Sequence[torch.Tensor]) -> str:
+    """The kernel's type name; raises unless the float operands share x's
+    dtype (f32 or f64) and device and the index operands are int64, all
+    contiguous."""
+    if x.dtype not in dia._DT:
+        raise TypeError(f"{name}: the kernel takes float32 or float64, got {x.dtype}")
+    for t in floats:
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: values and frames must be contiguous, on one device, of one dtype")
+    for t in ints:
+        if t.device != x.device or t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"{name}: index arrays must be contiguous int64 on the operand's device")
+    return dia._DT[x.dtype]
+
+
+# ---------------------------------------------------------------------------
+# E1: padded ELL
+# ---------------------------------------------------------------------------
+
+
+def _slab_index(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An index over dim 1 of a (P, W) frame, repeated over the columns of
+    a (P, W, K) slab."""
+    return idx if x.dim() == 2 else idx[..., None].expand(*idx.shape, x.shape[2])
+
+
+def _ell_fold(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum_l vals[:, i, l] * x[:, cols[:, i, l]], left to right from slot 0."""
+    col = (lambda l: vals[:, :, l]) if x.dim() == 2 else (lambda l: vals[:, :, l, None])
+    acc = col(0) * x.gather(1, _slab_index(cols[:, :, 0], x))
+    for l in range(1, vals.shape[2]):
+        acc = acc + col(l) * x.gather(1, _slab_index(cols[:, :, l], x))
+    return acc
+
+
+def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, o0: int,
+                   width: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `ell_spmv`."""
+    width = x.shape[1] if width is None else int(width)
+    P, n, _ = vals.shape
+    y = x.new_zeros((P, width))
+    y[:, o0 : o0 + n] = _ell_fold(vals, cols, x)
+    return y
+
+
+def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, o0: int,
+             width: Optional[int] = None) -> torch.Tensor:
+    """y = A_oo x for a padded-ELL operand: vals (P, n, L) and int64 slot
+    columns cols (P, n, L) into x's frame (P, Wx) -> y (P, width) with rows
+    ``[o0, o0 + n)`` computed (row i = the fold of staged row i) and every
+    other slot 0 (width defaults to Wx)."""
+    width = x.shape[1] if width is None else int(width)
+    if not _on_cuda("ell_spmv", x):
+        return ell_spmv_plain(vals, cols, x, o0, width)
+    dt = _check("ell_spmv", x, (vals, x), (cols,))
+    P, n, L = vals.shape
+    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != (P, n, L) or L < 1 or width < o0 + n:
+        raise ValueError(f"ell_spmv: operand {tuple(x.shape)} or result width {width} does not fit "
+                         f"{P} parts of {n} rows at {o0}")
+    y = torch.empty((P, width), dtype=x.dtype, device=x.device)
+    prm = _EllParams(P=P, L=L, K=1, mode=0, n=n, wx=x.shape[1], wy=width, o0=o0, trash=-1)
+    fn = getattr(dia.build_kernels()["ell_spmv"], f"pa_ell_spmv_{dt}")
+    rc = fn(ctypes.byref(prm), None, vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
+    dia._raise_on(rc, "ell_spmv")
+    dia.LAUNCHES["ell_spmv"] += 1
+    return y
+
+
+def ell_spmv_boundary_plain(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                            y: torch.Tensor, trash: int) -> torch.Tensor:
+    """Plain version of `ell_spmv_boundary` (pad rows add +0.0 to the
+    trash slot, which the kernel leaves untouched)."""
+    acc = _ell_fold(vals, cols, x)
+    keep = rows != trash
+    acc = torch.where(keep if x.dim() == 2 else keep[..., None], acc, 0)
+    y.scatter_add_(1, _slab_index(rows, y), acc)
+    return y
+
+
+def ell_spmv_boundary(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                      y: torch.Tensor, trash: int) -> torch.Tensor:
+    """y[:, rows[:, b]] += the fold of staged boundary row b, in place:
+    rows (P, nb) int64 row slots of y (pads at the ``trash`` slot, skipped),
+    vals (P, nb, L) and int64 slot columns cols (P, nb, L) into x. x and y
+    are (P, W) frames or (P, W, K) slabs (column k summed as a frame).
+    Returns y."""
+    if not _on_cuda("ell_spmv_boundary", x):
+        return ell_spmv_boundary_plain(rows, vals, cols, x, y, trash)
+    dt = _check("ell_spmv_boundary", x, (vals, x, y), (rows, cols))
+    P, nb, L = vals.shape
+    K = 1 if x.dim() == 2 else x.shape[2]
+    if (x.dim() not in (2, 3) or y.dim() != x.dim() or x.shape[0] != P or y.shape[0] != P
+            or (x.dim() == 3 and y.shape[2] != K) or tuple(cols.shape) != (P, nb, L)
+            or tuple(rows.shape) != (P, nb) or L < 1):
+        raise ValueError(f"ell_spmv_boundary: frames {tuple(x.shape)}/{tuple(y.shape)} do not fit {P} parts of "
+                         f"{nb} boundary rows of {L} slots")
+    if y.data_ptr() == x.data_ptr():
+        raise ValueError("ell_spmv_boundary: y is updated in place and must not alias x")
+    prm = _EllParams(P=P, L=L, K=K, mode=1, n=nb, wx=x.shape[1], wy=y.shape[1], o0=0, trash=int(trash))
+    fn = getattr(dia.build_kernels()["ell_spmv"], f"pa_ell_spmv_{dt}")
+    rc = fn(ctypes.byref(prm), rows.data_ptr(), vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            _stream(x))
+    dia._raise_on(rc, "ell_spmv_boundary")
+    dia.LAUNCHES["ell_spmv_boundary"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# E2: node blocks
+# ---------------------------------------------------------------------------
+
+
+def _bsr_fold(vals: torch.Tensor, cols: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
+    """(P, nn, bs): row i of node n = sum over blocks l and columns j of
+    vals[:, n, l, i, j] * xn[:, cols[:, n, l], j], ascending (l, j)."""
+    P, nn, Lb, bs, _ = vals.shape
+    xg = xn.gather(1, cols.reshape(P, nn * Lb, 1).expand(P, nn * Lb, bs)).view(P, nn, Lb, bs)
+    acc = None
+    for l in range(Lb):
+        for j in range(bs):
+            t = vals[:, :, l, :, j] * xg[:, :, l, j, None]
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def bsr_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0: int, yo0: int,
+                   width: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `bsr_spmv`."""
+    width = x.shape[1] if width is None else int(width)
+    P, nn, _, bs, _ = vals.shape
+    xn = x[:, xo0 : xo0 + nn * bs].reshape(P, nn, bs)
+    y = x.new_zeros((P, width))
+    y[:, yo0 : yo0 + nn * bs] = _bsr_fold(vals, cols, xn).reshape(P, nn * bs)
+    return y
+
+
+def _bsr_check(name, vals, cols, x, nodes, xo0, rows=None, y=None):
+    P, nn, Lb, bs, bs2 = vals.shape
+    if bs not in BSR_BLOCK_SIZES or bs2 != bs or Lb < 1:
+        raise ValueError(f"{name}: blocks {tuple(vals.shape)}: bs must be one of {BSR_BLOCK_SIZES}")
+    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != (P, nn, Lb) or xo0 + nodes * bs > x.shape[1]:
+        raise ValueError(f"{name}: frame {tuple(x.shape)} does not hold {P} parts of {nodes} nodes at {xo0}")
+    if rows is not None and (tuple(rows.shape) != (P, nn, bs) or y.dim() != 2 or y.shape[0] != P):
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} or result {tuple(y.shape)} do not fit the blocks")
+    floats = (vals, x) if y is None else (vals, x, y)
+    ints = (cols,) if rows is None else (rows, cols)
+    return _check(name, x, floats, ints)
+
+
+def bsr_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0: int, yo0: int,
+             width: Optional[int] = None) -> torch.Tensor:
+    """y = A_oo x for a node-block operand: vals (P, nn, Lb, bs, bs), int64
+    node columns cols (P, nn, Lb) into the node frame ``x[:, xo0:]`` (node c
+    at ``xo0 + c*bs``) -> y (P, width) with rows ``[yo0, yo0 + nn*bs)``
+    computed and every other slot 0 (width defaults to Wx)."""
+    width = x.shape[1] if width is None else int(width)
+    if not _on_cuda("bsr_spmv", x):
+        return bsr_spmv_plain(vals, cols, x, xo0, yo0, width)
+    P, nn, Lb, bs, _ = vals.shape
+    dt = _bsr_check("bsr_spmv", vals, cols, x, nn, xo0)
+    if width < yo0 + nn * bs:
+        raise ValueError(f"bsr_spmv: result width {width} does not hold {nn * bs} rows at {yo0}")
+    y = torch.empty((P, width), dtype=x.dtype, device=x.device)
+    prm = _BsrParams(P=P, Lb=Lb, bs=bs, mode=0, nn=nn, wx=x.shape[1], wy=width, xo0=xo0, yo0=yo0, trash=-1)
+    fn = getattr(dia.build_kernels()["bsr_spmv"], f"pa_bsr_spmv_{dt}")
+    rc = fn(ctypes.byref(prm), None, vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
+    dia._raise_on(rc, "bsr_spmv")
+    dia.LAUNCHES["bsr_spmv"] += 1
+    return y
+
+
+def bsr_spmv_boundary_plain(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                            g0: int, nhn: int, y: torch.Tensor, trash: int) -> torch.Tensor:
+    """Plain version of `bsr_spmv_boundary` (pad rows add +0.0 to the
+    trash slot, which the kernel leaves untouched)."""
+    P, nb, _, bs, _ = vals.shape
+    xn = x[:, g0 : g0 + nhn * bs].reshape(P, nhn, bs)
+    acc = torch.where(rows != trash, _bsr_fold(vals, cols, xn), 0)
+    y.scatter_add_(1, rows.reshape(P, nb * bs), acc.reshape(P, nb * bs))
+    return y
+
+
+def bsr_spmv_boundary(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, g0: int,
+                      nhn: int, y: torch.Tensor, trash: int) -> torch.Tensor:
+    """One width bucket of the node-block A_oh, in place: for staged
+    boundary node n and i < bs, ``y[:, rows[:, n, i]] +=`` row i of its
+    blocks vals (P, nb, Lb, bs, bs) against the ghost-node frame of x
+    (``nhn`` nodes from ``g0``, int64 node columns cols (P, nb, Lb)); rows
+    (P, nb, bs) int64, pads at the ``trash`` slot, skipped. Returns y."""
+    if not _on_cuda("bsr_spmv_boundary", x):
+        return bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y, trash)
+    P, nb, Lb, bs, _ = vals.shape
+    dt = _bsr_check("bsr_spmv_boundary", vals, cols, x, nhn, g0, rows, y)
+    if y.data_ptr() == x.data_ptr():
+        raise ValueError("bsr_spmv_boundary: y is updated in place and must not alias x")
+    prm = _BsrParams(P=P, Lb=Lb, bs=bs, mode=1, nn=nb, wx=x.shape[1], wy=y.shape[1], xo0=g0, yo0=0,
+                     trash=int(trash))
+    fn = getattr(dia.build_kernels()["bsr_spmv"], f"pa_bsr_spmv_{dt}")
+    rc = fn(ctypes.byref(prm), rows.data_ptr(), vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            _stream(x))
+    dia._raise_on(rc, "bsr_spmv_boundary")
+    dia.LAUNCHES["bsr_spmv_boundary"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# E3: the strict dot
+# ---------------------------------------------------------------------------
+
+
+def padded_length(n: int) -> int:
+    """The tree's length for n elements: the next power of two (1 for
+    n <= 1)."""
+    return 1 << (int(n) - 1).bit_length() if n > 1 else 1
+
+
+def _scratch_len(m: int) -> int:
+    """Partials a part the passes of E3 write (scratch_len in the source)."""
+    total, count = 0, m
+    while True:
+        count //= min(count, PW_BLOCK)
+        total += count
+        if count <= 1:
+            return total
+
+
+def pairwise_dot_plain(a: torch.Tensor, b: torch.Tensor, o0: int, n: int) -> torch.Tensor:
+    """Plain version of `pairwise_dot`: the products of the bands, padded
+    with +0.0 to `padded_length`, ``v[:, 0::2] + v[:, 1::2]`` until one
+    column, then the parts added left to right."""
+    t = a[:, o0 : o0 + n] * b[:, o0 : o0 + n]
+    t = torch.nn.functional.pad(t, (0, padded_length(n) - n))
+    while t.shape[1] > 1:
+        t = t[:, 0::2] + t[:, 1::2]
+    s = t[:, 0]
+    acc = s[0]
+    for i in range(1, s.shape[0]):
+        acc = acc + s[i]
+    return acc
+
+
+def pairwise_dot(a: torch.Tensor, b: torch.Tensor, o0: int, n: int) -> torch.Tensor:
+    """The strict dot of the bands ``[o0, o0 + n)`` of (P, W) frames a and
+    b, a 0-d tensor: per part the fixed pairwise tree of the rounded
+    products (bit for bit numpy's `utils/helpers.pairwise_sum` of them),
+    then the parts added left to right."""
+    if not _on_cuda("pairwise_dot", a):
+        return pairwise_dot_plain(a, b, o0, n)
+    dt = _check("pairwise_dot", a, (a, b), ())
+    P = a.shape[0]
+    if a.dim() != 2 or b.dim() != 2 or b.shape[0] != P or n < 0 or o0 + n > min(a.shape[1], b.shape[1]):
+        raise ValueError(f"pairwise_dot: frames {tuple(a.shape)}/{tuple(b.shape)} do not hold a band at {o0} of {n}")
+    m = padded_length(n)
+    scratch = torch.empty((P * _scratch_len(m),), dtype=a.dtype, device=a.device)
+    out = torch.empty((), dtype=a.dtype, device=a.device)
+    prm = _PairwiseParams(P=P, pad_=0, n=n, m=m, wa=a.shape[1], wb=b.shape[1], o0=o0)
+    fn = getattr(dia.build_kernels()["pairwise_dot"], f"pa_pairwise_dot_{dt}")
+    rc = fn(ctypes.byref(prm), a.data_ptr(), b.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
+            _stream(a))
+    dia._raise_on(rc, "pairwise_dot")
+    dia.LAUNCHES["pairwise_dot"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the supernode-dense product (no kernel: torch.bmm at full precision)
+# ---------------------------------------------------------------------------
+
+
+def check_full_precision(dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless a float32 matrix product on `device` runs in full
+    float32 (TF32 off), the counterpart of the JAX package's
+    ``Precision.HIGHEST``; the global setting is read, never changed."""
+    if dtype != torch.float32 or torch.device(device).type != "cuda":
+        return
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "supernode-dense lowering: float32 matrix products run in TF32 "
+            "(torch.backends.cuda.matmul.allow_tf32 or torch.set_float32_matmul_precision); "
+            "the SD product needs full float32: turn TF32 off or take lowering='bsr'"
+        )
+
+
+def sd_spmv(idx: Sequence[torch.Tensor], vals: Sequence[torch.Tensor], x: torch.Tensor, o0: int, n: int,
+            bs: int, G: int, width: int) -> torch.Tensor:
+    """y = A_oo x for the supernode-dense staging (tpu.py:3096-3142): a
+    group's own nodes arrive by a reshape of the owned band, its external
+    union (idx, (P, groups, emax) int64 node ids per width bucket) by a
+    gather, and each bucket's group blocks vals (P, groups, G*bs,
+    (G + emax)*bs) multiply the gathered operand in one `torch.bmm`. Returns
+    (P, width) with the band ``[o0, o0 + n)`` computed and 0 elsewhere."""
+    check_full_precision(x.dtype, x.device)
+    P = x.shape[0]
+    nn = n // bs
+    yn = x[:, o0 : o0 + n].reshape(P, nn, bs)
+    ngr = sum(int(i.shape[1]) for i in idx)
+    yp = torch.nn.functional.pad(yn, (0, 0, 0, ngr * G - nn)) if ngr * G > nn else yn
+    outs, g = [], 0
+    for idx_c, val_c in zip(idx, vals):
+        len_c, emax_c = int(idx_c.shape[1]), int(idx_c.shape[2])
+        xs = yp[:, g * G : (g + len_c) * G].reshape(P, len_c, G * bs)
+        xe = yn.gather(1, idx_c.reshape(P, len_c * emax_c, 1).expand(P, len_c * emax_c, bs))
+        xg = torch.cat([xs, xe.reshape(P, len_c, emax_c * bs)], dim=2)
+        prod = torch.bmm(val_c.reshape(P * len_c, G * bs, -1), xg.reshape(P * len_c, -1, 1))
+        outs.append(prod.reshape(P, len_c * G * bs))
+        g += len_c
+    y = x.new_zeros((P, width))
+    y[:, o0 : o0 + n] = torch.cat(outs, dim=1)[:, :n]
+    return y

@@ -3,8 +3,10 @@
 The port's copy of `partitionedarrays_jl_tpu/ops/sparse.py` (reference:
 src/SparseUtils.jl) with the NumPy paths only: the host planning format is
 **CSR**; **ELL** (rows padded to a uniform count) is the form the boundary
-block A_oh takes on the card. The banded owned block runs as the coded-DIA
-kernels of `ops/dia.py`.
+block A_oh takes on the card, the owned block of the ELL lowering, and the
+order of strict mode's host SpMV (`csr_spmv(strict=True)`). The banded
+owned block runs as the coded-DIA kernels of `ops/dia.py`, the others as
+those of `ops/irregular.py`.
 """
 from __future__ import annotations
 
@@ -19,13 +21,14 @@ from ..utils.table import INDEX_DTYPE
 class CSRMatrix:
     """Host CSR with sorted, deduplicated column indices per row."""
 
-    __slots__ = ("indptr", "indices", "data", "shape")
+    __slots__ = ("indptr", "indices", "data", "shape", "_ell")
 
     def __init__(self, indptr, indices, data, shape: Tuple[int, int]):
         self.indptr = np.asarray(indptr, dtype=INDEX_DTYPE)
         self.indices = np.asarray(indices, dtype=INDEX_DTYPE)
         self.data = np.asarray(data)
         self.shape = (int(shape[0]), int(shape[1]))
+        self._ell = None  # the ELL form strict csr_spmv folds over, built at first use
         check(len(self.indptr) == self.shape[0] + 1, "bad indptr length")
 
     @property
@@ -118,18 +121,32 @@ def compresscoo(
 
 
 def csr_spmv(A: CSRMatrix, x: np.ndarray, y: Optional[np.ndarray] = None,
-             alpha: float = 1.0, beta: float = 0.0) -> np.ndarray:
+             alpha: float = 1.0, beta: float = 0.0, strict: bool = False) -> np.ndarray:
     """Host CSR SpMV: y = beta*y + alpha*A@x. Deterministic per-row
-    accumulation (column-sorted rows + reduceat)."""
+    accumulation (column-sorted rows + reduceat). With ``strict``
+    (sparse.py:191-215 of the JAX package) a row's sum is instead an
+    explicit left-to-right fold over its ELL-padded slots, the order of the
+    card's E1 kernel (`ops/irregular.ell_spmv`); reduceat's order is a
+    NumPy implementation detail no kernel reproduces."""
     check(len(x) >= A.shape[1], "x too short for A")
     xv = np.asarray(x)
-    prod = A.data * xv[A.indices]
-    starts = A.indptr[:-1]
-    rowsum = np.zeros(A.shape[0], dtype=prod.dtype if prod.size else A.dtype)
-    nonempty = A.indptr[:-1] < A.indptr[1:]
-    if prod.size:
-        sums = np.add.reduceat(prod, starts[nonempty]) if nonempty.any() else prod[:0]
-        rowsum[nonempty] = sums
+    if strict:
+        if A._ell is None:
+            A._ell = ELLMatrix.from_csr(A)
+        E = A._ell
+        if E.vals.shape[1] == 0 or E.vals.shape[0] == 0:
+            rowsum = np.zeros(A.shape[0], dtype=A.dtype)
+        else:
+            # pad slots carry value 0 at column 0: +-0.0 terms, rounding-neutral
+            rowsum = E.vals[:, 0] * xv[E.cols[:, 0]]
+            for l in range(1, E.vals.shape[1]):
+                rowsum = rowsum + E.vals[:, l] * xv[E.cols[:, l]]
+    else:
+        prod = A.data * xv[A.indices]
+        rowsum = np.zeros(A.shape[0], dtype=prod.dtype if prod.size else A.dtype)
+        nonempty = A.indptr[:-1] < A.indptr[1:]
+        if prod.size:
+            rowsum[nonempty] = np.add.reduceat(prod, A.indptr[:-1][nonempty]) if nonempty.any() else prod[:0]
     if y is None:
         return alpha * rowsum
     y *= beta

@@ -1,7 +1,7 @@
 """GPU backend: the parts of a partition stacked on one CUDA card (L3').
 
 The counterpart of `partitionedarrays_jl_tpu/parallel/tpu.py`, cut to the
-Poisson CG and multigrid slices:
+Poisson CG, multigrid and unstructured-elasticity slices:
 
 * **Planning on the host.** `GPUData` extends the sequential PData, so
   PRange construction, Exchanger build and COO assembly run unchanged; only
@@ -19,8 +19,11 @@ Poisson CG and multigrid slices:
 * **Operator.** `DeviceMatrix` lowers a PSparseMatrix's owned block A_oo
   to the coded-DIA form (codebook + nibble-packed per-row codes) or, for a
   band of variable coefficients, the streaming-DIA form (dense
-  per-diagonal values), and its ghost block A_oh to a compact
-  boundary-row ELL. A_oo runs as the CUDA kernels of `ops/dia.py`.
+  per-diagonal values), both run by the CUDA kernels of `ops/dia.py`; an
+  operator that is no band (an unstructured FE operator) to supernode-dense
+  groups, node blocks or padded ELL (`gpu_irregular.py`, products in
+  `ops/irregular.py`). Its ghost block A_oh lives on the boundary rows, as
+  node blocks or compact boundary-row ELL.
 * **Halo exchange.** Combine ``set`` (owner -> ghost) and ``add`` (ghost
   -> owner assembly, over the reversed plan).
 * **CG.** `make_cg_fn` runs the textbook, the fused (direction fold riding
@@ -30,6 +33,10 @@ Poisson CG and multigrid slices:
   graph); x and r are updated and r.r taken in one sweep kernel
   (`ops/sweep.py`); dots are per-part partials folded in part order.
   Multigrid on the card is `parallel/gpu_gmg.py`.
+* **Strict bits.** ``strict=True`` (the JAX package's
+  ``PA_TPU_STRICT_BITS=1``, a keyword here) lowers to ELL on the generic
+  plan and takes every dot through the fixed pairwise tree (E3): the
+  solve is then the host's strict loop bit for bit.
 
 The device defaults to ``cuda``; with no card it raises at first use and
 never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
@@ -403,24 +410,43 @@ def row_classes(dia_p: np.ndarray, n: int, K: int):
 # ---------------------------------------------------------------------------
 
 
+#: the lowerings a caller may ask for (`DeviceMatrix`'s ``lowering``)
+LOWERINGS = ("auto", "sd", "bsr", "ell")
+
+
 class DeviceMatrix:
-    """A PSparseMatrix lowered for the card: A_oo as a band, either a
-    coded-DIA operand (`ops/dia.py:CodedOperator`, ``dia_mode == "coded"``)
-    when every diagonal holds few distinct values, or dense per-diagonal
-    values ``(P, D, no_max)`` (``dia_mode == "stream"``, tpu.py:1688-1726
-    in its off-TPU form) otherwise; A_oh as compact boundary-row ELL arrays
-    ``(P, nb_max[, L])`` whose columns index the column frame through its
-    slot maps (so a box layout's ghost segments need nothing more). With
-    ``box`` (the default) the column range takes the box layout and plan
-    where `gpu_box` detects one (tpu.py:1264-1283)."""
+    """A PSparseMatrix lowered for the card (tpu.py:1366-1487), named in
+    ``lowering``. A_oo as a band when it is one: a coded-DIA operand
+    (`ops/dia.py:CodedOperator`, ``"coded"``) when every diagonal holds few
+    distinct values, or dense per-diagonal values ``(P, D, no_max)``
+    (``"stream"``, tpu.py:1688-1726 in its off-TPU form) otherwise; both
+    set ``dia_mode``. Any other A_oo takes, in the JAX package's order off
+    a TPU, the supernode-dense groups (``"sd"``: ``sd_idx``, ``sd_vals``
+    per width bucket), node blocks (``"bsr"``: ``bsr_cols``, ``bsr_vals``)
+    or padded ELL (``"ell"``: ``oo_vals``, ``oo_cols``), staged by
+    `gpu_irregular`; the keyword ``lowering`` ("auto", "sd", "bsr", "ell")
+    names the first of those tried. A_oh lives on the boundary rows only:
+    node blocks of the SD/BSR block size where the ghosts arrive as whole
+    nodes (``ohb_*``), else boundary-row ELL (``oh_*``). With ``box`` (the
+    default) the column range takes the box layout and plan where
+    `gpu_box` detects one (tpu.py:1264-1283). ``strict`` (strict-bits
+    mode) forces the ELL lowering and the generic plan: every product is
+    then the host's strict `csr_spmv` + `mul_into` order, bit for bit."""
 
     #: most band offsets of the DIA form (tpu.py:DeviceMatrix)
     DIA_MAX_OFFSETS = 64
     #: most distinct values per diagonal (and row classes) of the coded form
     CODE_MAX_VALUES = 8
 
-    def __init__(self, A: PSparseMatrix, backend: GPUBackend, box: bool = True):
-        dev = backend.device
+    def __init__(self, A: PSparseMatrix, backend: GPUBackend, box: bool = True, strict: bool = False,
+                 lowering: str = "auto"):
+        check(lowering in LOWERINGS, f"DeviceMatrix: lowering is one of {LOWERINGS}, got {lowering!r}")
+        if strict:
+            # strict mode: the ELL lowering, whose two-phase left-to-right
+            # fold is the host's csr_spmv + mul_into order, and the generic
+            # exchange plan (tpu.py:1363-1367, :791-805)
+            check(lowering in ("auto", "ell"), "DeviceMatrix: strict mode takes the ELL lowering")
+            lowering, box = "ell", False
         isets = A.rows.partition.part_values()
         P = len(isets)
         noids = np.array([i.num_oids for i in isets], dtype=np.int64)
@@ -428,13 +454,8 @@ class DeviceMatrix:
         dt = A.dtype
         oo = A.owned_owned_values.part_values()
         oh = A.owned_ghost_values.part_values()
-        det = self._detect_dia(A, oo, P, noids, no_max)
-        if det is None:
-            raise NotImplementedError(
-                "DeviceMatrix: this operator is not a band (square A_oo, "
-                f"<= {self.DIA_MAX_OFFSETS} diagonals); its ELL/SD/BSR "
-                "lowering comes in a later slice of the port"
-            )
+        det = None if strict else self._detect_dia(A, oo, P, noids, no_max)
+        self.strict = bool(strict)
         self.rows, self.cols = A.rows, A.cols
         self.backend = backend
         self.row_layout = device_layout(A.rows, box)
@@ -443,32 +464,21 @@ class DeviceMatrix:
         self.col_plan = device_exchange_plan(A.cols, backend, box=box)
         self.flops_per_spmv = 2 * sum(oo[p].nnz + oh[p].nnz for p in range(P))
 
-        # A_oh in compact boundary-row form: only rows touching the ghost
-        # layer carry entries (tpu.py:1528-1558)
-        self.oh_nnz = sum(m.nnz for m in oh)
-        self.oh_rows = self.oh_vals = self.oh_cols = None
-        if self.oh_nnz:
-            rl, cl = self.row_layout, self.col_layout
-            L_oh = max(max(int(m.row_lengths().max()) if m.nnz else 0 for m in oh), 1)
-            nb_max = max(max(int(np.count_nonzero(m.row_lengths())) for m in oh), 1)
-            oh_rows = np.full((P, nb_max), rl.trash, dtype=np.int64)
-            oh_vals = np.zeros((P, nb_max, L_oh), dtype=dt)
-            oh_cols = np.full((P, nb_max, L_oh), cl.trash, dtype=np.int64)
-            for p in range(P):
-                br = np.nonzero(oh[p].row_lengths())[0]
-                if len(br):
-                    E = ELLMatrix.from_csr(oh[p], row_width=L_oh)
-                    oh_rows[p, : len(br)] = rl.o0 + br
-                    oh_vals[p, : len(br)] = E.vals[br]
-                    # ELL pad cols are hid 0 with value 0: a real slot, safe
-                    oh_cols[p, : len(br)] = cl.hid_slots[p][E.cols[br]]
-            self.oh_rows = torch.from_numpy(oh_rows).to(dev)
-            self.oh_vals = torch.from_numpy(oh_vals).to(dev)
-            self.oh_cols = torch.from_numpy(oh_cols).to(dev)
-
-        self.dia_offsets = tuple(int(o) for o in det["offsets"])
         self.coded = self.stream_vals = self.stream_no = self.stream_form = None
         self.dia_kk = self.dia_code_row = self.dia_cls_pattern = None
+        self.dia_mode = self.dia_offsets = None
+        self.sd_bs = self.sd_g = self.sd_idx = self.sd_vals = None
+        self.bsr_bs = self.bsr_cols = self.bsr_vals = None
+        self.oo_vals = self.oo_cols = None
+        if det is None:
+            self._stage_irregular(oo, P, noids, no_max, dt, lowering)
+        self._stage_boundary(A, oh, P, dt)
+        if det is None:
+            return
+        dev = backend.device
+        self.lowering = "coded" if det["coded_ok"] else "stream"
+
+        self.dia_offsets = tuple(int(o) for o in det["offsets"])
         if not det["coded_ok"]:
             # streaming-DIA staging: the dense per-diagonal values,
             # diagonal-major so a kernel's neighbouring rows read
@@ -532,6 +542,81 @@ class DeviceMatrix:
             cls_pattern=cls_pattern,
             o0=self.row_layout.o0,
         )
+
+    def _stage_irregular(self, oo, P, noids, no_max, dt, lowering):
+        """A_oo of an operator that is not a band, in the JAX package's order
+        off a TPU (tpu.py:1424-1487): supernode-dense, else node blocks,
+        else padded ELL. ``lowering`` names the first one tried (``"sd"``
+        is ``"auto"``; ``"bsr"`` skips SD and ``"ell"`` both, as
+        ``PA_TPU_SD=0`` / ``PA_TPU_BSR=0`` do); ``self.lowering`` names
+        the one taken."""
+        from . import gpu_irregular as gi
+        from ..ops import irregular as irr
+
+        dev = self.backend.device
+        rl, cl = self.row_layout, self.col_layout
+        check(rl.o0 == cl.o0 and cl.no_max == no_max, "irregular lowering: A_oo must be square in the frames")
+        sd = gi.detect_sd(oo, P, noids, no_max, dt) if lowering in ("auto", "sd") else None
+        bsr = gi.detect_bsr(oo, P, noids, no_max, dt) if sd is None and lowering != "ell" else None
+        if sd is not None:
+            self.lowering = "sd"
+            self.sd_bs, self.sd_g = sd["bs"], sd["G"]
+            self.sd_idx = tuple(torch.from_numpy(c["idx"].astype(np.int64)).to(dev) for c in sd["chunks"])
+            self.sd_vals = tuple(torch.from_numpy(c["vals"]).to(dev) for c in sd["chunks"])
+            irr.check_full_precision(self.sd_vals[0].dtype, dev)
+        elif bsr is not None:
+            self.lowering = "bsr"
+            self.bsr_bs = bsr["bs"]
+            self.bsr_cols = torch.from_numpy(bsr["cols"].astype(np.int64)).to(dev)
+            self.bsr_vals = torch.from_numpy(bsr["vals"]).to(dev)
+        else:
+            self.lowering = "ell"
+            vals, cols = gi.stage_ell(oo, P, no_max, cl, dt)
+            self.oo_vals = torch.from_numpy(vals).to(dev)
+            self.oo_cols = torch.from_numpy(cols).to(dev)
+
+    def _stage_boundary(self, A, oh, P, dt):
+        """A_oh, on the boundary rows only (tpu.py:1513-1558): node blocks
+        of the SD or BSR block size where the ghost columns arrive as whole
+        nodes (`gpu_irregular.detect_oh_blocks`, a width bucket a launch of
+        `ops/irregular.bsr_spmv_boundary`), else compact boundary-row ELL
+        arrays ``(P, nb_max[, L])`` for `ops/irregular.ell_spmv_boundary`,
+        whose columns index the column frame through its slot maps (so a
+        box layout's ghost segments need nothing more)."""
+        from . import gpu_irregular as gi
+
+        dev = self.backend.device
+        rl, cl = self.row_layout, self.col_layout
+        self.oh_nnz = sum(m.nnz for m in oh)
+        self.oh_rows = self.oh_vals = self.oh_cols = None
+        self.ohb_bs = self.ohb_rows = self.ohb_cols = self.ohb_vals = self.ohb_nhn = None
+        if not self.oh_nnz:
+            return
+        bs = self.sd_bs or self.bsr_bs
+        ohb = gi.detect_oh_blocks(A.cols.partition.part_values(), oh, P, bs, rl, cl, dt) if bs else None
+        if ohb is not None:
+            self.ohb_bs = ohb["bs"]
+            self.ohb_nhn = (cl.W - cl.g0 - 1) // self.ohb_bs  # ghost nodes of the column frame
+            self.ohb_rows = tuple(torch.from_numpy(c["rows"].astype(np.int64)).to(dev) for c in ohb["chunks"])
+            self.ohb_cols = tuple(torch.from_numpy(c["cols"].astype(np.int64)).to(dev) for c in ohb["chunks"])
+            self.ohb_vals = tuple(torch.from_numpy(c["vals"]).to(dev) for c in ohb["chunks"])
+            return
+        L_oh = max(max(int(m.row_lengths().max()) if m.nnz else 0 for m in oh), 1)
+        nb_max = max(max(int(np.count_nonzero(m.row_lengths())) for m in oh), 1)
+        oh_rows = np.full((P, nb_max), rl.trash, dtype=np.int64)
+        oh_vals = np.zeros((P, nb_max, L_oh), dtype=dt)
+        oh_cols = np.full((P, nb_max, L_oh), cl.trash, dtype=np.int64)
+        for p in range(P):
+            br = np.nonzero(oh[p].row_lengths())[0]
+            if len(br):
+                E = ELLMatrix.from_csr(oh[p], row_width=L_oh)
+                oh_rows[p, : len(br)] = rl.o0 + br
+                oh_vals[p, : len(br)] = E.vals[br]
+                # ELL pad cols are hid 0 with value 0: a real slot, safe
+                oh_cols[p, : len(br)] = cl.hid_slots[p][E.cols[br]]
+        self.oh_rows = torch.from_numpy(oh_rows).to(dev)
+        self.oh_vals = torch.from_numpy(oh_vals).to(dev)
+        self.oh_cols = torch.from_numpy(oh_cols).to(dev)
 
     @classmethod
     def _detect_dia(cls, A, oo, P, noids, no_max):
@@ -616,16 +701,37 @@ class DeviceMatrix:
         }
 
 
-def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True) -> DeviceMatrix:
-    """The lowering of A for a backend, cached on A per ``box``."""
-    if (backend, box) not in A._device:
-        A._device[backend, box] = DeviceMatrix(A, backend, box)
-    return A._device[backend, box]
+def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True, strict: bool = False,
+                  lowering: str = "auto") -> DeviceMatrix:
+    """The lowering of A for a backend, cached on A per ``box``, ``strict``
+    and ``lowering`` (strict mode is one entry: the ELL lowering on the
+    generic plan)."""
+    key = (backend, False, True, "ell") if strict else (backend, bool(box), False, lowering)
+    if key not in A._device:
+        A._device[key] = DeviceMatrix(A, backend, box, strict=strict, lowering=lowering)
+    return A._device[key]
 
 
 # ---------------------------------------------------------------------------
 # SpMV and CG
 # ---------------------------------------------------------------------------
+
+
+def _irregular_aoo(dA: DeviceMatrix, plain: bool) -> Callable:
+    """``aoo(xv, width) -> y`` for the SD, BSR and ELL lowerings: the A_oo
+    product of the column frame xv into a (P, width) row frame, the owned
+    band computed and 0 elsewhere (tpu.py:3096-3161): `irregular.sd_spmv`
+    (torch.bmm: no plain form), E2 `bsr_spmv` or E1 `ell_spmv`."""
+    from ..ops import irregular as irr
+
+    o0, n = dA.col_layout.o0, dA.col_layout.no_max
+    if dA.lowering == "sd":
+        return lambda xv, width: irr.sd_spmv(dA.sd_idx, dA.sd_vals, xv, o0, n, dA.sd_bs, dA.sd_g, width)
+    if dA.lowering == "bsr":
+        k = irr.bsr_spmv_plain if plain else irr.bsr_spmv
+        return lambda xv, width: k(dA.bsr_vals, dA.bsr_cols, xv, o0, o0, width)
+    k = irr.ell_spmv_plain if plain else irr.ell_spmv
+    return lambda xv, width: k(dA.oo_vals, dA.oo_cols, xv, o0, width)
 
 
 def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
@@ -635,38 +741,63 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     the A_oh contribution on the boundary rows and the ghost region of the
     result zeroed (`_finish`). The operand's ghost slots are refreshed in
     place. A coded operator runs the coded-DIA kernel, a streaming one the
-    streaming-DIA kernel (`_dia_rowsum`, tpu.py:2960-2975). ``pfold``
-    gives ``body(r, pprev, beta, minv=None) -> (A p, p)`` with ``p = r +
-    beta*pprev`` (with ``minv``, Jacobi PCG's ``p = minv*r + beta*pprev``);
-    ``axpy`` gives ``body(x, xacc, pprev, alpha) -> (A x, xacc)`` with the
-    lagged update ``xacc += alpha*pprev`` applied in place on the owned
-    band where the optional device flag ``live`` is not 0
-    (tpu.py:3237-3256). On a coded operator both ride the kernel's pass
-    (K2, K3); on a streaming one the fold and the update are eager ops
-    before K4, as the JAX package applies them outside its kernel
-    (tpu.py:3284-3291, :3022-3031). ``block`` gives the same bodies over
-    ``(P, W, K)`` slabs (beta (K,) per column, minv shared), on the block
-    products `dia_coded_spmm` / `dia_stream_spmm`; column k of a block
-    body is the single-vector body of column k. ``plain`` runs the plain
+    streaming-DIA kernel (`_dia_rowsum`, tpu.py:2960-2975), an SD, BSR or
+    ELL one its product of `ops/irregular.py` (`_irregular_aoo`). A_oh
+    runs E2's boundary mode a width bucket (node blocks) or E1's
+    (boundary-row ELL). ``pfold`` gives ``body(r, pprev, beta, minv=None)
+    -> (A p, p)`` with ``p = r + beta*pprev`` (with ``minv``, Jacobi PCG's
+    ``p = minv*r + beta*pprev``); ``axpy`` gives ``body(x, xacc, pprev,
+    alpha) -> (A x, xacc)`` with the lagged update ``xacc += alpha*pprev``
+    applied in place on the owned band where the optional device flag
+    ``live`` is not 0 (tpu.py:3237-3256). On a coded operator both ride the
+    kernel's pass (K2, K3); on any other the fold and the update are eager
+    ops before the product, as the JAX package applies them outside its
+    kernel (tpu.py:3284-3291, :3022-3031, :2859-2864), each product rounded
+    on its own. ``block`` gives the same bodies over ``(P, W, K)`` slabs
+    (beta (K,) per column, minv shared), on the block products
+    `dia_coded_spmm` / `dia_stream_spmm` of a band (the block forms of the
+    other lowerings are not ported: they raise); column k of a block body
+    is the single-vector body of column k. ``plain`` runs the plain
     versions of the kernels on the same tensors (the comparison path)."""
+    from ..ops import irregular as irr
+
     op = dA.coded
     wy = dA.row_layout.W
     g0 = dA.row_layout.g0
     o0 = dA.row_layout.o0
     plan = dA.col_plan
     check(not (block and axpy), "the pipelined body is single-vector only")
-    if dA.dia_mode == "stream":
-        n = dA.stream_vals.shape[-1]
-        own = torch.arange(n, device=dA.stream_vals.device)[None, :] < dA.stream_no.to(torch.int64)[:, None]
+    if block and dA.dia_mode is None:
+        raise NotImplementedError(
+            f"the block (multi-RHS) body of the {dA.lowering} lowering is not ported: solve the "
+            "right-hand sides one by one"
+        )
+    if dA.dia_mode == "coded":
         if block:
-            stream_k = dia.dia_stream_spmm_plain if plain else dia.dia_stream_spmm
-            form = {}
+            spmv_k = dia.dia_coded_spmm_plain if plain else dia.dia_coded_spmm
+            pfold_k = dia.dia_coded_spmm_pfold_plain if plain else dia.dia_coded_spmm_pfold
         else:
-            stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
-            form = {} if plain else {"form": dA.stream_form}
+            spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
+            pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
+            axpy_k = dia.dia_coded_spmv_axpy_plain if plain else dia.dia_coded_spmv_axpy
+    else:
+        n = dA.row_layout.no_max
+        own = (torch.arange(n)[None, :] < torch.from_numpy(dA.row_layout.noids)[:, None]).to(dA.backend.device)
+        if dA.dia_mode == "stream":
+            if block:
+                stream_k = dia.dia_stream_spmm_plain if plain else dia.dia_stream_spmm
+                form = {}
+            else:
+                stream_k = dia.dia_stream_spmv_plain if plain else dia.dia_stream_spmv
+                form = {} if plain else {"form": dA.stream_form}
 
-        def spmv_k(_op, xv, width):
-            return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width, **form)
+            def spmv_k(_op, xv, width):
+                return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width, **form)
+        else:
+            aoo = _irregular_aoo(dA, plain)
+
+            def spmv_k(_op, xv, width):
+                return aoo(xv, width)
 
         def pfold_k(_op, rv, pv, beta, width, minv=None):
             # beta*pprev, then + r (or + minv*r): the rounding of
@@ -690,24 +821,20 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             xb = xacc[:, band]
             xb.copy_(torch.where(on, xb + alpha * pprev[:, band], xb))
             return spmv_k(_op, xv, width)
-    elif block:
-        spmv_k = dia.dia_coded_spmm_plain if plain else dia.dia_coded_spmm
-        pfold_k = dia.dia_coded_spmm_pfold_plain if plain else dia.dia_coded_spmm_pfold
-    else:
-        spmv_k = dia.dia_coded_spmv_plain if plain else dia.dia_coded_spmv
-        pfold_k = dia.dia_coded_spmv_pfold_plain if plain else dia.dia_coded_spmv_pfold
-        axpy_k = dia.dia_coded_spmv_axpy_plain if plain else dia.dia_coded_spmv_axpy
+
+    ell_b = irr.ell_spmv_boundary_plain if plain else irr.ell_spmv_boundary
+    bsr_b = irr.bsr_spmv_boundary_plain if plain else irr.bsr_spmv_boundary
+    trash = dA.row_layout.trash
+    cg0 = dA.col_layout.g0
 
     def _finish(y, xv):
         exchange_(plan, xv)
         if dA.oh_nnz:
-            # strict left-to-right fold over the ELL row slots
-            acc = None
-            for l in range(dA.oh_vals.shape[-1]):
-                v = dA.oh_vals[:, :, l]
-                t = (v if y.dim() == 2 else v[..., None]) * xv.gather(1, _slot_index(dA.oh_cols[:, :, l], xv))
-                acc = t if acc is None else acc + t
-            y.scatter_add_(1, _slot_index(dA.oh_rows, y), acc)
+            if dA.ohb_bs is not None:
+                for rows_c, cols_c, vals_c in zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals):
+                    bsr_b(rows_c, vals_c, cols_c, xv, cg0, dA.ohb_nhn, y, trash)
+            else:
+                ell_b(dA.oh_rows, dA.oh_vals, dA.oh_cols, xv, y, trash)
             y[:, g0:] = 0
         return y
 
@@ -741,9 +868,17 @@ def make_spmv_fn(dA: DeviceMatrix) -> Callable:
     return run
 
 
-def _pdot_factory(o0: int, no_max: int):
+def _pdot_factory(o0: int, no_max: int, strict: bool = False, plain: bool = False):
     """Deterministic dot over the owned regions: per-part partials, folded
-    in part order (tpu.py:_pdot_factory)."""
+    in part order (tpu.py:_pdot_factory). ``strict`` takes E3
+    (`ops/irregular.pairwise_dot`, its plain version with ``plain``): the
+    strict branch of tpu.py:2538-2551, bit for bit the host's strict
+    `PVector.dot`."""
+    if strict:
+        from ..ops import irregular as irr
+
+        k = irr.pairwise_dot_plain if plain else irr.pairwise_dot
+        return lambda a, b: k(a, b, o0, no_max)
 
     def pdot(a, b):
         part = (a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1)
@@ -823,11 +958,19 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     ``p = minv*r + beta*pprev`` into the SpMV pass (K2 with minv); the
     standard body updates ``p = minv*r + beta*p`` eagerly; the sweep takes
     the r.z and r.r partials together (its precond form). The pipelined
-    body stays unpreconditioned, as in the JAX package."""
+    body stays unpreconditioned, as in the JAX package.
+
+    On a strict lowering (``dA.strict``, strict-bits mode) the standard
+    body is the default, as `_fused_cg_enabled` keeps it (tpu.py:818-826),
+    and every reduction is E3's fixed tree (`_pdot_factory`): the sweep
+    updates x and r (each product rounded) and r.r, with ``precond`` also
+    r.z of the stored z = minv*r, are taken by E3 from them, so the loop
+    follows the host's strict CG bit for bit."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
-    fused = (not pipelined) if fused is None else bool(fused)
+    strict = dA.strict
+    fused = (not pipelined and not strict) if fused is None else bool(fused)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
     if precond and pipelined:
@@ -838,12 +981,12 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
-    pdot = _pdot_factory(o0, no_max)
+    pdot = _pdot_factory(o0, no_max, strict, plain)
     stop_it = gl.stop_bound(maxiter)
 
     def step(S):
         rs, it, armed = S["rs"], S["it"], S["live"]
-        go = (torch.sqrt(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)
+        go = (gl.sqrt_rn(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)
         if precond:
             go = go & (S["rz"] != 0)
         live = armed * go.to(torch.int32)
@@ -863,6 +1006,17 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         alpha = rz / pdot(p, q)
         if pipelined:
             rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max)
+            if strict:
+                rs_new = pdot(S["r"], S["r"])
+        elif strict:
+            # the sweep updates x and r; the dots are E3's tree
+            sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p)
+            rs_new = pdot(S["r"], S["r"])
+            if precond:
+                z = torch.zeros_like(S["r"])
+                z[:, sl] = mv[:, sl] * S["r"][:, sl]
+                rz_new = pdot(S["r"], z)
+                out["rz"] = torch.where(live != 0, rz_new, rz)
         elif precond:
             rz_new, rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p, minv=mv)
             out["rz"] = torch.where(live != 0, rz_new, rz)
@@ -892,11 +1046,11 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         rs0 = pdot(r, r)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         init = {
-            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
             "it": torch.zeros((), dtype=torch.int32, device=x.device),
             "live": torch.ones((), dtype=torch.int32, device=x.device),
-            "hist": gl.history(torch.sqrt(rs0), maxiter),
-            "part": sw.sweep_partials(r, no_max, 2 if precond else None),
+            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+            "part": sw.sweep_partials(r, no_max, 2 if precond and not strict else None),
         }
         z = r
         if precond:
@@ -916,6 +1070,7 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
 
     fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
     fn.precond = bool(precond)
+    fn.strict = strict
     fn.stats = loop.stats  # updated in place by every run
     fn.loop = loop
     return fn
@@ -966,7 +1121,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     def step(S):
         rs, it, armed = S["rs"], S["it"], S["live"]
         rz = S["rz"] if precond else rs
-        go = (torch.sqrt(rs) > S["thr"]) & torch.isfinite(rs) & (it < stop_it) & (armed != 0)
+        go = (gl.sqrt_rn(rs) > S["thr"]) & torch.isfinite(rs) & (it < stop_it) & (armed != 0)
         if precond:
             go = go & (rz != 0)
         act = go.to(torch.int32)
@@ -992,7 +1147,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
             z = mv[:, sl, None] * S["r"][:, sl] if precond else S["r"][:, sl]
             p[:, sl] = z + torch.where(on, beta, 0) * p[:, sl]
         out.update(rs=torch.where(on, rs_new, rs), it=it + live, itk=S["itk"] + act, live=live)
-        gl.record(S["hist"], out["it"], act, torch.sqrt(rs_new))
+        gl.record(S["hist"], out["it"], act, gl.sqrt_rn(rs_new))
         return out
 
     loop = gl.DeviceLoop(step, gl.CG_BLOCK if block is None else block, graph)
@@ -1010,11 +1165,11 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
         rs0 = bdot(r, r)
         dev = x.device
         init = {
-            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
             "it": torch.zeros((), dtype=torch.int32, device=dev),
             "itk": torch.zeros((K,), dtype=torch.int32, device=dev),
             "live": torch.ones((), dtype=torch.int32, device=dev),
-            "hist": gl.history(torch.sqrt(rs0), maxiter),
+            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
             "part": sw.sweep_partials(r, no_max, 2 * K if precond else K),
         }
         z = r
@@ -1069,10 +1224,11 @@ def _block_on_cols_layout(Bs, dA: DeviceMatrix, with_ghosts: bool = False) -> to
 
 def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
                 verbose: bool, solve: Callable, name: str, box: bool = True,
-                minv: Optional[PVector] = None, **extra) -> Tuple[PVector, dict]:
+                minv: Optional[PVector] = None, dA: Optional[DeviceMatrix] = None,
+                **extra) -> Tuple[PVector, dict]:
     """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
-    the column layout of A's lowering for ``box`` (and a Jacobi ``minv``,
-    its owned values), run ``solve(b, x0[, minv]) -> (x, rs, rs0, it,
+    the column layout of A's lowering ``dA`` (by default the one for
+    ``box``), and a Jacobi ``minv`` (its owned values), run ``solve(b, x0[, minv]) -> (x, rs, rs0, it,
     history)``, lift the result back to a host PVector and build the info
     dict: the history cut to ``it + 1`` entries (at most its length),
     ``device_loop`` the solve's `fn.stats` (loop form, block, device
@@ -1081,7 +1237,7 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
 
     backend = b.values.backend
     floor_warned = warn_tol_below_floor(tol, b.dtype, name=name)
-    dA = device_matrix(A, backend, box)
+    dA = dA if dA is not None else device_matrix(A, backend, box)
     x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
@@ -1117,6 +1273,8 @@ def gpu_cg(
     plain: bool = False,
     box: bool = True,
     minv: Optional[PVector] = None,
+    strict: bool = False,
+    lowering: str = "auto",
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
@@ -1125,16 +1283,21 @@ def gpu_cg(
     fused or the standard body. ``plain=True`` runs the kernels' plain
     versions on the card instead (the comparison path of chip_smoke.py).
     ``box=False`` lowers A on the generic layout and exchange plan instead
-    of the box ones. The info dict records the body under ``cg_body``."""
+    of the box ones; ``lowering`` names the first non-band lowering tried
+    (`DeviceMatrix`). ``strict`` (strict-bits mode) lowers A to ELL on the
+    generic plan and runs the standard body with E3's dots: the iterations,
+    residual history and solution of the host's strict loop, bit for bit.
+    The info dict records the body under ``cg_body`` and the lowering under
+    ``lowering``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    solve = make_cg_fn(
-        device_matrix(A, backend, box), tol, int(maxiter), fused=fused, pipelined=pipelined,
-        plain=plain, precond=minv is not None,
-    )
+    dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
+    solve = make_cg_fn(dA, tol, int(maxiter), fused=fused, pipelined=pipelined, plain=plain,
+                       precond=minv is not None)
     name = "pcg" if minv is not None else "cg"
-    return _run_krylov(A, b, x0, tol, verbose, solve, name, box=box, minv=minv, cg_body=solve.cg_body)
+    return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, cg_body=solve.cg_body,
+                       lowering=dA.lowering, strict=dA.strict)
 
 
 def gpu_block_cg(

@@ -488,7 +488,7 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
 
     def step(S):
         rs, rz_prev, it = S["rs"], S["rz_prev"], S["it"]
-        live = S["live"] * ((torch.sqrt(rs) > S["thr"]) & (it < stop_it) & (rz_prev != 0)).to(torch.int32)
+        live = S["live"] * ((gl.sqrt_rn(rs) > S["thr"]) & (it < stop_it) & (rz_prev != 0)).to(torch.int32)
         r, p = S["r"], S["p"]
         z = vcycle(r)
         rz = pdot(r, z)
@@ -509,11 +509,11 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
         rs0 = pdot(r, r)
         init = {
             "x": x, "r": r, "p": torch.zeros_like(x0), "rs": rs0,
-            "thr": tol * torch.clamp(torch.sqrt(rs0), min=1.0),
+            "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
             "rz_prev": torch.ones((), dtype=x.dtype, device=x.device),
             "it": torch.zeros((), dtype=torch.int32, device=x.device),
             "live": torch.ones((), dtype=torch.int32, device=x.device),
-            "hist": gl.history(torch.sqrt(rs0), maxiter), "part": sw.sweep_partials(r, no),
+            "hist": gl.history(gl.sqrt_rn(rs0), maxiter), "part": sw.sweep_partials(r, no),
         }
         S, _ = loop.run(init)
         return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()

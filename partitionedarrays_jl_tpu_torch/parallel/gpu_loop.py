@@ -45,6 +45,7 @@ import math
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import dia
@@ -80,12 +81,24 @@ def record(hist: torch.Tensor, it: torch.Tensor, live: torch.Tensor, value: torc
     hist.index_copy_(0, idx, torch.where(live != 0, value, keep).unsqueeze(0))
 
 
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a tensor, as NumPy's and the
+    host loops' ``np.sqrt``: `torch.sqrt` on a CUDA tensor (IEEE), NumPy's
+    on a CPU one, since PyTorch's vectorized CPU sqrt is not correctly
+    rounded (about 1% of float64 values come out an ulp off), which put the
+    device loop's residual history (and, at a threshold, its stopping test)
+    an ulp away from the host loop's on the CPU."""
+    if t.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(t.numpy())))
+    return torch.sqrt(t)
+
+
 def finish_step(out: State, S: State, live: torch.Tensor, rs_new: torch.Tensor) -> State:
     """The end of a step from state S with the new flag ``live``: rs, the
     iteration count and the flag into ``out`` (rs kept where the flag is
     0), and sqrt(rs_new) into the history where it is set."""
     out.update(rs=torch.where(live != 0, rs_new, S["rs"]), it=S["it"] + live, live=live)
-    record(S["hist"], out["it"], live, torch.sqrt(rs_new))
+    record(S["hist"], out["it"], live, sqrt_rn(rs_new))
     return out
 
 

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..ops.sparse import CSRMatrix, compresscoo, csr_block
+from ..ops.sparse import CSRMatrix, compresscoo, csr_block, csr_spmv
 from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE, Table
 from .backends import AbstractPData, map_parts
@@ -141,12 +141,14 @@ class PSparseMatrix:
     # ------------------------------------------------------------------
 
     def mul_into(
-        self, c: PVector, b: PVector, alpha: float = 1.0, beta: float = 0.0
+        self, c: PVector, b: PVector, alpha: float = 1.0, beta: float = 0.0, strict: bool = False
     ) -> PVector:
         """c = beta*c + alpha*A@b with communication/compute overlap.
         Ghost rows of c are not touched. Axis contract: c.rows ~ A.rows on
         owned ids; A.cols ~ b.rows on owned AND ghost ids (b must carry A's
-        column ghost layer)."""
+        column ghost layer). ``strict`` folds each block's rows left to
+        right (`csr_spmv(strict=True)`): the A_oo fold, then the A_oh
+        fold added, the order of the card's strict (ELL) lowering."""
         check(oids_are_equal(c.rows, self.rows), "mul: c.rows incompatible with A.rows")
         check(
             lids_are_equal(self.cols, b.rows),
@@ -164,7 +166,7 @@ class PSparseMatrix:
                 co[...] = 0.0
             elif beta != 1.0:
                 co *= beta
-            co += alpha * (blk["oo"] @ bo)
+            co += alpha * csr_spmv(blk["oo"], bo, strict=strict)
             return None
 
         map_parts(_phase1, self.rows.partition, c.values, b.rows.partition, b.values, blocks)
@@ -175,7 +177,7 @@ class PSparseMatrix:
                 check(ri.owned_first, "mul: c.rows must use the owned-first lid layout")
                 co = _owned(ri, cv)
                 bh = _ghost(bi, bv)
-                co += alpha * (blk["oh"] @ bh)
+                co += alpha * csr_spmv(blk["oh"], bh, strict=strict)
             return None
 
         map_parts(_phase2, self.rows.partition, c.values, b.rows.partition, b.values, blocks)

@@ -22,7 +22,7 @@ from typing import Callable
 
 import numpy as np
 
-from ..utils.helpers import check
+from ..utils.helpers import check, pairwise_sum
 from .backends import AbstractPData, Token, map_parts
 from .collectives import preduce
 from .exchanger import async_exchange_values
@@ -179,10 +179,18 @@ class PVector:
     # reductions (owned-only, deterministic part-order fold)
     # ------------------------------------------------------------------
 
-    def dot(self, other: "PVector"):
-        """Reference: src/Interfaces.jl:1985-1992."""
+    def dot(self, other: "PVector", strict: bool = False):
+        """Reference: src/Interfaces.jl:1985-1992. With ``strict``
+        (pvector.py:240-256 of the JAX package) each part's partial is the
+        fixed-tree `pairwise_sum` of the products, which the card's strict
+        dot reproduces bit for bit (np.dot's BLAS order is unspecified);
+        the parts fold left to right either way."""
+        if strict:
+            part_dot = lambda i, a, oi, b: pairwise_sum(_owned(i, a) * _owned(oi, b))  # noqa: E731
+        else:
+            part_dot = lambda i, a, oi, b: np.dot(_owned(i, a), _owned(oi, b))  # noqa: E731
         partials = map_parts(
-            lambda i, a, oi, b: np.dot(_owned(i, a), _owned(oi, b)),
+            part_dot,
             self.rows.partition,
             self.values,
             other.rows.partition,

@@ -1,8 +1,9 @@
 """Contract-enforcement and Krylov info helpers.
 
 The port's own copy of the parts of `partitionedarrays_jl_tpu/utils/helpers.py`
-that the Poisson CG slice needs: `check`, the tolerance-floor warning and
-the info dict shared by the host and device CG loops.
+that its slices need: `check`, strict mode's fixed-tree `pairwise_sum`, the
+tolerance-floor warning and the info dict shared by the host and device CG
+loops.
 """
 from __future__ import annotations
 
@@ -31,6 +32,26 @@ def check(condition, msg: str = "check failed") -> None:
     """Cheap contract assertion."""
     if not condition:
         raise AssertionError(msg)
+
+
+def pairwise_sum(v):
+    """Fixed-tree pairwise sum (helpers.py:66-75 of the JAX package): pad to
+    the next power of two with exact zeros, then ``v[0::2] + v[1::2]``
+    until one element. Strict mode's dots use it a part on the host
+    (`PVector.dot(strict=True)`); the card's E3 kernel
+    (`ops/irregular.pairwise_dot`) runs the identical tree, so the
+    partials agree bit for bit. Zero tail slots are rounding-neutral, so
+    trees padded to different power-of-two lengths agree as long as the
+    real data is a prefix (up to the sign of an exact-zero sum)."""
+    v = np.asarray(v)
+    if v.size == 0:
+        return v.dtype.type(0.0) if v.dtype.kind == "f" else 0.0
+    n = 1 << int(v.size - 1).bit_length() if v.size > 1 else 1
+    if v.size < n:
+        v = np.concatenate([v, np.zeros(n - v.size, dtype=v.dtype)])
+    while v.size > 1:
+        v = v[0::2] + v[1::2]
+    return v[0]
 
 
 #: a relative residual in dtype d cannot be resolved below about this many

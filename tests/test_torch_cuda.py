@@ -1008,3 +1008,220 @@ def test_block_products_kernel_matches_plain(dtype, K, moved):
     dots = _block_pdot_factory(o0, n)(a, b)
     for k in range(K):
         assert torch.equal(dots[k], _pdot_factory(o0, n)(a[..., k].contiguous(), b[..., k].contiguous()))
+
+
+# ---------------------------------------------------------------------------
+# E1-E3: the irregular lowerings' products and the strict dot
+# ---------------------------------------------------------------------------
+
+
+def _gpu(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,n,L,o0", [(1, 1, 1, 0), (2, 1000, 7, 3), (3, 2049, 13, 1), (1, 100003, 81, 0)],
+                         ids=["n1", "n1000", "n2049", "n100003"])
+def test_ell_spmv_kernel_matches_plain(dtype, P, n, L, o0):
+    """E1's A_oo mode against its plain version: random slot columns into a
+    frame wider than the band, a result frame wider still (every slot
+    outside the band 0)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(n + L)
+    wx, width = o0 + n + 11, o0 + n + 5
+    vals = _gpu(rng, (P, n, L), dtype)
+    cols = torch.from_numpy(rng.integers(0, wx, (P, n, L))).cuda()
+    x = _gpu(rng, (P, wx), dtype)
+    dia.reset_launches()
+    y = irr.ell_spmv(vals, cols, x, o0, width)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["ell_spmv"] == 1
+    assert torch.equal(y, irr.ell_spmv_plain(vals, cols, x, o0, width))
+    assert not y[:, :o0].any() and not y[:, o0 + n :].any()
+
+
+@pytest.mark.parametrize("K", [None, 3], ids=["frame", "slab3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,L", [(1, 1), (777, 5), (5001, 12)], ids=["nb1", "nb777", "nb5001"])
+def test_ell_boundary_kernel_matches_plain(nb, L, dtype, K):
+    """E1's boundary mode on frames and (P, W, K) slabs: distinct boundary
+    rows a part, a quarter of the staged rows padding at the trash slot
+    (left untouched), y updated in place from random values."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(nb + 7 * L)
+    P, wy = 3, 2 * nb + 9
+    trash = wy - 1
+    rows = np.stack([rng.permutation(wy - 1)[:nb] for _ in range(P)])
+    rows[:, nb - nb // 4 :] = trash
+    rows = torch.from_numpy(rows).cuda()
+    wx = nb + 13
+    tail = () if K is None else (K,)
+    vals = _gpu(rng, (P, nb, L), dtype)
+    cols = torch.from_numpy(rng.integers(0, wx, (P, nb, L))).cuda()
+    x = _gpu(rng, (P, wx) + tail, dtype)
+    y0 = _gpu(rng, (P, wy) + tail, dtype)
+    dia.reset_launches()
+    y = irr.ell_spmv_boundary(rows, vals, cols, x, y0.clone(), trash)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["ell_spmv_boundary"] == 1
+    assert torch.equal(y, irr.ell_spmv_boundary_plain(rows, vals, cols, x, y0.clone(), trash))
+    assert torch.equal(y[:, trash], y0[:, trash])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+@pytest.mark.parametrize("nn,Lb", [(1, 1), (333, 5), (4099, 17)], ids=["nn1", "nn333", "nn4099"])
+def test_bsr_spmv_kernel_matches_plain(nn, Lb, bs, dtype):
+    """E2's A_oo mode against its plain version: random node columns, the
+    node frame at an offset inside x, the band at another offset in y."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(nn * bs + Lb)
+    P, xo0, yo0 = 2, 2, 1
+    wx, width = xo0 + nn * bs + 7, yo0 + nn * bs + 4
+    vals = _gpu(rng, (P, nn, Lb, bs, bs), dtype)
+    cols = torch.from_numpy(rng.integers(0, nn, (P, nn, Lb))).cuda()
+    x = _gpu(rng, (P, wx), dtype)
+    dia.reset_launches()
+    y = irr.bsr_spmv(vals, cols, x, xo0, yo0, width)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["bsr_spmv"] == 1
+    assert torch.equal(y, irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+@pytest.mark.parametrize("nb,Lb", [(1, 1), (250, 9)], ids=["nb1", "nb250"])
+def test_bsr_boundary_kernel_matches_plain(nb, Lb, bs, dtype):
+    """E2's boundary mode (one node-block bucket): distinct boundary rows a
+    part, the last nodes padding at the trash slot (left untouched), the
+    ghost-node frame at g0."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(nb * bs + 3 * Lb)
+    P, g0, nhn = 3, 17, 41
+    wx = g0 + nhn * bs + 1
+    wy = nb * bs + 11
+    trash = wy - 1
+    rows = np.stack([rng.permutation(wy - 1)[: nb * bs] for _ in range(P)]).reshape(P, nb, bs)
+    rows[:, nb - nb // 5 :] = trash
+    rows = torch.from_numpy(rows).cuda()
+    vals = _gpu(rng, (P, nb, Lb, bs, bs), dtype)
+    cols = torch.from_numpy(rng.integers(0, nhn, (P, nb, Lb))).cuda()
+    x = _gpu(rng, (P, wx), dtype)
+    y0 = _gpu(rng, (P, wy), dtype)
+    dia.reset_launches()
+    y = irr.bsr_spmv_boundary(rows, vals, cols, x, g0, nhn, y0.clone(), trash)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["bsr_spmv_boundary"] == 1
+    assert torch.equal(y, irr.bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y0.clone(), trash))
+    assert torch.equal(y[:, trash], y0[:, trash])
+
+
+def _bits(t):
+    return np.asarray(t.cpu().numpy()).tobytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 2047, 2048, 2049, 100003, 4194305])
+def test_pairwise_dot_kernel_matches_numpy_tree(n, dtype):
+    """E3 bit for bit against its plain version and against the host's
+    `pairwise_sum` of the rounded products a part, folded left to right
+    (n = 4194305 > 2048^2: three tree passes), on three parts with
+    another band offset in b's wider frame."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+    from partitionedarrays_jl_tpu_torch.utils.helpers import pairwise_sum
+
+    rng = np.random.default_rng(n + 1)
+    P, o0 = 3, 2
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a = rng.standard_normal((P, o0 + n + 3)).astype(npdt)
+    b = rng.standard_normal((P, o0 + n + 9)).astype(npdt)
+    ga, gb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    dia.reset_launches()
+    got = irr.pairwise_dot(ga, gb, o0, n)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["pairwise_dot"] == 1
+    assert _bits(got) == _bits(irr.pairwise_dot_plain(ga, gb, o0, n))
+    parts = [pairwise_sum(a[p, o0 : o0 + n] * b[p, o0 : o0 + n]) for p in range(P)]
+    acc = parts[0]
+    for v in parts[1:]:
+        acc = acc + v
+    assert _bits(got) == np.asarray(acc, dtype=npdt).tobytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pairwise_dot_signed_zero_and_nan(dtype):
+    """E3 keeps the sign of an exact-zero sum (-0.0 products of one part
+    sum to -0.0 in the tree, then +0.0 with the zero padding, as numpy's)
+    and propagates NaN."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+    from partitionedarrays_jl_tpu_torch.utils.helpers import pairwise_sum
+
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    for n in (1, 2, 3, 4, 5):
+        a = -np.zeros((1, n), dtype=npdt)
+        b = np.ones((1, n), dtype=npdt)
+        got = irr.pairwise_dot(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(), 0, n)
+        want = np.asarray(pairwise_sum(a[0] * b[0]), dtype=npdt)
+        assert _bits(got) == want.tobytes()
+    a = np.ones((2, 9), dtype=npdt)
+    a[1, 4] = np.nan
+    got = irr.pairwise_dot(torch.from_numpy(a).cuda(), torch.from_numpy(a).cuda(), 0, 9)
+    assert torch.isnan(got)
+
+
+def test_strict_cg_matches_sequential_on_card():
+    """Strict CG (ELL lowering, E1 and E3) on the card against the port's
+    sequential strict loop, 6^3 Poisson on (2,2,2) parts, f64: iterations,
+    residual history and solution bit for bit."""
+    _need_card()
+
+    def drive(parts):
+        A, b, xe, x0 = pt.assemble_poisson(parts, (6, 6, 6))
+        x, info = pt.cg(A, b, x0=x0, tol=1e-8, maxiter=400, strict=True)
+        return pt.gather_pvector(x), info
+
+    xs, info_s = pt.prun(drive, pt.sequential, (2, 2, 2))
+    dia.reset_launches()
+    xg, info_g = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+    assert info_g["lowering"] == "ell" and info_g["cg_body"] == "standard"
+    assert dia.LAUNCHES["ell_spmv"] > 0 and dia.LAUNCHES["pairwise_dot"] > 0
+    assert info_s["iterations"] == info_g["iterations"]
+    assert np.asarray(info_s["residuals"]).tobytes() == np.asarray(info_g["residuals"]).tobytes()
+    assert xs.tobytes() == xg.tobytes()
+
+
+@pytest.mark.parametrize("lowering", ["auto", "bsr", "ell"])
+def test_elasticity_lowerings_on_card(lowering):
+    """The tet-elasticity operator on 4 stacked parts in each lowering: the
+    SpMV against the host product to rounding, Jacobi PCG with the
+    sequential backend's iterations and solution to 1e-10."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, device_matrix, make_spmv_fn
+
+    def drive(parts):
+        A, b, xh, x0 = pt.assemble_elasticity_tet(parts, (6, 6, 6))
+        x, info = pt.pcg(A, b, x0=x0, tol=1e-12, maxiter=500, lowering=lowering)
+        y = None
+        if isinstance(parts.backend, pt.GPUBackend):
+            dA = device_matrix(A, parts.backend, lowering=lowering)
+            dx = DeviceVector.from_pvector(xh, parts.backend, dA.col_layout)
+            y = pt.gather_pvector(DeviceVector(make_spmv_fn(dA)(dx.data), A.rows, dA.row_layout,
+                                               parts.backend).to_pvector())
+        return pt.gather_pvector(x), info, y, pt.gather_pvector(A @ xh)
+
+    xs, info_s, _, _ = pt.prun(drive, pt.sequential, 4)
+    xg, info_g, y, host = pt.prun(drive, pt.GPUBackend(), 4)
+    assert info_g["lowering"] == {"auto": "sd"}.get(lowering, lowering)
+    np.testing.assert_allclose(y, host, rtol=1e-12, atol=1e-12)
+    assert info_g["iterations"] == info_s["iterations"]
+    np.testing.assert_allclose(xg, xs, rtol=0, atol=1e-10)

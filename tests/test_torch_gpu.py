@@ -129,7 +129,9 @@ def test_exchange_matches_host():
 def test_variable_coefficient_operator_is_refused():
     """A variable-coefficient band (a diagonal with more distinct values
     than the codebook holds) takes the streaming-DIA lowering; an operator
-    that is not a band (more than DIA_MAX_OFFSETS diagonals) is refused."""
+    that is not a band (more than DIA_MAX_OFFSETS diagonals), which the
+    band-only lowering refused, takes the padded-ELL lowering (its 2x2 and
+    4x4 blocks are too sparse for SD and BSR) and multiplies exactly."""
 
     def driver(parts):
         rows = pt.prange(parts, 200)
@@ -145,8 +147,11 @@ def test_variable_coefficient_operator_is_refused():
         rev = parts._like([p * 100 + 99 - np.arange(100) for p in range(2)])
         ids = parts._like([np.arange(p * 100, p * 100 + 100) for p in range(2)])
         B = pt.PSparseMatrix.from_coo(ids, rev, V, pt.prange(parts, 200), pt.prange(parts, 200))
-        with pytest.raises(NotImplementedError, match="not a band"):
-            device_matrix(B, parts.backend)
+        dB = device_matrix(B, parts.backend)
+        assert dB.dia_mode is None and dB.lowering == "ell"
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, dB.col_layout.W)))
+        y = make_spmv_fn(dB)(x.clone()).numpy()
+        np.testing.assert_array_equal(y[:, :100], (1.0 + np.arange(100.0)) * x.numpy()[:, 99::-1])
         return True
 
     assert pt.prun(driver, CPU, 2)

@@ -1,0 +1,254 @@
+"""Strict-bits mode of the port (``strict=True``, the JAX package's
+``PA_TPU_STRICT_BITS=1``) against the JAX package's.
+
+The gate (BASELINE.md): strict CG on the 3-D Poisson driver, 6^3 on
+(2,2,2) parts, f64, bit for bit the sequential oracle. Held here:
+
+* the port's strict CG on ``GPUBackend(device="cpu")`` (the ELL lowering,
+  E1's and E3's plain versions), the port's sequential strict CG and the
+  JAX package's sequential strict CG: the same iterations, residual
+  history bits and solution bits (also Jacobi PCG, and the tet-elasticity
+  operator);
+* one strict SpMV on the card's layout bit for bit the JAX package's
+  strict SpMV and the port's host product; the port's strict `csr_spmv`
+  bit for bit the JAX package's;
+* E3's plain version bit for bit the JAX package's `pairwise_sum` of the
+  rounded products, folded left to right, on random, odd-length and -0.0
+  inputs; the port's `pairwise_sum` the JAX package's;
+* the repair this slice needed first: the device loop's square roots
+  (`gpu_loop.sqrt_rn`) bit for bit NumPy's;
+* default mode unchanged: the Poisson operator keeps the coded lowering.
+"""
+import numpy as np
+import pytest
+import torch
+
+import partitionedarrays_jl_tpu as pa
+from partitionedarrays_jl_tpu.models import assemble_poisson as jax_assemble_poisson
+from partitionedarrays_jl_tpu.ops.sparse import CSRMatrix as JaxCSR
+from partitionedarrays_jl_tpu.ops.sparse import csr_spmv as jax_csr_spmv
+from partitionedarrays_jl_tpu.parallel.tpu import DeviceVector as JaxDeviceVector
+from partitionedarrays_jl_tpu.parallel.tpu import device_matrix as jax_device_matrix
+from partitionedarrays_jl_tpu.parallel.tpu import make_spmv_fn as jax_make_spmv_fn
+from partitionedarrays_jl_tpu.utils.helpers import pairwise_sum as jax_pairwise_sum
+import partitionedarrays_jl_tpu_torch as pt
+from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix, csr_spmv
+from partitionedarrays_jl_tpu_torch.parallel import gpu_loop as gl
+from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, GPUBackend, device_matrix, make_spmv_fn
+from partitionedarrays_jl_tpu_torch.utils.helpers import pairwise_sum
+
+CPU = GPUBackend(device="cpu")
+
+
+@pytest.fixture
+def strict_env(monkeypatch):
+    """The JAX package in strict mode, assembling the Poisson operator on
+    its COO path, the one the port has: its box fast path
+    (``PA_TPU_STENCIL_FAST``, native code) numbers each part's ghost
+    columns in face-slab order instead of first touch, which reorders the
+    A_oh terms a strict row folds (the same values, other bits)."""
+    monkeypatch.setenv("PA_TPU_STRICT_BITS", "1")
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+    yield
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a)).tobytes()
+
+
+def _jax_fdm_cg(parts, ns):
+    A, b, xe, x0 = jax_assemble_poisson(parts, ns)
+    x, info = pa.cg(A, b, x0=x0, tol=1e-8, maxiter=400)
+    return pa.gather_pvector(x), info["iterations"], np.asarray(info["residuals"])
+
+
+def _port_fdm(parts, ns, solver):
+    """The Poisson system with b = A x̂ taken in strict mode, as the JAX
+    package assembles it under PA_TPU_STRICT_BITS=1, then the strict solve."""
+    A, _, xe, x0 = pt.assemble_poisson(parts, ns)
+    b = A.mul_into(pt.PVector.full(0.0, A.rows), xe, strict=True)
+    if solver == "cg":
+        x, info = pt.cg(A, b, x0=x0, tol=1e-8, maxiter=400, strict=True)
+    else:
+        x, info = pt.pcg(A, b, x0=x0, tol=1e-8, maxiter=400, strict=True)
+    return pt.gather_pvector(x), info
+
+
+@pytest.mark.parametrize("ns", [(6, 6, 6), (9, 7, 8)], ids=["6^3", "9x7x8"])
+def test_strict_cg_bitwise_three_ways(strict_env, ns):
+    """The gate on the port: GPU backend (CPU), port sequential and JAX
+    sequential strict CG agree bit for bit (iterations, history, x)."""
+    xj, itj, hj = pa.prun(_jax_fdm_cg, pa.sequential, (2, 2, 2), ns)
+    xs, info_s = pt.prun(_port_fdm, pt.sequential, (2, 2, 2), ns, "cg")
+    xg, info_g = pt.prun(_port_fdm, CPU, (2, 2, 2), ns, "cg")
+    assert info_g["lowering"] == "ell" and info_g["strict"] and info_g["cg_body"] == "standard"
+    assert info_s["cg_body"] == "host"
+    assert itj == info_s["iterations"] == info_g["iterations"]
+    assert _bits(hj) == _bits(info_s["residuals"]) == _bits(info_g["residuals"])
+    assert _bits(xj) == _bits(xs) == _bits(xg)
+
+
+def test_strict_pcg_bitwise(strict_env):
+    """Strict Jacobi PCG: the GPU backend (CPU) against the port's and the
+    JAX package's sequential loops, bit for bit."""
+
+    def jax_pcg(parts):
+        A, b, xe, x0 = jax_assemble_poisson(parts, (6, 6, 6))
+        x, info = pa.pcg(A, b, x0=x0, tol=1e-8, maxiter=400)
+        return pa.gather_pvector(x), info["iterations"], np.asarray(info["residuals"])
+
+    xj, itj, hj = pa.prun(jax_pcg, pa.sequential, (2, 2, 2))
+    xs, info_s = pt.prun(_port_fdm, pt.sequential, (2, 2, 2), (6, 6, 6), "pcg")
+    xg, info_g = pt.prun(_port_fdm, CPU, (2, 2, 2), (6, 6, 6), "pcg")
+    assert itj == info_s["iterations"] == info_g["iterations"]
+    assert _bits(hj) == _bits(info_s["residuals"]) == _bits(info_g["residuals"])
+    assert _bits(xj) == _bits(xs) == _bits(xg)
+
+
+@pytest.mark.parametrize("body", ["fused", "pipelined"])
+def test_strict_other_bodies_follow_the_oracle(body):
+    """Asked for explicitly, the fused and the pipelined body also run in
+    strict mode (eager folds, each product rounded, E3 dots): the oracle's
+    iterations and history bits; the fused body's solution bits too (the
+    pipelined body applies x's updates one iteration late, in the same
+    order, so its x is the oracle's as well)."""
+
+    def drive(parts, strict_kw):
+        A, b, xe, x0 = pt.assemble_poisson(parts, (6, 6, 6))
+        x, info = pt.cg(A, b, x0=x0, tol=1e-8, maxiter=400, strict=True, **strict_kw)
+        return pt.gather_pvector(x), info
+
+    xs, info_s = pt.prun(drive, pt.sequential, (2, 2, 2), {})
+    kw = {"fused": True} if body == "fused" else {"pipelined": True}
+    xg, info_g = pt.prun(drive, CPU, (2, 2, 2), kw)
+    assert info_g["cg_body"] == body and info_g["iterations"] == info_s["iterations"]
+    assert _bits(info_s["residuals"]) == _bits(info_g["residuals"])
+    assert _bits(xs) == _bits(xg)
+
+
+def test_strict_elasticity_pcg_bitwise():
+    """Strict Jacobi PCG on the tet-elasticity operator (forced to ELL from
+    its SD default) on 4 parts: the GPU backend (CPU) against the port's
+    sequential loop, bit for bit."""
+
+    def drive(parts):
+        A, b, xh, x0 = pt.assemble_elasticity_tet(parts, (4, 4, 4))
+        x, info = pt.pcg(A, b, x0=x0, tol=1e-12, maxiter=500, strict=True)
+        return pt.gather_pvector(x), info
+
+    xs, info_s = pt.prun(drive, pt.sequential, 4)
+    xg, info_g = pt.prun(drive, CPU, 4)
+    assert info_g["lowering"] == "ell" and info_g["iterations"] == info_s["iterations"]
+    assert _bits(info_s["residuals"]) == _bits(info_g["residuals"]) and _bits(xs) == _bits(xg)
+
+
+def test_strict_spmv_bitwise_jax(strict_env):
+    """One strict SpMV (boundary rows mix owned and ghost terms) on the
+    port's ELL lowering: bit for bit the JAX package's strict device SpMV
+    and the port's strict host product."""
+    ns = (5, 4, 3)
+
+    def jax_build(parts):
+        A, b, xe, x0 = jax_assemble_poisson(parts, ns)
+        backend = parts.backend
+        dA = jax_device_matrix(A, backend)
+        assert dA.dia_mode is None
+        dx = JaxDeviceVector.from_pvector(xe, backend, dA.col_layout)
+        y = JaxDeviceVector(jax_make_spmv_fn(dA)(dx.data), A.rows, dA.row_layout, backend).to_pvector()
+        return pa.gather_pvector(y)
+
+    y_jax = pa.prun(jax_build, pa.tpu, (2, 2, 2))
+
+    def port(parts):
+        A, b, xe, x0 = pt.assemble_poisson(parts, ns)
+        dA = device_matrix(A, parts.backend, strict=True)
+        assert dA.lowering == "ell" and dA.col_layout.box_info is None
+        dx = DeviceVector.from_pvector(xe, parts.backend, dA.col_layout)
+        y = DeviceVector(make_spmv_fn(dA)(dx.data), A.rows, dA.row_layout, parts.backend).to_pvector()
+        host = A.mul_into(pt.PVector.full(0.0, A.rows), xe, strict=True)
+        return pt.gather_pvector(y), pt.gather_pvector(host)
+
+    y_dev, y_host = pt.prun(port, CPU, (2, 2, 2))
+    assert _bits(y_dev) == _bits(y_host) == _bits(y_jax)
+
+
+@pytest.mark.parametrize("m,n", [(7, 9), (40, 33), (1, 1)])
+def test_strict_csr_spmv_bitwise_jax(strict_env, m, n):
+    """The port's strict host csr_spmv (the ELL fold) against the JAX
+    package's on one random CSR, with alpha/beta and signed zeros."""
+    rng = np.random.default_rng(m * n)
+    dense = rng.standard_normal((m, n)) * (rng.random((m, n)) < 0.4)
+    dense[0, 0] = -0.0 if m > 1 else dense[0, 0]
+    r, c = np.nonzero(dense != 0)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=m))])
+    x = rng.standard_normal(n)
+    x[::3] = -0.0
+    A = CSRMatrix(indptr, c, dense[r, c], (m, n))
+    J = JaxCSR(indptr, c, dense[r, c], (m, n))
+    assert _bits(csr_spmv(A, x, strict=True)) == _bits(jax_csr_spmv(J, x))
+    y0 = rng.standard_normal(m)
+    got = csr_spmv(A, x, y0.copy(), alpha=0.5, beta=-2.0, strict=True)
+    assert _bits(got) == _bits(jax_csr_spmv(J, x, y0.copy(), alpha=0.5, beta=-2.0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 64, 1000, 2049, 10007])
+def test_pairwise_dot_plain_bitwise_jax(n, dtype):
+    """E3's plain version over three parts: bit for bit the JAX package's
+    `pairwise_sum` of each part's rounded products, then the parts added
+    left to right; the port's `pairwise_sum` equals the JAX package's."""
+    rng = np.random.default_rng(n + 11)
+    P, o0 = 3, 2
+    a = rng.standard_normal((P, o0 + n + 4)).astype(dtype)
+    b = rng.standard_normal((P, o0 + n + 4)).astype(dtype)
+    a[:, o0::5] = -0.0
+    got = irr.pairwise_dot_plain(torch.from_numpy(a), torch.from_numpy(b), o0, n)
+    parts = [jax_pairwise_sum(a[p, o0 : o0 + n] * b[p, o0 : o0 + n]) for p in range(P)]
+    acc = parts[0]
+    for v in parts[1:]:
+        acc = acc + v
+    assert _bits(got.numpy()) == np.asarray(acc, dtype=dtype).tobytes()
+    for p in range(P):
+        t = a[p, o0 : o0 + n] * b[p, o0 : o0 + n]
+        assert np.asarray(pairwise_sum(t)).tobytes() == np.asarray(jax_pairwise_sum(t)).tobytes()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_pairwise_dot_plain_signed_zero(n):
+    """An all -0.0 product keeps its sign through the tree exactly where
+    numpy's does (a +0.0 pad turns it +0.0), E3's plain version and the
+    JAX package's pairwise_sum alike."""
+    a = -np.zeros((1, n))
+    b = np.ones((1, n))
+    got = irr.pairwise_dot_plain(torch.from_numpy(a), torch.from_numpy(b), 0, n)
+    want = jax_pairwise_sum(a[0] * b[0])
+    assert np.signbit(float(got)) == np.signbit(want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_device_loop_sqrt_is_correctly_rounded(dtype):
+    """The repair: the device loops take their residual norms through
+    `gpu_loop.sqrt_rn`, bit for bit NumPy's sqrt (PyTorch's vectorized CPU
+    sqrt is an ulp off on about 1% of float64 values, which put the CPU
+    device loop's history an ulp away from the host loop's), on 0-d and
+    (K,) tensors."""
+    v = (np.random.default_rng(4).random(20000) * 10.0 ** np.arange(-6, 6).repeat(2000)[:20000]).astype(dtype)
+    assert _bits(gl.sqrt_rn(torch.from_numpy(v)).numpy()) == _bits(np.sqrt(v))
+    for x in v[:200]:
+        assert _bits(gl.sqrt_rn(torch.tensor(x)).numpy()) == _bits(np.sqrt(x))
+
+
+def test_default_mode_unaffected():
+    """Without ``strict`` the Poisson operator keeps the coded lowering on
+    the box layout; with it, the same operator is a second, ELL entry of
+    the lowering cache on the generic layout."""
+
+    def drive(parts):
+        A = pt.assemble_poisson(parts, (8, 8, 8))[0]
+        d0 = device_matrix(A, parts.backend)
+        d1 = device_matrix(A, parts.backend, strict=True)
+        assert device_matrix(A, parts.backend) is d0 and device_matrix(A, parts.backend, strict=True) is d1
+        return d0.dia_mode, d0.lowering, d0.strict, d1.lowering, d1.strict, d1.col_layout.box_info is None
+
+    assert pt.prun(drive, CPU, (2, 2, 2)) == ("coded", "coded", False, "ell", True, True)
