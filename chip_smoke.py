@@ -139,20 +139,28 @@ Phases, one JSON line each:
    host assembly and staging seconds, launches by formula (E2 1 + 1 and
    the precond sweep 1 per device iteration), error against x̂ < 1e-5, the
    plain path's iterations, graph against eager, seconds per iteration from
-   fixed trips, a profile; the same operator in f32 (values scaled as
+   fixed trips, a profile, and E2's product in f64 at that shape
+   (``bsr_spmv_f64``: flushed µs, plain, torch.sparse.mm, the staged
+   bound and the CSR's need); the same operator in f32 (values scaled as
    tools/bench_irregular.py scales them) in each lowering (SD, BSR, ELL):
    staging seconds, SpMV µs and GFLOP/s, torch.sparse.mm, E1 and E2
-   torch.equal to their plain versions and timed, SD's torch.bmm timed,
-   every product against the f64 host product; elasticity on 4 stacked
+   torch.equal to their plain versions and timed (E1 slot-major with int32
+   columns; each beside the staged bound and the CSR's need), SD's
+   torch.bmm timed, every product against the f64 host product;
+   elasticity on 4 stacked
    parts at 32^3 f64 in each lowering (SD with the node-block boundary,
    BSR, forced ELL): the sequential backend's iterations and solution,
-   launches by formula, E1/E2 in both modes torch.equal to their plain
+   launches by formula (E2's boundary mode one launch an SpMV over all
+   its width buckets), E1/E2 in both modes torch.equal to their plain
    versions, the boundary kernels timed; strict CG on 6^3 and 48^3 (2,2,2)
    f64 bit for bit against the sequential backend (iterations, residual
    history, solution), launches by formula (E1 1 + 1 and E1's boundary
-   1 + 1 per device iteration, E3 1 + 2), strict CG's seconds per iteration
+   1 + 1 per device iteration, E3 1 + 2); strict Jacobi PCG on the
+   N_STRICT_ELASTIC^3 elasticity system (b in strict mode) on 4 stacked
+   parts, bit for bit the sequential backend's; strict CG's seconds per iteration
    against fused CG's at 192^3 f32 (and a profile), E3 bit for bit its
-   plain version and timed there;
+   plain version and timed there, E1 timed on the strict lowering's 7
+   slots;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -262,6 +270,7 @@ N_ELASTIC = 64  # tet-elasticity nodes a dimension: the JAX package's largest ir
 N_ELASTIC_MULTI = 32  # the stacked-parts elasticity cell (4 parts)
 TOL_ELASTIC = 1e-12  # elasticity_tet_driver's tolerance
 ELASTIC_MAXITER = 3000  # elasticity_tet_driver's maxiter
+N_STRICT_ELASTIC = 16  # strict elasticity PCG on 4 parts, against the sequential backend on the host
 
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
            "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
@@ -1684,15 +1693,13 @@ def elastic_system(backend, n, nparts):
 
 def _irregular_launches(dA, spmvs):
     """The launches of `spmvs` SpMVs of a non-band lowering: its A_oo
-    kernel (SD's product is torch.bmm: none) and its boundary kernel (a
-    launch a node-block bucket) where A_oh is not empty."""
+    kernel (SD's product is torch.bmm: none) and its boundary kernel (one
+    launch an SpMV, over every node-block bucket) where A_oh is not
+    empty."""
     want = {"bsr_spmv": spmvs if dA.lowering == "bsr" else 0, "ell_spmv": spmvs if dA.lowering == "ell" else 0,
             "bsr_spmv_boundary": 0, "ell_spmv_boundary": 0}
     if dA.oh_nnz:
-        if dA.ohb_bs is not None:
-            want["bsr_spmv_boundary"] = spmvs * len(dA.ohb_rows)
-        else:
-            want["ell_spmv_boundary"] = spmvs
+        want["bsr_spmv_boundary" if dA.ohb_bs is not None else "ell_spmv_boundary"] = spmvs
     return want
 
 
@@ -1716,11 +1723,10 @@ def _hold_irregular_kernels(tag, dA, dtype, rng, errs):
         return
     y0 = _frame(rng, (rl.P, rl.W), dtype, dev)
     if dA.ohb_bs is not None:
-        yk, yp = y0.clone(), y0.clone()
-        for rows, cols, vals in zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals):
-            irr.bsr_spmv_boundary(rows, vals, cols, x, cl.g0, dA.ohb_nhn, yk, rl.trash)
-            irr.bsr_spmv_boundary_plain(rows, vals, cols, x, cl.g0, dA.ohb_nhn, yp, rl.trash)
-        errs[f"bsr_spmv_boundary[{tag}]"] = _compare(f"{tag} bsr_spmv_boundary", yk, yp)
+        args = (dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, x, cl.g0, dA.ohb_nhn)
+        errs[f"bsr_spmv_boundary[{tag}]"] = _compare(
+            f"{tag} bsr_spmv_boundary", irr.bsr_spmv_boundary(*args, y0.clone(), rl.trash),
+            irr.bsr_spmv_boundary_plain(*args, y0.clone(), rl.trash))
     else:
         errs[f"ell_spmv_boundary[{tag}]"] = _compare(
             f"{tag} ell_spmv_boundary", irr.ell_spmv_boundary(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y0.clone(), rl.trash),
@@ -1783,7 +1789,36 @@ def phase_elastic(backend, rng):
     for k in want:
         require(launches[k] == want[k], f"elasticity: {launches[k]} {k} launches, expected {want[k]}")
     out = {"line": line, "errs": errs, "launches": launches, "A": A, "xh": xh}
+    if dA.lowering == "bsr":
+        out["bsr_f64"] = bsr_f64_times(A, dA, dx0, errs)
     return out
+
+
+def bsr_f64_times(A, dA, x, errs):
+    """E2's A_oo product in float64 at the elasticity path's shape (the
+    dtype of its solve): torch.equal to its plain version, flushed µs of
+    the kernel, the plain version and torch.sparse.mm on the same CSR, the
+    staged-bytes bound and the CSR's need."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    cl, rl = dA.col_layout, dA.row_layout
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dA.backend.device)
+    args = (dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W)
+    errs[f"bsr_spmv[elasticity {N_ELASTIC}^3 f64 timed]"] = _compare("elasticity f64 bsr_spmv", irr.bsr_spmv(*args),
+                                                                    irr.bsr_spmv_plain(*args))
+    M = A.values.part_values()[0]
+    csr = _csr_on(M, dA.backend.device)
+    xcol = x[0, cl.o0 : cl.o0 + csr.shape[1]].reshape(-1, 1).contiguous()
+    item = 8
+    nbytes = dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
+    t = {"ms": time_ms(lambda: irr.bsr_spmv(*args), flush), "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush), "bytes": nbytes,
+         "shape": f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, {int(dA.bsr_vals.shape[2])} blocks", **_csr_need(M, item)}
+    del csr
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * M.nnz, F64_FLOPS_PER_S)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "bsr_spmv_f64", "n": N_ELASTIC, "dtype": "float64", "reps": REPS, **t})
+    return t
 
 
 def _f32_operator(A):
@@ -1850,19 +1885,22 @@ def phase_lowering_times(backend, el, rng):
                    "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush), "library_ms": library_ms,
                    "bytes": nbytes}
             t_k["bound_ms"], t_k["bound_by"] = _bound_ms(nbytes, 2 * nnz)
+            t_k.update(_csr_need(M, item))
             times["bsr_spmv"] = t_k
             rec["Lb"] = int(dA.bsr_vals.shape[2])
         else:
             args = (dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W)
             errs["ell_spmv[elasticity f32]"] = _compare("elasticity f32 ell_spmv", irr.ell_spmv(*args),
                                                         irr.ell_spmv_plain(*args))
-            nbytes = dA.oo_vals.numel() * item + dA.oo_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
+            nbytes = (dA.oo_vals.numel() * item + dA.oo_cols.numel() * dA.oo_cols.element_size()
+                      + x.numel() * item + rl.P * rl.W * item)
             t_k = {"ms": time_ms(lambda: irr.ell_spmv(*args), flush),
                    "plain_ms": time_ms(lambda: irr.ell_spmv_plain(*args), flush), "library_ms": library_ms,
-                   "bytes": nbytes}
+                   "bytes": nbytes, "shape": f"{N_ELASTIC}^3 f32, {int(dA.oo_vals.shape[1])} slots"}
             t_k["bound_ms"], t_k["bound_by"] = _bound_ms(nbytes, 2 * nnz)
+            t_k.update(_csr_need(M, item))
             times["ell_spmv"] = t_k
-            rec["L"] = int(dA.oo_vals.shape[2])
+            rec["L"] = int(dA.oo_vals.shape[1])
         out[low] = rec
         A32._device.clear()
         del dA, x, spmv
@@ -1943,11 +1981,13 @@ def phase_elastic_multi(backend, rng):
 
 def _boundary_times(A, dA, rng, flush):
     """The boundary kernel of a multi-part lowering, timed over one SpMV's
-    calls (every node-block bucket, or the one ELL call) against their
-    plain versions; library: torch.sparse.mm of the stacked parts'
+    call (one launch over every node-block bucket, or the ELL call) against
+    its plain version; library: torch.sparse.mm of the stacked parts'
     block-diagonal A_oh CSR on the ghost values (the products only, not the
     add into y). Bound: the staged arrays and the x frame read once, the
-    boundary rows of y read and written."""
+    boundary rows of y read and written; beside it the CSR's need (A_oh's
+    values and int32 columns, its row pointers, the ghost values read, the
+    boundary rows of y read and written)."""
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
     cl, rl = dA.col_layout, dA.row_layout
@@ -1960,26 +2000,30 @@ def _boundary_times(A, dA, rng, flush):
     library_ms = time_ms(lambda: torch.sparse.mm(csr, xg), flush)
     nnz = sum(m.nnz for m in oh)
     if dA.ohb_bs is not None:
-        calls = list(zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals))
-
         def run(k):
-            for rows, cols, vals in calls:
-                k(rows, vals, cols, x, cl.g0, dA.ohb_nhn, y, rl.trash)
+            k(dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, x, cl.g0, dA.ohb_nhn, y, rl.trash)
 
-        staged = sum(r.numel() * 8 + c.numel() * 8 + v.numel() * item for r, c, v in calls)
-        touched = sum(int((r != rl.trash).sum()) for r, _, _ in calls)
+        staged = sum(t.numel() * t.element_size() for t in (*dA.ohb_rows, *dA.ohb_cols, *dA.ohb_vals))
+        touched = sum(int((r != rl.trash).sum()) for r in dA.ohb_rows)
         name, kern, plain = "bsr_spmv_boundary", irr.bsr_spmv_boundary, irr.bsr_spmv_boundary_plain
     else:
         def run(k):
             k(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y, rl.trash)
 
-        staged = dA.oh_rows.numel() * 8 + dA.oh_cols.numel() * 8 + dA.oh_vals.numel() * item
+        staged = sum(t.numel() * t.element_size() for t in (dA.oh_rows, dA.oh_cols, dA.oh_vals))
         touched = int((dA.oh_rows != rl.trash).sum())
         name, kern, plain = "ell_spmv_boundary", irr.ell_spmv_boundary, irr.ell_spmv_boundary_plain
     nbytes = staged + x.numel() * item + 2 * touched * item
+    dia.reset_launches()
+    run(kern)
+    calls = dia.LAUNCHES[name]
+    ghosts = sum(m.shape[1] for m in oh)
+    csr_bytes = nnz * (item + 4) + (touched + len(oh)) * 4 + ghosts * item + 2 * touched * item
     t = {"ms": time_ms(lambda: run(kern), flush), "plain_ms": time_ms(lambda: run(plain), flush),
-         "library_ms": library_ms, "bytes": nbytes, "calls_per_spmv": len(dA.ohb_rows or (0,)),
-         "shape": f"{N_ELASTIC_MULTI}^3 f64, 4 parts"}
+         "library_ms": library_ms, "bytes": nbytes, "calls_per_spmv": calls,
+         "buckets": len(dA.ohb_rows or ()), "shape": f"{N_ELASTIC_MULTI}^3 f64, 4 parts",
+         "csr_bytes": csr_bytes, "csr_bound_ms": csr_bytes / HBM_BYTES_PER_S * 1e3}
+    require(calls == 1, f"{name}: {calls} launches for one SpMV's boundary, expected 1")
     t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * nnz, F64_FLOPS_PER_S)
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return {name: t}
@@ -2007,6 +2051,31 @@ def strict_pair(backend, ns, nparts, dtype=np.float64):
         b = A.mul_into(PVector.full(0.0, A.rows, dtype=dtype), xe, strict=True)
         x, info = cg(A, b, x0=x0, tol=1e-8, maxiter=2000, strict=True)
         return gather_pvector(x), info, _rel_err(x, xe)
+
+    xs, info_s, _ = prun(drive, sequential, nparts)
+    dia.reset_launches()
+    xg, info_g, err = prun(drive, backend, nparts)
+    sync()
+    launches = dict(dia.LAUNCHES)
+    equal = {"iterations": info_g["iterations"] == info_s["iterations"],
+             "residuals": np.asarray(info_g["residuals"]).tobytes() == np.asarray(info_s["residuals"]).tobytes(),
+             "x": xg.tobytes() == xs.tobytes()}
+    return info_g, launches, equal, err
+
+
+def strict_elastic_pair(backend, n, nparts):
+    """Strict Jacobi PCG on the tet-elasticity system assembled in strict
+    mode (`assemble_elasticity_tet(strict=True)`: b = A x̂ by the strict
+    product, as the JAX package assembles it under PA_TPU_STRICT_BITS=1),
+    on the card and on the port's sequential backend: the card's result,
+    its launches, whether iterations, residual history bits and solution
+    bits agree, and the error against x̂."""
+    from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
+
+    def drive(parts):
+        A, b, xh, x0 = assemble_elasticity_tet(parts, (n, n, n), strict=True)
+        x, info = pcg(A, b, x0=x0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, strict=True)
+        return gather_pvector(x), info, float((x - xh).norm())
 
     xs, info_s, _ = prun(drive, sequential, nparts)
     dia.reset_launches()
@@ -2047,6 +2116,14 @@ def phase_strict(backend, run, rng):
         if n == N_MULTI:
             out["launches"] = {k: launches[k] for k in ("ell_spmv", "pairwise_dot")}
             out["launches"]["ell_spmv_boundary_strict"] = launches["ell_spmv_boundary"]
+    # strict Jacobi PCG on the elasticity system, b taken in strict mode
+    info, launches, equal, err = strict_elastic_pair(backend, N_STRICT_ELASTIC, 4)
+    emit({"phase": "strict_elasticity_pcg", "n": N_STRICT_ELASTIC, "dtype": "float64", "parts": 4,
+          "lowering": info["lowering"], "iterations": info["iterations"], "err": err,
+          "bitwise_equal_to_sequential": equal, "kernels": {k: launches[k] for k in ("ell_spmv", "ell_spmv_boundary",
+                                                                                     "pairwise_dot")}})
+    require(all(equal.values()) and info["lowering"] == "ell" and err < 1e-5,
+            f"strict elasticity PCG {N_STRICT_ELASTIC}^3: {equal}, {info['lowering']}, error {err}")
     # strict mode's cost at the main cell
     A = run["A"]
     dS = device_matrix(A, backend, strict=True)
@@ -2074,19 +2151,21 @@ def phase_strict(backend, run, rng):
     args = (dS.oo_vals, dS.oo_cols, bS, dS.row_layout.o0, dS.row_layout.W)
     out["errs"]["ell_spmv[192^3 f32 strict]"] = _compare("192^3 strict ell_spmv", irr.ell_spmv(*args),
                                                           irr.ell_spmv_plain(*args))
+    M = A.values.part_values()[0]
     ell192 = {"ms": time_ms(lambda: irr.ell_spmv(*args), flush),
               "plain_ms": time_ms(lambda: irr.ell_spmv_plain(*args), flush),
-              "bytes": dS.oo_vals.numel() * 4 + dS.oo_cols.numel() * 8 + 2 * bS.numel() * 4}
-    csr = _csr_on(A.values.part_values()[0], backend.device)
+              "bytes": dS.oo_vals.numel() * 4 + dS.oo_cols.numel() * dS.oo_cols.element_size() + 2 * bS.numel() * 4,
+              "shape": f"{N_MAIN}^3 f32 strict, {int(dS.oo_vals.shape[1])} slots", **_csr_need(M, 4)}
+    csr = _csr_on(M, backend.device)
     xcol = bS[0, : csr.shape[1]].reshape(-1, 1).contiguous()
     ell192["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, xcol), flush)
     del csr
-    ell192["bound_ms"], ell192["bound_by"] = _bound_ms(ell192["bytes"], 2 * int(A.values.part_values()[0].nnz))
+    ell192["bound_ms"], ell192["bound_by"] = _bound_ms(ell192["bytes"], 2 * int(M.nnz))
     ell192["share_of_bound"] = ell192["bound_ms"] / ell192["ms"]
     emit({"phase": "strict_cost", "n": N_MAIN, "dtype": "float32", "parts": 1, "strict_s_per_iter": s_strict,
           "fused_s_per_iter": s_fused, "strict_over_fused": s_strict / s_fused, "strict_fixed_trip_s": fixed_strict,
           "fused_fixed_trip_s": fixed_fused, "fixed_trips": CG_TRIPS, "pairwise_dot": t,
-          "ell_spmv_strict_lowering": ell192, "ell_slots": int(dS.oo_vals.shape[2])})
+          "ell_spmv_strict_lowering": ell192, "ell_slots": int(dS.oo_vals.shape[1])})
     out["times"] = {"pairwise_dot": t}
     return out
 
@@ -2120,6 +2199,16 @@ def time_ms(fn, flush):
 def _bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _csr_need(M, item):
+    """The bytes and the bound of the same product on M's own CSR, whatever
+    implements it: values and int32 columns of the stored entries, int32
+    row pointers, x read and y written once (a yardstick that does not
+    depend on a staging's padding)."""
+    rows, cols = M.shape
+    nbytes = M.nnz * (item + 4) + (rows + 1) * 4 + (rows + cols) * item
+    return {"csr_bytes": nbytes, "csr_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def _csr_on(M, dev):

@@ -17,15 +17,20 @@
 //     r = s - yo0, node = r / bs, i = r % bs, when 0 <= r < nn * bs:
 //     y[p, s] = sum_l sum_j vals[p, node, l, i, j] * x[p, xo0 + cols[p, node, l] * bs + j]
 //     and 0 elsewhere;
-//   mode 1 (boundary, one launch a bucket): for every staged boundary node
-//     n < nn of part p and i < bs whose target row = rows[p, n, i] is not
-//     the trash slot,
-//     y[p, row] = y[p, row] + sum_l sum_j vals[p, n, l, i, j] * x[p, g0 + cols[p, n, l] * bs + j]
+//   mode 1 (boundary, every width bucket in one launch): bucket c holds
+//     nb_c staged boundary nodes a part, each of Lb_c blocks, as arrays
+//     rows_c (P, nb_c, bs), cols_c (P, nb_c, Lb_c) and vals_c (P, nb_c,
+//     Lb_c, bs, bs) at element offsets roff_c, coff_c and voff_c of three
+//     flat buffers; for every node n < nb_c of part p and i < bs whose
+//     target row = rows_c[p, n, i] is not the trash slot,
+//     y[p, row] = y[p, row] + sum_l sum_j vals_c[p, n, l, i, j] * x[p, g0 + cols_c[p, n, l] * bs + j]
 //     in place (xo0 = g0: the ghost-node frame), the row's sum rounded once
-//     into y.
+//     into y. The bucket table (at most PA_BSR_MAX_BUCKETS entries) rides in
+//     the parameter block: no device table, no copy before a launch.
 // Pad blocks carry value 0 and node 0; pad rows point at the trash slot
 // and are skipped, so no two threads write one slot (a part's boundary
-// nodes are distinct across its buckets).
+// nodes are distinct across its buckets): one launch over all buckets
+// writes what the per-bucket launches wrote, bit for bit.
 //
 // Bound: memory. The blocks (bs^2 values each) and their int64 node
 // columns are read once, x gathered a node at a time, y written. At the
@@ -33,17 +38,23 @@
 // to 19 blocks) the staged blocks and the frames are 225 MB a product,
 // 67 us at 3.35 TB/s.
 //
-// Design (a first, simple kernel): one thread a result row, blockIdx.y the
-// part; the thread walks its node's blocks in order and reads its row i of
-// each (bs values). Threads of one node read neighbouring rows of the same
-// blocks; the Hopper form will stage a node's blocks through shared memory
-// with a warp a node group. It launches on the caller's stream and
-// allocates nothing, so a CUDA graph captures it.
+// The node-block boundary at 32^3 f64 on 4 parts is 3.64 MB, 1.09 us of
+// bytes, less than the 4.9 us an empty kernel takes on an H100 (CUDA
+// events): its cost is the launch count, hence one launch for all buckets.
+//
+// Design: one thread a result row, blockIdx.y the part; the thread walks
+// its node's blocks in order and reads its row i of each (bs values).
+// Threads of one node read neighbouring rows of the same blocks. In mode 1
+// the grid covers every bucket's rows (the buckets' nb_c * bs rows laid
+// end to end); a thread finds its bucket by a scan of the table's first
+// rows (uniform across a warp but at a bucket edge). It launches on the
+// caller's stream and allocates nothing, so a CUDA graph captures it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_BSR_THREADS 256
+#define PA_BSR_MAX_BUCKETS 8
 
 enum { PA_BSR_OO = 0, PA_BSR_BOUNDARY = 1 };
 
@@ -58,6 +69,13 @@ struct PaBsrParams {
   long long xo0;    // offset of x's node frame (mode 0: the owned band; mode 1: g0)
   long long yo0;    // band offset of y (mode 0)
   long long trash;  // y's trash slot (mode 1): rows pointing there are skipped
+  int nbk;          // buckets (mode 1)
+  int bk_Lb[PA_BSR_MAX_BUCKETS];            // blocks a node of bucket c
+  long long bk_row0[PA_BSR_MAX_BUCKETS + 1];  // first row of bucket c in the launch (row0[nbk] = all rows)
+  long long bk_nb[PA_BSR_MAX_BUCKETS];      // nodes a part of bucket c
+  long long bk_roff[PA_BSR_MAX_BUCKETS];    // element offset of rows_c in the rows buffer
+  long long bk_coff[PA_BSR_MAX_BUCKETS];    // of cols_c in the cols buffer
+  long long bk_voff[PA_BSR_MAX_BUCKETS];    // of vals_c in the vals buffer
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -65,20 +83,21 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// row i of node `node`'s block row: sum over its Lb blocks and their bs columns
+// row i of node `node` of part p in a block row of Lb blocks (nn nodes a
+// part): sum over its Lb blocks and their bs columns
 template <typename T, int BS>
-__device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long node, int i,
+__device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long nn, int Lb, long long node, int i,
                                        const T* __restrict__ vals, const long long* __restrict__ cols,
                                        const T* __restrict__ x) {
-  const long long at = (long long)p * prm.nn + node;
-  const T* v = vals + at * prm.Lb * (BS * BS) + i * BS;
-  const long long* c = cols + at * prm.Lb;
+  const long long at = (long long)p * nn + node;
+  const T* v = vals + at * Lb * (BS * BS) + i * BS;
+  const long long* c = cols + at * Lb;
   const T* xp = x + (long long)p * prm.wx + prm.xo0;
   const T* xb = xp + c[0] * BS;
   T acc = mul_rn(v[0], xb[0]);
 #pragma unroll
   for (int j = 1; j < BS; ++j) acc = add_rn(acc, mul_rn(v[j], xb[j]));
-  for (int l = 1; l < prm.Lb; ++l) {
+  for (int l = 1; l < Lb; ++l) {
     const T* vl = v + l * (BS * BS);
     xb = xp + c[l] * BS;
 #pragma unroll
@@ -96,7 +115,7 @@ bsr_oo_kernel(const PaBsrParams prm, const T* __restrict__ vals, const long long
   if (s >= prm.wy) return;
   const long long r = s - prm.yo0;
   T acc = T(0);
-  if (r >= 0 && r < prm.nn * BS) acc = block_row<T, BS>(prm, p, r / BS, (int)(r % BS), vals, cols, x);
+  if (r >= 0 && r < prm.nn * BS) acc = block_row<T, BS>(prm, p, prm.nn, prm.Lb, r / BS, (int)(r % BS), vals, cols, x);
   y[(long long)p * prm.wy + s] = acc;
 }
 
@@ -106,10 +125,15 @@ bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, c
                     const long long* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
   const int p = blockIdx.y;
   const long long t = (long long)blockIdx.x * PA_BSR_THREADS + threadIdx.x;
-  if (t >= prm.nn * BS) return;
-  const long long row = rows[(long long)p * prm.nn * BS + t];
+  if (t >= prm.bk_row0[prm.nbk]) return;
+  int c = 0;
+  while (c + 1 < prm.nbk && t >= prm.bk_row0[c + 1]) ++c;
+  const long long r = t - prm.bk_row0[c];  // row of bucket c, part p
+  const long long nb = prm.bk_nb[c];
+  const long long row = rows[prm.bk_roff[c] + (long long)p * nb * BS + r];
   if (row == prm.trash) return;
-  const T acc = block_row<T, BS>(prm, p, t / BS, (int)(t % BS), vals, cols, x);
+  const T acc = block_row<T, BS>(prm, p, nb, prm.bk_Lb[c], r / BS, (int)(r % BS), vals + prm.bk_voff[c],
+                                 cols + prm.bk_coff[c], x);
   T* yp = y + (long long)p * prm.wy + row;
   *yp = add_rn(*yp, acc);
 }
@@ -117,7 +141,7 @@ bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, c
 template <typename T, int BS>
 static int launch_bs(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
                      void* y, cudaStream_t s) {
-  const long long work = prm->mode == PA_BSR_OO ? prm->wy : prm->nn * BS;
+  const long long work = prm->mode == PA_BSR_OO ? prm->wy : prm->bk_row0[prm->nbk];
   long long gx = (work + PA_BSR_THREADS - 1) / PA_BSR_THREADS;
   if (gx < 1) gx = 1;
   if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
@@ -138,6 +162,12 @@ template <typename T>
 static int launch(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
                   void* y, void* stream) {
   if (prm->Lb < 1 || prm->P < 1) return (int)cudaErrorInvalidValue;
+  if (prm->mode == PA_BSR_BOUNDARY) {
+    if (prm->nbk < 1 || prm->nbk > PA_BSR_MAX_BUCKETS || prm->bk_row0[0] != 0) return (int)cudaErrorInvalidValue;
+    for (int c = 0; c < prm->nbk; ++c)
+      if (prm->bk_Lb[c] < 1 || prm->bk_row0[c + 1] != prm->bk_row0[c] + prm->bk_nb[c] * prm->bs)
+        return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   switch (prm->bs) {
     case 2: return launch_bs<T, 2>(prm, rows, vals, cols, x, y, s);
@@ -149,10 +179,10 @@ static int launch(const PaBsrParams* prm, const void* rows, const void* vals, co
 
 extern "C" {
 
-// rows: the bucket's boundary rows (P, nn, bs) (mode 1; null in mode 0);
-// vals (P, nn, Lb, bs, bs); cols (P, nn, Lb) node columns; x: the operand
-// frame; y: the result (written whole in mode 0, updated on the boundary
-// rows in mode 1).
+// mode 0: vals (P, nn, Lb, bs, bs), cols (P, nn, Lb) node columns, rows
+// null; mode 1: the flat buffers of the buckets' rows, cols and vals (the
+// table in prm gives each bucket's offsets); x: the operand frame; y: the
+// result (written whole in mode 0, updated on the boundary rows in mode 1).
 int pa_bsr_spmv_f32(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols,
                     const void* x, void* y, void* stream) {
   return launch<float>(prm, rows, vals, cols, x, y, stream);

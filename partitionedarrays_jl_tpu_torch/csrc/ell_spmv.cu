@@ -7,42 +7,55 @@
 // lowering without node blocks runs for A_oh (`_finish`, :3230-3233), as
 // cg_sweep.cu stands for the fused CG body's XLA sweep.
 //
+// Layout: slot-major. The staged values vals and the int32 slot columns
+// cols are (P, L, n): slot l of row i of part p at (p * L + l) * n + i, so
+// at each slot neighbouring rows lie at neighbouring addresses (the JAX
+// package stages (P, n, L); `ops/irregular.py` documents the transpose).
+//
 // What it computes, with each product rounded before its add (__fmul_rn /
 // __fadd_rn, __dmul_rn / __dadd_rn; no FMA) and the row slots folded left
 // to right from slot 0, the order of the host's strict csr_spmv
 // (partitionedarrays_jl_tpu_torch/ops/sparse.py) and of the plain version
 // (ops/irregular.py:ell_spmv_plain), so the kernel equals both bit for bit:
 //   mode 0 (A_oo): for every slot j of the (P, wy) result frame,
-//     y[p, j] = sum_l vals[p, i, l] * x[p, cols[p, i, l]]   with i = j - o0,
+//     y[p, j] = sum_l vals[p, l, i] * x[p, cols[p, l, i]]   with i = j - o0,
 //     where 0 <= i < n (n rows a part, the padded owned count), else 0;
 //   mode 1 (boundary): for every staged boundary row b < n of part p whose
 //     target row = rows[p, b] is not the trash slot,
-//     y[p, row, k] = y[p, row, k] + sum_l vals[p, b, l] * x[p, cols[p, b, l], k]
+//     y[p, row, k] = y[p, row, k] + sum_l vals[p, l, b] * x[p, cols[p, l, b], k]
 //     in place, the row's sum rounded once into y (the host's two-phase
 //     A_oo fold, then `+=` of the A_oh fold). x and y are (P, W) frames
 //     (K = 1) or (P, W, K) slabs of K columns, column k summed as a frame.
+// The fold starts from -0.0, the identity of a rounded add (-0.0 + t = t
+// for every t, -0.0 included), so it equals the fold from the first product.
 // Pad slots of a row carry value 0 and a real column; pad rows point at the
 // trash slot and are skipped, so no two threads ever write one slot (the
 // staged boundary rows of a part are distinct).
 //
-// Bound: memory. vals (T) and the int64 slot columns are read once, x
-// gathered, y written (mode 1: read and written on the boundary rows). At
-// the elasticity operator's 64^3 mesh (786,432 rows padded to 57 slots,
-// f32) the staged arrays and the frames are 544 MB a product, 162 us at
-// 3.35 TB/s; the CSR's own bytes (values and int32 columns of 27.96M
-// entries) 224 MB, 67 us.
+// Bound: memory. vals (T) and the int32 slot columns are read once, x
+// gathered (it stays in L2: 3 MB at 64^3 f32), y written (mode 1: read and
+// written on the boundary rows). At the elasticity operator's 64^3 mesh
+// (786,432 rows padded to 57 slots, f32) the staged arrays and the frames
+// are 365 MB a product, 109 us at 3.35 TB/s; the CSR's own bytes (values
+// and int32 columns of 27.96M entries) 224 MB, 67 us.
 //
-// Design (a first, simple kernel): one thread a row (mode 0) or a (row,
-// column) pair (mode 1), blockIdx.y the part; the thread walks its row's
-// L slots in order. Neighbouring threads read values L apart: the loads
-// are not coalesced, which the Hopper form will repair (a warp a row
-// group, the slots staged slot-major). It launches on the caller's stream
-// and allocates nothing, so a CUDA graph captures it.
+// Design: one thread a row (mode 0) or a (row, column) pair (mode 1, the
+// rows of one column k neighbouring), blockIdx.y the part. A thread walks
+// its row's slots in batches of PA_ELL_BATCH: it issues the batch's value
+// and column loads (a warp's are two 128-byte lines at each slot, read
+// with the streaming hint, so the operator does not evict x from L2), then
+// the x gathers through the read-only path, then folds the batch in slot
+// order. Rows are not trimmed to shorter slice widths (SELL): on the
+// Morton-ordered elasticity operator nearly every 32-row slice holds a
+// row of the longest width, so slices would save almost nothing. It
+// launches on the caller's stream and allocates nothing, so a CUDA graph
+// captures it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_ELL_THREADS 256
+#define PA_ELL_BATCH 8
 
 enum { PA_ELL_OO = 0, PA_ELL_BOUNDARY = 1 };
 
@@ -63,18 +76,37 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// the left-to-right fold of one row: x column k of a K-column slab
+// the left-to-right fold of one row: slot l at v[l * n], c[l * n]; x column
+// k of a K-column slab (K = 1: a frame)
 template <typename T>
-__device__ __forceinline__ T row_fold(const T* __restrict__ v, const long long* __restrict__ c,
+__device__ __forceinline__ T row_fold(const T* __restrict__ v, const int* __restrict__ c, long long n,
                                       const T* __restrict__ xp, int L, int K, int k) {
-  T acc = mul_rn(v[0], xp[c[0] * K + k]);
-  for (int l = 1; l < L; ++l) acc = add_rn(acc, mul_rn(v[l], xp[c[l] * K + k]));
+  T acc = T(-0.0);
+  int l = 0;
+  for (; l + PA_ELL_BATCH <= L; l += PA_ELL_BATCH) {
+    T vb[PA_ELL_BATCH], xb[PA_ELL_BATCH];
+    int cb[PA_ELL_BATCH];
+#pragma unroll
+    for (int u = 0; u < PA_ELL_BATCH; ++u) {
+      vb[u] = __ldcs(v + (long long)(l + u) * n);
+      cb[u] = __ldcs(c + (long long)(l + u) * n);
+    }
+#pragma unroll
+    for (int u = 0; u < PA_ELL_BATCH; ++u) xb[u] = __ldg(xp + (long long)cb[u] * K + k);
+#pragma unroll
+    for (int u = 0; u < PA_ELL_BATCH; ++u) acc = add_rn(acc, mul_rn(vb[u], xb[u]));
+  }
+  for (; l < L; ++l) {
+    const T vl = __ldcs(v + (long long)l * n);
+    const int cl = __ldcs(c + (long long)l * n);
+    acc = add_rn(acc, mul_rn(vl, __ldg(xp + (long long)cl * K + k)));
+  }
   return acc;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(PA_ELL_THREADS)
-ell_oo_kernel(const PaEllParams prm, const T* __restrict__ vals, const long long* __restrict__ cols,
+ell_oo_kernel(const PaEllParams prm, const T* __restrict__ vals, const int* __restrict__ cols,
               const T* __restrict__ x, T* __restrict__ y) {
   const int p = blockIdx.y;
   const long long j = (long long)blockIdx.x * PA_ELL_THREADS + threadIdx.x;
@@ -82,8 +114,8 @@ ell_oo_kernel(const PaEllParams prm, const T* __restrict__ vals, const long long
   const long long i = j - prm.o0;
   T acc = T(0);
   if (i >= 0 && i < prm.n) {
-    const long long at = ((long long)p * prm.n + i) * prm.L;
-    acc = row_fold(vals + at, cols + at, x + (long long)p * prm.wx, prm.L, 1, 0);
+    const long long at = (long long)p * prm.L * prm.n + i;
+    acc = row_fold(vals + at, cols + at, prm.n, x + (long long)p * prm.wx, prm.L, 1, 0);
   }
   y[(long long)p * prm.wy + j] = acc;
 }
@@ -91,17 +123,17 @@ ell_oo_kernel(const PaEllParams prm, const T* __restrict__ vals, const long long
 template <typename T>
 __global__ void __launch_bounds__(PA_ELL_THREADS)
 ell_boundary_kernel(const PaEllParams prm, const long long* __restrict__ rows, const T* __restrict__ vals,
-                    const long long* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
+                    const int* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
   const int p = blockIdx.y;
   const long long t = (long long)blockIdx.x * PA_ELL_THREADS + threadIdx.x;
   const int K = prm.K;
-  const long long b = t / K;
-  const int k = (int)(t % K);
-  if (b >= prm.n) return;
+  const int k = (int)(t / prm.n);
+  const long long b = t - (long long)k * prm.n;
+  if (k >= K) return;
   const long long row = rows[(long long)p * prm.n + b];
   if (row == prm.trash) return;
-  const long long at = ((long long)p * prm.n + b) * prm.L;
-  const T acc = row_fold(vals + at, cols + at, x + (long long)p * prm.wx * K, prm.L, K, k);
+  const long long at = (long long)p * prm.L * prm.n + b;
+  const T acc = row_fold(vals + at, cols + at, prm.n, x + (long long)p * prm.wx * K, prm.L, K, k);
   T* yp = y + ((long long)p * prm.wy + row) * K + k;
   *yp = add_rn(*yp, acc);
 }
@@ -109,7 +141,8 @@ ell_boundary_kernel(const PaEllParams prm, const long long* __restrict__ rows, c
 template <typename T>
 static int launch(const PaEllParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
                   void* y, void* stream) {
-  if (prm->L < 1 || prm->K < 1 || prm->P < 1) return (int)cudaErrorInvalidValue;
+  if (prm->L < 1 || prm->K < 1 || prm->P < 1 || prm->n < 0) return (int)cudaErrorInvalidValue;
+  if (prm->mode == PA_ELL_BOUNDARY && prm->n < 1) return (int)cudaErrorInvalidValue;
   const long long work = prm->mode == PA_ELL_OO ? prm->wy : prm->n * prm->K;
   long long gx = (work + PA_ELL_THREADS - 1) / PA_ELL_THREADS;
   if (gx < 1) gx = 1;
@@ -117,11 +150,10 @@ static int launch(const PaEllParams* prm, const void* rows, const void* vals, co
   dim3 grid((unsigned int)gx, (unsigned int)prm->P);
   cudaStream_t s = (cudaStream_t)stream;
   if (prm->mode == PA_ELL_OO) {
-    ell_oo_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const T*)vals, (const long long*)cols,
-                                                     (const T*)x, (T*)y);
+    ell_oo_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols, (const T*)x, (T*)y);
   } else if (prm->mode == PA_ELL_BOUNDARY) {
     ell_boundary_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
-                                                           (const long long*)cols, (const T*)x, (T*)y);
+                                                           (const int*)cols, (const T*)x, (T*)y);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -130,9 +162,9 @@ static int launch(const PaEllParams* prm, const void* rows, const void* vals, co
 
 extern "C" {
 
-// rows: the boundary rows (mode 1; null in mode 0); vals, cols: (P, n, L);
-// x: the operand frame or slab; y: the result (written whole in mode 0,
-// updated on the boundary rows in mode 1).
+// rows: the boundary rows (P, n) (mode 1; null in mode 0); vals, cols:
+// (P, L, n), cols int32; x: the operand frame or slab; y: the result
+// (written whole in mode 0, updated on the boundary rows in mode 1).
 int pa_ell_spmv_f32(const PaEllParams* prm, const void* rows, const void* vals, const void* cols,
                     const void* x, void* y, void* stream) {
   return launch<float>(prm, rows, vals, cols, x, y, stream);

@@ -36,7 +36,7 @@ from ..parallel.psparse import assemble_matrix_from_coo
 from ..parallel.pvector import PVector
 from ..parallel.index_sets import GID_DTYPE
 from ..utils.helpers import check
-from .solvers import pcg
+from .solvers import _matvec, pcg
 
 #: hex corners numbered with bit order (x, y, z)
 _EVEN_TETS = ((0, 1, 3, 5), (0, 2, 3, 6), (0, 4, 5, 6), (3, 5, 6, 7), (0, 3, 5, 6))
@@ -156,8 +156,12 @@ def assemble_elasticity_tet(
     nodes_per_dim: Sequence[int] = (5, 5, 5),
     jitter: float = 0.2,
     seed: int = 0,
+    strict: bool = False,
 ):
     """Assemble the distributed elasticity system; returns (A, b, x̂, x0).
+    ``strict`` takes b = A x̂ with the strict product (each row folded left
+    to right, `mul_into(strict=True)`), as the JAX package assembles it
+    under ``PA_TPU_STRICT_BITS=1``: the system a strict solve is held on.
 
     The mesh is built replicated on host (it is plan-time metadata, like
     every partitioner input); each part keeps only the elements and dofs
@@ -229,7 +233,7 @@ def assemble_elasticity_tet(
         return xhat[g // 3, g % 3]
 
     x_exact = PVector(map_parts(_vals, cols.partition), cols)
-    b = A @ x_exact
+    b = _matvec(A, x_exact, strict)
 
     def _x0(iset):
         g = np.asarray(iset.lid_to_gid)

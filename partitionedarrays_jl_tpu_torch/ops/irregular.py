@@ -6,15 +6,18 @@ They stand for XLA forms of the JAX package, where no Pallas kernel runs
 (`partitionedarrays_jl_tpu/parallel/tpu.py`):
 
 * E1 `ell_spmv` (`csrc/ell_spmv.cu`): the padded-ELL fold `_ell_rowsum`
-  (:2916-2924), for A_oo of the ELL lowering (``(P, no_max, L)`` values and
-  slot columns) and, in its boundary mode `ell_spmv_boundary`, for the
-  compact boundary-row A_oh of every lowering without node blocks, the
-  band ones included (`_finish`, :3230-3233); the boundary mode also takes
-  ``(P, W, K)`` slabs, column k summed as a frame;
+  (:2916-2924), for A_oo of the ELL lowering and, in its boundary mode
+  `ell_spmv_boundary`, for the compact boundary-row A_oh of every lowering
+  without node blocks, the band ones included (`_finish`, :3230-3233); the
+  boundary mode also takes ``(P, W, K)`` slabs, column k summed as a frame.
+  Its operands are slot-major: values and int32 slot columns ``(P, L, n)``,
+  the transpose of the JAX package's ``(P, n, L)`` (`ell_row_major` gives
+  that form back), so that at each slot neighbouring rows lie at
+  neighbouring addresses;
 * E2 `bsr_spmv` (`csrc/bsr_spmv.cu`): the node-block gather and
   ``einsum("nlij,nlj->ni")`` of the BSR lowering (:3143-3160), bs in {2,
-  3, 4}, and in its boundary mode `bsr_spmv_boundary` one width bucket of
-  the node-block A_oh (:3201-3229);
+  3, 4}, and in its boundary mode `bsr_spmv_boundary` every width bucket
+  of the node-block A_oh (:3201-3229) in one launch;
 * E3 `pairwise_dot` (`csrc/pairwise_dot.cu`): strict mode's dot,
   `_strict_pairwise_partial` and `_pdot_factory`'s strict branch
   (:2486-2551): products rounded one by one, the fixed pairwise tree a
@@ -69,6 +72,11 @@ class _EllParams(ctypes.Structure):
     ]
 
 
+#: most width buckets one launch of E2's boundary mode takes
+#: (PA_BSR_MAX_BUCKETS in csrc/bsr_spmv.cu; the staging makes SD_BUCKETS)
+BSR_MAX_BUCKETS = 8
+
+
 class _BsrParams(ctypes.Structure):
     """Mirror of `PaBsrParams` in csrc/bsr_spmv.cu."""
 
@@ -83,6 +91,13 @@ class _BsrParams(ctypes.Structure):
         ("xo0", ctypes.c_longlong),
         ("yo0", ctypes.c_longlong),
         ("trash", ctypes.c_longlong),
+        ("nbk", ctypes.c_int),
+        ("bk_Lb", ctypes.c_int * BSR_MAX_BUCKETS),
+        ("bk_row0", ctypes.c_longlong * (BSR_MAX_BUCKETS + 1)),
+        ("bk_nb", ctypes.c_longlong * BSR_MAX_BUCKETS),
+        ("bk_roff", ctypes.c_longlong * BSR_MAX_BUCKETS),
+        ("bk_coff", ctypes.c_longlong * BSR_MAX_BUCKETS),
+        ("bk_voff", ctypes.c_longlong * BSR_MAX_BUCKETS),
     ]
 
 
@@ -127,18 +142,20 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
     return True
 
 
-def _check(name: str, x: torch.Tensor, floats: Sequence[torch.Tensor], ints: Sequence[torch.Tensor]) -> str:
+def _check(name: str, x: torch.Tensor, floats: Sequence[torch.Tensor], ints: Sequence[torch.Tensor],
+           ints32: Sequence[torch.Tensor] = ()) -> str:
     """The kernel's type name; raises unless the float operands share x's
-    dtype (f32 or f64) and device and the index operands are int64, all
-    contiguous."""
+    dtype (f32 or f64) and device and the index operands are int64 (those
+    of ``ints32`` int32), all contiguous."""
     if x.dtype not in dia._DT:
         raise TypeError(f"{name}: the kernel takes float32 or float64, got {x.dtype}")
     for t in floats:
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError(f"{name}: values and frames must be contiguous, on one device, of one dtype")
-    for t in ints:
-        if t.device != x.device or t.dtype != torch.int64 or not t.is_contiguous():
-            raise ValueError(f"{name}: index arrays must be contiguous int64 on the operand's device")
+    for dt, group in ((torch.int64, ints), (torch.int32, ints32)):
+        for t in group:
+            if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"{name}: index arrays must be contiguous {dt} on the operand's device")
     return dia._DT[x.dtype]
 
 
@@ -153,20 +170,32 @@ def _slab_index(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return idx if x.dim() == 2 else idx[..., None].expand(*idx.shape, x.shape[2])
 
 
+def ell_row_major(t: torch.Tensor) -> torch.Tensor:
+    """The row-major ``(P, n, L)`` form of E1's slot-major ``(P, L, n)``
+    values or slot columns (the JAX package's staging), and back: the
+    layout is a transpose of the last two axes."""
+    return t.transpose(1, 2).contiguous()
+
+
 def _ell_fold(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """sum_l vals[:, i, l] * x[:, cols[:, i, l]], left to right from slot 0."""
-    col = (lambda l: vals[:, :, l]) if x.dim() == 2 else (lambda l: vals[:, :, l, None])
-    acc = col(0) * x.gather(1, _slab_index(cols[:, :, 0], x))
-    for l in range(1, vals.shape[2]):
-        acc = acc + col(l) * x.gather(1, _slab_index(cols[:, :, l], x))
+    """sum_l vals[:, l, i] * x[:, cols[:, l, i]], left to right from slot 0."""
+    col = (lambda l: vals[:, l]) if x.dim() == 2 else (lambda l: vals[:, l, :, None])
+    acc = col(0) * x.gather(1, _slab_index(cols[:, 0].long(), x))
+    for l in range(1, vals.shape[1]):
+        acc = acc + col(l) * x.gather(1, _slab_index(cols[:, l].long(), x))
     return acc
+
+
+def _ell_frame_check(name: str, x: torch.Tensor) -> None:
+    if x.shape[1] >= 2**31:
+        raise ValueError(f"{name}: a frame of {x.shape[1]} slots does not fit the int32 slot columns")
 
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, o0: int,
                    width: Optional[int] = None) -> torch.Tensor:
     """Plain version of `ell_spmv`."""
     width = x.shape[1] if width is None else int(width)
-    P, n, _ = vals.shape
+    P, _, n = vals.shape
     y = x.new_zeros((P, width))
     y[:, o0 : o0 + n] = _ell_fold(vals, cols, x)
     return y
@@ -174,16 +203,17 @@ def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, o0: 
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, o0: int,
              width: Optional[int] = None) -> torch.Tensor:
-    """y = A_oo x for a padded-ELL operand: vals (P, n, L) and int64 slot
-    columns cols (P, n, L) into x's frame (P, Wx) -> y (P, width) with rows
-    ``[o0, o0 + n)`` computed (row i = the fold of staged row i) and every
-    other slot 0 (width defaults to Wx)."""
+    """y = A_oo x for a padded-ELL operand staged slot-major: vals (P, L, n)
+    and int32 slot columns cols (P, L, n) into x's frame (P, Wx) -> y (P,
+    width) with rows ``[o0, o0 + n)`` computed (row i = the fold of staged
+    row i) and every other slot 0 (width defaults to Wx)."""
     width = x.shape[1] if width is None else int(width)
     if not _on_cuda("ell_spmv", x):
         return ell_spmv_plain(vals, cols, x, o0, width)
-    dt = _check("ell_spmv", x, (vals, x), (cols,))
-    P, n, L = vals.shape
-    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != (P, n, L) or L < 1 or width < o0 + n:
+    dt = _check("ell_spmv", x, (vals, x), (), (cols,))
+    _ell_frame_check("ell_spmv", x)
+    P, L, n = vals.shape
+    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != (P, L, n) or L < 1 or width < o0 + n:
         raise ValueError(f"ell_spmv: operand {tuple(x.shape)} or result width {width} does not fit "
                          f"{P} parts of {n} rows at {o0}")
     y = torch.empty((P, width), dtype=x.dtype, device=x.device)
@@ -210,17 +240,18 @@ def ell_spmv_boundary(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor
                       y: torch.Tensor, trash: int) -> torch.Tensor:
     """y[:, rows[:, b]] += the fold of staged boundary row b, in place:
     rows (P, nb) int64 row slots of y (pads at the ``trash`` slot, skipped),
-    vals (P, nb, L) and int64 slot columns cols (P, nb, L) into x. x and y
-    are (P, W) frames or (P, W, K) slabs (column k summed as a frame).
-    Returns y."""
+    vals (P, L, nb) and int32 slot columns cols (P, L, nb) into x, slot-major.
+    x and y are (P, W) frames or (P, W, K) slabs (column k summed as a
+    frame). Returns y."""
     if not _on_cuda("ell_spmv_boundary", x):
         return ell_spmv_boundary_plain(rows, vals, cols, x, y, trash)
-    dt = _check("ell_spmv_boundary", x, (vals, x, y), (rows, cols))
-    P, nb, L = vals.shape
+    dt = _check("ell_spmv_boundary", x, (vals, x, y), (rows,), (cols,))
+    _ell_frame_check("ell_spmv_boundary", x)
+    P, L, nb = vals.shape
     K = 1 if x.dim() == 2 else x.shape[2]
     if (x.dim() not in (2, 3) or y.dim() != x.dim() or x.shape[0] != P or y.shape[0] != P
-            or (x.dim() == 3 and y.shape[2] != K) or tuple(cols.shape) != (P, nb, L)
-            or tuple(rows.shape) != (P, nb) or L < 1):
+            or (x.dim() == 3 and y.shape[2] != K) or tuple(cols.shape) != (P, L, nb)
+            or tuple(rows.shape) != (P, nb) or L < 1 or nb < 1):
         raise ValueError(f"ell_spmv_boundary: frames {tuple(x.shape)}/{tuple(y.shape)} do not fit {P} parts of "
                          f"{nb} boundary rows of {L} slots")
     if y.data_ptr() == x.data_ptr():
@@ -298,35 +329,73 @@ def bsr_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0: int, 
     return y
 
 
-def bsr_spmv_boundary_plain(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-                            g0: int, nhn: int, y: torch.Tensor, trash: int) -> torch.Tensor:
-    """Plain version of `bsr_spmv_boundary` (pad rows add +0.0 to the
-    trash slot, which the kernel leaves untouched)."""
-    P, nb, _, bs, _ = vals.shape
-    xn = x[:, g0 : g0 + nhn * bs].reshape(P, nhn, bs)
-    acc = torch.where(rows != trash, _bsr_fold(vals, cols, xn), 0)
-    y.scatter_add_(1, rows.reshape(P, nb * bs), acc.reshape(P, nb * bs))
+def _buckets(t) -> tuple:
+    """One bucket's tensor, or a sequence of buckets' tensors, as a tuple."""
+    return (t,) if isinstance(t, torch.Tensor) else tuple(t)
+
+
+def bsr_spmv_boundary_plain(rows, vals, cols, x: torch.Tensor, g0: int, nhn: int, y: torch.Tensor,
+                            trash: int) -> torch.Tensor:
+    """Plain version of `bsr_spmv_boundary`: the buckets one after another
+    (pad rows add +0.0 to the trash slot, which the kernel leaves
+    untouched)."""
+    for rows_c, vals_c, cols_c in zip(_buckets(rows), _buckets(vals), _buckets(cols)):
+        P, nb, _, bs, _ = vals_c.shape
+        xn = x[:, g0 : g0 + nhn * bs].reshape(P, nhn, bs)
+        acc = torch.where(rows_c != trash, _bsr_fold(vals_c, cols_c, xn), 0)
+        y.scatter_add_(1, rows_c.reshape(P, nb * bs), acc.reshape(P, nb * bs))
     return y
 
 
-def bsr_spmv_boundary(rows: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, g0: int,
-                      nhn: int, y: torch.Tensor, trash: int) -> torch.Tensor:
-    """One width bucket of the node-block A_oh, in place: for staged
-    boundary node n and i < bs, ``y[:, rows[:, n, i]] +=`` row i of its
-    blocks vals (P, nb, Lb, bs, bs) against the ghost-node frame of x
-    (``nhn`` nodes from ``g0``, int64 node columns cols (P, nb, Lb)); rows
-    (P, nb, bs) int64, pads at the ``trash`` slot, skipped. Returns y."""
+def _offsets(name: str, ts: Sequence[torch.Tensor]):
+    """The base pointer of the one buffer that holds every tensor of ``ts``
+    and each tensor's element offset in it; raises unless they share one
+    storage."""
+    store = ts[0].untyped_storage().data_ptr()
+    if any(t.untyped_storage().data_ptr() != store for t in ts):
+        raise ValueError(f"{name}: the buckets' arrays must be views of one buffer each")
+    return store, [(t.data_ptr() - store) // t.element_size() for t in ts]
+
+
+def bsr_spmv_boundary(rows, vals, cols, x: torch.Tensor, g0: int, nhn: int, y: torch.Tensor,
+                      trash: int) -> torch.Tensor:
+    """The node-block A_oh, in place, every width bucket in one launch: for
+    bucket c, staged boundary node n and i < bs, ``y[:, rows_c[:, n, i]] +=``
+    row i of its blocks vals_c (P, nb_c, Lb_c, bs, bs) against the
+    ghost-node frame of x (``nhn`` nodes from ``g0``, int64 node columns
+    cols_c (P, nb_c, Lb_c)); rows_c (P, nb_c, bs) int64, pads at the
+    ``trash`` slot, skipped. rows, vals and cols are one bucket's tensors or
+    sequences of at most BSR_MAX_BUCKETS buckets' tensors, each sequence
+    views of one buffer (the staging's flat buffers). Returns y."""
+    rows, vals, cols = _buckets(rows), _buckets(vals), _buckets(cols)
     if not _on_cuda("bsr_spmv_boundary", x):
         return bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y, trash)
-    P, nb, Lb, bs, _ = vals.shape
-    dt = _bsr_check("bsr_spmv_boundary", vals, cols, x, nhn, g0, rows, y)
+    nbk = len(vals)
+    if not 1 <= nbk <= BSR_MAX_BUCKETS or len(rows) != nbk or len(cols) != nbk:
+        raise ValueError(f"bsr_spmv_boundary: 1 to {BSR_MAX_BUCKETS} buckets of rows, vals and cols, "
+                         f"got {len(rows)}, {nbk}, {len(cols)}")
+    P, _, _, bs, _ = vals[0].shape
+    dt = None
+    for rows_c, vals_c, cols_c in zip(rows, vals, cols):
+        if vals_c.shape[0] != P or vals_c.shape[3] != bs:
+            raise ValueError("bsr_spmv_boundary: the buckets differ in parts or block size")
+        dt = _bsr_check("bsr_spmv_boundary", vals_c, cols_c, x, nhn, g0, rows_c, y)
     if y.data_ptr() == x.data_ptr():
         raise ValueError("bsr_spmv_boundary: y is updated in place and must not alias x")
-    prm = _BsrParams(P=P, Lb=Lb, bs=bs, mode=1, nn=nb, wx=x.shape[1], wy=y.shape[1], xo0=g0, yo0=0,
-                     trash=int(trash))
+    rbase, roff = _offsets("bsr_spmv_boundary", rows)
+    cbase, coff = _offsets("bsr_spmv_boundary", cols)
+    vbase, voff = _offsets("bsr_spmv_boundary", vals)
+    prm = _BsrParams(P=P, Lb=1, bs=bs, mode=1, nn=0, wx=x.shape[1], wy=y.shape[1], xo0=g0, yo0=0,
+                     trash=int(trash), nbk=nbk)
+    row0 = 0
+    for c, vals_c in enumerate(vals):
+        nb_c, Lb_c = vals_c.shape[1], vals_c.shape[2]
+        prm.bk_Lb[c], prm.bk_nb[c], prm.bk_row0[c] = Lb_c, nb_c, row0
+        prm.bk_roff[c], prm.bk_coff[c], prm.bk_voff[c] = roff[c], coff[c], voff[c]
+        row0 += nb_c * bs
+    prm.bk_row0[nbk] = row0
     fn = getattr(dia.build_kernels()["bsr_spmv"], f"pa_bsr_spmv_{dt}")
-    rc = fn(ctypes.byref(prm), rows.data_ptr(), vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-            _stream(x))
+    rc = fn(ctypes.byref(prm), rbase, vbase, cbase, x.data_ptr(), y.data_ptr(), _stream(x))
     dia._raise_on(rc, "bsr_spmv_boundary")
     dia.LAUNCHES["bsr_spmv_boundary"] += 1
     return y

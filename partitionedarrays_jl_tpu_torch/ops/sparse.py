@@ -55,12 +55,31 @@ class CSRMatrix:
         return f"CSRMatrix(shape={self.shape}, nnz={self.nnz}, dtype={self.dtype})"
 
 
+def _fold_groups(V: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """The sum of each group ``V[starts[g]:starts[g + 1]]`` folded left to
+    right from its first value, each add rounded (Julia's `sparse`, and
+    the JAX package's native `coo_to_csr`), vectorised by rank within the
+    group: rank r adds into every group longer than r."""
+    data = V[starts].copy()
+    lens = np.diff(np.append(starts, len(V)))
+    live = np.nonzero(lens > 1)[0]
+    r = 1
+    while live.size:
+        data[live] += V[starts[live] + r]
+        r += 1
+        live = live[lens[live] > r]
+    return data
+
+
 def compresscoo(
     I, J, V, m: int, n: int, combine: Optional[Callable] = None
 ) -> CSRMatrix:
     """COO triplets -> CSR, accumulating duplicates with `combine`
-    (default +). Vectorized (lexsort + reduceat) rather than the
-    reference's `sparse`/`sparsecsr` calls
+    (default +), each group folded left to right in input order from its
+    first value (the reference's `sparse`; the JAX package's native
+    `coo_to_csr`, bit for bit). Vectorized (a stable sort, then the fold
+    by rank within a group) rather than the reference's
+    `sparse`/`sparsecsr` calls
     (reference: src/SparseUtils.jl:51-57, :80-88, :193-204)."""
     # keep the caller's integer width: int32 lid batches (any local size
     # < 2^31) need no conversion copies
@@ -102,7 +121,7 @@ def compresscoo(
         if starts is None:
             pass
         elif combine is None or combine is np.add:
-            data = np.add.reduceat(V, starts)
+            data = _fold_groups(V, starts)
         else:
             # general combine: left-fold within each duplicate group
             data = np.empty(len(starts), dtype=V.dtype)

@@ -423,7 +423,7 @@ class DeviceMatrix:
     set ``dia_mode``. Any other A_oo takes, in the JAX package's order off
     a TPU, the supernode-dense groups (``"sd"``: ``sd_idx``, ``sd_vals``
     per width bucket), node blocks (``"bsr"``: ``bsr_cols``, ``bsr_vals``)
-    or padded ELL (``"ell"``: ``oo_vals``, ``oo_cols``), staged by
+    or padded ELL (``"ell"``: ``oo_vals``, ``oo_cols``, slot-major), staged by
     `gpu_irregular`; the keyword ``lowering`` ("auto", "sd", "bsr", "ell")
     names the first of those tried. A_oh lives on the boundary rows only:
     node blocks of the SD/BSR block size where the ghosts arrive as whole
@@ -578,9 +578,11 @@ class DeviceMatrix:
     def _stage_boundary(self, A, oh, P, dt):
         """A_oh, on the boundary rows only (tpu.py:1513-1558): node blocks
         of the SD or BSR block size where the ghost columns arrive as whole
-        nodes (`gpu_irregular.detect_oh_blocks`, a width bucket a launch of
+        nodes (`gpu_irregular.detect_oh_blocks`: per-bucket views of one
+        flat buffer an array, all buckets one launch of
         `ops/irregular.bsr_spmv_boundary`), else compact boundary-row ELL
-        arrays ``(P, nb_max[, L])`` for `ops/irregular.ell_spmv_boundary`,
+        arrays (rows ``(P, nb_max)``, values and int32 columns slot-major
+        ``(P, L, nb_max)``) for `ops/irregular.ell_spmv_boundary`,
         whose columns index the column frame through its slot maps (so a
         box layout's ghost segments need nothing more)."""
         from . import gpu_irregular as gi
@@ -597,23 +599,32 @@ class DeviceMatrix:
         if ohb is not None:
             self.ohb_bs = ohb["bs"]
             self.ohb_nhn = (cl.W - cl.g0 - 1) // self.ohb_bs  # ghost nodes of the column frame
-            self.ohb_rows = tuple(torch.from_numpy(c["rows"].astype(np.int64)).to(dev) for c in ohb["chunks"])
-            self.ohb_cols = tuple(torch.from_numpy(c["cols"].astype(np.int64)).to(dev) for c in ohb["chunks"])
-            self.ohb_vals = tuple(torch.from_numpy(c["vals"]).to(dev) for c in ohb["chunks"])
+            # each array's buckets in one flat buffer (E2's boundary mode
+            # launches once over all of them), kept as per-bucket views
+            for name in ("rows", "cols", "vals"):
+                arrs = [c[name].astype(np.int64) if name != "vals" else c[name] for c in ohb["chunks"]]
+                flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs])).to(dev)
+                views, at = [], 0
+                for a in arrs:
+                    views.append(flat[at : at + a.size].view(a.shape))
+                    at += a.size
+                setattr(self, f"ohb_{name}", tuple(views))
             return
         L_oh = max(max(int(m.row_lengths().max()) if m.nnz else 0 for m in oh), 1)
         nb_max = max(max(int(np.count_nonzero(m.row_lengths())) for m in oh), 1)
+        check(cl.W < 2**31, "boundary ELL: the column frame does not fit int32 slot columns")
+        # E1's slot-major layout: (P, L, nb_max), int32 slot columns
         oh_rows = np.full((P, nb_max), rl.trash, dtype=np.int64)
-        oh_vals = np.zeros((P, nb_max, L_oh), dtype=dt)
-        oh_cols = np.full((P, nb_max, L_oh), cl.trash, dtype=np.int64)
+        oh_vals = np.zeros((P, L_oh, nb_max), dtype=dt)
+        oh_cols = np.full((P, L_oh, nb_max), cl.trash, dtype=np.int32)
         for p in range(P):
             br = np.nonzero(oh[p].row_lengths())[0]
             if len(br):
                 E = ELLMatrix.from_csr(oh[p], row_width=L_oh)
                 oh_rows[p, : len(br)] = rl.o0 + br
-                oh_vals[p, : len(br)] = E.vals[br]
+                oh_vals[p, :, : len(br)] = E.vals[br].T
                 # ELL pad cols are hid 0 with value 0: a real slot, safe
-                oh_cols[p, : len(br)] = cl.hid_slots[p][E.cols[br]]
+                oh_cols[p, :, : len(br)] = cl.hid_slots[p][E.cols[br]].T
         self.oh_rows = torch.from_numpy(oh_rows).to(dev)
         self.oh_vals = torch.from_numpy(oh_vals).to(dev)
         self.oh_cols = torch.from_numpy(oh_cols).to(dev)
@@ -743,8 +754,8 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     place. A coded operator runs the coded-DIA kernel, a streaming one the
     streaming-DIA kernel (`_dia_rowsum`, tpu.py:2960-2975), an SD, BSR or
     ELL one its product of `ops/irregular.py` (`_irregular_aoo`). A_oh
-    runs E2's boundary mode a width bucket (node blocks) or E1's
-    (boundary-row ELL). ``pfold`` gives ``body(r, pprev, beta, minv=None)
+    runs E2's boundary mode, one launch over its width buckets (node
+    blocks), or E1's (boundary-row ELL). ``pfold`` gives ``body(r, pprev, beta, minv=None)
     -> (A p, p)`` with ``p = r + beta*pprev`` (with ``minv``, Jacobi PCG's
     ``p = minv*r + beta*pprev``); ``axpy`` gives ``body(x, xacc, pprev,
     alpha) -> (A x, xacc)`` with the lagged update ``xacc += alpha*pprev``
@@ -831,8 +842,7 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
         exchange_(plan, xv)
         if dA.oh_nnz:
             if dA.ohb_bs is not None:
-                for rows_c, cols_c, vals_c in zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals):
-                    bsr_b(rows_c, vals_c, cols_c, xv, cg0, dA.ohb_nhn, y, trash)
+                bsr_b(dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, xv, cg0, dA.ohb_nhn, y, trash)
             else:
                 ell_b(dA.oh_rows, dA.oh_vals, dA.oh_cols, xv, y, trash)
             y[:, g0:] = 0

@@ -18,6 +18,7 @@ import bisect
 import numpy as np
 
 from ..ops.sparse import ELLMatrix
+from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE
 
 #: node rows a supernode group holds (tpu.py:DeviceMatrix.SD_GROUP)
@@ -236,15 +237,19 @@ def detect_oh_blocks(cols_isets, oh, P: int, bs: int, row_layout, col_layout, dt
 
 
 def stage_ell(oo, P: int, no_max: int, col_layout, dt):
-    """Padded-ELL staging of A_oo (tpu.py:1460-1487): ``(vals, cols)`` of
-    shape (P, no_max, L), L the longest row over all parts, columns as
-    slots of the column frame; pad slots value 0 at the owned slot o0."""
+    """Padded-ELL staging of A_oo (tpu.py:1460-1487) in E1's slot-major
+    layout: ``(vals, cols)`` of shape (P, L, no_max), L the longest row over
+    all parts, columns int32 slots of the column frame; pad slots value 0 at
+    the owned slot o0, rows past a part's owned count at the trash slot.
+    The transpose of the last two axes is the JAX package's (P, no_max, L)
+    staging (`ops/irregular.ell_row_major`)."""
     L = max(max((int(m.row_lengths().max()) if m.nnz else 0 for m in oo), default=0), 1)
-    vals = np.zeros((P, no_max, L))
-    cols = np.full((P, no_max, L), col_layout.trash, dtype=np.int64)
+    check(col_layout.W < 2**31, "ELL staging: the column frame does not fit int32 slot columns")
+    vals = np.zeros((P, L, no_max), dtype=dt)
+    cols = np.full((P, L, no_max), col_layout.trash, dtype=np.int32)
     for p in range(P):
         E = ELLMatrix.from_csr(oo[p], row_width=L)
         m = E.vals.shape[0]
-        vals[p, :m] = E.vals
-        cols[p, :m] = col_layout.o0 + E.cols
-    return vals.astype(dt), cols
+        vals[p, :, :m] = E.vals.T
+        cols[p, :, :m] = col_layout.o0 + E.cols.T
+    return vals, cols

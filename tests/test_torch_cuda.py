@@ -1020,35 +1020,42 @@ def _gpu(rng, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("P,n,L,o0", [(1, 1, 1, 0), (2, 1000, 7, 3), (3, 2049, 13, 1), (1, 100003, 81, 0)],
-                         ids=["n1", "n1000", "n2049", "n100003"])
+@pytest.mark.parametrize("P,n,L,o0", [(1, 1, 1, 0), (2, 1000, 7, 3), (3, 2049, 13, 1), (1, 100003, 81, 0),
+                                      (2, 4097, 57, 5)],
+                         ids=["n1", "n1000", "n2049", "n100003", "n4097-L57"])
 def test_ell_spmv_kernel_matches_plain(dtype, P, n, L, o0):
-    """E1's A_oo mode against its plain version: random slot columns into a
+    """E1's A_oo mode against its plain version, bit for bit (signed zeros
+    too): slot-major values and random int32 slot columns (P, L, n) into a
     frame wider than the band, a result frame wider still (every slot
-    outside the band 0)."""
+    outside the band 0); L = 57 the elasticity operator's width, L = 81 and
+    13 past and off the kernel's slot batch."""
     _need_card()
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
     rng = np.random.default_rng(n + L)
     wx, width = o0 + n + 11, o0 + n + 5
-    vals = _gpu(rng, (P, n, L), dtype)
-    cols = torch.from_numpy(rng.integers(0, wx, (P, n, L))).cuda()
+    vals = _gpu(rng, (P, L, n), dtype)
+    cols = torch.from_numpy(rng.integers(0, wx, (P, L, n)).astype(np.int32)).cuda()
     x = _gpu(rng, (P, wx), dtype)
+    x[:, ::7] = 0.0
     dia.reset_launches()
     y = irr.ell_spmv(vals, cols, x, o0, width)
     torch.cuda.synchronize()
     assert dia.LAUNCHES["ell_spmv"] == 1
-    assert torch.equal(y, irr.ell_spmv_plain(vals, cols, x, o0, width))
+    assert _bits(y) == _bits(irr.ell_spmv_plain(vals, cols, x, o0, width))
     assert not y[:, :o0].any() and not y[:, o0 + n :].any()
+    with pytest.raises(ValueError, match="int32"):
+        irr.ell_spmv(vals, cols.long(), x, o0, width)
 
 
 @pytest.mark.parametrize("K", [None, 3], ids=["frame", "slab3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nb,L", [(1, 1), (777, 5), (5001, 12)], ids=["nb1", "nb777", "nb5001"])
 def test_ell_boundary_kernel_matches_plain(nb, L, dtype, K):
-    """E1's boundary mode on frames and (P, W, K) slabs: distinct boundary
-    rows a part, a quarter of the staged rows padding at the trash slot
-    (left untouched), y updated in place from random values."""
+    """E1's boundary mode on frames and (P, W, K) slabs, slot-major operands
+    with int32 columns: distinct boundary rows a part, a quarter of the
+    staged rows padding at the trash slot (left untouched), y updated in
+    place from random values, bit for bit the plain version."""
     _need_card()
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
@@ -1060,16 +1067,37 @@ def test_ell_boundary_kernel_matches_plain(nb, L, dtype, K):
     rows = torch.from_numpy(rows).cuda()
     wx = nb + 13
     tail = () if K is None else (K,)
-    vals = _gpu(rng, (P, nb, L), dtype)
-    cols = torch.from_numpy(rng.integers(0, wx, (P, nb, L))).cuda()
+    vals = _gpu(rng, (P, L, nb), dtype)
+    cols = torch.from_numpy(rng.integers(0, wx, (P, L, nb)).astype(np.int32)).cuda()
     x = _gpu(rng, (P, wx) + tail, dtype)
     y0 = _gpu(rng, (P, wy) + tail, dtype)
     dia.reset_launches()
     y = irr.ell_spmv_boundary(rows, vals, cols, x, y0.clone(), trash)
     torch.cuda.synchronize()
     assert dia.LAUNCHES["ell_spmv_boundary"] == 1
-    assert torch.equal(y, irr.ell_spmv_boundary_plain(rows, vals, cols, x, y0.clone(), trash))
+    assert _bits(y) == _bits(irr.ell_spmv_boundary_plain(rows, vals, cols, x, y0.clone(), trash))
     assert torch.equal(y[:, trash], y0[:, trash])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmv_kernel_keeps_negative_zero(dtype):
+    """A row whose every term is -0.0 (negative values against +0.0 operand
+    slots) sums to -0.0 on the card, as the plain fold does; a row whose
+    pads read a positive operand gets +0.0."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    L, n = 5, 3
+    x = torch.tensor([[2.0, 0.0, 0.0, -1.0]], dtype=dtype, device="cuda")
+    vals = torch.zeros((1, L, n), dtype=dtype, device="cuda")
+    cols = torch.zeros((1, L, n), dtype=torch.int32, device="cuda")
+    vals[0, :3, 0], cols[0, :3, 0] = -1.0, 1  # all terms -0.0, pads at x[3] < 0: -0.0
+    cols[0, 3:, 0] = 3
+    vals[0, :2, 1], cols[0, :2, 1] = -1.0, 2  # terms -0.0, pads at x[0] > 0: +0.0
+    vals[0, :, 2], cols[0, :, 2] = 1.5, 0
+    y = irr.ell_spmv(vals, cols, x, 0, 4)
+    assert _bits(y) == _bits(irr.ell_spmv_plain(vals, cols, x, 0, 4))
+    assert torch.signbit(y[0, 0]) and not torch.signbit(y[0, 1]) and y[0, 2] == 15.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1098,7 +1126,7 @@ def test_bsr_spmv_kernel_matches_plain(nn, Lb, bs, dtype):
 @pytest.mark.parametrize("bs", [2, 3, 4])
 @pytest.mark.parametrize("nb,Lb", [(1, 1), (250, 9)], ids=["nb1", "nb250"])
 def test_bsr_boundary_kernel_matches_plain(nb, Lb, bs, dtype):
-    """E2's boundary mode (one node-block bucket): distinct boundary rows a
+    """E2's boundary mode on one node-block bucket: distinct boundary rows a
     part, the last nodes padding at the trash slot (left untouched), the
     ghost-node frame at g0."""
     _need_card()
@@ -1121,6 +1149,58 @@ def test_bsr_boundary_kernel_matches_plain(nb, Lb, bs, dtype):
     torch.cuda.synchronize()
     assert dia.LAUNCHES["bsr_spmv_boundary"] == 1
     assert torch.equal(y, irr.bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y0.clone(), trash))
+    assert torch.equal(y[:, trash], y0[:, trash])
+
+
+#: width buckets (nodes a part, blocks a node) of the one-launch tests
+BUCKETS = {1: [(37, 4)], 2: [(1, 1), (250, 9)], 5: [(33, 3), (7, 11), (64, 2), (1, 5), (19, 7)],
+           8: [(40, 19), (41, 17), (40, 16), (41, 15), (40, 13), (41, 12), (40, 10), (3, 1)]}
+
+
+def _flat_views(arrs, dtype):
+    """Arrays laid end to end in one buffer on the card, handed back as
+    views (the staging's form)."""
+    buf = torch.from_numpy(np.concatenate([a.ravel() for a in arrs])).to("cuda", dtype)
+    views, at = [], 0
+    for a in arrs:
+        views.append(buf[at : at + a.size].view(a.shape))
+        at += a.size
+    return tuple(views)
+
+
+@pytest.mark.parametrize("nbk", [1, 2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+def test_bsr_boundary_buckets_in_one_launch(bs, dtype, nbk):
+    """E2's boundary mode over 1 to 8 width buckets, views of one flat
+    buffer an array: one launch, bit for bit the plain version's loop over
+    the buckets, the trash slot untouched."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(100 * bs + nbk)
+    P, g0, nhn = 3, 13, 57
+    shapes = BUCKETS[nbk]
+    total = sum(nb for nb, _ in shapes)
+    wx, wy = g0 + nhn * bs + 3, total * bs + 7
+    trash = wy - 1
+    perm = np.stack([rng.permutation(wy - 1)[: total * bs] for _ in range(P)]).reshape(P, total, bs)
+    rows, cols, vals, at = [], [], [], 0
+    for nb, Lb in shapes:
+        r = perm[:, at : at + nb].copy()
+        r[:, nb - nb // 4 :] = trash
+        rows.append(r)
+        cols.append(rng.integers(0, nhn, (P, nb, Lb)))
+        vals.append(rng.standard_normal((P, nb, Lb, bs, bs)))
+        at += nb
+    rows, cols, vals = _flat_views(rows, torch.int64), _flat_views(cols, torch.int64), _flat_views(vals, dtype)
+    x = _gpu(rng, (P, wx), dtype)
+    y0 = _gpu(rng, (P, wy), dtype)
+    dia.reset_launches()
+    y = irr.bsr_spmv_boundary(rows, vals, cols, x, g0, nhn, y0.clone(), trash)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["bsr_spmv_boundary"] == 1
+    assert _bits(y) == _bits(irr.bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y0.clone(), trash))
     assert torch.equal(y[:, trash], y0[:, trash])
 
 
@@ -1220,8 +1300,33 @@ def test_elasticity_lowerings_on_card(lowering):
         return pt.gather_pvector(x), info, y, pt.gather_pvector(A @ xh)
 
     xs, info_s, _, _ = pt.prun(drive, pt.sequential, 4)
+    dia.reset_launches()
     xg, info_g, y, host = pt.prun(drive, pt.GPUBackend(), 4)
+    if lowering != "ell":
+        # E2's boundary mode: one launch an SpMV, whatever the bucket count
+        spmvs = 2 + info_g["device_loop"]["device_iterations"]
+        assert dia.LAUNCHES["bsr_spmv_boundary"] == spmvs
     assert info_g["lowering"] == {"auto": "sd"}.get(lowering, lowering)
     np.testing.assert_allclose(y, host, rtol=1e-12, atol=1e-12)
     assert info_g["iterations"] == info_s["iterations"]
     np.testing.assert_allclose(xg, xs, rtol=0, atol=1e-10)
+
+
+def test_strict_elasticity_pcg_on_card():
+    """Strict Jacobi PCG on the tet-elasticity system assembled in strict
+    mode, 4 stacked parts (ELL, E1 in both modes, E3): iterations, residual
+    history and solution bit for bit the port's sequential strict PCG."""
+    _need_card()
+
+    def drive(parts):
+        A, b, xh, x0 = pt.assemble_elasticity_tet(parts, (5, 4, 6), strict=True)
+        x, info = pt.pcg(A, b, x0=x0, tol=1e-12, maxiter=500, strict=True)
+        return pt.gather_pvector(x), info
+
+    xs, info_s = pt.prun(drive, pt.sequential, 4)
+    dia.reset_launches()
+    xg, info_g = pt.prun(drive, pt.GPUBackend(), 4)
+    assert info_g["lowering"] == "ell" and dia.LAUNCHES["ell_spmv"] > 0 and dia.LAUNCHES["ell_spmv_boundary"] > 0
+    assert info_s["iterations"] == info_g["iterations"]
+    assert np.asarray(info_s["residuals"]).tobytes() == np.asarray(info_g["residuals"]).tobytes()
+    assert xs.tobytes() == xg.tobytes()

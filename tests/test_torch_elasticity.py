@@ -4,8 +4,14 @@ against the JAX package's.
 * the mesh, the Morton permutation and the element stiffness matrices are
   the same NumPy arithmetic: bitwise;
 * the assembled system on 4 parts: index sets and CSR structure exactly,
-  values to 1e-14 relative to the largest entry (duplicate triplets are
-  summed by each package's own COO compression), b, x̂ and x0 likewise;
+  values to 1e-14 relative to the largest entry, b, x̂ and x0 likewise;
+  and bit for bit on 1 and 4 parts, b taken in strict mode on both sides
+  (``strict=True``; the JAX package under ``PA_TPU_STRICT_BITS=1``): both
+  fold duplicate triplets left to right in input order;
+* strict Jacobi PCG on the port's own elasticity system
+  (``GPUBackend(device="cpu")``, the ELL lowering) bit for bit the JAX
+  package's sequential strict PCG on its own system: iterations, residual
+  history and solution;
 * Jacobi PCG at (5,5,5) nodes on ``GPUBackend(device="cpu")`` in each
   lowering (supernode-dense, node blocks, ELL) against the JAX package's
   ``pa.pcg`` on its TPU backend (the CPU mesh): equal iterations,
@@ -35,9 +41,9 @@ def test_mesh_permutation_and_element_matrices_bitwise(ns):
     assert pt_el._exact_disp(c0, s).tobytes() == jax_el._exact_disp(c1, s).tobytes()
 
 
-def _system(module, prun, backend, ns, nparts):
+def _system(module, prun, backend, ns, nparts, **kw):
     def driver(parts):
-        A, b, xh, x0 = module.assemble_elasticity_tet(parts, ns)
+        A, b, xh, x0 = module.assemble_elasticity_tet(parts, ns, **kw)
         rows = [np.asarray(i.lid_to_gid) for i in A.rows.partition.part_values()]
         cols = [np.asarray(i.lid_to_gid) for i in A.cols.partition.part_values()]
         csr = [(M.indptr.copy(), M.indices.copy(), M.data.copy()) for M in A.values.part_values()]
@@ -62,6 +68,59 @@ def test_assembly_matches_jax(nparts):
     for w, jw in zip(vecs, jvecs):
         for a, b in zip(w, jw):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-14 * max(1.0, np.abs(b).max()))
+
+
+@pytest.fixture
+def strict_env(monkeypatch):
+    """The JAX package in strict mode (PA_TPU_STRICT_BITS=1)."""
+    monkeypatch.setenv("PA_TPU_STRICT_BITS", "1")
+    yield
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a)).tobytes()
+
+
+@pytest.mark.parametrize("nparts", [1, 4])
+def test_assembly_bitwise_matches_jax(strict_env, nparts):
+    """The assembled A, b (strict), x̂ and x0 bit for bit the JAX package's,
+    index sets and CSR structure exactly."""
+    ns = (5, 4, 6)
+    rows, cols, csr, vecs = _system(pt_el, pt.prun, pt.sequential, ns, nparts, strict=True)
+    jrows, jcols, jcsr, jvecs = _system(jax_el, pa.prun, pa.sequential, ns, nparts)
+    for a, b in zip(rows + cols, jrows + jcols):
+        np.testing.assert_array_equal(a, b)
+    for (ip, ix, v), (jip, jix, jv) in zip(csr, jcsr):
+        np.testing.assert_array_equal(ip, jip)
+        np.testing.assert_array_equal(ix, jix)
+        assert v.dtype == jv.dtype and _bits(v) == _bits(jv)
+    for w, jw in zip(vecs, jvecs):
+        for a, b in zip(w, jw):
+            assert _bits(a) == _bits(b)
+
+
+@pytest.mark.parametrize("ns,nparts", [((4, 4, 4), 4), ((5, 4, 6), 3)], ids=["4x4x4-4", "5x4x6-3"])
+def test_strict_pcg_bitwise_matches_jax(strict_env, ns, nparts):
+    """Strict Jacobi PCG, each package on its own assembled system: the
+    port's GPU backend (the CPU; ELL, E1's and E3's plain versions) against
+    the JAX package's sequential strict PCG, bit for bit."""
+
+    def port(parts):
+        A, b, xh, x0 = pt.assemble_elasticity_tet(parts, ns, strict=True)
+        x, info = pt.pcg(A, b, x0=x0, tol=1e-12, maxiter=500, strict=True)
+        return pt.gather_pvector(x), info
+
+    def jax(parts):
+        A, b, xh, x0 = jax_el.assemble_elasticity_tet(parts, ns)
+        x, info = pa.pcg(A, b, x0=x0, tol=1e-12, maxiter=500)
+        return pa.gather_pvector(x), info
+
+    x, info = pt.prun(port, CPU, nparts)
+    jx, jinfo = pa.prun(jax, pa.sequential, nparts)
+    assert info["lowering"] == "ell" and info["strict"] and info["converged"]
+    assert info["iterations"] == jinfo["iterations"]
+    assert _bits(info["residuals"]) == _bits(jinfo["residuals"])
+    assert _bits(x) == _bits(jx)
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,9 @@ PA_TPU_BSR=0``; the port on ``GPUBackend(device="cpu")`` with
 * the lowering each resolves to (SD, BSR, ELL), and the node-block
   boundary on the SD and BSR lowerings, engaged on more than one part;
 * the staged arrays field by field (``sd_idx``, the ``sd_vals`` widths and
-  values, ``bsr_cols``/``bsr_vals``, the ``ohb`` chunks) exactly;
+  values, ``bsr_cols``/``bsr_vals``, the ``ohb`` chunks, each array's
+  chunks views of one buffer; the ELL arrays of A_oo and A_oh through the
+  inverse of E1's slot-major layout) exactly;
 * the SpMV products against the JAX package's to 1e-12 (both sum the same
   terms in orders that differ: XLA's einsum against the port's ascending
   fold);
@@ -102,7 +104,8 @@ def jax_reference(nodes, nparts):
                 "sd_bs": dA.sd_bs, "sd_g": dA.sd_g, "sd_idx": _arrays(dA.sd_idx), "sd_vals": _arrays(dA.sd_vals),
                 "bsr_bs": dA.bsr_bs, "bsr_cols": _arrays(dA.bsr_cols), "bsr_vals": _arrays(dA.bsr_vals),
                 "ohb_bs": dA.ohb_bs, "ohb_rows": _arrays(dA.ohb_rows), "ohb_cols": _arrays(dA.ohb_cols),
-                "ohb_vals": _arrays(dA.ohb_vals), "oo_vals": _arrays(dA.oo_vals),
+                "ohb_vals": _arrays(dA.ohb_vals), "oo_vals": _arrays(dA.oo_vals), "oo_cols": _arrays(dA.oo_cols),
+                "oh_rows": _arrays(dA.oh_rows), "oh_vals": _arrays(dA.oh_vals), "oh_cols": _arrays(dA.oh_cols),
                 "y": _owned(jax_make_spmv_fn(dA)(dx.data), isets),
             }
         return out
@@ -185,10 +188,39 @@ def test_node_block_boundary_matches_jax(reference, lowering):
             np.testing.assert_array_equal(mine, theirs)
 
 
+@pytest.mark.parametrize("lowering", ["auto", "bsr"])
+def test_node_block_boundary_is_one_buffer_an_array(reference, lowering):
+    """E2's boundary mode launches once over every bucket: each staged array
+    is one flat buffer, the buckets its views laid end to end in bucket
+    order, which address every bucket as the per-bucket arrays did."""
+    dA, _, _ = port_lowering(reference["system"], lowering)
+    assert len(dA.ohb_rows) > 1
+    for name in ("ohb_rows", "ohb_cols", "ohb_vals"):
+        views = getattr(dA, name)
+        base, offs = irr._offsets(name, views)
+        assert offs == list(np.cumsum([0] + [v.numel() for v in views[:-1]]))
+        assert all(v.is_contiguous() for v in views)
+
+
 def test_ell_staging_matches_jax(reference):
-    """ELL: the padded A_oo values equal the JAX package's (P, no_max, L)."""
+    """ELL: the padded A_oo values equal the JAX package's (P, no_max, L),
+    read through the inverse of E1's slot-major (P, L, no_max) layout."""
     dA, _, _ = port_lowering(reference["system"], "ell")
-    np.testing.assert_array_equal(dA.oo_vals.numpy(), reference["ell"]["oo_vals"])
+    assert dA.oo_vals.shape[1:] == reference["ell"]["oo_vals"].shape[:0:-1]
+    np.testing.assert_array_equal(irr.ell_row_major(dA.oo_vals).numpy(), reference["ell"]["oo_vals"])
+
+
+def test_ell_staging_round_trips_to_jax(reference):
+    """ELL: the int32 slot columns of A_oo, and the boundary-row A_oh (rows,
+    values, int32 columns), read through the inverse of the slot-major
+    layout, equal the JAX package's (P, n, L) arrays."""
+    dA, _, _ = port_lowering(reference["system"], "ell")
+    ref = reference["ell"]
+    assert dA.oo_cols.dtype == dA.oh_cols.dtype == torch.int32
+    np.testing.assert_array_equal(irr.ell_row_major(dA.oo_cols).numpy(), ref["oo_cols"])
+    np.testing.assert_array_equal(dA.oh_rows.numpy(), ref["oh_rows"])
+    np.testing.assert_array_equal(irr.ell_row_major(dA.oh_vals).numpy(), ref["oh_vals"])
+    np.testing.assert_array_equal(irr.ell_row_major(dA.oh_cols).numpy(), ref["oh_cols"])
 
 
 @pytest.mark.parametrize("lowering", LOWERINGS)

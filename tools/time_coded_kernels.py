@@ -2,7 +2,7 @@
 """Time the port's DIA kernels of one or more checkouts on one card.
 
     python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--block K] [--cg N] [--gmg N]
-                                        [--gmg-multi N]
+                                        [--gmg-multi N] [--irregular N]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -26,6 +26,14 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
 * with ``--select``, K1 on synthetic select-chain operators of the GMG
   shapes (level 0's A at 192^3, the stencil S at 192^3 down to 12^3),
   each also checked torch.equal to its plain version;
+* with ``--irregular N`` (a process per checkout, which imports its
+  package): E1 `ell_spmv` on the tet-elasticity operator at N^3 nodes in
+  float32 (forced ELL) and on the strict lowering of the 192^3 float32
+  Poisson operator (7 slots), E2 `bsr_spmv` at N^3 in float64, and the
+  boundary modes of both on 4 parts at 32^3 float64 (one SpMV's boundary:
+  every node-block bucket), each checked torch.equal to its plain
+  version; the operators are assembled once and kept in
+  ``build/irregular_cache/``, so every checkout times the same ones;
 * with ``--block K`` (this checkout only: its package is imported): K2
   with minv and the sweep's precond form on the n^3 frames, the coded SpMM
   (plain and pfold forms) on the row-class Poisson operator and the
@@ -72,6 +80,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +96,19 @@ def load_module(path: Path, name: str):
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_dia(root: Path, alias: str):
+    """A checkout's `ops/dia.py` as ``<alias>.ops.dia``, beside stand-in
+    parent packages whose paths are the checkout's, so that its relative
+    imports (`build_kernels` imports `ops/irregular.py`) resolve inside that
+    checkout and several checkouts load in one process."""
+    pkg = root / "partitionedarrays_jl_tpu_torch"
+    for name, where in ((alias, pkg), (f"{alias}.ops", pkg / "ops")):
+        mod = types.ModuleType(name)
+        mod.__path__ = [str(where)]
+        sys.modules[name] = mod
+    return load_module(pkg / "ops" / "dia.py", f"{alias}.ops.dia")
 
 
 def poisson_operator(dia, n):
@@ -279,6 +301,145 @@ def host_device_us(fns, reps):
     return {"host_us": host * 1e6 / k, "device_us": a.elapsed_time(e) * 1e3 / k}
 
 
+#: the irregular operators of ``--irregular``: the elasticity operator at
+#: N^3 nodes on one part (f64 for E2, scaled to f32 for E1), on 4 parts at
+#: IRREGULAR_MULTI^3 (f64, the boundary modes) and the strict lowering of the
+#: IRREGULAR_STRICT^3 f32 Poisson operator
+IRREGULAR_MULTI = 32
+IRREGULAR_STRICT = 192
+
+
+def _cached_system(smoke, kind, n, nparts):
+    """(A, x) of an irregular-timing operator: assembled by this checkout's
+    package at first use and kept in build/irregular_cache/ as its
+    per-part index maps and CSR arrays, so that every checkout of one run
+    times the same operator (rebuilt through the checkout's `interop`)."""
+    from partitionedarrays_jl_tpu_torch import interop, prun, sequential
+
+    path = ROOT / "build" / "irregular_cache" / f"{kind}_{n}_{nparts}.npz"
+    if not path.exists():
+        def build(parts):
+            if kind == "elasticity":
+                from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
+                A, _, xh, _ = assemble_elasticity_tet(parts, (n, n, n))
+            else:
+                from partitionedarrays_jl_tpu_torch import assemble_poisson
+                A, _, xh, _ = assemble_poisson(parts, (n, n, n), dtype=np.float32)
+            out = {"ngids": np.array(A.rows.ngids)}
+            for p, (ri, ci, M, x) in enumerate(zip(A.rows.partition.part_values(), A.cols.partition.part_values(),
+                                                   A.values.part_values(), xh.values.part_values())):
+                out.update({f"r_gid{p}": np.asarray(ri.lid_to_gid), f"r_part{p}": np.asarray(ri.lid_to_part),
+                            f"c_gid{p}": np.asarray(ci.lid_to_gid), f"c_part{p}": np.asarray(ci.lid_to_part),
+                            f"indptr{p}": M.indptr, f"indices{p}": M.indices, f"data{p}": M.data,
+                            f"shape{p}": np.array(M.shape), f"x{p}": np.asarray(x)})
+            return out
+
+        grid = nparts if kind == "elasticity" else (1, 1, 1)
+        arrays = prun(build, sequential, grid)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **arrays)
+    z = np.load(path)
+    grid = nparts if kind == "elasticity" else (1, 1, 1)
+
+    def carry(parts):
+        ng = int(z["ngids"])
+        rows = interop.prange_from_arrays(parts, ng, [z[f"r_gid{p}"] for p in range(nparts)],
+                                          [z[f"r_part{p}"] for p in range(nparts)])
+        cols = interop.prange_from_arrays(parts, ng, [z[f"c_gid{p}"] for p in range(nparts)],
+                                          [z[f"c_part{p}"] for p in range(nparts)])
+        A = interop.psparse_from_csr(rows, cols, [(z[f"indptr{p}"], z[f"indices{p}"], z[f"data{p}"],
+                                                   tuple(z[f"shape{p}"])) for p in range(nparts)])
+        return A, interop.pvector_from_values(cols, [z[f"x{p}"] for p in range(nparts)])
+
+    return prun(carry, sequential, grid)
+
+
+def irregular_worker(root: Path, n: int) -> list:
+    """E1 and E2 of checkout `root` on the irregular operators, in a process
+    of its own (flushed and back-to-back ms, each held torch.equal to its
+    plain version): E1 on the elasticity operator at n^3 in f32 (forced
+    ELL) and on the strict lowering of the 192^3 f32 Poisson operator;
+    E1's and E2's boundary modes on 4 parts at 32^3 f64 (forced ELL; SD,
+    whose node-block boundary has 8 width buckets), one SpMV's boundary
+    (a checkout from before the one-launch boundary: a launch a bucket);
+    E2's A_oo at n^3 in f64 (BSR); the empty kernel."""
+    sys.path.insert(0, str(root))
+    from partitionedarrays_jl_tpu_torch import GPUBackend
+    from partitionedarrays_jl_tpu_torch.ops import dia
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, device_matrix
+
+    smoke = load_module(ROOT / "chip_smoke.py", "chip_smoke")
+    backend = GPUBackend()
+    dia.build_kernels()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(0)
+    out = []
+
+    def rec(name, shape, fn, plain, timed_fn=None, **extra):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"{name} at {shape}: kernel differs from its plain version")
+        out.append({"kernel": name, "shape": shape, **timed(smoke, timed_fn or fn, flush), **extra})
+
+    def frame(layout, dtype):
+        x = torch.from_numpy(rng.standard_normal((layout.P, layout.W))).to("cuda", dtype)
+        x[:, layout.trash] = 0
+        return x
+
+    A, _ = _cached_system(smoke, "elasticity", n, 1)
+    A32 = smoke._f32_operator(A)
+    dA = device_matrix(A32, backend, lowering="ell")
+    x = frame(dA.col_layout, torch.float32)
+    args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
+    rec("ell_spmv", f"{n}^3 f32 elasticity, {dA.oo_vals.numel() // dA.row_layout.no_max} slots",
+        lambda: irr.ell_spmv(*args), lambda: irr.ell_spmv_plain(*args))
+    del dA, x, args, A32
+    dA = device_matrix(A, backend, lowering="bsr")
+    x = frame(dA.col_layout, torch.float64)
+    args = (dA.bsr_vals, dA.bsr_cols, x, dA.col_layout.o0, dA.row_layout.o0, dA.row_layout.W)
+    rec("bsr_spmv", f"{n}^3 f64 elasticity, bs {dA.bsr_bs}", lambda: irr.bsr_spmv(*args),
+        lambda: irr.bsr_spmv_plain(*args))
+    del dA, x, args, A
+    torch.cuda.empty_cache()
+    P, _ = _cached_system(smoke, "poisson", IRREGULAR_STRICT, 1)
+    dA = device_matrix(P, backend, strict=True)
+    x = frame(dA.col_layout, torch.float32)
+    args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
+    rec("ell_spmv", f"{IRREGULAR_STRICT}^3 f32 strict Poisson, 7 slots", lambda: irr.ell_spmv(*args),
+        lambda: irr.ell_spmv_plain(*args))
+    del dA, x, args, P
+    torch.cuda.empty_cache()
+    A, _ = _cached_system(smoke, "elasticity", IRREGULAR_MULTI, 4)
+    for low in ("ell", "auto"):
+        dA = device_matrix(A, backend, lowering=low)
+        cl, rl = dA.col_layout, dA.row_layout
+        x, y0 = frame(cl, torch.float64), frame(rl, torch.float64)
+        if dA.ohb_bs is None:
+            kern = lambda k, y: k(dA.oh_rows, dA.oh_vals, dA.oh_cols, x, y, rl.trash)
+            name, k_, p_ = "ell_spmv_boundary", irr.ell_spmv_boundary, irr.ell_spmv_boundary_plain
+        elif hasattr(irr, "BSR_MAX_BUCKETS"):
+            kern = lambda k, y: k(dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, x, cl.g0, dA.ohb_nhn, y, rl.trash)
+            name, k_, p_ = "bsr_spmv_boundary", irr.bsr_spmv_boundary, irr.bsr_spmv_boundary_plain
+        else:
+            def kern(k, y):
+                for r, c, v in zip(dA.ohb_rows, dA.ohb_cols, dA.ohb_vals):
+                    k(r, v, c, x, cl.g0, dA.ohb_nhn, y, rl.trash)
+                return y
+            name, k_, p_ = "bsr_spmv_boundary", irr.bsr_spmv_boundary, irr.bsr_spmv_boundary_plain
+        dia.reset_launches()
+        kern(k_, y0.clone())
+        launches = dia.LAUNCHES[name]
+        y = y0.clone()  # timed in place: the sums grow, the work does not
+        rec(name, f"{IRREGULAR_MULTI}^3 f64, 4 parts, {low}", lambda: kern(k_, y0.clone()),
+            lambda: kern(p_, y0.clone()), timed_fn=lambda: kern(k_, y), launches=launches,
+            buckets=len(dA.ohb_rows or ()))
+    null = smoke.null_launch_us(flush)
+    out.append({"kernel": "null_launch", "us": null})
+    return out
+
+
 def solve_worker(root: Path, cg_n: int, gmg_n: int, gmg_multi: int = 0) -> dict:
     """The solvers' seconds per iteration with the package of checkout
     `root`, in a process of its own: fused, pipelined and standard CG at
@@ -390,12 +551,19 @@ def main() -> int:
                     help="also time the Jacobi and block kernels (K columns) at n^3")
     ap.add_argument("--select", action="store_true",
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
+    ap.add_argument("--irregular", type=int, default=0, metavar="N",
+                    help="time E1 and E2 (A_oo at N^3 elasticity, the boundary modes, E1 strict at 192^3)")
+    ap.add_argument("--irregular-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_coded_kernels: no CUDA device", file=sys.stderr)
         return 1
+    if args.irregular_worker:
+        for line in irregular_worker(args.irregular_worker, args.irregular):
+            print(json.dumps(line), flush=True)
+        return 0
     if args.solve_worker:
         print(json.dumps(solve_worker(args.solve_worker, args.cg, args.gmg, args.gmg_multi)), flush=True)
         return 0
@@ -409,7 +577,7 @@ def main() -> int:
     mods = {}
     for k, root in enumerate(srcs):
         if root not in mods:
-            mods[root] = load_module(root / "partitionedarrays_jl_tpu_torch" / "ops" / "dia.py", f"pa_dia_{len(mods)}")
+            mods[root] = load_dia(root, f"pa_checkout_{len(mods)}")
         dia = mods[root]
         dia.build_kernels()
         res = time_kernels(smoke, dia, args.n, np.random.default_rng(args.seed), flush)
@@ -419,6 +587,19 @@ def main() -> int:
             res["block"] = time_block(smoke, dia, args.n, args.block, np.random.default_rng(args.seed), flush)
         res["ptxas"] = smoke._ptxas_lines(dia.BUILD_LOG)
         print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
+    if args.irregular:
+        # a process per checkout and run: each imports its own package
+        for k, root in enumerate(srcs):
+            proc = subprocess.run([sys.executable, __file__, "--irregular-worker", str(root), "--irregular",
+                                   str(args.irregular)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], file=sys.stderr)
+                print(proc.stderr[-4000:], file=sys.stderr)
+                return proc.returncode
+            for line in proc.stdout.strip().splitlines():
+                if line.startswith("{"):
+                    print(json.dumps({"run": k, "src": str(root), "variant": "irregular", **json.loads(line)}),
+                          flush=True)
     if args.cg or args.gmg or args.gmg_multi:
         # a process per checkout: each imports its own package
         for k, root in enumerate(srcs):
