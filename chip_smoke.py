@@ -139,13 +139,15 @@ Phases, one JSON line each:
    host assembly and staging seconds, launches by formula (E2 1 + 1 and
    the precond sweep 1 per device iteration), error against x̂ < 1e-5, the
    plain path's iterations, graph against eager, seconds per iteration from
-   fixed trips, a profile, and E2's product in f64 at that shape
-   (``bsr_spmv_f64``: flushed µs, plain, torch.sparse.mm, the staged
-   bound and the CSR's need); the same operator in f32 (values scaled as
-   tools/bench_irregular.py scales them) in each lowering (SD, BSR, ELL):
-   staging seconds, SpMV µs and GFLOP/s, torch.sparse.mm, E1 and E2
-   torch.equal to their plain versions and timed (E1 slot-major with int32
-   columns; each beside the staged bound and the CSR's need), SD's
+   fixed trips, a profile (E2's kernel one launch an SpMV), and E2's
+   product in f64 at that shape (``bsr_spmv_f64``: flushed µs, plain,
+   torch.sparse.mm, the bound of the bytes it moves: the real blocks,
+   their int32 columns, the counts, x and y; the CSR's need); the same
+   operator in f32 (values scaled as tools/bench_irregular.py scales
+   them) in each lowering (SD, BSR, ELL): staging seconds, SpMV µs and
+   GFLOP/s, torch.sparse.mm, E1 and E2 torch.equal to their plain
+   versions and timed (E1 slot-major with int32 columns; each beside its
+   bound and the CSR's need), SD's
    torch.bmm timed, every product against the f64 host product;
    elasticity on 4 stacked
    parts at 32^3 f64 in each lowering (SD with the node-block boundary,
@@ -158,9 +160,9 @@ Phases, one JSON line each:
    1 + 1 per device iteration, E3 1 + 2); strict Jacobi PCG on the
    N_STRICT_ELASTIC^3 elasticity system (b in strict mode) on 4 stacked
    parts, bit for bit the sequential backend's; strict CG's seconds per iteration
-   against fused CG's at 192^3 f32 (and a profile), E3 bit for bit its
-   plain version and timed there, E1 timed on the strict lowering's 7
-   slots;
+   against fused CG's at 192^3 f32 (and a profile: E3 one kernel a
+   dot), E3 bit for bit its plain version and timed there, E1 timed on
+   the strict lowering's 7 slots;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -1714,8 +1716,9 @@ def _hold_irregular_kernels(tag, dA, dtype, rng, errs):
     x = _frame(rng, (cl.P, cl.W), dtype, dev)
     x[:, cl.trash] = 0
     if dA.lowering == "bsr":
-        errs[f"bsr_spmv[{tag}]"] = _compare(f"{tag} bsr_spmv", irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W),
-                                            irr.bsr_spmv_plain(dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W))
+        errs[f"bsr_spmv[{tag}]"] = _compare(
+            f"{tag} bsr_spmv", irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x, cl.o0, rl.o0, rl.W),
+            irr.bsr_spmv_plain(*bsr_plain_operands(dA), x, cl.o0, rl.o0, rl.W))
     if dA.lowering == "ell":
         errs[f"ell_spmv[{tag}]"] = _compare(f"{tag} ell_spmv", irr.ell_spmv(dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W),
                                             irr.ell_spmv_plain(dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W))
@@ -1758,6 +1761,7 @@ def phase_elastic(backend, rng):
     launches = dict(dia.LAUNCHES)
     dev_it = device_iterations(info)
     want = {**_irregular_launches(dA, 1 + dev_it), "cg_sweep_precond": dev_it, "pairwise_dot": 0}
+    kernel = "bsr_oo_kernel" if dA.lowering == "bsr" else None
     err = float((x - xh).norm())
     mv = jacobi_preconditioner(A)
     t = time.perf_counter()
@@ -1774,7 +1778,13 @@ def phase_elastic(backend, rng):
     # the path's A_oo product alone at its own shape and dtype (flushed)
     spmv = make_spmv_fn(dA)
     spmv_ms = time_ms(lambda: spmv(dx0), torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device))
-    phase_profile("elasticity_pcg_profile", with_args(make_cg_fn(dA, 0.0, 48, precond=True), dmv), db, dx0, 48)
+    prof = phase_profile("elasticity_pcg_profile", with_args(make_cg_fn(dA, 0.0, 48, precond=True), dmv), db, dx0,
+                         48)
+    if kernel is not None:
+        # one A_oo kernel an SpMV: the start's and one an iteration
+        calls = [c for k, _, c in prof["rows"] if kernel in k]
+        require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + prof["iters"],
+                f"elasticity profile: {kernel} launches {calls} an iteration, expected one an SpMV")
     line = {"phase": "elasticity_pcg", "n": N_ELASTIC, "dofs": A.rows.ngids, "nnz": dA.flops_per_spmv // 2,
             "dtype": "float64", "parts": 1, "tol": TOL_ELASTIC, "lowering": info["lowering"],
             "cg_body": info["cg_body"], "iterations": info["iterations"], "converged": info["converged"],
@@ -1794,26 +1804,46 @@ def phase_elastic(backend, rng):
     return out
 
 
+def bsr_plain_operands(dA):
+    """E2's A_oo operands in the row-major form its plain version takes."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    return irr.bsr_row_major(dA.bsr_vals), irr.bsr_row_major(dA.bsr_cols)
+
+
+def bsr_bytes(dA, x, item):
+    """E2's A_oo bytes: the real blocks' values and int32 node columns, the
+    counts, the x frame read and the y frame written once (the kernel
+    reads no pad block)."""
+    rl = dA.row_layout
+    real = int(dA.bsr_counts.sum())
+    return (real * dA.bsr_bs**2 * item + real * 4 + dA.bsr_counts.numel() * 4 + x.numel() * item
+            + rl.P * rl.W * item)
+
+
 def bsr_f64_times(A, dA, x, errs):
     """E2's A_oo product in float64 at the elasticity path's shape (the
     dtype of its solve): torch.equal to its plain version, flushed µs of
     the kernel, the plain version and torch.sparse.mm on the same CSR, the
-    staged-bytes bound and the CSR's need."""
+    bound of the bytes it moves and the CSR's need."""
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
     cl, rl = dA.col_layout, dA.row_layout
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dA.backend.device)
-    args = (dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W)
-    errs[f"bsr_spmv[elasticity {N_ELASTIC}^3 f64 timed]"] = _compare("elasticity f64 bsr_spmv", irr.bsr_spmv(*args),
+    args = (*bsr_plain_operands(dA), x, cl.o0, rl.o0, rl.W)
+    kargs = (dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
+    errs[f"bsr_spmv[elasticity {N_ELASTIC}^3 f64 timed]"] = _compare("elasticity f64 bsr_spmv", irr.bsr_spmv(*kargs),
                                                                     irr.bsr_spmv_plain(*args))
     M = A.values.part_values()[0]
     csr = _csr_on(M, dA.backend.device)
     xcol = x[0, cl.o0 : cl.o0 + csr.shape[1]].reshape(-1, 1).contiguous()
     item = 8
-    nbytes = dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
-    t = {"ms": time_ms(lambda: irr.bsr_spmv(*args), flush), "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush),
+    nbytes = bsr_bytes(dA, x, item)
+    t = {"ms": time_ms(lambda: irr.bsr_spmv(*kargs), flush),
+         "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush),
          "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush), "bytes": nbytes,
-         "shape": f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, {int(dA.bsr_vals.shape[2])} blocks", **_csr_need(M, item)}
+         "staged_bytes": dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 4,
+         "shape": f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, {int(dA.bsr_vals.shape[1])} blocks", **_csr_need(M, item)}
     del csr
     t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * M.nnz, F64_FLOPS_PER_S)
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
@@ -1877,17 +1907,18 @@ def phase_lowering_times(backend, el, rng):
             t_sd["bound_ms"], t_sd["bound_by"] = _bound_ms(t_sd["bytes"], 2 * sum(v.numel() for v in dA.sd_vals))
             times["sd_bmm"] = t_sd
         elif dA.lowering == "bsr":
-            args = (dA.bsr_vals, dA.bsr_cols, x, cl.o0, rl.o0, rl.W)
-            errs["bsr_spmv[elasticity f32]"] = _compare("elasticity f32 bsr_spmv", irr.bsr_spmv(*args),
+            args = (*bsr_plain_operands(dA), x, cl.o0, rl.o0, rl.W)
+            kargs = (dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
+            errs["bsr_spmv[elasticity f32]"] = _compare("elasticity f32 bsr_spmv", irr.bsr_spmv(*kargs),
                                                         irr.bsr_spmv_plain(*args))
-            nbytes = dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 8 + x.numel() * item + rl.P * rl.W * item
-            t_k = {"ms": time_ms(lambda: irr.bsr_spmv(*args), flush),
+            nbytes = bsr_bytes(dA, x, item)
+            t_k = {"ms": time_ms(lambda: irr.bsr_spmv(*kargs), flush),
                    "plain_ms": time_ms(lambda: irr.bsr_spmv_plain(*args), flush), "library_ms": library_ms,
-                   "bytes": nbytes}
+                   "bytes": nbytes, "staged_bytes": dA.bsr_vals.numel() * item + dA.bsr_cols.numel() * 4}
             t_k["bound_ms"], t_k["bound_by"] = _bound_ms(nbytes, 2 * nnz)
             t_k.update(_csr_need(M, item))
             times["bsr_spmv"] = t_k
-            rec["Lb"] = int(dA.bsr_vals.shape[2])
+            rec["Lb"] = int(dA.bsr_vals.shape[1])
         else:
             args = (dA.oo_vals, dA.oo_cols, x, rl.o0, rl.W)
             errs["ell_spmv[elasticity f32]"] = _compare("elasticity f32 ell_spmv", irr.ell_spmv(*args),
@@ -2132,7 +2163,11 @@ def phase_strict(backend, run, rng):
     bD, xD = run["b_dev"], run["x0_dev"]
     s_strict, fixed_strict = fixed_trip_s_per_iter(lambda m: make_cg_fn(dS, 0.0, m), bS, xS, *CG_TRIPS)
     s_fused, fixed_fused = fixed_trip_s_per_iter(lambda m: make_cg_fn(dD, 0.0, m), bD, xD, *CG_TRIPS)
-    phase_profile("strict_cg_profile", make_cg_fn(dS, 0.0, 48), bS, xS, 48)
+    prof = phase_profile("strict_cg_profile", make_cg_fn(dS, 0.0, 48), bS, xS, 48)
+    # E3 is one kernel a dot: the start's r.r, then p.q and r.r an iteration
+    calls = [c for k, _, c in prof["rows"] if "pairwise" in k]
+    require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + 2 * prof["iters"],
+            f"strict profile: E3 kernels {calls} an iteration, expected one a dot (2 + 1/iterations)")
     o0, n = dS.row_layout.o0, dS.row_layout.no_max
     a = _frame(rng, (1, dS.row_layout.W), np.float32, backend.device)
     c = _frame(rng, (1, dS.row_layout.W), np.float32, backend.device)
@@ -2715,6 +2750,7 @@ def phase_profile(name, fn, b, x0, iters):
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    out = {"rows": rows, "iters": iters}
     emit({
         "phase": name, "device_iterations": iters, "loop": loop.get("loop"), "block": loop.get("block"),
         "wall_ms_per_iter": wall * 1e3 / iters,
@@ -2723,6 +2759,7 @@ def phase_profile(name, fn, b, x0, iters):
             {"name": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:12]
         ],
     })
+    return out
 
 
 # ---------------------------------------------------------------------------

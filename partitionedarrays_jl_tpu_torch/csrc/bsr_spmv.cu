@@ -13,10 +13,14 @@
 // FMA), the terms added in ascending (l, j) order from the first, which
 // the plain version (ops/irregular.py:bsr_spmv_plain) repeats, so the two
 // agree bit for bit (the JAX einsum sums in XLA's order: equal to rounding):
-//   mode 0 (A_oo): for every slot s of the (P, wy) result frame, with
+//   mode 0 (A_oo), operands slot-major: vals (P, Lb, bs, bs, nn) and cols
+//     (P, Lb, nn), the transpose of the JAX package's (P, nn, Lb, bs, bs)
+//     and (P, nn, Lb) (ops/irregular.py:bsr_row_major gives that form
+//     back); for every slot s of the (P, wy) result frame, with
 //     r = s - yo0, node = r / bs, i = r % bs, when 0 <= r < nn * bs:
-//     y[p, s] = sum_l sum_j vals[p, node, l, i, j] * x[p, xo0 + cols[p, node, l] * bs + j]
-//     and 0 elsewhere;
+//     y[p, s] = sum_l sum_j vals[p, l, i, j, node] * x[p, xo0 + cols[p, l, node] * bs + j]
+//     and 0 elsewhere; the node's first counts[p, node] blocks are real,
+//     the rest pads (value +0.0, node 0);
 //   mode 1 (boundary, every width bucket in one launch): bucket c holds
 //     nb_c staged boundary nodes a part, each of Lb_c blocks, as arrays
 //     rows_c (P, nb_c, bs), cols_c (P, nb_c, Lb_c) and vals_c (P, nb_c,
@@ -27,34 +31,61 @@
 //     in place (xo0 = g0: the ghost-node frame), the row's sum rounded once
 //     into y. The bucket table (at most PA_BSR_MAX_BUCKETS entries) rides in
 //     the parameter block: no device table, no copy before a launch.
-// Pad blocks carry value 0 and node 0; pad rows point at the trash slot
-// and are skipped, so no two threads write one slot (a part's boundary
-// nodes are distinct across its buckets): one launch over all buckets
-// writes what the per-bucket launches wrote, bit for bit.
+// Node columns are int32 in both modes. Pad rows of mode 1 point at the
+// trash slot and are skipped, so no two threads write one slot (a part's
+// boundary nodes are distinct across its buckets): one launch over all
+// buckets writes what the per-bucket launches wrote, bit for bit.
 //
-// Bound: memory. The blocks (bs^2 values each) and their int64 node
-// columns are read once, x gathered a node at a time, y written. At the
-// elasticity operator's 64^3 mesh in f32 (bs = 3, 262,144 node rows padded
-// to 19 blocks) the staged blocks and the frames are 225 MB a product,
-// 67 us at 3.35 TB/s.
+// Pad blocks in mode 0. A pad's terms are 0 * x[xo0 + j]: +0.0, -0.0 or NaN
+// (x infinite or NaN), added after the real terms. They decide the sign of
+// a row that sums to -0.0 and carry a NaN, so they stay in the sum, but
+// they are not read: the kernel adds mul_rn(0, x[xo0 + j]) itself, bitwise
+// what the stored pad gives. One round of them (j = 0 .. bs-1) is enough:
+// a round maps -0.0 to +0.0 at most, keeps a NaN and leaves any other sum
+// alone, so a second round changes nothing.
 //
-// The node-block boundary at 32^3 f64 on 4 parts is 3.64 MB, 1.09 us of
-// bytes, less than the 4.9 us an empty kernel takes on an H100 (CUDA
-// events): its cost is the launch count, hence one launch for all buckets.
+// Bound: memory. Mode 0 reads the real blocks' values (bs^2 each), their
+// int32 node columns and the counts once, gathers x a block at a time and
+// writes y: the elasticity operator at 64^3 (262,144 nodes, bs = 3, 19
+// blocks a node, ~11.85 real) moves ~250 MB in f64 (75 us at 3.35 TB/s) and
+// ~131 MB in f32 (39 us); its CSR would move 351 MB in f64. The node-block
+// boundary at 32^3 f64 on 4 parts is 3.6 MB, ~1 us of bytes, less than
+// the 4.9 us an empty kernel takes on an H100 (CUDA events): its cost is
+// the launch count, hence one launch for all buckets.
 //
-// Design: one thread a result row, blockIdx.y the part; the thread walks
-// its node's blocks in order and reads its row i of each (bs values).
-// Threads of one node read neighbouring rows of the same blocks. In mode 1
-// the grid covers every bucket's rows (the buckets' nb_c * bs rows laid
-// end to end); a thread finds its bucket by a scan of the table's first
-// rows (uniform across a warp but at a bucket edge). It launches on the
-// caller's stream and allocates nothing, so a CUDA graph captures it.
+// Design of mode 0: one thread a node, its bs rows as bs chains of
+// rounded adds side by side, so that a block's column and its bs values of
+// x are loaded once for all bs rows. The operands are slot-major: at block
+// l, entry (i, j), the threads of a warp (neighbouring nodes) read
+// neighbouring addresses, so every value load is coalesced without
+// staging (a node-major row of Lb * bs^2 values, 1,368 B in f64 at Lb =
+// 19, put 32 threads' loads 1,368 B apart; staging such rows in shared
+// memory by cp.async was slower than this on an H100: each CTA waits on
+// its copies, then on its x gathers, in turn, and shared memory caps the
+// CTAs an SM). A thread stops at its node's count, so no pad block is
+// read (at most the 32-byte sectors a pad shares with a neighbour's real
+// block); the loads of PA_BSR_LB blocks (column, bs x values, bs^2 values)
+// issue before their products. Then one round of pad terms where the node
+// has pads, then its bs results.
+// Threads past the nodes write the zeros outside the band. No tensor
+// cores: their fused accumulation would not round every product.
+//
+// Design of mode 1: one thread a result row, blockIdx.y the part; the
+// thread walks its node's blocks in order and reads its row i of each (bs
+// values). The grid covers every bucket's rows (the buckets' nb_c * bs
+// rows laid end to end); a thread finds its bucket by a scan of the
+// table's first rows (uniform across a warp but at a bucket edge).
+//
+// Both modes launch on the caller's stream and allocate nothing, so a CUDA
+// graph captures them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_BSR_THREADS 256
 #define PA_BSR_MAX_BUCKETS 8
+#define PA_BSR_OO_THREADS 256  // mode 0: threads (nodes) a CTA
+#define PA_BSR_LB 2            // mode 0: blocks whose loads issue before their products
 
 enum { PA_BSR_OO = 0, PA_BSR_BOUNDARY = 1 };
 
@@ -83,23 +114,92 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// ---------------------------------------------------------------------------
+// mode 0: the owned block
+// ---------------------------------------------------------------------------
+
+// the CTAs an SM its registers must allow: 3 (at most 85 registers a
+// thread), 2 for f64 4x4 blocks, whose loads would spill under that cap
+template <typename T, int BS>
+__global__ void __launch_bounds__(PA_BSR_OO_THREADS, (BS == 4 && sizeof(T) == 8) ? 2 : 3)
+bsr_oo_kernel(const PaBsrParams prm, const T* __restrict__ vals, const int* __restrict__ cols,
+              const int* __restrict__ counts, const T* __restrict__ x, T* __restrict__ y) {
+  constexpr int BB = BS * BS, LB = PA_BSR_LB;
+  const int p = blockIdx.y;
+  const long long nn = prm.nn, Lb = prm.Lb;
+  const long long node = (long long)blockIdx.x * PA_BSR_OO_THREADS + threadIdx.x;
+  T* yp = y + (long long)p * prm.wy;
+  if (node >= nn) {
+    // the zeros outside the band [yo0, yo0 + nn * bs)
+    const long long z = node - nn, band = nn * BS;
+    if (z < prm.wy - band) yp[z < prm.yo0 ? z : z + band] = T(0);
+    return;
+  }
+  const int c = __ldg(counts + (long long)p * nn + node);
+  const T* vp = vals + (long long)p * Lb * BB * nn + node;  // block l, entry (i, j) at ((l * BS + i) * BS + j) * nn
+  const int* cp = cols + (long long)p * Lb * nn + node;     // block l at l * nn
+  const T* xp = x + (long long)p * prm.wx + prm.xo0;
+  T acc[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) acc[i] = T(-0.0);  // the identity of a rounded add: the fold from the first product
+  for (int l0 = 0; l0 < c; l0 += LB) {
+    T xv[LB][BS], vv[LB][BS][BS];
+#pragma unroll
+    for (int k = 0; k < LB; ++k) {
+      const bool on = l0 + k < c;
+      const long long col = on ? __ldcs(cp + (long long)(l0 + k) * nn) : 0;
+#pragma unroll
+      for (int j = 0; j < BS; ++j) xv[k][j] = __ldg(xp + col * BS + j);
+#pragma unroll
+      for (int i = 0; i < BS; ++i)
+#pragma unroll
+        for (int j = 0; j < BS; ++j) vv[k][i][j] = on ? __ldcs(vp + ((long long)(l0 + k) * BB + i * BS + j) * nn) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < LB; ++k) {
+      if (l0 + k < c) {
+#pragma unroll
+        for (int j = 0; j < BS; ++j)
+#pragma unroll
+          for (int i = 0; i < BS; ++i) acc[i] = add_rn(acc[i], mul_rn(vv[k][i][j], xv[k][j]));
+      }
+    }
+  }
+  if (c < Lb) {
+    // the pads' terms, one round (see the note at the top)
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      const T z = mul_rn(T(0), __ldg(xp + j));
+#pragma unroll
+      for (int i = 0; i < BS; ++i) acc[i] = add_rn(acc[i], z);
+    }
+  }
+  T* yo = yp + prm.yo0 + node * BS;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) yo[i] = acc[i];
+}
+
+// ---------------------------------------------------------------------------
+// mode 1: the node-block boundary
+// ---------------------------------------------------------------------------
+
 // row i of node `node` of part p in a block row of Lb blocks (nn nodes a
 // part): sum over its Lb blocks and their bs columns
 template <typename T, int BS>
 __device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long nn, int Lb, long long node, int i,
-                                       const T* __restrict__ vals, const long long* __restrict__ cols,
+                                       const T* __restrict__ vals, const int* __restrict__ cols,
                                        const T* __restrict__ x) {
   const long long at = (long long)p * nn + node;
   const T* v = vals + at * Lb * (BS * BS) + i * BS;
-  const long long* c = cols + at * Lb;
+  const int* c = cols + at * Lb;
   const T* xp = x + (long long)p * prm.wx + prm.xo0;
-  const T* xb = xp + c[0] * BS;
+  const T* xb = xp + (long long)c[0] * BS;
   T acc = mul_rn(v[0], xb[0]);
 #pragma unroll
   for (int j = 1; j < BS; ++j) acc = add_rn(acc, mul_rn(v[j], xb[j]));
   for (int l = 1; l < Lb; ++l) {
     const T* vl = v + l * (BS * BS);
-    xb = xp + c[l] * BS;
+    xb = xp + (long long)c[l] * BS;
 #pragma unroll
     for (int j = 0; j < BS; ++j) acc = add_rn(acc, mul_rn(vl[j], xb[j]));
   }
@@ -108,21 +208,8 @@ __device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long 
 
 template <typename T, int BS>
 __global__ void __launch_bounds__(PA_BSR_THREADS)
-bsr_oo_kernel(const PaBsrParams prm, const T* __restrict__ vals, const long long* __restrict__ cols,
-              const T* __restrict__ x, T* __restrict__ y) {
-  const int p = blockIdx.y;
-  const long long s = (long long)blockIdx.x * PA_BSR_THREADS + threadIdx.x;
-  if (s >= prm.wy) return;
-  const long long r = s - prm.yo0;
-  T acc = T(0);
-  if (r >= 0 && r < prm.nn * BS) acc = block_row<T, BS>(prm, p, prm.nn, prm.Lb, r / BS, (int)(r % BS), vals, cols, x);
-  y[(long long)p * prm.wy + s] = acc;
-}
-
-template <typename T, int BS>
-__global__ void __launch_bounds__(PA_BSR_THREADS)
 bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, const T* __restrict__ vals,
-                    const long long* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
+                    const int* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
   const int p = blockIdx.y;
   const long long t = (long long)blockIdx.x * PA_BSR_THREADS + threadIdx.x;
   if (t >= prm.bk_row0[prm.nbk]) return;
@@ -138,29 +225,41 @@ bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, c
   *yp = add_rn(*yp, acc);
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 template <typename T, int BS>
-static int launch_bs(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
+static int launch_oo(const PaBsrParams* prm, const void* counts, const void* vals, const void* cols, const void* x,
                      void* y, cudaStream_t s) {
-  const long long work = prm->mode == PA_BSR_OO ? prm->wy : prm->bk_row0[prm->nbk];
-  long long gx = (work + PA_BSR_THREADS - 1) / PA_BSR_THREADS;
+  // a thread a node, then the slots outside the band
+  const long long work = prm->nn + (prm->wy - prm->nn * BS);
+  long long gx = (work + PA_BSR_OO_THREADS - 1) / PA_BSR_OO_THREADS;
   if (gx < 1) gx = 1;
   if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned int)gx, (unsigned int)prm->P);
-  if (prm->mode == PA_BSR_OO) {
-    bsr_oo_kernel<T, BS><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const T*)vals, (const long long*)cols,
-                                                         (const T*)x, (T*)y);
-  } else if (prm->mode == PA_BSR_BOUNDARY) {
-    bsr_boundary_kernel<T, BS><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
-                                                               (const long long*)cols, (const T*)x, (T*)y);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  bsr_oo_kernel<T, BS><<<grid, PA_BSR_OO_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols, (const int*)counts,
+                                                          (const T*)x, (T*)y);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BS>
+static int launch_bs(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals, const void* cols,
+                     const void* x, void* y, cudaStream_t s) {
+  if (prm->mode == PA_BSR_OO) return launch_oo<T, BS>(prm, counts, vals, cols, x, y, s);
+  if (prm->mode != PA_BSR_BOUNDARY) return (int)cudaErrorInvalidValue;
+  long long gx = (prm->bk_row0[prm->nbk] + PA_BSR_THREADS - 1) / PA_BSR_THREADS;
+  if (gx < 1) gx = 1;
+  if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
+  bsr_boundary_kernel<T, BS><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
+                                                             (const int*)cols, (const T*)x, (T*)y);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int launch(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
-                  void* y, void* stream) {
+static int launch(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals, const void* cols,
+                  const void* x, void* y, void* stream) {
   if (prm->Lb < 1 || prm->P < 1) return (int)cudaErrorInvalidValue;
   if (prm->mode == PA_BSR_BOUNDARY) {
     if (prm->nbk < 1 || prm->nbk > PA_BSR_MAX_BUCKETS || prm->bk_row0[0] != 0) return (int)cudaErrorInvalidValue;
@@ -170,27 +269,29 @@ static int launch(const PaBsrParams* prm, const void* rows, const void* vals, co
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (prm->bs) {
-    case 2: return launch_bs<T, 2>(prm, rows, vals, cols, x, y, s);
-    case 3: return launch_bs<T, 3>(prm, rows, vals, cols, x, y, s);
-    case 4: return launch_bs<T, 4>(prm, rows, vals, cols, x, y, s);
+    case 2: return launch_bs<T, 2>(prm, rows, counts, vals, cols, x, y, s);
+    case 3: return launch_bs<T, 3>(prm, rows, counts, vals, cols, x, y, s);
+    case 4: return launch_bs<T, 4>(prm, rows, counts, vals, cols, x, y, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" {
 
-// mode 0: vals (P, nn, Lb, bs, bs), cols (P, nn, Lb) node columns, rows
-// null; mode 1: the flat buffers of the buckets' rows, cols and vals (the
-// table in prm gives each bucket's offsets); x: the operand frame; y: the
-// result (written whole in mode 0, updated on the boundary rows in mode 1).
-int pa_bsr_spmv_f32(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols,
-                    const void* x, void* y, void* stream) {
-  return launch<float>(prm, rows, vals, cols, x, y, stream);
+// mode 0: vals (P, Lb, bs, bs, nn), int32 node columns cols (P, Lb, nn),
+// slot-major, int32 counts (P, nn) of real blocks a node (the rest pads:
+// value 0, node 0), rows null; mode 1: the flat buffers of the buckets' rows
+// (int64), cols (int32) and vals (the table in prm gives each bucket's
+// offsets), counts null; x: the operand frame; y: the result (written
+// whole in mode 0, updated on the boundary rows in mode 1).
+int pa_bsr_spmv_f32(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals,
+                    const void* cols, const void* x, void* y, void* stream) {
+  return launch<float>(prm, rows, counts, vals, cols, x, y, stream);
 }
 
-int pa_bsr_spmv_f64(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols,
-                    const void* x, void* y, void* stream) {
-  return launch<double>(prm, rows, vals, cols, x, y, stream);
+int pa_bsr_spmv_f64(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals,
+                    const void* cols, const void* x, void* y, void* stream) {
+  return launch<double>(prm, rows, counts, vals, cols, x, y, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The strict-bits dot for Hopper (sm_90a), E3: products rounded one by
 // one, a part's products summed in the fixed pairwise tree, the parts
-// added left to right.
+// added left to right, in one launch.
 //
 // Replaces no TPU kernel: it stands for the XLA reduction of the JAX
 // package's strict dot, `_strict_pairwise_partial` / `_strict_partial_any`
@@ -16,32 +16,56 @@
 //          by level, until one element (__fadd_rn / __dadd_rn);
 //   out = s[0] + s[1] + ... + s[P - 1], left to right from part 0.
 // The tree is the NumPy tree: every add pairs the neighbours (2i, 2i + 1)
-// of the level below. A subtree over an aligned block of 2^k elements is
-// that block's own tree, so a CTA reduces one aligned block of
-// PA_PW_BLOCK elements (or all m, if fewer) in shared memory, pairing
-// neighbours level by level (never a warp-shuffle butterfly, whose
-// pairing differs), and the next pass reduces the CTAs' results with the
-// same code, until one value a part is left; a last one-thread pass adds
-// the parts. IEEE adds of the same operands in the same tree give the
-// same bits, the sign of an exact zero included, so the result equals
-// numpy's pairwise sum of the rounded products bit for bit.
+// of the level below, the left one the first operand. A subtree over an
+// aligned block of 2^k elements is that block's own tree, so any aligned
+// block can be reduced on its own and its root used as a node of the
+// level 2^k. IEEE adds of the same operands in the same tree give the same
+// bits, the sign of an exact zero included, so the result equals numpy's
+// pairwise sum of the rounded products bit for bit. An add whose span (the
+// elements under its result) exceeds m is never made: with m below a
+// thread's run or a CTA's block the root is the node of span m, not that
+// node plus padding (+0.0 would turn a -0.0 root into +0.0).
 //
-// Bound: memory. It reads a and b once (2 x 4 B a row in f32, 2 x 8 B in
-// f64) and writes one partial a CTA: at 192^3 f32 on one part, 56.6 MB,
+// Bound: memory. It reads a and b once (2 x 4 B an element in f32, 2 x 8 B
+// in f64) and writes one partial a CTA: at 192^3 f32 on one part, 56.6 MB,
 // 16.9 us at 3.35 TB/s.
 //
-// Design (a first, simple kernel): 256 threads a CTA, blocks of 2048
-// elements; a thread first adds its pairs of rounded products (4 pairs,
-// neighbouring threads on neighbouring pairs), then the CTA halves the
-// block in two shared-memory buffers, one barrier a level. The passes and
-// the fold launch on the caller's stream; the wrapper allocates the
-// partials, so a CUDA graph captures the whole dot.
+// Design: one launch a dot, grid (m / E CTAs a part, P), E = 256 threads x
+// R elements (R = 16 in f32, 8 in f64: 4096 and 2048 elements a CTA).
+// * A warp takes 32 R consecutive elements as Q = 4 rows of 32 16-byte
+//   vectors (VW = 4 f32 or 2 f64 elements each): vector q of lane L holds
+//   elements (q * 32 + L) * VW + e, so that each load instruction of the
+//   warp reads 512 contiguous bytes of a or b. A vector is loaded whole
+//   where it lies inside the band and both frames' bands start 16-byte
+//   aligned, else element by element; elements past n are +0.0 and are not
+//   loaded. The products are rounded and each vector reduced by its own
+//   tree in registers.
+// * Per row q the warp's 32 vectors meet by shuffles at ascending offsets
+//   1, 2, 4, 8, 16: lane L holds vector L, and at offset 2^k the lanes
+//   that are multiples of 2^(k+1) add the value 2^k lanes up as the right
+//   operand, the tree's neighbour pairing (a butterfly at descending
+//   offsets would pair lanes 16 apart first: another tree, other bits).
+//   Lane 0 then joins its Q row roots pairwise, q = 0 with 1 and 2 with 3,
+//   then the two, and the 8 warps' roots meet the same way in warp 0,
+//   through shared memory and one barrier.
+// * The cross-CTA stage and the part fold ride the same launch: each CTA
+//   writes its root to scratch[p, blk], fences, and takes a ticket (an
+//   atomic counter); the CTA that takes the last one reduces each part's
+//   m / E partials (a power of two) by the same tree (up to 32 of them: a
+//   warp a part, a lane a partial, eight parts at once; more: the whole
+//   CTA a part, a thread a run of consecutive partials, loaded 8 at a
+//   time, the chunks joined by a binary-counter stack), adds the parts
+//   left to right from part 0,
+//   writes out and resets the ticket to 0. The ticket is zero at every
+//   launch (the wrapper's buffer is zeroed once and each launch leaves it
+//   so) and is one a stream, so a CUDA graph replays the dot unchanged and
+//   two dots in flight at once never share one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_PW_THREADS 256
-#define PA_PW_BLOCK 2048  // elements one CTA reduces (a power of two)
+#define PA_PW_WARPS (PA_PW_THREADS / 32)
 
 struct PaPairwiseParams {
   int P;          // stacked parts
@@ -58,109 +82,202 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// element j of part p's level: a rounded product (PRODUCTS) or a partial
-// of the pass below, +0.0 past the real elements
-template <typename T, bool PRODUCTS>
-__device__ __forceinline__ T element(const PaPairwiseParams& prm, int p, long long j, long long real,
-                                     const T* __restrict__ a, const T* __restrict__ b) {
-  if (j >= real) return T(0);
-  if (PRODUCTS) return mul_rn(a[(long long)p * prm.wa + prm.o0 + j], b[(long long)p * prm.wb + prm.o0 + j]);
-  return a[(long long)p * real + j];
+// elements a thread reduces in registers, and the 16-byte vector of T
+template <typename T> struct Run;
+template <> struct Run<float> { static constexpr int R = 16; using V = float4; };
+template <> struct Run<double> { static constexpr int R = 8; using V = double2; };
+
+// elements one CTA reduces
+template <typename T>
+__host__ __device__ constexpr long long cta_elems() { return (long long)Run<T>::R * PA_PW_THREADS; }
+
+__device__ __forceinline__ void put(float* v, const float4& a, const float4& b) {
+  v[0] = mul_rn(a.x, b.x); v[1] = mul_rn(a.y, b.y); v[2] = mul_rn(a.z, b.z); v[3] = mul_rn(a.w, b.w);
+}
+__device__ __forceinline__ void put(double* v, const double2& a, const double2& b) {
+  v[0] = mul_rn(a.x, b.x); v[1] = mul_rn(a.y, b.y);
 }
 
-// one CTA: the tree over elements [blk * e, blk * e + e) of part p's level
-// (count elements a part, `real` of them real), into out[p, blk]
-template <typename T, bool PRODUCTS>
-__global__ void __launch_bounds__(PA_PW_THREADS)
-pairwise_tree_kernel(const PaPairwiseParams prm, long long real, long long e, const T* __restrict__ a,
-                     const T* __restrict__ b, T* __restrict__ out) {
-  __shared__ T buf[2][PA_PW_BLOCK / 2];
-  const int p = blockIdx.y;
-  const long long base = (long long)blockIdx.x * e;
-  if (e == 1) {
-    if (threadIdx.x == 0) out[(long long)p * gridDim.x + blockIdx.x] = element<T, PRODUCTS>(prm, p, base, real, a, b);
-    return;
+// the warp's lanes, each holding the root of a node of span `span`, meet
+// at ascending offsets while the result's span stays within m; lane 0
+// ends with the root of the warp's node (all lanes take part)
+template <typename T>
+__device__ __forceinline__ T warp_tree(T v, long long span, long long m, int lanes) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const T u = __shfl_down_sync(0xffffffffu, v, off);
+    if (off < lanes && span * 2 * off <= m && (lane & (2 * off - 1)) == 0) v = add_rn(v, u);
   }
-  const int half = (int)(e / 2);
-  for (int i = threadIdx.x; i < half; i += PA_PW_THREADS) {
-    const long long j = base + 2LL * i;
-    buf[0][i] = add_rn(element<T, PRODUCTS>(prm, p, j, real, a, b), element<T, PRODUCTS>(prm, p, j + 1, real, a, b));
+  return v;
+}
+
+// the tree over src[0, r), r a power of two, read in order: chunks of up
+// to 8 loaded at once, each chunk's tree in registers, the chunks joined
+// by a binary counter of partial roots (chunk c closes the subtrees its
+// trailing one bits end)
+template <typename T>
+__device__ T run_tree(const T* src, long long r) {
+  constexpr int C = 8;
+  const int chunk = r < C ? (int)r : C;
+  T st[40];  // r / C <= 2^39
+  int top = 0;
+  for (long long c = 0; c * chunk < r; ++c) {
+    T v[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) v[k] = k < chunk ? __ldcg(src + c * chunk + k) : T(0);
+#pragma unroll
+    for (int lv = 1; (1 << lv) <= C; ++lv) {
+      if ((1 << lv) <= chunk) {
+#pragma unroll
+        for (int i = 0; i < C; i += 1 << lv) v[i] = add_rn(v[i], v[i + (1 << (lv - 1))]);
+      }
+    }
+    T u = v[0];
+    int k = 0;
+    while ((c >> k) & 1) u = add_rn(st[k++], u);
+    st[k] = u;
+    top = k;
+  }
+  return st[top];
+}
+
+// the tree over src[0, count), count a power of two, by the whole CTA;
+// thread 0 returns the root
+template <typename T>
+__device__ T cta_tree(const T* src, long long count, T* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = count > PA_PW_THREADS ? count / PA_PW_THREADS : 1;
+  T v = T(0);
+  if ((long long)threadIdx.x * r < count) v = run_tree(src + threadIdx.x * r, r);
+  v = warp_tree(v, r, count, 32);
+  __syncthreads();  // `red` may still be read from the last call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) v = warp_tree(lane < PA_PW_WARPS ? red[lane] : T(0), r * 32, count, PA_PW_WARPS);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PA_PW_THREADS)
+pairwise_dot_kernel(const PaPairwiseParams prm, const T* __restrict__ a, const T* __restrict__ b,
+                    T* __restrict__ scratch, unsigned int* __restrict__ ticket, T* __restrict__ out) {
+  constexpr int R = Run<T>::R;
+  constexpr int VW = 16 / (int)sizeof(T);  // elements a 16-byte vector
+  constexpr int Q = R / VW;                // vectors a thread
+  using V = typename Run<T>::V;
+  __shared__ T red[PA_PW_WARPS];
+  __shared__ int last;
+  const int p = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = prm.n, m = prm.m, nblk = gridDim.x;
+  const T* ap = a + (long long)p * prm.wa + prm.o0;
+  const T* bp = b + (long long)p * prm.wb + prm.o0;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(ap) | reinterpret_cast<uintptr_t>(bp)) & 15) == 0;
+  // the warp's 32 * R elements: vector q of lane L holds elements
+  // (q * 32 + L) * VW + e, so that each load instruction of the warp reads
+  // 512 contiguous bytes
+  const long long jw = (long long)blockIdx.x * cta_elems<T>() + (long long)warp * 32 * R;
+  T v[Q][VW];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const long long j = jw + (long long)(q * 32 + lane) * VW;
+    if (aligned && j + VW <= n) {
+      put(v[q], __ldcs(reinterpret_cast<const V*>(ap + j)), __ldcs(reinterpret_cast<const V*>(bp + j)));
+    } else {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) v[q][e] = j + e < n ? mul_rn(__ldcs(ap + j + e), __ldcs(bp + j + e)) : T(0);
+    }
+  }
+  // each vector's own tree (spans 2 .. VW), then the warp's lanes per
+  // vector (spans 2 VW .. 32 VW), then lane 0's Q nodes (spans up to 32 R);
+  // no add past m
+  T acc[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int lv = 1; (1 << lv) <= VW; ++lv) {
+      if ((1 << lv) <= m) {
+#pragma unroll
+        for (int i = 0; i < VW; i += 1 << lv) v[q][i] = add_rn(v[q][i], v[q][i + (1 << (lv - 1))]);
+      }
+    }
+    acc[q] = warp_tree(v[q][0], VW, m, 32);
+  }
+#pragma unroll
+  for (int lv = 1; (1 << lv) <= Q; ++lv) {
+    if ((long long)VW * 32 * (1 << lv) <= m) {
+#pragma unroll
+      for (int i = 0; i < Q; i += 1 << lv) acc[i] = add_rn(acc[i], acc[i + (1 << (lv - 1))]);
+    }
+  }
+  if (lane == 0) red[warp] = acc[0];
+  __syncthreads();
+  if (warp == 0) {
+    const T w = warp_tree(lane < PA_PW_WARPS ? red[lane] : T(0), (long long)R * 32, m, PA_PW_WARPS);
+    if (lane == 0) {
+      scratch[(long long)p * nblk + blockIdx.x] = w;
+      __threadfence();
+      last = atomicAdd(ticket, 1u) == (unsigned int)(nblk * prm.P) - 1u;
+    }
   }
   __syncthreads();
-  int src = 0;
-  for (int h = half / 2; h >= 1; h >>= 1) {
-    for (int i = threadIdx.x; i < h; i += PA_PW_THREADS) buf[src ^ 1][i] = add_rn(buf[src][2 * i], buf[src][2 * i + 1]);
-    __syncthreads();
-    src ^= 1;
+  if (!last) return;
+  // the last CTA: every other CTA's partial is written and fenced
+  __threadfence();
+  T fold = T(0);
+  if (nblk <= 32) {
+    // a warp a part, a lane a partial, 8 parts at a time
+    for (int q0 = 0; q0 < prm.P; q0 += PA_PW_WARPS) {
+      const int q = q0 + warp;
+      T v = q < prm.P && lane < nblk ? __ldcg(scratch + (long long)q * nblk + lane) : T(0);
+      v = warp_tree(v, 1, nblk, 32);
+      __syncthreads();  // `red` may still be read from the last chunk
+      if (lane == 0) red[warp] = v;
+      __syncthreads();
+      if (threadIdx.x == 0)
+        for (int w = 0; w < PA_PW_WARPS && q0 + w < prm.P; ++w) fold = q0 + w == 0 ? red[w] : add_rn(fold, red[w]);
+    }
+  } else {
+    for (int q = 0; q < prm.P; ++q) {
+      const T root = cta_tree(scratch + (long long)q * nblk, nblk, red);
+      if (threadIdx.x == 0) fold = q == 0 ? root : add_rn(fold, root);
+    }
   }
-  if (threadIdx.x == 0) out[(long long)p * gridDim.x + blockIdx.x] = buf[src][0];
-}
-
-// the parts' sums added left to right
-template <typename T>
-__global__ void pairwise_fold_kernel(int P, const T* __restrict__ s, T* __restrict__ out) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  T acc = s[0];
-  for (int i = 1; i < P; ++i) acc = add_rn(acc, s[i]);
-  out[0] = acc;
-}
-
-// the partials the passes write, a part: m / e, then that / e, .. down to 1
-static long long scratch_len(long long m) {
-  long long total = 0, count = m;
-  do {
-    const long long e = count < PA_PW_BLOCK ? count : PA_PW_BLOCK;
-    count /= e;
-    total += count;
-  } while (count > 1);
-  return total;
+  if (threadIdx.x == 0) {
+    out[0] = fold;
+    *ticket = 0u;
+  }
 }
 
 template <typename T>
 static int launch(const PaPairwiseParams* prm, const void* a, const void* b, void* scratch,
-                  long long scratch_elems, void* out, void* stream) {
+                  long long scratch_elems, void* ticket, void* out, void* stream) {
   const long long m = prm->m;
   if (prm->P < 1 || prm->P > 65535 || m < 1 || (m & (m - 1)) != 0 || m < prm->n || prm->n < 0)
     return (int)cudaErrorInvalidValue;
-  if (scratch_elems < prm->P * scratch_len(m)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  T* dst = (T*)scratch;
-  const T* src = nullptr;
-  long long count = m;
-  bool first = true;
-  do {
-    const long long e = count < PA_PW_BLOCK ? count : PA_PW_BLOCK;
-    const long long nblk = count / e;
-    if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned int)nblk, (unsigned int)prm->P);
-    if (first) {
-      pairwise_tree_kernel<T, true><<<grid, PA_PW_THREADS, 0, s>>>(*prm, prm->n, e, (const T*)a, (const T*)b, dst);
-    } else {
-      pairwise_tree_kernel<T, false><<<grid, PA_PW_THREADS, 0, s>>>(*prm, count, e, src, nullptr, dst);
-    }
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    first = false;
-    src = dst;
-    dst += prm->P * nblk;
-    count = nblk;
-  } while (count > 1);
-  pairwise_fold_kernel<T><<<1, 32, 0, s>>>(prm->P, src, (T*)out);
+  const long long nblk = m > cta_elems<T>() ? m / cta_elems<T>() : 1;
+  if (nblk > 0x7fffffffLL || nblk * prm->P >= 0xffffffffLL || scratch_elems < prm->P * nblk || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)nblk, (unsigned int)prm->P);
+  pairwise_dot_kernel<T><<<grid, PA_PW_THREADS, 0, (cudaStream_t)stream>>>(
+      *prm, (const T*)a, (const T*)b, (T*)scratch, (unsigned int*)ticket, (T*)out);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// a, b: (P, W) frames; scratch: the partials, at least P * scratch_len(m)
-// elements; out: one element, the dot.
+// a, b: (P, W) frames; scratch: the partials, at least P * max(1, m / E)
+// elements (E = 4096 in f32, 2048 in f64); ticket: one uint32, zero at the launch
+// and left zero, used by no dot in flight at the same time; out: one
+// element, the dot.
 int pa_pairwise_dot_f32(const PaPairwiseParams* prm, const void* a, const void* b, void* scratch,
-                        long long scratch_elems, void* out, void* stream) {
-  return launch<float>(prm, a, b, scratch, scratch_elems, out, stream);
+                        long long scratch_elems, void* ticket, void* out, void* stream) {
+  return launch<float>(prm, a, b, scratch, scratch_elems, ticket, out, stream);
 }
 
 int pa_pairwise_dot_f64(const PaPairwiseParams* prm, const void* a, const void* b, void* scratch,
-                        long long scratch_elems, void* out, void* stream) {
-  return launch<double>(prm, a, b, scratch, scratch_elems, out, stream);
+                        long long scratch_elems, void* ticket, void* out, void* stream) {
+  return launch<double>(prm, a, b, scratch, scratch_elems, ticket, out, stream);
 }
 
 }  // extern "C"

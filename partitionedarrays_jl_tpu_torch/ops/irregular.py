@@ -17,11 +17,19 @@ They stand for XLA forms of the JAX package, where no Pallas kernel runs
 * E2 `bsr_spmv` (`csrc/bsr_spmv.cu`): the node-block gather and
   ``einsum("nlij,nlj->ni")`` of the BSR lowering (:3143-3160), bs in {2,
   3, 4}, and in its boundary mode `bsr_spmv_boundary` every width bucket
-  of the node-block A_oh (:3201-3229) in one launch;
+  of the node-block A_oh (:3201-3229) in one launch. Node columns are
+  int32. A_oo's operands are slot-major, values ``(P, Lb, bs, bs, nn)``
+  and columns ``(P, Lb, nn)``, the transpose of the JAX package's ``(P,
+  nn, Lb, bs, bs)`` and ``(P, nn, Lb)`` (`bsr_row_major` gives that form
+  back, `bsr_slot_major` takes it there), so that at each block neighbouring
+  nodes lie at neighbouring addresses; it also takes each node's count of
+  real blocks (the staging's `bsr_counts`), so that the kernel reads no
+  pad block (it adds their terms itself);
 * E3 `pairwise_dot` (`csrc/pairwise_dot.cu`): strict mode's dot,
   `_strict_pairwise_partial` and `_pdot_factory`'s strict branch
   (:2486-2551): products rounded one by one, the fixed pairwise tree a
-  part (`utils/helpers.py:pairwise_sum`), the parts added left to right;
+  part (`utils/helpers.py:pairwise_sum`), the parts added left to right,
+  all in one launch (its last CTA finishes the tree and the fold);
 * `sd_spmv`: the supernode-dense product (:3096-3142), a gather of the
   groups' external unions and one `torch.bmm` a width bucket, in full
   precision (the JAX package's ``Precision.HIGHEST``): a float32 product
@@ -38,8 +46,8 @@ E2 agrees with the JAX einsum to rounding (its order is XLA's).
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises. Launches count in ``dia.LAUNCHES`` under
 ``ell_spmv``, ``ell_spmv_boundary``, ``bsr_spmv``, ``bsr_spmv_boundary``
-and ``pairwise_dot`` (one a call; a dot runs two or three passes and a
-fold); the kernels are built with the others by `dia.build_kernels`.
+and ``pairwise_dot`` (one a call, each a single launch); the kernels are
+built with the others by `dia.build_kernels`.
 """
 from __future__ import annotations
 
@@ -52,8 +60,9 @@ from . import dia
 
 #: the block sizes of E2 (its template instances)
 BSR_BLOCK_SIZES = (2, 3, 4)
-#: elements a CTA of E3 reduces (PA_PW_BLOCK in csrc/pairwise_dot.cu)
-PW_BLOCK = 2048
+#: elements a CTA of E3 reduces (cta_elems in csrc/pairwise_dot.cu: 256
+#: threads of 16 float32 or 8 float64 elements)
+PW_CTA_ELEMS = {torch.float32: 4096, torch.float64: 2048}
 
 
 class _EllParams(ctypes.Structure):
@@ -119,12 +128,12 @@ def bind(libs: dict) -> None:
     """Set the ctypes signatures of E1-E3 on their built libraries."""
     vp = ctypes.c_void_p
     for dt in ("f32", "f64"):
-        for name, params in (("ell_spmv", _EllParams), ("bsr_spmv", _BsrParams)):
+        for name, params, nptr in (("ell_spmv", _EllParams, 6), ("bsr_spmv", _BsrParams, 7)):
             f = getattr(libs[name], f"pa_{name}_{dt}")
-            f.argtypes = [ctypes.POINTER(params), vp, vp, vp, vp, vp, vp]
+            f.argtypes = [ctypes.POINTER(params)] + [vp] * nptr
             f.restype = ctypes.c_int
         f = getattr(libs["pairwise_dot"], f"pa_pairwise_dot_{dt}")
-        f.argtypes = [ctypes.POINTER(_PairwiseParams), vp, vp, vp, ctypes.c_longlong, vp, vp]
+        f.argtypes = [ctypes.POINTER(_PairwiseParams), vp, vp, vp, ctypes.c_longlong, vp, vp, vp]
         f.restype = ctypes.c_int
 
 
@@ -274,7 +283,7 @@ def _bsr_fold(vals: torch.Tensor, cols: torch.Tensor, xn: torch.Tensor) -> torch
     """(P, nn, bs): row i of node n = sum over blocks l and columns j of
     vals[:, n, l, i, j] * xn[:, cols[:, n, l], j], ascending (l, j)."""
     P, nn, Lb, bs, _ = vals.shape
-    xg = xn.gather(1, cols.reshape(P, nn * Lb, 1).expand(P, nn * Lb, bs)).view(P, nn, Lb, bs)
+    xg = xn.gather(1, cols.long().reshape(P, nn * Lb, 1).expand(P, nn * Lb, bs)).view(P, nn, Lb, bs)
     acc = None
     for l in range(Lb):
         for j in range(bs):
@@ -283,9 +292,23 @@ def _bsr_fold(vals: torch.Tensor, cols: torch.Tensor, xn: torch.Tensor) -> torch
     return acc
 
 
+def bsr_row_major(t: torch.Tensor) -> torch.Tensor:
+    """The row-major form of E2's slot-major A_oo operands (the JAX
+    package's staging): values ``(P, Lb, bs, bs, nn)`` -> ``(P, nn, Lb, bs,
+    bs)``, columns ``(P, Lb, nn)`` -> ``(P, nn, Lb)``."""
+    return (t.permute(0, 4, 1, 2, 3) if t.dim() == 5 else t.transpose(1, 2)).contiguous()
+
+
+def bsr_slot_major(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of `bsr_row_major`: values ``(P, nn, Lb, bs, bs)`` ->
+    ``(P, Lb, bs, bs, nn)``, columns ``(P, nn, Lb)`` -> ``(P, Lb, nn)``."""
+    return (t.permute(0, 2, 3, 4, 1) if t.dim() == 5 else t.transpose(1, 2)).contiguous()
+
+
 def bsr_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0: int, yo0: int,
                    width: Optional[int] = None) -> torch.Tensor:
-    """Plain version of `bsr_spmv`."""
+    """Plain version of `bsr_spmv`, on the row-major operands (`bsr_row_major`
+    of the kernel's)."""
     width = x.shape[1] if width is None else int(width)
     P, nn, _, bs, _ = vals.shape
     xn = x[:, xo0 : xo0 + nn * bs].reshape(P, nn, bs)
@@ -294,36 +317,53 @@ def bsr_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0:
     return y
 
 
-def _bsr_check(name, vals, cols, x, nodes, xo0, rows=None, y=None):
-    P, nn, Lb, bs, bs2 = vals.shape
+def _bsr_check(name, vals, cols, x, nodes, xo0, rows=None, y=None, counts=None):
+    """The kernel's type name; raises unless the blocks (row-major, or
+    slot-major with ``counts``: A_oo's staging), their int32 columns, the
+    rows, counts and frames fit one another."""
+    if counts is None:
+        P, nn, Lb, bs, bs2 = vals.shape
+        cshape = (P, nn, Lb)
+    else:
+        P, Lb, bs, bs2, nn = vals.shape
+        cshape = (P, Lb, nn)
     if bs not in BSR_BLOCK_SIZES or bs2 != bs or Lb < 1:
         raise ValueError(f"{name}: blocks {tuple(vals.shape)}: bs must be one of {BSR_BLOCK_SIZES}")
-    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != (P, nn, Lb) or xo0 + nodes * bs > x.shape[1]:
+    if x.dim() != 2 or x.shape[0] != P or tuple(cols.shape) != cshape or xo0 + nodes * bs > x.shape[1]:
         raise ValueError(f"{name}: frame {tuple(x.shape)} does not hold {P} parts of {nodes} nodes at {xo0}")
+    if nodes >= 2**31:
+        raise ValueError(f"{name}: a node frame of {nodes} nodes does not fit the int32 node columns")
     if rows is not None and (tuple(rows.shape) != (P, nn, bs) or y.dim() != 2 or y.shape[0] != P):
         raise ValueError(f"{name}: rows {tuple(rows.shape)} or result {tuple(y.shape)} do not fit the blocks")
+    if counts is not None and tuple(counts.shape) != (P, nn):
+        raise ValueError(f"{name}: counts {tuple(counts.shape)} do not fit {P} parts of {nn} nodes")
     floats = (vals, x) if y is None else (vals, x, y)
-    ints = (cols,) if rows is None else (rows, cols)
-    return _check(name, x, floats, ints)
+    ints = () if rows is None else (rows,)
+    return _check(name, x, floats, ints, (cols,) if counts is None else (cols, counts))
 
 
-def bsr_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, xo0: int, yo0: int,
+def bsr_spmv(vals: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor, x: torch.Tensor, xo0: int, yo0: int,
              width: Optional[int] = None) -> torch.Tensor:
-    """y = A_oo x for a node-block operand: vals (P, nn, Lb, bs, bs), int64
-    node columns cols (P, nn, Lb) into the node frame ``x[:, xo0:]`` (node c
-    at ``xo0 + c*bs``) -> y (P, width) with rows ``[yo0, yo0 + nn*bs)``
-    computed and every other slot 0 (width defaults to Wx)."""
+    """y = A_oo x for a node-block operand staged slot-major: vals (P, Lb,
+    bs, bs, nn) and int32 node columns cols (P, Lb, nn) into the node frame
+    ``x[:, xo0:]`` (node c at ``xo0 + c*bs``) -> y (P, width) with rows
+    ``[yo0, yo0 + nn*bs)`` computed and every other slot 0 (width defaults
+    to Wx). counts (P, nn) int32: node n's first counts[:, n] blocks are
+    real, the rest pads (value 0, node 0), as the staging lays them; the
+    kernel reads no pad and adds their terms itself, the plain version (for
+    a CPU tensor, on `bsr_row_major` of the operands) reads them."""
     width = x.shape[1] if width is None else int(width)
     if not _on_cuda("bsr_spmv", x):
-        return bsr_spmv_plain(vals, cols, x, xo0, yo0, width)
-    P, nn, Lb, bs, _ = vals.shape
-    dt = _bsr_check("bsr_spmv", vals, cols, x, nn, xo0)
+        return bsr_spmv_plain(bsr_row_major(vals), bsr_row_major(cols), x, xo0, yo0, width)
+    P, Lb, bs, _, nn = vals.shape
+    dt = _bsr_check("bsr_spmv", vals, cols, x, nn, xo0, counts=counts)
     if width < yo0 + nn * bs:
         raise ValueError(f"bsr_spmv: result width {width} does not hold {nn * bs} rows at {yo0}")
     y = torch.empty((P, width), dtype=x.dtype, device=x.device)
     prm = _BsrParams(P=P, Lb=Lb, bs=bs, mode=0, nn=nn, wx=x.shape[1], wy=width, xo0=xo0, yo0=yo0, trash=-1)
     fn = getattr(dia.build_kernels()["bsr_spmv"], f"pa_bsr_spmv_{dt}")
-    rc = fn(ctypes.byref(prm), None, vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
+    rc = fn(ctypes.byref(prm), None, counts.data_ptr(), vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
+            y.data_ptr(), _stream(x))
     dia._raise_on(rc, "bsr_spmv")
     dia.LAUNCHES["bsr_spmv"] += 1
     return y
@@ -362,7 +402,7 @@ def bsr_spmv_boundary(rows, vals, cols, x: torch.Tensor, g0: int, nhn: int, y: t
     """The node-block A_oh, in place, every width bucket in one launch: for
     bucket c, staged boundary node n and i < bs, ``y[:, rows_c[:, n, i]] +=``
     row i of its blocks vals_c (P, nb_c, Lb_c, bs, bs) against the
-    ghost-node frame of x (``nhn`` nodes from ``g0``, int64 node columns
+    ghost-node frame of x (``nhn`` nodes from ``g0``, int32 node columns
     cols_c (P, nb_c, Lb_c)); rows_c (P, nb_c, bs) int64, pads at the
     ``trash`` slot, skipped. rows, vals and cols are one bucket's tensors or
     sequences of at most BSR_MAX_BUCKETS buckets' tensors, each sequence
@@ -395,7 +435,7 @@ def bsr_spmv_boundary(rows, vals, cols, x: torch.Tensor, g0: int, nhn: int, y: t
         row0 += nb_c * bs
     prm.bk_row0[nbk] = row0
     fn = getattr(dia.build_kernels()["bsr_spmv"], f"pa_bsr_spmv_{dt}")
-    rc = fn(ctypes.byref(prm), rbase, vbase, cbase, x.data_ptr(), y.data_ptr(), _stream(x))
+    rc = fn(ctypes.byref(prm), rbase, None, vbase, cbase, x.data_ptr(), y.data_ptr(), _stream(x))
     dia._raise_on(rc, "bsr_spmv_boundary")
     dia.LAUNCHES["bsr_spmv_boundary"] += 1
     return y
@@ -412,14 +452,20 @@ def padded_length(n: int) -> int:
     return 1 << (int(n) - 1).bit_length() if n > 1 else 1
 
 
-def _scratch_len(m: int) -> int:
-    """Partials a part the passes of E3 write (scratch_len in the source)."""
-    total, count = 0, m
-    while True:
-        count //= min(count, PW_BLOCK)
-        total += count
-        if count <= 1:
-            return total
+#: E3's tickets, one uint32 a (device, stream): zeroed once, left zero by
+#: every launch, so that dots queued on one stream take turns and dots on
+#: two streams never share one (a CUDA graph bakes in its capture
+#: stream's: two replays of graphs captured on one stream must not run at
+#: once)
+_TICKETS: dict = {}
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
 
 
 def pairwise_dot_plain(a: torch.Tensor, b: torch.Tensor, o0: int, n: int) -> torch.Tensor:
@@ -449,12 +495,12 @@ def pairwise_dot(a: torch.Tensor, b: torch.Tensor, o0: int, n: int) -> torch.Ten
     if a.dim() != 2 or b.dim() != 2 or b.shape[0] != P or n < 0 or o0 + n > min(a.shape[1], b.shape[1]):
         raise ValueError(f"pairwise_dot: frames {tuple(a.shape)}/{tuple(b.shape)} do not hold a band at {o0} of {n}")
     m = padded_length(n)
-    scratch = torch.empty((P * _scratch_len(m),), dtype=a.dtype, device=a.device)
+    scratch = torch.empty((P * max(1, m // PW_CTA_ELEMS[a.dtype]),), dtype=a.dtype, device=a.device)  # partials
     out = torch.empty((), dtype=a.dtype, device=a.device)
     prm = _PairwiseParams(P=P, pad_=0, n=n, m=m, wa=a.shape[1], wb=b.shape[1], o0=o0)
     fn = getattr(dia.build_kernels()["pairwise_dot"], f"pa_pairwise_dot_{dt}")
-    rc = fn(ctypes.byref(prm), a.data_ptr(), b.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
-            _stream(a))
+    rc = fn(ctypes.byref(prm), a.data_ptr(), b.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            _ticket(a.device).data_ptr(), out.data_ptr(), _stream(a))
     dia._raise_on(rc, "pairwise_dot")
     dia.LAUNCHES["pairwise_dot"] += 1
     return out

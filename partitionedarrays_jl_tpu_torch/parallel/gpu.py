@@ -422,7 +422,8 @@ class DeviceMatrix:
     (``"stream"``, tpu.py:1688-1726 in its off-TPU form) otherwise; both
     set ``dia_mode``. Any other A_oo takes, in the JAX package's order off
     a TPU, the supernode-dense groups (``"sd"``: ``sd_idx``, ``sd_vals``
-    per width bucket), node blocks (``"bsr"``: ``bsr_cols``, ``bsr_vals``)
+    per width bucket), node blocks (``"bsr"``: ``bsr_vals`` and int32
+    ``bsr_cols`` slot-major, ``bsr_counts`` the real blocks a node row)
     or padded ELL (``"ell"``: ``oo_vals``, ``oo_cols``, slot-major), staged by
     `gpu_irregular`; the keyword ``lowering`` ("auto", "sd", "bsr", "ell")
     names the first of those tried. A_oh lives on the boundary rows only:
@@ -468,7 +469,7 @@ class DeviceMatrix:
         self.dia_kk = self.dia_code_row = self.dia_cls_pattern = None
         self.dia_mode = self.dia_offsets = None
         self.sd_bs = self.sd_g = self.sd_idx = self.sd_vals = None
-        self.bsr_bs = self.bsr_cols = self.bsr_vals = None
+        self.bsr_bs = self.bsr_cols = self.bsr_vals = self.bsr_counts = None
         self.oo_vals = self.oo_cols = None
         if det is None:
             self._stage_irregular(oo, P, noids, no_max, dt, lowering)
@@ -567,8 +568,12 @@ class DeviceMatrix:
         elif bsr is not None:
             self.lowering = "bsr"
             self.bsr_bs = bsr["bs"]
-            self.bsr_cols = torch.from_numpy(bsr["cols"].astype(np.int64)).to(dev)
-            self.bsr_vals = torch.from_numpy(bsr["vals"]).to(dev)
+            check(no_max // bsr["bs"] < 2**31, "BSR staging: the node frame does not fit int32 node columns")
+            # E2's slot-major layout (`irregular.bsr_row_major` gives the
+            # JAX package's staging back)
+            self.bsr_cols = irr.bsr_slot_major(torch.from_numpy(bsr["cols"].astype(np.int32))).to(dev)
+            self.bsr_vals = irr.bsr_slot_major(torch.from_numpy(bsr["vals"])).to(dev)
+            self.bsr_counts = torch.from_numpy(bsr["counts"]).to(dev)
         else:
             self.lowering = "ell"
             vals, cols = gi.stage_ell(oo, P, no_max, cl, dt)
@@ -599,10 +604,13 @@ class DeviceMatrix:
         if ohb is not None:
             self.ohb_bs = ohb["bs"]
             self.ohb_nhn = (cl.W - cl.g0 - 1) // self.ohb_bs  # ghost nodes of the column frame
+            check(self.ohb_nhn < 2**31, "node-block boundary: the ghost nodes do not fit int32 node columns")
             # each array's buckets in one flat buffer (E2's boundary mode
-            # launches once over all of them), kept as per-bucket views
+            # launches once over all of them), kept as per-bucket views;
+            # rows int64 slots, cols int32 ghost nodes
+            types = {"rows": np.int64, "cols": np.int32, "vals": dt}
             for name in ("rows", "cols", "vals"):
-                arrs = [c[name].astype(np.int64) if name != "vals" else c[name] for c in ohb["chunks"]]
+                arrs = [c[name].astype(types[name]) for c in ohb["chunks"]]
                 flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs])).to(dev)
                 views, at = [], 0
                 for a in arrs:
@@ -739,8 +747,10 @@ def _irregular_aoo(dA: DeviceMatrix, plain: bool) -> Callable:
     if dA.lowering == "sd":
         return lambda xv, width: irr.sd_spmv(dA.sd_idx, dA.sd_vals, xv, o0, n, dA.sd_bs, dA.sd_g, width)
     if dA.lowering == "bsr":
-        k = irr.bsr_spmv_plain if plain else irr.bsr_spmv
-        return lambda xv, width: k(dA.bsr_vals, dA.bsr_cols, xv, o0, o0, width)
+        if plain:
+            vals, cols = irr.bsr_row_major(dA.bsr_vals), irr.bsr_row_major(dA.bsr_cols)
+            return lambda xv, width: irr.bsr_spmv_plain(vals, cols, xv, o0, o0, width)
+        return lambda xv, width: irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, xv, o0, o0, width)
     k = irr.ell_spmv_plain if plain else irr.ell_spmv
     return lambda xv, width: k(dA.oo_vals, dA.oo_cols, xv, o0, width)
 

@@ -125,8 +125,10 @@ def detect_sd(oo, P: int, noids, no_max: int, dt):
 def detect_bsr(oo, P: int, noids, no_max: int, dt):
     """Node-block staging (tpu.py:_detect_bsr): the first bs in
     BLOCK_SIZES whose blocks pass the fill test; ``{"bs", "cols": (P,
-    no_max/bs, Lb) node columns, "vals": (P, no_max/bs, Lb, bs, bs)}``,
-    pad blocks node 0 and value 0. None when no bs passes."""
+    no_max/bs, Lb) node columns, "vals": (P, no_max/bs, Lb, bs, bs),
+    "counts": (P, no_max/bs) int32}``, a node row's stored blocks first
+    (``counts`` of them, the CSR's blocks a node row), then pad blocks,
+    node 0 and value 0. None when no bs passes."""
     from scipy.sparse import csr_matrix
 
     if sum(m.nnz for m in oo) == 0:
@@ -139,6 +141,7 @@ def detect_bsr(oo, P: int, noids, no_max: int, dt):
         nn_max = no_max // bs
         cols = np.zeros((P, nn_max, Lb), dtype=INDEX_DTYPE)
         vals = np.zeros((P, nn_max, Lb, bs, bs))
+        counts = np.zeros((P, nn_max), dtype=np.int32)
         for p, s in enumerate(S):
             lens = np.diff(s.indptr)
             if not lens.size or not s.data.size:
@@ -147,7 +150,8 @@ def detect_bsr(oo, P: int, noids, no_max: int, dt):
             rr = np.repeat(np.arange(len(lens)), lens)
             cols[p, rr, slot] = s.indices
             vals[p, rr, slot] = s.data
-        return {"bs": bs, "cols": cols, "vals": vals.astype(dt)}
+            counts[p, : len(lens)] = lens
+        return {"bs": bs, "cols": cols, "vals": vals.astype(dt), "counts": counts}
     return None
 
 

@@ -1100,26 +1100,79 @@ def test_ell_spmv_kernel_keeps_negative_zero(dtype):
     assert torch.signbit(y[0, 0]) and not torch.signbit(y[0, 1]) and y[0, 2] == 15.0
 
 
+def _padded_blocks(rng, P, nn, Lb, bs, full=False):
+    """Node-block rows as the staging lays them: counts[p, n] real blocks
+    (random values and nodes; every block with ``full``), then pads (value
+    0, node 0); node 0 of part 0 full and node 1 empty where there are
+    nodes to spare."""
+    counts = np.full((P, nn), Lb, dtype=np.int32) if full else rng.integers(0, Lb + 1, (P, nn)).astype(np.int32)
+    if nn > 1 and not full:
+        counts[0, 0], counts[0, 1] = Lb, 0
+    keep = np.arange(Lb)[None, None, :] < counts[..., None]
+    vals = np.where(keep[..., None, None], rng.standard_normal((P, nn, Lb, bs, bs)), 0.0)  # pads +0.0
+    cols = np.where(keep, rng.integers(0, nn, (P, nn, Lb)), 0)
+    return vals, cols.astype(np.int32), counts
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("bs", [2, 3, 4])
-@pytest.mark.parametrize("nn,Lb", [(1, 1), (333, 5), (4099, 17)], ids=["nn1", "nn333", "nn4099"])
-def test_bsr_spmv_kernel_matches_plain(nn, Lb, bs, dtype):
-    """E2's A_oo mode against its plain version: random node columns, the
-    node frame at an offset inside x, the band at another offset in y."""
+@pytest.mark.parametrize("nn,Lb,P,xo0,yo0", [(1, 1, 1, 0, 0), (45, 6, 3, 3, 5), (333, 5, 2, 2, 1),
+                                            (4099, 17, 2, 7, 3), (4099, 19, 1, 0, 0), (19, 40, 2, 1, 2)],
+                         ids=["nn1", "nn45", "nn333", "nn4099", "nn4099-full", "nn19-Lb40"])
+def test_bsr_spmv_kernel_matches_plain(nn, Lb, P, xo0, yo0, bs, dtype):
+    """E2's A_oo mode on slot-major operands against its plain version on
+    the row-major ones, bit for bit: int32 node columns, per-node counts of
+    real blocks (0 to Lb; every block real in the ``full`` case), pads
+    value 0 at node 0, the node frame at an odd offset inside x, the band at
+    another in a wider y (every slot outside it 0), 1 to 3 parts, rows of
+    up to 40 blocks."""
     _need_card()
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
     rng = np.random.default_rng(nn * bs + Lb)
-    P, xo0, yo0 = 2, 2, 1
     wx, width = xo0 + nn * bs + 7, yo0 + nn * bs + 4
-    vals = _gpu(rng, (P, nn, Lb, bs, bs), dtype)
-    cols = torch.from_numpy(rng.integers(0, nn, (P, nn, Lb))).cuda()
+    v, c, k = _padded_blocks(rng, P, nn, Lb, bs, full=nn == 4099 and Lb == 19)
+    vals, cols, counts = torch.from_numpy(v).to("cuda", dtype), torch.from_numpy(c).cuda(), torch.from_numpy(k).cuda()
+    sv, sc = irr.bsr_slot_major(vals), irr.bsr_slot_major(cols)
     x = _gpu(rng, (P, wx), dtype)
+    x[:, ::5] = 0.0
     dia.reset_launches()
-    y = irr.bsr_spmv(vals, cols, x, xo0, yo0, width)
+    y = irr.bsr_spmv(sv, sc, counts, x, xo0, yo0, width)
     torch.cuda.synchronize()
     assert dia.LAUNCHES["bsr_spmv"] == 1
-    assert torch.equal(y, irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width))
+    assert _bits(y) == _bits(irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width))
+    assert not y[:, :yo0].any() and not y[:, yo0 + nn * bs :].any()
+    with pytest.raises(ValueError, match="int32"):
+        irr.bsr_spmv(sv, sc.long(), counts, x, xo0, yo0, width)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_spmv_kernel_pad_terms(dtype):
+    """The pads' terms, which the kernel adds without reading the pads: a
+    row of negative values against +0.0 operands sums to -0.0 and its
+    pads against x[xo0 + j] > 0 make it +0.0; against x[xo0 + j] < 0 it
+    stays -0.0; a NaN at x[xo0] reaches every row with pads and no other;
+    all as the plain version's bytes."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    bs, Lb, nn = 3, 4, 3
+    for x0, nan in ((1.5, False), (-1.5, False), (1.5, True)):
+        vals = torch.zeros((1, nn, Lb, bs, bs), dtype=dtype, device="cuda")
+        cols = torch.zeros((1, nn, Lb), dtype=torch.int32, device="cuda")
+        counts = torch.tensor([[2, 0, Lb]], dtype=torch.int32, device="cuda")
+        vals[0, 0, :2], cols[0, 0, :2] = -1.0, 2  # node 2's slots of x: +0.0
+        vals[0, 2], cols[0, 2] = 0.5, 1
+        x = torch.tensor([[x0, x0, x0, 1.0, 2.0, 3.0, 0.0, 0.0, 0.0]], dtype=dtype, device="cuda")
+        if nan:
+            x[0, 0] = float("nan")
+        y = irr.bsr_spmv(irr.bsr_slot_major(vals), irr.bsr_slot_major(cols), counts, x, 0, 0, 9)
+        want = irr.bsr_spmv_plain(vals, cols, x, 0, 0, 9)
+        assert _bits(y) == _bits(want)
+        if nan:
+            assert torch.isnan(y[0, :6]).all() and not torch.isnan(y[0, 6:]).any()
+        else:
+            assert (y[0, :3] == 0).all() and bool(torch.signbit(y[0, :3]).all()) == (x0 < 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1141,7 +1194,7 @@ def test_bsr_boundary_kernel_matches_plain(nb, Lb, bs, dtype):
     rows[:, nb - nb // 5 :] = trash
     rows = torch.from_numpy(rows).cuda()
     vals = _gpu(rng, (P, nb, Lb, bs, bs), dtype)
-    cols = torch.from_numpy(rng.integers(0, nhn, (P, nb, Lb))).cuda()
+    cols = torch.from_numpy(rng.integers(0, nhn, (P, nb, Lb)).astype(np.int32)).cuda()
     x = _gpu(rng, (P, wx), dtype)
     y0 = _gpu(rng, (P, wy), dtype)
     dia.reset_launches()
@@ -1193,7 +1246,7 @@ def test_bsr_boundary_buckets_in_one_launch(bs, dtype, nbk):
         cols.append(rng.integers(0, nhn, (P, nb, Lb)))
         vals.append(rng.standard_normal((P, nb, Lb, bs, bs)))
         at += nb
-    rows, cols, vals = _flat_views(rows, torch.int64), _flat_views(cols, torch.int64), _flat_views(vals, dtype)
+    rows, cols, vals = _flat_views(rows, torch.int64), _flat_views(cols, torch.int32), _flat_views(vals, dtype)
     x = _gpu(rng, (P, wx), dtype)
     y0 = _gpu(rng, (P, wy), dtype)
     dia.reset_launches()
@@ -1208,19 +1261,26 @@ def _bits(t):
     return np.asarray(t.cpu().numpy()).tobytes()
 
 
+#: (n, P, o0) of the E3 card tests: n under one CTA's elements and over
+#: many, 1, 3 and 8 parts, aligned and misaligned band offsets
+PW_CASES = ([(n, 3, 2) for n in (0, 1, 2, 3, 2047, 2048, 2049, 4097, 100003, 4194305)]
+            + [(n, 1, 0) for n in (1, 4096, 100003, 4194305)] + [(n, 8, 1) for n in (1, 2049, 100003)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 2047, 2048, 2049, 100003, 4194305])
-def test_pairwise_dot_kernel_matches_numpy_tree(n, dtype):
+@pytest.mark.parametrize("n,P,o0", PW_CASES, ids=[f"n{n}-P{P}-o{o}" for n, P, o in PW_CASES])
+def test_pairwise_dot_kernel_matches_numpy_tree(n, dtype, P, o0):
     """E3 bit for bit against its plain version and against the host's
-    `pairwise_sum` of the rounded products a part, folded left to right
-    (n = 4194305 > 2048^2: three tree passes), on three parts with
-    another band offset in b's wider frame."""
+    `pairwise_sum` of the rounded products a part, folded left to right:
+    n under one CTA's elements and over many (4194305: over 256 partials
+    a part, so the last CTA takes runs of them), 1, 3 and 8 parts, the
+    band at an aligned and at misaligned offsets (b's frame wider), one
+    launch a dot."""
     _need_card()
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
     from partitionedarrays_jl_tpu_torch.utils.helpers import pairwise_sum
 
-    rng = np.random.default_rng(n + 1)
-    P, o0 = 3, 2
+    rng = np.random.default_rng(n + P)
     npdt = np.float32 if dtype == torch.float32 else np.float64
     a = rng.standard_normal((P, o0 + n + 3)).astype(npdt)
     b = rng.standard_normal((P, o0 + n + 9)).astype(npdt)
@@ -1257,6 +1317,51 @@ def test_pairwise_dot_signed_zero_and_nan(dtype):
     a[1, 4] = np.nan
     got = irr.pairwise_dot(torch.from_numpy(a).cuda(), torch.from_numpy(a).cuda(), 0, 9)
     assert torch.isnan(got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pairwise_dot_in_a_cuda_graph(dtype):
+    """Two E3 dots captured in one CUDA graph (one of 3 parts over many
+    CTAs, one of 8 small parts), replayed three times: the same bytes each
+    replay as the eager dots, so the kernel leaves its ticket at 0; one
+    launch each at capture."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(11)
+    a, b = _gpu(rng, (3, 300007), dtype), _gpu(rng, (3, 300009), dtype)
+    c, d = _gpu(rng, (8, 2100), dtype), _gpu(rng, (8, 2100), dtype)
+    want = (_bits(irr.pairwise_dot_plain(a, b, 5, 300000)), _bits(irr.pairwise_dot_plain(c, d, 1, 2049)))
+    irr.pairwise_dot(a, b, 5, 300000), irr.pairwise_dot(c, d, 1, 2049)  # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    dia.reset_launches()
+    with torch.cuda.graph(g):
+        r1 = irr.pairwise_dot(a, b, 5, 300000)
+        r2 = irr.pairwise_dot(c, d, 1, 2049)
+    assert dia.LAUNCHES["pairwise_dot"] == 2
+    for _ in range(3):
+        r1.fill_(7.0), r2.fill_(7.0)
+        g.replay()
+        torch.cuda.synchronize()
+        assert (_bits(r1), _bits(r2)) == want
+    assert (_bits(irr.pairwise_dot(a, b, 5, 300000)), _bits(irr.pairwise_dot(c, d, 1, 2049))) == want
+
+
+def test_pairwise_dot_back_to_back():
+    """Dots queued back to back on one stream, of other shapes and parts,
+    each its plain version's bytes (each finds the ticket at 0)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(12)
+    cases = [(_gpu(rng, (P, n + 4), dt), _gpu(rng, (P, n + 4), dt), n)
+             for P, n, dt in ((1, 7077888, torch.float32), (8, 13824, torch.float64), (3, 5, torch.float32),
+                              (1, 7077888, torch.float32), (2, 100003, torch.float64))]
+    got = [irr.pairwise_dot(a, b, 2, n) for a, b, n in cases]
+    torch.cuda.synchronize()
+    for (a, b, n), g in zip(cases, got):
+        assert _bits(g) == _bits(irr.pairwise_dot_plain(a, b, 2, n))
 
 
 def test_strict_cg_matches_sequential_on_card():

@@ -14,7 +14,19 @@ CPU (their plain versions, and numpy emulations of the kernels' indexing).
   buckets); the offsets the wrapper puts in the kernel's bucket table
   address each bucket in the flat buffers, and a numpy emulation of the
   kernel's thread-to-bucket mapping over that table agrees; views of two
-  buffers are refused.
+  buffers are refused;
+* E2's owned-block mode (`bsr_spmv`) reads only the real blocks, given
+  each node's count of them: a numpy emulation of `csrc/bsr_spmv.cu`'s
+  mode 0 on slot-major operands (a thread a node, block l's column and
+  entries at their slot-major addresses, read below the node's count only:
+  every pad is poisoned with NaN and column -1; the bs rows folded from
+  -0.0, two blocks' loads at a time; one round of pad terms
+  0 * x[xo0 + j] where the node has pads; the zeros outside the band)
+  gives the plain version's bytes for bs 2, 3 and 4, float32 and float64,
+  nodes of 0 and of Lb real blocks, a -0.0 row whose pad terms make it
+  +0.0 (the emulation without them differs: the test has teeth), a NaN at
+  x[xo0], wide rows, and the staged elasticity operator (counts from the
+  staging); `bsr_row_major` inverts `bsr_slot_major`.
 """
 import numpy as np
 import pytest
@@ -251,3 +263,173 @@ def test_bsr_boundary_refuses_two_buffers():
         irr._offsets("bsr_spmv_boundary", (a[:3], b[:3]))
     base, offs = irr._offsets("bsr_spmv_boundary", (a[:2], a[2:5], a[5:]))
     assert offs == [0, 2, 5] and base == a.untyped_storage().data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# E2's owned-block mode: counts, skipped pads, pad terms
+# ---------------------------------------------------------------------------
+
+#: csrc/bsr_spmv.cu: threads (nodes) a CTA and blocks a load batch of mode 0
+BSR_OO_THREADS, BSR_LB = 256, 2
+
+
+def _emulate_bsr_oo(vals, cols, counts, x, xo0, yo0, width, pad_terms=True):
+    """csrc/bsr_spmv.cu, mode 0, in numpy over the flat slot-major arrays
+    (vals (P, Lb, bs, bs, nn), cols (P, Lb, nn)): thread `node` of CTA (b,
+    p) loads block l's column at ``(p * Lb + l) * nn + node`` and entry
+    (i, j) at ``((p * Lb + l) * bs * bs + i * bs + j) * nn + node``, two
+    blocks' loads at a time, for l below its count only (the caller may
+    poison every pad), folds its bs rows from -0.0 and (``pad_terms``)
+    adds one round of 0 * x[xo0 + j] where the node has pads; the threads
+    past the nodes write the zeros outside the band."""
+    P, Lb, bs, _, nn = vals.shape
+    BB = bs * bs
+    T = vals.numpy().dtype.type
+    fv, fc, fk = vals.numpy().ravel(), cols.numpy().ravel(), counts.numpy().ravel()
+    fx = x.numpy().ravel()
+    wx = x.shape[1]
+    y = np.full(P * width, np.nan, dtype=fv.dtype)
+    band = nn * bs
+    work = nn + width - band
+    for p in range(P):
+        for t in range(-(-work // BSR_OO_THREADS) * BSR_OO_THREADS):
+            if t >= nn:
+                z = t - nn
+                if z < width - band:
+                    y[p * width + (z if z < yo0 else z + band)] = 0
+                continue
+            c = int(fk[p * nn + t])
+            xp = p * wx + xo0
+            acc = [T(-0.0)] * bs
+            for l0 in range(0, c, BSR_LB):
+                batch = [l for l in range(l0, l0 + BSR_LB) if l < c]
+                xv = {l: [fx[xp + int(fc[(p * Lb + l) * nn + t]) * bs + j] for j in range(bs)] for l in batch}
+                vv = {l: [[fv[((p * Lb + l) * BB + i * bs + j) * nn + t] for j in range(bs)] for i in range(bs)]
+                      for l in batch}
+                for l in batch:
+                    for j in range(bs):
+                        for i in range(bs):
+                            acc[i] = acc[i] + vv[l][i][j] * xv[l][j]
+            if pad_terms and c < Lb:
+                for j in range(bs):
+                    z = T(0) * fx[xp + j]
+                    for i in range(bs):
+                        acc[i] = acc[i] + z
+            for i in range(bs):
+                y[p * width + yo0 + t * bs + i] = acc[i]
+    return y.reshape(P, width)
+
+
+def _poisoned(vals, cols, counts):
+    """Slot-major copies of the operands with every pad block NaN and its
+    column -1 (an emulation that reads one gives NaN or fails)."""
+    sv, sc = irr.bsr_slot_major(vals).clone(), irr.bsr_slot_major(cols).clone()
+    Lb = sc.shape[1]
+    pad = torch.arange(Lb)[None, :, None] >= counts[:, None, :]
+    sv[pad[:, :, None, None, :].expand_as(sv)] = float("nan")
+    sc[pad] = -1
+    return sv, sc
+
+
+def _bsr_oo_case(rng, P, nn, Lb, bs, dtype, xo0=3, yo0=5):
+    """Padded node-block rows as the staging lays them: counts[p, n] real
+    blocks (random nonzero values, random nodes), then pads (value 0, node
+    0); node 0 of part 0 has Lb real blocks and node 1 none; x with +0.0
+    at every node column of node 3's blocks and x[xo0 + j] > 0, so that
+    node 3 of part 0, with negative values and pads, sums to -0.0 before
+    its pad terms and +0.0 after them."""
+    counts = rng.integers(0, Lb + 1, (P, nn)).astype(np.int32)
+    counts[0, 0], counts[0, 1], counts[0, 3] = Lb, 0, max(1, Lb - 2)
+    vals = np.zeros((P, nn, Lb, bs, bs))
+    cols = np.zeros((P, nn, Lb), dtype=np.int32)
+    for p in range(P):
+        for n in range(nn):
+            c = counts[p, n]
+            vals[p, n, :c] = rng.standard_normal((c, bs, bs))
+            cols[p, n, :c] = rng.integers(1, nn, c)
+    vals[0, 3, : counts[0, 3]] = -rng.random((counts[0, 3], bs, bs)) - 0.5
+    wx = xo0 + nn * bs + 4
+    x = rng.standard_normal((P, wx))
+    x[:, xo0 : xo0 + bs] = rng.random((P, bs)) + 0.5
+    for c in cols[0, 3, : counts[0, 3]]:
+        x[0, xo0 + c * bs : xo0 + (c + 1) * bs] = 0.0
+    to = lambda a: torch.from_numpy(a).to(dtype)
+    return to(vals), torch.from_numpy(cols), torch.from_numpy(counts), to(x), xo0, yo0, yo0 + nn * bs + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+def test_bsr_oo_kernel_emulated(bs, dtype):
+    """The kernel's mode 0 emulated in numpy on slot-major operands whose
+    pads are poisoned gives the plain version's bytes on 3 parts of 300
+    nodes (a full CTA of 256 and a ragged one); node 3 of part 0 is -0.0
+    without the pad terms and +0.0 with them, as the plain version's; the
+    wrapper on CPU tensors runs the plain version on `bsr_row_major` of its
+    operands, the inverse of `bsr_slot_major`."""
+    vals, cols, counts, x, xo0, yo0, width = _bsr_oo_case(np.random.default_rng(bs), 3, 300, 6, bs, dtype)
+    want = irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width)
+    sv, sc = _poisoned(vals, cols, counts)
+    emu = _emulate_bsr_oo(sv, sc, counts, x, xo0, yo0, width)
+    assert emu.tobytes() == _bits(want)
+    sv, sc = irr.bsr_slot_major(vals), irr.bsr_slot_major(cols)
+    assert torch.equal(irr.bsr_row_major(sv), vals) and torch.equal(irr.bsr_row_major(sc), cols)
+    assert _bits(irr.bsr_spmv(sv, sc, counts, x, xo0, yo0, width)) == _bits(want)
+    r3 = yo0 + 3 * bs
+    assert (want[0, r3 : r3 + bs] == 0).all() and not torch.signbit(want[0, r3 : r3 + bs]).any()
+    no_pads = _emulate_bsr_oo(sv, sc, counts, x, xo0, yo0, width, pad_terms=False)
+    assert np.signbit(no_pads[0, r3 : r3 + bs]).all()
+    assert not want[:, :yo0].any() and not want[:, yo0 + 300 * bs :].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_oo_kernel_emulated_nan_at_node_zero(dtype):
+    """A NaN at x[xo0] (node 0's first slot, where every pad points) reaches
+    every row with pads and no other, in the kernel's emulation and the
+    plain version alike, compared as bytes."""
+    vals, cols, counts, x, xo0, yo0, width = _bsr_oo_case(np.random.default_rng(7), 2, 40, 5, 3, dtype)
+    x[:, xo0] = float("nan")
+    want = irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width)
+    assert _emulate_bsr_oo(*_poisoned(vals, cols, counts), counts, x, xo0, yo0, width).tobytes() == _bits(want)
+    rows = want[:, yo0 : yo0 + 40 * 3].reshape(2, 40, 3)
+    has_pads = (counts < 5)[..., None].expand(2, 40, 3)
+    assert torch.isnan(rows[has_pads]).all()
+
+
+def test_bsr_oo_kernel_emulated_wide_rows():
+    """Wide node rows (bs 4, 40 blocks, f64): the emulation still gives
+    the plain version's bytes."""
+    vals, cols, counts, x, xo0, yo0, width = _bsr_oo_case(np.random.default_rng(9), 2, 19, 40, 4, torch.float64)
+    want = irr.bsr_spmv_plain(vals, cols, x, xo0, yo0, width)
+    assert _emulate_bsr_oo(*_poisoned(vals, cols, counts), counts, x, xo0, yo0, width).tobytes() == _bits(want)
+
+
+def test_bsr_oo_kernel_emulated_on_the_staged_operator():
+    """The elasticity operator staged in node blocks (4 parts, (5, 4, 4)
+    nodes, counts from the staging): the emulation gives the plain
+    version's bytes on a random frame; each node's count is its CSR's
+    blocks a node row and every block past it a pad."""
+    from scipy.sparse import csr_matrix
+
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import GPUBackend, device_matrix
+    import partitionedarrays_jl_tpu_torch as pt
+
+    def drive(parts):
+        A = pt.assemble_elasticity_tet(parts, (5, 4, 4))[0]
+        dA = device_matrix(A, parts.backend, lowering="bsr")
+        lens = [np.diff(csr_matrix((m.data, m.indices, m.indptr), shape=m.shape).tobsr((3, 3)).indptr)
+                for m in A.owned_owned_values.part_values()]
+        return dA, lens
+
+    dA, lens = pt.prun(drive, GPUBackend(device="cpu"), 4)
+    assert dA.lowering == "bsr" and dA.bsr_cols.dtype == torch.int32 and dA.bsr_counts.dtype == torch.int32
+    counts = dA.bsr_counts.numpy()
+    for p, ln in enumerate(lens):
+        assert np.array_equal(counts[p, : len(ln)], ln) and not counts[p, len(ln) :].any()
+    vals, cols = irr.bsr_row_major(dA.bsr_vals), irr.bsr_row_major(dA.bsr_cols)
+    pad = np.arange(vals.shape[2])[None, None, :] >= counts[..., None]
+    assert not vals.numpy()[pad].any() and not cols.numpy()[pad].any()
+    cl, rl = dA.col_layout, dA.row_layout
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((cl.P, cl.W)))
+    want = irr.bsr_spmv_plain(vals, cols, x, cl.o0, rl.o0, rl.W)
+    emu = _emulate_bsr_oo(*_poisoned(vals, cols, dA.bsr_counts), dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
+    assert emu.tobytes() == _bits(want)

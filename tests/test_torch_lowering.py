@@ -12,9 +12,10 @@ PA_TPU_BSR=0``; the port on ``GPUBackend(device="cpu")`` with
 * the lowering each resolves to (SD, BSR, ELL), and the node-block
   boundary on the SD and BSR lowerings, engaged on more than one part;
 * the staged arrays field by field (``sd_idx``, the ``sd_vals`` widths and
-  values, ``bsr_cols``/``bsr_vals``, the ``ohb`` chunks, each array's
-  chunks views of one buffer; the ELL arrays of A_oo and A_oh through the
-  inverse of E1's slot-major layout) exactly;
+  values, ``bsr_cols``/``bsr_vals`` through the inverse of E2's slot-major
+  layout, with ``bsr_counts`` the real blocks a node row, the ``ohb``
+  chunks, each array's chunks views of one buffer; the ELL arrays of A_oo
+  and A_oh through the inverse of E1's slot-major layout) exactly;
 * the SpMV products against the JAX package's to 1e-12 (both sum the same
   terms in orders that differ: XLA's einsum against the port's ascending
   fold);
@@ -169,11 +170,20 @@ def test_sd_staging_matches_jax(reference):
 
 
 def test_bsr_staging_matches_jax(reference):
-    """BSR: the node columns and the 3x3 blocks equal the JAX package's."""
+    """BSR: the node columns and the 3x3 blocks, through the inverse of E2's
+    slot-major layout, equal the JAX package's; the counts are the real
+    blocks of each node row, every block past them the JAX package's pad
+    (value 0, node 0)."""
     ref = reference["bsr"]
     dA, _, _ = port_lowering(reference["system"], "bsr")
-    np.testing.assert_array_equal(dA.bsr_cols.numpy(), ref["bsr_cols"])
-    np.testing.assert_array_equal(dA.bsr_vals.numpy(), ref["bsr_vals"])
+    assert dA.bsr_vals.shape[1:4] == (ref["bsr_vals"].shape[2], 3, 3) and dA.bsr_cols.dtype == torch.int32
+    np.testing.assert_array_equal(irr.bsr_row_major(dA.bsr_cols).numpy(), ref["bsr_cols"])
+    np.testing.assert_array_equal(irr.bsr_row_major(dA.bsr_vals).numpy(), ref["bsr_vals"])
+    Lb = ref["bsr_cols"].shape[2]
+    pad = np.arange(Lb)[None, None, :] >= dA.bsr_counts.numpy()[..., None]
+    assert not ref["bsr_vals"][pad].any() and not ref["bsr_cols"][pad].any()
+    real = ~pad
+    assert (np.abs(ref["bsr_vals"]).reshape(*pad.shape, 9).max(axis=3)[real] > 0).all()
 
 
 @pytest.mark.parametrize("lowering", ["auto", "bsr"])

@@ -15,6 +15,18 @@ The gate (BASELINE.md): strict CG on the 3-D Poisson driver, 6^3 on
 * E3's plain version bit for bit the JAX package's `pairwise_sum` of the
   rounded products, folded left to right, on random, odd-length and -0.0
   inputs; the port's `pairwise_sum` the JAX package's;
+* a numpy emulation of E3's one-launch kernel (`csrc/pairwise_dot.cu`:
+  a warp's 32 R products (R = 16 float32, 8 float64) as 4 rows of 32
+  16-byte vectors, each vector's tree in registers, each row's 32 vectors
+  by shuffles at ascending offsets, lane 0's rows pairwise, the 8 warps'
+  roots the same way, every add whose span passes m left out; the last
+  CTA's tree over each part's partials, a warp a part up to 32 of them,
+  else a thread a run of them in chunks of 8 joined by a binary-counter
+  stack; the parts added left to right)
+  at the real CTA size, bit for bit `pairwise_sum` and the plain version on n from 0 to
+  past 2^20 (the last CTA then takes runs of two partials), 1, 3 and 8
+  parts, a misaligned band offset, products that cancel and signed zeros;
+  a descending-offset butterfly in the warp differs (the test has teeth);
 * the repair this slice needed first: the device loop's square roots
   (`gpu_loop.sqrt_rn`) bit for bit NumPy's;
 * default mode unchanged: the Poisson operator keeps the coded lowering.
@@ -252,3 +264,182 @@ def test_default_mode_unaffected():
         return d0.dia_mode, d0.lowering, d0.strict, d1.lowering, d1.strict, d1.col_layout.box_info is None
 
     assert pt.prun(drive, CPU, (2, 2, 2)) == ("coded", "coded", False, "ell", True, True)
+
+
+# ---------------------------------------------------------------------------
+# E3: the one-launch kernel's order, emulated
+# ---------------------------------------------------------------------------
+
+#: csrc/pairwise_dot.cu: threads a CTA and elements a thread
+PW_THREADS, PW_RUN = 256, {np.float32: 16, np.float64: 8}
+
+
+def _pairs(v, span, m, lanes, descending=False):
+    """The shuffle stage over the last axis (32 lanes): at ascending
+    offsets the lanes that are multiples of 2 * off add the value off lanes
+    up, while the result's span stays within m (``descending``: the
+    butterfly at offsets 16 .. 1, lane L < off adding lane L + off)."""
+    v = v.copy()
+    offs = [o for o in (1, 2, 4, 8, 16) if o < lanes]
+    for off in (offs[::-1] if descending else offs):
+        if span * 2 * off > m:
+            continue
+        idx = np.arange(0, off) if descending else np.arange(0, 32, 2 * off)
+        v[..., idx] = v[..., idx] + v[..., idx + off]
+    return v
+
+
+def _run_tree(src):
+    """run_tree: chunks of up to 8 partials, each chunk's tree, the chunks
+    joined by a binary-counter stack in order."""
+    chunk = min(len(src), 8)
+    st, top = {}, 0
+    for c in range(len(src) // chunk):
+        v = src[c * chunk : (c + 1) * chunk].copy()
+        s = 2
+        while s <= chunk:
+            v[::s] = v[::s] + v[s // 2 :: s]
+            s *= 2
+        u, k = v[0], 0
+        while (c >> k) & 1:
+            u = st[k] + u
+            k += 1
+        st[k], top = u, k
+    return st[top]
+
+
+def _cta_tree(src, count):
+    """cta_tree: runs of r = count / 256 partials (1 if fewer), the warps'
+    shuffles, the 8 warps' roots in warp 0."""
+    r = count // PW_THREADS if count > PW_THREADS else 1
+    lanes = np.zeros(PW_THREADS, dtype=src.dtype)
+    for t in range(PW_THREADS):
+        if t * r < count:
+            lanes[t] = _run_tree(src[t * r : (t + 1) * r])
+    w = _pairs(lanes.reshape(PW_THREADS // 32, 32), r, count, 32)[:, 0]
+    w32 = np.zeros(32, dtype=src.dtype)
+    w32[: len(w)] = w
+    return _pairs(w32, r * 32, count, PW_THREADS // 32)[0]
+
+
+def _emulate_pairwise_dot(a, b, o0, n, descending=False):
+    """The kernel's order over (P, W) numpy frames: a warp's 32 R elements
+    as Q = 4 rows of 32 vectors of VW elements (vector q of lane L at
+    elements (q * 32 + L) * VW + e), each vector's tree, the lanes per row
+    by shuffles, lane 0's rows pairwise, the 8 warps, then the last CTA's
+    tree over each part's partials and the fold of the parts."""
+    dt = a.dtype.type
+    R = PW_RUN[dt]
+    VW = 16 // a.itemsize
+    Q = R // VW
+    E = R * PW_THREADS
+    P = a.shape[0]
+    m = 1 << (n - 1).bit_length() if n > 1 else 1
+    nblk = max(1, m // E)
+    t = np.zeros((P, nblk * E), dtype=dt)
+    t[:, :n] = a[:, o0 : o0 + n] * b[:, o0 : o0 + n]
+    v = t.reshape(P, nblk, PW_THREADS // 32, Q, 32, VW)
+    s = 2
+    while s <= VW:
+        if s <= m:
+            v = v.copy()
+            v[..., ::s] = v[..., ::s] + v[..., s // 2 :: s]
+        s *= 2
+    rows = _pairs(v[..., 0], VW, m, 32, descending)[..., 0]  # (P, nblk, warps, Q)
+    s = 2
+    while s <= Q:
+        if VW * 32 * s <= m:
+            rows = rows.copy()
+            rows[..., ::s] = rows[..., ::s] + rows[..., s // 2 :: s]
+        s *= 2
+    w = rows[..., 0]
+    w32 = np.zeros((P, nblk, 32), dtype=dt)
+    w32[..., : w.shape[-1]] = w
+    partials = _pairs(w32, R * 32, m, PW_THREADS // 32, descending)[..., 0]
+    fold = None
+    for q in range(P):
+        if nblk <= 32:  # a warp a part, a lane a partial
+            lanes = np.zeros(32, dtype=dt)
+            lanes[:nblk] = partials[q]
+            root = _pairs(lanes, 1, nblk, 32)[0]
+        else:
+            root = _cta_tree(partials[q], nblk)
+        fold = root if fold is None else fold + root
+    return fold
+
+
+def _pw_case(rng, P, n, o0, dtype):
+    """Frames with a band at o0: products of mixed magnitudes that cancel
+    (pairs x, -x(1 + 2^-20) across the band), -0.0 entries."""
+    w = o0 + n + 5
+    a = (rng.standard_normal((P, w)) * 10.0 ** rng.integers(-6, 7, (P, w))).astype(dtype)
+    b = rng.standard_normal((P, w)).astype(dtype)
+    if n > 1:
+        h = n // 2
+        a[:, o0 + h : o0 + 2 * h] = -a[:, o0 : o0 + h] * dtype(1 + 2.0**-20)
+        b[:, o0 + h : o0 + 2 * h] = b[:, o0 : o0 + h]
+    a[:, o0 + 3 :: 7] = -0.0
+    return a, b
+
+
+def _jax_fold(a, b, o0, n):
+    parts = [jax_pairwise_sum(a[p, o0 : o0 + n] * b[p, o0 : o0 + n]) for p in range(a.shape[0])]
+    acc = parts[0]
+    for v in parts[1:]:
+        acc = acc + v
+    return np.asarray(acc, dtype=a.dtype).tobytes()
+
+
+def _pw_sizes(dtype):
+    E = PW_RUN[dtype] * PW_THREADS
+    return [0, 1, 2, 3, E - 1, E, E + 1, 3 * E + 5, 2**14 - 1, 2**14 + 1]
+
+
+@pytest.mark.parametrize("P", [1, 3, 8])
+@pytest.mark.parametrize("k", range(10))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pairwise_dot_kernel_order_emulated(dtype, k, P):
+    """The kernel's order, emulated at its real CTA size, equals the JAX
+    package's pairwise_sum of each part's rounded products, folded left to
+    right, and the plain version, bit for bit (n the k-th of 0, 1, 2, 3,
+    E - 1, E, E + 1, 3E + 5, 2^14 - 1, 2^14 + 1; E the elements a CTA)."""
+    n = _pw_sizes(dtype)[k]
+    a, b = _pw_case(np.random.default_rng(100 * k + P), P, n, 3, dtype)
+    got = np.asarray(_emulate_pairwise_dot(a, b, 3, n), dtype=dtype).tobytes()
+    assert got == _jax_fold(a, b, 3, n)
+    assert got == _bits(irr.pairwise_dot_plain(torch.from_numpy(a), torch.from_numpy(b), 3, n).numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pairwise_dot_kernel_order_emulated_many_partials(dtype):
+    """Past 2^20 elements (f32) a part leaves more partials than the last
+    CTA has threads: each thread reduces a run of two; past 2^22 (f64) a
+    run of 16, two chunks of 8 joined by the stack; still pairwise_sum's
+    bits."""
+    n = (2**20 if dtype == np.float32 else 2**22) + 1
+    a, b = _pw_case(np.random.default_rng(5), 1, n, 3, dtype)
+    assert np.asarray(_emulate_pairwise_dot(a, b, 3, n), dtype=dtype).tobytes() == _jax_fold(a, b, 3, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 17])
+def test_pairwise_dot_kernel_order_emulated_signed_zero(n):
+    """All -0.0 products: the emulated kernel keeps the sign where numpy's
+    tree does and turns it +0.0 where a +0.0 pad enters (no add past m)."""
+    a = -np.zeros((1, n))
+    b = np.ones((1, n))
+    got = _emulate_pairwise_dot(a, b, 0, n)
+    assert np.signbit(got) == np.signbit(jax_pairwise_sum(a[0] * b[0]))
+
+
+def test_pairwise_dot_descending_butterfly_differs():
+    """A warp butterfly at descending offsets pairs lanes 16 apart first:
+    on products that cancel it gives other bits than the tree, which the
+    ascending order keeps."""
+    differs = 0
+    for seed in range(8):
+        a, b = _pw_case(np.random.default_rng(seed), 1, 4096, 0, np.float32)
+        want = _jax_fold(a, b, 0, 4096)
+        assert np.asarray(_emulate_pairwise_dot(a, b, 0, 4096), dtype=np.float32).tobytes() == want
+        differs += np.asarray(_emulate_pairwise_dot(a, b, 0, 4096, descending=True),
+                              dtype=np.float32).tobytes() != want
+    assert differs > 0

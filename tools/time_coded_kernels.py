@@ -29,11 +29,16 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
 * with ``--irregular N`` (a process per checkout, which imports its
   package): E1 `ell_spmv` on the tet-elasticity operator at N^3 nodes in
   float32 (forced ELL) and on the strict lowering of the 192^3 float32
-  Poisson operator (7 slots), E2 `bsr_spmv` at N^3 in float64, and the
+  Poisson operator (7 slots), E2 `bsr_spmv` at N^3 in float64 and float32
+  (through `parallel/gpu.py:_irregular_aoo`, so that every checkout runs
+  the call its own staging makes) beside torch.sparse.mm on the CSR, the
   boundary modes of both on 4 parts at 32^3 float64 (one SpMV's boundary:
-  every node-block bucket), each checked torch.equal to its plain
-  version; the operators are assembled once and kept in
-  ``build/irregular_cache/``, so every checkout times the same ones;
+  every node-block bucket), and E3 `pairwise_dot` on a 192^3 float32 band
+  (one part) and on 8 parts of 24^3 float64 (the strict 48^3 (2,2,2)
+  cell's) beside torch.dot, each checked against its plain version
+  (torch.equal; E3 by its bytes); the operators are assembled once and
+  kept in ``build/irregular_cache/``, so every checkout times the same
+  ones;
 * with ``--block K`` (this checkout only: its package is imported): K2
   with minv and the sweep's precond form on the n^3 frames, the coded SpMM
   (plain and pfold forms) on the row-class Poisson operator and the
@@ -355,19 +360,21 @@ def _cached_system(smoke, kind, n, nparts):
 
 
 def irregular_worker(root: Path, n: int) -> list:
-    """E1 and E2 of checkout `root` on the irregular operators, in a process
-    of its own (flushed and back-to-back ms, each held torch.equal to its
-    plain version): E1 on the elasticity operator at n^3 in f32 (forced
-    ELL) and on the strict lowering of the 192^3 f32 Poisson operator;
-    E1's and E2's boundary modes on 4 parts at 32^3 f64 (forced ELL; SD,
-    whose node-block boundary has 8 width buckets), one SpMV's boundary
-    (a checkout from before the one-launch boundary: a launch a bucket);
-    E2's A_oo at n^3 in f64 (BSR); the empty kernel."""
+    """E1-E3 of checkout `root` on the irregular operators, in a process of
+    its own (flushed and back-to-back ms, each held against its plain
+    version): E1 on the elasticity operator at n^3 in f32 (forced ELL) and
+    on the strict lowering of the 192^3 f32 Poisson operator; E2's A_oo at
+    n^3 in f64 and f32 (BSR, through `_irregular_aoo`) with torch.sparse.mm
+    on the CSR; E1's and E2's boundary modes on 4 parts at 32^3 f64 (forced
+    ELL; SD, whose node-block boundary has 8 width buckets), one SpMV's
+    boundary (a checkout from before the one-launch boundary: a launch a
+    bucket); E3 on the 192^3 f32 band and on 8 parts of 24^3 f64 with
+    torch.dot; the empty kernel."""
     sys.path.insert(0, str(root))
     from partitionedarrays_jl_tpu_torch import GPUBackend
     from partitionedarrays_jl_tpu_torch.ops import dia
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
-    from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, device_matrix
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _irregular_aoo, device_matrix
 
     smoke = load_module(ROOT / "chip_smoke.py", "chip_smoke")
     backend = GPUBackend()
@@ -379,7 +386,8 @@ def irregular_worker(root: Path, n: int) -> list:
     def rec(name, shape, fn, plain, timed_fn=None, **extra):
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        same = got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes() if got.dim() == 0 else torch.equal(got, want)
+        if not same:
             raise SystemExit(f"{name} at {shape}: kernel differs from its plain version")
         out.append({"kernel": name, "shape": shape, **timed(smoke, timed_fn or fn, flush), **extra})
 
@@ -395,13 +403,19 @@ def irregular_worker(root: Path, n: int) -> list:
     args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
     rec("ell_spmv", f"{n}^3 f32 elasticity, {dA.oo_vals.numel() // dA.row_layout.no_max} slots",
         lambda: irr.ell_spmv(*args), lambda: irr.ell_spmv_plain(*args))
-    del dA, x, args, A32
-    dA = device_matrix(A, backend, lowering="bsr")
-    x = frame(dA.col_layout, torch.float64)
-    args = (dA.bsr_vals, dA.bsr_cols, x, dA.col_layout.o0, dA.row_layout.o0, dA.row_layout.W)
-    rec("bsr_spmv", f"{n}^3 f64 elasticity, bs {dA.bsr_bs}", lambda: irr.bsr_spmv(*args),
-        lambda: irr.bsr_spmv_plain(*args))
-    del dA, x, args, A
+    del dA, x, args
+    for A_, dtype in ((A, torch.float64), (A32, torch.float32)):
+        dA = device_matrix(A_, backend, lowering="bsr")
+        x = frame(dA.col_layout, dtype)
+        W = dA.row_layout.W
+        aoo, aoo_plain = _irregular_aoo(dA, False), _irregular_aoo(dA, True)
+        M = A_.values.part_values()[0]
+        csr = smoke._csr_on(M, "cuda")
+        xcol = x[0, dA.col_layout.o0 : dA.col_layout.o0 + M.shape[1]].reshape(-1, 1).contiguous()
+        rec("bsr_spmv", f"{n}^3 {str(dtype)[6:]} elasticity, bs {dA.bsr_bs}", lambda: aoo(x, W),
+            lambda: aoo_plain(x, W), library_ms=smoke.time_ms(lambda: torch.sparse.mm(csr, xcol), flush))
+        del dA, x, aoo, aoo_plain, csr, xcol
+    del A, A32
     torch.cuda.empty_cache()
     P, _ = _cached_system(smoke, "poisson", IRREGULAR_STRICT, 1)
     dA = device_matrix(P, backend, strict=True)
@@ -409,7 +423,19 @@ def irregular_worker(root: Path, n: int) -> list:
     args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
     rec("ell_spmv", f"{IRREGULAR_STRICT}^3 f32 strict Poisson, 7 slots", lambda: irr.ell_spmv(*args),
         lambda: irr.ell_spmv_plain(*args))
-    del dA, x, args, P
+    # E3 on the strict band of that operator, and on the 8 parts of the
+    # strict 48^3 (2,2,2) cell (24^3 rows each, f64)
+    for parts, rows, dtype in ((1, IRREGULAR_STRICT**3, torch.float32), (8, 24**3, torch.float64)):
+        o0 = dA.row_layout.o0
+        a, c = frame(dA.row_layout, dtype)[:, : o0 + rows + 3], frame(dA.row_layout, dtype)[:, : o0 + rows + 3]
+        a, c = a.repeat(parts, 1).contiguous(), c.repeat(parts, 1).contiguous()
+        av, cv = a[0, o0 : o0 + rows], c[0, o0 : o0 + rows]
+        dia.reset_launches()
+        irr.pairwise_dot(a, c, o0, rows)
+        rec("pairwise_dot", f"{parts} x {rows} {str(dtype)[6:]}", lambda: irr.pairwise_dot(a, c, o0, rows),
+            lambda: irr.pairwise_dot_plain(a, c, o0, rows), launches=dia.LAUNCHES["pairwise_dot"],
+            library_ms=smoke.time_ms(lambda: torch.dot(av, cv), flush))
+    del dA, x, args, P, a, c, av, cv
     torch.cuda.empty_cache()
     A, _ = _cached_system(smoke, "elasticity", IRREGULAR_MULTI, 4)
     for low in ("ell", "auto"):
@@ -552,7 +578,7 @@ def main() -> int:
     ap.add_argument("--select", action="store_true",
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--irregular", type=int, default=0, metavar="N",
-                    help="time E1 and E2 (A_oo at N^3 elasticity, the boundary modes, E1 strict at 192^3)")
+                    help="time E1-E3 (A_oo at N^3 elasticity, the boundary modes, E1 and E3 strict at 192^3)")
     ap.add_argument("--irregular-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0)
