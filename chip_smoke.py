@@ -9,12 +9,14 @@ one part (fused, then pipelined and standard) and the
 multigrid-preconditioned CG at 192^3 float32, through `prun`,
 `assemble_poisson`, `cg`, `pcg` and the lowerings; the unstructured
 tet-elasticity Jacobi PCG at 64^3 nodes float64 (`assemble_elasticity_tet`,
-a non-band lowering) and strict-bits CG — and holds every kernel against
-its plain PyTorch version (eighteen kernels: K1-K4, the stencil, the CG
-sweep and the V-cycle epilogue; K2 with minv, the sweep's precond and block
-forms, the two block SpMMs and the block dot's products of Jacobi PCG and
-the block solves; E1 (ELL, A_oo and boundary modes), E2 (node blocks, A_oo
-and boundary modes) and E3 (the strict dot)). Every solve runs the device-resident
+a non-band lowering), strict-bits CG and the block solves on the non-band
+lowerings and in strict mode — and holds every kernel against its plain
+PyTorch version (twenty-two kernels: K1-K4, the stencil, the CG sweep and
+the V-cycle epilogue; K2 with minv, the sweep's precond and block forms,
+the two block SpMMs and the block dot's products of Jacobi PCG and the
+block solves; E1 (ELL, A_oo and boundary modes), E2 (node blocks, A_oo and
+boundary modes) and E3 (the strict dot); the slab forms of E1's and E2's
+A_oo, of E2's boundary mode and E3's block form). Every solve runs the device-resident
 loop (`parallel/gpu_loop.py`): blocks of k iterations replayed as a CUDA
 graph, the stopping test a device flag; so launch counts are stated in the
 iterations the device ran (whole blocks, the frozen iterations after the
@@ -163,6 +165,35 @@ Phases, one JSON line each:
    against fused CG's at 192^3 f32 (and a profile: E3 one kernel a
    dot), E3 bit for bit its plain version and timed there, E1 timed on
    the strict lowering's 7 slots;
+4g. the block (multi-RHS) solves on the non-band lowerings and in strict
+   mode, on phase 4f's systems (no second 64^3 assembly): elasticity
+   block Jacobi PCG at 64^3 f64, K = N_BLOCK (BSR; column 0 phase 4f's b,
+   the others A x̂_k from the seed, started at their Dirichlet values)
+   through `pcg(A, B=..., X0=...)`: launches by formula (E2's slab form
+   1 + 1, the block sweep 1 per device iteration), every column's
+   iterations and solution bit for bit its solo `pcg`, column 0's error
+   under the model's gate and every column's relative error under 1e-5,
+   graph against eager, block seconds per iteration per RHS against the
+   solo ones, a profile (E2's slab kernel one launch an SpMV); the 32^3
+   f64 4-part cell at K = N_BLOCK_MULTI in each lowering (SD with E2's
+   boundary mode on slabs, BSR, forced ELL): the sequential backend's
+   iterations per column, each column its solo solve on the card (bit for
+   bit on BSR and ELL; on SD, where cuBLAS orders a K-column product its
+   own way, to SD_X_REL_TOL and within SD_ITERATIONS_APART iterations of
+   the solo and the sequential solves), launches by formula, graph
+   against eager; strict block CG on
+   48^3 (2,2,2) f64, STRICT_BLOCK_K ragged columns, each bit for bit the
+   sequential backend's strict solo solve (launches: E1's slab and
+   boundary forms 1 + 1, E3's block form 1 + 2 per device iteration),
+   strict block Jacobi PCG on the 16^3 elasticity system on 4 parts, bit
+   for bit, and strict block seconds per iteration per RHS at 192^3 f32, K
+   = N_BLOCK, against phase 4f's strict solo (and a profile: E3's block
+   form one kernel a dot); each slab form torch.equal to its plain version
+   and to K launches of its frame form and timed at its path's shape (E2's
+   at 64^3 f64 and E1's and E3's at 192^3 f32 strict, K = N_BLOCK, the
+   boundary's at 32^3 f64 on 4 parts, K = N_BLOCK_MULTI; beside
+   torch.sparse.mm on the (rows, K) slab, or torch.linalg.vecdot over the
+   slab for E3);
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -208,7 +239,11 @@ times the elasticity operator's at 64^3 f32, their boundary modes' the
 4-part 32^3 f64 cell's (every call of one SpMV), E3's a 192^3 f32 dot.
 Each new kernel's launches come from the path it runs on: E2 from the
 64^3 elasticity solve, E2's boundary from the 4-part SD solve, E1 in both
-modes and E3 from the 48^3 strict solve.
+modes and E3 from the 48^3 strict solve; the slab forms from phase 4g's
+paths (E2's from the 64^3 block PCG, E2's boundary mode on slabs from the
+4-part SD block PCG: the one boundary kernel's launches in that run, E1's
+and E3's from the 48^3 strict block CG), their times at the shapes above
+(K = 8; the boundary's K = 4, its path's).
 
 It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
@@ -273,11 +308,18 @@ N_ELASTIC_MULTI = 32  # the stacked-parts elasticity cell (4 parts)
 TOL_ELASTIC = 1e-12  # elasticity_tet_driver's tolerance
 ELASTIC_MAXITER = 3000  # elasticity_tet_driver's maxiter
 N_STRICT_ELASTIC = 16  # strict elasticity PCG on 4 parts, against the sequential backend on the host
+N_BLOCK_MULTI = 4  # right-hand sides of the 4-part block cell (each also solved on the host: ~8 s a column)
+STRICT_BLOCK_K = 3  # ragged columns of the strict (2,2,2) block CG
 
+#: the forms the kernels line lists; bsr_spmv_boundary_slab is E2's
+#: boundary kernel on the slabs of the 4-part SD block PCG (one kernel takes
+#: frames and slabs, and counts both under bsr_spmv_boundary: the entry's
+#: launches are that count in the slab path's run)
 KERNELS = ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy", "dia_stream_spmv",
            "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
            "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products", "ell_spmv", "ell_spmv_boundary",
-           "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot")
+           "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot", "ell_spmm", "bsr_spmm", "bsr_spmv_boundary_slab",
+           "pairwise_dot_block")
 SRC = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu_torch/csrc/dia_coded.cu",
@@ -297,6 +339,10 @@ SRC = {
     "bsr_spmv": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
     "bsr_spmv_boundary": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
     "pairwise_dot": "partitionedarrays_jl_tpu_torch/csrc/pairwise_dot.cu",
+    "ell_spmm": "partitionedarrays_jl_tpu_torch/csrc/ell_spmv.cu",
+    "bsr_spmm": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
+    "bsr_spmv_boundary_slab": "partitionedarrays_jl_tpu_torch/csrc/bsr_spmv.cu",
+    "pairwise_dot_block": "partitionedarrays_jl_tpu_torch/csrc/pairwise_dot.cu",
 }
 #: the TPU kernel each replaces; box_stencil_apply, cg_sweep and
 #: vcycle_epilogue have none: they stand for the XLA fusions of the JAX
@@ -311,7 +357,10 @@ SRC = {
 #: block products the products of its per-column p.q dot; E1 (ell_spmv)
 #: the padded-ELL fold `_ell_rowsum` of the ELL lowering and of the
 #: boundary-row A_oh; E2 (bsr_spmv) the BSR gather and einsum and the
-#: node-block boundary finish; E3 (pairwise_dot) strict mode's dot
+#: node-block boundary finish; E3 (pairwise_dot) strict mode's dot; the
+#: slab forms of E1-E3 the same XLA forms on the block program's (W, K)
+#: operands (`_ell_rowsum` with `_bc`, einsum("nlij,nljk->nik"), the
+#: node-block finish on slabs, `_strict_partial_any` per column)
 REPLACES = {
     "dia_coded_spmv": "partitionedarrays_jl_tpu/ops/pallas_dia.py:523",
     "dia_coded_spmv_pfold": "partitionedarrays_jl_tpu/ops/pallas_dia.py:500",
@@ -331,6 +380,10 @@ REPLACES = {
     "bsr_spmv": "partitionedarrays_jl_tpu/parallel/tpu.py:3143",
     "bsr_spmv_boundary": "partitionedarrays_jl_tpu/parallel/tpu.py:3204",
     "pairwise_dot": "partitionedarrays_jl_tpu/parallel/tpu.py:2486",
+    "ell_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:2916",
+    "bsr_spmm": "partitionedarrays_jl_tpu/parallel/tpu.py:3156",
+    "bsr_spmv_boundary_slab": "partitionedarrays_jl_tpu/parallel/tpu.py:3222",
+    "pairwise_dot_block": "partitionedarrays_jl_tpu/parallel/tpu.py:2501",
 }
 
 
@@ -1798,7 +1851,8 @@ def phase_elastic(backend, rng):
     require(g["iterations"] == info["iterations"], "elasticity: graph-vs-eager iterations differ")
     for k in want:
         require(launches[k] == want[k], f"elasticity: {launches[k]} {k} launches, expected {want[k]}")
-    out = {"line": line, "errs": errs, "launches": launches, "A": A, "xh": xh}
+    out = {"line": line, "errs": errs, "launches": launches, "A": A, "b": b, "xh": xh, "x0": x0,
+           "iterations": info["iterations"]}
     if dA.lowering == "bsr":
         out["bsr_f64"] = bsr_f64_times(A, dA, dx0, errs)
     return out
@@ -2007,7 +2061,8 @@ def phase_elastic_multi(backend, rng):
             times.update(_boundary_times(A, dA, rng, flush))
     emit({"phase": "boundary_kernel_times", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4, "reps": REPS,
           **times})
-    return {"errs": errs, "times": times, "launches": launches_out, "lines": lines}
+    return {"errs": errs, "times": times, "launches": launches_out, "lines": lines, "A": A, "b": b, "x0": x0,
+            "sequential_iterations": info_s["iterations"]}
 
 
 def _boundary_times(A, dA, rng, flush):
@@ -2015,10 +2070,10 @@ def _boundary_times(A, dA, rng, flush):
     call (one launch over every node-block bucket, or the ELL call) against
     its plain version; library: torch.sparse.mm of the stacked parts'
     block-diagonal A_oh CSR on the ghost values (the products only, not the
-    add into y). Bound: the staged arrays and the x frame read once, the
-    boundary rows of y read and written; beside it the CSR's need (A_oh's
-    values and int32 columns, its row pointers, the ghost values read, the
-    boundary rows of y read and written)."""
+    add into y). Bound (`_boundary_bytes`): the staged arrays and the
+    ghost slots of the x frame (the only part of x the kernel reads) read
+    once, the boundary rows of y read and written; beside it the CSR's
+    need."""
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
     cl, rl = dA.col_layout, dA.row_layout
@@ -2029,7 +2084,6 @@ def _boundary_times(A, dA, rng, flush):
     csr = _csr_on(_block_diagonal(oh), dA.backend.device)
     xg = torch.from_numpy(rng.standard_normal((csr.shape[1], 1))).to(dA.backend.device)
     library_ms = time_ms(lambda: torch.sparse.mm(csr, xg), flush)
-    nnz = sum(m.nnz for m in oh)
     if dA.ohb_bs is not None:
         def run(k):
             k(dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, x, cl.g0, dA.ohb_nhn, y, rl.trash)
@@ -2044,12 +2098,10 @@ def _boundary_times(A, dA, rng, flush):
         staged = sum(t.numel() * t.element_size() for t in (dA.oh_rows, dA.oh_cols, dA.oh_vals))
         touched = int((dA.oh_rows != rl.trash).sum())
         name, kern, plain = "ell_spmv_boundary", irr.ell_spmv_boundary, irr.ell_spmv_boundary_plain
-    nbytes = staged + x.numel() * item + 2 * touched * item
+    nbytes, csr_bytes, nnz = _boundary_bytes(oh, staged, touched, 1, item)
     dia.reset_launches()
     run(kern)
     calls = dia.LAUNCHES[name]
-    ghosts = sum(m.shape[1] for m in oh)
-    csr_bytes = nnz * (item + 4) + (touched + len(oh)) * 4 + ghosts * item + 2 * touched * item
     t = {"ms": time_ms(lambda: run(kern), flush), "plain_ms": time_ms(lambda: run(plain), flush),
          "library_ms": library_ms, "bytes": nbytes, "calls_per_spmv": calls,
          "buckets": len(dA.ohb_rows or ()), "shape": f"{N_ELASTIC_MULTI}^3 f64, 4 parts",
@@ -2058,6 +2110,17 @@ def _boundary_times(A, dA, rng, flush):
     t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * nnz, F64_FLOPS_PER_S)
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return {name: t}
+
+
+def _boundary_bytes(oh, staged, touched, K, item):
+    """The bytes one boundary product over K columns must move, the CSR's
+    bytes for the same product, and A_oh's entries. Both read the ghost
+    columns of x once (the kernels gather no owned slot) and read and write
+    the touched rows of y; the staging adds its staged arrays, the CSR its
+    values, int32 columns and row pointers."""
+    nnz, ghosts = sum(m.nnz for m in oh), sum(m.shape[1] for m in oh)
+    vectors = ghosts * K * item + 2 * touched * K * item
+    return staged + vectors, nnz * (item + 4) + (touched + len(oh)) * 4 + vectors, nnz
 
 
 def _block_diagonal(blocks):
@@ -2071,52 +2134,78 @@ def _block_diagonal(blocks):
     return CSRMatrix(np.concatenate(indptr), np.concatenate(indices), np.concatenate(data), (r0, c0))
 
 
-def strict_pair(backend, ns, nparts, dtype=np.float64):
-    """Strict CG on the Poisson operator, b = A x̂ taken in strict mode, on
-    the card and on the port's sequential backend: the card's result, its
-    launches, and whether iterations, residual history bits and solution
-    bits agree."""
+def strict_pair(backend, ns, nparts, K=1, dtype=np.float64):
+    """Strict CG on the Poisson operator over `nparts`, K columns (b = A x̂
+    taken in strict mode, of the assembly's x̂ and, for K > 1, of seeded x̂_k
+    started at their Dirichlet values), on the card (K = 1: a solo solve,
+    else one block solve) against the port's sequential strict solo solve
+    of each column: the card's info, its launches (zeroed just before its
+    solve), per column whether iterations, residual history bits and
+    solution bits agree (`_bitwise_columns`), the sequential iterations,
+    and column 0's relative error against x̂."""
 
-    def drive(parts):
+    def columns(parts):
         A, _, xe, x0 = assemble_poisson(parts, ns, dtype=dtype)
-        b = A.mul_into(PVector.full(0.0, A.rows, dtype=dtype), xe, strict=True)
-        x, info = cg(A, b, x0=x0, tol=1e-8, maxiter=2000, strict=True)
-        return gather_pvector(x), info, _rel_err(x, xe)
+        Xe = [xe] + [_gid_vector(A.cols, SEED + 20 + k) for k in range(1, K)]
+        B = [A.mul_into(PVector.full(0.0, A.rows, dtype=dtype), x, strict=True) for x in Xe]
+        return A, B, [x0] + [dirichlet_start(A, x) for x in Xe[1:]], xe
 
-    xs, info_s, _ = prun(drive, sequential, nparts)
-    dia.reset_launches()
-    xg, info_g, err = prun(drive, backend, nparts)
-    sync()
-    launches = dict(dia.LAUNCHES)
-    equal = {"iterations": info_g["iterations"] == info_s["iterations"],
-             "residuals": np.asarray(info_g["residuals"]).tobytes() == np.asarray(info_s["residuals"]).tobytes(),
-             "x": xg.tobytes() == xs.tobytes()}
-    return info_g, launches, equal, err
+    def solve(A, B, X0, many):
+        if many:
+            return cg(A, B=B, X0=X0, tol=1e-8, maxiter=2000, strict=True)
+        x, info = cg(A, B[0], x0=X0[0], tol=1e-8, maxiter=2000, strict=True)
+        return [x], info
+
+    return _strict_columns(backend, nparts, K, columns, solve, _rel_err)
 
 
-def strict_elastic_pair(backend, n, nparts):
+def strict_elastic_pair(backend, n, nparts, K=1):
     """Strict Jacobi PCG on the tet-elasticity system assembled in strict
     mode (`assemble_elasticity_tet(strict=True)`: b = A x̂ by the strict
     product, as the JAX package assembles it under PA_TPU_STRICT_BITS=1),
-    on the card and on the port's sequential backend: the card's result,
-    its launches, whether iterations, residual history bits and solution
-    bits agree, and the error against x̂."""
+    K columns (its b and, for K > 1, strict A x̂_k of seeded x̂_k from
+    their Dirichlet values), on the card against the port's sequential
+    strict solo PCG of each column, as `strict_pair`; the error is column
+    0's norm against x̂."""
     from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
 
-    def drive(parts):
+    def columns(parts):
         A, b, xh, x0 = assemble_elasticity_tet(parts, (n, n, n), strict=True)
-        x, info = pcg(A, b, x0=x0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, strict=True)
-        return gather_pvector(x), info, float((x - xh).norm())
+        Xe = [_gid_vector(A.cols, SEED + 30 + k) for k in range(1, K)]
+        B = [b] + [A.mul_into(PVector.full(0.0, A.rows), x, strict=True) for x in Xe]
+        return A, B, [x0] + [dirichlet_start(A, x) for x in Xe], xh
 
-    xs, info_s, _ = prun(drive, sequential, nparts)
-    dia.reset_launches()
-    xg, info_g, err = prun(drive, backend, nparts)
-    sync()
-    launches = dict(dia.LAUNCHES)
-    equal = {"iterations": info_g["iterations"] == info_s["iterations"],
-             "residuals": np.asarray(info_g["residuals"]).tobytes() == np.asarray(info_s["residuals"]).tobytes(),
-             "x": xg.tobytes() == xs.tobytes()}
-    return info_g, launches, equal, err
+    def solve(A, B, X0, many):
+        if many:
+            return pcg(A, B=B, X0=X0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, strict=True)
+        x, info = pcg(A, B[0], x0=X0[0], tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, strict=True)
+        return [x], info
+
+    return _strict_columns(backend, nparts, K, columns, solve, lambda x, xh: float((x - xh).norm()))
+
+
+def _strict_columns(backend, nparts, K, columns, solve, err):
+    """The comparison of `strict_pair` and `strict_elastic_pair`: each
+    column of ``columns(parts) -> (A, B, X0, x̂)`` solved alone by
+    ``solve(A, [b], [x0], False)`` on the sequential backend, then all of
+    them by ``solve(A, B, X0, K > 1)`` on the card."""
+
+    def seq(parts):
+        A, B, X0, _ = columns(parts)
+        out = [solve(A, [bk], [x0k], False) for bk, x0k in zip(B, X0)]
+        return [(gather_pvector(xs[0]).tobytes(), i["iterations"], np.asarray(i["residuals"]).tobytes())
+                for xs, i in out]
+
+    def card(parts):
+        A, B, X0, xh = columns(parts)
+        dia.reset_launches()
+        xs, info = solve(A, B, X0, K > 1)
+        sync()
+        return [gather_pvector(x).tobytes() for x in xs], info, dict(dia.LAUNCHES), err(xs[0], xh)
+
+    solo = prun(seq, sequential, nparts)
+    xs, info, launches, e = prun(card, backend, nparts)
+    return info, launches, _bitwise_columns(info, xs, solo), [s[1] for s in solo], e
 
 
 def phase_strict(backend, run, rng):
@@ -2131,7 +2220,7 @@ def phase_strict(backend, run, rng):
 
     out = {"errs": {}, "launches": {}}
     for n in (6, N_MULTI):
-        info, launches, equal, err = strict_pair(backend, (n, n, n), (2, 2, 2))
+        info, launches, (equal,), _, err = strict_pair(backend, (n, n, n), (2, 2, 2))
         dev_it = device_iterations(info)
         want = {"ell_spmv": 1 + dev_it, "ell_spmv_boundary": 1 + dev_it, "pairwise_dot": 1 + 2 * dev_it,
                 "cg_sweep": dev_it, "dia_coded_spmv": 0, "dia_coded_spmv_pfold": 0}
@@ -2148,7 +2237,7 @@ def phase_strict(backend, run, rng):
             out["launches"] = {k: launches[k] for k in ("ell_spmv", "pairwise_dot")}
             out["launches"]["ell_spmv_boundary_strict"] = launches["ell_spmv_boundary"]
     # strict Jacobi PCG on the elasticity system, b taken in strict mode
-    info, launches, equal, err = strict_elastic_pair(backend, N_STRICT_ELASTIC, 4)
+    info, launches, (equal,), _, err = strict_elastic_pair(backend, N_STRICT_ELASTIC, 4)
     emit({"phase": "strict_elasticity_pcg", "n": N_STRICT_ELASTIC, "dtype": "float64", "parts": 4,
           "lowering": info["lowering"], "iterations": info["iterations"], "err": err,
           "bitwise_equal_to_sequential": equal, "kernels": {k: launches[k] for k in ("ell_spmv", "ell_spmv_boundary",
@@ -2202,6 +2291,376 @@ def phase_strict(backend, run, rng):
           "fused_fixed_trip_s": fixed_fused, "fixed_trips": CG_TRIPS, "pairwise_dot": t,
           "ell_spmv_strict_lowering": ell192, "ell_slots": int(dS.oo_vals.shape[1])})
     out["times"] = {"pairwise_dot": t}
+    out["strict_s_per_iter"] = s_strict
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: block solves on the non-band lowerings, strict block solves
+# ---------------------------------------------------------------------------
+
+
+def _gid_vector(rows, seed):
+    """A PVector over `rows` holding a seeded standard normal vector indexed
+    by gid: the same values on every backend."""
+    v = np.random.default_rng(seed).standard_normal(rows.ngids)
+    return PVector(rows.partition._like([v[np.asarray(i.lid_to_gid)] for i in rows.partition.part_values()]), rows)
+
+
+def _carried(rows, vecs):
+    """Host PVectors over `rows` holding the part values of `vecs` (the
+    same index sets, assembled on another backend)."""
+    return [PVector(rows.partition._like([np.array(v) for v in w.values.part_values()]), rows) for w in vecs]
+
+
+def _frames_of(fn, x, K):
+    """The frame form on each column of a slab, stacked into a slab."""
+    return torch.stack([fn(x[..., k].contiguous()) for k in range(K)], dim=-1)
+
+
+#: SD's block columns against their solo solves: cuBLAS sums a K-column
+#: product in another order than a one-column product, so a column agrees
+#: to rounding and may stop an iteration sooner or later near tol 1e-12
+SD_ITERATIONS_APART = 1
+SD_X_REL_TOL = 1e-8
+
+
+def _block_columns(name, A, B, X0, info, xs, solve_one, exact=True):
+    """Each block column against its solo solve on the card: the same
+    iterations and solution bytes, or with ``exact=False`` (SD) iterations
+    at most SD_ITERATIONS_APART apart and solutions within SD_X_REL_TOL of
+    the largest |x|. Returns the solo iterations and the max |diff| a
+    column."""
+    solo, diff = [], []
+    for k in range(len(B)):
+        xk, ik = solve_one(B[k], X0[k])
+        solo.append(ik["iterations"])
+        a, b = gather_pvector(xs[k]), gather_pvector(xk)
+        diff.append(0.0 if a.tobytes() == b.tobytes() else float(np.max(np.abs(a - b))))
+        if not exact:
+            require(diff[-1] <= SD_X_REL_TOL * max(1.0, float(np.max(np.abs(b)))),
+                    f"{name}: column {k} differs from its solo solve by {diff[-1]}")
+    its = info["iterations_per_column"]
+    if exact:
+        require(its == solo, f"{name}: per-column iterations {its}, solo {solo}")
+        require(not any(diff), f"{name}: block columns differ from their solo solves by {diff}")
+    else:
+        require(max(abs(a - b) for a, b in zip(its, solo)) <= SD_ITERATIONS_APART,
+                f"{name}: per-column iterations {its}, solo {solo}")
+    return solo, diff
+
+
+def phase_block_elastic(backend, el, rng):
+    """Block Jacobi PCG on phase 4f's N_ELASTIC^3 f64 elasticity system (the
+    BSR lowering, E2's slab form), K = N_BLOCK right-hand sides through
+    `pcg(A, B=..., X0=...)`, tol 1e-12: column 0 phase 4f's b from its x0,
+    the others A x̂_k from the seed started at their Dirichlet values.
+    Launches by formula (E2's slab form 1 + 1, the block sweep 1 a device
+    iteration), every column's iterations and solution bit for bit its solo
+    `pcg`, column 0's error against x̂ under the model's gate and every
+    column's relative error under 1e-5, graph against eager, block
+    seconds per iteration per RHS against the solo ones, a profile of the
+    block iteration; E2's slab form torch.equal to its plain version and to
+    K frame launches, timed beside torch.sparse.mm on the (rows, K) slab."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    A, K = el["A"], N_BLOCK
+    dA = device_matrix(A, backend)
+    require(dA.lowering == "bsr", f"elasticity {N_ELASTIC}^3 f64: lowering {dA.lowering}, expected bsr")
+    B, X0, Xe = block_rhs(A, backend, rng, el["b"], el["x0"])
+    Xe[0] = el["xh"]
+    mv = jacobi_preconditioner(A)
+    dmv = _b_on_cols_layout(mv, dA)
+    db, dx0 = _block_on_cols_layout(B, dA), _block_on_cols_layout(X0, dA, with_ghosts=True)
+    name = f"elasticity {N_ELASTIC}^3 f64 block Jacobi PCG"
+    dia.reset_launches()
+    t = time.perf_counter()
+    xs, info = pcg(A, B=B, X0=X0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER)
+    sync()
+    solve_s = time.perf_counter() - t
+    got = dict(dia.LAUNCHES)
+    dev_it = device_iterations(info)
+    want = {"bsr_spmm": 1 + dev_it, "bsr_spmv": 0, "cg_sweep_block": dev_it, "block_products": dev_it + 2}
+    solo, _ = _block_columns(name, A, B, X0, info, xs,
+                             lambda bk, x0k: pcg(A, bk, x0=x0k, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER))
+    err0 = float((xs[0] - Xe[0]).norm())
+    rel = [_rel_err(xs[k], Xe[k]) for k in range(K)]
+    g = graph_vs_eager(name, lambda gr: make_block_cg_fn(dA, TOL_ELASTIC, ELASTIC_MAXITER, K, precond=True, graph=gr),
+                       db, dx0, dmv)
+    block_s, block_fixed = fixed_trip_s_per_iter(
+        lambda m: with_args(make_block_cg_fn(dA, 0.0, m, K, precond=True), dmv), db, dx0, *CG_TRIPS)
+    solo_s, _ = fixed_trip_s_per_iter(lambda m: with_args(make_cg_fn(dA, 0.0, m, precond=True), dmv),
+                                      db[..., 0].contiguous(), dx0[..., 0].contiguous(), *CG_TRIPS)
+    prof = phase_profile("elasticity_block_pcg_profile",
+                         with_args(make_block_cg_fn(dA, 0.0, 48, K, precond=True), dmv), db, dx0, 48)
+    calls = [c for k, _, c in prof["rows"] if "bsr_oo_slab_kernel" in k]
+    require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + prof["iters"],
+            f"elasticity block profile: E2 slab kernels {calls} an iteration, expected one an SpMV")
+    line = {"phase": "elasticity_block_pcg", "n": N_ELASTIC, "dtype": "float64", "parts": 1, "K": K,
+            "tol": TOL_ELASTIC, "lowering": info["lowering"], "cg_body": info["cg_body"],
+            "iterations_per_column": info["iterations_per_column"], "solo_iterations": solo,
+            "solo_iterations_column0_phase_4f": el["iterations"], "converged": info["converged"],
+            "err_column0": err0, "rel_err_per_column": rel, "solve_s": solve_s, "kernels": got,
+            "expected_launches": want, "device_loop": info["device_loop"], "block_s_per_iter": block_s,
+            "per_rhs_s_per_iter": block_s / K, "solo_s_per_iter": solo_s, "per_rhs_speedup": solo_s / (block_s / K),
+            "block_fixed_trip_s": block_fixed, "fixed_trips": CG_TRIPS, "graph_iterations": g["iterations"]}
+    emit(line)
+    require(info["converged"] and info["lowering"] == "bsr", f"{name}: {info['lowering']}, converged "
+            f"{info['converged']}")
+    require(solo[0] == el["iterations"], f"{name}: column 0 took {solo[0]} solo iterations, phase 4f {el['iterations']}")
+    require(err0 < 1e-5 and max(rel) < 1e-5, f"{name}: column 0 error {err0}, relative errors {rel}")
+    for k in want:
+        require(got[k] == want[k], f"{name}: {got[k]} {k} launches, expected {want[k]}")
+    # E2's slab form at the path's shape
+    errs = {}
+    cl, rl = dA.col_layout, dA.row_layout
+    x = _frame(rng, (cl.P, cl.W, K), np.float64, backend.device)
+    x[:, cl.trash] = 0
+    kargs = (dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
+    pargs = (*bsr_plain_operands(dA), x, cl.o0, rl.o0, rl.W)
+    y = irr.bsr_spmm(*kargs)
+    tag = f"elasticity {N_ELASTIC}^3 f64 K={K}"
+    errs[f"bsr_spmm[{tag}]"] = _compare(f"{tag} bsr_spmm", y, irr.bsr_spmm_plain(*pargs))
+    errs[f"bsr_spmm[{tag},frames]"] = _compare(f"{tag} bsr_spmm against {K} bsr_spmv", y, _frames_of(
+        lambda xk: irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, xk, cl.o0, rl.o0, rl.W), x, K))
+    M = A.values.part_values()[0]
+    csr = _csr_on(M, backend.device)
+    xs_ = x[0, cl.o0 : cl.o0 + csr.shape[1]].contiguous()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    real = int(dA.bsr_counts.sum())
+    nbytes = real * (dA.bsr_bs**2 * 8 + 4) + dA.bsr_counts.numel() * 4 + x.numel() * 8 + rl.P * rl.W * K * 8
+    t = {"ms": time_ms(lambda: irr.bsr_spmm(*kargs), flush), "plain_ms": time_ms(lambda: irr.bsr_spmm_plain(*pargs), flush),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs_), flush), "bytes": nbytes,
+         "frame_ms_times_K": K * el["bsr_f64"]["ms"] if "bsr_f64" in el else None,
+         "shape": f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, K = {K}"}
+    del csr
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * M.nnz * K, F64_FLOPS_PER_S)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "bsr_spmm_times", "reps": REPS, **t, "max_abs_err": errs})
+    return {"line": line, "errs": errs, "launches": got, "times": {"bsr_spmm": t}}
+
+
+def phase_block_elastic_multi(backend, elm, rng):
+    """Block Jacobi PCG on phase 4f's N_ELASTIC_MULTI^3 f64 system on 4
+    stacked parts, K = N_BLOCK_MULTI (column 0 its b, the others A x̂_k
+    from the seed), in each lowering (SD with the node-block boundary: E2's
+    boundary mode on slabs; BSR: E2's slab forms; forced ELL: E1's slab and
+    boundary forms): each column the sequential backend's iterations and
+    its solo solve on the card (bit for bit on BSR and ELL; on SD, whose
+    torch.bmm orders a K-column product its own way, to SD_X_REL_TOL and
+    within SD_ITERATIONS_APART iterations of the solo and the sequential
+    solves: the host's CSR product and cuBLAS's differ in rounding),
+    launches by formula, graph against eager; E2's boundary mode on the
+    SD path's (P, W, K) slabs torch.equal to its plain version and to K
+    frame launches, timed."""
+    from partitionedarrays_jl_tpu_torch import assemble_elasticity_tet
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    A, K = elm["A"], N_BLOCK_MULTI
+    Xe = [None] + [_gid_vector(A.cols, SEED + 10 + k) for k in range(1, K)]
+    B = [elm["b"]] + [A @ x for x in Xe[1:]]
+    X0 = [elm["x0"]] + [dirichlet_start(A, x) for x in Xe[1:]]
+
+    def seq(parts):
+        Ah = assemble_elasticity_tet(parts, (N_ELASTIC_MULTI,) * 3)[0]
+        _, info_s = pcg(Ah, B=_carried(Ah.rows, B), X0=_carried(Ah.cols, X0), tol=TOL_ELASTIC,
+                        maxiter=ELASTIC_MAXITER)
+        return info_s["iterations_per_column"]
+
+    seq_its = prun(seq, sequential, 4)
+    require(seq_its[0] == elm["sequential_iterations"], f"elasticity 4 parts: sequential column 0 {seq_its[0]}")
+    mv = jacobi_preconditioner(A)
+    errs, times, launches_out, lines = {}, {}, {}, []
+    for low in ("auto", "bsr", "ell"):
+        dA = device_matrix(A, backend, lowering=low)
+        name = f"elasticity {N_ELASTIC_MULTI}^3 f64 (4 parts) {low} block Jacobi PCG"
+        dia.reset_launches()
+        xs, info = pcg(A, B=B, X0=X0, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, lowering=low)
+        sync()
+        got = dict(dia.LAUNCHES)
+        spmvs = 1 + device_iterations(info)
+        want = {"bsr_spmm": spmvs if dA.lowering == "bsr" else 0, "ell_spmm": spmvs if dA.lowering == "ell" else 0,
+                "bsr_spmv_boundary": spmvs if dA.ohb_bs is not None else 0,
+                "ell_spmv_boundary": spmvs if dA.ohb_bs is None else 0, "cg_sweep_block": spmvs - 1}
+        solo, diff = _block_columns(
+            name, A, B, X0, info, xs,
+            lambda bk, x0k: pcg(A, bk, x0=x0k, tol=TOL_ELASTIC, maxiter=ELASTIC_MAXITER, lowering=low),
+            exact=dA.lowering != "sd")
+        db, dx0 = _block_on_cols_layout(B, dA), _block_on_cols_layout(X0, dA, with_ghosts=True)
+        graph_vs_eager(name, lambda gr: make_block_cg_fn(dA, TOL_ELASTIC, ELASTIC_MAXITER, K, precond=True, graph=gr),
+                       db, dx0, _b_on_cols_layout(mv, dA))
+        line = {"phase": "elasticity_block_stacked_parts", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4,
+                "K": K, "lowering": dA.lowering, "ohb_bs": dA.ohb_bs, "iterations_per_column": info["iterations_per_column"],
+                "sequential_iterations": seq_its, "solo_iterations": solo, "x_vs_solo_max_abs_diff": diff,
+                "kernels": got, "expected_launches": want}
+        emit(line)
+        lines.append(line)
+        apart = max(abs(a - b) for a, b in zip(info["iterations_per_column"], seq_its))
+        require(info["converged"] and apart <= (SD_ITERATIONS_APART if dA.lowering == "sd" else 0),
+                f"{name}: iterations {info['iterations_per_column']}, sequential {seq_its}")
+        for k in want:
+            require(got[k] == want[k], f"{name}: {got[k]} {k} launches, expected {want[k]}")
+        if low == "auto":
+            require(dA.lowering == "sd" and dA.ohb_bs is not None, "elasticity 4 parts: no node-block boundary on SD")
+            # E2's boundary kernel on slabs: this run's launches of it
+            launches_out["bsr_spmv_boundary_slab"] = got["bsr_spmv_boundary"]
+            times.update(_boundary_slab_times(A, dA, rng, errs))
+    emit({"phase": "boundary_slab_kernel_times", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4, "K": K,
+          "reps": REPS, **times, "max_abs_err": errs})
+    return {"errs": errs, "times": times, "launches": launches_out, "lines": lines}
+
+
+def _boundary_slab_times(A, dA, rng, errs):
+    """E2's boundary mode on the slabs the 4-part SD block PCG gives it, x
+    (P, W_cols, N_BLOCK_MULTI) and y (P, W_rows, N_BLOCK_MULTI):
+    torch.equal to its plain version and to K frame launches, one launch
+    over every bucket; timed beside torch.sparse.mm of the stacked parts'
+    block-diagonal A_oh CSR on the (ghosts, K) slab. Bound
+    (`_boundary_bytes`): the staged arrays, the ghost columns of the x slab
+    (the only part of x the kernel reads) once, the touched rows of y read
+    and written; beside it the CSR's need."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    cl, rl, K, item = dA.col_layout, dA.row_layout, N_BLOCK_MULTI, 8
+    dev = dA.backend.device
+    x = _frame(rng, (cl.P, cl.W, K), np.float64, dev)
+    y = _frame(rng, (rl.P, rl.W, K), np.float64, dev)
+    args = (dA.ohb_rows, dA.ohb_vals, dA.ohb_cols)
+    tag = f"elasticity {N_ELASTIC_MULTI}^3 f64 4 parts SD K={K}"
+    dia.reset_launches()
+    got = irr.bsr_spmv_boundary(*args, x, cl.g0, dA.ohb_nhn, y.clone(), rl.trash)
+    sync()
+    require(dia.LAUNCHES["bsr_spmv_boundary"] == 1, "bsr_spmv_boundary on slabs: not one launch")
+    errs[f"bsr_spmv_boundary_slab[{tag}]"] = _compare(
+        f"{tag} boundary slab", got, irr.bsr_spmv_boundary_plain(*args, x, cl.g0, dA.ohb_nhn, y.clone(), rl.trash))
+    frames = torch.stack([irr.bsr_spmv_boundary(*args, x[..., k].contiguous(), cl.g0, dA.ohb_nhn,
+                                                y[..., k].contiguous(), rl.trash) for k in range(K)], dim=-1)
+    errs[f"bsr_spmv_boundary_slab[{tag},frames]"] = _compare(f"{tag} boundary slab against {K} frames", got, frames)
+    oh = A.owned_ghost_values.part_values()
+    csr = _csr_on(_block_diagonal(oh), dev)
+    xg = torch.from_numpy(rng.standard_normal((csr.shape[1], K))).to(dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    staged = sum(t.numel() * t.element_size() for t in (*dA.ohb_rows, *dA.ohb_cols, *dA.ohb_vals))
+    touched = sum(int((r != rl.trash).sum()) for r in dA.ohb_rows)
+    nbytes, csr_bytes, nnz = _boundary_bytes(oh, staged, touched, K, item)
+
+    def run(k):
+        k(*args, x, cl.g0, dA.ohb_nhn, y, rl.trash)
+
+    t = {"ms": time_ms(lambda: run(irr.bsr_spmv_boundary), flush),
+         "plain_ms": time_ms(lambda: run(irr.bsr_spmv_boundary_plain), flush),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xg), flush), "bytes": nbytes,
+         "buckets": len(dA.ohb_rows), "shape": f"{N_ELASTIC_MULTI}^3 f64, 4 parts, K = {K}",
+         "csr_bytes": csr_bytes, "csr_bound_ms": csr_bytes / HBM_BYTES_PER_S * 1e3}
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * nnz * K, F64_FLOPS_PER_S)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    return {"bsr_spmv_boundary_slab": t}
+
+
+def _bitwise_columns(info, xs, solo):
+    """Per column of a solve on the card (the K columns of a block solve,
+    or the one of a solo solve), whether its iterations, residual history
+    bytes and solution bytes equal those of its solo solve ``(x bytes,
+    iterations, history bytes)``."""
+    cols = info["columns"] if "columns" in info else [info]
+    return [{"iterations": c["iterations"] == it, "residuals": np.asarray(c["residuals"]).tobytes() == hist,
+             "x": xk == x} for c, xk, (x, it, hist) in zip(cols, xs, solo)]
+
+
+def phase_block_strict(backend, run, st, rng):
+    """Strict block CG (the ELL lowering on the generic plan, E1's slab and
+    boundary forms, E3's block form, the standard body): N_MULTI^3 f64 on
+    (2,2,2) parts with STRICT_BLOCK_K ragged columns, every column bit for
+    bit the sequential backend's strict solo solve, launches by formula (E1
+    slab 1 + 1, E1 boundary 1 + 1, E3 block 1 + 2 a device iteration);
+    strict block Jacobi PCG on the N_STRICT_ELASTIC^3 elasticity system on
+    4 parts, bit for bit; at N_MAIN^3 f32, one part, K = N_BLOCK: strict
+    block seconds per iteration per RHS against phase 4f's strict solo,
+    and E1's slab form and E3's block form torch.equal to their plain
+    versions and to K frame launches, timed (torch.sparse.mm on the (rows,
+    K) slab, torch.linalg.vecdot over the slab)."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    out = {"errs": {}, "times": {}}
+    info, launches, equal, seq_its, _ = strict_pair(backend, (N_MULTI,) * 3, (2, 2, 2), K=STRICT_BLOCK_K)
+    dev_it = device_iterations(info)
+    want = {"ell_spmm": 1 + dev_it, "ell_spmv_boundary": 1 + dev_it, "pairwise_dot_block": 1 + 2 * dev_it,
+            "cg_sweep_block": dev_it, "ell_spmv": 0, "pairwise_dot": 0}
+    its = info["iterations_per_column"]
+    emit({"phase": "strict_block_cg", "n": N_MULTI, "dtype": "float64", "parts": [2, 2, 2], "K": STRICT_BLOCK_K,
+          "lowering": info["lowering"], "cg_body": info["cg_body"], "iterations_per_column": its,
+          "sequential_iterations": seq_its, "bitwise_equal_to_sequential": equal, "kernels": launches,
+          "expected_launches": want, "device_loop": info["device_loop"]})
+    require(all(all(e.values()) for e in equal), f"strict block CG {N_MULTI}^3: columns differ from the sequential "
+            f"oracle: {equal}")
+    require(len(set(its)) > 1, f"strict block CG {N_MULTI}^3: the block is not ragged: {its}")
+    require(info["strict"] and info["lowering"] == "ell" and info["cg_body"] == "standard",
+            f"strict block CG: {info['lowering']}, {info['cg_body']}")
+    for k in want:
+        require(launches[k] == want[k], f"strict block CG {N_MULTI}^3: {launches[k]} {k} launches, expected {want[k]}")
+    out["launches"] = {k: launches[k] for k in ("ell_spmm", "pairwise_dot_block")}
+    info_e, _, equal_e, _, _ = strict_elastic_pair(backend, N_STRICT_ELASTIC, 4, K=STRICT_BLOCK_K)
+    emit({"phase": "strict_elasticity_block_pcg", "n": N_STRICT_ELASTIC, "dtype": "float64", "parts": 4,
+          "K": STRICT_BLOCK_K, "lowering": info_e["lowering"], "iterations_per_column": info_e["iterations_per_column"],
+          "bitwise_equal_to_sequential": equal_e})
+    require(all(all(e.values()) for e in equal_e) and info_e["lowering"] == "ell",
+            f"strict block elasticity PCG {N_STRICT_ELASTIC}^3: {equal_e}")
+    # the main cell, one part, f32, K = N_BLOCK
+    K = N_BLOCK
+    dS = device_matrix(run["A"], backend, strict=True)
+    o0, n, W = dS.row_layout.o0, dS.row_layout.no_max, dS.row_layout.W
+    bS = _b_on_cols_layout(run["b"], dS)
+    xS = DeviceVector.from_pvector(run["x0"], backend, dS.col_layout).data
+    scale = torch.tensor([1.0 + 0.125 * k for k in range(K)], dtype=bS.dtype, device=bS.device)
+    db, dx0 = (bS[..., None] * scale).contiguous(), (xS[..., None] * scale).contiguous()
+    s_block, fixed = fixed_trip_s_per_iter(lambda m: make_block_cg_fn(dS, 0.0, m, K), db, dx0, *CG_TRIPS)
+    prof = phase_profile("strict_block_cg_profile", make_block_cg_fn(dS, 0.0, 48, K), db, dx0, 48)
+    calls = [c for k, _, c in prof["rows"] if "pairwise_dot_block" in k]
+    require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + 2 * prof["iters"],
+            f"strict block profile: E3 block kernels {calls} an iteration, expected one a dot")
+    emit({"phase": "strict_block_cost", "n": N_MAIN, "dtype": "float32", "parts": 1, "K": K,
+          "strict_block_s_per_iter": s_block, "per_rhs_s_per_iter": s_block / K,
+          "strict_solo_s_per_iter": st["strict_s_per_iter"], "per_rhs_speedup": st["strict_s_per_iter"] / (s_block / K),
+          "fixed_trip_s": fixed, "fixed_trips": CG_TRIPS})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    tag = f"{N_MAIN}^3 f32 strict K={K}"
+    # E1's slab form on the strict lowering
+    x = _frame(rng, (1, W, K), np.float32, backend.device)
+    args = (dS.oo_vals, dS.oo_cols, x, o0, W)
+    y = irr.ell_spmm(*args)
+    out["errs"][f"ell_spmm[{tag}]"] = _compare(f"{tag} ell_spmm", y, irr.ell_spmm_plain(*args))
+    out["errs"][f"ell_spmm[{tag},frames]"] = _compare(
+        f"{tag} ell_spmm against {K} ell_spmv", y, _frames_of(lambda xk: irr.ell_spmv(dS.oo_vals, dS.oo_cols, xk, o0, W),
+                                                               x, K))
+    M = run["A"].values.part_values()[0]
+    csr = _csr_on(M, backend.device)
+    xs_ = x[0, : csr.shape[1]].contiguous()
+    nbytes = dS.oo_vals.numel() * 4 + dS.oo_cols.numel() * 4 + x.numel() * 4 + W * K * 4
+    t = {"ms": time_ms(lambda: irr.ell_spmm(*args), flush), "plain_ms": time_ms(lambda: irr.ell_spmm_plain(*args), flush),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs_), flush), "bytes": nbytes,
+         "shape": f"{N_MAIN}^3 f32 strict, {int(dS.oo_vals.shape[1])} slots, K = {K}"}
+    del csr
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * int(M.nnz) * K)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    out["times"]["ell_spmm"] = t
+    # E3's block form
+    a, c = _frame(rng, (1, W, K), np.float32, backend.device), _frame(rng, (1, W, K), np.float32, backend.device)
+    got = irr.pairwise_dot_block(a, c, o0, n)
+    want_b = irr.pairwise_dot_block_plain(a, c, o0, n)
+    frames = torch.stack([irr.pairwise_dot(a[..., k].contiguous(), c[..., k].contiguous(), o0, n) for k in range(K)])
+    sync()
+    require(got.cpu().numpy().tobytes() == want_b.cpu().numpy().tobytes() == frames.cpu().numpy().tobytes(),
+            "pairwise_dot_block: kernel differs from its plain version or from the frame kernel")
+    out["errs"][f"pairwise_dot_block[{tag}]"] = float((got - want_b).abs().max())
+    ab, cb = a[:, o0 : o0 + n], c[:, o0 : o0 + n]
+    t = {"ms": time_ms(lambda: irr.pairwise_dot_block(a, c, o0, n), flush),
+         "plain_ms": time_ms(lambda: irr.pairwise_dot_block_plain(a, c, o0, n), flush),
+         "library_ms": time_ms(lambda: torch.linalg.vecdot(ab, cb, dim=1), flush), "bytes": 2 * n * K * 4,
+         "shape": f"{N_MAIN}^3 f32, K = {K}"}
+    t["bound_ms"], t["bound_by"] = _bound_ms(t["bytes"], 2 * n * K)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    out["times"]["pairwise_dot_block"] = t
+    emit({"phase": "strict_block_kernel_times", "reps": REPS, **out["times"], "max_abs_err": out["errs"]})
     return out
 
 
@@ -2725,16 +3184,23 @@ def phase_gmg_times(backend, g, gs, multi):
 def phase_profile(name, fn, b, x0, iters):
     """Where a fixed-trip solve's iteration goes: device time per
     iteration by kernel name (torch.profiler), and the device's idle share
-    of the wall time. The first call (a graph loop's capture) runs before
-    the profiled one. Per iteration means per iteration the device ran:
-    a device-resident loop runs whole blocks, frozen iterations included
-    (``fn.stats``)."""
+    of the wall time. The first call (a graph loop's capture) and a
+    warm-up call of the profiler's schedule run before the profiled one.
+    Per iteration means per iteration the device ran: a device-resident
+    loop runs whole blocks, frozen iterations included (``fn.stats``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(b, x0)
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one warm-up solve with the trace's collection on and its events
+    # discarded, then the recorded one: a trace started right before a
+    # solve has dropped its first launches (the start's SpMV and dot)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn(b, x0)
+        sync()
+        prof.step()
         t = time.perf_counter()
         fn(b, x0)
         sync()
@@ -2742,11 +3208,12 @@ def phase_profile(name, fn, b, x0, iters):
     loop = getattr(fn, "stats", None) or {}
     iters = loop.get("device_iterations", iters)
     # device-side events only (kernels, memcpys): the CPU-side aten ops
-    # carry their kernels' device time too and would count it twice
+    # carry their kernels' device time too and would count it twice, and
+    # the schedule's step annotation spans the whole step
     rows = [
         (e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -2788,6 +3255,9 @@ def main() -> int:
     low = phase_lowering_times(backend, el, rng)
     elm = phase_elastic_multi(backend, rng)
     st = phase_strict(backend, run, rng)
+    bel = phase_block_elastic(backend, el, rng)
+    belm = phase_block_elastic_multi(backend, elm, rng)
+    bst = phase_block_strict(backend, run, st, rng)
     # each kernel's launches from the path it runs on: E2 on the elasticity
     # path's BSR lowering (its stacked BSR run where 64^3 resolved to SD),
     # E2's boundary on the stacked SD path, E1 and E3 on the strict
@@ -2796,6 +3266,12 @@ def main() -> int:
     launches.update(bsr_spmv=next(v for v in bsr_runs if v > 0), bsr_spmv_boundary=elm["launches"]["bsr_spmv_boundary"],
                     ell_spmv=st["launches"]["ell_spmv"], ell_spmv_boundary=st["launches"]["ell_spmv_boundary_strict"],
                     pairwise_dot=st["launches"]["pairwise_dot"])
+    # the slab forms from phase 4g's paths: E2's on the 64^3 block PCG, its
+    # boundary kernel's launches in the 4-part SD block PCG, E1's and E3's on
+    # the strict (2,2,2) block CG
+    launches.update(bsr_spmm=bel["launches"]["bsr_spmm"],
+                    bsr_spmv_boundary_slab=belm["launches"]["bsr_spmv_boundary_slab"],
+                    ell_spmm=bst["launches"]["ell_spmm"], pairwise_dot_block=bst["launches"]["pairwise_dot_block"])
     times = phase_times(backend, kern, run, N_MAIN)
     times["dia_stream_spmv"], times["box_stencil_apply"], times["vcycle_epilogue"] = phase_gmg_times(
         backend, gmg, gmg_s, {"h": gruns["multi"]["h"], "dh": gruns["multi"]["dh"],
@@ -2803,7 +3279,8 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
     times.update(jacobi_kernel_times(jac, flush, np.random.default_rng(SEED)))
     times.update({k: v for k, v in blk["times"].items() if k in KERNELS})
-    times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"]}.items() if k in KERNELS})
+    times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"], **bel["times"], **belm["times"],
+                                    **bst["times"]}.items() if k in KERNELS})
     emit({"phase": "launch_counts", "kernels": launches})
     errs = kern["errs"]
     max_err = {
@@ -2815,9 +3292,11 @@ def main() -> int:
     max_err["box_stencil_apply"] = err_stencil
     max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
-    held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"]}
+    held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"], **bel["errs"],
+            **belm["errs"], **bst["errs"]}
     for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
-                 "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot"):
+                 "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot",
+                 "ell_spmm", "bsr_spmm", "bsr_spmv_boundary_slab", "pairwise_dot_block"):
         max_err[name] = max(v for key, v in held.items() if key.startswith(name + "["))
     for name in KERNELS:
         require(launches[name] > 0, f"{name}: no launch on its path")

@@ -27,11 +27,16 @@
 //     Lb_c, bs, bs) at element offsets roff_c, coff_c and voff_c of three
 //     flat buffers; for every node n < nb_c of part p and i < bs whose
 //     target row = rows_c[p, n, i] is not the trash slot,
-//     y[p, row] = y[p, row] + sum_l sum_j vals_c[p, n, l, i, j] * x[p, g0 + cols_c[p, n, l] * bs + j]
+//     y[p, row, k] = y[p, row, k] + sum_l sum_j vals_c[p, n, l, i, j] * x[p, g0 + cols_c[p, n, l] * bs + j, k]
 //     in place (xo0 = g0: the ghost-node frame), the row's sum rounded once
-//     into y. The bucket table (at most PA_BSR_MAX_BUCKETS entries) rides in
-//     the parameter block: no device table, no copy before a launch.
-// Node columns are int32 in both modes. Pad rows of mode 1 point at the
+//     into y. x and y are (P, W) frames (K = 1) or (P, W, K) slabs of K
+//     columns (column k at the innermost axis), column k summed as a frame.
+//     The bucket table (at most PA_BSR_MAX_BUCKETS entries) rides in the
+//     parameter block: no device table, no copy before a launch;
+//   mode 2 (`bsr_spmm`): mode 0 for each column k of (P, W, K) slabs x and
+//     y, column k summed as mode 0 sums a frame, its one round of pad
+//     terms included, so it equals mode 0 on column k bit for bit.
+// Node columns are int32 in every mode. Pad rows of mode 1 point at the
 // trash slot and are skipped, so no two threads write one slot (a part's
 // boundary nodes are distinct across its buckets): one launch over all
 // buckets writes what the per-bucket launches wrote, bit for bit.
@@ -49,9 +54,10 @@
 // writes y: the elasticity operator at 64^3 (262,144 nodes, bs = 3, 19
 // blocks a node, ~11.85 real) moves ~250 MB in f64 (75 us at 3.35 TB/s) and
 // ~131 MB in f32 (39 us); its CSR would move 351 MB in f64. The node-block
-// boundary at 32^3 f64 on 4 parts is 3.6 MB, ~1 us of bytes, less than
-// the 4.9 us an empty kernel takes on an H100 (CUDA events): its cost is
-// the launch count, hence one launch for all buckets.
+// boundary at 32^3 f64 on 4 parts moves 2.7 MB (its staged arrays 2.5 MB,
+// the ghost columns of x, the touched rows of y), ~0.8 us of bytes, less
+// than the 4.9 us an empty kernel takes on an H100 (CUDA events): its cost
+// is the launch count, hence one launch for all buckets.
 //
 // Design of mode 0: one thread a node, its bs rows as bs chains of
 // rounded adds side by side, so that a block's column and its bs values of
@@ -70,30 +76,46 @@
 // Threads past the nodes write the zeros outside the band. No tensor
 // cores: their fused accumulation would not round every product.
 //
-// Design of mode 1: one thread a result row, blockIdx.y the part; the
-// thread walks its node's blocks in order and reads its row i of each (bs
-// values). The grid covers every bucket's rows (the buckets' nb_c * bs
-// rows laid end to end); a thread finds its bucket by a scan of the
-// table's first rows (uniform across a warp but at a bucket edge).
+// Design of mode 1: one thread a (result row, column) pair, blockIdx.y the
+// part and blockIdx.z the column; the thread walks its node's blocks in
+// order and reads its row i of each (bs values). The grid covers every
+// bucket's rows (the buckets' nb_c * bs rows laid end to end); a thread
+// finds its bucket by a scan of the table's first rows (uniform across a
+// warp but at a bucket edge). A frame is K = 1, so one kernel serves both.
+// A frame runs its own instance, K = 1 a constant. (A thread keeping 8
+// columns in registers, as mode 2 does, ran a frame at 20.0 us against the
+// frame kernel's 12.9 on an H100, and this kernel with K read at run time
+// at 14.6 us, the columns along blockIdx.x or blockIdx.z alike.)
 //
-// Both modes launch on the caller's stream and allocate nothing, so a CUDA
-// graph captures them.
+// Design of mode 2: as mode 0, a thread keeping up to PA_BSR_KC columns
+// (blockIdx.z the chunk of columns) in registers, so that a block's values
+// and node column are read once for K <= PA_BSR_KC right-hand sides; x
+// and y slabs hold a node's K columns side by side, so a gathered block of
+// x is bs rows of K adjacent values. Mode 2's bound at
+// the elasticity operator's 64^3 f64, K = 8: the real blocks, their
+// columns and the counts once (~238 MB) and the x and y slabs (50 MB
+// each), ~338 MB, ~101 us at 3.35 TB/s.
+//
+// Every mode launches on the caller's stream and allocates nothing, so a
+// CUDA graph captures it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define PA_BSR_THREADS 256
+#define PA_BSR_THREADS 256  // mode 1: threads a CTA
 #define PA_BSR_MAX_BUCKETS 8
 #define PA_BSR_OO_THREADS 256  // mode 0: threads (nodes) a CTA
 #define PA_BSR_LB 2            // mode 0: blocks whose loads issue before their products
+#define PA_BSR_KC 8            // mode 2: columns a thread keeps in registers
+#define PA_BSR_SLAB_THREADS 128  // mode 2: threads (nodes) a CTA
 
-enum { PA_BSR_OO = 0, PA_BSR_BOUNDARY = 1 };
+enum { PA_BSR_OO = 0, PA_BSR_BOUNDARY = 1, PA_BSR_OO_SLAB = 2 };
 
 struct PaBsrParams {
   int P;            // stacked parts
   int Lb;           // blocks a node row (>= 1)
   int bs;           // block size: 2, 3 or 4
-  int mode;         // PA_BSR_OO or PA_BSR_BOUNDARY
+  int mode;         // PA_BSR_OO, PA_BSR_BOUNDARY or PA_BSR_OO_SLAB
   long long nn;     // staged node rows a part
   long long wx;     // frame width of x
   long long wy;     // frame width of y
@@ -107,6 +129,7 @@ struct PaBsrParams {
   long long bk_roff[PA_BSR_MAX_BUCKETS];    // element offset of rows_c in the rows buffer
   long long bk_coff[PA_BSR_MAX_BUCKETS];    // of cols_c in the cols buffer
   long long bk_voff[PA_BSR_MAX_BUCKETS];    // of vals_c in the vals buffer
+  int K;            // columns of the slabs (modes 1, 2; 1 for a frame)
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -180,37 +203,116 @@ bsr_oo_kernel(const PaBsrParams prm, const T* __restrict__ vals, const int* __re
 }
 
 // ---------------------------------------------------------------------------
-// mode 1: the node-block boundary
+// mode 2: the owned block on (P, W, K) slabs
 // ---------------------------------------------------------------------------
 
-// row i of node `node` of part p in a block row of Lb blocks (nn nodes a
-// part): sum over its Lb blocks and their bs columns
+// the columns [k0, k0 + kn) of a thread's chunk
+__device__ __forceinline__ int chunk_columns(int K, int k0) { return K - k0 < PA_BSR_KC ? K - k0 : PA_BSR_KC; }
+
 template <typename T, int BS>
-__device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long nn, int Lb, long long node, int i,
+__global__ void __launch_bounds__(PA_BSR_SLAB_THREADS)
+bsr_oo_slab_kernel(const PaBsrParams prm, const T* __restrict__ vals, const int* __restrict__ cols,
+                   const int* __restrict__ counts, const T* __restrict__ x, T* __restrict__ y) {
+  constexpr int BB = BS * BS, KC = PA_BSR_KC;
+  const int p = blockIdx.y, K = prm.K, k0 = blockIdx.z * KC, kn = chunk_columns(K, k0);
+  const long long nn = prm.nn, Lb = prm.Lb;
+  const long long node = (long long)blockIdx.x * PA_BSR_SLAB_THREADS + threadIdx.x;
+  T* yp = y + (long long)p * prm.wy * K + k0;  // slot s, column k0 + q at yp[s * K + q]
+  if (node >= nn) {
+    // the zeros outside the band [yo0, yo0 + nn * bs)
+    const long long z = node - nn, band = nn * BS;
+    if (z < prm.wy - band) {
+      T* yz = yp + (z < prm.yo0 ? z : z + band) * K;
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        if (q < kn) yz[q] = T(0);
+    }
+    return;
+  }
+  const int c = __ldg(counts + (long long)p * nn + node);
+  const T* vp = vals + (long long)p * Lb * BB * nn + node;  // block l, entry (i, j) at ((l * BS + i) * BS + j) * nn
+  const int* cp = cols + (long long)p * Lb * nn + node;     // block l at l * nn
+  const T* xp = x + ((long long)p * prm.wx + prm.xo0) * K + k0;
+  T acc[BS][KC];
+#pragma unroll
+  for (int i = 0; i < BS; ++i)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) acc[i][q] = T(-0.0);  // the identity of a rounded add
+  for (int l = 0; l < c; ++l) {
+    const long long col = __ldcs(cp + (long long)l * nn);
+    T vv[BS][BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i)
+#pragma unroll
+      for (int j = 0; j < BS; ++j) vv[i][j] = __ldcs(vp + ((long long)l * BB + i * BS + j) * nn);
+    const T* xb = xp + col * BS * K;
+#pragma unroll
+    for (int j = 0; j < BS; ++j)
+#pragma unroll
+      for (int q = 0; q < KC; ++q) {
+        if (q < kn) {
+          const T xv = __ldg(xb + j * K + q);
+#pragma unroll
+          for (int i = 0; i < BS; ++i) acc[i][q] = add_rn(acc[i][q], mul_rn(vv[i][j], xv));
+        }
+      }
+  }
+  if (c < Lb) {
+    // the pads' terms, one round a column (see the note at the top)
+#pragma unroll
+    for (int j = 0; j < BS; ++j)
+#pragma unroll
+      for (int q = 0; q < KC; ++q) {
+        if (q < kn) {
+          const T z = mul_rn(T(0), __ldg(xp + j * K + q));
+#pragma unroll
+          for (int i = 0; i < BS; ++i) acc[i][q] = add_rn(acc[i][q], z);
+        }
+      }
+  }
+  T* yo = yp + (prm.yo0 + node * BS) * K;
+#pragma unroll
+  for (int i = 0; i < BS; ++i)
+#pragma unroll
+    for (int q = 0; q < KC; ++q)
+      if (q < kn) yo[i * K + q] = acc[i][q];
+}
+
+// ---------------------------------------------------------------------------
+// mode 1: the node-block boundary, on frames and slabs
+// ---------------------------------------------------------------------------
+
+// row i of node `node` of part p in a block row of Lb blocks (nb nodes a
+// part), against column k of x (K columns; a frame is K = 1): the first
+// product, then the others in ascending (l, j)
+template <typename T, int BS>
+__device__ __forceinline__ T block_row(const PaBsrParams& prm, int p, long long nb, int Lb, long long node, int i,
                                        const T* __restrict__ vals, const int* __restrict__ cols,
-                                       const T* __restrict__ x) {
-  const long long at = (long long)p * nn + node;
+                                       const T* __restrict__ x, int K, int k) {
+  const long long at = (long long)p * nb + node;
   const T* v = vals + at * Lb * (BS * BS) + i * BS;
   const int* c = cols + at * Lb;
-  const T* xp = x + (long long)p * prm.wx + prm.xo0;
-  const T* xb = xp + (long long)c[0] * BS;
+  const T* xp = x + ((long long)p * prm.wx + prm.xo0) * K + k;
+  const T* xb = xp + (long long)c[0] * BS * K;
   T acc = mul_rn(v[0], xb[0]);
 #pragma unroll
-  for (int j = 1; j < BS; ++j) acc = add_rn(acc, mul_rn(v[j], xb[j]));
+  for (int j = 1; j < BS; ++j) acc = add_rn(acc, mul_rn(v[j], xb[j * K]));
   for (int l = 1; l < Lb; ++l) {
     const T* vl = v + l * (BS * BS);
-    xb = xp + (long long)c[l] * BS;
+    xb = xp + (long long)c[l] * BS * K;
 #pragma unroll
-    for (int j = 0; j < BS; ++j) acc = add_rn(acc, mul_rn(vl[j], xb[j]));
+    for (int j = 0; j < BS; ++j) acc = add_rn(acc, mul_rn(vl[j], xb[j * K]));
   }
   return acc;
 }
 
-template <typename T, int BS>
+// FRAME: K = 1 known at compile time, so a frame's addresses take no
+// multiply by K
+template <typename T, int BS, bool FRAME>
 __global__ void __launch_bounds__(PA_BSR_THREADS)
 bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, const T* __restrict__ vals,
                     const int* __restrict__ cols, const T* __restrict__ x, T* __restrict__ y) {
-  const int p = blockIdx.y;
+  const int p = blockIdx.y, K = FRAME ? 1 : prm.K, k = FRAME ? 0 : blockIdx.z;
   const long long t = (long long)blockIdx.x * PA_BSR_THREADS + threadIdx.x;
   if (t >= prm.bk_row0[prm.nbk]) return;
   int c = 0;
@@ -220,8 +322,8 @@ bsr_boundary_kernel(const PaBsrParams prm, const long long* __restrict__ rows, c
   const long long row = rows[prm.bk_roff[c] + (long long)p * nb * BS + r];
   if (row == prm.trash) return;
   const T acc = block_row<T, BS>(prm, p, nb, prm.bk_Lb[c], r / BS, (int)(r % BS), vals + prm.bk_voff[c],
-                                 cols + prm.bk_coff[c], x);
-  T* yp = y + (long long)p * prm.wy + row;
+                                 cols + prm.bk_coff[c], x, K, k);
+  T* yp = y + ((long long)p * prm.wy + row) * K + k;
   *yp = add_rn(*yp, acc);
 }
 
@@ -244,17 +346,45 @@ static int launch_oo(const PaBsrParams* prm, const void* counts, const void* val
 }
 
 template <typename T, int BS>
+static int launch_oo_slab(const PaBsrParams* prm, const void* counts, const void* vals, const void* cols,
+                          const void* x, void* y, cudaStream_t s) {
+  // a thread a node, then the slots outside the band; blockIdx.z the chunk of columns
+  const long long work = prm->nn + (prm->wy - prm->nn * BS);
+  long long gx = (work + PA_BSR_SLAB_THREADS - 1) / PA_BSR_SLAB_THREADS;
+  if (gx < 1) gx = 1;
+  const int chunks = (prm->K + PA_BSR_KC - 1) / PA_BSR_KC;
+  if (prm->K < 1 || gx > 0x7fffffffLL || prm->P > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P, (unsigned int)chunks);
+  bsr_oo_slab_kernel<T, BS><<<grid, PA_BSR_SLAB_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols,
+                                                                 (const int*)counts, (const T*)x, (T*)y);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BS>
+static int launch_boundary(const PaBsrParams* prm, const void* rows, const void* vals, const void* cols,
+                           const void* x, void* y, cudaStream_t s) {
+  // a thread a (boundary row, column) pair, blockIdx.z the column
+  long long gx = (prm->bk_row0[prm->nbk] + PA_BSR_THREADS - 1) / PA_BSR_THREADS;
+  if (gx < 1) gx = 1;
+  if (prm->K < 1 || prm->K > 65535 || gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P, (unsigned int)prm->K);
+  if (prm->K == 1) {
+    bsr_boundary_kernel<T, BS, true><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
+                                                                     (const int*)cols, (const T*)x, (T*)y);
+  } else {
+    bsr_boundary_kernel<T, BS, false><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
+                                                                      (const int*)cols, (const T*)x, (T*)y);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BS>
 static int launch_bs(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals, const void* cols,
                      const void* x, void* y, cudaStream_t s) {
   if (prm->mode == PA_BSR_OO) return launch_oo<T, BS>(prm, counts, vals, cols, x, y, s);
-  if (prm->mode != PA_BSR_BOUNDARY) return (int)cudaErrorInvalidValue;
-  long long gx = (prm->bk_row0[prm->nbk] + PA_BSR_THREADS - 1) / PA_BSR_THREADS;
-  if (gx < 1) gx = 1;
-  if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
-  bsr_boundary_kernel<T, BS><<<grid, PA_BSR_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
-                                                             (const int*)cols, (const T*)x, (T*)y);
-  return (int)cudaGetLastError();
+  if (prm->mode == PA_BSR_OO_SLAB) return launch_oo_slab<T, BS>(prm, counts, vals, cols, x, y, s);
+  if (prm->mode == PA_BSR_BOUNDARY) return launch_boundary<T, BS>(prm, rows, vals, cols, x, y, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -278,12 +408,13 @@ static int launch(const PaBsrParams* prm, const void* rows, const void* counts, 
 
 extern "C" {
 
-// mode 0: vals (P, Lb, bs, bs, nn), int32 node columns cols (P, Lb, nn),
-// slot-major, int32 counts (P, nn) of real blocks a node (the rest pads:
-// value 0, node 0), rows null; mode 1: the flat buffers of the buckets' rows
-// (int64), cols (int32) and vals (the table in prm gives each bucket's
-// offsets), counts null; x: the operand frame; y: the result (written
-// whole in mode 0, updated on the boundary rows in mode 1).
+// modes 0 and 2: vals (P, Lb, bs, bs, nn), int32 node columns cols (P, Lb,
+// nn), slot-major, int32 counts (P, nn) of real blocks a node (the rest
+// pads: value 0, node 0), rows null; mode 1: the flat buffers of the
+// buckets' rows (int64), cols (int32) and vals (the table in prm gives each
+// bucket's offsets), counts null; x: the operand frame (mode 0), slab
+// (mode 2) or either (mode 1, prm->K its columns); y: the result (written
+// whole in modes 0 and 2, updated on the boundary rows in mode 1).
 int pa_bsr_spmv_f32(const PaBsrParams* prm, const void* rows, const void* counts, const void* vals,
                     const void* cols, const void* x, void* y, void* stream) {
   return launch<float>(prm, rows, counts, vals, cols, x, y, stream);

@@ -25,7 +25,10 @@
 //     y[p, row, k] = y[p, row, k] + sum_l vals[p, l, b] * x[p, cols[p, l, b], k]
 //     in place, the row's sum rounded once into y (the host's two-phase
 //     A_oo fold, then `+=` of the A_oh fold). x and y are (P, W) frames
-//     (K = 1) or (P, W, K) slabs of K columns, column k summed as a frame.
+//     (K = 1) or (P, W, K) slabs of K columns, column k summed as a frame;
+//   mode 2 (A_oo on slabs, `ell_spmm`): mode 0 for each column k of
+//     (P, W, K) slabs x and y (column k at the innermost axis), column k
+//     folded as mode 0 folds a frame, so it equals mode 0 on column k.
 // The fold starts from -0.0, the identity of a rounded add (-0.0 + t = t
 // for every t, -0.0 included), so it equals the fold from the first product.
 // Pad slots of a row carry value 0 and a real column; pad rows point at the
@@ -47,22 +50,32 @@
 // the x gathers through the read-only path, then folds the batch in slot
 // order. Rows are not trimmed to shorter slice widths (SELL): on the
 // Morton-ordered elasticity operator nearly every 32-row slice holds a
-// row of the longest width, so slices would save almost nothing. It
-// launches on the caller's stream and allocates nothing, so a CUDA graph
-// captures it.
+// row of the longest width, so slices would save almost nothing.
+//
+// Mode 2 exists to read the operator once for K right-hand sides: a thread
+// takes a row and up to PA_ELL_KC columns (blockIdx.z the chunk of
+// columns), keeps their sums in registers and folds each slot's value into
+// all of them, so vals and cols stream once for K <= PA_ELL_KC; a gathered
+// row of x is its K adjacent values. Its bound: vals and cols once, x and
+// y (K values a row each) once; on the strict 192^3 f32 lowering (7 slots)
+// at K = 8, 850 MB, 253 us at 3.35 TB/s.
+//
+// Every mode launches on the caller's stream and allocates nothing, so a
+// CUDA graph captures it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define PA_ELL_THREADS 256
 #define PA_ELL_BATCH 8
+#define PA_ELL_KC 8         // mode 2: columns a thread keeps in registers
 
-enum { PA_ELL_OO = 0, PA_ELL_BOUNDARY = 1 };
+enum { PA_ELL_OO = 0, PA_ELL_BOUNDARY = 1, PA_ELL_OO_SLAB = 2 };
 
 struct PaEllParams {
   int P;            // stacked parts
   int L;            // slots a row (>= 1)
-  int K;            // columns of the slabs (mode 1), 1 for frames
+  int K;            // columns of the slabs (modes 1, 2), 1 for frames
   int mode;         // PA_ELL_OO or PA_ELL_BOUNDARY
   long long n;      // staged rows a part
   long long wx;     // frame width of x
@@ -138,18 +151,59 @@ ell_boundary_kernel(const PaEllParams prm, const long long* __restrict__ rows, c
   *yp = add_rn(*yp, acc);
 }
 
+// mode 2: row j of part p for the columns [k0, k0 + kn) of the chunk
+// blockIdx.z; rows outside the band write 0 (+0.0)
+template <typename T>
+__global__ void __launch_bounds__(PA_ELL_THREADS)
+ell_oo_slab_kernel(const PaEllParams prm, const T* __restrict__ vals, const int* __restrict__ cols,
+                   const T* __restrict__ x, T* __restrict__ y) {
+  constexpr int KC = PA_ELL_KC;
+  const int p = blockIdx.y;
+  const long long j = (long long)blockIdx.x * PA_ELL_THREADS + threadIdx.x;
+  if (j >= prm.wy) return;
+  const int K = prm.K, k0 = blockIdx.z * KC;
+  const int kn = K - k0 < KC ? K - k0 : KC;
+  const long long n = prm.n, i = j - prm.o0;
+  T acc[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) acc[q] = T(0);
+  if (i >= 0 && i < n) {
+#pragma unroll
+    for (int q = 0; q < KC; ++q) acc[q] = T(-0.0);  // the identity of a rounded add
+    const long long at = (long long)p * prm.L * n + i;
+    const T* v = vals + at;
+    const int* c = cols + at;
+    const T* xp = x + (long long)p * prm.wx * K + k0;  // slot s, column k0 + q at xp[s * K + q]
+    for (int l = 0; l < prm.L; ++l) {
+      const T vl = __ldcs(v + (long long)l * n);
+      const T* xr = xp + (long long)__ldcs(c + (long long)l * n) * K;
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        if (q < kn) acc[q] = add_rn(acc[q], mul_rn(vl, __ldg(xr + q)));
+    }
+  }
+  T* yp = y + ((long long)p * prm.wy + j) * K + k0;
+#pragma unroll
+  for (int q = 0; q < KC; ++q)
+    if (q < kn) yp[q] = acc[q];
+}
+
 template <typename T>
 static int launch(const PaEllParams* prm, const void* rows, const void* vals, const void* cols, const void* x,
                   void* y, void* stream) {
   if (prm->L < 1 || prm->K < 1 || prm->P < 1 || prm->n < 0) return (int)cudaErrorInvalidValue;
   if (prm->mode == PA_ELL_BOUNDARY && prm->n < 1) return (int)cudaErrorInvalidValue;
-  const long long work = prm->mode == PA_ELL_OO ? prm->wy : prm->n * prm->K;
+  const long long work = prm->mode == PA_ELL_BOUNDARY ? prm->n * prm->K : prm->wy;
   long long gx = (work + PA_ELL_THREADS - 1) / PA_ELL_THREADS;
   if (gx < 1) gx = 1;
-  if (gx > 0x7fffffffLL || prm->P > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned int)gx, (unsigned int)prm->P);
+  const int chunks = prm->mode == PA_ELL_OO_SLAB ? (prm->K + PA_ELL_KC - 1) / PA_ELL_KC : 1;
+  if (gx > 0x7fffffffLL || prm->P > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P, (unsigned int)chunks);
   cudaStream_t s = (cudaStream_t)stream;
-  if (prm->mode == PA_ELL_OO) {
+  if (prm->mode == PA_ELL_OO_SLAB) {
+    ell_oo_slab_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols, (const T*)x,
+                                                          (T*)y);
+  } else if (prm->mode == PA_ELL_OO) {
     ell_oo_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols, (const T*)x, (T*)y);
   } else if (prm->mode == PA_ELL_BOUNDARY) {
     ell_boundary_kernel<T><<<grid, PA_ELL_THREADS, 0, s>>>(*prm, (const long long*)rows, (const T*)vals,
@@ -162,9 +216,9 @@ static int launch(const PaEllParams* prm, const void* rows, const void* vals, co
 
 extern "C" {
 
-// rows: the boundary rows (P, n) (mode 1; null in mode 0); vals, cols:
-// (P, L, n), cols int32; x: the operand frame or slab; y: the result
-// (written whole in mode 0, updated on the boundary rows in mode 1).
+// rows: the boundary rows (P, n) (mode 1; null in modes 0 and 2); vals,
+// cols: (P, L, n), cols int32; x: the operand frame or slab; y: the result
+// (written whole in modes 0 and 2, updated on the boundary rows in mode 1).
 int pa_ell_spmv_f32(const PaEllParams* prm, const void* rows, const void* vals, const void* cols,
                     const void* x, void* y, void* stream) {
   return launch<float>(prm, rows, vals, cols, x, y, stream);

@@ -17,9 +17,11 @@ loops in sequence elsewhere, `_host_block_solve`);
 ``PA_TPU_STRICT_BITS=1``, a keyword here): the host loops take the strict
 SpMV (`csr_spmv(strict=True)`) and the fixed-tree dots
 (`PVector.dot(strict=True)`), the device loop the ELL lowering and E3, and
-both give the same iterations, residual history and solution bit for bit.
+both give the same iterations, residual history and solution bit for bit;
+the device block solve too, each column its solo strict loop.
 ``lowering`` names the first non-band lowering the device tries
-(`parallel/gpu.py:DeviceMatrix`: "auto", "sd", "bsr", "ell").
+(`parallel/gpu.py:DeviceMatrix`: "auto", "sd", "bsr", "ell"), for the solo
+and the block solves alike.
 """
 from __future__ import annotations
 
@@ -122,15 +124,6 @@ def _host_block_solve(solve_one, B, X0, column_errors="raise"):
     return xs, info
 
 
-def _check_device_block(strict: bool, lowering: str) -> None:
-    """The device block solve runs on band operators, without strict mode."""
-    if strict or lowering != "auto":
-        raise NotImplementedError(
-            "the device block (multi-RHS) solve takes neither strict mode nor another lowering: solve "
-            "the right-hand sides one by one"
-        )
-
-
 def _check_block_args(name, b, x0, B, column_errors="raise"):
     """Validate a multi-RHS call (solvers.py:126-147, the checks that apply
     to the port's arguments); returns B as a list."""
@@ -174,8 +167,9 @@ def cg(
     non-finite failure under ``info["column_health"]`` instead of raising.
     ``pipelined`` with ``B`` raises: the lag-1 body is single-RHS only.
 
-    ``strict`` and ``lowering``: see the module docstring (the device block
-    solve takes neither: it runs on band operators only)."""
+    ``strict`` and ``lowering``: see the module docstring; the device block
+    solve takes both, on every lowering (a band, SD, BSR, ELL), each
+    column in strict mode the host's strict solo loop bit for bit."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
 
     if B is not None:
@@ -183,9 +177,8 @@ def cg(
         if pipelined:
             raise ValueError("cg: the pipelined (lag-1) form is single-RHS only; drop pipelined or B")
         if isinstance(B[0].values.backend, GPUBackend):
-            _check_device_block(strict, lowering)
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-                                column_errors=column_errors, box=box)
+                                column_errors=column_errors, box=box, strict=strict, lowering=lowering)
         return _host_block_solve(
             lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict),
             B, X0, column_errors=column_errors,
@@ -404,9 +397,9 @@ def pcg(
     if B is not None:
         B = _check_block_args("pcg", b, x0, B, column_errors)
         if isinstance(B[0].values.backend, GPUBackend) and not callable(minv):
-            _check_device_block(strict, lowering)
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, minv=minv,
-                                fused=fused, column_errors=column_errors, box=box)
+                                fused=fused, column_errors=column_errors, box=box, strict=strict,
+                                lowering=lowering)
         return _host_block_solve(
             lambda bk, x0k: pcg(A, bk, x0=x0k, minv=minv, tol=tol, maxiter=maxiter, verbose=verbose,
                                 box=box, stencil=stencil, fused=fused, strict=strict, lowering=lowering),

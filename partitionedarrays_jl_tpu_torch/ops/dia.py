@@ -72,6 +72,7 @@ LAUNCHES = {
     "dia_coded_spmv_pfold_minv": 0, "cg_sweep_precond": 0, "cg_sweep_block": 0,
     "dia_coded_spmm": 0, "dia_stream_spmm": 0, "block_products": 0,
     "ell_spmv": 0, "ell_spmv_boundary": 0, "bsr_spmv": 0, "bsr_spmv_boundary": 0, "pairwise_dot": 0,
+    "ell_spmm": 0, "bsr_spmm": 0, "pairwise_dot_block": 0,
 }
 
 MAX_DIAGS = 64

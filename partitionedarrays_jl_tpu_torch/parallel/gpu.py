@@ -33,10 +33,15 @@ Poisson CG, multigrid and unstructured-elasticity slices:
   graph); x and r are updated and r.r taken in one sweep kernel
   (`ops/sweep.py`); dots are per-part partials folded in part order.
   Multigrid on the card is `parallel/gpu_gmg.py`.
+* **Block solves.** `make_block_cg_fn` / `gpu_block_cg` run K
+  right-hand sides over ``(P, W, K)`` slabs on every lowering, the
+  operator read once an iteration for all K (the slab forms of the
+  products).
 * **Strict bits.** ``strict=True`` (the JAX package's
   ``PA_TPU_STRICT_BITS=1``, a keyword here) lowers to ELL on the generic
   plan and takes every dot through the fixed pairwise tree (E3): the
-  solve is then the host's strict loop bit for bit.
+  solve is then the host's strict loop bit for bit; a strict block solve
+  gives each column its strict solo loop bit for bit.
 
 The device defaults to ``cuda``; with no card it raises at first use and
 never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
@@ -550,7 +555,9 @@ class DeviceMatrix:
         else padded ELL. ``lowering`` names the first one tried (``"sd"``
         is ``"auto"``; ``"bsr"`` skips SD and ``"ell"`` both, as
         ``PA_TPU_SD=0`` / ``PA_TPU_BSR=0`` do); ``self.lowering`` names
-        the one taken."""
+        the one taken. ELL keeps no footprint ceiling on the card (the JAX
+        package's ``_ell_guard_check`` is a TPU fault ceiling;
+        `gpu_irregular.stage_ell` records the decision)."""
         from . import gpu_irregular as gi
         from ..ops import irregular as irr
 
@@ -736,11 +743,13 @@ def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True, stric
 # ---------------------------------------------------------------------------
 
 
-def _irregular_aoo(dA: DeviceMatrix, plain: bool) -> Callable:
+def _irregular_aoo(dA: DeviceMatrix, plain: bool, block: bool = False) -> Callable:
     """``aoo(xv, width) -> y`` for the SD, BSR and ELL lowerings: the A_oo
     product of the column frame xv into a (P, width) row frame, the owned
     band computed and 0 elsewhere (tpu.py:3096-3161): `irregular.sd_spmv`
-    (torch.bmm: no plain form), E2 `bsr_spmv` or E1 `ell_spmv`."""
+    (torch.bmm: no plain form), E2 `bsr_spmv` or E1 `ell_spmv`; with
+    ``block`` the same on (P, W, K) slabs (`sd_spmv` on a slab, E2
+    `bsr_spmm`, E1 `ell_spmm`)."""
     from ..ops import irregular as irr
 
     o0, n = dA.col_layout.o0, dA.col_layout.no_max
@@ -749,9 +758,14 @@ def _irregular_aoo(dA: DeviceMatrix, plain: bool) -> Callable:
     if dA.lowering == "bsr":
         if plain:
             vals, cols = irr.bsr_row_major(dA.bsr_vals), irr.bsr_row_major(dA.bsr_cols)
-            return lambda xv, width: irr.bsr_spmv_plain(vals, cols, xv, o0, o0, width)
-        return lambda xv, width: irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, xv, o0, o0, width)
-    k = irr.ell_spmv_plain if plain else irr.ell_spmv
+            k = irr.bsr_spmm_plain if block else irr.bsr_spmv_plain
+            return lambda xv, width: k(vals, cols, xv, o0, o0, width)
+        k = irr.bsr_spmm if block else irr.bsr_spmv
+        return lambda xv, width: k(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, xv, o0, o0, width)
+    if block:
+        k = irr.ell_spmm_plain if plain else irr.ell_spmm
+    else:
+        k = irr.ell_spmv_plain if plain else irr.ell_spmv
     return lambda xv, width: k(dA.oo_vals, dA.oo_cols, xv, o0, width)
 
 
@@ -776,10 +790,12 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     kernel (tpu.py:3284-3291, :3022-3031, :2859-2864), each product rounded
     on its own. ``block`` gives the same bodies over ``(P, W, K)`` slabs
     (beta (K,) per column, minv shared), on the block products
-    `dia_coded_spmm` / `dia_stream_spmm` of a band (the block forms of the
-    other lowerings are not ported: they raise); column k of a block body
-    is the single-vector body of column k. ``plain`` runs the plain
-    versions of the kernels on the same tensors (the comparison path)."""
+    `dia_coded_spmm` / `dia_stream_spmm` of a band and the slab forms of
+    the others (`_irregular_aoo`; A_oh by the boundary modes on slabs);
+    column k of a block body is the single-vector body of column k (bit
+    for bit but on SD, whose `torch.bmm` takes its own order for K
+    columns). ``plain`` runs the plain versions of the kernels on the same
+    tensors (the comparison path)."""
     from ..ops import irregular as irr
 
     op = dA.coded
@@ -788,11 +804,6 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     o0 = dA.row_layout.o0
     plan = dA.col_plan
     check(not (block and axpy), "the pipelined body is single-vector only")
-    if block and dA.dia_mode is None:
-        raise NotImplementedError(
-            f"the block (multi-RHS) body of the {dA.lowering} lowering is not ported: solve the "
-            "right-hand sides one by one"
-        )
     if dA.dia_mode == "coded":
         if block:
             spmv_k = dia.dia_coded_spmm_plain if plain else dia.dia_coded_spmm
@@ -815,7 +826,7 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             def spmv_k(_op, xv, width):
                 return stream_k(dA.stream_vals, xv, dA.dia_offsets, dA.stream_no, o0, width, **form)
         else:
-            aoo = _irregular_aoo(dA, plain)
+            aoo = _irregular_aoo(dA, plain, block)
 
             def spmv_k(_op, xv, width):
                 return aoo(xv, width)
@@ -873,17 +884,18 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
 
 def make_spmv_fn(dA: DeviceMatrix) -> Callable:
     """y = A @ x on the stacked frames: ``(P, Wc)`` column-range tensor ->
-    ``(P, Wr)`` row-range product (ghost slots of y zero). The ghost slots
-    of x are refreshed in place."""
-    body = _spmv_body(dA)
+    ``(P, Wr)`` row-range product (ghost slots of y zero), or a ``(P, Wc,
+    K)`` slab of K columns -> ``(P, Wr, K)`` (the block body, tpu.py:2827's
+    rank-polymorphic SpMV). The ghost slots of x are refreshed in place."""
+    bodies = {2: _spmv_body(dA), 3: _spmv_body(dA, block=True)}
     shape = (dA.col_layout.P, dA.col_layout.W)
 
     def run(x):
         check(
-            tuple(x.shape) == shape,
-            f"spmv: vector laid out {tuple(x.shape)}, matrix expects {shape}",
+            tuple(x.shape[:2]) == shape and x.dim() in bodies,
+            f"spmv: vector laid out {tuple(x.shape)}, matrix expects {shape} or {shape} + (K,)",
         )
-        return body(x)
+        return bodies[x.dim()](x)
 
     return run
 
@@ -910,9 +922,12 @@ def _pdot_factory(o0: int, no_max: int, strict: bool = False, plain: bool = Fals
     return pdot
 
 
-def _block_pdot_factory(o0: int, no_max: int, plain: bool = False):
+def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool = False):
     """`_pdot_factory`'s dot per column of ``(P, W, K)`` slabs, returning
-    (K,), each column in the solo order. A reduction over the strided
+    (K,), each column in the solo order. ``strict`` takes E3's block form
+    (`ops/irregular.pairwise_dot_block`, its plain version with ``plain``):
+    every column's fixed tree in one launch, column k bit for bit the solo
+    strict dot (tpu.py:2501, :2538-2551). A reduction over the strided
     column of a slab is another sum than the solo one's over a contiguous
     (P, n) product (on the card the reduction's schedule follows the shape,
     the strides and the pointer's alignment), so the products of all
@@ -923,6 +938,12 @@ def _block_pdot_factory(o0: int, no_max: int, plain: bool = False):
     the solo dot of column k bit for bit. ``plain`` takes the products'
     plain version."""
     from ..ops import sweep as sw
+
+    if strict:
+        from ..ops import irregular as irr
+
+        k = irr.pairwise_dot_block_plain if plain else irr.pairwise_dot_block
+        return lambda a, b: k(a, b, o0, no_max)
 
     products = sw.block_products_plain if plain else sw.block_products
 
@@ -1123,19 +1144,29 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     with beta 0 so that nothing of it grows while it waits. The device
     loop (`gpu_loop.DeviceLoop`, blocks of ``block`` iterations, a CUDA
     graph on the card unless ``graph=False``) runs while some column is
-    active and ``it < maxiter``."""
+    active and ``it < maxiter``.
+
+    Every lowering takes it: a band (the coded and streaming SpMMs) and
+    SD, BSR and ELL (their slab products, `_irregular_aoo`, and the
+    boundary modes on slabs). On a strict lowering (``dA.strict``) it
+    follows `make_cg_fn`'s strict rules (tpu.py:4440): the standard body
+    is the default (``fused=True`` is honoured), the block sweep updates x
+    and r, and r.r, p.q and, with ``precond``, r.z of the stored z =
+    minv*r are E3's block dots (`_block_pdot_factory(strict=True)`), so
+    column k takes the host's strict solo loop of column k bit for bit."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
     K = int(rhs_batch)
     check(K >= 1, "make_block_cg_fn: rhs_batch must be >= 1")
-    fused = True if fused is None else bool(fused)
+    strict = dA.strict
+    fused = (not strict) if fused is None else bool(fused)
     body = _spmv_body(dA, plain=plain, block=True)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True) if fused else None
     sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
-    bdot = _block_pdot_factory(o0, no_max, plain)
+    bdot = _block_pdot_factory(o0, no_max, plain, strict)
     stop_it = gl.stop_bound(maxiter)
 
     def step(S):
@@ -1155,7 +1186,16 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
             p = S["p"]
             q = body(p)
         alpha = torch.where(on, rz / bdot(p, q), 0)
-        if precond:
+        if strict:
+            # the sweep updates x and r; the dots are E3's block form
+            sweep(S["r"], q, alpha, act, S["part"], o0, no_max, x=S["x"], p=p)
+            rs_new = bdot(S["r"], S["r"])
+            if precond:
+                z = torch.zeros_like(S["r"])
+                z[:, sl] = mv[:, sl, None] * S["r"][:, sl]
+                rz_new = bdot(S["r"], z)
+                out["rz"] = torch.where(on, rz_new, rz)
+        elif precond:
             rz_new, rs_new = sweep(S["r"], q, alpha, act, S["part"], o0, no_max, x=S["x"], p=p, minv=mv)
             out["rz"] = torch.where(on, rz_new, rz)
         else:
@@ -1190,7 +1230,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
             "itk": torch.zeros((K,), dtype=torch.int32, device=dev),
             "live": torch.ones((), dtype=torch.int32, device=dev),
             "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
-            "part": sw.sweep_partials(r, no_max, 2 * K if precond else K),
+            "part": sw.sweep_partials(r, no_max, 2 * K if precond and not strict else K),
         }
         z = r
         if precond:
@@ -1209,6 +1249,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
 
     fn.cg_body = "fused" if fused else "standard"
     fn.precond = bool(precond)
+    fn.strict = strict
     fn.rhs_batch = K
     fn.stats = loop.stats
     fn.loop = loop
@@ -1332,6 +1373,8 @@ def gpu_block_cg(
     column_errors: str = "raise",
     plain: bool = False,
     box: bool = True,
+    strict: bool = False,
+    lowering: str = "auto",
 ) -> Tuple[list, dict]:
     """Device block (multi-RHS) CG on the GPU backend, the counterpart of
     `tpu_block_cg` / `_tpu_block_cg_impl` (tpu.py:6025-6275): solve ``A x_k
@@ -1341,11 +1384,14 @@ def gpu_block_cg(
     and an info dict with one krylov info per column under ``columns``
     (each column's trajectory its solo `gpu_cg` trajectory), the
     worst-column aggregates, ``iterations_per_column``, ``rhs_batch``,
-    ``cg_body`` and ``column_health`` (a ``{"status", "converged",
-    "iterations"}`` verdict per column, status ``"ok"`` or
-    ``"nonfinite"``). ``column_errors="raise"`` raises `NonFiniteError`
-    naming the columns whose residual is not finite; ``"report"`` marks
-    them in their column info and verdict and raises nothing."""
+    ``cg_body``, ``lowering``, ``strict`` and ``column_health`` (a
+    ``{"status", "converged", "iterations"}`` verdict per column, status
+    ``"ok"`` or ``"nonfinite"``). ``column_errors="raise"`` raises
+    `NonFiniteError` naming the columns whose residual is not finite;
+    ``"report"`` marks them in their column info and verdict and raises
+    nothing. ``box``, ``strict`` and ``lowering`` as in `gpu_cg`: on a
+    strict lowering every column is the host's strict solo solve of that
+    column, bit for bit."""
     from ..models.solvers import _final_true_rel
     from ..utils.health import NonFiniteError
 
@@ -1358,7 +1404,7 @@ def gpu_block_cg(
     maxiter = int(maxiter if maxiter is not None else 4 * A.rows.ngids)
     dt = np.result_type(*[b.dtype for b in B])
     name = "block-pcg" if minv is not None else "block-cg"
-    dA = device_matrix(A, backend, box)
+    dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
     solve = make_block_cg_fn(dA, tol, maxiter, K, precond=minv is not None, fused=fused, plain=plain)
     floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
     db = _block_on_cols_layout(B, dA)
@@ -1420,6 +1466,8 @@ def gpu_block_cg(
         "column_health": column_health,
         "rhs_batch": K,
         "cg_body": solve.cg_body,
+        "lowering": dA.lowering,
+        "strict": dA.strict,
         "device_loop": dict(solve.stats),
     }
     if floor_warned:

@@ -246,7 +246,16 @@ def stage_ell(oo, P: int, no_max: int, col_layout, dt):
     all parts, columns int32 slots of the column frame; pad slots value 0 at
     the owned slot o0, rows past a part's owned count at the trash slot.
     The transpose of the last two axes is the JAX package's (P, no_max, L)
-    staging (`ops/irregular.ell_row_major`)."""
+    staging (`ops/irregular.ell_row_major`).
+
+    No footprint ceiling: the JAX package refuses a padded-ELL gather past
+    ``ELL_MAX_GATHER`` = 2.5e7 elements a part (`_ell_guard_check`,
+    tpu.py:1096, :1124), a TPU fault ceiling that the card does not share.
+    The card has run E1 past it without a fault: the strict lowering of the
+    192^3 f32 Poisson operator (7,077,888 rows x 7 slots, 49.5M elements)
+    and the forced ELL of the 64^3 elasticity operator (786,432 x 57,
+    44.8M). A staging that does not fit the card fails in torch's
+    allocator, with its own out-of-memory error."""
     L = max(max((int(m.row_lengths().max()) if m.nnz else 0 for m in oo), default=0), 1)
     check(col_layout.W < 2**31, "ELL staging: the column frame does not fit int32 slot columns")
     vals = np.zeros((P, L, no_max), dtype=dt)

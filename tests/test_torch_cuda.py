@@ -1435,3 +1435,217 @@ def test_strict_elasticity_pcg_on_card():
     assert info_s["iterations"] == info_g["iterations"]
     assert np.asarray(info_s["residuals"]).tobytes() == np.asarray(info_g["residuals"]).tobytes()
     assert xs.tobytes() == xg.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the slab forms of E1-E3 and the block solves on the irregular lowerings
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,n,L,o0", [(1, 1, 1, 0), (2, 1000, 7, 3), (1, 4097, 57, 5)],
+                         ids=["n1", "n1000", "n4097-L57"])
+def test_ell_spmm_kernel_matches_plain_and_frames(dtype, P, n, L, o0, K):
+    """E1 on (P, W, K) slabs (K past the kernel's 8 register columns: two
+    column chunks): bit for bit its plain version and the frame kernel on
+    each column, one launch, rows outside the band 0."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(n + L + K)
+    wx, width = o0 + n + 11, o0 + n + 5
+    vals = _gpu(rng, (P, L, n), dtype)
+    cols = torch.from_numpy(rng.integers(0, wx, (P, L, n)).astype(np.int32)).cuda()
+    x = _gpu(rng, (P, wx, K), dtype)
+    x[:, ::7] = 0.0
+    dia.reset_launches()
+    y = irr.ell_spmm(vals, cols, x, o0, width)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["ell_spmm"] == 1
+    assert _bits(y) == _bits(irr.ell_spmm_plain(vals, cols, x, o0, width))
+    for k in range(K):
+        assert _bits(y[..., k]) == _bits(irr.ell_spmv(vals, cols, x[..., k].contiguous(), o0, width))
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+@pytest.mark.parametrize("nn,Lb,P,xo0,yo0", [(1, 1, 1, 0, 0), (333, 5, 2, 2, 1), (4099, 19, 1, 0, 0)],
+                         ids=["nn1", "nn333", "nn4099"])
+def test_bsr_spmm_kernel_matches_plain_and_frames(nn, Lb, P, xo0, yo0, bs, dtype, K):
+    """E2 on slabs: bit for bit its plain version (on the row-major
+    operands) and the frame kernel on each column, pads and their terms
+    included (an infinity at the first node of x makes rows with pads NaN),
+    one launch."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(nn * bs + Lb + K)
+    wx, width = xo0 + nn * bs + 7, yo0 + nn * bs + 4
+    v, c, k = _padded_blocks(rng, P, nn, Lb, bs)
+    vals, cols, counts = torch.from_numpy(v).to("cuda", dtype), torch.from_numpy(c).cuda(), torch.from_numpy(k).cuda()
+    sv, sc = irr.bsr_slot_major(vals), irr.bsr_slot_major(cols)
+    x = _gpu(rng, (P, wx, K), dtype)
+    x[:, ::5] = 0.0
+    x[0, xo0, 0] = float("inf")
+    dia.reset_launches()
+    y = irr.bsr_spmm(sv, sc, counts, x, xo0, yo0, width)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["bsr_spmm"] == 1
+    assert _bits(y) == _bits(irr.bsr_spmm_plain(vals, cols, x, xo0, yo0, width))
+    for col in range(K):
+        assert _bits(y[..., col]) == _bits(irr.bsr_spmv(sv, sc, counts, x[..., col].contiguous(), xo0, yo0, width))
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+def test_bsr_boundary_slab_kernel_matches_plain_and_frames(bs, dtype, K):
+    """E2's boundary mode on slabs over 5 width buckets in one launch (the
+    frame's kernel, counted under its name): bit for bit its plain version
+    and the frame call on each column; the trash slot untouched."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(bs * 7 + K)
+    P, nhn, g0, wy = 2, 40, 3, 900
+    trash = wy - 1
+    shapes = [(30, 2), (25, 3), (20, 5), (10, 8), (4, 12)]
+    slots = rng.permutation(wy - 1)[: sum(nb for nb, _ in shapes) * bs].reshape(-1, bs)
+    rows_l, vals_l, cols_l, at = [], [], [], 0
+    for nb, Lb in shapes:
+        r = np.stack([slots[at : at + nb]] * P)
+        r[:, -1, :] = trash
+        rows_l.append(r.astype(np.int64))
+        vals_l.append(rng.standard_normal((P, nb, Lb, bs, bs)))
+        cols_l.append(rng.integers(0, nhn, (P, nb, Lb)).astype(np.int32))
+        at += nb
+    rows, cols, vals = _flat_views(rows_l, torch.int64), _flat_views(cols_l, torch.int32), _flat_views(vals_l, dtype)
+    x = _gpu(rng, (P, g0 + nhn * bs + 2, K), dtype)
+    y0 = _gpu(rng, (P, wy, K), dtype)
+    dia.reset_launches()
+    y = irr.bsr_spmv_boundary(rows, vals, cols, x, g0, nhn, y0.clone(), trash)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["bsr_spmv_boundary"] == 1
+    assert _bits(y) == _bits(irr.bsr_spmv_boundary_plain(rows, vals, cols, x, g0, nhn, y0.clone(), trash))
+    assert torch.equal(y[:, trash], y0[:, trash])
+    for k in range(K):
+        want = irr.bsr_spmv_boundary(rows, vals, cols, x[..., k].contiguous(), g0, nhn, y0[..., k].clone(), trash)
+        assert _bits(y[..., k]) == _bits(want)
+
+
+PWB_CASES = [(n, 3, 2) for n in (0, 1, 2049, 100003)] + [(4194305, 1, 0), (13824, 8, 1)]
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,P,o0", PWB_CASES, ids=[f"n{n}-P{P}-o{o}" for n, P, o in PWB_CASES])
+def test_pairwise_dot_block_kernel_matches_plain_and_frames(n, P, o0, dtype, K):
+    """E3's block form: bit for bit its plain version and the frame kernel
+    on each column (n under one CTA's elements and past 256 partials a
+    part, 1, 3 and 8 parts), one launch; then the same bytes replayed in a
+    CUDA graph beside a frame dot (the ticket left at 0)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    rng = np.random.default_rng(n + P + K)
+    a = _gpu(rng, (P, o0 + n + 3, K), dtype)
+    b = _gpu(rng, (P, o0 + n + 9, K), dtype)
+    dia.reset_launches()
+    got = irr.pairwise_dot_block(a, b, o0, n)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["pairwise_dot_block"] == 1
+    assert _bits(got) == _bits(irr.pairwise_dot_block_plain(a, b, o0, n))
+    frames = [irr.pairwise_dot(a[..., k].contiguous(), b[..., k].contiguous(), o0, n) for k in range(K)]
+    assert _bits(got) == _bits(torch.stack(frames))
+    a0, b0 = a[..., 0].contiguous(), b[..., 0].contiguous()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        r1 = irr.pairwise_dot_block(a, b, o0, n)
+        r2 = irr.pairwise_dot(a0, b0, o0, n)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert _bits(r1) == _bits(got) and _bits(r2) == _bits(frames[0])
+
+
+def test_pairwise_dot_block_signed_zero():
+    """A column of -0.0 products keeps the sign where the frame form does."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    for n in (1, 2, 3, 5):
+        a = -torch.zeros((1, n, 3), dtype=torch.float64, device="cuda")
+        a[..., 1] = 1.0
+        b = torch.ones((1, n, 3), dtype=torch.float64, device="cuda")
+        got = irr.pairwise_dot_block(a, b, 0, n)
+        for k in range(3):
+            assert _bits(got[k]) == _bits(irr.pairwise_dot(a[..., k].contiguous(), b[..., k].contiguous(), 0, n))
+
+
+@pytest.mark.parametrize("lowering", ["auto", "bsr", "ell"])
+def test_block_elasticity_pcg_on_card(lowering):
+    """Block Jacobi PCG on the tet-elasticity system, 4 stacked parts, K = 3
+    (the model's b and two A x̂_k), in each lowering: each column the
+    iterations of its solo solve on the card and its solution bit for bit
+    (BSR, ELL); on SD, where cuBLAS orders a K-column product its own way,
+    within one iteration and 1e-8 of the largest |x| (chip_smoke.py's
+    SD_ITERATIONS_APART, SD_X_REL_TOL); the slab kernels launched by the
+    formula (SpMM and boundary 1 + 1 a device iteration)."""
+    _need_card()
+
+    def drive(parts):
+        A, b, xh, x0 = pt.assemble_elasticity_tet(parts, (6, 6, 6))
+        B = [b, A @ (xh * 0.5), A @ (xh * 0.25)]
+        dia.reset_launches()
+        xs, info = pt.pcg(A, B=B, X0=[x0] * 3, tol=1e-12, maxiter=500, lowering=lowering)
+        launches = dict(dia.LAUNCHES)
+        solo = [pt.pcg(A, bk, x0=x0, tol=1e-12, maxiter=500, lowering=lowering) for bk in B]
+        return info, launches, [pt.gather_pvector(x) for x in xs], [(pt.gather_pvector(x), i) for x, i in solo]
+
+    info, launches, xs, solo = pt.prun(drive, pt.GPUBackend(), 4)
+    spmvs = 1 + info["device_loop"]["device_iterations"]
+    if lowering == "bsr":
+        assert launches["bsr_spmm"] == spmvs
+    if lowering == "ell":
+        assert launches["ell_spmm"] == spmvs and launches["ell_spmv_boundary"] == spmvs
+    else:
+        assert launches["bsr_spmv_boundary"] == spmvs
+    assert launches["cg_sweep_block"] == spmvs - 1
+    for k, (xk, ik) in enumerate(solo):
+        if lowering == "auto":
+            assert abs(info["iterations_per_column"][k] - ik["iterations"]) <= 1
+            np.testing.assert_allclose(xs[k], xk, rtol=0, atol=1e-8 * max(1.0, np.abs(xk).max()))
+        else:
+            assert info["iterations_per_column"][k] == ik["iterations"]
+            assert xs[k].tobytes() == xk.tobytes()
+
+
+def test_strict_block_cg_on_card():
+    """Strict block CG on the card (ELL, E1's slab and boundary forms, E3's
+    block form), 6^3 Poisson on (2,2,2) parts, f64, K = 2: every column's
+    iterations, residual history and solution bit for bit the port's
+    sequential strict solo solve; E3 one block launch a dot."""
+    _need_card()
+
+    def drive(parts, block):
+        A, _, xe, x0 = pt.assemble_poisson(parts, (6, 6, 6))
+        B = [A.mul_into(pt.PVector.full(0.0, A.rows), xe * s, strict=True) for s in (1.0, 0.5)]
+        X0 = [x0, x0 * 0.5]
+        if block:
+            xs, info = pt.cg(A, B=B, X0=X0, tol=1e-8, maxiter=400, strict=True)
+            return [pt.gather_pvector(x) for x in xs], info
+        out = [pt.cg(A, bk, x0=x0k, tol=1e-8, maxiter=400, strict=True) for bk, x0k in zip(B, X0)]
+        return [pt.gather_pvector(x) for x, _ in out], [i for _, i in out]
+
+    xs, solo = pt.prun(drive, pt.sequential, (2, 2, 2), False)
+    dia.reset_launches()
+    xg, info = pt.prun(drive, pt.GPUBackend(), (2, 2, 2), True)
+    assert info["strict"] and info["lowering"] == "ell" and info["cg_body"] == "standard"
+    dev_it = info["device_loop"]["device_iterations"]
+    assert dia.LAUNCHES["ell_spmm"] == 1 + dev_it and dia.LAUNCHES["pairwise_dot_block"] == 1 + 2 * dev_it
+    for k in range(2):
+        assert info["iterations_per_column"][k] == solo[k]["iterations"]
+        assert np.asarray(info["columns"][k]["residuals"]).tobytes() == np.asarray(solo[k]["residuals"]).tobytes()
+        assert xg[k].tobytes() == xs[k].tobytes()

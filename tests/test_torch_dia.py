@@ -187,6 +187,7 @@ def test_plain_spmv_does_not_count_launches():
         "box_stencil_apply", "cg_sweep", "vcycle_epilogue", "dia_coded_spmv_pfold_minv", "cg_sweep_precond",
         "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm", "block_products",
         "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot",
+        "ell_spmm", "bsr_spmm", "pairwise_dot_block",
     }
     assert not any(dia.LAUNCHES.values())
 

@@ -15,7 +15,10 @@ against the JAX package's.
 * Jacobi PCG at (5,5,5) nodes on ``GPUBackend(device="cpu")`` in each
   lowering (supernode-dense, node blocks, ELL) against the JAX package's
   ``pa.pcg`` on its TPU backend (the CPU mesh): equal iterations,
-  solutions to 1e-10; the driver's error gate (1e-5, test_fem_sa.jl:137).
+  solutions to 1e-10; the driver's error gate (1e-5, test_fem_sa.jl:137);
+* the block (multi-RHS) Jacobi PCG in each lowering: each column its solo
+  solve (tests/test_torch_block_irregular.py holds it against the JAX
+  package).
 """
 import numpy as np
 import pytest
@@ -181,14 +184,27 @@ def test_driver_meets_the_gate(backend):
     assert info["converged"] and err < 1e-5
 
 
-def test_block_solve_on_irregular_lowering_is_not_ported():
-    """The block (multi-RHS) forms of the SD, BSR and ELL bodies are not
-    ported: the device block solve raises, naming the lowering."""
+@pytest.mark.parametrize("lowering", ["auto", "bsr", "ell"])
+def test_block_solve_on_irregular_lowering(lowering):
+    """The device block (multi-RHS) Jacobi PCG on the SD, BSR and ELL
+    lowerings (their slab products): the model's b and A x̂/2 from the
+    start x0, each column the iterations of its solo solve, its solution to
+    1e-12 of it (bit for bit on BSR and ELL) and under the model's error
+    gate."""
 
     def driver(parts):
         A, b, xh, x0 = pt.assemble_elasticity_tet(parts, (4, 4, 4))
-        with pytest.raises(NotImplementedError, match="block"):
-            pt.pcg(A, B=[b, b], X0=[x0, x0])
-        return True
+        B = [b, A @ (xh * 0.5)]
+        xs, info = pt.pcg(A, B=B, X0=[x0, x0], tol=1e-12, maxiter=500, lowering=lowering)
+        solo = [pt.pcg(A, bk, x0=x0, tol=1e-12, maxiter=500, lowering=lowering) for bk in B]
+        err = float((xs[0] - xh).norm())
+        return info, [pt.gather_pvector(x) for x in xs], [(pt.gather_pvector(x), i) for x, i in solo], err
 
-    assert pt.prun(driver, CPU, 2)
+    info, xs, solo, err = pt.prun(driver, CPU, 2)
+    assert info["lowering"] == {"auto": "sd"}.get(lowering, lowering) and info["converged"] and err < 1e-5
+    for k, (xk, ik) in enumerate(solo):
+        assert info["iterations_per_column"][k] == ik["iterations"]
+        if lowering == "auto":
+            np.testing.assert_allclose(xs[k], xk, rtol=0, atol=1e-12)
+        else:
+            assert xs[k].tobytes() == xk.tobytes()

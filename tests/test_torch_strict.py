@@ -27,10 +27,21 @@ The gate (BASELINE.md): strict CG on the 3-D Poisson driver, 6^3 on
   past 2^20 (the last CTA then takes runs of two partials), 1, 3 and 8
   parts, a misaligned band offset, products that cancel and signed zeros;
   a descending-offset butterfly in the warp differs (the test has teeth);
+* the block form of E3 (`pairwise_dot_block`), its schedule emulated in
+  numpy (a thread's run of 4 f32 / 2 f64 elements of each column, the
+  lanes, the warps, the last CTA's tree): every column `pairwise_sum`'s
+  bits;
+* strict block CG and Jacobi PCG (``cg/pcg(A, B=..., strict=True)``,
+  standard and fused bodies, ragged K = 2, 3, 5) on the decoupled
+  elasticity system carried from the JAX package: every column's
+  iterations, residual history bits and solution bits the JAX package's
+  sequential strict solo solve of that column;
 * the repair this slice needed first: the device loop's square roots
   (`gpu_loop.sqrt_rn`) bit for bit NumPy's;
 * default mode unchanged: the Poisson operator keeps the coded lowering.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +55,7 @@ from partitionedarrays_jl_tpu.parallel.tpu import device_matrix as jax_device_ma
 from partitionedarrays_jl_tpu.parallel.tpu import make_spmv_fn as jax_make_spmv_fn
 from partitionedarrays_jl_tpu.utils.helpers import pairwise_sum as jax_pairwise_sum
 import partitionedarrays_jl_tpu_torch as pt
+from partitionedarrays_jl_tpu_torch import interop
 from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix, csr_spmv
 from partitionedarrays_jl_tpu_torch.parallel import gpu_loop as gl
@@ -443,3 +455,151 @@ def test_pairwise_dot_descending_butterfly_differs():
         differs += np.asarray(_emulate_pairwise_dot(a, b, 0, 4096, descending=True),
                               dtype=np.float32).tobytes() != want
     assert differs > 0
+
+
+#: csrc/pairwise_dot.cu, the block form: elements a thread (each column),
+#: one 16-byte vector of the CTA's product tile
+PWB_RUN = {np.float32: 4, np.float64: 2}
+
+
+def _emulate_pairwise_dot_block(a, b, o0, n):
+    """The block form's order over (P, W, K) numpy slabs, per column: a
+    thread's RB consecutive products and their tree, the warp's lanes at
+    ascending offsets, the 8 warps' roots, then the last CTA's tree over
+    each part's partials (as the frame form's) and the fold of the parts.
+    Returns the K sums."""
+    dt = a.dtype.type
+    R = PWB_RUN[dt]
+    E = R * PW_THREADS
+    P, K = a.shape[0], a.shape[2]
+    m = 1 << (n - 1).bit_length() if n > 1 else 1
+    nblk = max(1, m // E)
+    out = []
+    for k in range(K):
+        t = np.zeros((P, nblk * E), dtype=dt)
+        t[:, :n] = a[:, o0 : o0 + n, k] * b[:, o0 : o0 + n, k]
+        v = t.reshape(P, nblk, PW_THREADS // 32, 32, R)
+        s = 2
+        while s <= R:
+            if s <= m:
+                v = v.copy()
+                v[..., ::s] = v[..., ::s] + v[..., s // 2 :: s]
+            s *= 2
+        w = _pairs(v[..., 0], R, m, 32)[..., 0]  # (P, nblk, warps)
+        w32 = np.zeros((P, nblk, 32), dtype=dt)
+        w32[..., : w.shape[-1]] = w
+        partials = _pairs(w32, R * 32, m, PW_THREADS // 32)[..., 0]
+        fold = None
+        for q in range(P):
+            if nblk <= 32:
+                lanes = np.zeros(32, dtype=dt)
+                lanes[:nblk] = partials[q]
+                root = _pairs(lanes, 1, nblk, 32)[0]
+            else:
+                root = _cta_tree(partials[q], nblk)
+            fold = root if fold is None else fold + root
+        out.append(np.asarray(fold, dtype=dt))
+    return out
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pairwise_dot_block_kernel_order_emulated(dtype, P):
+    """The block form's schedule (a thread's run of RB = 4 f32 / 2 f64
+    elements of each column, one CTA a column chunk) gives each column the
+    bits of `pairwise_sum` of its products, folded left to right: n from 0
+    past one CTA's elements and past 32 partials a part, signed zeros and
+    cancelling products in every column."""
+    E = PWB_RUN[dtype] * PW_THREADS
+    for n in (0, 1, 2, 3, E - 1, E, E + 1, 33 * E + 7):
+        rng = np.random.default_rng(n + P)
+        cols = [_pw_case(rng, P, n, 2, dtype) for _ in range(3)]
+        a = np.stack([c[0] for c in cols], axis=2)
+        b = np.stack([c[1] for c in cols], axis=2)
+        got = _emulate_pairwise_dot_block(a, b, 2, n)
+        for k in range(3):
+            assert got[k].tobytes() == _jax_fold(a[..., k], b[..., k], 2, n), (n, k)
+
+
+# ---------------------------------------------------------------------------
+# strict block (multi-RHS) CG and PCG against the JAX package's strict
+# solo solves
+# ---------------------------------------------------------------------------
+
+#: the right-hand sides of the strict block tests (tests/test_block_cg.py:
+#: 316's cos(2 + (j + 2) gid) on the owned rows), and the columns of the
+#: ragged blocks at K = 2, 3 and 5
+STRICT_RHS = 5
+STRICT_BLOCKS = {2: [1, 2], 3: [0, 1, 2], 5: [0, 1, 2, 3, 4]}
+
+
+def _strict_rhs(isets, j):
+    return [np.cos(2.0 + (j + 2.0) * np.asarray(i.lid_to_gid, dtype=np.float64)) for i in isets]
+
+
+@pytest.fixture(scope="module")
+def strict_block_reference():
+    """The JAX package's sequential strict CG and Jacobi PCG
+    (PA_TPU_STRICT_BITS=1) of each right-hand side alone, tol 1e-10, on the
+    decoupled (symmetric) elasticity system on (4,4,4) nodes over 4 parts;
+    the system and the right-hand sides as arrays for the port."""
+    from partitionedarrays_jl_tpu.models import decouple_dirichlet as jax_decouple
+    from partitionedarrays_jl_tpu.models import elasticity_tet as jax_el
+    from test_torch_lowering import export
+
+    old = os.environ.get("PA_TPU_STRICT_BITS")
+    os.environ["PA_TPU_STRICT_BITS"] = "1"
+    try:
+        def driver(parts):
+            A, b, xh, x0 = jax_el.assemble_elasticity_tet(parts, (4, 4, 4))
+            A = jax_decouple(A)
+            B = [_strict_rhs(A.rows.partition.part_values(), j) for j in range(STRICT_RHS)]
+            solos = {}
+            for name, solve in (("cg", pa.cg), ("pcg", pa.pcg)):
+                solos[name] = []
+                for v in B:
+                    x, info = solve(A, pa.PVector(A.rows.partition._like(v), A.rows), tol=1e-10, maxiter=200)
+                    solos[name].append((info["iterations"], _bits(info["residuals"]), _bits(pa.gather_pvector(x))))
+            return export(A, xh), B, solos
+
+        return pa.prun(driver, pa.sequential, 4)
+    finally:
+        if old is None:
+            del os.environ["PA_TPU_STRICT_BITS"]
+        else:
+            os.environ["PA_TPU_STRICT_BITS"] = old
+
+
+@pytest.mark.parametrize("precond", [False, True], ids=["cg", "pcg"])
+@pytest.mark.parametrize("body", ["standard", "fused"])
+@pytest.mark.parametrize("K", sorted(STRICT_BLOCKS))
+def test_strict_block_bitwise_matches_jax_solo(strict_block_reference, K, body, precond):
+    """Strict block CG and Jacobi PCG on ``GPUBackend(device="cpu")`` (the
+    ELL lowering, E1's slab form and E3's block form, plain versions) on
+    a ragged block of K = 2, 3 and 5 columns, in the standard body (strict
+    mode's default) and the fused one: every column's iterations, residual
+    history bits and solution bits those of the JAX package's sequential
+    strict solo solve of that column (tests/test_block_cg.py:273, :316),
+    nothing logged past a column's freeze."""
+    from test_torch_lowering import carry
+
+    system, B, solos = strict_block_reference
+    cols = STRICT_BLOCKS[K]
+
+    def driver(parts):
+        A, _ = carry(parts, system)
+        Bs = [interop.pvector_from_values(A.rows, B[j]) for j in cols]
+        kw = {} if body == "standard" else {"fused": True}
+        xs, info = (pt.pcg if precond else pt.cg)(A, B=Bs, tol=1e-10, maxiter=200, strict=True, **kw)
+        return info, [pt.gather_pvector(x) for x in xs]
+
+    info, xs = pt.prun(driver, CPU, 4)
+    assert info["strict"] and info["lowering"] == "ell" and info["cg_body"] == body and info["rhs_batch"] == K
+    its = info["iterations_per_column"]
+    assert len(set(its)) > 1, f"block is not ragged: {its}"
+    for k, j in enumerate(cols):
+        it, hist, x = solos["pcg" if precond else "cg"][j]
+        assert its[k] == it
+        assert _bits(info["columns"][k]["residuals"]) == hist
+        assert len(info["columns"][k]["residuals"]) == it + 1
+        assert _bits(xs[k]) == x

@@ -2,7 +2,7 @@
 """Time the port's DIA kernels of one or more checkouts on one card.
 
     python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--block K] [--cg N] [--gmg N]
-                                        [--gmg-multi N] [--irregular N]
+                                        [--gmg-multi N] [--irregular N [--slab-k1 K]]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -38,7 +38,12 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
   cell's) beside torch.dot, each checked against its plain version
   (torch.equal; E3 by its bytes); the operators are assembled once and
   kept in ``build/irregular_cache/``, so every checkout times the same
-  ones;
+  ones; with ``--slab-k1`` also each slab form at K = 1 beside its frame
+  form on the same operand (`ell_spmm`, `bsr_spmm`, `bsr_spmv_boundary`
+  on a (P, W, 1) slab, `pairwise_dot_block`, each held torch.equal to the
+  frame call; keys ending ``_k1``) and both boundary modes on (P, W,
+  ``--slab-k1``) slabs (keys ending ``_slab``), in a checkout that has the
+  slab forms;
 * with ``--block K`` (this checkout only: its package is imported): K2
   with minv and the sweep's precond form on the n^3 frames, the coded SpMM
   (plain and pfold forms) on the row-class Poisson operator and the
@@ -359,7 +364,7 @@ def _cached_system(smoke, kind, n, nparts):
     return prun(carry, sequential, grid)
 
 
-def irregular_worker(root: Path, n: int) -> list:
+def irregular_worker(root: Path, n: int, slab_k: int = 0) -> list:
     """E1-E3 of checkout `root` on the irregular operators, in a process of
     its own (flushed and back-to-back ms, each held against its plain
     version): E1 on the elasticity operator at n^3 in f32 (forced ELL) and
@@ -369,7 +374,9 @@ def irregular_worker(root: Path, n: int) -> list:
     ELL; SD, whose node-block boundary has 8 width buckets), one SpMV's
     boundary (a checkout from before the one-launch boundary: a launch a
     bucket); E3 on the 192^3 f32 band and on 8 parts of 24^3 f64 with
-    torch.dot; the empty kernel."""
+    torch.dot; the empty kernel. With ``slab_k`` (and slab forms in the
+    checkout), each slab form at K = 1 beside its frame form, and the
+    boundary modes on slabs of ``slab_k`` columns."""
     sys.path.insert(0, str(root))
     from partitionedarrays_jl_tpu_torch import GPUBackend
     from partitionedarrays_jl_tpu_torch.ops import dia
@@ -396,14 +403,26 @@ def irregular_worker(root: Path, n: int) -> list:
         x[:, layout.trash] = 0
         return x
 
+    slabs = slab_k > 0 and hasattr(irr, "ell_spmm")
+
+    def k1(name, shape, slab_fn, frame_fn):
+        # a slab form at K = 1 against its frame form on the same operand
+        if slabs:
+            rec(f"{name}_k1", shape, slab_fn, lambda: frame_fn()[..., None])
+
+    def col(t):
+        return t[..., None].contiguous()
+
     A, _ = _cached_system(smoke, "elasticity", n, 1)
     A32 = smoke._f32_operator(A)
     dA = device_matrix(A32, backend, lowering="ell")
     x = frame(dA.col_layout, torch.float32)
     args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
-    rec("ell_spmv", f"{n}^3 f32 elasticity, {dA.oo_vals.numel() // dA.row_layout.no_max} slots",
-        lambda: irr.ell_spmv(*args), lambda: irr.ell_spmv_plain(*args))
-    del dA, x, args
+    shape = f"{n}^3 f32 elasticity, {dA.oo_vals.numel() // dA.row_layout.no_max} slots"
+    rec("ell_spmv", shape, lambda: irr.ell_spmv(*args), lambda: irr.ell_spmv_plain(*args))
+    x1 = col(x)
+    k1("ell_spmm", shape, lambda: irr.ell_spmm(dA.oo_vals, dA.oo_cols, x1, *args[3:]), lambda: irr.ell_spmv(*args))
+    del dA, x, x1, args
     for A_, dtype in ((A, torch.float64), (A32, torch.float32)):
         dA = device_matrix(A_, backend, lowering="bsr")
         x = frame(dA.col_layout, dtype)
@@ -412,17 +431,24 @@ def irregular_worker(root: Path, n: int) -> list:
         M = A_.values.part_values()[0]
         csr = smoke._csr_on(M, "cuda")
         xcol = x[0, dA.col_layout.o0 : dA.col_layout.o0 + M.shape[1]].reshape(-1, 1).contiguous()
-        rec("bsr_spmv", f"{n}^3 {str(dtype)[6:]} elasticity, bs {dA.bsr_bs}", lambda: aoo(x, W),
+        shape = f"{n}^3 {str(dtype)[6:]} elasticity, bs {dA.bsr_bs}"
+        rec("bsr_spmv", shape, lambda: aoo(x, W),
             lambda: aoo_plain(x, W), library_ms=smoke.time_ms(lambda: torch.sparse.mm(csr, xcol), flush))
-        del dA, x, aoo, aoo_plain, csr, xcol
+        x1, o0 = col(x), dA.row_layout.o0
+        k1("bsr_spmm", shape, lambda: irr.bsr_spmm(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x1, o0, o0, W),
+           lambda: aoo(x, W))
+        del dA, x, x1, aoo, aoo_plain, csr, xcol
     del A, A32
     torch.cuda.empty_cache()
     P, _ = _cached_system(smoke, "poisson", IRREGULAR_STRICT, 1)
     dA = device_matrix(P, backend, strict=True)
     x = frame(dA.col_layout, torch.float32)
     args = (dA.oo_vals, dA.oo_cols, x, dA.row_layout.o0, dA.row_layout.W)
-    rec("ell_spmv", f"{IRREGULAR_STRICT}^3 f32 strict Poisson, 7 slots", lambda: irr.ell_spmv(*args),
-        lambda: irr.ell_spmv_plain(*args))
+    shape = f"{IRREGULAR_STRICT}^3 f32 strict Poisson, 7 slots"
+    rec("ell_spmv", shape, lambda: irr.ell_spmv(*args), lambda: irr.ell_spmv_plain(*args))
+    x1 = col(x)
+    k1("ell_spmm", shape, lambda: irr.ell_spmm(dA.oo_vals, dA.oo_cols, x1, *args[3:]), lambda: irr.ell_spmv(*args))
+    del x1
     # E3 on the strict band of that operator, and on the 8 parts of the
     # strict 48^3 (2,2,2) cell (24^3 rows each, f64)
     for parts, rows, dtype in ((1, IRREGULAR_STRICT**3, torch.float32), (8, 24**3, torch.float64)):
@@ -435,7 +461,10 @@ def irregular_worker(root: Path, n: int) -> list:
         rec("pairwise_dot", f"{parts} x {rows} {str(dtype)[6:]}", lambda: irr.pairwise_dot(a, c, o0, rows),
             lambda: irr.pairwise_dot_plain(a, c, o0, rows), launches=dia.LAUNCHES["pairwise_dot"],
             library_ms=smoke.time_ms(lambda: torch.dot(av, cv), flush))
-    del dA, x, args, P, a, c, av, cv
+        a1, c1 = col(a), col(c)
+        k1("pairwise_dot_block", f"{parts} x {rows} {str(dtype)[6:]}",
+           lambda: irr.pairwise_dot_block(a1, c1, o0, rows), lambda: irr.pairwise_dot(a, c, o0, rows))
+    del dA, x, args, P, a, c, av, cv, a1, c1
     torch.cuda.empty_cache()
     A, _ = _cached_system(smoke, "elasticity", IRREGULAR_MULTI, 4)
     for low in ("ell", "auto"):
@@ -458,9 +487,20 @@ def irregular_worker(root: Path, n: int) -> list:
         kern(k_, y0.clone())
         launches = dia.LAUNCHES[name]
         y = y0.clone()  # timed in place: the sums grow, the work does not
-        rec(name, f"{IRREGULAR_MULTI}^3 f64, 4 parts, {low}", lambda: kern(k_, y0.clone()),
+        shape = f"{IRREGULAR_MULTI}^3 f64, 4 parts, {low}"
+        rec(name, shape, lambda: kern(k_, y0.clone()),
             lambda: kern(p_, y0.clone()), timed_fn=lambda: kern(k_, y), launches=launches,
             buckets=len(dA.ohb_rows or ()))
+        if slabs:
+            # K copies of the frame: each column must be the frame call's
+            want, frame_x = kern(k_, y0.clone()), x
+            for K, key in ((1, f"{name}_k1"), (slab_k, f"{name}_slab")):
+                x = frame_x[..., None].expand(-1, -1, K).contiguous()  # kern reads x
+                yk = y0[..., None].expand(-1, -1, K).contiguous()
+                yt, want_k = yk.clone(), want[..., None].expand(-1, -1, K)
+                rec(key, f"{shape}, K = {K}", lambda: kern(k_, yk.clone()), lambda: want_k,
+                    timed_fn=lambda: kern(k_, yt))
+            x = frame_x
     null = smoke.null_launch_us(flush)
     out.append({"kernel": "null_launch", "us": null})
     return out
@@ -579,6 +619,8 @@ def main() -> int:
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--irregular", type=int, default=0, metavar="N",
                     help="time E1-E3 (A_oo at N^3 elasticity, the boundary modes, E1 and E3 strict at 192^3)")
+    ap.add_argument("--slab-k1", type=int, default=0, metavar="K",
+                    help="with --irregular, also each slab form at K = 1 and the boundary modes at K columns")
     ap.add_argument("--irregular-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--solve-worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0)
@@ -587,7 +629,7 @@ def main() -> int:
         print("time_coded_kernels: no CUDA device", file=sys.stderr)
         return 1
     if args.irregular_worker:
-        for line in irregular_worker(args.irregular_worker, args.irregular):
+        for line in irregular_worker(args.irregular_worker, args.irregular, args.slab_k1):
             print(json.dumps(line), flush=True)
         return 0
     if args.solve_worker:
@@ -617,7 +659,7 @@ def main() -> int:
         # a process per checkout and run: each imports its own package
         for k, root in enumerate(srcs):
             proc = subprocess.run([sys.executable, __file__, "--irregular-worker", str(root), "--irregular",
-                                   str(args.irregular)], capture_output=True, text=True)
+                                   str(args.irregular), "--slab-k1", str(args.slab_k1)], capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], file=sys.stderr)
                 print(proc.stderr[-4000:], file=sys.stderr)
