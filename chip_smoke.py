@@ -2411,33 +2411,81 @@ def phase_block_elastic(backend, el, rng):
     require(err0 < 1e-5 and max(rel) < 1e-5, f"{name}: column 0 error {err0}, relative errors {rel}")
     for k in want:
         require(got[k] == want[k], f"{name}: {got[k]} {k} launches, expected {want[k]}")
-    # E2's slab form at the path's shape
+    # E2's slab form at the path's shape (its bsr_spmm_times line is emitted
+    # with the 4-part path's, `emit_bsr_spmm_times`)
     errs = {}
-    cl, rl = dA.col_layout, dA.row_layout
-    x = _frame(rng, (cl.P, cl.W, K), np.float64, backend.device)
+    frame_ms = K * el["bsr_f64"]["ms"] if "bsr_f64" in el else None
+    t = _bsr_spmm_times(A, dA, K, rng, errs, f"elasticity {N_ELASTIC}^3 f64 K={K}",
+                        f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, K = {K}", frame_ms_times_K=frame_ms)
+    return {"line": line, "errs": errs, "launches": got, "times": {"bsr_spmm": t}}
+
+
+def _bsr_spmm_times(A, dA, K, rng, errs, tag, shape, **extra):
+    """E2's slab form at a block path's shape, x (P, W_cols, K) f64:
+    torch.equal to its plain version and to K frame launches, one launch;
+    timed beside torch.sparse.mm of the stacked parts' block-diagonal A_oo
+    CSR on a (columns, K) slab. Bound: the real blocks, their int32 node
+    columns, the counts, the owned node rows of the x slab and the whole y
+    slab once; beside it the same in the
+    whole 32-byte sectors the staging's node order makes the card read
+    (`bsr_sector_bytes`)."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    cl, rl, dev = dA.col_layout, dA.row_layout, dA.backend.device
+    x = _frame(rng, (cl.P, cl.W, K), np.float64, dev)
     x[:, cl.trash] = 0
     kargs = (dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
     pargs = (*bsr_plain_operands(dA), x, cl.o0, rl.o0, rl.W)
+    dia.reset_launches()
     y = irr.bsr_spmm(*kargs)
-    tag = f"elasticity {N_ELASTIC}^3 f64 K={K}"
+    sync()
+    require(dia.LAUNCHES["bsr_spmm"] == 1, f"{tag} bsr_spmm: not one launch")
     errs[f"bsr_spmm[{tag}]"] = _compare(f"{tag} bsr_spmm", y, irr.bsr_spmm_plain(*pargs))
     errs[f"bsr_spmm[{tag},frames]"] = _compare(f"{tag} bsr_spmm against {K} bsr_spmv", y, _frames_of(
         lambda xk: irr.bsr_spmv(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, xk, cl.o0, rl.o0, rl.W), x, K))
-    M = A.values.part_values()[0]
-    csr = _csr_on(M, backend.device)
-    xs_ = x[0, cl.o0 : cl.o0 + csr.shape[1]].contiguous()
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    oo = A.owned_owned_values.part_values()
+    csr = _csr_on(_block_diagonal(oo), dev)
+    xs_ = _frame(rng, (csr.shape[1], K), np.float64, dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     real = int(dA.bsr_counts.sum())
-    nbytes = real * (dA.bsr_bs**2 * 8 + 4) + dA.bsr_counts.numel() * 4 + x.numel() * 8 + rl.P * rl.W * K * 8
+    # x: the owned node rows the kernel addresses (node columns and pad
+    # terms), never the ghost layer or the trash slot; y: its whole width
+    x_bytes = cl.P * dA.bsr_counts.shape[1] * dA.bsr_bs * K * 8
+    nbytes = real * (dA.bsr_bs**2 * 8 + 4) + dA.bsr_counts.numel() * 4 + x_bytes + rl.P * rl.W * K * 8
+    sector_bytes = bsr_sector_bytes(dA, 8) + x_bytes + rl.P * rl.W * K * 8
     t = {"ms": time_ms(lambda: irr.bsr_spmm(*kargs), flush), "plain_ms": time_ms(lambda: irr.bsr_spmm_plain(*pargs), flush),
-         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs_), flush), "bytes": nbytes,
-         "frame_ms_times_K": K * el["bsr_f64"]["ms"] if "bsr_f64" in el else None,
-         "shape": f"{N_ELASTIC}^3 f64, bs {dA.bsr_bs}, K = {K}"}
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs_), flush), "bytes": nbytes, "parts": cl.P,
+         "sector_bytes": sector_bytes, "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3, **extra, "shape": shape}
     del csr
-    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * M.nnz * K, F64_FLOPS_PER_S)
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 2 * sum(m.nnz for m in oo) * K, F64_FLOPS_PER_S)
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
-    emit({"phase": "bsr_spmm_times", "reps": REPS, **t, "max_abs_err": errs})
-    return {"line": line, "errs": errs, "launches": got, "times": {"bsr_spmm": t}}
+    return t
+
+
+def bsr_sector_bytes(dA, item):
+    """The bytes E2's A_oo operands move in whole 32-byte sectors: at block
+    slot l a sector of a slot-major value stream holds 32 / item
+    neighbouring nodes (of a node column stream 8) and is read if any of
+    them has more than l real blocks, so a node of few blocks beside one
+    of many costs its pads' share of the sector; plus the counts. The
+    frames' bytes are the caller's."""
+    counts = dA.bsr_counts.long()
+    P, nn = counts.shape
+
+    def sectors(per):
+        c = torch.nn.functional.pad(counts, (0, (-nn) % per)).view(P, -1, per)
+        return int(c.amax(dim=2).sum())
+
+    return (sectors(32 // item) * dA.bsr_bs**2 + sectors(8)) * 32 + counts.numel() * 4
+
+
+def emit_bsr_spmm_times(bel, belm):
+    """Phase 4g's `bsr_spmm_times` line: E2's slab form on the 64^3 block
+    PCG's slabs (the kernels line's numbers) and, under ``four_parts``, on
+    the 4-part BSR block PCG's."""
+    errs = {k: v for k, v in {**bel["errs"], **belm["errs"]}.items() if k.startswith("bsr_spmm[")}
+    emit({"phase": "bsr_spmm_times", "reps": REPS, **bel["times"]["bsr_spmm"], "four_parts": belm["bsr_spmm"],
+          "max_abs_err": errs})
 
 
 def phase_block_elastic_multi(backend, elm, rng):
@@ -2470,7 +2518,7 @@ def phase_block_elastic_multi(backend, elm, rng):
     seq_its = prun(seq, sequential, 4)
     require(seq_its[0] == elm["sequential_iterations"], f"elasticity 4 parts: sequential column 0 {seq_its[0]}")
     mv = jacobi_preconditioner(A)
-    errs, times, launches_out, lines = {}, {}, {}, []
+    errs, slab_errs, times, launches_out, lines, bsr4 = {}, {}, {}, {}, [], None
     for low in ("auto", "bsr", "ell"):
         dA = device_matrix(A, backend, lowering=low)
         name = f"elasticity {N_ELASTIC_MULTI}^3 f64 (4 parts) {low} block Jacobi PCG"
@@ -2500,6 +2548,10 @@ def phase_block_elastic_multi(backend, elm, rng):
                 f"{name}: iterations {info['iterations_per_column']}, sequential {seq_its}")
         for k in want:
             require(got[k] == want[k], f"{name}: {got[k]} {k} launches, expected {want[k]}")
+        if dA.lowering == "bsr":
+            # E2's slab form at this path's shape, for the bsr_spmm_times line
+            bsr4 = _bsr_spmm_times(A, dA, K, rng, slab_errs, f"elasticity {N_ELASTIC_MULTI}^3 f64 4 parts BSR K={K}",
+                                   f"{N_ELASTIC_MULTI}^3 f64, 4 parts, bs {dA.bsr_bs}, K = {K}")
         if low == "auto":
             require(dA.lowering == "sd" and dA.ohb_bs is not None, "elasticity 4 parts: no node-block boundary on SD")
             # E2's boundary kernel on slabs: this run's launches of it
@@ -2507,7 +2559,7 @@ def phase_block_elastic_multi(backend, elm, rng):
             times.update(_boundary_slab_times(A, dA, rng, errs))
     emit({"phase": "boundary_slab_kernel_times", "n": N_ELASTIC_MULTI, "dtype": "float64", "parts": 4, "K": K,
           "reps": REPS, **times, "max_abs_err": errs})
-    return {"errs": errs, "times": times, "launches": launches_out, "lines": lines}
+    return {"errs": {**errs, **slab_errs}, "times": times, "launches": launches_out, "lines": lines, "bsr_spmm": bsr4}
 
 
 def _boundary_slab_times(A, dA, rng, errs):
@@ -3257,6 +3309,7 @@ def main() -> int:
     st = phase_strict(backend, run, rng)
     bel = phase_block_elastic(backend, el, rng)
     belm = phase_block_elastic_multi(backend, elm, rng)
+    emit_bsr_spmm_times(bel, belm)
     bst = phase_block_strict(backend, run, st, rng)
     # each kernel's launches from the path it runs on: E2 on the elasticity
     # path's BSR lowering (its stacked BSR run where 64^3 resolved to SD),

@@ -83,18 +83,38 @@
 // finds its bucket by a scan of the table's first rows (uniform across a
 // warp but at a bucket edge). A frame is K = 1, so one kernel serves both.
 // A frame runs its own instance, K = 1 a constant. (A thread keeping 8
-// columns in registers, as mode 2 does, ran a frame at 20.0 us against the
-// frame kernel's 12.9 on an H100, and this kernel with K read at run time
-// at 14.6 us, the columns along blockIdx.x or blockIdx.z alike.)
+// columns in registers, as mode 2's first form did, ran a frame at 20.0 us
+// against the frame kernel's 12.9 on an H100, and this kernel with K read
+// at run time at 14.6 us, the columns along blockIdx.x or blockIdx.z alike.)
 //
-// Design of mode 2: as mode 0, a thread keeping up to PA_BSR_KC columns
-// (blockIdx.z the chunk of columns) in registers, so that a block's values
-// and node column are read once for K <= PA_BSR_KC right-hand sides; x
-// and y slabs hold a node's K columns side by side, so a gathered block of
-// x is bs rows of K adjacent values. Mode 2's bound at
-// the elasticity operator's 64^3 f64, K = 8: the real blocks, their
-// columns and the counts once (~238 MB) and the x and y slabs (50 MB
-// each), ~338 MB, ~101 us at 3.35 TB/s.
+// Design of mode 2, for the H100 (its first form, a thread a node keeping
+// bs x 8 sums, 96 registers, and walking its blocks one at a time, ran at
+// 25% of its bound: its chain column -> x -> products held few loads in
+// flight, and 24 scalar x loads a block each touched 32 sectors a warp):
+// G lanes a node, lane g keeping CL adjacent columns, 32 bytes of them (16
+// for 4x4 blocks, whose registers would spill) where K and the alignment of
+// x and y allow 16-byte vectors, else the widest narrower vector, else
+// scalars, in the same kernel; the K / CL lanes of a node spread evenly
+// over the fewest chunks (blockIdx.z) of at most PA_BSR_SLAB_GMAX, so K =
+// 3, 5 and 11 idle 2 lanes of 32 a warp. A node's G lanes read its count,
+// its blocks' values and node columns at one address (one broadcast load:
+// DRAM sees each value once); each lane reads and writes its own columns,
+// a coalesced run of CL columns a node row of x and of y. One register
+// set: row j of block l + 1 (its x row and its bs values) loads as soon
+// as row j of block l has its products, so block l + 1's loads run under
+// block l's later products and the loop's turn; node columns load two
+// blocks ahead, so a gather never waits on its column. 114 registers at
+// f64 3x3 blocks, CL = 4: two CTAs of 256 an SM, no spill.
+// Bound at the elasticity operator's 64^3 f64, K = 8: the real blocks,
+// their columns and the counts once (~238 MB) and the x and y slabs (50 MB
+// each), ~339 MB, ~101 us at 3.35 TB/s. The staging's node order costs
+// more: the tet mesh interleaves nodes of 7 and of 19 blocks, so at block
+// slots 7-18 a 32-byte sector of a value stream carries real values of
+// about half its nodes, and the card reads ~472 MB (~141 us). Measured on
+// an H100 (PERF.md §6): 397 -> 209 us; on a copy of the operator with its
+// nodes sorted by count, 165. Slower on the card (sources not kept): 16-byte
+// lanes one block at a time (235 us), values through a shared-memory ring of
+// 3-4 blocks by cp.async (226-232), two register sets (209, spilling).
 //
 // Every mode launches on the caller's stream and allocates nothing, so a
 // CUDA graph captures it.
@@ -106,8 +126,9 @@
 #define PA_BSR_MAX_BUCKETS 8
 #define PA_BSR_OO_THREADS 256  // mode 0: threads (nodes) a CTA
 #define PA_BSR_LB 2            // mode 0: blocks whose loads issue before their products
-#define PA_BSR_KC 8            // mode 2: columns a thread keeps in registers
-#define PA_BSR_SLAB_THREADS 128  // mode 2: threads (nodes) a CTA
+#define PA_BSR_SLAB_THREADS 256  // mode 2: threads a CTA
+#define PA_BSR_SLAB_MIN_CTAS 2   // mode 2: CTAs an SM its registers must allow (at most 128 registers)
+#define PA_BSR_SLAB_GMAX 8       // mode 2: most lanes a node
 
 enum { PA_BSR_OO = 0, PA_BSR_BOUNDARY = 1, PA_BSR_OO_SLAB = 2 };
 
@@ -206,76 +227,142 @@ bsr_oo_kernel(const PaBsrParams prm, const T* __restrict__ vals, const int* __re
 // mode 2: the owned block on (P, W, K) slabs
 // ---------------------------------------------------------------------------
 
-// the columns [k0, k0 + kn) of a thread's chunk
-__device__ __forceinline__ int chunk_columns(int K, int k0) { return K - k0 < PA_BSR_KC ? K - k0 : PA_BSR_KC; }
-
-template <typename T, int BS>
-__global__ void __launch_bounds__(PA_BSR_SLAB_THREADS)
-bsr_oo_slab_kernel(const PaBsrParams prm, const T* __restrict__ vals, const int* __restrict__ cols,
-                   const int* __restrict__ counts, const T* __restrict__ x, T* __restrict__ y) {
-  constexpr int BB = BS * BS, KC = PA_BSR_KC;
-  const int p = blockIdx.y, K = prm.K, k0 = blockIdx.z * KC, kn = chunk_columns(K, k0);
-  const long long nn = prm.nn, Lb = prm.Lb;
-  const long long node = (long long)blockIdx.x * PA_BSR_SLAB_THREADS + threadIdx.x;
-  T* yp = y + (long long)p * prm.wy * K + k0;  // slot s, column k0 + q at yp[s * K + q]
-  if (node >= nn) {
-    // the zeros outside the band [yo0, yo0 + nn * bs)
-    const long long z = node - nn, band = nn * BS;
-    if (z < prm.wy - band) {
-      T* yz = yp + (z < prm.yo0 ? z : z + band) * K;
+// CL adjacent columns of x at p into o (ldx), and of v into y at p (stx):
+// 16-byte vectors, or one 8-byte float2 (CL = 2 in f32); the launch takes
+// CL > 1 only where every such address is aligned to its vector
+template <int CL>
+__device__ __forceinline__ void ldx(const double* p, double (&o)[CL]) {
+  if constexpr (CL == 1) {
+    o[0] = __ldg(p);
+  } else {
 #pragma unroll
-      for (int q = 0; q < KC; ++q)
-        if (q < kn) yz[q] = T(0);
+    for (int h = 0; h < CL; h += 2) {
+      const double2 t = __ldg(reinterpret_cast<const double2*>(p + h));
+      o[h] = t.x, o[h + 1] = t.y;
+    }
+  }
+}
+template <int CL>
+__device__ __forceinline__ void ldx(const float* p, float (&o)[CL]) {
+  if constexpr (CL == 1) {
+    o[0] = __ldg(p);
+  } else if constexpr (CL == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = t.x, o[1] = t.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < CL; h += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + h));
+      o[h] = t.x, o[h + 1] = t.y, o[h + 2] = t.z, o[h + 3] = t.w;
+    }
+  }
+}
+template <int CL>
+__device__ __forceinline__ void stx(double* p, const double (&v)[CL]) {
+  if constexpr (CL == 1) {
+    *p = v[0];
+  } else {
+#pragma unroll
+    for (int h = 0; h < CL; h += 2) *reinterpret_cast<double2*>(p + h) = make_double2(v[h], v[h + 1]);
+  }
+}
+template <int CL>
+__device__ __forceinline__ void stx(float* p, const float (&v)[CL]) {
+  if constexpr (CL == 1) {
+    *p = v[0];
+  } else if constexpr (CL == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < CL; h += 4) *reinterpret_cast<float4*>(p + h) = make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+  }
+}
+
+// G lanes a node (32 / G nodes a warp, the lanes past them idle), lane g
+// of chunk blockIdx.z keeping the CL columns from k = (blockIdx.z * G + g)
+// * CL, each column summed as mode 0 sums a frame
+template <typename T, int BS, int CL>
+__global__ void __launch_bounds__(PA_BSR_SLAB_THREADS, PA_BSR_SLAB_MIN_CTAS)
+bsr_oo_slab_kernel(const PaBsrParams prm, const int G, const T* __restrict__ vals, const int* __restrict__ cols,
+                   const int* __restrict__ counts, const T* __restrict__ x, T* __restrict__ y) {
+  constexpr int BB = BS * BS;
+  const int lane = threadIdx.x & 31, npw = 32 / G, w = lane / G;
+  const int K = prm.K, k0 = (blockIdx.z * G + (lane - w * G)) * CL;
+  if (w >= npw || k0 >= K) return;  // a lane past the warp's nodes or past the columns
+  const long long t = ((long long)blockIdx.x * (PA_BSR_SLAB_THREADS / 32) + (threadIdx.x >> 5)) * npw + w;
+  const int p = blockIdx.y;
+  const long long nn = prm.nn;
+  if (t >= nn) {
+    // the zeros outside the band [yo0, yo0 + nn * bs)
+    const long long z = t - nn, band = nn * BS;
+    if (z < prm.wy - band) {
+      T zero[CL];
+#pragma unroll
+      for (int q = 0; q < CL; ++q) zero[q] = T(0);
+      stx(y + ((long long)p * prm.wy + (z < prm.yo0 ? z : z + band)) * K + k0, zero);
     }
     return;
   }
-  const int c = __ldg(counts + (long long)p * nn + node);
-  const T* vp = vals + (long long)p * Lb * BB * nn + node;  // block l, entry (i, j) at ((l * BS + i) * BS + j) * nn
-  const int* cp = cols + (long long)p * Lb * nn + node;     // block l at l * nn
+  // the node's count, block values and columns: one address for its G lanes
+  const int c = __ldg(counts + (long long)p * nn + t);
+  const T* vp = vals + (long long)p * prm.Lb * BB * nn + t;  // block l, entry e = i * BS + j at (l * BB + e) * nn
+  const int* cp = cols + (long long)p * prm.Lb * nn + t;     // block l at l * nn
   const T* xp = x + ((long long)p * prm.wx + prm.xo0) * K + k0;
-  T acc[BS][KC];
+  T acc[BS][CL];
 #pragma unroll
   for (int i = 0; i < BS; ++i)
 #pragma unroll
-    for (int q = 0; q < KC; ++q) acc[i][q] = T(-0.0);  // the identity of a rounded add
-  for (int l = 0; l < c; ++l) {
-    const long long col = __ldcs(cp + (long long)l * nn);
-    T vv[BS][BS];
+    for (int q = 0; q < CL; ++q) acc[i][q] = T(-0.0);  // the identity of a rounded add
+  // one register set: block l's row j of values and x rows is replaced by
+  // block l + 1's as soon as its products are done, so block l + 1's loads
+  // run under block l's later products and the loop's turn; node columns
+  // two blocks ahead
+  T v[BB], xr[BS][CL];
+  int c1 = 0 < c ? __ldcs(cp) : 0;
+  if (0 < c) {
 #pragma unroll
-    for (int i = 0; i < BS; ++i)
+    for (int j = 0; j < BS; ++j) ldx(xp + (long long)c1 * (BS * K) + j * K, xr[j]);
 #pragma unroll
-      for (int j = 0; j < BS; ++j) vv[i][j] = __ldcs(vp + ((long long)l * BB + i * BS + j) * nn);
-    const T* xb = xp + col * BS * K;
-#pragma unroll
-    for (int j = 0; j < BS; ++j)
-#pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        if (q < kn) {
-          const T xv = __ldg(xb + j * K + q);
-#pragma unroll
-          for (int i = 0; i < BS; ++i) acc[i][q] = add_rn(acc[i][q], mul_rn(vv[i][j], xv));
-        }
-      }
+    for (int e = 0; e < BB; ++e) v[e] = __ldcs(vp + (long long)e * nn);
   }
-  if (c < Lb) {
+  c1 = 1 < c ? __ldcs(cp + nn) : 0;
+  int c2 = 2 < c ? __ldcs(cp + 2 * nn) : 0;
+  for (int l = 0; l < c; ++l) {
+    const bool more = l + 1 < c;
+    const T* vq = vp + (long long)(l + 1) * BB * nn;
+    const T* xq = xp + (long long)c1 * (BS * K);
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+#pragma unroll
+      for (int i = 0; i < BS; ++i)
+#pragma unroll
+        for (int q = 0; q < CL; ++q) acc[i][q] = add_rn(acc[i][q], mul_rn(v[i * BS + j], xr[j][q]));
+      if (more) {
+        ldx(xq + j * K, xr[j]);
+#pragma unroll
+        for (int i = 0; i < BS; ++i) v[i * BS + j] = __ldcs(vq + (long long)(i * BS + j) * nn);
+      }
+    }
+    c1 = c2;
+    c2 = l + 3 < c ? __ldcs(cp + (long long)(l + 3) * nn) : 0;
+  }
+  if (c < prm.Lb) {
     // the pads' terms, one round a column (see the note at the top)
 #pragma unroll
-    for (int j = 0; j < BS; ++j)
+    for (int j = 0; j < BS; ++j) {
+      T xz[CL];
+      ldx(xp + j * K, xz);
 #pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        if (q < kn) {
-          const T z = mul_rn(T(0), __ldg(xp + j * K + q));
+      for (int q = 0; q < CL; ++q) {
+        const T z = mul_rn(T(0), xz[q]);
 #pragma unroll
-          for (int i = 0; i < BS; ++i) acc[i][q] = add_rn(acc[i][q], z);
-        }
+        for (int i = 0; i < BS; ++i) acc[i][q] = add_rn(acc[i][q], z);
       }
+    }
   }
-  T* yo = yp + (prm.yo0 + node * BS) * K;
+  T* yo = y + ((long long)p * prm.wy + prm.yo0 + t * BS) * K + k0;
 #pragma unroll
-  for (int i = 0; i < BS; ++i)
-#pragma unroll
-    for (int q = 0; q < KC; ++q)
-      if (q < kn) yo[i * K + q] = acc[i][q];
+  for (int i = 0; i < BS; ++i) stx(yo + i * K, acc[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -345,19 +432,45 @@ static int launch_oo(const PaBsrParams* prm, const void* counts, const void* val
   return (int)cudaGetLastError();
 }
 
+template <typename T, int BS, int CL>
+static int launch_oo_slab_cl(const PaBsrParams* prm, int G, const void* counts, const void* vals, const void* cols,
+                             const void* x, void* y, cudaStream_t s) {
+  // 32 / G nodes a warp, then the slots outside the band; blockIdx.z the chunk of G * CL columns
+  const long long per_cta = (PA_BSR_SLAB_THREADS / 32) * (32 / G);
+  const long long work = prm->nn + (prm->wy - prm->nn * BS);
+  long long gx = (work + per_cta - 1) / per_cta;
+  if (gx < 1) gx = 1;
+  const int chunks = (prm->K / CL + G - 1) / G;
+  if (gx > 0x7fffffffLL || prm->P > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned int)gx, (unsigned int)prm->P, (unsigned int)chunks);
+  bsr_oo_slab_kernel<T, BS, CL><<<grid, PA_BSR_SLAB_THREADS, 0, s>>>(*prm, G, (const T*)vals, (const int*)cols,
+                                                                     (const int*)counts, (const T*)x, (T*)y);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int BS>
 static int launch_oo_slab(const PaBsrParams* prm, const void* counts, const void* vals, const void* cols,
                           const void* x, void* y, cudaStream_t s) {
-  // a thread a node, then the slots outside the band; blockIdx.z the chunk of columns
-  const long long work = prm->nn + (prm->wy - prm->nn * BS);
-  long long gx = (work + PA_BSR_SLAB_THREADS - 1) / PA_BSR_SLAB_THREADS;
-  if (gx < 1) gx = 1;
-  const int chunks = (prm->K + PA_BSR_KC - 1) / PA_BSR_KC;
-  if (prm->K < 1 || gx > 0x7fffffffLL || prm->P > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned int)gx, (unsigned int)prm->P, (unsigned int)chunks);
-  bsr_oo_slab_kernel<T, BS><<<grid, PA_BSR_SLAB_THREADS, 0, s>>>(*prm, (const T*)vals, (const int*)cols,
-                                                                 (const int*)counts, (const T*)x, (T*)y);
-  return (int)cudaGetLastError();
+  const int K = prm->K;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  // CL: 32 bytes of columns a lane (16 for 4x4 blocks, whose registers
+  // would spill), else the widest narrower vector, as K and the alignment
+  // of x and y allow; scalar lanes else
+  constexpr int clmax = (BS == 4 ? 16 : 32) / (int)sizeof(T), v16 = 16 / (int)sizeof(T);
+  const unsigned long long a = (unsigned long long)(uintptr_t)x | (unsigned long long)(uintptr_t)y;
+  int cl = 1;
+  for (int v = clmax; v > 1 && cl == 1; v /= 2)
+    if (K % v == 0 && a % ((v < v16 ? v : v16) * sizeof(T)) == 0) cl = v;
+  // G: the K / CL lanes a node in the fewest chunks of at most PA_BSR_SLAB_GMAX, spread evenly
+  const int lanes = K / cl, chunks = (lanes + PA_BSR_SLAB_GMAX - 1) / PA_BSR_SLAB_GMAX;
+  const int G = (lanes + chunks - 1) / chunks;
+  if (cl == 1) return launch_oo_slab_cl<T, BS, 1>(prm, G, counts, vals, cols, x, y, s);
+  if (cl == 2) return launch_oo_slab_cl<T, BS, 2>(prm, G, counts, vals, cols, x, y, s);
+  if constexpr (clmax >= 4)
+    if (cl == 4) return launch_oo_slab_cl<T, BS, 4>(prm, G, counts, vals, cols, x, y, s);
+  if constexpr (clmax >= 8)
+    if (cl == 8) return launch_oo_slab_cl<T, BS, 8>(prm, G, counts, vals, cols, x, y, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int BS>

@@ -1468,16 +1468,20 @@ def test_ell_spmm_kernel_matches_plain_and_frames(dtype, P, n, L, o0, K):
         assert _bits(y[..., k]) == _bits(irr.ell_spmv(vals, cols, x[..., k].contiguous(), o0, width))
 
 
-@pytest.mark.parametrize("K", [1, 3, 8, 11])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 11, 36])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("bs", [2, 3, 4])
 @pytest.mark.parametrize("nn,Lb,P,xo0,yo0", [(1, 1, 1, 0, 0), (333, 5, 2, 2, 1), (4099, 19, 1, 0, 0)],
                          ids=["nn1", "nn333", "nn4099"])
-def test_bsr_spmm_kernel_matches_plain_and_frames(nn, Lb, P, xo0, yo0, bs, dtype, K):
+def test_bsr_spmm_kernel_matches_plain_and_frames(nn, Lb, P, xo0, yo0, bs, dtype, K, shift):
     """E2 on slabs: bit for bit its plain version (on the row-major
     operands) and the frame kernel on each column, pads and their terms
     included (an infinity at the first node of x makes rows with pads NaN),
-    one launch."""
+    one launch; K = 4, 8 take the kernel's vector loads, K = 3, 5, 11 its
+    scalar lanes (11: two column chunks), K = 36 vector lanes in two chunks
+    (the second with an idle lane), and a slab that starts one element past
+    a 16-byte boundary (``shift``) scalar lanes at every K."""
     _need_card()
     from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 
@@ -1486,7 +1490,9 @@ def test_bsr_spmm_kernel_matches_plain_and_frames(nn, Lb, P, xo0, yo0, bs, dtype
     v, c, k = _padded_blocks(rng, P, nn, Lb, bs)
     vals, cols, counts = torch.from_numpy(v).to("cuda", dtype), torch.from_numpy(c).cuda(), torch.from_numpy(k).cuda()
     sv, sc = irr.bsr_slot_major(vals), irr.bsr_slot_major(cols)
-    x = _gpu(rng, (P, wx, K), dtype)
+    x = torch.empty(P * wx * K + shift, dtype=dtype, device="cuda")[shift:].view(P, wx, K)
+    x.copy_(_gpu(rng, (P, wx, K), dtype))
+    assert (x.data_ptr() % 16 == 0) == (shift == 0)
     x[:, ::5] = 0.0
     x[0, xo0, 0] = float("inf")
     dia.reset_launches()

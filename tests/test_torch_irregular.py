@@ -433,3 +433,193 @@ def test_bsr_oo_kernel_emulated_on_the_staged_operator():
     want = irr.bsr_spmv_plain(vals, cols, x, cl.o0, rl.o0, rl.W)
     emu = _emulate_bsr_oo(*_poisoned(vals, cols, dA.bsr_counts), dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
     assert emu.tobytes() == _bits(want)
+
+
+# ---------------------------------------------------------------------------
+# E2's owned-block mode on slabs (`bsr_spmm`): the lane schedule
+# ---------------------------------------------------------------------------
+
+#: csrc/bsr_spmv.cu mode 2: threads a CTA, most lanes a node
+BSR_SLAB_THREADS, BSR_SLAB_GMAX = 256, 8
+
+
+def _bsr_slab_lanes(K, itemsize, align, bs=3):
+    """csrc/bsr_spmv.cu:launch_oo_slab's plan for K columns whose x and y
+    addresses are multiples of ``align`` bytes: CL columns a lane (32 bytes
+    of them, 16 for 4x4 blocks, or the widest narrower vector, that
+    divides K and whose 16-byte (or narrower) loads the alignment allows;
+    else 1), G lanes a node (the K / CL lanes in the fewest chunks of at
+    most BSR_SLAB_GMAX, spread evenly) and the chunks (blockIdx.z)."""
+    cl, v16, v = 1, 16 // itemsize, (16 if bs == 4 else 32) // itemsize
+    while v > 1 and cl == 1:
+        if K % v == 0 and align % (min(v, v16) * itemsize) == 0:
+            cl = v
+        v //= 2
+    lanes = K // cl
+    chunks = -(-lanes // BSR_SLAB_GMAX)
+    G = -(-lanes // chunks)
+    return cl, G, -(-lanes // G)
+
+
+def _emulate_bsr_spmm(vals, cols, counts, x, xo0, yo0, width, align=16):
+    """csrc/bsr_spmv.cu, mode 2, in numpy over the flat slot-major arrays and
+    the flat (P, W, K) slabs, lane by lane as the kernel runs them: lane
+    ``lane`` of warp ``wp`` of CTA (b, p, z) serves item t = (b * warps +
+    wp) * (32 // G) + lane // G (the lanes past the warp's items idle) and
+    the CL columns from k0 = (z * G + lane % G) * CL (a lane past K idle);
+    an item below nn is a node: its count; block l's node column at ``(p *
+    Lb + l) * nn + t`` read two blocks before block l - 1's products; one
+    register set of x rows (CL adjacent columns of node row j) and entries
+    ``((p * Lb + l) * bs * bs + i * bs + j) * nn + t``, row j of block l + 1
+    read as soon as row j of block l has its products, for l below the
+    count only (the caller may poison every pad); the products in
+    ascending (l, j) into bs x CL sums from -0.0, one round of 0 * x[xo0 +
+    j, k] where the node has pads; an item past the nodes writes the zeros
+    outside the band. Every slot of y is written exactly once (checked)."""
+    P, Lb, bs, _, nn = vals.shape
+    K, wx = x.shape[2], x.shape[1]
+    BB = bs * bs
+    T = vals.numpy().dtype.type
+    fv, fc, fk = vals.numpy().ravel(), cols.numpy().ravel(), counts.numpy().ravel()
+    fx = x.numpy().ravel()
+    CL, G, chunks = _bsr_slab_lanes(K, vals.element_size(), align, bs)
+    npw, warps = 32 // G, BSR_SLAB_THREADS // 32
+    band = nn * bs
+    work = nn + width - band
+    gx = max(1, -(-work // (warps * npw)))
+    y = np.full(P * width * K, np.nan, dtype=fv.dtype)
+    writes = np.zeros(P * width * K, dtype=np.int64)
+
+    def store(at, vs):
+        for q in range(CL):
+            y[at + q] = vs[q]
+            writes[at + q] += 1
+
+    for z in range(chunks):
+        for p in range(P):
+            for b in range(gx):
+                for thread in range(BSR_SLAB_THREADS):
+                    lane, wp = thread % 32, thread // 32
+                    w = lane // G
+                    k0 = (z * G + lane - w * G) * CL
+                    if w >= npw or k0 >= K:
+                        continue
+                    t = (b * warps + wp) * npw + w
+                    if t >= nn:
+                        zz = t - nn
+                        if zz < width - band:
+                            store((p * width + (zz if zz < yo0 else zz + band)) * K + k0, [T(0)] * CL)
+                        continue
+                    c = int(fk[p * nn + t])
+                    xp = (p * wx + xo0) * K + k0
+
+                    def col(l):
+                        return int(fc[(p * Lb + l) * nn + t])
+
+                    def row(cn, l, j):
+                        # x row j of node cn (CL columns) and entries (i, j) of block l
+                        return ([fx[xp + cn * bs * K + j * K + q] for q in range(CL)],
+                                [fv[((p * Lb + l) * BB + i * bs + j) * nn + t] for i in range(bs)])
+
+                    acc = [[T(-0.0)] * CL for _ in range(bs)]
+                    c1 = col(0) if 0 < c else 0
+                    if 0 < c:
+                        xr, vr = map(list, zip(*[row(c1, 0, j) for j in range(bs)]))
+                    c1 = col(1) if 1 < c else 0
+                    c2 = col(2) if 2 < c else 0
+                    for l in range(c):
+                        for j in range(bs):
+                            for i in range(bs):
+                                for q in range(CL):
+                                    acc[i][q] = acc[i][q] + vr[j][i] * xr[j][q]
+                            if l + 1 < c:
+                                # row j of block l + 1 replaces block l's, its products done
+                                xr[j], vr[j] = row(c1, l + 1, j)
+                        c1, c2 = c2, (col(l + 3) if l + 3 < c else 0)
+                    if c < Lb:
+                        for j in range(bs):
+                            for q in range(CL):
+                                zt = T(0) * fx[xp + j * K + q]
+                                for i in range(bs):
+                                    acc[i][q] = acc[i][q] + zt
+                    for i in range(bs):
+                        store((p * width + yo0 + t * bs + i) * K + k0, acc[i])
+    assert (writes == 1).all(), "a slot of y written other than once"
+    return y.reshape(P, width, K)
+
+
+def _bsr_slab_case(rng, P, nn, Lb, bs, dtype, K):
+    """`_bsr_oo_case`'s operands with a (P, W, K) slab x of the same
+    properties in every column: x[xo0 + j] > 0 and +0.0 at node 3's node
+    columns, so that node 3 of part 0 sums to -0.0 in every column before
+    its pad terms and +0.0 after them; node 0 of part 0 (Lb real blocks, no
+    pads) gets negative values and +0.0 at its node columns too, so that it
+    sums to -0.0 only from the fold's -0.0 start."""
+    vals, cols, counts, _, xo0, yo0, width = _bsr_oo_case(rng, P, nn, Lb, bs, dtype)
+    vals[0, 0] = -vals[0, 0].abs() - 0.5
+    wx = xo0 + nn * bs + 4
+    x = rng.standard_normal((P, wx, K))
+    x[:, xo0 : xo0 + bs] = rng.random((P, bs, K)) + 0.5
+    for c in cols[0, 3, : counts[0, 3]].tolist() + cols[0, 0].tolist():
+        x[0, xo0 + c * bs : xo0 + (c + 1) * bs] = 0.0
+    return vals, cols, counts, torch.from_numpy(x).to(dtype), xo0, yo0, width
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 8, 11, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [2, 3, 4])
+def test_bsr_spmm_kernel_emulated(bs, dtype, K):
+    """The kernel's mode 2 emulated lane by lane on slot-major operands with
+    every pad poisoned gives `bsr_spmm_plain`'s bytes on 2 parts of 150
+    nodes (ragged last CTAs), with vector lanes (K = 36: in two chunks,
+    one lane idle) and with the scalar lanes of a slab one element off
+    alignment; node 3 of part 0 is -0.0 in every
+    column before its pad terms and +0.0 after them, node 0 (no pads) -0.0,
+    as the plain version's; the CPU wrapper is the plain version."""
+    vals, cols, counts, x, xo0, yo0, width = _bsr_slab_case(np.random.default_rng(bs * 16 + K), 2, 150, 6, bs,
+                                                            dtype, K)
+    want = irr.bsr_spmm_plain(vals, cols, x, xo0, yo0, width)
+    sv, sc = _poisoned(vals, cols, counts)
+    item = vals.element_size()
+    for align in (16, item):
+        assert _emulate_bsr_spmm(sv, sc, counts, x, xo0, yo0, width, align).tobytes() == _bits(want)
+    r3 = yo0 + 3 * bs
+    assert (want[0, r3 : r3 + bs] == 0).all() and not torch.signbit(want[0, r3 : r3 + bs]).any()
+    assert (want[0, yo0 : yo0 + bs] == 0).all() and torch.signbit(want[0, yo0 : yo0 + bs]).all()
+    ssv, ssc = irr.bsr_slot_major(vals), irr.bsr_slot_major(cols)
+    assert _bits(irr.bsr_spmm(ssv, ssc, counts, x, xo0, yo0, width)) == _bits(want)
+    for k in range(K):
+        assert _bits(want[..., k]) == _bits(irr.bsr_spmv_plain(vals, cols, x[..., k].contiguous(), xo0, yo0, width))
+
+
+@pytest.mark.parametrize("K", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_spmm_kernel_emulated_nan_at_node_zero(dtype, K):
+    """A NaN at x[xo0] in column 0 (node 0's first slot, where every pad
+    points) reaches column 0 of every row with pads and nothing else, in
+    the lane emulation and the plain version alike, compared as bytes."""
+    vals, cols, counts, x, xo0, yo0, width = _bsr_slab_case(np.random.default_rng(11), 2, 40, 5, 3, dtype, K)
+    x[:, xo0, 0] = float("nan")
+    want = irr.bsr_spmm_plain(vals, cols, x, xo0, yo0, width)
+    emu = _emulate_bsr_spmm(*_poisoned(vals, cols, counts), counts, x, xo0, yo0, width)
+    assert emu.tobytes() == _bits(want)
+    rows = want[:, yo0 : yo0 + 40 * 3].reshape(2, 40, 3, K)
+    has_pads = (counts < 5)[..., None].expand(2, 40, 3)
+    assert torch.isnan(rows[..., 0][has_pads]).all() and not torch.isnan(rows[..., 1:]).any()
+
+
+def test_bsr_spmm_kernel_emulated_on_the_staged_operator():
+    """The elasticity operator staged in node blocks (4 parts, (5, 4, 4)
+    nodes): the lane emulation gives `bsr_spmm_plain`'s bytes on a random
+    (P, W, 8) slab in float64 (vector lanes, 4 a node)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import GPUBackend, device_matrix
+    import partitionedarrays_jl_tpu_torch as pt
+
+    dA = pt.prun(lambda parts: device_matrix(pt.assemble_elasticity_tet(parts, (5, 4, 4))[0], parts.backend,
+                                             lowering="bsr"), GPUBackend(device="cpu"), 4)
+    vals, cols = irr.bsr_row_major(dA.bsr_vals), irr.bsr_row_major(dA.bsr_cols)
+    cl, rl = dA.col_layout, dA.row_layout
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((cl.P, cl.W, 8)))
+    want = irr.bsr_spmm_plain(vals, cols, x, cl.o0, rl.o0, rl.W)
+    emu = _emulate_bsr_spmm(*_poisoned(vals, cols, dA.bsr_counts), dA.bsr_counts, x, cl.o0, rl.o0, rl.W)
+    assert emu.tobytes() == _bits(want)

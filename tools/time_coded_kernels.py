@@ -31,7 +31,11 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
   float32 (forced ELL) and on the strict lowering of the 192^3 float32
   Poisson operator (7 slots), E2 `bsr_spmv` at N^3 in float64 and float32
   (through `parallel/gpu.py:_irregular_aoo`, so that every checkout runs
-  the call its own staging makes) beside torch.sparse.mm on the CSR, the
+  the call its own staging makes) beside torch.sparse.mm on the CSR and,
+  in a checkout with slab forms, E2 `bsr_spmm` on (P, W, K) slabs at K =
+  2, 8 and ``--slab-k1``'s K (K = 1 is its ``_k1`` row beside the frame
+  kernel) with its bytes, its bound and its bytes in whole 32-byte sectors
+  (at K = 8 also with the nodes sorted by their count of blocks), the
   boundary modes of both on 4 parts at 32^3 float64 (one SpMV's boundary:
   every node-block bucket), and E3 `pairwise_dot` on a 192^3 float32 band
   (one part) and on 8 parts of 24^3 float64 (the strict 48^3 (2,2,2)
@@ -316,6 +320,9 @@ def host_device_us(fns, reps):
 #: IRREGULAR_MULTI^3 (f64, the boundary modes) and the strict lowering of the
 #: IRREGULAR_STRICT^3 f32 Poisson operator
 IRREGULAR_MULTI = 32
+#: the columns of E2's slab-form rows (besides 2 and ``--slab-k1``'s K):
+#: the block elasticity solve's
+BSR_SPMM_K = 8
 IRREGULAR_STRICT = 192
 
 
@@ -370,7 +377,8 @@ def irregular_worker(root: Path, n: int, slab_k: int = 0) -> list:
     version): E1 on the elasticity operator at n^3 in f32 (forced ELL) and
     on the strict lowering of the 192^3 f32 Poisson operator; E2's A_oo at
     n^3 in f64 and f32 (BSR, through `_irregular_aoo`) with torch.sparse.mm
-    on the CSR; E1's and E2's boundary modes on 4 parts at 32^3 f64 (forced
+    on the CSR, and its slab form at K = 2, 8 and ``slab_k`` (at 8 also on
+    a count-sorted copy); E1's and E2's boundary modes on 4 parts at 32^3 f64 (forced
     ELL; SD, whose node-block boundary has 8 width buckets), one SpMV's
     boundary (a checkout from before the one-launch boundary: a launch a
     bucket); E3 on the 192^3 f32 band and on 8 parts of 24^3 f64 with
@@ -413,6 +421,41 @@ def irregular_worker(root: Path, n: int, slab_k: int = 0) -> list:
     def col(t):
         return t[..., None].contiguous()
 
+    def slab_rows(irr, dA, dtype, shape, ks):
+        # E2's slab form at each K of ks, torch.equal to its plain version,
+        # with its bytes (real blocks, their columns, the counts, the owned
+        # node rows of the x slab, the whole y slab) and its bound, and the
+        # same in whole 32-byte sectors; at BSR_SPMM_K also on a copy of the
+        # operand with the nodes sorted by their count of real blocks (no
+        # sector shared by nodes of few and of many blocks)
+        cl, rl = dA.col_layout, dA.row_layout
+        staged = (dA.bsr_vals, dA.bsr_cols, dA.bsr_counts)
+        P, _, _, _, nn = dA.bsr_vals.shape
+        real, item = int(dA.bsr_counts.sum()), dA.bsr_vals.element_size()
+        for K in ks:
+            xk = torch.from_numpy(rng.standard_normal((cl.P, cl.W, K))).to("cuda", dtype)
+            xk[:, cl.trash] = 0
+            args = (xk, cl.o0, rl.o0, rl.W)
+            slabs_bytes = (P * nn * dA.bsr_bs + rl.P * rl.W) * K * item
+            nbytes = real * (dA.bsr_bs**2 * item + 4) + dA.bsr_counts.numel() * 4 + slabs_bytes
+            bound_ms, bound_by = smoke._bound_ms(nbytes, 2 * real * dA.bsr_bs**2 * K,
+                                                 smoke.F64_FLOPS_PER_S if item == 8 else smoke.F32_FLOPS_PER_S)
+            ops = {"": staged}
+            if K == BSR_SPMM_K:
+                perm = torch.argsort(dA.bsr_counts, dim=1, stable=True)
+                ops["sorted"] = (torch.gather(dA.bsr_vals, 4, perm[:, None, None, None, :].expand_as(dA.bsr_vals)),
+                                 torch.gather(dA.bsr_cols, 2, perm[:, None, :].expand_as(dA.bsr_cols)),
+                                 torch.gather(dA.bsr_counts, 1, perm))
+            for variant, (vals, cols, counts) in ops.items():
+                sector_bytes = smoke.bsr_sector_bytes(types.SimpleNamespace(bsr_counts=counts, bsr_bs=dA.bsr_bs), item)
+                sector_bytes += slabs_bytes
+                rec("bsr_spmm", f"{shape}, K = {K}" + (f", {variant}" if variant else ""),
+                    lambda: irr.bsr_spmm(vals, cols, counts, *args),
+                    lambda: irr.bsr_spmm_plain(irr.bsr_row_major(vals), irr.bsr_row_major(cols), *args), K=K,
+                    operand=variant or "staged", bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                    sector_bytes=sector_bytes, sector_bound_ms=sector_bytes / smoke.HBM_BYTES_PER_S * 1e3)
+            del xk, args, ops
+
     A, _ = _cached_system(smoke, "elasticity", n, 1)
     A32 = smoke._f32_operator(A)
     dA = device_matrix(A32, backend, lowering="ell")
@@ -437,6 +480,8 @@ def irregular_worker(root: Path, n: int, slab_k: int = 0) -> list:
         x1, o0 = col(x), dA.row_layout.o0
         k1("bsr_spmm", shape, lambda: irr.bsr_spmm(dA.bsr_vals, dA.bsr_cols, dA.bsr_counts, x1, o0, o0, W),
            lambda: aoo(x, W))
+        if hasattr(irr, "bsr_spmm"):
+            slab_rows(irr, dA, dtype, shape, sorted({2, BSR_SPMM_K, slab_k} - {0, 1}))
         del dA, x, x1, aoo, aoo_plain, csr, xcol
     del A, A32
     torch.cuda.empty_cache()
