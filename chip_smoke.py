@@ -10,7 +10,8 @@ multigrid-preconditioned CG at 192^3 float32, through `prun`,
 `assemble_poisson`, `cg`, `pcg` and the lowerings; the unstructured
 tet-elasticity Jacobi PCG at 64^3 nodes float64 (`assemble_elasticity_tet`,
 a non-band lowering), strict-bits CG and the block solves on the non-band
-lowerings and in strict mode — and holds every kernel against its plain
+lowerings and in strict mode; strict GMG-PCG, the 2-D Q1 FE model at
+2048^2 nodes and the transient heat march at 128^3 — and holds every kernel against its plain
 PyTorch version (twenty-two kernels: K1-K4, the stencil, the CG sweep and
 the V-cycle epilogue; K2 with minv, the sweep's precond and block forms,
 the two block SpMMs and the block dot's products of Jacobi PCG and the
@@ -194,6 +195,33 @@ Phases, one JSON line each:
    boundary's at 32^3 f64 on 4 parts, K = N_BLOCK_MULTI; beside
    torch.sparse.mm on the (rows, K) slab, or torch.linalg.vecdot over the
    slab for E3);
+4h. strict GMG-PCG, the Q1 FE model and the transient heat march:
+   strict GMG-PCG (`pcg(Ah, bh, minv=h, strict=True)`: every level's A
+   and S on the ELL lowering and the generic plan, E1 in both modes, E3's
+   dots) on 12^3 and 48^3 (2,2,2) f64, decoupled, coarse_threshold 30 and
+   500: the sequential strict solve's iterations, x and history within
+   1e-12 (tests/test_torch_strict.py's tolerance: rounding, not bits),
+   launches by formula (E1 1 + (1 + 4 L) and E3 1 + 3 per device
+   iteration), the kernel path equal to the plain versions' path (so
+   every E1 and E3 launch equals its plain version), E1 held on every
+   level's A and S, graph against eager; the 192^3 f32 GMG hierarchy
+   staged strict, E1 in both modes held on every level of it, its
+   fixed-trip seconds per iteration against the default GMG-PCG's; the
+   Q1 model (`fem_q1_driver` on (8,8) and (9,7), err < 1e-5; 512^2
+   against the plain path; 2048^2 f64 on (2,2) through `assemble_fem_q1`
+   and `cg`: assembly seconds with the COO migration apart, on the box
+   and the generic plan the staging seconds, plan, lowering and decode,
+   fixed-trip seconds per iteration and one solve to 1e-10; K1, K2, the
+   boundary kernel and the sweep torch.equal to plain on its 9-diagonal
+   operator's frames, K1 and K2 timed); the heat march
+   (`heat_transient_driver` at 12^3 against the sequential march and the
+   step-by-step march; 128^3 f64 on (2,2,2), 20 steps through the model's
+   own functions: one staging, one solve function, one capture, each
+   step's iterations and host-included seconds, launches by formula;
+   every kernel held on the march's staged hierarchy; the last step
+   through the plain versions and graph against eager; a later step's
+   split between host sections and device time); the card's peak
+   memory;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -249,6 +277,7 @@ It then prints the kernel table, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
 CUDA device it exits non-zero before printing a result.
 """
+import contextlib
 import json
 import re
 import statistics
@@ -310,6 +339,21 @@ ELASTIC_MAXITER = 3000  # elasticity_tet_driver's maxiter
 N_STRICT_ELASTIC = 16  # strict elasticity PCG on 4 parts, against the sequential backend on the host
 N_BLOCK_MULTI = 4  # right-hand sides of the 4-part block cell (each also solved on the host: ~8 s a column)
 STRICT_BLOCK_K = 3  # ragged columns of the strict (2,2,2) block CG
+#: strict GMG-PCG on (2,2,2) f64: (n, coarse_threshold) cases, the solve's
+#: tolerance, and the agreement with the sequential strict solve that
+#: tests/test_torch_strict.py states (rounding: not bits)
+STRICT_GMG_CASES = ((12, 30), (12, 500), (48, 30), (48, 500))
+TOL_STRICT_GMG = 1e-10
+GMG_STRICT_RTOL = 1e-12
+N_Q1 = 2048  # Q1 nodes a dimension (4,194,304 DOFs, f64, (2,2) parts)
+N_Q1_CHECK = 512  # the Q1 cell held against the plain path
+TOL_Q1 = 1e-10
+Q1_MAXITER = 20000
+N_HEAT = 128  # heat march cells a dimension (f64, (2,2,2) parts); 192^3 costs ~24 s more host planning
+HEAT_DT = 2.0
+HEAT_STEPS = 20
+TOL_HEAT = 1e-10
+HEAT_CT = 500  # the march's coarse_threshold
 
 #: the forms the kernels line lists; bsr_spmv_boundary_slab is E2's
 #: boundary kernel on the slabs of the 4-part SD block PCG (one kernel takes
@@ -2717,6 +2761,526 @@ def phase_block_strict(backend, run, st, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: strict GMG-PCG, the Q1 FE model, the transient heat march
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timing_calls(module, name, secs):
+    """Add the seconds of every call of ``module.name`` to ``secs[name]``
+    while the context is open: one section of a model function timed from
+    outside it."""
+    fn = getattr(module, name)
+
+    def timed_call(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(module, name, timed_call)
+    try:
+        yield secs
+    finally:
+        setattr(module, name, fn)
+
+
+def strict_gmg_launches(h, dh, dev_it):
+    """The launches of a strict GMG-PCG solve of ``dev_it`` device
+    iterations: every level's A and S on the ELL lowering (E1's A_oo form
+    once an SpMV: the initial residual, and per iteration the outer A0
+    product and per level 2 with A and 2 with S), E1's boundary form once
+    an SpMV of an operator with an A_oh block, E3 once a dot (r.r at the
+    start; r.z, p.q and r.r an iteration), the sweep, the epilogue; no
+    band kernel and no stencil kernel."""
+    levels = dh["levels"]
+    oh_a = [1 if lv["dA"].oh_nnz else 0 for lv in levels]
+    oh_s = [1 if lv["dS"].oh_nnz else 0 for lv in levels]
+    epilogues = (h.pre + h.post + 1 if h.pre > 0 else h.post + 1) * len(levels)
+    return {"ell_spmv": 1 + dev_it * (1 + 4 * len(levels)),
+            "ell_spmv_boundary": oh_a[0] + dev_it * (oh_a[0] + 2 * sum(oh_a) + 2 * sum(oh_s)),
+            "pairwise_dot": 1 + 3 * dev_it, "cg_sweep": dev_it, "vcycle_epilogue": dev_it * epilogues,
+            "dia_coded_spmv": 0, "dia_stream_spmv": 0, "box_stencil_apply": 0}
+
+
+def _hold_boundary(dM, x, tag, errs):
+    """The boundary kernel of an operator with an A_oh block (E2's on a
+    node-block staging, else E1's boundary mode) torch.equal to its plain
+    version on the frame x, whose ghost slots the caller refreshed."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    if not dM.oh_nnz:
+        return
+    yk = torch.zeros((x.shape[0], dM.row_layout.W), dtype=x.dtype, device=x.device)
+    yp, trash = yk.clone(), dM.row_layout.trash
+    if dM.ohb_bs is not None:
+        name, args = "bsr_spmv_boundary", (dM.ohb_rows, dM.ohb_vals, dM.ohb_cols, x, dM.col_layout.g0, dM.ohb_nhn)
+        irr.bsr_spmv_boundary(*args, yk, trash)
+        irr.bsr_spmv_boundary_plain(*args, yp, trash)
+    else:
+        name, args = "ell_spmv_boundary", (dM.oh_rows, dM.oh_vals, dM.oh_cols, x)
+        irr.ell_spmv_boundary(*args, yk, trash)
+        irr.ell_spmv_boundary_plain(*args, yp, trash)
+    errs[f"{name}[{tag}]"] = _compare(f"{tag} {name}", yk, yp)
+
+
+def _hold_level_products(dh, rng, tag, errs, ell=True):
+    """On every level's A and S (where the level has one) of a staged
+    hierarchy, on a random frame with its ghost slots refreshed by the
+    operator's exchange: the boundary kernel (`_hold_boundary`) and, with
+    ``ell`` (a strict hierarchy, every operator on ELL), E1's A_oo form,
+    each torch.equal to its plain version."""
+    from partitionedarrays_jl_tpu_torch.ops import irregular as irr
+
+    for li, lv in enumerate(dh["levels"]):
+        for name in ("dA", "dS"):
+            if name not in lv:
+                continue
+            dM = lv[name]
+            L = dM.col_layout
+            x = _frame(rng, (L.P, L.W), np.float64 if lv["dinv"].dtype == torch.float64 else np.float32,
+                       lv["dinv"].device)
+            exchange_(dM.col_plan, x)
+            if ell:
+                args = (dM.oo_vals, dM.oo_cols, x, L.o0, dM.row_layout.W)
+                errs[f"ell_spmv[{tag} L{li} {name}]"] = _compare(f"{tag} L{li} {name} ell_spmv", irr.ell_spmv(*args),
+                                                                 irr.ell_spmv_plain(*args))
+            _hold_boundary(dM, x, f"{tag} L{li} {name}", errs)
+
+
+def strict_gmg_system(parts, n, ct):
+    """The decoupled Poisson system with b = A x̂ taken in strict mode, as
+    the JAX package assembles it under PA_TPU_STRICT_BITS=1, and its
+    hierarchy (tests/test_torch_strict.py's strict GMG-PCG cases)."""
+    A, _, xe, _ = assemble_poisson(parts, (n, n, n))
+    b = A.mul_into(PVector.full(0.0, A.rows), xe, strict=True)
+    Ah, bh = decouple_dirichlet(A, b)
+    return Ah, bh, xe, gmg_hierarchy(parts, Ah, (n, n, n), coarse_threshold=ct)
+
+
+def phase_strict_gmg(backend, gmain, rng):
+    """Strict GMG-PCG (`pcg(Ah, bh, minv=h, strict=True)`: every level's
+    operator and S on the ELL lowering and the generic plan, E1 in both
+    modes, E3's dots, the standard body) on (2,2,2) stacked parts, f64, at
+    STRICT_GMG_CASES: the port's sequential strict solve's iterations, the
+    solution and history to GMG_STRICT_RTOL (tests/test_torch_strict.py's
+    tolerance), launches by formula per device iteration, the kernel path
+    bit for bit the plain versions' path (so every E1 and E3 launch of it
+    equals its plain version), E1 held on every level's A and S, graph
+    against eager. Then the 192^3 f32 GMG cell's hierarchy staged strict:
+    E1 in both modes held on every level's A and S of that staging, the
+    staging seconds and fixed-trip seconds per iteration against the
+    default GMG-PCG's, as `strict_cost` does for CG."""
+    errs, out = {}, {"errs": {}}
+    for n, ct in STRICT_GMG_CASES:
+        def seq(parts):
+            Ah, bh, xe, h = strict_gmg_system(parts, n, ct)
+            x, info = pcg(Ah, bh, minv=h, tol=TOL_STRICT_GMG, strict=True)
+            return gather_pvector(x), info["iterations"], np.asarray(info["residuals"])
+
+        def card(parts):
+            Ah, bh, xe, h = strict_gmg_system(parts, n, ct)
+            dia.reset_launches()
+            t = time.perf_counter()
+            x, info = pcg(Ah, bh, minv=h, tol=TOL_STRICT_GMG, strict=True)
+            sync()
+            solve_s = time.perf_counter() - t
+            launches = dict(dia.LAUNCHES)
+            xp, info_p = gpu_gmg.gpu_gmg_pcg(h, bh, tol=TOL_STRICT_GMG, plain=True, strict=True)
+            dh = gpu_gmg.device_hierarchy(h, backend, strict=True)
+            return {"x": gather_pvector(x), "info": info, "launches": launches, "xp": gather_pvector(xp),
+                    "info_p": info_p, "h": h, "dh": dh, "bh": bh, "Ah": Ah, "err": _rel_err(x, xe),
+                    "solve_s": solve_s}
+
+        xs, it_s, hist_s = prun(seq, sequential, (2, 2, 2))
+        r = prun(card, backend, (2, 2, 2))
+        info, dh = r["info"], r["dh"]
+        dev_it = device_iterations(info)
+        want = strict_gmg_launches(r["h"], dh, dev_it)
+        hist = np.asarray(info["residuals"])
+        x_rel = float(np.linalg.norm(r["x"] - xs) / np.linalg.norm(xs))
+        hist_rel = float(np.abs(hist - hist_s).max() / hist_s[0]) if len(hist) == len(hist_s) else None
+        tag = f"strict GMG {n}^3 ct={ct}"
+        _hold_level_products(dh, rng, tag, errs)
+        routes = [gpu_gmg.route(lv) for lv in dh["levels"]]
+        emit({"phase": "strict_gmg_pcg", "n": n, "coarse_threshold": ct, "dtype": "float64", "parts": [2, 2, 2],
+              "levels": len(dh["levels"]), "coarse_size": r["h"].coarse_A.rows.ngids, "routes": routes,
+              "lowerings": [(lv["dA"].lowering, lv["dS"].lowering) for lv in dh["levels"]],
+              "iterations": info["iterations"], "sequential_iterations": it_s,
+              "plain_iterations": r["info_p"]["iterations"], "x_rel_to_sequential": x_rel,
+              "history_rel_to_sequential": hist_rel, "tolerance": GMG_STRICT_RTOL, "rel_err": r["err"],
+              "solve_s": r["solve_s"], "kernel_path_equals_plain_path": bool(np.array_equal(r["x"], r["xp"])),
+              "kernels": r["launches"], "expected_launches": want, "device_loop": info["device_loop"]})
+        require(info["strict"] and info["lowering"] == "ell" and "stencil" not in routes,
+                f"{tag}: lowering {info['lowering']}, routes {routes}")
+        require(all(lv["dA"].lowering == lv["dS"].lowering == "ell" for lv in dh["levels"]), f"{tag}: a level off ELL")
+        require(info["converged"] and info["iterations"] == it_s == r["info_p"]["iterations"],
+                f"{tag}: iterations {info['iterations']}, sequential {it_s}, plain {r['info_p']['iterations']}")
+        require(x_rel <= GMG_STRICT_RTOL and hist_rel is not None and hist_rel <= GMG_STRICT_RTOL,
+                f"{tag}: x {x_rel}, history {hist_rel} from the sequential solve (tolerance {GMG_STRICT_RTOL})")
+        require(np.array_equal(r["x"], r["xp"]), f"{tag}: the kernel path differs from the plain versions' path")
+        for k in want:
+            require(r["launches"][k] == want[k], f"{tag}: {r['launches'][k]} {k} launches, expected {want[k]}")
+        if (n, ct) == STRICT_GMG_CASES[-1]:
+            b = _b_on_cols_layout(r["bh"], dh["levels"][0]["dA"])
+            graph_vs_eager(f"{tag} f64 (2,2,2)", lambda g: gpu_gmg.make_gmg_pcg_fn(
+                r["h"], backend, TOL_STRICT_GMG, 4 * r["Ah"].rows.ngids, graph=g, strict=True), b, torch.zeros_like(b))
+            out["launches"] = {k: r["launches"][k] for k in ("ell_spmv", "ell_spmv_boundary", "pairwise_dot")}
+    # the 192^3 f32 GMG cell's hierarchy staged strict, against its default staging
+    h, Ah, bh = gmain["h"], gmain["Ah"], gmain["bh"]
+    t = time.perf_counter()
+    dhs = gpu_gmg.device_hierarchy(h, backend, strict=True)
+    sync()
+    staging_s = time.perf_counter() - t
+    _hold_level_products(dhs, rng, f"strict GMG {N_MAIN}^3 f32", errs)
+    bS = _b_on_cols_layout(bh, dhs["levels"][0]["dA"])
+    bD = _b_on_cols_layout(bh, device_matrix(Ah, backend))
+    s_strict, fixed_strict = fixed_trip_s_per_iter(
+        lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m, strict=True), bS, torch.zeros_like(bS), *GMG_TRIPS)
+    s_default, fixed_default = fixed_trip_s_per_iter(
+        lambda m: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, m), bD, torch.zeros_like(bD), *GMG_TRIPS)
+    x, info = pcg(Ah, bh, minv=h, tol=TOL_MAIN, strict=True)
+    emit({"phase": "strict_gmg_cost", "n": N_MAIN, "dtype": "float32", "parts": 1, "levels": len(dhs["levels"]),
+          "routes": [gpu_gmg.route(lv) for lv in dhs["levels"]], "staging_s": staging_s,
+          "ell_slots": [int(lv["dA"].oo_vals.shape[1]) for lv in dhs["levels"]],
+          "strict_s_per_iter": s_strict, "default_s_per_iter": s_default, "strict_over_default": s_strict / s_default,
+          "strict_fixed_trip_s": fixed_strict, "default_fixed_trip_s": fixed_default, "fixed_trips": GMG_TRIPS,
+          "strict_iterations_to_tol": info["iterations"], "strict_rel_err": _rel_err(x, gmain["xe"]),
+          "default_iterations_to_tol": GMG_ITERATIONS})
+    require(info["converged"], "strict GMG-PCG at 192^3 f32 did not converge")
+    out["errs"] = errs
+    return out
+
+
+def _coded_bytes(dA, reads, writes):
+    """The bytes a coded SpMV variant must move on its staged operator: the
+    code bytes and the codebook once, and ``reads`` + ``writes`` vectors of
+    the owned rows."""
+    op = dA.coded
+    rows = int(dA.row_layout.noids.sum())
+    item = op.cb.element_size()
+    return op.codes.numel() * op.codes.element_size() + op.cb.numel() * item + (reads + writes) * rows * item
+
+
+def q1_kernel_times(A, dA, rng, errs, flush):
+    """K1 and K2 on the Q1 operator's staging (P parts, f64), its boundary
+    kernel and the CG sweep at its frames: each torch.equal to its plain
+    version on random frames; then K1 and K2 timed (flushed
+    µs), beside the bound of the bytes each must move (the codes, the
+    codebook, x read and y written; K2 also r and pprev read and p
+    written) and of its operations, and torch.sparse.mm of the parts'
+    block-diagonal A_oo CSR on the stacked owned x."""
+    op, P, wx, wy = dA.coded, dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
+    x, r, pprev = (_frame(rng, (P, wx), np.float64, A.values.backend.device) for _ in range(3))
+    beta = torch.tensor(0.37, dtype=torch.float64, device=x.device)
+    errs["dia_coded_spmv[Q1]"] = _compare("Q1 dia_coded_spmv", dia.dia_coded_spmv(op, x, wy),
+                                           dia.dia_coded_spmv_plain(op, x, wy))
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
+    errs["dia_coded_spmv_pfold[Q1,y]"] = _compare("Q1 dia_coded_spmv_pfold y", yk, yp)
+    errs["dia_coded_spmv_pfold[Q1,p]"] = _compare("Q1 dia_coded_spmv_pfold p", pk, pp)
+    xb = x.clone()
+    exchange_(dA.col_plan, xb)
+    _hold_boundary(dA, xb, f"Q1 {N_Q1}^2", errs)
+    _hold_sweep(f"Q1 {N_Q1}^2", x, r, pprev, xb, dA.row_layout.no_max, errs)
+    del xb
+    blocks = A.owned_owned_values.part_values()
+    nnz = sum(int(m.nnz) for m in blocks)
+    rows = int(dA.row_layout.noids.sum())
+    csr = _csr_on(_block_diagonal(blocks), x.device)
+    o0 = dA.col_layout.o0
+    xcol = torch.cat([x[p, o0 : o0 + m.shape[1]] for p, m in enumerate(blocks)]).reshape(-1, 1).contiguous()
+    lib = time_ms(lambda: torch.sparse.mm(csr, xcol), flush)
+    del csr
+    out = {}
+    for name, fn, plain, reads, writes, ops in (
+        ("dia_coded_spmv", lambda: dia.dia_coded_spmv(op, x, wy), lambda: dia.dia_coded_spmv_plain(op, x, wy),
+         1, 1, 2 * nnz),
+        ("dia_coded_spmv_pfold", lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy),
+         lambda: dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy), 2, 2, 2 * nnz + 2 * rows),
+    ):
+        t = {"ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush), "library_ms": lib,
+             "bytes": _coded_bytes(dA, reads, writes), "operations": ops}
+        t["bound_ms"], t["bound_by"] = _bound_ms(t["bytes"], ops, F64_FLOPS_PER_S)
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        out[name] = t
+    return out
+
+
+def phase_fem_q1(backend, rng):
+    """The 2-D Q1 FE model on the card: the reference's (8,8) and (9,7)
+    on (2,2) through `fem_q1_driver` (err < 1e-5, test_fem_sa.jl:137);
+    512^2 on (2,2): the plain path's iterations, error within 1.1x; then
+    N_Q1^2 nodes f64 on (2,2) stacked parts through `assemble_fem_q1` and
+    `cg`: host assembly seconds, the COO migration (`assemble_matrix_from_coo`)
+    apart from the rest (element triplets, vectors), on the default and the generic plan
+    (``box=False``) the staging seconds, the lowering and plan it resolves
+    to, fixed-trip fused-CG seconds per iteration, one solve to TOL_Q1
+    with Q1_MAXITER (iterations, relative error against x̂, launches by
+    formula on the default plan); K1 and K2 held and timed on the
+    operator (`q1_kernel_times`)."""
+    from partitionedarrays_jl_tpu_torch import assemble_fem_q1, fem_q1_driver
+    from partitionedarrays_jl_tpu_torch.models import fem_q1
+
+    for ns in ((8, 8), (9, 7)):
+        err, info = prun(fem_q1_driver, backend, (2, 2), ns)
+        emit({"phase": "fem_q1_reference", "nodes": ns, "parts": [2, 2], "iterations": info["iterations"],
+              "err": err, "lowering": info["lowering"]})
+        require(info["converged"] and err < 1e-5, f"Q1 {ns}: error {err}")
+
+    def check(parts):
+        A, b, xe, x0 = assemble_fem_q1(parts, (N_Q1_CHECK, N_Q1_CHECK))
+        x, info = cg(A, b, x0=x0, tol=TOL_Q1, maxiter=Q1_MAXITER)
+        xp, info_p = gpu_cg(A, b, x0=x0, tol=TOL_Q1, maxiter=Q1_MAXITER, plain=True)
+        return info, info_p, _rel_err(x, xe), _rel_err(xp, xe)
+
+    info, info_p, err, err_p = prun(check, backend, (2, 2))
+    emit({"phase": "fem_q1_vs_plain", "nodes": [N_Q1_CHECK] * 2, "parts": [2, 2], "iterations": info["iterations"],
+          "plain_iterations": info_p["iterations"], "rel_err": err, "plain_rel_err": err_p})
+    require(info["converged"] and info["iterations"] == info_p["iterations"] and err <= 1.1 * err_p,
+            f"Q1 {N_Q1_CHECK}^2: {info['iterations']} vs plain {info_p['iterations']}, error {err} vs {err_p}")
+
+    asm = {}
+    t = time.perf_counter()
+    with timing_calls(fem_q1, "assemble_matrix_from_coo", asm):
+        A, b, xe, x0 = prun(assemble_fem_q1, backend, (2, 2), (N_Q1, N_Q1))
+    asm["total"] = time.perf_counter() - t
+    asm["rest"] = asm["total"] - asm["assemble_matrix_from_coo"]
+    line = {"phase": "fem_q1", "nodes": [N_Q1] * 2, "dofs": N_Q1 ** 2, "dtype": "float64", "parts": [2, 2],
+            "assembly_s": asm, "tol": TOL_Q1, "maxiter": Q1_MAXITER, "fixed_trips": CG_TRIPS}
+    launches = None
+    for plan, box in (("default", True), ("generic", False)):
+        t = time.perf_counter()
+        dA = device_matrix(A, backend, box)
+        sync()
+        staging_s = time.perf_counter() - t
+        bb, xb = staged({"A": A, "b": b, "x0": x0}, backend, box)
+        s_iter, fixed = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA, 0.0, m), bb, xb, *CG_TRIPS)
+        dia.reset_launches()
+        t = time.perf_counter()
+        x, info = cg(A, b, x0=x0, tol=TOL_Q1, maxiter=Q1_MAXITER, box=box)
+        sync()
+        solve_s = time.perf_counter() - t
+        if box:
+            launches = dict(dia.LAUNCHES)
+            dev_it = device_iterations(info)
+            boundary = "bsr_spmv_boundary" if dA.ohb_bs is not None else "ell_spmv_boundary"
+            want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it,
+                    boundary: (1 + dev_it) if dA.oh_nnz else 0}
+        line[plan] = {
+            "lowering": dA.lowering, "dia_mode": dA.dia_mode, "plan": type(dA.col_plan).__name__,
+            "box_plan": dA.col_layout.box_info is not None, "staging_s": staging_s,
+            "decode": "row_class" if dA.dia_cls_pattern is not None else "select_chain",
+            "diagonals": len(dA.coded.offsets) if dA.coded is not None else None,
+            "cg_s_per_iter": s_iter, "cg_fixed_trip_s": fixed, "iterations": info["iterations"],
+            "converged": info["converged"], "cg_body": info["cg_body"], "rel_err": _rel_err(x, xe),
+            "solve_s": solve_s, "device_loop": info["device_loop"],
+        }
+        require(info["converged"] and line[plan]["rel_err"] < 1e-5,
+                f"Q1 {N_Q1}^2 on the {plan} plan: converged {info['converged']}, error {line[plan]['rel_err']}")
+    line["kernels"], line["expected_launches"] = launches, want
+    line["default_plan_note"] = ("the box plan resolved for the row-ghosted assembly" if line["default"]["box_plan"]
+                                 else "the box plan did not resolve for the row-ghosted assembly: the generic plan")
+    emit(line)
+    require(line["default"]["iterations"] == line["generic"]["iterations"], "Q1: the plans took other iterations")
+    require(line["default"]["dia_mode"] == "coded" and line["default"]["diagonals"] == 9,
+            f"Q1: {line['default']['dia_mode']} with {line['default']['diagonals']} diagonals")
+    for k in want:
+        require(launches[k] == want[k], f"Q1: {launches[k]} {k} launches, expected {want[k]}")
+    errs = {}
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    dA = device_matrix(A, backend)
+    times = q1_kernel_times(A, dA, rng, errs, flush)
+    op = dA.coded
+    emit({"phase": "q1_kernel_times", "nodes": [N_Q1] * 2, "dtype": "float64", "parts": [2, 2],
+          "decode": line["default"]["decode"], "offsets": [int(o) for o in op.offsets],
+          "select_chain_instance": dia.select_chain_instance(op) if dA.dia_cls_pattern is None else None,
+          "launches_per_solve": {k: launches[k] for k in ("dia_coded_spmv", "dia_coded_spmv_pfold")},
+          "equal": True, "max_abs_err": errs, **times})
+    return {"errs": errs, "times": times}
+
+
+def heat_march(parts, ns, nsteps):
+    """`heat_transient_driver`'s march step by step through the model's own
+    functions (`assemble_heat`, `gmg_hierarchy`, `step_rhs`, `pcg`) at dt
+    HEAT_DT, tol TOL_HEAT, coarse_threshold HEAT_CT, timed by section: the
+    assembly, the hierarchy, and per step the host rhs and the `pcg` call
+    (the card synchronized after it). Keeps the last step's start and
+    right-hand side for the checks of `phase_heat`."""
+    from partitionedarrays_jl_tpu_torch.models.heat_transient import assemble_heat, step_rhs
+
+    t = time.perf_counter()
+    B, bh, mask, u0, x_steady = assemble_heat(parts, ns, HEAT_DT)
+    assembly_s = time.perf_counter() - t
+    t = time.perf_counter()
+    h = gmg_hierarchy(parts, B, ns, coarse_threshold=HEAT_CT)
+    hierarchy_s = time.perf_counter() - t
+    u = u0.copy()
+    rhs = PVector.full(0.0, B.rows, dtype=bh.dtype)
+    steps = []
+    for _ in range(nsteps):
+        t = time.perf_counter()
+        step_rhs(rhs, u, bh, mask, HEAT_DT)
+        t_rhs = time.perf_counter()
+        u_prev = u
+        u, info = pcg(B, rhs, x0=u, minv=h, tol=TOL_HEAT)
+        sync()
+        steps.append({"rhs_s": t_rhs - t, "pcg_s": time.perf_counter() - t_rhs, "iterations": info["iterations"],
+                      "device_iterations": device_iterations(info) if "device_loop" in info else None})
+    err = float(np.abs(gather_pvector(u) - gather_pvector(x_steady)).max())
+    return {"B": B, "bh": bh, "mask": mask, "h": h, "rhs": rhs, "u_prev": u_prev, "u": u, "err": err,
+            "steps": steps, "iterations": [st["iterations"] for st in steps], "assembly_s": assembly_s,
+            "hierarchy_s": hierarchy_s}
+
+
+def heat_step_split(m, backend):
+    """Where a later step of the march goes, on its last step's start and
+    right-hand side: the host sections of the step timed one by one (the
+    rhs, b and x0 staged in the card's frames, the cached device loop with
+    the card synchronized, x lifted back to a host PVector), and one replay
+    of the whole step (`step_rhs` + `pcg`) under torch.profiler: device
+    busy ms and the idle share (`phase_profile`)."""
+    from partitionedarrays_jl_tpu_torch.models.heat_transient import step_rhs
+
+    B, h, rhs, u = m["B"], m["h"], m["rhs"], m["u_prev"]
+    solve = gpu_gmg.gmg_pcg_fn(h, backend, TOL_HEAT, 4 * int(B.rows.ngids))  # the march's cached entry
+    dA0 = solve.staged["levels"][0]["dA"]
+    marks = [time.perf_counter()]
+    step_rhs(rhs, u, m["bh"], m["mask"], HEAT_DT)
+    marks.append(time.perf_counter())
+    db = _b_on_cols_layout(rhs, dA0)
+    dx0 = DeviceVector.from_pvector(u, backend, dA0.col_layout).data
+    sync()
+    marks.append(time.perf_counter())
+    xd, _, _, it, _ = solve(db, dx0)
+    sync()
+    marks.append(time.perf_counter())
+    DeviceVector(xd, B.cols, dA0.col_layout, backend).to_pvector()
+    marks.append(time.perf_counter())
+    host = dict(zip(("rhs_ms", "stage_b_x0_ms", "device_loop_ms", "lift_x_ms"),
+                    (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    dev_it = solve.stats["device_iterations"]
+
+    def one_step(_b, _x0):
+        step_rhs(rhs, u, m["bh"], m["mask"], HEAT_DT)
+        pcg(B, rhs, x0=u, minv=h, tol=TOL_HEAT)
+
+    prof = phase_profile("heat_step_profile", one_step, None, None, dev_it)
+    busy_ms = sum(r[1] for r in prof["rows"]) * dev_it
+    return {"iterations": it, "device_iterations": dev_it, "host_sections": host, "profiled_step_ms": prof["wall_ms"],
+            "device_busy_ms_per_step": busy_ms, "device_idle_share": 1.0 - busy_ms / prof["wall_ms"]}
+
+
+def phase_heat(backend, rng):
+    """The transient heat march on the card. 12^3 on (2,2,2), 10 steps:
+    `heat_transient_driver` takes the port's sequential march's per-step
+    iterations, its error within 1.1x, and `heat_march` the driver's
+    iterations. Then N_HEAT^3 f64 on (2,2,2) stacked parts, dt HEAT_DT,
+    HEAT_STEPS steps, tol TOL_HEAT, coarse_threshold HEAT_CT (`heat_march`):
+    the seconds of assembly, hierarchy and each step (the first stages the
+    hierarchy and captures the loop), the hierarchy stagings, solve
+    functions and graph captures over the march (1 each), each step's
+    iterations, host-included ms per later step and per PCG iteration,
+    the error against the steady solution, the launches over the march by
+    formula (`gmg_launches` summed over the steps' device iterations).
+    Then on the march's own staged hierarchy: K1 on every coded operator,
+    the stream kernel on every stream level, the stencil kernel on every
+    stencil level, the boundary kernel on every level's A and S, the
+    epilogue in every mode on every level and one V-cycle, the sweep on
+    level 0's frames, each torch.equal to its plain version; the last
+    step's solve through the plain versions (`gpu_gmg_pcg(plain=True)`)
+    with the kernel path's iterations and x within GMG_STRICT_RTOL; graph
+    against eager on that step; and where a later step's time goes
+    (`heat_step_split`)."""
+    from partitionedarrays_jl_tpu_torch import heat_transient_driver
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+
+    kw = {"dt": HEAT_DT, "nsteps": 10, "tol": TOL_HEAT, "coarse_threshold": HEAT_CT}
+    err_g, its_g = prun(heat_transient_driver, backend, (2, 2, 2), (12, 12, 12), **kw)
+    err_s, its_s = prun(heat_transient_driver, sequential, (2, 2, 2), (12, 12, 12), **kw)
+    small = prun(heat_march, backend, (2, 2, 2), (12, 12, 12), 10)
+    emit({"phase": "heat_vs_sequential", "n": 12, "parts": [2, 2, 2], "steps": 10, "iterations": its_g,
+          "sequential_iterations": its_s, "march_iterations": small["iterations"], "err": err_g,
+          "sequential_err": err_s, "march_err": small["err"]})
+    require(its_g == its_s == small["iterations"] and err_g <= 1.1 * err_s and small["err"] == err_g,
+            f"heat 12^3: driver {its_g}, sequential {its_s}, march {small['iterations']}; error {err_g} vs {err_s}")
+
+    before = {**gpu_gmg.STATS, **gpu_loop.STATS}
+    dia.reset_launches()
+    m = prun(heat_march, backend, (2, 2, 2), (N_HEAT,) * 3, HEAT_STEPS)
+    launches = dict(dia.LAUNCHES)
+    built = {k: v - before[k] for k, v in {**gpu_gmg.STATS, **gpu_loop.STATS}.items()}
+    h, steps, its = m["h"], m["steps"], m["iterations"]
+    dh = gpu_gmg.device_hierarchy(h, backend)  # the march's staging (cached on h)
+    want = {}
+    for st in steps:
+        for k, v in gmg_launches(h, dh, st["device_iterations"]).items():
+            want[k] = want.get(k, 0) + v
+    # the first step stages the hierarchy and captures the loop; the others replay it
+    later_ms = 1e3 * sum(st["rhs_s"] + st["pcg_s"] for st in steps[1:])
+    line = {"phase": "heat_transient", "n": N_HEAT, "dofs": N_HEAT ** 3, "dtype": "float64", "parts": [2, 2, 2],
+            "dt": HEAT_DT, "steps": HEAT_STEPS, "tol": TOL_HEAT, "coarse_threshold": HEAT_CT,
+            "assembly_s": m["assembly_s"], "hierarchy_s": m["hierarchy_s"],
+            "first_step_s": steps[0]["rhs_s"] + steps[0]["pcg_s"],
+            "step_ms": [1e3 * (st["rhs_s"] + st["pcg_s"]) for st in steps],
+            "rhs_ms": [1e3 * st["rhs_s"] for st in steps], "built_over_march": built, "iterations": its,
+            "device_iterations": [st["device_iterations"] for st in steps],
+            "host_included_ms_per_step": later_ms / (HEAT_STEPS - 1),
+            "host_included_ms_per_pcg_iteration": later_ms / sum(its[1:]), "err_vs_steady": m["err"],
+            "routes": [gpu_gmg.route(lv) for lv in dh["levels"]], "dia_modes": [lv["dA"].dia_mode for lv in dh["levels"]],
+            "kernels": launches, "expected_launches": want}
+    emit(line)
+    require(built == {"stagings": 1, "pcg_fns": 1, "captures": 1},
+            f"heat march: {built} stagings, solve functions and captures, expected 1 each")
+    require(len(its) == HEAT_STEPS and all(0 < i < 4 * N_HEAT ** 3 for i in its) and np.isfinite(m["err"]),
+            f"heat march: iterations {its}, error {m['err']}")
+    for k in want:
+        require(launches[k] == want[k] > 0, f"heat march: {launches[k]} {k} launches, expected {want[k]}")
+
+    # every kernel of the march held against its plain version at the march's shapes
+    tag = f"heat {N_HEAT}^3 f64 (2,2,2)"
+    errs = {"coded": _k1_on_gmg_operators(dh, tag, rng)}
+    require("A0" in errs["coded"], f"{tag}: coded operators {sorted(errs['coded'])}")
+    errs["stream"], _ = _stream_checks(dh, rng, tag)
+    errs["stencil"] = max([_stencil_check(lv, rng, f"{tag} level {li}") for li, lv in enumerate(dh["levels"])
+                           if gpu_gmg.route(lv) == "stencil"], default=0.0)
+    errs["epilogue"] = max(_epilogue_checks(h, dh, rng, tag))
+    held = {}
+    _hold_level_products(dh, rng, tag, held, ell=False)
+    dA0 = dh["levels"][0]["dA"]
+    L0 = dA0.col_layout
+    fr = [_frame(rng, (L0.P, L0.W), np.float64, backend.device) for _ in range(4)]
+    _hold_sweep(tag, *fr, L0.no_max, held)
+    del fr
+
+    # the last step through the plain versions, and graph against eager
+    u_prev, rhs, last = m["u_prev"], m["rhs"], steps[-1]
+    xp, info_p = gpu_gmg.gpu_gmg_pcg(h, rhs, x0=u_prev, tol=TOL_HEAT, plain=True)
+    xk, xs = gather_pvector(m["u"]), gather_pvector(xp)
+    x_rel = float(np.linalg.norm(xk - xs) / np.linalg.norm(xk))
+    b0 = _b_on_cols_layout(rhs, dA0)
+    x00 = DeviceVector.from_pvector(u_prev, backend, L0).data
+    graph_vs_eager(f"{tag} GMG-PCG, the march's last step", lambda g: gpu_gmg.make_gmg_pcg_fn(
+        h, backend, TOL_HEAT, 4 * int(m["B"].rows.ngids), graph=g), b0, x00)
+    split = heat_step_split(m, backend)
+    emit({"phase": "heat_transient_checks", "n": N_HEAT, "parts": [2, 2, 2],
+          "last_step_iterations": last["iterations"], "plain_iterations": info_p["iterations"],
+          "x_rel_to_plain": x_rel, "x_equal_plain": bool(np.array_equal(xk, xs)), "tolerance": GMG_STRICT_RTOL,
+          "coded_vs_plain_max_abs_err": errs["coded"], "stream_vs_plain_max_abs_err": errs["stream"],
+          "stencil_vs_plain_max_abs_err": errs["stencil"], "epilogue_and_vcycle_vs_plain_max_abs_err": errs["epilogue"],
+          "max_abs_err": held, "coded_operators": {k: operator_info(dM.coded) for k, dM in gmg_coded_operators(dh)}})
+    emit({"phase": "heat_step_split", "n": N_HEAT, "parts": [2, 2, 2], **split,
+          "host_included_ms_per_step": line["host_included_ms_per_step"]})
+    require(info_p["iterations"] == last["iterations"] and x_rel <= GMG_STRICT_RTOL,
+            f"{tag}: the plain path took {info_p['iterations']} iterations (kernel path {last['iterations']}), "
+            f"x {x_rel} apart")
+    require(split["iterations"] == last["iterations"], f"{tag}: the step replay took {split['iterations']} iterations")
+    return {"errs": held, "coded": max(errs["coded"].values()), "stream": errs["stream"],
+            "stencil": errs["stencil"], "epilogue": errs["epilogue"], "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -3269,7 +3833,7 @@ def phase_profile(name, fn, b, x0, iters):
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    out = {"rows": rows, "iters": iters}
+    out = {"rows": rows, "iters": iters, "wall_ms": wall * 1e3}
     emit({
         "phase": name, "device_iterations": iters, "loop": loop.get("loop"), "block": loop.get("block"),
         "wall_ms_per_iter": wall * 1e3 / iters,
@@ -3311,6 +3875,12 @@ def main() -> int:
     belm = phase_block_elastic_multi(backend, elm, rng)
     emit_bsr_spmm_times(bel, belm)
     bst = phase_block_strict(backend, run, st, rng)
+    sg = phase_strict_gmg(backend, gruns["main"], rng)
+    q1 = phase_fem_q1(backend, rng)
+    heat = phase_heat(backend, rng)
+    emit({"phase": "device_memory", "after": "phase 4h", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+          "allocated_gib": torch.cuda.memory_allocated() / 2**30})
     # each kernel's launches from the path it runs on: E2 on the elasticity
     # path's BSR lowering (its stacked BSR run where 64^3 resolved to SD),
     # E2's boundary on the stacked SD path, E1 and E3 on the strict
@@ -3335,18 +3905,19 @@ def main() -> int:
     times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"], **bel["times"], **belm["times"],
                                     **bst["times"]}.items() if k in KERNELS})
     emit({"phase": "launch_counts", "kernels": launches})
-    errs = kern["errs"]
+    errs = {**kern["errs"], **q1["errs"], **heat["errs"]}
     max_err = {
         name: max(v for key, v in errs.items() if key.startswith(name + "["))
         for name in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy")
     }
-    max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg_s["err_k1"].values(), err_multi["coded"])
-    max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"])
-    max_err["box_stencil_apply"] = err_stencil
-    max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"])
+    max_err["dia_coded_spmv"] = max(max_err["dia_coded_spmv"], *gmg_s["err_k1"].values(), err_multi["coded"],
+                                    heat["coded"])
+    max_err["dia_stream_spmv"] = max(gmg["err_k4"], err_multi["stream"], heat["stream"])
+    max_err["box_stencil_apply"] = max(err_stencil, heat["stencil"])
+    max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"], heat["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
     held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"], **bel["errs"],
-            **belm["errs"], **bst["errs"]}
+            **belm["errs"], **bst["errs"], **sg["errs"], **q1["errs"], **heat["errs"]}
     for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
                  "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot",
                  "ell_spmm", "bsr_spmm", "bsr_spmv_boundary_slab", "pairwise_dot_block"):

@@ -13,7 +13,11 @@ PyTorch versions.
 """
 from .models import *  # noqa: F401,F403
 from .models import __all__ as _models_all
+from .ops import *  # noqa: F401,F403
+from .ops import __all__ as _ops_all
 from .parallel import *  # noqa: F401,F403
 from .parallel import __all__ as _parallel_all
+from .utils import *  # noqa: F401,F403
+from .utils import __all__ as _utils_all
 
-__all__ = list(_parallel_all) + list(_models_all)
+__all__ = list(_parallel_all) + list(_utils_all) + list(_ops_all) + list(_models_all)

@@ -7,7 +7,7 @@ coarse cols), R = Pᵀ, and the Galerkin coarse operator A_c = Pᵀ A P is the
 exact triple product of per-part local SciPy products whose off-owner
 triplets ride the COO assembly migration (`assemble_matrix_from_coo`). The
 JAX package's native Galerkin fast paths (planning.cpp `galerkin3`,
-`galerkin_emit`, `galerkin_classify`) are not ported (ROADMAP Queue D item 10):
+`galerkin_emit`, `galerkin_classify`) are not ported (ROADMAP Queue 1 item 8):
 every part takes the generic route.
 
 The hierarchy is variational, so for SPD fine operators every coarse
@@ -196,11 +196,12 @@ class GMGLevel:
     level (built on first use: the device transfers never read them), the
     grid dims, and the inverse diagonal for Jacobi smoothing."""
 
-    __slots__ = ("A", "_P", "_R", "_mk_transfers", "dinv", "nfs", "ncs")
+    __slots__ = ("A", "_P", "_R", "_mk_transfers", "dinv", "nfs", "ncs", "_S")
 
     def __init__(self, A: PSparseMatrix, nfs: Sequence[int], ncs: Sequence[int], mk_transfers):
         self.A = A
         self._P = self._R = None
+        self._S = None  # the interpolation stencil the structured device transfers stage (`S`)
         self._mk_transfers = mk_transfers
         self.nfs = tuple(int(n) for n in nfs)
         self.ncs = tuple(int(n) for n in ncs)
@@ -214,6 +215,16 @@ class GMGLevel:
     def P(self) -> PSparseMatrix:
         self._build_transfers()
         return self._P
+
+    @property
+    def S(self) -> PSparseMatrix:
+        """The square interpolation stencil of the factored transfer P = S·E
+        (`interp_stencil_cartesian`), assembled on first use and kept, so
+        every staging of the structured route (per backend, plan and
+        strict mode) lowers the same S."""
+        if self._S is None:
+            self._S = interp_stencil_cartesian(self.nfs, self.A.rows, dtype=self.A.dtype)
+        return self._S
 
     @property
     def R(self) -> PSparseMatrix:
@@ -232,7 +243,7 @@ class GMGHierarchy:
         check(len(levels) >= 1, "hierarchy needs at least one fine level")
         if cycle != "v":
             raise NotImplementedError(
-                "GMGHierarchy: the W-cycle is not ported yet (ROADMAP Queue D item 6)"
+                "GMGHierarchy: the W-cycle is not ported yet (ROADMAP Queue 1 item 4)"
             )
         self.levels = levels
         self.coarse_A = coarse_A
@@ -286,11 +297,11 @@ def gmg_hierarchy(parts: AbstractPData, A: PSparseMatrix, dims: Sequence[int],
     and the d-linear P and R = Pᵀ built on first use. Coarsening stops once
     the grid has at most ``coarse_threshold`` points or no dimension can
     halve. Coarse-level agglomeration (``agg_threshold > 0``) is not
-    ported yet (ROADMAP Queue D item 6)."""
+    ported yet (ROADMAP Queue 1 item 4)."""
     if agg_threshold > 0:
         raise NotImplementedError(
             "gmg_hierarchy: coarse-level agglomeration (agg_threshold > 0) is not "
-            "ported yet (ROADMAP Queue D item 6)"
+            "ported yet (ROADMAP Queue 1 item 4)"
         )
     dims = tuple(int(n) for n in dims)
     check(A.rows.ngids == int(np.prod(dims)), "gmg_hierarchy: dims do not match A.rows")
@@ -324,7 +335,7 @@ def gmg_solve(hierarchy: GMGHierarchy, b: PVector, x0: Optional[PVector] = None,
               tol: float = 1e-8, maxiter: int = 100, verbose: bool = False) -> Tuple[PVector, dict]:
     """Stationary V-cycle iteration x <- x + Vcycle(b − A x) until the
     residual drops by `tol`, on the host backend. Its device loop
-    (tpu_gmg.py:807-883) is not ported yet (ROADMAP Queue D item 6): on
+    (tpu_gmg.py:807-883) is not ported yet (ROADMAP Queue 1 item 4): on
     the GPU backend the V-cycle runs as the PCG preconditioner,
     ``pcg(A, b, minv=hierarchy)``."""
     from ..parallel.gpu import GPUBackend
@@ -332,7 +343,7 @@ def gmg_solve(hierarchy: GMGHierarchy, b: PVector, x0: Optional[PVector] = None,
     if isinstance(b.values.backend, GPUBackend):
         raise NotImplementedError(
             "gmg_solve: the stationary V-cycle iteration on the GPU backend is not "
-            "ported yet (ROADMAP Queue D item 6); use pcg(A, b, minv=hierarchy)"
+            "ported yet (ROADMAP Queue 1 item 4); use pcg(A, b, minv=hierarchy)"
         )
     A = hierarchy.levels[0].A
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)

@@ -5,7 +5,9 @@ through its generic COO assembly (`_assemble_stencil_coo`, poisson_fdm.py:352;
 the native structured fast path is not part of the port): a 7-point
 Laplacian on an N-D Cartesian grid, Dirichlet boundary conditions imposed as
 identity rows, assembled into a PSparseMatrix from per-part COO batches and
-solved with CG against a manufactured solution. On the GPU backend the
+solved with CG against a manufactured solution; and the shifted torus
+Laplacian of `assemble_poisson_periodic` (poisson_fdm.py:445), whose column
+ghosts are the wrapped face slabs. On the GPU backend the
 operator lowers to the coded-DIA kernels and the CG loop runs on the card.
 """
 from __future__ import annotations
@@ -21,6 +23,16 @@ from ..parallel.psparse import PSparseMatrix
 from ..parallel.pvector import PVector
 from ..utils.helpers import check
 from .solvers import cg
+
+
+def manufactured_rhs(A: PSparseMatrix, x: PVector) -> PVector:
+    """b = A @ x with every block row folded left to right (the A_oo fold,
+    then the A_oh fold added: `mul_into(strict=True)`), the order of the
+    JAX package's native host SpMV (planning.cpp `csr_spmv_impl`, built
+    without FMA contraction), which its drivers take for b; NumPy's
+    `reduceat` (the plain host product) sums in another order. So the
+    models' systems are the JAX package's bit for bit."""
+    return A.mul_into(PVector.full(0.0, A.rows, dtype=np.result_type(A.dtype, x.dtype)), x, strict=True)
 
 
 def manufactured_solution(gids: np.ndarray, ngids: Sequence[int]) -> np.ndarray:
@@ -127,7 +139,7 @@ def assemble_cartesian_stencil(
         cols.partition,
     )
     x_exact = PVector(xe_vals, cols)
-    b = A @ x_exact
+    b = manufactured_rhs(A, x_exact)
     # start vector with the Dirichlet values imposed exactly: identity rows
     # then keep a zero residual throughout the iteration
     x0 = PVector(
@@ -207,6 +219,85 @@ def assemble_poisson(parts: AbstractPData, ns: Sequence[int], dtype=np.float64):
     return assemble_cartesian_stencil(
         parts, ns, 2.0 * dim, [(-1.0, -1.0)] * dim, dtype=dtype
     )
+
+
+def _periodic_field_on_iset(iset, ns):
+    """Smooth periodic manufactured field on every lid of an index set:
+    x̂(c) = Σ_d sin(2π(d+1)(c_d + 0.5)/ns[d]) — continuous across the
+    wrap, so b = A @ x̂ exercises the torus couplings."""
+    g = np.asarray(iset.lid_to_gid, dtype=np.int64)
+    coords = np.unravel_index(g, ns)
+    out = np.zeros(len(g), dtype=np.float64)
+    for d, c in enumerate(coords):
+        out += np.sin(2.0 * np.pi * (d + 1.0) * (c + 0.5) / ns[d])
+    return out
+
+
+def assemble_poisson_periodic(
+    parts: AbstractPData,
+    ns: Sequence[int],
+    shift: float = 1.0,
+    dtype=np.float64,
+):
+    """Shifted TORUS Laplacian: (2·dim + shift) on the diagonal, −1 arms
+    wrapping in EVERY dimension — no boundary, no identity rows
+    (``shift`` > 0 keeps the operator SPD and nonsingular; the pure torus
+    Laplacian has the constant nullspace). Returns (A, b, x̂, x0) with
+    b = A @ x̂ for the periodic manufactured field and x0 = 0.
+
+    The §5.7 long-context analog at the OPERATOR level (the halo side is
+    the periodic PRange): the column ghosts are the wrapped face slabs,
+    so every device plan built on A.cols carries torus segments.
+    Reference wrap machinery: src/Interfaces.jl:1195-1223."""
+    ns = tuple(int(n) for n in ns)
+    dim = len(ns)
+    check(shift > 0, "assemble_poisson_periodic: shift must be > 0 (SPD)")
+    check(
+        all(n >= 3 for n in ns),
+        "assemble_poisson_periodic: each dim needs >= 3 cells (a ±1 wrap "
+        "on 2 cells would duplicate COO entries)",
+    )
+    rows = cartesian_partition(parts, ns, no_ghost)
+    cis = p_cartesian_indices(parts, ns, no_ghost)
+    center = 2.0 * dim + float(shift)
+
+    def _local_coo(ci):
+        grid = ci.grid()
+        coords = [g.ravel() for g in grid]
+        gid = np.ravel_multi_index(coords, ns)
+        n_own = len(gid)
+        idt = np.int32 if math.prod(ns) < 2**31 else np.int64
+        total = n_own * (2 * dim + 1)
+        I = np.empty(total, dtype=idt)
+        J = np.empty(total, dtype=idt)
+        V = np.empty(total, dtype=dtype)
+        I[:] = np.tile(gid.astype(idt), 2 * dim + 1)
+        J[:n_own] = gid
+        V[:n_own] = center
+        pos = n_own
+        for d in range(dim):
+            for off in (-1, 1):
+                nb = list(coords)
+                nb[d] = (coords[d] + off) % ns[d]  # the wrap
+                J[pos : pos + n_own] = np.ravel_multi_index(nb, ns)
+                V[pos : pos + n_own] = -1.0
+                pos += n_own
+        return I, J, V
+
+    coo = map_parts(_local_coo, cis)
+    I = map_parts(lambda c: c[0], coo)
+    J = map_parts(lambda c: c[1], coo)
+    V = map_parts(lambda c: c[2], coo)
+    cols = add_gids(rows, J)
+    A = PSparseMatrix.from_coo(I, J, V, rows, cols, ids="global")
+    xe_vals = map_parts(
+        lambda i: _periodic_field_on_iset(i, ns).astype(dtype, copy=False),
+        A.cols.partition,
+    )
+    xe = PVector(xe_vals, A.cols)
+    b = manufactured_rhs(A, xe)
+    x0 = PVector.full(0.0, A.cols, dtype=dtype)
+    return A, b, xe, x0
 
 
 def poisson_fdm_driver(

@@ -18,7 +18,10 @@ loops in sequence elsewhere, `_host_block_solve`);
 SpMV (`csr_spmv(strict=True)`) and the fixed-tree dots
 (`PVector.dot(strict=True)`), the device loop the ELL lowering and E3, and
 both give the same iterations, residual history and solution bit for bit;
-the device block solve too, each column its solo strict loop.
+the device block solve too, each column its solo strict loop. The strict
+device GMG-PCG takes the host strict loop's iterations and agrees with it
+to rounding (the JAX package promises no more: its V-cycle is not the
+host's either).
 ``lowering`` names the first non-band lowering the device tries
 (`parallel/gpu.py:DeviceMatrix`: "auto", "sd", "bsr", "ell"), for the solo
 and the block solves alike.
@@ -387,8 +390,13 @@ def pcg(
     applied per column; a callable ``minv`` (a `GMGHierarchy` included)
     solves the columns in sequence, each through its solo path.
 
-    ``strict`` and ``lowering`` as in `cg` (the device GMG-PCG takes
-    neither)."""
+    ``strict`` and ``lowering`` as in `cg`. With a `GMGHierarchy` on the
+    GPU backend, ``strict`` runs the strict device GMG-PCG (every level's
+    operator and transfer on the ELL lowering and the generic plan, E3's
+    dots: tpu_gmg.py:886 under ``PA_TPU_STRICT_BITS=1``), which takes the
+    sequential strict loop's iterations and agrees with it to rounding (the
+    V-cycle's products are not the host's, on either side); another
+    ``lowering`` raises there."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
     from .gmg import GMGHierarchy
 
@@ -410,8 +418,11 @@ def pcg(
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
-            if strict or lowering != "auto":
-                raise NotImplementedError("pcg: the device GMG-PCG takes neither strict mode nor another lowering")
+            if lowering != "auto":
+                raise NotImplementedError(
+                    "pcg: the device GMG-PCG stages each level's own lowering; choosing another "
+                    "(lowering=) is not ported yet (ROADMAP Queue 1 item 4)"
+                )
             if fused is not None:
                 raise ValueError(
                     "pcg: the GMG-preconditioned device loop has one PCG body, with no fused "
@@ -419,7 +430,7 @@ def pcg(
                 )
             check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
             return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose,
-                               box=box, stencil=stencil)
+                               box=box, stencil=stencil, strict=strict)
         if not callable(minv):
             return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
                           box=box, minv=minv, strict=strict, lowering=lowering)

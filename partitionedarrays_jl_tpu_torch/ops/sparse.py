@@ -21,7 +21,7 @@ from ..utils.table import INDEX_DTYPE
 class CSRMatrix:
     """Host CSR with sorted, deduplicated column indices per row."""
 
-    __slots__ = ("indptr", "indices", "data", "shape", "_ell")
+    __slots__ = ("indptr", "indices", "data", "shape", "_ell", "_keys")
 
     def __init__(self, indptr, indices, data, shape: Tuple[int, int]):
         self.indptr = np.asarray(indptr, dtype=INDEX_DTYPE)
@@ -29,6 +29,7 @@ class CSRMatrix:
         self.data = np.asarray(data)
         self.shape = (int(shape[0]), int(shape[1]))
         self._ell = None  # the ELL form strict csr_spmv folds over, built at first use
+        self._keys = None  # row-major entry keys for `nzindex`, built at first use
         check(len(self.indptr) == self.shape[0] + 1, "bad indptr length")
 
     @property
@@ -48,11 +49,51 @@ class CSRMatrix:
             np.arange(self.shape[0], dtype=INDEX_DTYPE), self.row_lengths()
         )
 
+    def _sorted_keys(self) -> np.ndarray:
+        if self._keys is None:
+            self._keys = self.row_of_nz().astype(np.int64) * self.shape[1] + self.indices
+        return self._keys
+
     def __matmul__(self, x: np.ndarray) -> np.ndarray:
         return csr_spmv(self, x)
 
     def __repr__(self):
         return f"CSRMatrix(shape={self.shape}, nnz={self.nnz}, dtype={self.dtype})"
+
+
+def indextype(A: CSRMatrix):
+    """Reference export parity (src/SparseUtils.jl:44-49)."""
+    return A.indices.dtype
+
+
+def nzindex(A: CSRMatrix, i, j) -> np.ndarray:
+    """Vectorized storage-position query: position k of entry (i, j), or -1
+    when not stored (reference: src/SparseUtils.jl:59-62, :90-103, CSR
+    :206-214, generalized from scalar to arrays)."""
+    i = np.atleast_1d(np.asarray(i, dtype=np.int64))
+    j = np.atleast_1d(np.asarray(j, dtype=np.int64))
+    keys = A._sorted_keys()
+    q = i * A.shape[1] + j
+    pos = np.searchsorted(keys, q)
+    out = np.full(len(q), -1, dtype=np.int64)
+    if len(keys):
+        pos_c = np.clip(pos, 0, len(keys) - 1)
+        hit = keys[pos_c] == q
+        out[hit] = pos_c[hit]
+    return out
+
+
+def nz_triplets(A: CSRMatrix) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All stored entries as (I, J, V) arrays, the vectorized analog of the
+    reference's `nziterator` (src/SparseUtils.jl:64-69, :105-155)."""
+    return A.row_of_nz(), A.indices.copy(), A.data.copy()
+
+
+def nziterator(A: CSRMatrix):
+    """Generator API parity: yields (i, j, v) per stored entry."""
+    I, J, V = nz_triplets(A)
+    for t in range(len(V)):
+        yield int(I[t]), int(J[t]), V[t]
 
 
 def _fold_groups(V: np.ndarray, starts: np.ndarray) -> np.ndarray:

@@ -53,10 +53,18 @@ class AbstractBackend:
         parts = self.get_part_ids(nparts)
         return driver(parts, *args, **kwargs)
 
+    def prun_debug(self, driver: Callable, nparts: PartShape, *args, **kwargs):
+        return self.prun(driver, nparts, *args, **kwargs)
+
 
 def prun(driver: Callable, backend: AbstractBackend, nparts: PartShape, *args, **kwargs):
     """THE program entry point (reference: src/Interfaces.jl:33-36)."""
     return backend.prun(driver, nparts, *args, **kwargs)
+
+
+def prun_debug(driver: Callable, backend: AbstractBackend, nparts: PartShape, *args, **kwargs):
+    """The reference's debug entry point: `prun` on every backend here."""
+    return backend.prun_debug(driver, nparts, *args, **kwargs)
 
 
 class AbstractPData:
@@ -133,6 +141,10 @@ def get_part_ids(a_or_backend, nparts: PartShape = None) -> AbstractPData:
     return a.backend.get_part_ids(a.shape)
 
 
+def get_backend(a: AbstractPData) -> AbstractBackend:
+    return a.backend
+
+
 def get_part(a: AbstractPData, part: int = None):
     return a.get_part(part)
 
@@ -144,6 +156,25 @@ def get_main_part(a: AbstractPData):
 
 def i_am_main(a: AbstractPData) -> bool:
     return a.i_am_main()
+
+
+def map_main(task: Callable, *args) -> AbstractPData:
+    """Run `task` only on MAIN's values; other parts get None
+    (reference: src/Interfaces.jl:110-124)."""
+    parts = get_part_ids(_first_pdata(args))
+
+    def _task(part, *vals):
+        if part == MAIN:
+            return task(*vals)
+        return None
+
+    return map_parts(_task, parts, *args)
+
+
+def unzip(a: AbstractPData, n: int) -> Tuple[AbstractPData, ...]:
+    """Split a PData of n-tuples into n PDatas (the analog of Julia
+    destructuring over map_parts results)."""
+    return tuple(map_parts(lambda t, _i=i: t[_i], a) for i in range(n))
 
 
 class Token:

@@ -34,6 +34,12 @@ def gather(snd: AbstractPData) -> AbstractPData:
     return snd._gather()
 
 
+def gather_all(snd: AbstractPData) -> AbstractPData:
+    """Allgather: every part receives the full vector/Table
+    (reference: src/Interfaces.jl:170-196)."""
+    return snd._gather(to_all=True)
+
+
 def scatter(snd: AbstractPData) -> AbstractPData:
     """MAIN's n-entry value -> one entry per part
     (reference: src/Interfaces.jl:200-202)."""
@@ -65,6 +71,11 @@ def reduce_main(op: Callable, a: AbstractPData, init) -> AbstractPData:
     return map_parts(lambda xs: _local_reduce(op, np.asarray(xs), init), g)
 
 
+def reduce_all(op: Callable, a: AbstractPData, init) -> AbstractPData:
+    """Reference: src/Interfaces.jl:226-229."""
+    return emit(reduce_main(op, a, init))
+
+
 def preduce(op: Callable, a: AbstractPData, init):
     """Scalar result of reducing one value per part (Base.reduce analog,
     reference: src/Interfaces.jl:231-234). Deterministic left-fold in part
@@ -72,9 +83,32 @@ def preduce(op: Callable, a: AbstractPData, init):
     return get_main_part(reduce_main(op, a, init))
 
 
+def sum_parts(a: AbstractPData):
+    """Base.sum analog (reference: src/Interfaces.jl:236-238)."""
+    import operator
+
+    return preduce(operator.add, a, _zero_like(a))
+
+
+def _zero_like(a: AbstractPData):
+    v = get_main_part(a)
+    if isinstance(v, np.ndarray):
+        return np.zeros_like(v)
+    return type(v)(0)
+
+
 # ---------------------------------------------------------------------------
 # prefix scans
 # ---------------------------------------------------------------------------
+
+
+def _iscan_local(op, b, init):
+    b = np.array(b, copy=True)
+    if len(b):
+        b[0] = op(init, b[0])
+    for i in range(len(b) - 1):
+        b[i + 1] = op(b[i], b[i + 1])
+    return b
 
 
 def _xscan_local(op, b, init):
@@ -94,6 +128,30 @@ def _scan_main(local: Callable, op, a, init, with_total):
         scanned = map_parts(lambda xs: local(op, np.asarray(xs), init), b)
         return scanned, get_main_part(n)
     return map_parts(lambda xs: local(op, np.asarray(xs), init), b)
+
+
+def iscan_main(op, a: AbstractPData, init, with_total: bool = False):
+    """Inclusive prefix scan; full scan vector lands on MAIN
+    (reference: src/Interfaces.jl:260-284)."""
+    return _scan_main(_iscan_local, op, a, init, with_total)
+
+
+def iscan(op, a: AbstractPData, init, with_total: bool = False):
+    """Inclusive prefix scan, part p receives entry p
+    (reference: src/Interfaces.jl:240-248). With `with_total=True` also
+    returns the grand total."""
+    if with_total:
+        b, n = iscan_main(op, a, init, with_total=True)
+        return scatter(b), n
+    return scatter(iscan_main(op, a, init))
+
+
+def iscan_all(op, a: AbstractPData, init, with_total: bool = False):
+    """Reference: src/Interfaces.jl:250-258."""
+    if with_total:
+        b, n = iscan_main(op, a, init, with_total=True)
+        return emit(b), n
+    return emit(iscan_main(op, a, init))
 
 
 def xscan_main(op, a: AbstractPData, init, with_total: bool = False):
@@ -134,6 +192,13 @@ def async_exchange_into(
     src/Interfaces.jl:349-367 and the Table variant :393-450). Returns a
     PData of Tokens."""
     return data_snd._async_exchange(data_rcv, parts_rcv, parts_snd)
+
+
+def exchange_into(data_rcv, data_snd, parts_rcv, parts_snd) -> AbstractPData:
+    """Blocking wrapper (reference exchange!: src/Interfaces.jl:453-458)."""
+    t = async_exchange_into(data_rcv, data_snd, parts_rcv, parts_snd)
+    schedule_and_wait(t)
+    return data_rcv
 
 
 def async_exchange(

@@ -15,7 +15,7 @@ lowers the same plan to gather / copy / scatter rounds on stacked tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -109,6 +109,19 @@ class Exchanger:
             self._reverse = rev
         return self._reverse
 
+    # --- buffers (reference: src/Interfaces.jl:800-816) ----------------
+    def allocate_rcv_buffer(self, dtype) -> AbstractPData:
+        return map_parts(
+            lambda t: Table(np.zeros(int(t.ptrs[-1]), dtype=dtype), t.ptrs.copy()),
+            self.lids_rcv,
+        )
+
+    def allocate_snd_buffer(self, dtype) -> AbstractPData:
+        return map_parts(
+            lambda t: Table(np.zeros(int(t.ptrs[-1]), dtype=dtype), t.ptrs.copy()),
+            self.lids_snd,
+        )
+
     def __repr__(self):
         return "Exchanger(...)"
 
@@ -122,13 +135,16 @@ def async_exchange_values(
     values_rcv: AbstractPData,
     values_snd: AbstractPData,
     exchanger: Exchanger,
+    combine_op: Optional[Callable] = None,
 ) -> Token:
     """Pack `values_snd[lids_snd]` -> exchange -> (on wait) unpack into
-    `values_rcv[lids_rcv]`, overwriting. Reference: src/Interfaces.jl:846-889.
+    `values_rcv[lids_rcv]`, combining with `combine_op` (default:
+    overwrite). Reference: src/Interfaces.jl:846-889.
 
     The pack and wire copy happen eagerly; the *unpack* into `values_rcv`
     is deferred to `Token.wait()`, mirroring the reference's chained unpack
-    task (its `t3`).
+    task (its `t3`). `combine_op` must be a NumPy ufunc (e.g. ``np.add``)
+    so ghost->owner assembly accumulates duplicates through ``ufunc.at``.
     """
 
     def _pack(vals, t: Table):
@@ -146,10 +162,50 @@ def async_exchange_values(
     def _unpack_all():
         def _unpack(vals, buf: Table, t: Table):
             vals = np.asarray(vals)
-            vals[t.data] = buf.data[: t.ptrs[-1]]
+            if combine_op is None:
+                vals[t.data] = buf.data[: t.ptrs[-1]]
+            else:
+                combine_op.at(vals, t.data, buf.data[: t.ptrs[-1]])
             return vals
 
         map_parts(_unpack, values_rcv, data_rcv, exchanger.lids_rcv)
         return values_rcv
 
     return Token(wait_fn=_unpack_all)
+
+
+def exchange_values(
+    values_rcv,
+    values_snd=None,
+    exchanger: Exchanger = None,
+    combine_op: Optional[Callable] = None,
+    combine: Optional[Callable] = None,
+):
+    """Blocking wrapper. The two-argument form ``exchange_values(values,
+    exchanger)`` uses the same array as source and destination, the
+    in-place halo update of the reference's `exchange!(values, exchanger)`
+    (src/Interfaces.jl:818-835)."""
+    if exchanger is None and isinstance(values_snd, Exchanger):
+        exchanger, values_snd = values_snd, values_rcv
+    if values_snd is None:
+        check(exchanger is not None, "exchange_values: no exchanger given")
+        values_snd = values_rcv
+    if combine is not None:
+        combine_op = combine
+    t = async_exchange_values(values_rcv, values_snd, exchanger, combine_op)
+    schedule_and_wait(t)
+    return values_rcv
+
+
+def allocate_rcv_buffer(dtype, e: Exchanger) -> AbstractPData:
+    """Reference export parity (src/Interfaces.jl:800-807)."""
+    return e.allocate_rcv_buffer(dtype)
+
+
+def allocate_snd_buffer(dtype, e: Exchanger) -> AbstractPData:
+    """Reference export parity (src/Interfaces.jl:809-816)."""
+    return e.allocate_snd_buffer(dtype)
+
+
+def empty_exchanger(parts: AbstractPData) -> Exchanger:
+    return Exchanger.empty(parts)

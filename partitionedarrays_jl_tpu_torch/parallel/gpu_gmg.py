@@ -25,6 +25,14 @@ off a TPU (`_device_hierarchy`, tpu_gmg.py:71-134):
 
 ``box=False`` (the generic layout and exchange plan, no strided
 embedding) and ``stencil=False`` select the structured routes.
+``strict=True`` (strict-bits mode, the JAX package's
+``PA_TPU_STRICT_BITS=1``) stages every level's operator and every S as
+the ELL lowering on the generic plan (`DeviceMatrix(strict=True)`,
+tpu.py:1370, :1410, :796-805), so no level takes the stencil route (its
+plan is not the box plan) and every transfer is structured, with the
+strided embedding where it applies as the JAX package stages it off a
+TPU (`_box_enabled`, tpu_gmg.py:39, is not tied to strict mode); the PCG
+loop then runs the standard body with E3's dots (tpu.py:827, :2538).
 
 Frames: every level vector lives in the level operator's column frame; S's
 operand and product have their own frames. All frames are compact with the
@@ -36,6 +44,13 @@ is a device flag read once per block of iterations, and on a CUDA device
 the block is a CUDA graph (`gpu_loop.py`); ``plain=True`` runs the
 kernels' plain versions on the same tensors (the comparison path of
 chip_smoke.py).
+
+A hierarchy keeps what it staged (`device_hierarchy`, per backend and
+route keywords) and the solve functions built on it (`gmg_pcg_fn`, per
+backend, tol, maxiter and route keywords, tpu_gmg.py:1193-1204's
+``h._fn_cache``): a second solve with the same key copies its b and x0
+into the captured loop's buffers and replays it. `STATS` counts the
+stagings and the solve functions built, for the tests and chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -61,6 +76,11 @@ from .gpu import (
 )
 from .gpu_box import BoxExchangePlan
 from .pvector import PVector
+
+#: hierarchies staged (`device_hierarchy` cache misses) and GMG-PCG solve
+#: functions built (`gmg_pcg_fn` cache misses), since import; callers
+#: reset or difference them
+STATS = {"stagings": 0, "pcg_fns": 0}
 
 
 def _coarse_rows(h, li: int):
@@ -219,19 +239,18 @@ def _embedding_box_fast_path(lvl, coarse_rows, S, LS, emb):
     return descr
 
 
-def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool) -> dict:
+def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool, strict: bool = False) -> dict:
     """Stage the factored transfer P = S·E of level `li`
-    (tpu_gmg.py:322-405): the stencil S (its DeviceMatrix), the even-point
+    (tpu_gmg.py:322-405): the stencil S (its DeviceMatrix; the ELL
+    lowering on the generic plan with ``strict``), the even-point
     embedding map ``emb`` (coarse owned point -> slot of its even fine
     point in S's column frame; pads point at the trash slot), the ghost ->
     owner assembly plan of S's column range (combine ``add``) and, with
     ``box``, the strided-box embedding ``emb_fast`` where it applies."""
-    from ..models.gmg import interp_stencil_cartesian
-
     lvl = h.levels[li]
     coarse_rows = _coarse_rows(h, li)
-    S = interp_stencil_cartesian(lvl.nfs, lvl.A.rows, dtype=lvl.A.dtype)
-    dS = device_matrix(S, backend, box)
+    S = lvl.S
+    dS = device_matrix(S, backend, box, strict=strict)
     LS = dS.col_layout
     nc_max = max((i.num_oids for i in coarse_rows.partition.part_values()), default=0)
     emb = np.full((LS.P, max(nc_max, 1)), LS.trash, dtype=np.int64)
@@ -246,7 +265,7 @@ def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool) -> di
     out = {
         "dS": dS,
         "emb": torch.from_numpy(emb).to(backend.device),
-        "rev_plan": device_exchange_plan(S.cols, backend, reverse=True, box=box),
+        "rev_plan": device_exchange_plan(S.cols, backend, reverse=True, box=box and not strict),
     }
     if box:
         fast = _embedding_box_fast_path(lvl, coarse_rows, S, LS, emb)
@@ -261,28 +280,31 @@ def route(level: dict) -> str:
     return "stencil" if "stencil" in level else "emb_fast" if "emb_fast" in level else "structured"
 
 
-def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = True) -> dict:
+def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = True,
+                     strict: bool = False) -> dict:
     """Stage every level of a `models.gmg.GMGHierarchy` for the card
     (tpu_gmg.py:71-134): per level the operator, the inverse diagonal in
     its column frame and the transfer: the stencil route first (with
     ``stencil``), else the structured one; then the dense coarse inverse
     and the per-part global positions ``gmap`` of the coarsest owned slots
     (pads -> nc, the extra zero slot of the padded global vector). The
-    stencil route builds no S. Cached on the hierarchy per backend and
-    route keywords."""
+    stencil route builds no S. ``strict`` stages every operator as the ELL
+    lowering on the generic plan (the module docstring). Cached on the
+    hierarchy per backend and route keywords."""
     cache = getattr(h, "_device_cache", None)
     if cache is None:
         cache = h._device_cache = {}
-    key = (backend, box, stencil)
+    key = (backend, box, stencil, strict)
     if key in cache:
         return cache[key]
+    STATS["stagings"] += 1
     levels = []
     for li, lvl in enumerate(h.levels):
-        dA = device_matrix(lvl.A, backend, box)
+        dA = device_matrix(lvl.A, backend, box, strict=strict)
         dinv = DeviceVector.from_pvector(lvl.dinv, backend, dA.col_layout).data
         st = _stage_stencil_transfer(h, li, dA, backend.device, dinv.dtype) if stencil else None
         if st is None:
-            st = _stage_structured_transfer(h, li, backend, box)
+            st = _stage_structured_transfer(h, li, backend, box, strict)
         levels.append({"dA": dA, "dinv": dinv, **st})
     cinv = np.linalg.inv(_dense(gather_psparse(h.coarse_A)))
     coarse_isets = h.coarse_A.rows.partition.part_values()
@@ -453,7 +475,7 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
 
 def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
                     plain: bool = False, box: bool = True, stencil: bool = True,
-                    graph: bool = True, block: Optional[int] = None) -> Callable:
+                    graph: bool = True, block: Optional[int] = None, strict: bool = False) -> Callable:
     """V-cycle-preconditioned CG on the card (tpu_gmg.py:886-985):
     ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``, on the
     transfer routes ``box`` and ``stencil`` select (`device_hierarchy`).
@@ -465,17 +487,22 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
     (`gpu_loop.DeviceLoop`), read once per block of ``block`` iterations
     (`gpu_loop.GMG_BLOCK`), the block replayed as a CUDA graph on a CUDA
     device unless ``graph=False``; level 0's x and r are updated and r.r
-    taken in one sweep (`ops/sweep.py`). ``fn.stats`` describes the last
-    run, ``fn.loop`` is the `gpu_loop.DeviceLoop`."""
+    taken in one sweep (`ops/sweep.py`). With ``strict`` (strict-bits
+    mode, tpu_gmg.py:886 under ``PA_TPU_STRICT_BITS=1``) the hierarchy is
+    staged strict (`device_hierarchy`) and every dot is E3's fixed tree
+    (`_pdot_factory(strict=True)`): the sweep updates x and r, and r.r is
+    E3's dot of the updated r, the JAX package's standard strict body.
+    ``fn.stats`` describes the last run, ``fn.loop`` is the
+    `gpu_loop.DeviceLoop`, ``fn.staged`` the staged hierarchy."""
     from ..ops import sweep as sw
     from . import gpu_loop as gl
 
-    dh = device_hierarchy(h, backend, box, stencil)
+    dh = device_hierarchy(h, backend, box, stencil, strict)
     dA0 = dh["levels"][0]["dA"]
     L0, L0r = dA0.col_layout, dA0.row_layout
     no = L0.no_max
     sl = slice(L0.o0, L0.o0 + no)
-    pdot = _pdot_factory(L0.o0, no)
+    pdot = _pdot_factory(L0.o0, no, strict, plain)
     body_A0 = _spmv_body(dA0, plain=plain)
     vcycle = make_vcycle(h, dh, plain=plain)
     sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
@@ -496,7 +523,11 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
         p[:, sl] = z[:, sl] + beta * p[:, sl]
         q = spmv(p)
         alpha = rz / pdot(p, q)
-        rs_new = sweep(r, q, alpha, live, S["part"], L0.o0, no, x=S["x"], p=p)
+        if strict:
+            sweep(r, q, alpha, live, S["part"], L0.o0, no, x=S["x"], p=p)
+            rs_new = pdot(r, r)
+        else:
+            rs_new = sweep(r, q, alpha, live, S["part"], L0.o0, no, x=S["x"], p=p)
         return gl.finish_step(dict(S, rz_prev=torch.where(live != 0, rz, rz_prev)), S, live, rs_new)
 
     loop = gl.DeviceLoop(step, gl.GMG_BLOCK if block is None else block, graph)
@@ -520,19 +551,51 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
 
     fn.stats = loop.stats  # updated in place by every run
     fn.loop = loop
+    fn.staged = dh
     return fn
+
+
+def gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int, plain: bool = False,
+               box: bool = True, stencil: bool = True, strict: bool = False) -> Callable:
+    """The GMG-PCG solve function of `make_gmg_pcg_fn`, cached on the
+    hierarchy per backend, tol, maxiter and the keywords
+    (tpu_gmg.py:1193-1204, ``h._fn_cache``): a hit reuses the staged
+    hierarchy and the `gpu_loop.DeviceLoop` with its captured graph.
+    An entry keeps on the card the loop's persistent state (level 0's x,
+    r and p frames, the sweep's partials, the residual history of at most
+    `gpu_loop.HIST_MAX` entries), its CUDA graph with the graph's private
+    memory pool (a block's temporaries: every level's V-cycle frames), and
+    the staged hierarchy it runs on (`device_hierarchy`'s entry for its
+    route keywords, shared by every entry with those keywords: each
+    level's operator, inverse diagonal and transfer). Nothing evicts an
+    entry: it lives as long as the hierarchy."""
+    cache = getattr(h, "_fn_cache", None)
+    if cache is None:
+        cache = h._fn_cache = {}
+    key = ("pcg+gmg", backend, float(tol), int(maxiter), bool(plain), bool(box), bool(stencil), bool(strict))
+    if key not in cache:
+        STATS["pcg_fns"] += 1
+        cache[key] = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil,
+                                     strict=strict)
+    return cache[key]
 
 
 def gpu_gmg_pcg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
                 maxiter: Optional[int] = None, verbose: bool = False,
-                plain: bool = False, box: bool = True, stencil: bool = True) -> Tuple[PVector, dict]:
+                plain: bool = False, box: bool = True, stencil: bool = True,
+                strict: bool = False) -> Tuple[PVector, dict]:
     """V-cycle-preconditioned CG on the card, the counterpart of
     `tpu_gmg_pcg` (tpu_gmg.py:1225, `_run_gmg`); the device form of
     ``pcg(A, b, minv=hierarchy)``. ``box=False`` and ``stencil=False``
-    select the generic exchange and the structured transfers."""
+    select the generic exchange and the structured transfers; ``strict``
+    the strict-bits loop (`make_gmg_pcg_fn`). The solve function is
+    `gmg_pcg_fn`'s, cached on the hierarchy. The info dict names the
+    level-0 lowering and the mode under ``lowering`` and ``strict``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "pcg+gmg needs a GPU-backend PVector")
     if maxiter is None:
         maxiter = 4 * int(h.levels[0].A.rows.ngids)
-    solve = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil)
-    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg", box=box)
+    solve = gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil, strict=strict)
+    dA0 = solve.staged["levels"][0]["dA"]
+    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg", dA=dA0,
+                       lowering=dA0.lowering, strict=dA0.strict)

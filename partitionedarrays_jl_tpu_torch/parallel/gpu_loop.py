@@ -60,6 +60,11 @@ HIST_MAX = 4096
 
 State = Dict[str, torch.Tensor]
 
+#: CUDA graphs captured by every `DeviceLoop` since import (callers reset
+#: or difference it): a cached solve function replays its graph and adds
+#: none
+STATS = {"captures": 0}
+
 
 def history(h0: torch.Tensor, maxiter: int) -> torch.Tensor:
     """The fixed-shape residual history of a solve: H = min(maxiter + 1,
@@ -189,5 +194,6 @@ class DeviceLoop:
             dia.LAUNCHES.update(before)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t
+        STATS["captures"] += 1
         self.tally = {k: v for k, v in tally.items() if v}
         self.cuda_graph = g

@@ -108,6 +108,9 @@ class AbstractIndexSet:
         Reference: src/Interfaces.jl:602-627 (`add_gids!`)."""
         raise NotImplementedError
 
+    def has_gids(self, gids) -> np.ndarray:
+        return self.gids_to_lids(gids) >= 0
+
     # --- renumbering ---------------------------------------------------
     def to_lids(self, ids: np.ndarray) -> np.ndarray:
         """In-place gid -> lid renumbering of `ids`
@@ -126,6 +129,9 @@ class AbstractIndexSet:
     def oids_eq(self, other: "AbstractIndexSet") -> bool:
         return np.array_equal(self.oid_to_gid, other.oid_to_gid)
 
+    def hids_eq(self, other: "AbstractIndexSet") -> bool:
+        return np.array_equal(self.hid_to_gid, other.hid_to_gid)
+
     def lids_eq(self, other: "AbstractIndexSet") -> bool:
         return np.array_equal(self.lid_to_gid, other.lid_to_gid)
 
@@ -135,6 +141,17 @@ class AbstractIndexSet:
         lids = other.gids_to_lids(self.lid_to_gid)
         check((lids >= 0).all(), "find_lid_map: gid missing in target")
         return lids
+
+    def touched_hids(self, gids) -> np.ndarray:
+        """Ghost lids whose gids appear in `gids`, deduplicated in
+        first-touch order, returned as hids
+        (reference: src/Interfaces.jl:670-696)."""
+        lids = self.gids_to_lids(_as_gids(gids))
+        ok = lids >= 0
+        ohids = self.lid_to_ohid[lids[ok]]
+        hids = -(ohids[ohids < 0]) - 1
+        _, first = np.unique(hids, return_index=True)
+        return hids[np.sort(first)].astype(INDEX_DTYPE)
 
     def __repr__(self):
         return (
@@ -418,6 +435,17 @@ class CartesianIndexSet(IndexSet):
 # ---------------------------------------------------------------------------
 
 
+class ExtendedIndexRange(IndexSet):
+    """Explicit lid vectors with a contiguous owned gid range, the
+    gathered/main-centric ranges (reference: src/IndexSets.jl:293-341).
+    Inherits IndexSet's explicit storage; the contiguous owned range is
+    recorded so owned lookups stay arithmetic."""
+
+    def __init__(self, part, noids, firstgid, lid_to_gid, lid_to_part):
+        super().__init__(part, lid_to_gid, lid_to_part)
+        self.noids_range = (int(firstgid), int(firstgid) + int(noids))
+
+
 class LinearGidToPart:
     """gid -> owner for 1-D block partitions via searchsorted over
     `part_to_firstgid` (reference: src/IndexSets.jl:174-193)."""
@@ -451,3 +479,83 @@ class CartesianGidToPart:
             for f, c in zip(self.dim_firstids, coords)
         ]
         return np.ravel_multi_index(pcoords, self.part_shape).astype(INDEX_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# free-function API parity with the reference exports
+# ---------------------------------------------------------------------------
+
+
+def get_lid_to_gid(i: AbstractIndexSet) -> np.ndarray:
+    return i.lid_to_gid
+
+
+def get_lid_to_part(i: AbstractIndexSet) -> np.ndarray:
+    return i.lid_to_part
+
+
+def get_oid_to_lid(i: AbstractIndexSet) -> np.ndarray:
+    return i.oid_to_lid
+
+
+def get_hid_to_lid(i: AbstractIndexSet) -> np.ndarray:
+    return i.hid_to_lid
+
+
+def get_lid_to_ohid(i: AbstractIndexSet) -> np.ndarray:
+    return i.lid_to_ohid
+
+
+def get_gid_to_lid(i: AbstractIndexSet):
+    """Vectorized lookup callable (the Dict analog)."""
+    return i.gids_to_lids
+
+
+def touched_hids(i, gids):
+    """Which ghost ids appear in `gids` (dedup, first-touch order).
+    Accepts a single IndexSet, a PData of IndexSets, or a PRange paired
+    with a PData of gid arrays (reference: src/Interfaces.jl:670-696)."""
+    from .backends import AbstractPData, map_parts
+
+    if isinstance(gids, AbstractPData):
+        partition = i.partition if hasattr(i, "partition") else i
+        return map_parts(lambda s, g: s.touched_hids(g), partition, gids)
+    return i.touched_hids(gids)
+
+
+def add_gid(i: AbstractIndexSet, gid: int, owner: int) -> int:
+    return i.add_gid(gid, owner)
+
+
+def _per_part_count(i, attr: str):
+    """Shared body of the num_* free functions: one IndexSet, a PData of
+    IndexSets, or a PRange (reference exports num_gids/num_lids/num_oids/
+    num_hids, src/PartitionedArrays.jl:63-66)."""
+    from .backends import AbstractPData, map_parts
+
+    if hasattr(i, "partition"):  # PRange
+        i = i.partition
+    if isinstance(i, AbstractPData):
+        return map_parts(lambda s: getattr(s, attr), i)
+    return getattr(i, attr)
+
+
+def num_gids(i):
+    """Total global ids of a PRange (`ngids`). Index sets do not record
+    the global count, so only a PRange (or anything carrying `ngids`) is
+    accepted, as in the reference."""
+    if hasattr(i, "ngids"):
+        return i.ngids
+    raise TypeError("num_gids needs a PRange (index sets don't store ngids)")
+
+
+def num_lids(i):
+    return _per_part_count(i, "num_lids")
+
+
+def num_oids(i):
+    return _per_part_count(i, "num_oids")
+
+
+def num_hids(i):
+    return _per_part_count(i, "num_hids")

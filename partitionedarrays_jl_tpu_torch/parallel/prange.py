@@ -552,8 +552,16 @@ def oids_are_equal(a: PRange, b: PRange) -> bool:
     return _all_parts(map_parts(lambda x, y: x.oids_eq(y), a.partition, b.partition))
 
 
+def hids_are_equal(a: PRange, b: PRange) -> bool:
+    return _all_parts(map_parts(lambda x, y: x.hids_eq(y), a.partition, b.partition))
+
+
 def lids_are_equal(a: PRange, b: PRange) -> bool:
     return _all_parts(map_parts(lambda x, y: x.lids_eq(y), a.partition, b.partition))
+
+
+def prange_eq(a: PRange, b: PRange) -> bool:
+    return a.ngids == b.ngids and lids_are_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

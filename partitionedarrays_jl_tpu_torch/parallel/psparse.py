@@ -1,10 +1,12 @@
 """PSparseMatrix: the row-partitioned distributed sparse matrix (L5).
 
 The port's copy of `partitionedarrays_jl_tpu/parallel/psparse.py`
-(reference: src/Interfaces.jl:2108-2757), cut to what the Poisson CG slice
-needs: COO construction, the owned/ghost block split, the host SpMV, and
-the COO assembly migration (`assemble_coo`, `assemble_matrix_from_coo`)
-that builds the multigrid transfers and Galerkin operators.
+(reference: src/Interfaces.jl:2108-2757): COO construction, the owned/ghost
+block split, the host SpMV, the COO assembly migration (`assemble_coo`,
+`assemble_matrix_from_coo`) that builds the FE operators, the multigrid
+transfers and Galerkin operators, its inverse (`exchange_coo`), the
+nonzero-value exchanger of ghost rows (`matrix_exchanger`), the local and
+global matrix views and the triplet exports.
 Per part: a local CSR over (row lids x col lids) keyed by `rows`/`cols`
 PRanges. The host SpMV starts the halo update of b, computes
 ``c_o = A_oo b_o`` while the exchange is pending, then adds ``A_oh b_h``
@@ -17,11 +19,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..ops.sparse import CSRMatrix, compresscoo, csr_block, csr_spmv
+from ..ops.sparse import CSRMatrix, compresscoo, csr_block, csr_spmv, nzindex
 from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE, Table
 from .backends import AbstractPData, map_parts
 from .collectives import exchange
+from .exchanger import Exchanger
 from .index_sets import AbstractIndexSet, GID_DTYPE
 from .prange import (
     PRange, add_gids, add_gids_inplace, oids_are_equal, lids_are_equal, to_lids,
@@ -200,6 +203,61 @@ class PSparseMatrix:
         return self * (-1.0)
 
 
+def matrix_exchanger(values: AbstractPData, rows: PRange, cols: PRange) -> Exchanger:
+    """Build the nonzero-value exchanger for ghost-row halo/assembly
+    (reference: src/Interfaces.jl:2300-2372): for each stored entry in a
+    ghost row, record its nz index and (gi, gj); ship the (gi, gj) pairs to
+    the row owner along the row-halo graph; the owner looks up its own nz
+    index via `nzindex` (consistent sparsity pattern required — checked)."""
+    rex = rows.exchanger  # row-halo neighbor graph
+
+    def _collect(ri: AbstractIndexSet, ci: AbstractIndexSet, A: CSRMatrix, prcv):
+        rows_of_nz = A.row_of_nz()
+        ohid = ri.lid_to_ohid[rows_of_nz]
+        mask = ohid < 0
+        k = np.nonzero(mask)[0].astype(INDEX_DTYPE)
+        gi = ri.lid_to_gid[rows_of_nz[mask]]
+        gj = ci.lid_to_gid[A.indices[mask]]
+        owner = ri.lid_to_part[rows_of_nz[mask]]
+        prcv = np.asarray(prcv)
+        rows_k, rows_gi, rows_gj = [], [], []
+        for q in prcv:
+            sel = owner == q
+            rows_k.append(k[sel])
+            rows_gi.append(gi[sel])
+            rows_gj.append(gj[sel])
+        return (
+            Table.from_rows(rows_k) if rows_k else Table.empty(INDEX_DTYPE),
+            Table.from_rows(rows_gi) if rows_gi else Table.empty(GID_DTYPE),
+            Table.from_rows(rows_gj) if rows_gj else Table.empty(GID_DTYPE),
+        )
+
+    col = map_parts(_collect, rows.partition, cols.partition, values, rex.parts_rcv)
+    k_rcv = map_parts(lambda c: c[0], col)
+    gi_rcv = map_parts(lambda c: c[1], col)
+    gj_rcv = map_parts(lambda c: c[2], col)
+
+    # ship wanted (gi, gj) to the owners along the reversed halo graph
+    gi_snd = exchange(gi_rcv, rex.parts_snd, rex.parts_rcv)
+    gj_snd = exchange(gj_rcv, rex.parts_snd, rex.parts_rcv)
+
+    def _lookup(ri, ci, A, git, gjt):
+        li = ri.gids_to_lids(git.data)
+        lj = ci.gids_to_lids(gjt.data)
+        check((li >= 0).all() and (lj >= 0).all(), "matrix_exchanger: unknown gid on owner")
+        k = nzindex(A, li, lj)
+        check(
+            (k >= 0).all(),
+            "matrix_exchanger: ghost entry absent from owner sparsity pattern",
+        )
+        return Table(k.astype(INDEX_DTYPE), git.ptrs)
+
+    k_snd = map_parts(
+        _lookup, rows.partition, cols.partition, values, gi_snd, gj_snd
+    )
+    return Exchanger(rex.parts_rcv, rex.parts_snd, k_rcv, k_snd)
+
+
 # ---------------------------------------------------------------------------
 # COO-level assembly (reference: src/Interfaces.jl:2406-2492)
 # ---------------------------------------------------------------------------
@@ -274,6 +332,197 @@ def assemble_matrix_from_coo(
     I2, J2, V2 = (map_parts(lambda k_, k=k: k_[k], kept) for k in range(3))
     cols = add_gids(rows0 if cols0 is None else cols0, J2)
     return PSparseMatrix.from_coo(I2, J2, V2, rows0, cols, ids="global")
+
+
+def exchange_coo(
+    I: AbstractPData, J: AbstractPData, V: AbstractPData, rows: PRange
+) -> Tuple[AbstractPData, AbstractPData, AbstractPData]:
+    """Inverse direction (reference async_exchange!(I,J,V,rows):
+    src/Interfaces.jl:2494-2592): owners *replicate* the triplets of rows
+    that other parts hold as ghosts, appending to those parts' COO lists —
+    used to set up overlapping/ghosted matrices."""
+    rex = rows.exchanger
+
+    def _select(ri: AbstractIndexSet, lids_snd: Table, i, j, v):
+        i = np.asarray(i, dtype=GID_DTYPE)
+        j = np.asarray(j, dtype=GID_DTYPE)
+        v = np.asarray(v)
+        lids = ri.gids_to_lids(i)
+        rows_i, rows_j, rows_v = [], [], []
+        for nb in range(len(lids_snd)):
+            wanted = lids_snd[nb]
+            sel = np.isin(lids, wanted)
+            rows_i.append(i[sel])
+            rows_j.append(j[sel])
+            rows_v.append(v[sel])
+        return (
+            Table.from_rows(rows_i) if rows_i else Table.empty(GID_DTYPE),
+            Table.from_rows(rows_j) if rows_j else Table.empty(GID_DTYPE),
+            Table.from_rows(rows_v) if rows_v else Table.empty(v.dtype),
+        )
+
+    sel = map_parts(_select, rows.partition, rex.lids_snd, I, J, V)
+    ti = map_parts(lambda s: s[0], sel)
+    tj = map_parts(lambda s: s[1], sel)
+    tv = map_parts(lambda s: s[2], sel)
+
+    # owners send to the parts ghosting their rows: the forward halo graph
+    ri_rcv = exchange(ti, rex.parts_rcv, rex.parts_snd)
+    rj_rcv = exchange(tj, rex.parts_rcv, rex.parts_snd)
+    rv_rcv = exchange(tv, rex.parts_rcv, rex.parts_snd)
+
+    def _append(i, j, v, rit, rjt, rvt):
+        n = int(rit.ptrs[-1])
+        return (
+            np.concatenate([np.asarray(i, dtype=GID_DTYPE), rit.data[:n]]),
+            np.concatenate([np.asarray(j, dtype=GID_DTYPE), rjt.data[:n]]),
+            np.concatenate([np.asarray(v), rvt.data[:n]]),
+        )
+
+    out = map_parts(_append, I, J, V, ri_rcv, rj_rcv, rv_rcv)
+    return (
+        map_parts(lambda o: o[0], out),
+        map_parts(lambda o: o[1], out),
+        map_parts(lambda o: o[2], out),
+    )
+
+
+# ---------------------------------------------------------------------------
+# views (reference: src/Interfaces.jl:2277-2298)
+# ---------------------------------------------------------------------------
+
+
+class _MatrixViewPart:
+    """Shared read/write/accumulate semantics of the matrix views: reads of
+    entries absent from the sparsity pattern return 0; writes to them raise.
+    Subclasses supply `_nz` (index-space mapping -> nz storage position)
+    and `_kind` for diagnostics."""
+
+    _kind = "matrix_view"
+
+    def _nz(self, i, j):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __getitem__(self, ij):
+        i, j = ij
+        k = self._nz(i, j)
+        out = np.where(k >= 0, self.values.data[np.maximum(k, 0)], 0.0)
+        if np.isscalar(i) and np.isscalar(j):
+            return out.reshape(-1)[0]
+        return out
+
+    def __setitem__(self, ij, v):
+        k = self._nz(*ij)
+        check(bool((np.asarray(k) >= 0).all()),
+              f"{self._kind} write to an entry not stored in parent")
+        self.values.data[k] = v
+
+    def add(self, i, j, v):
+        """Scatter-accumulate (the FEM assembly primitive)."""
+        k = self._nz(i, j)
+        check(bool((np.asarray(k) >= 0).all()),
+              f"{self._kind} add to an entry not stored in parent")
+        np.add.at(self.values.data, np.asarray(k), np.asarray(v))
+
+
+class LocalMatrixViewPart(_MatrixViewPart):
+    """One part of `local_view(A, rows, cols)`: A's local matrix re-indexed
+    by another (rows, cols) pair's lids
+    (reference LocalView semantics: src/Interfaces.jl:1994-2035)."""
+
+    __slots__ = ("values", "row_map", "col_map")
+    _kind = "local_view"
+
+    def __init__(self, values: CSRMatrix, row_map: np.ndarray, col_map: np.ndarray):
+        self.values = values
+        self.row_map = np.asarray(row_map)
+        self.col_map = np.asarray(col_map)
+
+    @property
+    def shape(self):
+        return (len(self.row_map), len(self.col_map))
+
+    def _nz(self, i, j):
+        li = self.row_map[np.asarray(i)]
+        lj = self.col_map[np.asarray(j)]
+        check(
+            bool((li >= 0).all()) and bool((lj >= 0).all()),
+            "local_view: index not present in the parent matrix's lids",
+        )
+        return nzindex(self.values, li, lj)
+
+
+class GlobalMatrixViewPart(_MatrixViewPart):
+    """One part of `global_view(A)`: entries addressed by (gi, gj) global
+    ids (reference GlobalView: src/Interfaces.jl:2037-2069)."""
+
+    __slots__ = ("values", "rows_iset", "cols_iset", "shape")
+    _kind = "global_view"
+
+    def __init__(self, values: CSRMatrix, rows_iset, cols_iset, shape):
+        self.values = values
+        self.rows_iset = rows_iset
+        self.cols_iset = cols_iset
+        self.shape = shape
+
+    def _nz(self, gi, gj):
+        li = self.rows_iset.gids_to_lids(np.asarray(gi))
+        lj = self.cols_iset.gids_to_lids(np.asarray(gj))
+        check(
+            bool((li >= 0).all()) and bool((lj >= 0).all()),
+            "global_view: gid not local on this part",
+        )
+        return nzindex(self.values, li, lj)
+
+
+def psparse_local_view(A: PSparseMatrix, rows: PRange = None, cols: PRange = None):
+    rows = rows if rows is not None else A.rows
+    cols = cols if cols is not None else A.cols
+
+    def _mk(vri, vci, ri, ci, M):
+        rm = ri.gids_to_lids(vri.lid_to_gid)
+        cm = ci.gids_to_lids(vci.lid_to_gid)
+        return LocalMatrixViewPart(M, rm, cm)
+
+    return map_parts(
+        _mk, rows.partition, cols.partition,
+        A.rows.partition, A.cols.partition, A.values,
+    )
+
+
+def psparse_global_view(A: PSparseMatrix, rows: PRange = None, cols: PRange = None):
+    rows = rows if rows is not None else A.rows
+    cols = cols if cols is not None else A.cols
+    shape = (rows.ngids, cols.ngids)
+    return map_parts(
+        lambda ri, ci, M: GlobalMatrixViewPart(M, ri, ci, shape),
+        rows.partition, cols.partition, A.values,
+    )
+
+
+def psparse_local_values(A: PSparseMatrix) -> AbstractPData:
+    """The raw per-part local CSR matrices (lid x lid)."""
+    return A.values
+
+
+def psparse_owned_triplets(A: PSparseMatrix) -> AbstractPData:
+    """Per-part (gi, gj, v) of the entries stored on OWNED rows, global
+    numbering — the redistribution/serialization form. Nonzero entries on
+    ghost rows indicate unassembled contributions that would silently
+    vanish; that is rejected (assemble them into their owners first, e.g.
+    through `matrix_exchanger`'s reverse plan)."""
+
+    def _own(iset, t):
+        gi, gj, v = t
+        owned = iset.lid_to_ohid[iset.gids_to_lids(np.asarray(gi))] >= 0
+        check(
+            bool(np.all(np.asarray(v)[~owned] == 0)),
+            "matrix holds nonzero unassembled ghost-row entries; assemble "
+            "them into their owners before redistributing/serializing",
+        )
+        return gi[owned], gj[owned], v[owned]
+
+    return map_parts(_own, A.rows.partition, psparse_global_triplets(A))
 
 
 def psparse_global_triplets(A: PSparseMatrix) -> AbstractPData:

@@ -16,7 +16,7 @@ from typing import Callable, Tuple
 
 import numpy as np
 
-from ..utils.helpers import check
+from ..utils.helpers import check, checks_enabled
 from ..utils.table import Table
 from .backends import (
     MAIN,
@@ -105,7 +105,7 @@ class SequentialData(AbstractPData):
     # Reference: src/SequentialBackend.jl:73-124.
     # ------------------------------------------------------------------
 
-    def _gather(self) -> "SequentialData":
+    def _gather(self, to_all: bool = False) -> "SequentialData":
         vals = self.parts
         if _is_vector_payload(vals):
             full = Table.from_rows([np.asarray(v) for v in vals])
@@ -113,6 +113,8 @@ class SequentialData(AbstractPData):
         else:
             full = np.asarray(vals)
             empty = full[:0]
+        if to_all:
+            return self._like([_copy_payload(full) for _ in range(self.num_parts)])
         return self._like([full if p == MAIN else _copy_payload(empty) for p in range(self.num_parts)])
 
     def _scatter(self) -> "SequentialData":
@@ -145,7 +147,8 @@ class SequentialData(AbstractPData):
         (reference: src/SequentialBackend.jl:126-200). Values may be scalars
         per neighbor (NumPy 1-D) or Tables (one row per neighbor).
         """
-        _check_rcv_and_snd_match(parts_rcv, parts_snd)
+        if checks_enabled():
+            _check_rcv_and_snd_match(parts_rcv, parts_snd)
         n = self.num_parts
         for p in range(n):
             snd_ids = np.asarray(parts_snd.parts[p])

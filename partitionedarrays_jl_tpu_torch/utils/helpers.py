@@ -1,15 +1,22 @@
 """Contract-enforcement and Krylov info helpers.
 
-The port's own copy of the parts of `partitionedarrays_jl_tpu/utils/helpers.py`
-that its slices need: `check`, strict mode's fixed-tree `pairwise_sum`, the
+The port's own copy of `partitionedarrays_jl_tpu/utils/helpers.py` (the
+reference's error macros, src/Helpers.jl:6-61): `check` and its switch,
+`notimplemented`/`unreachable`, strict mode's fixed-tree `pairwise_sum`, the
 tolerance-floor warning and the info dict shared by the host and device CG
-loops.
+loops. The JAX package strips contract checks with ``PA_TPU_CHECKS=0``; the
+port reads no environment: set `CHECKS_ENABLED` to False instead.
 """
 from __future__ import annotations
 
 import warnings
 
 import numpy as np
+
+#: contract checks on (`check` raises); False strips them, the
+#: ``--boundscheck=no`` analog
+CHECKS_ENABLED = True
+
 
 class AbstractMethodError(NotImplementedError):
     pass
@@ -23,14 +30,28 @@ def abstractmethod(obj=None, name: str = "") -> None:
     )
 
 
+def notimplemented(msg: str = "this case is not yet implemented") -> None:
+    raise NotImplementedError(msg)
+
+
 def notimplementedif(condition: bool, msg: str = "this case is not yet implemented") -> None:
     if condition:
-        raise NotImplementedError(msg)
+        notimplemented(msg)
+
+
+def unreachable(msg: str = "this line of code cannot be reached") -> None:
+    raise AssertionError(msg)
+
+
+def checks_enabled() -> bool:
+    """Whether `check` asserts (the module switch `CHECKS_ENABLED`)."""
+    return CHECKS_ENABLED
 
 
 def check(condition, msg: str = "check failed") -> None:
-    """Cheap contract assertion."""
-    if not condition:
+    """Cheap contract assertion, stripped when `CHECKS_ENABLED` is False
+    (reference: src/Helpers.jl:50-61, `@check`)."""
+    if CHECKS_ENABLED and not condition:
         raise AssertionError(msg)
 
 

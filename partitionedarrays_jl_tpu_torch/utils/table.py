@@ -34,6 +34,18 @@ def length_to_ptrs(counts: np.ndarray) -> np.ndarray:
     return ptrs
 
 
+#: the reference's export name (the "!" dropped: 0-based ptrs need no shift)
+counts_to_ptrs = length_to_ptrs
+
+
+def rewind_ptrs(ptrs: np.ndarray) -> np.ndarray:
+    """Undo one round of fill-advancing, in place: ``ptrs[i+1] = ptrs[i]``,
+    ``ptrs[0] = 0`` (reference: src/Helpers.jl:148-156)."""
+    ptrs[1:] = ptrs[:-1]
+    ptrs[0] = 0
+    return ptrs
+
+
 def ptrs_to_counts(ptrs: np.ndarray) -> np.ndarray:
     """Inverse of :func:`length_to_ptrs`. Reference: src/Helpers.jl:139-146."""
     return np.diff(ptrs).astype(INDEX_DTYPE)
@@ -107,3 +119,17 @@ class Table:
         rows = ", ".join(repr(list(self[i])) for i in range(min(len(self), 8)))
         suffix = ", ..." if len(self) > 8 else ""
         return f"Table([{rows}{suffix}])"
+
+
+def get_data(t: Table) -> np.ndarray:
+    """Reference export parity: src/Helpers.jl:70."""
+    return t.data
+
+
+def get_ptrs(t: Table) -> np.ndarray:
+    """Reference export parity: src/Helpers.jl:71."""
+    return t.ptrs
+
+
+def empty_table(dtype=np.float64) -> Table:
+    return Table.empty(dtype)

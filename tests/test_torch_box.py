@@ -395,12 +395,24 @@ def gmg_case(request):
     j = pa.prun(jax_driver, pa.tpu, (2, 2, 2))
 
     def port_driver(parts):
-        rows = pt.cartesian_partition(parts, ns, pt.no_ghost)
-        e = j["cols"]
-        cols = interop.prange_from_arrays(parts, rows.ngids, e["lid_to_gid"], e["lid_to_part"],
-                                          grid_shape=e["grid_shape"], boxes=e["boxes"])
-        A = interop.psparse_from_csr(rows, cols, j["csr"])
-        b = interop.pvector_from_values(rows, j["b"])
+        if kind == "periodic":
+            # the port's own periodic assembly, the JAX package's arrays bit for bit
+            A, b, _, _ = pt.assemble_poisson_periodic(parts, ns, shift=1.0)
+            got = _iset_arrays(A.cols)
+            assert got["grid_shape"] == j["cols"]["grid_shape"] and got["boxes"] == j["cols"]["boxes"]
+            for k in ("lid_to_gid", "lid_to_part"):
+                assert all(np.array_equal(u, v) for u, v in zip(got[k], j["cols"][k]))
+            for M, c in zip(A.values.part_values(), j["csr"]):
+                assert all(np.array_equal(u, v) for u, v in zip(_csr(M)[:3], c[:3]))
+            for v, w in zip(b.values.part_values(), j["b"]):
+                assert np.asarray(v).tobytes() == np.asarray(w).tobytes()
+        else:
+            rows = pt.cartesian_partition(parts, ns, pt.no_ghost)
+            e = j["cols"]
+            cols = interop.prange_from_arrays(parts, rows.ngids, e["lid_to_gid"], e["lid_to_part"],
+                                              grid_shape=e["grid_shape"], boxes=e["boxes"])
+            A = interop.psparse_from_csr(rows, cols, j["csr"])
+            b = interop.pvector_from_values(rows, j["b"])
         h = pt.gmg_hierarchy(parts, A, ns, coarse_threshold=ct)
         x, info = pt.pcg(A, b, minv=h, tol=GMG_TOL)
         _, info_s = pt.pcg(A, b, minv=h, tol=GMG_TOL, stencil=False)

@@ -1655,3 +1655,109 @@ def test_strict_block_cg_on_card():
         assert info["iterations_per_column"][k] == solo[k]["iterations"]
         assert np.asarray(info["columns"][k]["residuals"]).tobytes() == np.asarray(solo[k]["residuals"]).tobytes()
         assert xg[k].tobytes() == xs[k].tobytes()
+
+
+def test_strict_gmg_pcg_on_card():
+    """Strict GMG-PCG on the card (every level and S on the ELL lowering
+    and the generic plan, E1 in both modes, E3's dots), 12^3 Poisson on
+    (2,2,2) parts, f64, decoupled, coarse_threshold=30: the port's
+    sequential strict solve's iterations, the solution to 1e-12 relative
+    (rounding: the V-cycle's products are not the host's); E3 1 + 3 per
+    device iteration; the kernel path bit for bit the plain versions'."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+
+    def drive(parts, plain):
+        A, _, xe, x0 = pt.assemble_poisson(parts, (12, 12, 12))
+        b = A.mul_into(pt.PVector.full(0.0, A.rows), xe, strict=True)
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (12, 12, 12), coarse_threshold=30)
+        if plain:
+            x, info = gpu_gmg.gpu_gmg_pcg(h, bh, tol=1e-10, plain=True, strict=True)
+        else:
+            x, info = pt.pcg(Ah, bh, minv=h, tol=1e-10, strict=True)
+        return pt.gather_pvector(x), info
+
+    xs, info_s = pt.prun(drive, pt.sequential, (2, 2, 2), False)
+    dia.reset_launches()
+    xg, info = pt.prun(drive, pt.GPUBackend(), (2, 2, 2), False)
+    launches = dict(dia.LAUNCHES)
+    xp, info_p = pt.prun(drive, pt.GPUBackend(), (2, 2, 2), True)
+    assert info["strict"] and info["lowering"] == "ell" and info["device_loop"]["loop"] == "graph"
+    assert info["iterations"] == info_s["iterations"] == info_p["iterations"]
+    assert np.linalg.norm(xg - xs) <= 1e-12 * np.linalg.norm(xs)
+    assert xg.tobytes() == xp.tobytes()
+    dev_it = info["device_loop"]["device_iterations"]
+    assert launches["pairwise_dot"] == 1 + 3 * dev_it and launches["dia_coded_spmv"] == 0
+    assert launches["ell_spmv"] > 0 and launches["box_stencil_apply"] == 0
+
+
+def test_fem_q1_cg_matches_plain_on_card():
+    """The Q1 model's fused CG on the card (the 9-point operator, coded)
+    at 64 x 64 nodes on (2,2) parts: the plain path's and the sequential
+    backend's iterations, err < 1e-5, the kernel solve bit for bit the
+    plain one's."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import gpu_cg
+
+    def drive(parts, plain):
+        A, b, xe, x0 = pt.assemble_fem_q1(parts, (64, 64))
+        if plain:
+            x, info = gpu_cg(A, b, x0=x0, tol=1e-10, maxiter=4000, plain=True)
+        else:
+            x, info = pt.cg(A, b, x0=x0, tol=1e-10, maxiter=4000)
+        return pt.gather_pvector(x), float((x - xe).norm()), info
+
+    x, err, info = pt.prun(drive, pt.GPUBackend(), (2, 2), False)
+    xp, err_p, info_p = pt.prun(drive, pt.GPUBackend(), (2, 2), True)
+    _, err_s, info_s = pt.prun(drive, pt.sequential, (2, 2), False)
+    assert info["lowering"] == "coded" and info["cg_body"] == "fused" and info["converged"]
+    assert info["iterations"] == info_p["iterations"] == info_s["iterations"]
+    assert err < 1e-5 and abs(err - err_s) < 1e-9
+    assert x.tobytes() == xp.tobytes()
+
+
+def test_heat_march_captures_once_on_card():
+    """The heat march at 12^3 on (2,2,2) parts, 8 steps: one staging, one
+    solve function, one CUDA graph capture over the march; per-step
+    iterations the sequential march's."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg, gpu_loop
+
+    def drive(parts):
+        return pt.heat_transient_driver(parts, (12, 12, 12), dt=0.5, nsteps=8)
+
+    before = {**gpu_gmg.STATS, **gpu_loop.STATS}
+    err, its = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+    after = {**gpu_gmg.STATS, **gpu_loop.STATS}
+    assert {k: after[k] - before[k] for k in before} == {"stagings": 1, "pcg_fns": 1, "captures": 1}
+    err_s, its_s = pt.prun(drive, pt.sequential, (2, 2, 2))
+    assert its == its_s
+    np.testing.assert_allclose(err, err_s, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [64, 257], ids=["n64", "n257"])
+def test_k1_k2_on_the_q1_operator(n):
+    """K1 and K2 on the Q1 model's 9-point operator (f64, (2,2) parts of
+    equal and unequal boxes, the decode its staging takes) torch.equal to
+    their plain versions."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import device_matrix
+
+    A = pt.prun(lambda parts: pt.assemble_fem_q1(parts, (n, n))[0], pt.GPUBackend(), (2, 2))
+    dA = device_matrix(A, A.values.backend)
+    # 9 diagonals on equal boxes; unequal boxes (n = 257) shift some
+    # parts' row strides, so the union of offsets is wider
+    assert dA.dia_mode == "coded" and len(dA.coded.offsets) >= 9
+    op, P, wx, wy = dA.coded, dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
+    rng = np.random.default_rng(n)
+
+    def frame():
+        return torch.from_numpy(rng.standard_normal((P, wx))).cuda()
+
+    x, r, pprev = frame(), frame(), frame()
+    beta = torch.tensor(0.37, dtype=torch.float64, device="cuda")
+    assert torch.equal(dia.dia_coded_spmv(op, x, wy), dia.dia_coded_spmv_plain(op, x, wy))
+    yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
+    yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)

@@ -229,7 +229,7 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="agglomeration"):
             pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50, agg_threshold=10)
         h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50)
-        with pytest.raises(NotImplementedError, match="Queue D item 6"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             pt.gmg_solve(h, bh, tol=1e-8)  # the stationary iteration on the card
         return jacobi["iterations"]
 

@@ -38,7 +38,14 @@ The gate (BASELINE.md): strict CG on the 3-D Poisson driver, 6^3 on
   sequential strict solo solve of that column;
 * the repair this slice needed first: the device loop's square roots
   (`gpu_loop.sqrt_rn`) bit for bit NumPy's;
-* default mode unchanged: the Poisson operator keeps the coded lowering.
+* default mode unchanged: the Poisson operator keeps the coded lowering;
+* strict GMG-PCG (``pcg(A, b, minv=hierarchy, strict=True)``) on the
+  device path and the sequential backend against the JAX package's
+  ``pa.tpu`` and ``pa.sequential`` under ``PA_TPU_STRICT_BITS=1``, on
+  (12,12,12) and (10,9,7), decoupled, coarse_threshold=30: equal
+  iterations, histories and solutions to ``GMG_STRICT_RTOL`` (not bits:
+  neither package's V-cycle is the host's); every level on ELL and the
+  generic plan; another ``lowering`` raises.
 """
 import os
 
@@ -276,6 +283,116 @@ def test_default_mode_unaffected():
         return d0.dia_mode, d0.lowering, d0.strict, d1.lowering, d1.strict, d1.col_layout.box_info is None
 
     assert pt.prun(drive, CPU, (2, 2, 2)) == ("coded", "coded", False, "ell", True, True)
+
+
+# ---------------------------------------------------------------------------
+# strict GMG-PCG (tpu_gmg.py:886 under PA_TPU_STRICT_BITS=1)
+# ---------------------------------------------------------------------------
+
+#: strict GMG-PCG agrees with the sequential strict solve (and the JAX
+#: package's) to rounding, not in bits: the V-cycle's products are not the
+#: host's on either side. Solutions to this relative 2-norm, histories to
+#: this relative to their first entry
+GMG_STRICT_RTOL = 1e-12
+GMG_STRICT_CASES = {"12^3": (12, 12, 12), "10x9x7": (10, 9, 7)}
+
+
+def _jax_strict_gmg(parts, ns):
+    A, b, xe, x0 = jax_assemble_poisson(parts, ns)
+    Ah, bh = pa.decouple_dirichlet(A, b)
+    h = pa.gmg_hierarchy(parts, Ah, ns, coarse_threshold=30)
+    x, info = pa.pcg(Ah, bh, minv=h, tol=1e-10)
+    return pa.gather_pvector(x), info["iterations"], np.asarray(info["residuals"])
+
+
+def _port_strict_gmg(parts, ns):
+    A, _, xe, x0 = pt.assemble_poisson(parts, ns)
+    b = A.mul_into(pt.PVector.full(0.0, A.rows), xe, strict=True)
+    Ah, bh = pt.decouple_dirichlet(A, b)
+    h = pt.gmg_hierarchy(parts, Ah, ns, coarse_threshold=30)
+    x, info = pt.pcg(Ah, bh, minv=h, tol=1e-10, strict=True)
+    return pt.gather_pvector(x), info
+
+
+def _close(x, hist, x_ref, hist_ref):
+    assert np.linalg.norm(x - x_ref) <= GMG_STRICT_RTOL * np.linalg.norm(x_ref)
+    np.testing.assert_allclose(hist, hist_ref, rtol=0, atol=GMG_STRICT_RTOL * hist_ref[0])
+
+
+@pytest.fixture(scope="module", params=sorted(GMG_STRICT_CASES))
+def strict_gmg_case(request):
+    """Both packages' strict GMG-PCG on (2,2,2) parts, decoupled,
+    coarse_threshold=30: the JAX package on ``pa.tpu`` and ``pa.sequential``,
+    the port on ``GPUBackend(device="cpu")`` and its sequential backend."""
+    ns = GMG_STRICT_CASES[request.param]
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PA_TPU_STRICT_BITS", "1")
+    mp.setenv("PA_TPU_STENCIL_FAST", "0")
+    try:
+        jax = {"gpu": pa.prun(_jax_strict_gmg, pa.tpu, (2, 2, 2), ns),
+               "seq": pa.prun(_jax_strict_gmg, pa.sequential, (2, 2, 2), ns)}
+    finally:
+        mp.undo()
+    port = {"gpu": pt.prun(_port_strict_gmg, CPU, (2, 2, 2), ns),
+            "seq": pt.prun(_port_strict_gmg, pt.sequential, (2, 2, 2), ns)}
+    return jax, port
+
+
+@pytest.mark.parametrize("side", ["gpu", "seq"])
+def test_strict_gmg_pcg_matches_jax(strict_gmg_case, side):
+    """The port's strict GMG-PCG on the device path (against ``pa.tpu``) and
+    on its sequential backend (against ``pa.sequential``): equal iterations,
+    histories and solutions to `GMG_STRICT_RTOL`; the device path also
+    against the port's sequential strict solve, and its info names the
+    device loop, the ELL lowering and strict mode."""
+    jax, port = strict_gmg_case
+    x, info = port[side]
+    xj, itj, hj = jax[side]
+    assert info["converged"] and info["iterations"] == itj
+    _close(x, np.asarray(info["residuals"]), xj, hj)
+    if side == "gpu":
+        xs, info_s = port["seq"]
+        assert info["iterations"] == info_s["iterations"] and "device_loop" not in info_s
+        _close(x, np.asarray(info["residuals"]), xs, np.asarray(info_s["residuals"]))
+        assert info["lowering"] == "ell" and info["strict"]
+        assert info["device_loop"]["loop"] == "eager" and info["device_loop"]["device_iterations"] >= itj
+
+
+def test_strict_gmg_pcg_stages_ell_on_the_generic_plan():
+    """Every level operator and every S of the strict hierarchy is the ELL
+    lowering on the generic plan; no level takes the stencil route; the
+    default hierarchy is a separate cache entry."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (12, 12, 12))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (12, 12, 12), coarse_threshold=30)
+        dh = gpu_gmg.device_hierarchy(h, CPU, strict=True)
+        d0 = gpu_gmg.device_hierarchy(h, CPU)
+        return ([(l["dA"].lowering, l["dS"].lowering, l["dA"].col_layout.box_info is None, gpu_gmg.route(l))
+                 for l in dh["levels"]], [gpu_gmg.route(l) for l in d0["levels"]], dh is d0)
+
+    strict, default, same = pt.prun(drive, CPU, (2, 2, 2))
+    assert all(s[:3] == ("ell", "ell", True) and s[3] != "stencil" for s in strict)
+    assert "stencil" in default and not same
+
+
+def test_gmg_pcg_other_lowering_raises():
+    """`lowering=` other than "auto" with a hierarchy still raises on the
+    device path, naming the ROADMAP item that would port it."""
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (8, 8, 8))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            pt.pcg(Ah, bh, minv=h, lowering="bsr")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            pt.pcg(Ah, bh, minv=h, lowering="ell", strict=True)
+        return True
+
+    assert pt.prun(drive, CPU, (2, 2, 2))
 
 
 # ---------------------------------------------------------------------------
