@@ -11,7 +11,9 @@ multigrid-preconditioned CG at 192^3 float32, through `prun`,
 tet-elasticity Jacobi PCG at 64^3 nodes float64 (`assemble_elasticity_tet`,
 a non-band lowering), strict-bits CG and the block solves on the non-band
 lowerings and in strict mode; strict GMG-PCG, the 2-D Q1 FE model at
-2048^2 nodes and the transient heat march at 128^3 — and holds every kernel against its plain
+1024^2 nodes and the transient heat march at 96^3; the nonsymmetric
+advection FV model at 192^3 float64 (BiCGStab, GMRES), MINRES, Chebyshev,
+FGMRES with the V-cycle and the differentiable solve — and holds every kernel against its plain
 PyTorch version (twenty-two kernels: K1-K4, the stencil, the CG sweep and
 the V-cycle epilogue; K2 with minv, the sweep's precond and block forms,
 the two block SpMMs and the block dot's products of Jacobi PCG and the
@@ -208,20 +210,49 @@ Phases, one JSON line each:
    staged strict, E1 in both modes held on every level of it, its
    fixed-trip seconds per iteration against the default GMG-PCG's; the
    Q1 model (`fem_q1_driver` on (8,8) and (9,7), err < 1e-5; 512^2
-   against the plain path; 2048^2 f64 on (2,2) through `assemble_fem_q1`
+   against the plain path; 1024^2 f64 on (2,2) through `assemble_fem_q1`
    and `cg`: assembly seconds with the COO migration apart, on the box
    and the generic plan the staging seconds, plan, lowering and decode,
    fixed-trip seconds per iteration and one solve to 1e-10; K1, K2, the
    boundary kernel and the sweep torch.equal to plain on its 9-diagonal
    operator's frames, K1 and K2 timed); the heat march
    (`heat_transient_driver` at 12^3 against the sequential march and the
-   step-by-step march; 128^3 f64 on (2,2,2), 20 steps through the model's
+   step-by-step march; 96^3 f64 on (2,2,2), 20 steps through the model's
    own functions: one staging, one solve function, one capture, each
    step's iterations and host-included seconds, launches by formula;
    every kernel held on the march's staged hierarchy; the last step
    through the plain versions and graph against eager; a later step's
    split between host sections and device time); the card's peak
    memory;
+4i. the rest of the Krylov family (`parallel/gpu_krylov.py`, FGMRES-GMG)
+   and the advection FV model (`models/advection_fv.py`): at 192^3 f64 on
+   one part (the main cell's width, the JAX driver's velocity (1, 1.5, 2),
+   D = 1) `advection_fv_driver`'s BiCGStab (tol 1e-12, maxiter 4000; error < 1e-5),
+   right-Jacobi BiCGStab and GMRES(30) at a fixed maxiter (GMRES_MAXITER,
+   the relative residual it reaches), each with K1 launches by formula
+   (BiCGStab 1 + 2 per device iteration, GMRES 1 + 31 per cycle), the
+   plain path's iterations and x (to 1e-12 of max |x|), graph against
+   eager and fixed-trip seconds per iteration; a profile of a BiCGStab
+   block split between K1 and the eager ops; K1 on the operator
+   torch.equal to its plain version and timed (`advection_kernel_times`);
+   at 48^3 f64 on (2,2,2) stacked parts `advection_fv_driver` on the box
+   plan (K1 and E1's boundary mode by formula, both held against their
+   plain versions) and `gpu_bicgstab` on the generic plan against the
+   sequential backend (both converged, |Δ iterations| <= 2, errors < 1e-5,
+   |Δ error| < 1e-8: tests/test_advection_fv.py:33-47 of the JAX
+   package); on phase 2b's decoupled 192^3 f32 operator and hierarchy
+   MINRES to 1e-5 beside CG's iterations, Chebyshev with the bounds of
+   `lanczos_bounds` (at most CHEB_MAXITER iterations, the residual it
+   reaches) and FGMRES-GMG (restart 10, tol 1e-5) beside GMG-PCG's
+   iterations and seconds per iteration, launches by `gmg_launches` per
+   Arnoldi step (`fgmres_gmg_launches`), each with the plain path and
+   graph against eager (FGMRES-GMG over three fixed cycles); FGMRES-GMG on
+   the 48^3 f64 (2,2,2) hierarchy against the host `fgmres(minv=h)`
+   (|Δ iterations| <= 1, tests/test_gmg.py:360); the differentiable solve
+   on a decoupled 48^3 f64 (2,2,2) Poisson: one forward and one backward on
+   one cached solve function (one capture), the vector-Jacobian product
+   torch.equal to a forward solve of the cotangent and a central finite
+   difference along a seeded direction within DIFF_FD_RTOL;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -292,8 +323,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from partitionedarrays_jl_tpu_torch import (  # noqa: E402
-    PSparseMatrix, PVector, add_gids, assemble_poisson, cartesian_partition, cg, decouple_dirichlet,
-    gather_pvector, gmg_hierarchy, jacobi_preconditioner, map_parts, no_ghost, pcg, poisson_fdm_driver, prun, sequential,
+    PSparseMatrix, PVector, add_gids, advection_fv_driver, assemble_advection_fv, assemble_poisson, bicgstab,
+    cartesian_partition, cg, chebyshev_solve, decouple_dirichlet, fgmres, gather_pvector, gmg_hierarchy, gmres,
+    gpu_bicgstab, gpu_chebyshev, gpu_gmres, gpu_minres, jacobi_preconditioner, lanczos_bounds, make_diff_solve_fn,
+    map_parts, minres, no_ghost, pcg, poisson_fdm_driver, prun, sequential,
 )
 from partitionedarrays_jl_tpu_torch.ops import dia  # noqa: E402
 from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix  # noqa: E402
@@ -345,15 +378,32 @@ STRICT_BLOCK_K = 3  # ragged columns of the strict (2,2,2) block CG
 STRICT_GMG_CASES = ((12, 30), (12, 500), (48, 30), (48, 500))
 TOL_STRICT_GMG = 1e-10
 GMG_STRICT_RTOL = 1e-12
-N_Q1 = 2048  # Q1 nodes a dimension (4,194,304 DOFs, f64, (2,2) parts)
+N_Q1 = 1024  # Q1 nodes a dimension (1,048,576 DOFs, f64, (2,2) parts; 2048^2 until the time budget of phase 4i)
 N_Q1_CHECK = 512  # the Q1 cell held against the plain path
 TOL_Q1 = 1e-10
 Q1_MAXITER = 20000
-N_HEAT = 128  # heat march cells a dimension (f64, (2,2,2) parts); 192^3 costs ~24 s more host planning
+N_HEAT = 96  # heat march cells a dimension (f64, (2,2,2) parts; 128^3 until the time budget of phase 4i)
 HEAT_DT = 2.0
 HEAT_STEPS = 20
 TOL_HEAT = 1e-10
 HEAT_CT = 500  # the march's coarse_threshold
+N_ADV = 192  # the advection FV model on one part (f64, 7,077,888 DOFs), the main cell's width
+N_ADV_MULTI = 48  # the advection model on (2,2,2) stacked parts (f64)
+TOL_ADV = 1e-12  # advection_fv_driver's tolerance
+ADV_MAXITER = 4000  # advection_fv_driver's maxiter
+BICG_TRIPS = (20, 220)  # fixed trips of the BiCGStab seconds per iteration (blocks of 8)
+GMRES_RESTART = 30
+GMRES_MAXITER = 300  # GMRES(30) on the advection operator: ten cycles, the residual it reaches reported
+GMRES_TRIPS = (60, 180)  # two and six cycles
+CHEB_MAXITER = 1600  # Chebyshev at 192^3 f32: 100 legs at most
+CHEB_TRIPS = (32, 352)  # two and 22 legs
+FGMRES_RESTART = 10
+FGMRES_TRIPS = (20, 40)  # two and four cycles (a first run of one block captures no graph)
+TOL_FGMRES_MULTI = 1e-9  # tests/test_gmg.py:360's tolerance, on the 48^3 f64 (2,2,2) hierarchy
+N_DIFF = 48  # the differentiable solve's decoupled Poisson, f64 on (2,2,2)
+TOL_DIFF = 1e-10
+DIFF_EPS = 1e-2  # the central difference's step along a direction scaled to |b|
+DIFF_FD_RTOL = 1e-5  # the finite difference against the vector-Jacobian product (the loss is quadratic in b)
 
 #: the forms the kernels line lists; bsr_spmv_boundary_slab is E2's
 #: boundary kernel on the slabs of the 4-part SD block PCG (one kernel takes
@@ -756,14 +806,19 @@ def device_iterations(info):
     return info["device_loop"]["device_iterations"]
 
 
-def graph_vs_eager(path, make_fn, b, x0, *args):
+def graph_vs_eager(path, make_fn, b, x0, *args, per_step=None):
     """One solve through the device-resident loop replayed as CUDA graphs
     and through the same loop run eagerly on the card (``graph=False``): x
     torch.equal, equal iterations, rs and history (NaN past the last
     iteration in both); the graph loop's block, device iterations, replays
     and capture seconds. ``make_fn(graph)`` builds the solve function,
     called as ``fn(b, x0, *args)``; a block solve's iterations are per
-    column (the line holds the most)."""
+    column (the line holds the most). The loops of CG, block CG and
+    GMG-PCG compute their flag at the top of a step, so the device runs
+    ``block`` * (iterations // block + 1) steps; those of `gpu_krylov.py`
+    and FGMRES-GMG (``per_step``: the iterations a step takes, a Chebyshev
+    leg or a restart cycle) at its end, so ``block`` * ceil(steps / block)
+    with steps = ceil(iterations / per_step)."""
     fe, fg = make_fn(False), make_fn(True)
     xe, rse, _, ite, he = fe(b, x0, *args)
     xg, rsg, _, itg, hg = fg(b, x0, *args)
@@ -776,11 +831,17 @@ def graph_vs_eager(path, make_fn, b, x0, *args):
     line = {"phase": "loop_graph_vs_eager", "path": path, "iterations": itg, "eager_iterations": ite,
             "block": st["block"], "device_iterations": st["device_iterations"], "replays": st["replays"],
             "capture_s": st["capture_s"], "equal": equal}
+    if per_step is None:
+        want = st["block"] * (itg // st["block"] + 1)
+    else:
+        line["iterations_a_step"] = per_step
+        steps = -(-itg // per_step)
+        want = st["block"] * -(-steps // st["block"])
     emit(line)
     require(st["loop"] == "graph" and fe.stats["loop"] == "eager", f"{path}: loop forms {st['loop']}, "
             f"{fe.stats['loop']}")
     require(itg == ite and all(equal.values()), f"{path}: graph and eager solves differ: {line}")
-    require(st["device_iterations"] == st["block"] * (itg // st["block"] + 1),
+    require(st["device_iterations"] == want,
             f"{path}: {st['device_iterations']} device iterations for {itg} in blocks of {st['block']}")
     require(st["replays"] > 0, f"{path}: the graph loop replayed no block")
     return line
@@ -2297,9 +2358,10 @@ def phase_strict(backend, run, rng):
     s_strict, fixed_strict = fixed_trip_s_per_iter(lambda m: make_cg_fn(dS, 0.0, m), bS, xS, *CG_TRIPS)
     s_fused, fixed_fused = fixed_trip_s_per_iter(lambda m: make_cg_fn(dD, 0.0, m), bD, xD, *CG_TRIPS)
     prof = phase_profile("strict_cg_profile", make_cg_fn(dS, 0.0, 48), bS, xS, 48)
-    # E3 is one kernel a dot: the start's r.r, then p.q and r.r an iteration
+    # E3 is one kernel a dot: p.q and r.r an iteration, and the start's r.r
+    # unless the trace dropped the solve's first launches (phase_profile)
     calls = [c for k, _, c in prof["rows"] if "pairwise" in k]
-    require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + 2 * prof["iters"],
+    require(len(calls) == 1 and round(calls[0] * prof["iters"]) - 2 * prof["iters"] in (0, 1),
             f"strict profile: E3 kernels {calls} an iteration, expected one a dot (2 + 1/iterations)")
     o0, n = dS.row_layout.o0, dS.row_layout.no_max
     a = _frame(rng, (1, dS.row_layout.W), np.float32, backend.device)
@@ -2711,8 +2773,9 @@ def phase_block_strict(backend, run, st, rng):
     db, dx0 = (bS[..., None] * scale).contiguous(), (xS[..., None] * scale).contiguous()
     s_block, fixed = fixed_trip_s_per_iter(lambda m: make_block_cg_fn(dS, 0.0, m, K), db, dx0, *CG_TRIPS)
     prof = phase_profile("strict_block_cg_profile", make_block_cg_fn(dS, 0.0, 48, K), db, dx0, 48)
+    # as in phase_strict: 2 an iteration and the start's one, if the trace kept it
     calls = [c for k, _, c in prof["rows"] if "pairwise_dot_block" in k]
-    require(len(calls) == 1 and round(calls[0] * prof["iters"]) == 1 + 2 * prof["iters"],
+    require(len(calls) == 1 and round(calls[0] * prof["iters"]) - 2 * prof["iters"] in (0, 1),
             f"strict block profile: E3 block kernels {calls} an iteration, expected one a dot")
     emit({"phase": "strict_block_cost", "n": N_MAIN, "dtype": "float32", "parts": 1, "K": K,
           "strict_block_s_per_iter": s_block, "per_rhs_s_per_iter": s_block / K,
@@ -3281,6 +3344,425 @@ def phase_heat(backend, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: the rest of the Krylov family, the advection model, the
+# differentiable solve
+# ---------------------------------------------------------------------------
+
+
+def advection_system(parts, n):
+    t = time.perf_counter()
+    A, b, xe, x0 = assemble_advection_fv(parts, (n, n, n))
+    return {"A": A, "b": b, "xe": xe, "x0": x0, "assembly_s": time.perf_counter() - t}
+
+
+def _x_apart(x, y):
+    """max |x - y| over the owned values, and whether they are equal."""
+    gx, gy = gather_pvector(x), gather_pvector(y)
+    return float(np.abs(gx - gy).max()), bool(np.array_equal(gx, gy))
+
+
+def _k1_times(A, dA, flush, rng, tag):
+    """K1 on an operator's own frames: flushed ms of the kernel, its plain
+    version and torch.sparse.mm of the owned block's CSR (one part), and
+    the bound: x read, the code bytes and y written a row, 2 nnz operations
+    at the dtype's rate."""
+    op, wy = dA.coded, dA.row_layout.W
+    x = _random_frame(dA, rng)
+    M = A.values.part_values()[0]
+    csr = _csr_on(M, x.device)
+    xcol = x[0, : M.shape[1]].reshape(-1, 1).contiguous()
+    item = x.element_size()
+    rows = int(dA.row_layout.noids.sum())
+    nbytes = rows * (item + op.codes.shape[1] + item)
+    out = {"operator": tag, "rows": rows, "bytes": nbytes, "code_bytes_per_row": int(op.codes.shape[1]),
+           "decode": "row_class" if op.cls_pattern is not None else "select_chain",
+           "ms": time_ms(lambda: dia.dia_coded_spmv(op, x, wy), flush),
+           "plain_ms": time_ms(lambda: dia.dia_coded_spmv_plain(op, x, wy), flush),
+           "library_ms": time_ms(lambda: torch.sparse.mm(csr, xcol), flush)}
+    out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, dA.flops_per_spmv,
+                                                F64_FLOPS_PER_S if item == 8 else F32_FLOPS_PER_S)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def _eager_split(prof, kernel_names):
+    """A profile's device time split between the named kernels and the rest
+    (the eager ops and copies), per device iteration."""
+    busy = sum(ms for _, ms, _ in prof["rows"])
+    kern = sum(ms for k, ms, _ in prof["rows"] if any(n in k for n in kernel_names))
+    return {"device_ms_per_iter": busy, "kernel_ms_per_iter": kern, "eager_ms_per_iter": busy - kern,
+            "eager_share": (busy - kern) / busy if busy else None,
+            "idle_share": 1.0 - busy * prof["iters"] / prof["wall_ms"]}
+
+
+def phase_advection(backend, rng):
+    """The nonsymmetric advection FV model at 192^3 f64 on one part: the
+    driver's BiCGStab (`advection_fv_driver`'s solve on the assembled
+    system: tol 1e-12, maxiter 4000, error < 1e-5), right-Jacobi BiCGStab and
+    GMRES(30) at a fixed maxiter; for each the launches by formula, the
+    plain path, graph against eager and seconds per iteration; a profile of
+    a BiCGStab block; K1 on the operator against its plain version and
+    timed."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_krylov as kr
+
+    run = prun(advection_system, backend, (1, 1, 1), N_ADV)
+    A, b, xe, x0 = run["A"], run["b"], run["xe"], run["x0"]
+    t = time.perf_counter()
+    dA = device_matrix(A, backend)
+    sync()
+    staging_s = time.perf_counter() - t
+    require(dA.dia_mode == "coded", f"advection: the operator lowered as {dA.dia_mode}")
+    errs = {}
+    xr = _random_frame(dA, rng)
+    errs[f"dia_coded_spmv[advection {N_ADV}^3 f64]"] = _compare(
+        "advection dia_coded_spmv", dia.dia_coded_spmv(dA.coded, xr, dA.row_layout.W),
+        dia.dia_coded_spmv_plain(dA.coded, xr, dA.row_layout.W))
+    bd, x0d = staged(run, backend)
+    mv = jacobi_preconditioner(A)
+    dmv = _b_on_cols_layout(mv, dA)
+    lines = {}
+    for name, minv in (("bicgstab", None), ("bicgstab_jacobi", mv)):
+        dia.reset_launches()
+        t = time.perf_counter()
+        x, info = bicgstab(A, b, x0=x0, tol=TOL_ADV, maxiter=ADV_MAXITER, minv=minv)
+        sync()
+        solve_s = time.perf_counter() - t
+        launches = dict(dia.LAUNCHES)
+        err = float((x - xe).norm())
+        dev_it = device_iterations(info)
+        want = {"dia_coded_spmv": 1 + 2 * dev_it}
+        xp, info_p = gpu_bicgstab(A, b, x0=x0, tol=TOL_ADV, maxiter=ADV_MAXITER, minv=minv, plain=True)
+        apart, bitwise = _x_apart(x, xp)
+        extra = () if minv is None else (dmv,)
+        pre = minv is not None
+        s_per_iter, fixed = fixed_trip_s_per_iter(
+            lambda m: with_args(kr.make_bicgstab_fn(dA, 0.0, m, precond=pre), *extra), bd, x0d, *BICG_TRIPS)
+        line = {"phase": "advection_" + name, "n": N_ADV, "dofs": N_ADV ** 3, "dtype": "float64", "parts": 1,
+                "tol": TOL_ADV, "maxiter": ADV_MAXITER, "iterations": info["iterations"],
+                "converged": info["converged"], "err": err, "solve_s": solve_s, "kernels": launches,
+                "expected_launches": want, "device_loop": info["device_loop"],
+                "plain_iterations": info_p["iterations"], "plain_x_max_abs_diff": apart, "plain_x_bitwise": bitwise,
+                "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": BICG_TRIPS}
+        emit(line)
+        require(info["converged"] and err < 1e-5, f"advection {name}: converged {info['converged']}, error {err}")
+        require(info["iterations"] == info_p["iterations"] and apart <= 1e-12 * float(np.abs(gather_pvector(x)).max()),
+                f"advection {name}: the plain path took {info_p['iterations']} iterations, x apart {apart}")
+        for k in want:
+            require(launches[k] == want[k], f"advection {name}: {launches[k]} {k} launches, expected {want[k]}")
+        graph_vs_eager(f"{N_ADV}^3 f64 advection {name}",
+                       lambda g: kr.make_bicgstab_fn(dA, TOL_ADV, ADV_MAXITER, precond=pre, graph=g), bd, x0d, *extra,
+                       per_step=1)
+        lines[name] = line
+
+    # GMRES(30) at a fixed maxiter: the relative residual it reaches
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = gmres(A, b, x0=x0, restart=GMRES_RESTART, tol=TOL_ADV, maxiter=GMRES_MAXITER)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    cycles = device_iterations(info)
+    want = {"dia_coded_spmv": 1 + cycles * (GMRES_RESTART + 1)}
+    xp, info_p = gpu_gmres(A, b, x0=x0, restart=GMRES_RESTART, tol=TOL_ADV, maxiter=GMRES_MAXITER, plain=True)
+    apart, bitwise = _x_apart(x, xp)
+    s_per_iter, fixed = fixed_trip_s_per_iter(
+        lambda m: kr.make_gmres_fn(dA, GMRES_RESTART, 0.0, m), bd, x0d, *GMRES_TRIPS)
+    res = np.asarray(info["residuals"])
+    line = {"phase": "advection_gmres", "n": N_ADV, "dtype": "float64", "restart": GMRES_RESTART,
+            "maxiter": GMRES_MAXITER, "iterations": info["iterations"], "cycles": cycles,
+            "rel_residual": float(res[-1] / max(1.0, res[0])), "err": float((x - xe).norm()), "solve_s": solve_s,
+            "kernels": launches, "expected_launches": want, "device_loop": info["device_loop"],
+            "plain_iterations": info_p["iterations"], "plain_x_max_abs_diff": apart, "plain_x_bitwise": bitwise,
+            "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": GMRES_TRIPS}
+    emit(line)
+    require(info["iterations"] == GMRES_MAXITER and np.isfinite(res[-1]) and res[-1] < res[0],
+            f"advection GMRES: {info['iterations']} iterations, residual {res[-1]} from {res[0]}")
+    require(info_p["iterations"] == info["iterations"] and apart <= 1e-12 * float(np.abs(gather_pvector(x)).max()),
+            f"advection GMRES: the plain path took {info_p['iterations']} iterations, x apart {apart}")
+    for k in want:
+        require(launches[k] == want[k], f"advection GMRES: {launches[k]} {k} launches, expected {want[k]}")
+    graph_vs_eager(f"{N_ADV}^3 f64 advection GMRES({GMRES_RESTART})",
+                   lambda g: kr.make_gmres_fn(dA, GMRES_RESTART, TOL_ADV, GMRES_MAXITER, graph=g), bd, x0d,
+                   per_step=GMRES_RESTART)
+    lines["gmres"] = line
+
+    prof = phase_profile("advection_bicgstab_profile", kr.make_bicgstab_fn(dA, 0.0, 48), bd, x0d, 48)
+    emit({"phase": "advection_bicgstab_split", **_eager_split(prof, ("dia_coded",))})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=backend.device)
+    k1 = _k1_times(A, dA, flush, rng, f"advection {N_ADV}^3 f64")
+    emit({"phase": "advection_kernel_times", "assembly_s": run["assembly_s"], "staging_s": staging_s,
+          "dia_coded_spmv": k1, "reps": REPS})
+    return {"errs": errs, "lines": lines, "k1": k1}
+
+
+def phase_advection_multi(backend, rng):
+    """The advection model at 48^3 f64 on (2,2,2) stacked parts through
+    `advection_fv_driver`, on the box plan (launches by formula) and the
+    generic plan, held against the port's sequential backend by the gates
+    of the JAX package's tests/test_advection_fv.py:33-47; K1 and E1's
+    boundary mode against their plain versions on its operator."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_krylov as kr
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
+    n = N_ADV_MULTI
+    dia.reset_launches()
+    err_g, info_g = prun(advection_fv_driver, backend, (2, 2, 2), (n, n, n))
+    launches = dict(dia.LAUNCHES)
+    dev_it = device_iterations(info_g)
+    want = {"dia_coded_spmv": 1 + 2 * dev_it, "ell_spmv_boundary": 1 + 2 * dev_it}
+    t = time.perf_counter()
+    err_s, info_s = prun(advection_fv_driver, sequential, (2, 2, 2), (n, n, n))
+    seq_s = time.perf_counter() - t
+    run = prun(advection_system, backend, (2, 2, 2), n)
+    A, b, xe, x0 = run["A"], run["b"], run["xe"], run["x0"]
+    xgen, info_gen = gpu_bicgstab(A, b, x0=x0, tol=TOL_ADV, maxiter=ADV_MAXITER, box=False)
+    err_gen = float((xgen - xe).norm())
+    dA = device_matrix(A, backend)
+    require(isinstance(dA.col_plan, BoxExchangePlan), "advection (2,2,2): not on the box plan")
+    errs = {}
+    xr = _random_frame(dA, rng)
+    errs[f"dia_coded_spmv[advection {n}^3 f64 (2,2,2)]"] = _compare(
+        "advection (2,2,2) dia_coded_spmv", dia.dia_coded_spmv(dA.coded, xr, dA.row_layout.W),
+        dia.dia_coded_spmv_plain(dA.coded, xr, dA.row_layout.W))
+    exchange_(dA.col_plan, xr)
+    _hold_boundary(dA, xr, f"advection {n}^3 f64 (2,2,2)", errs)
+    bd, x0d = staged(run, backend)
+    graph_vs_eager(f"{n}^3 f64 (2,2,2) advection bicgstab",
+                   lambda g: kr.make_bicgstab_fn(dA, TOL_ADV, ADV_MAXITER, graph=g), bd, x0d, per_step=1)
+    line = {"phase": "advection_stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2],
+            "iterations": info_g["iterations"], "sequential_iterations": info_s["iterations"],
+            "generic_plan_iterations": info_gen["iterations"], "err": err_g, "sequential_err": err_s,
+            "generic_plan_err": err_gen, "converged": [info_g["converged"], info_s["converged"], info_gen["converged"]],
+            "kernels": launches, "expected_launches": want, "device_loop": info_g["device_loop"],
+            "sequential_s": seq_s, "max_abs_err": errs}
+    emit(line)
+    require(all(line["converged"]), f"advection (2,2,2): converged {line['converged']}")
+    for name, it, err in (("box", info_g["iterations"], err_g), ("generic", info_gen["iterations"], err_gen)):
+        require(abs(it - info_s["iterations"]) <= 2, f"advection (2,2,2) {name}: {it} iterations against the "
+                f"sequential backend's {info_s['iterations']}")
+        require(err < 1e-5 and err_s < 1e-5 and abs(err - err_s) < 1e-8,
+                f"advection (2,2,2) {name}: errors {err} and {err_s} (sequential)")
+    for k in want:
+        require(launches[k] == want[k], f"advection (2,2,2): {launches[k]} {k} launches, expected {want[k]}")
+    return {"errs": errs, "line": line}
+
+
+def fgmres_gmg_launches(h, dh, steps, cycles):
+    """The launches of a FGMRES-GMG solve: per Arnoldi step (every unrolled
+    step of every cycle the device ran, ``steps``) a V-cycle and the outer
+    A0 SpMV, as a GMG-PCG iteration has (`gmg_launches`) but no sweep; the
+    initial residual; and the true residual at each cycle's end."""
+    want = gmg_launches(h, dh, steps)
+    dA0 = dh["levels"][0]["dA"]
+    want["dia_coded_spmv" if dA0.dia_mode == "coded" else "dia_stream_spmv"] += cycles
+    want["cg_sweep"] = 0
+    if "ell_spmv_boundary" in want:
+        want["ell_spmv_boundary"] += cycles
+    return want
+
+
+def phase_krylov_gmg(backend, gruns, gmg_iterations, rng):
+    """MINRES, Chebyshev (bounds from `lanczos_bounds`) and FGMRES with the
+    V-cycle inlined on phase 2b's decoupled 192^3 f32 operator and
+    hierarchy; FGMRES-GMG against the host fgmres(minv=h) on the 48^3 f64
+    (2,2,2) hierarchy. Launches by formula, the plain paths, graph against
+    eager, seconds per iteration."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_krylov as kr
+
+    g = gruns["main"]
+    Ah, bh, h, dh = g["Ah"], g["bh"], g["h"], g["dh"]
+    dA = device_matrix(Ah, backend)
+    b = _b_on_cols_layout(bh, dA)
+    x0 = torch.zeros_like(b)
+    out = {}
+
+    # MINRES beside CG
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = minres(Ah, bh, tol=TOL_MAIN)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    dev_it = device_iterations(info)
+    want = {"dia_coded_spmv": 1 + dev_it}
+    _, info_cg = cg(Ah, bh, tol=TOL_MAIN)
+    xp, info_p = gpu_minres(Ah, bh, tol=TOL_MAIN, plain=True)
+    apart, bitwise = _x_apart(x, xp)
+    s_per_iter, fixed = fixed_trip_s_per_iter(lambda m: kr.make_minres_fn(dA, 0.0, m), b, x0, *CG_TRIPS)
+    line = {"phase": "minres", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN, "iterations": info["iterations"],
+            "cg_iterations": info_cg["iterations"], "converged": info["converged"], "rel_err": _rel_err(x, g["xe"]),
+            "solve_s": solve_s, "kernels": launches, "expected_launches": want, "device_loop": info["device_loop"],
+            "plain_iterations": info_p["iterations"], "plain_x_max_abs_diff": apart, "plain_x_bitwise": bitwise,
+            "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": CG_TRIPS}
+    emit(line)
+    require(info["converged"], "MINRES 192^3: did not converge")
+    require(info_p["iterations"] == info["iterations"] and bitwise, f"MINRES: plain path {info_p['iterations']}, "
+            f"x apart {apart}")
+    for k in want:
+        require(launches[k] == want[k], f"MINRES: {launches[k]} {k} launches, expected {want[k]}")
+    graph_vs_eager(f"{N_MAIN}^3 f32 MINRES", lambda gr: kr.make_minres_fn(dA, TOL_MAIN, 4 * Ah.rows.ngids, graph=gr),
+                   b, x0, per_step=1)
+    out["minres"] = line
+
+    # Chebyshev with the Lanczos bounds
+    t = time.perf_counter()
+    lo, hi = lanczos_bounds(Ah)
+    lanczos_s = time.perf_counter() - t
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = chebyshev_solve(Ah, bh, lo, hi, tol=TOL_MAIN, maxiter=CHEB_MAXITER)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    legs = device_iterations(info)
+    leg = info["residuals_every"]
+    want = {"dia_coded_spmv": 1 + leg * legs}
+    xp, info_p = gpu_chebyshev(Ah, bh, lo, hi, tol=TOL_MAIN, maxiter=CHEB_MAXITER, plain=True)
+    apart, bitwise = _x_apart(x, xp)
+    s_per_iter, fixed = fixed_trip_s_per_iter(lambda m: kr.make_chebyshev_fn(dA, lo, hi, 0.0, m), b, x0, *CHEB_TRIPS)
+    res = np.asarray(info["residuals"])
+    line = {"phase": "chebyshev", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN, "maxiter": CHEB_MAXITER,
+            "lanczos_bounds": [lo, hi], "lanczos_s": lanczos_s, "iterations": info["iterations"], "legs": legs,
+            "converged": info["converged"], "rel_residual": float(res[-1] / max(1.0, res[0])),
+            "rel_err": _rel_err(x, g["xe"]), "solve_s": solve_s, "kernels": launches, "expected_launches": want,
+            "device_loop": info["device_loop"], "plain_iterations": info_p["iterations"],
+            "plain_x_max_abs_diff": apart, "plain_x_bitwise": bitwise, "s_per_iter": s_per_iter,
+            "fixed_trip_s": fixed, "fixed_trips": CHEB_TRIPS}
+    emit(line)
+    require(np.isfinite(res[-1]) and res[-1] < res[0], f"Chebyshev: residual {res[-1]} from {res[0]}")
+    require(info_p["iterations"] == info["iterations"] and bitwise, f"Chebyshev: plain path {info_p['iterations']}, "
+            f"x apart {apart}")
+    for k in want:
+        require(launches[k] == want[k], f"Chebyshev: {launches[k]} {k} launches, expected {want[k]}")
+    graph_vs_eager(f"{N_MAIN}^3 f32 Chebyshev",
+                   lambda gr: kr.make_chebyshev_fn(dA, lo, hi, TOL_MAIN, CHEB_MAXITER, graph=gr), b, x0, per_step=leg)
+    out["chebyshev"] = line
+
+    # FGMRES with the V-cycle inlined, beside GMG-PCG
+    m = FGMRES_RESTART
+    dia.reset_launches()
+    t = time.perf_counter()
+    x, info = gpu_gmg.gpu_fgmres_gmg(h, bh, tol=TOL_MAIN, restart=m)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    cycles = device_iterations(info)
+    want = fgmres_gmg_launches(h, dh, cycles * m, cycles)
+    t = time.perf_counter()
+    gpu_gmg.gpu_fgmres_gmg(h, bh, tol=TOL_MAIN, restart=m)
+    sync()
+    repeat_s = time.perf_counter() - t
+    xp, info_p = gpu_gmg.gpu_fgmres_gmg(h, bh, tol=TOL_MAIN, restart=m, plain=True)
+    apart, bitwise = _x_apart(x, xp)
+    s_per_iter, fixed = fixed_trip_s_per_iter(
+        lambda mi: gpu_gmg.make_fgmres_gmg_fn(h, backend, 0.0, mi, restart=m), b, x0, *FGMRES_TRIPS)
+    pcg_s, pcg_fixed = fixed_trip_s_per_iter(lambda mi: gpu_gmg.make_gmg_pcg_fn(h, backend, 0.0, mi), b, x0,
+                                             *GMG_TRIPS)
+    line = {"phase": "fgmres_gmg", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN, "restart": m,
+            "iterations": info["iterations"], "gmg_pcg_iterations": gmg_iterations, "cycles": cycles,
+            "converged": info["converged"], "rel_err": _rel_err(x, g["xe"]), "solve_s": solve_s,
+            "repeat_solve_s": repeat_s, "kernels": launches, "expected_launches": want,
+            "device_loop": info["device_loop"], "plain_iterations": info_p["iterations"],
+            "plain_x_max_abs_diff": apart, "plain_x_bitwise": bitwise,
+            "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": FGMRES_TRIPS,
+            "gmg_pcg_s_per_iter": pcg_s, "gmg_pcg_fixed_trip_s": pcg_fixed, "gmg_pcg_fixed_trips": GMG_TRIPS}
+    emit(line)
+    require(info["converged"], "FGMRES-GMG 192^3: did not converge")
+    require(info_p["iterations"] == info["iterations"] and bitwise, f"FGMRES-GMG: plain path {info_p['iterations']}, "
+            f"x apart {apart}")
+    for k in want:
+        require(launches[k] == want[k], f"FGMRES-GMG: {launches[k]} {k} launches, expected {want[k]}")
+    graph_vs_eager(f"{N_MAIN}^3 f32 FGMRES-GMG({m}), {3 * m} fixed steps",
+                   lambda gr: gpu_gmg.make_fgmres_gmg_fn(h, backend, 0.0, 3 * m, restart=m, graph=gr), b, x0,
+                   per_step=m)
+    out["fgmres_gmg"] = line
+
+    gm = gruns["multi"]
+    dia.reset_launches()
+    xd, info_d = gpu_gmg.gpu_fgmres_gmg(gm["h"], gm["bh"], tol=TOL_FGMRES_MULTI, restart=m)
+    launches = dict(dia.LAUNCHES)
+    cycles = device_iterations(info_d)
+    want = fgmres_gmg_launches(gm["h"], gm["dh"], cycles * m, cycles)
+    t = time.perf_counter()
+    xh, info_h = fgmres(gm["Ah"], gm["bh"], minv=gm["h"], tol=TOL_FGMRES_MULTI, restart=m)
+    host_s = time.perf_counter() - t
+    line = {"phase": "fgmres_gmg_stacked_parts", "n": N_GMG_MULTI, "dtype": "float64", "parts": [2, 2, 2],
+            "tol": TOL_FGMRES_MULTI, "restart": m, "iterations": info_d["iterations"],
+            "host_iterations": info_h["iterations"], "converged": [info_d["converged"], info_h["converged"]],
+            "rel_err": _rel_err(xd, gm["xe"]), "host_rel_err": _rel_err(xh, gm["xe"]), "host_s": host_s,
+            "kernels": launches, "expected_launches": want, "device_loop": info_d["device_loop"]}
+    emit(line)
+    require(all(line["converged"]) and abs(info_d["iterations"] - info_h["iterations"]) <= 1,
+            f"FGMRES-GMG (2,2,2): device {info_d['iterations']}, host {info_h['iterations']} iterations")
+    for k in want:
+        require(launches[k] == want[k], f"FGMRES-GMG (2,2,2): {launches[k]} {k} launches, expected {want[k]}")
+    out["fgmres_gmg_multi"] = line
+    return out
+
+
+def diff_system(parts, n):
+    A, b, _, _ = assemble_poisson(parts, (n, n, n))
+    return decouple_dirichlet(A, b)
+
+
+def phase_diff_solve(backend, rng):
+    """The differentiable solve on the decoupled 48^3 f64 Poisson, (2,2,2):
+    one forward and one backward on the one cached solve function (one
+    capture), the vector-Jacobian product torch.equal to a forward solve of
+    the cotangent, and one central finite difference along a seeded
+    direction against the gradient (relative DIFF_FD_RTOL)."""
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import STATS as gpu_stats
+
+    Ah, bh = prun(diff_system, backend, (2, 2, 2), N_DIFF)
+    dA = device_matrix(Ah, backend)
+    b0 = _b_on_cols_layout(bh, dA)
+    w = torch.from_numpy(rng.standard_normal(tuple(b0.shape))).to(b0.device)
+    fns0, caps0 = gpu_stats["solve_fns"], gpu_loop.STATS["captures"]
+    f = make_diff_solve_fn(dA, tol=TOL_DIFF)
+
+    def loss(v):
+        return torch.sum((f(v) * w) ** 2)
+
+    cot = []
+    dia.reset_launches()
+    bv = b0.clone().requires_grad_(True)
+    t = time.perf_counter()
+    x = f(bv)
+    sync()
+    fwd_s = time.perf_counter() - t
+    fwd_it = f.solve.stats["device_iterations"]
+    x.register_hook(lambda gr: cot.append(gr.detach().clone()))
+    t = time.perf_counter()
+    (grad,) = torch.autograd.grad(torch.sum((x * w) ** 2), bv)
+    sync()
+    bwd_s = time.perf_counter() - t
+    bwd_it = f.solve.stats["device_iterations"]
+    launches = dict(dia.LAUNCHES)
+    fns, caps = gpu_stats["solve_fns"] - fns0, gpu_loop.STATS["captures"] - caps0
+    with torch.no_grad():
+        again = f(cot[0])
+        d = torch.from_numpy(rng.standard_normal(tuple(b0.shape))).to(b0.device)
+        d *= b0.norm() / d.norm()
+        fd = (float(loss(b0 + DIFF_EPS * d)) - float(loss(b0 - DIFF_EPS * d))) / (2 * DIFF_EPS)
+    an = float(torch.sum(grad * d))
+    want = {"dia_coded_spmv": 2, "dia_coded_spmv_pfold": fwd_it + bwd_it, "cg_sweep": fwd_it + bwd_it,
+            "ell_spmv_boundary": 2 + fwd_it + bwd_it}
+    line = {"phase": "diff_solve", "n": N_DIFF, "dtype": "float64", "parts": [2, 2, 2], "tol": TOL_DIFF,
+            "forward_s": fwd_s, "backward_s": bwd_s, "device_iterations": [fwd_it, bwd_it],
+            "solve_fns_built": fns, "captures": caps, "vjp_equal_forward_solve": bool(torch.equal(grad, again)),
+            "fd": fd, "vjp_along_d": an, "fd_rel_err": abs(fd - an) / abs(an), "fd_eps": DIFF_EPS,
+            "kernels": launches, "expected_launches": want}
+    emit(line)
+    require(fns == 1 and caps == 1, f"diff solve: {fns} solve functions built, {caps} captures (expected 1 and 1)")
+    require(line["vjp_equal_forward_solve"], "diff solve: the vector-Jacobian product differs from a forward solve")
+    require(line["fd_rel_err"] < DIFF_FD_RTOL, f"diff solve: finite difference {fd} against {an}")
+    for k in want:
+        require(launches[k] == want[k], f"diff solve: {launches[k]} {k} launches, expected {want[k]}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -3811,12 +4293,16 @@ def phase_profile(name, fn, b, x0, iters):
     sync()
     # one warm-up solve with the trace's collection on and its events
     # discarded, then the recorded one: a trace started right before a
-    # solve has dropped its first launches (the start's SpMV and dot)
+    # solve has dropped its first launches (the start's SpMV and dot), and
+    # once in a while still did after the warm-up step, so a spin on the
+    # card opens the recorded step and its row is dropped
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         fn(b, x0)
         sync()
         prof.step()
+        torch.cuda._sleep(SPIN_CYCLES)
+        sync()
         t = time.perf_counter()
         fn(b, x0)
         sync()
@@ -3830,6 +4316,7 @@ def phase_profile(name, fn, b, x0, iters):
         (e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
+        and "spin_kernel" not in e.key
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -3878,7 +4365,11 @@ def main() -> int:
     sg = phase_strict_gmg(backend, gruns["main"], rng)
     q1 = phase_fem_q1(backend, rng)
     heat = phase_heat(backend, rng)
-    emit({"phase": "device_memory", "after": "phase 4h", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    adv = phase_advection(backend, rng)
+    advm = phase_advection_multi(backend, rng)
+    phase_krylov_gmg(backend, gruns, gmg["iterations"], rng)
+    phase_diff_solve(backend, rng)
+    emit({"phase": "device_memory", "after": "phase 4i", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})
     # each kernel's launches from the path it runs on: E2 on the elasticity
@@ -3905,7 +4396,7 @@ def main() -> int:
     times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"], **bel["times"], **belm["times"],
                                     **bst["times"]}.items() if k in KERNELS})
     emit({"phase": "launch_counts", "kernels": launches})
-    errs = {**kern["errs"], **q1["errs"], **heat["errs"]}
+    errs = {**kern["errs"], **q1["errs"], **heat["errs"], **adv["errs"], **advm["errs"]}
     max_err = {
         name: max(v for key, v in errs.items() if key.startswith(name + "["))
         for name in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmv_axpy")
@@ -3917,7 +4408,7 @@ def main() -> int:
     max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"], heat["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
     held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"], **bel["errs"],
-            **belm["errs"], **bst["errs"], **sg["errs"], **q1["errs"], **heat["errs"]}
+            **belm["errs"], **bst["errs"], **sg["errs"], **q1["errs"], **heat["errs"], **advm["errs"]}
     for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
                  "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot",
                  "ell_spmm", "bsr_spmm", "bsr_spmv_boundary_slab", "pairwise_dot_block"):

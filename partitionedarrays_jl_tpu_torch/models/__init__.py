@@ -1,16 +1,22 @@
 """Drivers and solvers of the port: the 3-D Poisson FDM driver and its
 periodic operator, the 2-D Q1 FE driver, the transient heat march, the
-unstructured tet-elasticity driver, CG and PCG, and the geometric
-multigrid hierarchy."""
+unstructured tet-elasticity driver, the nonsymmetric upwind advection FV
+driver, CG, PCG, BiCGStab, GMRES, FGMRES, MINRES and Chebyshev with their
+spectral bounds, and the geometric multigrid hierarchy."""
+from .advection_fv import advection_fv_driver, assemble_advection_fv
 from .fem_q1 import assemble_fem_q1, fem_q1_driver, fem_q1_rhs_via_global_view
 from .heat_transient import assemble_heat, heat_transient_driver
 from .elasticity_tet import assemble_elasticity_tet, elasticity_tet_driver, morton_permutation, p1_elasticity_ke, tet_mesh
 from .gmg import GMGHierarchy, gmg_hierarchy, gmg_solve
 from .poisson_fdm import assemble_poisson, assemble_poisson_periodic, manufactured_solution, poisson_fdm_driver
-from .solvers import cg, decouple_dirichlet, gather_psparse, gather_pvector, jacobi_preconditioner, pcg
+from .solvers import (
+    bicgstab, cg, chebyshev_solve, decouple_dirichlet, fgmres, gather_psparse, gather_pvector, gershgorin_bounds,
+    gmres, jacobi_preconditioner, lanczos_bounds, minres, pcg,
+)
 
 __all__ = [
-    "GMGHierarchy", "assemble_elasticity_tet", "assemble_fem_q1", "assemble_heat", "assemble_poisson",
+    "GMGHierarchy", "advection_fv_driver", "assemble_advection_fv", "bicgstab", "chebyshev_solve", "fgmres",
+    "gershgorin_bounds", "gmres", "lanczos_bounds", "minres", "assemble_elasticity_tet", "assemble_fem_q1", "assemble_heat", "assemble_poisson",
     "assemble_poisson_periodic", "fem_q1_driver", "fem_q1_rhs_via_global_view", "heat_transient_driver", "elasticity_tet_driver", "morton_permutation",
     "p1_elasticity_ke", "tet_mesh", "cg", "decouple_dirichlet", "gather_psparse",
     "gather_pvector", "gmg_hierarchy", "gmg_solve", "jacobi_preconditioner", "manufactured_solution", "pcg",

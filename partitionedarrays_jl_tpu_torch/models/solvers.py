@@ -1,8 +1,14 @@
-"""Distributed CG and PCG over the PData algebra.
+"""Distributed Krylov solvers over the PData algebra.
 
 The port's copy of the parts of `partitionedarrays_jl_tpu/models/solvers.py`
-that the Poisson and multigrid slices need (solvers.py:45-289, :290-522,
-:939-1066, :1345-1674): `cg` dispatches a GPU-backend right-hand side to
+that the Poisson, multigrid and advection slices need (solvers.py:45-289,
+:290-522, :540-922, :939-1066, :1345-1674, :1677-2152): `bicgstab`, `gmres`,
+`minres` and `chebyshev_solve` dispatch a GPU-backend right-hand side to
+their device loops (`parallel/gpu_krylov.py`) under the JAX package's
+conditions (a callable preconditioner runs the host loop on any backend);
+`fgmres`, `lanczos_bounds` and `gershgorin_bounds` are host loops on every
+backend (the device FGMRES with the V-cycle is `gpu_gmg.gpu_fgmres_gmg`);
+`cg` dispatches a GPU-backend right-hand side to
 `parallel/gpu.py:gpu_cg` (fused, standard or pipelined body) and runs the
 host CG loop for anything else; `pcg` sends a diagonal preconditioner
 (Jacobi, the default) on the GPU backend to `gpu_cg(minv=)` and a
@@ -484,4 +490,485 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False):
             A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
             force=floor_warned,
         ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the rest of the Krylov family (solvers.py:540-922, :1677-2152)
+# ---------------------------------------------------------------------------
+
+
+def gershgorin_bounds(A: PSparseMatrix) -> Tuple[float, float]:
+    """Gershgorin spectral interval (solvers.py:540-570): every eigenvalue
+    lies in [min_i (a_ii - R_i), max_i (a_ii + R_i)] with R_i the
+    off-diagonal absolute row sum, over owned rows and reduced across
+    parts. The lower bound is typically <= 0 for Laplacian-like operators,
+    so it is an ``lmax`` source for `chebyshev_solve`, not an ``lmin``
+    source."""
+    from ..parallel.collectives import preduce
+
+    def _bounds(ri, ci, M):
+        lo, hi = np.inf, -np.inf
+        val = M.data
+        diag = np.zeros(M.shape[0], dtype=val.dtype)
+        radius = np.zeros(M.shape[0], dtype=val.dtype)
+        r = M.row_of_nz()
+        row_gid = np.asarray(ri.lid_to_gid)[r] if len(r) else r
+        col_gid = np.asarray(ci.lid_to_gid)[M.indices] if M.nnz else r
+        on_diag = row_gid == col_gid
+        np.add.at(diag, r[on_diag], val[on_diag])
+        np.add.at(radius, r[~on_diag], np.abs(val[~on_diag]))
+        own = np.asarray(ri.lid_to_part) == ri.part
+        if own.any():
+            lo = float((diag - radius)[own].min())
+            hi = float((diag + radius)[own].max())
+        return lo, hi
+
+    per = map_parts(_bounds, A.rows.partition, A.cols.partition, A.values)
+    lo = preduce(min, map_parts(lambda t: t[0], per), init=np.inf)
+    hi = preduce(max, map_parts(lambda t: t[1], per), init=-np.inf)
+    return float(lo), float(hi)
+
+
+def lanczos_bounds(A: PSparseMatrix, iters: int = 30, seed: int = 0,
+                   safety: Tuple[float, float] = (0.5, 1.05)) -> Tuple[float, float]:
+    """Extremal-eigenvalue estimates of symmetric ``A`` by a k-step Lanczos
+    recurrence (solvers.py:573-640): ``(ritz_min * safety[0], ritz_max *
+    safety[1])`` for a positive spectrum, the margins pushed outward on
+    both ends for negative and indefinite ones. The start vector is seeded
+    per part (``seed + part``), as the JAX package seeds it, so both return
+    the same bounds on the same partition. A host loop on any backend."""
+    check(iters >= 2, "lanczos_bounds needs at least 2 iterations")
+
+    def _rand(iset):
+        rng = np.random.default_rng(seed + int(iset.part))
+        vals = np.zeros(iset.num_lids)
+        return _write_owned(iset, vals, rng.standard_normal(iset.num_oids))
+
+    v = PVector(map_parts(_rand, A.cols.partition), A.cols)
+    nrm = v.norm()
+    check(nrm > 0, "lanczos_bounds: zero start vector")
+    v = v / nrm
+    v_old = PVector.full(0.0, A.cols, dtype=v.dtype)
+    beta = 0.0
+    alphas, betas = [], []
+    for _ in range(int(iters)):
+        av = A @ v
+        alpha = float(v.dot(av))
+        alphas.append(alpha)
+        bk = beta
+        lan = PVector.full(0.0, A.cols, dtype=v.dtype)
+        _owned_zip(lan, lambda _l, qv, vv, ov: qv - alpha * vv - bk * ov, av, v, v_old)
+        beta = float(lan.norm())
+        if beta <= 1e-14 * max(abs(a) for a in alphas):
+            break  # invariant subspace: the Ritz values are exact
+        betas.append(beta)
+        v_old, v = v, lan / beta
+    k = len(alphas)
+    T = np.diag(np.array(alphas))
+    if k > 1:
+        off = np.array(betas[: k - 1])
+        T += np.diag(off, 1) + np.diag(off, -1)
+    ritz = np.linalg.eigvalsh(T)
+    spread = max(float(ritz[-1] - ritz[0]), 1e-30)
+    r0, r1 = float(ritz[0]), float(ritz[-1])
+    # the strong margin (toward zero) goes to the end near zero, the mild
+    # outward one to the dominant end(s)
+    s0, s1 = float(safety[0]), float(safety[1])
+    if r0 > 0.0:
+        lo, hi = r0 * s0, r1 * s1
+    elif r1 < 0.0:
+        lo, hi = r0 * s1, r1 * s0
+    else:
+        lo = r0 * s1 if r0 != 0.0 else -(s1 - 1.0) * spread
+        hi = r1 * s1 if r1 != 0.0 else (s1 - 1.0) * spread
+    return float(lo), float(hi)
+
+
+def chebyshev_solve(A: PSparseMatrix, b: PVector, lmin: float, lmax: float, x0: Optional[PVector] = None,
+                    tol: float = 1e-8, maxiter: Optional[int] = None, verbose: bool = False) -> Tuple[PVector, dict]:
+    """Chebyshev iteration for SPD ``A`` with its spectrum inside [lmin,
+    lmax] (solvers.py:854-922): no inner products in the loop. A
+    GPU-backend b runs the device loop (`gpu_krylov.gpu_chebyshev`: one
+    residual dot a leg of 16 iterations, the history one entry a leg);
+    any other backend the host loop below, which checks the residual every
+    iteration."""
+    check(lmax > lmin > 0.0, "chebyshev_solve needs 0 < lmin < lmax")
+    from ..parallel.gpu import GPUBackend
+    from ..parallel.gpu_krylov import gpu_chebyshev
+
+    if isinstance(b.values.backend, GPUBackend):
+        return gpu_chebyshev(A, b, lmin, lmax, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    maxiter = maxiter if maxiter is not None else 10 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="chebyshev")
+    theta = (lmax + lmin) / 2.0
+    delta = (lmax - lmin) / 2.0
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+    r = b.copy()
+    q = A @ x
+    _owned_update(r, lambda rv, qv: rv - qv, q)
+    rs0 = r.dot(r)
+    d = PVector.full(0.0, A.cols, dtype=b.dtype)
+    _owned_zip(d, lambda _d, rv: rv / theta, r)
+    history = [np.sqrt(rs0)]
+    it, rs = 0, rs0
+    while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
+        _owned_update(x, lambda xv, dv: xv + dv, d)
+        q = A @ d
+        _owned_update(r, lambda rv, qv: rv - qv, q)
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        _owned_zip(d, lambda dv, rv: rho_new * rho * dv + (2.0 * rho_new / delta) * rv, r)
+        rho = rho_new
+        rs = r.dot(r)
+        history.append(np.sqrt(rs))
+        it += 1
+        if verbose:
+            print(f"chebyshev it={it} residual={np.sqrt(rs):.3e}")
+    return x, krylov_info(
+        it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)), tol, b.dtype, floor_warned,
+        final_rel=_final_true_rel(A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
+                                  force=floor_warned),
+    )
+
+
+def _arnoldi_column(H, cs, sn, g, j):
+    """Rotate the new column j of H by the cycle's rotations, make the new
+    rotation zeroing H[j+1, j], and advance g (solvers.py:1767-1784)."""
+    for i in range(j):
+        t = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
+        H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
+        H[i, j] = t
+    rho = np.hypot(H[j, j], H[j + 1, j])
+    if rho == 0.0:
+        cs[j], sn[j] = 1.0, 0.0
+    else:
+        cs[j], sn[j] = H[j, j] / rho, H[j + 1, j] / rho
+    H[j, j] = rho
+    H[j + 1, j] = 0.0
+    g[j + 1] = -sn[j] * g[j]
+    g[j] = cs[j] * g[j]
+
+
+def _back_substitute(H, g, j_used):
+    y = np.zeros(j_used)
+    for i in range(j_used - 1, -1, -1):
+        y[i] = (g[i] - H[i, i + 1 : j_used] @ y[i + 1 : j_used]) / H[i, i]
+    return y
+
+
+def gmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: int = 30, tol: float = 1e-8,
+          maxiter: Optional[int] = None, minv=None, verbose: bool = False) -> Tuple[PVector, dict]:
+    """Restarted GMRES(m) for general operators (solvers.py:1677-1813):
+    Arnoldi with modified Gram-Schmidt on the host, the m+1 basis vectors
+    on ``A.cols``. With ``minv`` (an inverse-diagonal PVector over A.cols)
+    the iteration is left-preconditioned and the residuals are in the
+    preconditioned norm; ``minv`` may also be a callable ``minv(r) -> z``
+    (a `GMGHierarchy`), which runs this host loop on any backend. A
+    GPU-backend b with no callable runs the device loop
+    (`gpu_krylov.gpu_gmres`: CGS2, host and device agree to rounding)."""
+    from ..parallel.gpu import GPUBackend
+    from ..parallel.gpu_krylov import gpu_gmres
+
+    check(restart >= 1, "gmres: restart dimension must be >= 1")
+    apply_minv = callable(minv)
+    if isinstance(b.values.backend, GPUBackend) and not apply_minv:
+        return gpu_gmres(A, b, x0=x0, restart=restart, tol=tol, maxiter=maxiter, minv=minv, verbose=verbose)
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="gmres")
+    m = restart
+
+    def precond(v):
+        """owned-region M^{-1} v, in place (identity when minv is None)."""
+        if minv is None:
+            return v
+        if apply_minv:
+            _owned_assign(v, minv(v))
+        else:
+            _owned_update(v, lambda vv, mv: mv * vv, minv)
+        return v
+
+    def residual_vec():
+        r = PVector.full(0.0, A.cols, dtype=b.dtype)
+        q = A @ x
+        _owned_zip(r, lambda _r, bv, qv: bv - qv, b, q)
+        return precond(r)
+
+    r = residual_vec()
+    beta = r.norm()
+    rs0 = beta
+    history = [beta]
+    it = 0
+    converged = beta <= tol * max(1.0, rs0)
+    while not converged and it < maxiter:
+        V = [r / beta if beta > 0 else r.copy()]
+        H = np.zeros((m + 1, m), dtype=np.float64)
+        cs, sn, g = np.zeros(m), np.zeros(m), np.zeros(m + 1)
+        g[0] = beta
+        j_used = 0
+        for j in range(m):
+            if it >= maxiter:
+                break
+            w = precond(A @ V[j])
+            for i in range(j + 1):  # modified Gram-Schmidt, fixed order
+                hij = w.dot(V[i])
+                H[i, j] = hij
+                _owned_update(w, lambda wv, vv: wv - hij * vv, V[i])
+            hj1 = w.norm()
+            H[j + 1, j] = hj1
+            _arnoldi_column(H, cs, sn, g, j)
+            it += 1
+            j_used = j + 1
+            res = abs(g[j + 1])
+            history.append(res)
+            if verbose:
+                print(f"gmres it={it} residual={res:.3e}")
+            if res <= tol * max(1.0, rs0) or hj1 == 0.0:
+                # convergence is declared from the true residual after the x
+                # update, as the device loop does
+                break
+            vn = PVector.full(0.0, A.cols, dtype=b.dtype)
+            _owned_zip(vn, lambda _v, wv: wv / hj1, w)
+            V.append(vn)
+        if j_used:
+            y = _back_substitute(H, g, j_used)
+            for i in range(j_used):
+                yi = y[i]
+                _owned_update(x, lambda xv, vv: xv + yi * vv, V[i])
+        r = residual_vec()
+        beta = r.norm()
+        converged = beta <= tol * max(1.0, rs0)
+    return x, krylov_info(it, history, converged, tol, b.dtype, floor_warned, final_rel=beta / max(1.0, rs0))
+
+
+def fgmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: int = 30, tol: float = 1e-8,
+           maxiter: Optional[int] = None, minv=None, verbose: bool = False) -> Tuple[PVector, dict]:
+    """Flexible restarted GMRES (solvers.py:1816-1936): right-preconditioned
+    Arnoldi keeping the preconditioned basis Z beside V, so ``minv`` may
+    change from one application to the next (an inner iterative solve, a
+    V-cycle). ``minv`` is a callable, an inverse-diagonal PVector over
+    A.cols, or None (GMRES with M = I, its history the true residual). A
+    host loop on every backend, as the JAX package runs it; the device form
+    with a `GMGHierarchy` is `gpu_gmg.gpu_fgmres_gmg`."""
+    check(restart >= 1, "fgmres: restart dimension must be >= 1")
+    apply_minv = callable(minv)
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="fgmres")
+    m = restart
+
+    def precond(v):
+        """z = M^{-1} v as a fresh vector on A.cols (v stays in the basis)."""
+        z = PVector.full(0.0, A.cols, dtype=b.dtype)
+        if minv is None:
+            _owned_assign(z, v)
+        elif apply_minv:
+            _owned_assign(z, minv(v))
+        else:
+            _owned_zip(z, lambda _z, vv, mv: mv * vv, v, minv)
+        return z
+
+    def residual_vec():
+        # the true residual: right preconditioning never touches the norm
+        r = PVector.full(0.0, A.cols, dtype=b.dtype)
+        q = A @ x
+        _owned_zip(r, lambda _r, bv, qv: bv - qv, b, q)
+        return r
+
+    r = residual_vec()
+    beta = r.norm()
+    rs0 = beta
+    history = [beta]
+    it = 0
+    converged = beta <= tol * max(1.0, rs0)
+    while not converged and it < maxiter:
+        V = [r / beta if beta > 0 else r.copy()]
+        Z = []
+        H = np.zeros((m + 1, m), dtype=np.float64)
+        cs, sn, g = np.zeros(m), np.zeros(m), np.zeros(m + 1)
+        g[0] = beta
+        j_used = 0
+        for j in range(m):
+            if it >= maxiter:
+                break
+            Z.append(precond(V[j]))
+            w = A @ Z[j]
+            for i in range(j + 1):  # modified Gram-Schmidt, fixed order
+                hij = w.dot(V[i])
+                H[i, j] = hij
+                _owned_update(w, lambda wv, vv: wv - hij * vv, V[i])
+            hj1 = w.norm()
+            H[j + 1, j] = hj1
+            _arnoldi_column(H, cs, sn, g, j)
+            it += 1
+            j_used = j + 1
+            res = abs(g[j + 1])
+            history.append(res)
+            if verbose:
+                print(f"fgmres it={it} residual={res:.3e}")
+            if res <= tol * max(1.0, rs0) or hj1 == 0.0:
+                break
+            vn = PVector.full(0.0, A.cols, dtype=b.dtype)
+            _owned_zip(vn, lambda _v, wv: wv / hj1, w)
+            V.append(vn)
+        if j_used:
+            y = _back_substitute(H, g, j_used)
+            for i in range(j_used):
+                yi = y[i]
+                # the update rides the preconditioned basis Z: the flexible part
+                _owned_update(x, lambda xv, zv: xv + yi * zv, Z[i])
+        r = residual_vec()
+        beta = r.norm()
+        converged = beta <= tol * max(1.0, rs0)
+    return x, krylov_info(it, history, converged, tol, b.dtype, floor_warned, final_rel=beta / max(1.0, rs0))
+
+
+def minres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
+           maxiter: Optional[int] = None, verbose: bool = False) -> Tuple[PVector, dict]:
+    """MINRES (Paige-Saunders) for symmetric, possibly indefinite, operators
+    (solvers.py:1939-2041): the three-term Lanczos recurrence and one Givens
+    rotation a step, constant memory. A GPU-backend b runs the device loop
+    (`gpu_krylov.gpu_minres`), which follows this update sequence."""
+    from ..parallel.gpu import GPUBackend
+    from ..parallel.gpu_krylov import gpu_minres
+
+    if isinstance(b.values.backend, GPUBackend):
+        return gpu_minres(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="minres")
+    r = PVector.full(0.0, A.cols, dtype=b.dtype)
+    q0 = A @ x
+    _owned_zip(r, lambda _r, bv, qv: bv - qv, b, q0)
+    beta = r.norm()
+    rs0 = beta
+    history = [beta]
+    if beta == 0.0:
+        return x, krylov_info(0, history, True, tol, b.dtype, floor_warned, final_rel=0.0)
+    v = r / beta
+    v_old = PVector.full(0.0, A.cols, dtype=b.dtype)
+    w = PVector.full(0.0, A.cols, dtype=b.dtype)
+    w_old = PVector.full(0.0, A.cols, dtype=b.dtype)
+    c_old, s_old = 1.0, 0.0
+    c, s = 1.0, 0.0
+    eta = beta
+    beta_k = 0.0  # the sub/superdiagonal entry of the current column: 0 at k = 1
+    it = 0
+    res = beta
+    while res > tol * max(1.0, rs0) and it < maxiter:
+        av = A @ v
+        alpha = v.dot(av)
+        _owned_zip(av, lambda qv, vv, ov: qv - alpha * vv - beta_k * ov, v, v_old)
+        beta_new = av.norm()
+        delta = c * alpha - c_old * s * beta_k
+        gamma2 = s * alpha + c_old * c * beta_k
+        gamma3 = s_old * beta_k
+        rho = np.hypot(delta, beta_new)
+        if rho == 0.0:
+            break  # hard breakdown: converged=False, as the device loop ends
+        c_old, s_old = c, s
+        c, s = delta / rho, beta_new / rho
+        g2, g3, rr = gamma2, gamma3, rho
+        w, w_old = w_old, w
+        _owned_zip(w, lambda w2ago, vv, wprev: (vv - g2 * wprev - g3 * w2ago) / rr, v, w_old)
+        step = c * eta
+        _owned_update(x, lambda xv, wv: xv + step * wv, w)
+        eta = -s * eta
+        vn = PVector.full(0.0, A.cols, dtype=b.dtype)
+        s_beta = beta_new if beta_new > 0 else 1.0
+        _owned_zip(vn, lambda _v, qv: qv / s_beta, av)
+        v_old, v = v, vn
+        beta_k = beta_new
+        res = abs(eta)
+        history.append(res)
+        it += 1
+        if verbose:
+            print(f"minres it={it} residual={res:.3e}")
+        if beta_new == 0.0:  # invariant subspace: the exact solve is reached
+            break
+    return x, krylov_info(
+        it, history, res <= tol * max(1.0, rs0), tol, b.dtype, floor_warned,
+        final_rel=_final_true_rel(A, x, b, res / max(1.0, rs0), rs0, tol, force=floor_warned),
+    )
+
+
+def bicgstab(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
+             maxiter: Optional[int] = None, minv=None, verbose: bool = False) -> Tuple[PVector, dict]:
+    """BiCGStab for general (nonsymmetric) operators (solvers.py:2044-2152):
+    two SpMVs an iteration, breakdown ends it with ``converged=False``.
+    ``minv`` right-preconditions it (its residuals stay the true ones): an
+    inverse-diagonal PVector over A.cols, or a callable ``minv(v) -> z``,
+    which runs this host loop on any backend. A GPU-backend b with no
+    callable runs the device loop (`gpu_krylov.gpu_bicgstab`)."""
+    from ..parallel.gpu import GPUBackend
+    from ..parallel.gpu_krylov import gpu_bicgstab
+
+    apply_minv = callable(minv)
+    if isinstance(b.values.backend, GPUBackend) and not apply_minv:
+        return gpu_bicgstab(A, b, x0=x0, tol=tol, maxiter=maxiter, minv=minv, verbose=verbose)
+
+    def precond(v):
+        """K^-1 v as a fresh vector on A.cols; the identity returns v itself."""
+        if minv is None:
+            return v
+        z = PVector.full(0.0, A.cols, dtype=b.dtype)
+        if apply_minv:
+            _owned_assign(z, minv(v))
+        else:
+            _owned_zip(z, lambda _z, mv, vv: mv * vv, minv, v)
+        return z
+
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    floor_warned = warn_tol_below_floor(tol, b.dtype, name="bicgstab")
+    r = b.copy()
+    q = A @ x
+    _owned_update(r, lambda rv, qv: rv - qv, q)
+    rhat = PVector.full(0.0, A.cols, dtype=b.dtype)
+    _owned_assign(rhat, r)
+    rcol = PVector.full(0.0, A.cols, dtype=b.dtype)
+    _owned_assign(rcol, r)
+    r = rcol  # the residual on A.cols, so every vector shares one range
+    v = PVector.full(0.0, A.cols, dtype=b.dtype)
+    p = PVector.full(0.0, A.cols, dtype=b.dtype)
+    s = PVector.full(0.0, A.cols, dtype=b.dtype)
+    rho = alpha = omega = 1.0
+    rs = r.dot(r)
+    rs0 = rs
+    history = [np.sqrt(rs)]
+    it = 0
+    while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
+        rho_new = rhat.dot(r)
+        if rho_new == 0.0 or omega == 0.0:
+            break
+        beta = (rho_new / rho) * (alpha / omega)
+        ww = omega
+        _owned_zip(p, lambda pv, rv, vv: rv + beta * (pv - ww * vv), r, v)
+        phat = precond(p)  # right preconditioning: v = A K^-1 p
+        v = A @ phat
+        rv_ = rhat.dot(v)
+        if rv_ == 0.0:
+            break
+        alpha = rho_new / rv_
+        _owned_zip(s, lambda _s, rv, vv: rv - alpha * vv, r, v)
+        shat = precond(s)
+        t = A @ shat
+        tt = t.dot(t)
+        omega = 0.0 if tt == 0.0 else t.dot(s) / tt
+        aa, oo_ = alpha, omega
+        # the solution update rides the preconditioned directions
+        _owned_zip(x, lambda xv, pv, sv: xv + aa * pv + oo_ * sv, phat, shat)
+        _owned_zip(r, lambda _r, sv, tv: sv - oo_ * tv, s, t)
+        rho = rho_new
+        rs = r.dot(r)
+        history.append(np.sqrt(rs))
+        it += 1
+        if verbose:
+            print(f"bicgstab it={it} residual={np.sqrt(rs):.3e}")
+    return x, krylov_info(
+        it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)), tol, b.dtype, floor_warned,
+        final_rel=_final_true_rel(A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
+                                  force=floor_warned),
     )

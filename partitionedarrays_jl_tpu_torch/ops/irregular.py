@@ -660,17 +660,20 @@ def pairwise_dot_block(a: torch.Tensor, b: torch.Tensor, o0: int, n: int) -> tor
 # ---------------------------------------------------------------------------
 
 
-def check_full_precision(dtype: torch.dtype, device: torch.device) -> None:
+def check_full_precision(dtype: torch.dtype, device: torch.device,
+                         what: str = "the SD product", remedy: str = " or take lowering='bsr'") -> None:
     """Raise unless a float32 matrix product on `device` runs in full
     float32 (TF32 off), the counterpart of the JAX package's
-    ``Precision.HIGHEST``; the global setting is read, never changed."""
+    ``Precision.HIGHEST``; the global setting is read, never changed.
+    ``what`` names the product in the message, ``remedy`` what else the
+    caller may do."""
     if dtype != torch.float32 or torch.device(device).type != "cuda":
         return
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
-            "supernode-dense lowering: float32 matrix products run in TF32 "
+            f"{what}: float32 matrix products run in TF32 "
             "(torch.backends.cuda.matmul.allow_tf32 or torch.set_float32_matmul_precision); "
-            "the SD product needs full float32: turn TF32 off or take lowering='bsr'"
+            f"{what} needs full float32: turn TF32 off{remedy}"
         )
 
 

@@ -1,7 +1,8 @@
 """GPU backend: the parts of a partition stacked on one CUDA card (L3').
 
 The counterpart of `partitionedarrays_jl_tpu/parallel/tpu.py`, cut to the
-Poisson CG, multigrid and unstructured-elasticity slices:
+Poisson CG, multigrid and unstructured-elasticity slices (the rest of the
+Krylov family is `gpu_krylov.py`):
 
 * **Planning on the host.** `GPUData` extends the sequential PData, so
   PRange construction, Exchanger build and COO assembly run unchanged; only
@@ -33,6 +34,11 @@ Poisson CG, multigrid and unstructured-elasticity slices:
   graph); x and r are updated and r.r taken in one sweep kernel
   (`ops/sweep.py`); dots are per-part partials folded in part order.
   Multigrid on the card is `parallel/gpu_gmg.py`.
+* **The solve cache.** `_krylov_fn_for` keeps one solve function per
+  key on the `DeviceMatrix` (tpu.py:6308-6392): a second `gpu_cg`,
+  `gpu_block_cg` or solve of `gpu_krylov.py` (BiCGStab, GMRES, MINRES,
+  Chebyshev, the differentiable solve) with the same key replays the
+  captured loop and builds nothing.
 * **Block solves.** `make_block_cg_fn` / `gpu_block_cg` run K
   right-hand sides over ``(P, W, K)`` slabs on every lowering, the
   operator read once an iteration for all K (the slab forms of the
@@ -399,11 +405,29 @@ def row_classes(dia_p: np.ndarray, n: int, K: int):
     ``(class_table, codes, ok)`` with classes in lexicographic order.
     Rows with distinct projections on a fixed random direction are
     distinct, so more than K distinct projections refuse without sorting
-    the rows themselves."""
+    the rows themselves. Otherwise the projection's classes are the row
+    classes once every row equals its class's first row exactly (one
+    vectorised comparison), and only those few representatives are sorted
+    into lexicographic order; a projection that merges distinct rows takes
+    the exact sort of all rows (`_row_classes_exact`). Both give the same
+    table and codes."""
     rows = dia_p[:, :n].T
     w = np.random.default_rng(0).standard_normal(rows.shape[1])
-    if len(np.unique(rows @ w)) > K:
+    pu, pinv = np.unique(rows @ w, return_inverse=True)
+    if len(pu) > K:
         return None, None, False
+    pinv = pinv.reshape(-1)
+    first = np.full(len(pu), n, dtype=np.int64)
+    np.minimum.at(first, pinv, np.arange(n, dtype=np.int64))
+    reps = rows[first]
+    if not np.array_equal(rows, reps[pinv]):
+        return _row_classes_exact(rows, K)
+    u, rinv = np.unique(reps, axis=0, return_inverse=True)
+    return u, rinv.reshape(-1)[pinv].astype(np.uint8), True
+
+
+def _row_classes_exact(rows: np.ndarray, K: int):
+    """`row_classes` by a lexicographic sort of all the rows."""
     u, inv = np.unique(rows, axis=0, return_inverse=True)
     if len(u) > K:
         return None, None, False
@@ -447,6 +471,8 @@ class DeviceMatrix:
     def __init__(self, A: PSparseMatrix, backend: GPUBackend, box: bool = True, strict: bool = False,
                  lowering: str = "auto"):
         check(lowering in LOWERINGS, f"DeviceMatrix: lowering is one of {LOWERINGS}, got {lowering!r}")
+        #: the solve functions built on this operator (`_krylov_fn_for`)
+        self._fn_cache = {}
         if strict:
             # strict mode: the ELL lowering, whose two-phase left-to-right
             # fold is the host's csr_spmv + mul_into order, and the generic
@@ -913,13 +939,18 @@ def _pdot_factory(o0: int, no_max: int, strict: bool = False, plain: bool = Fals
         return lambda a, b: k(a, b, o0, no_max)
 
     def pdot(a, b):
-        part = (a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1)
-        acc = part[0]
-        for i in range(1, part.shape[0]):
-            acc = acc + part[i]
-        return acc
+        return _fold_parts((a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1))
 
     return pdot
+
+
+def _fold_parts(part: torch.Tensor) -> torch.Tensor:
+    """Per-part partials ``(P, ...)`` added left to right: the part order
+    of every deterministic dot of the port."""
+    acc = part[0]
+    for i in range(1, part.shape[0]):
+        acc = acc + part[i]
+    return acc
 
 
 def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool = False):
@@ -953,10 +984,7 @@ def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool 
         stride = sw.block_product_stride(P, no_max)
         buf = products(a, b, o0, no_max)
         part = torch.stack([buf[k * stride : k * stride + m].view(P, no_max).sum(dim=1) for k in range(K)])
-        acc = part[:, 0]
-        for i in range(1, P):
-            acc = acc + part[:, i]
-        return acc
+        return _fold_parts(part.t())
 
     return bdot
 
@@ -1256,6 +1284,54 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     return fn
 
 
+#: solve functions built by `_krylov_fn_for` and `gpu_gmg.fgmres_gmg_fn`
+#: (cache misses) since import; callers reset or difference it
+STATS = {"solve_fns": 0}
+
+
+def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, precond: bool = False,
+                   pipelined: bool = False, fused: Optional[bool] = None, plain: bool = False,
+                   rhs_batch: Optional[int] = None, **options) -> Callable:
+    """The solve function of ``method`` on ``dA``, cached on it
+    (tpu.py:6308-6392, ``dA._cg_cache``): one function, and so one
+    `gpu_loop.DeviceLoop` with its captured graph, per key. The key holds
+    method, tol, maxiter, precond, the concrete CG body (pipelined, fused:
+    resolved as `make_cg_fn` and `make_block_cg_fn` resolve them), plain,
+    the block width K and the method's own options (GMRES's restart,
+    Chebyshev's bounds and leg); the port has no s-step, overlap, trace
+    ring or SDC keys. A hit copies the next b and x0 into the loop's
+    buffers and replays its graph. Methods: ``"cg"`` (`make_cg_fn`, or
+    with ``rhs_batch`` `make_block_cg_fn`), ``"bicgstab"``, ``"gmres"``,
+    ``"minres"``, ``"chebyshev"`` (`gpu_krylov.py`)."""
+    from . import gpu_krylov as kr
+
+    if method == "cg":
+        if rhs_batch is None:
+            fused = (not pipelined and not dA.strict) if fused is None else bool(fused)
+        else:
+            fused = (not dA.strict) if fused is None else bool(fused)
+    key = (method, float(tol), int(maxiter), bool(precond), bool(pipelined), fused, bool(plain),
+           rhs_batch) + tuple(sorted(options.items()))
+    if key not in dA._fn_cache:
+        if method == "cg" and rhs_batch is None:
+            fn = make_cg_fn(dA, tol, maxiter, fused=fused, pipelined=pipelined, plain=plain, precond=precond)
+        elif method == "cg":
+            fn = make_block_cg_fn(dA, tol, maxiter, rhs_batch, precond=precond, fused=fused, plain=plain)
+        elif method == "bicgstab":
+            fn = kr.make_bicgstab_fn(dA, tol, maxiter, precond=precond, plain=plain)
+        elif method == "gmres":
+            fn = kr.make_gmres_fn(dA, options["restart"], tol, maxiter, precond=precond, plain=plain)
+        elif method == "minres":
+            fn = kr.make_minres_fn(dA, tol, maxiter, plain=plain)
+        elif method == "chebyshev":
+            fn = kr.make_chebyshev_fn(dA, options["lmin"], options["lmax"], tol, maxiter, plain=plain)
+        else:
+            raise ValueError(f"_krylov_fn_for: unknown method {method!r}")
+        STATS["solve_fns"] += 1
+        dA._fn_cache[key] = fn
+    return dA._fn_cache[key]
+
+
 def _b_on_cols_layout(b: PVector, dA: DeviceMatrix) -> torch.Tensor:
     """b lives on A.rows (no ghosts); the CG keeps every vector in the
     cols layout (same owned gids). Restack b's owned values there (also
@@ -1354,8 +1430,8 @@ def gpu_cg(
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
-    solve = make_cg_fn(dA, tol, int(maxiter), fused=fused, pipelined=pipelined, plain=plain,
-                       precond=minv is not None)
+    solve = _krylov_fn_for(dA, "cg", tol, int(maxiter), precond=minv is not None, pipelined=pipelined,
+                           fused=fused, plain=plain)
     name = "pcg" if minv is not None else "cg"
     return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, cg_body=solve.cg_body,
                        lowering=dA.lowering, strict=dA.strict)
@@ -1405,7 +1481,8 @@ def gpu_block_cg(
     dt = np.result_type(*[b.dtype for b in B])
     name = "block-pcg" if minv is not None else "block-cg"
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
-    solve = make_block_cg_fn(dA, tol, maxiter, K, precond=minv is not None, fused=fused, plain=plain)
+    solve = _krylov_fn_for(dA, "cg", tol, maxiter, precond=minv is not None, fused=fused, plain=plain,
+                           rhs_batch=K)
     floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
     db = _block_on_cols_layout(B, dA)
     if X0 is None:

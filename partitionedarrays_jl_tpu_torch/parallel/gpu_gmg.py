@@ -64,6 +64,7 @@ from ..models.solvers import _dense, gather_psparse
 from ..ops import epilogue as ep
 from ..ops import stencil as stn
 from ..utils.helpers import check
+from .gpu import STATS as gpu_stats
 from .gpu import (
     DeviceVector,
     GPUBackend,
@@ -599,3 +600,174 @@ def gpu_gmg_pcg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
     dA0 = solve.staged["levels"][0]["dA"]
     return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg", dA=dA0,
                        lowering=dA0.lowering, strict=dA0.strict)
+
+
+def make_fgmres_gmg_fn(h, backend: GPUBackend, tol: float, maxiter: int, restart: int = 30,
+                       plain: bool = False, stencil: bool = True, graph: bool = True) -> Callable:
+    """Flexible restarted GMRES with the whole V-cycle as its right
+    preconditioner, on the card (tpu_gmg.py:990-1165), the device form of
+    ``fgmres(A, b, minv=h)``: ``fn(b, x0) -> (x, rs, rs0, iterations,
+    history)``. The Arnoldi loop follows the host algorithm step for step:
+    z = Vcycle(v_j) kept in a flexible basis Z beside V, w = A z,
+    modified Gram-Schmidt in fixed order, sequential Givens rotations, the
+    triangular solve by back-substitution, x updated by axpys over Z in
+    host order on the owned band, and the true residual decides the
+    restart. One step of the device loop is one restart cycle: the
+    ``restart`` Arnoldi steps unrolled, each masked by a device flag
+    (active while ``it < maxiter`` and the steps before it neither
+    converged, ``|g_{j+1}| <= tol*max(1, beta0)``, nor broke down, hj1 == 0),
+    as the JAX program masks its ``fori_loop`` steps; the flag the host
+    reads is ``beta > tol*max(1, beta0)`` and ``it < maxiter`` after the
+    cycle. ``iterations`` counts Arnoldi steps (V-cycle applications);
+    ``plain``, ``stencil`` and ``graph`` as in `make_gmg_pcg_fn` (the box
+    plan where the partition has one).
+    ``fn.stats`` counts cycles, ``fn.staged`` is the staged hierarchy."""
+    from . import gpu_loop as gl
+
+    m = int(restart)
+    check(m >= 1, "fgmres: restart dimension must be >= 1")
+    dh = device_hierarchy(h, backend, stencil=stencil)
+    dA0 = dh["levels"][0]["dA"]
+    L0, L0r = dA0.col_layout, dA0.row_layout
+    no = L0.no_max
+    sl = slice(L0.o0, L0.o0 + no)
+    pdot = _pdot_factory(L0.o0, no, False, plain)
+    body_A0 = _spmv_body(dA0, plain=plain)
+    vcycle = make_vcycle(h, dh, plain=plain)
+    stop_it = gl.stop_bound(maxiter)
+
+    def spmv(z):
+        out = torch.zeros_like(z)
+        out[:, sl] = body_A0(z)[:, L0r.o0 : L0r.o0 + no]
+        return out
+
+    def residual(x, b):
+        r = torch.zeros_like(x)
+        r[:, sl] = b[:, sl] - spmv(x)[:, sl]
+        return r
+
+    def step(S):
+        live = S["live"]
+        x, r, V, Z, b, thr = S["x"], S["r"], S["V"], S["Z"], S["b"], S["thr"]
+        b2 = S["beta"]
+        one = torch.ones_like(b2)
+        V[0] = r / torch.where(b2 > 0, b2, one)
+        Hm = torch.zeros((m + 1, m), dtype=b2.dtype, device=b2.device)
+        cs = torch.zeros(m, dtype=b2.dtype, device=b2.device)
+        sn = torch.zeros_like(cs)
+        g = torch.zeros(m + 1, dtype=b2.dtype, device=b2.device)
+        g[0] = b2
+        active = (live != 0) & (b2 > thr)
+        it, hist = S["it"], S["hist"]
+        j_used = torch.zeros_like(live)
+        for j in range(m):
+            active = active & (it < stop_it)
+            z = vcycle(V[j])
+            w = spmv(z)
+            hcol = torch.zeros(m + 1, dtype=b2.dtype, device=b2.device)
+            for i in range(j + 1):  # modified Gram-Schmidt, fixed order
+                hij = pdot(w, V[i])
+                w[:, sl] = w[:, sl] - hij * V[i][:, sl]
+                hcol[i] = hij
+            hj1 = gl.sqrt_rn(pdot(w, w))
+            hcol[j + 1] = hj1
+            for i in range(j):  # the accumulated rotations, in order
+                t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                u = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                hcol[i] = t
+                hcol[i + 1] = u
+            hjj = hcol[j].clone()
+            rho = torch.hypot(hjj, hj1)
+            csj = torch.where(rho == 0, one, hjj / rho)
+            snj = torch.where(rho == 0, 0, hj1 / rho)
+            hcol[j] = rho
+            hcol[j + 1].zero_()
+            gj = g[j].clone()
+            res = torch.abs(-snj * gj)
+            # masked commits: an inactive step leaves the cycle as it was
+            Z[j] = torch.where(active, z, Z[j])
+            Hm[:, j] = torch.where(active, hcol, Hm[:, j])
+            cs[j] = torch.where(active, csj, cs[j])
+            sn[j] = torch.where(active, snj, sn[j])
+            g[j] = torch.where(active, csj * gj, g[j])
+            g[j + 1] = torch.where(active, -snj * gj, g[j + 1])
+            V[j + 1] = torch.where(active, w / torch.where(hj1 > 0, hj1, one), V[j + 1])
+            it = it + active.to(it.dtype)
+            gl.record(hist, it, active.to(torch.int32), res)
+            j_used = torch.where(active, j + 1, j_used)
+            # the host breaks after committing step j on convergence or a
+            # lucky breakdown
+            active = active & (res > thr) & (hj1 > 0)
+        # back-substitute the j_used x j_used triangular system
+        y = torch.zeros(m, dtype=b2.dtype, device=b2.device)
+        for i in range(m - 1, -1, -1):
+            s = g[i] - torch.sum(Hm[i, :m] * y)
+            d = torch.where(Hm[i, i] != 0, Hm[i, i], one)
+            y[i] = torch.where(i < j_used, s / d, 0)
+        # the flexible update rides the preconditioned basis Z, axpys in host
+        # order over the owned band (Z's ghost slots hold V-cycle internals)
+        for i in range(m):
+            x[:, sl] = x[:, sl] + y[i] * Z[i][:, sl]
+        r_new = residual(x, b)
+        beta = gl.sqrt_rn(pdot(r_new, r_new))
+        go = (beta > thr) & (it < stop_it)
+        return dict(S, r=r_new, beta=beta, it=it, live=live * go.to(torch.int32))
+
+    loop = gl.DeviceLoop(step, 1, graph)
+
+    def fn(b, x0):
+        x = x0.clone()
+        r = residual(x, b)
+        beta0 = gl.sqrt_rn(pdot(r, r))
+        thr = tol * torch.clamp(beta0, min=1.0)
+        dev = x.device
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        P, W = x.shape
+        init = {
+            "x": x, "b": b, "r": r, "beta": beta0, "thr": thr, "it": it,
+            "V": torch.zeros((m + 1, P, W), dtype=x.dtype, device=dev),
+            "Z": torch.zeros((m, P, W), dtype=x.dtype, device=dev),
+            "hist": gl.history(beta0, maxiter), "live": ((beta0 > thr) & (it < stop_it)).to(torch.int32),
+        }
+        S, _ = loop.run(init)
+        beta = S["beta"].clone()
+        return S["x"].clone(), beta * beta, beta0 * beta0, int(S["it"].item()), S["hist"].cpu().numpy()
+
+    fn.stats = loop.stats  # updated in place by every run
+    fn.loop = loop
+    fn.staged = dh
+    return fn
+
+
+def fgmres_gmg_fn(h, backend: GPUBackend, tol: float, maxiter: int, restart: int = 30, plain: bool = False,
+                  stencil: bool = True) -> Callable:
+    """`make_fgmres_gmg_fn`'s solve function, cached on the hierarchy beside
+    GMG-PCG's (`gmg_pcg_fn`, ``h._fn_cache``; tpu_gmg.py:1193-1204), keyed
+    by restart, backend, tol, maxiter and the keywords; a miss counts in
+    `gpu.STATS` (``solve_fns``)."""
+    cache = getattr(h, "_fn_cache", None)
+    if cache is None:
+        cache = h._fn_cache = {}
+    key = ("fgmres+gmg", int(restart), backend, float(tol), int(maxiter), bool(plain), bool(stencil))
+    if key not in cache:
+        gpu_stats["solve_fns"] += 1
+        cache[key] = make_fgmres_gmg_fn(h, backend, tol, int(maxiter), restart=restart, plain=plain, stencil=stencil)
+    return cache[key]
+
+
+def gpu_fgmres_gmg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
+                   maxiter: Optional[int] = None, restart: int = 30, verbose: bool = False,
+                   plain: bool = False, stencil: bool = True) -> Tuple[PVector, dict]:
+    """Flexible GMRES with the V-cycle inlined, on the card: the
+    counterpart of `tpu_fgmres_gmg` (tpu_gmg.py:1168-1188), the device form
+    of ``fgmres(A, b, minv=h)``. The solve function is `fgmres_gmg_fn`'s,
+    cached on the hierarchy; ``info["device_loop"]`` counts restart
+    cycles, ``iterations`` Arnoldi steps."""
+    backend = b.values.backend
+    check(isinstance(backend, GPUBackend), "fgmres+gmg needs a GPU-backend PVector")
+    if maxiter is None:
+        maxiter = 4 * int(h.levels[0].A.rows.ngids)
+    solve = fgmres_gmg_fn(h, backend, tol, int(maxiter), restart=restart, plain=plain, stencil=stencil)
+    dA0 = solve.staged["levels"][0]["dA"]
+    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, f"fgmres+gmg(m={int(restart)})", dA=dA0,
+                       lowering=dA0.lowering, restart=int(restart))

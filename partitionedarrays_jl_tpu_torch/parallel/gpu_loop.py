@@ -15,8 +15,11 @@ result, and the host can read the flag once per block of iterations.
 CUDA device the first block of the first run runs eagerly (it is also the
 warm-up: every kernel computes its launch grid there), then the block is
 captured once into a `torch.cuda.CUDAGraph` and replayed: one host launch
-and one read of the flag a block. A capture that fails raises; nothing
-falls back to the eager loop. On the CPU, or with ``graph=False``, every
+and one read of the flag a block. A first run that ended with its first
+block captured nothing; the next run captures before its first block, so
+a cached solve that always ends in one block replays a graph from its
+second run on. A capture that fails raises; nothing falls back to the
+eager loop. On the CPU, or with ``graph=False``, every
 block runs eagerly: the same steps, the same frozen iterations, so the
 results and the device iterations are the same.
 
@@ -41,6 +44,7 @@ card ran, in frozen iterations too.
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -129,6 +133,7 @@ class DeviceLoop:
         self.cuda_graph = None
         self.tally: Dict[str, int] = {}
         self.capture_s: Optional[float] = None
+        self.warm = False  # a block ran eagerly on these buffers: every kernel is warm
         self.stats: dict = {}
 
     def run(self, init: State) -> Tuple[State, int]:
@@ -141,12 +146,16 @@ class DeviceLoop:
             self.base = {k: v.clone() for k, v in init.items()}
             self.layout = layout
             self.cuda_graph = None
+            self.warm = False
         else:
             for k, v in init.items():
                 self.base[k].copy_(v)
         use_graph = self.graph and self.base["live"].device.type == "cuda"
         n = replays = 0
         captured_now = False
+        if use_graph and self.cuda_graph is None and self.warm:
+            self._capture()
+            captured_now = True
         while True:
             if self.cuda_graph is not None:
                 self.cuda_graph.replay()
@@ -155,6 +164,7 @@ class DeviceLoop:
                 replays += 1
             else:
                 self._block()
+                self.warm = True
             n += self.block
             if not bool(self.base["live"].item()):
                 break
@@ -182,14 +192,22 @@ class DeviceLoop:
     def _capture(self) -> None:
         """Capture one block into a CUDA graph (torch's global capture error
         mode: a host read or a synchronising op raises). The launches the
-        capture counted become the graph's tally."""
+        capture counted become the graph's tally. Python's cyclic garbage
+        collector is off during the capture: a solve function cached on its
+        operator or hierarchy sits in a reference cycle, and collecting a
+        dead one destroys its graph, which no stream may do while another
+        captures (the capture is then invalidated)."""
         before = dict(dia.LAUNCHES)
         t = time.perf_counter()
         g = torch.cuda.CUDAGraph()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(g):
                 self._block()
         finally:
+            if gc_on:
+                gc.enable()
             tally = {k: dia.LAUNCHES[k] - before[k] for k in dia.LAUNCHES}
             dia.LAUNCHES.update(before)
         torch.cuda.synchronize()

@@ -458,7 +458,9 @@ HOST_API = (
     "counts_to_ptrs empty_table get_data get_ptrs rewind_ptrs checks_enabled notimplemented unreachable "
     "PTimer tic toc print_timer "
     "assemble_poisson_periodic assemble_fem_q1 fem_q1_driver fem_q1_rhs_via_global_view "
-    "assemble_heat heat_transient_driver"
+    "assemble_heat heat_transient_driver "
+    "bicgstab gmres fgmres minres chebyshev_solve lanczos_bounds gershgorin_bounds "
+    "assemble_advection_fv advection_fv_driver"
 ).split()
 
 PVECTOR_METHODS = ("undef similar copy_into axpy fill scale ghost_values sum reduce_owned maximum minimum "

@@ -1761,3 +1761,145 @@ def test_k1_k2_on_the_q1_operator(n):
     yk, pk = dia.dia_coded_spmv_pfold(op, r, pprev, beta, wy)
     yp, pp = dia.dia_coded_spmv_pfold_plain(op, r, pprev, beta, wy)
     assert torch.equal(yk, yp) and torch.equal(pk, pp)
+
+
+def _krylov_system(parts, kind):
+    """The small systems of the new device solvers: the advection operator
+    (nonsymmetric, BiCGStab and GMRES) or the decoupled Poisson operator
+    (symmetric, MINRES and Chebyshev), 10x10x6 f64."""
+    if kind == "advection":
+        A, b, _, x0 = pt.assemble_advection_fv(parts, (10, 10, 6), velocity=(1.0, -0.5, 0.25))
+        return A, b, x0
+    A, b, _, _ = pt.assemble_poisson(parts, (10, 10, 6))
+    Ah, bh = pt.decouple_dirichlet(A, b)
+    return Ah, bh, pt.PVector.full(0.0, Ah.cols)
+
+
+KRYLOV_CASES = [("bicgstab", "advection", {}), ("bicgstab_jacobi", "advection", {}),
+                ("gmres", "advection", {"restart": 7}), ("gmres_jacobi", "advection", {"restart": 7}),
+                ("minres", "poisson", {}), ("chebyshev", "poisson", {"lmin": 0.3, "lmax": 12.5})]
+
+
+@pytest.mark.parametrize("grid", [(1, 1, 1), (2, 2, 2)], ids=["1part", "8parts"])
+@pytest.mark.parametrize("name,kind,opts", KRYLOV_CASES, ids=[c[0] for c in KRYLOV_CASES])
+def test_new_krylov_graph_matches_eager_and_plain(name, kind, opts, grid):
+    """Each new device solver on the card: the graph loop torch.equal to the
+    same loop run eagerly (x, rs, history, iterations), with replays; the
+    kernel path's iterations and x equal to the plain path's."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_krylov as kr
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import DeviceVector, _b_on_cols_layout, device_matrix
+
+    method = name.split("_")[0]
+    precond = name.endswith("jacobi")
+
+    def drive(parts):
+        A, b, x0 = _krylov_system(parts, kind)
+        dA = device_matrix(A, parts.backend)
+        db = _b_on_cols_layout(b, dA)
+        dx0 = DeviceVector.from_pvector(x0, parts.backend, dA.col_layout).data
+        args = (_b_on_cols_layout(pt.jacobi_preconditioner(A), dA),) if precond else ()
+        tol, maxiter = (0.0, 70) if method in ("gmres", "chebyshev") else (1e-10, 400)
+
+        def make(graph, plain=False):
+            if method == "bicgstab":
+                return kr.make_bicgstab_fn(dA, tol, maxiter, precond=precond, plain=plain, graph=graph)
+            if method == "gmres":
+                return kr.make_gmres_fn(dA, opts["restart"], tol, maxiter, precond=precond, plain=plain, graph=graph)
+            if method == "minres":
+                return kr.make_minres_fn(dA, tol, maxiter, plain=plain, graph=graph)
+            return kr.make_chebyshev_fn(dA, opts["lmin"], opts["lmax"], tol, maxiter, plain=plain, graph=graph)
+
+        fg, fe, fp = make(True), make(False), make(True, plain=True)
+        xg, rsg, _, itg, hg = fg(db, dx0, *args)
+        xe, rse, _, ite, he = fe(db, dx0, *args)
+        xp, _, _, itp, _ = fp(db, dx0, *args)
+        torch.cuda.synchronize()
+        return (torch.equal(xg, xe), torch.equal(rsg, rse), np.array_equal(hg, he, equal_nan=True), itg == ite,
+                fg.stats["loop"], fe.stats["loop"], fg.stats["replays"] > 0, itg == itp, torch.equal(xg, xp))
+
+    got = pt.prun(drive, pt.GPUBackend(), grid)
+    assert got == (True, True, True, True, "graph", "eager", True, True, True), got
+
+
+@pytest.mark.parametrize("stencil", [True, False], ids=["stencil", "structured"])
+def test_fgmres_gmg_graph_matches_eager_and_plain(stencil):
+    """FGMRES with the V-cycle inlined on the card (12^3 f64, (2,2,2), ct 100,
+    restart 4, fixed 12 Arnoldi steps: three cycles): graph torch.equal to
+    eager, the kernel path torch.equal to the plain path; to tol 1e-9 within
+    one iteration of the host fgmres(minv=h)."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _b_on_cols_layout
+
+    def drive(parts):
+        A, b, xe, _ = pt.assemble_poisson(parts, (12, 12, 12))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (12, 12, 12), coarse_threshold=100)
+        fg = gpu_gmg.make_fgmres_gmg_fn(h, parts.backend, 0.0, 12, restart=4, stencil=stencil)
+        fe = gpu_gmg.make_fgmres_gmg_fn(h, parts.backend, 0.0, 12, restart=4, stencil=stencil, graph=False)
+        fp = gpu_gmg.make_fgmres_gmg_fn(h, parts.backend, 0.0, 12, restart=4, stencil=stencil, plain=True)
+        db = _b_on_cols_layout(bh, fg.staged["levels"][0]["dA"])
+        z = torch.zeros_like(db)
+        xg, rsg, _, itg, hg = fg(db, z)
+        xe, rse, _, ite, he = fe(db, z)
+        xp, _, _, itp, _ = fp(db, z)
+        _, info = pt.gpu_fgmres_gmg(h, bh, tol=1e-9, restart=10, stencil=stencil)
+        _, host = pt.fgmres(Ah, bh, minv=h, tol=1e-9, restart=10)
+        return (torch.equal(xg, xe), torch.equal(rsg, rse), np.array_equal(hg, he, equal_nan=True), itg == ite == 12,
+                fg.stats["replays"] > 0, itp == itg, torch.equal(xg, xp), info["converged"],
+                abs(info["iterations"] - host["iterations"]) <= 1)
+
+    assert pt.prun(drive, pt.GPUBackend(), (2, 2, 2)) == (True,) * 9
+
+
+def test_diff_solve_on_card():
+    """The differentiable solve on the card (decoupled 10x10x6 Poisson,
+    (2,2,2)): one capture for forward and backward, the vector-Jacobian
+    product torch.equal to a forward solve of the cotangent."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _b_on_cols_layout, device_matrix
+
+    def drive(parts):
+        A, b, x0 = _krylov_system(parts, "poisson")
+        dA = device_matrix(A, parts.backend)
+        before = gpu_loop.STATS["captures"]
+        f = pt.make_diff_solve_fn(dA, tol=1e-10)
+        bv = _b_on_cols_layout(b, dA).requires_grad_(True)
+        x = f(bv)
+        xbar = torch.randn(x.shape, dtype=x.dtype, device=x.device, generator=torch.Generator("cuda").manual_seed(0))
+        (g,) = torch.autograd.grad(x, bv, grad_outputs=xbar)
+        with torch.no_grad():
+            again = f(xbar)
+        return torch.equal(g, again), gpu_loop.STATS["captures"] - before
+
+    assert pt.prun(drive, pt.GPUBackend(), (2, 2, 2)) == (True, 1)
+
+
+def test_one_block_solve_captures_at_its_second_run():
+    """A cached solve that ends in its first block (FGMRES-GMG whose restart
+    exceeds its iterations: one cycle) runs that block eagerly on its first
+    run and captures nothing; its second run captures before the block and
+    replays it, with the first run's result bit for bit; the third captures
+    nothing more."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (12, 12, 12))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (12, 12, 12), coarse_threshold=100)
+        out = []
+        for _ in range(3):
+            before = gpu_loop.STATS["captures"]
+            x, info = pt.gpu_fgmres_gmg(h, bh, tol=1e-6, restart=30)
+            loop = info["device_loop"]
+            out.append((pt.gather_pvector(x).tobytes(), info["iterations"], loop["device_iterations"],
+                        loop["replays"], gpu_loop.STATS["captures"] - before))
+        return out
+
+    (x1, it1, d1, r1, c1), (x2, it2, d2, r2, c2), (x3, it3, d3, r3, c3) = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+    assert it1 < 30 and d1 == d2 == d3 == 1
+    assert (r1, c1) == (0, 0) and (r2, c2) == (1, 1) and (r3, c3) == (1, 0)
+    assert x1 == x2 == x3 and it1 == it2 == it3
