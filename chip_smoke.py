@@ -323,10 +323,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from partitionedarrays_jl_tpu_torch import (  # noqa: E402
-    PSparseMatrix, PVector, add_gids, advection_fv_driver, assemble_advection_fv, assemble_poisson, bicgstab,
-    cartesian_partition, cg, chebyshev_solve, decouple_dirichlet, fgmres, gather_pvector, gmg_hierarchy, gmres,
-    gpu_bicgstab, gpu_chebyshev, gpu_gmres, gpu_minres, jacobi_preconditioner, lanczos_bounds, make_diff_solve_fn,
-    map_parts, minres, no_ghost, pcg, poisson_fdm_driver, prun, sequential,
+    PSparseMatrix, PVector, add_gids, additive_schwarz, advection_fv_driver, assemble_advection_fv, assemble_poisson,
+    bicgstab, cartesian_partition, cg, chebyshev_solve, decouple_dirichlet, fgmres, gather_pvector, gmg_hierarchy,
+    gmg_solve, gmres, gpu_bicgstab, gpu_chebyshev, gpu_gmres, gpu_minres, jacobi_preconditioner, lanczos_bounds,
+    lobpcg, make_diff_solve_fn, map_parts, minres, no_ghost, pcg, poisson_fdm_driver, prun, sequential,
 )
 from partitionedarrays_jl_tpu_torch.ops import dia  # noqa: E402
 from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix  # noqa: E402
@@ -1095,7 +1095,7 @@ def _stream_checks(dh, rng, tag):
 def _epilogue_calls(dh, level, omega, rng):
     """The V-cycle epilogue's three calls on a level as `make_vcycle` makes
     them (the residual into the level's column frame on the stencil route,
-    into S's on the structured ones), on random frames: mode -> keywords
+    into S's on the structured ones, into R's on the assembled one), on random frames: mode -> keywords
     (x and y drawn once; smooth updates x in place)."""
     lv = dh["levels"][level]
     LA, LAr = lv["dA"].col_layout, lv["dA"].row_layout
@@ -1106,7 +1106,8 @@ def _epilogue_calls(dh, level, omega, rng):
 
     b, x, y = frame(LA.W), frame(LA.W), frame(LAr.W)
     band = {"b": b, "o0": LA.o0, "n": LA.no_max}
-    res = {} if gpu_gmg.route(lv) == "stencil" else {"width": lv["dS"].col_layout.W, "out_o0": lv["dS"].col_layout.o0}
+    into = lv.get("dS", lv.get("dR"))  # the structured routes' S, the assembled route's R
+    res = {} if gpu_gmg.route(lv) == "stencil" else {"width": into.col_layout.W, "out_o0": into.col_layout.o0}
     return {
         "init": {"mode": "init", **band, "dinv": dinv, "omega": omega},
         "residual": {"mode": "residual", **band, "y": y, "yo0": LAr.o0, **res},
@@ -3763,6 +3764,551 @@ def phase_diff_solve(backend, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: the rest of the solver family
+# ---------------------------------------------------------------------------
+
+SSTEP_DEPTHS = (2, 4)  # s-step depths at 192^3 f32 (s = 2 also on 48^3 f64 (2,2,2))
+TOL_MULTI = 1e-9  # the 48^3 f64 (2,2,2) s-step and stationary GMG solves
+SSTEP_X_ATOL = 1e-7  # tests/test_sstep.py:143: the s = 2 solution against the textbook body's, f64
+AGG_THRESHOLD = 300  # 48^3 (2,2,2), coarse_threshold 500: the 12^3 level and the 6^3 coarse grid on one part
+AGG_X_ATOL = 1e-10  # agglomerated against full-mesh solutions (the two placements' Galerkin products round apart)
+LOBPCG_NEV = 4
+# 192^3 f32, GMG-preconditioned: |r_i| <= tol*max(1, |lambda_i|), absolute
+# here, where lambda_1 is about 5e-5: 1e-6 is about 2% of it, so a Ritz
+# pair that has not converged fails the stop
+TOL_LOBPCG = 1e-6
+LOBPCG_MAXITER = 100
+LOBPCG_TRIPS = (2, 6)  # fixed iterations of the 192^3 GMG LOBPCG seconds per iteration
+# the eigenvalues against the closed form of the spectrum, relative: met to
+# 6.9e-8 on the H100 at TOL_LOBPCG (9 iterations; PERF.md, PR 17)
+LOBPCG_EIG_RTOL = 1e-5
+# Jacobi LOBPCG on (2,2,2) f64, device against the host loop: 32^3, cut from
+# 48^3, whose host loop (341 iterations, 79 s) put the whole run at 912 s
+N_LOBPCG_MULTI = 32
+TOL_LOBPCG_MULTI = 1e-7
+LOBPCG_MULTI_MAXITER = 400
+LOBPCG_MULTI_RTOL = 1e-8  # tests/test_solvers.py:566
+TOL_RAS = 1e-10  # right-RAS BiCGStab on the 48^3 f64 (2,2,2) advection operator (tests/test_solvers.py:605)
+
+
+def _hold_body(tag, dA, x, errs, names, **kw):
+    """An SpMV body (`gpu._spmv_body`) through the kernels and through their
+    plain versions on copies of the same operand, torch.equal; the error is
+    kept under each kernel's name the body launches."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _spmv_body
+
+    got = _spmv_body(dA, **kw)(x.clone())
+    want = _spmv_body(dA, plain=True, **kw)(x.clone())
+    err = _compare(tag, got, want)
+    for name in names:
+        errs[f"{name}[{tag}]"] = err
+    return err
+
+
+def _slab_kernels(dA):
+    """The kernels a slab SpMV of dA launches."""
+    names = ["dia_coded_spmm" if dA.dia_mode == "coded" else "dia_stream_spmm"]
+    if dA.oh_nnz:
+        names.append("bsr_spmv_boundary_slab" if dA.ohb_bs is not None else "ell_spmv_boundary")
+    return names
+
+
+def _random_slab(dA, K, rng):
+    L = dA.col_layout
+    dt = dA.coded.cb.dtype if dA.coded is not None else dA.stream_vals.dtype
+    x = torch.from_numpy(rng.standard_normal((L.P, L.W, K))).to(dA.backend.device, dt)
+    x[:, L.g0:] = 0
+    return x
+
+
+def slab_spmm_times(tag, dA, K, rng):
+    """`dia_coded_spmm` at a new slab width K on a one-part coded operator
+    (f32): flushed ms, its plain version, `torch.sparse.mm` of the
+    operator's CSR on the (rows, K) slab, and the bound (a code byte a
+    row, x read and y written K values a row)."""
+    op = dA.coded
+    P, wx, wy = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
+    rows = int(dA.row_layout.noids.sum())
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=op.cb.device)
+    x = _frame(rng, (P, wx, K), np.float32, op.cb.device)
+    csr = _coded_csr(op, wx)
+    t = {"ms": time_ms(lambda: dia.dia_coded_spmm(op, x, wy), flush),
+         "plain_ms": time_ms(lambda: dia.dia_coded_spmm_plain(op, x, wy), flush),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x[0]), flush)}
+    t["bound_ms"], t["bound_by"] = _bound_ms(rows * (op.codes.shape[1] + 2 * K * 4), 2 * int(csr._nnz()) * K)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "slab_spmm_times", "path": tag, "K": K, "reps": REPS, "dia_coded_spmm": t})
+    return t
+
+
+def sstep_launches(dA, trips, s):
+    """The launches of an s-step solve of ``trips`` device steps (outer
+    trips): the initial residual's frame SpMV and s pair SpMVs a trip, each
+    with its boundary product where A has an A_oh block; no sweep."""
+    slab = "dia_coded_spmm" if dA.dia_mode == "coded" else "dia_stream_spmm"
+    frame = "dia_coded_spmv" if dA.dia_mode == "coded" else "dia_stream_spmv"
+    want = {frame: 1, slab: s * trips, "cg_sweep": 0}
+    if dA.oh_nnz:
+        want["ell_spmv_boundary"] = 1 + s * trips
+    return want
+
+
+def _true_rel(dA, b, x0, x):
+    """||b - A x|| / ||b - A x0|| on the card, x a PVector over A.cols."""
+    spmv = make_spmv_fn(dA)
+    sl = slice(dA.row_layout.o0, dA.row_layout.o0 + dA.row_layout.no_max)
+    xd = DeviceVector.from_pvector(x, dA.backend, dA.col_layout).data
+    r1 = (b[:, sl] - spmv(xd)[:, sl]).double().norm()
+    r0 = (b[:, sl] - spmv(x0.clone())[:, sl]).double().norm()
+    return float(r1 / r0)
+
+
+def phase_sstep(backend, run, gmulti, rng):
+    """s-step CG (s = 2, 4) at 192^3 f32 on phase 3's operator against the
+    standard body: iterations to TOL_MAIN and errors, the plain path's
+    iterations, launches by formula a trip, the pair SpMV's kernel against
+    its plain version, seconds per iteration from fixed trips; then s = 2 on
+    the 48^3 f64 (2,2,2) decoupled system (phase 2b) on the box and the
+    generic plans against the sequential backend's standard CG, and the
+    overlap tail torch.equal to the standard tail on the fused, standard
+    and s-step bodies (the coded fused body has no tail to overlap: there
+    overlap=True builds the overlap=False function)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _can_overlap
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
+    A, b, x0, xe = run["A"], run["b"], run["x0"], run["xe"]
+    errs, lines = {}, {}
+    maxiter = 4 * A.rows.ngids
+    bd, x0d = staged(run, backend)
+    for s in (0,) + SSTEP_DEPTHS:
+        kw = {"sstep": s} if s else {"fused": False}
+        dA = device_matrix(A, backend)
+        if s:
+            _hold_body(f"s-step pair {N_MAIN}^3 f32 s={s}", dA, _random_slab(dA, 2, rng), errs, _slab_kernels(dA),
+                       block=True)
+        dia.reset_launches()
+        t = time.perf_counter()
+        x, info = cg(A, b, x0=x0, tol=TOL_MAIN, **kw)
+        sync()
+        solve_s = time.perf_counter() - t
+        launches = dict(dia.LAUNCHES)
+        trips = device_iterations(info)
+        want = sstep_launches(dA, trips, s) if s else {"dia_coded_spmv": 1 + trips, "cg_sweep": trips}
+        xp, info_p = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, plain=True, **kw)
+        true_rel = _true_rel(dA, bd, x0d, x)
+        s_per_iter, fixed = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA, 0.0, m, **kw), bd, x0d, *CG_TRIPS)
+        line = {
+            "phase": "sstep_cg", "n": N_MAIN, "dtype": "float32", "parts": 1, "s": s, "tol": TOL_MAIN,
+            "cg_body": info["cg_body"], "iterations": info["iterations"], "converged": info["converged"],
+            "rel_err": _rel_err(x, xe), "true_rel_residual": true_rel, "recursive_rel_residual":
+            float(info["residuals"][-1] / info["residuals"][0]), "plain_iterations": info_p["iterations"],
+            "plain_rel_err": _rel_err(xp, xe), "solve_s": solve_s, "kernels": launches, "expected_launches": want,
+            "device_loop": info["device_loop"],
+            "s_per_iter": s_per_iter, "fixed_trip_s": fixed, "fixed_trips": CG_TRIPS,
+        }
+        emit(line)
+        lines[s] = line
+        require(info["iterations"] == info_p["iterations"], f"s-step s={s}: kernel and plain iterations differ")
+        for k in want:
+            require(launches[k] == want[k], f"s-step s={s}: {launches[k]} {k} launches, expected {want[k]}")
+    times = {"K=2": slab_spmm_times(f"s-step pair {N_MAIN}^3 f32", device_matrix(A, backend), 2, rng)}
+    std, s2 = lines[0], lines[2]
+    require(std["converged"] and s2["converged"], "192^3 f32: the standard or the s = 2 body did not converge")
+    # tests/test_sstep.py:143's iteration gate; its x gate is an f64 one
+    # (the 48^3 arm below): in f32 the basis coordinates' residual drifts
+    # from the true one, so the error is reported beside the true residual
+    require(s2["iterations"] <= 2 * std["iterations"], f"s = 2: {s2['iterations']} iterations against the "
+            f"standard body's {std['iterations']}")
+
+    # 48^3 f64 (2,2,2): box and generic plans, the overlap tail
+    Ah, bh, n = gmulti["Ah"], gmulti["bh"], N_GMG_MULTI
+
+    def host(parts):
+        A_, b_, _, _ = assemble_poisson(parts, (n, n, n))
+        Ah_, bh_ = decouple_dirichlet(A_, b_)
+        x_, info_ = cg(Ah_, bh_, tol=TOL_MULTI)
+        return gather_pvector(x_), info_["iterations"]
+
+    t = time.perf_counter()
+    x_seq, it_seq = prun(host, sequential, (2, 2, 2))
+    seq_s = time.perf_counter() - t
+    multi = {"phase": "sstep_cg_stacked_parts", "n": n, "dtype": "float64", "parts": [2, 2, 2], "tol": TOL_MULTI,
+             "sequential_iterations": it_seq, "sequential_s": seq_s}
+    for plan, box in (("box", True), ("generic", False)):
+        dA = device_matrix(Ah, backend, box)
+        require(isinstance(dA.col_plan, BoxExchangePlan) == box, f"48^3 s-step {plan}: plan {type(dA.col_plan).__name__}")
+        _hold_body(f"s-step pair {n}^3 f64 (2,2,2) {plan}", dA, _random_slab(dA, 2, rng), errs, _slab_kernels(dA),
+                   block=True)
+        db = _b_on_cols_layout(bh, dA)
+        dx0 = torch.zeros_like(db)
+        row = {}
+        for body, kw in (("fused", {"fused": True}), ("standard", {"fused": False}), ("sstep2", {"sstep": 2})):
+            fns = [make_cg_fn(dA, TOL_MULTI, 4 * Ah.rows.ngids, overlap=ov, **kw) for ov in (False, True)]
+            outs = [f(db, dx0) for f in fns]
+            sync()
+            (xa, rsa, _, ita, ha), (xb, rsb, _, itb, hb) = outs
+            equal = bool(torch.equal(xa, xb) and torch.equal(rsa, rsb) and ita == itb
+                         and np.array_equal(ha, hb, equal_nan=True))
+            xg = DeviceVector(xa, Ah.cols, dA.col_layout, backend).to_pvector()
+            row[body] = {"iterations": ita, "overlap_equal": equal, "overlap_tail": fns[1].overlap,
+                         "x_vs_sequential": float(np.abs(gather_pvector(xg) - x_seq).max())}
+            require(fns[1].overlap == _can_overlap(dA, body == "fused"),
+                    f"48^3 {plan} {body}: overlap tail {fns[1].overlap}")
+            require(equal, f"48^3 {plan} {body}: the overlap tail differs from the standard tail")
+            if body == "sstep2":
+                s_ov = {}
+                for ov in (False, True):
+                    s_ov[f"overlap={ov}"], _ = fixed_trip_s_per_iter(
+                        lambda m: make_cg_fn(dA, 0.0, m, sstep=2, overlap=ov), db, dx0, *CG_TRIPS)
+                row[body]["s_per_iter"] = s_ov
+        multi[plan] = row
+        r = row["sstep2"]
+        require(r["iterations"] <= 2 * it_seq and r["x_vs_sequential"] < SSTEP_X_ATOL,
+                f"48^3 s = 2 on the {plan} plan: {r['iterations']} iterations (sequential {it_seq}), "
+                f"|x - x_seq| {r['x_vs_sequential']}")
+    emit(multi)
+    return {"errs": errs, "lines": lines, "multi": multi, "times": times}
+
+
+def cycle_launches(h, dh, dev_it, pcg_sweep=False):
+    """The launches of ``dev_it`` device iterations of the stationary solve
+    (``pcg_sweep``: of GMG-PCG) with the hierarchy's cycle, V or W: the
+    initial residual, per iteration the outer A0 SpMV (and with
+    ``pcg_sweep`` the sweep) and the cycle's visits of every level. A
+    V-cycle visits each level once from x = 0 (a cold pass: pre - 1 + 1 +
+    post A SpMVs and init + pre - 1 + 1 + post epilogues); the W-cycle
+    visits level l >= 1 2^l times, half of them warm (pre + 1 + post A
+    SpMVs and as many epilogues). Two transfers a visit: the stencil kernel
+    or, on the structured routes, a coded or streaming SpMV with S; the
+    coarse solve is a mat-vec."""
+    want = {"dia_coded_spmv": 1, "dia_stream_spmv": 0, "box_stencil_apply": 0, "vcycle_epilogue": 0,
+            "cg_sweep": dev_it if pcg_sweep else 0}
+    a0 = dh["levels"][0]["dA"]
+    want["dia_coded_spmv" if a0.dia_mode == "coded" else "dia_stream_spmv"] += dev_it
+    for l, lv in enumerate(dh["levels"]):
+        if h.cycle == "w" and l > 0:
+            cold = warm = 2 ** (l - 1)
+        else:
+            cold, warm = 1, 0
+        a_spmvs = cold * (max(h.pre - 1, 0) + 1 + h.post) + warm * (h.pre + 1 + h.post)
+        epis = cold * ((1 if h.pre > 0 else 0) + max(h.pre - 1, 0) + 1 + h.post) + warm * (h.pre + 1 + h.post)
+        want["dia_coded_spmv" if lv["dA"].dia_mode == "coded" else "dia_stream_spmv"] += dev_it * a_spmvs
+        want["vcycle_epilogue"] += dev_it * epis
+        if gpu_gmg.route(lv) == "stencil":
+            want["box_stencil_apply"] += dev_it * 2 * (cold + warm)
+        else:
+            want["dia_coded_spmv" if lv["dS"].dia_mode == "coded" else "dia_stream_spmv"] += dev_it * 2 * (cold + warm)
+    return want
+
+
+def phase_gmg_family(backend, g, rng):
+    """The stationary GMG solve at 192^3 f32 on phase 2b's hierarchy, V-
+    and W-cycle (the W hierarchy built from the V hierarchy's levels,
+    sharing its staging): iterations to TOL_MAIN, errors, the plain path's
+    iterations, launches by formula, seconds per iteration, graph against
+    eager, one W-cycle against its plain version; W-cycle GMG-PCG once."""
+    h, Ah, bh, xe, dh = g["h"], g["Ah"], g["bh"], g["xe"], g["dh"]
+    staged_before = gpu_gmg.STATS["stagings"]
+    t = time.perf_counter()
+    hw = h.with_cycle("w")
+    w_setup_s = time.perf_counter() - t
+    dA0 = device_matrix(Ah, backend)
+    b = _b_on_cols_layout(bh, dA0)
+    x0 = torch.zeros_like(b)
+    errs, out = {}, {"phase": "gmg_stationary", "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
+                     "levels": len(h.levels), "w_setup_s": w_setup_s}
+    for name, hh in (("v", h), ("w", hw)):
+        dia.reset_launches()
+        t = time.perf_counter()
+        x, info = gmg_solve(hh, bh, tol=TOL_MAIN, maxiter=100)
+        sync()
+        solve_s = time.perf_counter() - t
+        launches = dict(dia.LAUNCHES)
+        dev_it = device_iterations(info)
+        want = cycle_launches(hh, dh, dev_it)
+        xp, info_p = gpu_gmg.gpu_gmg_solve(hh, bh, tol=TOL_MAIN, maxiter=100, plain=True)
+        s_per_iter, fixed = fixed_trip_s_per_iter(lambda m: gpu_gmg.make_gmg_solve_fn(hh, backend, 0.0, m), b, x0,
+                                                  *GMG_TRIPS)
+        ge = graph_vs_eager(f"{N_MAIN}^3 f32 stationary GMG {name}-cycle",
+                            lambda gr: gpu_gmg.make_gmg_solve_fn(hh, backend, TOL_MAIN, 100, graph=gr), b, x0)
+        out[name] = {"iterations": info["iterations"], "converged": info["converged"], "rel_err": _rel_err(x, xe),
+                     "plain_iterations": info_p["iterations"], "plain_rel_err": _rel_err(xp, xe), "solve_s": solve_s,
+                     "kernels": {k: launches[k] for k in want}, "expected_launches": want,
+                     "launches_a_cycle": {k: (want[k] - (1 if k == "dia_coded_spmv" else 0)) / max(dev_it, 1)
+                                          for k in want},
+                     "device_loop": info["device_loop"], "s_per_iter": s_per_iter, "fixed_trip_s": fixed,
+                     "fixed_trips": GMG_TRIPS, "graph_vs_eager_iterations": ge["iterations"]}
+        require(info["converged"], f"stationary GMG {name}-cycle did not converge")
+        require(info["iterations"] == info_p["iterations"], f"stationary GMG {name}: kernel and plain iterations differ")
+        for k in want:
+            require(launches[k] == want[k], f"stationary GMG {name}: {launches[k]} {k} launches, expected {want[k]}")
+    L0 = dh["levels"][0]["dA"].col_layout
+    r = torch.zeros((L0.P, L0.W), dtype=b.dtype, device=b.device)
+    r[:, L0.o0 : L0.o0 + L0.no_max] = torch.from_numpy(rng.standard_normal((L0.P, L0.no_max))).to(r)
+    err_w = _compare("W-cycle (kernels against plain versions)", gpu_gmg.make_vcycle(hw, dh)(r.clone()),
+                     gpu_gmg.make_vcycle(hw, dh, plain=True)(r.clone()))
+    for name in ("dia_coded_spmv", "dia_stream_spmv", "box_stencil_apply", "vcycle_epilogue"):
+        errs[f"{name}[W-cycle {N_MAIN}^3 f32]"] = err_w
+    dia.reset_launches()
+    xw, info_w = pcg(Ah, bh, minv=hw, tol=TOL_MAIN)
+    sync()
+    launches = dict(dia.LAUNCHES)
+    want = cycle_launches(hw, dh, device_iterations(info_w), pcg_sweep=True)
+    out["w_pcg"] = {"iterations": info_w["iterations"], "converged": info_w["converged"], "rel_err": _rel_err(xw, xe),
+                    "kernels": {k: launches[k] for k in want}, "expected_launches": want}
+    out["stagings_added"] = gpu_gmg.STATS["stagings"] - staged_before
+    emit(out)
+    require(out["stagings_added"] == 0, "the W hierarchy staged the V hierarchy's levels again")
+    require(info_w["converged"], "W-cycle GMG-PCG did not converge")
+    for k in want:
+        require(launches[k] == want[k], f"W-cycle GMG-PCG: {launches[k]} {k} launches, expected {want[k]}")
+    return {"errs": errs, "line": out}
+
+
+def phase_agglomeration(backend, gmulti, rng):
+    """Coarse agglomeration on the 48^3 f64 (2,2,2) system of phase 2b
+    (AGG_THRESHOLD: the 12^3 level and the coarse grid on one part): the
+    stationary solve and GMG-PCG take the full-mesh hierarchy's iterations
+    and solutions, on the card and on the sequential backend's host loop
+    (tests/test_gmg.py:405); the agglomerated levels' transfers (the
+    assembled route: E1 on R and P) and one V-cycle against their plain
+    versions; the staged S keep the box plan (tests/test_gmg.py:729)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_box import BoxExchangePlan
+
+    n, Ah, bh, xe, h = N_GMG_MULTI, gmulti["Ah"], gmulti["bh"], gmulti["xe"], gmulti["h"]
+    t = time.perf_counter()
+    ha = prun(lambda parts: gmg_hierarchy(parts, Ah, (n, n, n), coarse_threshold=500, agg_threshold=AGG_THRESHOLD),
+              backend, (2, 2, 2))
+    agg_hierarchy_s = time.perf_counter() - t
+    empty = [lvl.A.rows.ngids for lvl in ha.levels[1:] if min(i.num_oids for i in lvl.A.rows.partition.part_values()) == 0]
+    require(empty or min(i.num_oids for i in ha.coarse_A.rows.partition.part_values()) == 0,
+            "agglomeration: no level was agglomerated")
+    t = time.perf_counter()
+    dha = gpu_gmg.device_hierarchy(ha, backend)
+    sync()
+    agg_staging_s = time.perf_counter() - t
+    routes = [gpu_gmg.route(lv) for lv in dha["levels"]]
+    errs = {}
+    for li, lv in enumerate(dha["levels"]):
+        if "dR" in lv:
+            for name in ("dR", "dP"):
+                dM = lv[name]
+                x = torch.from_numpy(rng.standard_normal((dM.col_layout.P, dM.col_layout.W))).to(backend.device)
+                x[:, dM.col_layout.g0:] = 0
+                kern = ["ell_spmv"] + (["ell_spmv_boundary"] if dM.oh_nnz else [])
+                _hold_body(f"agglomerated level {li} {name[1]} {n}^3 f64", dM, x, errs, kern)
+    require(any(k.startswith("ell_spmv[") for k in errs), f"agglomeration: no assembled route ({routes})")
+    _, err_vc = _epilogue_checks(ha, dha, rng, f"agglomerated {n}^3 f64")
+    dhs = gpu_gmg.device_hierarchy(ha, backend, stencil=False)
+    s_plans = [type(lv["dS"].col_plan).__name__ for lv in dhs["levels"] if "dS" in lv]
+    require(all(isinstance(lv["dS"].col_plan, BoxExchangePlan) for lv in dhs["levels"] if "dS" in lv),
+            f"agglomeration: a staged S left the box plan ({s_plans})")
+    card = {}
+    for name, hh in (("full", h), ("agg", ha)):
+        xs, infos = gmg_solve(hh, bh, tol=TOL_MULTI)
+        xp, infop = pcg(Ah, bh, minv=hh, tol=TOL_MULTI)
+        card[name] = (infos["iterations"], infop["iterations"], gather_pvector(xs), gather_pvector(xp),
+                      infos["converged"] and infop["converged"])
+
+    def host(parts):
+        A_, b_, _, _ = assemble_poisson(parts, (n, n, n))
+        Ah_, bh_ = decouple_dirichlet(A_, b_)
+        out = {}
+        for name, agg in (("full", 0), ("agg", AGG_THRESHOLD)):
+            hh = gmg_hierarchy(parts, Ah_, (n, n, n), coarse_threshold=500, agg_threshold=agg)
+            xs, infos = gmg_solve(hh, bh_, tol=TOL_MULTI)
+            out[name] = (infos["iterations"], gather_pvector(xs))
+        return out
+
+    t = time.perf_counter()
+    seq = prun(host, sequential, (2, 2, 2))
+    seq_s = time.perf_counter() - t
+    xdiff = {"card_stationary": float(np.abs(card["agg"][2] - card["full"][2]).max()),
+             "card_pcg": float(np.abs(card["agg"][3] - card["full"][3]).max()),
+             "host_stationary": float(np.abs(seq["agg"][1] - seq["full"][1]).max())}
+    line = {"phase": "gmg_agglomeration", "n": n, "dtype": "float64", "parts": [2, 2, 2],
+            "agg_threshold": AGG_THRESHOLD, "agglomerated_level_sizes": empty, "routes": routes,
+            "structured_s_plans": s_plans, "agg_hierarchy_s": agg_hierarchy_s, "agg_staging_s": agg_staging_s,
+            "card_iterations": {k: v[:2] for k, v in card.items()},
+            "host_iterations": {k: v[0] for k, v in seq.items()}, "x_apart": xdiff, "sequential_s": seq_s,
+            "vcycle_vs_plain_max_abs_err": err_vc, "max_abs_err": errs}
+    emit(line)
+    require(card["full"][4] and card["agg"][4], "agglomeration: a card solve did not converge")
+    require(card["full"][:2] == card["agg"][:2], f"agglomeration: card iterations {line['card_iterations']}")
+    require(seq["full"][0] == seq["agg"][0] == card["agg"][0],
+            f"agglomeration: host iterations {line['host_iterations']}, card {line['card_iterations']}")
+    require(all(v < AGG_X_ATOL for v in xdiff.values()), f"agglomeration: solutions apart {xdiff}")
+    return {"errs": errs, "line": line}
+
+
+def laplacian_eigenvalues(n, scale, k):
+    """The k smallest eigenvalues of the decoupled Dirichlet Poisson
+    operator of `gmg_driver` (n^3 cells, the 7-point stencil scaled by
+    ``scale``): the interior (n-2)^3 grid's Laplacian, sum over dimensions
+    of 2 - 2cos(j pi / (n - 1)), below every boundary row's ``scale``."""
+    m = n - 2
+    one = 2.0 - 2.0 * np.cos(np.arange(1, 4) * np.pi / (m + 1))
+    vals = sorted(scale * (one[a] + one[b_] + one[c]) for a in range(3) for b_ in range(3) for c in range(3))
+    return np.array(vals[:k])
+
+
+def lobpcg_s_per_iter(dA, h, rng):
+    """Seconds per iteration of the GMG-preconditioned LOBPCG loop on dA:
+    two solves of LOBPCG_TRIPS fixed iterations (tol 0) from one random
+    start on the card, differenced, median of 3 each after a first call
+    (the host's start staging and eigenvector lift are outside it)."""
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_lobpcg import make_lobpcg_fn
+
+    L = dA.col_layout
+    X0 = torch.from_numpy(rng.standard_normal((L.P, L.no_max, LOBPCG_NEV))).to(dA.backend.device,
+                                                                                dA.coded.cb.dtype)
+    per = {}
+    for m in LOBPCG_TRIPS:
+        fn = make_lobpcg_fn(dA, LOBPCG_NEV, 0.0, m, gmg_h=h)
+        fn(X0, None)
+        ts = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            out = fn(X0, None)
+            sync()
+            ts.append(time.perf_counter() - t)
+            require(out[3] == m, f"fixed-trip LOBPCG stopped after {out[3]} of {m} iterations")
+        per[m] = statistics.median(ts)
+    m0, m1 = LOBPCG_TRIPS
+    return (per[m1] - per[m0]) / (m1 - m0), per
+
+
+def phase_lobpcg(backend, g, rng):
+    """LOBPCG: nev = LOBPCG_NEV, GMG-preconditioned, at 192^3 f32 on phase
+    2b's decoupled operator, its eigenvalues against the closed form of
+    that operator's spectrum; Jacobi LOBPCG at N_LOBPCG_MULTI^3 f64 (2,2,2)
+    (a depth cut of the 48^3 cell) against the host loop on the sequential
+    backend (rtol LOBPCG_MULTI_RTOL, tests/test_solvers.py:566). Iterations, seconds per iteration, the block SpMV (nev
+    columns) against its plain version on both operators, and the slab
+    kernel's launches by formula (one a W block, the start's one)."""
+    errs, out = {}, {"phase": "lobpcg", "nev": LOBPCG_NEV}
+    Ah, h = g["Ah"], g["h"]
+    dA = device_matrix(Ah, backend)
+    _hold_body(f"lobpcg block {N_MAIN}^3 f32 K={LOBPCG_NEV}", dA, _random_slab(dA, LOBPCG_NEV, rng), errs,
+               _slab_kernels(dA), block=True)
+    times = {f"K={LOBPCG_NEV}": slab_spmm_times(f"lobpcg block {N_MAIN}^3 f32", dA, LOBPCG_NEV, rng)}
+    dia.reset_launches()
+    t = time.perf_counter()
+    lam, X, info = lobpcg(Ah, nev=LOBPCG_NEV, minv=h, tol=TOL_LOBPCG, maxiter=LOBPCG_MAXITER)
+    sync()
+    solve_s = time.perf_counter() - t
+    launches = dict(dia.LAUNCHES)
+    it = info["iterations"]
+    exact = laplacian_eigenvalues(N_MAIN, 1.0 / 16.0, LOBPCG_NEV)
+    rel = np.abs(lam - exact) / exact
+    vc = cycle_launches(h, g["dh"], LOBPCG_NEV * it)
+    want = {"dia_coded_spmm": 1 + it, "box_stencil_apply": vc["box_stencil_apply"],
+            "vcycle_epilogue": vc["vcycle_epilogue"], "dia_stream_spmv": vc["dia_stream_spmv"],
+            "dia_coded_spmv": vc["dia_coded_spmv"] - 1 - LOBPCG_NEV * it}
+    s_per_iter, fixed = lobpcg_s_per_iter(dA, h, rng)
+    out["gmg_192"] = {"n": N_MAIN, "dtype": "float32", "tol": TOL_LOBPCG, "iterations": it,
+                      "converged": info["converged"], "eigenvalues": lam.tolist(), "closed_form": exact.tolist(),
+                      "rel_err": rel.tolist(), "solve_s": solve_s, "s_per_iter": s_per_iter, "fixed_trip_s": fixed,
+                      "fixed_trips": LOBPCG_TRIPS,
+                      "kernels": {k: launches[k] for k in want}, "expected_launches": want,
+                      "device_loop": info["device_loop"]}
+    require(info["converged"], f"LOBPCG 192^3 GMG: not converged in {it} iterations")
+    require(np.all(rel < LOBPCG_EIG_RTOL), f"LOBPCG 192^3: eigenvalues {lam} against the closed form {exact}")
+    for k in want:
+        require(launches[k] == want[k], f"LOBPCG 192^3: {launches[k]} {k} launches, expected {want[k]}")
+
+    n = N_LOBPCG_MULTI
+
+    def system(parts):
+        A_, b_, _, _ = assemble_poisson(parts, (n, n, n))
+        return decouple_dirichlet(A_, b_)[0]
+
+    Am = prun(system, backend, (2, 2, 2))
+    dAm = device_matrix(Am, backend)
+    _hold_body(f"lobpcg block {n}^3 f64 (2,2,2) K={LOBPCG_NEV}", dAm, _random_slab(dAm, LOBPCG_NEV, rng), errs,
+               _slab_kernels(dAm), block=True)
+    kw = dict(nev=LOBPCG_NEV, tol=TOL_LOBPCG_MULTI, maxiter=LOBPCG_MULTI_MAXITER)
+    t = time.perf_counter()
+    lam_d, _, info_d = lobpcg(Am, minv=jacobi_preconditioner(Am), **kw)
+    sync()
+    dev_s = time.perf_counter() - t
+
+    def host(parts):
+        Ah_ = system(parts)
+        lam_, _, info_ = lobpcg(Ah_, minv=jacobi_preconditioner(Ah_), **kw)
+        return lam_, info_["iterations"], info_["converged"]
+
+    t = time.perf_counter()
+    lam_h, it_h, conv_h = prun(host, sequential, (2, 2, 2))
+    host_s = time.perf_counter() - t
+    out["jacobi_multi"] = {"n": n, "dtype": "float64", "parts": [2, 2, 2], "tol": TOL_LOBPCG_MULTI,
+                        "iterations": info_d["iterations"], "host_iterations": it_h,
+                        "converged": [info_d["converged"], conv_h], "eigenvalues": lam_d.tolist(),
+                        "host_eigenvalues": lam_h.tolist(), "closed_form": laplacian_eigenvalues(n, 1.0, 4).tolist(),
+                        "device_s": dev_s, "s_per_iter": dev_s / max(info_d["iterations"], 1), "host_s": host_s}
+    out["max_abs_err"] = errs
+    emit(out)
+    require(info_d["converged"] and conv_h, f"LOBPCG {n}^3: device or host loop did not converge")
+    require(np.allclose(lam_d, lam_h, rtol=LOBPCG_MULTI_RTOL, atol=0),
+            f"LOBPCG {n}^3: device {lam_d} against host {lam_h}")
+    return {"errs": errs, "line": out, "launches": launches, "times": times}
+
+
+def phase_ras_bicgstab(backend):
+    """Right-preconditioned BiCGStab with `additive_schwarz(mode="ras")` on
+    the 48^3 f64 (2,2,2) advection system on the GPU backend (a callable
+    preconditioner: the host loop) against the unpreconditioned device
+    BiCGStab (tests/test_solvers.py:605)."""
+    n = N_ADV_MULTI
+    run = prun(advection_system, backend, (2, 2, 2), n)
+    A, b, xe, x0 = run["A"], run["b"], run["xe"], run["x0"]
+    t = time.perf_counter()
+    ras = additive_schwarz(A, mode="ras")
+    factor_s = time.perf_counter() - t
+    t = time.perf_counter()
+    xr, ir = bicgstab(A, b, x0=x0, minv=ras, tol=TOL_RAS)
+    ras_s = time.perf_counter() - t
+    xp, ip = bicgstab(A, b, x0=x0, tol=TOL_RAS)
+    err_r = float(np.abs(gather_pvector(xr) - gather_pvector(xe)).max())
+    line = {"phase": "ras_bicgstab", "n": n, "dtype": "float64", "parts": [2, 2, 2], "tol": TOL_RAS,
+            "iterations": ir["iterations"], "converged": ir["converged"], "max_err": err_r,
+            "plain_bicgstab_iterations": ip["iterations"], "factor_s": factor_s, "solve_s": ras_s,
+            "s_per_iter": ras_s / max(ir["iterations"], 1)}
+    emit(line)
+    require(ir["converged"] and err_r < 1e-6, f"RAS BiCGStab: converged {ir['converged']}, error {err_r}")
+    require(ir["iterations"] < ip["iterations"], f"RAS BiCGStab: {ir['iterations']} iterations against plain "
+            f"BiCGStab's {ip['iterations']}")
+    return line
+
+
+def phase_solver_family(backend, run, gruns, rng):
+    """Phase 4j: s-step CG and the overlap tail, the stationary GMG solve
+    with the V- and W-cycle, coarse agglomeration, LOBPCG, right-RAS
+    BiCGStab. Returns the held kernels' errors and the launch counts of
+    each path for the launch_counts line."""
+    t = time.perf_counter()
+    ss = phase_sstep(backend, run, gruns["multi"], rng)
+    t_ss = time.perf_counter() - t
+    gf = phase_gmg_family(backend, gruns["main"], rng)
+    t_gf = time.perf_counter() - t - t_ss
+    ag = phase_agglomeration(backend, gruns["multi"], rng)
+    t_ag = time.perf_counter() - t - t_ss - t_gf
+    lb = phase_lobpcg(backend, gruns["main"], rng)
+    t_lb = time.perf_counter() - t - t_ss - t_gf - t_ag
+    ras = phase_ras_bicgstab(backend)
+    seconds = {"sstep": t_ss, "gmg_family": t_gf, "agglomeration": t_ag, "lobpcg": t_lb,
+               "ras_bicgstab": time.perf_counter() - t - t_ss - t_gf - t_ag - t_lb,
+               "total": time.perf_counter() - t}
+    emit({"phase": "solver_family_seconds", **seconds})
+    launches = {f"sstep s={s}": line["kernels"] for s, line in ss["lines"].items()}
+    launches.update({f"gmg stationary {c}": gf["line"][c]["kernels"] for c in ("v", "w")},
+                    **{"gmg w pcg": gf["line"]["w_pcg"]["kernels"], "lobpcg 192^3 gmg": lb["launches"]})
+    return {"errs": {**ss["errs"], **gf["errs"], **ag["errs"], **lb["errs"]}, "launches": launches,
+            "ras": ras, "seconds": seconds, "times": {"s-step pair": ss["times"], "lobpcg block": lb["times"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -4369,7 +4915,8 @@ def main() -> int:
     advm = phase_advection_multi(backend, rng)
     phase_krylov_gmg(backend, gruns, gmg["iterations"], rng)
     phase_diff_solve(backend, rng)
-    emit({"phase": "device_memory", "after": "phase 4i", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    fam = phase_solver_family(backend, run, gruns, rng)
+    emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})
     # each kernel's launches from the path it runs on: E2 on the elasticity
@@ -4395,7 +4942,7 @@ def main() -> int:
     times.update({k: v for k, v in blk["times"].items() if k in KERNELS})
     times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"], **bel["times"], **belm["times"],
                                     **bst["times"]}.items() if k in KERNELS})
-    emit({"phase": "launch_counts", "kernels": launches})
+    emit({"phase": "launch_counts", "kernels": launches, "phase_4j": fam["launches"]})
     errs = {**kern["errs"], **q1["errs"], **heat["errs"], **adv["errs"], **advm["errs"]}
     max_err = {
         name: max(v for key, v in errs.items() if key.startswith(name + "["))
@@ -4407,8 +4954,11 @@ def main() -> int:
     max_err["box_stencil_apply"] = max(err_stencil, heat["stencil"])
     max_err["vcycle_epilogue"] = max(gmg["err_epi"], gmg_s["err_epi"], err_multi["epilogue"], heat["epilogue"])
     max_err["cg_sweep"] = max(max(v for key, v in errs.items() if key.startswith("cg_sweep[")), err_sweep_multi)
+    for name in ("dia_coded_spmv", "dia_stream_spmv", "box_stencil_apply", "vcycle_epilogue"):
+        on_4j = [v for key, v in fam["errs"].items() if key.startswith(name + "[")]
+        max_err[name] = max([max_err[name]] + on_4j)
     held = {**jac["errs"], **blk["errs"], **el["errs"], **low["errs"], **elm["errs"], **st["errs"], **bel["errs"],
-            **belm["errs"], **bst["errs"], **sg["errs"], **q1["errs"], **heat["errs"], **advm["errs"]}
+            **belm["errs"], **bst["errs"], **sg["errs"], **q1["errs"], **heat["errs"], **advm["errs"], **fam["errs"]}
     for name in ("dia_coded_spmv_pfold_minv", "cg_sweep_precond", "cg_sweep_block", "dia_coded_spmm", "dia_stream_spmm",
                  "block_products", "ell_spmv", "ell_spmv_boundary", "bsr_spmv", "bsr_spmv_boundary", "pairwise_dot",
                  "ell_spmm", "bsr_spmm", "bsr_spmv_boundary_slab", "pairwise_dot_block"):

@@ -8,7 +8,10 @@ exact triple product of per-part local SciPy products whose off-owner
 triplets ride the COO assembly migration (`assemble_matrix_from_coo`). The
 JAX package's native Galerkin fast paths (planning.cpp `galerkin3`,
 `galerkin_emit`, `galerkin_classify`) are not ported (ROADMAP Queue 1 item 8):
-every part takes the generic route.
+every part takes the generic route. ``cycle="w"`` gives the W-cycle (a
+second, warm-started coarse pass below every level but the last), and
+``agg_threshold > 0`` coarse-level agglomeration onto strided sub-grids
+of parts.
 
 The hierarchy is variational, so for SPD fine operators every coarse
 operator is SPD and the V-cycle with symmetric smoothing (pre == post) is
@@ -17,9 +20,10 @@ vertex-based per dimension (coarse point k sits on fine point 2k,
 nc = ceil(nf/2)); interpolation is the d-linear tensor product. The
 coarsest level is solved on MAIN by the dense `PLU`.
 
-On the GPU backend, `pcg(A, b, minv=hierarchy)` runs the whole cycle on
-the card (`parallel/gpu_gmg.py`); the host V-cycle below is the sequential
-backend's oracle.
+On the GPU backend, `pcg(A, b, minv=hierarchy)`, `gmg_solve` and
+`fgmres(..., minv=hierarchy)` run the whole cycle on the card
+(`parallel/gpu_gmg.py`); the host cycle below is the sequential backend's
+oracle.
 """
 from __future__ import annotations
 
@@ -241,10 +245,7 @@ class GMGHierarchy:
     def __init__(self, levels: List[GMGLevel], coarse_A: PSparseMatrix, omega: float = 0.8,
                  pre: int = 1, post: int = 1, cycle: str = "v"):
         check(len(levels) >= 1, "hierarchy needs at least one fine level")
-        if cycle != "v":
-            raise NotImplementedError(
-                "GMGHierarchy: the W-cycle is not ported yet (ROADMAP Queue 1 item 4)"
-            )
+        check(cycle in ("v", "w"), "cycle is 'v' or 'w'")
         self.levels = levels
         self.coarse_A = coarse_A
         self.coarse_solver = PLU(coarse_A)
@@ -260,10 +261,25 @@ class GMGHierarchy:
             q = lvl.A @ x
             _owned_zip(x, lambda xv, bv, qv, dv: xv + om * dv * (bv - qv), b, q, lvl.dinv)
 
+    def with_cycle(self, cycle: str) -> "GMGHierarchy":
+        """The same levels, coarse operator and smoother under another
+        cycle: nothing is assembled again, and the device staging
+        (`gpu_gmg.device_hierarchy`, which no cycle changes) is shared;
+        the solve functions are the new hierarchy's own."""
+        other = GMGHierarchy(self.levels, self.coarse_A, self.omega, self.pre, self.post, cycle)
+        other.coarse_solver = self.coarse_solver
+        if getattr(self, "_device_cache", None) is None:
+            self._device_cache = {}
+        other._device_cache = self._device_cache
+        return other
+
     def vcycle(self, b: PVector, x: Optional[PVector] = None, level: int = 0) -> PVector:
-        """One V-cycle (pre/post smoothing sweeps) for A_level x = b, x
-        defaulting to zero. b lives on the level's row range (or anything
-        owned-compatible); the result lives on the level's column range."""
+        """One multigrid cycle (V or W per ``self.cycle``; pre/post
+        smoothing sweeps) for A_level x = b, x defaulting to zero. b lives
+        on the level's row range (or anything owned-compatible); the result
+        lives on the level's column range. The W-cycle runs a second,
+        warm-started pass on the next level wherever that level is not the
+        coarsest (models/gmg.py:739-752 of the JAX package)."""
         if level == len(self.levels):
             return self.coarse_solver.solve(b)
         lvl = self.levels[level]
@@ -274,7 +290,10 @@ class GMGHierarchy:
         q = lvl.A @ x
         r = PVector.full(0.0, lvl.R.cols, dtype=b.dtype)
         _owned_zip(r, lambda _r, bv, qv: bv - qv, b, q)
-        ec = self.vcycle(lvl.R @ r, None, level + 1)
+        rc = lvl.R @ r
+        ec = self.vcycle(rc, None, level + 1)
+        if self.cycle == "w" and level + 1 < len(self.levels):
+            ec = self.vcycle(rc, ec, level + 1)
         # lift the coarse correction onto P's column range and prolongate
         ec_p = PVector.full(0.0, lvl.P.cols, dtype=b.dtype)
         _owned_zip(ec_p, lambda _e, ev: ev, ec)
@@ -296,29 +315,41 @@ def gmg_hierarchy(parts: AbstractPData, A: PSparseMatrix, dims: Sequence[int],
     operator on the aligned coarse partition (cuts ceil(fine_cut / 2)),
     and the d-linear P and R = Pᵀ built on first use. Coarsening stops once
     the grid has at most ``coarse_threshold`` points or no dimension can
-    halve. Coarse-level agglomeration (``agg_threshold > 0``) is not
-    ported yet (ROADMAP Queue 1 item 4)."""
-    if agg_threshold > 0:
-        raise NotImplementedError(
-            "gmg_hierarchy: coarse-level agglomeration (agg_threshold > 0) is not "
-            "ported yet (ROADMAP Queue 1 item 4)"
-        )
+    halve.
+
+    ``agg_threshold`` > 0 agglomerates coarse levels (models/gmg.py:768-830
+    of the JAX package): once a level's points per active part drop below
+    the threshold, the next coarse partition lives on a 2x-strided
+    sub-grid of parts (doubled per level as needed, down to one part), the
+    other parts owning empty boxes. The iterations are unchanged; only the
+    placement moves."""
     dims = tuple(int(n) for n in dims)
     check(A.rows.ngids == int(np.prod(dims)), "gmg_hierarchy: dims do not match A.rows")
     levels: List[GMGLevel] = []
     A_l, nfs = A, dims
+    pshape = parts.shape
+    stride = tuple(1 for _ in pshape)
     # per-dim block cuts of the current level's partition: coarse cuts are
     # ceil(fine_cut / 2), so every coarse point's even fine position lies
     # inside its own part's fine box
-    firsts = [_block_firsts(n, k).tolist() for n, k in zip(dims, parts.shape)]
+    firsts = [_block_firsts(n, k).tolist() for n, k in zip(dims, pshape)]
     for _ in range(max_levels):
         if int(np.prod(nfs)) <= coarse_threshold:
             break
         ncs = tuple((n + 1) // 2 for n in nfs)
         if ncs == nfs or min(ncs) < 3:
             break
+        if agg_threshold > 0:
+            active = tuple(-(-k // s) for k, s in zip(pshape, stride))
+            per_part = int(np.prod(ncs)) / max(int(np.prod(active)), 1)
+            if per_part < agg_threshold and max(active) > 1:
+                # double while more than one active part remains in a dim
+                stride = tuple(min(s * 2, k) if k > s else s for s, k in zip(stride, pshape))
         firsts = [[(f + 1) // 2 for f in fd] for fd in firsts]
-        coarse_rows = cartesian_partition(parts, ncs, no_ghost, dim_firsts=firsts)
+        coarse_rows = cartesian_partition(
+            parts, ncs, no_ghost, part_stride=stride if max(stride) > 1 else None,
+            dim_firsts=None if max(stride) > 1 else firsts,
+        )
         A_c = galerkin_cartesian(A_l, nfs, ncs, coarse_rows)
 
         def _mk(nfs=nfs, ncs=ncs, fine_rows=A_l.rows, coarse_rows=coarse_rows, dt=A_l.dtype):
@@ -333,18 +364,17 @@ def gmg_hierarchy(parts: AbstractPData, A: PSparseMatrix, dims: Sequence[int],
 
 def gmg_solve(hierarchy: GMGHierarchy, b: PVector, x0: Optional[PVector] = None,
               tol: float = 1e-8, maxiter: int = 100, verbose: bool = False) -> Tuple[PVector, dict]:
-    """Stationary V-cycle iteration x <- x + Vcycle(b − A x) until the
-    residual drops by `tol`, on the host backend. Its device loop
-    (tpu_gmg.py:807-883) is not ported yet (ROADMAP Queue 1 item 4): on
-    the GPU backend the V-cycle runs as the PCG preconditioner,
-    ``pcg(A, b, minv=hierarchy)``."""
+    """Stationary cycle iteration x <- x + cycle(b − A x) (V or W, per the
+    hierarchy) until the residual drops by `tol`. On the GPU backend the
+    whole iteration runs on the card as one device-resident loop
+    (`parallel/gpu_gmg.py:gpu_gmg_solve`, tpu_gmg.py:807-883); on any other
+    backend the host loop below."""
     from ..parallel.gpu import GPUBackend
 
     if isinstance(b.values.backend, GPUBackend):
-        raise NotImplementedError(
-            "gmg_solve: the stationary V-cycle iteration on the GPU backend is not "
-            "ported yet (ROADMAP Queue 1 item 4); use pcg(A, b, minv=hierarchy)"
-        )
+        from ..parallel.gpu_gmg import gpu_gmg_solve
+
+        return gpu_gmg_solve(hierarchy, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose)
     A = hierarchy.levels[0].A
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     r = PVector.full(0.0, A.cols, dtype=b.dtype)

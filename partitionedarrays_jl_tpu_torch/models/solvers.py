@@ -158,6 +158,8 @@ def cg(
     column_errors: str = "raise",
     strict: bool = False,
     lowering: str = "auto",
+    sstep: Optional[int] = None,
+    overlap: bool = False,
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
@@ -178,16 +180,26 @@ def cg(
 
     ``strict`` and ``lowering``: see the module docstring; the device block
     solve takes both, on every lowering (a band, SD, BSR, ELL), each
-    column in strict mode the host's strict solo loop bit for bit."""
-    from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
+    column in strict mode the host's strict solo loop bit for bit.
+
+    ``sstep=s`` (s >= 2) runs the device loop's s-step (communication-
+    avoiding) body (`parallel/gpu.py:make_cg_fn`); with ``fused=True``,
+    ``pipelined``, ``B`` or ``strict`` it raises `LoweringConflictError`.
+    ``overlap`` runs the device SpMVs with the interior/boundary overlap
+    tail (the same values). Both are host no-ops but for the block
+    conflict."""
+    from ..parallel.gpu import GPUBackend, _sstep_conflict, gpu_block_cg, gpu_cg
 
     if B is not None:
         B = _check_block_args("cg", b, x0, B, column_errors)
+        if int(sstep or 0) >= 2:
+            _sstep_conflict("rhs_batch")
         if pipelined:
             raise ValueError("cg: the pipelined (lag-1) form is single-RHS only; drop pipelined or B")
         if isinstance(B[0].values.backend, GPUBackend):
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-                                column_errors=column_errors, box=box, strict=strict, lowering=lowering)
+                                column_errors=column_errors, box=box, strict=strict, lowering=lowering,
+                                overlap=overlap)
         return _host_block_solve(
             lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict),
             B, X0, column_errors=column_errors,
@@ -196,7 +208,7 @@ def cg(
     if isinstance(b.values.backend, GPUBackend):
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-            pipelined=pipelined, box=box, strict=strict, lowering=lowering,
+            pipelined=pipelined, box=box, strict=strict, lowering=lowering, sstep=sstep, overlap=overlap,
         )
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
@@ -274,6 +286,14 @@ class PLU:
 
         self.cols = A.cols
         self._factors = lu_factor(_dense(gather_psparse(A)))
+
+    def refactorize(self, A: PSparseMatrix) -> "PLU":
+        """Factor a new operator of the same shape in place (reference ldiv!
+        reuse, src/Interfaces.jl:2641-2662)."""
+        from scipy.linalg import lu_factor
+
+        self._factors = lu_factor(_dense(gather_psparse(A)))
+        return self
 
     def solve(self, b: PVector) -> PVector:
         from scipy.linalg import lu_solve
@@ -401,8 +421,10 @@ def pcg(
     operator and transfer on the ELL lowering and the generic plan, E3's
     dots: tpu_gmg.py:886 under ``PA_TPU_STRICT_BITS=1``), which takes the
     sequential strict loop's iterations and agrees with it to rounding (the
-    V-cycle's products are not the host's, on either side); another
-    ``lowering`` raises there."""
+    V-cycle's products are not the host's, on either side); ``lowering``
+    there names the first non-band lowering of every level's operators
+    (`gpu_gmg.device_hierarchy`), as the JAX package's lowering switches
+    reach every staging of its GMG-PCG."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
     from .gmg import GMGHierarchy
 
@@ -424,11 +446,6 @@ def pcg(
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
-            if lowering != "auto":
-                raise NotImplementedError(
-                    "pcg: the device GMG-PCG stages each level's own lowering; choosing another "
-                    "(lowering=) is not ported yet (ROADMAP Queue 1 item 4)"
-                )
             if fused is not None:
                 raise ValueError(
                     "pcg: the GMG-preconditioned device loop has one PCG body, with no fused "
@@ -436,7 +453,7 @@ def pcg(
                 )
             check(minv.levels[0].A is A, "pcg: the hierarchy's fine operator must be A itself")
             return gpu_gmg_pcg(minv, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose,
-                               box=box, stencil=stencil, strict=strict)
+                               box=box, stencil=stencil, strict=strict, lowering=lowering)
         if not callable(minv):
             return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
                           box=box, minv=minv, strict=strict, lowering=lowering)
@@ -972,3 +989,381 @@ def bicgstab(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, tol: fl
         final_rel=_final_true_rel(A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
                                   force=floor_warned),
     )
+
+
+# ---------------------------------------------------------------------------
+# LOBPCG (solvers.py:646-853)
+# ---------------------------------------------------------------------------
+
+
+def lobpcg(A: PSparseMatrix, nev: int = 1, X0=None, minv=None, tol: float = 1e-6, maxiter: int = 200,
+           largest: bool = False, seed: int = 0, verbose: bool = False):
+    """Locally optimal block preconditioned CG: the ``nev`` smallest (or
+    largest) eigenpairs of symmetric ``A`` (solvers.py:646-853). ``minv``
+    is None, an inverse-diagonal PVector or any callable ``minv(r) -> z``
+    (a `GMGHierarchy`, `additive_schwarz(mode='asm')`, ...). Returns
+    ``(eigenvalues (nev,), eigenvectors: list of PVector, info)``. On the
+    GPU backend a diagonal, a `GMGHierarchy` or no preconditioner runs the
+    device loop (`parallel/gpu_lobpcg.py:gpu_lobpcg`, solvers.py:679-692);
+    other callables run the host loop below on any backend. The two
+    stabilise the basis differently (dropping near-dependent directions
+    here, a masked penalty there), so they agree on eigenpairs, not on
+    iteration counts."""
+    from ..parallel.collectives import preduce
+    from ..parallel.gpu import GPUBackend
+    from .gmg import GMGHierarchy
+
+    check(nev >= 1, "lobpcg: nev must be >= 1")
+    m = int(nev)
+    if isinstance(A.values.backend, GPUBackend) and (not callable(minv) or isinstance(minv, GMGHierarchy)):
+        from ..parallel.gpu_lobpcg import gpu_lobpcg
+
+        return gpu_lobpcg(A, nev=m, X0=X0, minv=minv, tol=tol, maxiter=maxiter, largest=largest, seed=seed,
+                          verbose=verbose)
+
+    def _rand_block():
+        out = []
+        for k in range(m):
+            def _rand(iset, k=k):
+                rng = np.random.default_rng(seed + 7919 * k + int(iset.part))
+                return _write_owned(iset, np.zeros(iset.num_lids), rng.standard_normal(iset.num_oids))
+
+            out.append(PVector(map_parts(_rand, A.cols.partition), A.cols))
+        return out
+
+    X = [v.copy() for v in X0] if X0 is not None else _rand_block()
+    check(len(X) == m, "lobpcg: X0 must hold nev vectors")
+
+    def _apply_m(r):
+        if minv is None:
+            return r.copy()
+        if callable(minv):
+            return minv(r)
+        z = PVector.full(0.0, A.cols, dtype=r.dtype)
+        _owned_zip(z, lambda _z, mv, rv: mv * rv, minv, r)
+        return z
+
+    def _gram(U, V):
+        # one part-ordered reduce per Gram product: each part's whole
+        # owned-block partial U_p V_pᵀ, folded in part order
+        ku, kv = len(U), len(V)
+        if ku == 0 or kv == 0:
+            return np.zeros((ku, kv))
+        args = []
+        for w in (*U, *V):
+            args += [w.rows.partition, w.values]
+
+        def _partial(*vals):
+            Uo = np.stack([_owned(vals[2 * i], np.asarray(vals[2 * i + 1])) for i in range(ku)])
+            Vo = np.stack([_owned(vals[2 * (ku + i)], np.asarray(vals[2 * (ku + i) + 1])) for i in range(kv)])
+            return Uo @ Vo.T
+
+        import operator
+
+        return preduce(operator.add, map_parts(_partial, *args), np.zeros((ku, kv)))
+
+    def _combine(blocks, C):
+        out = []
+        for j in range(C.shape[1]):
+            w = PVector.full(0.0, A.cols, dtype=X[0].dtype)
+            for c, v in zip(C[:, j], blocks):
+                if c != 0.0:
+                    cc = float(c)
+                    _owned_update(w, lambda wv, vv: wv + cc * vv, v)
+            out.append(w)
+        return out
+
+    def _orthonormalize(U):
+        w, Q = np.linalg.eigh(_gram(U, U))
+        keep = w > w[-1] * 1e-12
+        return _combine(U, Q[:, keep] / np.sqrt(w[keep]))
+
+    def _unit(vs):
+        out = []
+        for v in vs:
+            n = float(v.norm())
+            if n > 0:
+                out.append(v / n)
+        return out
+
+    X = _orthonormalize(X)
+    P: list = []
+    sgn = -1.0 if largest else 1.0
+    history = []
+    it = 0
+    lam = np.zeros(m)
+    converged = False
+    AX = None
+    while it < maxiter:
+        if AX is None:
+            AX = [A @ x for x in X]
+        lam = np.array([float(x.dot(ax)) for x, ax in zip(X, AX)])
+        R = []
+        for x, ax, l in zip(X, AX, lam):
+            r = PVector.full(0.0, A.cols, dtype=x.dtype)
+            ll = float(l)
+            _owned_zip(r, lambda _r, av, xv: av - ll * xv, ax, x)
+            R.append(r)
+        rnorms = np.array([float(r.norm()) for r in R])
+        history.append(rnorms.copy())
+        if verbose:
+            print(f"lobpcg it={it} max|r|={rnorms.max():.3e}")
+        if np.all(rnorms <= tol * np.maximum(1.0, np.abs(lam))):
+            converged = True
+            break
+        # unit search directions: near convergence W and P are tiny, and
+        # unscaled they fall below the whitening's drop threshold
+        W = _unit([_apply_m(r) for r in R])
+        P = _unit(P)
+        S = X + W + P
+        AS = AX + [A @ v for v in S[m:]]
+        G_a, G_m = _gram(S, AS), _gram(S, S)
+        w_m, Q_m = np.linalg.eigh(G_m)
+        keep = w_m > w_m[-1] * 1e-10
+        B = Q_m[:, keep] / np.sqrt(w_m[keep])
+        _, Q_r = np.linalg.eigh(sgn * (B.T @ G_a @ B))
+        C = B @ Q_r[:, :m]
+        X_new = _combine(S, C)
+        C_p = C.copy()
+        C_p[:m, :] = 0.0
+        P = _combine(S, C_p)
+        X = X_new
+        AX = _combine(AS, C)  # the A-images combine with the same coefficients
+        it += 1
+    if not converged:
+        AX = [A @ x for x in X]
+        lam = np.array([float(x.dot(ax)) for x, ax in zip(X, AX)])
+    order = np.argsort(sgn * lam)
+    return lam[order], [X[int(k)] for k in order], {
+        "iterations": it, "residual_norms": np.array(history), "converged": converged,
+    }
+
+
+# ---------------------------------------------------------------------------
+# direct and incomplete-factorisation preconditioners (solvers.py:974-1006,
+# :1069-1344)
+# ---------------------------------------------------------------------------
+
+
+def lu(A: PSparseMatrix) -> PLU:
+    """The centralised LU factorisation of A (reference lu: src/Interfaces.jl:2641-2662)."""
+    return PLU(A)
+
+
+def direct_solve(A: PSparseMatrix, b: PVector) -> PVector:
+    """The ``\\`` analog (solvers.py:997-1006): gather A and b on MAIN, dense
+    solve, scatter back over A.cols. Debug-scale only."""
+    return scatter_pvector_values(np.linalg.solve(_dense(gather_psparse(A)), gather_pvector(b)), A.cols)
+
+
+def _spilu_factor(M: CSRMatrix, drop_tol, fill_factor):
+    """Threshold ILU of one local CSR block (SciPy ``spilu``), None for an
+    empty block (solvers.py:1046-1066)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.linalg import spilu
+
+    if M.shape[0] == 0:
+        return None
+    check(M.nnz > 0, "spilu: a part's block is structurally zero; the preconditioner would silently map its "
+                     "residual to zero")
+    kw = {"fill_factor": fill_factor}
+    if drop_tol is not None:
+        kw["drop_tol"] = drop_tol
+    return spilu(csr_matrix((M.data, M.indices, M.indptr), shape=M.shape).tocsc(), **kw)
+
+
+def _per_part_apply(A: PSparseMatrix, factors):
+    """``minv(r)``: each part's factor solves its owned block of r, no
+    communication; a part without a factor (no rows) leaves z at 0."""
+    from ..parallel.backends import get_part_ids
+
+    parts = get_part_ids(A.values)
+
+    def apply(r: PVector) -> PVector:
+        z = PVector.full(0.0, A.cols, dtype=r.dtype)
+
+        def per_part(p, zi, zv, ri_, rv):
+            f = factors[int(p)]
+            if f is not None:
+                _write_owned(zi, zv, f.solve(_owned(ri_, np.asarray(rv))))
+
+        map_parts(per_part, parts, z.rows.partition, z.values, r.rows.partition, r.values)
+        return z
+
+    return apply
+
+
+def block_jacobi_ilu(A: PSparseMatrix, drop_tol=None, fill_factor=10):
+    """Non-overlapping block-Jacobi preconditioner with a threshold ILU
+    (SciPy ``spilu``) of each part's owned-owned block (solvers.py:1069-1131):
+    z = M⁻¹ r solves each part's block locally, with no communication.
+    Returns a callable for ``minv=``; the factorisations happen once, on
+    the host. An LU-based M⁻¹ is only approximately symmetric, so CG's
+    conjugacy holds approximately (`block_jacobi_ic0` is the symmetric
+    companion)."""
+    return _per_part_apply(A, [_spilu_factor(M, drop_tol, fill_factor) for M in A.owned_owned_values.part_values()])
+
+
+def ic0_lower(indptr, cols, a_vals, n: int):
+    """Zero-fill incomplete Cholesky of a lower triangle (diagonal last in
+    each row, columns sorted): ``(l_vals, -1)``, or ``(None, i)`` on a
+    non-positive pivot at row i. The port's copy of the JAX package's NumPy
+    form (native/__init__.py:882-925)."""
+    ip = np.asarray(indptr, dtype=np.int64)
+    cc = np.asarray(cols, dtype=np.int64)
+    av = np.asarray(a_vals, dtype=np.float64)
+    lv = np.empty_like(av)
+    for i in range(n):
+        s_i, e_i = ip[i], ip[i + 1]
+        if e_i == s_i or cc[e_i - 1] != i:
+            return None, i
+        for idx in range(s_i, e_i):
+            j = cc[idx]
+            s = av[idx]
+            pi, pj, ej = s_i, ip[j], ip[j + 1]
+            while pi < idx and pj < ej - 1:
+                ci, cj = cc[pi], cc[pj]
+                if ci == cj:
+                    if ci >= j:
+                        break
+                    s -= lv[pi] * lv[pj]
+                    pi += 1
+                    pj += 1
+                elif ci < cj:
+                    pi += 1
+                else:
+                    pj += 1
+            if j < i:
+                lv[idx] = s / lv[ej - 1]
+            else:
+                if s <= 0.0:
+                    return None, i
+                lv[idx] = np.sqrt(s)
+    return lv, -1
+
+
+def _ic0_factor(M: CSRMatrix, shift: float = 0.0, auto_shift: bool = True):
+    """IC(0) of one local SPD CSR block (solvers.py:1132-1218): an object
+    whose ``solve(r)`` applies (L Lᵀ)⁻¹, or None for an empty block. A
+    nonsymmetric block, a missing diagonal entry, and a non-positive pivot
+    even at the largest diagonal shift raise; with ``auto_shift`` the
+    diagonal is scaled by (1 + a) for a in 1e-3, 1e-2, 1e-1, 1 until the
+    factorisation exists (Manteuffel's remedy)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.linalg import spsolve_triangular
+
+    n = M.shape[0]
+    if n == 0:
+        return None
+    check(M.nnz > 0, "ic0: a part's block is structurally zero; the preconditioner would silently map its "
+                     "residual to zero")
+    sp = csr_matrix((M.data, M.indices, M.indptr), shape=M.shape)
+    asym = abs(sp - sp.T).max() if M.nnz else 0.0
+    if asym > 1e-12 * max(abs(sp).max(), 1.0):
+        raise ValueError(
+            f"ic0: block is not symmetric (max |A - A'| = {asym:.2e}); incomplete Cholesky requires an SPD "
+            "block; use block_jacobi_ilu / additive_schwarz(factor='ilu') for nonsymmetric operators"
+        )
+    r = M.row_of_nz()
+    keep = M.indices <= r
+    li, lj, lv0 = r[keep], M.indices[keep], M.data[keep].astype(np.float64)
+    L0 = compresscoo(li, lj, lv0, n, n)
+    last = L0.indices[np.maximum(L0.indptr[1:], 1) - 1]
+    row_has = (L0.indptr[1:] > L0.indptr[:-1]) & (last == np.arange(n))
+    if not row_has.all():
+        raise ValueError(f"ic0: local row {int(np.nonzero(~row_has)[0][0])} has no stored diagonal entry; IC(0) "
+                         "needs a full diagonal")
+    shifts = [shift]
+    if auto_shift:
+        shifts += [a for a in (1e-3, 1e-2, 1e-1, 1.0) if a > shift]
+    lvals = fail = L = None
+    for a in shifts:
+        lv = np.where(li == lj, lv0 * (1.0 + a), lv0) if a else lv0
+        L = compresscoo(li, lj, lv, n, n)
+        lvals, fail = ic0_lower(L.indptr, L.indices, L.data, n)
+        if lvals is not None:
+            break
+    if lvals is None:
+        raise np.linalg.LinAlgError(f"ic0: non-positive pivot at local row {fail} even with the maximum diagonal "
+                                    "shift; the block is not SPD; use block_jacobi_ilu")
+    Lm = csr_matrix((lvals, L.indices, L.indptr), shape=(n, n))
+    Lt = Lm.T.tocsr()
+
+    class _IC0:
+        def solve(self, rv):
+            return spsolve_triangular(Lt, spsolve_triangular(Lm, rv, lower=True), lower=False)
+
+    return _IC0()
+
+
+def block_jacobi_ic0(A: PSparseMatrix, shift: float = 0.0):
+    """Block-Jacobi preconditioner with a zero-fill incomplete Cholesky of
+    each part's owned-owned block (solvers.py:1219-1240): the exactly
+    symmetric companion of `block_jacobi_ilu` for SPD operators. Returns a
+    callable for ``minv=``."""
+    return _per_part_apply(A, [_ic0_factor(M, shift) for M in A.owned_owned_values.part_values()])
+
+
+def additive_schwarz(A: PSparseMatrix, mode: str = "asm", drop_tol=None, fill_factor=10, factor: str = "ilu",
+                     shift: float = 0.0):
+    """Overlapping Schwarz preconditioner with one layer of overlap
+    (solvers.py:1241-1344): each part factors the block over its owned rows
+    and the rows of its column-ghost layer, replicated from their owners
+    along the ghost graph (`exchange_coo`). An application fills the
+    overlap with one halo exchange, solves each extended block locally and
+    combines: ``mode='asm'`` assembles the overlap corrections back
+    (ghost -> owner add; symmetric for symmetric blocks, for `pcg`),
+    ``mode='ras'`` keeps each part's owned slice only (restricted AS:
+    nonsymmetric, for `gmres` and `bicgstab`). ``factor='ic0'`` takes the
+    extended blocks' IC(0) (``shift`` its Manteuffel knob) instead of the
+    ILUT (``drop_tol``, ``fill_factor``). Returns a callable for
+    ``minv=``; on every backend it runs the host loops."""
+    from ..parallel.backends import get_part_ids
+    from ..parallel.prange import add_gids
+    from ..parallel.psparse import exchange_coo, psparse_owned_triplets
+    from ..parallel.pvector import _assign_full
+
+    check(mode in ("asm", "ras"), "additive_schwarz: mode is 'asm' or 'ras'")
+    check(factor in ("ilu", "ic0"), "additive_schwarz: factor is 'ilu' or 'ic0'")
+    check(factor == "ilu" or drop_tol is None,
+          "additive_schwarz: drop_tol tunes the ILUT blocks; IC(0) is zero-fill by definition (use shift=)")
+    check(factor == "ic0" or shift == 0.0,
+          "additive_schwarz: shift is the IC(0) Manteuffel knob; the ILUT blocks take drop_tol/fill_factor")
+    ghost_gids = map_parts(lambda ci: np.asarray(ci.lid_to_gid)[np.asarray(ci.lid_to_ohid) < 0], A.cols.partition)
+    rows_ext = add_gids(A.rows, ghost_gids)
+    trip = psparse_owned_triplets(A)
+    I2, J2, V2 = exchange_coo(map_parts(lambda t: t[0], trip), map_parts(lambda t: t[1], trip),
+                              map_parts(lambda t: t[2], trip), rows_ext)
+    factors = []
+    for iset, gi, gj, v in zip(rows_ext.partition.part_values(), I2.part_values(), J2.part_values(),
+                               V2.part_values()):
+        nl = iset.num_lids
+        li = iset.gids_to_lids(np.asarray(gi, dtype=np.int64))
+        lj = iset.gids_to_lids(np.asarray(gj, dtype=np.int64))
+        keep = (li >= 0) & (lj >= 0)  # couplings leaving the overlap are dropped
+        if nl == 0 or not np.any(keep):
+            factors.append(None)
+            continue
+        B = compresscoo(li[keep], lj[keep], np.asarray(v)[keep], nl, nl)
+        factors.append(_ic0_factor(B, shift) if factor == "ic0" else _spilu_factor(B, drop_tol, fill_factor))
+    parts = get_part_ids(A.values)
+
+    def apply(r: PVector) -> PVector:
+        re = PVector.full(0.0, rows_ext, dtype=r.dtype)
+        _owned_zip(re, lambda _e, rv: rv, r)
+        re.exchange()
+        ze = PVector.full(0.0, rows_ext, dtype=r.dtype)
+
+        def per_part(p, ev, zev):
+            f = factors[int(p)]
+            if f is not None:
+                _assign_full(zev, f.solve(np.asarray(ev)))
+
+        map_parts(per_part, parts, re.values, ze.values)
+        if mode == "asm":
+            ze.assemble()  # the overlap corrections flow back to their owners and add
+        z = PVector.full(0.0, A.cols, dtype=r.dtype)
+        _owned_zip(z, lambda _z, zev: zev, ze)
+        return z
+
+    return apply

@@ -10,7 +10,10 @@ from .collectives import (
 )
 from .exchanger import Exchanger, allocate_rcv_buffer, allocate_snd_buffer, empty_exchanger, exchange_values
 from .gpu import GPUBackend, GPUData, gpu, gpu_cg
-from .gpu_gmg import gpu_fgmres_gmg, make_fgmres_gmg_fn
+from .gpu_gmg import (
+    gpu_fgmres_gmg, gpu_gmg_pcg, gpu_gmg_solve, make_fgmres_gmg_fn, make_gmg_pcg_fn, make_gmg_solve_fn,
+)
+from .gpu_lobpcg import gpu_lobpcg, make_lobpcg_fn
 from .gpu_krylov import (
     gpu_bicgstab, gpu_chebyshev, gpu_gmres, gpu_minres, make_bicgstab_fn, make_chebyshev_fn, make_diff_solve_fn,
     make_gmres_fn, make_minres_fn,
@@ -41,9 +44,9 @@ __all__ = [
     "exchange_coo", "exchange_into", "exchange_pvector", "exchange_values", "gather", "gather_all",
     "get_backend", "get_gid_to_lid", "get_hid_to_lid", "get_lid_to_gid", "get_lid_to_ohid", "get_lid_to_part",
     "get_oid_to_lid", "get_part_ids", "global_view", "gpu", "gpu_bicgstab", "gpu_cg", "gpu_chebyshev",
-    "gpu_fgmres_gmg", "gpu_gmres", "gpu_minres", "hids_are_equal", "iscan", "iscan_all",
+    "gpu_fgmres_gmg", "gpu_gmg_pcg", "gpu_gmg_solve", "gpu_gmres", "gpu_lobpcg", "gpu_minres", "hids_are_equal", "iscan", "iscan_all",
     "iscan_main", "lids_are_equal", "local_view", "make_bicgstab_fn", "make_chebyshev_fn", "make_diff_solve_fn",
-    "make_fgmres_gmg_fn", "make_gmres_fn", "make_minres_fn", "map_main", "map_parts", "matrix_exchanger", "minkowski",
+    "make_fgmres_gmg_fn", "make_gmg_pcg_fn", "make_gmg_solve_fn", "make_gmres_fn", "make_lobpcg_fn", "make_minres_fn", "map_main", "map_parts", "matrix_exchanger", "minkowski",
     "no_ghost", "num_gids", "num_hids", "num_lids", "num_oids", "oids_are_equal", "preduce", "prange",
     "prange_eq", "print_timer", "prun", "prun_debug", "psparse_local_values", "psparse_owned_triplets",
     "reduce_all", "reduce_main", "scatter", "sequential", "sqeuclidean", "sum_parts", "tic", "toc",

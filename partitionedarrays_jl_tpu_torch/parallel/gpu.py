@@ -48,6 +48,12 @@ Krylov family is `gpu_krylov.py`):
   plan and takes every dot through the fixed pairwise tree (E3): the
   solve is then the host's strict loop bit for bit; a strict block solve
   gives each column its strict solo loop bit for bit.
+* **s-step CG and the overlap tail.** ``sstep=s`` runs the
+  communication-avoiding body (`_make_sstep_cg_fn`: s pair SpMVs of the
+  ``(P, W, 2)`` slab ``[p | r]`` a trip, each exchanged through the
+  operator's own plan, one Gram reduction); ``overlap=True`` runs each
+  SpMV's halo exchange on a side stream beside its A_oo product
+  (`_overlapped`) where the body's schedule allows it.
 
 The device defaults to ``cuda``; with no card it raises at first use and
 never falls back to the CPU. Tests pass ``GPUBackend(device="cpu")``, where
@@ -271,7 +277,7 @@ class DeviceExchangePlan:
 def device_exchange_plan(rows: PRange, backend: GPUBackend, reverse: bool = False,
                          box: bool = True):
     """The halo plan of a PRange on a backend's device, cached on it
-    (tpu.py:1264-1300): the box plan (`gpu_box.BoxExchangePlan`) over a
+    (tpu.py:1228-1300): the box plan (`gpu_box.BoxExchangePlan`) over a
     box layout, else the generic colour-round plan. ``reverse`` gives the
     ghost -> owner assembly plan (for combine ``add``): the box plan's
     reverse, or the generic plan of ``rows.exchanger.reverse()``."""
@@ -488,6 +494,9 @@ class DeviceMatrix:
         oh = A.owned_ghost_values.part_values()
         det = None if strict else self._detect_dia(A, oo, P, noids, no_max)
         self.strict = bool(strict)
+        #: no ``lowering`` changes this staging: a band (or, set by
+        #: `_stage_irregular`, a rectangular A_oo, which takes ELL)
+        self.lowering_free = det is not None
         self.rows, self.cols = A.rows, A.cols
         self.backend = backend
         self.row_layout = device_layout(A.rows, box)
@@ -583,13 +592,18 @@ class DeviceMatrix:
         ``PA_TPU_SD=0`` / ``PA_TPU_BSR=0`` do); ``self.lowering`` names
         the one taken. ELL keeps no footprint ceiling on the card (the JAX
         package's ``_ell_guard_check`` is a TPU fault ceiling;
-        `gpu_irregular.stage_ell` records the decision)."""
+        `gpu_irregular.stage_ell` records the decision). A rectangular
+        A_oo (an assembled multigrid transfer) takes ELL: SD and BSR stage
+        square node blocks."""
         from . import gpu_irregular as gi
         from ..ops import irregular as irr
 
         dev = self.backend.device
         rl, cl = self.row_layout, self.col_layout
-        check(rl.o0 == cl.o0 and cl.no_max == no_max, "irregular lowering: A_oo must be square in the frames")
+        check(rl.o0 == cl.o0, "irregular lowering: the row and column frames' owned bands must start together")
+        if cl.no_max != no_max:
+            lowering = "ell"
+            self.lowering_free = True
         sd = gi.detect_sd(oo, P, noids, no_max, dt) if lowering in ("auto", "sd") else None
         bsr = gi.detect_bsr(oo, P, noids, no_max, dt) if sd is None and lowering != "ell" else None
         if sd is not None:
@@ -757,10 +771,14 @@ def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True, stric
                   lowering: str = "auto") -> DeviceMatrix:
     """The lowering of A for a backend, cached on A per ``box``, ``strict``
     and ``lowering`` (strict mode is one entry: the ELL lowering on the
-    generic plan)."""
+    generic plan). An operator whose staging no ``lowering`` changes (a
+    band, or a rectangular A_oo: `DeviceMatrix.lowering_free`) is staged
+    once for every ``lowering``."""
     key = (backend, False, True, "ell") if strict else (backend, bool(box), False, lowering)
     if key not in A._device:
-        A._device[key] = DeviceMatrix(A, backend, box, strict=strict, lowering=lowering)
+        same = next((d for k, d in A._device.items() if k[:3] == key[:3] and d.lowering_free), None)
+        A._device[key] = same if same is not None else DeviceMatrix(A, backend, box, strict=strict,
+                                                                    lowering=lowering)
     return A._device[key]
 
 
@@ -795,8 +813,50 @@ def _irregular_aoo(dA: DeviceMatrix, plain: bool, block: bool = False) -> Callab
     return lambda xv, width: k(dA.oo_vals, dA.oo_cols, xv, o0, width)
 
 
+#: the side stream of each CUDA device that the overlap tail's halo copies
+#: run on (`_spmv_body(overlap=True)`)
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device: torch.device):
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def _overlapped(compute: Callable, plan, xv: torch.Tensor) -> torch.Tensor:
+    """``compute()`` (the A_oo product, which reads the owned slots of xv
+    only) on the current stream while the halo exchange of xv (which
+    writes its ghost and trash slots only) runs on a side stream, forked
+    from and joined back into the current stream by events, so a CUDA
+    graph captures both branches (tpu.py:866-878, :2827-2846: the
+    interior/boundary split of ``PA_TPU_OVERLAP=1``). The two touch
+    disjoint slots, so the values are those of the sequential schedule.
+    Off the card the two run one after the other."""
+    if xv.device.type != "cuda":
+        y = compute()
+        exchange_(plan, xv)
+        return y
+    main = torch.cuda.current_stream(xv.device)
+    side = _side_stream(xv.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        exchange_(plan, xv)
+    y = compute()
+    main.wait_stream(side)
+    return y
+
+
+def _can_overlap(dA: DeviceMatrix, fused: bool) -> bool:
+    """Whether a CG body's iterations have an overlap tail to run: not the
+    fused body on a coded operator, whose operand p is an output of the
+    product's own kernel (K2), so its exchange can only follow it. There
+    ``overlap=True`` is the same solve function as ``overlap=False``."""
+    return not (fused and dA.dia_mode == "coded")
+
+
 def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
-               plain: bool = False, block: bool = False):
+               plain: bool = False, block: bool = False, overlap: bool = False):
     """The stacked SpMV (tpu.py:_spmv_body): the A_oo product first (it
     reads owned slots only), then the halo exchange of the operand, then
     the A_oh contribution on the boundary rows and the ghost region of the
@@ -821,7 +881,15 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     column k of a block body is the single-vector body of column k (bit
     for bit but on SD, whose `torch.bmm` takes its own order for K
     columns). ``plain`` runs the plain versions of the kernels on the same
-    tensors (the comparison path)."""
+    tensors (the comparison path).
+
+    ``overlap`` is the interior/boundary overlap tail (tpu.py:866-878,
+    :2827-2846): the operand's halo exchange runs on a side stream while
+    the A_oo product runs (`_overlapped`), and the boundary finish waits
+    for both. It changes the schedule, not the values: every product is
+    ``torch.equal`` to ``overlap=False``'s. The coded fused body's operand
+    p is an output of the product's own kernel (K2), so its exchange can
+    only follow it there (`_can_overlap`)."""
     from ..ops import irregular as irr
 
     op = dA.coded
@@ -857,7 +925,7 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             def spmv_k(_op, xv, width):
                 return aoo(xv, width)
 
-        def pfold_k(_op, rv, pv, beta, width, minv=None):
+        def fold_k(rv, pv, beta, minv=None):
             # beta*pprev, then + r (or + minv*r): the rounding of
             # `dia._fold`, in two passes over the band; rows past a part's
             # owned count are 0 in r and pprev, so they fold to 0
@@ -871,7 +939,7 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
                 pb.add_(rv[:, band])
             else:
                 pb.add_((minv[:, band, None] if block else minv[:, band]) * rv[:, band])
-            return spmv_k(_op, p, width), p
+            return p
 
         def axpy_k(_op, xv, xacc, pprev, alpha, width, live=None):
             band = slice(o0, o0 + n)
@@ -885,8 +953,7 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     trash = dA.row_layout.trash
     cg0 = dA.col_layout.g0
 
-    def _finish(y, xv):
-        exchange_(plan, xv)
+    def _boundary(y, xv):
         if dA.oh_nnz:
             if dA.ohb_bs is not None:
                 bsr_b(dA.ohb_rows, dA.ohb_vals, dA.ohb_cols, xv, cg0, dA.ohb_nhn, y, trash)
@@ -895,15 +962,28 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             y[:, g0:] = 0
         return y
 
+    def _tail(compute, xv):
+        # the A_oo product, the operand's halo exchange, the A_oh finish
+        if overlap:
+            y = _overlapped(compute, plan, xv)
+        else:
+            y = compute()
+            exchange_(plan, xv)
+        return _boundary(y, xv)
+
     def body(xv):
-        return _finish(spmv_k(op, xv, wy), xv)
+        return _tail(lambda: spmv_k(op, xv, wy), xv)
 
     def body_pfold(rv, pv, beta, minv=None):
-        y, p = pfold_k(op, rv, pv, beta, wy, minv=minv)
-        return _finish(y, p), p
+        if dA.dia_mode == "coded":
+            y, p = pfold_k(op, rv, pv, beta, wy, minv=minv)
+            exchange_(plan, p)
+            return _boundary(y, p), p
+        p = fold_k(rv, pv, beta, minv)
+        return _tail(lambda: spmv_k(op, p, wy), p), p
 
     def body_axpy(xv, xacc, pprev, alpha, live=None):
-        return _finish(axpy_k(op, xv, xacc, pprev, alpha, wy, live), xv), xacc
+        return _tail(lambda: axpy_k(op, xv, xacc, pprev, alpha, wy, live), xv), xacc
 
     return body_pfold if pfold else body_axpy if axpy else body
 
@@ -989,9 +1069,48 @@ def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool 
     return bdot
 
 
+def _sstep_conflict(other: str):
+    """The typed refusal of an explicit s-step depth >= 2 meeting a body
+    form it does not compose with (tpu.py:3418-3428)."""
+    from ..utils.health import LoweringConflictError
+
+    raise LoweringConflictError(
+        f"make_cg_fn: the s-step (communication-avoiding) body does not compose with {other}; "
+        f"drop sstep or {other}",
+        diagnostics={"conflict": ("sstep", other)},
+    )
+
+
+def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None):
+    """The CG body `make_cg_fn` builds, as ``(sstep, fused)`` (tpu.py:3415-3500
+    without the environment): an explicit ``sstep`` >= 2 refuses
+    ``fused=True``, ``pipelined``, ``precond``, a block of right-hand sides
+    and strict mode with `LoweringConflictError`, and is an unfused body;
+    0 and 1 are the textbook forms. Otherwise ``fused`` defaults to on
+    unless ``pipelined`` or ``strict``."""
+    s = int(sstep or 0)
+    s = s if s >= 2 else 0
+    if s:
+        if strict:
+            _sstep_conflict("strict (the textbook body is the bitwise oracle)")
+        if fused:
+            _sstep_conflict("fused")
+        if rhs_batch is not None:
+            _sstep_conflict("rhs_batch")
+        if pipelined:
+            _sstep_conflict("pipelined")
+        if precond:
+            _sstep_conflict("precond")
+        return s, False
+    if rhs_batch is not None:
+        return 0, (not strict) if fused is None else bool(fused)
+    return 0, (not pipelined and not strict) if fused is None else bool(fused)
+
+
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
                pipelined: bool = False, plain: bool = False, graph: bool = True,
-               block: Optional[int] = None, precond: bool = False) -> Callable:
+               block: Optional[int] = None, precond: bool = False, sstep: Optional[int] = None,
+               overlap: bool = False) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``, run as a device-resident loop
     (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
@@ -1034,19 +1153,31 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     and every reduction is E3's fixed tree (`_pdot_factory`): the sweep
     updates x and r (each product rounded) and r.r, with ``precond`` also
     r.z of the stored z = minv*r, are taken by E3 from them, so the loop
-    follows the host's strict CG bit for bit."""
+    follows the host's strict CG bit for bit.
+
+    ``sstep=s`` (s >= 2) is the communication-avoiding s-step body
+    (tpu.py:3400-3440, :4172-4262; `_make_sstep_cg_fn`); 0 and 1 are the
+    textbook body itself. It refuses ``fused=True``, ``pipelined``,
+    ``precond`` and a strict lowering with `LoweringConflictError` (a
+    block of right-hand sides too: `_krylov_fn_for`). ``overlap`` runs
+    every SpMV with the interior/boundary overlap tail
+    (`_spmv_body(overlap=True)`): the same values, another schedule."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
     strict = dA.strict
-    fused = (not pipelined and not strict) if fused is None else bool(fused)
+    sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, strict)
+    overlap = bool(overlap) and _can_overlap(dA, fused)
+    if sstep:
+        return _make_sstep_cg_fn(dA, tol, maxiter, sstep, plain=plain, graph=graph, block=block,
+                                 overlap=overlap)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
     if precond and pipelined:
         raise ValueError("make_cg_fn: the pipelined body is unpreconditioned")
-    body = _spmv_body(dA, plain=plain)
-    body_pfold = _spmv_body(dA, pfold=True, plain=plain) if fused else None
-    body_axpy = _spmv_body(dA, axpy=True, plain=plain) if pipelined else None
+    body = _spmv_body(dA, plain=plain, overlap=overlap)
+    body_pfold = _spmv_body(dA, pfold=True, plain=plain, overlap=overlap) if fused else None
+    body_axpy = _spmv_body(dA, axpy=True, plain=plain, overlap=overlap) if pipelined else None
     sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
@@ -1140,14 +1271,163 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
     fn.precond = bool(precond)
     fn.strict = strict
+    fn.overlap = bool(overlap)
     fn.stats = loop.stats  # updated in place by every run
+    fn.loop = loop
+    return fn
+
+
+#: rows of a chunk of the s-step Gram product (`_pgram_factory`)
+GRAM_CHUNK = 8192
+
+
+def _pgram_factory(o0: int, no_max: int):
+    """The s-step block reduction (tpu.py:2665): ``pgram(V) -> G = V Vᵀ``
+    for the owned basis V ``(P, m, no_max)`` (a basis vector a row), every
+    inner product of an outer trip in one reduction. A part's rows are cut
+    into chunks of GRAM_CHUNK: one batched product of the chunks, summed
+    over the chunks in order, plus the tail's product, then the per-part
+    (m, m) partials folded in part order (`_fold_parts`). One product over
+    the whole row (k of millions against m, n of 5 to 9) ran at a fifth of
+    the card's bandwidth (PERF.md, PR 17)."""
+
+    def pgram(V):
+        P, m, n = V.shape
+        C = n // GRAM_CHUNK
+        part = None
+        if C:
+            Vc = V[:, :, : C * GRAM_CHUNK].reshape(P, m, C, GRAM_CHUNK).transpose(1, 2).reshape(P * C, m, GRAM_CHUNK)
+            part = torch.bmm(Vc, Vc.transpose(1, 2)).view(P, C, m, m).sum(dim=1)
+        if C * GRAM_CHUNK < n:
+            tail = V[:, :, C * GRAM_CHUNK :]
+            tail = torch.matmul(tail, tail.transpose(1, 2))
+            part = tail if part is None else part + tail
+        return _fold_parts(part)
+
+    return pgram
+
+
+def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain: bool = False,
+                      graph: bool = True, block: Optional[int] = None, overlap: bool = False) -> Callable:
+    """The s-step (communication-avoiding) CG loop (tpu.py:4172-4262): one
+    step of the device loop is one outer trip of s textbook iterations.
+    The trip builds the monomial basis ``[p, Ap, .., Aˢp, r, Ar, ..,
+    Aˢ⁻¹r]`` by s levels of a PAIR SpMV of the ``(P, W, 2)`` slab ``[p |
+    r]``, which is the state p and r are kept in (the block body: `dia_coded_spmm` / `dia_stream_spmm` at K = 2,
+    or the slab forms of SD, BSR and ELL; one halo exchange of the pair a
+    level through the operator's plan), takes the whole (2s+1)-column Gram
+    matrix in one part-ordered reduction (`_pgram_factory`), runs the s
+    inner iterations as scalar recurrences on basis coordinates (``B``
+    the static degree shift), and materialises x, r and p once at the end
+    of the trip (one product of the basis with their three coordinate
+    vectors). The basis is kept a vector a row, ``(P, 2s+1, no_max)``:
+    interleaving it a row a point cost a transposing copy of 1.2 ms a trip
+    at 192³ (PERF.md, PR 17). The residual of inner
+    iteration j is sqrt(max(r_cᵀ G r_c, 0)); the stopping test is the
+    textbook one, taken once a trip, so a solve can run up to s - 1
+    iterations past the tolerance, and ``iterations`` counts trips x s. A
+    frozen trip (the flag 0) keeps every state tensor as it was
+    (``torch.where``). The inner recurrences re-associate the dots, so
+    the trajectory is not the textbook one bit for bit; the Gram product
+    and the trip-end products are `torch.matmul`, as the JAX package
+    computes them with XLA outside any kernel. The device loop runs
+    ``max(1, CG_BLOCK // s)`` trips a block."""
+    from . import gpu_loop as gl
+
+    body2 = _spmv_body(dA, plain=plain, block=True, overlap=overlap)
+    body1 = _spmv_body(dA, plain=plain, overlap=overlap)
+    o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
+    sl = slice(o0, o0 + no_max)
+    pdot = _pdot_factory(o0, no_max, False, plain)
+    pgram = _pgram_factory(o0, no_max)
+    stop_it = gl.stop_bound(maxiter)
+    m_dim = 2 * s + 1
+    shift = np.zeros((m_dim, m_dim))
+    for i in range(s):
+        shift[i + 1, i] = 1.0
+    for i in range(s - 1):
+        shift[s + 2 + i, s + 1 + i] = 1.0
+    consts = {}
+
+    def step(S):
+        x, pr, rs, it = S["x"], S["pr"], S["rs"], S["it"]
+        live = S["live"] * ((gl.sqrt_rn(rs) > S["thr"]) & (it < stop_it) & torch.isfinite(rs)).to(torch.int32)
+        on = live != 0
+        # the basis a vector a row, [p, Ap, .., A^s p, r, Ar, .., A^(s-1) r];
+        # the first level's operand is the state's pair itself (its halo
+        # refresh writes ghost slots only)
+        V = torch.empty((x.shape[0], m_dim, no_max), dtype=x.dtype, device=x.device)
+        V[:, 0] = pr[:, sl, 0]
+        V[:, s + 1] = pr[:, sl, 1]
+        cur = pr
+        for lev in range(s):
+            yo = body2(cur)[:, sl]
+            V[:, lev + 1] = yo[..., 0]
+            if lev < s - 1:
+                V[:, s + 2 + lev] = yo[..., 1]
+                cur = torch.zeros_like(pr)
+                cur[:, sl] = yo
+        G = pgram(V)
+        key = (G.dtype, G.device)
+        if key not in consts:
+            # staged in the loop's first block, which runs eagerly before
+            # any capture (a capture takes no host copies): the shift and
+            # the start coordinates of p and r
+            eye = np.eye(m_dim)
+            consts[key] = tuple(torch.from_numpy(a).to(G.device, G.dtype) for a in (shift, eye[0], eye[s + 1]))
+        Bs, p_c, r_c = consts[key]
+        x_c = torch.zeros_like(p_c)
+        rs_j = rs
+        for j in range(s):
+            w = Bs @ p_c  # the coordinates of A p_j
+            den = p_c @ (G @ w)
+            # a Gram residual of exactly 0 (or p_j of G-norm 0) inside the
+            # trip freezes the coordinates where the textbook body would
+            # have stopped: alpha and beta 0, not 0/0
+            go = (rs_j > 0) & (den != 0)
+            alpha = torch.where(go, rs_j / den, torch.zeros_like(den))
+            x_c = x_c + alpha * p_c
+            r_c = r_c - alpha * w
+            rs_new = torch.where(go, torch.clamp(r_c @ (G @ r_c), min=0.0), rs_j)
+            beta = torch.where(go, rs_new / rs_j, torch.zeros_like(rs_j))
+            p_c = r_c + beta * p_c
+            gl.record(S["hist"], it + (j + 1) * live, live, gl.sqrt_rn(rs_new))
+            rs_j = rs_new
+        # x, r and p from one product with the basis
+        U = torch.matmul(torch.stack([x_c, r_c, p_c]), V)  # (P, 3, no_max)
+        x[:, sl] = torch.where(on, x[:, sl] + U[:, 0], x[:, sl])
+        pr[:, sl] = torch.where(on, torch.stack([U[:, 2], U[:, 1]], dim=-1), pr[:, sl])
+        return dict(S, rs=torch.where(on, rs_j, rs), it=it + s * live, live=live)
+
+    loop = gl.DeviceLoop(step, max(1, gl.CG_BLOCK // s) if block is None else block, graph)
+
+    def fn(b, x0):
+        x = x0.clone()
+        q = body1(x0.clone())
+        r = torch.zeros_like(x)
+        r[:, sl] = b[:, sl] - q[:, sl]
+        rs0 = pdot(r, r)
+        init = {
+            "x": x, "pr": torch.stack([r, r], dim=-1), "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
+            "it": torch.zeros((), dtype=torch.int32, device=x.device),
+            "live": torch.ones((), dtype=torch.int32, device=x.device),
+            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+        }
+        S, _ = loop.run(init)
+        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
+
+    fn.cg_body = f"sstep{s}"
+    fn.precond = False
+    fn.strict = False
+    fn.overlap = bool(overlap)
+    fn.stats = loop.stats
     fn.loop = loop
     return fn
 
 
 def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
                      precond: bool = False, fused: Optional[bool] = None, plain: bool = False,
-                     graph: bool = True, block: Optional[int] = None) -> Callable:
+                     graph: bool = True, block: Optional[int] = None, overlap: bool = False) -> Callable:
     """Block (multi-RHS) CG over ``(P, W, K)`` slabs, K = ``rhs_batch``
     right-hand sides against one operator (tpu.py:make_block_cg_fn,
     :4362-5020, its fused and standard bodies, with and without
@@ -1181,7 +1461,8 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     is the default (``fused=True`` is honoured), the block sweep updates x
     and r, and r.r, p.q and, with ``precond``, r.z of the stored z =
     minv*r are E3's block dots (`_block_pdot_factory(strict=True)`), so
-    column k takes the host's strict solo loop of column k bit for bit."""
+    column k takes the host's strict solo loop of column k bit for bit.
+    ``overlap`` as in `make_cg_fn`."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
@@ -1189,8 +1470,9 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     check(K >= 1, "make_block_cg_fn: rhs_batch must be >= 1")
     strict = dA.strict
     fused = (not strict) if fused is None else bool(fused)
-    body = _spmv_body(dA, plain=plain, block=True)
-    body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True) if fused else None
+    overlap = bool(overlap) and _can_overlap(dA, fused)
+    body = _spmv_body(dA, plain=plain, block=True, overlap=overlap)
+    body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True, overlap=overlap) if fused else None
     sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
@@ -1278,6 +1560,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     fn.cg_body = "fused" if fused else "standard"
     fn.precond = bool(precond)
     fn.strict = strict
+    fn.overlap = bool(overlap)
     fn.rhs_batch = K
     fn.stats = loop.stats
     fn.loop = loop
@@ -1291,32 +1574,36 @@ STATS = {"solve_fns": 0}
 
 def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, precond: bool = False,
                    pipelined: bool = False, fused: Optional[bool] = None, plain: bool = False,
-                   rhs_batch: Optional[int] = None, **options) -> Callable:
+                   rhs_batch: Optional[int] = None, sstep: Optional[int] = None, overlap: bool = False,
+                   **options) -> Callable:
     """The solve function of ``method`` on ``dA``, cached on it
     (tpu.py:6308-6392, ``dA._cg_cache``): one function, and so one
     `gpu_loop.DeviceLoop` with its captured graph, per key. The key holds
-    method, tol, maxiter, precond, the concrete CG body (pipelined, fused:
-    resolved as `make_cg_fn` and `make_block_cg_fn` resolve them), plain,
-    the block width K and the method's own options (GMRES's restart,
-    Chebyshev's bounds and leg); the port has no s-step, overlap, trace
-    ring or SDC keys. A hit copies the next b and x0 into the loop's
-    buffers and replays its graph. Methods: ``"cg"`` (`make_cg_fn`, or
-    with ``rhs_batch`` `make_block_cg_fn`), ``"bicgstab"``, ``"gmres"``,
-    ``"minres"``, ``"chebyshev"`` (`gpu_krylov.py`)."""
+    method, tol, maxiter, precond, the concrete CG body (s-step depth,
+    pipelined, fused: resolved as `make_cg_fn` resolves them, refusing the
+    conflicts of an explicit s-step depth), the overlap tail where the body
+    has one (`_can_overlap`; elsewhere the key is ``overlap=False``'s), plain, the
+    block width K and the method's own options (GMRES's restart, Chebyshev's
+    bounds and leg); the port has no trace ring or SDC keys. A hit copies
+    the next b and x0 into the loop's buffers and replays its graph.
+    Methods: ``"cg"`` (`make_cg_fn`, or with ``rhs_batch``
+    `make_block_cg_fn`), ``"bicgstab"``, ``"gmres"``, ``"minres"``,
+    ``"chebyshev"`` (`gpu_krylov.py`)."""
     from . import gpu_krylov as kr
 
+    eff_sstep = 0
     if method == "cg":
-        if rhs_batch is None:
-            fused = (not pipelined and not dA.strict) if fused is None else bool(fused)
-        else:
-            fused = (not dA.strict) if fused is None else bool(fused)
+        eff_sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, dA.strict, rhs_batch)
+    overlap = method == "cg" and bool(overlap) and _can_overlap(dA, fused)
     key = (method, float(tol), int(maxiter), bool(precond), bool(pipelined), fused, bool(plain),
-           rhs_batch) + tuple(sorted(options.items()))
+           rhs_batch, eff_sstep, bool(overlap)) + tuple(sorted(options.items()))
     if key not in dA._fn_cache:
         if method == "cg" and rhs_batch is None:
-            fn = make_cg_fn(dA, tol, maxiter, fused=fused, pipelined=pipelined, plain=plain, precond=precond)
+            fn = make_cg_fn(dA, tol, maxiter, fused=fused, pipelined=pipelined, plain=plain, precond=precond,
+                            sstep=eff_sstep, overlap=overlap)
         elif method == "cg":
-            fn = make_block_cg_fn(dA, tol, maxiter, rhs_batch, precond=precond, fused=fused, plain=plain)
+            fn = make_block_cg_fn(dA, tol, maxiter, rhs_batch, precond=precond, fused=fused, plain=plain,
+                                  overlap=overlap)
         elif method == "bicgstab":
             fn = kr.make_bicgstab_fn(dA, tol, maxiter, precond=precond, plain=plain)
         elif method == "gmres":
@@ -1412,6 +1699,8 @@ def gpu_cg(
     minv: Optional[PVector] = None,
     strict: bool = False,
     lowering: str = "auto",
+    sstep: Optional[int] = None,
+    overlap: bool = False,
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
@@ -1424,14 +1713,17 @@ def gpu_cg(
     (`DeviceMatrix`). ``strict`` (strict-bits mode) lowers A to ELL on the
     generic plan and runs the standard body with E3's dots: the iterations,
     residual history and solution of the host's strict loop, bit for bit.
-    The info dict records the body under ``cg_body`` and the lowering under
-    ``lowering``."""
+    ``sstep=s`` (s >= 2) runs the s-step body (`make_cg_fn`) on the same
+    lowering; ``overlap`` the interior/boundary overlap tail on every body
+    whose schedule has one (`_can_overlap`).
+    The info dict records the body under ``cg_body`` (``"sstep<s>"`` for
+    the s-step body) and the lowering under ``lowering``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
     solve = _krylov_fn_for(dA, "cg", tol, int(maxiter), precond=minv is not None, pipelined=pipelined,
-                           fused=fused, plain=plain)
+                           fused=fused, plain=plain, sstep=sstep, overlap=overlap)
     name = "pcg" if minv is not None else "cg"
     return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, cg_body=solve.cg_body,
                        lowering=dA.lowering, strict=dA.strict)
@@ -1451,6 +1743,7 @@ def gpu_block_cg(
     box: bool = True,
     strict: bool = False,
     lowering: str = "auto",
+    overlap: bool = False,
 ) -> Tuple[list, dict]:
     """Device block (multi-RHS) CG on the GPU backend, the counterpart of
     `tpu_block_cg` / `_tpu_block_cg_impl` (tpu.py:6025-6275): solve ``A x_k
@@ -1482,7 +1775,7 @@ def gpu_block_cg(
     name = "block-pcg" if minv is not None else "block-cg"
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
     solve = _krylov_fn_for(dA, "cg", tol, maxiter, precond=minv is not None, fused=fused, plain=plain,
-                           rhs_batch=K)
+                           rhs_batch=K, overlap=overlap)
     floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
     db = _block_on_cols_layout(B, dA)
     if X0 is None:

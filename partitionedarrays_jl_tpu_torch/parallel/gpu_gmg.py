@@ -39,6 +39,10 @@ operand and product have their own frames. All frames are compact with the
 owned band at ``o0``, so a move between frames is an owned-slice copy. The
 coarse solve is one mat-vec with the host-computed dense inverse.
 
+The stationary solve (`make_gmg_solve_fn`, the device form of
+`models.gmg.gmg_solve`) and FGMRES with the cycle run the same cycle. With
+``h.cycle == "w"`` `make_vcycle` runs the W-cycle on all of them.
+
 The PCG loop is device-resident, as `gpu.make_cg_fn`'s: the stopping test
 is a device flag read once per block of iterations, and on a CUDA device
 the block is a CUDA graph (`gpu_loop.py`); ``plain=True`` runs the
@@ -66,6 +70,7 @@ from ..ops import stencil as stn
 from ..utils.helpers import check
 from .gpu import STATS as gpu_stats
 from .gpu import (
+    DeviceMatrix,
     DeviceVector,
     GPUBackend,
     _pdot_factory,
@@ -240,18 +245,22 @@ def _embedding_box_fast_path(lvl, coarse_rows, S, LS, emb):
     return descr
 
 
-def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool, strict: bool = False) -> dict:
+def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool, strict: bool = False,
+                               lowering: str = "auto") -> dict:
     """Stage the factored transfer P = S·E of level `li`
     (tpu_gmg.py:322-405): the stencil S (its DeviceMatrix; the ELL
     lowering on the generic plan with ``strict``), the even-point
     embedding map ``emb`` (coarse owned point -> slot of its even fine
     point in S's column frame; pads point at the trash slot), the ghost ->
     owner assembly plan of S's column range (combine ``add``) and, with
-    ``box``, the strided-box embedding ``emb_fast`` where it applies."""
+    ``box``, the strided-box embedding ``emb_fast`` where it applies.
+    None where a coarse point's even fine point lies beyond its part's
+    fine halo (an agglomerated level): the level then takes the assembled
+    route."""
     lvl = h.levels[li]
     coarse_rows = _coarse_rows(h, li)
     S = lvl.S
-    dS = device_matrix(S, backend, box, strict=strict)
+    dS = device_matrix(S, backend, box, strict=strict, lowering=lowering)
     LS = dS.col_layout
     nc_max = max((i.num_oids for i in coarse_rows.partition.part_values()), default=0)
     emb = np.full((LS.P, max(nc_max, 1)), LS.trash, dtype=np.int64)
@@ -261,7 +270,8 @@ def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool, stric
             continue
         kc = np.unravel_index(kg, lvl.ncs)
         lids = fi.gids_to_lids(np.ravel_multi_index(tuple(2 * c for c in kc), lvl.nfs))
-        check(bool((lids >= 0).all()), "structured transfer: an embedded point lies beyond its part's fine halo")
+        if (lids < 0).any():
+            return None  # an embedded point beyond this part's fine halo: the assembled route
         emb[p, : len(kg)] = LS.lid_slots[p][lids]
     out = {
         "dS": dS,
@@ -277,12 +287,15 @@ def _stage_structured_transfer(h, li: int, backend: GPUBackend, box: bool, stric
 
 def route(level: dict) -> str:
     """The transfer route a staged level takes: ``"stencil"``,
-    ``"emb_fast"`` (structured, strided embedding) or ``"structured"``."""
+    ``"emb_fast"`` (structured, strided embedding), ``"structured"`` or
+    ``"assembled"`` (the rectangular R and P, ELL)."""
+    if "dR" in level:
+        return "assembled"
     return "stencil" if "stencil" in level else "emb_fast" if "emb_fast" in level else "structured"
 
 
 def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = True,
-                     strict: bool = False) -> dict:
+                     strict: bool = False, lowering: str = "auto") -> dict:
     """Stage every level of a `models.gmg.GMGHierarchy` for the card
     (tpu_gmg.py:71-134): per level the operator, the inverse diagonal in
     its column frame and the transfer: the stencil route first (with
@@ -290,22 +303,40 @@ def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = T
     and the per-part global positions ``gmap`` of the coarsest owned slots
     (pads -> nc, the extra zero slot of the padded global vector). The
     stencil route builds no S. ``strict`` stages every operator as the ELL
-    lowering on the generic plan (the module docstring). Cached on the
-    hierarchy per backend and route keywords."""
+    lowering on the generic plan (the module docstring); ``lowering`` names
+    the first non-band lowering every operator tries (`gpu.DeviceMatrix`;
+    a band takes its band lowering whatever it names), as the JAX
+    package's ``PA_TPU_SD``/``PA_TPU_BSR`` switches reach every staging.
+    An agglomerated level (a coarse partition with empty parts) takes the
+    structured route (tpu_gmg.py:214) and keeps the box plan where its
+    partition has one. Cached on the hierarchy per backend and route
+    keywords; no cycle changes what is staged. A staging whose operators
+    no ``lowering`` changes (every one a band or a rectangular transfer:
+    `gpu.DeviceMatrix.lowering_free`, as `models.gmg.gmg_hierarchy` builds
+    them) answers every ``lowering``; its ``"lowering"`` entry is then
+    ``"auto"``, else the ``lowering`` it was staged for."""
     cache = getattr(h, "_device_cache", None)
     if cache is None:
         cache = h._device_cache = {}
-    key = (backend, box, stencil, strict)
+    key = (backend, box, stencil, strict, lowering)
     if key in cache:
         return cache[key]
+    same = next((st for k, st in cache.items() if k[:4] == key[:4] and st["lowering_free"]), None)
+    if same is not None:
+        cache[key] = same
+        return same
     STATS["stagings"] += 1
     levels = []
     for li, lvl in enumerate(h.levels):
-        dA = device_matrix(lvl.A, backend, box, strict=strict)
+        dA = device_matrix(lvl.A, backend, box, strict=strict, lowering=lowering)
         dinv = DeviceVector.from_pvector(lvl.dinv, backend, dA.col_layout).data
         st = _stage_stencil_transfer(h, li, dA, backend.device, dinv.dtype) if stencil else None
         if st is None:
-            st = _stage_structured_transfer(h, li, backend, box, strict)
+            st = _stage_structured_transfer(h, li, backend, box, strict, lowering)
+        if st is None:
+            # the assembled rectangular transfers (tpu_gmg.py:107-112)
+            st = {"dR": device_matrix(lvl.R, backend, box, strict=strict, lowering=lowering),
+                  "dP": device_matrix(lvl.P, backend, box, strict=strict, lowering=lowering)}
         levels.append({"dA": dA, "dinv": dinv, **st})
     cinv = np.linalg.inv(_dense(gather_psparse(h.coarse_A)))
     coarse_isets = h.coarse_A.rows.partition.part_values()
@@ -315,11 +346,14 @@ def device_hierarchy(h, backend: GPUBackend, box: bool = True, stencil: bool = T
     for p, iset in enumerate(coarse_isets):
         gmap[p, : iset.num_oids] = np.asarray(iset.oid_to_gid, dtype=np.int64)
     dt = levels[0]["dinv"].dtype
+    free = all(m.lowering_free for lv in levels for m in lv.values() if isinstance(m, DeviceMatrix))
     staged = {
         "levels": levels,
         "cinv": torch.from_numpy(cinv).to(backend.device, dt),
         "gmap": torch.from_numpy(gmap).to(backend.device),
         "nc": int(nc),
+        "lowering_free": free,
+        "lowering": "auto" if free else lowering,
     }
     cache[key] = staged
     return staged
@@ -360,9 +394,13 @@ def _interleave(ec: torch.Tensor, groups, band: torch.Tensor) -> None:
 
 
 def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
-    """The V-cycle on the stacked frames (tpu_gmg.py:_vcycle_shard_body):
-    ``vcycle(b) -> correction``, both in level 0's column frame, x = 0 on
-    entry. Per level with pre = post = 1: 2 SpMVs with the level operator
+    """The multigrid cycle on the stacked frames
+    (tpu_gmg.py:_vcycle_shard_body): ``vcycle(b) -> correction``, both in
+    level 0's column frame, x = 0 on entry; a V-cycle, or with ``h.cycle
+    == "w"`` the W-cycle: below every level whose next level is not the
+    coarsest, a second pass on the next level warm-started from the
+    first's correction (tpu_gmg.py:559, :589, :710-715), whose pre-smoothing
+    runs ``pre`` full sweeps. Per level with pre = post = 1: 2 SpMVs with the level operator
     (from x = 0 the first pre-smoothing sweep is x = omega * dinv * b,
     tpu_gmg.py:591-601) and two transfers, each on the level's route
     (`route`): on the stencil route a box exchange of the level's frame
@@ -378,14 +416,17 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
     epilogue = ep.vcycle_epilogue_plain if plain else ep.vcycle_epilogue
     bodies = [
         {"A": _spmv_body(l["dA"], plain=plain),
-         "S": _spmv_body(l["dS"], plain=plain) if "dS" in l else None}
+         "S": _spmv_body(l["dS"], plain=plain) if "dS" in l else None,
+         "R": _spmv_body(l["dR"], plain=plain) if "dR" in l else None,
+         "P": _spmv_body(l["dP"], plain=plain) if "dP" in l else None}
         for l in dh["levels"]
     ]
     pre, post, omega = h.pre, h.post, h.omega
+    w_cycle = h.cycle == "w"
     L = len(dh["levels"])
     nc = dh["nc"]
 
-    def solve_level(level, b_l):
+    def solve_level(level, b_l, x0_l=None):
         lv = dh["levels"][level]
         LA = lv["dA"].col_layout  # level vectors live here
         LAr = lv["dA"].row_layout  # the level operator's product frame
@@ -398,11 +439,17 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
         def sweep(x):
             epilogue("smooth", b_l, LA.o0, no, dinv=dinv, y=spmv_A(x), yo0=LAr.o0, x=x, omega=omega)
 
-        if pre > 0:
+        if x0_l is not None:
+            # the W-cycle's warm pass: full sweeps from the first pass's x
+            x = x0_l
+            sweeps = pre
+        elif pre > 0:
             x = epilogue("init", b_l, LA.o0, no, dinv=dinv, omega=omega)
+            sweeps = pre - 1
         else:
             x = torch.zeros_like(b_l)
-        for _ in range(max(pre - 1, 0)):
+            sweeps = 0
+        for _ in range(sweeps):
             sweep(x)
         q = spmv_A(x)
         # the coarse right-hand side's frame: the next level's column frame,
@@ -421,6 +468,11 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             rv = epilogue("residual", b_l, LA.o0, no, y=q, yo0=LAr.o0)
             exchange_(lv["dA"].col_plan, rv)
             _extract(apply_S(op, rv), op.groups, rc_own)
+        elif "dR" in lv:
+            # the assembled restriction: the residual into R's column frame
+            LR, LRr = lv["dR"].col_layout, lv["dR"].row_layout
+            rR = epilogue("residual", b_l, LA.o0, no, y=q, yo0=LAr.o0, width=LR.W, out_o0=LR.o0)
+            rc_own[:, : LRr.no_max] = bodies[level]["R"](rR)[:, LRr.o0 : LRr.o0 + LRr.no_max]
         else:
             # R = Eᵀ·S with the assembled S, then the even points: strided
             # (emb_fast), or gathered after a halo refresh so that embedded
@@ -443,7 +495,10 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             ec_glob = torch.cat([dh["cinv"] @ glob[:nc], glob.new_zeros(1)])
             ec_own = ec_glob[dh["gmap"]]
         else:
-            ec_own = solve_level(level + 1, bc)[:, nxt.o0 : nxt.o0 + nxt.no_max]
+            ec = solve_level(level + 1, bc)
+            if w_cycle:
+                ec = solve_level(level + 1, bc, ec)
+            ec_own = ec[:, nxt.o0 : nxt.o0 + nxt.no_max]
         if "stencil" in lv:
             # P = S·E, matrix-free: place the coarse correction on the even
             # fine points, refresh the ghost segments, apply S
@@ -452,6 +507,13 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
             _interleave(ec_own, op.groups, z[:, sl])
             exchange_(lv["dA"].col_plan, z)
             x[:, sl] = x[:, sl] + apply_S(op, z)
+        elif "dP" in lv:
+            # the assembled prolongation: the coarse correction into P's
+            # column frame, one SpMV
+            LP, LPr = lv["dP"].col_layout, lv["dP"].row_layout
+            ecp = torch.zeros((P, LP.W), dtype=b_l.dtype, device=b_l.device)
+            ecp[:, LP.o0 : LP.o0 + LP.no_max] = ec_own[:, : LP.no_max]
+            x[:, sl] = x[:, sl] + bodies[level]["P"](ecp)[:, LPr.o0 : LPr.o0 + no]
         else:
             # P = S·E with the assembled S: the even points placed strided
             # (emb_fast), or scattered and the values embedded into ghosts
@@ -476,7 +538,8 @@ def make_vcycle(h, dh: dict, plain: bool = False) -> Callable:
 
 def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
                     plain: bool = False, box: bool = True, stencil: bool = True,
-                    graph: bool = True, block: Optional[int] = None, strict: bool = False) -> Callable:
+                    graph: bool = True, block: Optional[int] = None, strict: bool = False,
+                    lowering: str = "auto") -> Callable:
     """V-cycle-preconditioned CG on the card (tpu_gmg.py:886-985):
     ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``, on the
     transfer routes ``box`` and ``stencil`` select (`device_hierarchy`).
@@ -493,12 +556,13 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
     staged strict (`device_hierarchy`) and every dot is E3's fixed tree
     (`_pdot_factory(strict=True)`): the sweep updates x and r, and r.r is
     E3's dot of the updated r, the JAX package's standard strict body.
-    ``fn.stats`` describes the last run, ``fn.loop`` is the
+    ``lowering`` as in `device_hierarchy`; the cycle is the hierarchy's (V
+    or W). ``fn.stats`` describes the last run, ``fn.loop`` is the
     `gpu_loop.DeviceLoop`, ``fn.staged`` the staged hierarchy."""
     from ..ops import sweep as sw
     from . import gpu_loop as gl
 
-    dh = device_hierarchy(h, backend, box, stencil, strict)
+    dh = device_hierarchy(h, backend, box, stencil, strict, lowering)
     dA0 = dh["levels"][0]["dA"]
     L0, L0r = dA0.col_layout, dA0.row_layout
     no = L0.no_max
@@ -557,7 +621,7 @@ def make_gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int,
 
 
 def gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int, plain: bool = False,
-               box: bool = True, stencil: bool = True, strict: bool = False) -> Callable:
+               box: bool = True, stencil: bool = True, strict: bool = False, lowering: str = "auto") -> Callable:
     """The GMG-PCG solve function of `make_gmg_pcg_fn`, cached on the
     hierarchy per backend, tol, maxiter and the keywords
     (tpu_gmg.py:1193-1204, ``h._fn_cache``): a hit reuses the staged
@@ -573,33 +637,129 @@ def gmg_pcg_fn(h, backend: GPUBackend, tol: float, maxiter: int, plain: bool = F
     cache = getattr(h, "_fn_cache", None)
     if cache is None:
         cache = h._fn_cache = {}
-    key = ("pcg+gmg", backend, float(tol), int(maxiter), bool(plain), bool(box), bool(stencil), bool(strict))
+    # the lowering the staging answers for: a band hierarchy's is "auto"
+    lowering = device_hierarchy(h, backend, box, stencil, strict, lowering)["lowering"]
+    key = ("pcg+gmg", backend, float(tol), int(maxiter), bool(plain), bool(box), bool(stencil), bool(strict),
+           lowering)
     if key not in cache:
         STATS["pcg_fns"] += 1
         cache[key] = make_gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil,
-                                     strict=strict)
+                                     strict=strict, lowering=lowering)
     return cache[key]
 
 
 def gpu_gmg_pcg(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8,
                 maxiter: Optional[int] = None, verbose: bool = False,
                 plain: bool = False, box: bool = True, stencil: bool = True,
-                strict: bool = False) -> Tuple[PVector, dict]:
+                strict: bool = False, lowering: str = "auto") -> Tuple[PVector, dict]:
     """V-cycle-preconditioned CG on the card, the counterpart of
     `tpu_gmg_pcg` (tpu_gmg.py:1225, `_run_gmg`); the device form of
     ``pcg(A, b, minv=hierarchy)``. ``box=False`` and ``stencil=False``
     select the generic exchange and the structured transfers; ``strict``
-    the strict-bits loop (`make_gmg_pcg_fn`). The solve function is
-    `gmg_pcg_fn`'s, cached on the hierarchy. The info dict names the
-    level-0 lowering and the mode under ``lowering`` and ``strict``."""
+    the strict-bits loop (`make_gmg_pcg_fn`); ``lowering`` the first
+    non-band lowering of every level's operators (`device_hierarchy`). The
+    solve function is `gmg_pcg_fn`'s, cached on the hierarchy. The info
+    dict names the level-0 lowering and the mode under ``lowering`` and
+    ``strict``."""
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "pcg+gmg needs a GPU-backend PVector")
     if maxiter is None:
         maxiter = 4 * int(h.levels[0].A.rows.ngids)
-    solve = gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil, strict=strict)
+    solve = gmg_pcg_fn(h, backend, tol, int(maxiter), plain=plain, box=box, stencil=stencil, strict=strict,
+                       lowering=lowering)
     dA0 = solve.staged["levels"][0]["dA"]
     return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "pcg+gmg", dA=dA0,
                        lowering=dA0.lowering, strict=dA0.strict)
+
+
+def make_gmg_solve_fn(h, backend: GPUBackend, tol: float, maxiter: int, plain: bool = False,
+                      graph: bool = True) -> Callable:
+    """The stationary cycle iteration x <- x + cycle(b - A x) on the card
+    (tpu_gmg.py:807-883), the device form of `models.gmg.gmg_solve`:
+    ``fn(b, x0) -> (x, rs, rs0, iterations, residual history)``. The
+    residual rides the state, computed once an iteration after the update
+    (as the host loop does); the loop runs while ``sqrt(rs) > tol*max(1,
+    sqrt(rs0))`` and ``it < maxiter``, a device-resident loop as
+    `make_gmg_pcg_fn`'s (`gpu_loop.DeviceLoop`, blocks of
+    `gpu_loop.GMG_BLOCK` iterations, a CUDA graph on the card unless
+    ``graph=False``) on the default routes. A frozen iteration keeps x
+    (``torch.where``) and so recomputes the same r. Per iteration: one
+    cycle (V or W, the hierarchy's) and one A SpMV. ``plain`` as in
+    `make_gmg_pcg_fn`; ``fn.staged`` is the staged hierarchy."""
+    from . import gpu_loop as gl
+
+    dh = device_hierarchy(h, backend)
+    dA0 = dh["levels"][0]["dA"]
+    L0, L0r = dA0.col_layout, dA0.row_layout
+    no = L0.no_max
+    sl = slice(L0.o0, L0.o0 + no)
+    pdot = _pdot_factory(L0.o0, no, False, plain)
+    body_A0 = _spmv_body(dA0, plain=plain)
+    vcycle = make_vcycle(h, dh, plain=plain)
+    stop_it = gl.stop_bound(maxiter)
+
+    def residual(x, b):
+        r = torch.zeros_like(x)
+        r[:, sl] = b[:, sl] - body_A0(x)[:, L0r.o0 : L0r.o0 + no]
+        return r
+
+    def step(S):
+        rs, it = S["rs"], S["it"]
+        live = S["live"] * ((gl.sqrt_rn(rs) > S["thr"]) & (it < stop_it)).to(torch.int32)
+        x = S["x"]
+        e = vcycle(S["r"])
+        x[:, sl] = torch.where(live != 0, x[:, sl] + e[:, sl], x[:, sl])
+        r = residual(x, S["b"])
+        return gl.finish_step(dict(S, r=r), S, live, pdot(r, r))
+
+    loop = gl.DeviceLoop(step, gl.GMG_BLOCK, graph)
+
+    def fn(b, x0):
+        x = x0.clone()
+        r = residual(x, b)
+        rs0 = pdot(r, r)
+        init = {
+            "x": x, "r": r, "b": b.clone(), "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
+            "it": torch.zeros((), dtype=torch.int32, device=x.device),
+            "live": torch.ones((), dtype=torch.int32, device=x.device),
+            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+        }
+        S, _ = loop.run(init)
+        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
+
+    fn.stats = loop.stats
+    fn.loop = loop
+    fn.staged = dh
+    fn.cycle = h.cycle
+    return fn
+
+
+def gmg_solve_fn(h, backend: GPUBackend, tol: float, maxiter: int, plain: bool = False) -> Callable:
+    """`make_gmg_solve_fn`'s solve function, cached on the hierarchy beside
+    GMG-PCG's (`gmg_pcg_fn`, ``h._fn_cache``; tpu_gmg.py:1193-1204); a
+    miss counts in `gpu.STATS` (``solve_fns``)."""
+    cache = getattr(h, "_fn_cache", None)
+    if cache is None:
+        cache = h._fn_cache = {}
+    key = ("gmg", backend, float(tol), int(maxiter), bool(plain))
+    if key not in cache:
+        gpu_stats["solve_fns"] += 1
+        cache[key] = make_gmg_solve_fn(h, backend, tol, int(maxiter), plain=plain)
+    return cache[key]
+
+
+def gpu_gmg_solve(h, b: PVector, x0: Optional[PVector] = None, tol: float = 1e-8, maxiter: int = 100,
+                  verbose: bool = False, plain: bool = False) -> Tuple[PVector, dict]:
+    """The stationary cycle iteration on the card, the counterpart of
+    `tpu_gmg_solve` (tpu_gmg.py:1208): the device form of
+    ``gmg_solve(h, b)``. The solve function is `gmg_solve_fn`'s, cached on
+    the hierarchy; ``plain`` as in `gpu_gmg_pcg`."""
+    backend = b.values.backend
+    check(isinstance(backend, GPUBackend), "gmg_solve on the card needs a GPU-backend PVector")
+    solve = gmg_solve_fn(h, backend, tol, int(maxiter), plain=plain)
+    dA0 = solve.staged["levels"][0]["dA"]
+    return _run_krylov(h.levels[0].A, b, x0, tol, verbose, solve, "gmg", dA=dA0, lowering=dA0.lowering,
+                       cycle=h.cycle)
 
 
 def make_fgmres_gmg_fn(h, backend: GPUBackend, tol: float, maxiter: int, restart: int = 30,

@@ -25,3 +25,11 @@ class SolverHealthError(RuntimeError):
 
 class NonFiniteError(SolverHealthError):
     """NaN/Inf detected in solver state."""
+
+
+class LoweringConflictError(SolverHealthError):
+    """Two requested solver-body forms cannot compose into one loop (the
+    s-step body with ``fused``, ``pipelined``, ``precond``, a block of
+    right-hand sides or strict mode), raised when the solve function is
+    built, naming both sides under ``diagnostics["conflict"]``, instead of
+    silently building another body than the caller asked for."""

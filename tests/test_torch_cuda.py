@@ -1903,3 +1903,125 @@ def test_one_block_solve_captures_at_its_second_run():
     assert it1 < 30 and d1 == d2 == d3 == 1
     assert (r1, c1) == (0, 0) and (r2, c2) == (1, 1) and (r3, c3) == (1, 0)
     assert x1 == x2 == x3 and it1 == it2 == it3
+
+
+# ---------------------------------------------------------------------------
+# the rest of the solver family: s-step CG, the overlap tail, the stationary
+# GMG solve and the W-cycle, agglomeration, LOBPCG
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("body", [{"sstep": 2}, {"sstep": 4}, {"fused": True}, {"fused": False},
+                                  {"pipelined": True}], ids=["sstep2", "sstep4", "fused", "standard", "pipelined"])
+@pytest.mark.parametrize("box", [True, False], ids=["box", "generic"])
+def test_cg_bodies_overlap_graph_and_plain_on_card(body, box):
+    """Every CG body on (2,2,2) stacked parts, 16^3 f64 decoupled Poisson: the
+    overlap tail (the halo exchange on a side stream) torch.equal to the
+    plain tail, in the captured graph; the graph loop torch.equal to the
+    eager loop; the kernel path's iterations and x equal to the plain
+    path's."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _b_on_cols_layout, device_matrix, make_cg_fn
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        dA = device_matrix(Ah, parts.backend, box)
+        db = _b_on_cols_layout(bh, dA)
+        z = torch.zeros_like(db)
+        runs = [make_cg_fn(dA, 1e-9, 400, overlap=ov, graph=g, **body)(db, z)
+                for ov, g in ((False, True), (True, True), (False, False))]
+        xp, _, _, itp, _ = make_cg_fn(dA, 1e-9, 400, plain=True, **body)(db, z)
+        (x0, rs0, _, it0, h0), (x1, rs1, _, it1, h1), (x2, rs2, _, it2, h2) = runs
+        return (torch.equal(x0, x1) and torch.equal(rs0, rs1) and it0 == it1 and np.array_equal(h0, h1, equal_nan=True),
+                torch.equal(x0, x2) and it0 == it2, it0 == itp and torch.equal(x0, xp))
+
+    assert pt.prun(drive, pt.GPUBackend(), (2, 2, 2)) == (True, True, True)
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_gmg_solve_graph_and_plain_on_card(cycle):
+    """The stationary GMG solve on the card (16^3 f64, (2,2,2), ct 30): the
+    graph loop torch.equal to the eager loop and the kernel path to the
+    plain path; the host loop's iterations; a W-cycle against its plain
+    version."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _b_on_cols_layout
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        h = pt.gmg_hierarchy(parts, Ah, (16, 16, 16), coarse_threshold=30, cycle=cycle)
+        fg = gpu_gmg.make_gmg_solve_fn(h, parts.backend, 1e-9, 100)
+        fe = gpu_gmg.make_gmg_solve_fn(h, parts.backend, 1e-9, 100, graph=False)
+        fp = gpu_gmg.make_gmg_solve_fn(h, parts.backend, 1e-9, 100, plain=True)
+        db = _b_on_cols_layout(bh, fg.staged["levels"][0]["dA"])
+        z = torch.zeros_like(db)
+        (xg, rsg, _, itg, hg), (xe, rse, _, ite, he), (xp, _, _, itp, _) = fg(db, z), fe(db, z), fp(db, z)
+        return (torch.equal(xg, xe) and torch.equal(rsg, rse) and itg == ite and np.array_equal(hg, he, equal_nan=True),
+                fg.stats["replays"] > 0, itp == itg and torch.equal(xg, xp), itg)
+
+    eq, replayed, plain, it = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+
+    def host(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        return pt.gmg_solve(pt.gmg_hierarchy(parts, Ah, (16, 16, 16), coarse_threshold=30, cycle=cycle), bh,
+                            tol=1e-9)[1]["iterations"]
+
+    assert eq and replayed and plain and it == pt.prun(host, pt.sequential, (2, 2, 2))
+
+
+def test_agglomerated_hierarchy_on_card():
+    """An agglomerated hierarchy (24^3 f64, (2,2,2), ct 100, threshold 2000)
+    on the card: its assembled route's E1 products and one V-cycle equal to
+    their plain versions, and GMG-PCG in the full-mesh hierarchy's
+    iterations."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (24, 24, 24))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        its = []
+        for agg in (0, 2000):
+            h = pt.gmg_hierarchy(parts, Ah, (24, 24, 24), coarse_threshold=100, agg_threshold=agg)
+            its.append(pt.pcg(Ah, bh, minv=h, tol=1e-9)[1]["iterations"])
+        dh = gpu_gmg.device_hierarchy(h, parts.backend)
+        L0 = dh["levels"][0]["dA"].col_layout
+        r = torch.zeros((L0.P, L0.W), dtype=torch.float64, device="cuda")
+        r[:, L0.o0 : L0.o0 + L0.no_max] = torch.randn((L0.P, L0.no_max), dtype=torch.float64, device="cuda")
+        equal = torch.equal(gpu_gmg.make_vcycle(h, dh)(r.clone()), gpu_gmg.make_vcycle(h, dh, plain=True)(r.clone()))
+        return its, equal, "assembled" in [gpu_gmg.route(lv) for lv in dh["levels"]]
+
+    its, equal, assembled = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+    assert its[0] == its[1] and equal and assembled
+
+
+@pytest.mark.parametrize("minv", ["none", "jacobi", "gmg"])
+def test_lobpcg_on_card_matches_plain(minv):
+    """LOBPCG on the card (the decoupled 16^3 f64 Poisson, (2,2,2), nev 3):
+    the kernel path's iterations and eigenvalues equal to the plain path's,
+    the eigenvalues within 1e-8 of the host loop's."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_lobpcg import gpu_lobpcg
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, _ = pt.decouple_dirichlet(A, b)
+        m = {"none": None, "jacobi": pt.jacobi_preconditioner(Ah),
+             "gmg": pt.gmg_hierarchy(parts, Ah, (16, 16, 16), coarse_threshold=30)}[minv]
+        lam, _, info = gpu_lobpcg(Ah, nev=3, minv=m, tol=1e-8, maxiter=400)
+        lamp, _, infop = gpu_lobpcg(Ah, nev=3, minv=m, tol=1e-8, maxiter=400, plain=True)
+        return lam, info, lamp, infop
+
+    lam, info, lamp, infop = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+
+    def host(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, _ = pt.decouple_dirichlet(A, b)
+        return pt.lobpcg(Ah, nev=3, tol=1e-8, maxiter=400)[0]
+
+    assert info["converged"] and info["iterations"] == infop["iterations"] and np.array_equal(lam, lamp)
+    np.testing.assert_allclose(lam, pt.prun(host, pt.sequential, (2, 2, 2)), rtol=1e-8)

@@ -217,6 +217,9 @@ def test_vcycle_launch_counts(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Jacobi PCG on the card, and the GMG options that raised until the
+    solver family was ported (the W-cycle, agglomeration, the stationary
+    solve on the card): each now runs in the host loop's iterations."""
     def driver(parts):
         A, b, _, _ = pt.assemble_poisson(parts, (8, 8, 8))
         Ah, bh = pt.decouple_dirichlet(A, b)
@@ -224,22 +227,32 @@ def test_unported_options_raise():
         # loop's fused body); its iterations are the host loop's, below
         jacobi = pt.pcg(Ah, bh, tol=1e-8)[1]
         assert jacobi["cg_body"] == "fused" and jacobi["converged"]
-        with pytest.raises(NotImplementedError, match="W-cycle"):
-            pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50, cycle="w")
-        with pytest.raises(NotImplementedError, match="agglomeration"):
-            pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50, agg_threshold=10)
-        h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            pt.gmg_solve(h, bh, tol=1e-8)  # the stationary iteration on the card
-        return jacobi["iterations"]
+        # the options that once raised (W-cycle, agglomeration, the
+        # stationary iteration on the card) run: each converges in the host
+        # loop's iterations
+        its = []
+        for kw in ({"cycle": "w"}, {"agg_threshold": 10}, {}):
+            h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50, **kw)
+            x, info = pt.gmg_solve(h, bh, tol=1e-8)
+            assert info["converged"]
+            its.append(info["iterations"])
+        return jacobi["iterations"], its
 
-    it_dev = pt.prun(driver, CPU, (2, 2, 2))
+    it_dev, its_dev = pt.prun(driver, CPU, (2, 2, 2))
     # the host loop keeps Jacobi PCG
     info = pt.prun(
         lambda parts: pt.pcg(*pt.decouple_dirichlet(*pt.assemble_poisson(parts, (8, 8, 8))[:2]), tol=1e-8)[1],
         pt.sequential, (2, 2, 2),
     )
     assert info["converged"] and info["iterations"] == it_dev
+
+    def host(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (8, 8, 8))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        return [pt.gmg_solve(pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50, **kw), bh, tol=1e-8)[1]
+                ["iterations"] for kw in ({"cycle": "w"}, {"agg_threshold": 10}, {})]
+
+    assert pt.prun(host, pt.sequential, (2, 2, 2)) == its_dev
 
 
 def test_add_exchange_assembles_ghosts_into_owners():

@@ -9,8 +9,8 @@ with the kernels' plain versions) and holds the port to the gate of the
 JAX package's own test: `tests/test_solvers.py:104` (BiCGStab, +-2
 iterations), `:242` and `:292` (GMRES restarts; a history monotone inside a
 cycle), `:308` and `:322` (MINRES), `:196` and `:220` (Chebyshev), `:388`
-and `:482` (Lanczos bounds), `:412`, `:605`, `:754` and `:805` (callable,
-right and GMG preconditioners) and `tests/test_gmg.py:360` (FGMRES with
+and `:482` (Lanczos bounds), `:412`, `:605` (right Jacobi and RAS), `:754`
+and `:805` (callable, right and GMG preconditioners) and `tests/test_gmg.py:360` (FGMRES with
 the V-cycle on the device against the host loop, +-1 iteration). The
 bounds are compared with the JAX package's to 1e-12 (the same seeded
 start, dots that agree to rounding). A second solve on the same operator
@@ -320,10 +320,10 @@ def test_gmres_with_gmg_preconditioner():
 def test_bicgstab_right_preconditioned():
     """test_solvers.py:605: right-Jacobi BiCGStab on the advection operator
     (14^2, (2,2), tol 1e-10): converged, max error < 1e-7, the port's
-    device loop within 2 iterations of both JAX backends. The JAX test's
-    RAS callable is not ported (ROADMAP Queue 1 item 4); the callable form
-    of the same Jacobi preconditioner runs the host loop on both port
-    backends and takes the diagonal host loop's iterations."""
+    device loop within 2 iterations of both JAX backends. The RAS callable
+    (`additive_schwarz(mode="ras")`, the host loop on every backend) must
+    beat plain BiCGStab, max error < 1e-7, in the JAX package's sequential
+    iterations."""
     def driver(m, parts):
         A, b, xe, x0 = m.assemble_advection_fv(parts, (14, 14))
         mv = m.jacobi_preconditioner(A)
@@ -336,16 +336,18 @@ def test_bicgstab_right_preconditioned():
         assert conv and err < 1e-7, (k, it, err)
     assert abs(r["gpu"][0] - r["jax_seq"][0]) <= 2 and abs(r["gpu"][0] - r["jax_tpu"][0]) <= 2, r
 
-    def callable_jacobi(parts):
-        A, b, xe, x0 = pt.assemble_advection_fv(parts, (14, 14))
-        mv = pt.jacobi_preconditioner(A)
-        diag = pt.bicgstab(A, b, x0=x0, minv=mv, tol=1e-10, verbose=False)[1]["iterations"]
-        x, info = pt.bicgstab(A, b, x0=x0, minv=lambda v: v.zip_map(lambda vv, mm: mm * vv, mv), tol=1e-10)
-        return info["iterations"], info["converged"], diag
+    def ras(m, parts):
+        A, b, xe, x0 = m.assemble_advection_fv(parts, (14, 14))
+        xr, ir = m.bicgstab(A, b, x0=x0, minv=m.additive_schwarz(A, mode="ras"), tol=1e-10)
+        _, ip = m.bicgstab(A, b, x0=x0, tol=1e-10)
+        return ir["iterations"], ir["converged"], ip["iterations"], float(
+            np.abs(m.gather_pvector(xr) - m.gather_pvector(xe)).max())
 
-    assert pt.prun(callable_jacobi, pt.sequential, (2, 2)) == (r["seq"][0], True, r["seq"][0])
-    it_c, conv_c, _ = pt.prun(callable_jacobi, CPU, (2, 2))
-    assert conv_c and it_c == r["seq"][0]
+    want = pa.prun(lambda parts: ras(pa, parts), pa.sequential, (2, 2))
+    for backend in (pt.sequential, CPU):
+        it_r, conv_r, it_p, err_r = pt.prun(lambda parts: ras(pt, parts), backend, (2, 2))
+        assert conv_r and it_r < it_p and err_r < 1e-7, (backend, it_r, it_p, err_r)
+        assert it_r == want[0], (backend, it_r, want)
 
 
 def test_fgmres_with_inner_iterative_preconditioner():

@@ -379,20 +379,24 @@ def test_strict_gmg_pcg_stages_ell_on_the_generic_plan():
 
 
 def test_gmg_pcg_other_lowering_raises():
-    """`lowering=` other than "auto" with a hierarchy still raises on the
-    device path, naming the ROADMAP item that would port it."""
+    """`lowering=` with a hierarchy raised on the device path until the
+    solver family was ported; now it names the first non-band lowering of
+    every level's staging. The levels here are bands, so the default and
+    the strict solves are those of lowering="auto" bit for bit."""
 
     def drive(parts):
         A, b, _, _ = pt.assemble_poisson(parts, (8, 8, 8))
         Ah, bh = pt.decouple_dirichlet(A, b)
         h = pt.gmg_hierarchy(parts, Ah, (8, 8, 8), coarse_threshold=50)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            pt.pcg(Ah, bh, minv=h, lowering="bsr")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            pt.pcg(Ah, bh, minv=h, lowering="ell", strict=True)
-        return True
+        out = []
+        for strict, lowering in ((False, "bsr"), (True, "ell")):
+            x0, i0 = pt.pcg(Ah, bh, minv=h, strict=strict)
+            x1, i1 = pt.pcg(Ah, bh, minv=h, lowering=lowering, strict=strict)
+            out.append(i0["iterations"] == i1["iterations"]
+                       and pt.gather_pvector(x0).tobytes() == pt.gather_pvector(x1).tobytes())
+        return out
 
-    assert pt.prun(drive, CPU, (2, 2, 2))
+    assert pt.prun(drive, CPU, (2, 2, 2)) == [True, True]
 
 
 # ---------------------------------------------------------------------------
