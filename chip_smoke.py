@@ -3821,23 +3821,45 @@ def _random_slab(dA, K, rng):
     return x
 
 
-def slab_spmm_times(tag, dA, K, rng):
-    """`dia_coded_spmm` at a new slab width K on a one-part coded operator
-    (f32): flushed ms, its plain version, `torch.sparse.mm` of the
-    operator's CSR on the (rows, K) slab, and the bound (a code byte a
-    row, x read and y written K values a row)."""
+def slab_spmm_times(tag, dA, K, rng, errs=None):
+    """`dia_coded_spmm` at a slab width K on a coded operator (its dtype,
+    its stacked parts): the form the planner takes by shape and its flushed
+    ms, the other form's (forced, held torch.equal to the plain version
+    under `errs`; None where the staged form has no plan), its plain
+    version, `torch.sparse.mm` of the operator's CSR (block-diagonal over
+    the parts) on the (rows, K) slab, and the bound (the code bytes a row,
+    x read and y written K values a row)."""
     op = dA.coded
     P, wx, wy = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
     rows = int(dA.row_layout.noids.sum())
+    dt = op.cb.dtype
+    item = op.cb.element_size()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=op.cb.device)
-    x = _frame(rng, (P, wx, K), np.float32, op.cb.device)
-    csr = _coded_csr(op, wx)
-    t = {"ms": time_ms(lambda: dia.dia_coded_spmm(op, x, wy), flush),
+    x = _frame(rng, (P, wx, K), np.float32 if item == 4 else np.float64, op.cb.device)
+    csr = _coded_csr_parts(op, wx)
+    xs = x.reshape(P * wx, K)
+    form = dia.spmm_form(op.offsets, item, K, "plain", op.codes.shape[1])
+    other = dia.SPMM_ROW if form == dia.SPMM_STAGED else dia.SPMM_STAGED
+    try:
+        dia.plan_coded_block_windows(op.offsets, item, K, "plain", op.codes.shape[1])
+        has_staged = True
+    except ValueError:
+        has_staged = False
+    t = {"form": form, "nd_spec": dia.spmm_nd(op, K, "plain"),
+         "ms": time_ms(lambda: dia.dia_coded_spmm(op, x, wy), flush),
          "plain_ms": time_ms(lambda: dia.dia_coded_spmm_plain(op, x, wy), flush),
-         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x[0]), flush)}
-    t["bound_ms"], t["bound_by"] = _bound_ms(rows * (op.codes.shape[1] + 2 * K * 4), 2 * int(csr._nnz()) * K)
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, xs), flush), "other_form": other, "other_form_ms": None}
+    if other == dia.SPMM_ROW or has_staged:
+        err = _compare(f"coded SpMM {tag} K={K} {other} form", dia.dia_coded_spmm(op, x, wy, form=other),
+                       dia.dia_coded_spmm_plain(op, x, wy))
+        if errs is not None:
+            errs[f"dia_coded_spmm[{tag},K={K},{other}]"] = err
+        t["other_form_ms"] = time_ms(lambda: dia.dia_coded_spmm(op, x, wy, form=other), flush)
+    t["bound_ms"], t["bound_by"] = _bound_ms(rows * (op.codes.shape[1] + 2 * K * item), 2 * int(csr._nnz()) * K,
+                                             F32_FLOPS_PER_S if item == 4 else F64_FLOPS_PER_S)
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
-    emit({"phase": "slab_spmm_times", "path": tag, "K": K, "reps": REPS, "dia_coded_spmm": t})
+    emit({"phase": "slab_spmm_times", "path": tag, "K": K, "dtype": str(dt)[6:], "parts": P, "reps": REPS,
+          "dia_coded_spmm": t})
     return t
 
 
@@ -3911,7 +3933,7 @@ def phase_sstep(backend, run, gmulti, rng):
         require(info["iterations"] == info_p["iterations"], f"s-step s={s}: kernel and plain iterations differ")
         for k in want:
             require(launches[k] == want[k], f"s-step s={s}: {launches[k]} {k} launches, expected {want[k]}")
-    times = {"K=2": slab_spmm_times(f"s-step pair {N_MAIN}^3 f32", device_matrix(A, backend), 2, rng)}
+    times = {"K=2": slab_spmm_times(f"s-step pair {N_MAIN}^3 f32", device_matrix(A, backend), 2, rng, errs)}
     std, s2 = lines[0], lines[2]
     require(std["converged"] and s2["converged"], "192^3 f32: the standard or the s = 2 body did not converge")
     # tests/test_sstep.py:143's iteration gate; its x gate is an f64 one
@@ -3939,6 +3961,8 @@ def phase_sstep(backend, run, gmulti, rng):
         require(isinstance(dA.col_plan, BoxExchangePlan) == box, f"48^3 s-step {plan}: plan {type(dA.col_plan).__name__}")
         _hold_body(f"s-step pair {n}^3 f64 (2,2,2) {plan}", dA, _random_slab(dA, 2, rng), errs, _slab_kernels(dA),
                    block=True)
+        if box and dA.dia_mode == "coded":
+            times[f"K=2 {n}^3 f64 (2,2,2)"] = slab_spmm_times(f"s-step pair {n}^3 f64 (2,2,2)", dA, 2, rng, errs)
         db = _b_on_cols_layout(bh, dA)
         dx0 = torch.zeros_like(db)
         row = {}
@@ -4192,7 +4216,7 @@ def phase_lobpcg(backend, g, rng):
     dA = device_matrix(Ah, backend)
     _hold_body(f"lobpcg block {N_MAIN}^3 f32 K={LOBPCG_NEV}", dA, _random_slab(dA, LOBPCG_NEV, rng), errs,
                _slab_kernels(dA), block=True)
-    times = {f"K={LOBPCG_NEV}": slab_spmm_times(f"lobpcg block {N_MAIN}^3 f32", dA, LOBPCG_NEV, rng)}
+    times = {f"K={LOBPCG_NEV}": slab_spmm_times(f"lobpcg block {N_MAIN}^3 f32", dA, LOBPCG_NEV, rng, errs)}
     dia.reset_launches()
     t = time.perf_counter()
     lam, X, info = lobpcg(Ah, nev=LOBPCG_NEV, minv=h, tol=TOL_LOBPCG, maxiter=LOBPCG_MAXITER)
@@ -4523,6 +4547,26 @@ def _coded_csr(op, wx):
     csr = torch.sparse_csr_tensor(crow, (C + op.o0)[keep], V[keep], size=(no, wx))
     del V, C, keep
     return csr
+
+
+def _coded_csr_parts(op, wx):
+    """`_coded_csr` of each part of a stacked coded operator, block-diagonal:
+    part p's rows after those of the parts before it, its columns at p * wx
+    (the stacked (P * wx, K) operand)."""
+    if op.cb.shape[0] == 1:
+        return _coded_csr(op, wx)
+    crows, cols, vals, at = [], [], [], 0
+    for p in range(op.cb.shape[0]):
+        one = dia.CodedOperator(op.cb[p : p + 1], op.no[p : p + 1], op.codes[p : p + 1], op.offsets, op.kk,
+                                op.code_row, op.cls_pattern, op.o0)
+        c = _coded_csr(one, wx)
+        crows.append(c.crow_indices()[(1 if p else 0):] + at)
+        cols.append(c.col_indices() + p * wx)
+        vals.append(c.values())
+        at += int(c._nnz())
+    rows = int(op.no.sum())
+    return torch.sparse_csr_tensor(torch.cat(crows), torch.cat(cols), torch.cat(vals),
+                                   size=(rows, op.cb.shape[0] * wx))
 
 
 def null_launch_us(flush, op=None, x=None, width=None):

@@ -432,6 +432,207 @@ def plan_coded_windows(
     )
 
 
+def spmm_items(K: int, itemsize: int) -> int:
+    """(row, column group) items a thread of the coded SpMM's staged form
+    sums (`spmm_items` in csrc/dia_coded_block.cu): 4, or 2 where a group
+    (`block_columns` values) is 32 bytes or more. A tile holds at most
+    spmm_items * THREADS items."""
+    return 2 if block_columns(K) * itemsize >= 32 else 4
+
+
+#: coefficient table entries a diagonal of the staged form: one per 4-bit code
+SPMM_CODES = 16
+#: the coded SpMM's forms (`spmm_form`): "row", a thread a row and its
+#: operand rows read from global memory; "staged", K1's windows and march
+#: over K columns a row
+SPMM_ROW = "row"
+SPMM_STAGED = "staged"
+SPMM_FORMS = (SPMM_ROW, SPMM_STAGED)
+#: the smallest tile (rows) at which the staged form is taken. Measured on
+#: an H100 at 192^3 f32 (tools/time_coded_kernels.py --block 2 4 8; PERF.md):
+#: at 1024 rows it beats the row form in every width and mode that plans
+#: it; at 512 it ties or loses (the halo of a 7-point plane, 2n = 384 rows,
+#: is staged beside each tile), at 256 it runs 2.5-3x the row form
+STAGED_MIN_TILE = 1024
+#: shared memory one CTA of the staged form may take: two CTAs share an
+#: H100 SM (228 KB, 1 KB of it reserved a CTA)
+SPMM_BUDGET = 113 * 1024
+
+
+@dataclass(frozen=True)
+class BlockWindowPlan:
+    """Shared-memory layout and tile schedule of one CTA of the coded SpMM's
+    staged form (byte offsets; csrc/dia_coded_block.cu mirrors it in
+    PaSpmmParams). The schedule is `WindowPlan`'s over rows of K values:
+    ``tile`` rows a step, ``groups`` column groups a row (a power of two;
+    tile * groups items at most `spmm_items` * THREADS), the windows, march
+    and ring as
+    `plan_coded_windows` lays them out. Buffer b lies at ``buf_at[b]`` and
+    holds ``buf_slots[b]`` values (its rows' K values each, the source's
+    16-byte phase first); in pfold its pprev copy lies ``pp_shift`` bytes
+    after it, and in pfold_minv its minv buffer (a value a row) at
+    ``mv_at + b * mv_bytes``. The head: the coefficient table at
+    ``ccf_at`` (SPMM_CODES a diagonal), beta at ``beta_at``, the operand
+    slot of every diagonal and of offset 0 at ``sidx_at``, the code byte
+    slot and nibble shift of every diagonal at ``cidx_at`` and ``csh_at``;
+    after the buffers two stages of the tile's code bytes (``code_stride``
+    bytes a stream) from ``stage_at``."""
+
+    tile: int
+    groups: int
+    windows: Tuple[Tuple[int, int], ...]
+    diag_window: Tuple[int, ...]
+    zero_window: int
+    stride: int
+    lead: int
+    step_bufs: int
+    window_src: Tuple[int, ...]
+    window_buf: Tuple[int, ...]
+    new_src: Tuple[int, ...]
+    new_buf: Tuple[int, ...]
+    new_len: Tuple[int, ...]
+    buf_at: Tuple[int, ...]
+    buf_slots: Tuple[int, ...]
+    pp_shift: int
+    mv_at: int
+    mv_bytes: int
+    ccf_at: int
+    beta_at: int
+    sidx_at: int
+    cidx_at: int
+    csh_at: int
+    head_bytes: int
+    stage_at: int
+    stage_bytes: int
+    code_stride: int
+    smem_bytes: int
+
+
+def _block_plan(offsets, itemsize, K, mode, n_streams, budget) -> Tuple[Optional[BlockWindowPlan], int]:
+    """The largest-tile staged plan within budget, or None; and the bytes
+    of the last plan tried."""
+    D, vec = len(offsets), 16 // itemsize
+    G = -(-K // block_columns(K))
+    if G & (G - 1):
+        # a thread's column group is threadIdx.x mod G: no plan
+        return None, 0
+    ccf_at = 0
+    beta_at = _round16(D * SPMM_CODES * itemsize)
+    sidx_at = beta_at + _round16(K * itemsize)
+    cidx_at = sidx_at + _round16(4 * (D + 1))
+    csh_at = cidx_at + _round16(4 * D)
+    head = csh_at + _round16(4 * D)
+    total = head
+    for tile in TILE_ROWS:
+        if tile * G > spmm_items(K, itemsize) * THREADS:
+            continue
+        wins = _windows(offsets, tile)
+        zero = next(c for c, (lo, span) in enumerate(wins) if lo <= 0 <= lo + span)
+        march = _march(wins, zero, tile)
+        if march is not None:
+            stride, planes, lo_u, span_u = march
+            k0, npl = min(planes), max(planes) - min(planes) + 1
+            window_src = tuple(k * stride + lo_u for k in planes)
+            window_buf = tuple(k - k0 for k in planes)
+            new_src, new_buf, new_len = (max(planes) * stride + lo_u,), (npl - 1,), (tile + span_u,)
+            lead, step_bufs, lens = npl - 1, 1, (tile + span_u,) * (npl + 1)
+        else:
+            stride, lead, step_bufs = 0, 0, len(wins)
+            window_src = new_src = tuple(lo for lo, _ in wins)
+            window_buf = new_buf = tuple(range(len(wins)))
+            new_len = tuple(tile + span for _, span in wins)
+            lens = new_len * 2
+        # a window's K values a row, the phase in front and a 16-byte copy's
+        # room past the end
+        buf_slots = tuple(n * K + 2 * vec for n in lens)
+        buf_at, at = [], head
+        for n in buf_slots:
+            buf_at.append(at)
+            at += _round16(n * itemsize)
+        pp_shift = at - head if mode != "plain" else 0
+        at += pp_shift
+        mv_at, mv_bytes = 0, 0
+        if mode == "pfold_minv":
+            mv_at, mv_bytes = at, _round16((max(lens) + 2 * vec) * itemsize)
+            at += len(lens) * mv_bytes
+        code_stride = tile + 32
+        stage = max(n_streams, 1) * code_stride
+        total = _round16(at + 2 * stage)
+        if total <= budget:
+            diag_window = tuple(
+                next(c for c, (lo, span) in enumerate(wins) if lo <= o <= lo + span) for o in offsets
+            )
+            return BlockWindowPlan(
+                tile=tile, groups=G, windows=wins, diag_window=diag_window, zero_window=zero, stride=stride,
+                lead=lead, step_bufs=step_bufs, window_src=window_src, window_buf=window_buf, new_src=new_src,
+                new_buf=new_buf, new_len=new_len, buf_at=tuple(buf_at), buf_slots=buf_slots, pp_shift=pp_shift,
+                mv_at=mv_at, mv_bytes=mv_bytes, ccf_at=ccf_at, beta_at=beta_at, sidx_at=sidx_at, cidx_at=cidx_at,
+                csh_at=csh_at, head_bytes=head, stage_at=at, stage_bytes=stage, code_stride=code_stride,
+                smem_bytes=total,
+            ), total
+    return None, total
+
+
+def _check_block_plan_args(offsets, itemsize, K, mode) -> None:
+    if mode not in ("plain", "pfold", "pfold_minv"):
+        raise ValueError(f"plan_coded_block_windows: unknown mode {mode!r}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"plan_coded_block_windows: itemsize {itemsize}, the kernel takes float32 or float64")
+    if not 0 < len(offsets) <= MAX_DIAGS:
+        raise ValueError(f"coded SpMM takes 1 to {MAX_DIAGS} diagonals, got {len(offsets)}")
+    if K < 1:
+        raise ValueError(f"coded SpMM takes at least one column, got {K}")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_coded_block_windows(
+    offsets: Tuple[int, ...], itemsize: int, K: int, mode: str = "plain", n_streams: int = 1,
+    budget: int = SPMM_BUDGET,
+) -> BlockWindowPlan:
+    """The staged form's resource gate: `plan_coded_windows`' schedule for
+    rows K values wide (K * itemsize bytes), at the largest tile of
+    TILE_ROWS whose items fit a CTA (tile * groups <= `spmm_items` *
+    THREADS) and whose head, buffers and two code stages fit `budget`
+    bytes. mode is "plain", "pfold" (r and pprev buffers) or "pfold_minv"
+    (and a minv buffer, a value a row). Raises ValueError when even the
+    smallest tile does not fit, or when a row's column groups are not a
+    power of two (K > 8 and not a multiple of 8 times one)."""
+    _check_block_plan_args(offsets, itemsize, K, mode)
+    groups = -(-K // block_columns(K))
+    if groups & (groups - 1):
+        raise ValueError(f"coded SpMM: {K} columns make {groups} column groups a row, not a power of two")
+    plan, total = _block_plan(tuple(int(o) for o in offsets), itemsize, K, mode, n_streams, budget)
+    if plan is None:
+        raise ValueError(
+            f"coded SpMM: {len(offsets)} diagonals, {K} columns in {mode} mode ({itemsize}-byte values, "
+            f"{n_streams} code streams) need {total} bytes of shared memory at {TILE_ROWS[-1]} rows a tile, "
+            f"over the {budget}-byte budget"
+        )
+    return plan
+
+
+def spmm_nd(op: CodedOperator, K: int, mode: str) -> int:
+    """The staged form's sum for op: 7, unrolled with each coefficient a
+    select between its diagonal's two codebook slots, for 7 diagonals of
+    codebook sizes at most 2 in plain mode at K = 2 to 4 (the s-step pair
+    and the LOBPCG block on the 7-point operators); else 0, the run-time
+    loop over the code table. Both sum in ascending order with the same
+    rounding: the choice moves no result."""
+    two = len(op.offsets) == 7 and max(op.kk) <= 2
+    return 7 if two and mode == "plain" and block_columns(K) in (2, 4) else 0
+
+
+@functools.lru_cache(maxsize=256)
+def spmm_form(offsets: Tuple[int, ...], itemsize: int, K: int, mode: str = "plain", n_streams: int = 1) -> str:
+    """The coded SpMM's form for an operator's offsets and a slab of K
+    columns, from shapes alone: "staged" where its plan
+    (`plan_coded_block_windows`) fits SPMM_BUDGET at a tile of at least
+    STAGED_MIN_TILE rows, else "row"."""
+    _check_block_plan_args(offsets, itemsize, K, mode)
+    plan, _ = _block_plan(offsets, itemsize, K, mode, n_streams, SPMM_BUDGET)
+    return SPMM_STAGED if plan is not None and plan.tile >= STAGED_MIN_TILE else SPMM_ROW
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -710,6 +911,40 @@ class _SpmmParams(ctypes.Structure):
         ("code_row", ctypes.c_int * MAX_DIAGS),
         ("KB", ctypes.c_int),
         ("vec", ctypes.c_int),
+        ("form", ctypes.c_int),
+        ("T", ctypes.c_int),
+        ("G", ctypes.c_int),
+        ("ncol", ctypes.c_int),
+        ("planes", ctypes.c_int),
+        ("lead", ctypes.c_int),
+        ("n_buf", ctypes.c_int),
+        ("step_bufs", ctypes.c_int),
+        ("grid_x", ctypes.c_int),
+        ("n_new", ctypes.c_int),
+        ("zero_win", ctypes.c_int),
+        ("one_code", ctypes.c_int),
+        ("code0", ctypes.c_int),
+        ("nd_spec", ctypes.c_int),
+        ("ccf_at", ctypes.c_int),
+        ("beta_at", ctypes.c_int),
+        ("sidx_at", ctypes.c_int),
+        ("cidx_at", ctypes.c_int),
+        ("csh_at", ctypes.c_int),
+        ("pp_shift", ctypes.c_int),
+        ("mv_at", ctypes.c_int),
+        ("mv_bytes", ctypes.c_int),
+        ("stage_at", ctypes.c_int),
+        ("stage_bytes", ctypes.c_int),
+        ("code_stride", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("stride", ctypes.c_longlong),
+        ("win_src", ctypes.c_int * MAX_WINDOWS),
+        ("win_buf", ctypes.c_int * MAX_WINDOWS),
+        ("new_src", ctypes.c_int * MAX_WINDOWS),
+        ("new_buf", ctypes.c_int * MAX_WINDOWS),
+        ("new_len", ctypes.c_int * MAX_WINDOWS),
+        ("buf_at", ctypes.c_int * MAX_BUFS),
+        ("diag_win", ctypes.c_int * MAX_DIAGS),
     ]
 
 
@@ -1152,9 +1387,63 @@ def block_vec(K: int, *tensors: torch.Tensor) -> bool:
     return K % nv == 0 and block_columns(K) % nv == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _coded_block(name, op, width, x, pprev=None, beta=None, minv=None):
+def staged_vec(K: int, *tensors: torch.Tensor) -> bool:
+    """Whether the staged form moves a row's column group as vectors of
+    min(16, KB * itemsize) bytes (KB = `block_columns`): wider than one
+    value, dividing a row's K values, every slab aligned to it."""
+    item = tensors[0].element_size()
+    kb = block_columns(K)
+    lw = min(16, kb * item)
+    return kb > 1 and lw > item and (K * item) % lw == 0 and all(t.data_ptr() % lw == 0 for t in tensors)
+
+
+def _spmm_params(op: CodedOperator, wx: int, wy: int, K: int, mode: str, dt, form: str, vec: bool) -> _SpmmParams:
+    """The coded SpMM's parameters, built once per frame widths, K, mode,
+    dtype, form and vector width of an operator (the staged form's launcher
+    writes its grid into them at their first launch)."""
+    key = ("spmm", wx, wy, K, mode, dt, form, vec)
+    prm = op.kernel_params.get(key)
+    if prm is not None:
+        return prm
+    prm = _SpmmParams()
+    D = len(op.offsets)
+    prm.P, prm.D, prm.kmax = op.cb.shape[0], D, op.cb.shape[2]
+    prm.n_streams, prm.code_len = op.codes.shape[1], op.codes.shape[2]
+    prm.wx, prm.wy, prm.o0, prm.K = wx, wy, op.o0, K
+    prm.mode = ("plain", "pfold", "pfold_minv").index(mode)
+    for d in range(D):
+        prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
+    prm.KB, prm.vec, prm.form = block_columns(K), int(vec), SPMM_FORMS.index(form)
+    if form == SPMM_STAGED:
+        plan = plan_coded_block_windows(tuple(int(o) for o in op.offsets), op.cb.element_size(), K, mode,
+                                        op.codes.shape[1])
+        coded = [op.code_row[d] for d in range(D) if op.kk[d] > 1]
+        prm.one_code, prm.code0 = int(len(set(coded)) <= 1), coded[0] if coded else 0
+        prm.nd_spec = spmm_nd(op, K, mode)
+        prm.T, prm.G, prm.stride, prm.lead, prm.step_bufs = plan.tile, plan.groups, plan.stride, plan.lead, plan.step_bufs
+        prm.ncol = -(-plan.stride // plan.tile)
+        prm.n_buf, prm.n_new, prm.zero_win = len(plan.buf_at), len(plan.new_src), plan.zero_window
+        prm.ccf_at, prm.beta_at, prm.sidx_at = plan.ccf_at, plan.beta_at, plan.sidx_at
+        prm.cidx_at, prm.csh_at, prm.pp_shift = plan.cidx_at, plan.csh_at, plan.pp_shift
+        prm.mv_at, prm.mv_bytes = plan.mv_at, plan.mv_bytes
+        prm.stage_at, prm.stage_bytes, prm.code_stride = plan.stage_at, plan.stage_bytes, plan.code_stride
+        prm.smem_bytes = plan.smem_bytes
+        for c in range(len(plan.windows)):
+            prm.win_src[c], prm.win_buf[c] = plan.window_src[c], plan.window_buf[c]
+        for t in range(len(plan.new_src)):
+            prm.new_src[t], prm.new_buf[t], prm.new_len[t] = plan.new_src[t], plan.new_buf[t], plan.new_len[t]
+        for b, at in enumerate(plan.buf_at):
+            prm.buf_at[b] = at
+        for d in range(D):
+            prm.diag_win[d] = plan.diag_window[d]
+    op.kernel_params[key] = prm
+    return prm
+
+
+def _coded_block(name, op, width, x, pprev=None, beta=None, minv=None, form=None):
     """Launch the coded SpMM (`csrc/dia_coded_block.cu`): plain mode with
-    pprev None, else the pfold form. Returns y, or (y, p)."""
+    pprev None, else the pfold form; in ``form`` (`SPMM_FORMS`; default
+    `spmm_form` of the shapes). Returns y, or (y, p)."""
     P = op.cb.shape[0]
     slabs = (x,) if pprev is None else (x, pprev)
     K = _check_slabs(name, P, op.o0 + op.n, *slabs)
@@ -1165,27 +1454,28 @@ def _coded_block(name, op, width, x, pprev=None, beta=None, minv=None):
     dev, dt = x.device, x.dtype
     if op.cb.device != dev or op.cb.dtype != dt or not op.cb.is_contiguous():
         raise ValueError(f"{name}: the codebook must be contiguous, on the slabs' device, of their dtype")
-    if op.no.device != dev or op.no.dtype != torch.int32 or op.codes.device != dev or op.codes.dtype != torch.uint8:
-        raise ValueError(f"{name}: no must be int32 and codes uint8, on the slabs' device")
-    if len(op.offsets) > MAX_DIAGS:
-        raise ValueError(f"{name}: at most {MAX_DIAGS} diagonals")
+    if (op.no.device != dev or op.no.dtype != torch.int32 or op.codes.device != dev or op.codes.dtype != torch.uint8
+            or not op.codes.is_contiguous()):
+        raise ValueError(f"{name}: no must be int32 and codes uint8 and contiguous, on the slabs' device")
     if beta is not None and (beta.device != dev or beta.dtype != dt or tuple(beta.shape) != (K,)
                              or not beta.is_contiguous()):
         raise ValueError(f"{name}: beta must be a contiguous ({K},) tensor on the slabs' device, of their dtype")
     if minv is not None and (minv.device != dev or minv.dtype != dt or not minv.is_contiguous()
                              or tuple(minv.shape) != tuple(x.shape[:2])):
         raise ValueError(f"{name}: minv must be a contiguous {tuple(x.shape[:2])} frame on the slabs' device")
-    prm = _SpmmParams()
-    prm.P, prm.D, prm.kmax = P, len(op.offsets), op.cb.shape[2]
-    prm.n_streams, prm.code_len = op.codes.shape[1], op.codes.shape[2]
-    prm.wx, prm.wy, prm.o0, prm.K = x.shape[1], width, op.o0, K
-    prm.mode = 0 if pprev is None else 1 if minv is None else 2
-    for d in range(len(op.offsets)):
-        prm.off[d], prm.kk[d], prm.code_row[d] = op.offsets[d], op.kk[d], op.code_row[d]
+    mode = "plain" if pprev is None else "pfold" if minv is None else "pfold_minv"
+    offsets = tuple(int(o) for o in op.offsets)
+    if form is None:
+        form = spmm_form(offsets, x.element_size(), K, mode, op.codes.shape[1])
+    elif form not in SPMM_FORMS:
+        raise ValueError(f"{name}: no form {form!r} (forms: {', '.join(SPMM_FORMS)})")
+    else:
+        _check_block_plan_args(offsets, x.element_size(), K, mode)
     y = torch.empty((P, width, K), dtype=dt, device=dev)
     p = None if pprev is None else torch.empty_like(x)
-    prm.KB = block_columns(K)
-    prm.vec = int(block_vec(K, *(t for t in (x, pprev, y, p) if t is not None)))
+    slabs = tuple(t for t in (x, pprev, y, p) if t is not None)
+    vec = staged_vec(K, *slabs) if form == SPMM_STAGED else block_vec(K, *slabs)
+    prm = _spmm_params(op, x.shape[1], width, K, mode, dt, form, vec)
     fn = getattr(build_kernels()["dia_coded_block"], f"pa_dia_coded_spmm_{_DT[dt]}")
     rc = fn(
         ctypes.byref(prm), op.cb.data_ptr(), op.no.data_ptr(), op.codes.data_ptr(), x.data_ptr(),
@@ -1198,32 +1488,36 @@ def _coded_block(name, op, width, x, pprev=None, beta=None, minv=None):
     return y if p is None else (y, p)
 
 
-def dia_coded_spmm(op: CodedOperator, x: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+def dia_coded_spmm(op: CodedOperator, x: torch.Tensor, width: Optional[int] = None,
+                   form: Optional[str] = None) -> torch.Tensor:
     """Y = A_oo X over K columns: x (P, Wx, K) -> y (P, width, K), the owned
     band computed and every other slot 0 (width defaults to Wx). The
-    codebook and codes are read once for the K columns."""
+    codebook and codes are read once for the K columns. ``form`` forces
+    the kernel's form (`SPMM_FORMS`; default `spmm_form` of the shapes);
+    every form gives the same values."""
     width = x.shape[1] if width is None else int(width)
     if x.device.type == "cpu":
         return dia_coded_spmm_plain(op, x, width)
     if x.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmm: no kernel for device {x.device}")
-    return _coded_block("dia_coded_spmm", op, width, x)
+    return _coded_block("dia_coded_spmm", op, width, x, form=form)
 
 
 def dia_coded_spmm_pfold(
     op: CodedOperator, r: torch.Tensor, pprev: torch.Tensor, beta: torch.Tensor,
-    width: Optional[int] = None, minv: Optional[torch.Tensor] = None,
+    width: Optional[int] = None, minv: Optional[torch.Tensor] = None, form: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block CG direction fold riding the SpMM pass: p = r +
     beta[k]*pprev per column k (with a shared ``minv`` (P, Wx): p = minv*r
     + beta[k]*pprev) on the owned band, 0 elsewhere, and Y = A_oo p.
-    Returns (y, p); launches count in ``dia_coded_spmm``."""
+    ``form`` as for `dia_coded_spmm`. Returns (y, p); launches count in
+    ``dia_coded_spmm``."""
     width = r.shape[1] if width is None else int(width)
     if r.device.type == "cpu":
         return dia_coded_spmm_pfold_plain(op, r, pprev, beta, width, minv)
     if r.device.type != "cuda":
         raise RuntimeError(f"dia_coded_spmm_pfold: no kernel for device {r.device}")
-    return _coded_block("dia_coded_spmm_pfold", op, width, r, pprev, beta, minv)
+    return _coded_block("dia_coded_spmm_pfold", op, width, r, pprev, beta, minv, form=form)
 
 
 def dia_stream_spmm(

@@ -874,7 +874,7 @@ def test_block_sweep_kernel_matches_plain(dtype, n, K, with_minv, moved):
 
 @pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "x-moved"])
 @pytest.mark.parametrize("form", ["plain", "pfold", "pfold_minv"])
-@pytest.mark.parametrize("K", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 8, 12])
 @pytest.mark.parametrize("shape", [(7, 25, 3), (27, 24, 1), (7, 41, 0)], ids=["7pt-n25-o03", "27pt-n24-o01", "7pt-n41-o00"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mode", ["select", "class"])
@@ -913,6 +913,103 @@ def test_coded_spmm_matches_plain(mode, dtype, shape, K, form, moved):
         else:
             y1, p1 = dia.dia_coded_spmv_pfold_plain(op, xk, pprev[..., k].contiguous(), beta[k], w + 3, minv=minv)
             assert torch.equal(got[0][..., k], y1) and torch.equal(got[1][..., k], p1)
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "x-moved"])
+@pytest.mark.parametrize("kernel_form", ["row", "staged"])
+@pytest.mark.parametrize("form", ["plain", "pfold", "pfold_minv"])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 8, 12])
+@pytest.mark.parametrize("shape", [(7, 25, 3), (27, 24, 1), (7, 41, 0), (27, 35, 1)],
+                         ids=["7pt-n25-o03", "27pt-n24-o01", "7pt-n41-o00", "27pt-n35-o01"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["select", "class"])
+def test_coded_spmm_forms_match_plain(mode, dtype, shape, K, form, kernel_form, moved):
+    """Each form of the coded SpMM forced (`SPMM_FORMS`: the row form and
+    the staged form, whose plan marches along the planes at n = 35 and 41
+    and walks the tiles at n = 24, 25) against the plain version, on two
+    parts of unequal owned counts, the slabs aligned or x one value off
+    (rows a value at a time); every slot outside the owned band 0."""
+    _need_card()
+    rng = np.random.default_rng(K + shape[1] + 1)
+    op = _operator(mode, dtype, rng, *shape)
+    w = op.o0 + op.n + 50
+    x = _moved(torch.from_numpy(rng.standard_normal((2, w, K))).to("cuda", dtype), moved)
+    pprev = torch.from_numpy(rng.standard_normal((2, w, K))).to("cuda", dtype)
+    beta = torch.from_numpy(rng.standard_normal(K)).to("cuda", dtype)
+    minv = torch.from_numpy(rng.standard_normal((2, w))).to("cuda", dtype) if form == "pfold_minv" else None
+    def launch():
+        if form == "plain":
+            return (dia.dia_coded_spmm(op, x, w + 3, form=kernel_form),)
+        return dia.dia_coded_spmm_pfold(op, x, pprev, beta, w + 3, minv=minv, form=kernel_form)
+
+    if kernel_form == "staged":
+        try:
+            plan = dia.plan_coded_block_windows(op.offsets, x.element_size(), K, form, op.codes.shape[1])
+        except ValueError:
+            # no staged plan fits (the widest f64 slabs of the 27-point
+            # operators): the forced form raises, the planner takes the row form
+            with pytest.raises(ValueError, match="shared memory"):
+                launch()
+            assert dia.spmm_form(op.offsets, x.element_size(), K, form, op.codes.shape[1]) == dia.SPMM_ROW
+            return
+        assert plan.stride in (0, shape[1] ** 2)
+    dia.reset_launches()
+    got = launch()
+    if form == "plain":
+        want = (dia.dia_coded_spmm_plain(op, x, w + 3),)
+    else:
+        want = dia.dia_coded_spmm_pfold_plain(op, x, pprev, beta, w + 3, minv=minv)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_coded_spmm"] == 1
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+        assert not _outside(op, g).any()
+
+
+@pytest.mark.parametrize("moved", [0, 1], ids=["aligned", "x-moved"])
+@pytest.mark.parametrize("kernel_form", [None, "row", "staged"], ids=["by-shape", "row", "staged"])
+@pytest.mark.parametrize("K", [2, 3, 4])
+@pytest.mark.parametrize("shape", [(7, 25, 3), (7, 41, 0)], ids=["7pt-n25-o03", "7pt-n41-o00"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coded_spmm_two_slot_select_chain(dtype, shape, K, kernel_form, moved):
+    """The staged form's unrolled sum on GMG level 0's shape (7 diagonals,
+    each coded with kk = 2 on its own nibble, 4 code bytes a row; codes up
+    to 15, a code past the codebook reading slot 0) against the plain
+    version, two parts of unequal owned counts."""
+    _need_card()
+    rng = np.random.default_rng(K + shape[1] + 5)
+    points, n, o0 = shape
+    rows = n ** 3
+    offsets = _offsets(points, n)
+    codes = rng.integers(0, 16, (2, 7, rows)).astype(np.uint8)
+    codes[:, :, ::3] = rng.integers(0, 2, (2, 7, len(range(0, rows, 3))))
+    op = dia.CodedOperator(
+        cb=torch.from_numpy(rng.standard_normal((2, 7, 2))).to("cuda", dtype),
+        no=torch.tensor([rows, rows - 999], dtype=torch.int32, device="cuda"),
+        codes=torch.from_numpy(np.ascontiguousarray(dia.pack_nibble_codes(codes).view(np.uint8))).cuda(),
+        offsets=offsets, kk=(2,) * 7, code_row=tuple(range(7)), cls_pattern=None, o0=o0,
+    )
+    assert dia.spmm_nd(op, K, "plain") == 7
+    w = o0 + rows + 20
+    x = _moved(torch.from_numpy(rng.standard_normal((2, w, K))).to("cuda", dtype), moved)
+    dia.reset_launches()
+    got = dia.dia_coded_spmm(op, x, w + 3, form=kernel_form)
+    torch.cuda.synchronize()
+    assert dia.LAUNCHES["dia_coded_spmm"] == 1
+    assert torch.equal(got, dia.dia_coded_spmm_plain(op, x, w + 3))
+
+
+def test_coded_spmm_form_by_shape_on_card():
+    """At 192^3 f32 the s-step pair (K = 2, row class) and the LOBPCG block
+    (K = 4, select chain) take the staged form by shape, and its launch
+    counts once in ``dia_coded_spmm``; a width with no staged plan worth
+    its halo takes the row form."""
+    _need_card()
+    n = 192
+    offsets = _offsets(7, n)
+    assert dia.spmm_form(offsets, 4, 2, "plain", 1) == dia.SPMM_STAGED
+    assert dia.spmm_form(offsets, 4, 4, "plain", 4) == dia.SPMM_STAGED
+    assert dia.spmm_form(_offsets(27, n), 4, 12, "plain", 13) == dia.SPMM_ROW
 
 
 @pytest.mark.parametrize("K", [1, 3, 4, 8, 12])

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's DIA kernels of one or more checkouts on one card.
 
-    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--block K] [--cg N] [--gmg N]
-                                        [--gmg-multi N] [--irregular N [--slab-k1 K]]
+    python3 tools/time_coded_kernels.py [--src DIR ...] [--n 192] [--select] [--block K ...] [--cg N] [--gmg N]
+                                        [--gmg-multi N] [--lobpcg N] [--irregular N [--slab-k1 K]]
 
 Each ``--src`` is the root of a checkout that holds
 ``partitionedarrays_jl_tpu_torch/`` (default: this one); give the same
@@ -48,12 +48,21 @@ checkout's ``build/pa_torch_kernels/``) and times, by CUDA events:
   frame call; keys ending ``_k1``) and both boundary modes on (P, W,
   ``--slab-k1``) slabs (keys ending ``_slab``), in a checkout that has the
   slab forms;
-* with ``--block K`` (this checkout only: its package is imported): K2
-  with minv and the sweep's precond form on the n^3 frames, the coded SpMM
-  (plain and pfold forms) on the row-class Poisson operator and the
-  streaming SpMM on random 7-diagonal values at n^3, over K columns, and
-  the block sweep over K columns (with and without minv) and the block
-  dot's products, each checked torch.equal to its plain version;
+* with ``--block K [K ...]`` (e.g. ``--block 2 4 8``), in every checkout:
+  the coded SpMM `dia_coded_spmm` at each width K on the row-class Poisson
+  operator and on a select-chain operator of GMG level 0's shape (7
+  diagonals coded with kk = 2, 4 code bytes a row: the decoupled A0's),
+  plain, pfold and pfold with minv, in every form the checkout has
+  (``row`` and ``staged`` since the staged form, forced, and the form it
+  takes by shape; a checkout from before it: its one form), each checked
+  torch.equal to its plain version, with its bytes and bound, beside K1
+  `dia_coded_spmv` and K2 `dia_coded_spmv_pfold` on a frame of the same
+  operator (key ``spmm``); and in this checkout only (its package is
+  imported) at the largest K: K2 with minv and the sweep's precond form
+  on the n^3 frames, the coded SpMM (plain and pfold forms) on the
+  row-class Poisson operator and the streaming SpMM on random 7-diagonal
+  values at n^3, and the block sweep (with and without minv) and the
+  block dot's products, each checked torch.equal to its plain version;
 
 and prints the checkout's ptxas lines (registers, spills) per kernel.
 
@@ -81,7 +90,11 @@ line per level and mode (a checkout with the two K4 forms and the
 epilogue kernel), and the bare empty kernel's `null_launch` line. ``--gmg-multi N`` adds
 GMG-PCG seconds per iteration and its profile on (2,2,2) stacked parts
 of N^3 in float64 (chip_smoke.py's stacked hierarchy), on the default
-routes, in the graph loop where the checkout has one. The timers and the set-up are this checkout's
+routes, in the graph loop where the checkout has one; ``--lobpcg N`` the
+GMG-preconditioned LOBPCG loop's seconds per iteration at N^3 float32
+(chip_smoke.py's `lobpcg_s_per_iter` on `gmg_driver`'s operator, a
+checkout with `parallel/gpu_lobpcg.py`) and the coded SpMM's launches in
+one fixed-trip run. The timers and the set-up are this checkout's
 chip_smoke.py, so every checkout is timed the same way. One JSON line per
 measurement; the nvidia-smi name and power-limit line first. Exits
 non-zero without a card.
@@ -293,6 +306,76 @@ def time_select(smoke, dia, rng, flush):
             k1 = lambda: dia.dia_coded_spmv(op, x, op.n)  # noqa: E731
             equal = bool(torch.equal(k1(), dia.dia_coded_spmv_plain(op, x, op.n)))
             out[f"{'A' if points == 7 else 'S'}{n}"] = {**timed(smoke, k1, flush), "equal": equal}
+    return out
+
+
+def spmm_bytes(rows, code_bytes, K, mode, item):
+    """The bytes the coded SpMM must move over `rows` rows: the code bytes
+    once, x read and y written K values a row (pfold: r and pprev read, y
+    and p written; minv a value a row more)."""
+    per = code_bytes + (2 if mode == "plain" else 4) * K * item + (item if mode == "pfold_minv" else 0)
+    return rows * per
+
+
+def time_spmm(smoke, dia, n, widths, rng, flush):
+    """`dia_coded_spmm` at each width of `widths` on the n^3 row-class
+    Poisson operator and on a select-chain operator of GMG level 0's shape,
+    plain, pfold and pfold with minv, in every form the checkout has
+    (forced; and the form it takes by shape), torch.equal to the plain
+    version, with its bound; K1 and K2 on a frame of the same operator
+    beside them. f32, one part."""
+    forms = getattr(dia, "SPMM_FORMS", (None,))
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
+    out = {}
+    for name, op in (("row_class", poisson_operator(dia, n)), ("select_A0", select_operator(dia, n, 7, rng))):
+        rows, streams = op.n, op.codes.shape[1]
+        r, pprev = f32(1, rows), f32(1, rows)
+        beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+        line = {
+            "dia_coded_spmv": {**timed(smoke, lambda: dia.dia_coded_spmv(op, r, rows), flush),
+                               "bound_ms": rows * (streams + 8) / smoke.HBM_BYTES_PER_S * 1e3},
+            "dia_coded_spmv_pfold": {**timed(smoke, lambda: dia.dia_coded_spmv_pfold(op, r, pprev, beta, rows), flush),
+                                     "bound_ms": rows * (streams + 16) / smoke.HBM_BYTES_PER_S * 1e3},
+        }
+        for K in widths:
+            X, PP = f32(1, rows, K), f32(1, rows, K)
+            betas, minv = f32(K), f32(1, rows)
+            calls = {
+                "plain": (lambda **kw: dia.dia_coded_spmm(op, X, rows, **kw),
+                          lambda: dia.dia_coded_spmm_plain(op, X, rows)),
+                "pfold": (lambda **kw: dia.dia_coded_spmm_pfold(op, X, PP, betas, rows, **kw),
+                          lambda: dia.dia_coded_spmm_pfold_plain(op, X, PP, betas, rows)),
+                "pfold_minv": (lambda **kw: dia.dia_coded_spmm_pfold(op, X, PP, betas, rows, minv=minv, **kw),
+                               lambda: dia.dia_coded_spmm_pfold_plain(op, X, PP, betas, rows, minv=minv)),
+            }
+            width = {}
+            for mode, (kern, plain) in calls.items():
+                nbytes = spmm_bytes(rows, streams, K, mode, 4)
+                t = {"bytes": nbytes, "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3}
+                if forms != (None,):
+                    t["by_shape"] = dia.spmm_form(op.offsets, 4, K, mode, streams)
+                want = plain()
+                want = want if isinstance(want, tuple) else (want,)
+                for form in forms:
+                    key = form or "only"
+                    if form is not None and form == dia.SPMM_STAGED:
+                        try:
+                            plan = dia.plan_coded_block_windows(op.offsets, 4, K, mode, streams)
+                        except ValueError as e:
+                            t[key] = {"no_plan": str(e)}
+                            continue
+                    kw = {} if form is None else {"form": form}
+                    got = kern(**kw)
+                    got = got if isinstance(got, tuple) else (got,)
+                    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+                    t[key] = {**timed(smoke, lambda: kern(**kw), flush), "equal": equal}
+                    if form is not None and form == dia.SPMM_STAGED:
+                        t[key]["plan"] = {"tile": plan.tile, "marching": bool(plan.stride),
+                                          "smem_bytes": plan.smem_bytes}
+                width[mode] = t
+            line[f"K={K}"] = width
+            del X, PP, betas, minv
+        out[name] = line
     return out
 
 
@@ -551,7 +634,7 @@ def irregular_worker(root: Path, n: int, slab_k: int = 0) -> list:
     return out
 
 
-def solve_worker(root: Path, cg_n: int, gmg_n: int, gmg_multi: int = 0) -> dict:
+def solve_worker(root: Path, cg_n: int, gmg_n: int, gmg_multi: int = 0, lobpcg_n: int = 0) -> dict:
     """The solvers' seconds per iteration with the package of checkout
     `root`, in a process of its own: fused, pipelined and standard CG at
     cg_n^3 float32 (fixed trips of 20 and 220; the graph and the eager loop
@@ -589,6 +672,14 @@ def solve_worker(root: Path, cg_n: int, gmg_n: int, gmg_multi: int = 0) -> dict:
                     lambda m: smoke.make_cg_fn(dA, 0.0, m, **kw, **lkw), b, x0, 20, 220)
         for tag, lkw in loops:
             smoke.phase_profile(f"cg_profile{tag}", smoke.make_cg_fn(dA, 0.0, 48, **lkw), b, x0, 48)
+    if lobpcg_n:
+        run = smoke.prun(smoke.gmg_driver, backend, (1, 1, 1), lobpcg_n, True)
+        dA = smoke.device_matrix(run["Ah"], backend)
+        out["lobpcg_n"] = lobpcg_n
+        dia.reset_launches()
+        out["lobpcg_s_per_iter"], out["lobpcg_fixed_trip_s"] = smoke.lobpcg_s_per_iter(
+            dA, run["h"], np.random.default_rng(0))
+        out["lobpcg_spmm_launches"] = dia.LAUNCHES["dia_coded_spmm"]
     if gmg_multi:
         run = smoke.prun(smoke.gmg_driver, backend, (2, 2, 2), gmg_multi, False)
         b = smoke._b_on_cols_layout(run["bh"], smoke.device_matrix(run["Ah"], backend))
@@ -658,8 +749,11 @@ def main() -> int:
     ap.add_argument("--gmg", type=int, default=0, metavar="N", help="also time GMG-PCG at N^3")
     ap.add_argument("--gmg-multi", type=int, default=0, metavar="N",
                     help="also time GMG-PCG on (2,2,2) stacked parts of N^3, float64")
-    ap.add_argument("--block", type=int, default=0, metavar="K",
-                    help="also time the Jacobi and block kernels (K columns) at n^3")
+    ap.add_argument("--lobpcg", type=int, default=0, metavar="N",
+                    help="also time GMG-preconditioned LOBPCG per iteration at N^3, float32")
+    ap.add_argument("--block", type=int, nargs="+", default=[], metavar="K",
+                    help="also time the coded SpMM at each width K (every checkout) and the Jacobi and block "
+                         "kernels at the largest (this checkout) at n^3")
     ap.add_argument("--select", action="store_true",
                     help="also time K1 on synthetic GMG select-chain operators (A 192^3, S 192^3..12^3)")
     ap.add_argument("--irregular", type=int, default=0, metavar="N",
@@ -678,7 +772,7 @@ def main() -> int:
             print(json.dumps(line), flush=True)
         return 0
     if args.solve_worker:
-        print(json.dumps(solve_worker(args.solve_worker, args.cg, args.gmg, args.gmg_multi)), flush=True)
+        print(json.dumps(solve_worker(args.solve_worker, args.cg, args.gmg, args.gmg_multi, args.lobpcg)), flush=True)
         return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -696,8 +790,10 @@ def main() -> int:
         res = time_kernels(smoke, dia, args.n, np.random.default_rng(args.seed), flush)
         if args.select:
             res["select"] = time_select(smoke, dia, np.random.default_rng(args.seed), flush)
+        if args.block:
+            res["spmm"] = time_spmm(smoke, dia, args.n, args.block, np.random.default_rng(args.seed), flush)
         if args.block and root == ROOT:
-            res["block"] = time_block(smoke, dia, args.n, args.block, np.random.default_rng(args.seed), flush)
+            res["block"] = time_block(smoke, dia, args.n, max(args.block), np.random.default_rng(args.seed), flush)
         res["ptxas"] = smoke._ptxas_lines(dia.BUILD_LOG)
         print(json.dumps({"run": k, "src": str(root), "n": args.n, **res}), flush=True)
     if args.irregular:
@@ -713,12 +809,12 @@ def main() -> int:
                 if line.startswith("{"):
                     print(json.dumps({"run": k, "src": str(root), "variant": "irregular", **json.loads(line)}),
                           flush=True)
-    if args.cg or args.gmg or args.gmg_multi:
+    if args.cg or args.gmg or args.gmg_multi or args.lobpcg:
         # a process per checkout: each imports its own package
         for k, root in enumerate(srcs):
             proc = subprocess.run(
                 [sys.executable, __file__, "--solve-worker", str(root), "--cg", str(args.cg), "--gmg", str(args.gmg),
-                 "--gmg-multi", str(args.gmg_multi)],
+                 "--gmg-multi", str(args.gmg_multi), "--lobpcg", str(args.lobpcg)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
