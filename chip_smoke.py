@@ -253,6 +253,14 @@ Phases, one JSON line each:
    one cached solve function (one capture), the vector-Jacobian product
    torch.equal to a forward solve of the cotangent and a central finite
    difference along a seeded direction within DIFF_FD_RTOL;
+4k. the resilience layer (`phase_resilience`): the SDC defense of the CG
+   loops (`parallel/gpu_sdc.py`) at 192^3 f32 on phase 3's operator
+   (generic plan) and on phase 2b's 48^3 f64 (2,2,2) system (clean solves
+   torch.equal to the undefended ones, faults detected, rolled back and
+   healed bit for bit, escalation, launches and exchanges a trip, block
+   CG), NonFiniteError on a NaN in b, and the recovery drivers
+   (`solve_with_recovery` in chunks, `resume_solve` on the sequential
+   backend from the card's checkpoint);
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -4333,6 +4341,258 @@ def phase_solver_family(backend, run, gruns, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the resilience layer
+# ---------------------------------------------------------------------------
+
+#: the defense of the 192^3 arm: ABFT checksums and an audit every 32
+#: iterations (the JAX package's defaults under PA_TPU_ABFT=1)
+SDC_EVERY = 32
+SDC_FAULT_TRIP = 100  # the 192^3 arm's fault: a trip well inside the ~420-iteration solve
+SDC_FAULT_FACTOR = 1e3
+SDC_MULTI_FAULT = "spmv@trip=20,part=1,factor=1e3"  # the 48^3 (2,2,2) arm's fault, on part 1
+SDC_BLOCK_K = 4
+SDC_BLOCK_FAULT = "spmv@trip=7,part=1,factor=1e3"
+SDC_SEQ_RTOL = 1e-12  # the clean 48^3 defended solve against the sequential host solve, of max |x|
+TOL_RECOVERY = 1e-10
+RECOVERY_EVERY = 50
+RECOVERY_X_RTOL = 1e-7  # the chunked recovery solve against the one-shot device solve
+
+
+def _gathered_equal(x, y):
+    return bool(torch.equal(torch.from_numpy(gather_pvector(x)), torch.from_numpy(gather_pvector(y))))
+
+
+def _timed_solve(fn, b, x0, reps=3):
+    """Median seconds of ``reps`` calls of a cached solve function, after a
+    first call (the capture) outside the span; and its last output."""
+    out = fn(b, x0)
+    ts = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        out = fn(b, x0)
+        sync()
+        ts.append(time.perf_counter() - t)
+    return statistics.median(ts), out
+
+
+def phase_resilience(backend, run, gmulti, rng):
+    """Phase 4k: the resilience layer on the card (the SDC defense,
+    `parallel/gpu_sdc.py`; the typed health errors; the recovery drivers).
+    At 192^3 f32 on phase 3's operator, on its generic-plan lowering (ABFT
+    pins the generic plan), the fused and standard bodies under
+    SDCConfig(abft=True, audit_every=32): the clean solve torch.equal to
+    the undefended one (iterations, history, x) with 0 detections; a
+    device fault at trip SDC_FAULT_TRIP detected once, rolled back once,
+    converged, x torch.equal to the clean solve; max_rollbacks=0
+    escalating with SilentCorruptionError; launches by formula (K1 1 + 1
+    a trip, no K2, the sweep 1 a trip, with audits on and off); the
+    kernel path torch.equal to plain=True; seconds per iteration and per
+    trip defended and undefended, and a profile of the defended trip. On
+    phase 2b's 48^3 f64 (2,2,2) decoupled system, generic plan: fused CG
+    with a fault on part 1 self-healing bit for bit, the clean defended
+    solve against the sequential backend's host solve (iterations, x to
+    SDC_SEQ_RTOL of max |x|), the exchange and K1 calls per trip equal with
+    ABFT on and off (eager loops), block CG at K = SDC_BLOCK_K with a fault
+    at trip 7, each column torch.equal to its clean solve; a NaN in b
+    raising NonFiniteError within one iteration; `solve_with_recovery` in
+    chunks of RECOVERY_EVERY into a temporary directory against the
+    one-shot device solve, and `resume_solve` on the sequential backend
+    from the card's checkpoint."""
+    import tempfile
+
+    from partitionedarrays_jl_tpu_torch import resume_solve, solve_with_recovery
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import EXCHANGES, _krylov_fn_for
+    from partitionedarrays_jl_tpu_torch.utils.health import NonFiniteError, SDCConfig, SilentCorruptionError
+
+    t_phase = time.perf_counter()
+    A, b, x0 = run["A"], run["b"], run["x0"]
+    maxiter = 4 * A.rows.ngids
+    sdc = SDCConfig(abft=True, audit_every=SDC_EVERY)
+    fault = SDCConfig(abft=True, audit_every=SDC_EVERY,
+                      device_fault=f"spmv@trip={SDC_FAULT_TRIP},part=0,factor={SDC_FAULT_FACTOR}")
+    t = time.perf_counter()
+    dA = device_matrix(A, backend, box=False)
+    bd = _b_on_cols_layout(b, dA)
+    x0d = DeviceVector.from_pvector(x0, backend, dA.col_layout).data
+    dA.abft_row()
+    sync()
+    staging_s = time.perf_counter() - t
+    line = {"phase": "resilience", "n": N_MAIN, "dtype": "float32", "parts": 1, "tol": TOL_MAIN,
+            "sdc": {"abft": True, "audit_every": SDC_EVERY}, "generic_staging_s": staging_s, "bodies": {}}
+    for body, fused in (("fused", True), ("standard", False)):
+        x_off, i_off = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, fused=fused, box=False)
+        dia.reset_launches()
+        x_on, i_on = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, fused=fused, sdc=sdc)
+        launches = dict(dia.LAUNCHES)
+        trips = device_iterations(i_on)
+        want = {"dia_coded_spmv": 1 + trips, "dia_coded_spmv_pfold": 0, "cg_sweep": trips}
+        x_f, i_f = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, fused=fused, sdc=fault)
+        clean_equal = (_gathered_equal(x_off, x_on) and i_off["iterations"] == i_on["iterations"]
+                       and np.array_equal(i_off["residuals"], i_on["residuals"]))
+        healed = _gathered_equal(x_on, x_f) and i_f["iterations"] == i_on["iterations"]
+        f_on = _krylov_fn_for(dA, "cg", TOL_MAIN, maxiter, fused=fused, sdc=sdc)
+        f_off = _krylov_fn_for(dA, "cg", TOL_MAIN, maxiter, fused=fused)
+        s_on, out_on = _timed_solve(f_on, bd, x0d)
+        s_off, out_off = _timed_solve(f_off, bd, x0d)
+        row = {
+            "cg_body": i_on["cg_body"], "exchange_plan": i_on["exchange_plan"], "iterations": i_on["iterations"],
+            "undefended_iterations": i_off["iterations"], "converged": i_on["converged"], "clean_sdc": i_on["sdc"],
+            "clean_equal_to_undefended": clean_equal, "fault": fault.device_fault, "fault_sdc": i_f["sdc"],
+            "fault_converged": i_f["converged"], "fault_x_equal_to_clean": healed,
+            "kernels": launches, "expected_launches": want, "device_loop": i_on["device_loop"],
+            "s_per_iter": s_on / out_on[3], "s_per_trip": s_on / int(out_on[5][4]),
+            "undefended_s_per_iter": s_off / out_off[3], "trips": int(out_on[5][4]),
+            "defense_cost": s_on / s_off,
+        }
+        line["bodies"][body] = row
+        require(clean_equal, f"192^3 {body}: the clean defended solve differs from the undefended one")
+        require(i_on["sdc"]["detections"] == 0, f"192^3 {body}: {i_on['sdc']['detections']} detections on a clean solve")
+        require(i_f["sdc"]["detections"] == 1 and i_f["sdc"]["rollbacks"] == 1 and i_f["converged"],
+                f"192^3 {body}: the faulted solve's counters {i_f['sdc']}, converged {i_f['converged']}")
+        require(healed, f"192^3 {body}: the healed x differs from the clean solve's")
+        require(i_on["exchange_plan"] == "generic", f"192^3 {body}: ABFT ran the {i_on['exchange_plan']} plan")
+        for k in want:
+            require(launches[k] == want[k], f"192^3 {body} defended: {launches[k]} {k} launches, expected {want[k]}")
+    # audits off (ABFT only): one K1 a trip as with audits on
+    dia.reset_launches()
+    _, i_na = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, sdc=SDCConfig(abft=True, audit_every=0))
+    na = dict(dia.LAUNCHES)
+    tr_na = device_iterations(i_na)
+    line["audits_off"] = {"kernels": na, "device_iterations": tr_na, "sdc": i_na["sdc"]}
+    require(na["dia_coded_spmv"] == 1 + tr_na and na["cg_sweep"] == tr_na,
+            f"192^3 audits off: launches {na} over {tr_na} trips")
+    # escalation
+    try:
+        gpu_cg(A, b, x0=x0, tol=TOL_MAIN, sdc=SDCConfig(abft=True, audit_every=SDC_EVERY, max_rollbacks=0,
+                                                          device_fault=fault.device_fault))
+        esc = None
+    except SilentCorruptionError as e:
+        esc = e.diagnostics.get("sdc")
+    line["escalation"] = esc
+    require(esc is not None and esc["escalations"] == 1, f"192^3: max_rollbacks=0 did not escalate ({esc})")
+    # the kernel path against the plain versions
+    x_pl, i_pl = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, sdc=sdc, plain=True)
+    x_k, i_k = gpu_cg(A, b, x0=x0, tol=TOL_MAIN, sdc=sdc)
+    line["plain_equal"] = _gathered_equal(x_pl, x_k) and i_pl["iterations"] == i_k["iterations"]
+    require(line["plain_equal"], "192^3 defended: the kernel path differs from plain=True")
+    prof = phase_profile("resilience_profile", make_cg_fn(dA, 0.0, 48, sdc=sdc), bd, x0d, 48)
+    prof_off = phase_profile("resilience_profile_undefended", make_cg_fn(dA, 0.0, 48), bd, x0d, 48)
+    line["device_ms_per_trip"] = sum(r[1] for r in prof["rows"])
+    line["undefended_device_ms_per_iter"] = sum(r[1] for r in prof_off["rows"])
+    line["profile_ms_per_trip"] = [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in prof["rows"]]
+
+    # 48^3 f64 (2,2,2), generic plan
+    Ah, bh, n = gmulti["Ah"], gmulti["bh"], N_GMG_MULTI
+    dAg = device_matrix(Ah, backend, box=False)
+    # the defended loop as a CUDA graph against the same loop run eagerly
+    # (a faulted solve: a rollback inside the captured blocks)
+    gf = SDCConfig(abft=True, audit_every=SDC_EVERY, device_fault=SDC_MULTI_FAULT)
+    db_g = _b_on_cols_layout(bh, dAg)
+    outs = {g: make_cg_fn(dAg, TOL_MULTI, 4 * Ah.rows.ngids, sdc=gf, graph=g) for g in (False, True)}
+    res = {g: fn(db_g, torch.zeros_like(db_g)) for g, fn in outs.items()}
+    sync()
+    (xe_, rse_, _, ite_, he_, se_), (xg_, rsg_, _, itg_, hg_, sg_) = res[False], res[True]
+    st = outs[True].stats
+    gve = {"x": bool(torch.equal(xg_, xe_)), "rs": bool(torch.equal(rsg_, rse_)), "iterations": ite_ == itg_,
+           "history": bool(np.array_equal(hg_, he_, equal_nan=True)), "sdc": bool(np.array_equal(sg_, se_))}
+    emit({"phase": "loop_graph_vs_eager", "path": f"{n}^3 f64 (2,2,2) fused CG, SDC defended, faulted",
+          "iterations": itg_, "sdc": [int(v) for v in sg_], "block": st["block"],
+          "device_iterations": st["device_iterations"], "replays": st["replays"], "capture_s": st["capture_s"],
+          "equal": gve})
+    require(all(gve.values()) and st["loop"] == "graph" and st["replays"] > 0 and int(sg_[1]) == 1,
+            f"48^3 defended: graph and eager loops differ ({gve}, {st}, sdc {sg_})")
+    multi = {"n": n, "dtype": "float64", "parts": [2, 2, 2], "tol": TOL_MULTI}
+    s5 = SDCConfig(abft=True, audit_every=SDC_EVERY)
+    xc, ic = cg(Ah, bh, tol=TOL_MULTI, sdc=s5)
+    xf, i_f = cg(Ah, bh, tol=TOL_MULTI, sdc=SDCConfig(abft=True, audit_every=SDC_EVERY, device_fault=SDC_MULTI_FAULT))
+    multi.update(clean_sdc=ic["sdc"], fault_sdc=i_f["sdc"], healed=_gathered_equal(xc, xf), iterations=ic["iterations"])
+    require(ic["sdc"]["detections"] == 0 and i_f["sdc"]["detections"] == 1 and i_f["sdc"]["rollbacks"] == 1,
+            f"48^3: counters clean {ic['sdc']}, faulted {i_f['sdc']}")
+    require(multi["healed"] and i_f["converged"], "48^3 (2,2,2): the faulted fused CG did not self-heal bit for bit")
+
+    def host(parts):
+        A_, b_, _, _ = assemble_poisson(parts, (n, n, n))
+        Ah_, bh_ = decouple_dirichlet(A_, b_)
+        x_, info_ = cg(Ah_, bh_, tol=TOL_MULTI)
+        return Ah_, bh_, gather_pvector(x_), info_["iterations"]
+
+    t = time.perf_counter()
+    Ah_s, bh_s, x_seq, it_seq = prun(host, sequential, (2, 2, 2))
+    multi["sequential_s"] = time.perf_counter() - t
+    dx = float(np.abs(gather_pvector(xc) - x_seq).max() / np.abs(x_seq).max())
+    multi.update(sequential_iterations=it_seq, x_vs_sequential=dx)
+    require(ic["iterations"] == it_seq and dx <= SDC_SEQ_RTOL,
+            f"48^3 defended: {ic['iterations']} iterations against the sequential {it_seq}, |dx|/max|x| {dx}")
+    # exchange calls and K1 launches a trip, ABFT on and off (eager loops:
+    # a graph replay calls no Python)
+    db_ = _b_on_cols_layout(bh, dAg)
+    per = {}
+    for tag, cfg in (("abft", SDCConfig(abft=True, audit_every=SDC_EVERY)),
+                     ("audit_only", SDCConfig(abft=False, audit_every=SDC_EVERY))):
+        fn = make_cg_fn(dAg, TOL_MULTI, 4 * Ah.rows.ngids, graph=False, sdc=cfg)
+        for k in EXCHANGES:
+            EXCHANGES[k] = 0
+        dia.reset_launches()
+        out = fn(db_, torch.zeros_like(db_))
+        sync()
+        trips = fn.stats["device_iterations"]
+        per[tag] = {"exchange_calls": EXCHANGES["calls"] - 1, "exchange_rounds": EXCHANGES["rounds"],
+                    "dia_coded_spmv": dia.LAUNCHES["dia_coded_spmv"] - 1, "trips": trips}
+        per[tag]["calls_per_trip"] = per[tag]["exchange_calls"] / trips
+        per[tag]["k1_per_trip"] = per[tag]["dia_coded_spmv"] / trips
+    multi["launch_parity"] = per
+    require(per["abft"]["calls_per_trip"] == per["audit_only"]["calls_per_trip"] == 1.0
+            and per["abft"]["k1_per_trip"] == per["audit_only"]["k1_per_trip"] == (1.0 if dAg.dia_mode == "coded" else 0.0),
+            f"48^3: exchange / K1 launches a trip differ with ABFT on and off: {per}")
+
+    # block CG, K = SDC_BLOCK_K
+    def xk(k):
+        return PVector(Ah.cols.partition._like([np.sin((k + 1.0) * np.asarray(i.lid_to_gid, dtype=np.float64))
+                                               for i in Ah.cols.partition.part_values()]), Ah.cols)
+
+    B = [bh] + [Ah @ xk(k) for k in range(SDC_BLOCK_K - 1)]
+    xs_c, ibc = cg(Ah, B=B, tol=TOL_MULTI, sdc=s5)
+    xs_f, ibf = cg(Ah, B=B, tol=TOL_MULTI, sdc=SDCConfig(abft=True, audit_every=SDC_EVERY, device_fault=SDC_BLOCK_FAULT))
+    cols_equal = [_gathered_equal(a, c) for a, c in zip(xs_c, xs_f)]
+    multi["block"] = {"K": SDC_BLOCK_K, "clean_sdc": ibc["sdc"], "fault_sdc": ibf["sdc"],
+                      "iterations_per_column": ibc["iterations_per_column"], "columns_equal": cols_equal}
+    require(all(cols_equal) and ibf["converged"] and ibf["sdc"]["rollbacks"] == 1 and ibc["sdc"]["detections"] == 0,
+            f"48^3 block K={SDC_BLOCK_K}: {multi['block']}")
+
+    # non-finite
+    bn = bh.copy()
+    vals = bn.values.part_values()[1]
+    vals[int(np.asarray(bn.rows.partition.part_values()[1].oid_to_lid)[0])] = np.nan
+    try:
+        cg(Ah, bn, tol=TOL_MULTI)
+        nf = None
+    except NonFiniteError as e:
+        nf = e.diagnostics.get("iteration")
+    multi["nonfinite_iteration"] = nf
+    require(nf is not None and nf <= 1, f"48^3: a NaN in b did not raise NonFiniteError within one iteration ({nf})")
+
+    # recovery
+    x1, i1 = cg(Ah, bh, tol=TOL_RECOVERY)
+    with tempfile.TemporaryDirectory() as tmp:
+        xr, ir = solve_with_recovery(Ah, bh, method="cg", checkpoint_dir=tmp, every=RECOVERY_EVERY, tol=TOL_RECOVERY)
+        g1, gr = gather_pvector(x1), gather_pvector(xr)
+        rel = float(np.linalg.norm(gr - g1) / np.linalg.norm(g1))
+        xs_, is_ = resume_solve(tmp, Ah_s, bh_s)
+    multi["recovery"] = {"converged": ir["converged"], "restarts": ir["restarts"], "iterations": ir["iterations"],
+                         "ledger": ir["recovery"], "x_rel_vs_one_shot": rel, "one_shot_iterations": i1["iterations"],
+                         "resumed_converged": is_["converged"], "resumed_from": is_["resumed_from_iteration"],
+                         "resumed_iterations": is_["iterations"]}
+    require(ir["converged"] and ir["restarts"] == 0 and rel <= RECOVERY_X_RTOL,
+            f"48^3 solve_with_recovery: {multi['recovery']}")
+    require(is_["converged"], "resume_solve on the sequential backend from the card's checkpoint did not converge")
+    line["multi"] = multi
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -4960,6 +5220,7 @@ def main() -> int:
     phase_krylov_gmg(backend, gruns, gmg["iterations"], rng)
     phase_diff_solve(backend, rng)
     fam = phase_solver_family(backend, run, gruns, rng)
+    phase_resilience(backend, run, gruns["multi"], rng)
     emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})

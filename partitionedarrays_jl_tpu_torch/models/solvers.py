@@ -31,6 +31,18 @@ host's either).
 ``lowering`` names the first non-band lowering the device tries
 (`parallel/gpu.py:DeviceMatrix`: "auto", "sd", "bsr", "ell"), for the solo
 and the block solves alike.
+
+The resilience layer (solvers.py:152-525, :1556-1813, :2153-2611): the host
+`cg`, `pcg` and `gmres` raise the typed health errors of `utils/health.py`
+where the JAX package does (``health=True``, its ``PA_HEALTH_CHECKS``;
+``stagnation=`` its ``PA_HEALTH_STAGNATION``); ``sdc=SDCConfig(...)``
+runs the host CG and PCG loops under the silent-corruption defense
+(`_SDCGuard`: checksummed exchanges, the periodic true-residual audit and
+the in-memory rollback ring) and the device loops under its in-graph form;
+``checkpoint=`` (a `parallel/checkpoint.SolverCheckpointer`) saves the host
+loops' full recurrence state, which `resume_solve` continues exactly;
+`solve_with_recovery` restarts a failed solve from its last checkpoint
+(host) or runs the device solve in checkpointed chunks.
 """
 from __future__ import annotations
 
@@ -133,14 +145,123 @@ def _host_block_solve(solve_one, B, X0, column_errors="raise"):
     return xs, info
 
 
-def _check_block_args(name, b, x0, B, column_errors="raise"):
-    """Validate a multi-RHS call (solvers.py:126-147, the checks that apply
-    to the port's arguments); returns B as a list."""
+def _check_block_args(name, b, x0, B, column_errors="raise", checkpoint=None, _resume_state=None):
+    """Validate a multi-RHS call (solvers.py:126-147); returns B as a list."""
     check(column_errors in ("raise", "report"), f"{name}: column_errors is 'raise' or 'report'")
     check(b is None and x0 is None, f"{name}: pass b/x0 OR the multi-RHS block B/X0, not both")
     B = list(B)
     check(len(B) >= 1, f"{name}: B must hold at least one right-hand side")
+    if checkpoint is not None or _resume_state is not None:
+        raise ValueError(f"{name}: checkpoint/resume is a single-RHS feature; solve columns individually to "
+                         "checkpoint them")
     return B
+
+
+class _SDCGuard:
+    """The host loops' silent-corruption defense, shared by `cg` and `pcg`
+    (solvers.py:152-288): the periodic true-residual audit and the bounded
+    in-memory rollback ring (`utils/health.RollbackRing`), the oracle of the
+    device loops' in-graph ladder:
+
+    1. a detection (`SilentCorruptionError` from a checksummed exchange, or
+       a failed audit here) rewinds the recurrence to the newest audited
+       ring state, at most ``audit_every`` iterations back, with no disk I/O;
+    2. consecutive failed replays walk to older ring entries;
+    3. past ``max_rollbacks`` rollbacks the next detection escalates: a
+       `SilentCorruptionError` carrying the counters under
+       ``diagnostics["sdc"]``, which `solve_with_recovery` turns into a
+       checkpoint restart.
+
+    Inactive (every call a no-op) without an active ``sdc`` or with
+    ``health=False``. The audit's extra ``A @ x`` runs one exchange, so the
+    chaos harness's call counter advances faster with audits on; replayed
+    iterations are new wire calls, so a one-shot ``call=k`` clause does
+    not fire again on the replay, which is why a clean replay heals."""
+
+    def __init__(self, name: str, matvec, b, rs0, health: bool, sdc):
+        from ..utils.health import RollbackRing
+
+        self.name = name
+        self.matvec, self.b = matvec, b
+        self.rs0 = float(rs0)
+        self.active = bool(health) and sdc is not None
+        self.every = sdc.every if self.active else 0
+        self.ring = RollbackRing(sdc.rollback_depth) if self.active else None
+        self.max_rb = sdc.max_rollbacks if self.active else 0
+        self.tol = sdc.audit_tolerance(b.dtype) if self.active else 0.0
+        self.strike = 0
+        self.counters = {"detections": 0, "rollbacks": 0, "escalations": 0, "audit_iterations": 0}
+
+    def push(self, vectors: dict, meta: dict, history) -> None:
+        """Record an audited state (the initial state is one by construction)."""
+        if not self.active:
+            return
+        m = dict(meta)
+        m["history"] = [np.float64(h) for h in history]
+        self.ring.push(vectors, m)
+        self.strike = 0
+
+    def audit(self, x, r, it: int, meta: dict, extra_vectors: dict, history):
+        """Every ``audit_every`` iterations: ||(b - A x) - r|| must lie within
+        the recurrence's rounding envelope; a pass pushes the state onto the
+        ring, a failure raises `SilentCorruptionError` (caught by the loop's
+        rollback arm)."""
+        if not self.active or self.every <= 0 or it == 0 or it % self.every:
+            return
+        from ..utils.health import SilentCorruptionError
+
+        self.counters["audit_iterations"] += 1
+        rt = self.b.copy()
+        qx = self.matvec(x)
+        _owned_update(rt, lambda tv, qv: tv - qv, qx)
+        _owned_update(rt, lambda tv, rv: tv - rv, r)
+        drift = float(rt.norm())
+        thresh = self.tol * max(1.0, float(np.sqrt(self.rs0)))
+        if not (drift <= thresh):  # NaN fails <=
+            raise SilentCorruptionError(
+                f"{self.name}: true-residual audit failed at iteration {it}: ||(b - A x) - r|| = {drift:.3e} "
+                f"exceeds {thresh:.3e}: the recurrence has silently diverged from the true residual",
+                diagnostics={"detector": "true_residual_audit", "iteration": int(it), "drift": drift,
+                             "threshold": thresh},
+            )
+        self.push({"x": x, "r": r, **extra_vectors}, meta, history)
+
+    def rollback(self, e, it: int):
+        """Handle a detection: the ring state ``strike`` slots back, or the
+        escalation once the budget is spent. Returns ``(vectors, meta,
+        history)`` for the loop to reinstate."""
+        from ..utils.health import SilentCorruptionError
+
+        self.counters["detections"] += 1
+        exhausted = self.counters["rollbacks"] >= self.max_rb
+        st = self.ring.restore(self.strike) if self.active and not exhausted else None
+        if st is None:
+            self.counters["escalations"] += 1
+            diag = dict(getattr(e, "diagnostics", {}))
+            diag["sdc"] = dict(self.counters)
+            diag["iteration"] = int(it)
+            raise SilentCorruptionError(
+                f"{self.name}: {e}: in-memory rollback budget ({self.max_rb}) exhausted at iteration {it}; "
+                "escalating to the checkpoint-restart tier (solve_with_recovery)",
+                diagnostics=diag,
+            ) from e
+        self.counters["rollbacks"] += 1
+        self.strike += 1
+        vecs, meta = st
+        return vecs, meta, list(meta["history"])
+
+    def info_extra(self) -> dict:
+        return {"sdc": dict(self.counters)} if self.active else {}
+
+
+def _abft_scope(sdc, health: bool):
+    """The host exchanges' checksum scope of a defended solve: open when
+    ``sdc`` asks for ABFT (and health is on), else a no-op."""
+    from contextlib import nullcontext
+
+    from ..parallel.collectives import abft_exchanges
+
+    return abft_exchanges(sdc.abft_tol) if (health and sdc is not None and sdc.abft) else nullcontext()
 
 
 def cg(
@@ -160,6 +281,11 @@ def cg(
     lowering: str = "auto",
     sstep: Optional[int] = None,
     overlap: bool = False,
+    health: bool = True,
+    stagnation=None,
+    sdc=None,
+    checkpoint=None,
+    _resume_state: Optional[dict] = None,
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
@@ -184,14 +310,30 @@ def cg(
 
     ``sstep=s`` (s >= 2) runs the device loop's s-step (communication-
     avoiding) body (`parallel/gpu.py:make_cg_fn`); with ``fused=True``,
-    ``pipelined``, ``B`` or ``strict`` it raises `LoweringConflictError`.
-    ``overlap`` runs the device SpMVs with the interior/boundary overlap
-    tail (the same values). Both are host no-ops but for the block
-    conflict."""
-    from ..parallel.gpu import GPUBackend, _sstep_conflict, gpu_block_cg, gpu_cg
+    ``pipelined``, ``B``, ``strict`` or an active ``sdc`` it raises
+    `LoweringConflictError`. ``overlap`` runs the device SpMVs with the
+    interior/boundary overlap tail (the same values). Both are host no-ops
+    but for the conflicts.
 
+    Health (solvers.py:410-522): with ``health`` (the default) a
+    non-finite r.r raises `NonFiniteError` at the iteration it appears (a
+    poisoned start at iteration 0, before the loop), p'Ap == 0 raises
+    `SolverBreakdownError`, and ``stagnation`` (True, or a ``(window,
+    factor)`` pair) raises `SolverStagnationError` when the best residual
+    stops improving. ``sdc`` (an `SDCConfig`) runs the silent-corruption
+    defense: on the host `_SDCGuard` (checksummed exchanges under
+    ``abft``, the audit every ``audit_every`` iterations, the rollback
+    ring), on the device the in-graph form (`gpu.make_cg_fn`); the info
+    dict then carries ``info["sdc"]``, the counters. ``checkpoint`` (a
+    `SolverCheckpointer`) saves the full recurrence state every
+    ``checkpoint.every`` iterations, host loop only; `resume_solve`
+    continues it (``_resume_state``) on the same trajectory."""
+    from ..parallel.gpu import GPUBackend, _sstep_conflict, gpu_block_cg, gpu_cg
+    from ..utils.health import resolve_sdc
+
+    sdc = resolve_sdc(sdc)
     if B is not None:
-        B = _check_block_args("cg", b, x0, B, column_errors)
+        B = _check_block_args("cg", b, x0, B, column_errors, checkpoint, _resume_state)
         if int(sstep or 0) >= 2:
             _sstep_conflict("rhs_batch")
         if pipelined:
@@ -199,42 +341,103 @@ def cg(
         if isinstance(B[0].values.backend, GPUBackend):
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
                                 column_errors=column_errors, box=box, strict=strict, lowering=lowering,
-                                overlap=overlap)
+                                overlap=overlap, sdc=sdc)
         return _host_block_solve(
-            lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict),
+            lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict,
+                               health=health, stagnation=stagnation, sdc=sdc),
             B, X0, column_errors=column_errors,
         )
     check(b is not None, "cg: a right-hand side b (or a block B) is required")
     if isinstance(b.values.backend, GPUBackend):
+        if checkpoint is not None or _resume_state is not None:
+            raise ValueError(
+                "cg: per-iteration checkpointing is a host-loop feature; the device loop cannot stop "
+                "mid-solve: use models.solvers.solve_with_recovery, which chunks the device solve at "
+                "checkpoint boundaries"
+            )
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
             pipelined=pipelined, box=box, strict=strict, lowering=lowering, sstep=sstep, overlap=overlap,
+            health=health, sdc=sdc,
         )
+    if sdc is not None and int(sstep or 0) >= 2:
+        _sstep_conflict("the SDC defense (sdc=)")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    with _abft_scope(sdc, health):
+        return _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, sdc, checkpoint,
+                             _resume_state)
+
+
+def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, sdc, checkpoint, _resume_state):
+    """The host CG recurrence (solvers.py:410-522), the oracle every device
+    body is held against, with its health guards, SDC guard and checkpoint
+    hook."""
+    from ..utils.health import (
+        SilentCorruptionError, SolverBreakdownError, StagnationDetector, check_finite_scalar,
+    )
+
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="cg")
-    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
-    r = b.copy()  # rows-range residual
-    q = _matvec(A, x, strict)
-    _owned_update(r, lambda rv, qv: rv - qv, q)
-    p = PVector.full(0.0, A.cols, dtype=b.dtype)
-    _owned_assign(p, r)
-    rs = r.dot(r, strict=strict)
-    rs0 = rs
-    history = [np.sqrt(rs)]
-    it = 0
+    if _resume_state is not None:
+        x, r, p = _resume_state["x"], _resume_state["r"], _resume_state["p"]
+        meta = _resume_state["meta"]
+        rs, rs0, it = meta["rs"], meta["rs0"], int(meta["it"])
+        history = [np.float64(h) for h in meta["history"]]
+    else:
+        x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+        r = b.copy()  # rows-range residual
+        q = _matvec(A, x, strict)
+        _owned_update(r, lambda rv, qv: rv - qv, q)
+        p = PVector.full(0.0, A.cols, dtype=b.dtype)
+        _owned_assign(p, r)
+        rs = r.dot(r, strict=strict)
+        rs0 = rs
+        history = [np.sqrt(rs)]
+        it = 0
+    if health and _resume_state is None:
+        # a NaN in b/x0 makes the while test False: guard before the loop so
+        # a poisoned start raises instead of returning converged=False
+        check_finite_scalar(rs, "cg", it=0, vectors=(("r", r), ("x", x)))
+    stag = StagnationDetector.from_option("cg", stagnation) if health else None
+    guard = _SDCGuard("cg", lambda v: _matvec(A, v, strict), b, rs0, health, sdc)
+    guard.push({"x": x, "r": r, "p": p}, {"rs": rs, "it": it}, history)
     while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
-        q = _matvec(A, p, strict)
-        alpha = rs / p.dot(q, strict=strict)
-        _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
-        _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
-        rs_new = r.dot(r, strict=strict)
-        beta = rs_new / rs
-        _owned_update(p, lambda pv, rv: rv + beta * pv, r)
-        rs = rs_new
-        history.append(np.sqrt(rs))
-        it += 1
+        try:
+            q = _matvec(A, p, strict)
+            pq = p.dot(q, strict=strict)
+            if pq == 0.0:
+                raise SolverBreakdownError("cg: breakdown, p'Ap == 0", diagnostics={"iteration": it, "rs": float(rs)})
+            alpha = rs / pq
+            _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
+            _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
+            rs_new = r.dot(r, strict=strict)
+            if health:
+                # free: rs_new was reduced anyway
+                check_finite_scalar(rs_new, "cg", it=it + 1, vectors=(("r", r), ("q", q), ("x", x)))
+            beta = rs_new / rs
+            _owned_update(p, lambda pv, rv: rv + beta * pv, r)
+            rs = rs_new
+            history.append(np.sqrt(rs))
+            it += 1
+            guard.audit(x, r, it, {"rs": rs, "it": it}, {"p": p}, history)
+        except SilentCorruptionError as e:
+            # the in-memory rollback to the newest audited state, or the
+            # escalation once the budget is spent
+            vecs, meta_r, history = guard.rollback(e, it)
+            x, r, p = vecs["x"], vecs["r"], vecs["p"]
+            rs, it = meta_r["rs"], meta_r["it"]
+            continue
+        if stag is not None:
+            stag.update(float(np.sqrt(rs)), it)
+        if checkpoint is not None and checkpoint.due(it):
+            checkpoint.save_state(
+                {"x": x, "r": r, "p": p},
+                {"method": "cg", "it": it, "rs": rs, "rs0": rs0, "tol": tol, "maxiter": maxiter,
+                 "history": history},
+            )
         if verbose:
             print(f"cg it={it} residual={np.sqrt(rs):.3e}")
+    if checkpoint is not None:
+        checkpoint.wait()  # the last write lands before the return
     return x, krylov_info(
         it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)),
         tol, b.dtype, floor_warned,
@@ -242,7 +445,7 @@ def cg(
             A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
             force=floor_warned,
         ),
-        cg_body="host",
+        cg_body="host", **guard.info_extra(),
     )
 
 
@@ -397,6 +600,11 @@ def pcg(
     column_errors: str = "raise",
     strict: bool = False,
     lowering: str = "auto",
+    health: bool = True,
+    stagnation=None,
+    sdc=None,
+    checkpoint=None,
+    _resume_state: Optional[dict] = None,
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
@@ -424,28 +632,43 @@ def pcg(
     V-cycle's products are not the host's, on either side); ``lowering``
     there names the first non-band lowering of every level's operators
     (`gpu_gmg.device_hierarchy`), as the JAX package's lowering switches
-    reach every staging of its GMG-PCG."""
+    reach every staging of its GMG-PCG.
+
+    ``health``, ``stagnation``, ``sdc`` and ``checkpoint`` as in `cg`
+    (solvers.py:1556-1674): the device Jacobi PCG runs the in-graph defense;
+    the device GMG-PCG has no defended form and refuses an active ``sdc``."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
+    from ..utils.health import resolve_sdc
     from .gmg import GMGHierarchy
 
+    sdc = resolve_sdc(sdc)
     if minv is None:
         minv = jacobi_preconditioner(A)
     if B is not None:
-        B = _check_block_args("pcg", b, x0, B, column_errors)
+        B = _check_block_args("pcg", b, x0, B, column_errors, checkpoint, _resume_state)
         if isinstance(B[0].values.backend, GPUBackend) and not callable(minv):
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, minv=minv,
                                 fused=fused, column_errors=column_errors, box=box, strict=strict,
-                                lowering=lowering)
+                                lowering=lowering, sdc=sdc)
         return _host_block_solve(
             lambda bk, x0k: pcg(A, bk, x0=x0k, minv=minv, tol=tol, maxiter=maxiter, verbose=verbose,
-                                box=box, stencil=stencil, fused=fused, strict=strict, lowering=lowering),
+                                box=box, stencil=stencil, fused=fused, strict=strict, lowering=lowering,
+                                health=health, stagnation=stagnation, sdc=sdc),
             B, X0, column_errors=column_errors,
         )
     check(b is not None, "pcg: a right-hand side b (or a block B) is required")
     if isinstance(b.values.backend, GPUBackend):
+        if checkpoint is not None or _resume_state is not None:
+            raise ValueError(
+                "pcg: per-iteration checkpointing is a host-loop feature; use "
+                "models.solvers.solve_with_recovery on the device path"
+            )
         if isinstance(minv, GMGHierarchy):
             from ..parallel.gpu_gmg import gpu_gmg_pcg
 
+            if sdc is not None:
+                raise ValueError("pcg: the device GMG-PCG has no SDC-defended form; the defense covers CG "
+                                 "and Jacobi PCG (drop sdc, or solve on the host backend)")
             if fused is not None:
                 raise ValueError(
                     "pcg: the GMG-preconditioned device loop has one PCG body, with no fused "
@@ -456,14 +679,21 @@ def pcg(
                                box=box, stencil=stencil, strict=strict, lowering=lowering)
         if not callable(minv):
             return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-                          box=box, minv=minv, strict=strict, lowering=lowering)
+                          box=box, minv=minv, strict=strict, lowering=lowering, health=health, sdc=sdc)
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict)
+    with _abft_scope(sdc, health):
+        return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict, health, stagnation, sdc,
+                              checkpoint, _resume_state)
 
 
-def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False):
-    """The host PCG recurrence (solvers.py:1556-1674 without its health,
-    checkpoint and telemetry seams); ``strict`` as in `cg`."""
+def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False, health=True, stagnation=None, sdc=None,
+                   checkpoint=None, _resume_state=None):
+    """The host PCG recurrence (solvers.py:1556-1674), with the guards of
+    `_cg_host_loop`; ``strict`` as in `cg`."""
+    from ..utils.health import (
+        SilentCorruptionError, SolverBreakdownError, StagnationDetector, check_finite_scalar,
+    )
+
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="pcg")
     z = PVector.full(0.0, A.cols, dtype=b.dtype)
 
@@ -473,33 +703,68 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False):
         else:
             _owned_zip(z, lambda _z, mv, rv: mv * rv, minv, r)
 
-    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
-    r = b.copy()
-    q = _matvec(A, x, strict)
-    _owned_update(r, lambda rv, qv: rv - qv, q)
-    _apply_precond()
-    p = PVector.full(0.0, A.cols, dtype=b.dtype)
-    _owned_assign(p, z)
-    rs = r.dot(r, strict=strict)
-    rz = r.dot(z, strict=strict)
-    rs0 = rs
-    history = [np.sqrt(rs)]
-    it = 0
-    while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
-        q = _matvec(A, p, strict)
-        alpha = rz / p.dot(q, strict=strict)
-        _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
-        _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
+    if _resume_state is not None:
+        x, r, p = _resume_state["x"], _resume_state["r"], _resume_state["p"]
+        meta = _resume_state["meta"]
+        rs, rz, rs0 = meta["rs"], meta["rz"], meta["rs0"]
+        it = int(meta["it"])
+        history = [np.float64(h) for h in meta["history"]]
+    else:
+        x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+        r = b.copy()
+        q = _matvec(A, x, strict)
+        _owned_update(r, lambda rv, qv: rv - qv, q)
         _apply_precond()
-        rz_new = r.dot(z, strict=strict)
+        p = PVector.full(0.0, A.cols, dtype=b.dtype)
+        _owned_assign(p, z)
         rs = r.dot(r, strict=strict)
-        beta = rz_new / rz
-        _owned_update(p, lambda pv, zv: zv + beta * pv, z)
-        rz = rz_new
-        history.append(np.sqrt(rs))
-        it += 1
+        rz = r.dot(z, strict=strict)
+        rs0 = rs
+        history = [np.sqrt(rs)]
+        it = 0
+    if health and _resume_state is None:
+        check_finite_scalar(rs, "pcg", it=0, vectors=(("r", r), ("x", x)))
+    stag = StagnationDetector.from_option("pcg", stagnation) if health else None
+    guard = _SDCGuard("pcg", lambda v: _matvec(A, v, strict), b, rs0, health, sdc)
+    guard.push({"x": x, "r": r, "p": p}, {"rs": rs, "rz": rz, "it": it}, history)
+    while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
+        try:
+            q = _matvec(A, p, strict)
+            pq = p.dot(q, strict=strict)
+            if pq == 0.0:
+                raise SolverBreakdownError("pcg: breakdown, p'Ap == 0",
+                                           diagnostics={"iteration": it, "rs": float(rs)})
+            alpha = rz / pq
+            _owned_update(x, lambda xv, pv: xv + alpha * pv, p)
+            _owned_update(r, lambda rv, qv: rv - alpha * qv, q)
+            _apply_precond()
+            rz_new = r.dot(z, strict=strict)
+            rs = r.dot(r, strict=strict)
+            if health:
+                check_finite_scalar(rs, "pcg", it=it + 1, vectors=(("r", r), ("z", z), ("x", x)))
+            beta = rz_new / rz
+            _owned_update(p, lambda pv, zv: zv + beta * pv, z)
+            rz = rz_new
+            history.append(np.sqrt(rs))
+            it += 1
+            guard.audit(x, r, it, {"rs": rs, "rz": rz, "it": it}, {"p": p}, history)
+        except SilentCorruptionError as e:
+            vecs, meta_r, history = guard.rollback(e, it)
+            x, r, p = vecs["x"], vecs["r"], vecs["p"]
+            rs, rz, it = meta_r["rs"], meta_r["rz"], meta_r["it"]
+            continue
+        if stag is not None:
+            stag.update(float(np.sqrt(rs)), it)
+        if checkpoint is not None and checkpoint.due(it):
+            checkpoint.save_state(
+                {"x": x, "r": r, "p": p},
+                {"method": "pcg", "it": it, "rs": rs, "rz": rz, "rs0": rs0, "tol": tol, "maxiter": maxiter,
+                 "history": history},
+            )
         if verbose:
             print(f"pcg it={it} residual={np.sqrt(rs):.3e}")
+    if checkpoint is not None:
+        checkpoint.wait()
     return x, krylov_info(
         it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)),
         tol, b.dtype, floor_warned,
@@ -507,6 +772,7 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False):
             A, x, b, np.sqrt(rs) / max(1.0, np.sqrt(rs0)), np.sqrt(rs0), tol,
             force=floor_warned,
         ),
+        **guard.info_extra(),
     )
 
 
@@ -676,7 +942,8 @@ def _back_substitute(H, g, j_used):
 
 
 def gmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: int = 30, tol: float = 1e-8,
-          maxiter: Optional[int] = None, minv=None, verbose: bool = False) -> Tuple[PVector, dict]:
+          maxiter: Optional[int] = None, minv=None, verbose: bool = False, health: bool = True
+          ) -> Tuple[PVector, dict]:
     """Restarted GMRES(m) for general operators (solvers.py:1677-1813):
     Arnoldi with modified Gram-Schmidt on the host, the m+1 basis vectors
     on ``A.cols``. With ``minv`` (an inverse-diagonal PVector over A.cols)
@@ -684,14 +951,18 @@ def gmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: i
     preconditioned norm; ``minv`` may also be a callable ``minv(r) -> z``
     (a `GMGHierarchy`), which runs this host loop on any backend. A
     GPU-backend b with no callable runs the device loop
-    (`gpu_krylov.gpu_gmres`: CGS2, host and device agree to rounding)."""
+    (`gpu_krylov.gpu_gmres`: CGS2, host and device agree to rounding).
+    With ``health`` a non-finite initial residual norm, or Arnoldi norm,
+    raises `NonFiniteError` (solvers.py:1733-1766)."""
     from ..parallel.gpu import GPUBackend
     from ..parallel.gpu_krylov import gpu_gmres
+    from ..utils.health import check_finite_scalar
 
     check(restart >= 1, "gmres: restart dimension must be >= 1")
     apply_minv = callable(minv)
     if isinstance(b.values.backend, GPUBackend) and not apply_minv:
-        return gpu_gmres(A, b, x0=x0, restart=restart, tol=tol, maxiter=maxiter, minv=minv, verbose=verbose)
+        return gpu_gmres(A, b, x0=x0, restart=restart, tol=tol, maxiter=maxiter, minv=minv, verbose=verbose,
+                         health=health)
     x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
     floor_warned = warn_tol_below_floor(tol, b.dtype, name="gmres")
@@ -715,6 +986,9 @@ def gmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: i
 
     r = residual_vec()
     beta = r.norm()
+    if health:
+        # a poisoned b/x0 raises, not a silent "converged"
+        check_finite_scalar(beta, "gmres", it=0, vectors=(("r", r),))
     rs0 = beta
     history = [beta]
     it = 0
@@ -734,6 +1008,9 @@ def gmres(A: PSparseMatrix, b: PVector, x0: Optional[PVector] = None, restart: i
                 H[i, j] = hij
                 _owned_update(w, lambda wv, vv: wv - hij * vv, V[i])
             hj1 = w.norm()
+            if health:
+                # free: the norm was reduced anyway
+                check_finite_scalar(hj1, "gmres", it=it + 1, vectors=(("w", w),))
             H[j + 1, j] = hj1
             _arnoldi_column(H, cs, sn, g, j)
             it += 1
@@ -1367,3 +1644,264 @@ def additive_schwarz(A: PSparseMatrix, mode: str = "asm", drop_tol=None, fill_fa
         return z
 
     return apply
+
+
+# ---------------------------------------------------------------------------
+# checkpoint resume and recovery (solvers.py:2153-2611)
+# ---------------------------------------------------------------------------
+
+
+def _solver_state_ranges(A: PSparseMatrix, b: PVector) -> dict:
+    """The target PRanges of a cg/pcg full-state checkpoint: x and p ride
+    A.cols, r rides b's row range."""
+    return {"x": A.cols, "r": b.rows, "p": A.cols}
+
+
+def resume_solve(directory: str, A: PSparseMatrix, b: PVector, method: Optional[str] = None, minv=None,
+                 tol: Optional[float] = None, maxiter: Optional[int] = None, verbose: bool = False,
+                 checkpoint=None, sdc=None) -> Tuple[PVector, dict]:
+    """Continue a checkpointed Krylov run from its last saved state
+    (solvers.py:2160-2244). ``directory`` holds a full-state checkpoint
+    written by a `SolverCheckpointer` (the host loops' ``checkpoint=``
+    hook), by either package. The state restores onto the partition ``A``
+    and ``b`` live on (the same part count: `CheckpointShapeError`
+    otherwise); on a host backend with a full (x, r, p) state and the same
+    method the recurrence continues exactly, bit for bit the uninterrupted
+    run. On the GPU backend (whose device loop cannot ingest mid-recurrence
+    state), from an iterate-only checkpoint, or across a method switch,
+    Krylov restarts from the checkpointed iterate. ``method``, ``tol`` and
+    ``maxiter`` default to what the checkpoint recorded; ``checkpoint``
+    keeps checkpointing the resumed host run."""
+    from ..parallel.checkpoint import load_solver_state
+    from ..parallel.gpu import GPUBackend
+
+    state = load_solver_state(directory, _solver_state_ranges(A, b))
+    if state is None:
+        raise ValueError(f"resume_solve: {directory!r} holds no complete solver checkpoint (no manifest.json)")
+    meta = state["meta"]
+    method = method or meta.get("method", "cg")
+    check(method in ("cg", "pcg"), "resume_solve: method is 'cg' or 'pcg'")
+    tol = tol if tol is not None else float(meta.get("tol", 1e-8))
+    if maxiter is None and meta.get("maxiter") is not None:
+        maxiter = int(meta["maxiter"])
+    kw = dict(tol=tol, maxiter=maxiter, verbose=verbose, sdc=sdc)
+    # an exact resume needs the full state and the same method (a cg
+    # checkpoint has no rz for pcg)
+    full_state = all(k in state for k in ("x", "r", "p")) and "rs" in meta and meta.get("method") == method
+    on_device = isinstance(b.values.backend, GPUBackend)
+    if on_device or not full_state:
+        if on_device and checkpoint is not None:
+            raise ValueError("resume_solve: per-iteration checkpointing is a host-loop feature; on the device "
+                             "backend use models.solvers.solve_with_recovery to keep checkpointing")
+        ck = None if on_device else checkpoint
+        if method == "pcg":
+            x, info = pcg(A, b, x0=state["x"], minv=minv, checkpoint=ck, **kw)
+        else:
+            x, info = cg(A, b, x0=state["x"], checkpoint=ck, **kw)
+    elif method == "pcg":
+        x, info = pcg(A, b, minv=minv, checkpoint=checkpoint, _resume_state=state, **kw)
+    else:
+        x, info = cg(A, b, checkpoint=checkpoint, _resume_state=state, **kw)
+    info["resumed_from_iteration"] = int(meta["it"])
+    return x, info
+
+
+def _new_recovery_ledger() -> dict:
+    """The cumulative ``info["recovery"]`` of the host and chunked device
+    recovery drivers (solvers.py:2247)."""
+    return {"attempts": 0, "detections": 0, "rollbacks": 0, "checkpoint_restarts": 0, "restart_sources": []}
+
+
+def _ledger_fold_sdc(ledger: dict, counters) -> None:
+    """Fold one attempt's in-memory-tier counters (an ``info["sdc"]``, or
+    the same on an escalated error's diagnostics) into the ledger."""
+    if counters:
+        ledger["detections"] += int(counters.get("detections", 0))
+        ledger["rollbacks"] += int(counters.get("rollbacks", 0))
+
+
+def solve_with_recovery(A: PSparseMatrix, b: PVector, method: str = "cg", checkpoint_dir: Optional[str] = None,
+                        every: int = 25, max_restarts: int = 2, minv=None, x0: Optional[PVector] = None,
+                        tol: float = 1e-8, maxiter: Optional[int] = None, verbose: bool = False,
+                        sdc=None) -> Tuple[PVector, dict]:
+    """A Krylov solve under the whole resilience layer (solvers.py:2269-2350):
+    checkpoints every ``every`` iterations and a restart from the last one
+    when any `SolverHealthError` fires (a NaN-poisoned exchange, a dropped
+    part's timeout, a lost controller, a breakdown, or a
+    `SilentCorruptionError` escalated by the in-memory rollback tier), up
+    to ``max_restarts``. ``info`` carries ``restarts``, ``failures`` and
+    the cumulative ``recovery`` ledger (``attempts``, the in-memory tier's
+    ``detections`` and ``rollbacks`` over all attempts,
+    ``checkpoint_restarts`` and per restart its ``restart_sources`` entry:
+    the failure and the state restarted from).
+
+    A host backend checkpoints the full recurrence state in the loop, so a
+    restart replays the exact trajectory (`_solve_with_recovery_host`). On
+    the GPU backend the device loop cannot stop mid-solve, so the solve
+    runs in ``every``-iteration chunks with the iterate checkpointed
+    between chunks (`_solve_with_recovery_chunked`): a restart re-enters
+    Krylov from the checkpointed iterate. Without ``checkpoint_dir``
+    nothing is written and a restart begins from ``x0``. ``sdc`` runs
+    every attempt under the SDC defense. A `PartLossError` propagates at
+    once: a restart on the same partition cannot recover a dead part, and
+    the elastic shrink over the survivors runs across cards (not ported)."""
+    from ..parallel.checkpoint import SolverCheckpointer
+    from ..parallel.gpu import GPUBackend
+
+    check(method in ("cg", "pcg"), "solve_with_recovery: method is 'cg' or 'pcg'")
+    ckpt = SolverCheckpointer(checkpoint_dir, every=every) if checkpoint_dir is not None else None
+    if isinstance(b.values.backend, GPUBackend):
+        return _solve_with_recovery_chunked(A, b, method, ckpt, every, max_restarts, minv, x0, tol, maxiter,
+                                            verbose, sdc)
+    return _solve_with_recovery_host(A, b, method, ckpt, max_restarts, minv, x0, tol, maxiter, verbose, sdc)
+
+
+def _failure(e) -> dict:
+    return {"type": type(e).__name__, "message": str(e), "diagnostics": e.diagnostics}
+
+
+def _solve_with_recovery_host(A, b, method, ckpt, max_restarts, minv, x0, tol, maxiter, verbose, sdc):
+    """The host recovery loop (solvers.py:2353-2474): exact-recurrence
+    restarts from the full-state checkpoint."""
+    import sys
+
+    from ..parallel.checkpoint import CheckpointCorruptError, load_solver_state
+    from ..utils.health import PartLossError, SolverHealthError
+
+    restarts, failures, state = 0, [], None
+    ledger = _new_recovery_ledger()
+    while True:
+        try:
+            ledger["attempts"] += 1
+            kw = dict(tol=tol, maxiter=maxiter, verbose=verbose, checkpoint=ckpt, _resume_state=state, sdc=sdc)
+            if method == "pcg":
+                x, info = pcg(A, b, x0=x0, minv=minv, **kw)
+            else:
+                x, info = cg(A, b, x0=x0, **kw)
+            info["restarts"] = restarts
+            if failures:
+                info["failures"] = failures
+            _ledger_fold_sdc(ledger, info.get("sdc"))
+            info["recovery"] = ledger
+            return x, info
+        except PartLossError as e:
+            # persistent: no restart on this partition can recover it
+            failures.append(_failure(e))
+            _ledger_fold_sdc(ledger, e.diagnostics.get("sdc"))
+            raise
+        except SolverHealthError as e:
+            failures.append(_failure(e))
+            _ledger_fold_sdc(ledger, e.diagnostics.get("sdc"))
+            if restarts >= max_restarts:
+                raise
+            restarts += 1
+            state = None
+            how = "scratch"
+            source = {"failure": type(e).__name__, "from": "scratch"}
+            if ckpt is not None:
+                try:
+                    ckpt.wait()  # let an in-flight write land first
+                except Exception:
+                    pass
+                if ckpt.has_state():
+                    try:
+                        st = load_solver_state(ckpt.directory, _solver_state_ranges(A, b))
+                    except CheckpointCorruptError as ce:
+                        # a rotted checkpoint degrades the restart to scratch
+                        st = None
+                        source["checkpoint_corrupt"] = str(ce)
+                    if st is not None:
+                        meta_ = st.get("meta", {})
+                        if all(k in st for k in ("x", "r", "p")) and "rs" in meta_ and meta_.get("method") == method:
+                            state = st
+                            how = "last checkpoint (exact recurrence)"
+                            source["from"] = "checkpoint_state"
+                        else:
+                            x0 = st["x"]
+                            how = "checkpointed iterate (Krylov restart)"
+                            source["from"] = "checkpoint_iterate"
+                        source["checkpoint_iteration"] = int(meta_.get("it", 0))
+                        ledger["checkpoint_restarts"] += 1
+            ledger["restart_sources"].append(source)
+            print(f"[partitionedarrays_jl_tpu_torch] {method}: {type(e).__name__}: {e}: restart {restarts}/"
+                  f"{max_restarts} from " + how, file=sys.stderr, flush=True)
+
+
+def _solve_with_recovery_chunked(A, b, method, ckpt, every, max_restarts, minv, x0, tol, maxiter, verbose, sdc):
+    """The device recovery loop (solvers.py:2477-2611): the device solve in
+    ``every``-iteration chunks, the iterate checkpointed between chunks;
+    convergence is judged against the first chunk's initial residual, so
+    the chunked run answers the unchunked run's question."""
+    import sys
+
+    from ..parallel.checkpoint import CheckpointCorruptError, load_solver_state
+    from ..utils.health import PartLossError, SolverHealthError
+
+    maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    chunk = max(1, int(every)) if ckpt is not None else maxiter
+    x = x0.copy() if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+    solver = pcg if method == "pcg" else cg
+    kw = {"minv": minv} if method == "pcg" else {}
+    done = restarts = 0
+    failures, residuals = [], []
+    rs0 = info = None
+    ledger = _new_recovery_ledger()
+    while done < maxiter:
+        try:
+            ledger["attempts"] += 1
+            x_new, info = solver(A, b, x0=x, tol=tol, maxiter=min(chunk, maxiter - done), verbose=verbose,
+                                 sdc=sdc, **kw)
+            _ledger_fold_sdc(ledger, info.get("sdc"))
+        except PartLossError as e:
+            failures.append(_failure(e))
+            _ledger_fold_sdc(ledger, e.diagnostics.get("sdc"))
+            raise
+        except SolverHealthError as e:
+            failures.append(_failure(e))
+            _ledger_fold_sdc(ledger, e.diagnostics.get("sdc"))
+            if restarts >= max_restarts:
+                raise
+            restarts += 1
+            # with no clean checkpoint the run continues from the last
+            # completed chunk's iterate
+            source = {"failure": type(e).__name__, "from": "retained_iterate"}
+            if ckpt is not None and ckpt.has_state():
+                try:
+                    st = load_solver_state(ckpt.directory, _solver_state_ranges(A, b))
+                except CheckpointCorruptError as ce:
+                    st = None
+                    source["checkpoint_corrupt"] = str(ce)
+                if st is not None:
+                    x = st["x"]
+                    done = int(st["meta"].get("it", done))
+                    source["from"] = "checkpoint_iterate"
+                    source["checkpoint_iteration"] = done
+                    ledger["checkpoint_restarts"] += 1
+            ledger["restart_sources"].append(source)
+            print(f"[partitionedarrays_jl_tpu_torch] {method} (chunked): {type(e).__name__}: {e}: restart "
+                  f"{restarts}/{max_restarts}", file=sys.stderr, flush=True)
+            continue
+        x = x_new
+        if rs0 is None:
+            rs0 = float(info["residuals"][0]) if len(info["residuals"]) else 0.0
+        done += int(info["iterations"])
+        residuals.extend(float(v) for v in info["residuals"][1:])
+        final = float(info["residuals"][-1]) if len(info["residuals"]) else 0.0
+        if final <= tol * max(1.0, rs0):
+            break
+        if int(info["iterations"]) == 0:
+            break  # the chunk made no progress
+        if ckpt is not None:
+            ckpt.save_state({"x": x}, {"method": method, "it": done, "tol": tol})
+    if ckpt is not None:
+        ckpt.wait()
+    final = residuals[-1] if residuals else (rs0 or 0.0)
+    out = krylov_info(
+        done, [rs0 or 0.0] + residuals, final <= tol * max(1.0, rs0 or 0.0), tol, b.dtype, False,
+        final_rel=_final_true_rel(A, x, b, final / max(1.0, rs0 or 1.0), rs0 or 0.0, tol),
+    )
+    out["restarts"] = restarts
+    if failures:
+        out["failures"] = failures
+    out["recovery"] = ledger
+    return x, out

@@ -5,7 +5,7 @@ from .backends import (
     unzip,
 )
 from .collectives import (
-    emit, exchange, exchange_into, gather, gather_all, iscan, iscan_all, iscan_main, preduce, reduce_all,
+    ERROR_DISCOVER_PARTS_SND, abft_exchanges, discover_parts_snd, emit, exchange, exchange_into, gather, gather_all, iscan, iscan_all, iscan_main, preduce, reduce_all,
     reduce_main, scatter, sum_parts, xscan, xscan_all, xscan_main,
 )
 from .exchanger import Exchanger, allocate_rcv_buffer, allocate_snd_buffer, empty_exchanger, exchange_values
@@ -32,11 +32,22 @@ from .psparse import (
 from .ptimers import PTimer, print_timer, tic, toc
 from .pvector import (
     GlobalViewPart, LocalViewPart, PVector, assemble, async_assemble, chebyshev, cityblock, euclidean,
-    exchange_pvector, global_view, local_view, minkowski, sqeuclidean,
+    exchange_pvector, global_view, local_view, minkowski, pvector, sqeuclidean,
+)
+from .faults import FaultSpec, FaultState, active_fault_state, faults_active, inject_faults
+from .checkpoint import (
+    CheckpointCorruptError, CheckpointShapeError, SolverCheckpointer, load_checkpoint, load_psparse,
+    load_psparse_sharded, load_pvector, load_pvector_sharded, load_solver_state, save_checkpoint, save_psparse,
+    save_psparse_sharded, save_pvector, save_pvector_sharded,
 )
 from .sequential import SequentialBackend, sequential
 
 __all__ = [
+    "CheckpointCorruptError", "CheckpointShapeError", "ERROR_DISCOVER_PARTS_SND", "FaultSpec", "FaultState",
+    "SolverCheckpointer", "abft_exchanges", "active_fault_state", "discover_parts_snd", "faults_active",
+    "inject_faults", "load_checkpoint", "load_psparse", "load_psparse_sharded", "load_pvector",
+    "load_pvector_sharded", "load_solver_state", "pvector", "save_checkpoint", "save_psparse",
+    "save_psparse_sharded", "save_pvector", "save_pvector_sharded",
     "MAIN", "AbstractBackend", "AbstractPData", "Exchanger", "ExtendedIndexRange", "GPUBackend", "GPUData",
     "GlobalViewPart", "LocalViewPart", "PRange", "PSparseMatrix", "PTimer", "PVector", "SequentialBackend",
     "add_gid", "add_gids", "allocate_rcv_buffer", "allocate_snd_buffer", "assemble", "async_assemble",

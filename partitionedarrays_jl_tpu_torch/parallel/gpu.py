@@ -307,7 +307,13 @@ def _slot_index(idx: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     return idx if xv.dim() == 2 else idx[..., None].expand(*idx.shape, xv.shape[2])
 
 
-def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
+#: halo exchanges (`exchange_` calls) and their colour rounds since the
+#: last reset: the structural count the ABFT launch-parity checks compare
+#: (the rounds are eager torch ops, which `dia.LAUNCHES` does not count)
+EXCHANGES = {"calls": 0, "rounds": 0}
+
+
+def exchange_(plan, xv: torch.Tensor, combine: str = "set", abft: bool = False):
     """The plan's exchange on a stacked ``(P, W)`` tensor, or a ``(P, W,
     K)`` slab of K columns, in place (tpu.py:_shard_exchange): combine
     ``set`` is the owner -> ghost halo update; ``add`` (over a reversed
@@ -315,16 +321,36 @@ def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
     the ghost region. A box plan runs `gpu_box.box_exchange_`; the generic
     plan runs its colour rounds, the trash slot zeroed after every round.
     A slab moves the same slots in the same order for every column, so
-    column k of a slab exchange is the exchange of column k, bit for bit."""
+    column k of a slab exchange is the exchange of column k, bit for bit.
+
+    ``abft=True`` (generic plan only, tpu.py:617-728) returns ``(xv,
+    delta, scale)``: each round the sender's slab sum travels with its slab
+    and the receiver adds ``|Σ received - shipped sum|`` into ``delta`` and
+    the abs-sums into ``scale``, per part (``(P,)``, or ``(P, K)`` for a
+    slab). The same rounds move the same values: the exchanged tensor is
+    bit for bit the unchecked one's."""
     from .gpu_box import BoxExchangePlan, box_exchange_
 
     check(combine in ("set", "add"), "exchange_: combine is 'set' or 'add'")
+    EXCHANGES["calls"] += 1
     if isinstance(plan, BoxExchangePlan):
+        check(not abft, "ABFT exchange checksums require the generic plan")
+        EXCHANGES["rounds"] += plan.n_rounds if hasattr(plan, "n_rounds") else 1
         return box_exchange_(plan, xv, combine)
     trash = plan.layout.trash
+    if abft:
+        delta = xv.new_zeros((xv.shape[0],) + tuple(xv.shape[2:]))
+        scale = xv.new_zeros((xv.shape[0],) + tuple(xv.shape[2:]))
     for r in range(plan.R):
+        EXCHANGES["rounds"] += 1
         mask = plan.snd_mask[r] if xv.dim() == 2 else plan.snd_mask[r][..., None]
-        buf = torch.where(mask, xv.gather(1, _slot_index(plan.snd_idx[r], xv)), 0)[plan.src_of[r]]
+        sent = torch.where(mask, xv.gather(1, _slot_index(plan.snd_idx[r], xv)), 0)
+        buf = sent[plan.src_of[r]]
+        if abft:
+            # the sender's sum rides with its slab; the receiver re-sums
+            rcs = sent.sum(dim=1)[plan.src_of[r]]
+            delta = delta + (buf.sum(dim=1) - rcs).abs()
+            scale = scale + buf.abs().sum(dim=1) + rcs.abs()
         if combine == "add":
             xv.scatter_add_(1, _slot_index(plan.rcv_idx[r], xv), buf)
         else:
@@ -332,7 +358,7 @@ def exchange_(plan, xv: torch.Tensor, combine: str = "set") -> torch.Tensor:
         xv[:, trash] = 0  # keep the trash slot clean
     if combine == "add":
         xv[:, plan.layout.g0 :] = 0  # ghost contributions now live on owners
-    return xv
+    return (xv, delta, scale) if abft else xv
 
 
 def make_exchange_fn(rows: PRange, backend: GPUBackend) -> Callable:
@@ -479,6 +505,10 @@ class DeviceMatrix:
         check(lowering in LOWERINGS, f"DeviceMatrix: lowering is one of {LOWERINGS}, got {lowering!r}")
         #: the solve functions built on this operator (`_krylov_fn_for`)
         self._fn_cache = {}
+        #: the ABFT checksum row, staged by the first SDC solve that asks
+        #: for it (`abft_row`)
+        self.abft_w = None
+        self._source = A
         if strict:
             # strict mode: the ELL lowering, whose two-phase left-to-right
             # fold is the host's csr_spmv + mul_into order, and the generic
@@ -684,6 +714,31 @@ class DeviceMatrix:
         self.oh_vals = torch.from_numpy(oh_vals).to(dev)
         self.oh_cols = torch.from_numpy(oh_cols).to(dev)
 
+    def abft_row(self) -> torch.Tensor:
+        """The ABFT checksum row ``w = 1ᵀA`` per part over the column frame,
+        ``(P, Wc)`` float64 (tpu.py:1560-1571, :1729-1790): ``w[p, slot(j)]
+        = Σ_i A_p[i, j]`` over part p's owned rows, the staged ``(c·A)`` of
+        the identity ``c·(A x) == (c·A)·x``, accumulated in float64 on the
+        host (its accuracy is the detection floor), the trash slot 0.
+        Staged once per operator, by the first SDC solve with ABFT."""
+        if self.abft_w is None:
+            A, cl = self._source, self.col_layout
+            oo = A.owned_owned_values.part_values()
+            oh = A.owned_ghost_values.part_values()
+            w = np.zeros((cl.P, cl.W), dtype=np.float64)
+            for p in range(cl.P):
+                M = oo[p]
+                if M.nnz:
+                    w[p, cl.o0 : cl.o0 + M.shape[1]] += np.bincount(
+                        M.indices, weights=M.data.astype(np.float64), minlength=M.shape[1])
+                Mh = oh[p]
+                if Mh.nnz:
+                    np.add.at(w[p], cl.hid_slots[p], np.bincount(
+                        Mh.indices, weights=Mh.data.astype(np.float64), minlength=len(cl.hid_slots[p])))
+            w[:, cl.trash] = 0.0
+            self.abft_w = torch.from_numpy(w).to(self.backend.device)
+        return self.abft_w
+
     @classmethod
     def _detect_dia(cls, A, oo, P, noids, no_max):
         """Band and class analysis of A_oo (tpu.py:_detect_dia, dense-
@@ -824,7 +879,7 @@ def _side_stream(device: torch.device):
     return _SIDE_STREAMS[device]
 
 
-def _overlapped(compute: Callable, plan, xv: torch.Tensor) -> torch.Tensor:
+def _overlapped(compute: Callable, plan, xv: torch.Tensor, abft: bool = False):
     """``compute()`` (the A_oo product, which reads the owned slots of xv
     only) on the current stream while the halo exchange of xv (which
     writes its ghost and trash slots only) runs on a side stream, forked
@@ -832,19 +887,20 @@ def _overlapped(compute: Callable, plan, xv: torch.Tensor) -> torch.Tensor:
     graph captures both branches (tpu.py:866-878, :2827-2846: the
     interior/boundary split of ``PA_TPU_OVERLAP=1``). The two touch
     disjoint slots, so the values are those of the sequential schedule.
-    Off the card the two run one after the other."""
+    Off the card the two run one after the other. Returns ``(y, ex)``, ex
+    the exchange's checksum pair under ``abft`` (else None)."""
     if xv.device.type != "cuda":
         y = compute()
-        exchange_(plan, xv)
-        return y
+        ex = exchange_(plan, xv, abft=abft)
+        return y, (ex[1:] if abft else None)
     main = torch.cuda.current_stream(xv.device)
     side = _side_stream(xv.device)
     side.wait_stream(main)
     with torch.cuda.stream(side):
-        exchange_(plan, xv)
+        ex = exchange_(plan, xv, abft=abft)
     y = compute()
     main.wait_stream(side)
-    return y
+    return y, (ex[1:] if abft else None)
 
 
 def _can_overlap(dA: DeviceMatrix, fused: bool) -> bool:
@@ -856,7 +912,8 @@ def _can_overlap(dA: DeviceMatrix, fused: bool) -> bool:
 
 
 def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
-               plain: bool = False, block: bool = False, overlap: bool = False):
+               plain: bool = False, block: bool = False, overlap: bool = False,
+               abft: bool = False, audit: bool = False):
     """The stacked SpMV (tpu.py:_spmv_body): the A_oo product first (it
     reads owned slots only), then the halo exchange of the operand, then
     the A_oh contribution on the boundary rows and the ghost region of the
@@ -889,15 +946,32 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
     for both. It changes the schedule, not the values: every product is
     ``torch.equal`` to ``overlap=False``'s. The coded fused body's operand
     p is an output of the product's own kernel (K2), so its exchange can
-    only follow it there (`_can_overlap`)."""
+    only follow it there (`_can_overlap`).
+
+    The SDC modes (tpu.py:2879-2889, :3034-3047, :3258-3297): ``abft``
+    runs the operand's halo exchange with its round checksums and every
+    body returns them after its usual outputs (``body(x) -> (y, delta,
+    scale)``, ``body_pfold(...) -> (y, p, delta, scale)``, the per-part
+    pairs of `exchange_`); ``audit`` gives ``body_pfold`` the keywords
+    ``aud`` and ``audx``: where the device flag ``aud`` is set the SpMV
+    streams ``audx`` (the iterate, for the true-residual audit) instead of
+    the folded direction, through the body's one product, and the body
+    returns that operand as p. Either mode keeps K2's fold out of the
+    kernel, as the JAX package keeps its fold kernel off: the fold is the
+    eager ``fold_k``, whose products and adds are K2's
+    (`ops/dia.py:_fold`), so p is K2's p bit for bit, and K1
+    (`dia_coded_spmv`, its slab form with ``block``) computes the product,
+    K2's product bit for bit."""
     from ..ops import irregular as irr
 
+    sdc_fold = abft or audit
     op = dA.coded
     wy = dA.row_layout.W
     g0 = dA.row_layout.g0
     o0 = dA.row_layout.o0
     plan = dA.col_plan
     check(not (block and axpy), "the pipelined body is single-vector only")
+    check(not (axpy and (abft or audit)), "the pipelined body has no SDC-defended form")
     if dA.dia_mode == "coded":
         if block:
             spmv_k = dia.dia_coded_spmm_plain if plain else dia.dia_coded_spmm
@@ -925,28 +999,30 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
             def spmv_k(_op, xv, width):
                 return aoo(xv, width)
 
-        def fold_k(rv, pv, beta, minv=None):
-            # beta*pprev, then + r (or + minv*r): the rounding of
-            # `dia._fold`, in two passes over the band; rows past a part's
-            # owned count are 0 in r and pprev, so they fold to 0
-            band = slice(o0, o0 + n)
-            p = torch.empty_like(rv)
-            p[:, :o0] = 0
-            p[:, o0 + n :] = 0
-            pb = p[:, band]
-            torch.mul(pv[:, band], beta, out=pb)
-            if minv is None:
-                pb.add_(rv[:, band])
-            else:
-                pb.add_((minv[:, band, None] if block else minv[:, band]) * rv[:, band])
-            return p
-
         def axpy_k(_op, xv, xacc, pprev, alpha, width, live=None):
             band = slice(o0, o0 + n)
             on = own if live is None else own & (live.reshape(()) != 0)
             xb = xacc[:, band]
             xb.copy_(torch.where(on, xb + alpha * pprev[:, band], xb))
             return spmv_k(_op, xv, width)
+
+    def fold_k(rv, pv, beta, minv=None):
+        # beta*pprev, then + r (or + minv*r): the rounding of `dia._fold`
+        # (K2's), in two passes over the band; rows past a part's owned
+        # count are 0 in r and pprev, so they fold to +0, as K2's masked
+        # fold gives them
+        n = dA.row_layout.no_max
+        band = slice(o0, o0 + n)
+        p = torch.empty_like(rv)
+        p[:, :o0] = 0
+        p[:, o0 + n :] = 0
+        pb = p[:, band]
+        torch.mul(pv[:, band], beta, out=pb)
+        if minv is None:
+            pb.add_(rv[:, band])
+        else:
+            pb.add_((minv[:, band, None] if block else minv[:, band]) * rv[:, band])
+        return p
 
     ell_b = irr.ell_spmv_boundary_plain if plain else irr.ell_spmv_boundary
     bsr_b = irr.bsr_spmv_boundary_plain if plain else irr.bsr_spmv_boundary
@@ -963,18 +1039,27 @@ def _spmv_body(dA: DeviceMatrix, pfold: bool = False, axpy: bool = False,
         return y
 
     def _tail(compute, xv):
-        # the A_oo product, the operand's halo exchange, the A_oh finish
+        # the A_oo product, the operand's halo exchange, the A_oh finish;
+        # with abft also the exchange's checksum pair
         if overlap:
-            y = _overlapped(compute, plan, xv)
+            y, ex = _overlapped(compute, plan, xv, abft)
         else:
             y = compute()
-            exchange_(plan, xv)
-        return _boundary(y, xv)
+            ex = exchange_(plan, xv, abft=abft)
+            ex = ex[1:] if abft else None
+        y = _boundary(y, xv)
+        return (y,) + tuple(ex) if abft else y
 
     def body(xv):
         return _tail(lambda: spmv_k(op, xv, wy), xv)
 
-    def body_pfold(rv, pv, beta, minv=None):
+    def body_pfold(rv, pv, beta, minv=None, aud=None, audx=None):
+        if sdc_fold:
+            p = fold_k(rv, pv, beta, minv)
+            if aud is not None:
+                p = torch.where(aud, audx, p)  # the audit trip streams A x
+            out = _tail(lambda: spmv_k(op, p, wy), p)
+            return (out[0], p) + out[1:] if abft else (out, p)
         if dA.dia_mode == "coded":
             y, p = pfold_k(op, rv, pv, beta, wy, minv=minv)
             exchange_(plan, p)
@@ -1024,6 +1109,25 @@ def _pdot_factory(o0: int, no_max: int, strict: bool = False, plain: bool = Fals
     return pdot
 
 
+def _pdot_extra_factory(o0: int, no_max: int, strict: bool = False, plain: bool = False, block: bool = False):
+    """The deterministic dot with extra per-part lanes folded beside it
+    (tpu.py:2616, the ABFT and audit transport): ``pdotx(a, b, extras) ->
+    (a·b, folded extras)``, ``extras`` a tuple of per-part partials ``(P,)``
+    (``(P, K)`` with ``block``), each folded in part order as the dot's own
+    partials are. The dot is `_pdot_factory`'s (`_block_pdot_factory`'s)
+    call itself, so carrying the lanes never moves its bits."""
+    pdot = _block_pdot_factory(o0, no_max, plain, strict) if block else _pdot_factory(o0, no_max, strict, plain)
+
+    def pdotx(a, b, extras=()):
+        d = pdot(a, b)
+        if not extras:
+            return d, ()
+        folded = _fold_parts(torch.stack(extras, dim=-1))
+        return d, tuple(folded[..., i] for i in range(len(extras)))
+
+    return pdotx
+
+
 def _fold_parts(part: torch.Tensor) -> torch.Tensor:
     """Per-part partials ``(P, ...)`` added left to right: the part order
     of every deterministic dot of the port."""
@@ -1069,6 +1173,46 @@ def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool 
     return bdot
 
 
+def _sdc_config(sdc, maxiter: int) -> Optional[dict]:
+    """The device loops' SDC defense from an `SDCConfig` (tpu.py:1011-1052):
+    None when inactive (the loop is then exactly the undefended one), else
+    ``abft``, ``ae`` (the audit period), ``R`` and ``mrb`` (ring depth and
+    rollback budget), ``fault`` (the parsed device fault clause, or None)
+    and ``trip_max``, the bound on loop trips: the iterations, the audit
+    trips and the replays of ``mrb + 1`` rollbacks (each rewinds at most
+    R·ae iterations, or to the start without audits); ``key`` joins the
+    solve cache's key."""
+    from ..utils.health import resolve_sdc
+    from .faults import parse_device_fault
+
+    sdc = resolve_sdc(sdc)
+    if sdc is None:
+        return None
+    ae, R, mrb = sdc.every, int(sdc.rollback_depth), int(sdc.max_rollbacks)
+    fault = parse_device_fault(sdc.device_fault)
+    audits = (maxiter // ae + 2) if ae > 0 else 0
+    replay = (R * ae + 2) if ae > 0 else maxiter + 1
+    return {
+        "abft": bool(sdc.abft), "ae": ae, "R": R, "mrb": mrb, "fault": fault, "sdc": sdc,
+        "trip_max": int(min(maxiter + audits + (mrb + 1) * replay, 2**31 - 1)),
+        "key": (bool(sdc.abft), ae, R, mrb, sdc.abft_tol, sdc.audit_tol,
+                tuple(sorted(fault.items())) if fault else None),
+    }
+
+
+def _sdc_tolerances(cfg: dict, dtype, P: int, no_max: int):
+    """The detection thresholds (tpu.py:1055-1073): the SpMV checksum
+    compares two sums of n terms, whose rounding grows ~ sqrt(n)·eps of the
+    terms, so its relative threshold is 100·eps·sqrt(P·no_max) (or
+    ``abft_tol``); the audit's is `SDCConfig.audit_tolerance`."""
+    sdc = cfg["sdc"]
+    if sdc.abft_tol:
+        cs_tol = float(sdc.abft_tol)
+    else:
+        cs_tol = 100.0 * float(torch.finfo(dtype).eps) * float(np.sqrt(max(1, P * no_max)))
+    return cs_tol, sdc.audit_tolerance(np.dtype(f"float{torch.finfo(dtype).bits}"))
+
+
 def _sstep_conflict(other: str):
     """The typed refusal of an explicit s-step depth >= 2 meeting a body
     form it does not compose with (tpu.py:3418-3428)."""
@@ -1081,15 +1225,31 @@ def _sstep_conflict(other: str):
     )
 
 
-def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None):
+def _sdc_conflict(other: str):
+    """The typed refusal of the SDC defense meeting a body with no defended
+    form (tpu.py:3525-3547)."""
+    from ..utils.health import LoweringConflictError
+
+    raise LoweringConflictError(
+        f"make_cg_fn: the {other} body has no SDC-defended form; drop sdc or {other}",
+        diagnostics={"conflict": ("sdc", other)},
+    )
+
+
+def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None, sdc: bool = False):
     """The CG body `make_cg_fn` builds, as ``(sstep, fused)`` (tpu.py:3415-3500
     without the environment): an explicit ``sstep`` >= 2 refuses
-    ``fused=True``, ``pipelined``, ``precond``, a block of right-hand sides
-    and strict mode with `LoweringConflictError`, and is an unfused body;
-    0 and 1 are the textbook forms. Otherwise ``fused`` defaults to on
-    unless ``pipelined`` or ``strict``."""
+    ``fused=True``, ``pipelined``, ``precond``, a block of right-hand sides,
+    strict mode and (``sdc``) the SDC defense with `LoweringConflictError`,
+    and is an unfused body; 0 and 1 are the textbook forms. Otherwise
+    ``fused`` defaults to on unless ``pipelined`` or ``strict``; the
+    pipelined body refuses the SDC defense."""
     s = int(sstep or 0)
     s = s if s >= 2 else 0
+    if s and sdc:
+        _sstep_conflict("the SDC defense (sdc=)")
+    if pipelined and sdc:
+        _sdc_conflict("pipelined")
     if s:
         if strict:
             _sstep_conflict("strict (the textbook body is the bitwise oracle)")
@@ -1110,7 +1270,7 @@ def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None):
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
                pipelined: bool = False, plain: bool = False, graph: bool = True,
                block: Optional[int] = None, precond: bool = False, sstep: Optional[int] = None,
-               overlap: bool = False) -> Callable:
+               overlap: bool = False, sdc=None) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``, run as a device-resident loop
     (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
@@ -1161,13 +1321,27 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     ``precond`` and a strict lowering with `LoweringConflictError` (a
     block of right-hand sides too: `_krylov_fn_for`). ``overlap`` runs
     every SpMV with the interior/boundary overlap tail
-    (`_spmv_body(overlap=True)`): the same values, another schedule."""
+    (`_spmv_body(overlap=True)`): the same values, another schedule.
+
+    ``sdc`` (an active `SDCConfig`) builds the SDC-defended loop of the
+    standard, fused or Jacobi body instead (`gpu_sdc.make_sdc_cg_fn`,
+    tpu.py:3519-4052), whose ``fn`` also returns the (5,) counter vector
+    (``fn.has_sdc``); with ``abft`` the operator's checksum row is staged
+    (`DeviceMatrix.abft_row`). The s-step and pipelined bodies have no
+    defended form and refuse it with `LoweringConflictError`
+    (tpu.py:3525-3547); the defended loop runs without the overlap
+    tail."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
     strict = dA.strict
-    sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, strict)
+    cfg = _sdc_config(sdc, maxiter)
+    sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, strict, sdc=cfg is not None)
     overlap = bool(overlap) and _can_overlap(dA, fused)
+    if cfg is not None:
+        from .gpu_sdc import make_sdc_cg_fn
+
+        return make_sdc_cg_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block)
     if sstep:
         return _make_sstep_cg_fn(dA, tol, maxiter, sstep, plain=plain, graph=graph, block=block,
                                  overlap=overlap)
@@ -1427,7 +1601,8 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
 
 def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
                      precond: bool = False, fused: Optional[bool] = None, plain: bool = False,
-                     graph: bool = True, block: Optional[int] = None, overlap: bool = False) -> Callable:
+                     graph: bool = True, block: Optional[int] = None, overlap: bool = False,
+                     sdc=None) -> Callable:
     """Block (multi-RHS) CG over ``(P, W, K)`` slabs, K = ``rhs_batch``
     right-hand sides against one operator (tpu.py:make_block_cg_fn,
     :4362-5020, its fused and standard bodies, with and without
@@ -1462,7 +1637,9 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     and r, and r.r, p.q and, with ``precond``, r.z of the stored z =
     minv*r are E3's block dots (`_block_pdot_factory(strict=True)`), so
     column k takes the host's strict solo loop of column k bit for bit.
-    ``overlap`` as in `make_cg_fn`."""
+    ``overlap`` as in `make_cg_fn`; ``sdc`` builds the SDC-defended block
+    loop (`gpu_sdc.make_sdc_block_cg_fn`, tpu.py:4411-4860): (K,) checksum
+    and audit lanes, a rollback restores the whole block."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
@@ -1471,6 +1648,11 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     strict = dA.strict
     fused = (not strict) if fused is None else bool(fused)
     overlap = bool(overlap) and _can_overlap(dA, fused)
+    cfg = _sdc_config(sdc, maxiter)
+    if cfg is not None:
+        from .gpu_sdc import make_sdc_block_cg_fn
+
+        return make_sdc_block_cg_fn(dA, tol, maxiter, K, cfg, fused, precond, plain, graph, block)
     body = _spmv_body(dA, plain=plain, block=True, overlap=overlap)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True, overlap=overlap) if fused else None
     sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
@@ -1575,7 +1757,7 @@ STATS = {"solve_fns": 0}
 def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, precond: bool = False,
                    pipelined: bool = False, fused: Optional[bool] = None, plain: bool = False,
                    rhs_batch: Optional[int] = None, sstep: Optional[int] = None, overlap: bool = False,
-                   **options) -> Callable:
+                   sdc=None, **options) -> Callable:
     """The solve function of ``method`` on ``dA``, cached on it
     (tpu.py:6308-6392, ``dA._cg_cache``): one function, and so one
     `gpu_loop.DeviceLoop` with its captured graph, per key. The key holds
@@ -1584,26 +1766,31 @@ def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, prec
     conflicts of an explicit s-step depth), the overlap tail where the body
     has one (`_can_overlap`; elsewhere the key is ``overlap=False``'s), plain, the
     block width K and the method's own options (GMRES's restart, Chebyshev's
-    bounds and leg); the port has no trace ring or SDC keys. A hit copies
-    the next b and x0 into the loop's buffers and replays its graph.
+    bounds and leg), and the SDC config's key (`_sdc_config`), so a
+    defended solve never replays an undefended loop's graph, nor the
+    reverse (the port has no trace ring). A hit copies the next b and x0
+    into the loop's buffers and replays its graph.
     Methods: ``"cg"`` (`make_cg_fn`, or with ``rhs_batch``
     `make_block_cg_fn`), ``"bicgstab"``, ``"gmres"``, ``"minres"``,
     ``"chebyshev"`` (`gpu_krylov.py`)."""
     from . import gpu_krylov as kr
 
     eff_sstep = 0
+    cfg = _sdc_config(sdc, maxiter)
+    check(method == "cg" or cfg is None, f"_krylov_fn_for: {method} has no SDC-defended loop")
     if method == "cg":
-        eff_sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, dA.strict, rhs_batch)
-    overlap = method == "cg" and bool(overlap) and _can_overlap(dA, fused)
+        eff_sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, dA.strict, rhs_batch,
+                                            sdc=cfg is not None)
+    overlap = method == "cg" and cfg is None and bool(overlap) and _can_overlap(dA, fused)
     key = (method, float(tol), int(maxiter), bool(precond), bool(pipelined), fused, bool(plain),
-           rhs_batch, eff_sstep, bool(overlap)) + tuple(sorted(options.items()))
+           rhs_batch, eff_sstep, bool(overlap), cfg["key"] if cfg else None) + tuple(sorted(options.items()))
     if key not in dA._fn_cache:
         if method == "cg" and rhs_batch is None:
             fn = make_cg_fn(dA, tol, maxiter, fused=fused, pipelined=pipelined, plain=plain, precond=precond,
-                            sstep=eff_sstep, overlap=overlap)
+                            sstep=eff_sstep, overlap=overlap, sdc=sdc)
         elif method == "cg":
             fn = make_block_cg_fn(dA, tol, maxiter, rhs_batch, precond=precond, fused=fused, plain=plain,
-                                  overlap=overlap)
+                                  overlap=overlap, sdc=sdc)
         elif method == "bicgstab":
             fn = kr.make_bicgstab_fn(dA, tol, maxiter, precond=precond, plain=plain)
         elif method == "gmres":
@@ -1646,18 +1833,58 @@ def _block_on_cols_layout(Bs, dA: DeviceMatrix, with_ghosts: bool = False) -> to
     return torch.from_numpy(stacked).to(dA.backend.device)
 
 
+def _decode_sdc_outputs(name: str, sdcvec, it=None) -> dict:
+    """The one decode of a defended loop's SDC output lanes (tpu.py:5783-5830,
+    shared by `_run_krylov` and `gpu_block_cg`): returns ``info["sdc"]``
+    (``detections``, ``rollbacks``, ``escalations``, ``audit_iterations``,
+    ``trips``), or raises `SilentCorruptionError` with them under
+    ``diagnostics["sdc"]`` when the loop latched its escalation: corruption
+    kept firing past the in-memory rollback budget."""
+    from ..utils.health import SilentCorruptionError
+    from .gpu_sdc import SDC_LANES
+
+    v = dict(zip(SDC_LANES, (int(t) for t in np.asarray(sdcvec))))
+    sdc_info = {"detections": v["detections"], "rollbacks": v["rollbacks"],
+                "escalations": int(bool(v["escalations"])), "audit_iterations": v["audit_iterations"],
+                "trips": v["trips"]}
+    if sdc_info["escalations"]:
+        diag = {"context": name, "sdc": sdc_info}
+        if it is not None:
+            diag["iteration"] = int(it)
+        raise SilentCorruptionError(
+            f"{name}: in-graph SDC detection exhausted the rollback budget ({sdc_info['rollbacks']} rollbacks, "
+            f"{sdc_info['detections']} detections)" + (f" at device iteration {it}" if it is not None else "")
+            + "; escalating to checkpoint restart",
+            diagnostics=diag,
+        )
+    return sdc_info
+
+
+def _exchange_plan_name(dA: DeviceMatrix) -> str:
+    """The exchange plan a lowering runs: ``"box"`` or ``"generic"``."""
+    return "box" if dA.col_layout.box_info is not None else "generic"
+
+
 def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
                 verbose: bool, solve: Callable, name: str, box: bool = True,
                 minv: Optional[PVector] = None, dA: Optional[DeviceMatrix] = None,
-                **extra) -> Tuple[PVector, dict]:
+                health: bool = True, **extra) -> Tuple[PVector, dict]:
     """Shared device-Krylov driver (tpu.py:_run_krylov): stage b and x0 in
     the column layout of A's lowering ``dA`` (by default the one for
     ``box``), and a Jacobi ``minv`` (its owned values), run ``solve(b, x0[, minv]) -> (x, rs, rs0, it,
-    history)``, lift the result back to a host PVector and build the info
+    history[, sdc])``, lift the result back to a host PVector and build the info
     dict: the history cut to ``it + 1`` entries (at most its length),
     ``device_loop`` the solve's `fn.stats` (loop form, block, device
-    iterations), and ``extra`` keys merged in."""
+    iterations), and ``extra`` keys merged in.
+
+    A defended loop (``solve.has_sdc``) adds ``info["sdc"]`` and raises
+    `SilentCorruptionError` on its escalation (`_decode_sdc_outputs`). With
+    ``health`` (the JAX package's ``PA_HEALTH_CHECKS``) a non-finite rs or
+    rs0, which the loop's in-graph finite test stopped on, raises
+    `NonFiniteError` with ``diagnostics["iteration"]`` (tpu.py:5903-5924)
+    instead of returning a NaN answer marked only as not converged."""
     from ..models.solvers import _final_true_rel
+    from ..utils.health import NonFiniteError
 
     backend = b.values.backend
     floor_warned = warn_tol_below_floor(tol, b.dtype, name=name)
@@ -1666,13 +1893,25 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
     db = _b_on_cols_layout(b, dA)
     dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
     args = (db, dx0.data) if minv is None else (db, dx0.data, _b_on_cols_layout(minv, dA).to(db.dtype))
-    x_data, rs, rs0, it, hist = solve(*args)
+    out = solve(*args)
+    x_data, rs, rs0, it, hist = out[:5]
     hist = hist[: min(it + 1, len(hist))]  # entries past the last iteration are NaN
     x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
     rs, rs0 = float(rs), float(rs0)
     if verbose:
         for i, res in enumerate(hist[1:], start=1):
             print(f"{name} it={i} residual={res:.3e}")
+    if getattr(solve, "has_sdc", False):
+        extra["sdc"] = _decode_sdc_outputs(name, out[5], it=it)
+    if health and not (np.isfinite(rs) and np.isfinite(rs0)):
+        # the loop stopped on its in-graph finite test, one iteration after
+        # the poison entered
+        raise NonFiniteError(
+            f"{name}: non-finite residual after {it} device iterations (rs={rs!r}): the solver state was "
+            "NaN/Inf-poisoned",
+            diagnostics={"context": name, "iteration": it, "rs": rs,
+                         "residual_tail": [float(v) for v in hist[-4:]]},
+        )
     converged = bool(np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)))
     info = krylov_info(
         it, hist, converged, tol, b.dtype, floor_warned,
@@ -1701,6 +1940,8 @@ def gpu_cg(
     lowering: str = "auto",
     sstep: Optional[int] = None,
     overlap: bool = False,
+    health: bool = True,
+    sdc=None,
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
@@ -1717,16 +1958,28 @@ def gpu_cg(
     lowering; ``overlap`` the interior/boundary overlap tail on every body
     whose schedule has one (`_can_overlap`).
     The info dict records the body under ``cg_body`` (``"sstep<s>"`` for
-    the s-step body) and the lowering under ``lowering``."""
+    the s-step body), the lowering under ``lowering`` and the exchange plan
+    under ``exchange_plan``.
+
+    ``sdc`` (an `SDCConfig`) runs the in-graph SDC defense (`gpu_sdc`) and
+    adds ``info["sdc"]``; under ``abft`` a Cartesian partition takes the
+    generic exchange plan (the checksummed rounds are the generic plan's,
+    tpu.py:791-805). ``health`` as in `_run_krylov`."""
+    from ..utils.health import resolve_sdc
+
     backend = b.values.backend
     check(isinstance(backend, GPUBackend), "gpu_cg needs a GPU-backend PVector")
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
+    sdc = resolve_sdc(sdc)
+    if sdc is not None and sdc.abft:
+        box = False
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
     solve = _krylov_fn_for(dA, "cg", tol, int(maxiter), precond=minv is not None, pipelined=pipelined,
-                           fused=fused, plain=plain, sstep=sstep, overlap=overlap)
+                           fused=fused, plain=plain, sstep=sstep, overlap=overlap, sdc=sdc)
     name = "pcg" if minv is not None else "cg"
-    return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, cg_body=solve.cg_body,
-                       lowering=dA.lowering, strict=dA.strict)
+    return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, health=health,
+                       cg_body=solve.cg_body, lowering=dA.lowering, strict=dA.strict,
+                       exchange_plan=_exchange_plan_name(dA))
 
 
 def gpu_block_cg(
@@ -1744,6 +1997,7 @@ def gpu_block_cg(
     strict: bool = False,
     lowering: str = "auto",
     overlap: bool = False,
+    sdc=None,
 ) -> Tuple[list, dict]:
     """Device block (multi-RHS) CG on the GPU backend, the counterpart of
     `tpu_block_cg` / `_tpu_block_cg_impl` (tpu.py:6025-6275): solve ``A x_k
@@ -1760,9 +2014,10 @@ def gpu_block_cg(
     ``"report"`` marks them in their column info and verdict and raises
     nothing. ``box``, ``strict`` and ``lowering`` as in `gpu_cg`: on a
     strict lowering every column is the host's strict solo solve of that
-    column, bit for bit."""
+    column, bit for bit. ``sdc`` as in `gpu_cg` (the block's defended
+    loop: per-column lanes, whole-block rollback)."""
     from ..models.solvers import _final_true_rel
-    from ..utils.health import NonFiniteError
+    from ..utils.health import NonFiniteError, resolve_sdc
 
     check(column_errors in ("raise", "report"), "gpu_block_cg: column_errors is 'raise' or 'report'")
     B = list(B)
@@ -1773,9 +2028,12 @@ def gpu_block_cg(
     maxiter = int(maxiter if maxiter is not None else 4 * A.rows.ngids)
     dt = np.result_type(*[b.dtype for b in B])
     name = "block-pcg" if minv is not None else "block-cg"
+    sdc = resolve_sdc(sdc)
+    if sdc is not None and sdc.abft:
+        box = False
     dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
     solve = _krylov_fn_for(dA, "cg", tol, maxiter, precond=minv is not None, fused=fused, plain=plain,
-                           rhs_batch=K, overlap=overlap)
+                           rhs_batch=K, overlap=overlap, sdc=sdc)
     floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
     db = _block_on_cols_layout(B, dA)
     if X0 is None:
@@ -1785,7 +2043,9 @@ def gpu_block_cg(
         check(len(X0) == K, "gpu_block_cg: X0 must hold one start per RHS")
     dx0 = _block_on_cols_layout(X0, dA, with_ghosts=True).to(db.dtype)
     args = (db, dx0) if minv is None else (db, dx0, _b_on_cols_layout(minv, dA).to(db.dtype))
-    x_data, rs, rs0, itk, hist = solve(*args)
+    out = solve(*args)
+    x_data, rs, rs0, itk, hist = out[:5]
+    sdc_info = _decode_sdc_outputs(name, out[5], it=int(itk.max())) if getattr(solve, "has_sdc", False) else None
     rs = rs.cpu().numpy().astype(np.float64)
     rs0 = rs0.cpu().numpy().astype(np.float64)
     xs, columns = [], []
@@ -1838,8 +2098,11 @@ def gpu_block_cg(
         "cg_body": solve.cg_body,
         "lowering": dA.lowering,
         "strict": dA.strict,
+        "exchange_plan": _exchange_plan_name(dA),
         "device_loop": dict(solve.stats),
     }
+    if sdc_info is not None:
+        info["sdc"] = sdc_info
     if floor_warned:
         info["tol_below_dtype_floor"] = True
     return xs, info

@@ -564,7 +564,7 @@ def gpu_bicgstab(A, b, x0=None, tol: float = 1e-8, maxiter: Optional[int] = None
 
 
 def gpu_gmres(A, b, x0=None, restart: int = 30, tol: float = 1e-8, maxiter: Optional[int] = None, minv=None,
-              verbose: bool = False, plain: bool = False):
+              verbose: bool = False, plain: bool = False, health: bool = True):
     """Device restarted GMRES(m), m = ``restart``, on the GPU backend, the
     counterpart of `tpu_gmres` (tpu.py:5593-5622): `make_gmres_fn`'s loop,
     cached on A's lowering; ``minv`` left-preconditions it (the residuals
@@ -575,7 +575,7 @@ def gpu_gmres(A, b, x0=None, restart: int = 30, tol: float = 1e-8, maxiter: Opti
     dA, maxiter = _device_solve("gmres", A, b, maxiter)
     solve = _krylov_fn_for(dA, "gmres", tol, maxiter, precond=minv is not None, plain=plain, restart=int(restart))
     return _run_krylov(A, b, x0, tol, verbose, solve, "gmres", minv=minv, dA=dA, lowering=dA.lowering,
-                       restart=int(restart))
+                       health=health, restart=int(restart))
 
 
 def gpu_minres(A, b, x0=None, tol: float = 1e-8, maxiter: Optional[int] = None, verbose: bool = False,

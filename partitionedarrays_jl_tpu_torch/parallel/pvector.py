@@ -551,3 +551,17 @@ def async_assemble(v: PVector, combine_op=np.add) -> Token:
 
 def exchange_pvector(v: PVector) -> PVector:
     return v.exchange()
+
+
+def pvector(*args, **kwargs) -> PVector:
+    """The constructor dispatcher (pvector.py:557 of the JAX package, the
+    reference's constructor overloads): ``pvector(rows)`` undef,
+    ``pvector(x, rows)`` filled with the scalar x, ``pvector(I, V, rows)``
+    from COO."""
+    if len(args) == 1 and isinstance(args[0], PRange):
+        return PVector.undef(args[0], **kwargs)
+    if len(args) == 2 and isinstance(args[1], PRange) and np.isscalar(args[0]):
+        return PVector.full(args[0], args[1], **kwargs)
+    if len(args) == 3:
+        return PVector.from_coo(args[0], args[1], args[2], **kwargs)
+    raise TypeError(f"no pvector constructor matches arguments {args!r}")

@@ -402,12 +402,54 @@ def sc_ptimer(m, parts):
     }
 
 
+# --- the last two names of the host API: the pvector dispatcher and the
+# discovery guard (pvector.py:557, collectives.py:418-455) ---------------------
+
+
+def sc_pvector_dispatch(m, parts):
+    rows = _ghosted_rows(m, parts)
+    u = m.pvector(rows)
+    f = m.pvector(1.5, rows)
+    I = m.map_parts(lambda p: np.array([3 * p, (3 * p + 3) % 12]), parts)
+    V = m.map_parts(lambda p: np.array([1.0 + p, 10.0]), parts)
+    c = m.pvector(I, V, rows)
+    return {
+        "undef": (str(u.dtype), [len(x) for x in u.values]), "full": [x.tolist() for x in f.values],
+        "coo": [np.asarray(x).tolist() for x in c.values], "bad": _raises(m.pvector, "x", 1, 2, 3),
+    }
+
+
+def sc_discover_parts_snd(m, parts):
+    parts_rcv = m.map_parts(lambda p: np.asarray(RCV[p], dtype=np.int32), parts)
+    flag = m.ERROR_DISCOVER_PARTS_SND
+    before = flag[0]
+    fallback = [np.asarray(v).tolist() for v in m.discover_parts_snd(parts_rcv).part_values()]
+    flag[0] = True
+    try:
+        guarded = _raises(m.discover_parts_snd, parts_rcv)
+    finally:
+        flag[0] = before
+    out = {"fallback": fallback, "guarded": guarded, "flag": flag[0]}
+    if m is not pa:  # the port's keyword sets the guard for one call, either way
+        out["keyword"] = _raises(m.discover_parts_snd, parts_rcv, error_discover_parts_snd=True)
+        flag[0] = True
+        try:
+            out["keyword_off"] = len(list(m.discover_parts_snd(parts_rcv, error_discover_parts_snd=False)
+                                          .part_values()))
+        finally:
+            flag[0] = before
+    else:
+        out["keyword"], out["keyword_off"] = guarded, len(fallback)
+    return out
+
+
 SCENARIOS = {
     f.__name__[3:]: f for f in [
         sc_pvector_constructors, sc_pvector_reductions, sc_pvector_inplace, sc_pvector_copy_into,
         sc_pvector_exchange_assemble, sc_pvector_from_coo, sc_global_view, sc_local_view, sc_distances,
         sc_exchanger, sc_collectives, sc_backends, sc_matrix_exchanger, sc_exchange_coo, sc_owned_triplets,
-        sc_index_sets, sc_prange_eq, sc_sparse, sc_table_helpers, sc_ptimer,
+        sc_index_sets, sc_prange_eq, sc_sparse, sc_table_helpers, sc_ptimer, sc_pvector_dispatch,
+        sc_discover_parts_snd,
     ]
 }
 
@@ -460,7 +502,8 @@ HOST_API = (
     "assemble_poisson_periodic assemble_fem_q1 fem_q1_driver fem_q1_rhs_via_global_view "
     "assemble_heat heat_transient_driver "
     "bicgstab gmres fgmres minres chebyshev_solve lanczos_bounds gershgorin_bounds "
-    "assemble_advection_fv advection_fv_driver"
+    "assemble_advection_fv advection_fv_driver "
+    "pvector ERROR_DISCOVER_PARTS_SND discover_parts_snd"
 ).split()
 
 PVECTOR_METHODS = ("undef similar copy_into axpy fill scale ghost_values sum reduce_owned maximum minimum "

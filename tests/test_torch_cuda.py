@@ -2122,3 +2122,53 @@ def test_lobpcg_on_card_matches_plain(minv):
 
     assert info["converged"] and info["iterations"] == infop["iterations"] and np.array_equal(lam, lamp)
     np.testing.assert_allclose(lam, pt.prun(host, pt.sequential, (2, 2, 2)), rtol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the resilience layer: the SDC-defended loops on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("body", ["fused", "standard", "pcg", "block"])
+@pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
+def test_sdc_loops_on_card(body, faulted):
+    """The defended loops on (2,2,2) stacked parts, 16^3 f64 decoupled
+    Poisson, generic plan, ABFT and audits every 5: the graph loop
+    torch.equal to the eager loop and to the plain path (x, iterations, the
+    SDC counters); clean, the undefended loop's x bit for bit; faulted at
+    trip 9 on part 1, one rollback and the clean x bit for bit."""
+    _need_card()
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import (
+        _b_on_cols_layout, _block_on_cols_layout, device_matrix, make_block_cg_fn, make_cg_fn,
+    )
+    from partitionedarrays_jl_tpu_torch.utils.health import SDCConfig
+
+    fault = "spmv@trip=9,part=1,factor=1e3" if faulted else None
+    sdc = SDCConfig(abft=True, audit_every=5, device_fault=fault)
+
+    def drive(parts):
+        A, b, _, _ = pt.assemble_poisson(parts, (16, 16, 16))
+        Ah, bh = pt.decouple_dirichlet(A, b)
+        dA = device_matrix(Ah, parts.backend, box=False)
+        if body == "block":
+            db = _block_on_cols_layout([bh, bh * 2.0], dA)
+
+            def make(**kw):
+                return make_block_cg_fn(dA, 1e-9, 400, 2, **kw)
+        else:
+            db = _b_on_cols_layout(bh, dA)
+
+            def make(**kw):
+                return make_cg_fn(dA, 1e-9, 400, fused=body == "fused", precond=body == "pcg", **kw)
+        args = (db, torch.zeros_like(db)) + ((_b_on_cols_layout(pt.jacobi_preconditioner(Ah), dA),)
+                                            if body == "pcg" else ())
+        g, e, pl = (make(sdc=sdc, graph=True)(*args), make(sdc=sdc, graph=False)(*args),
+                    make(sdc=sdc, plain=True)(*args))
+        ref = make(sdc=SDCConfig(abft=True, audit_every=5))(*args)
+        und = make()(*args)
+        same = [torch.equal(g[0], o[0]) and np.array_equal(np.asarray(g[3]), np.asarray(o[3]))
+                and np.array_equal(g[5], o[5]) for o in (e, pl)]
+        return same, torch.equal(g[0], ref[0]), torch.equal(ref[0], und[0]), int(g[5][1])
+
+    same, healed, clean, rollbacks = pt.prun(drive, pt.GPUBackend(), (2, 2, 2))
+    assert same == [True, True] and healed and clean and rollbacks == int(faulted)
