@@ -261,6 +261,26 @@ Phases, one JSON line each:
    CG), NonFiniteError on a NaN in b, and the recovery drivers
    (`solve_with_recovery` in chunks, `resume_solve` on the sequential
    backend from the card's checkpoint);
+4l. the serving path (`phase_serving`): the α/β trace ring of the CG loops
+   on phase 3's operator, fused and standard, at depths RING_FULL (the
+   whole solve) and RING_ROLLED (wrapped): x, rs, history and iterations
+   torch.equal to the untraced solve, the graph loop's ring torch.equal to
+   the eager loop's, the counted launches equal with and without the
+   ring, seconds per iteration traced and untraced (fixed trips) and the
+   ring's device ms an iteration (profiles); κ̂ against
+   `poisson_fdm_analytic_extremes` at 192^3 f32 and on phase 2b's 48^3 f64
+   (2,2,2) system (rolled ring), reported; the block ring of `cg(B=...)`
+   at K = 8, each column's α/β torch.equal to its solo solve's; and
+   `SolveService` at 192^3 f32: N_SERVE requests b_k = A x̂_k, request
+   SERVE_POISON with a NaN in b and no retry, drained in a slab of 8 and
+   a ragged slab of 1 (launches a slab by formula), the poisoned request
+   failing NonFiniteError with one ``column_ejected`` event, every
+   completed request's x torch.equal to its solo solve; the 8 clean
+   requests again through the worker thread, submitted while it runs,
+   the same bits; a chunked slab (deadlines, chunk SERVE_CHUNK)
+   converging against the original target; captures and capture
+   seconds, the throughput model's s/iteration a right-hand side against
+   the solo solve's, the p50 of queue wait and solve seconds;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -322,6 +342,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -4356,6 +4377,14 @@ SDC_SEQ_RTOL = 1e-12  # the clean 48^3 defended solve against the sequential hos
 TOL_RECOVERY = 1e-10
 RECOVERY_EVERY = 50
 RECOVERY_X_RTOL = 1e-7  # the chunked recovery solve against the one-shot device solve
+RING_FULL = 512  # trace depth >= the 421 iterations of the 192^3 f32 solve: the whole trace
+RING_ROLLED = 64  # a wrapped ring (trace_start > 0)
+RING_PROFILE_TRIPS = 48
+N_SERVE = 9  # the service's requests at 192^3 f32: a slab of 8 and a ragged slab of 1
+SERVE_KMAX = 8
+SERVE_POISON = 3  # the request with a NaN in b (retries=0)
+SERVE_CHUNK = 100  # iterations a chunk of the deadline-carrying slab
+SERVE_CHUNK_K = 4  # requests of the chunked slab
 
 
 def _gathered_equal(x, y):
@@ -4588,6 +4617,315 @@ def phase_resilience(backend, run, gmulti, rng):
     require(is_["converged"], "resume_solve on the sequential backend from the card's checkpoint did not converge")
     line["multi"] = multi
     line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the serving path
+# ---------------------------------------------------------------------------
+
+
+def serving_rhs(A, backend, rng, k):
+    """``k`` right-hand sides b_j = A x̂_j over A.rows (x̂_j from the seed,
+    the product on the card) with their `dirichlet_start` starts: host
+    PVectors, as a service's callers hold them."""
+    dA = device_matrix(A, backend)
+    spmv = make_spmv_fn(dA)
+    dt = np.dtype(A.dtype)
+    # `dirichlet_start`'s identity rows, found once for all requests
+    ident = dirichlet_start(A, PVector(A.cols.partition._like([np.ones(i.num_lids, dt)
+                                                               for i in A.cols.partition.part_values()]), A.cols))
+    out = []
+    for _ in range(k):
+        xh = PVector(A.cols.partition._like([rng.standard_normal(i.num_lids).astype(dt)
+                                             for i in A.cols.partition.part_values()]), A.cols)
+        y = spmv(DeviceVector.from_pvector(xh, backend, dA.col_layout).data)
+        x0 = PVector(A.cols.partition._like([np.where(np.asarray(m) != 0, np.asarray(v), np.zeros((), dt))
+                                             for m, v in zip(ident.values.part_values(), xh.values.part_values())]),
+                     A.cols)
+        out.append((DeviceVector(y, A.rows, dA.row_layout, backend).to_pvector(), x0, xh))
+    return out
+
+
+def _ring_equal(a, b):
+    return a is not None and b is not None and bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def phase_ring(backend, run, gmulti):
+    """Phase 4l's trace-ring arms on phase 3's operator (fused and standard
+    bodies) and the κ̂ reports; returns the ring's cost."""
+    from partitionedarrays_jl_tpu_torch import telemetry
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _krylov_fn_for
+    from partitionedarrays_jl_tpu_torch.parallel.gpu_loop import unroll_ring
+
+    A = run["A"]
+    dA = device_matrix(A, backend)
+    bd, x0d = staged(run, backend)
+    maxiter = 4 * A.rows.ngids
+    line = {"phase": "trace_ring", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN, "depths": [RING_FULL, RING_ROLLED],
+            "bodies": {}}
+    for body, fused in (("fused", True), ("standard", False)):
+        row = {}
+        dia.reset_launches()
+        f0 = _krylov_fn_for(dA, "cg", TOL_MAIN, maxiter, fused=fused)
+        o0 = f0(bd, x0d)
+        sync()
+        base_launches = dict(dia.LAUNCHES)
+        dev_it = f0.stats["device_iterations"]
+        want = ({"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it} if fused
+                else {"dia_coded_spmv": 1 + dev_it, "dia_coded_spmv_pfold": 0, "cg_sweep": dev_it})
+        for k in want:
+            require(base_launches[k] == want[k], f"ring {body} untraced: {base_launches[k]} {k} launches, want {want[k]}")
+        for ht in (RING_FULL, RING_ROLLED):
+            dia.reset_launches()
+            ft = _krylov_fn_for(dA, "cg", TOL_MAIN, maxiter, fused=fused, trace_iters=ht)
+            ot = ft(bd, x0d)
+            sync()
+            got = dict(dia.LAUNCHES)
+            equal = {"x": bool(torch.equal(ot[0], o0[0])), "rs": bool(torch.equal(ot[1], o0[1])),
+                     "iterations": ot[3] == o0[3], "history": bool(np.array_equal(ot[4], o0[4], equal_nan=True))}
+            ring, it = ot[5], ot[3]
+            rows, n_ab, start = unroll_ring(ring, it)
+            h = np.asarray(ot[4][: it + 1], dtype=np.float64)
+            # the CG recurrence: beta_k = rs_{k+1} / rs_k of the history, to f32 rounding
+            j = np.arange(start, start + n_ab)
+            beta_rel = float(np.max(np.abs(rows[:n_ab, 1] - (h[j + 1] / h[j]) ** 2) / ((h[j + 1] / h[j]) ** 2)))
+            row[str(ht)] = {"ring_depth": ft.trace_iters, "trace_start": start, "entries": n_ab, "equal": equal,
+                            "kernels": {k: got[k] for k in want}, "beta_vs_history_max_rel": beta_rel}
+            require(all(equal.values()), f"ring {body} depth {ht}: the traced solve differs from the untraced one "
+                    f"({equal})")
+            for k in want:
+                require(got[k] == base_launches[k], f"ring {body} depth {ht}: {got[k]} {k} launches, untraced "
+                        f"{base_launches[k]}")
+            require(start == max(0, it - ht) and n_ab == min(it, ht), f"ring {body} depth {ht}: start {start}, "
+                    f"{n_ab} entries for {it} iterations")
+            require(beta_rel < 1e-3, f"ring {body} depth {ht}: beta departs from the history by {beta_rel}")
+        # the graph loop's ring against the eager loop's
+        fe = make_cg_fn(dA, TOL_MAIN, maxiter, fused=fused, trace_iters=RING_FULL, graph=False)
+        fg = make_cg_fn(dA, TOL_MAIN, maxiter, fused=fused, trace_iters=RING_FULL)
+        oe, og = fe(bd, x0d), fg(bd, x0d)
+        sync()
+        gve = {"x": bool(torch.equal(og[0], oe[0])), "iterations": og[3] == oe[3], "ring": _ring_equal(og[5], oe[5]),
+               "history": bool(np.array_equal(og[4], oe[4], equal_nan=True))}
+        row["graph_vs_eager"] = {"equal": gve, "loop": fg.stats["loop"], "replays": fg.stats["replays"]}
+        require(all(gve.values()) and fg.stats["loop"] == "graph" and fg.stats["replays"] > 0,
+                f"ring {body}: the graph loop's ring differs from the eager loop's ({gve}, {fg.stats})")
+        # seconds an iteration, traced and untraced (fixed trips)
+        s_off, _ = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA, 0.0, m, fused=fused), bd, x0d, *CG_TRIPS)
+        s_on, _ = fixed_trip_s_per_iter(lambda m: make_cg_fn(dA, 0.0, m, fused=fused, trace_iters=RING_ROLLED),
+                                        bd, x0d, *CG_TRIPS)
+        p_off = phase_profile(f"ring_profile_{body}_untraced", make_cg_fn(dA, 0.0, RING_PROFILE_TRIPS, fused=fused),
+                              bd, x0d, RING_PROFILE_TRIPS)
+        p_on = phase_profile(f"ring_profile_{body}_traced",
+                             make_cg_fn(dA, 0.0, RING_PROFILE_TRIPS, fused=fused, trace_iters=RING_ROLLED),
+                             bd, x0d, RING_PROFILE_TRIPS)
+        dev_off, dev_on = sum(r[1] for r in p_off["rows"]), sum(r[1] for r in p_on["rows"])
+        row.update(s_per_iter_untraced=s_off, s_per_iter_traced=s_on, traced_over_untraced=s_on / s_off,
+                   device_ms_per_iter_untraced=dev_off, device_ms_per_iter_traced=dev_on,
+                   ring_device_ms_per_iter=dev_on - dev_off,
+                   ring_share_of_iter=(dev_on - dev_off) / dev_on,
+                   device_ops_per_iter_untraced=sum(r[2] for r in p_off["rows"]),
+                   device_ops_per_iter_traced=sum(r[2] for r in p_on["rows"]))
+        line["bodies"][body] = row
+    # kappa against the analytic Dirichlet Laplacian: phase 3's operator,
+    # whole trace, and phase 2b's 48^3 f64 (2,2,2) system, rolled ring
+    _, info = cg(A, run["b"], x0=run["x0"], tol=TOL_MAIN, trace_iters=RING_FULL)
+    est = telemetry.estimate_solve(info.record.alpha, info.record.beta, info["residuals"])
+    lo, hi = telemetry.poisson_fdm_analytic_extremes((N_MAIN,) * 3)
+    kap = {"192^3 f32": {"kappa": est["kappa"], "analytic": hi / lo, "ratio": est["kappa"] / (hi / lo),
+                         "lam_min": est["lam_min"], "lam_max": est["lam_max"], "ritz_k": est["ritz_k"]}}
+    _, im = cg(gmulti["Ah"], gmulti["bh"], tol=TOL_MULTI, trace_iters=RING_ROLLED)
+    em = telemetry.estimate_solve(im.record.alpha, im.record.beta, im["residuals"], trace_start=im.record.trace_start)
+    lo, hi = telemetry.poisson_fdm_analytic_extremes((N_GMG_MULTI,) * 3)
+    kap["48^3 f64 (2,2,2), decoupled"] = {
+        "kappa": em["kappa"], "analytic": hi / lo, "ratio": None if em["kappa"] is None else em["kappa"] / (hi / lo),
+        "trace_start": im.record.trace_start, "iterations": im["iterations"], "ritz_k": em["ritz_k"]}
+    line["kappa"] = kap
+    emit(line)
+    return line
+
+
+def phase_serving(backend, run, gmulti, rng):
+    """Phase 4l: the trace ring (`phase_ring`), the block ring, and
+    `SolveService` at 192^3 f32 on phase 3's operator (see the module
+    docstring)."""
+    from partitionedarrays_jl_tpu_torch import telemetry
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _krylov_fn_for
+    from partitionedarrays_jl_tpu_torch.service import SolveService
+
+    t_phase = time.perf_counter()
+    arm_s = {}
+    ring = phase_ring(backend, run, gmulti)
+    arm_s["ring"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    A = run["A"]
+    dA = device_matrix(A, backend)
+    maxiter = 4 * A.rows.ngids
+    # request 0 is the main path's system (421 iterations: several chunks
+    # of SERVE_CHUNK), the others b_k = A x̂_k (~73 iterations each)
+    reqs = [(run["b"], run["x0"], run["xe"])] + serving_rhs(A, backend, rng, N_SERVE - 1)
+    clean = [j for j in range(N_SERVE) if j != SERVE_POISON]
+    arm_s["requests"] = time.perf_counter() - t
+    # the solo solves (traced: the ring changes no bit) of the clean requests
+    t = time.perf_counter()
+    solo = {}
+    for j in clean:
+        b, x0, _ = reqs[j]
+        x, info = cg(A, b, x0=x0, tol=TOL_MAIN, trace_iters=RING_FULL)
+        solo[j] = (x, info)
+    # ||b - A x0|| of each request, for the spectrum forecasts at submit
+    # (the service's r0_norm: no host SpMV a submit)
+    r0 = {j: float(solo[j][1]["residuals"][0]) for j in clean}
+    arm_s["solo"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # the block ring: K = 8 clean columns, traced, against the solo rings
+    B = [reqs[j][0] for j in clean[:SERVE_KMAX]]
+    X0 = [reqs[j][1] for j in clean[:SERVE_KMAX]]
+    dia.reset_launches()
+    xs, binfo = cg(A, B=B, X0=X0, tol=TOL_MAIN, trace_iters=RING_FULL)
+    sync()
+    brec = binfo.record
+    block_ring = []
+    for k, j in enumerate(clean[:SERVE_KMAX]):
+        srec = solo[j][1].record
+        n = len(srec.alpha)
+        eq = (brec.trace_start == srec.trace_start == 0
+              and [v is None for v in brec.alpha[k]] == [False] * n + [True] * (len(brec.alpha[k]) - n)
+              and _ring_equal(brec.alpha[k][:n], srec.alpha) and _ring_equal(brec.beta[k][:n], srec.beta))
+        block_ring.append(eq)
+    require(all(block_ring), f"block ring K={SERVE_KMAX}: columns' alpha/beta differ from the solo rings: {block_ring}")
+    arm_s["block_ring"] = time.perf_counter() - t
+
+    # the service: a slab of 8 (request SERVE_POISON poisoned) and a ragged slab of 1
+    telemetry.reset_state()
+    observed = []
+    model = telemetry.throughput_model()
+    orig_observe = model.observe_slab
+
+    def observe(fp, dt, K, s_per_it, iterations=1):
+        observed.append({"K": int(K), "s_per_it": float(s_per_it), "iterations": int(iterations)})
+        orig_observe(fp, dt, K, s_per_it, iterations)
+
+    model.observe_slab = observe
+    captures0 = gpu_loop.STATS["captures"]
+    fns0 = set(dA._fn_cache)
+    bad = reqs[SERVE_POISON][0].copy()
+    vals = bad.values.part_values()[0]
+    vals[int(np.asarray(bad.rows.partition.part_values()[0].oid_to_lid)[N_MAIN ** 2 + N_MAIN + 1])] = np.nan
+    t = time.perf_counter()
+    svc = SolveService(A, kmax=SERVE_KMAX, queue_depth=16)
+    hs = []
+    for j in range(N_SERVE):
+        b = bad if j == SERVE_POISON else reqs[j][0]
+        hs.append(svc.submit(b, x0=reqs[j][1], tol=TOL_MAIN, retries=0 if j == SERVE_POISON else None,
+                             tag=f"req{j}"))
+    slabs = []
+    for K in (SERVE_KMAX, N_SERVE - SERVE_KMAX):
+        dia.reset_launches()
+        done = svc.step()
+        sync()
+        st = _krylov_fn_for(dA, "cg", TOL_MAIN, maxiter, rhs_batch=K).stats
+        got = {k: dia.LAUNCHES[k] for k in ("dia_coded_spmm", "cg_sweep_block", "block_products", "dia_coded_spmv",
+                                             "dia_coded_spmv_pfold", "cg_sweep")}
+        dev_it = st["device_iterations"]
+        want = {"dia_coded_spmm": 1 + dev_it, "cg_sweep_block": dev_it, "block_products": dev_it + 1}
+        slabs.append({"K": K, "terminated": done, "device_iterations": dev_it, "kernels": got,
+                      "expected": want, "loop": st["loop"]})
+        for k in want:
+            require(got[k] == want[k], f"service slab K={K}: {got[k]} {k} launches, expected {want[k]}")
+    require(svc.step() == 0, "service: a third slab formed")
+    drain_s = time.perf_counter() - t
+    sync()
+    hp = hs[SERVE_POISON]
+    ejected = [e for e in hp.record.events if e.kind == "column_ejected"]
+    stats = dict(svc.stats)
+    require(hp.state == "failed" and type(hp.error).__name__ == "NonFiniteError" and len(ejected) == 1,
+            f"service: the poisoned request ended {hp.state} ({hp.error!r}), {len(ejected)} column_ejected events")
+    require(stats["ejected"] == 1 and stats["failed"] == 1 and stats["completed"] == N_SERVE - 1
+            and stats["slabs"] == 2, f"service stats {stats}")
+    bits, errs = [], []
+    for j in clean:
+        x, info = hs[j].result()
+        bits.append(_gathered_equal(x, solo[j][0]) and info["iterations"] == solo[j][1]["iterations"])
+        errs.append(_rel_err(x, reqs[j][2]))
+    require(all(bits), f"service: completed requests differ from their solo solves: {bits}")
+    # the same clean requests through the worker thread, submitted while it
+    # runs; every slab must run on the worker (shutdown re-raises its error)
+    svc2 = SolveService(A, kmax=SERVE_KMAX, queue_depth=16)
+    ran_on = []
+    run_slab = svc2._run_slab
+
+    def on_thread(slab):
+        ran_on.append((threading.current_thread().name, len(slab)))
+        return run_slab(slab)
+
+    svc2._run_slab = on_thread
+    svc2.start()
+    t = time.perf_counter()
+    hw = [svc2.submit(reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, tag=f"w{j}", r0_norm=r0[j]) for j in clean]
+    stats2 = svc2.shutdown(drain=True)
+    worker_s = time.perf_counter() - t
+    require(svc2._worker is not None and not svc2._worker.is_alive(), "service worker still alive after shutdown")
+    require(ran_on and all(name == "pa-solve-service" for name, _ in ran_on),
+            f"service worker: slabs ran on {ran_on}")
+    wbits = [h.state == "done" and _gathered_equal(h.result()[0], solo[j][0]) for h, j in zip(hw, clean)]
+    require(all(wbits) and stats2["completed"] == len(clean),
+            f"service worker: {stats2}, bits {wbits}")
+    # steady state: the 8 clean requests in one slab on the cached block
+    # solve function (no capture; staging and the host lift included)
+    t = time.perf_counter()
+    svc4 = SolveService(A, kmax=SERVE_KMAX, queue_depth=16)
+    for j in clean:
+        svc4.submit(reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, tag=f"s{j}", r0_norm=r0[j])
+    svc4.drain()
+    arm_s["steady"] = time.perf_counter() - t
+    require(svc4.stats["slabs"] == 1 and svc4.stats["completed"] == SERVE_KMAX, f"service steady slab: {svc4.stats}")
+    # a chunked slab: deadlines on each request
+    svc3 = SolveService(A, kmax=SERVE_CHUNK_K, chunk=SERVE_CHUNK)
+    cj = clean[:SERVE_CHUNK_K]
+    t = time.perf_counter()
+    hc = [svc3.submit(reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, deadline=600.0, tag=f"c{j}", r0_norm=r0[j])
+          for j in cj]
+    svc3.drain()
+    chunk_s = time.perf_counter() - t
+    chunked = []
+    for h, j in zip(hc, cj):
+        x, info = h.result()
+        target = TOL_MAIN * max(1.0, float(solo[j][1]["residuals"][0]))
+        chunked.append({"iterations": h.iterations, "converged": bool(info["converged"]),
+                        "final_residual": float(info["residuals"][-1]), "target": target,
+                        "rel_err": _rel_err(x, reqs[j][2]), "solo_iterations": solo[j][1]["iterations"]})
+        require(h.state == "done" and info["converged"] and float(info["residuals"][-1]) <= target,
+                f"service chunked slab: request {j} {chunked[-1]}")
+    model.observe_slab = orig_observe
+    new_fns = [fn for key, fn in dA._fn_cache.items() if key not in fns0]
+    reg = telemetry.registry()
+    solo_s = [solo[j][1].record.wall_s / max(1, solo[j][1]["iterations"]) for j in clean]
+    k8 = [o for o in observed if o["K"] == SERVE_KMAX]
+    line = {
+        "phase": "serving", "n": N_MAIN, "dtype": "float32", "tol": TOL_MAIN, "requests": N_SERVE, "kmax": SERVE_KMAX,
+        "ring_s_per_iter": {body: [r["s_per_iter_untraced"], r["s_per_iter_traced"]]
+                            for body, r in ring["bodies"].items()},
+        "block_ring_equal": block_ring, "block_ring_kernels": {k: v for k, v in dia.LAUNCHES.items() if v},
+        "stats": stats, "slabs": slabs, "drain_s": drain_s, "rel_err": errs,
+        "poisoned": {"state": hp.state, "error": type(hp.error).__name__, "column_ejected": len(ejected)},
+        "worker": {"stats": stats2, "s": worker_s, "slabs_on": ran_on},
+        "chunked": {"requests": chunked, "s": chunk_s, "stats": dict(svc3.stats)},
+        "arm_s": {**arm_s, "drain": drain_s, "worker": worker_s, "chunked": chunk_s},
+        "captures": gpu_loop.STATS["captures"] - captures0,
+        "capture_s": sum(fn.loop.capture_s or 0.0 for fn in new_fns if hasattr(fn, "loop")),
+        "solve_fns_built": len(new_fns),
+        "throughput_observations": observed,
+        "per_rhs_s_per_iter_k8_model": telemetry.throughput_model().per_rhs(svc.fingerprint, "float32", SERVE_KMAX),
+        "per_rhs_s_per_iter_k8_first": k8[0]["s_per_it"] / SERVE_KMAX if k8 else None,
+        "per_rhs_s_per_iter_k8_steady": k8[-1]["s_per_it"] / SERVE_KMAX,
+        "solo_s_per_iter_median": statistics.median(solo_s),
+        "queue_wait_s_p50": reg.histogram("service.queue_wait_s").quantile(0.5),
+        "solve_s_p50": reg.histogram("service.solve_s").quantile(0.5),
+        "phase_s": time.perf_counter() - t_phase,
+    }
     emit(line)
     return line
 
@@ -5221,6 +5559,7 @@ def main() -> int:
     phase_diff_solve(backend, rng)
     fam = phase_solver_family(backend, run, gruns, rng)
     phase_resilience(backend, run, gruns["multi"], rng)
+    phase_serving(backend, run, gruns["multi"], rng)
     emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})

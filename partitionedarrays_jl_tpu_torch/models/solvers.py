@@ -43,6 +43,14 @@ the in-memory rollback ring) and the device loops under its in-graph form;
 loops' full recurrence state, which `resume_solve` continues exactly;
 `solve_with_recovery` restarts a failed solve from its last checkpoint
 (host) or runs the device solve in checkpointed chunks.
+
+Telemetry (solvers.py:394-406, :525, :1539-1551 of the JAX package): `cg`,
+`pcg` and `solve_with_recovery` run in a `telemetry.solve_scope` and
+return an ``InfoDict`` (``info.record``); the host loops stamp their α/β
+recurrence on the record (`_attach_host_ab`), the device loops their trace
+ring (``trace_iters=``), and a finished CG or PCG feeds
+`telemetry.observe_solve`. The SDC guard, the block driver's column
+verdicts and the recovery restarts emit their events.
 """
 from __future__ import annotations
 
@@ -120,6 +128,10 @@ def _host_block_solve(solve_one, B, X0, column_errors="raise"):
         except SolverHealthError as e:
             if column_errors != "report":
                 raise
+            from .. import telemetry
+
+            telemetry.emit_event("column_verdict", label="block-host", columns=[len(xs)],
+                                 error=type(e).__name__)
             xs.append(x0k.copy() if x0k is not None else None)
             columns.append({"iterations": 0, "residuals": [], "converged": False, "status": type(e).__name__})
             health.append({"status": type(e).__name__, "converged": False, "iterations": 0, "error": e})
@@ -230,13 +242,18 @@ class _SDCGuard:
         """Handle a detection: the ring state ``strike`` slots back, or the
         escalation once the budget is spent. Returns ``(vectors, meta,
         history)`` for the loop to reinstate."""
+        from .. import telemetry
         from ..utils.health import SilentCorruptionError
 
         self.counters["detections"] += 1
+        telemetry.emit_event("sdc_detection", label=self.name, iteration=int(it),
+                             detector=getattr(e, "diagnostics", {}).get("detector"))
         exhausted = self.counters["rollbacks"] >= self.max_rb
         st = self.ring.restore(self.strike) if self.active and not exhausted else None
         if st is None:
             self.counters["escalations"] += 1
+            telemetry.emit_event("sdc_escalation", label=self.name, iteration=int(it),
+                                 rollbacks=self.counters["rollbacks"])
             diag = dict(getattr(e, "diagnostics", {}))
             diag["sdc"] = dict(self.counters)
             diag["iteration"] = int(it)
@@ -248,6 +265,8 @@ class _SDCGuard:
         self.counters["rollbacks"] += 1
         self.strike += 1
         vecs, meta = st
+        telemetry.emit_event("sdc_rollback", label=self.name, iteration=int(it),
+                             restored_iteration=int(meta.get("it", 0)), strike=self.strike)
         return vecs, meta, list(meta["history"])
 
     def info_extra(self) -> dict:
@@ -286,6 +305,7 @@ def cg(
     sdc=None,
     checkpoint=None,
     _resume_state: Optional[dict] = None,
+    trace_iters: int = 0,
 ) -> Tuple[PVector, dict]:
     """Conjugate gradients for SPD `A`; the start vector lives on
     ``A.cols``. A GPU-backend `b` runs the device loop (`gpu_cg`: the
@@ -327,7 +347,12 @@ def cg(
     dict then carries ``info["sdc"]``, the counters. ``checkpoint`` (a
     `SolverCheckpointer`) saves the full recurrence state every
     ``checkpoint.every`` iterations, host loop only; `resume_solve`
-    continues it (``_resume_state``) on the same trajectory."""
+    continues it (``_resume_state``) on the same trajectory.
+
+    ``trace_iters`` (the JAX package's ``PA_TRACE_ITERS``) gives the device
+    loops their α/β trace ring, its last ``trace_iters`` iterations on
+    ``info.record.alpha``/``beta``; the host loop records every iteration's
+    α and β whatever it is."""
     from ..parallel.gpu import GPUBackend, _sstep_conflict, gpu_block_cg, gpu_cg
     from ..utils.health import resolve_sdc
 
@@ -341,7 +366,7 @@ def cg(
         if isinstance(B[0].values.backend, GPUBackend):
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
                                 column_errors=column_errors, box=box, strict=strict, lowering=lowering,
-                                overlap=overlap, sdc=sdc)
+                                overlap=overlap, sdc=sdc, trace_iters=trace_iters)
         return _host_block_solve(
             lambda bk, x0k: cg(A, bk, x0=x0k, tol=tol, maxiter=maxiter, verbose=verbose, strict=strict,
                                health=health, stagnation=stagnation, sdc=sdc),
@@ -358,14 +383,21 @@ def cg(
         return gpu_cg(
             A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
             pipelined=pipelined, box=box, strict=strict, lowering=lowering, sstep=sstep, overlap=overlap,
-            health=health, sdc=sdc,
+            health=health, sdc=sdc, trace_iters=trace_iters,
         )
     if sdc is not None and int(sstep or 0) >= 2:
         _sstep_conflict("the SDC defense (sdc=)")
+    from .. import telemetry
+
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    with _abft_scope(sdc, health):
-        return _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, sdc, checkpoint,
-                             _resume_state)
+    with telemetry.solve_scope("cg", backend="host", tol=float(tol), maxiter=int(maxiter),
+                               resumed=_resume_state is not None) as rec:
+        with _abft_scope(sdc, health):
+            x, info = _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, sdc, checkpoint,
+                                    _resume_state)
+        # spectral estimate and anomaly detection, before the finish
+        telemetry.observe_solve(A, rec, info=info, dtype=b.dtype)
+        return x, rec.finish(info)
 
 
 def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, sdc, checkpoint, _resume_state):
@@ -400,6 +432,8 @@ def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, s
     stag = StagnationDetector.from_option("cg", stagnation) if health else None
     guard = _SDCGuard("cg", lambda v: _matvec(A, v, strict), b, rs0, health, sdc)
     guard.push({"x": x, "r": r, "p": p}, {"rs": rs, "it": it}, history)
+    # the α/β recurrence (the device ring's host twin), rewound with a rollback
+    it0, ab_alpha, ab_beta = it, [], []
     while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
         try:
             q = _matvec(A, p, strict)
@@ -418,6 +452,8 @@ def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, s
             rs = rs_new
             history.append(np.sqrt(rs))
             it += 1
+            ab_alpha.append(float(alpha))
+            ab_beta.append(float(beta))
             guard.audit(x, r, it, {"rs": rs, "it": it}, {"p": p}, history)
         except SilentCorruptionError as e:
             # the in-memory rollback to the newest audited state, or the
@@ -425,6 +461,7 @@ def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, s
             vecs, meta_r, history = guard.rollback(e, it)
             x, r, p = vecs["x"], vecs["r"], vecs["p"]
             rs, it = meta_r["rs"], meta_r["it"]
+            del ab_alpha[max(0, it - it0):], ab_beta[max(0, it - it0):]
             continue
         if stag is not None:
             stag.update(float(np.sqrt(rs)), it)
@@ -438,6 +475,7 @@ def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, s
             print(f"cg it={it} residual={np.sqrt(rs):.3e}")
     if checkpoint is not None:
         checkpoint.wait()  # the last write lands before the return
+    _attach_host_ab(ab_alpha, ab_beta, it0)
     return x, krylov_info(
         it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)),
         tol, b.dtype, floor_warned,
@@ -447,6 +485,20 @@ def _cg_host_loop(A, b, x0, tol, maxiter, verbose, strict, health, stagnation, s
         ),
         cg_body="host", **guard.info_extra(),
     )
+
+
+def _attach_host_ab(ab_alpha, ab_beta, it0: int) -> None:
+    """Stamp a host loop's α/β recurrence on the active `SolveRecord`
+    (solvers.py:525): the spectrum layer reads it as it reads the device
+    ring. No-op on inert records or zero-iteration solves."""
+    from .. import telemetry
+
+    rec = telemetry.current_record()
+    if rec is None or not rec.enabled or not ab_alpha:
+        return
+    rec.alpha = list(ab_alpha)
+    rec.beta = list(ab_beta)
+    rec.trace_start = int(it0)
 
 
 def gather_psparse(A: PSparseMatrix) -> CSRMatrix:
@@ -605,6 +657,7 @@ def pcg(
     sdc=None,
     checkpoint=None,
     _resume_state: Optional[dict] = None,
+    trace_iters: int = 0,
 ) -> Tuple[PVector, dict]:
     """Preconditioned CG. ``minv`` is an inverse-diagonal PVector over
     A.cols (default `jacobi_preconditioner(A)`) or a callable
@@ -636,7 +689,8 @@ def pcg(
 
     ``health``, ``stagnation``, ``sdc`` and ``checkpoint`` as in `cg`
     (solvers.py:1556-1674): the device Jacobi PCG runs the in-graph defense;
-    the device GMG-PCG has no defended form and refuses an active ``sdc``."""
+    the device GMG-PCG has no defended form and refuses an active ``sdc``.
+    ``trace_iters`` as in `cg` (the device Jacobi PCG and block PCG)."""
     from ..parallel.gpu import GPUBackend, gpu_block_cg, gpu_cg
     from ..utils.health import resolve_sdc
     from .gmg import GMGHierarchy
@@ -649,7 +703,7 @@ def pcg(
         if isinstance(B[0].values.backend, GPUBackend) and not callable(minv):
             return gpu_block_cg(A, B, X0=X0, tol=tol, maxiter=maxiter, verbose=verbose, minv=minv,
                                 fused=fused, column_errors=column_errors, box=box, strict=strict,
-                                lowering=lowering, sdc=sdc)
+                                lowering=lowering, sdc=sdc, trace_iters=trace_iters)
         return _host_block_solve(
             lambda bk, x0k: pcg(A, bk, x0=x0k, minv=minv, tol=tol, maxiter=maxiter, verbose=verbose,
                                 box=box, stencil=stencil, fused=fused, strict=strict, lowering=lowering,
@@ -679,11 +733,19 @@ def pcg(
                                box=box, stencil=stencil, strict=strict, lowering=lowering)
         if not callable(minv):
             return gpu_cg(A, b, x0=x0, tol=tol, maxiter=maxiter, verbose=verbose, fused=fused,
-                          box=box, minv=minv, strict=strict, lowering=lowering, health=health, sdc=sdc)
+                          box=box, minv=minv, strict=strict, lowering=lowering, health=health, sdc=sdc,
+                          trace_iters=trace_iters)
+    from .. import telemetry
+
     maxiter = maxiter if maxiter is not None else 4 * A.rows.ngids
-    with _abft_scope(sdc, health):
-        return _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict, health, stagnation, sdc,
-                              checkpoint, _resume_state)
+    with telemetry.solve_scope("pcg", backend="host", tol=float(tol), maxiter=int(maxiter),
+                               resumed=_resume_state is not None,
+                               preconditioner="callable" if callable(minv) else "diagonal") as rec:
+        with _abft_scope(sdc, health):
+            x, info = _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict, health, stagnation, sdc,
+                                     checkpoint, _resume_state)
+        telemetry.observe_solve(A, rec, info=info, dtype=b.dtype, minv=minv)
+        return x, rec.finish(info)
 
 
 def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False, health=True, stagnation=None, sdc=None,
@@ -727,6 +789,7 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False, health=T
     stag = StagnationDetector.from_option("pcg", stagnation) if health else None
     guard = _SDCGuard("pcg", lambda v: _matvec(A, v, strict), b, rs0, health, sdc)
     guard.push({"x": x, "r": r, "p": p}, {"rs": rs, "rz": rz, "it": it}, history)
+    it0, ab_alpha, ab_beta = it, [], []
     while np.sqrt(rs) > tol * max(1.0, np.sqrt(rs0)) and it < maxiter:
         try:
             q = _matvec(A, p, strict)
@@ -747,11 +810,14 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False, health=T
             rz = rz_new
             history.append(np.sqrt(rs))
             it += 1
+            ab_alpha.append(float(alpha))
+            ab_beta.append(float(beta))
             guard.audit(x, r, it, {"rs": rs, "rz": rz, "it": it}, {"p": p}, history)
         except SilentCorruptionError as e:
             vecs, meta_r, history = guard.rollback(e, it)
             x, r, p = vecs["x"], vecs["r"], vecs["p"]
             rs, rz, it = meta_r["rs"], meta_r["rz"], meta_r["it"]
+            del ab_alpha[max(0, it - it0):], ab_beta[max(0, it - it0):]
             continue
         if stag is not None:
             stag.update(float(np.sqrt(rs)), it)
@@ -765,6 +831,7 @@ def _pcg_host_loop(A, b, x0, minv, tol, maxiter, verbose, strict=False, health=T
             print(f"pcg it={it} residual={np.sqrt(rs):.3e}")
     if checkpoint is not None:
         checkpoint.wait()
+    _attach_host_ab(ab_alpha, ab_beta, it0)
     return x, krylov_info(
         it, history, np.sqrt(rs) <= tol * max(1.0, np.sqrt(rs0)),
         tol, b.dtype, floor_warned,
@@ -1748,12 +1815,19 @@ def solve_with_recovery(A: PSparseMatrix, b: PVector, method: str = "cg", checkp
     from ..parallel.checkpoint import SolverCheckpointer
     from ..parallel.gpu import GPUBackend
 
+    from .. import telemetry
+
     check(method in ("cg", "pcg"), "solve_with_recovery: method is 'cg' or 'pcg'")
     ckpt = SolverCheckpointer(checkpoint_dir, every=every) if checkpoint_dir is not None else None
-    if isinstance(b.values.backend, GPUBackend):
-        return _solve_with_recovery_chunked(A, b, method, ckpt, every, max_restarts, minv, x0, tol, maxiter,
-                                            verbose, sdc)
-    return _solve_with_recovery_host(A, b, method, ckpt, max_restarts, minv, x0, tol, maxiter, verbose, sdc)
+    with telemetry.solve_scope("solve_with_recovery", method=method, tol=float(tol),
+                               max_restarts=int(max_restarts), checkpointing=checkpoint_dir is not None) as rec:
+        if isinstance(b.values.backend, GPUBackend):
+            x, info = _solve_with_recovery_chunked(A, b, method, ckpt, every, max_restarts, minv, x0, tol,
+                                                   maxiter, verbose, sdc)
+        else:
+            x, info = _solve_with_recovery_host(A, b, method, ckpt, max_restarts, minv, x0, tol, maxiter,
+                                                verbose, sdc)
+        return x, rec.finish(info)
 
 
 def _failure(e) -> dict:
@@ -1823,6 +1897,9 @@ def _solve_with_recovery_host(A, b, method, ckpt, max_restarts, minv, x0, tol, m
                         source["checkpoint_iteration"] = int(meta_.get("it", 0))
                         ledger["checkpoint_restarts"] += 1
             ledger["restart_sources"].append(source)
+            from .. import telemetry
+
+            telemetry.emit_event("restart", label=type(e).__name__, attempt=restarts, **source)
             print(f"[partitionedarrays_jl_tpu_torch] {method}: {type(e).__name__}: {e}: restart {restarts}/"
                   f"{max_restarts} from " + how, file=sys.stderr, flush=True)
 
@@ -1878,6 +1955,9 @@ def _solve_with_recovery_chunked(A, b, method, ckpt, every, max_restarts, minv, 
                     source["checkpoint_iteration"] = done
                     ledger["checkpoint_restarts"] += 1
             ledger["restart_sources"].append(source)
+            from .. import telemetry
+
+            telemetry.emit_event("restart", label=type(e).__name__, attempt=restarts, **source)
             print(f"[partitionedarrays_jl_tpu_torch] {method} (chunked): {type(e).__name__}: {e}: restart "
                   f"{restarts}/{max_restarts}", file=sys.stderr, flush=True)
             continue

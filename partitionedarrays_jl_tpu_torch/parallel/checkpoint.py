@@ -14,7 +14,9 @@ per part under a generation tag and an ``index.json``, retaining the
 previous committed generation and falling back to it when the newest has a
 truncated or bit-rotted shard (`CheckpointCorruptError` only when no clean
 generation exists). `SolverCheckpointer` is the solvers' ``checkpoint=``
-hook and `load_solver_state` its loader. A cross-part-count solver-state
+hook and `load_solver_state` its loader; a save and a restore are
+``checkpoint_save`` / ``checkpoint_restore`` events in the active solve
+records (checkpoint.py:697-699, :797-804). A cross-part-count solver-state
 restore raises `CheckpointShapeError`: the JAX package's elastic tier that
 opts into it runs across cards and is not ported.
 """
@@ -687,6 +689,13 @@ class SolverCheckpointer:
         for v in vectors.values():
             meta.setdefault("nparts", int(v.rows.partition.num_parts))
             break
+        from ..telemetry import emit_event
+
+        emit_event(
+            "checkpoint_save", label=str(meta.get("method", "")),
+            iteration=meta.get("it"), directory=self.directory,
+            vectors=sorted(objs), async_write=self.async_write,
+        )
         if self.async_write:
             t = threading.Thread(
                 target=self._write, args=(objs, meta), daemon=True,
@@ -770,4 +779,12 @@ def load_solver_state(
             f"target has {tgt_parts} parts: cross-part-count solver restores are an elastic-tier decision, "
             "which the port does not have"
         )
-    return load_checkpoint(directory, ranges)
+    st = load_checkpoint(directory, ranges)
+    from ..telemetry import emit_event
+
+    meta = st.get("meta", {}) if isinstance(st, dict) else {}
+    emit_event(
+        "checkpoint_restore", label=str(meta.get("method", "")),
+        iteration=meta.get("it"), directory=str(directory),
+    )
+    return st

@@ -7,8 +7,10 @@ update, ghost assembly and planning exchange funnels through,
 in `utils/health.py` and `models/solvers.py` (`solve_with_recovery`).
 
 Activation: ``with inject_faults("nan@part=1,call=3", seed=42) as st: ...``
-(nestable; the innermost spec wins; ``st.events`` records what fired). The
-JAX package's ``PA_FAULT_SPEC``/``PA_FAULT_SEED`` are not read.
+(nestable; the innermost spec wins; ``st.events`` records what fired, and
+each fired fault is a ``fault_injected`` event in the active solve records,
+faults.py:194-200). The JAX package's ``PA_FAULT_SPEC``/``PA_FAULT_SEED``
+are not read.
 
 Spec grammar: ``;``-separated clauses, each ``kind@key=val,key=val``.
 
@@ -143,6 +145,10 @@ class FaultState:
 
     def record(self, **ev) -> None:
         self.events.append(ev)
+        from ..telemetry import emit_event
+
+        details = {k: v for k, v in ev.items() if k != "kind"}
+        emit_event("fault_injected", label=ev.get("kind", ""), **details)
 
 
 _lock = threading.Lock()

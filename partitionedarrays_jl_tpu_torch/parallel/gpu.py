@@ -828,12 +828,23 @@ def device_matrix(A: PSparseMatrix, backend: GPUBackend, box: bool = True, stric
     and ``lowering`` (strict mode is one entry: the ELL lowering on the
     generic plan). An operator whose staging no ``lowering`` changes (a
     band, or a rectangular A_oo: `DeviceMatrix.lowering_free`) is staged
-    once for every ``lowering``."""
+    once for every ``lowering``. Counts ``lowering_cache.{hit,miss,
+    stale_rekey}`` and emits a ``compile_cache`` event (tpu.py:2436-2455):
+    a miss on a backend A was already staged on, under other keywords, is
+    a ``stale_rekey``."""
+    from .. import telemetry
+
     key = (backend, False, True, "ell") if strict else (backend, bool(box), False, lowering)
     if key not in A._device:
+        action = "stale_rekey" if any(k[0] is backend for k in A._device) else "miss"
+        telemetry.bump(f"lowering_cache.{action}")
+        telemetry.emit_event("compile_cache", label=f"lowering_{action}", cache="lowering", action=action)
         same = next((d for k, d in A._device.items() if k[:3] == key[:3] and d.lowering_free), None)
         A._device[key] = same if same is not None else DeviceMatrix(A, backend, box, strict=strict,
                                                                     lowering=lowering)
+    else:
+        telemetry.bump("lowering_cache.hit")
+        telemetry.emit_event("compile_cache", label="lowering_hit", cache="lowering", action="hit")
     return A._device[key]
 
 
@@ -1270,7 +1281,7 @@ def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None, s
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
                pipelined: bool = False, plain: bool = False, graph: bool = True,
                block: Optional[int] = None, precond: bool = False, sstep: Optional[int] = None,
-               overlap: bool = False, sdc=None) -> Callable:
+               overlap: bool = False, sdc=None, trace_iters: int = 0) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``, run as a device-resident loop
     (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
@@ -1330,7 +1341,17 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     (`DeviceMatrix.abft_row`). The s-step and pipelined bodies have no
     defended form and refuse it with `LoweringConflictError`
     (tpu.py:3525-3547); the defended loop runs without the overlap
-    tail."""
+    tail.
+
+    ``trace_iters`` (the JAX package's ``PA_TRACE_ITERS``, tpu.py:988,
+    :3549-3555) adds the α/β trace ring: a ``(Ht, 2)`` device tensor,
+    Ht = min(trace_iters, maxiter), that every live iteration writes
+    (α, β) into at row ``it % Ht`` (`gpu_loop.record_ab`: a device index,
+    gated on the flag, so the write sits inside the captured block); ``fn``
+    then returns the ring as a sixth value (after the SDC vector of a
+    defended loop) and ``fn.trace_iters`` is Ht. 0, the default, builds
+    the loop without it, launching what it launched before. The pipelined
+    body has no ring (Ht 0, as in the JAX package)."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
@@ -1338,13 +1359,14 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     cfg = _sdc_config(sdc, maxiter)
     sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, strict, sdc=cfg is not None)
     overlap = bool(overlap) and _can_overlap(dA, fused)
+    Ht = 0 if pipelined else int(min(max(0, int(trace_iters)), int(maxiter)))
     if cfg is not None:
         from .gpu_sdc import make_sdc_cg_fn
 
-        return make_sdc_cg_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block)
+        return make_sdc_cg_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, trace_iters=Ht)
     if sstep:
         return _make_sstep_cg_fn(dA, tol, maxiter, sstep, plain=plain, graph=graph, block=block,
-                                 overlap=overlap)
+                                 overlap=overlap, trace_iters=Ht)
     if fused and pipelined:
         raise ValueError("make_cg_fn: fused and pipelined are mutually exclusive forms")
     if precond and pipelined:
@@ -1397,6 +1419,8 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
         else:
             rs_new = sweep(S["r"], q, alpha, live, S["part"], o0, no_max, x=S["x"], p=p)
         beta = (rz_new if precond else rs_new) / rz
+        if Ht:
+            gl.record_ab(S["ab"], it, live, alpha, beta)
         if fused:
             out["pprev"], out["beta"] = p, beta
         elif pipelined:
@@ -1439,13 +1463,17 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
             init["p"] = p
         if pipelined:
             init.update(pprev=torch.zeros_like(x), alpha_prev=zero)
+        if Ht:
+            init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
-        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
+        out = (S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy())
+        return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
     fn.cg_body = "pipelined" if pipelined else "fused" if fused else "standard"
     fn.precond = bool(precond)
     fn.strict = strict
     fn.overlap = bool(overlap)
+    fn.trace_iters = Ht
     fn.stats = loop.stats  # updated in place by every run
     fn.loop = loop
     return fn
@@ -1482,7 +1510,8 @@ def _pgram_factory(o0: int, no_max: int):
 
 
 def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain: bool = False,
-                      graph: bool = True, block: Optional[int] = None, overlap: bool = False) -> Callable:
+                      graph: bool = True, block: Optional[int] = None, overlap: bool = False,
+                      trace_iters: int = 0) -> Callable:
     """The s-step (communication-avoiding) CG loop (tpu.py:4172-4262): one
     step of the device loop is one outer trip of s textbook iterations.
     The trip builds the monomial basis ``[p, Ap, .., Aˢp, r, Ar, ..,
@@ -1505,7 +1534,9 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
     the trajectory is not the textbook one bit for bit; the Gram product
     and the trip-end products are `torch.matmul`, as the JAX package
     computes them with XLA outside any kernel. The device loop runs
-    ``max(1, CG_BLOCK // s)`` trips a block."""
+    ``max(1, CG_BLOCK // s)`` trips a block. ``trace_iters`` as in
+    `make_cg_fn`: inner iteration j of a trip writes its (α, β) at row
+    ``(it + j) % Ht`` (tpu.py:4240-4276)."""
     from . import gpu_loop as gl
 
     body2 = _spmv_body(dA, plain=plain, block=True, overlap=overlap)
@@ -1515,6 +1546,7 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
     pdot = _pdot_factory(o0, no_max, False, plain)
     pgram = _pgram_factory(o0, no_max)
     stop_it = gl.stop_bound(maxiter)
+    Ht = int(trace_iters)
     m_dim = 2 * s + 1
     shift = np.zeros((m_dim, m_dim))
     for i in range(s):
@@ -1566,6 +1598,8 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
             beta = torch.where(go, rs_new / rs_j, torch.zeros_like(rs_j))
             p_c = r_c + beta * p_c
             gl.record(S["hist"], it + (j + 1) * live, live, gl.sqrt_rn(rs_new))
+            if Ht:
+                gl.record_ab(S["ab"], it + j, live, alpha, beta)
             rs_j = rs_new
         # x, r and p from one product with the basis
         U = torch.matmul(torch.stack([x_c, r_c, p_c]), V)  # (P, 3, no_max)
@@ -1587,13 +1621,17 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
             "live": torch.ones((), dtype=torch.int32, device=x.device),
             "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
         }
+        if Ht:
+            init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
-        return S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy()
+        out = (S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy())
+        return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
     fn.cg_body = f"sstep{s}"
     fn.precond = False
     fn.strict = False
     fn.overlap = bool(overlap)
+    fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
     return fn
@@ -1602,7 +1640,7 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
 def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
                      precond: bool = False, fused: Optional[bool] = None, plain: bool = False,
                      graph: bool = True, block: Optional[int] = None, overlap: bool = False,
-                     sdc=None) -> Callable:
+                     sdc=None, trace_iters: int = 0) -> Callable:
     """Block (multi-RHS) CG over ``(P, W, K)`` slabs, K = ``rhs_batch``
     right-hand sides against one operator (tpu.py:make_block_cg_fn,
     :4362-5020, its fused and standard bodies, with and without
@@ -1639,7 +1677,13 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     column k takes the host's strict solo loop of column k bit for bit.
     ``overlap`` as in `make_cg_fn`; ``sdc`` builds the SDC-defended block
     loop (`gpu_sdc.make_sdc_block_cg_fn`, tpu.py:4411-4860): (K,) checksum
-    and audit lanes, a rollback restores the whole block."""
+    and audit lanes, a rollback restores the whole block.
+
+    ``trace_iters`` adds the block's α/β ring (tpu.py:4417-4422,
+    :4900-4972): ``(Ht, 2, K)``, written at row ``it % Ht`` (``it`` the
+    loop's trip count, the slowest column's) on every live trip, a frozen
+    column's α 0; ``fn`` returns it as a sixth value. The defended block
+    loop has none (Ht 0, as in the JAX package)."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
@@ -1649,6 +1693,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     fused = (not strict) if fused is None else bool(fused)
     overlap = bool(overlap) and _can_overlap(dA, fused)
     cfg = _sdc_config(sdc, maxiter)
+    Ht = 0 if cfg is not None else int(min(max(0, int(trace_iters)), int(maxiter)))
     if cfg is not None:
         from .gpu_sdc import make_sdc_block_cg_fn
 
@@ -1694,10 +1739,14 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
             rs_new = sweep(S["r"], q, alpha, act, S["part"], o0, no_max, x=S["x"], p=p)
         beta = (rz_new if precond else rs_new) / rz
         if fused:
-            out["pprev"], out["beta"] = p, torch.where(on, beta, S["beta"])
+            beta = torch.where(on, beta, S["beta"])
+            out["pprev"], out["beta"] = p, beta
         else:
+            beta = torch.where(on, beta, 0)
             z = mv[:, sl, None] * S["r"][:, sl] if precond else S["r"][:, sl]
-            p[:, sl] = z + torch.where(on, beta, 0) * p[:, sl]
+            p[:, sl] = z + beta * p[:, sl]
+        if Ht:
+            gl.record_ab(S["ab"], it, live, alpha, beta)
         out.update(rs=torch.where(on, rs_new, rs), it=it + live, itk=S["itk"] + act, live=live)
         gl.record(S["hist"], out["it"], act, gl.sqrt_rn(rs_new))
         return out
@@ -1735,15 +1784,19 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
             p = torch.zeros_like(x)
             p[:, sl] = z[:, sl]
             init["p"] = p
+        if Ht:
+            init["ab"] = gl.trace_ring(Ht, rs0, K)
         S, _ = loop.run(init)
-        return (S["x"].clone(), S["rs"].clone(), rs0, S["itk"].cpu().numpy().astype(np.int64),
-                S["hist"].cpu().numpy())
+        out = (S["x"].clone(), S["rs"].clone(), rs0, S["itk"].cpu().numpy().astype(np.int64),
+               S["hist"].cpu().numpy())
+        return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
     fn.cg_body = "fused" if fused else "standard"
     fn.precond = bool(precond)
     fn.strict = strict
     fn.overlap = bool(overlap)
     fn.rhs_batch = K
+    fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
     return fn
@@ -1754,10 +1807,22 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
 STATS = {"solve_fns": 0}
 
 
+def _count_program(hit: bool, method: str) -> None:
+    """A solve-function cache lookup into the telemetry: the counter
+    ``program_cache.{hit,miss}`` and a ``compile_cache`` event
+    (tpu.py:6372-6391)."""
+    from .. import telemetry
+
+    action = "hit" if hit else "miss"
+    telemetry.bump(f"program_cache.{action}")
+    telemetry.emit_event("compile_cache", label=f"program_{action}", cache="program", action=action,
+                         method=method)
+
+
 def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, precond: bool = False,
                    pipelined: bool = False, fused: Optional[bool] = None, plain: bool = False,
                    rhs_batch: Optional[int] = None, sstep: Optional[int] = None, overlap: bool = False,
-                   sdc=None, **options) -> Callable:
+                   sdc=None, trace_iters: int = 0, **options) -> Callable:
     """The solve function of ``method`` on ``dA``, cached on it
     (tpu.py:6308-6392, ``dA._cg_cache``): one function, and so one
     `gpu_loop.DeviceLoop` with its captured graph, per key. The key holds
@@ -1766,10 +1831,15 @@ def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, prec
     conflicts of an explicit s-step depth), the overlap tail where the body
     has one (`_can_overlap`; elsewhere the key is ``overlap=False``'s), plain, the
     block width K and the method's own options (GMRES's restart, Chebyshev's
-    bounds and leg), and the SDC config's key (`_sdc_config`), so a
-    defended solve never replays an undefended loop's graph, nor the
-    reverse (the port has no trace ring). A hit copies the next b and x0
-    into the loop's buffers and replays its graph.
+    bounds and leg), the SDC config's key (`_sdc_config`) and the
+    effective trace-ring depth (tpu.py:6334-6370: ``min(trace_iters,
+    maxiter)``, 0 for a body without a ring: the pipelined CG, the
+    defended block loop and every other method, which emit a
+    ``trace_unavailable`` event when a depth was asked for), so a
+    defended or traced solve never replays an undefended or untraced
+    loop's graph, nor the reverse. A hit copies the next b and x0 into the
+    loop's buffers and replays its graph. Hits and misses count under
+    ``program_cache.{hit,miss}`` with a ``compile_cache`` event.
     Methods: ``"cg"`` (`make_cg_fn`, or with ``rhs_batch``
     `make_block_cg_fn`), ``"bicgstab"``, ``"gmres"``, ``"minres"``,
     ``"chebyshev"`` (`gpu_krylov.py`)."""
@@ -1782,15 +1852,31 @@ def _krylov_fn_for(dA: DeviceMatrix, method: str, tol: float, maxiter: int, prec
         eff_sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, dA.strict, rhs_batch,
                                             sdc=cfg is not None)
     overlap = method == "cg" and cfg is None and bool(overlap) and _can_overlap(dA, fused)
+    requested = max(0, int(trace_iters))
+    if method != "cg" or pipelined or (rhs_batch is not None and cfg is not None):
+        trace_ht = 0
+        if requested:
+            from .. import telemetry
+
+            body = "pipelined" if pipelined else "sdc-block" if method == "cg" else method
+            telemetry.emit_event(
+                "trace_unavailable", label=body, requested=requested, method=method,
+                reason="this body carries no alpha/beta trace ring — spectral estimates fall back to the "
+                       "residual history",
+            )
+    else:
+        trace_ht = int(min(requested, int(maxiter)))
     key = (method, float(tol), int(maxiter), bool(precond), bool(pipelined), fused, bool(plain),
-           rhs_batch, eff_sstep, bool(overlap), cfg["key"] if cfg else None) + tuple(sorted(options.items()))
+           rhs_batch, eff_sstep, bool(overlap), cfg["key"] if cfg else None,
+           trace_ht) + tuple(sorted(options.items()))
+    _count_program(key in dA._fn_cache, method)
     if key not in dA._fn_cache:
         if method == "cg" and rhs_batch is None:
             fn = make_cg_fn(dA, tol, maxiter, fused=fused, pipelined=pipelined, plain=plain, precond=precond,
-                            sstep=eff_sstep, overlap=overlap, sdc=sdc)
+                            sstep=eff_sstep, overlap=overlap, sdc=sdc, trace_iters=trace_ht)
         elif method == "cg":
             fn = make_block_cg_fn(dA, tol, maxiter, rhs_batch, precond=precond, fused=fused, plain=plain,
-                                  overlap=overlap, sdc=sdc)
+                                  overlap=overlap, sdc=sdc, trace_iters=trace_ht)
         elif method == "bicgstab":
             fn = kr.make_bicgstab_fn(dA, tol, maxiter, precond=precond, plain=plain)
         elif method == "gmres":
@@ -1847,6 +1933,17 @@ def _decode_sdc_outputs(name: str, sdcvec, it=None) -> dict:
     sdc_info = {"detections": v["detections"], "rollbacks": v["rollbacks"],
                 "escalations": int(bool(v["escalations"])), "audit_iterations": v["audit_iterations"],
                 "trips": v["trips"]}
+    if sdc_info["detections"] or sdc_info["rollbacks"] or sdc_info["escalations"]:
+        # the loop reports counters only (its detections fired on the
+        # device): one structured event each, so no device recovery is
+        # silent in the record (tpu.py:5803-5818)
+        from .. import telemetry
+
+        iteration = None if it is None else int(it)
+        telemetry.emit_event("sdc_detection", label=name, iteration=iteration, **sdc_info)
+        if sdc_info["rollbacks"]:
+            telemetry.emit_event("sdc_rollback", label=name, iteration=iteration,
+                                 rollbacks=sdc_info["rollbacks"])
     if sdc_info["escalations"]:
         diag = {"context": name, "sdc": sdc_info}
         if it is not None:
@@ -1882,26 +1979,43 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
     ``health`` (the JAX package's ``PA_HEALTH_CHECKS``) a non-finite rs or
     rs0, which the loop's in-graph finite test stopped on, raises
     `NonFiniteError` with ``diagnostics["iteration"]`` (tpu.py:5903-5924)
-    instead of returning a NaN answer marked only as not converged."""
+    instead of returning a NaN answer marked only as not converged.
+
+    Telemetry (tpu.py:5841-5945): staging and solve run under
+    `telemetry.annotate`; a traced loop's ring (``solve.trace_iters``)
+    lands on the active record as ``alpha``/``beta``, unrolled
+    (`gpu_loop.unroll_ring`) with ``trace_start``, before any typed raise;
+    a CG or PCG solve then feeds `telemetry.observe_solve`."""
+    from .. import telemetry
     from ..models.solvers import _final_true_rel
     from ..utils.health import NonFiniteError
+    from . import gpu_loop as gl
 
     backend = b.values.backend
     floor_warned = warn_tol_below_floor(tol, b.dtype, name=name)
-    dA = dA if dA is not None else device_matrix(A, backend, box)
-    x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
-    db = _b_on_cols_layout(b, dA)
-    dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
-    args = (db, dx0.data) if minv is None else (db, dx0.data, _b_on_cols_layout(minv, dA).to(db.dtype))
-    out = solve(*args)
+    rec = telemetry.current_record()
+    with telemetry.annotate(f"pa:{name}:stage", backend.device):
+        dA = dA if dA is not None else device_matrix(A, backend, box)
+        x0 = x0 if x0 is not None else PVector.full(0.0, A.cols, dtype=b.dtype)
+        db = _b_on_cols_layout(b, dA)
+        dx0 = DeviceVector.from_pvector(x0, backend, dA.col_layout)
+        args = (db, dx0.data) if minv is None else (db, dx0.data, _b_on_cols_layout(minv, dA).to(db.dtype))
+    with telemetry.annotate(f"pa:{name}:solve", backend.device):
+        out = solve(*args)
     x_data, rs, rs0, it, hist = out[:5]
+    has_sdc = getattr(solve, "has_sdc", False)
+    ab = out[6 if has_sdc else 5] if getattr(solve, "trace_iters", 0) else None
     hist = hist[: min(it + 1, len(hist))]  # entries past the last iteration are NaN
     x = DeviceVector(x_data, A.cols, dA.col_layout, backend).to_pvector()
     rs, rs0 = float(rs), float(rs0)
+    if ab is not None and rec is not None and rec.enabled:
+        rows, n, rec.trace_start = gl.unroll_ring(ab, it)
+        rec.alpha = [float(v) for v in rows[:n, 0]]
+        rec.beta = [float(v) for v in rows[:n, 1]]
     if verbose:
         for i, res in enumerate(hist[1:], start=1):
             print(f"{name} it={i} residual={res:.3e}")
-    if getattr(solve, "has_sdc", False):
+    if has_sdc:
         extra["sdc"] = _decode_sdc_outputs(name, out[5], it=it)
     if health and not (np.isfinite(rs) and np.isfinite(rs0)):
         # the loop stopped on its in-graph finite test, one iteration after
@@ -1921,6 +2035,9 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
         ),
         device_loop=dict(solve.stats), **extra,
     )
+    if name in ("cg", "pcg"):
+        # CG family only: the store's Lanczos and κ-rate semantics are CG's
+        telemetry.observe_solve(A, rec, info=info, dtype=b.dtype, minv=minv)
     return x, info
 
 
@@ -1942,6 +2059,7 @@ def gpu_cg(
     overlap: bool = False,
     health: bool = True,
     sdc=None,
+    trace_iters: int = 0,
 ) -> Tuple[PVector, dict]:
     """Device CG on the GPU backend, the counterpart of `tpu_cg`
     (tpu.py:5952): the fused body by default, the lag-1 form with
@@ -1964,7 +2082,12 @@ def gpu_cg(
     ``sdc`` (an `SDCConfig`) runs the in-graph SDC defense (`gpu_sdc`) and
     adds ``info["sdc"]``; under ``abft`` a Cartesian partition takes the
     generic exchange plan (the checksummed rounds are the generic plan's,
-    tpu.py:791-805). ``health`` as in `_run_krylov`."""
+    tpu.py:791-805). ``health`` as in `_run_krylov`. ``trace_iters``: the
+    α/β trace ring (`make_cg_fn`; the pipelined body has none), unrolled
+    onto the solve's record (``info.record.alpha``/``beta``). The solve
+    runs in a `telemetry.solve_scope` (tpu.py:5987-6000): ``info`` is an
+    `InfoDict` carrying its `SolveRecord`."""
+    from .. import telemetry
     from ..utils.health import resolve_sdc
 
     backend = b.values.backend
@@ -1973,13 +2096,18 @@ def gpu_cg(
     sdc = resolve_sdc(sdc)
     if sdc is not None and sdc.abft:
         box = False
-    dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
-    solve = _krylov_fn_for(dA, "cg", tol, int(maxiter), precond=minv is not None, pipelined=pipelined,
-                           fused=fused, plain=plain, sstep=sstep, overlap=overlap, sdc=sdc)
     name = "pcg" if minv is not None else "cg"
-    return _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, health=health,
-                       cg_body=solve.cg_body, lowering=dA.lowering, strict=dA.strict,
-                       exchange_plan=_exchange_plan_name(dA))
+    with telemetry.solve_scope(name, backend="gpu", tol=float(tol), maxiter=int(maxiter),
+                               dtype=str(np.dtype(b.dtype))) as rec:
+        dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
+        solve = _krylov_fn_for(dA, "cg", tol, int(maxiter), precond=minv is not None, pipelined=pipelined,
+                               fused=fused, plain=plain, sstep=sstep, overlap=overlap, sdc=sdc,
+                               trace_iters=trace_iters)
+        rec.config["cg_body"] = solve.cg_body
+        x, info = _run_krylov(A, b, x0, tol, verbose, solve, name, minv=minv, dA=dA, health=health,
+                              cg_body=solve.cg_body, lowering=dA.lowering, strict=dA.strict,
+                              exchange_plan=_exchange_plan_name(dA))
+        return x, rec.finish(info)
 
 
 def gpu_block_cg(
@@ -1998,6 +2126,7 @@ def gpu_block_cg(
     lowering: str = "auto",
     overlap: bool = False,
     sdc=None,
+    trace_iters: int = 0,
 ) -> Tuple[list, dict]:
     """Device block (multi-RHS) CG on the GPU backend, the counterpart of
     `tpu_block_cg` / `_tpu_block_cg_impl` (tpu.py:6025-6275): solve ``A x_k
@@ -2015,9 +2144,13 @@ def gpu_block_cg(
     nothing. ``box``, ``strict`` and ``lowering`` as in `gpu_cg`: on a
     strict lowering every column is the host's strict solo solve of that
     column, bit for bit. ``sdc`` as in `gpu_cg` (the block's defended
-    loop: per-column lanes, whole-block rollback)."""
-    from ..models.solvers import _final_true_rel
-    from ..utils.health import NonFiniteError, resolve_sdc
+    loop: per-column lanes, whole-block rollback). ``trace_iters``: the
+    block's α/β ring (`make_block_cg_fn`), unrolled onto the record per
+    column (``rec.alpha[k]``), the trips after column k froze masked
+    ``None`` (tpu.py:6127-6160). The solve runs in a
+    `telemetry.solve_scope` (tpu.py:6074-6085); a non-finite column under
+    ``"report"`` emits a ``column_verdict`` event."""
+    from .. import telemetry
 
     check(column_errors in ("raise", "report"), "gpu_block_cg: column_errors is 'raise' or 'report'")
     B = list(B)
@@ -2028,24 +2161,43 @@ def gpu_block_cg(
     maxiter = int(maxiter if maxiter is not None else 4 * A.rows.ngids)
     dt = np.result_type(*[b.dtype for b in B])
     name = "block-pcg" if minv is not None else "block-cg"
+    with telemetry.solve_scope(name, backend="gpu", tol=float(tol), maxiter=maxiter, rhs_batch=K,
+                               dtype=str(np.dtype(dt))) as rec:
+        xs, info = _gpu_block_cg_impl(A, B, X0, tol, maxiter, verbose, minv, fused, column_errors, plain, box,
+                                      strict, lowering, overlap, sdc, trace_iters, K, backend, dt, name, rec)
+        return xs, rec.finish(info)
+
+
+def _gpu_block_cg_impl(A, B, X0, tol, maxiter, verbose, minv, fused, column_errors, plain, box, strict,
+                       lowering, overlap, sdc, trace_iters, K, backend, dt, name, rec):
+    from .. import telemetry
+    from ..models.solvers import _final_true_rel
+    from ..utils.health import NonFiniteError, resolve_sdc
+
     sdc = resolve_sdc(sdc)
     if sdc is not None and sdc.abft:
         box = False
-    dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
-    solve = _krylov_fn_for(dA, "cg", tol, maxiter, precond=minv is not None, fused=fused, plain=plain,
-                           rhs_batch=K, overlap=overlap, sdc=sdc)
-    floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
-    db = _block_on_cols_layout(B, dA)
-    if X0 is None:
-        X0 = [PVector.full(0.0, A.cols, dtype=dt) for _ in range(K)]
-    else:
-        X0 = list(X0)
-        check(len(X0) == K, "gpu_block_cg: X0 must hold one start per RHS")
-    dx0 = _block_on_cols_layout(X0, dA, with_ghosts=True).to(db.dtype)
-    args = (db, dx0) if minv is None else (db, dx0, _b_on_cols_layout(minv, dA).to(db.dtype))
-    out = solve(*args)
+    with telemetry.annotate(f"pa:{name}:stage", backend.device):
+        dA = device_matrix(A, backend, box, strict=strict, lowering=lowering)
+        solve = _krylov_fn_for(dA, "cg", tol, maxiter, precond=minv is not None, fused=fused, plain=plain,
+                               rhs_batch=K, overlap=overlap, sdc=sdc, trace_iters=trace_iters)
+        rec.config["cg_body"] = solve.cg_body
+        floor_warned = warn_tol_below_floor(tol, dt, name="block-cg")
+        db = _block_on_cols_layout(B, dA)
+        if X0 is None:
+            X0 = [PVector.full(0.0, A.cols, dtype=dt) for _ in range(K)]
+        else:
+            X0 = list(X0)
+            check(len(X0) == K, "gpu_block_cg: X0 must hold one start per RHS")
+        dx0 = _block_on_cols_layout(X0, dA, with_ghosts=True).to(db.dtype)
+        args = (db, dx0) if minv is None else (db, dx0, _b_on_cols_layout(minv, dA).to(db.dtype))
+    with telemetry.annotate(f"pa:{name}:solve", backend.device):
+        out = solve(*args)
     x_data, rs, rs0, itk, hist = out[:5]
-    sdc_info = _decode_sdc_outputs(name, out[5], it=int(itk.max())) if getattr(solve, "has_sdc", False) else None
+    has_sdc = getattr(solve, "has_sdc", False)
+    if getattr(solve, "trace_iters", 0) and rec.enabled:
+        _attach_block_ring(rec, out[6 if has_sdc else 5], itk)
+    sdc_info = _decode_sdc_outputs(name, out[5], it=int(itk.max())) if has_sdc else None
     rs = rs.cpu().numpy().astype(np.float64)
     rs0 = rs0.cpu().numpy().astype(np.float64)
     xs, columns = [], []
@@ -2075,6 +2227,7 @@ def gpu_block_cg(
             for k in bad:
                 columns[k]["status"] = "nonfinite"
                 columns[k]["converged"] = False
+            telemetry.emit_event("column_verdict", label=name, columns=bad, iterations=[int(itk[k]) for k in bad])
         else:
             raise NonFiniteError(
                 f"{name}: non-finite residual in column(s) {bad}: those columns' solver state was "
@@ -2105,4 +2258,20 @@ def gpu_block_cg(
         info["sdc"] = sdc_info
     if floor_warned:
         info["tol_below_dtype_floor"] = True
+    # per-column spectral estimates from the block ring, before the finish
+    telemetry.observe_solve(A, rec, info=info, dtype=dt, minv=minv)
     return xs, info
+
+
+def _attach_block_ring(rec, ab: np.ndarray, itk: np.ndarray) -> None:
+    """The block ring ``(Ht, 2, K)`` on a record (tpu.py:6127-6160): its
+    rows are indexed by the loop's trip count, the slowest column's
+    iterations, so it is unrolled once for all columns; column k's lists
+    hold ``None`` on the trips after it froze."""
+    from . import gpu_loop as gl
+
+    itks = np.asarray(itk).astype(int).ravel()
+    rows, n, rec.trace_start = gl.unroll_ring(ab, int(itks.max()))
+    live = [[rec.trace_start + j < itks[k] for j in range(n)] for k in range(len(itks))]
+    rec.alpha = [[float(rows[j, 0, k]) if live[k][j] else None for j in range(n)] for k in range(len(itks))]
+    rec.beta = [[float(rows[j, 1, k]) if live[k][j] else None for j in range(n)] for k in range(len(itks))]

@@ -90,6 +90,39 @@ def record(hist: torch.Tensor, it: torch.Tensor, live: torch.Tensor, value: torc
     hist.index_copy_(0, idx, torch.where(live != 0, value, keep).unsqueeze(0))
 
 
+def trace_ring(depth: int, like: torch.Tensor, K: Optional[int] = None) -> torch.Tensor:
+    """The α/β trace ring of a CG loop (tpu.py:3549-3555, :4417-4422): a
+    zeroed ``(depth, 2)`` tensor, ``(depth, 2, K)`` for a block solve, in
+    ``like``'s dtype and device."""
+    shape = (int(depth), 2) if K is None else (int(depth), 2, int(K))
+    return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def record_ab(ab: torch.Tensor, it: torch.Tensor, live: torch.Tensor, alpha: torch.Tensor,
+              beta: torch.Tensor) -> None:
+    """Write ``(alpha, beta)`` of iteration ``it`` (the count before the
+    step) at row ``it % depth`` of the ring, in place, where ``live``;
+    a frozen step writes back the row it finds. The index is a device
+    tensor, so the write is one `index_copy_` inside a captured block and
+    reads nothing on the host. The ring keeps the last ``depth``
+    iterations (tpu.py:3912-3937, :4108-4123, :4900-4972)."""
+    idx = torch.remainder(it, ab.shape[0]).to(torch.int64).reshape(1)
+    keep = ab.index_select(0, idx)[0]
+    ab.index_copy_(0, idx, torch.where(live != 0, torch.stack([alpha, beta]), keep).unsqueeze(0))
+
+
+def unroll_ring(ab: np.ndarray, it: int) -> Tuple[np.ndarray, int, int]:
+    """A downloaded ring in iteration order (tpu.py:5871-5887): ``(rows,
+    n, trace_start)`` with ``rows[j]`` iteration ``trace_start + j`` for
+    ``j < n = min(it, depth)``; past ``depth`` iterations the ring has
+    wrapped and is rolled by ``it % depth``."""
+    depth = ab.shape[0]
+    n = min(int(it), depth)
+    if it > depth:
+        return np.roll(ab, -(int(it) % depth), axis=0), n, int(it) - depth
+    return ab, n, 0
+
+
 def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root of a tensor, as NumPy's and the
     host loops' ``np.sqrt``: `torch.sqrt` on a CUDA tensor (IEEE), NumPy's

@@ -206,14 +206,17 @@ def _injector(cfg: dict, P: int, o0: int, block: bool):
 
 
 def make_sdc_cg_fn(dA, tol: float, maxiter: int, cfg: dict, fused: bool, precond: bool, plain: bool,
-                   graph: bool, block: Optional[int]):
+                   graph: bool, block: Optional[int], trace_iters: int = 0):
     """The SDC-defended single-vector CG loop (tpu.py:3652-4052): ``fn(b,
     x0[, minv]) -> (x, rs, rs0, iterations, history, sdc)``, ``sdc`` the
     (5,) int32 vector of `SDC_LANES`. ``fused`` the fused body (the fold
     K2's plain expression, K1 the product), else the standard one;
     ``precond`` Jacobi PCG; on a strict lowering the sweep updates x and r
-    and E3 takes every dot, as the undefended strict loop does."""
-    return _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, None)
+    and E3 takes every dot, as the undefended strict loop does.
+    ``trace_iters`` (Ht >= 1) adds the α/β ring of `gpu.make_cg_fn`,
+    written on commit trips only (tpu.py:3912-3937, :4030-4052: audit and
+    restore trips change no state), returned after the SDC vector."""
+    return _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, None, int(trace_iters))
 
 
 def make_sdc_block_cg_fn(dA, tol: float, maxiter: int, K: int, cfg: dict, fused: bool, precond: bool,
@@ -224,10 +227,10 @@ def make_sdc_block_cg_fn(dA, tol: float, maxiter: int, K: int, cfg: dict, fused:
     bits). ``fn(b, x0[, minv]) -> (x, rs, rs0, iterations (K,), history (H,
     K), sdc)``; each column's commit-trip arithmetic is the undefended
     block body's."""
-    return _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, int(K))
+    return _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, int(K), 0)
 
 
-def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K):
+def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
     """Both loops: ``K`` None the single-vector body (its scalars 0-d, the
     sweep `cg_sweep`, the dot `_pdot_factory`), else the block body over
     ``(P, W, K)`` slabs (per-column scalars and flags, `cg_sweep_block`,
@@ -341,6 +344,8 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K):
             cur["itk"] = S["itk"]
         got = _move_scalars(S, scal_keys, cur, push_slot, read_slot)
         gl.record(S["hist"], it + 1, cact, gl.sqrt_rn(rs_new))
+        if Ht:
+            gl.record_ab(S["ab"], it, cact, alpha, beta_new)
         _rewind_history(S["hist"], restore, got["it"], S["rows"])
         out.update(
             rs=torch.where(con, rs_new, torch.where(restore, got["rs"], rs)),
@@ -396,10 +401,13 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K):
         }
         if precond:
             init["minv"] = minv
+        if Ht:
+            init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
         iters = S["itk"].cpu().numpy().astype(np.int64) if slab else int(S["it"].item())
-        return (S["buf"][R, X].clone(), S["rs"].clone(), rs0, iters, S["hist"].cpu().numpy(),
-                sdc_vector(S).cpu().numpy())
+        out = (S["buf"][R, X].clone(), S["rs"].clone(), rs0, iters, S["hist"].cpu().numpy(),
+               sdc_vector(S).cpu().numpy())
+        return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
     fn.cg_body = "fused" if fused else "standard"
     fn.precond = bool(precond)
@@ -409,6 +417,7 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K):
         fn.rhs_batch = K
     fn.has_sdc = True
     fn.abft = abft
+    fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
     return fn

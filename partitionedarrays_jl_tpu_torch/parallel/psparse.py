@@ -34,7 +34,9 @@ from .pvector import PVector, _owned, _ghost
 
 
 class PSparseMatrix:
-    __slots__ = ("values", "rows", "cols", "_blocks", "_device")
+    # _spec_fingerprint: the lazily cached value-sensitive identity of
+    # telemetry.spectrum.spectrum_fingerprint (one O(nnz) digest an operator)
+    __slots__ = ("values", "rows", "cols", "_blocks", "_device", "_spec_fingerprint")
 
     def __init__(
         self,

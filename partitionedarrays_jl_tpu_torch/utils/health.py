@@ -18,8 +18,8 @@ config: True, or a ``(window, factor)`` pair), and the SDC switches
 ``PA_HEALTH_MAX_ROLLBACKS``, ``PA_TPU_ABFT_TOL``, ``PA_HEALTH_AUDIT_TOL``,
 ``PA_FAULT_DEVICE``) are the fields of one frozen `SDCConfig`, passed as
 ``sdc=`` to `cg`, `pcg`, `gpu_cg`, `gpu_block_cg` and `solve_with_recovery`.
-The telemetry events of the JAX package wait for the port's telemetry
-layer; the counters are kept.
+Every typed health error emits a ``health_error`` event into the active
+solve records when it is built (health.py:129-134), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,6 +53,16 @@ class SolverHealthError(RuntimeError):
     def __init__(self, message: str, diagnostics: Optional[dict] = None):
         super().__init__(message)
         self.diagnostics = dict(diagnostics or {})
+        # construction is the one choke point every guard funnels through;
+        # emit_event never raises
+        from ..telemetry import emit_event
+
+        emit_event(
+            "health_error", label=type(self).__name__,
+            iteration=self.diagnostics.get("iteration"),
+            context=self.diagnostics.get("context"),
+            message=str(message)[:500],
+        )
 
 
 class NonFiniteError(SolverHealthError):

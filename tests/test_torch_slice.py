@@ -136,7 +136,7 @@ def test_interop_round_trip(geometry):
 
 def _port_sources():
     files = sorted((ROOT / "partitionedarrays_jl_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "time_coded_kernels.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "time_coded_kernels.py", ROOT / "tools" / "run_phase_4l.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
