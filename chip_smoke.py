@@ -281,6 +281,34 @@ Phases, one JSON line each:
    converging against the original target; captures and capture
    seconds, the throughput model's s/iteration a right-hand side against
    the solo solve's, the p50 of queue wait and solve seconds;
+4m. the front door (`phase_frontdoor`): a `frontdoor.Gate` over two
+   tenants, phase 3's 192^3 f32 operator (kmax 8) and phase 2b's 48^3 f64
+   (2,2,2) system (kmax 4), under a memory budget that holds one of them,
+   so alternating traffic pages them out and in (seconds, captures and the
+   card's allocated/reserved bytes around each eviction; the structural
+   footprint beside the bytes each tenant's first slab added); a paused
+   backlog of GATE_P48 interactive requests with deadlines and GATE_P192
+   batch requests (one with a NaN in b) at the shed watermark: a
+   besteffort burst shed with `LoadShedded` (not `AdmissionRejected`), a
+   duplicate idempotency key replayed (no second admission); EDF runs the
+   interactive tenant first; the NaN request fails `NonFiniteError` and its
+   7 neighbours are `torch.equal` to their solo solves; the block kernels'
+   launches in each 192^3 slab by formula; per-RHS s/iteration of a steady
+   K = 8 slab through the gate against a bare `SolveService`'s; a traced
+   solo fused CG (K1 once, K2 each device iteration) measures the spectrum
+   and an infeasible deadline is refused with `DeadlineInfeasible` at the
+   door (no launch, no admission); both tenants resident with worker
+   threads capture at once and take turns on the card (their slabs never
+   overlap, their results their solo solves); GATE_HTTP requests over
+   `GateServer` on 127.0.0.1 through `http_solve`, each bit for bit its
+   in-process result (HTTP overhead a request); a journaled gate (fsync)
+   dropped with one request completed, one in flight after one chunk and
+   one queued, and `recover()` on a new gate: the recorded result bit for
+   bit, the in-flight request resumed from its chunk checkpoint, the queued
+   one re-entered, each once (journal append p50); two gates of a fleet
+   with leases, one stops heartbeating with two requests queued and the
+   survivor adopts its journal: zero lost, zero duplicated (`adopt()`
+   seconds). `tools/run_phase_4m.py` runs this phase alone;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -4931,6 +4959,437 @@ def phase_serving(backend, run, gmulti, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: the front door
+# ---------------------------------------------------------------------------
+
+GATE_P192 = 8  # the 192^3 f32 tenant's requests: one slab of SERVE_KMAX (b_k = A x̂_k)
+GATE_POISON = 3  # the one with a NaN in b (retries=0)
+GATE_P48_KMAX = 4  # the 48^3 f64 (2,2,2) tenant's slab width
+GATE_P48 = 4  # its interactive requests, deadlines GATE_DEADLINE_S + j (chunked slabs)
+GATE_DEADLINE_S = 600.0
+GATE_CAPTURE_K = 3  # the width both tenants capture at once (no earlier phase built it)
+GATE_HTTP = 3  # requests over the HTTP surface
+GATE_JOURNAL_CHUNK = 10  # chunk of the journaled tenant: its in-flight request checkpoints after one
+GATE_LEASE_S = 0.2  # the fleet's lease: stale after 3 x, swept every 1 x
+
+
+def _cuda_mem():
+    """(allocated, reserved) bytes on the card."""
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _p48_requests(Ah, k):
+    """``k`` right-hand sides b_j = Ah x̂_j, x̂_j = sin((j + 2) gid) (the
+    decoupled 48^3 f64 system converges from 0), with x̂_j: host PVectors."""
+    out = []
+    for j in range(k):
+        xh = PVector(Ah.cols.partition._like([np.sin((j + 2.0) * np.asarray(i.lid_to_gid, dtype=np.float64))
+                                             for i in Ah.cols.partition.part_values()]), Ah.cols)
+        out.append((Ah @ xh, xh))
+    return out
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def phase_frontdoor(backend, run, gmulti, rng):
+    """Phase 4m: the front door on the card (see the module docstring).
+    Returns the launches its paths counted."""
+    import tempfile
+
+    from partitionedarrays_jl_tpu_torch import frontdoor as fd
+    from partitionedarrays_jl_tpu_torch import telemetry
+    from partitionedarrays_jl_tpu_torch.parallel import gpu_loop
+    from partitionedarrays_jl_tpu_torch.parallel.gpu import _krylov_fn_for
+    from partitionedarrays_jl_tpu_torch.service import AdmissionRejected, SolveService
+    from partitionedarrays_jl_tpu_torch.utils.health import DeadlineInfeasible
+
+    t_phase = time.perf_counter()
+    arm_s = {}
+    A, Ah = run["A"], gmulti["Ah"]
+    maxiter = 4 * A.rows.ngids
+    telemetry.reset_state()
+    reg = telemetry.registry()
+    line = {"phase": "frontdoor", "tenants": {"p192": {"n": N_MAIN, "dtype": "float32", "parts": [1, 1, 1],
+                                                       "kmax": SERVE_KMAX},
+                                              "p48": {"n": N_GMG_MULTI, "dtype": "float64", "parts": [2, 2, 2],
+                                                      "kmax": GATE_P48_KMAX, "decoupled": True}}}
+    launches = {k: 0 for k in ("dia_coded_spmv", "dia_coded_spmv_pfold", "dia_coded_spmm", "cg_sweep_block",
+                               "block_products")}
+
+    # the requests and their solo solves (deadline-free slabs are their solo solves bit for bit)
+    t = time.perf_counter()
+    reqs = serving_rhs(A, backend, rng, GATE_P192)
+    clean = [j for j in range(GATE_P192) if j != GATE_POISON]
+    solo = {j: cg(A, reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN) for j in clean}
+    # ||b - A x0|| of each request for the services' spectrum forecasts (once
+    # the operator's spectrum is measured a submit without it pays a host
+    # SpMV at 192^3); the poisoned request's is its clean twin's
+    r0 = {j: float(solo[j if j in solo else clean[0]][1]["residuals"][0]) for j in range(GATE_P192)}
+    q = _p48_requests(Ah, 8)
+    qsolo = {j: cg(Ah, q[j][0], tol=TOL_MULTI) for j in (0, 1, 2, 6)}
+    sync()
+    arm_s["requests"] = time.perf_counter() - t
+
+    # --- the paging gate: a budget that holds one tenant --------------------
+    fp = {"p192": fd.operator_footprint_bytes(A, SERVE_KMAX), "p48": fd.operator_footprint_bytes(Ah, GATE_P48_KMAX)}
+    budget = max(fp.values()) + 1
+    require(sum(fp.values()) > budget, f"gate: a budget of {budget} B holds both tenants ({fp})")
+    watermark = GATE_P192 + GATE_P48
+    gate = fd.Gate(mem_budget_bytes=budget, shed_watermark=watermark)
+    evictions, page_ins, slabs = [], [], []
+    evict = gate.registry.evict
+
+    def timed_evict(name):
+        sync()
+        m0 = _cuda_mem()
+        t0 = time.perf_counter()
+        out = evict(name)
+        s = time.perf_counter() - t0
+        m1 = _cuda_mem()
+        evictions.append({"tenant": name, "s": s, "allocated_before": m0[0], "allocated_after": m1[0],
+                          "reserved_before": m0[1], "reserved_after": m1[1]})
+        return out
+
+    def on_page_in(name, ten):
+        rec = {"tenant": name, "after_eviction_allocated": _cuda_mem()[0]}
+        page_ins.append(rec)
+        run_slab = ten.svc._run_slab
+
+        def counted(slab, _run=run_slab, _rec=rec, _name=name):
+            c0, t0 = gpu_loop.STATS["captures"], time.perf_counter()
+            dia.reset_launches()
+            out = _run(slab)
+            sync()
+            s = time.perf_counter() - t0
+            got = dict(dia.LAUNCHES)
+            K = len(slab)
+            row = {"tenant": _name, "K": K, "s": s, "captures": gpu_loop.STATS["captures"] - c0}
+            if _name == "p192":
+                st = _krylov_fn_for(device_matrix(A, backend), "cg", TOL_MAIN, maxiter, rhs_batch=K).stats
+                dev_it = st["device_iterations"]
+                want = {"dia_coded_spmm": 1 + dev_it, "cg_sweep_block": dev_it, "block_products": dev_it + 1}
+                row.update(device_iterations=dev_it, kernels={k: got[k] for k in want}, expected=want)
+                for k in want:
+                    require(got[k] == want[k], f"gate p192 slab K={K}: {got[k]} {k} launches, expected {want[k]}")
+                    launches[k] += got[k]
+            slabs.append(row)
+            if "first_slab_s" not in _rec:
+                _rec.update(first_slab_s=s, captures=row["captures"], allocated=_cuda_mem()[0])
+            return out
+
+        ten.svc._run_slab = counted
+
+    gate.registry.evict = timed_evict
+    gate.registry.on_page_in = on_page_in
+    observed = []
+    model = telemetry.throughput_model()
+    orig_observe = model.observe_slab
+
+    def observe(fprint, dt, K, s_per_it, iterations=1):
+        observed.append({"dtype": str(dt), "K": int(K), "s_per_it": float(s_per_it), "iterations": int(iterations)})
+        orig_observe(fprint, dt, K, s_per_it, iterations)
+
+    model.observe_slab = observe
+    t = time.perf_counter()
+    gate.register("p48", Ah, kmax=GATE_P48_KMAX)
+    gate.register("p192", A, kmax=SERVE_KMAX)  # evicts p48
+    adm0 = reg.counter("service.admitted").value
+    gate.paused = True  # a deterministic backlog: shedding is a function of depth
+    hq = [gate.submit("p48", q[j][0], tol=TOL_MULTI, deadline=GATE_DEADLINE_S + j, slo_class="interactive",
+                      tag=f"q{j}") for j in range(GATE_P48)]
+    bad = reqs[GATE_POISON][0].copy()
+    vals = bad.values.part_values()[0]
+    vals[int(np.asarray(bad.rows.partition.part_values()[0].oid_to_lid)[N_MAIN ** 2 + N_MAIN + 1])] = np.nan
+    hr = [gate.submit("p192", bad if j == GATE_POISON else reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, r0_norm=r0[j],
+                      retries=0 if j == GATE_POISON else None, slo_class="batch", tag=f"r{j}",
+                      idempotency_key=f"r{j}") for j in range(GATE_P192)]
+    replay = {}
+    dup = gate.submit("p192", reqs[1][0], x0=reqs[1][1], tol=TOL_MAIN, slo_class="batch", idempotency_key="r1",
+                      replay_out=replay)
+    require(dup is hr[1] and replay == {"replayed": True}, "gate: a duplicate idempotency key admitted a new request")
+    try:
+        gate.submit("p192", reqs[0][0], x0=reqs[0][1], tol=TOL_MAIN, slo_class="besteffort", tag="burst")
+        shed = None
+    except fd.LoadShedded as e:
+        shed = e
+    require(shed is not None and not isinstance(shed, AdmissionRejected) and shed.retry_after_s > 0
+            and shed.diagnostics["depth"] == watermark, f"gate: the burst past depth {watermark} was not shed "
+            f"({shed!r})")
+    gate.paused = False
+    gate.drain()
+    traffic_s = time.perf_counter() - t
+    # EDF across tenants: the interactive tenant's deadline requests all
+    # finish before the batch tenant's first (one K = 4 slab, so among
+    # themselves they finish as they converge)
+    fin_q = [h.request.finished_at for h in hq]
+    fin_r = [h.request.finished_at for h in hr]
+    require(max(fin_q) < min(fin_r), "gate: EDF order broken across tenants")
+    hp = hr[GATE_POISON]
+    require(hp.state == "failed" and type(hp.error).__name__ == "NonFiniteError",
+            f"gate: the poisoned request ended {hp.state} ({hp.error!r})")
+    bits = [hr[j].state == "done" and _gathered_equal(hr[j].result()[0], solo[j][0])
+            and hr[j].result()[1]["iterations"] == solo[j][1]["iterations"] for j in clean]
+    require(all(bits), f"gate: p192 requests differ from their solo solves: {bits}")
+    qok = []
+    for j, h in enumerate(hq):
+        x, info = h.result()
+        qok.append({"iterations": h.request.iterations, "converged": bool(info["converged"]),
+                    "rel_err": _rel_err(x, q[j][1])})
+        require(h.state == "done" and info["converged"], f"gate: interactive request q{j}: {qok[-1]}")
+    require(reg.counter("service.admitted").value - adm0 == GATE_P192 + GATE_P48,
+            "gate: the duplicate key or the shed request reached a service")
+    require(len(evictions) == 3 and [e["tenant"] for e in evictions] == ["p48", "p192", "p48"],
+            f"gate: evictions {[e['tenant'] for e in evictions]}")
+    slo = {c: (reg.counter("gate.slo.hits", labels={"slo_class": c}).value,
+               reg.counter("gate.slo.requests", labels={"slo_class": c}).value) for c in ("interactive", "batch")}
+    require(slo["interactive"] == (GATE_P48, GATE_P48), f"gate: interactive attainment {slo}")
+    # the steady K = 8 slab through the gate and through a bare service (the cached solve function)
+    steady = [j for j in clean] + [clean[0]]
+    n_obs = len(observed)
+    t = time.perf_counter()
+    hs = [gate.submit("p192", reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, r0_norm=r0[j], slo_class="batch", tag=f"s{k}")
+          for k, j in enumerate(steady)]
+    gate.drain()
+    gate_steady_s = time.perf_counter() - t
+    gate_obs = observed[n_obs:]
+    require(all(h.state == "done" and _gathered_equal(h.result()[0], solo[j][0]) for h, j in zip(hs, steady)),
+            "gate: the steady slab differs from the solo solves")
+    svc = SolveService(A, kmax=SERVE_KMAX)
+    for k, j in enumerate(steady):
+        svc.submit(reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, r0_norm=r0[j], tag=f"bare{k}")
+    n_obs = len(observed)
+    svc.drain()
+    bare_obs = observed[n_obs:]
+    require(len(gate_obs) == 1 and gate_obs[0]["K"] == SERVE_KMAX and len(bare_obs) == 1
+            and bare_obs[0]["K"] == SERVE_KMAX, f"gate steady: slabs {gate_obs}, bare {bare_obs}")
+    model.observe_slab = orig_observe
+    # spectrum admission: a traced solo fused CG measures the spectrum (K1
+    # once, K2 each device iteration), then an infeasible deadline is refused
+    dia.reset_launches()
+    _, ti = cg(A, reqs[0][0], x0=reqs[0][1], tol=TOL_MAIN, trace_iters=RING_FULL)
+    sync()
+    got = dict(dia.LAUNCHES)
+    dev_it = device_iterations(ti)
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it}
+    for k in want:
+        require(got[k] == want[k], f"gate: the traced solve's {k} launched {got[k]}, expected {want[k]}")
+        launches[k] += got[k]
+    adm0, depth0 = reg.counter("service.admitted").value, gate.depth()
+    dia.reset_launches()
+    with telemetry.configure(spec_admit=True):
+        try:
+            gate.submit("p192", reqs[1][0], tol=TOL_MAIN, deadline=1e-6, slo_class="interactive", tag="infeasible")
+            infeasible = None
+        except DeadlineInfeasible as e:
+            infeasible = e.diagnostics
+    require(infeasible is not None and reg.counter("service.admitted").value == adm0 and gate.depth() == depth0
+            and not any(dia.LAUNCHES.values()), f"gate: the infeasible deadline was not refused at the door "
+            f"({infeasible})")
+    gate.shutdown()
+    line["paging"] = {
+        "budget_bytes": budget, "footprint_bytes": fp, "evictions": evictions, "page_ins": page_ins, "slabs": slabs,
+        "traffic_s": traffic_s, "shed": {"slo_class": shed.diagnostics["slo_class"], "depth": watermark,
+                                        "retry_after_s": shed.retry_after_s},
+        "duplicate_replayed": True, "poisoned": type(hp.error).__name__, "p192_solo_equal": bits,
+        "interactive": qok, "slo": slo, "steady_s": gate_steady_s,
+        "per_rhs_s_per_iter_k8_gate": gate_obs[0]["s_per_it"] / SERVE_KMAX,
+        "per_rhs_s_per_iter_k8_bare": bare_obs[0]["s_per_it"] / SERVE_KMAX,
+        "throughput_observations": observed,
+        "infeasible": {k: infeasible.get(k) for k in ("predicted_s", "available_s", "predicted_iters")},
+        "traced_solve": {"iterations": ti["iterations"], "device_iterations": dev_it, "kernels": want},
+    }
+    # measured resident bytes: what each tenant's first slab added over the
+    # allocation left after the eviction that made room for it
+    for rec in page_ins:
+        if "allocated" in rec:
+            rec["measured_resident_bytes"] = rec["allocated"] - rec["after_eviction_allocated"]
+    arm_s["paging"] = time.perf_counter() - t_phase - arm_s["requests"]
+
+    # --- two tenants capture at once: one card, two workers ------------------
+    # both tenants resident (no budget), their requests dispatched before
+    # the workers start, so each worker takes one slab of GATE_CAPTURE_K
+    # and both try to capture its new solve function at once
+    t = time.perf_counter()
+    g2 = fd.Gate()
+    g2.register("p192", A, kmax=GATE_CAPTURE_K)
+    g2.register("p48", Ah, kmax=GATE_CAPTURE_K)
+    spans = []
+    for name in ("p192", "p48"):
+        svc_ = g2.service(name)
+        inner = svc_._run_slab
+
+        def timed(slab, _inner=inner, _name=name):
+            t0 = time.perf_counter()
+            out = _inner(slab)
+            spans.append((_name, t0, time.perf_counter(), len(slab), threading.current_thread().name))
+            return out
+
+        svc_._run_slab = timed
+    c0 = gpu_loop.STATS["captures"]
+    h192 = [g2.submit("p192", reqs[j][0], x0=reqs[j][1], tol=TOL_MAIN, r0_norm=r0[j], tag=f"c{j}")
+            for j in clean[:GATE_CAPTURE_K]]
+    h48 = [g2.submit("p48", q[j][0], tol=TOL_MULTI, tag=f"cq{j}") for j in range(GATE_CAPTURE_K)]
+    g2.pump(dispatch_only=True)
+    g2.pump(dispatch_only=True)
+    for name in ("p192", "p48"):
+        g2.service(name).start()
+    g2.drain()
+    g2.shutdown()
+    captures = gpu_loop.STATS["captures"] - c0
+    spans.sort(key=lambda s: s[1])
+    overlap = any(a[2] > b[1] for a, b in zip(spans, spans[1:]))
+    eq192 = [_gathered_equal(h.result()[0], solo[j][0]) for h, j in zip(h192, clean)]
+    eq48 = [_gathered_equal(h.result()[0], qsolo[j][0]) for h, j in zip(h48, range(GATE_CAPTURE_K))]
+    require(all(eq192) and all(eq48) and captures == 2 and not overlap and len(spans) == 2
+            and all(s[3] == GATE_CAPTURE_K and s[4] == "pa-solve-service" for s in spans),
+            f"gate: two tenants capturing at once: equal {eq192} {eq48}, captures {captures}, spans {spans}")
+    line["concurrent_capture"] = {"K": GATE_CAPTURE_K, "captures": captures,
+                                  "slabs": [{"tenant": s[0], "start_s": s[1] - t, "end_s": s[2] - t, "K": s[3]}
+                                            for s in spans], "overlapped": overlap, "s": time.perf_counter() - t}
+    arm_s["concurrent_capture"] = time.perf_counter() - t
+
+    # --- the HTTP surface ----------------------------------------------------
+    t = time.perf_counter()
+    g3 = fd.Gate(start_workers=True)
+    g3.register("p48", Ah, kmax=GATE_P48_KMAX)
+    srv = fd.serve_gate(g3, port=0)
+    try:
+        inproc, http, walls = [], [], {"inproc": [], "http": []}
+        for j in range(GATE_HTTP):
+            t0 = time.perf_counter()
+            h = g3.submit("p48", q[j][0], tol=TOL_MULTI, tag=f"in{j}")
+            g3.drain()
+            walls["inproc"].append(time.perf_counter() - t0)
+            inproc.append(h.result())
+        for j in range(GATE_HTTP):
+            t0 = time.perf_counter()
+            http.append(fd.http_solve(srv.url, "p48", gather_pvector(q[j][0]), tol=TOL_MULTI, tag=f"http{j}",
+                                      poll_s=0.002))
+            walls["http"].append(time.perf_counter() - t0)
+    finally:
+        srv.stop()
+    http_eq = [o["state"] == "done" and _bits_equal(np.asarray(o["x"]), gather_pvector(x))
+               and o["info"]["iterations"] == i["iterations"] for o, (x, i) in zip(http, inproc)]
+    require(all(http_eq), f"gate: HTTP solves differ from in-process: {http_eq}")
+    line["http"] = {"requests": GATE_HTTP, "equal": http_eq, "inproc_s": walls["inproc"], "http_s": walls["http"],
+                    "overhead_ms_per_request": 1e3 * (sum(walls["http"]) - sum(walls["inproc"])) / GATE_HTTP,
+                    "bytes_per_request_body": len(json.dumps([float(v) for v in gather_pvector(q[0][0])]))}
+    arm_s["http"] = time.perf_counter() - t
+
+    # --- the journal: a crash and a recovery -----------------------------------
+    t = time.perf_counter()
+    append_s = []
+    orig_append = fd.RequestJournal.append
+
+    def timed_append(self, kind, _sync=None, **payload):
+        t0 = time.perf_counter()
+        out = orig_append(self, kind, _sync=_sync, **payload)
+        append_s.append(time.perf_counter() - t0)
+        return out
+
+    fd.RequestJournal.append = timed_append
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            jd = f"{tmp}/journal"
+            with fd.configure(journal_fsync=True):
+                j1 = fd.Gate(journal_dir=jd, checkpoint_dir=f"{tmp}/c1")
+                j1.register("p48", Ah, kmax=GATE_P48_KMAX, chunk=GATE_JOURNAL_CHUNK)
+                hc0 = j1.submit("p48", q[3][0], tol=TOL_MULTI, deadline=GATE_DEADLINE_S, tag="done")
+                j1.drain()
+                x_done = gather_pvector(hc0.result()[0])
+                hc1 = j1.submit("p48", q[4][0], tol=TOL_MULTI, maxiter=4000, deadline=GATE_DEADLINE_S, tag="inflight")
+                j1.pump(dispatch_only=True)
+                sv = j1.service("p48")
+                sv._stop = True  # one chunk, then the checkpoint path: the process dies here
+                sv.step()
+                it_done = hc1.request.iterations
+                hc2 = j1.submit("p48", q[5][0], tol=TOL_MULTI, deadline=GATE_DEADLINE_S, tag="queued")
+                kinds1 = [r["kind"] for r in fd.read_journal(jd)]
+                # ---- the gate is dropped without shutdown ----
+                j2 = fd.Gate(journal_dir=jd, checkpoint_dir=f"{tmp}/c2")
+                j2.register("p48", Ah, kmax=GATE_P48_KMAX, chunk=GATE_JOURNAL_CHUNK)
+                t0 = time.perf_counter()
+                summary = j2.recover()
+                recover_s = time.perf_counter() - t0
+                xr, ir = j2.handle(hc0.rid).result()
+                resumed = j2.handle(hc1.rid)
+                resume_kw = {"maxiter": resumed.kwargs.get("maxiter"), "x0": resumed.kwargs.get("x0") is not None}
+                j2.drain()
+                out1, out2 = j2.handle(hc1.rid).result(), j2.handle(hc2.rid).result()
+                j2.shutdown()
+                completed = [r["rid"] for r in fd.read_journal(jd) if r["kind"] == "completed"]
+    finally:
+        fd.RequestJournal.append = orig_append
+    require(summary["completed"] == 1 and summary["resumed"] == 1 and summary["requeued"] == 1
+            and summary["failed"] == 0 and kinds1.count("chunk") >= 1, f"journal: recovery {summary}, {kinds1}")
+    require(ir.get("recovered") and _bits_equal(xr, x_done), "journal: the recovered result is not the recorded one")
+    require(resume_kw["x0"] and resume_kw["maxiter"] == 4000 - it_done,
+            f"journal: the in-flight request did not resume from its checkpoint ({resume_kw}, {it_done} done)")
+    require(out1[1]["converged"] and out2[1]["converged"], "journal: a recovered request did not converge")
+    require(sorted(completed) == sorted({hc0.rid, hc1.rid, hc2.rid}), f"journal: completed records {completed}")
+    line["journal"] = {"summary": summary, "recover_s": recover_s, "inflight_iterations_before": it_done,
+                       "resumed_maxiter": resume_kw["maxiter"], "appends": len(append_s),
+                       "append_ms_p50": 1e3 * statistics.median(append_s),
+                       "append_ms_max": 1e3 * max(append_s),
+                       "rel_err": [_rel_err(out1[0], q[4][1]), _rel_err(out2[0], q[5][1])],
+                       "iterations": [out1[1]["iterations"], out2[1]["iterations"]]}
+    arm_s["journal"] = time.perf_counter() - t
+
+    # --- the fleet: two gates with leases, one dies ------------------------------
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = f"{tmp}/fleet"
+        g0 = fd.Gate(journal_dir=f"{fleet}/g0", rid_namespace="g0")
+        g1 = fd.Gate(journal_dir=f"{fleet}/g1", rid_namespace="g1")
+        for g in (g0, g1):
+            g.register("p48", Ah, kmax=GATE_P48_KMAX)
+        m0 = fd.FleetMember(fleet, "g0", g0, lease_s=GATE_LEASE_S).start()
+        m1 = fd.FleetMember(fleet, "g1", g1, lease_s=GATE_LEASE_S)
+        adopt_s = []
+        adopt = g1.adopt
+
+        def timed_adopt(journal_dir, source="peer"):
+            t0 = time.perf_counter()
+            out = adopt(journal_dir, source=source)
+            adopt_s.append(time.perf_counter() - t0)
+            return out
+
+        g1.adopt = timed_adopt
+        m1.start()
+        g0.paused = True
+        lost = [g0.submit("p48", q[j][0], tol=TOL_MULTI, tag=f"f{j}", idempotency_key=f"f{j}") for j in (6, 0)]
+        adm0 = reg.counter("service.admitted").value
+        m0.stop()  # g0's heartbeat stops: its lease goes stale
+        deadline = time.perf_counter() + 30 * GATE_LEASE_S
+        while "g0" not in m1._missed and time.perf_counter() < deadline:
+            time.sleep(GATE_LEASE_S / 4)
+        m1.stop()
+        require("g0" in m1._missed and len(adopt_s) == 1, "fleet: the survivor did not adopt the dead peer")
+        g1.drain()
+        served = [g1.handle(h.rid) for h in lost]
+        fleet_eq = [s is not None and s.state == "done" and _gathered_equal(s.result()[0], qsolo[j][0])
+                    for s, j in zip(served, (6, 0))]
+        again = g1.adopt(f"{fleet}/g0")
+        peer_adopted = [r["rid"] for r in fd.read_journal(f"{fleet}/g0") if r["kind"] == "adopted"]
+        dup = reg.counter("service.admitted").value - adm0
+        g1.shutdown()
+    require(all(fleet_eq) and dup == len(lost) and sorted(peer_adopted) == sorted(h.rid for h in lost)
+            and "skipped_dir" in again, f"fleet: served {fleet_eq}, admitted {dup}, markers {peer_adopted}, {again}")
+    line["fleet"] = {"lease_s": GATE_LEASE_S, "adopted": len(lost), "lost": 0, "duplicated": dup - len(lost),
+                     "adopt_s": adopt_s[0], "equal_to_solo": fleet_eq, "detect_and_adopt_s": time.perf_counter() - t}
+    arm_s["fleet"] = time.perf_counter() - t
+    sync()
+    m = _cuda_mem()
+    line.update(arm_s=arm_s, allocated_end=m[0], reserved_end=m[1], launches=launches,
+                phase_s=time.perf_counter() - t_phase)
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
@@ -5560,6 +6019,7 @@ def main() -> int:
     fam = phase_solver_family(backend, run, gruns, rng)
     phase_resilience(backend, run, gruns["multi"], rng)
     phase_serving(backend, run, gruns["multi"], rng)
+    gate = phase_frontdoor(backend, run, gruns["multi"], rng)
     emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})
@@ -5586,7 +6046,11 @@ def main() -> int:
     times.update({k: v for k, v in blk["times"].items() if k in KERNELS})
     times.update({k: v for k, v in {**low["times"], **elm["times"], **st["times"], **bel["times"], **belm["times"],
                                     **bst["times"]}.items() if k in KERNELS})
-    emit({"phase": "launch_counts", "kernels": launches, "phase_4j": fam["launches"]})
+    # the front door's paths launch the block kernels, K1 and K2 again
+    # (phase 4m: its p192 slabs and its traced solo solve, by formula)
+    for k, v in gate["launches"].items():
+        launches[k] += v
+    emit({"phase": "launch_counts", "kernels": launches, "phase_4j": fam["launches"], "phase_4m": gate["launches"]})
     errs = {**kern["errs"], **q1["errs"], **heat["errs"], **adv["errs"], **advm["errs"]}
     max_err = {
         name: max(v for key, v in errs.items() if key.startswith(name + "["))

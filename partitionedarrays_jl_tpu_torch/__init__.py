@@ -7,7 +7,8 @@ the multigrid-preconditioned CG, whose banded SpMVs and matrix-free
 interpolation stencil run as hand-written CUDA kernels (`ops/dia.py`,
 `ops/stencil.py`, `csrc/*.cu`), with the box halo exchange on Cartesian
 partitions (`parallel/gpu_box.py`); the solve service over the block CG
-(`service/`) and its telemetry (`telemetry/`). Usage
+(`service/`) and its telemetry (`telemetry/`), and the multi-tenant front
+door over it (`frontdoor/`). Usage
 mirrors the JAX package: ``prun(driver, gpu, (1, 1, 1))``; pass
 ``GPUBackend(device="cpu")`` to run on the CPU with the kernels' plain
 PyTorch versions.
@@ -20,8 +21,10 @@ from .parallel import *  # noqa: F401,F403
 from .parallel import __all__ as _parallel_all
 from .utils import *  # noqa: F401,F403
 from .utils import __all__ as _utils_all
-from . import service, telemetry  # noqa: F401
+from . import frontdoor, service, telemetry  # noqa: F401
+from .frontdoor import Gate, JournalCorruptError, LoadShedded, RequestJournal, TenantBudgetError  # noqa: F401
 from .service import AdmissionRejected, SolveService  # noqa: F401
 
 __all__ = (list(_parallel_all) + list(_utils_all) + list(_ops_all) + list(_models_all)
-           + ["telemetry", "service", "SolveService", "AdmissionRejected"])
+           + ["telemetry", "service", "SolveService", "AdmissionRejected", "frontdoor", "Gate",
+              "JournalCorruptError", "LoadShedded", "RequestJournal", "TenantBudgetError"])

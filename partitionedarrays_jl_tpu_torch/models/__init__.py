@@ -10,12 +10,14 @@ from .advection_fv import advection_fv_driver, assemble_advection_fv
 from .fem_q1 import assemble_fem_q1, fem_q1_driver, fem_q1_rhs_via_global_view
 from .heat_transient import assemble_heat, heat_transient_driver
 from .elasticity_tet import assemble_elasticity_tet, elasticity_tet_driver, morton_permutation, p1_elasticity_ke, tet_mesh
-from .gmg import GMGHierarchy, gmg_hierarchy, gmg_solve
+from .gmg import (
+    GMGHierarchy, GMGLevel, galerkin_cartesian, gmg_hierarchy, gmg_solve, interpolation_cartesian, restriction_from,
+)
 from .poisson_fdm import assemble_poisson, assemble_poisson_periodic, manufactured_solution, poisson_fdm_driver
 from .solvers import (
     PLU, additive_schwarz, bicgstab, block_jacobi_ic0, block_jacobi_ilu, cg, chebyshev_solve, decouple_dirichlet,
     direct_solve, fgmres, gather_psparse, gather_pvector, gershgorin_bounds, gmres, jacobi_preconditioner,
-    lanczos_bounds, lobpcg, lu, minres, pcg, resume_solve, solve_with_recovery,
+    lanczos_bounds, lobpcg, lu, minres, pcg, resume_solve, scatter_pvector_values, solve_with_recovery,
 )
 
 __all__ = [
@@ -25,4 +27,5 @@ __all__ = [
     "p1_elasticity_ke", "tet_mesh", "cg", "decouple_dirichlet", "gather_psparse",
     "gather_pvector", "gmg_hierarchy", "gmg_solve", "jacobi_preconditioner", "manufactured_solution", "pcg",
     "poisson_fdm_driver", "resume_solve", "solve_with_recovery",
+    "GMGLevel", "galerkin_cartesian", "interpolation_cartesian", "restriction_from", "scatter_pvector_values",
 ]

@@ -198,21 +198,25 @@ def interp_stencil_cartesian(nfs: Sequence[int], fine_rows: PRange, dtype=None) 
 class GMGLevel:
     """One fine level: its operator, the transfers to the next (coarser)
     level (built on first use: the device transfers never read them), the
-    grid dims, and the inverse diagonal for Jacobi smoothing."""
+    grid dims, and the inverse diagonal for Jacobi smoothing. ``P`` and
+    ``R`` hand the transfers in directly (the JAX package's keywords) in
+    place of the builder ``mk_transfers``."""
 
     __slots__ = ("A", "_P", "_R", "_mk_transfers", "dinv", "nfs", "ncs", "_S")
 
-    def __init__(self, A: PSparseMatrix, nfs: Sequence[int], ncs: Sequence[int], mk_transfers):
+    def __init__(self, A: PSparseMatrix, nfs: Optional[Sequence[int]] = None, ncs: Optional[Sequence[int]] = None,
+                 mk_transfers=None, *, P: Optional[PSparseMatrix] = None, R: Optional[PSparseMatrix] = None):
         self.A = A
-        self._P = self._R = None
+        self._P, self._R = P, R
         self._S = None  # the interpolation stencil the structured device transfers stage (`S`)
         self._mk_transfers = mk_transfers
-        self.nfs = tuple(int(n) for n in nfs)
-        self.ncs = tuple(int(n) for n in ncs)
+        self.nfs = tuple(int(n) for n in nfs) if nfs is not None else None
+        self.ncs = tuple(int(n) for n in ncs) if ncs is not None else None
         self.dinv = jacobi_preconditioner(A)
 
     def _build_transfers(self):
         if self._P is None:
+            check(self._mk_transfers is not None, "GMGLevel: no transfers and no builder")
             self._P, self._R = self._mk_transfers()
 
     @property

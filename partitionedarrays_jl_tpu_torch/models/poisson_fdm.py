@@ -122,13 +122,16 @@ def assemble_cartesian_stencil(
     center: float,
     arm_coefs: Sequence[Sequence[float]],
     dtype=np.float64,
+    decoupled: bool = False,
 ):
     """Assemble the Dirichlet-identity Cartesian stencil operator whose
     interior rows carry `center` on the diagonal and, per dimension d,
     ``arm_coefs[d] = (coef_minus, coef_plus)`` on the -+1 neighbors;
     boundary cells are identity rows. Returns (A, b, x̂, x0) with
     b = A @ x̂ and x0 carrying the exact boundary values. ``dtype``
-    assembles directly in the target precision."""
+    assembles directly in the target precision. ``decoupled`` returns the
+    `decouple_dirichlet`'d system instead (interior -> boundary couplings
+    zeroed, pattern kept, b made consistent): the JAX package's COO path."""
     ns = tuple(int(n) for n in ns)
     check(len(arm_coefs) == len(ns), "one (minus, plus) coefficient pair per dim")
     rows = cartesian_partition(parts, ns, no_ghost)
@@ -140,6 +143,10 @@ def assemble_cartesian_stencil(
     )
     x_exact = PVector(xe_vals, cols)
     b = manufactured_rhs(A, x_exact)
+    if decoupled:
+        from .solvers import decouple_dirichlet
+
+        A, b = decouple_dirichlet(A, b)
     # start vector with the Dirichlet values imposed exactly: identity rows
     # then keep a zero residual throughout the iteration
     x0 = PVector(
@@ -208,16 +215,17 @@ def _assemble_stencil_coo(parts, rows, ns, center, arm_coefs, dtype):
     return PSparseMatrix.from_coo(I, J, V, rows, cols, ids="global")
 
 
-def assemble_poisson(parts: AbstractPData, ns: Sequence[int], dtype=np.float64):
+def assemble_poisson(parts: AbstractPData, ns: Sequence[int], dtype=np.float64, decoupled: bool = False):
     """Build the N-D Laplacian PSparseMatrix + manufactured (x̂, b).
 
     Returns (A, b, x_exact, x0) with rows a ghost-free Cartesian partition
     of cells, cols the rows plus the stencil's column ghost layer
-    (`add_gids`), and b = A @ x̂, so `cg` must return x̂."""
+    (`add_gids`), and b = A @ x̂, so `cg` must return x̂. ``decoupled`` as
+    in `assemble_cartesian_stencil`."""
     ns = tuple(int(n) for n in ns)
     dim = len(ns)
     return assemble_cartesian_stencil(
-        parts, ns, 2.0 * dim, [(-1.0, -1.0)] * dim, dtype=dtype
+        parts, ns, 2.0 * dim, [(-1.0, -1.0)] * dim, dtype=dtype, decoupled=decoupled
     )
 
 

@@ -361,11 +361,14 @@ def exchange_(plan, xv: torch.Tensor, combine: str = "set", abft: bool = False):
     return (xv, delta, scale) if abft else xv
 
 
-def make_exchange_fn(rows: PRange, backend: GPUBackend) -> Callable:
+def make_exchange_fn(rows: PRange, backend: GPUBackend, combine: str = "set") -> Callable:
     """The halo update of vectors over `rows` as a function of the
-    stacked ``(P, W)`` tensor (updated in place and returned)."""
-    plan = device_exchange_plan(rows, backend)
-    return lambda xv: exchange_(plan, xv)
+    stacked ``(P, W)`` tensor (updated in place and returned): ghosts made
+    current (``combine="set"``, exchange!) or ghost values added into their
+    owners over the reverse plan (``combine="add"``, assemble!)."""
+    check(combine in ("set", "add"), f"make_exchange_fn: combine must be 'set' or 'add', got {combine!r}")
+    plan = device_exchange_plan(rows, backend, reverse=combine == "add")
+    return lambda xv: exchange_(plan, xv, combine)
 
 
 class DeviceVector:
@@ -1281,7 +1284,8 @@ def _resolve_cg_body(sstep, fused, pipelined, precond, strict, rhs_batch=None, s
 def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool] = None,
                pipelined: bool = False, plain: bool = False, graph: bool = True,
                block: Optional[int] = None, precond: bool = False, sstep: Optional[int] = None,
-               overlap: bool = False, sdc=None, trace_iters: int = 0) -> Callable:
+               overlap: bool = False, sdc=None, trace_iters: int = 0,
+               rhs_batch: Optional[int] = None) -> Callable:
     """The CG solve over the stacked frames: ``fn(b, x0) -> (x, rs, rs0,
     iterations, residual history)``, run as a device-resident loop
     (`gpu_loop.DeviceLoop`, the counterpart of the JAX package's
@@ -1351,10 +1355,21 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     then returns the ring as a sixth value (after the SDC vector of a
     defended loop) and ``fn.trace_iters`` is Ht. 0, the default, builds
     the loop without it, launching what it launched before. The pipelined
-    body has no ring (Ht 0, as in the JAX package)."""
+    body has no ring (Ht 0, as in the JAX package).
+
+    ``rhs_batch=K`` (the JAX package's keyword) builds the block
+    (multi-RHS) solve of K columns instead: `make_block_cg_fn`. The
+    pipelined body and s-step have no block form and refuse it."""
     from . import gpu_loop as gl
     from ..ops import sweep as sw
 
+    if rhs_batch is not None:
+        if pipelined:
+            raise ValueError("make_cg_fn: the pipelined (lag-1) form is single-RHS only; drop pipelined or rhs_batch")
+        if sstep is not None and int(sstep) >= 2:
+            _sstep_conflict("rhs_batch")
+        return make_block_cg_fn(dA, tol, maxiter, int(rhs_batch), precond=precond, fused=fused, plain=plain,
+                                graph=graph, block=block, overlap=overlap, sdc=sdc, trace_iters=trace_iters)
     strict = dA.strict
     cfg = _sdc_config(sdc, maxiter)
     sstep, fused = _resolve_cg_body(sstep, fused, pipelined, precond, strict, sdc=cfg is not None)

@@ -416,7 +416,7 @@ CHEBYSHEV_LEG = 16
 
 
 def make_chebyshev_fn(dA, lmin: float, lmax: float, tol: float, maxiter: int, plain: bool = False,
-                      graph: bool = True) -> Callable:
+                      graph: bool = True, leg: int = CHEBYSHEV_LEG) -> Callable:
     """Chebyshev iteration on the card (tpu.py:5623-5711): ``fn(b, x0) ->
     (x, rs, rs0, iterations, history)`` for an SPD operator with its
     spectrum in [lmin, lmax], bounds fixed when the function is built. One
@@ -425,13 +425,15 @@ def make_chebyshev_fn(dA, lmin: float, lmax: float, tol: float, maxiter: int, pl
     exchange); one residual dot a leg decides the stop, so the flag is read
     once a leg. The loop continues while ``sqrt(rs) > tol*max(1,
     sqrt(rs0))`` and ``it < maxiter``, ``it`` counting whole legs; the
-    history holds one entry a leg."""
+    history holds one entry a leg. ``leg`` sets the iterations a leg (the
+    JAX package's keyword; `CHEBYSHEV_LEG` by default)."""
+    check(int(leg) >= 1, "make_chebyshev_fn: leg must be >= 1")
     body = _spmv_body(dA, plain=plain)
     o0, n = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + n)
     pdot = _pdot_factory(o0, n, dA.strict, plain)
     stop_it = gl.stop_bound(maxiter)
-    leg = CHEBYSHEV_LEG
+    leg = int(leg)
     theta = (lmax + lmin) / 2.0
     delta = (lmax - lmin) / 2.0
     sigma1 = theta / delta

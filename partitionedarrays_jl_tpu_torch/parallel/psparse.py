@@ -36,17 +36,21 @@ from .pvector import PVector, _owned, _ghost
 class PSparseMatrix:
     # _spec_fingerprint: the lazily cached value-sensitive identity of
     # telemetry.spectrum.spectrum_fingerprint (one O(nnz) digest an operator)
-    __slots__ = ("values", "rows", "cols", "_blocks", "_device", "_spec_fingerprint")
+    __slots__ = ("values", "rows", "cols", "_exchanger", "_blocks", "_device", "_spec_fingerprint")
 
     def __init__(
         self,
         values: AbstractPData,
         rows: PRange,
         cols: PRange,
+        exchanger: Optional[Exchanger] = None,
     ):
         self.values = values
         self.rows = rows
         self.cols = cols
+        #: the nonzero-value exchanger of ghost rows, built on first use
+        #: (`exchanger`) unless the caller hands one in
+        self._exchanger = exchanger
         self._blocks = None
         self._device = {}  # (GPUBackend, box) -> lowered DeviceMatrix (gpu.py)
 
@@ -197,12 +201,20 @@ class PSparseMatrix:
         vals = map_parts(
             lambda A: CSRMatrix(A.indptr, A.indices, A.data * a, A.shape), self.values
         )
-        return PSparseMatrix(vals, self.rows, self.cols)
+        return PSparseMatrix(vals, self.rows, self.cols, self._exchanger)
 
     __rmul__ = __mul__
 
     def __neg__(self):
         return self * (-1.0)
+
+    @property
+    def exchanger(self) -> Exchanger:
+        """The nonzero-value exchanger of ghost rows (`matrix_exchanger`),
+        built once and kept."""
+        if self._exchanger is None:
+            self._exchanger = matrix_exchanger(self.values, self.rows, self.cols)
+        return self._exchanger
 
 
 def matrix_exchanger(values: AbstractPData, rows: PRange, cols: PRange) -> Exchanger:

@@ -15,7 +15,8 @@ surface), `service.admission` (the bounded queue, `AdmissionRejected`,
 the defaults of the service's knobs), `service.batcher` (FIFO coalescing
 by ``(tol, maxiter, dtype)``), `service.service` (`SolveService`: submit,
 drain, the worker thread, shutdown, chunked deadlines, ejection and solo
-retry, checkpointing, telemetry).
+retry, checkpointing, telemetry; `device_lock`, the card's lock every slab
+holds, so services on one card take turns).
 """
 from .admission import (  # noqa: F401
     DEFAULT_CHUNK,
@@ -34,7 +35,7 @@ from .batcher import (  # noqa: F401
     top_up,
 )
 from .request import SolveRequest  # noqa: F401
-from .service import SolveService  # noqa: F401
+from .service import SolveService, device_lock  # noqa: F401
 
 __all__ = [
     "AdmissionController",
@@ -47,6 +48,7 @@ __all__ = [
     "SolveRequest",
     "SolveService",
     "compat_key",
+    "device_lock",
     "effective_kmax",
     "next_slab",
     "queue_compat_profile",

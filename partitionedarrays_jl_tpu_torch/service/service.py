@@ -38,10 +38,14 @@ operation of a service (staging, the block solve, a CUDA-graph capture)
 runs on the thread that runs its slabs; a submitting thread never touches
 the card, and a capture in the worker sees no other thread's work on the
 device (torch's global capture mode, and `dia.LAUNCHES`, rely on that).
-The worker sets the operator's CUDA device before its first slab.
+Several services on one card (the front door's tenants, each with its own
+worker) take turns: a slab runs holding the card's process-wide
+`device_lock`, so one service's capture never sees another's work. The
+worker sets the operator's CUDA device before its first slab.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -63,7 +67,25 @@ from .admission import (
 from .batcher import compat_key, effective_kmax, next_slab, top_up
 from .request import SolveRequest
 
-__all__ = ["SolveService"]
+__all__ = ["SolveService", "device_lock"]
+
+_DEVICE_LOCKS: dict = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(index: Optional[int]):
+    """The process-wide lock of CUDA device ``index``: every slab of every
+    `SolveService` on that card runs holding it, and so does the front
+    door's page-out, so that a CUDA-graph capture on one thread never sees
+    another thread's work on the card. ``None`` (a host operator) gives a
+    context that locks nothing."""
+    if index is None:
+        return contextlib.nullcontext()
+    with _DEVICE_LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.get(index)
+        if lock is None:
+            lock = _DEVICE_LOCKS[index] = sanitized(threading.RLock(), f"device_lock[{index}]")
+        return lock
 
 
 def _cuda_index(A) -> Optional[int]:
@@ -372,7 +394,8 @@ class SolveService:
             slab = self._pop_slab()
         if not slab:
             return 0
-        return self._run_slab(slab)
+        with device_lock(self._cuda_index):
+            return self._run_slab(slab)
 
     def drain(self) -> None:
         """Run slabs until the queue is empty."""
@@ -415,7 +438,8 @@ class SolveService:
                         return
                     slab = self._pop_slab()
                 if slab:
-                    self._run_slab(slab)
+                    with device_lock(self._cuda_index):
+                        self._run_slab(slab)
         except BaseException as e:  # the thread's boundary: shutdown re-raises
             self._worker_error = e
 

@@ -20,7 +20,7 @@ Telemetry off costs the device nothing: every switch is host-side, and the
 α/β trace ring of the CG loops is the solvers' ``trace_iters=`` keyword
 (0, the default, launches exactly what the loop launched without it). The
 comms accounting, the phase profile and the ledger of the JAX package's
-``telemetry/`` come with the front door's port.
+``telemetry/`` are still to port.
 """
 from .artifacts import ARTIFACT_SCHEMA_VERSION, stamp, write  # noqa: F401
 from .config import TelemetryConfig, config, config_snapshot, configure  # noqa: F401

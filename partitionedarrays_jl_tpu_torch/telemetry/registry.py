@@ -18,9 +18,9 @@ the port's module).
 * **Nothing reaches the device.** The registry is host-side Python: a
   solve launches the same kernels with it on or off.
 
-The gauges of the front door and the elastic layer (``gate.*``,
-``fleet.*``, ``elastic.*``) keep their catalog rows; their modules are not
-ported yet.
+The front door (``gate.*``, ``journal.*``, ``fleet.*``) counts into the
+catalog's rows; the elastic layer's rows (``elastic.*``) wait for its
+port.
 """
 from __future__ import annotations
 

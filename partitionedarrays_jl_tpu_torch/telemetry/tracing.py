@@ -7,7 +7,8 @@ monotonic-clock durations, typed span kinds) with strict W3C
 through the service's slab and its chunks.
 
 Span kinds (`SPAN_KINDS`, the JAX package's vocabulary; the service opens
-``slab.solve`` and ``chunk``, the front door's kinds wait for its port):
+``slab.solve`` and ``chunk``, the front door ``rpc.request``,
+``gate.queue``, ``gate.shed`` and ``tenant.page_in``):
 
 * ``rpc.request`` — a request-level root;
 * ``slab.solve`` — one request's ride through its slab, per request (K
@@ -15,8 +16,9 @@ Span kinds (`SPAN_KINDS`, the JAX package's vocabulary; the service opens
   every tree stays single-parented);
 * ``chunk`` — one block-solve call, or one solo retry (``solo_retry``),
   inside ``slab.solve``;
-* ``gate.queue``, ``gate.shed``, ``tenant.page_in``, ``solver.phase``,
-  ``tenant.repartition`` — the front door's and the phase profile's.
+* ``gate.queue``, ``gate.shed``, ``tenant.page_in`` — the front door's;
+  ``solver.phase``, ``tenant.repartition`` — the phase profile's and the
+  elastic layer's (not ported yet).
 
 Persistence: with ``tracing_dir`` set, every span appends a begin record
 to ``tracing_dir/spans-<pid>-<token>.jsonl`` when it starts and an end

@@ -26,6 +26,8 @@ pipelined) raise `LoweringConflictError`. The slab checksums of the host
 exchange equal the JAX package's, empty trailing slabs and (L, K) slabs
 included.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -262,7 +264,9 @@ def test_strict_abft_on_off_identity(mode):
 
 def _count(monkeypatch):
     """Counting wrappers over the kernels the CG loops launch on the CPU
-    (which runs their plain versions): K1, K2 and the sweep."""
+    (which runs their plain versions): K1, K2 and the sweep. They bump the
+    global `dia.LAUNCHES`: use them through the `counted` fixture, whose
+    teardown resets the counts for the tests that run after."""
     from partitionedarrays_jl_tpu_torch.ops import sweep as sw
 
     for mod, name in ((dia, "dia_coded_spmv"), (dia, "dia_coded_spmv_pfold"), (sw, "cg_sweep")):
@@ -275,13 +279,30 @@ def _count(monkeypatch):
         monkeypatch.setattr(mod, name, wrapped)
 
 
+@contextlib.contextmanager
+def _counting(monkeypatch):
+    """`_count`'s wrappers for a scope; `dia.LAUNCHES` is reset when it
+    ends, so whatever runs after in the same process starts from zero."""
+    _count(monkeypatch)
+    try:
+        yield
+    finally:
+        dia.reset_launches()
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """`_counting` for one test: the counts are reset at its teardown."""
+    with _counting(monkeypatch):
+        yield
+
+
 @pytest.mark.parametrize("fused", [True, False])
-def test_launch_and_exchange_parity(fused, monkeypatch):
+def test_launch_and_exchange_parity(fused, counted):
     """One K1 a trip with audits on and off (an audit trip streams A x
     through the one SpMV), no K2 on the defended fused body, one sweep a
     trip; the exchange calls and rounds a trip the same with ABFT on and off
     (the checksums ride the same rounds)."""
-    _count(monkeypatch)
 
     def driver(parts):
         A, b, _, x0 = pt.assemble_poisson(parts, DEV_NS)
@@ -398,3 +419,18 @@ def test_sdc_lanes_order():
     with pytest.raises(SilentCorruptionError) as ei:
         _decode_sdc_outputs("cg", np.array([2, 1, 3, 1, 30]), it=12)
     assert ei.value.diagnostics["sdc"]["escalations"] == 1 and ei.value.diagnostics["iteration"] == 12
+
+
+def test_counted_launches_leave_no_count_behind():
+    """The counting wrappers' launches do not leak into a later test of the
+    same process: the ABFT launch-parity test runs under `_counting` (the
+    `counted` fixture's body), then the pipelined test's zero-launch
+    assertion runs in this process, the order xdist may give the files."""
+    import test_torch_pipelined
+
+    with pytest.MonkeyPatch.context() as mp:
+        with _counting(mp):
+            test_launch_and_exchange_parity(True, None)
+            assert any(dia.LAUNCHES.values())
+    assert not any(dia.LAUNCHES.values())
+    test_torch_pipelined.test_plain_axpy_matches_pallas("row_class", (1, 1, 1))

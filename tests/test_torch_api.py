@@ -510,13 +510,44 @@ PVECTOR_METHODS = ("undef similar copy_into axpy fill scale ghost_values sum red
                    "any all assemble async_assemble").split()
 
 
+#: The names of ``pa.__all__`` the port does not export, and why:
+#: the TPU-named entry points (the port's are ``gpu_*``); the JAX package's
+#: environment and XLA-cache switches (the port reads no environment:
+#: `SDCConfig` and `TelemetryConfig` carry them); Queue 1 item 5's
+#: repartition, elastic and multihost names, still to port; and
+#: `ELLFootprintError` (a TPU fault ceiling the card has no use for).
+NOT_EXPORTED = {
+    "tpu": "TPU-named", "TPUBackend": "TPU-named", "TPUData": "TPU-named",
+    "tpu_bicgstab": "TPU-named", "tpu_block_cg": "TPU-named", "tpu_cg": "TPU-named",
+    "tpu_chebyshev": "TPU-named", "tpu_fgmres_gmg": "TPU-named", "tpu_gmg_pcg": "TPU-named",
+    "tpu_gmg_solve": "TPU-named", "tpu_gmres": "TPU-named", "tpu_lobpcg": "TPU-named",
+    "tpu_minres": "TPU-named",
+    "abft_enabled": "switch", "health_enabled": "switch", "compilation_cache_dir": "switch",
+    "enable_compilation_cache": "switch",
+    "multihost_init": "item 5", "is_main_process": "item 5", "fetch_global": "item 5",
+    "repartition_psparse": "item 5", "repartition_pvector": "item 5", "shrink_shape": "item 5",
+    "shrink_system": "item 5", "survivor_rows": "item 5", "degraded_state": "item 5",
+    "elastic_enabled": "item 5", "elastic_min_parts": "item 5",
+    "ELLFootprintError": "not ported",
+}
+
+
 def test_host_api_exported():
-    """Every ported name is exported by the port and is the JAX package's
-    name (exported there too, but for `fem_q1_rhs_via_global_view`, which
-    the JAX package keeps in `models/fem_q1.py`); the PVector methods exist
-    on both."""
+    """Every name of the JAX package's ``__all__`` is exported by the port
+    under the same name, but for the listed `NOT_EXPORTED` set; every
+    TPU-named entry point has its ``gpu_*`` counterpart; every ported name
+    of `HOST_API` is the JAX package's name (exported there too, but for
+    `fem_q1_rhs_via_global_view`, which the JAX package keeps in
+    `models/fem_q1.py`); the PVector methods exist on both."""
     from partitionedarrays_jl_tpu.models import fem_q1
 
+    missing = sorted(n for n in pa.__all__ if n not in NOT_EXPORTED and (n not in pt.__all__ or not hasattr(pt, n)))
+    assert not missing, missing
+    assert set(NOT_EXPORTED) <= set(pa.__all__)
+    assert not set(NOT_EXPORTED) & set(pt.__all__)
+    for n, why in NOT_EXPORTED.items():
+        if why == "TPU-named" and n.startswith("tpu_"):
+            assert "gpu_" + n[4:] in pt.__all__, n
     missing = [n for n in HOST_API if n not in pt.__all__ or not hasattr(pt, n)]
     assert not missing, missing
     assert all(n in pa.__all__ or hasattr(fem_q1, n) for n in HOST_API)

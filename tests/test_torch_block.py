@@ -246,6 +246,7 @@ def operators(reference):
 @pytest.mark.parametrize("K", [1, 3, 5, 8])
 @pytest.mark.parametrize("system", ["poisson", "varcoef"], ids=["coded", "stream"])
 def test_spmm_plain_columns_are_the_spmv(operators, system, K, dtype):
+    dia.reset_launches()
     dA = operators[system]
     rng = np.random.default_rng(K)
     P, wx, wy = dA.col_layout.P, dA.col_layout.W, dA.row_layout.W
@@ -283,6 +284,7 @@ def test_block_sweep_plain_columns_are_the_solo_sweep(K, dtype, with_minv):
     """The block sweep (plain version) on three stacked parts, every third
     column frozen: an active column's x, r, partials and fold torch.equal
     to the solo sweep of that column; a frozen column untouched."""
+    dia.reset_launches()
     rng = np.random.default_rng(K + 20)
     P, o0, n = 3, 5, 5000
 
@@ -354,6 +356,7 @@ def test_block_products_are_the_solo_products(K, dtype):
     boundary; the block dot equals the solo dot column by column."""
     from partitionedarrays_jl_tpu_torch.parallel.gpu import _block_pdot_factory, _pdot_factory
 
+    dia.reset_launches()
     rng = np.random.default_rng(K)
     P, o0, n = 3, 4, 1001
     a = torch.from_numpy(rng.standard_normal((P, o0 + n + 5, K))).to(dtype)

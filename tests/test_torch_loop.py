@@ -426,6 +426,7 @@ def _frames(rng, dtype, P=3, n=5000, w=5011, wq=5003):
 @pytest.mark.parametrize("mode", ["x_and_r", "r_only"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sweep_plain_matches_eager_update(dtype, mode):
+    dia.reset_launches()
     rng = np.random.default_rng(3)
     o0, n = 4, 4999  # an odd band inside the frames, the last chunk ragged
     x, r, p, q = _frames(rng, dtype)

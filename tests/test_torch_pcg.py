@@ -185,6 +185,7 @@ def test_pfold_minv_plain_is_the_eager_fold(decode, dtype):
     """K2's plain version with minv: p = minv*r + beta*pprev on the owned
     band (each product rounded, then the add), 0 elsewhere, and y the
     plain SpMV of that p; without minv it is the fold it was."""
+    dia.reset_launches()
     nparts = (1, 1, 1) if decode == "row_class" else (2, 2, 2)
     op = pt.prun(lambda parts: device_matrix(pt.assemble_poisson(parts, (9, 8, 7))[0], parts.backend).coded,
                  CPU, nparts)

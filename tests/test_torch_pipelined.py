@@ -41,6 +41,7 @@ def _unpack(packed: np.ndarray, n_coded: int) -> np.ndarray:
 
 @pytest.mark.parametrize("decode,nparts", [("row_class", (1, 1, 1)), ("select_chain", (2, 2, 2))])
 def test_plain_axpy_matches_pallas(decode, nparts):
+    dia.reset_launches()
     op = pt.prun(
         lambda parts: device_matrix(pt.assemble_poisson(parts, (12, 12, 12))[0], parts.backend).coded,
         CPU, nparts,

@@ -136,7 +136,9 @@ def test_interop_round_trip(geometry):
 
 def _port_sources():
     files = sorted((ROOT / "partitionedarrays_jl_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "time_coded_kernels.py", ROOT / "tools" / "run_phase_4l.py"]
+    tools = ("time_coded_kernels.py", "run_phase_4l.py", "run_phase_4m.py", "time_sstep_forms.py",
+             "probe_eigh_capture.py")
+    return files + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / t for t in tools]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

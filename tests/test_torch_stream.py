@@ -73,6 +73,7 @@ def test_plain_stream_spmv_matches_pallas(n, offsets):
 def test_plain_stream_spmv_masks_short_parts():
     """Two parts of unequal owned counts: reads past a part's band are 0,
     slots outside it are exactly 0."""
+    dia.reset_launches()
     rng = np.random.default_rng(3)
     offsets, n = (-2, 0, 3), 10
     vals = torch.from_numpy(rng.standard_normal((2, 3, n)))
