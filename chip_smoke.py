@@ -309,6 +309,22 @@ Phases, one JSON line each:
    with leases, one stops heartbeating with two requests queued and the
    survivor adopts its journal: zero lost, zero duplicated (`adopt()`
    seconds). `tools/run_phase_4m.py` runs this phase alone;
+4n. the observability consoles (`phase_observability`), no new assembly:
+   with records persisted to a temporary directory, the comms accounting of
+   8 solves (phase 3's fused CG at 192^3; on phase 2b's 48^3 f64 (2,2,2)
+   system fused, standard, generic-plan, pipelined, ABFT-defended, s-step
+   s = 2 and K = 8 block CG, `OBS_CASES`): each record's ``comms`` (the
+   model) against the solve function's counted program, no mismatch, and
+   each body's kernel launched by formula (K2, K1, K3, the coded SpMM);
+   `patrace` renders and lists the records; the exchange cost matrix of the
+   48^3 system on the box and the generic plan, static and measured (each
+   box direction and each generic round its own CUDA-graph chain, the
+   whole exchange beside them), reconciled; the phase profile of fused CG
+   at 192^3 and on both plans at 48^3 (2,2,2), by the `torch.profiler`
+   trace (forced: a trace with no device time fails) and by the
+   split-timer, each in its band and reconciled; `paprof --profile`,
+   `pamon --check` and `paspec --check` in-process on the card.
+   `tools/run_phase_4n.py` runs this phase alone;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -5389,6 +5405,140 @@ def phase_frontdoor(backend, run, gmulti, rng):
     return line
 
 
+#: phase 4n's comms cases on phase 2b's 48^3 f64 (2,2,2) system: (name, options of `gpu_cg` / `gpu_block_cg`,
+#: the kernel each case's body launches once a device iteration)
+OBS_CASES = (
+    ("fused", {"fused": True}, "dia_coded_spmv_pfold"),
+    ("standard", {"fused": False}, "dia_coded_spmv"),
+    ("standard_nobox", {"fused": False, "box": False}, "dia_coded_spmv"),
+    ("pipelined", {"pipelined": True}, "dia_coded_spmv_axpy"),
+    ("sdc_abft", {"fused": False, "box": False, "sdc": {"abft": True}}, "dia_coded_spmv"),
+    ("sstep2", {"sstep": 2}, "dia_coded_spmm"),
+    ("block_k8_fused", {"fused": True, "rhs_batch": 8}, "dia_coded_spmm"),
+)
+TOL_OBS = 1e-9
+OBS_TRIPS = (4, 28)  # the phase profile's fixed trips (equal residues modulo the loop's block of 8)
+
+
+def _console(mod, argv):
+    """A console's ``main(argv)`` in-process, its stdout captured: (rc, text)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    return rc, out.getvalue()
+
+
+def phase_observability(backend, run, gmulti):
+    """Phase 4n: the comms accounting, the exchange cost matrix, the phase
+    profile and the consoles on the card (see the module docstring). No new
+    assembly: phase 3's 192^3 f32 operator and phase 2b's 48^3 f64 (2,2,2)
+    system."""
+    import tempfile
+
+    from partitionedarrays_jl_tpu_torch import telemetry
+    from partitionedarrays_jl_tpu_torch.telemetry import comms, commsmatrix
+    from partitionedarrays_jl_tpu_torch.telemetry import profile as prof
+    from partitionedarrays_jl_tpu_torch.tools import pamon, paprof, paspec, patrace
+
+    t_phase = time.perf_counter()
+    arm_s = {}
+    Ah, bh = gmulti["Ah"], gmulti["bh"]
+    x0h = PVector.full(0.0, Ah.cols, dtype=bh.dtype)
+    line = {"phase": "observability", "tol": TOL_OBS, "cases": {}}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        with telemetry.configure(metrics_dir=d):
+            systems = [("fused_192", {"fused": True}, "dia_coded_spmv_pfold",
+                        (run["A"], run["b"], run["x0"]), TOL_MAIN, 4 * run["A"].rows.ngids)]
+            systems += [(name, opts, kern, (Ah, bh, x0h), TOL_OBS, 4 * Ah.rows.ngids) for name, opts, kern in OBS_CASES]
+            for name, opts, kern, system, tol, maxiter in systems:
+                dia.reset_launches()
+                rec, info = comms.case_probe_solve(backend, {"name": name, "options": opts}, tol=tol,
+                                                   maxiter=maxiter, system=system)
+                dev_it = info["device_loop"]["device_iterations"]
+                # both sides come off the record of the solve that ran
+                mism = comms.reconcile(rec.comms_counted, rec.comms)
+                per = rec.comms["per_iteration"]
+                # a device iteration of the s-step loop is a trip of s iterations: s pair SpMMs
+                want_launches = dev_it * (opts.get("sstep") or 1)
+                line["cases"][name] = {
+                    "cg_body": info["cg_body"], "iterations": rec.comms["iterations"], "device_iterations": dev_it,
+                    "per_iteration": {k: per[k] for k in ("collective_permute", "all_gather")},
+                    "observed": {k: rec.comms["observed"][k] for k in ("collective_permute", "all_gather")},
+                    "mismatches": mism, "kernel": kern, "launches": dia.LAUNCHES[kern],
+                }
+                require(not mism, f"observability: {name}: the counted program disagrees with the model: {mism}")
+                want_body = ("pipelined" if opts.get("pipelined") else f"sstep{opts['sstep']}" if opts.get("sstep")
+                             else "fused" if opts.get("fused") else "standard")
+                require(info["cg_body"] == want_body, f"observability: {name}: ran the {info['cg_body']} body")
+                if name != "sdc_abft":  # a defended trip launches K1 once and audits stream through it
+                    require(dia.LAUNCHES[kern] in (want_launches, want_launches + 1),
+                            f"observability: {name}: {kern} launched {dia.LAUNCHES[kern]} times, "
+                            f"{dev_it} device iterations")
+        rc, text = _console(patrace, ["--last", "--dir", d])
+        rc2, listing = _console(patrace, ["--list", "--dir", d])
+        require(rc == rc2 == 0 and "comms (iterations=" in text and len(listing.splitlines()) == len(systems),
+                f"observability: patrace over the phase's records: rc {rc}, {rc2}; {text[-400:]}")
+        line["patrace_records"] = len(listing.splitlines())
+    dia.reset_launches()
+    arm_s["comms"] = time.perf_counter() - t
+    t = time.perf_counter()
+    line["matrix"] = {}
+    for box in (True, False):
+        m = commsmatrix.measure_comms_matrix(Ah, backend, box=box)
+        require(not m["static_check"], f"observability: the {m['plan']} matrix: {m['static_check']}")
+        require(all(v > 0 for v in m["round_s"]), f"observability: the {m['plan']} matrix: a round not timed")
+        line["matrix"][m["plan"]] = {
+            "rounds": m["rounds"], "edges": len(m["edges"]), "per_part_bytes": m["static"]["per_device_bytes"],
+            "payload_bytes_a_round": sorted({e["payload_bytes"] for e in m["edges"]}),
+            "round_us": [v * 1e6 for v in m["round_s"]], "rounds_summed_us": m["exchange_s"] * 1e6,
+            "full_exchange_us": m["full_exchange_s"] * 1e6, "attribution": m["attribution"],
+            "fabric": sorted(m["fabric_summary"]),
+        }
+    arm_s["matrix"] = time.perf_counter() - t
+    t = time.perf_counter()
+    line["profiles"] = []
+    for tag, A, box in (("192^3 f32", run["A"], True), ("48^3 f64 (2,2,2) box", Ah, True),
+                        ("48^3 f64 (2,2,2) generic", Ah, False)):
+        for trace in (True, False):
+            dia.reset_launches()
+            with telemetry.configure(prof_trace=trace):
+                p = prof.capture_phase_profile(A, backend, fused=True, box=box, k1=OBS_TRIPS[0], k2=OBS_TRIPS[1])
+            bad = prof.reconcile_phases(p, dA=device_matrix(A, backend, box))
+            line["profiles"].append({
+                "cell": tag, "method": p["method"], "case": p["case"], "plan": p["lowering"]["plan"],
+                "phases_us": {k: v["s_per_it"] * 1e6 for k, v in p["phases"].items()},
+                "measured_us": p["measured_s_per_it"] * 1e6, "attributed_us": p["attributed_s_per_it"] * 1e6,
+                "ratio": p["ratio_attributed_over_measured"], "band": p["band"], "attempts": p["attempts"],
+                "halo_rounds": p["per_iteration_comms"]["collective_permute"]["ops"],
+                "k1_launches": dia.LAUNCHES["dia_coded_spmv"], "k2_launches": dia.LAUNCHES["dia_coded_spmv_pfold"],
+            })
+            require(p["method"] == ("torch-trace" if trace else "split-timer"),
+                    f"observability: {tag}: asked the {'trace' if trace else 'split-timer'}, got {p['method']}")
+            require(p["in_band"] and not bad, f"observability: {tag} {p['method']}: ratio "
+                    f"{p['ratio_attributed_over_measured']} of {p['band']}, {bad}")
+            # the trace saw the fused body's K2; the split-timer's SpMV chain captured K1
+            require(dia.LAUNCHES["dia_coded_spmv_pfold" if trace else "dia_coded_spmv"] > 0,
+                    f"observability: {tag}: no K2 / K1 launch in the profile")
+    dia.reset_launches()
+    arm_s["profile"] = time.perf_counter() - t
+    t = time.perf_counter()
+    line["consoles"] = {}
+    for name, mod, argv in (("paprof --profile", paprof, ["--profile", "--case", "fused", "--trace", "1"]),
+                            ("pamon --check", pamon, ["--check"]), ("paspec --check", paspec, ["--check"])):
+        t_c = time.perf_counter()
+        rc, text = _console(mod, argv + ["--device", "cuda"])
+        line["consoles"][name] = {"rc": rc, "s": time.perf_counter() - t_c, "tail": text.strip().splitlines()[-1]}
+        require(rc == 0, f"observability: {name} exited {rc}: {text[-600:]}")
+    arm_s["consoles"] = time.perf_counter() - t
+    dia.reset_launches()
+    line.update(arm_s=arm_s, phase_s=time.perf_counter() - t_phase)
+    emit(line)
+    return line
+
+
 # ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
@@ -6020,6 +6170,7 @@ def main() -> int:
     phase_resilience(backend, run, gruns["multi"], rng)
     phase_serving(backend, run, gruns["multi"], rng)
     gate = phase_frontdoor(backend, run, gruns["multi"], rng)
+    phase_observability(backend, run, gruns["multi"])
     emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})

@@ -314,6 +314,11 @@ class Gate:
             )
         self._queue: List[GateHandle] = []
         self._inflight: List[GateHandle] = []
+        #: requests a `pump` has taken off the queue and not yet put in
+        #: `_inflight` (it submits them outside the lock): `drain` counts
+        #: them pending, or it could return while another thread's pump
+        #: (the HTTP server's) still holds one
+        self._dispatching = 0
         self._lock = sanitized(threading.RLock(), "Gate._lock")
         self._seq = 0
         #: While True, `pump` dispatches nothing — demos and tests use
@@ -805,39 +810,50 @@ class Gate:
                     self._queue = [
                         h for h in self._queue if h.tenant != target
                     ]
+            self._dispatching += len(batch)
             if monitoring_enabled():
                 registry().gauge("gate.queue_depth").set(
                     len(self._queue)
                 )
-        for h in batch:
-            kwargs = dict(h.kwargs)
-            if h.deadline_abs is not None:
-                # the service measures deadlines from ITS submission;
-                # charge the time spent in the gate queue against the
-                # request's budget so EDF cannot mint extra slack
-                kwargs["deadline"] = max(
-                    1e-9, h.deadline_abs - self.clock()
-                )
-            kwargs["trace"] = h.trace
-            # gate-queue wait ends HERE, before dispatch: queue-wait /
-            # page-in / solve stay disjoint spans, so the per-kind
-            # breakdown sums to within the root span's duration
-            if h.span_queue is not None:
-                h.span_queue.end()
-                h.span_queue = None
-            try:
-                # ambient ctx: a page-in this dispatch triggers parents
-                # its tenant.page_in span to THIS request's trace
-                with tracing.ambient(h.trace):
-                    h.request = self.registry.submit(h.tenant, **kwargs)
-                if self.journal is not None:
-                    self.journal.append(
-                        "dispatched", rid=h.rid, tenant=h.tenant,
+        # what is still left of the batch when the loop raises leaves the
+        # count in the finally, or `drain` would wait on it for ever
+        left = len(batch)
+        try:
+            for h in batch:
+                kwargs = dict(h.kwargs)
+                if h.deadline_abs is not None:
+                    # the service measures deadlines from ITS submission;
+                    # charge the time spent in the gate queue against the
+                    # request's budget so EDF cannot mint extra slack
+                    kwargs["deadline"] = max(
+                        1e-9, h.deadline_abs - self.clock()
                     )
-            except Exception as e:  # typed AdmissionRejected etc.
-                h._error = e
-            with self._lock:  # account() rebinds _inflight under it
-                self._inflight.append(h)
+                kwargs["trace"] = h.trace
+                # gate-queue wait ends HERE, before dispatch: queue-wait /
+                # page-in / solve stay disjoint spans, so the per-kind
+                # breakdown sums to within the root span's duration
+                if h.span_queue is not None:
+                    h.span_queue.end()
+                    h.span_queue = None
+                try:
+                    # ambient ctx: a page-in this dispatch triggers parents
+                    # its tenant.page_in span to THIS request's trace
+                    with tracing.ambient(h.trace):
+                        h.request = self.registry.submit(h.tenant, **kwargs)
+                    if self.journal is not None:
+                        self.journal.append(
+                            "dispatched", rid=h.rid, tenant=h.tenant,
+                        )
+                except Exception as e:  # typed AdmissionRejected etc.
+                    h._error = e
+                with self._lock:  # account() rebinds _inflight under it
+                    self._inflight.append(h)
+                    self._dispatching -= 1
+                    left -= 1
+        finally:
+            if left:
+                with self._lock:
+                    self._dispatching -= left
         if batch and not dispatch_only and not (
             self.registry.start_workers
         ):
@@ -858,7 +874,7 @@ class Gate:
         while True:
             self.pump()
             with self._lock:
-                pending = bool(self._queue) or any(
+                pending = bool(self._queue) or self._dispatching > 0 or any(
                     not h.done() for h in self._inflight
                 )
             if not pending:

@@ -69,6 +69,7 @@ import torch
 
 from ..ops import dia
 from ..ops.sparse import ELLMatrix
+from ..telemetry import comms as tcomms
 from ..utils.helpers import check, krylov_info, warn_tol_below_floor
 from ..utils.table import INDEX_DTYPE
 from .backends import AbstractBackend, PartShape, _as_shape
@@ -244,7 +245,7 @@ class DeviceExchangePlan:
     colour rounds of (gather send slots, copy sender -> receiver, scatter
     into ghost slots), staged on the backend's device."""
 
-    __slots__ = ("layout", "R", "L", "snd_idx", "snd_mask", "rcv_idx", "src_of")
+    __slots__ = ("layout", "R", "L", "snd_idx", "snd_mask", "rcv_idx", "src_of", "perms")
 
     def __init__(self, exchanger: Exchanger, layout: DeviceLayout, device):
         P = layout.P
@@ -261,6 +262,7 @@ class DeviceExchangePlan:
         # receiver q of round r takes sender src_of[r, q]'s buffer; a part
         # that receives nothing copies its own buffer into its trash slot
         src_of = np.tile(np.arange(P, dtype=np.int64), (R, 1))
+        perms = []
         for r, edges_r in enumerate(rounds):
             for src, dst, snd, rcv in edges_r:
                 k = len(snd)
@@ -268,6 +270,10 @@ class DeviceExchangePlan:
                 sm[r, src, :k] = True
                 ri[r, dst, :k] = rcv
                 src_of[r, dst] = src
+            perms.append(tuple((src, dst) for src, dst, _, _ in edges_r))
+        #: the (sender, receiver) pairs of each round, in colouring order
+        #: (the JAX plan's ``perms``: the comms matrix's edge rows)
+        self.perms = tuple(perms)
         self.snd_idx = torch.from_numpy(si).to(device)
         self.snd_mask = torch.from_numpy(sm).to(device)
         self.rcv_idx = torch.from_numpy(ri).to(device)
@@ -307,9 +313,10 @@ def _slot_index(idx: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     return idx if xv.dim() == 2 else idx[..., None].expand(*idx.shape, xv.shape[2])
 
 
-#: halo exchanges (`exchange_` calls) and their colour rounds since the
-#: last reset: the structural count the ABFT launch-parity checks compare
-#: (the rounds are eager torch ops, which `dia.LAUNCHES` does not count)
+#: halo exchanges (`exchange_` calls) and their rounds since the last
+#: reset (a generic plan's colour rounds, a box plan's directions): the
+#: structural count the ABFT launch-parity checks compare (the rounds are
+#: eager torch ops, which `dia.LAUNCHES` does not count)
 EXCHANGES = {"calls": 0, "rounds": 0}
 
 
@@ -328,37 +335,56 @@ def exchange_(plan, xv: torch.Tensor, combine: str = "set", abft: bool = False):
     and the receiver adds ``|Σ received - shipped sum|`` into ``delta`` and
     the abs-sums into ``scale``, per part (``(P,)``, or ``(P, K)`` for a
     slab). The same rounds move the same values: the exchanged tensor is
-    bit for bit the unchecked one's."""
+    bit for bit the unchecked one's.
+
+    Every round counts in `EXCHANGES` and, as one ``collective_permute``
+    of its per-part slab (the generic plan's padded max-edge slab, one
+    checksum slot wider under ``abft``; the box plan's direction segment)
+    times the slab's columns, in the active `telemetry.comms` tallies."""
     from .gpu_box import BoxExchangePlan, box_exchange_
 
     check(combine in ("set", "add"), "exchange_: combine is 'set' or 'add'")
     EXCHANGES["calls"] += 1
+    cols = xv.shape[2] if xv.dim() == 3 else 1
     if isinstance(plan, BoxExchangePlan):
         check(not abft, "ABFT exchange checksums require the generic plan")
-        EXCHANGES["rounds"] += plan.n_rounds if hasattr(plan, "n_rounds") else 1
+        EXCHANGES["rounds"] += plan.R
+        tcomms.count("collective_permute", plan.R,
+                     sum(d.size for d in plan.info.dirs) * cols * xv.element_size())
         return box_exchange_(plan, xv, combine)
-    trash = plan.layout.trash
     if abft:
         delta = xv.new_zeros((xv.shape[0],) + tuple(xv.shape[2:]))
         scale = xv.new_zeros((xv.shape[0],) + tuple(xv.shape[2:]))
+    slab_bytes = (plan.snd_idx.shape[-1] + (1 if abft else 0)) * cols * xv.element_size()
     for r in range(plan.R):
         EXCHANGES["rounds"] += 1
-        mask = plan.snd_mask[r] if xv.dim() == 2 else plan.snd_mask[r][..., None]
-        sent = torch.where(mask, xv.gather(1, _slot_index(plan.snd_idx[r], xv)), 0)
-        buf = sent[plan.src_of[r]]
+        tcomms.count("collective_permute", 1, slab_bytes)
+        sent, buf = exchange_round_(plan, r, xv, combine)
         if abft:
             # the sender's sum rides with its slab; the receiver re-sums
             rcs = sent.sum(dim=1)[plan.src_of[r]]
             delta = delta + (buf.sum(dim=1) - rcs).abs()
             scale = scale + buf.abs().sum(dim=1) + rcs.abs()
-        if combine == "add":
-            xv.scatter_add_(1, _slot_index(plan.rcv_idx[r], xv), buf)
-        else:
-            xv.scatter_(1, _slot_index(plan.rcv_idx[r], xv), buf)
-        xv[:, trash] = 0  # keep the trash slot clean
     if combine == "add":
         xv[:, plan.layout.g0 :] = 0  # ghost contributions now live on owners
     return (xv, delta, scale) if abft else xv
+
+
+def exchange_round_(plan: DeviceExchangePlan, r: int, xv: torch.Tensor, combine: str = "set"):
+    """Round ``r`` of a generic plan on a stacked frame or slab, in place:
+    the senders' slots gathered (masked), copied to their receivers,
+    scattered (``set``) or added (``add``) into the ghost slots, the trash
+    slot zeroed. Returns the sent slab and the received one, which the
+    ABFT checksums sum (and the comms matrix times one round alone)."""
+    mask = plan.snd_mask[r] if xv.dim() == 2 else plan.snd_mask[r][..., None]
+    sent = torch.where(mask, xv.gather(1, _slot_index(plan.snd_idx[r], xv)), 0)
+    buf = sent[plan.src_of[r]]
+    if combine == "add":
+        xv.scatter_add_(1, _slot_index(plan.rcv_idx[r], xv), buf)
+    else:
+        xv.scatter_(1, _slot_index(plan.rcv_idx[r], xv), buf)
+    xv[:, plan.layout.trash] = 0  # keep the trash slot clean
+    return sent, buf
 
 
 def make_exchange_fn(rows: PRange, backend: GPUBackend, combine: str = "set") -> Callable:
@@ -1110,17 +1136,48 @@ def _pdot_factory(o0: int, no_max: int, strict: bool = False, plain: bool = Fals
     in part order (tpu.py:_pdot_factory). ``strict`` takes E3
     (`ops/irregular.pairwise_dot`, its plain version with ``plain``): the
     strict branch of tpu.py:2538-2551, bit for bit the host's strict
-    `PVector.dot`."""
+    `PVector.dot`. Each dot counts as one ``all_gather`` of its ``(P,)``
+    partials in the active `telemetry.comms` tallies."""
     if strict:
         from ..ops import irregular as irr
 
         k = irr.pairwise_dot_plain if plain else irr.pairwise_dot
-        return lambda a, b: k(a, b, o0, no_max)
+
+        def sdot(a, b):
+            _count_fold(a, 1)
+            return k(a, b, o0, no_max)
+
+        return sdot
+
+    def partials(a, b):
+        return (a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1)
 
     def pdot(a, b):
-        return _fold_parts((a[:, o0 : o0 + no_max] * b[:, o0 : o0 + no_max]).sum(dim=1))
+        _count_fold(a, 1)
+        return _fold_parts(partials(a, b))
 
+    pdot.partials = partials
     return pdot
+
+
+def _count_fold(like: torch.Tensor, lanes: int, ops: int = 1) -> None:
+    """One part-order fold of ``lanes`` per-part partials a column of
+    ``like`` (a (P, W) frame or a (P, W, K) slab) into the active
+    `telemetry.comms` tallies: ``all_gather``, ``P·K·lanes·itemsize``
+    bytes (``ops`` 0 adds lanes to the gather counted just before)."""
+    cols = like.shape[2] if like.dim() == 3 else 1
+    tcomms.count("all_gather", ops, like.shape[0] * cols * lanes * like.element_size())
+
+
+def _counted_sweep(sweep: Callable) -> Callable:
+    """A CG sweep (`ops/sweep.py`) whose fold of the partials counts as one
+    ``all_gather`` of its lanes (r.r, and r.z in the precond form)."""
+
+    def run(r, q, alpha, live, part, o0, n, x=None, p=None, minv=None):
+        _count_fold(r, 1 if minv is None else 2)
+        return sweep(r, q, alpha, live, part, o0, n, x=x, p=p, minv=minv)
+
+    return run
 
 
 def _pdot_extra_factory(o0: int, no_max: int, strict: bool = False, plain: bool = False, block: bool = False):
@@ -1129,13 +1186,27 @@ def _pdot_extra_factory(o0: int, no_max: int, strict: bool = False, plain: bool 
     (a·b, folded extras)``, ``extras`` a tuple of per-part partials ``(P,)``
     (``(P, K)`` with ``block``), each folded in part order as the dot's own
     partials are. The dot is `_pdot_factory`'s (`_block_pdot_factory`'s)
-    call itself, so carrying the lanes never moves its bits."""
+    call itself, so carrying the lanes never moves its bits. The lanes
+    count as lanes of the dot's one ``all_gather`` (tpu.py:2616 gathers
+    the widened partials once), not as a gather of their own.
+
+    ``alt = (sel, part)`` (not with ``strict``: E3 folds the parts in its
+    own tree) puts ``part``, per-part partials of another dot, in the place
+    of the dot's own where the device flag ``sel`` holds, before the one
+    fold: the audit's drift ||d||² through the trip's p·q gather
+    (tpu.py:_aud_ops selects the dot's operands; the partials of selected
+    operands are the selected partials)."""
     pdot = _block_pdot_factory(o0, no_max, plain, strict) if block else _pdot_factory(o0, no_max, strict, plain)
 
-    def pdotx(a, b, extras=()):
-        d = pdot(a, b)
+    def pdotx(a, b, extras=(), alt=None):
+        if alt is None:
+            d = pdot(a, b)
+        else:
+            _count_fold(a, 1)
+            d = _fold_parts(torch.where(alt[0], alt[1], pdot.partials(a, b)))
         if not extras:
             return d, ()
+        _count_fold(a, len(extras), ops=0)
         folded = _fold_parts(torch.stack(extras, dim=-1))
         return d, tuple(folded[..., i] for i in range(len(extras)))
 
@@ -1172,18 +1243,27 @@ def _block_pdot_factory(o0: int, no_max: int, plain: bool = False, strict: bool 
         from ..ops import irregular as irr
 
         k = irr.pairwise_dot_block_plain if plain else irr.pairwise_dot_block
-        return lambda a, b: k(a, b, o0, no_max)
+
+        def sdot(a, b):
+            _count_fold(a, 1)
+            return k(a, b, o0, no_max)
+
+        return sdot
 
     products = sw.block_products_plain if plain else sw.block_products
 
-    def bdot(a, b):
+    def partials(a, b):
         P, K = a.shape[0], a.shape[2]
         m = P * no_max
         stride = sw.block_product_stride(P, no_max)
         buf = products(a, b, o0, no_max)
-        part = torch.stack([buf[k * stride : k * stride + m].view(P, no_max).sum(dim=1) for k in range(K)])
-        return _fold_parts(part.t())
+        return torch.stack([buf[k * stride : k * stride + m].view(P, no_max).sum(dim=1) for k in range(K)]).t()
 
+    def bdot(a, b):
+        _count_fold(a, 1)
+        return _fold_parts(partials(a, b))
+
+    bdot.partials = partials
     return bdot
 
 
@@ -1389,7 +1469,7 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     body = _spmv_body(dA, plain=plain, overlap=overlap)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain, overlap=overlap) if fused else None
     body_axpy = _spmv_body(dA, axpy=True, plain=plain, overlap=overlap) if pipelined else None
-    sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
+    sweep = _counted_sweep(sw.cg_sweep_plain if plain else sw.cg_sweep)
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
     pdot = _pdot_factory(o0, no_max, strict, plain)
@@ -1452,35 +1532,37 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     def fn(b, x0, minv=None):
         check((minv is not None) == precond,
               "make_cg_fn: pass minv exactly when the function was built with precond")
-        x = x0.clone()
-        q = body(x0.clone())
-        r = torch.zeros_like(x)
-        r[:, sl] = b[:, sl] - q[:, sl]
-        rs0 = pdot(r, r)
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        init = {
-            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
-            "it": torch.zeros((), dtype=torch.int32, device=x.device),
-            "live": torch.ones((), dtype=torch.int32, device=x.device),
-            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
-            "part": sw.sweep_partials(r, no_max, 2 if precond and not strict else None),
-        }
-        z = r
-        if precond:
-            z = torch.zeros_like(r)
-            z[:, sl] = minv[:, sl] * r[:, sl]
-            init.update(minv=minv, rz=pdot(r, z))
-        if fused:
-            init.update(pprev=torch.zeros_like(x), beta=zero)
-        else:
-            p = torch.zeros_like(x)
-            p[:, sl] = z[:, sl]
-            init["p"] = p
-        if pipelined:
-            init.update(pprev=torch.zeros_like(x), alpha_prev=zero)
-        if Ht:
-            init["ab"] = gl.trace_ring(Ht, rs0)
+        with tcomms.counting() as setup:
+            x = x0.clone()
+            q = body(x0.clone())
+            r = torch.zeros_like(x)
+            r[:, sl] = b[:, sl] - q[:, sl]
+            rs0 = pdot(r, r)
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            init = {
+                "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
+                "it": torch.zeros((), dtype=torch.int32, device=x.device),
+                "live": torch.ones((), dtype=torch.int32, device=x.device),
+                "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+                "part": sw.sweep_partials(r, no_max, 2 if precond and not strict else None),
+            }
+            z = r
+            if precond:
+                z = torch.zeros_like(r)
+                z[:, sl] = minv[:, sl] * r[:, sl]
+                init.update(minv=minv, rz=pdot(r, z))
+            if fused:
+                init.update(pprev=torch.zeros_like(x), beta=zero)
+            else:
+                p = torch.zeros_like(x)
+                p[:, sl] = z[:, sl]
+                init["p"] = p
+            if pipelined:
+                init.update(pprev=torch.zeros_like(x), alpha_prev=zero)
+            if Ht:
+                init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
+        fn.comms_counted = tcomms.counted_profile(setup, loop.comms, loop.block)
         out = (S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy())
         return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
@@ -1491,7 +1573,18 @@ def make_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, fused: Optional[bool]
     fn.trace_iters = Ht
     fn.stats = loop.stats  # updated in place by every run
     fn.loop = loop
+    fn.comms_kwargs = _comms_kwargs(fn, fused=fused, pipelined=pipelined)
+    fn.comms_counted = None  # the counted program, after the first run
     return fn
+
+
+def _comms_kwargs(fn, fused: bool = False, pipelined: bool = False, rhs_batch: Optional[int] = None,
+                  sdc: bool = False, abft: bool = False, sstep: int = 0) -> dict:
+    """The keywords of `telemetry.comms.cg_comms_profile` that describe a
+    CG solve function's body (tpu.py:4351-4358, :5013): the model half of
+    the accounting that `_run_krylov` stamps into the solve's record."""
+    return dict(precond=bool(fn.precond), pipelined=bool(pipelined), fused=bool(fused), rhs_batch=rhs_batch,
+                sdc=bool(sdc), abft=bool(abft), sstep=int(sstep), overlap=bool(fn.overlap), strict=bool(fn.strict))
 
 
 #: rows of a chunk of the s-step Gram product (`_pgram_factory`)
@@ -1510,6 +1603,7 @@ def _pgram_factory(o0: int, no_max: int):
 
     def pgram(V):
         P, m, n = V.shape
+        tcomms.count("all_gather", 1, P * m * m * V.element_size())
         C = n // GRAM_CHUNK
         part = None
         if C:
@@ -1625,20 +1719,23 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
     loop = gl.DeviceLoop(step, max(1, gl.CG_BLOCK // s) if block is None else block, graph)
 
     def fn(b, x0):
-        x = x0.clone()
-        q = body1(x0.clone())
-        r = torch.zeros_like(x)
-        r[:, sl] = b[:, sl] - q[:, sl]
-        rs0 = pdot(r, r)
-        init = {
-            "x": x, "pr": torch.stack([r, r], dim=-1), "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
-            "it": torch.zeros((), dtype=torch.int32, device=x.device),
-            "live": torch.ones((), dtype=torch.int32, device=x.device),
-            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
-        }
-        if Ht:
-            init["ab"] = gl.trace_ring(Ht, rs0)
+        with tcomms.counting() as setup:
+            x = x0.clone()
+            q = body1(x0.clone())
+            r = torch.zeros_like(x)
+            r[:, sl] = b[:, sl] - q[:, sl]
+            rs0 = pdot(r, r)
+            init = {
+                "x": x, "pr": torch.stack([r, r], dim=-1), "rs": rs0,
+                "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
+                "it": torch.zeros((), dtype=torch.int32, device=x.device),
+                "live": torch.ones((), dtype=torch.int32, device=x.device),
+                "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+            }
+            if Ht:
+                init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
+        fn.comms_counted = tcomms.counted_profile(setup, loop.comms, loop.block, unit=s)
         out = (S["x"].clone(), S["rs"].clone(), rs0, int(S["it"].item()), S["hist"].cpu().numpy())
         return out + ((S["ab"].cpu().numpy(),) if Ht else ())
 
@@ -1649,6 +1746,8 @@ def _make_sstep_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, s: int, plain:
     fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
+    fn.comms_kwargs = _comms_kwargs(fn, sstep=s)
+    fn.comms_counted = None
     return fn
 
 
@@ -1715,7 +1814,7 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
         return make_sdc_block_cg_fn(dA, tol, maxiter, K, cfg, fused, precond, plain, graph, block)
     body = _spmv_body(dA, plain=plain, block=True, overlap=overlap)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=True, overlap=overlap) if fused else None
-    sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
+    sweep = _counted_sweep(sw.cg_sweep_block_plain if plain else sw.cg_sweep_block)
     o0, no_max = dA.row_layout.o0, dA.row_layout.no_max
     sl = slice(o0, o0 + no_max)
     bdot = _block_pdot_factory(o0, no_max, plain, strict)
@@ -1774,34 +1873,36 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
               f"(P, W, {K}) slabs in the matrix's column layout")
         check((minv is not None) == precond,
               "make_block_cg_fn: pass minv exactly when the function was built with precond")
-        x = x0.clone()
-        q = body(x0.clone())
-        r = torch.zeros_like(x)
-        r[:, sl] = b[:, sl] - q[:, sl]
-        rs0 = bdot(r, r)
-        dev = x.device
-        init = {
-            "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
-            "it": torch.zeros((), dtype=torch.int32, device=dev),
-            "itk": torch.zeros((K,), dtype=torch.int32, device=dev),
-            "live": torch.ones((), dtype=torch.int32, device=dev),
-            "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
-            "part": sw.sweep_partials(r, no_max, 2 * K if precond and not strict else K),
-        }
-        z = r
-        if precond:
-            z = torch.zeros_like(r)
-            z[:, sl] = minv[:, sl, None] * r[:, sl]
-            init.update(minv=minv, rz=bdot(r, z))
-        if fused:
-            init.update(pprev=torch.zeros_like(x), beta=torch.zeros((K,), dtype=x.dtype, device=dev))
-        else:
-            p = torch.zeros_like(x)
-            p[:, sl] = z[:, sl]
-            init["p"] = p
-        if Ht:
-            init["ab"] = gl.trace_ring(Ht, rs0, K)
+        with tcomms.counting() as setup:
+            x = x0.clone()
+            q = body(x0.clone())
+            r = torch.zeros_like(x)
+            r[:, sl] = b[:, sl] - q[:, sl]
+            rs0 = bdot(r, r)
+            dev = x.device
+            init = {
+                "x": x, "r": r, "rs": rs0, "thr": tol * torch.clamp(gl.sqrt_rn(rs0), min=1.0),
+                "it": torch.zeros((), dtype=torch.int32, device=dev),
+                "itk": torch.zeros((K,), dtype=torch.int32, device=dev),
+                "live": torch.ones((), dtype=torch.int32, device=dev),
+                "hist": gl.history(gl.sqrt_rn(rs0), maxiter),
+                "part": sw.sweep_partials(r, no_max, 2 * K if precond and not strict else K),
+            }
+            z = r
+            if precond:
+                z = torch.zeros_like(r)
+                z[:, sl] = minv[:, sl, None] * r[:, sl]
+                init.update(minv=minv, rz=bdot(r, z))
+            if fused:
+                init.update(pprev=torch.zeros_like(x), beta=torch.zeros((K,), dtype=x.dtype, device=dev))
+            else:
+                p = torch.zeros_like(x)
+                p[:, sl] = z[:, sl]
+                init["p"] = p
+            if Ht:
+                init["ab"] = gl.trace_ring(Ht, rs0, K)
         S, _ = loop.run(init)
+        fn.comms_counted = tcomms.counted_profile(setup, loop.comms, loop.block)
         out = (S["x"].clone(), S["rs"].clone(), rs0, S["itk"].cpu().numpy().astype(np.int64),
                S["hist"].cpu().numpy())
         return out + ((S["ab"].cpu().numpy(),) if Ht else ())
@@ -1814,6 +1915,8 @@ def make_block_cg_fn(dA: DeviceMatrix, tol: float, maxiter: int, rhs_batch: int,
     fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
+    fn.comms_kwargs = _comms_kwargs(fn, fused=fused, rhs_batch=K)
+    fn.comms_counted = None
     return fn
 
 
@@ -2027,6 +2130,10 @@ def _run_krylov(A: PSparseMatrix, b: PVector, x0: Optional[PVector], tol: float,
         rows, n, rec.trace_start = gl.unroll_ring(ab, it)
         rec.alpha = [float(v) for v in rows[:n, 0]]
         rec.beta = [float(v) for v in rows[:n, 1]]
+    # the comms accounting, before the typed raises below: an aborted
+    # record carries it too; a defended loop pays its collectives on every
+    # trip (commit, audit, restore), so it counts trips (tpu.py:5890-5899)
+    _stamp_comms(rec, solve, dA, b.dtype, int(np.asarray(out[5])[4]) if has_sdc else it)
     if verbose:
         for i, res in enumerate(hist[1:], start=1):
             print(f"{name} it={i} residual={res:.3e}")
@@ -2212,6 +2319,7 @@ def _gpu_block_cg_impl(A, B, X0, tol, maxiter, verbose, minv, fused, column_erro
     has_sdc = getattr(solve, "has_sdc", False)
     if getattr(solve, "trace_iters", 0) and rec.enabled:
         _attach_block_ring(rec, out[6 if has_sdc else 5], itk)
+    _stamp_comms(rec, solve, dA, dt, int(np.asarray(out[5])[4]) if has_sdc else int(np.asarray(itk).max()))
     sdc_info = _decode_sdc_outputs(name, out[5], it=int(itk.max())) if has_sdc else None
     rs = rs.cpu().numpy().astype(np.float64)
     rs0 = rs0.cpu().numpy().astype(np.float64)
@@ -2276,6 +2384,18 @@ def _gpu_block_cg_impl(A, B, X0, tol, maxiter, verbose, minv, fused, column_erro
     # per-column spectral estimates from the block ring, before the finish
     telemetry.observe_solve(A, rec, info=info, dtype=dt, minv=minv)
     return xs, info
+
+
+def _stamp_comms(rec, solve: Callable, dA: DeviceMatrix, dtype, units: int) -> None:
+    """``rec.comms``: the model inventory of a CG solve function's body
+    (``solve.comms_kwargs``, `telemetry.comms.cg_comms_profile`) evaluated
+    at ``units`` iterations (trips for a defended loop), and beside it
+    ``rec.comms_counted``, the counted program of the same function, on an
+    enabled record of a function that has one."""
+    ck = getattr(solve, "comms_kwargs", None)
+    if ck is not None and rec is not None and rec.enabled:
+        rec.comms = tcomms.observed_comms(tcomms.cg_comms_profile(dA, dtype, **ck), units)
+        rec.comms_counted = solve.comms_counted
 
 
 def _attach_block_ring(rec, ab: np.ndarray, itk: np.ndarray) -> None:

@@ -41,6 +41,12 @@ called, and a capture calls every wrapper of the block without running
 it. So the counts a capture adds are taken back and kept as the graph's
 tally, which every replay adds, and `dia.LAUNCHES` counts the launches the
 card ran, in frozen iterations too.
+
+Comms: the first block a loop runs (eagerly, or under the capture when the
+run captures before its first block) runs inside a `telemetry.comms`
+tally, kept as ``DeviceLoop.comms``: the exchanges and dot folds of one
+block, the counted half of the comms accounting (`telemetry/comms.py`).
+Later blocks and replays count nothing.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from ..ops import dia
+from ..telemetry import comms as tcomms
 
 #: iterations a block (a graph replay) runs: CG's iterations take ~0.2 ms
 #: of device work at 192^3, a GMG-PCG iteration ~1.3 ms
@@ -168,6 +175,7 @@ class DeviceLoop:
         self.capture_s: Optional[float] = None
         self.warm = False  # a block ran eagerly on these buffers: every kernel is warm
         self.stats: dict = {}
+        self.comms: Optional[dict] = None  # the comms tally of one block (`telemetry.comms`)
 
     def run(self, init: State) -> Tuple[State, int]:
         """Load ``init`` (which must hold ``live``) into the state buffers and
@@ -212,6 +220,14 @@ class DeviceLoop:
         return self.base, n
 
     def _block(self) -> None:
+        if self.comms is None:
+            with tcomms.counting() as tally:
+                self._steps()
+            self.comms = tally
+        else:
+            self._steps()
+
+    def _steps(self) -> None:
         S = dict(self.base)
         for _ in range(self.block):
             S = self.step(S)

@@ -12,9 +12,12 @@ A loop step is one trip of three kinds:
 * **commit**, a real iteration: the state advances;
 * **audit**, every ``ae`` iterations: the body's one SpMV streams ``A x``
   instead of ``A p`` (an operand select before the product, so an audit
-  trip launches no second SpMV), the dot's operands are ``d = b - A x -
-  r`` (so it yields ||d||², the drift of the recurrence residual from the
-  true one), and a state that passes is pushed onto the ring;
+  trip launches no second SpMV), the dot yields ||d||² with ``d = b - A x
+  - r``, the drift of the recurrence residual from the true one (the
+  drift's per-part partials selected in the place of p·q's before the
+  dot's one fold, so an audit trip folds no second reduction; a strict
+  lowering selects the dot's operands, E3 folding the parts itself), and
+  a state that passes is pushed onto the ring;
 * **restore**, on a detection (the ABFT checksum lanes, or a failed
   audit): the ring state ``strike`` slots back replaces the state, the
   in-memory rollback, which rewinds ``it`` and the history rows but not
@@ -151,13 +154,14 @@ def _rewind_history(hist, restore, it_r, rows) -> None:
 
 
 def _drift(b, q, r, sl):
-    """Per-part partials of ||d||² with d = b - A x - r on an audit trip
-    (tpu.py:_aud_ops): the audit's drift of the recurrence residual from the
-    true one, ``(P,)`` or ``(P, K)``. Taken every trip (a captured graph
-    has no branch) and selected on audit trips only."""
+    """The owned band of d = b - A x - r on an audit trip (tpu.py:_aud_ops),
+    ``(P, n)`` or ``(P, n, K)``: the audit's drift of the recurrence
+    residual from the true one, whose dot with itself the trip takes.
+    Formed every trip (a captured graph has no branch) and selected on
+    audit trips only."""
     d = b[:, sl] - q[:, sl]
     d.sub_(r[:, sl])
-    return (d * d).sum(dim=1)
+    return d
 
 
 def sdc_vector(S: dict) -> torch.Tensor:
@@ -237,7 +241,8 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
     `_block_pdot_factory`), each the undefended body's arithmetic on commit
     trips."""
     from . import gpu_loop as gl
-    from .gpu import _fold_parts, _pdot_extra_factory, _sdc_tolerances, _spmv_body
+    from .gpu import _comms_kwargs, _counted_sweep, _pdot_extra_factory, _sdc_tolerances, _spmv_body
+    from ..telemetry import comms as tcomms
     from ..ops import sweep as sw
 
     slab = K is not None
@@ -247,12 +252,14 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
     body = _spmv_body(dA, plain=plain, block=slab, abft=abft)
     body_pfold = _spmv_body(dA, pfold=True, plain=plain, block=slab, abft=abft, audit=audit) if fused else None
     if slab:
-        sweep = sw.cg_sweep_block_plain if plain else sw.cg_sweep_block
+        sweep = _counted_sweep(sw.cg_sweep_block_plain if plain else sw.cg_sweep_block)
     else:
-        sweep = sw.cg_sweep_plain if plain else sw.cg_sweep
+        sweep = _counted_sweep(sw.cg_sweep_plain if plain else sw.cg_sweep)
     o0, no_max, P = dA.row_layout.o0, dA.row_layout.no_max, dA.row_layout.P
     sl = slice(o0, o0 + no_max)
     pdotx = _pdot_extra_factory(o0, no_max, strict, plain, block=slab)
+    # strict: the trip's p·q dot on the selected owned bands (p, q or the drift d)
+    pdotx_band = _pdot_extra_factory(0, no_max, strict, plain, block=slab) if strict and audit else None
     lanes = _abft_lanes(dA, sl, slab) if abft else None
     inject = _injector(cfg, P, o0, slab)
     stop_it = gl.stop_bound(maxiter)
@@ -292,8 +299,14 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
             exd_exs = out_b[1:] if abft else ()
         q = inject(q, S["trip"], on)
         extras = lanes(q, opnd, *exd_exs) if abft else ()
-        pq, ex_out = pdotx(p, q, extras)
-        pqdd = torch.where(aud, _fold_parts(_drift(S["b"], q, r, sl)), pq) if audit else pq
+        if not audit:
+            pqdd, ex_out = pdotx(p, q, extras)
+        else:
+            d = _drift(S["b"], q, r, sl)
+            if strict:  # E3 folds the parts in its own tree: select its operands
+                pqdd, ex_out = pdotx_band(torch.where(aud, d, p[:, sl]), torch.where(aud, d, q[:, sl]), extras)
+            else:
+                pqdd, ex_out = pdotx(p, q, extras, alt=(aud, (d * d).sum(dim=1)))
         key = q.dtype
         if key not in tiny:
             tiny[key] = float(torch.finfo(q.dtype).tiny)
@@ -367,18 +380,19 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
                   f"(P, W, {K}) slabs in the matrix's column layout")
         check((minv is not None) == precond, "pass minv exactly when the function was built with precond")
         dev = x0.device
-        x = x0.clone()
-        q = body(x0.clone())
-        q = q[0] if abft else q
-        r = torch.zeros_like(x)
-        r[:, sl] = b[:, sl] - q[:, sl]
-        rs0 = pdotx(r, r)[0]
+        with tcomms.counting() as setup:
+            x = x0.clone()
+            q = body(x0.clone())
+            q = q[0] if abft else q
+            r = torch.zeros_like(x)
+            r[:, sl] = b[:, sl] - q[:, sl]
+            rs0 = pdotx(r, r)[0]
+            z, rz0 = r, rs0
+            if precond:
+                z = torch.zeros_like(r)
+                z[:, sl] = (minv[:, sl, None] if slab else minv[:, sl]) * r[:, sl]
+                rz0 = pdotx(r, z)[0]
         cs_tol, audit_tol = _sdc_tolerances(cfg, x.dtype, P, no_max)
-        z, rz0 = r, rs0
-        if precond:
-            z = torch.zeros_like(r)
-            z[:, sl] = (minv[:, sl, None] if slab else minv[:, sl]) * r[:, sl]
-            rz0 = pdotx(r, z)[0]
         p0 = torch.zeros_like(x)
         if not fused:
             p0[:, sl] = z[:, sl]
@@ -404,6 +418,7 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
         if Ht:
             init["ab"] = gl.trace_ring(Ht, rs0)
         S, _ = loop.run(init)
+        fn.comms_counted = tcomms.counted_profile(setup, loop.comms, loop.block)
         iters = S["itk"].cpu().numpy().astype(np.int64) if slab else int(S["it"].item())
         out = (S["buf"][R, X].clone(), S["rs"].clone(), rs0, iters, S["hist"].cpu().numpy(),
                sdc_vector(S).cpu().numpy())
@@ -420,4 +435,6 @@ def _make_fn(dA, tol, maxiter, cfg, fused, precond, plain, graph, block, K, Ht):
     fn.trace_iters = Ht
     fn.stats = loop.stats
     fn.loop = loop
+    fn.comms_kwargs = _comms_kwargs(fn, fused=fused, rhs_batch=K, sdc=True, abft=abft)
+    fn.comms_counted = None
     return fn

@@ -12,15 +12,31 @@
 * `telemetry.throughput` — the per-RHS throughput model of the service;
   `telemetry.spectrum` — CG–Lanczos spectral estimates from the α/β trace,
   forecasts and deadline admission.
+* `telemetry.comms` — the model-against-counted comms accounting of the CG
+  programs: `cg_comms_profile` (the plan-level model, stamped into every
+  CG record as ``rec.comms``), the counted program each solve function
+  keeps (``fn.comms_counted``, tallied while its loop runs its first
+  block; the record carries it as ``rec.comms_counted``) and
+  `reconcile`; the lowering cases (`comms.lowering_cases`, the JAX
+  package's names) and their probe solves.
+* `telemetry.commsmatrix` — the per-edge, per-round exchange cost matrix:
+  `static_matrix` from the plan, `measure_comms_matrix` timing each round
+  (each box direction) as its own chain.
+* `telemetry.profile` — the phase profile of a CG iteration
+  (`capture_phase_profile`: spmv_local, halo_exchange, dot_allgather,
+  axpy_sweep; by a `torch.profiler` trace or the split-timer's chains),
+  `reconcile_phases`, and `tracing.mount_phase_spans` lays a profile
+  under the recorded slab spans.
 * `telemetry.config` — the switches, one frozen `TelemetryConfig` set by
   `configure` (the JAX package reads them from ``PA_*`` environment
   variables; the port reads no environment).
 
 Telemetry off costs the device nothing: every switch is host-side, and the
 α/β trace ring of the CG loops is the solvers' ``trace_iters=`` keyword
-(0, the default, launches exactly what the loop launched without it). The
-comms accounting, the phase profile and the ledger of the JAX package's
-``telemetry/`` are still to port.
+(0, the default, launches exactly what the loop launched without it); the
+comms tally is host arithmetic in the eager blocks only, and the profile
+runs its own chains (``prof=False``: nothing). The ledger of the JAX
+package's ``telemetry/`` (``ledger.py``) comes with the port's benchmark.
 """
 from .artifacts import ARTIFACT_SCHEMA_VERSION, stamp, write  # noqa: F401
 from .config import TelemetryConfig, config, config_snapshot, configure  # noqa: F401
@@ -45,6 +61,40 @@ from .throughput import (  # noqa: F401
     reset_model,
 )
 from .throughput import model as throughput_model  # noqa: F401
+from . import comms, commsmatrix, profile  # noqa: F401
+from .comms import (  # noqa: F401
+    COMM_KINDS,
+    case_probe_solve,
+    cg_comms_profile,
+    lowering_cases,
+    observed_comms,
+    reconcile,
+)
+from .profile import (  # noqa: F401
+    PHASE_BOUNDARY,
+    PHASE_SCHEMA_VERSION,
+    PHASE_SUM_BAND,
+    PHASE_SUM_BAND_WIDE,
+    PHASES,
+    capture_phase_profile,
+    lowering_descriptor,
+    phase_case_name,
+    phase_case_of,
+    phase_trace_events,
+    profile_phases,
+    reconcile_phases,
+    render_phase_profile,
+)
+from .commsmatrix import (  # noqa: F401
+    COMMS_MATRIX_SCHEMA_VERSION,
+    classify_edge,
+    fabric_summary,
+    fit_fabric_model,
+    measure_comms_matrix,
+    reconcile_matrix,
+    render_comms_matrix,
+    static_matrix,
+)
 from .metrics import bump  # noqa: F401
 from .metrics import get as counter  # noqa: F401
 from .metrics import reset as reset_counters  # noqa: F401
@@ -104,6 +154,7 @@ from .tracing import (  # noqa: F401
     Span,
     TraceContext,
     mint_trace,
+    mount_phase_spans,
     parse_traceparent,
     start_span,
     tracing_enabled,
@@ -124,6 +175,12 @@ def reset_state() -> None:
 
 
 __all__ = [
+    "COMM_KINDS", "COMMS_MATRIX_SCHEMA_VERSION", "PHASES", "PHASE_BOUNDARY", "PHASE_SCHEMA_VERSION",
+    "PHASE_SUM_BAND", "PHASE_SUM_BAND_WIDE", "capture_phase_profile", "case_probe_solve", "cg_comms_profile",
+    "classify_edge", "comms", "commsmatrix", "fabric_summary", "fit_fabric_model", "lowering_cases",
+    "lowering_descriptor", "measure_comms_matrix", "mount_phase_spans", "observed_comms", "phase_case_name",
+    "phase_case_of", "phase_trace_events", "profile", "profile_phases", "reconcile", "reconcile_matrix",
+    "reconcile_phases", "render_comms_matrix", "render_phase_profile", "static_matrix",
     "ANOMALY_KINDS", "ARTIFACT_SCHEMA_VERSION", "CATALOG", "HISTOGRAM_SCHEMA_VERSION", "InfoDict",
     "LatencyHistogram", "MetricSpec", "RECORD_SCHEMA_VERSION", "REGISTRY_SCHEMA_VERSION", "Registry",
     "SPAN_KINDS", "SPECTRUM_SCHEMA_VERSION", "SSTEP_MAX", "SolveRecord", "Span", "SpectrumStore",

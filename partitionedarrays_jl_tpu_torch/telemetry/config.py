@@ -4,7 +4,8 @@ function.
 The JAX package reads its telemetry switches from the environment at every
 call (``PA_METRICS``, ``PA_METRICS_DIR``, ``PA_METRICS_HISTORY``,
 ``PA_MON``, ``PA_MON_EWMA``, ``PA_TX``, ``PA_TX_DIR``, ``PA_SPEC``,
-``PA_SPEC_ADMIT``, ``PA_LOCK_CHECK``); the port reads no environment. They
+``PA_SPEC_ADMIT``, ``PA_LOCK_CHECK``, ``PA_PROF``, ``PA_PROF_REPS``,
+``PA_PROF_TRACE``); the port reads no environment. They
 are the fields of `TelemetryConfig`, with the JAX package's defaults, and
 `configure` replaces the process's config:
 
@@ -45,12 +46,19 @@ class TelemetryConfig:
     spec_admit: bool = False  # deadline-feasibility admission (PA_SPEC_ADMIT)
     drift_factor: float = 4.0  # κ̂ drift flagged as precond_degradation (KAPPA_DRIFT_FACTOR)
     lock_check: bool = False  # the lock-order sanitizer (PA_LOCK_CHECK)
+    prof: bool = True  # phase-profile capture (PA_PROF)
+    prof_reps: int = 5  # timed repetitions a chain measurement (PA_PROF_REPS)
+    prof_trace: object = "auto"  # the profiler trace: True, False or "auto" (PA_PROF_TRACE 1, 0, auto)
 
     def __post_init__(self):
         if int(self.history) < 1:
             raise ValueError("TelemetryConfig: history must be >= 1")
         if not 0.0 < float(self.mon_ewma) <= 1.0:
             raise ValueError("TelemetryConfig: mon_ewma must lie in (0, 1]")
+        if int(self.prof_reps) < 3:
+            raise ValueError("TelemetryConfig: prof_reps must be >= 3 (a chain takes the least of its repetitions)")
+        if self.prof_trace not in (True, False, "auto"):
+            raise ValueError("TelemetryConfig: prof_trace is True, False or 'auto'")
 
     def __enter__(self) -> "TelemetryConfig":
         return self

@@ -177,6 +177,10 @@ class SolveRecord:
         self.beta: Optional[List[Any]] = None
         self.trace_start: int = 0
         self.comms: Optional[dict] = None
+        # the counted program of the solve function that ran
+        # (``fn.comms_counted``), beside the model in ``comms``: the pair
+        # `telemetry.comms.reconcile` compares; in memory only
+        self.comms_counted: Optional[dict] = None
         self.timings: Dict[str, float] = {}
         self.error: Optional[dict] = None
         self.wall_s: Optional[float] = None

@@ -17,7 +17,8 @@ Span kinds (`SPAN_KINDS`, the JAX package's vocabulary; the service opens
 * ``chunk`` — one block-solve call, or one solo retry (``solo_retry``),
   inside ``slab.solve``;
 * ``gate.queue``, ``gate.shed``, ``tenant.page_in`` — the front door's;
-  ``solver.phase``, ``tenant.repartition`` — the phase profile's and the
+* ``solver.phase`` — the phase profile's synthetic children of a
+  ``slab.solve`` (`mount_phase_spans`); ``tenant.repartition`` — the
   elastic layer's (not ported yet).
 
 Persistence: with ``tracing_dir`` set, every span appends a begin record
@@ -29,8 +30,8 @@ Switches (`telemetry.configure`): ``tracing`` (the JAX package's ``PA_TX``,
 default on; off, `start_span` returns one inert span: no ids, no clock
 reads, no files) and ``tracing_dir`` (``tracing_dir``). No solve reads
 either: a traced solve launches what an untraced one launches.
-`mount_phase_spans` (it reads the phase profile) comes with the phase
-profile's port.
+`mount_phase_spans` lays a phase profile (`telemetry/profile.py`) under
+the recorded slab spans.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ __all__ = [
     "trace_ids",
     "span_tree",
     "verify_trace",
+    "mount_phase_spans",
     "trace_summary",
     "render_trace",
     "trace_chrome_events",
@@ -604,6 +606,45 @@ def render_trace(spans: List[dict], trace_id: str) -> str:
         f"{summ['dominant']}  ({parts})"
     )
     return "\n".join(lines)
+
+
+def mount_phase_spans(spans: List[dict], profile: dict) -> List[dict]:
+    """A phase profile under every finished ``slab.solve`` span
+    (tracing.py:640 of the JAX package): synthetic ``solver.phase``
+    children, one a phase, in sorted name order, whose durations split the
+    slab span's wall time by the profile's per-iteration shares, laid end
+    to end from the slab's start. A container ``{"profiles": {case:
+    profile}}`` mounts its ``standard`` profile (a slab span names no
+    body). Returns the ADDED spans."""
+    cases = profile.get("profiles")
+    if isinstance(cases, dict) and cases:
+        profile = cases.get("standard") or next(iter(cases.values()))
+    per_it = {p: float(v.get("s_per_it") or 0.0) for p, v in (profile.get("phases") or {}).items()}
+    total = sum(per_it.values())
+    if total <= 0.0:
+        return []
+    out = []
+    for s in spans:
+        if s.get("kind") != "slab.solve" or s.get("dur_s") is None:
+            continue
+        t = s.get("t0_wall", 0.0)
+        for name, v in sorted(per_it.items()):
+            dur = s["dur_s"] * (v / total)
+            out.append({
+                "trace_id": s["trace_id"],
+                "span_id": secrets.token_hex(8),
+                "parent_id": s["span_id"],
+                "kind": "solver.phase",
+                "name": name,
+                "remote": False,
+                "t0_wall": t,
+                "dur_s": dur,
+                "status": "ok",
+                "attrs": {"s_per_it": v, "share": round(v / total, 6), "source": profile.get("case", "PHASE_PROFILE"),
+                          "synthetic": True},
+            })
+            t += dur
+    return out
 
 
 def trace_chrome_events(spans: List[dict],

@@ -10,7 +10,14 @@ the CPU:
 * ``assemble_poisson`` / ``assemble_cartesian_stencil(decoupled=True)`` —
   bit for bit the JAX package's COO path (``PA_TPU_STENCIL_FAST=0``);
 * ``PSparseMatrix(exchanger=)``, ``make_chebyshev_fn(leg=)``,
-  ``GMGLevel(P=, R=)`` and ``make_cg_fn(rhs_batch=)``.
+  ``GMGLevel(P=, R=)`` and ``make_cg_fn(rhs_batch=)``;
+* ``gpu.EXCHANGES["rounds"]`` — a box exchange adds one round a direction
+  (``len(plan.info.dirs)``, ``plan.R``; it added 1), a generic one its
+  colour rounds, as the JAX package's comms model counts one ``ppermute``
+  a direction;
+* ``Gate.drain`` — it waits for a request that another thread's ``pump``
+  (the HTTP server's) has taken off the queue and is still submitting; it
+  returned with that request unfinished.
 """
 import importlib
 
@@ -216,3 +223,93 @@ def test_make_cg_fn_rhs_batch_is_the_block_solve():
         return True
 
     assert pt.prun(driver, CPU, (2, 2))
+
+
+def test_exchange_rounds_count_box_directions():
+    """A box exchange on the (2,2,2) 48^3 layout adds ``len(plan.info.dirs)``
+    (= ``plan.R``) rounds to ``EXCHANGES`` and the generic one its ``R``
+    colour rounds; one call each."""
+
+    def driver(parts):
+        return pt.prange(parts, (48, 48, 48), pt.with_ghost)
+
+    rows = pt.prun(driver, CPU, (2, 2, 2))
+    for box in (True, False):
+        plan = tgpu.device_exchange_plan(rows, CPU, box=box)
+        assert isinstance(plan, tgpu.DeviceExchangePlan) != box
+        layout = tgpu.device_layout(rows, box)
+        xv = torch.zeros((layout.P, layout.W), dtype=torch.float64)
+        before = dict(tgpu.EXCHANGES)
+        tgpu.exchange_(plan, xv)
+        want = len(plan.info.dirs) if box else plan.R
+        assert want == plan.R and want > 1
+        assert tgpu.EXCHANGES["calls"] - before["calls"] == 1
+        assert tgpu.EXCHANGES["rounds"] - before["rounds"] == want
+
+
+def test_gate_drain_waits_for_a_concurrent_dispatch(monkeypatch):
+    """Another thread's pump takes the request off the queue and submits it
+    slowly; a `drain` started in that window returns only once the request
+    is done."""
+    import threading
+    import time
+
+    def driver(parts):
+        A, b, _xe, x0 = pt.assemble_poisson(parts, (8, 8))
+        return A, b, x0
+
+    A, b, x0 = pt.prun(driver, pt.sequential, (2, 2))
+    gate = pt.frontdoor.Gate(start_workers=True)
+    gate.register("t", A, kmax=2)
+    submit = gate.registry.submit
+
+    def slow_submit(*a, **k):
+        time.sleep(0.3)
+        return submit(*a, **k)
+
+    monkeypatch.setattr(gate.registry, "submit", slow_submit)
+    try:
+        h = gate.submit("t", b, x0=x0, tol=1e-9)
+        pump = threading.Thread(target=gate.pump)
+        pump.start()
+        deadline = time.monotonic() + 10.0
+        while gate._queue and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert not gate._queue, "the pump thread did not take the request"
+        gate.drain()
+        assert h.done() and h.result()[1]["converged"]
+        pump.join(timeout=10.0)
+        assert not pump.is_alive()
+    finally:
+        gate.shutdown()
+
+
+def test_gate_pump_that_raises_leaves_no_dispatch_pending(monkeypatch):
+    """A dispatch loop that raises past its per-request handler (here a
+    BaseException out of the submit) takes the rest of its batch off the
+    dispatch count, so a later `drain` returns instead of waiting for
+    ever."""
+
+    class Stop(BaseException):
+        pass
+
+    def driver(parts):
+        A, b, _xe, x0 = pt.assemble_poisson(parts, (8, 8))
+        return A, b, x0
+
+    A, b, x0 = pt.prun(driver, pt.sequential, (2, 2))
+    gate = pt.frontdoor.Gate(start_workers=True)
+    gate.register("t", A, kmax=2)
+
+    def stop(*a, **k):
+        raise Stop
+
+    monkeypatch.setattr(gate.registry, "submit", stop)
+    try:
+        gate.submit("t", b, x0=x0, tol=1e-9)
+        with pytest.raises(Stop):
+            gate.pump()
+        assert gate._dispatching == 0
+        gate.drain()
+    finally:
+        gate.shutdown(drain=False)

@@ -136,9 +136,18 @@ def test_interop_round_trip(geometry):
 
 def _port_sources():
     files = sorted((ROOT / "partitionedarrays_jl_tpu_torch").rglob("*.py"))
-    tools = ("time_coded_kernels.py", "run_phase_4l.py", "run_phase_4m.py", "time_sstep_forms.py",
-             "probe_eigh_capture.py")
+    tools = ("time_coded_kernels.py", "run_phase_4l.py", "run_phase_4m.py", "run_phase_4n.py",
+             "time_sstep_forms.py", "probe_eigh_capture.py", "time_sdc_trip.py")
     return files + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / t for t in tools]
+
+
+def test_port_sources_hold_the_consoles():
+    """The package glob picks up the port's consoles, and every listed tool
+    exists."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for console in ("patrace", "paprof", "pamon", "paspec", "paserve", "patx"):
+        assert f"partitionedarrays_jl_tpu_torch/tools/{console}.py" in names
+    assert all(p.exists() for p in _port_sources())
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
