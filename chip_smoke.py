@@ -348,6 +348,17 @@ Phases, one JSON line each:
    caught; `pagate`, `padur`, `pafleet` and `paelastic --check --device
    cuda` in-process. `tools/run_phase_4o.py` runs this phase alone, and
    then the three `--drill`s on the card;
+4p. the native host planner (`phase_planner`; `native/planning.cpp`, built
+   by g++ beside the kernels in phase 1, which prints the compiler's
+   version and the library's path): phase 2b's 48^3 f64 (2,2,2) system
+   assembled on the COO-free route (the default, which every phase above
+   assembles through) and on the COO route (`native.STENCIL_FAST` off):
+   the global triplets equal bit for bit, b, x̂ and x0 within 1e-12 on
+   their owned values, and the COO-free system's fused CG (K1 once, K2
+   and the sweep once per device iteration, E1's boundary mode with every
+   SpMV) within phase 2b's error gate, its iterations beside the COO
+   route's; the main cell's assembly, hierarchy and staging seconds
+   (phases 3 and 2b) with ``planner: "native"``;
 5. times by CUDA events (median of 50 launches after warm-up, L2 flushed
    before each, and a spin queued after the flush so that no host launch
    latency falls inside the timed span): kernel, plain version,
@@ -602,17 +613,41 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t = time.perf_counter()
+    # the host planner's g++ build beside the kernels' nvcc builds
+    planner = {}
+    th = threading.Thread(target=_build_planner, args=(planner,))
+    th.start()
     dia.build_kernels()
     build_s = time.perf_counter() - t
+    th.join()
     ptxas = _ptxas_lines(dia.BUILD_LOG)
     emit({
         "phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
     })
+    require("error" not in planner, f"the native planner did not build: {planner.get('error')}")
+    emit({"phase": "planner_build", **planner})
     spills = {k: ls for k, ls in ptxas.items() if any(re.search(r"\b[1-9]\d* bytes spill", ln) for ln in ls)}
     require(not spills, f"ptxas spilled registers: {spills}")
     return smi
+
+
+def _build_planner(out):
+    """Build and load the native planner (`native/planning.cpp` by g++),
+    recording the compiler's version, the library's path and seconds."""
+    from partitionedarrays_jl_tpu_torch import native
+
+    t = time.perf_counter()
+    try:
+        out["cxx"] = native.compiler_version()
+        out["flags"] = list(native.CXX_FLAGS)
+        if not native.available():
+            raise RuntimeError("the native planner is off (native.ENABLED)")
+        out["library"] = str(native.LIBRARY)
+    except Exception as e:  # noqa: BLE001 - reported by phase_device
+        out["error"] = f"{type(e).__name__}: {e}"
+    out["build_s"] = time.perf_counter() - t
 
 
 def _ptxas_lines(log):
@@ -6537,6 +6572,79 @@ def phase_profile(name, fn, b, x0, iters):
 # ---------------------------------------------------------------------------
 
 
+def _owned_values(v):
+    from partitionedarrays_jl_tpu_torch.parallel.pvector import _owned
+
+    return np.concatenate([np.asarray(_owned(i, x)) for i, x in zip(v.rows.partition.part_values(),
+                                                                   v.values.part_values())])
+
+
+def _global_triplets(A):
+    from partitionedarrays_jl_tpu_torch import psparse_global_triplets
+
+    out = []
+    for i, j, v in psparse_global_triplets(A).part_values():
+        o = np.lexsort((j, i))
+        out.append((np.asarray(i)[o].astype(np.int64), np.asarray(j)[o].astype(np.int64), np.asarray(v)[o]))
+    return out
+
+
+def phase_planner(backend, run, gruns):
+    """Phase 4p: the native host planner. Phase 2b's 48^3 f64 (2,2,2) system
+    on the COO-free route and on the COO route: global triplets bit for bit
+    (tests/test_fdm.py:86), b, x̂ and x0 to 1e-12, the COO-free system's
+    fused CG within phase 2b's error gate with its launch formula, both
+    routes' iterations; the main cell's planning seconds."""
+    from partitionedarrays_jl_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    n = N_MULTI
+    systems, seconds = {}, {}
+    for route, fast in (("coo_free", True), ("coo", False)):
+        native.STENCIL_FAST = fast
+        try:
+            t = time.perf_counter()
+            systems[route] = prun(lambda parts: assemble_poisson(parts, (n, n, n)), backend, (2, 2, 2))
+            seconds[route] = time.perf_counter() - t
+        finally:
+            native.STENCIL_FAST = True
+    (A, b, xe, x0), (Ac, bc, xec, x0c) = systems["coo_free"], systems["coo"]
+    same = all(all(np.array_equal(p, q) for p, q in zip(u, w)) and u[2].tobytes() == w[2].tobytes()
+               for u, w in zip(_global_triplets(A), _global_triplets(Ac)))
+    vec_err = {k: float(np.max(np.abs(_owned_values(u) - _owned_values(w))))
+               for k, u, w in (("b", b, bc), ("xe", xe, xec), ("x0", x0, x0c))}
+    ghosts_sorted = all(bool(np.all(np.diff(np.asarray(i.lid_to_gid[i.num_oids:])) > 0))
+                        for i in A.cols.partition.part_values())
+    dia.reset_launches()
+    x, info = cg(A, b, x0=x0, tol=1e-8)
+    sync()
+    launches = dict(dia.LAUNCHES)
+    xc, info_c = cg(Ac, bc, x0=x0c, tol=1e-8)
+    err, err_c = _rel_err(x, xe), _rel_err(xc, xec)
+    dev_it = device_iterations(info)
+    want = {"dia_coded_spmv": 1, "dia_coded_spmv_pfold": dev_it, "cg_sweep": dev_it, "ell_spmv_boundary": 1 + dev_it}
+    g = gruns["main"]
+    emit({
+        "phase": "planner", "planner": "native", "library": str(native.LIBRARY),
+        "cell_48": {"n": n, "dtype": "float64", "parts": [2, 2, 2], "assembly_s": seconds,
+                    "triplets_equal": same, "max_abs_diff": vec_err, "ghosts_sorted": ghosts_sorted,
+                    "iterations": info["iterations"], "coo_iterations": info_c["iterations"], "err": err,
+                    "coo_err": err_c, "lowering": info.get("lowering"), "plan": info.get("exchange_plan"),
+                    "kernels": {k: launches.get(k, 0) for k in want}, "expected_launches": want},
+        "main_cell": {"n": N_MAIN, "dtype": "float32", "parts": 1, "assembly_s": run["assembly_s"],
+                      "staging_s": run["lowering_s"], "gmg_assembly_s": g["assembly_s"],
+                      "hierarchy_s": g["hierarchy_s"], "gmg_staging_s": g.get("staging_s")},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    require(same, "planner: the COO-free and the COO route's global triplets differ")
+    require(all(v <= 1e-12 for v in vec_err.values()), f"planner: b, x̂ or x0 differ across routes: {vec_err}")
+    require(ghosts_sorted, "planner: the COO-free route's ghost columns are not sorted by gid")
+    require(info["converged"] and err < 1e-5, f"planner: the COO-free system's CG error {err} >= 1e-5")
+    require(info_c["converged"] and err_c < 1e-5, f"planner: the COO system's CG error {err_c} >= 1e-5")
+    for k in want:
+        require(launches.get(k, 0) == want[k], f"planner: {launches.get(k, 0)} {k} launches, expected {want[k]}")
+
+
 def main() -> int:
     smi = phase_device()
     backend = GPUBackend()
@@ -6577,6 +6685,7 @@ def main() -> int:
     gate = phase_frontdoor(backend, run, gruns["multi"], rng)
     phase_observability(backend, run, gruns["multi"])
     shrink = phase_elastic_shrink(backend, gruns["multi"], rng)
+    phase_planner(backend, run, gruns)
     emit({"phase": "device_memory", "after": "phase 4j", "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})

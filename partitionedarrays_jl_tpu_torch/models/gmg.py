@@ -3,12 +3,12 @@ partitions: the host hierarchy.
 
 The port's copy of `partitionedarrays_jl_tpu/models/gmg.py`. The
 interpolation P is an ordinary rectangular `PSparseMatrix` (fine rows x
-coarse cols), R = Pᵀ, and the Galerkin coarse operator A_c = Pᵀ A P is the
-exact triple product of per-part local SciPy products whose off-owner
-triplets ride the COO assembly migration (`assemble_matrix_from_coo`). The
-JAX package's native Galerkin fast paths (planning.cpp `galerkin3`,
-`galerkin_emit`, `galerkin_classify`) are not ported (ROADMAP Queue 1 item 8):
-every part takes the generic route. ``cycle="w"`` gives the W-cycle (a
+coarse cols), R = Pᵀ, and the Galerkin coarse operator A_c = Pᵀ A P is
+collapsed per part by the port's native layer (planning.cpp `galerkin3`,
+`galerkin_classify`) and emitted COO-free (`galerkin_emit`), or, where
+those decline or the layer is off, the exact triple product of per-part
+local SciPy products whose off-owner triplets ride the COO assembly
+migration (`assemble_matrix_from_coo`). ``cycle="w"`` gives the W-cycle (a
 second, warm-started coarse pass below every level but the last), and
 ``agg_threshold > 0`` coarse-level agglomeration onto strided sub-grids
 of parts.
@@ -31,9 +31,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
+from ..ops.sparse import CSRMatrix
 from ..parallel.backends import AbstractPData, map_parts
+from ..parallel.collectives import gather_all
 from ..parallel.prange import PRange, _block_firsts, add_gids, cartesian_partition, no_ghost
-from ..parallel.psparse import PSparseMatrix, assemble_matrix_from_coo
+from ..parallel.psparse import PSparseMatrix, assemble_coo, assemble_matrix_from_coo
 from ..parallel.pvector import PVector
 from ..utils.helpers import check
 from .solvers import PLU, _owned_update, _owned_zip, jacobi_preconditioner
@@ -110,25 +113,363 @@ def _scipy_csr(M):
     return csr_matrix((M.data, M.indices, M.indptr), shape=M.shape)
 
 
+def _decode_offset(e: int, dim: int):
+    """Base-3 decode of a 3^d diagonal index into per-dim offsets in
+    {-1, 0, 1}, most-significant dim first (the accumulation order of
+    planning.cpp:galerkin3_dim)."""
+    de, m = [], e
+    for _ in range(dim):
+        de.append(m % 3 - 1)
+        m //= 3
+    de.reverse()
+    return de
+
+
+def _galerkin_fused(accs, ncs, coarse_rows: PRange) -> PSparseMatrix:
+    """COO-free Galerkin assembly from per-part accumulators
+    (gmg.py:155-348 of the JAX package): only the O(surface) SHELL of each part's extended-box
+    accumulator — contributions to coarse rows owned elsewhere — rides
+    the classic COO migration (`assemble_coo`); received triplets are
+    scattered back into the accumulator, and the owned interior is then
+    emitted straight to column-sorted per-part CSR with local column
+    ids by planning.cpp:galerkin_emit_dim. The O(volume) extraction /
+    dedup / add_gids / to_lids / compresscoo passes of the generic path
+    never run. Cross-part sums happen at the accumulator's f64
+    precision (the generic path sums after the cast to the operator
+    dtype; both round to the same values to operator-dtype accuracy).
+    Reference anchor: the assembly migration this specializes,
+    src/Interfaces.jl:2406-2492."""
+    ncs = tuple(int(n) for n in ncs)
+    dim = len(ncs)
+
+    def _empty_coo():
+        z = np.empty(0, dtype=np.int64)
+        return z, z.copy(), np.empty(0, dtype=np.float64)
+
+    # ---- 1) shell COO: rows of the extended box outside the owned box
+    def _shell(ci, a):
+        out, elo, ehi, _dt = a
+        clo, chi = ci.box_lo, ci.box_hi
+        ebox = tuple(h - l for l, h in zip(elo, ehi))
+        if int(np.prod(ebox)) == 0:
+            return _empty_coo()
+        mask = np.zeros(ebox, dtype=bool)
+        mask[
+            tuple(
+                slice(cl - el, ch - el)
+                for cl, ch, el in zip(clo, chi, elo)
+            )
+        ] = True
+        shell = np.nonzero(~mask.ravel())[0]
+        if not len(shell):
+            return _empty_coo()
+        cc = np.unravel_index(shell, ebox)
+        I_out, J_out, V_out = [], [], []
+        for e in range(3**dim):
+            v = out[shell, e]
+            nz = np.nonzero(v)[0]
+            if not len(nz):
+                continue
+            de = _decode_offset(e, dim)
+            c1 = [c[nz] + l for c, l in zip(cc, elo)]
+            c2 = [c + d for c, d in zip(c1, de)]
+            I_out.append(np.ravel_multi_index(tuple(c1), ncs))
+            J_out.append(np.ravel_multi_index(tuple(c2), ncs))
+            V_out.append(v[nz])
+        if not I_out:
+            return _empty_coo()
+        return (
+            np.concatenate(I_out),
+            np.concatenate(J_out),
+            np.concatenate(V_out),
+        )
+
+    shell = map_parts(_shell, coarse_rows.partition, accs)
+    sizes = gather_all(map_parts(lambda s: len(s[0]), shell))
+    if int(np.sum(np.asarray(sizes.part_values()[0]))) > 0:
+        I = map_parts(lambda s: s[0], shell)
+        J = map_parts(lambda s: s[1], shell)
+        V = map_parts(lambda s: s[2], shell)
+        rows_g = add_gids(coarse_rows, I)
+        I2, J2, V2 = assemble_coo(I, J, V, rows_g)
+
+        def _scatter(ci, a, i, j, v):
+            out, elo, ehi, _dt = a
+            i = np.asarray(i)
+            j = np.asarray(j)
+            v = np.asarray(v)
+            # our zeroed sent copies target rows owned elsewhere; what
+            # remains nonzero on owned rows is neighbor contributions
+            keep = (ci.gids_to_lids(i) >= 0) & (v != 0)
+            if not keep.any():
+                return None
+            i, j, v = i[keep], j[keep], v[keep]
+            ebox = tuple(h - l for l, h in zip(elo, ehi))
+            c1 = np.unravel_index(i, ncs)
+            c2 = np.unravel_index(j, ncs)
+            pos = np.ravel_multi_index(
+                tuple(c - l for c, l in zip(c1, elo)), ebox
+            )
+            e = np.zeros(len(v), dtype=np.int64)
+            for d in range(dim):
+                de_d = c2[d].astype(np.int64) - c1[d]
+                check(
+                    bool(((de_d >= -1) & (de_d <= 1)).all()),
+                    "galerkin shell triplet outside the 3^d closure",
+                )
+                e = e * 3 + (de_d + 1)
+            np.add.at(out, (pos, e), v)
+            return None
+
+        map_parts(_scatter, coarse_rows.partition, accs, I2, J2, V2)
+
+    # ---- 2) geometric-shell column ghosts (sorted gids: add_gids then
+    # appends them in exactly the rank order the emission kernel uses)
+    def _ghosts(ci):
+        clo, chi = ci.box_lo, ci.box_hi
+        xlo = [max(0, c - 1) for c in clo]
+        xhi = [min(n, c + 1) for c, n in zip(chi, ncs)]
+        slabs = []
+        for d in range(dim):
+            for lo_d, hi_d in ((xlo[d], clo[d]), (chi[d], xhi[d])):
+                if lo_d >= hi_d:
+                    continue
+                ranges = [np.arange(xlo[k], xhi[k]) for k in range(dim)]
+                ranges[d] = np.arange(lo_d, hi_d)
+                mg = np.meshgrid(*ranges, indexing="ij")
+                slabs.append(
+                    np.ravel_multi_index(
+                        tuple(m.ravel() for m in mg), ncs
+                    )
+                )
+        if not slabs:
+            return np.empty(0, dtype=np.int64)
+        return np.unique(np.concatenate(slabs))
+
+    ghosts = map_parts(_ghosts, coarse_rows.partition)
+    cols = add_gids(coarse_rows, ghosts)
+
+    # ---- 3) fused CSR emission over the owned box
+    def _emit(ci, a, gg):
+        out, elo, ehi, dt = a
+        clo, chi = ci.box_lo, ci.box_hi
+        res = native.galerkin_emit(out, ncs, elo, ehi, clo, chi, gg, dt)
+        check(
+            res is not None,
+            "galerkin_emit declined after the eligibility check",
+        )
+        indptr, cols_l, vals = res
+        no = int(np.prod([h - l for l, h in zip(clo, chi)]))
+        return CSRMatrix(indptr, cols_l, vals, (no, no + len(gg)))
+
+    values = map_parts(_emit, coarse_rows.partition, accs, ghosts)
+    return PSparseMatrix(values, coarse_rows, cols)
+
+
+#: Boundary-distance margin of the classed collapse: rows/coarse points
+#: further than this from every grid edge are treated as one zone. The
+#: induction bound for the d-linear Galerkin family is ~ceil(M/2)+3,
+#: whose fixed point is 6 — 8 adds safety without changing the rep
+#: count meaningfully.
+_CLASSED_MARGIN = 8
+
+
+def _classed_collapse(ri, ci, M, nfs, ncs, flo, fhi, elo, ehi):
+    """O(reps + volume-copy) Galerkin collapse for boundary-classed
+    operators (gmg.py:358-476 of the JAX package). Precondition, VERIFIED exactly per
+    part: every owned fine row's 3^d grid-offset value signature is a
+    function of its per-dim boundary-distance zones
+    (planning.cpp:galerkin_classify_dim + the rep-gather compare below).
+    Given that, the accumulator row at coarse point c is determined by
+    the per-dim tuple (distance to grid lo/hi capped at _CLASSED_MARGIN,
+    distance to the part's ext-box lo/hi capped at 2): all fine rows a
+    coarse point draws on (support [2c-2, 2c+2]) then sit in identical
+    zones with identical interpolation parity/clamp and identical
+    part-ownership partiality. So only one REPRESENTATIVE coarse row per
+    zone tuple is collapsed (planning.cpp row-subset mode, rows in
+    ascending order — bit-identical partial sums to the full pass) and
+    the rest of the accumulator is a broadcast gather. Returns the
+    (esize, 3^d) accumulator or None (caller runs the full collapse)."""
+    dim = len(nfs)
+    fbox = [fhi[d] - flo[d] for d in range(dim)]
+    no = int(np.prod(fbox))
+    ebox = [ehi[d] - elo[d] for d in range(dim)]
+    esize = int(np.prod(ebox))
+    if no < 4096 or esize == 0:
+        return None  # rep machinery wouldn't beat the direct pass
+    if not (
+        hasattr(ci, "gids_to_lids")
+        and ci.num_oids == ri.num_oids
+    ):
+        return None
+    Mf = _CLASSED_MARGIN
+
+    # --- 1) per-row grid-offset classes + zone-uniformity verification
+    nh = M.shape[1] - no
+    if nh:
+        gg = np.asarray(ci.lid_to_gid[no:], dtype=np.int64)
+        gcoords = np.unravel_index(gg, tuple(nfs))
+        ghost_rel = np.stack(
+            [c - l for c, l in zip(gcoords, flo)], axis=1
+        )
+    else:
+        ghost_rel = np.zeros((0, dim), dtype=np.int64)
+    table, codes, ok = native.galerkin_classify(
+        M.indptr, M.indices, M.data, no, fbox, ghost_rel, 64
+    )
+    if not ok:
+        return None
+
+    def _zone_reps(coords_lo, coords_hi, n_glob, part_margin_lo,
+                   part_margin_hi):
+        """Per-coordinate zone ids over [coords_lo, coords_hi) plus the
+        first coordinate of each distinct zone: (rep_index_per_coord,
+        rep_coords). Zones: global-edge distances capped at Mf, part
+        (box) distances capped at the given margins."""
+        x = np.arange(coords_lo, coords_hi, dtype=np.int64)
+        z = (
+            np.minimum(x, Mf) * (4 * (Mf + 1) * 4)
+            + np.minimum(n_glob - 1 - x, Mf) * 16
+            + np.minimum(x - coords_lo, part_margin_lo) * 4
+            + np.minimum(coords_hi - 1 - x, part_margin_hi)
+        )
+        _, first, inv = np.unique(z, return_index=True, return_inverse=True)
+        return first[inv], x[np.sort(first)], first
+
+    # fine zone maps (values depend on global distance only)
+    fmaps = []
+    for d in range(dim):
+        rep_idx_of, _, _ = _zone_reps(flo[d], fhi[d], nfs[d], 0, 0)
+        fmaps.append(rep_idx_of)
+    C = codes.reshape(fbox)
+    if not np.array_equal(C, C[np.ix_(*fmaps)]):
+        return None  # not boundary-classed (e.g. variable coefficients)
+
+    # --- 2) coarse reps (global margins + part-partiality margins)
+    cmaps, creps = [], []
+    for d in range(dim):
+        rep_idx_of, reps, _ = _zone_reps(elo[d], ehi[d], ncs[d], 2, 2)
+        cmaps.append(rep_idx_of)
+        creps.append(reps)
+    n_rep = int(np.prod([len(r) for r in creps]))
+    if n_rep * 4 > esize:
+        return None  # too few repeated rows to pay for the gather
+
+    # --- 3) collapse the rep support only, then expand
+    sups = []
+    for d in range(dim):
+        f = np.unique(
+            np.concatenate([2 * creps[d] - 1, 2 * creps[d], 2 * creps[d] + 1])
+        )
+        sups.append(f[(f >= flo[d]) & (f < fhi[d])])
+    acc = native.galerkin3(
+        M.indptr, M.indices, M.data, no,
+        np.asarray(ci.lid_to_gid, dtype=np.int64),
+        nfs, flo, fhi, ncs, elo, ehi, sub_coords=sups,
+    )
+    if acc is None:
+        return None
+    ne = 3**dim
+    A_full = acc.reshape(tuple(ebox) + (ne,))
+    # cmaps[d] already holds, per coarse coordinate, the ext-box
+    # POSITION of its zone's representative (first occurrence)
+    out = np.ascontiguousarray(A_full[np.ix_(*cmaps)])
+    return out.reshape(esize, ne)
+
+
 def galerkin_cartesian(A: PSparseMatrix, nfs: Sequence[int], ncs: Sequence[int],
                        coarse_rows: PRange) -> PSparseMatrix:
     """Exact distributed A_c = Pᵀ A P for the Cartesian d-linear P
-    (gmg.py:530-560 of the JAX package, its generic route). P rows for
-    every fine lid of A's column range (owned and ghost) are recomputed
-    locally from grid arithmetic, so no P rows are exchanged; each part's
+    (gmg.py:479-645 of the JAX package). Where every part has box metadata
+    and the native stencil collapse (planning.cpp `galerkin3`, or the
+    classed collapse where the part's rows are boundary-classed) succeeds
+    everywhere, the coarse operator is
+    emitted without a COO (`_galerkin_fused`): only the O(surface) shell of
+    each part's extended-box accumulator rides the assembly exchange.
+    Parts the fused path declines take the accumulator's COO, and parts
+    without an accumulator the generic route: P rows for every fine lid of
+    A's column range (owned and ghost) recomputed locally from grid
+    arithmetic, so no P rows are exchanged; each part's
     Σ_{owned fine rows i} P[i,:]ᵀ (A P)[i,:] sums to the exact product
     because fine rows are disjointly owned, and the coarse triplets then
-    migrate to their row owners."""
+    migrate to their row owners. With `native.ENABLED` off every part
+    takes the generic route."""
+    from scipy.sparse import csr_matrix
+
     nfs = tuple(int(n) for n in nfs)
     ncs = tuple(int(n) for n in ncs)
+    dim = len(nfs)
     check(
         int(np.prod(ncs)) == coarse_rows.ngids,
         "galerkin_cartesian: coarse grid does not match coarse_rows",
     )
 
-    def _local(ri, ci, M):
-        from scipy.sparse import csr_matrix
+    def _acc_part(ri, ci, M):
+        """The native collapse's accumulator over the part's extended
+        coarse box, or None where the part lacks box metadata or the
+        operator leaves the 3^d closure (the classed collapse's
+        accumulator is the full pass's bit for bit)."""
+        if not native.available() or not (hasattr(ri, "box_lo") and ri.grid_shape == nfs):
+            return None
+        flo, fhi = ri.box_lo, ri.box_hi
+        elo = [max(0, (flo[d] - 1) // 2) for d in range(dim)]
+        ehi = [min(ncs[d], fhi[d] // 2 + 1) for d in range(dim)]
+        out = _classed_collapse(ri, ci, M, nfs, ncs, flo, fhi, elo, ehi)
+        if out is None:
+            out = native.galerkin3(
+                M.indptr, M.indices, M.data, ri.num_oids, np.asarray(ci.lid_to_gid, dtype=np.int64),
+                nfs, flo, fhi, ncs, elo, ehi,
+            )
+        if out is None:
+            return None
+        return out, tuple(elo), tuple(ehi), M.data.dtype
 
+    accs = map_parts(_acc_part, A.rows.partition, A.cols.partition, A.values)
+
+    def _fusable(a, ci):
+        # the coarse partition must be a box too, its owned box inside the
+        # part's extended box (emission walks owned rows; shell rows migrate)
+        if a is None or not (hasattr(ci, "box_lo") and ci.grid_shape == ncs):
+            return 0
+        _, elo, ehi, _ = a
+        no = int(np.prod([h - l for l, h in zip(ci.box_lo, ci.box_hi)]))
+        if no * 3**dim >= 2**31:  # the emission kernel's int32 capacity
+            return 0
+        return int(all(el <= cl and ch <= eh for el, eh, cl, ch in zip(elo, ehi, ci.box_lo, ci.box_hi)))
+
+    flags = map_parts(_fusable, accs, coarse_rows.partition)
+    if bool(np.all(np.asarray(gather_all(flags).part_values()[0]))):
+        return _galerkin_fused(accs, ncs, coarse_rows)
+
+    def _local_box(M, a):
+        """The accumulator's COO, for parts the fused path declines (mixed
+        eligibility, agglomerated coarse partitions)."""
+        out, elo, ehi, _dt = a
+        ebox = tuple(h - l for l, h in zip(elo, ehi))
+        # int32 coarse gids where they fit: the COO pipeline runs copy-free
+        gdt = np.int32 if int(np.prod(ncs)) < 2**31 else np.int64
+        I_out, J_out, V_out = [], [], []
+        for e in range(3**dim):
+            v = out[:, e]
+            nz = np.nonzero(v)[0]
+            if not len(nz):
+                continue
+            cc = np.unravel_index(nz, ebox)
+            de = _decode_offset(e, dim)
+            c1 = [c + l for c, l in zip(cc, elo)]
+            c2 = [c + d for c, d in zip(c1, de)]
+            I_out.append(np.ravel_multi_index(tuple(c1), ncs).astype(gdt))
+            J_out.append(np.ravel_multi_index(tuple(c2), ncs).astype(gdt))
+            V_out.append(v[nz])
+        if not I_out:
+            z = np.empty(0, dtype=gdt)
+            return z, z.copy(), np.empty(0, dtype=M.data.dtype)
+        # the fine operator's dtype (the f64 accumulator is internal)
+        return np.concatenate(I_out), np.concatenate(J_out), np.concatenate(V_out).astype(M.data.dtype, copy=False)
+
+    def _local(ri, ci, M, a):
+        if a is not None:
+            return _local_box(M, a)
         fg = np.asarray(ci.lid_to_gid, dtype=np.int64)
         lid = np.arange(len(fg), dtype=np.int64)
         li, pj, pv = _interp_rows(lid, fg, nfs, ncs)
@@ -138,8 +479,8 @@ def galerkin_cartesian(A: PSparseMatrix, nfs: Sequence[int], ncs: Sequence[int],
         T = (P_ext[: ri.num_oids].T @ Q).tocoo()  # local coarse x local coarse
         return cgid[T.row], cgid[T.col], T.data.astype(M.data.dtype, copy=False)
 
-    coo = map_parts(_local, A.rows.partition, A.cols.partition, A.values)
-    I, J, V = (map_parts(lambda c, k=k: c[k], coo) for k in range(3))
+    coo = map_parts(_local, A.rows.partition, A.cols.partition, A.values, accs)
+    I, J, V = (map_parts(lambda c, k=k: np.asarray(c[k]), coo) for k in range(3))
     return assemble_matrix_from_coo(I, J, V, coarse_rows)
 
 

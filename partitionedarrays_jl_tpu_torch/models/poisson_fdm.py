@@ -1,11 +1,14 @@
 """3-D (or N-D) Poisson finite-difference driver.
 
-The port's copy of `partitionedarrays_jl_tpu/models/poisson_fdm.py`
-through its generic COO assembly (`_assemble_stencil_coo`, poisson_fdm.py:352;
-the native structured fast path is not part of the port): a 7-point
-Laplacian on an N-D Cartesian grid, Dirichlet boundary conditions imposed as
-identity rows, assembled into a PSparseMatrix from per-part COO batches and
-solved with CG against a manufactured solution; and the shifted torus
+The port's copy of `partitionedarrays_jl_tpu/models/poisson_fdm.py`: a
+7-point Laplacian on an N-D Cartesian grid, Dirichlet boundary conditions
+imposed as identity rows, solved with CG against a manufactured solution.
+Box partitions assemble COO-free (`_try_stencil_fast`, poisson_fdm.py:150
+of the JAX package): each part's CSR straight from its box geometry and
+b = A x̂ in the same pass, by the port's native layer
+(`native.stencil_emit`), with the geometric ghost slabs as the column
+ghost layer; the generic COO assembly (`_assemble_stencil_coo`) takes the
+rest and every system with `native.STENCIL_FAST` off. And the shifted torus
 Laplacian of `assemble_poisson_periodic` (poisson_fdm.py:445), whose column
 ghosts are the wrapped face slabs. On the GPU backend the
 operator lowers to the coded-DIA kernels and the CG loop runs on the card.
@@ -17,7 +20,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .. import native
+from ..ops.sparse import CSRMatrix
 from ..parallel.backends import AbstractPData, map_parts
+from ..parallel.collectives import gather_all
 from ..parallel.prange import add_gids, cartesian_partition, no_ghost, p_cartesian_indices
 from ..parallel.psparse import PSparseMatrix
 from ..parallel.pvector import PVector
@@ -116,6 +122,108 @@ def _boundary_mask_on_iset(iset, ns) -> np.ndarray:
     return np.concatenate([owned, gm])
 
 
+def stencil_ghost_slabs(lo, hi, ns) -> np.ndarray:
+    """Sorted gids of the column ghost layer a Dirichlet-identity +-1
+    stencil touches from an owned box [lo, hi): per dimension d, the face
+    slab one cell outside the box, restricted to the coordinates where the
+    adjacent owned cell is grid-interior (boundary rows are identity: they
+    reach nobody). Slabs of different dimensions are disjoint (each lies
+    outside the box in its own dimension only), so a plain sort of their
+    concatenation is the sorted ghost set."""
+    dim = len(ns)
+    inter = [(max(l, 1), min(h, n - 1)) for l, h, n in zip(lo, hi, ns)]
+    slabs = []
+    for d in range(dim):
+        sides = []
+        if 1 <= lo[d] <= ns[d] - 2:  # the owned cell at lo[d] can be interior
+            sides.append(lo[d] - 1)
+        if 2 <= hi[d] <= ns[d] - 1:  # the owned cell at hi[d]-1 can be interior
+            sides.append(hi[d])
+        for coord in sides:
+            ranges = [np.arange(a, b) for a, b in inter]
+            ranges[d] = np.array([coord])
+            if any(len(rg) == 0 for rg in ranges):
+                continue
+            mg = np.meshgrid(*ranges, indexing="ij")
+            slabs.append(np.ravel_multi_index(tuple(m.ravel() for m in mg), ns))
+    if not slabs:
+        return np.empty(0, dtype=np.int64)
+    return np.sort(np.concatenate(slabs))
+
+
+def _try_stencil_fast(rows, ns, center, arm_coefs, dtype, decoupled, want_b=False):
+    """COO-free structured assembly (poisson_fdm.py:150-266 of the JAX
+    package): where every part is a Cartesian box within the int32
+    envelope, emit each part's owned-row CSR with local column ids
+    straight from the box geometry (planning.cpp `stencil_emit_dim`) and
+    build the column PRange from the geometric ghost slabs: no
+    volume-sized triplets, no gid -> lid passes, no compression. With
+    ``want_b`` the same pass evaluates b = A x̂ against the manufactured
+    field's per-dimension tables (the host's two-phase product's bits).
+    ``decoupled`` emits the `decouple_dirichlet`'d operator (couplings of
+    interior rows to boundary columns zeroed, pattern kept), whose b̂ is
+    then Â x̂ exactly. Returns ``(A, b_owned)`` (b_owned None without
+    ``want_b``), or None where ineligible: `native.STENCIL_FAST` or the
+    native layer off, more than 3 dimensions, another dtype than f32/f64,
+    a part without box metadata or past ``no * (2 dim + 1) < 2^31``.
+
+    ``native.PLAN_PROCS`` > 1 emits each part with that many spawned
+    workers over row slabs (`native/parallel_emit.py`, byte-identical);
+    a failure there raises (the JAX package warns and plans serially)."""
+    dim = len(ns)
+    if (
+        not native.STENCIL_FAST
+        or not native.available()
+        or dim > 3
+        or np.dtype(dtype).name not in ("float64", "float32")
+    ):
+        return None
+
+    def _ok(iset):
+        if not (hasattr(iset, "box_lo") and getattr(iset, "grid_shape", None) == ns):
+            return 0
+        return int(math.prod(iset.box_shape) * (2 * dim + 1) < 2**31)
+
+    flags = gather_all(map_parts(_ok, rows.partition))
+    if not bool(np.all(np.asarray(flags.part_values()[0]))):
+        return None
+    ghosts = map_parts(lambda i: stencil_ghost_slabs(i.box_lo, i.box_hi, ns), rows.partition)
+    cols = add_gids(rows, ghosts)
+    arm_vals = np.array([c for pair in arm_coefs for c in pair], dtype=np.float64)
+    xtab = (
+        np.concatenate([
+            np.sin(0.5 + (d + 1.0) * np.arange(ns[d], dtype=np.int64) / (ns[d] + 1.0))
+            for d in range(dim)
+        ])
+        if want_b
+        else None
+    )
+    procs = int(native.PLAN_PROCS)
+
+    def _emit(iset, gg):
+        res = None
+        if procs > 1:
+            from ..native.parallel_emit import stencil_emit_parallel
+
+            res = stencil_emit_parallel(
+                ns, iset.box_lo, iset.box_hi, center, arm_vals, gg, dtype, procs,
+                decouple=decoupled, xtab=xtab,
+            )
+        if res is None:
+            res = native.stencil_emit(
+                ns, iset.box_lo, iset.box_hi, center, arm_vals, gg, dtype, decouple=decoupled, xtab=xtab
+            )
+        check(res is not None, "stencil_emit declined after the eligibility check")
+        no = math.prod(iset.box_shape)
+        M = CSRMatrix(res[0], res[1], res[2], (no, no + len(gg)))
+        return M, (res[3] if want_b else None)
+
+    out = map_parts(_emit, rows.partition, ghosts)
+    values = map_parts(lambda o: o[0], out)
+    b_owned = map_parts(lambda o: o[1], out) if want_b else None
+    return PSparseMatrix(values, rows, cols), b_owned
+
+
 def assemble_cartesian_stencil(
     parts: AbstractPData,
     ns: Sequence[int],
@@ -131,19 +239,37 @@ def assemble_cartesian_stencil(
     b = A @ x̂ and x0 carrying the exact boundary values. ``dtype``
     assembles directly in the target precision. ``decoupled`` returns the
     `decouple_dirichlet`'d system instead (interior -> boundary couplings
-    zeroed, pattern kept, b made consistent): the JAX package's COO path."""
+    zeroed, pattern kept, b made consistent).
+
+    Box partitions take the COO-free assembly (`_try_stencil_fast`), which
+    emits A and b (Â and b̂ = Â x̂ when decoupled) in one pass and numbers
+    each part's ghost columns in gid order; the COO route
+    (`_assemble_stencil_coo`, then b by `manufactured_rhs` and
+    `decouple_dirichlet`) numbers them in first-touch order and takes
+    every other partition, and every system with `native.STENCIL_FAST`
+    off. The two routes' global triplets, b and x̂ are the same values."""
     ns = tuple(int(n) for n in ns)
     check(len(arm_coefs) == len(ns), "one (minus, plus) coefficient pair per dim")
     rows = cartesian_partition(parts, ns, no_ghost)
-    A = _assemble_stencil_coo(parts, rows, ns, center, arm_coefs, dtype)
+    fast = _try_stencil_fast(rows, ns, center, arm_coefs, dtype, decoupled, want_b=True)
+    if fast is not None:
+        A, b_owned = fast
+    else:
+        A = _assemble_stencil_coo(parts, rows, ns, center, arm_coefs, dtype)
     cols = A.cols
     xe_vals = map_parts(
         lambda i: _manufactured_on_iset(i, ns).astype(dtype, copy=False),
         cols.partition,
     )
     x_exact = PVector(xe_vals, cols)
-    b = manufactured_rhs(A, x_exact)
-    if decoupled:
+    if fast is not None:
+        # b from the emission, on the (ghost-free) rows as the COO route's
+        # product puts it (the JAX package's lives on the cols, its ghost
+        # slots 0: the same owned values)
+        b = PVector(b_owned, rows)
+    else:
+        b = manufactured_rhs(A, x_exact)
+    if decoupled and fast is None:
         from .solvers import decouple_dirichlet
 
         A, b = decouple_dirichlet(A, b)

@@ -58,6 +58,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops.sparse import CSRMatrix, compresscoo
 from ..parallel.backends import map_parts
 from ..parallel.prange import PRange, oids_are_equal
@@ -568,13 +569,20 @@ def jacobi_preconditioner(A: PSparseMatrix) -> PVector:
     minv = PVector.full(0.0, A.cols, dtype=A.dtype)
 
     def per_part(iset, M, mv):
-        d = np.zeros(iset.num_oids, dtype=M.data.dtype)
-        r = M.row_of_nz()
-        hits = np.nonzero(M.indices == r)[0]
-        d[r[hits]] = M.data[hits]
+        # the native diagonal scan (solvers.py:1032 of the JAX package)
+        d = native.csr_diag(M.indptr, M.indices, M.data, iset.num_oids)
+        if d is None:
+            d = np.zeros(iset.num_oids, dtype=M.data.dtype)
+            r = M.row_of_nz()
+            hits = np.nonzero((M.indices == r) & (r < iset.num_oids))[0]
+            d[r[hits]] = M.data[hits]
         _write_owned(iset, mv, 1.0 / np.where(d == 0, 1.0, d))
 
-    map_parts(per_part, A.cols.partition, A.owned_owned_values, minv.values)
+    # diagonal entries sit at col == row < num_oids, so the full local CSR
+    # answers directly where it has no ghost rows, and the owned/ghost
+    # block split (a second copy of the operator) is not forced
+    no_ghost_rows = all(m.shape[0] == i.num_oids for m, i in zip(A.values.part_values(), A.rows.partition.part_values()))
+    map_parts(per_part, A.cols.partition, A.values if no_ghost_rows else A.owned_owned_values, minv.values)
     return minv
 
 
@@ -1551,8 +1559,12 @@ def block_jacobi_ilu(A: PSparseMatrix, drop_tol=None, fill_factor=10):
 def ic0_lower(indptr, cols, a_vals, n: int):
     """Zero-fill incomplete Cholesky of a lower triangle (diagonal last in
     each row, columns sorted): ``(l_vals, -1)``, or ``(None, i)`` on a
-    non-positive pivot at row i. The port's copy of the JAX package's NumPy
-    form (native/__init__.py:882-925)."""
+    non-positive pivot at row i: the native factorisation (planning.cpp
+    `pa_ic0_f64`, solvers.py:1145 of the JAX package), or with
+    `native.ENABLED` off its plain version, the port's copy of the JAX
+    package's NumPy form (native/__init__.py:882-925)."""
+    if native.available():
+        return native.ic0(indptr, cols, a_vals, n)
     ip = np.asarray(indptr, dtype=np.int64)
     cc = np.asarray(cols, dtype=np.int64)
     av = np.asarray(a_vals, dtype=np.float64)

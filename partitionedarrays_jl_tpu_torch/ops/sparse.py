@@ -1,8 +1,9 @@
 """Local sparse kernels (L6), host side.
 
 The port's copy of `partitionedarrays_jl_tpu/ops/sparse.py` (reference:
-src/SparseUtils.jl) with the NumPy paths only: the host planning format is
-**CSR**; **ELL** (rows padded to a uniform count) is the form the boundary
+src/SparseUtils.jl): the host planning format is **CSR**, compressed and
+multiplied by the port's native layer (`native/planning.cpp`) where it is
+on, by the NumPy paths below where it is off (`native.ENABLED`); **ELL** (rows padded to a uniform count) is the form the boundary
 block A_oh takes on the card, the owned block of the ELL lowering, and the
 order of strict mode's host SpMV (`csr_spmv(strict=True)`). The banded
 owned block runs as the coded-DIA kernels of `ops/dia.py`, the others as
@@ -14,6 +15,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE
 
@@ -134,6 +136,15 @@ def compresscoo(
     if len(I):
         check(I.min() >= 0 and I.max() < m, "row index out of bounds")
         check(J.min() >= 0 and J.max() < n, "col index out of bounds")
+    if combine is None or combine is np.add:
+        # the native compression: one counting pass, one scatter and a
+        # stable sort a row, each duplicate group folded left to right
+        # (sparse.py:103 of the JAX package); the NumPy path below is
+        # its plain version, the same bits
+        res = native.coo_to_csr(I, J, V, m, n)
+        if res is not None:
+            indptr, cols, vals = res
+            return CSRMatrix(indptr, cols, vals, (m, n))
     if len(I) and I.max() < (2**62) // max(n, 1):
         # single fused key, sorted with NumPy's run-adaptive stable sort:
         # assembled COO batches arrive as concatenated pre-sorted stencil
@@ -190,6 +201,14 @@ def csr_spmv(A: CSRMatrix, x: np.ndarray, y: Optional[np.ndarray] = None,
     NumPy implementation detail no kernel reproduces."""
     check(len(x) >= A.shape[1], "x too short for A")
     xv = np.asarray(x)
+    if strict and A.nnz:
+        rowsum = _strict_native(A, xv)
+        if rowsum is not None:
+            if y is None:
+                return alpha * rowsum
+            y *= beta
+            y += alpha * rowsum
+            return y
     if strict:
         if A._ell is None:
             A._ell = ELLMatrix.from_csr(A)
@@ -212,6 +231,36 @@ def csr_spmv(A: CSRMatrix, x: np.ndarray, y: Optional[np.ndarray] = None,
     y *= beta
     y += alpha * rowsum
     return y
+
+
+def _strict_native(A: CSRMatrix, xv: np.ndarray) -> Optional[np.ndarray]:
+    """`csr_spmv(strict=True)`'s row sums by the native fold
+    (planning.cpp `csr_spmv_impl`, sparse.py:223 of the JAX package), or
+    None where the layer is off or the dtypes differ. The native fold
+    starts from 0 and stops at a row's last entry; the ELL fold starts from
+    the first product and adds ``0 * x[0]`` for every pad slot. The two
+    agree wherever a row's sum is nonzero and x[0] is finite; rows whose
+    sum is zero (a signed zero may differ) take the ELL fold, and a
+    non-finite x[0] makes every padded row NaN, as the ELL fold does."""
+    if xv.dtype != A.data.dtype:
+        return None
+    rowsum = np.empty(A.shape[0], dtype=A.dtype)
+    if not native.csr_spmv(A.indptr, A.indices, A.data, xv, rowsum):
+        return None
+    lengths = np.diff(A.indptr)
+    pad = np.zeros(1, dtype=A.dtype)[0] * xv[0] if len(xv) else A.dtype.type(0)
+    if np.isnan(pad):
+        rowsum[lengths < lengths.max()] = np.nan
+    zero = np.flatnonzero(rowsum == 0)
+    if len(zero):
+        if A._ell is None:
+            A._ell = ELLMatrix.from_csr(A)
+        V, C = A._ell.vals[zero], A._ell.cols[zero]
+        acc = V[:, 0] * xv[C[:, 0]]
+        for l in range(1, V.shape[1]):
+            acc = acc + V[:, l] * xv[C[:, l]]
+        rowsum[zero] = acc
+    return rowsum
 
 
 class ELLMatrix:

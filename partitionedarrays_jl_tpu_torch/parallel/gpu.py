@@ -67,8 +67,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..ops import dia
-from ..ops.sparse import ELLMatrix
+from ..ops.sparse import CSRMatrix, ELLMatrix
 from ..telemetry import comms as tcomms
 from ..utils.helpers import check, krylov_info, warn_tol_below_floor
 from ..utils.table import INDEX_DTYPE
@@ -449,8 +450,9 @@ class DeviceVector:
 
 
 # ---------------------------------------------------------------------------
-# band analysis (own copies of the NumPy paths of partitionedarrays_jl_tpu/
-# native/__init__.py: band_offsets, unique_small, row_classes)
+# band analysis: the plain versions of the native layer's band_offsets,
+# unique_small and row_classes, which `DeviceMatrix._detect_dia` takes
+# where `native.ENABLED` is off
 # ---------------------------------------------------------------------------
 
 
@@ -560,9 +562,27 @@ class DeviceMatrix:
         noids = np.array([i.num_oids for i in isets], dtype=np.int64)
         no_max = int(noids.max()) if P else 0
         dt = A.dtype
-        oo = A.owned_owned_values.part_values()
-        oh = A.owned_ghost_values.part_values()
-        det = None if strict else self._detect_dia(A, oo, P, noids, no_max)
+        det = oo = oh = None
+        full = A.values.part_values()
+        if not strict and native.available() and A._blocks is None and all(
+            full[p].shape[0] == int(noids[p]) for p in range(P)
+        ):
+            # no-split analysis (tpu.py:1368-1406): the band read straight
+            # off each part's full CSR, its sorted ghost tail skipped by
+            # column limit, and only the surface-sized A_oh extracted; the
+            # owned/ghost block split would copy the whole operator
+            det = self._detect_dia(A, full, P, noids, no_max, col_limits=noids, fused_only=True)
+            if det is not None:
+                oh = []
+                for p in range(P):
+                    M = full[p]
+                    ip_hi, c_hi, v_hi = native.csr_extract_hi(M.indptr, M.indices, M.data, M.shape[0], int(noids[p]))
+                    oh.append(CSRMatrix(ip_hi, c_hi, v_hi, (M.shape[0], M.shape[1] - int(noids[p]))))
+        if det is None:
+            oo = A.owned_owned_values.part_values()
+            oh = A.owned_ghost_values.part_values()
+            if not strict:
+                det = self._detect_dia(A, oo, P, noids, no_max)
         self.strict = bool(strict)
         #: no ``lowering`` changes this staging: a band (or, set by
         #: `_stage_irregular`, a rectangular A_oo, which takes ELL)
@@ -573,7 +593,7 @@ class DeviceMatrix:
         self.col_layout = device_layout(A.cols, box)
         check(self.row_layout.no_max == no_max, "rows layout mismatch")
         self.col_plan = device_exchange_plan(A.cols, backend, box=box)
-        self.flops_per_spmv = 2 * sum(oo[p].nnz + oh[p].nnz for p in range(P))
+        self.flops_per_spmv = 2 * sum(full[p].nnz for p in range(P))
 
         self.coded = self.stream_vals = self.stream_no = self.stream_form = None
         self.dia_kk = self.dia_code_row = self.dia_cls_pattern = None
@@ -596,7 +616,9 @@ class DeviceMatrix:
             # neighbouring values
             self.dia_mode = "stream"
             self.stream_vals = torch.from_numpy(
-                np.ascontiguousarray(det["dia"].astype(dt))
+                np.ascontiguousarray(self._dense_dia(A.owned_owned_values.part_values(), P, no_max,
+                                                    det["offsets"]).astype(dt))
+                if det["dia"] is None else np.ascontiguousarray(det["dia"].astype(dt))
             ).to(dev)
             self.stream_no = torch.from_numpy(noids.astype(np.int32)).to(dev)
             # the kernel's form, by shape (ops/dia.py:stream_form)
@@ -624,6 +646,18 @@ class DeviceMatrix:
         codes = np.zeros((P, n_streams, no_max), dtype=np.uint8)
         if cls_uniq is not None:
             codes[:, 0, :] = cls_ids
+        elif dia_ is None:
+            # the fused analysis: a diagonal's codes through the class ->
+            # code map of its few classes (dia[p, d, r] is
+            # cls_tables[p][cls_codes[p, r], d]; tpu.py:1629-1651); rows
+            # past a part's owned count stay code 0, masked by `no`
+            for p in range(P):
+                n_o = int(noids[p])
+                for j, d in enumerate(coded):
+                    u = uniq[p][d]
+                    if len(u):
+                        m_ = np.clip(np.searchsorted(u, det["cls_tables"][p][:, d]), 0, len(u) - 1).astype(np.uint8)
+                        codes[p, j, :n_o] = m_[det["cls_codes"][p, :n_o]]
         else:
             for p in range(P):
                 for j, d in enumerate(coded):
@@ -779,13 +813,94 @@ class DeviceMatrix:
             self.abft_w = torch.from_numpy(w).to(self.backend.device)
         return self.abft_w
 
+    #: row-class cap of the fused band analysis (tpu.py:1349 `_CLS_CAP`):
+    #: an analysis cap only; the row-class compression still takes at
+    #: most CODE_MAX_VALUES classes
+    _CLS_CAP = 64
+
     @classmethod
-    def _detect_dia(cls, A, oo, P, noids, no_max):
-        """Band and class analysis of A_oo (tpu.py:_detect_dia, dense-
-        diagonal path): None unless A_oo is a square band of at most
-        DIA_MAX_OFFSETS diagonals; else the per-diagonal values, their
-        distinct values, and the row-class compression when it removes
-        code streams (>= 3 coded diagonals, <= CODE_MAX_VALUES classes)."""
+    def _analyze_dia_classes(cls, oo, P, noids, no_max, offsets, col_limits=None):
+        """The band analysis without the dense diagonals (tpu.py:2115-2204):
+        one native pass a part classifies the rows by their tuple of
+        diagonal values (planning.cpp `dia_classify_impl`, the classes and
+        first-touch order of `dia_fill` + `row_classes`); the codebooks,
+        the coded set and the row-class compression all come from the
+        small class tables, so the (P, D, no_max) diagonals are never
+        built. Returns the analysis with ``det["dia"] = None``, or None
+        where it does not apply (native off, more than `_CLS_CAP`
+        classes, a diagonal over CODE_MAX_VALUES values), and the caller
+        runs the dense path, which also serves the streaming staging."""
+        if not native.available():
+            return None
+        D = len(offsets)
+        off_arr = np.array(offsets)
+        KMAX = cls.CODE_MAX_VALUES
+        tables = []
+        codes_all = np.zeros((P, no_max), dtype=np.uint8)
+        for p in range(P):
+            M = oo[p]
+            n_o = int(noids[p])
+            if M.nnz:
+                t, c, ok = native.dia_classify(
+                    M.indptr, M.indices, M.data, M.shape[0], off_arr, cls._CLS_CAP,
+                    col_limit=int(col_limits[p]) if col_limits is not None else 2**31,
+                )
+                if not ok:
+                    return None
+                tables.append(t)
+                codes_all[p, :n_o] = c
+            else:
+                tables.append(np.zeros((1, D)))
+        uniq = [[np.unique(tables[p][:, d]) for d in range(D)] for p in range(P)]
+        kk = tuple(max((len(uniq[p][d]) for p in range(P)), default=1) or 1 for d in range(D))
+        if max(kk) > KMAX:
+            return None  # the streaming staging needs the dense diagonals
+        code_row, coded = [], []
+        for d in range(D):
+            if kk[d] > 1:
+                code_row.append(len(coded))
+                coded.append(d)
+            else:
+                code_row.append(-1)
+        cls_uniq = cls_ids = None
+        if len(coded) >= 3 and all(len(t) <= KMAX for t in tables):
+            cls_uniq, cls_ids = tables, codes_all
+            n_class = max((len(t) for t in tables), default=1) or 1
+            kk = tuple(n_class if kk[d] > 1 else 1 for d in range(D))
+            code_row = [0 if c >= 0 else -1 for c in code_row]
+        return {
+            "offsets": offsets, "dia": None, "uniq": uniq, "kk": kk,
+            "code_row": code_row, "coded": coded, "Dc": len(coded),
+            "coded_ok": True, "cls_uniq": cls_uniq, "cls_ids": cls_ids,
+            "cls_tables": tables, "cls_codes": codes_all,
+        }
+
+    @staticmethod
+    def _dense_dia(oo, P, no_max, offsets):
+        """The dense per-diagonal values (P, D, no_max) float64 of the A_oo
+        blocks: entry (r, r+o) of part p on diagonal o, absent entries 0
+        (the native fill where the layer is on, tpu.py:2286-2298)."""
+        off_arr = np.array(offsets)
+        dia_ = np.zeros((P, len(offsets), no_max))
+        for p in range(P):
+            M = oo[p]
+            if M.nnz and not native.dia_fill(M.indptr, M.indices, M.data, M.shape[0], off_arr, dia_[p]):
+                r = M.row_of_nz()
+                d = np.searchsorted(off_arr, M.indices.astype(np.int64) - r)
+                dia_[p, d, r] = M.data
+        return dia_
+
+    @classmethod
+    def _detect_dia(cls, A, oo, P, noids, no_max, col_limits=None, fused_only=False):
+        """Band and class analysis of A_oo (tpu.py:2206-2342): None unless
+        A_oo is a square band of at most DIA_MAX_OFFSETS diagonals; else
+        the per-diagonal distinct values and the row-class compression when
+        it removes code streams (>= 3 coded diagonals, <= CODE_MAX_VALUES
+        classes). With the native layer on, the fused analysis
+        (`_analyze_dia_classes`, ``det["dia"]`` None) comes first; the
+        dense diagonals (``det["dia"]``) serve the rest. ``col_limits`` reads each part's full CSR in
+        ``oo``, its ghost tail skipped (the no-split lowering), and then
+        ``fused_only`` declines where the fused analysis does."""
 
         def _oids_eq(ri, ci):
             if (
@@ -801,11 +916,18 @@ class DeviceMatrix:
             for ri, ci in zip(A.rows.partition.part_values(), A.cols.partition.part_values())
         ):
             return None
+        on = native.available()
         offs = set()
         for p in range(P):
             M = oo[p]
             if M.nnz:
-                u, ok = band_offsets(M.indptr, M.indices, M.shape[0], cls.DIA_MAX_OFFSETS)
+                if on:
+                    u, ok = native.band_offsets(
+                        M.indptr, M.indices, M.shape[0], cls.DIA_MAX_OFFSETS,
+                        col_limit=int(col_limits[p]) if col_limits is not None else 2**31,
+                    )
+                else:
+                    u, ok = band_offsets(M.indptr, M.indices, M.shape[0], cls.DIA_MAX_OFFSETS)
                 if not ok:
                     return None
                 offs.update(u.tolist())
@@ -813,22 +935,17 @@ class DeviceMatrix:
             return None
         offsets = tuple(sorted(offs))
         D = len(offsets)
-        off_arr = np.array(offsets)
-        # entry (r, r+o) of part p goes to diagonal o; absent entries are 0
-        dia_ = np.zeros((P, D, no_max))
-        for p in range(P):
-            M = oo[p]
-            if M.nnz:
-                r = M.row_of_nz()
-                d = np.searchsorted(off_arr, M.indices.astype(np.int64) - r)
-                dia_[p, d, r] = M.data
+        det = cls._analyze_dia_classes(oo, P, noids, no_max, offsets, col_limits=col_limits)
+        if det is not None or fused_only:
+            return det
+        dia_ = cls._dense_dia(oo, P, no_max, offsets)
         KMAX = cls.CODE_MAX_VALUES
         uniq = []
         for p in range(P):
             n_o = int(noids[p])
             row = []
             for d in range(D):
-                u, ok = unique_small(dia_[p, d, :n_o], KMAX)
+                u, ok = (native.unique_small if on else unique_small)(dia_[p, d, :n_o], KMAX)
                 row.append(u if ok else np.arange(KMAX + 1, dtype=float))
             uniq.append(row)
         kk = tuple(max((len(uniq[p][d]) for p in range(P)), default=1) or 1 for d in range(D))
@@ -845,7 +962,9 @@ class DeviceMatrix:
             cls_uniq, cls_ids, n_class = [], np.zeros((P, no_max), np.uint8), 1
             for p in range(P):
                 n_o = int(noids[p])
-                u, inv, ok = row_classes(dia_[p], n_o, KMAX)
+                # first-touch class order natively, lexicographic in the
+                # plain version: both select the same values
+                u, inv, ok = (native.row_classes if on else row_classes)(dia_[p], n_o, KMAX)
                 if not ok:
                     cls_uniq = cls_ids = None
                     break

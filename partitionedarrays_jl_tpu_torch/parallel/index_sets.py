@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE
 
@@ -402,6 +403,15 @@ class CartesianIndexSet(IndexSet):
         gids = np.ascontiguousarray(gids).ravel()
         out = np.full(gids.shape, -1, dtype=INDEX_DTYPE)
         ng = math.prod(self.grid_shape)
+        # the native layer answers both the owned box and the ghost tail
+        # in one pass each (index_sets.py:406-433 of the JAX package)
+        if native.box_gids_to_lids(gids, self.grid_shape, self.box_lo, self.box_hi, out):
+            sorted_gids, lid_of = self._index()
+            if len(sorted_gids):
+                native.lookup_sorted(gids, sorted_gids, lid_of.astype(np.int32, copy=False), out)
+            if missing_to != -1:
+                out[out < 0] = missing_to
+            return out.reshape(shape)
         owned = (gids >= 0) & (gids < ng)
         if self.box_shape == self.grid_shape:
             # the box is the whole grid: the owned lid is the gid

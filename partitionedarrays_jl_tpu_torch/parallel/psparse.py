@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops.sparse import CSRMatrix, compresscoo, csr_block, csr_spmv, nzindex
 from ..utils.helpers import check
 from ..utils.table import INDEX_DTYPE, Table
@@ -109,6 +110,22 @@ class PSparseMatrix:
                     "PSparseMatrix blocks require owned-first lid layouts",
                 )
                 no_r, no_c = ri.num_oids, ci.num_oids
+                nh_c = A.shape[1] - no_c
+                if no_r == A.shape[0]:
+                    # no ghost rows (an assembled operator): one native
+                    # routing pass gives oo and oh together (psparse.py:121
+                    # of the JAX package)
+                    halves = native.csr_split_by_col(A.indptr, A.indices, A.data, no_r, no_c)
+                    if halves is not None:
+                        (ipo, co, vo), (iph, ch, vh) = halves
+                        z = np.zeros(1, dtype=INDEX_DTYPE)
+                        e = np.empty(0, dtype=INDEX_DTYPE)
+                        return {
+                            "oo": CSRMatrix(ipo, co, vo, (no_r, no_c)),
+                            "oh": CSRMatrix(iph, ch, vh, (no_r, nh_c)),
+                            "ho": CSRMatrix(z, e, np.empty(0, dtype=A.data.dtype), (0, no_c)),
+                            "hh": CSRMatrix(z.copy(), e.copy(), np.empty(0, dtype=A.data.dtype), (0, nh_c)),
+                        }
                 o_rows = np.arange(no_r, dtype=INDEX_DTYPE)
                 h_rows = np.arange(no_r, A.shape[0], dtype=INDEX_DTYPE)
                 return {
@@ -285,15 +302,23 @@ def assemble_coo(
     row this part owns stay; the rest ship along the row-halo graph and
     are appended on the owner, with the shipped local copies zeroed.
     Returns new (I, J, V) PDatas in global numbering."""
+    lids = map_parts(lambda ri, i: ri.gids_to_lids(np.asarray(i, dtype=GID_DTYPE)), rows.partition, I)
+    out = _migrate_coo(I, J, V, rows, lids)
+    return tuple(map_parts(lambda o, k=k: o[k], out) for k in range(3))
+
+
+def _migrate_coo(I, J, V, rows: PRange, lids: AbstractPData) -> AbstractPData:
+    """`assemble_coo` on triplets whose row lids on ``rows`` are known:
+    per part ``(i, j, v, keep)``, ``keep`` the mask of the part's own
+    triplets that stay (the received ones follow them)."""
     rex = rows.exchanger
 
-    def _split(ri: AbstractIndexSet, prcv, i, j, v):
+    def _split(ri: AbstractIndexSet, prcv, i, j, v, lid):
         i = np.asarray(i, dtype=GID_DTYPE)
         j = np.asarray(j, dtype=GID_DTYPE)
         v = np.asarray(v)
-        lids = ri.gids_to_lids(i)
-        check((lids >= 0).all(), "assemble_coo: triplet row is not a local row")
-        owner = ri.lid_to_part[lids]
+        check((lid >= 0).all(), "assemble_coo: triplet row is not a local row")
+        owner = ri.lid_to_part[lid]
         keep = owner == ri.part
         rows_i, rows_j, rows_v = [], [], []
         for q in np.asarray(prcv):
@@ -305,10 +330,10 @@ def assemble_coo(
             Table.from_rows(rows_i) if rows_i else Table.empty(GID_DTYPE),
             Table.from_rows(rows_j) if rows_j else Table.empty(GID_DTYPE),
             Table.from_rows(rows_v) if rows_v else Table.empty(v.dtype),
-            i, j, np.where(keep, v, 0),
+            i, j, np.where(keep, v, 0), keep,
         )
 
-    stay = map_parts(_split, rows.partition, rex.parts_rcv, I, J, V)
+    stay = map_parts(_split, rows.partition, rex.parts_rcv, I, J, V, lids)
     rcv = [
         exchange(map_parts(lambda s, k=k: s[k], stay), rex.parts_snd, rex.parts_rcv)
         for k in range(3)
@@ -320,10 +345,28 @@ def assemble_coo(
             np.concatenate([s[3], rit.data[:n]]),
             np.concatenate([s[4], rjt.data[:n]]),
             np.concatenate([s[5], rvt.data[:n]]),
+            s[6],
         )
 
-    out = map_parts(_append, stay, *rcv)
-    return tuple(map_parts(lambda o, k=k: o[k], out) for k in range(3))
+    return map_parts(_append, stay, *rcv)
+
+
+def _lids_with_ghosts(base: PRange, G: AbstractPData):
+    """``base`` extended by the ghosts of the gids G (`add_gids`), and the
+    lids of G on it, each gid mapped once over the batch: the misses of
+    that one pass are the only gids `add_gids` and the second lookup see
+    (first-touch ghost order is that of the misses, so unchanged)."""
+    l0 = map_parts(lambda iset, g: iset.gids_to_lids(np.asarray(g).ravel()), base.partition, G)
+    ext = add_gids(base, map_parts(lambda g, l: np.asarray(g).ravel()[l < 0], G, l0))
+
+    def _fill(iset, g, l):
+        miss = l < 0
+        if miss.any():
+            l = l.copy()
+            l[miss] = iset.gids_to_lids(np.asarray(g).ravel()[miss])
+        return l
+
+    return ext, map_parts(_fill, ext.partition, G, l0)
 
 
 def assemble_matrix_from_coo(
@@ -334,18 +377,30 @@ def assemble_matrix_from_coo(
     owners (`assemble_coo`), keep those on owned rows, discover the column
     ghost layer from the kept column gids, and compress. ``rows0`` must be
     ghost-free; the result's cols are ``cols0`` (rectangular operators) or
-    ``rows0``, extended by the discovered ghosts."""
-    rows = add_gids(rows0, I)
-    I2, J2, V2 = assemble_coo(I, J, V, rows)
+    ``rows0``, extended by the discovered ghosts.
 
-    def _keep_owned(iset, i, j, v):
-        own = iset.gids_to_lids(np.asarray(i)) >= 0
-        return np.asarray(i)[own], np.asarray(j)[own], np.asarray(v)[own]
+    Every batch of gids is mapped to lids once and the lids reused: the
+    row gids for the ghost discovery, the migration's owners, the owned
+    filter and the renumbering, the column gids for their ghost discovery
+    and renumbering; only the received triplets (surface-sized) are looked
+    up again. The result is that of the four row and two column passes it
+    replaces, bit for bit."""
+    rows, li = _lids_with_ghosts(rows0, I)
+    out = _migrate_coo(I, J, V, rows, li)
 
-    kept = map_parts(_keep_owned, rows0.partition, I2, J2, V2)
-    I2, J2, V2 = (map_parts(lambda k_, k=k: k_[k], kept) for k in range(3))
-    cols = add_gids(rows0 if cols0 is None else cols0, J2)
-    return PSparseMatrix.from_coo(I2, J2, V2, rows0, cols, ids="global")
+    def _keep_owned(iset, o, l):
+        i, j, v, keep = o
+        n = len(keep)
+        # own triplets: the owned rows, whose lids on rows0 are those on
+        # rows (owned first); received ones: looked up on rows0
+        lid = np.concatenate([np.where(keep, l, -1), iset.gids_to_lids(i[n:])])
+        own = lid >= 0
+        return lid[own], j[own], v[own]
+
+    kept = map_parts(_keep_owned, rows0.partition, out, li)
+    LI, J2, V2 = (map_parts(lambda k_, k=k: k_[k], kept) for k in range(3))
+    cols, LJ = _lids_with_ghosts(rows0 if cols0 is None else cols0, J2)
+    return PSparseMatrix.from_coo(LI, LJ, V2, rows0, cols, ids="local")
 
 
 def exchange_coo(

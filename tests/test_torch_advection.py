@@ -4,10 +4,11 @@ solve on both port backends (the JAX package's `tests/test_advection_fv.py`).
 
 * `assemble_advection_fv` bit for bit: the gathered CSR (indptr, indices,
   values), b, x̂ and x0 on (8,8)/(2,2) with velocity (2, -1) and on
-  (10,10,6)/(2,2,2) with the default velocity. The JAX package assembles
-  on its COO path (``PA_TPU_STENCIL_FAST=0``, the path the port has): its
-  native box path numbers the ghost columns in another order, which
-  reorders the A_oh terms each row of b folds.
+  (10,10,6)/(2,2,2) with the default velocity, on both routes: the port's
+  COO route (``native.STENCIL_FAST`` off) against the JAX package's
+  (``PA_TPU_STENCIL_FAST=0``), and the port's COO-free box route against
+  the JAX package's (``-fast``). The two routes number the ghost columns
+  in other orders, which reorders the A_oh terms each row of b folds.
 * The operator is nonsymmetric and weakly diagonally dominant.
 * `advection_fv_driver` at 12^2 on (2,2) and (4,1): converged, error <
   1e-5 (test_advection_fv.py:23-31), on the port's sequential backend and
@@ -22,6 +23,7 @@ import pytest
 import partitionedarrays_jl_tpu as pa
 import partitionedarrays_jl_tpu_torch as pt
 from partitionedarrays_jl_tpu.models import advection_fv as jax_adv
+from partitionedarrays_jl_tpu_torch import native
 from partitionedarrays_jl_tpu_torch.models.solvers import _dense
 from partitionedarrays_jl_tpu_torch.parallel.gpu import GPUBackend
 
@@ -39,10 +41,15 @@ def _assembled(parts, m, assemble, ns, velocity):
     return [_bits(M.indptr), _bits(M.indices), _bits(M.data)] + [_bits(m.gather_pvector(v)) for v in (b, xe, x0)]
 
 
-@pytest.mark.parametrize("ns,grid,velocity", [((8, 8), (2, 2), (2.0, -1.0)), ((10, 10, 6), (2, 2, 2), None)],
-                         ids=["8x8/2x2", "10x10x6/2^3"])
-def test_assemble_advection_fv_bitwise(monkeypatch, ns, grid, velocity):
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+_CASES = [((8, 8), (2, 2), (2.0, -1.0), "8x8/2x2"), ((10, 10, 6), (2, 2, 2), None, "10x10x6/2^3")]
+
+
+@pytest.mark.parametrize("ns,grid,velocity,fast",
+                         [pytest.param(n, g, v, False, id=i) for n, g, v, i in _CASES]
+                         + [pytest.param(n, g, v, True, id=f"{i}-fast") for n, g, v, i in _CASES])
+def test_assemble_advection_fv_bitwise(monkeypatch, ns, grid, velocity, fast):
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    monkeypatch.setattr(native, "STENCIL_FAST", fast)
     want = pa.prun(_assembled, pa.sequential, grid, pa, jax_adv.assemble_advection_fv, ns, velocity)
     for be in (pt.sequential, CPU):
         assert pt.prun(_assembled, be, grid, pt, pt.assemble_advection_fv, ns, velocity) == want

@@ -309,6 +309,35 @@ def test_stacked_parts_cg_matches_sequential():
     assert abs(err_g - err_s) <= 1e-12
 
 
+def test_fast_route_48_cube_cg_on_the_card(monkeypatch):
+    """The COO-free 48^3 f64 (2,2,2) system (chip_smoke.py's phase 2b
+    system, the native planner's default route) through the fused CG on
+    the card: converged within phase 2b's error gate (1e-5), K1 once and K2
+    once per device iteration (unchanged from the COO route's system), and
+    the COO route's iterations."""
+    from partitionedarrays_jl_tpu_torch import native
+
+    _need_card()
+    n, be = 48, pt.GPUBackend()
+
+    def solve(fast):
+        monkeypatch.setattr(native, "STENCIL_FAST", fast)
+        A, b, xe, x0 = pt.prun(lambda parts: pt.assemble_poisson(parts, (n, n, n)), be, (2, 2, 2))
+        dia.reset_launches()
+        x, info = pt.cg(A, b, x0=x0, tol=1e-8)
+        torch.cuda.synchronize()
+        err = float((x - xe).norm() / xe.norm())
+        return info, dict(dia.LAUNCHES), err
+
+    info, launches, err = solve(True)
+    info_c, launches_c, err_c = solve(False)
+    dev_it = info["device_loop"]["device_iterations"]
+    assert info["converged"] and info["cg_body"] == "fused" and err < 1e-5
+    assert launches["dia_coded_spmv"] == 1 and launches["dia_coded_spmv_pfold"] == dev_it
+    assert launches_c["dia_coded_spmv_pfold"] == info_c["device_loop"]["device_iterations"]
+    assert info["iterations"] == info_c["iterations"] and abs(err - err_c) < 1e-10
+
+
 #: hierarchies whose stencil levels the box stencil kernel is held on: one
 #: part, stacked equal and unequal boxes, a 2-D grid; one-part boxes that
 #: cross the tiled form's tile and plane-chunk edges (77x66x70: 66 rows

@@ -385,6 +385,10 @@ def _device_elastic_run(d, after=2, every=5):
     (2, 2, 2), part 6 lost at the third chunk's host exchange."""
     def driver(parts):
         A, b, xe, x0 = pt.assemble_poisson(parts, (8, 8, 8))
+        # the column exchanger is built before the faults are armed, so
+        # `after` counts the solve's exchanges alone (the COO-free assembly
+        # builds none; the COO route's b product built it)
+        A.cols.exchanger
         with elastic.configure(enabled=True), pt.inject_faults(f"part_loss@part=6,after={after}", seed=1):
             x, info = pt.solve_with_recovery(A, b, x0=x0, checkpoint_dir=d, every=every, tol=TOL)
         # the cold solve a fresh caller runs on freshly repartitioned

@@ -3,10 +3,12 @@ against the JAX package's.
 
 * `assemble_heat` bit for bit: the gathered step operator B, the
   decoupled steady rhs, the interior mask, the start and the steady
-  solution, on (6,6)/(2,2) and (8,8,8)/(2,2,2). The JAX package assembles
-  the Poisson fixture on its COO path (``PA_TPU_STENCIL_FAST=0``, the path
-  the port has): its native box path numbers the ghost columns in another
-  order, which reorders the A_oh terms each row of b folds.
+  solution, on (6,6)/(2,2) and (8,8,8)/(2,2,2), on both routes of the
+  Poisson fixture: the port's COO route (``native.STENCIL_FAST`` off)
+  against the JAX package's (``PA_TPU_STENCIL_FAST=0``), and the port's
+  COO-free box route against the JAX package's (``-fast``). The two routes
+  number the ghost columns in other orders, which reorders the A_oh terms
+  each row of b folds.
 * The march at (8,8,8)/(2,2,2), dt 0.5, 30 steps: the per-step GMG-PCG
   iterations of the JAX package's on the sequential backends and on the
   device paths (``GPUBackend(device="cpu")`` against ``pa.tpu``); the
@@ -21,17 +23,12 @@ import pytest
 import partitionedarrays_jl_tpu as pa
 import partitionedarrays_jl_tpu_torch as pt
 from partitionedarrays_jl_tpu.models import heat_transient as jax_heat
+from partitionedarrays_jl_tpu_torch import native
 from partitionedarrays_jl_tpu_torch.parallel import gpu_gmg
 from partitionedarrays_jl_tpu_torch.parallel.gpu import GPUBackend
 
 CPU = GPUBackend(device="cpu")
 MARCH = {"ns": (8, 8, 8), "dt": 0.5, "nsteps": 30}
-
-
-@pytest.fixture
-def coo_path(monkeypatch):
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
-    yield
 
 
 def _bits(a):
@@ -47,8 +44,14 @@ def _assembled(parts, m, assemble, ns):
     ]
 
 
-@pytest.mark.parametrize("ns,grid", [((6, 6), (2, 2)), ((8, 8, 8), (2, 2, 2))], ids=["6x6/2x2", "8^3/2^3"])
-def test_assemble_heat_bitwise(coo_path, ns, grid):
+_CASES = [((6, 6), (2, 2), "6x6/2x2"), ((8, 8, 8), (2, 2, 2), "8^3/2^3")]
+
+
+@pytest.mark.parametrize("ns,grid,fast", [pytest.param(n, g, False, id=i) for n, g, i in _CASES]
+                         + [pytest.param(n, g, True, id=f"{i}-fast") for n, g, i in _CASES])
+def test_assemble_heat_bitwise(monkeypatch, ns, grid, fast):
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    monkeypatch.setattr(native, "STENCIL_FAST", fast)
     want = pa.prun(_assembled, pa.sequential, grid, pa, jax_heat.assemble_heat, ns)
     got = pt.prun(_assembled, pt.sequential, grid, pt, pt.assemble_heat, ns)
     assert got == want

@@ -34,7 +34,7 @@ from partitionedarrays_jl_tpu.analysis import plan_verifier as jpv
 from partitionedarrays_jl_tpu.parallel.health import PlanSoundnessError as JaxPlanSoundnessError
 from partitionedarrays_jl_tpu.parallel.tpu import DeviceExchangePlan as JaxDeviceExchangePlan
 from partitionedarrays_jl_tpu.parallel.tpu import DeviceLayout as JaxDeviceLayout
-from partitionedarrays_jl_tpu_torch import telemetry
+from partitionedarrays_jl_tpu_torch import native, telemetry
 from partitionedarrays_jl_tpu_torch.analysis import plan_verifier as pv
 from partitionedarrays_jl_tpu_torch.parallel.gpu import (
     DeviceExchangePlan, DeviceLayout, GPUBackend, device_exchange_plan, device_layout,
@@ -97,12 +97,13 @@ def test_check_plan_raises_typed_with_diagnostics():
     assert telemetry.counter("events.plan_defect") == before + len(diag["checks"])
 
 
-def test_fixture_format_matches_the_jax_package(monkeypatch):
+def test_fixture_format_matches_the_jax_package(monkeypatch, fast=False):
     """`exchanger_fixture` of the port's plan is the JAX package's fixture of
-    its plan on the same system (the JAX package on its COO path, whose
-    first-touch ghost numbering the port's assembly keeps), and loads back
-    sound."""
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+    its plan on the same system, both on one assembly route (the COO route's
+    first-touch ghost numbering, or the COO-free route's sorted face slabs),
+    and loads back sound."""
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    monkeypatch.setattr(native, "STENCIL_FAST", fast)
 
     def port(parts):
         A = pt.assemble_poisson(parts, (6, 6))[0]
@@ -116,6 +117,11 @@ def test_fixture_format_matches_the_jax_package(monkeypatch):
     assert mine == theirs
     ex, parts, ref, _ = pv.load_exchanger_fixture(mine)
     assert pv.verify_exchanger(ex, parts, referenced=ref) == []
+
+
+def test_fixture_format_matches_the_jax_package_fast(monkeypatch):
+    """The same on the COO-free route of both packages."""
+    test_fixture_format_matches_the_jax_package(monkeypatch, fast=True)
 
 
 def _corrupt_receive_collision(plan, trash):

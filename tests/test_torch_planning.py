@@ -25,12 +25,14 @@ def _same(got, want):
 
 def _dias(A):
     """Each part's (D, no) per-diagonal values, as `DeviceMatrix._detect_dia`
-    builds them, with its owned row count."""
+    builds them on its dense path (`_dense_dia`; the fused analysis builds
+    none), with its owned row count."""
     oo = A.owned_owned_values.part_values()
     noids = np.array([i.num_oids for i in A.rows.partition.part_values()])
     det = DeviceMatrix._detect_dia(A, oo, len(oo), noids, int(noids.max()))
     assert det is not None
-    return [(det["dia"][p], int(noids[p])) for p in range(len(oo))]
+    dia = DeviceMatrix._dense_dia(oo, len(oo), int(noids.max()), det["offsets"])
+    return [(dia[p], int(noids[p])) for p in range(len(oo))]
 
 
 def _systems(parts):

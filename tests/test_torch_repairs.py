@@ -8,7 +8,9 @@ the CPU:
   where the box plan sums in direction order and the generic plan in colour
   round order;
 * ``assemble_poisson`` / ``assemble_cartesian_stencil(decoupled=True)`` —
-  bit for bit the JAX package's COO path (``PA_TPU_STENCIL_FAST=0``);
+  bit for bit the JAX package's, on the COO route (the port's
+  ``native.STENCIL_FAST`` off, ``PA_TPU_STENCIL_FAST=0``) and on the
+  COO-free box route (``fast``);
 * ``PSparseMatrix(exchanger=)``, ``make_chebyshev_fn(leg=)``,
   ``GMGLevel(P=, R=)`` and ``make_cg_fn(rhs_batch=)``;
 * ``gpu.EXCHANGES["rounds"]`` — a box exchange adds one round a direction
@@ -105,14 +107,25 @@ def _assembled(parts, m, ns, dtype, stencil):
     return [_bits(M.indptr), _bits(M.indices), _bits(M.data)] + [_bits(m.gather_pvector(v)) for v in (b, xe, x0)]
 
 
+def _route(monkeypatch, fast):
+    """Both packages on one assembly route: COO, or the COO-free box route."""
+    from partitionedarrays_jl_tpu_torch import native
+
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    monkeypatch.setattr(native, "STENCIL_FAST", fast)
+
+
+_DECOUPLED_CASES = [((8, 8, 8), (2, 2, 2), "8^3/2^3"), ((9, 7), (2, 2), "9x7/2x2"), ((13,), (3,), "13/3")]
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("ns,grid", [((8, 8, 8), (2, 2, 2)), ((9, 7), (2, 2)), ((13,), (3,))],
-                         ids=["8^3/2^3", "9x7/2x2", "13/3"])
-def test_assemble_poisson_decoupled_bitwise(monkeypatch, ns, grid, dtype):
+@pytest.mark.parametrize("ns,grid,fast", [pytest.param(n, g, False, id=i) for n, g, i in _DECOUPLED_CASES]
+                         + [pytest.param(n, g, True, id=f"{i}-fast") for n, g, i in _DECOUPLED_CASES])
+def test_assemble_poisson_decoupled_bitwise(monkeypatch, ns, grid, dtype, fast):
     from partitionedarrays_jl_tpu.models import poisson_fdm as jfdm
     from partitionedarrays_jl_tpu_torch.models import poisson_fdm as tfdm
 
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+    _route(monkeypatch, fast)
     want = pa.prun(_assembled, pa.sequential, grid, jfdm_ns(jfdm, pa), ns, dtype, False)
     got = pt.prun(_assembled, pt.sequential, grid, jfdm_ns(tfdm, pt), ns, dtype, False)
     assert got == want
@@ -122,11 +135,11 @@ def test_assemble_poisson_decoupled_bitwise(monkeypatch, ns, grid, dtype):
     assert _bits(plain) != got[2]
 
 
-def test_assemble_cartesian_stencil_decoupled_bitwise(monkeypatch):
+def test_assemble_cartesian_stencil_decoupled_bitwise(monkeypatch, fast=False):
     from partitionedarrays_jl_tpu.models import poisson_fdm as jfdm
     from partitionedarrays_jl_tpu_torch.models import poisson_fdm as tfdm
 
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+    _route(monkeypatch, fast)
     want = pa.prun(_assembled, pa.sequential, (2, 2), jfdm_ns(jfdm, pa), (10, 9), np.float64, True)
     got = pt.prun(_assembled, pt.sequential, (2, 2), jfdm_ns(tfdm, pt), (10, 9), np.float64, True)
     assert got == want
@@ -141,6 +154,11 @@ class jfdm_ns:
         self.assemble_cartesian_stencil = fdm.assemble_cartesian_stencil
         self.gather_psparse = pkg.gather_psparse
         self.gather_pvector = pkg.gather_pvector
+
+
+def test_assemble_cartesian_stencil_decoupled_bitwise_fast(monkeypatch):
+    """The same on the COO-free route of both packages."""
+    test_assemble_cartesian_stencil_decoupled_bitwise(monkeypatch, fast=True)
 
 
 def test_psparse_exchanger_keyword():

@@ -137,7 +137,7 @@ def test_interop_round_trip(geometry):
 def _port_sources():
     files = sorted((ROOT / "partitionedarrays_jl_tpu_torch").rglob("*.py"))
     tools = ("time_coded_kernels.py", "run_phase_4l.py", "run_phase_4m.py", "run_phase_4n.py", "run_phase_4o.py",
-             "time_sstep_forms.py", "probe_eigh_capture.py", "time_sdc_trip.py")
+             "time_sstep_forms.py", "probe_eigh_capture.py", "time_sdc_trip.py", "time_planning.py")
     return files + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / t for t in tools]
 
 

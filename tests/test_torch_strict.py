@@ -62,7 +62,7 @@ from partitionedarrays_jl_tpu.parallel.tpu import device_matrix as jax_device_ma
 from partitionedarrays_jl_tpu.parallel.tpu import make_spmv_fn as jax_make_spmv_fn
 from partitionedarrays_jl_tpu.utils.helpers import pairwise_sum as jax_pairwise_sum
 import partitionedarrays_jl_tpu_torch as pt
-from partitionedarrays_jl_tpu_torch import interop
+from partitionedarrays_jl_tpu_torch import interop, native
 from partitionedarrays_jl_tpu_torch.ops import irregular as irr
 from partitionedarrays_jl_tpu_torch.ops.sparse import CSRMatrix, csr_spmv
 from partitionedarrays_jl_tpu_torch.parallel import gpu_loop as gl
@@ -73,14 +73,19 @@ CPU = GPUBackend(device="cpu")
 
 
 @pytest.fixture
-def strict_env(monkeypatch):
-    """The JAX package in strict mode, assembling the Poisson operator on
-    its COO path, the one the port has: its box fast path
-    (``PA_TPU_STENCIL_FAST``, native code) numbers each part's ghost
-    columns in face-slab order instead of first touch, which reorders the
-    A_oh terms a strict row folds (the same values, other bits)."""
+def strict_env(monkeypatch, request):
+    """The JAX package in strict mode, both packages assembling the Poisson
+    operator on one route: the COO route (the port's ``native.STENCIL_FAST``
+    off, ``PA_TPU_STENCIL_FAST=0``) or the COO-free box route (``fast``).
+    The box route numbers each part's ghost columns in face-slab order
+    instead of first touch, which reorders the A_oh terms a strict row
+    folds (the same values, other bits), so the two packages must agree
+    on the route. The route is the test's indirect parameter (COO by
+    default)."""
+    fast = getattr(request, "param", False)
     monkeypatch.setenv("PA_TPU_STRICT_BITS", "1")
-    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "0")
+    monkeypatch.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    monkeypatch.setattr(native, "STENCIL_FAST", fast)
     yield
 
 
@@ -106,7 +111,15 @@ def _port_fdm(parts, ns, solver):
     return pt.gather_pvector(x), info
 
 
-@pytest.mark.parametrize("ns", [(6, 6, 6), (9, 7, 8)], ids=["6^3", "9x7x8"])
+def _routes(cases):
+    """``(strict_env, *case)`` params over both routes: each case's COO id as
+    it was, and ``-fast`` for the COO-free route."""
+    return [pytest.param(False, *c, id=i) for *c, i in cases] + [
+        pytest.param(True, *c, id=f"{i}-fast") for *c, i in cases]
+
+
+@pytest.mark.parametrize("strict_env,ns", _routes([((6, 6, 6), "6^3"), ((9, 7, 8), "9x7x8")]),
+                         indirect=["strict_env"])
 def test_strict_cg_bitwise_three_ways(strict_env, ns):
     """The gate on the port: GPU backend (CPU), port sequential and JAX
     sequential strict CG agree bit for bit (iterations, history, x)."""
@@ -135,6 +148,12 @@ def test_strict_pcg_bitwise(strict_env):
     assert itj == info_s["iterations"] == info_g["iterations"]
     assert _bits(hj) == _bits(info_s["residuals"]) == _bits(info_g["residuals"])
     assert _bits(xj) == _bits(xs) == _bits(xg)
+
+
+@pytest.mark.parametrize("strict_env", [True], ids=["fast"], indirect=True)
+def test_strict_pcg_bitwise_fast(strict_env):
+    """`test_strict_pcg_bitwise` with both packages on the COO-free route."""
+    test_strict_pcg_bitwise(strict_env)
 
 
 @pytest.mark.parametrize("body", ["fused", "pipelined"])
@@ -204,7 +223,14 @@ def test_strict_spmv_bitwise_jax(strict_env):
     assert _bits(y_dev) == _bits(y_host) == _bits(y_jax)
 
 
-@pytest.mark.parametrize("m,n", [(7, 9), (40, 33), (1, 1)])
+@pytest.mark.parametrize("strict_env", [True], ids=["fast"], indirect=True)
+def test_strict_spmv_bitwise_jax_fast(strict_env):
+    """`test_strict_spmv_bitwise_jax` with both packages on the COO-free route."""
+    test_strict_spmv_bitwise_jax(strict_env)
+
+
+@pytest.mark.parametrize("strict_env,m,n", _routes([(7, 9, "7-9"), (40, 33, "40-33"), (1, 1, "1-1")]),
+                         indirect=["strict_env"])
 def test_strict_csr_spmv_bitwise_jax(strict_env, m, n):
     """The port's strict host csr_spmv (the ELL fold) against the JAX
     package's on one random CSR, with alpha/beta and signed zeros."""
@@ -319,22 +345,27 @@ def _close(x, hist, x_ref, hist_ref):
     np.testing.assert_allclose(hist, hist_ref, rtol=0, atol=GMG_STRICT_RTOL * hist_ref[0])
 
 
-@pytest.fixture(scope="module", params=sorted(GMG_STRICT_CASES))
+@pytest.fixture(scope="module", params=[(k, False) for k in sorted(GMG_STRICT_CASES)]
+                + [(k, True) for k in sorted(GMG_STRICT_CASES)],
+                ids=sorted(GMG_STRICT_CASES) + [f"{k}-fast" for k in sorted(GMG_STRICT_CASES)])
 def strict_gmg_case(request):
     """Both packages' strict GMG-PCG on (2,2,2) parts, decoupled,
     coarse_threshold=30: the JAX package on ``pa.tpu`` and ``pa.sequential``,
-    the port on ``GPUBackend(device="cpu")`` and its sequential backend."""
-    ns = GMG_STRICT_CASES[request.param]
+    the port on ``GPUBackend(device="cpu")`` and its sequential backend, both
+    assembling on the COO route or (``-fast``) the COO-free one."""
+    case, fast = request.param
+    ns = GMG_STRICT_CASES[case]
     mp = pytest.MonkeyPatch()
     mp.setenv("PA_TPU_STRICT_BITS", "1")
-    mp.setenv("PA_TPU_STENCIL_FAST", "0")
+    mp.setenv("PA_TPU_STENCIL_FAST", "1" if fast else "0")
+    mp.setattr(native, "STENCIL_FAST", fast)
     try:
         jax = {"gpu": pa.prun(_jax_strict_gmg, pa.tpu, (2, 2, 2), ns),
                "seq": pa.prun(_jax_strict_gmg, pa.sequential, (2, 2, 2), ns)}
+        port = {"gpu": pt.prun(_port_strict_gmg, CPU, (2, 2, 2), ns),
+                "seq": pt.prun(_port_strict_gmg, pt.sequential, (2, 2, 2), ns)}
     finally:
         mp.undo()
-    port = {"gpu": pt.prun(_port_strict_gmg, CPU, (2, 2, 2), ns),
-            "seq": pt.prun(_port_strict_gmg, pt.sequential, (2, 2, 2), ns)}
     return jax, port
 
 
